@@ -1,0 +1,115 @@
+"""Disaggregated memory pools: the engine-level objects.
+
+Port of ``src/repro/core/pools.py``.  ``KVCachePool`` owns every
+colocated model's non-FFN params and the shared physical KV page pool
+(the virtualizer); ``WeightsPool`` owns the ONE slab arena holding every
+model's FFN/MoE weights, with the host master copies packed beside it.
+In the port both pools live on one device; hidden states are the only
+tensors that cross between the two halves of a layer.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import split_exec
+from repro_torch.core.virtualizer import (DEFAULT_PAGE_BYTES, KVVirtualizer,
+                                          ModelView)
+from repro_torch.core.weight_pool import (DEFAULT_SLAB_BYTES, ModelArenaView,
+                                          OutOfSlabsError, WeightArena)
+
+
+@dataclass
+class PooledModel:
+    cfg: ModelConfig
+    kv_params: Dict            # embeddings, norms, attention (on the device)
+    view: ModelView            # how this model types the shared pages
+    w_view: ModelArenaView     # how its FFN tree maps onto arena slabs
+    arena: WeightArena         # the ONE shared weights arena
+    stage_fns: split_exec.StageFns
+
+
+class WeightsPool:
+    """Consolidated FFN weights of all colocated cold models: ONE slab
+    arena sized by ``slot_budget`` plus the packed host masters."""
+
+    def __init__(self, device, *, slab_bytes: int = DEFAULT_SLAB_BYTES):
+        self.device = torch.device(device)
+        self.arena = WeightArena(slab_bytes=slab_bytes, device=self.device)
+
+    def add_model(self, name: str, cfg: ModelConfig, w_params: Dict) -> None:
+        if not split_exec.supports_split(cfg):
+            raise NotImplementedError(
+                f"{cfg.name}: the fused fallback families are not ported yet")
+        self.arena.add_model(name, cfg, w_params)
+
+    def finalize(self, slot_budget: Optional[int] = None, *,
+                 allocate: bool = True) -> None:
+        self.arena.finalize(slot_budget, allocate=allocate)
+
+
+def _to_device(tree: Dict, device: torch.device) -> Dict:
+    return {k: _to_device(v, device) if isinstance(v, dict)
+            else v.to(device) for k, v in tree.items()}
+
+
+class KVCachePool:
+    """Attention-side pool: non-FFN params + the shared paged KV space."""
+
+    def __init__(self, device, models: Dict[str, ModelConfig], *,
+                 page_budget: int, page_bytes: int = DEFAULT_PAGE_BYTES,
+                 pool_dtype=torch.bfloat16,
+                 allocate_device_pool: bool = True):
+        self.device = torch.device(device)
+        self.attn_params: Dict[str, Dict] = {}
+        self.virtualizer = KVVirtualizer(
+            models, page_budget=page_budget, page_bytes=page_bytes,
+            dtype=pool_dtype, allocate_device_pool=allocate_device_pool,
+            device=self.device)
+
+    def add_model(self, name: str, kv_params: Dict) -> None:
+        self.attn_params[name] = _to_device(kv_params, self.device)
+
+
+def build_pools(models: Dict[str, ModelConfig], params: Dict[str, Dict], *,
+                device, page_budget: int,
+                page_bytes: int = DEFAULT_PAGE_BYTES,
+                pool_dtype=torch.bfloat16,
+                slot_budget: Optional[int] = None,
+                slab_bytes: int = DEFAULT_SLAB_BYTES,
+                activate_resident: bool = True):
+    """Split every model's params across the two pools (one device).
+
+    ``params`` is CONSUMED: each model's FFN half is packed into the
+    arena's host masters and its entry is dropped from ``params``, so no
+    full tree outlives this call.  ``slot_budget=None`` sizes the arena so
+    every model fits resident at once; ``activate_resident`` activates
+    models in registration order until the budget is full.
+    """
+    kv_pool = KVCachePool(device, models, page_budget=page_budget,
+                          page_bytes=page_bytes, pool_dtype=pool_dtype)
+    w_pool = WeightsPool(device, slab_bytes=slab_bytes)
+    for name, cfg in models.items():
+        kv_tree, w_tree = split_exec.split_params(params.pop(name), cfg)
+        kv_pool.add_model(name, kv_tree)
+        w_pool.add_model(name, cfg, w_tree)
+        del kv_tree, w_tree                # free the device FFN tree now
+    w_pool.finalize(slot_budget)
+    if activate_resident:
+        for name in w_pool.arena.views:
+            try:
+                w_pool.arena.activate(name)
+            except OutOfSlabsError:
+                break                      # the rest activate on demand
+    pooled: Dict[str, PooledModel] = {}
+    for name, cfg in models.items():
+        view = kv_pool.virtualizer.views[name]
+        w_view = w_pool.arena.views[name]
+        pooled[name] = PooledModel(
+            cfg=cfg, kv_params=kv_pool.attn_params[name], view=view,
+            w_view=w_view, arena=w_pool.arena,
+            stage_fns=split_exec.make_stage_fns(cfg, view, w_view))
+    return kv_pool, w_pool, pooled

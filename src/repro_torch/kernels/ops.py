@@ -1,0 +1,44 @@
+"""The kernel layer's public entry points.
+
+The route is chosen by where the tensors live, not by a setting: a CPU
+tensor takes the plain PyTorch version, a CUDA tensor launches the
+hand-written kernel or raises (there is no fallback between the two).
+
+* ``paged_decode_attention`` / ``paged_mla_decode_attention`` — the CUDA
+  kernels of ``csrc/paged_attention.cu`` through their ctypes wrappers
+  (``repro_torch.kernels.paged_attention``);
+* ``paged_kv_write`` — the pool write, one indexed store (no kernel of
+  its own on either side).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.paged_attention import (  # noqa: F401  (re-export)
+    paged_decode_attention, paged_mla_decode_attention)
+
+
+def paged_kv_write(pool: torch.Tensor, kv_flat: torch.Tensor,
+                   pages: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """Store per-token KV rows into the flat page pool, IN PLACE.
+
+    pool:    [n_pages, page_elems]  the shared physical pool
+    kv_flat: [n, per_token_elems]   one row per token (one layer's K+V,
+                                    or MLA latent+rope)
+    pages:   [n] int physical page ids (< 0 = drop the row)
+    slots:   [n] int token slot within the page
+
+    Rows whose page id is negative (unmapped / inactive batch slots) are
+    dropped, as the reference's ``mode="drop"`` scatter drops them
+    (``src/repro/kernels/ops.py:79-104``).  Where the reference donates the
+    pool and rebinds the returned buffer, this writes into ``pool`` with
+    ``index_put_`` and returns the same tensor.  Selecting the kept rows
+    reads the mask back to the host (one synchronisation on a card).
+    """
+    e = kv_flat.shape[-1]
+    keep = pages >= 0
+    rows = pages[keep].long()
+    cols = (slots[keep].long() * e)[:, None] \
+        + torch.arange(e, device=pool.device)[None, :]
+    pool.index_put_((rows[:, None], cols), kv_flat[keep].to(pool.dtype))
+    return pool

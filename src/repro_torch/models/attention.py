@@ -1,0 +1,258 @@
+"""Attention for the split-execution path: GQA and MLA (MiniCPM3 style).
+
+Port of the parts of ``src/repro/models/attention.py`` the serving path
+runs: whole-sequence attention for prefill (``gqa_full`` / ``mla_full``
+with the reference's ``impl="xla"`` semantics) and one-token decode
+against the shared paged pool (``gqa_paged_decode`` /
+``mla_paged_decode``, ``attention.py:256-334``).  Decode writes the new
+token's KV into the pool IN PLACE and reads the KV back through the
+hand-written paged kernels, which take the flat pool as it is.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers
+
+NEG_INF = -1e30
+
+
+def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+    """Boolean [.., S, T] mask: True = attend."""
+    return q_pos[..., :, None] >= k_pos[..., None, :]
+
+
+# ---------------------------------------------------------------------------
+# Core grouped attention
+# ---------------------------------------------------------------------------
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: Optional[torch.Tensor], scale: float
+                   ) -> torch.Tensor:
+    """Grouped-query attention with f32 scores and softmax.
+
+    q: [B,S,H,D]; k/v: [B,T,KV,D]; mask: broadcastable to [B,KV,G,S,T].
+    Returns [B,S,H,Dv] in v's dtype.
+    """
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
+    if mask is not None:
+        scores = torch.where(mask, scores,
+                             torch.tensor(NEG_INF, device=scores.device))
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return out.reshape(B, S, H, v.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# GQA (covers MHA: KV==H, and MQA: KV==1)
+# ---------------------------------------------------------------------------
+
+def init_gqa(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": layers.dense_init(gen, (d, H * hd), dtype),
+        "wk": layers.dense_init(gen, (d, KV * hd), dtype),
+        "wv": layers.dense_init(gen, (d, KV * hd), dtype),
+        "wo": layers.dense_init(gen, (H * hd, d), dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=gen.device)
+        p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=gen.device)
+    return p
+
+
+def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, KV, hd)
+    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = layers.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def gqa_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+             positions: torch.Tensor
+             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Whole-sequence causal self-attention.
+
+    Returns (output [B,S,D_model], (k, v) [B,S,KV,hd] for the pool).
+    """
+    q, k, v = _project_qkv(p, cfg, x)
+    if cfg.rope_theta > 0:
+        sin, cos = layers.rope_sin_cos(positions, cfg.head_dim, cfg.rope_theta)
+        q = layers.apply_rope(q, sin, cos)
+        k = layers.apply_rope(k, sin, cos)
+    mask = causal_mask(positions, positions)[:, None, None, :, :]
+    out = attention_core(q, k, v, mask, cfg.head_dim ** -0.5)
+    B, S = x.shape[:2]
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"], (k, v)
+
+
+def _write_page(page_table: torch.Tensor, lengths: torch.Tensor,
+                tokens_per_page: int) -> torch.Tensor:
+    """Page id receiving each row's new token; -1 past the table horizon
+    (the reference reads that entry out of range and then discards it)."""
+    chunk = lengths // tokens_per_page
+    inside = chunk < page_table.shape[1]
+    idx = chunk.clamp(max=page_table.shape[1] - 1).long()
+    page = page_table.gather(1, idx[:, None])[:, 0]
+    return torch.where(inside, page, torch.full_like(page, -1))
+
+
+def gqa_paged_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                     pool: torch.Tensor, page_table: torch.Tensor,
+                     lengths: torch.Tensor, *, tokens_per_page: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token GQA decode against the shared paged KV pool.
+
+    x: [B,1,D]; pool: [n_pages, page_elems] (the untyped flat pool);
+    page_table: [B, max_pages] int32 for THIS layer (-1 = unmapped);
+    lengths: [B] current context length — the new token's K/V is written
+    at (page_table[b, lengths[b] // tpp], lengths[b] % tpp) and attention
+    reads lengths+1 tokens back through the page table.  The pool is
+    updated in place; (out [B,1,D], pool) is returned.
+    """
+    B = x.shape[0]
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    per_tok = 2 * KV * hd
+    pos = lengths[:, None]
+    q, k, v = _project_qkv(p, cfg, x)
+    if cfg.rope_theta > 0:
+        sin, cos = layers.rope_sin_cos(pos, cfg.head_dim, cfg.rope_theta)
+        q = layers.apply_rope(q, sin, cos)
+        k = layers.apply_rope(k, sin, cos)
+    kv_tok = torch.stack([k[:, 0], v[:, 0]], dim=1).reshape(B, per_tok)
+    page = _write_page(page_table, lengths, tokens_per_page)
+    kops.paged_kv_write(pool, kv_tok, page, lengths % tokens_per_page)
+    out = kops.paged_decode_attention(
+        q, pool, page_table, lengths + 1, tokens_per_page=tokens_per_page,
+        n_kv=KV, scale=cfg.head_dim ** -0.5)
+    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
+    return out @ p["wo"], pool
+
+
+# ---------------------------------------------------------------------------
+# MLA — Multi-head Latent Attention (DeepSeek-V2 / MiniCPM3)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    p = {}
+    if m.q_lora_rank:
+        p["wdq"] = layers.dense_init(gen, (d, m.q_lora_rank), dtype)
+        p["q_ln"] = torch.zeros((m.q_lora_rank,), dtype=dtype,
+                                device=gen.device)
+        p["wuq"] = layers.dense_init(gen, (m.q_lora_rank, H * qk_dim), dtype)
+    else:
+        p["wuq"] = layers.dense_init(gen, (d, H * qk_dim), dtype)
+    p["wdkv"] = layers.dense_init(
+        gen, (d, m.kv_lora_rank + m.qk_rope_head_dim), dtype)
+    p["kv_ln"] = torch.zeros((m.kv_lora_rank,), dtype=dtype,
+                             device=gen.device)
+    p["wuk"] = layers.dense_init(
+        gen, (m.kv_lora_rank, H * m.qk_nope_head_dim), dtype)
+    p["wuv"] = layers.dense_init(gen, (m.kv_lora_rank, H * m.v_head_dim),
+                                 dtype)
+    p["wo"] = layers.dense_init(gen, (H * m.v_head_dim, d), dtype)
+    return p
+
+
+def _mla_queries(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """Returns (q_nope [B,S,H,nope], q_rope [B,S,H,rope]) with RoPE."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if m.q_lora_rank:
+        cq = layers.rms_norm(x @ p["wdq"], p["q_ln"], cfg.norm_eps)
+        q = (cq @ p["wuq"]).reshape(B, S, H, qk_dim)
+    else:
+        q = (x @ p["wuq"]).reshape(B, S, H, qk_dim)
+    q_nope = q[..., : m.qk_nope_head_dim]
+    q_rope = q[..., m.qk_nope_head_dim:]
+    sin, cos = layers.rope_sin_cos(positions, m.qk_rope_head_dim,
+                                   cfg.rope_theta)
+    return q_nope, layers.apply_rope(q_rope, sin, cos)
+
+
+def _mla_latent(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor):
+    """Compressed KV: (latent [B,S,r] post-norm, k_rope [B,S,rope]
+    post-RoPE) — together the entire KV cache of a token."""
+    m = cfg.mla
+    ckv = x @ p["wdkv"]
+    latent = layers.rms_norm(ckv[..., : m.kv_lora_rank], p["kv_ln"],
+                             cfg.norm_eps)
+    k_rope = ckv[..., m.kv_lora_rank:]
+    sin, cos = layers.rope_sin_cos(positions, m.qk_rope_head_dim,
+                                   cfg.rope_theta)
+    k_rope = layers.apply_rope(k_rope[:, :, None, :], sin, cos)[:, :, 0, :]
+    return latent, k_rope
+
+
+def mla_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+             positions: torch.Tensor
+             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Whole-sequence MLA in the expanded (prefill) form."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    q_nope, q_rope = _mla_queries(p, cfg, x, positions)
+    latent, k_rope = _mla_latent(p, cfg, x, positions)
+    k_nope = (latent @ p["wuk"]).reshape(B, S, H, m.qk_nope_head_dim)
+    v = (latent @ p["wuv"]).reshape(B, S, H, m.v_head_dim)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    mask = causal_mask(positions, positions)[:, None, None, :, :]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.qk_rope_head_dim)], dim=-1)
+    out = attention_core(q, k, v, mask, scale)
+    out = out.reshape(B, S, H * m.v_head_dim)
+    return out @ p["wo"], (latent, k_rope)
+
+
+def mla_paged_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                     pool: torch.Tensor, page_table: torch.Tensor,
+                     lengths: torch.Tensor, *, tokens_per_page: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token absorbed-MLA decode against the shared paged KV pool.
+
+    The per-token page row is [latent (r) | rope key (rp)] — the same
+    untyped pool the GQA models page into, reinterpreted (Type II).
+    """
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    pos = lengths[:, None]
+    q_nope, q_rope = _mla_queries(p, cfg, x, pos)
+    latent_new, rope_new = _mla_latent(p, cfg, x, pos)
+    kv_tok = torch.cat([latent_new[:, 0], rope_new[:, 0]], dim=-1)
+    page = _write_page(page_table, lengths, tokens_per_page)
+    kops.paged_kv_write(pool, kv_tok, page, lengths % tokens_per_page)
+    # absorb W_uk into q; score against [latent | rope] rows directly
+    wuk = p["wuk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wuk)
+    q_cat = torch.cat([q_lat, q_rope], dim=-1)            # [B,1,H,r+rp]
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    ctx = kops.paged_mla_decode_attention(
+        q_cat, pool, page_table, lengths + 1,
+        tokens_per_page=tokens_per_page, latent_dim=m.kv_lora_rank,
+        scale=scale)
+    wuv = p["wuv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    out = torch.einsum("bshr,rhv->bshv", ctx, wuv)
+    out = out.reshape(B, 1, H * m.v_head_dim).to(x.dtype)
+    return out @ p["wo"], pool

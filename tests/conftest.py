@@ -14,3 +14,8 @@ try:
 except ImportError:
     import _hypothesis_fallback
     _hypothesis_fallback.install()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips where there is none")
