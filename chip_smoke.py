@@ -8,32 +8,47 @@ other than 0) if any phase fails:
 
 1. card    — prints the card's name and power limit (nvidia-smi) and
              turns TF32 off for float32 matmuls and convolutions;
-2. build   — compiles the paged attention kernels from
-             ``src/repro_torch/kernels/csrc`` with nvcc and loads them;
-3. kernels — holds each kernel against its plain PyTorch version at the
-             head geometries of the three colocated models (bf16 within
-             2e-2, float32 within 2e-5 on a small shape), with ragged
-             lengths, unmapped (-1) table entries and NaN garbage beyond
-             every length; then times kernel, plain version and one
-             ``scaled_dot_product_attention`` call over the gathered KV
-             (a yardstick only: the port never calls it) at contexts 1k
-             and 8k, B=1 and B=4, beside the bandwidth bound;
+2. build   — compiles every kernel source of
+             ``src/repro_torch/kernels/csrc`` with nvcc (one process
+             each, all started together), loads them and prints each
+             one's ``-Xptxas -v`` report;
+3. kernels — holds each kernel against its plain PyTorch version:
+             the paged decode kernels at the head geometries of the three
+             colocated models (bf16 within 2e-2, float32 within 2e-5 on
+             a small shape), with ragged lengths, unmapped (-1) table
+             entries and NaN garbage beyond every length; flash prefill,
+             contiguous decode (ragged lengths, NaN past them) and the
+             SSD scan (float32 within 1e-3, bf16 ``y`` within 2e-2, with
+             and without ``h0``) at the zamba2 / mamba2 geometries; then
+             times kernel, plain version and, for attention, one
+             ``scaled_dot_product_attention`` call on the same data (a
+             yardstick only: the port never calls it), beside the bound;
 4. small   — float32 smoke-size models on the card against the CPU
-             (plain versions): prefill and one decode step give the same
-             logits within 1e-4;
+             (plain versions): the colocated set and zamba2 + mamba2;
+             prefill and one decode step give the same logits within
+             1e-4;
 5. serve   — ``CrossPoolEngine(device="cuda")`` over the paper's three
              colocated models at their published widths, bf16, depths
              cut to ``FULL_WIDTH_DEPTHS``: 8 requests, prompts of
              200-900 tokens, 32 new tokens each, K=4.  Every request must
              finish with its token count, every page must return, no
-             logit may be NaN, and both kernels must have launched.
+             logit may be NaN, and both paged kernels must have launched;
+6. serve   — the same engine over zamba2-1.2b and mamba2-130m at their
+   fallback  FULL published configs (no depth cut), bf16, through the
+             dense-cache fallback path: 8 requests (4 per model), the
+             same prompts and outputs, K=1.  The same checks, and flash
+             prefill (6 per zamba2 prompt), the SSD scan (32 per zamba2
+             and 24 per mamba2 prompt) and contiguous decode (6 per
+             zamba2 decode step) must have launched that many times.
 
-It prints a JSON line with every kernel's numbers, then, as its last
-line, ``{"ok": true, "device": {...}}``.  The full kernel table, the
-serve figures and the profile go to ``build/chip_smoke.json``.
+Launch counts are set to 0 just before each serve phase and read just
+after it.  It prints a JSON line with every kernel's numbers, then, as
+its last line, ``{"ok": true, "device": {...}}``.  The full kernel table,
+the serve figures and the profiles go to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -50,10 +65,31 @@ CONTEXTS = (1024, 8192)
 BATCHES = (1, 4)
 SERVE_K = 4
 SERVE_MAX_NEW = 32
+FALLBACK_MODELS = ("zamba2-1.2b", "mamba2-130m")
+#: every kernel entry point, by the name its launch counter is read under
+KERNELS = ("paged_decode_attention", "paged_mla_decode_attention",
+           "flash_attention", "decode_attention", "ssd_scan")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def reset_launches(kops) -> None:
+    for name in KERNELS:
+        getattr(kops, name).launches = 0
+
+
+def read_launches(kops) -> dict:
+    return {name: getattr(kops, name).launches for name in KERNELS}
+
+
+def bound_ms(nbytes: float, flops: float):
+    """(least time in ms, what bounds it): bytes over the HBM rate vs
+    flops over the bf16 tensor-core peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -193,9 +229,7 @@ def bound(case, B, ctx, max_pages, itemsize):
               + B * case.H * (case.q_dim + case.out_dim) * itemsize
               + B * max_pages * 4 + B * 4)
     flops = 2 * B * case.H * ctx * (case.q_dim + case.out_dim)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(nbytes, flops)
 
 
 def kernel_phase(torch, kops, ref, cases):
@@ -243,6 +277,141 @@ def kernel_phase(torch, kops, ref, cases):
                     f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
                     f"bound {b_ms:.4f} ms ({b_by})")
                 del q, pool, table, lens
+    return errs, rows
+
+
+def close_or_raise(torch, what, got, want, tol) -> float:
+    """Max abs error of ``got`` against ``want``; raises past
+    ``tol + tol * |want|`` or on a non-finite output."""
+    got, want = got.float(), want.float()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: kernel output is not finite")
+    err = (got - want).abs()
+    if (err > tol + tol * want.abs()).any():
+        raise AssertionError(f"{what}: kernel disagrees with the plain "
+                             f"version (max abs err {err.max().item():.3g},"
+                             f" tolerance {tol})")
+    log(f"kernel check {what}: max abs err {err.max().item():.3g} "
+        f"(passes |err| <= {tol} + {tol} * |plain|)")
+    return err.max().item()
+
+
+def fallback_kernel_phase(torch, kops, ref, ssd_scan_chunked):
+    """Flash prefill, contiguous decode and the SSD scan at the fallback
+    path's geometries: checks, then times (bf16, the path's dtype)."""
+    from repro_torch.configs import get_config
+    zamba = get_config("zamba2-1.2b")
+    mamba = get_config("mamba2-130m")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    H, KV, D = zamba.n_heads, zamba.n_kv_heads, zamba.head_dim
+    errs, rows = {}, []
+
+    # flash prefill: zamba2 heads, S = T in {256, 1024}, B = 1
+    for S in (256, 1024):
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+            q, k, v = (randn(1, S, n, D, dtype=dtype) for n in (H, KV, KV))
+            e = close_or_raise(
+                torch, f"flash zamba2 S={S} {dtype}",
+                kops.flash_attention(q, k, v, scale=D ** -0.5),
+                ref.flash_attention(q, k, v, D ** -0.5), tol)
+            errs["flash_attention"] = max(errs.get("flash_attention", 0), e)
+        q, k, v = (randn(1, S, n, D) for n in (H, KV, KV))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pairs = S * (S + 1) // 2
+        b_ms, b_by = bound_ms(4 * S * H * D * 2, 4 * H * D * pairs)
+        rows.append(dict(
+            kernel="flash_attention", shape=f"zamba2 B=1 S={S} bf16",
+            ms=time_ms(torch, lambda: kops.flash_attention(
+                q, k, v, scale=D ** -0.5)),
+            plain_ms=time_ms(torch, lambda: ref.flash_attention(
+                q, k, v, D ** -0.5)),
+            library_ms=time_ms(torch, lambda: sdpa(
+                qt, kt, vt, is_causal=True, scale=D ** -0.5,
+                enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by))
+
+    # contiguous decode: zamba2 heads, T = 1024, B in {1, 4}
+    T = 1024
+    for B in (1, 4):
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+            q = randn(B, 1, H, D, dtype=dtype)
+            ck, cv = randn(B, T, KV, D, dtype=dtype), randn(B, T, KV, D,
+                                                            dtype=dtype)
+            lengths = [T, 517, 1, 300][:B]
+            for b, n in enumerate(lengths):
+                ck[b, n:] = float("nan")
+                cv[b, n:] = float("nan")
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            e = close_or_raise(
+                torch, f"decode zamba2 B={B} T={T} lengths {lengths} {dtype}",
+                kops.decode_attention(q, ck, cv, lens, scale=D ** -0.5),
+                ref.decode_attention(q, ck, cv, lens, D ** -0.5), tol)
+            errs["decode_attention"] = max(errs.get("decode_attention", 0), e)
+        q, ck, cv = randn(B, 1, H, D), randn(B, T, KV, D), randn(B, T, KV, D)
+        lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, ck, cv))
+        b_ms, b_by = bound_ms(2 * B * T * KV * D * 2 + 2 * B * H * D * 2
+                              + 4 * B, 4 * B * H * T * D)
+        rows.append(dict(
+            kernel="decode_attention", shape=f"zamba2 B={B} T={T} bf16",
+            ms=time_ms(torch, lambda: kops.decode_attention(
+                q, ck, cv, lens, scale=D ** -0.5)),
+            plain_ms=time_ms(torch, lambda: ref.decode_attention(
+                q, ck, cv, lens, D ** -0.5)),
+            library_ms=time_ms(torch, lambda: sdpa(
+                qt, kt, vt, scale=D ** -0.5, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by))
+
+    # SSD scan: zamba2 and mamba2 at S = 1024, chunk 256
+    S, L = 1024, 256
+    for label, cfg in (("zamba2", zamba), ("mamba2", mamba)):
+        s = cfg.ssm
+        Hs, P, G, N = s.n_heads(cfg.d_model), s.head_dim, s.n_groups, s.d_state
+        for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
+            for with_h0 in (False, True):
+                x = randn(1, S, Hs, P, dtype=dtype)
+                dt = torch.nn.functional.softplus(
+                    randn(1, S, Hs, dtype=torch.float32) - 2.0)
+                A = -torch.exp(torch.linspace(0.0, 2.77, Hs, device="cuda"))
+                Bm, Cm = randn(1, S, G, N, dtype=dtype), randn(
+                    1, S, G, N, dtype=dtype)
+                h0 = randn(1, Hs, P, N, dtype=torch.float32) \
+                    if with_h0 else None
+                y, h = kops.ssd_scan(x, dt, A, Bm, Cm, chunk=L, h0=h0)
+                wy, wh = ssd_scan_chunked(x, dt, A, Bm, Cm, chunk=L, h0=h0)
+                what = f"ssd {label} S={S} chunk {L} {dtype} h0={with_h0}"
+                e = close_or_raise(torch, what + " y", y, wy, tol)
+                close_or_raise(torch, what + " h", h, wh, 1e-3)
+                errs["ssd_scan"] = max(errs.get("ssd_scan", 0), e)
+        x = randn(1, S, Hs, P)
+        dt = torch.nn.functional.softplus(randn(1, S, Hs, dtype=torch.float32))
+        A = -torch.exp(torch.linspace(0.0, 2.77, Hs, device="cuda"))
+        Bm, Cm = randn(1, S, G, N), randn(1, S, G, N)
+        nbytes = (2 * S * Hs * P * 2 + S * Hs * 4 + Hs * 4 + 2 * S * G * N * 2
+                  + Hs * P * N * 4)
+        flops = Hs * (S // L) * (L * L * (N + P) + 4 * L * N * P)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        rows.append(dict(
+            kernel="ssd_scan", shape=f"{label} H={Hs} P={P} N={N} S={S} "
+                                     f"chunk {L} bf16",
+            ms=time_ms(torch, lambda: kops.ssd_scan(x, dt, A, Bm, Cm,
+                                                    chunk=L)),
+            plain_ms=time_ms(torch, lambda: ssd_scan_chunked(
+                x, dt, A, Bm, Cm, chunk=L)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    for r in rows:
+        lib = ("none (no single PyTorch call computes it)"
+               if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
+        log(f"time {r['kernel']} {r['shape']}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, sdpa {lib}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return errs, rows
 
 
@@ -306,46 +475,83 @@ def small_phase(torch):
                 f"{err:.3g} (tolerance 1e-4)")
 
 
-def serve_phase(torch, np, kops):
+def fallback_small_phase(torch):
+    """Float32 smoke zamba2 and mamba2 through the dense-cache path on the
+    card (flash prefill, SSD scan, contiguous decode) against the CPU
+    (plain versions): prefill and one decode step, logits within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+
+    prompt = torch.randint(0, 256, (2, 48), generator=torch.Generator()
+                           .manual_seed(7), dtype=torch.int32)
+    nxt = torch.tensor([3, 250], dtype=torch.int32)
+    lengths = torch.tensor([48, 30], dtype=torch.int32)
+    for i, name in enumerate(FALLBACK_MODELS):
+        model = build_model(get_smoke_config(name).replace(dtype="float32"))
+        params = model.init(torch.Generator().manual_seed(i))
+        out = {}
+        for device in ("cuda", "cpu"):
+            p = _tree_to(params, device)
+            cache = model.init_cache(2, 64, device)
+            first, _ = model.prefill(p, prompt.to(device), cache,
+                                     impl="flash", logit_index=40)
+            step, _ = model.decode_step(p, nxt.to(device), cache,
+                                        lengths.to(device), impl="paged")
+            out[device] = (first.cpu(), step.cpu())
+        for phase, got, want in zip(("prefill", "decode"), out["cuda"],
+                                    out["cpu"]):
+            err = (got - want).abs().max().item()
+            if not err <= 1e-4:
+                raise AssertionError(f"{name} {phase} logits: card vs CPU "
+                                     f"max abs err {err:.3g} > 1e-4")
+            log(f"small {name} {phase}: card vs CPU logits max abs err "
+                f"{err:.3g} (tolerance 1e-4)")
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def serve_phase(torch, np, kops, models, *, k, page_budget, label, check):
+    """``CrossPoolEngine(device="cuda")`` over ``models`` (bf16): 8
+    requests at time 0, prompts of 200-900 tokens, 32 new tokens each,
+    ``max_batch=4``, ``max_ctx=1024``, ``k`` tokens per dispatch.  Launch
+    counts are 0 just before the run and read just after it; ``check(
+    launches, stats, engine)`` adds the phase's own checks.  Returns
+    (launches, figures)."""
     from repro_torch.configs.base import EngineConfig
-    from repro_torch.launch.serve import FULL_WIDTH_DEPTHS, coloc_models
     from repro_torch.runtime.engine import CrossPoolEngine, EngineMode
     from repro_torch.runtime.observe import percentile
     from repro_torch.runtime.request import Request
 
-    models = coloc_models(full_width=True)
-    log("serve: published widths, depths cut to "
-        + ", ".join(f"{n} {d} layers" for n, d in FULL_WIDTH_DEPTHS.items()))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = CrossPoolEngine(
-        models, page_budget=16384, max_batch=4, max_ctx=1024, seed=0,
+        models, page_budget=page_budget, max_batch=4, max_ctx=1024, seed=0,
         device="cuda",
-        config=EngineConfig(mode=EngineMode(
-            decode_steps_per_dispatch=SERVE_K)))
+        config=EngineConfig(mode=EngineMode(decode_steps_per_dispatch=k)))
     torch.cuda.synchronize()
-    log(f"serve: engine built in {time.perf_counter() - t0:.1f} s "
-        f"(weights drawn on the card, arena "
-        f"{engine.arena.device_bytes() / 2**30:.2f} GiB, pool "
-        f"{engine.virt.page_budget * engine.virt.page_bytes / 2**20:.0f} "
-        f"MiB)")
+    arena = (f"arena {engine.arena.device_bytes() / 2**30:.2f} GiB"
+             if engine.arena is not None else "no arena")
+    pool_mib = engine.virt.page_budget * engine.virt.page_bytes / 2**20
+    pool = (f"pool {pool_mib:.0f} MiB" if engine.virt.pool is not None
+            else "no device page pool")
+    log(f"{label}: engine built in {time.perf_counter() - t0:.1f} s "
+        f"(weights drawn on the card, {arena}, {pool})")
     rng = np.random.default_rng(0)
     names = list(models)
     reqs = [Request(i, names[i % len(names)], int(rng.integers(200, 901)),
                     SERVE_MAX_NEW, 0.0) for i in range(8)]
     # the main path's run: launch counts start at 0 here
-    kops.paged_decode_attention.launches = 0
-    kops.paged_mla_decode_attention.launches = 0
+    reset_launches(kops)
     t0 = time.perf_counter()
     for r in reqs:
         engine.submit(r)
     stats = engine.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_decode_attention":
-                kops.paged_decode_attention.launches,
-                "paged_mla_decode_attention":
-                kops.paged_mla_decode_attention.launches}
+    launches = read_launches(kops)
     for r in reqs:
         if r.generated != r.max_new_tokens or \
                 len(r.output_ids) != r.max_new_tokens:
@@ -357,39 +563,70 @@ def serve_phase(torch, np, kops):
     bad = sum(int(r.nonfinite_logits) for r in engine.runners.values())
     if bad:
         raise AssertionError(f"{bad} non-finite logits")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
-    log(f"serve: {len(reqs)} requests, prompts "
+    check(launches, stats, engine)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{label}: {len(reqs)} requests, prompts "
         f"{[r.prompt_tokens for r in reqs]}, {stats.tokens_out} tokens in "
         f"{wall:.2f} s wall = {stats.tokens_out / wall:.1f} tokens/s")
-    log(f"serve: TBT p50 {percentile(stats.tbt, 50) * 1e3:.2f} ms, "
+    log(f"{label}: TBT p50 {percentile(stats.tbt, 50) * 1e3:.2f} ms, "
         f"p99 {percentile(stats.tbt, 99) * 1e3:.2f} ms; TTFT p50 "
         f"{percentile(stats.ttft, 50) * 1e3:.1f} ms")
     for model, B, bucket, dt in stats.prefill_times:
-        log(f"serve: prefill {model} B={B} bucket {bucket}: "
+        log(f"{label}: prefill {model} B={B} bucket {bucket}: "
             f"{dt * 1e3:.1f} ms")
-    log(f"serve: launches {launches}; max memory allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile = profile_decode_step(torch, engine, names)
-    return launches, dict(
-        profile=profile, tokens=stats.tokens_out, wall_s=wall,
+    log(f"{label}: launches {launches}; max memory allocated {peak:.2f} GiB")
+    # read before the profiled step, which adds requests to the same stats
+    figures = dict(
+        tokens=stats.tokens_out, wall_s=wall,
         tokens_per_s=stats.tokens_out / wall,
         tbt_p50_ms=percentile(stats.tbt, 50) * 1e3,
         tbt_p99_ms=percentile(stats.tbt, 99) * 1e3,
-        prefill=[dict(model=m, B=B, bucket=k, ms=dt * 1e3)
-                 for m, B, k, dt in stats.prefill_times],
-        max_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        ttft_p50_ms=percentile(stats.ttft, 50) * 1e3,
+        prefill=[dict(model=m, B=B, bucket=b, ms=dt * 1e3)
+                 for m, B, b, dt in stats.prefill_times],
+        max_memory_gib=peak)
+    figures["profile"] = profile_decode_step(torch, engine, names, k)
+    return launches, figures
 
 
-def profile_decode_step(torch, engine, names):
+def check_coloc(launches, stats, engine) -> None:
+    for name in ("paged_decode_attention", "paged_mla_decode_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the main path")
+
+
+def check_fallback(launches, stats, engine) -> None:
+    """Each fallback kernel launched exactly as often as the path runs
+    it: per zamba2 prompt one flash prefill per shared-attention group
+    and one SSD scan per SSM layer (mamba2: per layer), per zamba2 decode
+    step one contiguous decode per group."""
+    cfgs = {r.cfg.name: r.cfg for r in engine.runners.values()}
+    zamba, mamba = cfgs["zamba2-1.2b"], cfgs["mamba2-130m"]
+    rows = {n: sum(B for m, B, *_ in stats.prefill_times if m == n)
+            for n in cfgs}
+    steps = len(stats.step_times["zamba2-1.2b"])
+    want = {
+        "flash_attention": zamba.hybrid_groups * rows["zamba2-1.2b"],
+        "ssd_scan": (zamba.n_ssm_layers * rows["zamba2-1.2b"]
+                     + mamba.n_layers * rows["mamba2-130m"]),
+        "decode_attention": zamba.hybrid_groups * steps,
+    }
+    for name, n in want.items():
+        if launches[name] != n or n <= 0:
+            raise AssertionError(f"{name} launched {launches[name]} times on "
+                                 f"the fallback path, expected {n}")
+    log(f"serve fallback: launches as expected for {rows} prompt rows and "
+        f"{steps} zamba2 decode steps: {want}")
+
+
+def profile_decode_step(torch, engine, names, k):
     """Where one decode step's device time goes: 4 fresh requests (500
     prompt tokens each) are prefilled, then one engine step — a K-token
     block for every model — runs under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime.request import Request
 
-    reqs = [Request(100 + i, names[i % len(names)], 500, 2 * SERVE_K + 1,
+    reqs = [Request(100 + i, names[i % len(names)], 500, 2 * k + 1,
                     0.0) for i in range(4)]
     for r in reqs:
         engine.submit(r)
@@ -408,7 +645,7 @@ def profile_decode_step(torch, engine, names):
                if e.device_type.name == "CUDA" and e.self_device_time_total]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    log(f"profile: one decode step (K={SERVE_K}, 3 models): wall "
+    log(f"profile: one decode step (K={k}, {len(names)} models): wall "
         f"{wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({busy_ms / (wall * 1e3):.1%})")
     rows = []
@@ -428,10 +665,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    from repro_torch.configs import get_config
     from repro_torch.core.virtualizer import DEFAULT_PAGE_BYTES, make_view
+    from repro_torch.kernels import build
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels import paged_attention, ref
-    from repro_torch.launch.serve import coloc_models
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_chunked import ssd_scan_chunked
+    from repro_torch.launch.serve import FULL_WIDTH_DEPTHS, coloc_models
 
     # 1. card
     smi = subprocess.run(
@@ -445,14 +685,16 @@ def main() -> int:
         f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
-    # 2. build
+    # 2. build: every source at once
     t0 = time.perf_counter()
-    lib = paged_attention.build_library()
-    paged_attention.load_library()
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
-    log(lib.with_suffix(".so.log").read_text().strip())
+    libs = build.build_all()
+    log(f"build: {', '.join(p.name for p in libs.values())} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for src, lib in libs.items():
+        log(f"build log {src}:")
+        log(lib.with_suffix(".so.log").read_text().strip())
 
-    # 3. kernels, at the main path's geometries (bf16 pages of 16 KiB)
+    # 3. kernels, at the main paths' geometries (bf16 pages of 16 KiB)
     page_elems = DEFAULT_PAGE_BYTES // 2
     cases = []
     for name, cfg in coloc_models(full_width=True).items():
@@ -465,14 +707,30 @@ def main() -> int:
             cases.append(Case(name, "gqa", tpp, page_elems, H=cfg.n_heads,
                               KV=cfg.n_kv_heads, D=cfg.head_dim))
     errs, rows = kernel_phase(torch, kops, ref, cases)
+    f_errs, f_rows = fallback_kernel_phase(torch, kops, ref,
+                                           ssd_scan_chunked)
 
     # 4. small models, card against CPU
     small_phase(torch)
+    fallback_small_phase(torch)
 
-    # 5. serve the main path
-    launches, serve = serve_phase(torch, np, kops)
+    # 5. serve the colocated split path
+    log("serve: published widths, depths cut to "
+        + ", ".join(f"{n} {d} layers" for n, d in FULL_WIDTH_DEPTHS.items()))
+    launches, serve = serve_phase(
+        torch, np, kops, coloc_models(full_width=True), k=SERVE_K,
+        page_budget=16384, label="serve", check=check_coloc)
+    gc.collect()                 # request handles point back at the engine
+    torch.cuda.empty_cache()
 
-    source = "src/repro_torch/kernels/csrc/paged_attention.cu"
+    # 6. serve the dense-cache fallback path: full published configs
+    log(f"serve fallback: {', '.join(FALLBACK_MODELS)} at their full "
+        f"published configs, K=1")
+    f_launches, f_serve = serve_phase(
+        torch, np, kops, {n: get_config(n) for n in FALLBACK_MODELS}, k=1,
+        page_budget=32768, label="serve fallback", check=check_fallback)
+
+    csrc = "src/repro_torch/kernels/csrc/"
     main_shape = {"gqa": ("qwen3-moe-235b-a22b", 1024, 4),
                   "mla": ("minicpm3-4b", 1024, 4)}
     kernels = []
@@ -485,17 +743,36 @@ def main() -> int:
         row = next(r for r in rows if r["case"] == geom
                    and r["ctx"] == ctx and r["B"] == B)
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
+            "name": name, "route": "cuda",
+            "source": csrc + "paged_attention.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[kind], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": f"{geom} B={B} context {ctx} bf16"})
+    for name, source, replaces, shape in (
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:29",
+             "zamba2 B=1 S=1024 bf16"),
+            ("decode_attention", "paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:35",
+             "zamba2 B=4 T=1024 bf16"),
+            ("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:27",
+             "zamba2 H=64 P=64 N=64 S=1024 chunk 256 bf16")):
+        row = next(r for r in f_rows if r["kernel"] == name
+                   and r["shape"] == shape)
+        kernels.append({
+            "name": name, "route": "cuda", "source": csrc + source,
+            "replaces": replaces, "launches": f_launches[name],
+            "max_abs_err": f_errs[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": shape})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernel_times": rows, "kernels": kernels,
-         "serve": serve}, indent=1))
+        {"card": card, "kernel_times": rows + f_rows, "kernels": kernels,
+         "serve": serve, "serve_fallback": f_serve}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ caller) into torch tensors here.  The tree keeps its exact structure and
 JAX's ``[in, out]`` weight layout — the port multiplies ``x @ w`` as the
 reference does, so nothing is transposed.  bfloat16 leaves (numpy's
 ``ml_dtypes`` extension type) are carried over by their raw 16-bit words,
-so no value is rounded on the way.
+so no value is rounded on the way.  Each leaf keeps its own dtype: the
+SSM blocks' ``A_log``, ``D`` and ``dt_bias`` stay float32 inside a
+bfloat16 tree, as the reference keeps them.
 """
 from __future__ import annotations
 

@@ -6,6 +6,12 @@ colocated model's non-FFN params and the shared physical KV page pool
 model's FFN/MoE weights, with the host master copies packed beside it.
 In the port both pools live on one device; hidden states are the only
 tensors that cross between the two halves of a layer.
+
+The fused fallback families (ssm, hybrid) never enter the arena: they get
+``stage_fns=None``, their pool pages account for budget only, and their
+whole param tree, on the device once, is their ``kv_params``: the engine
+serves them from it with a dense per-model cache (``runtime/engine.py``,
+as the reference's ``pools.py:41-51,174-188``).
 """
 from __future__ import annotations
 
@@ -25,11 +31,14 @@ from repro_torch.core.weight_pool import (DEFAULT_SLAB_BYTES, ModelArenaView,
 @dataclass
 class PooledModel:
     cfg: ModelConfig
-    kv_params: Dict            # embeddings, norms, attention (on the device)
+    # on the device: embeddings, norms, attention (a fallback model's
+    # whole tree)
+    kv_params: Dict
     view: ModelView            # how this model types the shared pages
-    w_view: ModelArenaView     # how its FFN tree maps onto arena slabs
+    # how its FFN tree maps onto arena slabs (None: fallback families)
+    w_view: Optional[ModelArenaView]
     arena: WeightArena         # the ONE shared weights arena
-    stage_fns: split_exec.StageFns
+    stage_fns: Optional[split_exec.StageFns]     # None: fallback families
 
 
 class WeightsPool:
@@ -42,8 +51,8 @@ class WeightsPool:
 
     def add_model(self, name: str, cfg: ModelConfig, w_params: Dict) -> None:
         if not split_exec.supports_split(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: the fused fallback families are not ported yet")
+            raise ValueError(f"{cfg.name}: the fused fallback families "
+                             f"never enter the arena")
         self.arena.add_model(name, cfg, w_params)
 
     def finalize(self, slot_budget: Optional[int] = None, *,
@@ -83,21 +92,29 @@ def build_pools(models: Dict[str, ModelConfig], params: Dict[str, Dict], *,
                 activate_resident: bool = True):
     """Split every model's params across the two pools (one device).
 
-    ``params`` is CONSUMED: each model's FFN half is packed into the
+    ``params`` is CONSUMED: each split model's FFN half is packed into the
     arena's host masters and its entry is dropped from ``params``, so no
-    full tree outlives this call.  ``slot_budget=None`` sizes the arena so
-    every model fits resident at once; ``activate_resident`` activates
-    models in registration order until the budget is full.
+    full tree outlives this call; a fallback model's whole tree goes to
+    the device as its ``kv_params``.  The device page pool and the arena
+    are allocated only when some model runs split.  ``slot_budget=None``
+    sizes the arena so every split model fits resident at once;
+    ``activate_resident`` activates models in registration order until
+    the budget is full.
     """
+    any_split = any(split_exec.supports_split(c) for c in models.values())
     kv_pool = KVCachePool(device, models, page_budget=page_budget,
-                          page_bytes=page_bytes, pool_dtype=pool_dtype)
+                          page_bytes=page_bytes, pool_dtype=pool_dtype,
+                          allocate_device_pool=any_split)
     w_pool = WeightsPool(device, slab_bytes=slab_bytes)
     for name, cfg in models.items():
+        if not split_exec.supports_split(cfg):
+            kv_pool.add_model(name, params.pop(name))
+            continue
         kv_tree, w_tree = split_exec.split_params(params.pop(name), cfg)
         kv_pool.add_model(name, kv_tree)
         w_pool.add_model(name, cfg, w_tree)
         del kv_tree, w_tree                # free the device FFN tree now
-    w_pool.finalize(slot_budget)
+    w_pool.finalize(slot_budget, allocate=any_split)
     if activate_resident:
         for name in w_pool.arena.views:
             try:
@@ -107,9 +124,10 @@ def build_pools(models: Dict[str, ModelConfig], params: Dict[str, Dict], *,
     pooled: Dict[str, PooledModel] = {}
     for name, cfg in models.items():
         view = kv_pool.virtualizer.views[name]
-        w_view = w_pool.arena.views[name]
+        w_view = w_pool.arena.views.get(name)
         pooled[name] = PooledModel(
             cfg=cfg, kv_params=kv_pool.attn_params[name], view=view,
             w_view=w_view, arena=w_pool.arena,
-            stage_fns=split_exec.make_stage_fns(cfg, view, w_view))
+            stage_fns=(split_exec.make_stage_fns(cfg, view, w_view)
+                       if w_view is not None else None))
     return kv_pool, w_pool, pooled

@@ -1,20 +1,21 @@
-// Paged decode attention for Hopper (sm_90a): GQA and absorbed MLA.
+// Decode attention for Hopper (sm_90a): paged GQA, paged absorbed MLA and
+// GQA over a contiguous cache.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/paged_attention.py:
-//   * paged_gqa_decode  <- _paged_kernel      (:121, pallas_call :203)
-//   * paged_mla_decode  <- _paged_mla_kernel  (:225, pallas_call :304)
+//   * paged_gqa_decode       <- _paged_kernel      (:121, pallas_call :203)
+//   * paged_mla_decode       <- _paged_mla_kernel  (:225, pallas_call :304)
+//   * contiguous_gqa_decode  <- _decode_kernel     (:35,  pallas_call :110)
 //
-// What they compute (one new token per sequence, read back through the
-// KV virtualizer's page table):
+// What they compute (one new token per sequence):
 //   s(t)  = q . k_t                 for t < length (q arrives pre-scaled)
 //   out   = sum_t softmax(s)_t v_t  (online softmax, m / l / acc in f32)
-// with every guard of the TPU kernel: pages whose id is < 0 are skipped,
-// pages past `length` are never read, scores at positions >= length are
-// -1e30, value rows past `length` read as 0 (0 * garbage never makes NaN),
-// and a row with no valid position (l == 0) writes 0.
+// with every guard of the TPU kernels: pages whose id is < 0 are skipped,
+// positions past `length` are never read, scores at positions >= length
+// are -1e30, value rows past `length` read as 0 (0 * garbage never makes
+// NaN), and a row with no valid position (l == 0) writes 0.
 //
-// Layout.  Both kernels read the FLAT pool [n_pages, page_elems] in place:
-// token t of page p starts at  pool + p * page_elems + t * per_tok.
+// Layout.  The paged kernels read the FLAT pool [n_pages, page_elems] in
+// place: token t of page p starts at  pool + p * page_elems + t * per_tok.
 //   GQA: a token is [2, KV, D] (K heads, then V heads); block (kv_head, b)
 //        serves the G = H / KV query heads that share kv_head.
 //   MLA: a token is [r + rp] (latent | rope key); the score dot runs over
@@ -24,6 +25,9 @@
 // copy the whole pool whenever a page has slack (MLA: 28 * 288 < 8192),
 // so the kernels compute their own addresses instead.  Each block loads
 // its own page ids and length: that replaces the TPU's scalar prefetch.
+// The contiguous kernel is the paged GQA kernel under another addressing
+// policy: K and V are two tensors [B, T, KV, D], read as if row b were
+// one page of T tokens of KV * D elements (no table: page id = b).
 //
 // Bound.  Decode attention reads each valid KV token once:
 //   B * length * per_tok * itemsize bytes at 3.35 TB/s (H100 SXM); its
@@ -155,11 +159,14 @@ __device__ __forceinline__ void load_rows(
   }
 }
 
+// `kpool` holds the key rows and `vpool` the value rows (the same pool
+// for the paged kernels); a null `table` means page id = batch row.
 template <typename T, int VEC>
 __device__ __forceinline__ void paged_decode_block(
-    const T* __restrict__ q, const T* __restrict__ pool,
-    const int* __restrict__ table, const int* __restrict__ lengths,
-    T* __restrict__ out, const Geometry& g) {
+    const T* __restrict__ q, const T* __restrict__ kpool,
+    const T* __restrict__ vpool, const int* __restrict__ table,
+    const int* __restrict__ lengths, T* __restrict__ out,
+    const Geometry& g) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y;
@@ -197,13 +204,14 @@ __device__ __forceinline__ void paged_decode_block(
     // the tile's page ids: -1 for unmapped pages and positions >= length
     for (int t = tid; t < tt; t += kThreads) {
       const int pos = t0 + t;
-      tile_page[t] = pos < length
-          ? table[(size_t)b * g.max_pages + pos / g.tokens_per_page] : -1;
+      tile_page[t] = pos >= length ? -1
+          : table ? table[(size_t)b * g.max_pages + pos / g.tokens_per_page]
+                  : b;
     }
     __syncthreads();
-    load_rows<T, VEC>(ks, k_stride, pool, tile_page, t0, g.k_dim, k_off, g);
+    load_rows<T, VEC>(ks, k_stride, kpool, tile_page, t0, g.k_dim, k_off, g);
     if (!g.kv_shared)
-      load_rows<T, VEC>(vs, v_stride, pool, tile_page, t0, g.v_dim, v_off,
+      load_rows<T, VEC>(vs, v_stride, vpool, tile_page, t0, g.v_dim, v_off,
                         g);
     __syncthreads();
 
@@ -281,25 +289,27 @@ __device__ __forceinline__ void paged_decode_block(
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-paged_gqa_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
+paged_gqa_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
+                        const T* __restrict__ vpool,
                         const int* __restrict__ table,
                         const int* __restrict__ lengths, T* __restrict__ out,
                         const Geometry g) {
-  paged_decode_block<T, VEC>(q, pool, table, lengths, out, g);
+  paged_decode_block<T, VEC>(q, kpool, vpool, table, lengths, out, g);
 }
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-paged_mla_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
+paged_mla_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
+                        const T* __restrict__ vpool,
                         const int* __restrict__ table,
                         const int* __restrict__ lengths, T* __restrict__ out,
                         const Geometry g) {
-  paged_decode_block<T, VEC>(q, pool, table, lengths, out, g);
+  paged_decode_block<T, VEC>(q, kpool, vpool, table, lengths, out, g);
 }
 
 template <typename T>
-using KernelFn = void (*)(const T*, const T*, const int*, const int*, T*,
-                          const Geometry);
+using KernelFn = void (*)(const T*, const T*, const T*, const int*,
+                          const int*, T*, const Geometry);
 
 // Largest tile whose shared memory fits the limit.
 inline int pick_tile(Geometry g) {
@@ -309,19 +319,21 @@ inline int pick_tile(Geometry g) {
 }
 
 template <typename T>
-bool vectorizable(const void* pool, const Geometry& g) {
+bool vectorizable(const void* kpool, const void* vpool, const Geometry& g) {
   constexpr int vec = 16 / sizeof(T);
   const long long elems[] = {g.k_dim, g.v_dim, g.k_base, g.k_step, g.v_base,
                              g.v_step, g.per_tok, g.page_elems};
   for (long long e : elems)
     if (e % vec) return false;
-  return reinterpret_cast<uintptr_t>(pool) % 16 == 0;
+  return reinterpret_cast<uintptr_t>(kpool) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(vpool) % 16 == 0;
 }
 
 template <typename T>
-int launch(KernelFn<T> kernel, const void* q, const void* pool,
-           const int* table, const int* lengths, void* out, int batch,
-           int grid_x, const Geometry& g, cudaStream_t stream) {
+int launch(KernelFn<T> kernel, const void* q, const void* kpool,
+           const void* vpool, const int* table, const int* lengths,
+           void* out, int batch, int grid_x, const Geometry& g,
+           cudaStream_t stream) {
   const size_t bytes = sizeof(float) * (size_t)smem_floats(g);
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -329,35 +341,30 @@ int launch(KernelFn<T> kernel, const void* q, const void* pool,
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<dim3(grid_x, batch), kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pool), table, lengths,
-      static_cast<T*>(out), g);
+      static_cast<const T*>(q), static_cast<const T*>(kpool),
+      static_cast<const T*>(vpool), table, lengths, static_cast<T*>(out), g);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool kMla>
-int dispatch(const void* q, const void* pool, const int* table,
-             const int* lengths, void* out, int batch, int grid_x,
-             Geometry g, cudaStream_t stream) {
+int dispatch(const void* q, const void* kpool, const void* vpool,
+             const int* table, const int* lengths, void* out, int batch,
+             int grid_x, Geometry g, cudaStream_t stream) {
   constexpr int vec = 16 / sizeof(T);
   g.tile = pick_tile(g);
-  if (vectorizable<T>(pool, g))
+  if (vectorizable<T>(kpool, vpool, g))
     return launch<T>(kMla ? paged_mla_decode_kernel<T, vec>
                           : paged_gqa_decode_kernel<T, vec>,
-                     q, pool, table, lengths, out, batch, grid_x, g, stream);
+                     q, kpool, vpool, table, lengths, out, batch, grid_x, g,
+                     stream);
   return launch<T>(kMla ? paged_mla_decode_kernel<T, 1>
                         : paged_gqa_decode_kernel<T, 1>,
-                   q, pool, table, lengths, out, batch, grid_x, g, stream);
+                   q, kpool, vpool, table, lengths, out, batch, grid_x, g,
+                   stream);
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16 (q, pool and out share it).
-extern "C" int paged_gqa_decode(const void* q, const void* pool,
-                                const int* table, const int* lengths,
-                                void* out, int batch, int heads, int kv_heads,
-                                int head_dim, int max_pages,
-                                int tokens_per_page, long long page_elems,
-                                int dtype, void* stream) {
+// GQA geometry shared by the paged and the contiguous entry points.
+Geometry gqa_geometry(int heads, int kv_heads, int head_dim) {
   Geometry g;
   g.heads = heads;
   g.heads_per_block = heads / kv_heads;
@@ -365,22 +372,60 @@ extern "C" int paged_gqa_decode(const void* q, const void* pool,
   g.v_dim = head_dim;
   g.k_base = 0;
   g.k_step = head_dim;
-  g.v_base = kv_heads * head_dim;
+  g.v_base = 0;
   g.v_step = head_dim;
   g.kv_shared = 0;
+  g.tile = kMaxTile;
+  return g;
+}
+
+template <bool kMla>
+int dispatch_dtype(int dtype, const void* q, const void* kpool,
+                   const void* vpool, const int* table, const int* lengths,
+                   void* out, int batch, int grid_x, const Geometry& g,
+                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch<float, kMla>(q, kpool, vpool, table, lengths, out, batch,
+                                 grid_x, g, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16, kMla>(q, kpool, vpool, table, lengths,
+                                         out, batch, grid_x, g, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (q, the KV and out share it).
+extern "C" int paged_gqa_decode(const void* q, const void* pool,
+                                const int* table, const int* lengths,
+                                void* out, int batch, int heads, int kv_heads,
+                                int head_dim, int max_pages,
+                                int tokens_per_page, long long page_elems,
+                                int dtype, void* stream) {
+  Geometry g = gqa_geometry(heads, kv_heads, head_dim);
+  g.v_base = kv_heads * head_dim;
   g.tokens_per_page = tokens_per_page;
   g.per_tok = 2 * kv_heads * head_dim;
   g.page_elems = page_elems;
   g.max_pages = max_pages;
-  g.tile = kMaxTile;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float, false>(q, pool, table, lengths, out, batch,
-                                  kv_heads, g, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16, false>(q, pool, table, lengths, out,
-                                          batch, kv_heads, g, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_dtype<false>(dtype, q, pool, pool, table, lengths, out,
+                               batch, kv_heads, g, stream);
+}
+
+// k, v: [batch, max_len, kv_heads, head_dim] each, contiguous.
+extern "C" int contiguous_gqa_decode(const void* q, const void* k,
+                                     const void* v, const int* lengths,
+                                     void* out, int batch, int heads,
+                                     int kv_heads, int head_dim, int max_len,
+                                     int dtype, void* stream) {
+  Geometry g = gqa_geometry(heads, kv_heads, head_dim);
+  g.tokens_per_page = max_len;
+  g.per_tok = kv_heads * head_dim;
+  g.page_elems = (long long)max_len * kv_heads * head_dim;
+  g.max_pages = 1;
+  return dispatch_dtype<false>(dtype, q, k, v, nullptr, lengths, out, batch,
+                               kv_heads, g, stream);
 }
 
 extern "C" int paged_mla_decode(const void* q, const void* pool,
@@ -405,12 +450,6 @@ extern "C" int paged_mla_decode(const void* q, const void* pool,
   g.max_pages = max_pages;
   g.tile = kMaxTile;
   const int grid_x = (heads + g.heads_per_block - 1) / g.heads_per_block;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float, true>(q, pool, table, lengths, out, batch, grid_x,
-                                 g, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16, true>(q, pool, table, lengths, out, batch,
-                                         grid_x, g, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_dtype<true>(dtype, q, pool, pool, table, lengths, out,
+                              batch, grid_x, g, stream);
 }

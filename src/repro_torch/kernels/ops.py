@@ -7,15 +7,27 @@ hand-written kernel or raises (there is no fallback between the two).
 * ``paged_decode_attention`` / ``paged_mla_decode_attention`` — the CUDA
   kernels of ``csrc/paged_attention.cu`` through their ctypes wrappers
   (``repro_torch.kernels.paged_attention``);
+* ``decode_attention`` — one-token GQA decode over a contiguous cache
+  (the fallback families' dense cache), the contiguous kernel of the same
+  file;
+* ``flash_attention`` — causal GQA prefill (``csrc/flash_attention.cu``);
+* ``ssd_scan`` — the Mamba2 SSD chunked scan (``csrc/ssd_scan.cu``); its
+  CPU version is the chunked form the reference's XLA route runs;
 * ``paged_kv_write`` — the pool write, one indexed store (no kernel of
   its own on either side).
+
+Each kernel entry point counts its launches in ``<name>.launches``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import (  # noqa: F401  (re-export)
+    flash_attention)
 from repro_torch.kernels.paged_attention import (  # noqa: F401  (re-export)
-    paged_decode_attention, paged_mla_decode_attention)
+    contiguous_decode_attention as decode_attention, paged_decode_attention,
+    paged_mla_decode_attention)
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: F401  (re-export)
 
 
 def paged_kv_write(pool: torch.Tensor, kv_flat: torch.Tensor,

@@ -1,22 +1,23 @@
-"""Paged decode attention: the CUDA kernels' build, binding and wrappers.
+"""Decode attention: the CUDA kernels' bindings and wrappers.
 
 The kernels live in ``csrc/paged_attention.cu`` (see the note there for
-what they replace, their bound and their design).  This module compiles
-that file with ``nvcc`` into a shared library with a plain C interface on
-first use, loads it with ``ctypes`` and wraps each entry point:
+what they replace, their bound and their design), built at first use by
+``repro_torch.kernels.build`` and wrapped here:
 
-* ``paged_decode_attention``      -> ``paged_gqa_decode``
-* ``paged_mla_decode_attention``  -> ``paged_mla_decode``
+* ``paged_decode_attention``       -> ``paged_gqa_decode``
+* ``paged_mla_decode_attention``   -> ``paged_mla_decode``
+* ``contiguous_decode_attention``  -> ``contiguous_gqa_decode``
 
-Both wrappers take the FLAT pool ``[n_pages, page_elems]`` and the page
-geometry instead of a typed page view: the kernels compute every address
-themselves, so no per-call copy of the pool is ever made.  On a CUDA
-tensor a wrapper launches its kernel or raises; only a tensor that lies
-on the CPU takes the plain PyTorch version (``repro_torch.kernels.ref``),
-sliced to the typed view there.  Each wrapper counts its kernel launches
-in its ``launches`` attribute.
+The paged wrappers take the FLAT pool ``[n_pages, page_elems]`` and the
+page geometry instead of a typed page view: the kernels compute every
+address themselves, so no per-call copy of the pool is ever made.  The
+contiguous wrapper takes the dense-cache layer ``[B, T, KV, D]`` of the
+fallback families as it is.  On a CUDA tensor a wrapper launches its
+kernel or raises; only a tensor that lies on the CPU takes the plain
+PyTorch version (``repro_torch.kernels.ref``).  Each wrapper counts its
+kernel launches in its ``launches`` attribute.
 
-Like the TPU kernels (``src/repro/kernels/paged_attention.py:183,284``)
+Like the TPU kernels (``src/repro/kernels/paged_attention.py:92,183,284``)
 the wrappers fold ``scale`` into q once and round it back to q's dtype
 before the launch.
 """
@@ -24,75 +25,35 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.build import DTYPE_CODES, launch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-#: Build outputs go to ``build/`` at the root of the checkout.
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    return str(Path(home) / "bin" / "nvcc")
-
-
-def build_library(build_dir: Path = BUILD_DIR) -> Path:
-    """Compile ``csrc/paged_attention.cu`` (once per source content) and
-    return the shared library's path; the compiler's log (``-Xptxas -v``:
-    registers, shared memory, spills per kernel) is kept beside it as
-    ``<library>.log``.  Raises when there is no card or the build fails."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("the paged attention kernels need a CUDA card; "
-                           "pass CPU tensors to use the plain versions")
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha1(src).hexdigest()[:12]
-    lib = Path(build_dir) / f"libpaged_attention-{digest}.so"
-    if lib.exists():
-        return lib
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    lib.with_suffix(".so.log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)     # atomic: a concurrent build never loads half
-    return lib
+SOURCE = build.CSRC / "paged_attention.cu"
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels, with typed entry points."""
-    lib = ctypes.CDLL(str(build_library()))
+    lib = build.load(SOURCE.name)
     ptrs = [ctypes.c_void_p] * 5
     ints = [ctypes.c_int] * 6
     for fn in (lib.paged_gqa_decode, lib.paged_mla_decode):
         fn.argtypes = ptrs + ints + [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.contiguous_gqa_decode.argtypes = ([ctypes.c_void_p] * 5
+                                          + [ctypes.c_int] * 6
+                                          + [ctypes.c_void_p])
+    lib.contiguous_gqa_decode.restype = ctypes.c_int
     return lib
 
 
 def _check_launch_inputs(q, pool, page_table, lengths, per_tok: int,
                          tokens_per_page: int) -> None:
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in DTYPE_CODES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
     if pool.dtype != q.dtype:
         raise TypeError(f"q is {q.dtype} but the pool is {pool.dtype}")
@@ -112,15 +73,9 @@ def _check_launch_inputs(q, pool, page_table, lengths, per_tok: int,
 
 
 def _launch(fn, q, pool, page_table, lengths, out, dims) -> None:
-    table = page_table.to(torch.int32).contiguous()
-    lens = lengths.to(torch.int32).contiguous()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), pool.data_ptr(), table.data_ptr(),
-                 lens.data_ptr(), out.data_ptr(), *dims,
-                 _DTYPE_CODES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+    launch(fn, q.device, q, pool, page_table.to(torch.int32).contiguous(),
+           lengths.to(torch.int32).contiguous(), out, *dims,
+           DTYPE_CODES[q.dtype])
 
 
 def _scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -194,3 +149,43 @@ def paged_mla_decode_attention(q: torch.Tensor, pool: torch.Tensor,
 
 
 paged_mla_decode_attention.launches = 0
+
+
+def contiguous_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                                cache_v: torch.Tensor, lengths: torch.Tensor,
+                                *, scale: float) -> torch.Tensor:
+    """One-token GQA decode over a contiguous cache.
+
+    q [B,1,H,D]; cache_k / cache_v [B,T,KV,D] (one dense-cache layer);
+    lengths [B] valid tokens (clamped to T).  Returns [B,1,H,D] in q's
+    dtype.
+    """
+    if q.device.type == "cpu":
+        return ref.decode_attention(q, cache_k, cache_v, lengths, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no decode attention kernel for {q.device}")
+    B, _, H, D = q.shape
+    T, KV = cache_k.shape[1], cache_k.shape[2]
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise TypeError(f"{name} is {t.dtype} on {t.device}, q is "
+                            f"{q.dtype} on {q.device}")
+        if t.shape != (B, T, KV, D) or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous [B,T,KV,D] "
+                             f"tensor, got {tuple(t.shape)}")
+    if H % KV:
+        raise ValueError(f"{H} query heads do not group over {KV} kv heads")
+    if lengths.shape != (B,) or lengths.device != q.device:
+        raise ValueError("lengths must be [B] on q's device")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    launch(load_library().contiguous_gqa_decode, q.device,
+           _scaled(q, scale), cache_k, cache_v,
+           lengths.to(torch.int32).contiguous(), out, B, H, KV, D, T,
+           DTYPE_CODES[q.dtype])
+    contiguous_decode_attention.launches += 1
+    return out
+
+
+contiguous_decode_attention.launches = 0

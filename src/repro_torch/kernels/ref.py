@@ -1,19 +1,72 @@
-"""Plain PyTorch versions of the paged decode kernels.
+"""Plain PyTorch versions of the kernels, and the sequential SSD oracle.
 
-Counterparts of ``src/repro/kernels/ref.py:63-113``: the CPU path of the
-kernel wrappers, and the yardstick the CUDA kernels are held against on
-the card.  They gather the pages a table names into a dense cache and
-run ordinary masked softmax attention, with one guard the JAX oracle
-leaves implicit: value rows at positions ``>= length`` are zeroed before
-the weighted sum, as the kernels do, so garbage (even NaN) in a mapped
-page's unused slots cannot leak into the output through ``0 * garbage``.
-On finite inputs that is exactly the oracle's arithmetic.
+Counterparts of ``src/repro/kernels/ref.py``: the CPU path of the
+attention kernel wrappers, and the yardsticks the CUDA kernels are held
+against on the card.  The decode versions run ordinary masked softmax
+attention (the paged ones after gathering the pages a table names into a
+dense cache), with one guard the JAX oracle leaves implicit: value rows
+at positions ``>= length`` are zeroed before the weighted sum, as the
+kernels do, so garbage (even NaN) past a length cannot leak into the
+output through ``0 * garbage``.  On finite inputs that is exactly the
+oracle's arithmetic.  ``ssd_scan`` is the per-token recurrence the
+chunked SSD scan (``ssd_chunked``, the SSD kernel's plain version) is
+tested against.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
 NEG_INF = -1e30
+
+
+def _zero_past(v: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """v [B,T,...] with rows where ``valid`` [B,T] is False set to 0."""
+    return torch.where(valid[:, :, None, None], v,
+                       torch.zeros((), dtype=v.dtype, device=v.device))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """Causal grouped attention with the prefix offset ``T - S``.
+
+    q [B,S,H,D]; k/v [B,T,KV,D] -> [B,S,H,D] (``ref.py:21``).
+    """
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(T, device=q.device)[None, :]
+    mask = (q_pos + (T - S)) >= k_pos
+    scores = torch.where(mask, scores,
+                         torch.tensor(NEG_INF, device=scores.device))
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return out.reshape(B, S, H, D)
+
+
+def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, lengths: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """One-token decode over a contiguous cache (``ref.py:43``).
+
+    q [B,1,H,D]; cache [B,T,KV,D]; lengths [B] valid prefix -> [B,1,H,D].
+    """
+    B, _, H, D = q.shape
+    T, KV = cache_k.shape[1], cache_k.shape[2]
+    valid = (torch.arange(T, device=q.device)[None, :]
+             < lengths.to(q.device)[:, None])                  # [B,T]
+    v = _zero_past(cache_v, valid)
+    qg = q.reshape(B, 1, KV, H // KV, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                          cache_k.float()) * scale
+    scores = torch.where(valid[:, None, None, None, :], scores,
+                         torch.tensor(NEG_INF, device=scores.device))
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return out.reshape(B, 1, H, D)
 
 
 def _gather_valid(page_table: torch.Tensor, lengths: torch.Tensor,
@@ -42,9 +95,7 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     safe, valid = _gather_valid(page_table, lengths, page_size)
     gathered = kv_pages[safe]                       # [B,P,ps,2,KV,D]
     k = gathered[:, :, :, 0].reshape(B, T, KV, D)
-    v = gathered[:, :, :, 1].reshape(B, T, KV, D)
-    v = torch.where(valid[:, :, None, None], v, torch.zeros((), dtype=v.dtype,
-                                                           device=v.device))
+    v = _zero_past(gathered[:, :, :, 1].reshape(B, T, KV, D), valid)
     qg = q.reshape(B, 1, KV, H // KV, D)
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
     scores = torch.where(valid[:, None, None, None, :], scores,
@@ -78,3 +129,30 @@ def paged_mla_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     values = torch.where(valid[:, :, None], rows[..., :latent_dim],
                          torch.zeros((), dtype=rows.dtype, device=rows.device))
     return torch.einsum("bhst,btr->bshr", w, values)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B_: torch.Tensor, C_: torch.Tensor,
+             h0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD by the sequential per-token recurrence (``ref.py:133``).
+
+    x [B,S,H,P]; dt [B,S,H] (post-softplus); A [H] (negative); B_/C_
+    [B,S,G,N] (G groups broadcast onto H); h0 [B,H,P,N] or None.
+    Returns (y [B,S,H,P] in x's dtype, h_final [B,H,P,N] f32).
+    """
+    Bb, S, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    Bh = B_.float().repeat_interleave(H // G, dim=2)        # [B,S,H,N]
+    Ch = C_.float().repeat_interleave(H // G, dim=2)
+    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dtf[:, t] * Af[None, :])             # [B,H]
+        h = h * dA[..., None, None] + (dtf[:, t, :, None, None]
+                                       * xf[:, t, :, :, None]
+                                       * Bh[:, t, :, None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), h

@@ -1,12 +1,14 @@
-"""Attention for the split-execution path: GQA and MLA (MiniCPM3 style).
+"""Attention for the serving paths: GQA and MLA (MiniCPM3 style).
 
-Port of the parts of ``src/repro/models/attention.py`` the serving path
-runs: whole-sequence attention for prefill (``gqa_full`` / ``mla_full``
-with the reference's ``impl="xla"`` semantics) and one-token decode
-against the shared paged pool (``gqa_paged_decode`` /
-``mla_paged_decode``, ``attention.py:256-334``).  Decode writes the new
-token's KV into the pool IN PLACE and reads the KV back through the
-hand-written paged kernels, which take the flat pool as it is.
+Port of the parts of ``src/repro/models/attention.py`` the serving paths
+run: whole-sequence attention for prefill (``gqa_full`` with the
+reference's ``impl`` routes, ``mla_full``), one-token decode against the
+shared paged pool (``gqa_paged_decode`` / ``mla_paged_decode``,
+``attention.py:256-334``) for the split-execution path, and one-token
+decode against a contiguous per-model cache (``write_kv_cache`` /
+``gqa_decode``, ``:193-253``) for the fused fallback families.  Decode
+writes the new token's KV IN PLACE (into the pool, or the cache layer)
+and reads the KV back through the hand-written kernels.
 """
 from __future__ import annotations
 
@@ -81,22 +83,82 @@ def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor):
 
 
 def gqa_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-             positions: torch.Tensor
+             positions: torch.Tensor, *, impl: str = "xla"
              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Whole-sequence causal self-attention.
 
-    Returns (output [B,S,D_model], (k, v) [B,S,KV,hd] for the pool).
+    ``impl="flash"`` runs the flash prefill kernel (``ops.flash_attention``)
+    as the reference's does (``attention.py:122-129``; the port has no
+    sliding window or cross-attention, the reference's other conditions);
+    any other ``impl`` the masked softmax of ``attention_core``.
+    Returns (output [B,S,D_model], (k, v) [B,S,KV,hd] for the cache).
     """
     q, k, v = _project_qkv(p, cfg, x)
     if cfg.rope_theta > 0:
         sin, cos = layers.rope_sin_cos(positions, cfg.head_dim, cfg.rope_theta)
         q = layers.apply_rope(q, sin, cos)
         k = layers.apply_rope(k, sin, cos)
-    mask = causal_mask(positions, positions)[:, None, None, :, :]
-    out = attention_core(q, k, v, mask, cfg.head_dim ** -0.5)
+    scale = cfg.head_dim ** -0.5
+    if impl == "flash":
+        out = kops.flash_attention(q, k, v, scale=scale)
+    else:
+        mask = causal_mask(positions, positions)[:, None, None, :, :]
+        out = attention_core(q, k, v, mask, scale)
     B, S = x.shape[:2]
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return out @ p["wo"], (k, v)
+
+
+def write_kv_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                   k_new: torch.Tensor, v_new: torch.Tensor,
+                   lengths: torch.Tensor) -> None:
+    """Insert one new KV per sequence at its own index, IN PLACE.
+
+    cache [B,T,KV,hd]; new [B,1,KV,hd]; lengths [B].  A row whose length
+    is T or more writes nothing, as the reference's masked ``where``
+    (``attention.py:210-215``): its index is clamped and the old row
+    written back, so no index leaves the cache and nothing reads back to
+    the host.
+    """
+    B, T = cache_k.shape[:2]
+    rows = torch.arange(B, device=cache_k.device)
+    idx = lengths.clamp(max=T - 1).long()
+    keep = (lengths < T)[:, None, None]
+    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+        cache[rows, idx] = torch.where(keep, new[:, 0].to(cache.dtype),
+                                       cache[rows, idx])
+
+
+def gqa_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+               cache_k: torch.Tensor, cache_v: torch.Tensor,
+               lengths: torch.Tensor, *, impl: str = "xla") -> torch.Tensor:
+    """One-token decode against a contiguous cache layer.
+
+    x [B,1,D]; cache [B,T,KV,hd], updated in place; lengths [B] current
+    context lengths (the new token goes to that index).  ``impl="paged"``
+    reads the KV through the contiguous decode kernel
+    (``ops.decode_attention`` over ``lengths + 1`` tokens), any other
+    ``impl`` through the masked softmax.  Returns out [B,1,D].
+    """
+    B = x.shape[0]
+    T = cache_k.shape[1]
+    q, k, v = _project_qkv(p, cfg, x)
+    pos = lengths[:, None]
+    if cfg.rope_theta > 0:
+        sin, cos = layers.rope_sin_cos(pos, cfg.head_dim, cfg.rope_theta)
+        q = layers.apply_rope(q, sin, cos)
+        k = layers.apply_rope(k, sin, cos)
+    write_kv_cache(cache_k, cache_v, k, v, lengths)
+    scale = cfg.head_dim ** -0.5
+    if impl == "paged":
+        out = kops.decode_attention(q, cache_k, cache_v, lengths + 1,
+                                    scale=scale)
+    else:
+        kv_pos = torch.arange(T, device=x.device)[None, :]
+        mask = (kv_pos <= pos)[:, None, None, None, :]        # [B,1,1,1,T]
+        out = attention_core(q, cache_k, cache_v, mask, scale)
+    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"]
 
 
 def _write_page(page_table: torch.Tensor, lengths: torch.Tensor,

@@ -16,9 +16,15 @@ Port of ``src/repro/runtime/engine.py`` under its default lowering
   cancel(handle) -> frees KV pages and drops the weight pin at once
   drain() -> step until quiescent
 
-Every model reads KV through ONE pool (device KV bytes fixed by
-``page_budget``) and FFN weights through ONE slab arena (device FFN bytes
-fixed by ``slot_budget``); the engine holds no full param tree.
+Every split model (dense / moe / vlm) reads KV through ONE pool (device
+KV bytes fixed by ``page_budget``) and FFN weights through ONE slab arena
+(device FFN bytes fixed by ``slot_budget``); the engine holds no full
+param tree for them.  The fused fallback families the split path does
+not take (ssm and hybrid here) serve as the reference's do
+(``engine.py:197-221``): a full device param tree and a dense per-model
+cache, one prefill per request into its batch slot, K=1 decode of every
+slot, and page accounting after each step.  Their prefill and decode take
+the kernel routes (``impl="flash"`` / ``"paged"``, and the SSD scan).
 
 The engine runs on ``device="cuda"`` unless told otherwise and raises
 when no card is present; ``device="cpu"`` runs the plain PyTorch
@@ -26,7 +32,7 @@ versions of the kernels.  What is not ported yet raises
 ``NotImplementedError`` at construction: ``lowering=False`` (the
 host-driven step and the layer pipeline scheduler), the elastic
 rebalancer, the prefix cache, SLO monitoring, the flight recorder, the
-sanitizer, observers, and the fused-fallback families.
+sanitizer, observers, and the audio and sliding-window families.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from repro_torch.core.pools import build_pools
 from repro_torch.core.virtualizer import (DEFAULT_PAGE_BYTES, KVVirtualizer,
                                           OutOfPagesError)
 from repro_torch.core.weight_pool import DEFAULT_SLAB_BYTES, OutOfSlabsError
+from repro_torch.models.model import build_model
 from repro_torch.models.transformer import init_params
 from repro_torch.runtime.request import Phase, Request
 from repro_torch.runtime.sampler import sample
@@ -101,35 +108,48 @@ def resolve_device(device) -> torch.device:
 
 
 class ModelRunner:
-    """Per-model batch slots over the paged pool and the weights arena.
+    """Per-model batch slots.
 
-    Holds NO per-model KV allocation and no param tree: prefill streams
-    prompt KV into the virtualizer's pages layer by layer, decode reads
-    and writes through page tables, FFN weights come from the arena.
+    ``paged`` (split models): NO per-model KV allocation and no param
+    tree — prefill streams prompt KV into the virtualizer's pages layer by
+    layer, decode reads and writes through page tables, FFN weights come
+    from the arena.  Fallback families (``pooled.stage_fns is None``):
+    the model's whole device tree (``pooled.kv_params``) and a dense cache
+    of ``max_batch`` slots, as the reference's (``engine.py:197-221``).
     """
 
     def __init__(self, name: str, cfg: ModelConfig, virt: KVVirtualizer, *,
                  max_batch: int, max_ctx: int, mode: EngineMode, pooled,
-                 prefill_step: StreamingPrefill):
+                 prefill_step: Optional[StreamingPrefill] = None):
         self.name = name
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_ctx = max_ctx
         self.virt = virt
         self.device = virt.device
+        self.paged = pooled.stage_fns is not None
         self.lengths = np.zeros(max_batch, np.int32)
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.next_tokens = np.zeros(max_batch, np.int32)
-        self.prefill_step = prefill_step
-        self.view = virt.views[name]
-        self.max_pages = max(1, math.ceil(max_ctx / self.view.tokens_per_page))
-        self.decode_steps = max(1, int(mode.decode_steps_per_dispatch))
         #: NaN / infinite logits seen by this model's prefill and decode
         #: (a device counter: read it once a run is over)
         self.nonfinite_logits = torch.zeros((), dtype=torch.int64,
                                             device=self.device)
-        self.fused = MultiStepFusedStep(pooled, k=self.decode_steps,
-                                        nonfinite_logits=self.nonfinite_logits)
+        if self.paged:
+            self.prefill_step = prefill_step
+            self.view = virt.views[name]
+            self.max_pages = max(
+                1, math.ceil(max_ctx / self.view.tokens_per_page))
+            self.decode_steps = max(1, int(mode.decode_steps_per_dispatch))
+            self.fused = MultiStepFusedStep(
+                pooled, k=self.decode_steps,
+                nonfinite_logits=self.nonfinite_logits)
+        else:
+            self.params = pooled.kv_params
+            self.decode_steps = 1          # the dense-cache path stays K=1
+            self.model = build_model(cfg)
+            self.cache = self.model.init_cache(max_batch, max_ctx,
+                                               self.device)
 
     # ------------------------------------------------------------------
     def free_slot(self) -> Optional[int]:
@@ -179,12 +199,16 @@ class ModelRunner:
         return slot
 
     def prefill_group(self, group: PrefillGroup) -> List[int]:
-        """Execute one coalesced prompt pass and commit each row to a
-        batch slot; returns the slots in row order."""
+        """Execute one coalesced prompt pass (fallback families: one pass
+        per row) and commit each row to a batch slot; returns the slots
+        in row order."""
         free = sum(1 for s in self.slots if s is None)
         if group.batch_size > free:
             raise RuntimeError(f"{self.name}: group of {group.batch_size} "
                                f"for {free} free slots")
+        if not self.paged:
+            return [self._prefill_row(ids, req)
+                    for ids, req in zip(group.ids, group.requests)]
         for req in group.requests:
             self.virt.ensure_resident(req.request_id)
         logits, self.virt.pool = self.prefill_step(
@@ -194,6 +218,18 @@ class ModelRunner:
         toks = sample(logits).cpu().numpy()
         return [self._commit_prefill(req, int(toks[i]))
                 for i, req in enumerate(group.requests)]
+
+    def _prefill_row(self, ids: np.ndarray, req: Request) -> int:
+        """Fallback families: the whole bucket (padding included) into the
+        request's batch slot of the dense cache, logits read at the last
+        real token (``engine.py:197-210,378-388``)."""
+        slot = self.free_slot()
+        one = {k: c[:, slot:slot + 1] for k, c in self.cache.items()}
+        logits, _ = self.model.prefill(
+            self.params, self._tensor(ids[None, :]), one, impl="flash",
+            logit_index=req.prompt_tokens - 1)
+        self.nonfinite_logits += (~torch.isfinite(logits)).sum()
+        return self._commit_prefill(req, int(sample(logits)[0]))
 
     # ------------------------------------------------------------------
     # decode: issue (no read-back) / commit (read back + bookkeeping)
@@ -231,7 +267,18 @@ class ModelRunner:
 
     def issue_decode(self) -> Tuple[torch.Tensor, List[int], np.ndarray]:
         """Run one decode block for all slots; returns (token ids [K, B]
-        on the device, not read back yet; active slots; step budgets)."""
+        on the device, not read back yet; active slots; step budgets).
+        Fallback families decode one token for EVERY slot, inactive ones
+        included, as the reference's (``engine.py:489-495``)."""
+        if not self.paged:
+            act = self._active_slots()
+            logits, _ = self.model.decode_step(
+                self.params, self._tensor(self.next_tokens), self.cache,
+                self._tensor(self.lengths), impl="paged")
+            self.nonfinite_logits += (~torch.isfinite(logits[act])).sum()
+            steps = np.zeros(self.max_batch, np.int32)
+            steps[act] = 1
+            return sample(logits)[None, :], act, steps
         act, steps = self._reserve_decode_block()
         rids = [s.request_id if s is not None else None for s in self.slots]
         tables = self.virt.batch_tables(self.name, rids, self.max_pages)
@@ -256,7 +303,13 @@ class ModelRunner:
             if n:
                 self.lengths[i] += n
                 self.next_tokens[i] = row[n - 1]
-            self.virt.commit_decode_block(self.slots[i].request_id, n)
+            rid = self.slots[i].request_id
+            if self.paged:
+                self.virt.commit_decode_block(rid, n)
+            else:
+                # fallback families: page accounting AFTER the step (their
+                # KV lives in the dense cache; pages track budget only)
+                self.virt.extend_request(rid, n)
         return toks, counts, act
 
     def release(self, slot: int) -> Request:
@@ -304,10 +357,12 @@ class CrossPoolEngine:
                 "lowering=False (HostDrivenStep and the layer pipeline "
                 "scheduler) is not ported yet")
         for name, cfg in models.items():
-            if not split_exec.supports_split(cfg):
+            if not split_exec.supports_split(cfg) \
+                    and cfg.family not in ("ssm", "hybrid"):
                 raise NotImplementedError(
-                    f"{name}: the fused fallback families ({cfg.family}) "
-                    f"are not ported yet")
+                    f"{name} ({cfg.family}"
+                    f"{', sliding window' if cfg.swa_pattern else ''}): its "
+                    f"fused fallback path is not ported yet")
         self.device = resolve_device(device)
         self.models = models
         self.max_ctx = max_ctx
@@ -337,13 +392,16 @@ class CrossPoolEngine:
             # batch slot (cold-model activation)
             activate_resident=False)
         self.virt = self.kv_pool.virtualizer
-        self.arena = self.w_pool.arena
+        # an all-fallback engine has no device pool and no arena
+        any_split = any(p.stage_fns is not None for p in self.pooled.values())
+        self.arena = self.w_pool.arena if any_split else None
         self.admission = AdmissionController(self.virt, arena=self.arena)
         self.runners = {
             n: ModelRunner(n, c, self.virt, max_batch=max_batch,
                            max_ctx=max_ctx, mode=self.mode,
                            pooled=self.pooled[n],
-                           prefill_step=StreamingPrefill(self.pooled[n]))
+                           prefill_step=StreamingPrefill(self.pooled[n])
+                           if self.pooled[n].stage_fns is not None else None)
             for n, c in models.items()
         }
         self.stats = EngineStats(step_times={n: [] for n in models},
@@ -483,7 +541,8 @@ class CrossPoolEngine:
         self.stats.wall_s = self.now
         self.stats.tbt = [t for rid in self._window
                           for t in self._submitted[rid].tbt_samples()]
-        self.stats.weights_pool = self.arena.utilization()
+        if self.arena is not None:
+            self.stats.weights_pool = self.arena.utilization()
         return self.stats
 
     def run(self, requests: List[Request], *,
@@ -516,7 +575,10 @@ class CrossPoolEngine:
     def _try_activate(self, req: Request) -> bool:
         """Residency gate for the prefill batcher: map a cold model's
         slabs (no upload — prefill streams them in); False keeps the
-        request waiting until pinned models finish."""
+        request waiting until pinned models finish.  Fallback families
+        never enter the arena."""
+        if self.arena is None or not self.runners[req.model].paged:
+            return True
         try:
             self.arena.activate(req.model, upload=False)
         except OutOfSlabsError:

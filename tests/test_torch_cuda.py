@@ -15,6 +15,7 @@ from repro_torch.configs import PAPER_COLOC_SET, get_smoke_config
 from repro_torch.configs.base import EngineConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.ssd_chunked import ssd_scan_chunked
 from repro_torch.models.transformer import init_params
 from repro_torch.runtime.engine import CrossPoolEngine, EngineMode
 from repro_torch.runtime.request import Request
@@ -117,5 +118,104 @@ def test_engine_on_the_card_serves_and_returns_every_page(cuda):
     assert engine.virt.mapped_pages == 0
     assert kops.paged_decode_attention.launches > gqa
     assert kops.paged_mla_decode_attention.launches > mla
+    assert all(int(r.nonfinite_logits) == 0
+               for r in engine.runners.values())
+
+
+# ---------------------------------------------------------------------------
+# the fallback families' kernels: flash prefill, contiguous decode, SSD
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,T,H,KV,D", [(1, 256, 256, 32, 32, 64),
+                                          (2, 100, 130, 16, 4, 128),
+                                          (1, 70, 70, 4, 1, 16)])
+def test_flash_kernel_matches_plain(cuda, dtype, tol, B, S, T, H, KV, D):
+    gen = torch.Generator(device=cuda).manual_seed(S + D)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D)))
+    before = kops.flash_attention.launches
+    got = kops.flash_attention(q, k, v, scale=D ** -0.5)
+    assert kops.flash_attention.launches == before + 1
+    want = tref.flash_attention(q, k, v, D ** -0.5)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,T,H,KV,D", [(4, 1024, 32, 32, 64),
+                                        (3, 77, 8, 2, 128)])
+def test_contiguous_decode_kernel_matches_plain(cuda, dtype, tol, B, T, H,
+                                                KV, D):
+    """Ragged lengths (one full, one past T: clamped) with NaN in the
+    cache past every length."""
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    q = torch.randn((B, 1, H, D), generator=gen, device=cuda).to(dtype)
+    ck, cv = (torch.randn((B, T, KV, D), generator=gen, device=cuda)
+              .to(dtype) for _ in range(2))
+    lengths = torch.randint(1, T, (B,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+    lengths[0] = T
+    lengths[-1] = T + 5
+    for b in range(B):
+        n = min(int(lengths[b]), T)
+        ck[b, n:] = float("nan")
+        cv[b, n:] = float("nan")
+    before = kops.decode_attention.launches
+    got = kops.decode_attention(q, ck, cv, lengths, scale=D ** -0.5)
+    assert kops.decode_attention.launches == before + 1
+    want = tref.decode_attention(q, ck, cv, lengths, D ** -0.5)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (1, 1024, 64, 64, 1, 64, 256),      # zamba2
+    (1, 512, 24, 64, 1, 128, 256),      # mamba2
+    (2, 48, 4, 16, 2, 16, 16),          # ragged tiles, two groups
+])
+def test_ssd_kernel_matches_plain(cuda, dtype, tol, with_h0, B, S, H, P, G,
+                                  N, chunk):
+    gen = torch.Generator(device=cuda).manual_seed(S + N)
+    x = torch.randn((B, S, H, P), generator=gen, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device=cuda) - 2.0)
+    A = -torch.exp(torch.randn((H,), generator=gen, device=cuda))
+    Bm, Cm = (torch.randn((B, S, G, N), generator=gen, device=cuda)
+              .to(dtype) for _ in range(2))
+    h0 = (torch.randn((B, H, P, N), generator=gen, device=cuda)
+          if with_h0 else None)
+    before = kops.ssd_scan.launches
+    y, h = kops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    assert kops.ssd_scan.launches == before + 1
+    wy, wh = ssd_scan_chunked(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    torch.testing.assert_close(y.float(), wy.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, wh, rtol=1e-3, atol=1e-3)
+
+
+def test_fallback_engine_on_the_card_serves_and_returns_every_page(cuda):
+    """Float32 smoke zamba2 + mamba2 on the card: every request gets its
+    tokens through the three kernels, every page comes back."""
+    names = ("zamba2-1.2b", "mamba2-130m")
+    models = {n: get_smoke_config(n).replace(dtype="float32") for n in names}
+    engine = CrossPoolEngine(models, page_budget=512, page_bytes=4096,
+                             max_batch=2, max_ctx=64, device=cuda)
+    counts = {f: getattr(kops, f).launches
+              for f in ("flash_attention", "decode_attention", "ssd_scan")}
+    reqs = [Request(i, names[i % 2], 5 + 7 * i, 6, 0.0) for i in range(5)]
+    for r in reqs:
+        engine.submit(r)
+    engine.drain()
+    assert [len(r.output_ids) for r in reqs] == [6] * 5
+    assert engine.virt.mapped_pages == 0
+    for f, n in counts.items():
+        assert getattr(kops, f).launches > n, f
     assert all(int(r.nonfinite_logits) == 0
                for r in engine.runners.values())

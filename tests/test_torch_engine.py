@@ -145,10 +145,72 @@ def test_parts_not_ported_raise(coloc, kw):
         TEngine(tm, page_budget=64, device="cpu", **kw)
 
 
-def test_fallback_families_raise():
-    models = {"mamba2-130m": t_smoke("mamba2-130m")}
+@pytest.mark.parametrize("name", ["whisper-small", "gemma3-12b"])
+def test_fallback_families_raise(name):
+    """The audio and sliding-window fallback families are not ported."""
+    models = {name: t_smoke(name)}
     with pytest.raises(NotImplementedError):
         TEngine(models, page_budget=64, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the fused dense-cache fallback path (ssm / hybrid families)
+# ---------------------------------------------------------------------------
+
+ZAMBA, MAMBA = "zamba2-1.2b", "mamba2-130m"
+FALLBACK_SETS = {"ssm": (ZAMBA, MAMBA), "mixed": (MOE, ZAMBA)}
+FALLBACK_KW = dict(page_budget=2048, page_bytes=4096, slab_bytes=4096,
+                   max_batch=2, max_ctx=64, seed=3)
+
+
+def _fallback_trace(names):
+    """Three requests per model, all at time 0 (the engine clock is host
+    time, so later arrivals would batch differently in the two engines):
+    each model's third request waits for a batch slot; prompts span two
+    buckets."""
+    return [(i, names[i % len(names)], prompt, new, 0.0)
+            for i, (prompt, new) in enumerate([(9, 4), (21, 6), (5, 3),
+                                               (30, 5), (12, 7), (3, 2)])]
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("which", sorted(FALLBACK_SETS))
+def test_fallback_streams_equal_live_jax_engine(which, k):
+    """{zamba2, mamba2} and {qwen3-moe, zamba2}, smoke f32: the port's
+    dense-cache fallback runner (kernel routes, plain versions on the
+    CPU) gives the live JAX engine's greedy streams, and every page
+    returns to the pool.  An all-fallback engine holds no device pool and
+    no arena."""
+    from repro.configs.base import EngineConfig as JConfig
+    names = FALLBACK_SETS[which]
+    jm = {n: get_smoke_config(n).replace(dtype="float32") for n in names}
+    tm = {n: t_smoke(n).replace(dtype="float32") for n in names}
+    params = {n: params_to_torch(jax.tree.map(
+        np.asarray, build_model(c).init(jax.random.PRNGKey(i))))
+        for i, (n, c) in enumerate(jm.items())}
+    je = JEngine(jm, config=JConfig(mode=JMode(decode_steps_per_dispatch=k)),
+                 **FALLBACK_KW)
+    te = TEngine(tm, config=EngineConfig(mode=TMode(
+        decode_steps_per_dispatch=k)), device="cpu", params=params,
+        **FALLBACK_KW)
+    trace = _fallback_trace(names)
+    j_reqs = [JRequest(*t) for t in trace]
+    t_reqs = [TRequest(*t) for t in trace]
+    for je_r, te_r in zip(j_reqs, t_reqs):
+        je.submit(je_r)
+        te.submit(te_r)
+    je.drain()
+    stats = te.drain()
+    assert [r.output_ids for r in t_reqs] == [r.output_ids for r in j_reqs]
+    assert stats.tokens_out == sum(r.max_new_tokens for r in t_reqs)
+    assert te.virt.mapped_pages == 0 == je.virt.mapped_pages
+    assert te.virt.peak_mapped == je.virt.peak_mapped
+    assert all(int(r.nonfinite_logits) == 0 for r in te.runners.values())
+    if which == "ssm":
+        assert te.virt.pool is None and te.arena is None
+    else:
+        assert not te.runners[ZAMBA].paged and te.runners[MOE].paged
+        assert ZAMBA not in te.arena.views
 
 
 @pytest.mark.parametrize("flag", [["--no-lowering"], ["--cache"],

@@ -1,10 +1,13 @@
-"""The port's paged decode kernels against the JAX package.
+"""The port's kernels' plain versions against the JAX package.
 
 On the CPU every kernel wrapper takes its plain PyTorch version
-(``repro_torch.kernels.ref``); those are held here against the JAX
+(``repro_torch.kernels.ref``, and the chunked SSD scan of
+``repro_torch.kernels.ssd_chunked``); those are held here against the JAX
 oracles (``repro.kernels.ref``) and the Pallas kernels in interpret mode
-on the sweeps of ``tests/test_kernels.py``, within 2e-5 in float32, with
-ragged lengths and unmapped (-1) table entries.  The CUDA kernels
+on the sweeps of ``tests/test_kernels.py``: attention within 2e-5 in
+float32, with ragged lengths and unmapped (-1) table entries; the SSD
+scan within 1e-3 (``tests/test_kernels.py``'s tolerance: the chunked
+form sums in another order than the recurrence).  The CUDA kernels
 themselves run only on a card (``tests/test_torch_cuda.py``).
 """
 import jax.numpy as jnp
@@ -14,13 +17,20 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro.kernels.paged_attention import (paged_decode_attention as
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.kernels.paged_attention import (contiguous_decode_attention as
+                                           pallas_decode,
+                                           paged_decode_attention as
                                            pallas_paged,
                                            paged_mla_decode_attention as
                                            pallas_paged_mla)
+from repro.kernels.ssd_chunked import ssd_scan_chunked as j_chunked
+from repro.kernels.ssd_scan import ssd_scan as pallas_ssd
+from repro_torch.kernels import build
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels import paged_attention as kpa
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.ssd_chunked import (ssd_decode_step,
+                                             ssd_scan_chunked)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -183,4 +193,169 @@ def test_kernel_build_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the build would run")
     with pytest.raises(RuntimeError, match="CUDA card"):
-        kpa.build_library()
+        build.build_all()
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        build.build_library(build.CSRC / "ssd_scan.cu")
+
+
+def test_every_source_has_its_own_library():
+    """One library per source, named by its content: an edit to one
+    source rebuilds that one only."""
+    srcs = build.sources()
+    assert {p.name for p in srcs} >= {"paged_attention.cu",
+                                      "flash_attention.cu", "ssd_scan.cu"}
+    libs = {build.library_path(p).name for p in srcs}
+    assert len(libs) == len(srcs)
+    assert all(build.library_path(p).parent == build.BUILD_DIR for p in srcs)
+
+
+# ---------------------------------------------------------------------------
+# flash prefill and contiguous decode (the fallback families' attention)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,S,T,H,KV,D", [
+    (1, 16, 16, 4, 4, 16),
+    (2, 12, 20, 4, 2, 32),           # prefix offset T - S = 8
+    (1, 33, 33, 8, 1, 16),           # ragged tiles, MQA
+])
+def test_plain_flash_matches_jax_oracle_and_pallas(B, S, T, H, KV, D):
+    rng = np.random.default_rng(S * 10 + T)
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, KV, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, KV, D)).astype(np.float32)
+    scale = D ** -0.5
+    before = kops.flash_attention.launches
+    got = kops.flash_attention(_t(q), _t(k), _t(v), scale=scale).numpy()
+    assert kops.flash_attention.launches == before      # CPU: no kernel
+    want = jref.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), scale)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    kern = pallas_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        scale=scale, block_q=8, block_k=8)
+    np.testing.assert_allclose(got, np.asarray(kern), **TOL)
+
+
+@pytest.mark.parametrize("B,T,H,KV,D", [(3, 24, 4, 4, 16), (2, 40, 8, 2, 32),
+                                        (1, 9, 4, 1, 16)])
+def test_plain_decode_matches_jax_oracle_and_pallas(B, T, H, KV, D):
+    rng = np.random.default_rng(B * 7 + T)
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    ck = rng.standard_normal((B, T, KV, D)).astype(np.float32)
+    cv = rng.standard_normal((B, T, KV, D)).astype(np.float32)
+    lengths = rng.integers(1, T + 1, B).astype(np.int32)
+    lengths[0] = T
+    scale = D ** -0.5
+    before = kops.decode_attention.launches
+    got = kops.decode_attention(_t(q), _t(ck), _t(cv), _t(lengths),
+                                scale=scale).numpy()
+    assert kops.decode_attention.launches == before
+    want = jref.decode_attention(jnp.asarray(q), jnp.asarray(ck),
+                                 jnp.asarray(cv), jnp.asarray(lengths), scale)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    kern = pallas_decode(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv),
+                         jnp.asarray(lengths), scale=scale, block_t=8)
+    np.testing.assert_allclose(got, np.asarray(kern), **TOL)
+
+
+def test_plain_decode_ignores_garbage_past_lengths():
+    """NaN in the cache past each length never reaches the output."""
+    rng = np.random.default_rng(11)
+    B, T, H, KV, D = 3, 16, 4, 2, 8
+    q = _t(rng.standard_normal((B, 1, H, D)).astype(np.float32))
+    ck = rng.standard_normal((B, T, KV, D)).astype(np.float32)
+    cv = rng.standard_normal((B, T, KV, D)).astype(np.float32)
+    lengths = np.array([16, 5, 1], np.int32)
+    clean = tref.decode_attention(q, _t(ck), _t(cv), _t(lengths), 0.4)
+    for b, n in enumerate(lengths):
+        ck[b, n:] = np.nan
+        cv[b, n:] = np.nan
+    got = tref.decode_attention(q, _t(ck), _t(cv), _t(lengths), 0.4)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, clean, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD scan
+# ---------------------------------------------------------------------------
+
+SSD_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def _ssd_inputs(rng, B, S, H, P, G, N, with_h0):
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)
+    A = -np.exp(rng.standard_normal(H)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, G, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, G, N)).astype(np.float32)
+    h0 = (rng.standard_normal((B, H, P, N)).astype(np.float32)
+          if with_h0 else None)
+    return x, dt, A, Bm, Cm, h0
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (1, 32, 4, 8, 1, 16, 8),
+    (2, 48, 4, 16, 2, 8, 16),
+    (1, 24, 6, 4, 3, 4, 24),
+])
+def test_chunked_ssd_matches_sequential_oracle_and_jax(B, S, H, P, G, N,
+                                                       chunk, with_h0):
+    """The SSD kernel's plain version (the chunked scan, what
+    ``ops.ssd_scan`` runs on the CPU) against the port's sequential
+    oracle, the JAX oracle, the JAX chunked form and the Pallas kernel."""
+    rng = np.random.default_rng(S + H + with_h0)
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(rng, B, S, H, P, G, N, with_h0)
+    t_h0 = None if h0 is None else _t(h0)
+    before = kops.ssd_scan.launches
+    y, h = kops.ssd_scan(_t(x), _t(dt), _t(A), _t(Bm), _t(Cm), chunk=chunk,
+                         h0=t_h0)
+    assert kops.ssd_scan.launches == before
+    y_seq, h_seq = tref.ssd_scan(_t(x), _t(dt), _t(A), _t(Bm), _t(Cm),
+                                 h0=t_h0)
+    np.testing.assert_allclose(y.numpy(), y_seq.numpy(), **SSD_TOL)
+    np.testing.assert_allclose(h.numpy(), h_seq.numpy(), **SSD_TOL)
+    j_in = [jnp.asarray(a) for a in (x, dt, A, Bm, Cm)]
+    j_h0 = None if h0 is None else jnp.asarray(h0)
+    for want_y, want_h in (jref.ssd_scan(*j_in, h0=j_h0),
+                           j_chunked(*j_in, chunk=chunk, h0=j_h0),
+                           pallas_ssd(*j_in, chunk=chunk, h0=j_h0)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **SSD_TOL)
+        np.testing.assert_allclose(h.numpy(), np.asarray(want_h), **SSD_TOL)
+    np.testing.assert_allclose(y_seq.numpy(), np.asarray(jref.ssd_scan(
+        *j_in, h0=j_h0)[0]), **TOL)
+
+
+def test_chunked_ssd_matches_jax_chunked_form():
+    """At f32 the port's chunked scan is the reference's XLA route:
+    within 1e-5 of ``repro.kernels.ssd_chunked`` (the same sums)."""
+    rng = np.random.default_rng(21)
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(rng, 2, 32, 4, 8, 1, 8, True)
+    y, h = ssd_scan_chunked(_t(x), _t(dt), _t(A), _t(Bm), _t(Cm), chunk=16,
+                            h0=_t(h0))
+    wy, wh = j_chunked(*[jnp.asarray(a) for a in (x, dt, A, Bm, Cm)],
+                       chunk=16, h0=jnp.asarray(h0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(wy), **TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(wh), **TOL)
+
+
+def test_chunked_ssd_refuses_a_chunk_that_does_not_divide():
+    x = torch.zeros((1, 10, 2, 4))
+    with pytest.raises(ValueError):
+        ssd_scan_chunked(x, torch.zeros((1, 10, 2)), torch.zeros(2),
+                         torch.zeros((1, 10, 1, 4)),
+                         torch.zeros((1, 10, 1, 4)), chunk=4)
+
+
+def test_ssd_decode_step_continues_the_scan():
+    """A chunked scan over S tokens, then one decode step, equals the
+    sequential recurrence over S + 1 tokens."""
+    rng = np.random.default_rng(8)
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(rng, 2, 17, 4, 8, 2, 8, False)
+    t = [_t(a) for a in (x, dt, A, Bm, Cm)]
+    _, h = ssd_scan_chunked(t[0][:, :16], t[1][:, :16], t[2], t[3][:, :16],
+                            t[4][:, :16], chunk=8)
+    y_t, h_next = ssd_decode_step(h, t[0][:, 16], t[1][:, 16], t[2],
+                                  t[3][:, 16], t[4][:, 16])
+    y_seq, h_seq = tref.ssd_scan(*t)
+    np.testing.assert_allclose(y_t.numpy(), y_seq[:, 16].numpy(), **SSD_TOL)
+    np.testing.assert_allclose(h_next.numpy(), h_seq.numpy(), **SSD_TOL)
