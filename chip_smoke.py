@@ -39,12 +39,28 @@ other than 0) if any phase fails:
              same prompts and outputs, K=1.  The same checks, and flash
              prefill (6 per zamba2 prompt), the SSD scan (32 per zamba2
              and 24 per mamba2 prompt) and contiguous decode (6 per
-             zamba2 decode step) must have launched that many times.
+             zamba2 decode step) must have launched that many times;
+7. train   — ``make_train_step`` on moonshot-v1-16b-a3b at its published
+             widths, depth cut to ``TRAIN_DEPTH``, float32, through the
+             grouped-GEMM MoE path: 5 AdamW steps on one fixed batch of
+             8 x 512 ``SyntheticLM`` tokens.  Every loss and grad norm
+             must be finite, the last loss below the first, and the
+             grouped GEMM must have launched exactly 6 times per layer
+             per step (3 forward, 3 input gradients) and its wgrad kernel
+             3 times.
 
-Launch counts are set to 0 just before each serve phase and read just
-after it.  It prints a JSON line with every kernel's numbers, then, as
-its last line, ``{"ok": true, "device": {...}}``.  The full kernel table,
-the serve figures and the profiles go to ``build/chip_smoke.json``.
+Phase 3 also holds the grouped GEMM (forward, input and weight
+gradients) against its plain versions at phase 7's shape, float32 within
+1e-4 and bf16 within 2e-2, and times it; phase 4 also runs one float32
+smoke train step of qwen3-moe (both MoE paths) and minicpm3 on the card
+against the CPU (loss, grad norm and updated params within 1e-4 of each
+leaf's scale, max(1, max|leaf|)).
+
+Launch counts are set to 0 just before each serve or train phase and
+read just after it.  It prints a JSON line with every kernel's numbers,
+then, as its last line, ``{"ok": true, "device": {...}}``.  The full
+kernel table, the serve and train figures and the profiles go to
+``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -61,6 +77,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12              # H100 SXM float32 peak (CUDA cores)
 CONTEXTS = (1024, 8192)
 BATCHES = (1, 4)
 SERVE_K = 4
@@ -68,7 +85,12 @@ SERVE_MAX_NEW = 32
 FALLBACK_MODELS = ("zamba2-1.2b", "mamba2-130m")
 #: every kernel entry point, by the name its launch counter is read under
 KERNELS = ("paged_decode_attention", "paged_mla_decode_attention",
-           "flash_attention", "decode_attention", "ssd_scan")
+           "flash_attention", "decode_attention", "ssd_scan", "moe_gemm",
+           "moe_gemm_wgrad")
+#: phase 7: moonshot at published widths, this many layers, float32
+TRAIN_MODEL = "moonshot-v1-16b-a3b"
+TRAIN_DEPTH = 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
 
 
 def log(msg: str) -> None:
@@ -84,11 +106,12 @@ def read_launches(kops) -> dict:
     return {name: getattr(kops, name).launches for name in KERNELS}
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, fp32: bool = False):
     """(least time in ms, what bounds it): bytes over the HBM rate vs
-    flops over the bf16 tensor-core peak."""
+    flops over the peak of the work's type: the bf16 tensor-core peak, or
+    the float32 peak for float32 work (``fp32``)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / (FP32_FLOPS if fp32 else BF16_FLOPS) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -415,6 +438,114 @@ def fallback_kernel_phase(torch, kops, ref, ssd_scan_chunked):
     return errs, rows
 
 
+def train_group_sizes(np, n_rows: int, experts: int, seed: int = 0):
+    """Ragged expert group sizes summing to ``n_rows``: a skewed (gamma)
+    router load with 4 experts that receive no token."""
+    rng = np.random.default_rng(seed)
+    load = rng.gamma(0.5, size=experts)
+    load[rng.choice(experts, 4, replace=False)] = 0.0
+    return rng.multinomial(n_rows, load / load.sum()).astype(np.int32)
+
+
+def library_grouped_mm(torch, a, b, offs):
+    """(``torch._grouped_mm`` call, None) on these operands, or (None, the
+    reason it cannot run them): the library yardstick, never called by the
+    port."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, f"torch {torch.__version__} has no torch._grouped_mm"
+    try:
+        fn(a, b, offs=offs)
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError) as err:
+        return None, f"torch._grouped_mm refuses {a.dtype}: " \
+                     f"{str(err).splitlines()[0][:120]}"
+    return (lambda: fn(a, b, offs=offs)), None
+
+
+def moe_kernel_phase(torch, np, kops, ref):
+    """The grouped GEMM at phase 7's shape (x [8*512*top-6, d_model],
+    w [E, d_model, d_ff] of moonshot, ragged groups with empty experts)
+    and on a small ragged shape: forward, input gradient and weight
+    gradient against the plain versions (float32 within 1e-4, bf16 within
+    2e-2), then timed in both types beside the bound and one
+    ``torch._grouped_mm`` call where the card's torch takes the type.
+    Inputs at the model's scales: x unit normal, w LeCun normal (as
+    ``init_moe``), dy unit normal over sqrt(rows per expert), so that
+    every sum is O(1) as in training (with unit weights a K = 2048 sum
+    carries f32 rounding of ~1e-4 in any order)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_MODEL)
+    N = TRAIN_BATCH * TRAIN_SEQ * cfg.experts_per_token
+    K, M, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    errs, rows = {"moe_gemm": 0.0, "moe_gemm_wgrad": 0.0}, []
+    shapes = [("train", N, K, M,
+               train_group_sizes(np, N, E)),
+              ("small", 77, 48, 130, np.array([30, 0, 0, 40, 0], np.int32))]
+    for label, n, k, m, sizes in shapes:
+        gs = torch.from_numpy(sizes).cuda()
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            x = torch.randn((n, k), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((len(sizes), k, m), generator=gen,
+                             device="cuda") * k ** -0.5).to(dtype)
+            dy = (torch.randn((n, m), generator=gen, device="cuda")
+                  * (len(sizes) / n) ** 0.5).to(dtype)
+            what = f"moe_gemm {label} N={n} K={k} M={m} E={len(sizes)} " \
+                   f"{dtype}"
+            e1 = close_or_raise(torch, what + " forward",
+                                kops.moe_gemm(x, w, gs),
+                                ref.moe_gemm(x, w, gs), tol)
+            e2 = close_or_raise(torch, what + " dgrad",
+                                kops.moe_gemm_dgrad(dy, w, gs),
+                                ref.moe_gemm(dy, w.transpose(1, 2), gs), tol)
+            e3 = close_or_raise(torch, what + " wgrad",
+                                kops.moe_gemm_wgrad(x, dy, gs),
+                                ref.moe_gemm_wgrad(x, dy, gs), tol)
+            if dtype == torch.float32:
+                errs["moe_gemm"] = max(errs["moe_gemm"], e1, e2)
+                errs["moe_gemm_wgrad"] = max(errs["moe_gemm_wgrad"], e3)
+            if label != "train":
+                continue
+            itemsize = x.element_size()
+            fp32 = dtype == torch.float32
+            offs = torch.cumsum(gs, 0, dtype=torch.int32)
+            flops = 2.0 * int(sizes.sum()) * k * m
+            for kernel, call, plain, lib_args, nbytes in (
+                    ("moe_gemm",
+                     lambda: kops.moe_gemm(x, w, gs),
+                     lambda: ref.moe_gemm(x, w, gs), (x, w),
+                     (n * k + E * k * m + n * m) * itemsize + (E + 1) * 4),
+                    ("moe_gemm_dgrad",
+                     lambda: kops.moe_gemm_dgrad(dy, w, gs),
+                     lambda: ref.moe_gemm(dy, w.transpose(1, 2), gs),
+                     (dy, w.transpose(1, 2)),
+                     (n * m + E * k * m + n * k) * itemsize + (E + 1) * 4),
+                    ("moe_gemm_wgrad",
+                     lambda: kops.moe_gemm_wgrad(x, dy, gs),
+                     lambda: ref.moe_gemm_wgrad(x, dy, gs), (x.T, dy),
+                     (n * k + n * m + E * k * m) * itemsize + (E + 1) * 4)):
+                lib, why = library_grouped_mm(torch, *lib_args, offs)
+                b_ms, b_by = bound_ms(nbytes, flops, fp32=fp32)
+                rows.append(dict(
+                    kernel=kernel, shape=f"N={n} K={k} M={m} E={E} "
+                                         f"{str(dtype)[6:]}",
+                    dtype=str(dtype)[6:], ms=time_ms(torch, call),
+                    plain_ms=time_ms(torch, plain),
+                    library_ms=None if lib is None else time_ms(torch, lib),
+                    library_note=why, bound_ms=b_ms, bound_by=b_by))
+            del x, w, dy
+    log(f"moe_gemm groups at the train shape: {shapes[0][4].tolist()}")
+    for r in rows:
+        lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+               else f"none ({r['library_note']})")
+        log(f"time {r['kernel']} {r['shape']}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, _grouped_mm {lib}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return errs, rows
+
+
 # ---------------------------------------------------------------------------
 # engine phases
 # ---------------------------------------------------------------------------
@@ -508,9 +639,150 @@ def fallback_small_phase(torch):
                 f"{err:.3g} (tolerance 1e-4)")
 
 
-def _tree_to(tree, device):
-    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+def train_small_phase(torch):
+    """One float32 smoke train step on the card against the CPU (plain
+    versions): qwen3-moe on both MoE paths (the grouped one through the
+    three grouped-GEMM kernels) and minicpm3 (MLA).  Loss, grad norm and
+    updated params within 1e-4 of each leaf's scale, max(1, max|leaf|)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import TrainState, make_train_step
+    from repro_torch.training.tree import leaves
+
+    for i, (name, moe_path) in enumerate((
+            ("qwen3-moe-235b-a22b", "capacity"),
+            ("qwen3-moe-235b-a22b", "grouped"), ("minicpm3-4b", "capacity"))):
+        cfg = get_smoke_config(name).replace(dtype="float32")
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(i))
+        tokens = torch.randint(0, cfg.vocab_size, (4, 32),
+                               generator=torch.Generator().manual_seed(9))
+        out = {}
+        for device in ("cuda", "cpu"):
+            # a copy each: the step updates the params in place
+            p = _tree_to(params, device, copy=True)
+            opt = AdamW(lr=3e-3, warmup_steps=10)
+            step = make_train_step(model, opt, remat=False,
+                                   extra_inputs=lambda b, m=moe_path: {
+                                       "moe_path": m})
+            state, metrics = step(TrainState(p, opt.init(p)),
+                                  {"tokens": tokens.to(device)})
+            out[device] = ([metrics["loss"], metrics["grad_norm"]]
+                           + leaves(state.params))
+        worst = 0.0
+        for got, want in zip(out["cuda"], out["cpu"]):
+            got, want = got.detach().cpu(), want.detach()
+            scale = max(1.0, float(want.abs().max()))
+            err = float((got - want).abs().max())
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"train {name} {moe_path}: card vs CPU "
+                                     f"max abs err {err:.3g} > 1e-4 x scale "
+                                     f"{scale:.3g}")
+            worst = max(worst, err / scale)
+        log(f"small train {name} {moe_path}: loss {float(out['cpu'][0]):.5f},"
+            f" card vs CPU (loss, grad norm, {len(out['cpu']) - 2} updated "
+            f"leaves) within {worst:.3g} of each leaf's scale "
+            f"(tolerance 1e-4)")
+
+
+def train_phase(torch, np, kops):
+    """Phase 7: moonshot at published widths, ``TRAIN_DEPTH`` layers,
+    float32, ``AdamW(lr=3e-3, warmup_steps=10)`` as ``launch/train.py``,
+    no remat, the grouped MoE path; ``TRAIN_STEPS`` steps on one fixed
+    batch.  Returns (launches, figures)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    from repro_torch.training.tree import leaves
+
+    cfg = get_config(TRAIN_MODEL).replace(n_layers=TRAIN_DEPTH,
+                                          dtype="float32")
+    model = build_model(cfg)
+    opt = AdamW(lr=3e-3, warmup_steps=10)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(model, opt,
+                             torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in leaves(state.params))
+    step = make_train_step(model, opt, remat=False,
+                           extra_inputs=lambda b: {"moe_path": "grouped"})
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+    batch = {"tokens": torch.from_numpy(next(data.batches())["tokens"])
+             .cuda()}
+    torch.cuda.synchronize()
+    log(f"train: {TRAIN_MODEL} at published widths, {TRAIN_DEPTH} layers, "
+        f"float32, {n_params / 1e9:.3f} B params, state built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the main path's run: launch counts start at 0 here
+    reset_launches(kops)
+    losses, gnorms, times = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))         # waits for the step
+        gnorms.append(float(metrics["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+        log(f"train step {i}: loss {losses[-1]:.5f} ce "
+            f"{float(metrics['ce']):.5f} aux {float(metrics['aux']):.5f} "
+            f"grad norm {gnorms[-1]:.4f}, {times[-1] * 1e3:.1f} ms")
+    torch.cuda.synchronize()
+    launches = read_launches(kops)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        raise AssertionError(f"train: non-finite loss or grad norm "
+                             f"{losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall on the fixed batch "
+                             f"{losses}")
+    want = {"moe_gemm": 6 * TRAIN_DEPTH * TRAIN_STEPS,
+            "moe_gemm_wgrad": 3 * TRAIN_DEPTH * TRAIN_STEPS}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"train: {name} launched {launches[name]} "
+                                 f"times, expected {n}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"train: launches {launches} (expected {want}); median step "
+        f"after the first {steady * 1e3:.1f} ms = {tokens / steady:.0f} "
+        f"tokens/s; max memory allocated {peak:.2f} GiB")
+    figures = dict(model=TRAIN_MODEL, layers=TRAIN_DEPTH, params=n_params,
+                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=losses,
+                   grad_norms=gnorms, step_ms=[t * 1e3 for t in times],
+                   median_step_ms=steady * 1e3, tokens_per_s=tokens / steady,
+                   max_memory_gib=peak)
+    figures["profile"] = profile_train_step(torch, step, state, batch)
+    return launches, figures
+
+
+def profile_train_step(torch, step, state, batch):
+    """Where one train step's device time goes, under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"profile: one train step: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({busy_ms / (wall * 1e3):.1%})")
+    rows = []
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        ms = e.self_device_time_total / 1e3
+        rows.append(dict(kernel=e.key[:90], calls=e.count, ms=ms))
+        log(f"profile: {ms:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms, top=rows)
+
+
+def _tree_to(tree, device, copy: bool = False):
+    return {k: _tree_to(v, device, copy) if isinstance(v, dict)
+            else v.to(device, copy=copy) for k, v in tree.items()}
 
 
 def serve_phase(torch, np, kops, models, *, k, page_budget, label, check):
@@ -709,10 +981,12 @@ def main() -> int:
     errs, rows = kernel_phase(torch, kops, ref, cases)
     f_errs, f_rows = fallback_kernel_phase(torch, kops, ref,
                                            ssd_scan_chunked)
+    m_errs, m_rows = moe_kernel_phase(torch, np, kops, ref)
 
     # 4. small models, card against CPU
     small_phase(torch)
     fallback_small_phase(torch)
+    train_small_phase(torch)
 
     # 5. serve the colocated split path
     log("serve: published widths, depths cut to "
@@ -729,6 +1003,11 @@ def main() -> int:
     f_launches, f_serve = serve_phase(
         torch, np, kops, {n: get_config(n) for n in FALLBACK_MODELS}, k=1,
         page_budget=32768, label="serve fallback", check=check_fallback)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. train moonshot at published widths through the grouped MoE path
+    t_launches, train = train_phase(torch, np, kops)
 
     csrc = "src/repro_torch/kernels/csrc/"
     main_shape = {"gqa": ("qwen3-moe-235b-a22b", 1024, 4),
@@ -768,11 +1047,25 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": shape})
+    train_shape = next(r["shape"] for r in m_rows
+                       if r["dtype"] == "float32")
+    for name in ("moe_gemm", "moe_gemm_wgrad"):       # wgrad: its gradient
+        row = next(r for r in m_rows if r["kernel"] == name
+                   and r["shape"] == train_shape)
+        kernels.append({
+            "name": name, "route": "cuda", "source": csrc + "moe_gemm.cu",
+            "replaces": "src/repro/kernels/moe_gemm.py:23",
+            "launches": t_launches[name],
+            "max_abs_err": m_errs[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": train_shape})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernel_times": rows + f_rows, "kernels": kernels,
-         "serve": serve, "serve_fallback": f_serve}, indent=1))
+        {"card": card, "kernel_times": rows + f_rows + m_rows,
+         "kernels": kernels, "serve": serve, "serve_fallback": f_serve,
+         "train": train}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,9 @@ takes seconds), named by the hash of its source and flags and kept in
 report (registers, shared memory and spills per kernel) is kept beside
 it as ``<library>.log``.  ``load`` opens a library with ``ctypes``;
 ``build_all`` compiles every source at once, one ``nvcc`` process each;
-``launch`` calls an entry point on the current stream.  Nothing here
-runs without a card: a kernel is built at its first launch.
+``launch`` calls an entry point on the current stream; ``refuse_grad``
+guards the kernels that have no backward.  Nothing here runs without a
+card: a kernel is built at its first launch.
 """
 from __future__ import annotations
 
@@ -100,6 +101,17 @@ def build_all(build_dir: Path = BUILD_DIR) -> Dict[str, Path]:
         if job is not None:
             job[1].wait()
     return {name: _finish(lib, job) for name, (lib, job) in started}
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a kernel that has no backward would be reached under
+    grad mode with an input that requires grad: its output would carry no
+    ``grad_fn`` and silently cut the graph."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; call it under "
+            f"torch.no_grad() or with inputs that do not require grad")
 
 
 def launch(fn, device: torch.device, *args) -> None:

@@ -60,6 +60,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.shape != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {shape} tensor, "
                              f"got {tuple(t.shape)}")
+    build.refuse_grad("flash_attention", q, k, v)
     out = torch.empty_like(q)
     launch(load_library().flash_prefill, q.device, q, k, v, out, B, S, T, H,
            KV, D, float(scale), DTYPE_CODES[q.dtype])

@@ -13,10 +13,16 @@ hand-written kernel or raises (there is no fallback between the two).
 * ``flash_attention`` — causal GQA prefill (``csrc/flash_attention.cu``);
 * ``ssd_scan`` — the Mamba2 SSD chunked scan (``csrc/ssd_scan.cu``); its
   CPU version is the chunked form the reference's XLA route runs;
+* ``moe_gemm`` / ``moe_gemm_dgrad`` / ``moe_gemm_wgrad`` — the
+  token-sorted grouped expert GEMM of the grouped MoE path and its input
+  and weight gradients (``csrc/moe_gemm.cu``); ``moe_gemm`` is
+  differentiable, its backward runs the other two;
 * ``paged_kv_write`` — the pool write, one indexed store (no kernel of
   its own on either side).
 
-Each kernel entry point counts its launches in ``<name>.launches``.
+Each kernel entry point counts its launches in ``<name>.launches``.  The
+attention and SSD kernels have no backward and raise when reached under
+grad mode with an input that requires grad.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401  (re-export)
 from repro_torch.kernels.paged_attention import (  # noqa: F401  (re-export)
     contiguous_decode_attention as decode_attention, paged_decode_attention,
     paged_mla_decode_attention)
+from repro_torch.kernels.moe_gemm import (  # noqa: F401  (re-export)
+    moe_gemm, moe_gemm_dgrad, moe_gemm_wgrad)
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: F401  (re-export)
 
 

@@ -15,7 +15,9 @@ contiguous wrapper takes the dense-cache layer ``[B, T, KV, D]`` of the
 fallback families as it is.  On a CUDA tensor a wrapper launches its
 kernel or raises; only a tensor that lies on the CPU takes the plain
 PyTorch version (``repro_torch.kernels.ref``).  Each wrapper counts its
-kernel launches in its ``launches`` attribute.
+kernel launches in its ``launches`` attribute.  The kernels have no
+backward: a CUDA call under grad mode with an input that requires grad
+raises (``build.refuse_grad``).
 
 Like the TPU kernels (``src/repro/kernels/paged_attention.py:92,183,284``)
 the wrappers fold ``scale`` into q once and round it back to q's dtype
@@ -107,6 +109,7 @@ def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor,
         raise ValueError(f"{H} query heads do not group over {n_kv} kv heads")
     _check_launch_inputs(q, pool, page_table, lengths, per_tok,
                          tokens_per_page)
+    build.refuse_grad("paged_decode_attention", q, pool)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(load_library().paged_gqa_decode, _scaled(q, scale), pool,
             page_table, lengths, out,
@@ -139,6 +142,7 @@ def paged_mla_decode_attention(q: torch.Tensor, pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"no paged attention kernel for {q.device}")
     _check_launch_inputs(q, pool, page_table, lengths, e, tokens_per_page)
+    build.refuse_grad("paged_mla_decode_attention", q, pool)
     out = torch.empty((B, 1, H, latent_dim), dtype=q.dtype, device=q.device)
     _launch(load_library().paged_mla_decode, _scaled(q, scale), pool,
             page_table, lengths, out,
@@ -179,6 +183,7 @@ def contiguous_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
         raise ValueError(f"{H} query heads do not group over {KV} kv heads")
     if lengths.shape != (B,) or lengths.device != q.device:
         raise ValueError("lengths must be [B] on q's device")
+    build.refuse_grad("decode_attention", q, cache_k, cache_v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     launch(load_library().contiguous_gqa_decode, q.device,
            _scaled(q, scale), cache_k, cache_v,

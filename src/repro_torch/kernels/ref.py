@@ -8,9 +8,10 @@ dense cache), with one guard the JAX oracle leaves implicit: value rows
 at positions ``>= length`` are zeroed before the weighted sum, as the
 kernels do, so garbage (even NaN) past a length cannot leak into the
 output through ``0 * garbage``.  On finite inputs that is exactly the
-oracle's arithmetic.  ``ssd_scan`` is the per-token recurrence the
-chunked SSD scan (``ssd_chunked``, the SSD kernel's plain version) is
-tested against.
+oracle's arithmetic.  ``moe_gemm`` and ``moe_gemm_wgrad`` are the
+grouped expert GEMM's forward and weight gradient.  ``ssd_scan`` is the
+per-token recurrence the chunked SSD scan (``ssd_chunked``, the SSD
+kernel's plain version) is tested against.
 """
 from __future__ import annotations
 
@@ -129,6 +130,46 @@ def paged_mla_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     values = torch.where(valid[:, :, None], rows[..., :latent_dim],
                          torch.zeros((), dtype=rows.dtype, device=rows.device))
     return torch.einsum("bhst,btr->bshr", w, values)
+
+
+def _segments(group_sizes: torch.Tensor):
+    """(expert, first row, end row) of every non-empty group, read on the
+    host (a plain version may synchronise)."""
+    ends = torch.cumsum(group_sizes.long(), 0).tolist()
+    starts = [0] + ends[:-1]
+    return [(e, s, t) for e, (s, t) in enumerate(zip(starts, ends)) if t > s]
+
+
+def moe_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor
+             ) -> torch.Tensor:
+    """Token-sorted grouped matmul ``out[i] = x[i] @ w[expert_of(i)]``
+    (``ref.py:115``).
+
+    x [N,K] sorted by expert; w [E,K,M] (any strides: the dgrad passes
+    ``w.transpose(1, 2)``); group_sizes [E].  Computed one expert segment
+    at a time in f32 (the reference's ``w[expert_of]`` would build an
+    [N,K,M] tensor), rounded to x's dtype.  Rows past ``sum(group_sizes)``
+    are 0, as the kernels leave them (the reference clamps them to the
+    last expert; ``apply_moe_grouped`` never produces such rows).
+    """
+    out = torch.zeros((x.shape[0], w.shape[2]), dtype=x.dtype,
+                      device=x.device)
+    for e, s, t in _segments(group_sizes):
+        out[s:t] = (x[s:t].float() @ w[e].float()).to(x.dtype)
+    return out
+
+
+def moe_gemm_wgrad(x: torch.Tensor, dy: torch.Tensor,
+                   group_sizes: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of ``moe_gemm``: ``dw[e] = x[rows of e]^T @
+    dy[rows of e]`` in f32, in x's dtype; x [N,K], dy [N,M] -> [E,K,M].
+    An expert with no rows gets zeros."""
+    E = group_sizes.shape[0]
+    dw = torch.zeros((E, x.shape[1], dy.shape[1]), dtype=x.dtype,
+                     device=x.device)
+    for e, s, t in _segments(group_sizes):
+        dw[e] = (x[s:t].float().T @ dy[s:t].float()).to(x.dtype)
+    return dw
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

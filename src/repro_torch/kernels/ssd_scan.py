@@ -66,6 +66,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if t.shape != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {shape} tensor, "
                              f"got {tuple(t.shape)}")
+    build.refuse_grad("ssd_scan", x, dt, A, B_, C_, h0)
     lib = load_library()
     if not lib.ssd_scan_supported(P, N, chunk):
         raise ValueError(f"SSD kernel does not take head_dim {P}, state {N},"

@@ -112,7 +112,7 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 x = _ssm_full_layer(_pick(params["layers"], i), cfg, x,
                                     cache["h"], cache["conv"], i)
             x, (k, v) = tfm._attn_full(shared, cfg, x, positions, impl)
-            x = tfm._ffn_full(shared, cfg, x)
+            x, _ = tfm._ffn_full(shared, cfg, x)
             cache["k"][g, :, :S] = k
             cache["v"][g, :, :S] = v
         for i in range(cfg.tail_ssm_layers):
@@ -145,7 +145,7 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             h = layers.rms_norm(x, shared["ln1"], cfg.norm_eps)
             x = x + attn.gqa_decode(shared["attn"], cfg, h, cache["k"][g],
                                     cache["v"][g], lengths, impl=impl)
-            x = tfm._ffn_full(shared, cfg, x)
+            x, _ = tfm._ffn_full(shared, cfg, x)
         for i in range(cfg.tail_ssm_layers):
             x = _ssm_decode_layer(_pick(params["tail"], i), cfg, x,
                                   cache["tail_h"], cache["tail_conv"], i)

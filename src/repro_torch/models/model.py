@@ -1,7 +1,9 @@
-"""Model facade: config -> init / init_cache / prefill / decode_step.
+"""Model facade: config -> init / forward / init_cache / prefill /
+decode_step.
 
-Port of ``src/repro/models/model.py`` for the fused dense-cache path (the
-ssm and hybrid families): the surface the engine's fallback runner calls.
+Port of ``src/repro/models/model.py``: the full-sequence ``forward`` the
+training substrate runs, and the fused dense-cache path (the ssm and
+hybrid families) the engine's fallback runner calls.
 ``impl`` picks the attention route as in the reference: ``"flash"`` for
 prefill and ``"paged"`` for decode take the hand-written kernels,
 ``"xla"`` the masked softmax.  The SSD scan takes its kernel whenever the
@@ -25,6 +27,10 @@ class Model:
 
     def init(self, gen: torch.Generator) -> Dict:
         return tfm.init_params(gen, self.cfg)
+
+    def forward(self, params: Dict, tokens: torch.Tensor, *,
+                impl: str = "xla") -> Tuple[torch.Tensor, torch.Tensor]:
+        return tfm.forward(params, self.cfg, tokens, impl=impl)
 
     def init_cache(self, batch: int, max_len: int, device) -> Dict:
         return dec.init_cache(self.cfg, batch, max_len, device)

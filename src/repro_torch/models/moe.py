@@ -1,10 +1,13 @@
-"""Mixture-of-Experts FFN: top-k router + capacity-based expert dispatch.
+"""Mixture-of-Experts FFN: top-k router + expert dispatch.
 
 Port of the capacity path of ``src/repro/models/moe.py`` (the path the
-serving engine runs).  Expert weights are stacked ``[E, ...]`` — the
-layout the weights arena slices into per-expert slab units.  Each expert
-processes at most ``C`` tokens (``expert_capacity``); pairs past an
-expert's capacity fall back to the residual path (dropped from the FFN).
+serving engine runs) and of its grouped-GEMM path (``apply_moe_grouped``,
+which training reaches through ``forward(moe_path="grouped")``).  Expert
+weights are stacked ``[E, ...]`` — the layout the weights arena slices
+into per-expert slab units.  On the capacity path each expert processes
+at most ``C`` tokens (``expert_capacity``); pairs past an expert's
+capacity fall back to the residual path (dropped from the FFN).  The
+grouped path drops nothing.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
 
 #: Leaves of ``init_moe`` stacked over the leading expert axis ``[E, ...]``.
@@ -123,9 +127,53 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     if cfg.n_shared_experts:
         y = y + layers.apply_mlp(p["shared"], xf, "swiglu")
+    return y.reshape(orig_shape), _aux_loss(experts, probs, cfg)
 
-    # ---- load-balance aux loss (Switch): E * sum_e f_e * P_e ---------------
+
+def _aux_loss(experts: torch.Tensor, probs: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+    """The Switch load-balance loss ``E * sum_e f_e * P_e / k``."""
+    E, k = cfg.n_experts, cfg.experts_per_token
     pair_onehot = F.one_hot(experts.long(), E).float()       # [N,k,E]
     frac_tokens = pair_onehot.sum(dim=1).mean(dim=0)
-    aux = E * torch.sum(frac_tokens * probs.mean(dim=0)) / k
-    return y.reshape(orig_shape), aux
+    return E * torch.sum(frac_tokens * probs.mean(dim=0)) / k
+
+
+def apply_moe_grouped(p: Dict, x: torch.Tensor, cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-sorted grouped-GEMM MoE (``moe.py:309-344``): no capacity,
+    no drop.  x: [B,S,D] (or [N,D]).  Returns (out same shape, aux).
+
+    The (token, k) pairs are sorted by expert with a STABLE argsort (as
+    ``jnp.argsort``), so rows within an expert keep the reference's order;
+    the group sizes are counted on the device (``torch.bincount`` would
+    read a max back to the host) and the three expert products run through
+    ``ops.moe_gemm``.  The combine unsorts the gated rows with the inverse
+    permutation and sums each token's k rows in f32: the reference's
+    segment sum, with no atomics.
+    """
+    orig_shape = x.shape
+    d = cfg.d_model
+    xf = x.reshape(-1, d)
+    N = xf.shape[0]
+    E, k = cfg.n_experts, cfg.experts_per_token
+
+    gates, experts, probs = route(p, xf, cfg)
+    flat_expert = experts.reshape(-1).long()                 # [N*k]
+    order = torch.argsort(flat_expert, stable=True)
+    token_ids = torch.arange(N, device=x.device).repeat_interleave(k)[order]
+    x_sorted = xf[token_ids]                                 # [N*k, D]
+    group_sizes = F.one_hot(flat_expert, E).sum(0).to(torch.int32)
+
+    h = F.silu(kops.moe_gemm(x_sorted, p["wg"], group_sizes)) \
+        * kops.moe_gemm(x_sorted, p["wu"], group_sizes)
+    out_sorted = kops.moe_gemm(h, p["wd"], group_sizes)      # [N*k, D]
+
+    w_sorted = gates.reshape(-1)[order]
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(N * k, device=x.device)
+    y_pairs = (out_sorted * w_sorted[:, None]).float()[inverse]
+    y = y_pairs.reshape(N, k, d).sum(dim=1).to(x.dtype)
+    if cfg.n_shared_experts:
+        y = y + layers.apply_mlp(p["shared"], xf, "swiglu")
+    return y.reshape(orig_shape), _aux_loss(experts, probs, cfg)

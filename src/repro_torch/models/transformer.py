@@ -1,10 +1,11 @@
-"""Decoder parameters and the full-sequence sub-blocks.
+"""Decoder parameters, the full-sequence sub-blocks and the training
+forward.
 
-Port of the parts of ``src/repro/models/transformer.py`` the serving
-paths need: ``init_params`` (``:106``) for the dense / MoE / VLM decoders
+Port of ``src/repro/models/transformer.py`` except its sliding-window and
+audio parts: ``init_params`` (``:106``) for the dense / MoE / VLM decoders
 with GQA or MLA attention and for the ssm and hybrid (zamba2) families,
 ``embed_inputs`` (``:152``), ``_logits`` (``:165``), ``_attn_full``
-(``:175``) and the dense branch of ``_ffn_full`` (``:186``).  The param
+(``:175``), ``_ffn_full`` (``:186``) and ``forward`` (``:207``).  The param
 tree has the reference's shape: per-layer leaves stacked on a leading
 axis under ``"layers"`` (and ``"tail"``), the hybrid's ONE shared
 attention + MLP block under ``"shared_block"``, so ``repro_torch.bridge``
@@ -12,9 +13,10 @@ maps a reference tree onto it leaf for leaf.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -121,11 +123,98 @@ def _attn_full(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
     return x + out, kv
 
 
-def _ffn_full(p_l: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Pre-norm dense MLP + residual (the dense branch of the
-    reference's ``_ffn_full``; the MoE layers run in the split path)."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: the fused MoE FFN is not "
-                                  f"ported; MoE models run split")
+def _ffn_full(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
+              moe_path: str = "capacity"):
+    """Pre-norm MLP or routed-expert FFN + residual: (x, aux).  MoE layers
+    take the capacity path (``apply_moe``) or the grouped-GEMM path
+    (``apply_moe_grouped``); a dense layer's aux is 0."""
     h = layers.rms_norm(x, p_l["ln2"], cfg.norm_eps)
-    return x + layers.apply_mlp(p_l["mlp"], h, cfg.mlp_kind)
+    if cfg.is_moe:
+        if moe_path not in ("capacity", "grouped"):
+            raise ValueError(f"unknown moe_path {moe_path!r}")
+        fn = (moe_mod.apply_moe if moe_path == "capacity"
+              else moe_mod.apply_moe_grouped)
+        f, aux = fn(p_l["moe"], h, cfg)
+    else:
+        f = layers.apply_mlp(p_l["mlp"], h, cfg.mlp_kind)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + f, aux
+
+
+def _unstack(tree, n: int):
+    """Stacked per-layer leaves [n, ...] -> n per-layer trees of views
+    (one ``unbind`` per leaf, so the backward stacks each leaf's n
+    gradients once)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return torch.unbind(tree)
+
+
+def _call(body, remat: bool, *args):
+    """``body(*args)``, activations recomputed in the backward when
+    ``remat`` (the reference's ``jax.checkpoint`` of the scan body)."""
+    if remat:
+        return checkpoint(body, *args, use_reentrant=False)
+    return body(*args)
+
+
+def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            impl: str = "xla", moe_path: str = "capacity",
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward (training): (logits [B,S,V], aux scalar f32).
+
+    Port of ``transformer.py:207-300`` for the dense / vlm / moe decoders
+    (GQA or MLA attention; MoE by ``moe_path``, the aux loss averaged
+    over the layers) and the ssm and hybrid stacks.  ``remat=True``
+    recomputes each layer's (each hybrid group's) activations in the
+    backward.  Sliding-window attention and the audio family are not
+    ported and raise; the vlm stub-embedding prefix is not ported either
+    (text tokens only).
+    """
+    fam = cfg.family
+    if fam not in ("dense", "vlm", "moe", "ssm", "hybrid"):
+        raise NotImplementedError(f"{cfg.name}: family {fam} is not ported")
+    if cfg.sliding_window:
+        raise NotImplementedError(f"{cfg.name}: sliding-window attention "
+                                  f"is not ported")
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    x = embed_inputs(params, cfg, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def block(xc, p_l):
+        xc, _ = _attn_full(p_l, cfg, xc, positions, impl)
+        return _ffn_full(p_l, cfg, xc, moe_path)
+
+    def ssm_block(xc, p_l):
+        h = layers.rms_norm(xc, p_l["ln"], cfg.norm_eps)
+        out, _ = ssm_mod.ssm_full(p_l["ssm"], cfg, h)
+        return xc + out
+
+    if fam in ("dense", "vlm", "moe"):
+        for p_l in _unstack(params["layers"], cfg.n_layers):
+            x, a = _call(block, remat, x, p_l)
+            aux = aux + a
+        return _logits(params, cfg, x), aux / max(cfg.n_layers, 1)
+    if fam == "ssm":
+        for p_l in _unstack(params["layers"], cfg.n_layers):
+            x = _call(ssm_block, remat, x, p_l)
+        return _logits(params, cfg, x), aux
+
+    per = cfg.ssm_per_group
+    ssm_layers = _unstack(params["layers"], cfg.hybrid_groups * per)
+
+    def group(xc, group_layers):
+        for p_l in group_layers:
+            xc = ssm_block(xc, p_l)
+        xc, _ = _attn_full(params["shared_block"], cfg, xc, positions, impl)
+        xc, _ = _ffn_full(params["shared_block"], cfg, xc)
+        return xc
+
+    for g in range(cfg.hybrid_groups):
+        x = _call(group, remat, x, ssm_layers[g * per:(g + 1) * per])
+    if cfg.tail_ssm_layers:
+        for p_l in _unstack(params["tail"], cfg.tail_ssm_layers):
+            x = ssm_block(x, p_l)
+    return _logits(params, cfg, x), aux

@@ -1,5 +1,6 @@
 """The port on a CUDA card: the hand-written kernels against their plain
-PyTorch versions, and the engine on the card against the CPU.
+PyTorch versions, the engine and the train step on the card against the
+CPU.
 
 Every test here needs a card and carries the ``cuda`` marker; without a
 card each one skips (the CUDA kernels have no CPU mode).  The file
@@ -16,9 +17,13 @@ from repro_torch.configs.base import EngineConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ssd_chunked import ssd_scan_chunked
+from repro_torch.models.model import build_model
 from repro_torch.models.transformer import init_params
 from repro_torch.runtime.engine import CrossPoolEngine, EngineMode
 from repro_torch.runtime.request import Request
+from repro_torch.training.optimizer import AdamW
+from repro_torch.training.train_step import TrainState, make_train_step
+from repro_torch.training.tree import leaves, map_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -219,3 +224,117 @@ def test_fallback_engine_on_the_card_serves_and_returns_every_page(cuda):
         assert getattr(kops, f).launches > n, f
     assert all(int(r.nonfinite_logits) == 0
                for r in engine.runners.values())
+
+
+# ---------------------------------------------------------------------------
+# grouped expert GEMM, the guard on kernels without a backward, training
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("N,K,M,sizes", [
+    (300, 64, 96, [100, 0, 150, 0, 50]),      # empty experts
+    (1000, 256, 200, [0, 0, 0, 333, 333, 334]),
+    (77, 48, 130, [70, 0, 0]),                # rows past the groups
+])
+def test_moe_gemm_kernels_match_plain(cuda, dtype, tol, N, K, M, sizes):
+    """Forward, input gradient and weight gradient (through autograd)
+    against the plain versions; rows no expert covers come out 0."""
+    gen = torch.Generator(device=cuda).manual_seed(N + K)
+    x, dy = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+             for shape in ((N, K), (N, M)))
+    w = torch.randn((len(sizes), K, M), generator=gen, device=cuda).to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    before = (kops.moe_gemm.launches, kops.moe_gemm_wgrad.launches)
+    out = kops.moe_gemm(xg, wg, gs)
+    out.backward(dy)
+    assert (kops.moe_gemm.launches - before[0],
+            kops.moe_gemm_wgrad.launches - before[1]) == (2, 1)
+    covered = sum(sizes)
+    for got, want in ((out, tref.moe_gemm(x, w, gs)),
+                      (xg.grad, tref.moe_gemm(dy, w.transpose(1, 2), gs)),
+                      (wg.grad, tref.moe_gemm_wgrad(x, dy, gs))):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    assert not out[covered:].any() and not xg.grad[covered:].any()
+
+
+def test_kernels_without_backward_refuse_grad(cuda):
+    """Under grad mode with an input that requires grad, the attention and
+    SSD kernels raise instead of returning a tensor with no grad_fn; under
+    ``torch.no_grad()`` they run."""
+    def rand(*shape):
+        return torch.randn(shape, device=cuda)
+
+    q = rand(1, 1, 4, 16).requires_grad_(True)
+    lens = torch.tensor([5], dtype=torch.int32, device=cuda)
+    table = torch.tensor([[0, 1]], dtype=torch.int32, device=cuda)
+    x = rand(2, 48, 4, 16).requires_grad_(True)
+    dt = torch.nn.functional.softplus(rand(2, 48, 4))
+    calls = {
+        "paged_decode_attention": lambda: kops.paged_decode_attention(
+            q, rand(2, 4 * 2 * 2 * 16), table, lens, tokens_per_page=4,
+            n_kv=2, scale=0.25),
+        "paged_mla_decode_attention": lambda: (
+            kops.paged_mla_decode_attention(
+                rand(1, 1, 4, 24).requires_grad_(True), rand(2, 4 * 24),
+                table, lens, tokens_per_page=4, latent_dim=16, scale=0.2)),
+        "decode_attention": lambda: kops.decode_attention(
+            q, rand(1, 8, 2, 16), rand(1, 8, 2, 16), lens, scale=0.25),
+        "flash_attention": lambda: kops.flash_attention(
+            rand(1, 8, 4, 16).requires_grad_(True), rand(1, 8, 2, 16),
+            rand(1, 8, 2, 16), scale=0.25),
+        "ssd_scan": lambda: kops.ssd_scan(
+            x, dt, -torch.exp(rand(4)), rand(2, 48, 2, 16), rand(2, 48, 2, 16),
+            chunk=16),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One float32 smoke step of qwen3-moe on the grouped path (the three
+    grouped-GEMM kernels): loss, grad norm and updated params as on the
+    CPU, within 1e-4 of each leaf's scale (max(1, max|leaf|))."""
+    cfg = get_smoke_config("qwen3-moe-235b-a22b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (4, 16),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for device in ("cpu", cuda):
+        p = map_tree(lambda t: t.detach().clone().to(device), params)
+        opt = AdamW(lr=3e-3, warmup_steps=10)
+        step = make_train_step(model, opt, remat=False,
+                               extra_inputs=lambda b: {"moe_path": "grouped"})
+        wgrad = kops.moe_gemm_wgrad.launches
+        state, metrics = step(TrainState(p, opt.init(p)),
+                              {"tokens": tokens.to(device)})
+        if device is cuda:
+            assert kops.moe_gemm_wgrad.launches == wgrad + 3 * cfg.n_layers
+        out[str(device)] = (metrics, [t.detach().cpu()
+                                      for t in leaves(state.params)])
+    (m_card, p_card), (m_cpu, p_cpu) = out["cuda"], out["cpu"]
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m_card[k]) - float(m_cpu[k])) <= \
+            1e-4 * max(1.0, abs(float(m_cpu[k])))
+    for a, b in zip(p_card, p_cpu):
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * scale)
+
+
+def test_train_step_refuses_ssm_on_the_card(cuda):
+    cfg = get_smoke_config("mamba2-130m").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    opt = AdamW()
+    step = make_train_step(model, opt, remat=False)
+    tokens = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        step(TrainState(params, opt.init(params)), {"tokens": tokens})

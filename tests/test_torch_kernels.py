@@ -18,6 +18,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.kernels.moe_gemm import moe_gemm as pallas_moe_gemm
 from repro.kernels.paged_attention import (contiguous_decode_attention as
                                            pallas_decode,
                                            paged_decode_attention as
@@ -26,6 +27,7 @@ from repro.kernels.paged_attention import (contiguous_decode_attention as
                                            pallas_paged_mla)
 from repro.kernels.ssd_chunked import ssd_scan_chunked as j_chunked
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd
+from repro_torch.bridge import to_torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as tref
@@ -203,7 +205,8 @@ def test_every_source_has_its_own_library():
     source rebuilds that one only."""
     srcs = build.sources()
     assert {p.name for p in srcs} >= {"paged_attention.cu",
-                                      "flash_attention.cu", "ssd_scan.cu"}
+                                      "flash_attention.cu", "ssd_scan.cu",
+                                      "moe_gemm.cu"}
     libs = {build.library_path(p).name for p in srcs}
     assert len(libs) == len(srcs)
     assert all(build.library_path(p).parent == build.BUILD_DIR for p in srcs)
@@ -359,3 +362,53 @@ def test_ssd_decode_step_continues_the_scan():
     y_seq, h_seq = tref.ssd_scan(*t)
     np.testing.assert_allclose(y_t.numpy(), y_seq[:, 16].numpy(), **SSD_TOL)
     np.testing.assert_allclose(h_next.numpy(), h_seq.numpy(), **SSD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# grouped expert GEMM
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("N,K,M,E,bn,bm", [
+    (256, 64, 128, 4, 64, 64),
+    (128, 32, 64, 8, 32, 32),
+    (96, 16, 48, 3, 32, 16),             # ragged everything
+    (64, 128, 256, 2, 64, 128),
+])
+def test_plain_moe_gemm_matches_jax_oracle_and_pallas(N, K, M, E, bn, bm,
+                                                      dtype):
+    """The shapes and groups of ``tests/test_kernels.py`` (some groups
+    empty); float32 within 1e-4, bf16 within 2e-2."""
+    rng = np.random.default_rng(N + E)
+    x = jnp.asarray(rng.standard_normal((N, K)), dtype)
+    w = jnp.asarray(rng.standard_normal((E, K, M)), dtype)
+    cuts = np.sort(rng.integers(0, N + 1, E - 1))
+    sizes = np.diff(np.concatenate([[0], cuts, [N]])).astype(np.int32)
+    before = kops.moe_gemm.launches
+    got = kops.moe_gemm(to_torch(np.asarray(x)), to_torch(np.asarray(w)),
+                        _t(sizes))
+    assert kops.moe_gemm.launches == before               # CPU: no kernel
+    assert got.dtype == (torch.bfloat16 if dtype == jnp.bfloat16
+                         else torch.float32)
+    tol = (dict(rtol=2e-2, atol=2e-2) if dtype == jnp.bfloat16
+           else dict(rtol=1e-4, atol=1e-4))
+    got = got.float().numpy()
+    gs = jnp.asarray(sizes)
+    for want in (jref.moe_gemm(x, w, gs),
+                 pallas_moe_gemm(x, w, gs, block_n=bn, block_m=bm)):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32), **tol)
+
+
+def test_plain_moe_gemm_zeroes_rows_past_the_groups():
+    """Rows no expert covers come out 0 (as the kernels write them), and
+    the weight gradient of an expert with no rows is 0."""
+    rng = np.random.default_rng(2)
+    x = _t(rng.standard_normal((10, 4)).astype(np.float32))
+    w = _t(rng.standard_normal((3, 4, 5)).astype(np.float32))
+    sizes = _t(np.array([3, 0, 4], np.int32))
+    out = tref.moe_gemm(x, w, sizes)
+    assert not out[7:].any()
+    torch.testing.assert_close(out[3:7], x[3:7] @ w[2])
+    dw = tref.moe_gemm_wgrad(x, out, sizes)
+    assert not dw[1].any()
+    torch.testing.assert_close(dw[0], x[:3].T @ out[:3])
