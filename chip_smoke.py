@@ -47,14 +47,20 @@ other than 0) if any phase fails:
              must be finite, the last loss below the first, and the
              grouped GEMM must have launched exactly 6 times per layer
              per step (3 forward, 3 input gradients) and its wgrad kernel
-             3 times.
+             3 times; the router's load of the last step (the group sizes
+             of each layer) is recorded;
+8. moe gemm — holds the grouped GEMM (forward, input and weight
+             gradients) against its plain versions, float32 within 1e-4
+             and bf16 within 2e-2, at both shapes phase 7 gives it
+             (gate/up: K = d_model, M = d_ff; down: K = d_ff, M = d_model)
+             with each layer's recorded load, with that load's 4 least
+             loaded experts emptied, and on a small shape with empty
+             experts; then times it at the gate/up shape and layer 0's
+             load.
 
-Phase 3 also holds the grouped GEMM (forward, input and weight
-gradients) against its plain versions at phase 7's shape, float32 within
-1e-4 and bf16 within 2e-2, and times it; phase 4 also runs one float32
-smoke train step of qwen3-moe (both MoE paths) and minicpm3 on the card
-against the CPU (loss, grad norm and updated params within 1e-4 of each
-leaf's scale, max(1, max|leaf|)).
+Phase 4 also runs one float32 smoke train step of qwen3-moe (both MoE
+paths) and minicpm3 on the card against the CPU (loss, grad norm and
+updated params within 1e-4 of each leaf's scale, max(1, max|leaf|)).
 
 Launch counts are set to 0 just before each serve or train phase and
 read just after it.  It prints a JSON line with every kernel's numbers,
@@ -438,13 +444,15 @@ def fallback_kernel_phase(torch, kops, ref, ssd_scan_chunked):
     return errs, rows
 
 
-def train_group_sizes(np, n_rows: int, experts: int, seed: int = 0):
-    """Ragged expert group sizes summing to ``n_rows``: a skewed (gamma)
-    router load with 4 experts that receive no token."""
-    rng = np.random.default_rng(seed)
-    load = rng.gamma(0.5, size=experts)
-    load[rng.choice(experts, 4, replace=False)] = 0.0
-    return rng.multinomial(n_rows, load / load.sum()).astype(np.int32)
+def with_empty_experts(np, sizes, n_empty: int = 4):
+    """``sizes`` with the rows of its ``n_empty`` least loaded experts
+    moved onto the most loaded one: the same rows, some experts empty."""
+    out = sizes.copy()
+    idle = np.argsort(out, kind="stable")[:n_empty]
+    busiest = int(np.argmax(out))
+    out[busiest] += out[idle].sum()
+    out[idle] = 0
+    return out
 
 
 def library_grouped_mm(torch, a, b, offs):
@@ -463,27 +471,35 @@ def library_grouped_mm(torch, a, b, offs):
     return (lambda: fn(a, b, offs=offs)), None
 
 
-def moe_kernel_phase(torch, np, kops, ref):
-    """The grouped GEMM at phase 7's shape (x [8*512*top-6, d_model],
-    w [E, d_model, d_ff] of moonshot, ragged groups with empty experts)
-    and on a small ragged shape: forward, input gradient and weight
-    gradient against the plain versions (float32 within 1e-4, bf16 within
-    2e-2), then timed in both types beside the bound and one
-    ``torch._grouped_mm`` call where the card's torch takes the type.
-    Inputs at the model's scales: x unit normal, w LeCun normal (as
-    ``init_moe``), dy unit normal over sqrt(rows per expert), so that
-    every sum is O(1) as in training (with unit weights a K = 2048 sum
-    carries f32 rounding of ~1e-4 in any order)."""
+def moe_kernel_phase(torch, np, kops, ref, loads):
+    """Phase 8: the grouped GEMM at the shapes phase 7 gives it (x
+    [8*512*top-6, K], w [E, K, M] with (K, M) = (d_model, d_ff) for gate
+    and up, (d_ff, d_model) for down) with the router's ``loads`` (one
+    [E] array per layer), the first of them with 4 experts emptied, and a
+    small ragged shape with empty experts: forward, input gradient and
+    weight gradient against the plain versions (float32 within 1e-4, bf16
+    within 2e-2).  Then timed in both types at the gate/up shape and
+    ``loads[0]``, beside the bound and one ``torch._grouped_mm`` call
+    where the card's torch takes the type.  Inputs at the model's scales:
+    x unit normal, w LeCun normal (as ``init_moe``), dy unit normal over
+    sqrt(rows per expert), so that every sum is O(1) as in training (with
+    unit weights a K = 2048 sum carries f32 rounding of ~1e-4 in any
+    order)."""
     from repro_torch.configs import get_config
     cfg = get_config(TRAIN_MODEL)
     N = TRAIN_BATCH * TRAIN_SEQ * cfg.experts_per_token
-    K, M, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     errs, rows = {"moe_gemm": 0.0, "moe_gemm_wgrad": 0.0}, []
-    shapes = [("train", N, K, M,
-               train_group_sizes(np, N, E)),
-              ("small", 77, 48, 130, np.array([30, 0, 0, 40, 0], np.int32))]
+    shapes = [(f"{proj} layer {i}", N, k, m, sizes)
+              for i, sizes in enumerate(loads)
+              for proj, k, m in (("gate/up", D, F), ("down", F, D))]
+    shapes += [(f"{proj} layer 0, 4 experts emptied", N, k, m,
+                with_empty_experts(np, loads[0]))
+               for proj, k, m in (("gate/up", D, F), ("down", F, D))]
+    shapes.append(("small", 77, 48, 130, np.array([30, 0, 0, 40, 0],
+                                                  np.int32)))
     for label, n, k, m, sizes in shapes:
         gs = torch.from_numpy(sizes).cuda()
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
@@ -506,22 +522,25 @@ def moe_kernel_phase(torch, np, kops, ref):
             if dtype == torch.float32:
                 errs["moe_gemm"] = max(errs["moe_gemm"], e1, e2)
                 errs["moe_gemm_wgrad"] = max(errs["moe_gemm_wgrad"], e3)
-            if label != "train":
+            if label != "gate/up layer 0":
                 continue
             itemsize = x.element_size()
             fp32 = dtype == torch.float32
             offs = torch.cumsum(gs, 0, dtype=torch.int32)
             flops = 2.0 * int(sizes.sum()) * k * m
+            # forward and dgrad read only the experts that have rows; wgrad
+            # writes every expert's gradient
+            busy = int((sizes > 0).sum())
             for kernel, call, plain, lib_args, nbytes in (
                     ("moe_gemm",
                      lambda: kops.moe_gemm(x, w, gs),
                      lambda: ref.moe_gemm(x, w, gs), (x, w),
-                     (n * k + E * k * m + n * m) * itemsize + (E + 1) * 4),
+                     (n * k + busy * k * m + n * m) * itemsize + (E + 1) * 4),
                     ("moe_gemm_dgrad",
                      lambda: kops.moe_gemm_dgrad(dy, w, gs),
                      lambda: ref.moe_gemm(dy, w.transpose(1, 2), gs),
                      (dy, w.transpose(1, 2)),
-                     (n * m + E * k * m + n * k) * itemsize + (E + 1) * 4),
+                     (n * m + busy * k * m + n * k) * itemsize + (E + 1) * 4),
                     ("moe_gemm_wgrad",
                      lambda: kops.moe_gemm_wgrad(x, dy, gs),
                      lambda: ref.moe_gemm_wgrad(x, dy, gs), (x.T, dy),
@@ -536,13 +555,12 @@ def moe_kernel_phase(torch, np, kops, ref):
                     library_ms=None if lib is None else time_ms(torch, lib),
                     library_note=why, bound_ms=b_ms, bound_by=b_by))
             del x, w, dy
-    log(f"moe_gemm groups at the train shape: {shapes[0][4].tolist()}")
     for r in rows:
         lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
                else f"none ({r['library_note']})")
-        log(f"time {r['kernel']} {r['shape']}: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, _grouped_mm {lib}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        log(f"time {r['kernel']} {r['shape']} (layer 0's load): kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, _grouped_mm "
+            f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return errs, rows
 
 
@@ -612,6 +630,7 @@ def fallback_small_phase(torch):
     (plain versions): prefill and one decode step, logits within 1e-4."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import build_model
+    from repro_torch.training.tree import map_tree
 
     prompt = torch.randint(0, 256, (2, 48), generator=torch.Generator()
                            .manual_seed(7), dtype=torch.int32)
@@ -622,7 +641,7 @@ def fallback_small_phase(torch):
         params = model.init(torch.Generator().manual_seed(i))
         out = {}
         for device in ("cuda", "cpu"):
-            p = _tree_to(params, device)
+            p = map_tree(lambda t: t.to(device, copy=True), params)
             cache = model.init_cache(2, 64, device)
             first, _ = model.prefill(p, prompt.to(device), cache,
                                      impl="flash", logit_index=40)
@@ -648,7 +667,7 @@ def train_small_phase(torch):
     from repro_torch.models.model import build_model
     from repro_torch.training.optimizer import AdamW
     from repro_torch.training.train_step import TrainState, make_train_step
-    from repro_torch.training.tree import leaves
+    from repro_torch.training.tree import leaves, map_tree
 
     for i, (name, moe_path) in enumerate((
             ("qwen3-moe-235b-a22b", "capacity"),
@@ -661,7 +680,7 @@ def train_small_phase(torch):
         out = {}
         for device in ("cuda", "cpu"):
             # a copy each: the step updates the params in place
-            p = _tree_to(params, device, copy=True)
+            p = map_tree(lambda t: t.to(device, copy=True), params)
             opt = AdamW(lr=3e-3, warmup_steps=10)
             step = make_train_step(model, opt, remat=False,
                                    extra_inputs=lambda b, m=moe_path: {
@@ -686,12 +705,30 @@ def train_small_phase(torch):
             f"(tolerance 1e-4)")
 
 
+class LoadRecorder:
+    """Stands in for the kernel ops inside ``models.moe``: records the
+    group sizes (the router's load) of every grouped-GEMM call and passes
+    each call on unchanged, so the launch counts stay the kernels' own."""
+
+    def __init__(self, kops):
+        self.kops, self.sizes = kops, []
+
+    def __getattr__(self, name):
+        return getattr(self.kops, name)
+
+    def moe_gemm(self, x, w, group_sizes):
+        self.sizes.append(group_sizes)
+        return self.kops.moe_gemm(x, w, group_sizes)
+
+
 def train_phase(torch, np, kops):
     """Phase 7: moonshot at published widths, ``TRAIN_DEPTH`` layers,
     float32, ``AdamW(lr=3e-3, warmup_steps=10)`` as ``launch/train.py``,
     no remat, the grouped MoE path; ``TRAIN_STEPS`` steps on one fixed
-    batch.  Returns (launches, figures)."""
+    batch.  Returns (launches, figures, the last step's router load: one
+    [E] int32 array per layer)."""
     from repro_torch.configs import get_config
+    from repro_torch.models import moe
     from repro_torch.models.model import build_model
     from repro_torch.training.data import DataConfig, SyntheticLM
     from repro_torch.training.optimizer import AdamW
@@ -720,17 +757,28 @@ def train_phase(torch, np, kops):
     # the main path's run: launch counts start at 0 here
     reset_launches(kops)
     losses, gnorms, times = [], [], []
-    for i in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        losses.append(float(metrics["loss"]))         # waits for the step
-        gnorms.append(float(metrics["grad_norm"]))
-        times.append(time.perf_counter() - t0)
-        log(f"train step {i}: loss {losses[-1]:.5f} ce "
-            f"{float(metrics['ce']):.5f} aux {float(metrics['aux']):.5f} "
-            f"grad norm {gnorms[-1]:.4f}, {times[-1] * 1e3:.1f} ms")
+    moe.kops = recorder = LoadRecorder(kops)
+    try:
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))     # waits for the step
+            gnorms.append(float(metrics["grad_norm"]))
+            times.append(time.perf_counter() - t0)
+            log(f"train step {i}: loss {losses[-1]:.5f} ce "
+                f"{float(metrics['ce']):.5f} aux "
+                f"{float(metrics['aux']):.5f} grad norm {gnorms[-1]:.4f}, "
+                f"{times[-1] * 1e3:.1f} ms")
+    finally:
+        moe.kops = kops
     torch.cuda.synchronize()
     launches = read_launches(kops)
+    # three grouped GEMMs per layer share one load; the last step's
+    loads = [g.cpu().numpy() for g in
+             recorder.sizes[-3 * TRAIN_DEPTH::3]]
+    for i, sizes in enumerate(loads):
+        log(f"train: router load of layer {i} in the last step (rows per "
+            f"expert): {sizes.tolist()}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not all(math.isfinite(v) for v in losses + gnorms):
         raise AssertionError(f"train: non-finite loss or grad norm "
@@ -753,9 +801,9 @@ def train_phase(torch, np, kops):
                    batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=losses,
                    grad_norms=gnorms, step_ms=[t * 1e3 for t in times],
                    median_step_ms=steady * 1e3, tokens_per_s=tokens / steady,
-                   max_memory_gib=peak)
+                   max_memory_gib=peak, loads=[s.tolist() for s in loads])
     figures["profile"] = profile_train_step(torch, step, state, batch)
-    return launches, figures
+    return launches, figures, loads
 
 
 def profile_train_step(torch, step, state, batch):
@@ -778,11 +826,6 @@ def profile_train_step(torch, step, state, batch):
         rows.append(dict(kernel=e.key[:90], calls=e.count, ms=ms))
         log(f"profile: {ms:9.3f} ms {e.count:5d}x  {e.key[:90]}")
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms, top=rows)
-
-
-def _tree_to(tree, device, copy: bool = False):
-    return {k: _tree_to(v, device, copy) if isinstance(v, dict)
-            else v.to(device, copy=copy) for k, v in tree.items()}
 
 
 def serve_phase(torch, np, kops, models, *, k, page_budget, label, check):
@@ -981,7 +1024,6 @@ def main() -> int:
     errs, rows = kernel_phase(torch, kops, ref, cases)
     f_errs, f_rows = fallback_kernel_phase(torch, kops, ref,
                                            ssd_scan_chunked)
-    m_errs, m_rows = moe_kernel_phase(torch, np, kops, ref)
 
     # 4. small models, card against CPU
     small_phase(torch)
@@ -1007,7 +1049,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. train moonshot at published widths through the grouped MoE path
-    t_launches, train = train_phase(torch, np, kops)
+    t_launches, train, loads = train_phase(torch, np, kops)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. the grouped GEMM at phase 7's shapes and router load
+    m_errs, m_rows = moe_kernel_phase(torch, np, kops, ref, loads)
 
     csrc = "src/repro_torch/kernels/csrc/"
     main_shape = {"gqa": ("qwen3-moe-235b-a22b", 1024, 4),

@@ -25,35 +25,10 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.training.tree import leaves_with_path, map_tree
+
 _SEP = "___"
 _NONE = _SEP + "__none__"
-
-
-def _walk(node, path, visit) -> None:
-    """Call ``visit(key, leaf)`` for every leaf (None included) of a tree
-    of dicts, NamedTuples, tuples and lists."""
-    if isinstance(node, dict):
-        for k, v in node.items():
-            _walk(v, path + (str(k),), visit)
-    elif hasattr(node, "_fields"):
-        for name, v in zip(node._fields, node):
-            _walk(v, path + (str(name),), visit)
-    elif isinstance(node, (tuple, list)):
-        for i, v in enumerate(node):
-            _walk(v, path + (str(i),), visit)
-    else:
-        visit(_SEP.join(path), node)
-
-
-def _map(fn, node):
-    """``fn`` over the leaves (None included), keeping the structure."""
-    if isinstance(node, dict):
-        return {k: _map(fn, v) for k, v in node.items()}
-    if hasattr(node, "_fields"):
-        return type(node)(*(_map(fn, v) for v in node))
-    if isinstance(node, (tuple, list)):
-        return type(node)(_map(fn, v) for v in node)
-    return fn(node)
 
 
 class _Host:
@@ -83,19 +58,17 @@ def save(tree, step: int, directory: str) -> str:
     tmp = directory + f".tmp-{step}"
     os.makedirs(tmp, exist_ok=True)
     index: Dict[str, Any] = {"step": step, "leaves": {}}
-
-    def write(key, leaf):
+    for path, leaf in leaves_with_path(tree):
+        key = _SEP.join(path)
         if leaf is None:
             index["leaves"][key + _NONE] = {"none": True}
-            return
+            continue
         host = leaf if isinstance(leaf, _Host) else _Host(leaf)
         fname = f"{len(index['leaves']):06d}.npy"
         np.save(os.path.join(tmp, fname), host.arr)
         index["leaves"][key] = {"file": fname,
                                 "shape": list(host.arr.shape),
                                 "dtype": host.dtype}
-
-    _walk(tree, (), write)
     with open(os.path.join(tmp, "index.json"), "w") as f:
         json.dump(index, f)
     final = os.path.join(directory, f"step_{step:08d}")
@@ -109,7 +82,7 @@ def save(tree, step: int, directory: str) -> str:
 
 def save_async(tree, step: int, directory: str) -> threading.Thread:
     """Snapshot the tensors to the host now; write on a worker thread."""
-    snapshot = _map(lambda x: None if x is None else _Host(x), tree)
+    snapshot = map_tree(lambda x: None if x is None else _Host(x), tree)
     t = threading.Thread(target=save, args=(snapshot, step, directory),
                          daemon=True)
     t.start()
@@ -148,10 +121,8 @@ def restore(directory: str, step: Optional[int] = None, *,
                                meta["dtype"], device)
     if target_tree is None:
         return _unflatten(flat), step
-    keys = []
-    _walk(target_tree, (), lambda key, _: keys.append(key))
-    it = iter(keys)
-    return _map(lambda _: flat[next(it)], target_tree), step
+    it = iter(_SEP.join(path) for path, _ in leaves_with_path(target_tree))
+    return map_tree(lambda _: flat[next(it)], target_tree), step
 
 
 def _unflatten(flat: Dict[str, Any]):

@@ -43,7 +43,7 @@ from repro_torch.training.data import DataConfig, SyntheticLM
 from repro_torch.training.optimizer import AdamW
 from repro_torch.training.train_step import (TrainState, init_train_state,
                                              make_loss_fn, make_train_step)
-from repro_torch.training.tree import leaves, map_tree
+from repro_torch.training.tree import leaves, leaves_with_path, map_tree
 
 MOE = "qwen3-moe-235b-a22b"
 
@@ -301,13 +301,8 @@ def _setup(name="qwen3-14b", **opt_kw):
 
 
 def _clone(state: TrainState) -> TrainState:
-    copy = lambda t: t.detach().clone()                      # noqa: E731
-    return TrainState(map_tree(copy, state.params),
-                      state.opt._replace(count=state.opt.count.clone(),
-                                         m=map_tree(copy, state.opt.m),
-                                         v=map_tree(copy, state.opt.v)),
-                      None if state.error_fb is None
-                      else map_tree(copy, state.error_fb))
+    return map_tree(lambda t: None if t is None else t.detach().clone(),
+                    state)
 
 
 def _batches(cfg, n, seq, batch, seed):
@@ -400,9 +395,7 @@ def test_synthetic_batches_equal_the_reference(structured):
 
 
 def _assert_trees_equal(a, b):
-    flat_a, flat_b = [], []
-    ckpt._walk(a, (), lambda k, v: flat_a.append((k, v)))
-    ckpt._walk(b, (), lambda k, v: flat_b.append((k, v)))
+    flat_a, flat_b = leaves_with_path(a), leaves_with_path(b)
     assert [k for k, _ in flat_a] == [k for k, _ in flat_b]
     for (_, x), (_, y) in zip(flat_a, flat_b):
         if x is None or y is None:
@@ -410,6 +403,20 @@ def _assert_trees_equal(a, b):
             continue
         assert x.dtype == y.dtype
         torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+def test_tree_walks_namedtuples_tuples_and_none():
+    state = TrainState({"a": torch.ones(2), "b": {"c": torch.zeros(3)}},
+                       (torch.ones(()), [torch.full((2,), 2.0)]), None)
+    paths = [p for p, _ in leaves_with_path(state)]
+    assert paths == [("params", "a"), ("params", "b", "c"), ("opt", "0"),
+                     ("opt", "1", "0"), ("error_fb",)]
+    doubled = map_tree(lambda t, u: None if t is None else t + u, state,
+                       state)
+    assert isinstance(doubled, TrainState) and doubled.error_fb is None
+    assert isinstance(doubled.opt, tuple) and isinstance(doubled.opt[1], list)
+    assert [float(t.sum()) for t in leaves(doubled) if t is not None] == \
+        [4.0, 0.0, 2.0, 8.0]
 
 
 def test_checkpoint_roundtrip_exact():
