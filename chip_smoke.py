@@ -16,17 +16,28 @@ other than 0) if any phase fails:
              the paged decode kernels at the head geometries of the three
              colocated models (bf16 within 2e-2, float32 within 2e-5 on
              a small shape), with ragged lengths, unmapped (-1) table
-             entries and NaN garbage beyond every length; flash prefill,
-             contiguous decode (ragged lengths, NaN past them) and the
-             SSD scan (float32 within 1e-3, bf16 ``y`` within 2e-2, with
-             and without ``h0``) at the zamba2 / mamba2 geometries; then
-             times kernel, plain version and, for attention, one
-             ``scaled_dot_product_attention`` call on the same data (a
-             yardstick only: the port never calls it), beside the bound;
+             entries past and inside lengths and NaN garbage beyond every
+             length, and for GQA lengths 0 and 1, on and beside a split
+             boundary, ending mid-page, one row at context 32768 and
+             the smoke configs' head dim 8;
+             a CUDA-graph replay of the paged GQA call with new lengths
+             against an eager call, and both GQA wrappers under
+             ``set_sync_debug_mode("error")``; flash prefill (S = T up to
+             4096, T > S, S and T off the tile, every head dim),
+             contiguous decode (ragged lengths with 0 and a split
+             boundary, NaN past them) and the SSD scan (float32 within
+             1e-3, bf16 ``y`` within 2e-2, with and without ``h0``) at
+             the zamba2 / mamba2 geometries; then times kernel, plain
+             version and, for attention, one
+             ``scaled_dot_product_attention`` call on the same data under
+             each SDPA backend that takes it (a yardstick only: the port
+             never calls it; the fastest is ``library_ms``), beside the
+             bound;
 4. small   — float32 smoke-size models on the card against the CPU
              (plain versions): the colocated set and zamba2 + mamba2;
              prefill and one decode step give the same logits within
-             1e-4;
+             1e-4; then the same smoke models in bf16, as the serve CLI
+             runs them by default, served through the engine;
 5. serve   — ``CrossPoolEngine(device="cuda")`` over the paper's three
              colocated models at their published widths, bf16, depths
              cut to ``FULL_WIDTH_DEPTHS``: 8 requests, prompts of
@@ -86,6 +97,14 @@ BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12              # H100 SXM float32 peak (CUDA cores)
 CONTEXTS = (1024, 8192)
 BATCHES = (1, 4)
+#: ~1 ms of spin (torch.cuda._sleep cycles) ahead of each timed call
+SPIN_CYCLES = 2_000_000
+#: the __global__ functions of ``csrc/``, as the profiler names them
+PORT_KERNELS = ("flash_prefill", "split_decode_kernel", "merge_splits_kernel",
+                "paged_gqa_decode_kernel", "paged_mla_decode_kernel",
+                "ssd_scan_kernel", "moe_gemm")
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
 SERVE_K = 4
 SERVE_MAX_NEW = 32
 FALLBACK_MODELS = ("zamba2-1.2b", "mamba2-130m")
@@ -127,7 +146,11 @@ def bound_ms(nbytes: float, flops: float, fp32: bool = False):
 
 def time_ms(torch, fn, iters: int = 20) -> float:
     """Median device time of one call, L2 flushed before each call (the
-    decode step finds a layer's KV cold)."""
+    decode step finds a layer's KV cold).  A spin kernel after the flush
+    keeps the card busy while the host enqueues the timed call, so the
+    two events bracket the call's device time, not the host's enqueue
+    time (a call that takes microseconds on the card takes longer than
+    that to enqueue)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
@@ -135,12 +158,41 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
         e.record()
     torch.cuda.synchronize()
     times = sorted(s.elapsed_time(e) for s, e in zip(starts, ends))
     return times[len(times) // 2]
+
+
+def library_sdpa(torch, call):
+    """(fastest ms, its backend, every backend's ms or why it refused) of
+    ``call`` — one ``scaled_dot_product_attention`` call — under each SDPA
+    backend that accepts its inputs: the library yardstick, never called
+    by the port."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    times = {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            times[name] = f"torch {torch.__version__} has no {name}"
+            continue
+
+        def run(backend=backend):
+            with sdpa_kernel(backend):
+                return call()
+        try:                          # a yardstick, not a kernel of the port
+            run()
+            torch.cuda.synchronize()
+        except RuntimeError as err:
+            times[name] = f"refused: {str(err).splitlines()[0][:100]}"
+            continue
+        times[name] = time_ms(torch, run)
+    ok = {k: v for k, v in times.items() if isinstance(v, float)}
+    best = min(ok, key=ok.get)
+    return ok[best], f"sdpa {best.lower()}", times
 
 
 # ---------------------------------------------------------------------------
@@ -161,10 +213,12 @@ class Case:
         self.scale = (D ** -0.5 if kind == "gqa" else (r + rp) ** -0.5)
 
 
-def make_inputs(torch, case, lengths, max_pages, dtype, gen, garbage):
+def make_inputs(torch, case, lengths, max_pages, dtype, gen, garbage,
+                holes=()):
     """(q, pool, table, lengths) with every valid token random and, when
     ``garbage``, NaN everywhere else: slots past a length, mapped pages
-    past it, unmapped pages and page slack."""
+    past it, unmapped pages and page slack.  ``holes``: (row, page index)
+    pairs unmapped (-1) inside the row's length, their pages NaN."""
     B = len(lengths)
     need = [math.ceil(n / case.tpp) for n in lengths]
     n_pages = B * max_pages + 4
@@ -183,14 +237,35 @@ def make_inputs(torch, case, lengths, max_pages, dtype, gen, garbage):
         n_map = max_pages if b == 0 else need[b]
         table[b, :n_map] = torch.tensor(ids[:n_map], dtype=torch.int32)
         for p in range(need[b] if garbage else 0):
+            if (b, p) in holes:
+                continue
             n_tok = min(case.tpp, lengths[b] - p * case.tpp)
             vals = torch.randn((n_tok * case.per_tok,), generator=gen,
                                device="cuda").to(dtype)
             pool[ids[p], :n_tok * case.per_tok] = vals
+    for b, p in holes:
+        table[b, p] = -1
     q = torch.randn((B, 1, case.H, case.q_dim), generator=gen,
                     device="cuda").to(dtype)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     return q, pool, table.cuda(), lens
+
+
+def without_holes(case, table, lengths, holes):
+    """What the plain version must see to compute what the kernel does:
+    each hole (a whole page unmapped inside a length, which the kernel
+    skips) taken out of its row, the row's later pages moved up and its
+    length cut by one page."""
+    table, lengths = table.clone(), lengths.clone()
+    for b in {b for b, _ in holes}:
+        gone = sorted(p for r, p in holes if r == b)
+        assert all((p + 1) * case.tpp < int(lengths[b]) for p in gone)
+        keep = [p for p in range(table.shape[1]) if p not in gone]
+        row = table[b, keep]
+        table[b] = -1
+        table[b, :len(keep)] = row
+        lengths[b] -= len(gone) * case.tpp
+    return table, lengths
 
 
 def run_kernel(kops, case, q, pool, table, lens):
@@ -214,11 +289,13 @@ def run_plain(ref, case, q, pool, table, lens):
                                           case.scale)
 
 
-def check(torch, kops, ref, case, lengths, max_pages, dtype, tol, gen):
+def check(torch, kops, ref, case, lengths, max_pages, dtype, tol, gen,
+          holes=()):
     q, pool, table, lens = make_inputs(torch, case, lengths, max_pages,
-                                       dtype, gen, garbage=True)
+                                       dtype, gen, garbage=True, holes=holes)
     got = run_kernel(kops, case, q, pool, table, lens).float()
-    want = run_plain(ref, case, q, pool, table, lens).float()
+    want = run_plain(ref, case, q, pool,
+                     *without_holes(case, table, lens, holes)).float()
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{case.name}: kernel output is not finite")
@@ -261,29 +338,61 @@ def bound(case, B, ctx, max_pages, itemsize):
     return bound_ms(nbytes, flops)
 
 
+def split_boundary(torch, case, B, max_pages) -> int:
+    """First token of the second split of the bf16 GQA kernel for B rows
+    over this table: a length equal to it ends exactly on a boundary."""
+    from repro_torch.kernels import paged_attention as pa
+    _, splits = pa.split_plan(B, case.H, case.KV, max_pages * case.tpp,
+                              torch.cuda.get_device_properties(0)
+                              .multi_processor_count)
+    return pa.split_start(1, splits, max_pages * case.tpp)
+
+
 def kernel_phase(torch, kops, ref, cases):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     errs = {}
+
+    def run_check(case, lengths, max_pages, dtype, tol, holes=(), note=""):
+        e = check(torch, kops, ref, case, lengths, max_pages, dtype, tol,
+                  gen, holes)
+        errs[case.kind] = max(errs.get(case.kind, 0.0), e)
+        log(f"kernel check {case.name} {str(dtype)[6:]} lengths {lengths}"
+            f"{note}: max abs err {e:.3g} (tolerance {tol})")
+
     for case in cases:
         tpp = case.tpp
         whole = tpp * 37                      # ends exactly on a page
         mid = tpp * 20 + max(tpp // 2, 1) if tpp > 1 else 41
-        lengths = [1000, whole, mid, 1]
         max_pages = math.ceil(1024 / tpp)
-        e = check(torch, kops, ref, case, lengths, max_pages, torch.bfloat16,
-                  2e-2, gen)
-        errs[case.kind] = max(errs.get(case.kind, 0.0), e)
-        log(f"kernel check {case.name} bf16 lengths {lengths}: "
-            f"max abs err {e:.3g} (tolerance 2e-2)")
+        run_check(case, [1000, whole, mid, 1], max_pages, torch.bfloat16,
+                  2e-2)
+        if case.kind != "gqa":
+            continue
+        # the split kernel's edges: length 0 and 1, on a split boundary
+        # and one token either side of it, ending mid-page
+        edge = split_boundary(torch, case, 6, max_pages)
+        lengths = [0, 1, edge, edge - 1, edge + 1, tpp * 50 + max(1, tpp // 2)]
+        run_check(case, lengths, max_pages, torch.bfloat16, 2e-2,
+                  note=f" (split boundary {edge})")
+        # unmapped (-1) pages inside a length are skipped
+        holes = ((0, 3), (1, 10), (1, 11))
+        run_check(case, [1000, 700], max_pages, torch.bfloat16, 2e-2,
+                  holes=holes, note=f" (-1 pages at (row, page) {holes})")
+        # one row at a long context: many tiles per split
+        run_check(case, [32768 - 3], math.ceil(32768 / tpp), torch.bfloat16,
+                  2e-2)
     # float32 on one small shape per kernel
     small = [Case("gqa-small", "gqa", 8, 8 * 2 * 4 * 64, H=16, KV=4, D=64),
              Case("mla-small", "mla", 8, 8 * 80 + 16, H=8, r=64, rp=16)]
     for case in small:
-        e = check(torch, kops, ref, case, [37, 16, 1], 8, torch.float32,
-                  2e-5, gen)
-        log(f"kernel check {case.name} f32 lengths [37, 16, 1]: "
-            f"max abs err {e:.3g} (tolerance 2e-5)")
+        run_check(case, [37, 16, 1], 8, torch.float32, 2e-5)
+    run_check(small[0], [0, 37, 30], 8, torch.float32, 2e-5,
+              holes=((1, 1),), note=" (-1 page at (row, page) (1, 1))")
+    # the smoke configs' GQA geometry (head dim 8, CUDA cores), bf16: what
+    # the serve CLI runs by default
+    d8 = Case("gqa-smoke-d8", "gqa", 8, 8 * 2 * 2 * 8, H=8, KV=2, D=8)
+    run_check(d8, [0, 1, 37, 64], 8, torch.bfloat16, 2e-2)
     rows = []
     for case in cases:
         for ctx in CONTEXTS:
@@ -296,17 +405,72 @@ def kernel_phase(torch, kops, ref, cases):
                                                        table, lens))
                 plain = time_ms(torch, lambda: run_plain(ref, case, q, pool,
                                                          table, lens))
-                lib = time_ms(torch, sdpa_call(torch, case, q, pool, table,
-                                               lens))
+                lib, lib_name, lib_all = library_sdpa(
+                    torch, sdpa_call(torch, case, q, pool, table, lens))
                 b_ms, b_by = bound(case, B, ctx, max_pages, 2)
                 rows.append(dict(case=case.name, kind=case.kind, ctx=ctx,
                                  B=B, ms=ms, plain_ms=plain, library_ms=lib,
+                                 library=lib_name, library_all=lib_all,
                                  bound_ms=b_ms, bound_by=b_by))
                 log(f"time {case.name} ctx {ctx} B {B}: kernel {ms:.4f} ms, "
-                    f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-                    f"bound {b_ms:.4f} ms ({b_by})")
+                    f"plain {plain:.4f} ms, {lib_name} {lib:.4f} ms, "
+                    f"bound {b_ms:.4f} ms ({b_by}); sdpa backends "
+                    f"{fmt_backends(lib_all)}")
                 del q, pool, table, lens
     return errs, rows
+
+
+def fmt_backends(times) -> str:
+    return ", ".join(f"{k.lower()} {v:.4f}" if isinstance(v, float)
+                     else f"{k.lower()} {v}" for k, v in times.items())
+
+
+def capture_check(torch, kops, case):
+    """The bf16 GQA decode wrappers read nothing back to the host (they
+    run under ``set_sync_debug_mode("error")``), and a paged call captured
+    in a CUDA graph, replayed after new lengths are written in place,
+    equals an eager call on those lengths."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    max_pages = math.ceil(1024 / case.tpp)
+    q, pool, table, lens = make_inputs(torch, case, [1000, 1024, 333, 64],
+                                       max_pages, torch.bfloat16, gen,
+                                       garbage=True)
+    kw = dict(tokens_per_page=case.tpp, n_kv=case.KV, scale=case.scale)
+    ck = torch.randn((2, 512, 2, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    qc = torch.randn((2, 1, 8, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    clens = torch.tensor([512, 77], dtype=torch.int32, device="cuda")
+
+    def calls():
+        return (kops.paged_decode_attention(q, pool, table, lens, **kw),
+                kops.decode_attention(qc, ck, ck, clens, scale=0.125))
+    calls()                                  # built, attributes set
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        calls()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kops.paged_decode_attention(q, pool, table, lens, **kw)
+    lens.copy_(torch.tensor([700, 1, 0, 64], dtype=torch.int32))
+    graph.replay()
+    want = kops.paged_decode_attention(q, pool, table, lens, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise AssertionError("graph replay of paged_decode_attention after "
+                             "new lengths differs from an eager call")
+    log(f"kernel check {case.name}: no host sync under "
+        f"set_sync_debug_mode('error') (paged and contiguous); a CUDA-graph "
+        f"replay with new lengths [700, 1, 0, 64] equals eager")
 
 
 def close_or_raise(torch, what, got, want, tol) -> float:
@@ -330,6 +494,7 @@ def fallback_kernel_phase(torch, kops, ref, ssd_scan_chunked):
     """Flash prefill, contiguous decode and the SSD scan at the fallback
     path's geometries: checks, then times (bf16, the path's dtype)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attention as pa
     zamba = get_config("zamba2-1.2b")
     mamba = get_config("mamba2-130m")
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -342,9 +507,11 @@ def fallback_kernel_phase(torch, kops, ref, ssd_scan_chunked):
     H, KV, D = zamba.n_heads, zamba.n_kv_heads, zamba.head_dim
     errs, rows = {}, []
 
-    # flash prefill: zamba2 heads, S = T in {256, 1024}, B = 1
-    for S in (256, 1024):
+    # flash prefill: zamba2 heads, S = T in {256, 1024, 4096}, B = 1
+    for S in (256, 1024, 4096):
         for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+            if dtype == torch.float32 and S > 1024:
+                continue
             q, k, v = (randn(1, S, n, D, dtype=dtype) for n in (H, KV, KV))
             e = close_or_raise(
                 torch, f"flash zamba2 S={S} {dtype}",
@@ -355,16 +522,30 @@ def fallback_kernel_phase(torch, kops, ref, ssd_scan_chunked):
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         pairs = S * (S + 1) // 2
         b_ms, b_by = bound_ms(4 * S * H * D * 2, 4 * H * D * pairs)
+        lib, lib_name, lib_all = library_sdpa(torch, lambda: sdpa(
+            qt, kt, vt, is_causal=True, scale=D ** -0.5, enable_gqa=True))
         rows.append(dict(
             kernel="flash_attention", shape=f"zamba2 B=1 S={S} bf16",
             ms=time_ms(torch, lambda: kops.flash_attention(
                 q, k, v, scale=D ** -0.5)),
             plain_ms=time_ms(torch, lambda: ref.flash_attention(
                 q, k, v, D ** -0.5)),
-            library_ms=time_ms(torch, lambda: sdpa(
-                qt, kt, vt, is_causal=True, scale=D ** -0.5,
-                enable_gqa=True)),
+            library_ms=lib, library=lib_name, library_all=lib_all,
             bound_ms=b_ms, bound_by=b_by))
+    # the tensor-core route's edges: T > S (an offset that is no multiple
+    # of the tile), S and T off the tile, every head dim, GQA groups
+    for B, S, T, Hh, Kh, Dh in ((1, 100, 1000, 8, 2, 64),
+                                (2, 77, 77, 4, 4, 16),
+                                (1, 190, 250, 8, 2, 16),
+                                (1, 190, 250, 8, 2, 32),
+                                (1, 190, 250, 8, 2, 64),
+                                (1, 190, 250, 8, 2, 128)):
+        q, k, v = (randn(B, n, h, Dh) for n, h in ((S, Hh), (T, Kh), (T, Kh)))
+        e = close_or_raise(
+            torch, f"flash B={B} S={S} T={T} H={Hh} KV={Kh} D={Dh} bf16",
+            kops.flash_attention(q, k, v, scale=Dh ** -0.5),
+            ref.flash_attention(q, k, v, Dh ** -0.5), 2e-2)
+        errs["flash_attention"] = max(errs["flash_attention"], e)
 
     # contiguous decode: zamba2 heads, T = 1024, B in {1, 4}
     T = 1024
@@ -388,15 +569,36 @@ def fallback_kernel_phase(torch, kops, ref, ssd_scan_chunked):
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, ck, cv))
         b_ms, b_by = bound_ms(2 * B * T * KV * D * 2 + 2 * B * H * D * 2
                               + 4 * B, 4 * B * H * T * D)
+        lib, lib_name, lib_all = library_sdpa(torch, lambda: sdpa(
+            qt, kt, vt, scale=D ** -0.5, enable_gqa=True))
         rows.append(dict(
             kernel="decode_attention", shape=f"zamba2 B={B} T={T} bf16",
             ms=time_ms(torch, lambda: kops.decode_attention(
                 q, ck, cv, lens, scale=D ** -0.5)),
             plain_ms=time_ms(torch, lambda: ref.decode_attention(
                 q, ck, cv, lens, D ** -0.5)),
-            library_ms=time_ms(torch, lambda: sdpa(
-                qt, kt, vt, scale=D ** -0.5, enable_gqa=True)),
+            library_ms=lib, library=lib_name, library_all=lib_all,
             bound_ms=b_ms, bound_by=b_by))
+    # the split kernel's edges on the contiguous cache: length 0 and 1,
+    # on a split boundary and one past it, and past T (clamped)
+    B = 6
+    _, splits = pa.split_plan(
+        B, H, KV, T, torch.cuda.get_device_properties(0).multi_processor_count)
+    edge = pa.split_start(1, splits, T)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        lengths = [0, 1, edge, edge + 1, 700, T + 5]
+        q = randn(B, 1, H, D, dtype=dtype)
+        ck, cv = randn(B, T, KV, D, dtype=dtype), randn(B, T, KV, D,
+                                                        dtype=dtype)
+        for b, n in enumerate(lengths):
+            ck[b, n:] = float("nan")
+            cv[b, n:] = float("nan")
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        e = close_or_raise(
+            torch, f"decode zamba2 B={B} T={T} lengths {lengths} {dtype}",
+            kops.decode_attention(q, ck, cv, lens, scale=D ** -0.5),
+            ref.decode_attention(q, ck, cv, lens, D ** -0.5), tol)
+        errs["decode_attention"] = max(errs["decode_attention"], e)
 
     # SSD scan: zamba2 and mamba2 at S = 1024, chunk 256
     S, L = 1024, 256
@@ -436,11 +638,13 @@ def fallback_kernel_phase(torch, kops, ref, ssd_scan_chunked):
                 x, dt, A, Bm, Cm, chunk=L)),
             library_ms=None, bound_ms=b_ms, bound_by=b_by))
     for r in rows:
-        lib = ("none (no single PyTorch call computes it)"
-               if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
+        lib = ("library none (no single PyTorch call computes it)"
+               if r["library_ms"] is None else
+               f"{r['library']} {r['library_ms']:.4f} ms (sdpa backends "
+               f"{fmt_backends(r['library_all'])})")
         log(f"time {r['kernel']} {r['shape']}: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, sdpa {lib}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {lib}")
     return errs, rows
 
 
@@ -622,6 +826,46 @@ def small_phase(torch):
                                      f"max abs err {err:.3g} > 1e-4")
             log(f"small {name} {phase}: card vs CPU logits max abs err "
                 f"{err:.3g} (tolerance 1e-4)")
+
+
+def smoke_serve_phase(torch):
+    """The serve CLI's default models, the smoke colocated set in bf16
+    (head dim 8), and zamba2 + mamba2 smoke in bf16 through the engine
+    on the card: every request gets its tokens, every page comes back, no
+    logit is NaN, and the path's kernels launched."""
+    from repro_torch.configs import PAPER_COLOC_SET, get_smoke_config
+    from repro_torch.configs.base import EngineConfig
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime.engine import CrossPoolEngine, EngineMode
+    from repro_torch.runtime.request import Request
+
+    for names, k, kernels in (
+            (PAPER_COLOC_SET, SERVE_K, ("paged_decode_attention",
+                                        "paged_mla_decode_attention")),
+            (FALLBACK_MODELS, 1, ("flash_attention", "decode_attention",
+                                  "ssd_scan"))):
+        models = {n: get_smoke_config(n) for n in names}
+        engine = CrossPoolEngine(
+            models, page_budget=512, page_bytes=4096, slab_bytes=4096,
+            max_batch=2, max_ctx=64, device="cuda",
+            config=EngineConfig(mode=EngineMode(decode_steps_per_dispatch=k)))
+        counts = {f: getattr(kops, f).launches for f in kernels}
+        reqs = [Request(i, names[i % len(names)], 5 + 7 * i, 6, 0.0)
+                for i in range(6)]
+        for r in reqs:
+            engine.submit(r)
+        engine.drain()
+        got = [len(r.output_ids) for r in reqs]
+        bad = sum(int(r.nonfinite_logits) for r in engine.runners.values())
+        idle = [f for f, n in counts.items() if getattr(kops, f).launches <= n]
+        if got != [6] * 6 or engine.virt.mapped_pages or bad or idle:
+            raise AssertionError(
+                f"bf16 smoke serve of {names}: tokens {got}, "
+                f"{engine.virt.mapped_pages} pages mapped, {bad} non-finite "
+                f"logits, never launched: {idle}")
+        log(f"small bf16 serve {', '.join(names)}: {len(reqs)} requests "
+            f"of 6 tokens, dtypes "
+            f"{sorted({c.dtype for c in models.values()})}, pages returned")
 
 
 def fallback_small_phase(torch):
@@ -806,28 +1050,6 @@ def train_phase(torch, np, kops):
     return launches, figures, loads
 
 
-def profile_train_step(torch, step, state, batch):
-    """Where one train step's device time goes, under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"profile: one train step: wall {wall * 1e3:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms ({busy_ms / (wall * 1e3):.1%})")
-    rows = []
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        ms = e.self_device_time_total / 1e3
-        rows.append(dict(kernel=e.key[:90], calls=e.count, ms=ms))
-        log(f"profile: {ms:9.3f} ms {e.count:5d}x  {e.key[:90]}")
-    return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms, top=rows)
-
-
 def serve_phase(torch, np, kops, models, *, k, page_budget, label, check):
     """``CrossPoolEngine(device="cuda")`` over ``models`` (bf16): 8
     requests at time 0, prompts of 200-900 tokens, 32 new tokens each,
@@ -934,10 +1156,35 @@ def check_fallback(launches, stats, engine) -> None:
         f"{steps} zamba2 decode steps: {want}")
 
 
+def device_summary(prof, wall, label):
+    """Device busy time, the 10 largest kernels and every kernel of the
+    port (``csrc/``) of one profiled window."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"profile: {label}: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({busy_ms / (wall * 1e3):.1%})")
+
+    def row(e):
+        ms = e.self_device_time_total / 1e3
+        return dict(kernel=e.key[:90], calls=e.count, ms=ms)
+    top = [row(e) for e in sorted(kernels,
+                                  key=lambda e: -e.self_device_time_total)]
+    port = [r for r in top if any(n in r["kernel"] for n in PORT_KERNELS)]
+    for r in top[:10]:
+        log(f"profile: {r['ms']:9.3f} ms {r['calls']:5d}x  {r['kernel']}")
+    for r in port:
+        log(f"profile:   port {r['ms']:9.3f} ms {r['calls']:5d}x  "
+            f"{r['kernel']}")
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms, top=top[:10],
+                port=port)
+
+
 def profile_decode_step(torch, engine, names, k):
-    """Where one decode step's device time goes: 4 fresh requests (500
-    prompt tokens each) are prefilled, then one engine step — a K-token
-    block for every model — runs under ``torch.profiler``."""
+    """Where the device time goes: 4 fresh requests (500 prompt tokens
+    each) are submitted, then one engine step that prefills them (and
+    decodes a first block) and one engine step that decodes a K-token
+    block for every model run under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime.request import Request
 
@@ -945,30 +1192,33 @@ def profile_decode_step(torch, engine, names, k):
                     0.0) for i in range(4)]
     for r in reqs:
         engine.submit(r)
-    engine.step()                              # prefill + a first block
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    out = {}
+    for label in ("prefill step", "decode step"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[label] = device_summary(
+            prof, wall, f"one {label} (K={k}, {len(names)} models)")
     engine.drain()
     if engine.virt.mapped_pages != 0:
         raise AssertionError("pages still mapped after the profiled run")
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    log(f"profile: one decode step (K={k}, {len(names)} models): wall "
-        f"{wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"({busy_ms / (wall * 1e3):.1%})")
-    rows = []
-    for e in top:
-        ms = e.self_device_time_total / 1e3
-        rows.append(dict(kernel=e.key[:90], calls=e.count, ms=ms))
-        log(f"profile: {ms:9.3f} ms {e.count:5d}x  {e.key[:90]}")
-    return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms, top=rows)
+    return out
+
+
+def profile_train_step(torch, step, state, batch):
+    """Where one train step's device time goes, under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return device_summary(prof, wall, "one train step")
 
 
 # ---------------------------------------------------------------------------
@@ -1022,12 +1272,14 @@ def main() -> int:
             cases.append(Case(name, "gqa", tpp, page_elems, H=cfg.n_heads,
                               KV=cfg.n_kv_heads, D=cfg.head_dim))
     errs, rows = kernel_phase(torch, kops, ref, cases)
+    capture_check(torch, kops, next(c for c in cases if c.kind == "gqa"))
     f_errs, f_rows = fallback_kernel_phase(torch, kops, ref,
                                            ssd_scan_chunked)
 
     # 4. small models, card against CPU
     small_phase(torch)
     fallback_small_phase(torch)
+    smoke_serve_phase(torch)
     train_small_phase(torch)
 
     # 5. serve the colocated split path
@@ -1075,6 +1327,7 @@ def main() -> int:
             "max_abs_err": errs[kind], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library": row["library"],
             "shape": f"{geom} B={B} context {ctx} bf16"})
     for name, source, replaces, shape in (
             ("flash_attention", "flash_attention.cu",
@@ -1093,7 +1346,7 @@ def main() -> int:
             "max_abs_err": f_errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": shape})
+            "library": row.get("library"), "shape": shape})
     train_shape = next(r["shape"] for r in m_rows
                        if r["dtype"] == "float32")
     for name in ("moe_gemm", "moe_gemm_wgrad"):       # wgrad: its gradient
@@ -1106,6 +1359,7 @@ def main() -> int:
             "max_abs_err": m_errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library": "torch._grouped_mm" if row["library_ms"] else None,
             "shape": train_shape})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)

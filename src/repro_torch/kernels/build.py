@@ -2,7 +2,8 @@
 
 Every ``csrc/*.cu`` file is compiled on its own with ``nvcc`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds), named by the hash of its source and flags and kept in
+takes seconds), named by the hash of its source, the ``csrc/*.cuh``
+headers it includes and the flags, and kept in
 ``build/`` at the root of the checkout; the compiler's ``-Xptxas -v``
 report (registers, shared memory and spills per kernel) is kept beside
 it as ``<library>.log``.  ``load`` opens a library with ``ctypes``;
@@ -17,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -47,9 +49,13 @@ def sources() -> List[Path]:
 
 
 def library_path(source: Path, build_dir: Path = BUILD_DIR) -> Path:
-    """Where ``source`` builds to: keyed by its content and the flags."""
-    digest = hashlib.sha1(Path(source).read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """Where ``source`` builds to: keyed by its content, the content of the
+    ``csrc/`` headers it includes, and the flags."""
+    text = Path(source).read_bytes()
+    headers = re.findall(rb'^#include "([^"]+)"', text, re.MULTILINE)
+    digest = hashlib.sha1(
+        text + b"".join((CSRC / h.decode()).read_bytes() for h in headers)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return Path(build_dir) / f"lib{Path(source).stem}-{digest}.so"
 
 

@@ -2,57 +2,111 @@
 // GQA over a contiguous cache.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/paged_attention.py:
-//   * paged_gqa_decode       <- _paged_kernel      (:121, pallas_call :203)
-//   * paged_mla_decode       <- _paged_mla_kernel  (:225, pallas_call :304)
-//   * contiguous_gqa_decode  <- _decode_kernel     (:35,  pallas_call :110)
+//   * paged_gqa_decode_bf16 / _f32       <- _paged_kernel      (:121,
+//                                           pallas_call :203)
+//   * paged_mla_decode                   <- _paged_mla_kernel  (:225,
+//                                           pallas_call :304)
+//   * contiguous_gqa_decode_bf16 / _f32  <- _decode_kernel     (:35,
+//                                           pallas_call :110)
 //
 // What they compute (one new token per sequence):
-//   s(t)  = q . k_t                 for t < length (q arrives pre-scaled)
+//   s(t)  = (q * scale) . k_t       for t < length
 //   out   = sum_t softmax(s)_t v_t  (online softmax, m / l / acc in f32)
 // with every guard of the TPU kernels: pages whose id is < 0 are skipped,
-// positions past `length` are never read, scores at positions >= length
-// are -1e30, value rows past `length` read as 0 (0 * garbage never makes
-// NaN), and a row with no valid position (l == 0) writes 0.
+// positions at or past `length` are never read, their scores are -1e30
+// and contribute exactly 0, and a row with no valid position (l == 0,
+// length 0 included) writes 0.  q * scale is computed in f32 and rounded
+// to q's type before the dot, as the TPU wrappers fold the scale
+// (paged_attention.py:92,183); the MLA wrapper still folds it itself.
 //
 // Layout.  The paged kernels read the FLAT pool [n_pages, page_elems] in
 // place: token t of page p starts at  pool + p * page_elems + t * per_tok.
-//   GQA: a token is [2, KV, D] (K heads, then V heads); block (kv_head, b)
-//        serves the G = H / KV query heads that share kv_head.
+//   GQA: a token is [2, KV, D] (K heads, then V heads); query head h reads
+//        kv head h / G, G = H / KV.
 //   MLA: a token is [r + rp] (latent | rope key); the score dot runs over
-//        the whole row and the value is the latent prefix [:r]; block
-//        (head_group, b) serves up to kMlaHeadsPerBlock query heads.
+//        the whole row and the value is the latent prefix [:r].
 // Typed views of the pool (pool[:, :tpp * per_tok].reshape(...)) would
 // copy the whole pool whenever a page has slack (MLA: 28 * 288 < 8192),
-// so the kernels compute their own addresses instead.  Each block loads
-// its own page ids and length: that replaces the TPU's scalar prefetch.
-// The contiguous kernel is the paged GQA kernel under another addressing
-// policy: K and V are two tensors [B, T, KV, D], read as if row b were
-// one page of T tokens of KV * D elements (no table: page id = b).
+// so the kernels compute their own addresses.  Each block loads its own
+// page ids and length: that replaces the TPU's scalar prefetch.  The
+// contiguous entry points are the GQA kernels under another addressing
+// policy: K and V are two tensors [B, T, KV, D], read as if row b were one
+// page of T tokens of KV * D elements (no table: page id = b).
 //
 // Bound.  Decode attention reads each valid KV token once:
 //   B * length * per_tok * itemsize bytes at 3.35 TB/s (H100 SXM); its
-//   2 * H * length * (k_dim + v_dim) flops are far below any peak.
-// Design.  Simple and right first.  A block walks the context in tiles of
-// `tile` tokens (several pages): it looks up the tile's page ids, copies
-// the tile's key / value rows to shared memory as f32 with 16-byte loads
-// staged through registers (kUnroll independent loads in flight per
-// thread: a decode block is latency-bound, and one load at a time made the
-// first version ~5000x slower than the bound), then one thread per (head,
-// token) score, one warp per head for the online-softmax statistics, and
-// the f32 accumulator update.  There is no split over the context yet, so
-// at B = 1 only B * KV blocks run (qwen3-moe: 4 blocks on 132 SMs);
-// split-KV (flash-decoding), TMA page copies and tensor cores are the next
-// step.
+//   2 * H * length * (k_dim + v_dim) flops are far below any peak.  At the
+//   split path's shape (qwen3-moe: H 64, KV 4, D 128, 8 tokens a page;
+//   B = 4, context 1024, bf16) that is 8.4 MB, 2.5 us; at B = 1, context
+//   8192, 16.8 MB, 5.0 us; zamba2's contiguous cache (H = KV = 32, D = 64)
+//   at B = 4, T = 1024: 33.6 MB, 10 us.
+//
+// What the first GQA design lost: one block per (kv head, batch
+// row) walked the whole context, so qwen3-moe ran 16 blocks at B = 4 and
+// 4 at B = 1 on 132 SMs; every tile was staged through registers into f32
+// shared memory with no copy overlapping math, and scores and P.V were
+// scalar loops over shared memory: 0.35 ms at B = 4, ~140x its bound.
+//
+// bf16 GQA route (split namespace), flash-decoding:
+//   * grid (kv head x head group, batch row, split).  The split count comes
+//     from host-known shapes only (B, KV, the table's token capacity, the
+//     SM count; kernels/paged_attention.py kv_splits), never from
+//     `lengths`: split s covers the whole 64-token tiles [s * n / S,
+//     (s + 1) * n / S) of the n the table can address, and one that starts
+//     at or past its row's length writes m = -1e30, l = 0 (or, unsplit,
+//     the 0 output) and exits.  With splits > 1 the block writes
+//     f32 partials (acc [B,H,S,D], m and l [B,H,S], allocated by the
+//     wrapper) and merge_splits_kernel combines them; with one split the
+//     block writes `out` and there is no second launch;
+//   * each of the block's 4 warps owns 16 tokens of every tile and copies
+//     their K and V rows with 16-byte cp.async.cg into its own 3-stage
+//     bf16 ring (swizzled; tokens past `length` or on pages < 0 are
+//     zero-filled with src-size 0 and never read from memory, so NaN past
+//     a length cannot reach a tensor-core product), the next two tiles in
+//     flight while one is computed; page ids are read one tile ahead;
+//     warps need only __syncwarp, and merge their (m, l, acc) at the end;
+//   * G >= 8 (qwen3-moe, G = 16): scores and P.V on mma.sync.m16n8k16
+//     with the (up to 16) query heads of the kv head as the 16 rows;
+//     G < 8 (moonshot and zamba2 are MHA, G = 1): bf16x2 products on CUDA
+//     cores, 8 lanes per token and 4 tokens per step, up to 4 heads per
+//     block (tensor cores would waste most of the tile);
+//   * head dims 8 (the smoke configs'; CUDA cores only: m16n8k16 steps k
+//     by 16), 16, 32, 64 and 128;
+//   * the wrapper makes no host read and no allocation beyond
+//     torch.empty, so a call can be captured in a CUDA graph.
+// f32 GQA route and MLA: the first design (paged_decode_block), one block
+// per (kv head or MLA head group, batch row) over the whole context, f32
+// tiles in shared memory, CUDA cores.
+//
+// ptxas (-Xptxas -v, sm_90a): no stack and no
+// spills in any kernel.  split_decode_kernel<D, R> registers:
+//            R = 16 (tensor cores)   R = 1    R = 2    R = 4
+//   D = 128          168               80      128      236
+//   D =  64          124               56       72      128
+//   D =  32           64               40       64       80
+//   D =  16           48               40       40       64
+//   D =   8           --               32       40       48
+// shared memory (dynamic): the ring, 3 * 4 * 2 * 16 * D * 2 bytes = 96 /
+// 48 / 24 / 12 / 6 KB for D = 128 / 64 / 32 / 16 / 8 (two blocks fit an
+// SM at D = 128).  merge_splits_kernel: 32 registers.  The first design: 40
+// (scalar) / 64 (f32, 16-byte) / 117 (bf16, 16-byte) registers.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o libpaged_attention.so paged_attention.cu
-// Each entry point returns cudaGetLastError() after its launch (0 = ok).
+// Each entry point returns cudaGetLastError() after its launch(es)
+// (0 = ok).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tiles.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// The first design: f32 GQA and MLA
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -101,6 +155,7 @@ struct Geometry {
   long long page_elems;
   int max_pages;        // page table width
   int tile;             // tokens per tile (<= kMaxTile)
+  float q_scale;        // q * q_scale, rounded to T, before the dot
 };
 
 // q and key rows sit in shared memory with one float of padding, so the
@@ -190,7 +245,10 @@ __device__ __forceinline__ void paged_decode_block(
   for (int i = tid; i < hpb * g.k_dim; i += kThreads) {
     const int hh = i / g.k_dim, d = i % g.k_dim;
     qs[hh * k_stride + d] = hh < nh
-        ? to_f32(q[((size_t)b * g.heads + h0 + hh) * g.k_dim + d]) : 0.f;
+        ? to_f32(from_f32<T>(
+              to_f32(q[((size_t)b * g.heads + h0 + hh) * g.k_dim + d]) *
+              g.q_scale))
+        : 0.f;
   }
   for (int i = tid; i < hpb * g.v_dim; i += kThreads) acc[i] = 0.f;
   for (int i = tid; i < hpb; i += kThreads) {
@@ -364,7 +422,8 @@ int dispatch(const void* q, const void* kpool, const void* vpool,
 }
 
 // GQA geometry shared by the paged and the contiguous entry points.
-Geometry gqa_geometry(int heads, int kv_heads, int head_dim) {
+Geometry gqa_geometry(int heads, int kv_heads, int head_dim,
+                      float scale) {
   Geometry g;
   g.heads = heads;
   g.heads_per_block = heads / kv_heads;
@@ -376,58 +435,668 @@ Geometry gqa_geometry(int heads, int kv_heads, int head_dim) {
   g.v_step = head_dim;
   g.kv_shared = 0;
   g.tile = kMaxTile;
+  g.q_scale = scale;
   return g;
 }
 
-template <bool kMla>
-int dispatch_dtype(int dtype, const void* q, const void* kpool,
-                   const void* vpool, const int* table, const int* lengths,
-                   void* out, int batch, int grid_x, const Geometry& g,
-                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float, kMla>(q, kpool, vpool, table, lengths, out, batch,
-                                 grid_x, g, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16, kMla>(q, kpool, vpool, table, lengths,
-                                         out, batch, grid_x, g, s);
-  return (int)cudaErrorInvalidValue;
+
+// ---------------------------------------------------------------------------
+// bf16 GQA route: split-KV over a cp.async ring
+// ---------------------------------------------------------------------------
+
+namespace split {
+
+using tiles::bf16;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kWarpTokens = 16;               // tokens per warp per tile
+constexpr int kTile = kWarps * kWarpTokens;   // tokens per tile (64)
+constexpr int kStages = 3;                    // tiles in each warp's ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Args {
+  const bf16* q;             // [B, H, D]
+  const bf16* kbuf;          // key rows: kbuf + page * page_elems +
+  const bf16* vbuf;          //   slot * per_tok + k_off + kv_head * D
+  const int* table;          // [B, max_pages]; null: page id = batch row
+  const int* lengths;        // [B]
+  bf16* out;                 // [B, H, D]
+  float* part_acc;           // [B, H, splits, D]   (splits > 1)
+  float* part_m;             // [B, H, splits], log2 units
+  float* part_l;             // [B, H, splits]
+  int heads, group;          // H, G = H / KV
+  int head_groups;           // blocks per kv head: ceil(G / rows)
+  int tokens_per_page, per_tok, max_pages;
+  long long page_elems;
+  int k_off, v_off;
+  int splits, tiles;          // split s: tiles [s * tiles / splits,
+  float scale;                //   (s + 1) * tiles / splits) of 64 tokens
+};
+
+// Per warp and stage: K rows [16][D] then V rows [16][D], swizzled.  The
+// ring is reused, once every copy has landed, for the warps' partial
+// (m, l, acc) of R rows each.
+template <int D, int R>
+constexpr int smem_bytes() {
+  constexpr int ring = kStages * kWarps * 2 * kWarpTokens * D * 2;
+  constexpr int merge = kWarps * R * (D + 2) * 4;
+  return ring > merge ? ring : merge;
 }
+
+// f32(q) * scale rounded to bf16, as the wrappers of the TPU kernels fold
+// the scale (src/repro/kernels/paged_attention.py:92,183).
+__device__ __forceinline__ float2 scaled_pair(const bf16* p, float scale) {
+  const float2 f =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  return __bfloat1622float2(__floats2bfloat162_rn(f.x * scale, f.y * scale));
+}
+
+// f32(q) * scale rounded to bf16, one element (D = 8: one per lane).
+__device__ __forceinline__ float scaled_one(const bf16* p, float scale) {
+  return __bfloat162float(__float2bfloat16(__bfloat162float(*p) * scale));
+}
+
+// E consecutive elements (E = D / 8) of row `tok`, from element e0 on, as
+// f32.
+template <int D, int E>
+__device__ __forceinline__ void load_row(float (&x)[E], const bf16* tile,
+                                         int tok, int e0) {
+  using Sw = tiles::Swizzle<D>;
+  if constexpr (E == 1) {
+    x[0] = __bfloat162float(tile[Sw::at(tok, e0 / 8) + e0 % 8]);
+  } else if constexpr (E >= 8) {
+#pragma unroll
+    for (int c = 0; c < E / 8; ++c) {
+      const uint4 u = *reinterpret_cast<const uint4*>(
+          tile + Sw::at(tok, e0 / 8 + c));
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        x[c * 8 + 2 * i] = f.x;
+        x[c * 8 + 2 * i + 1] = f.y;
+      }
+    }
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(
+        tile + Sw::at(tok, e0 / 8) + e0 % 8);
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+}
+
+// One block per (kv head x head group, batch row, split); each of its 4
+// warps walks 16 tokens of every 64-token tile of the split through its own
+// ring, with its own online softmax, and the block merges the 4 at the end.
+// R = query rows per block: 16 -> tensor cores (mma.sync, the G heads as
+// rows), 1 / 2 / 4 -> bf16x2 products on CUDA cores (8 lanes per token).
+template <int D, int R>
+__global__ void __launch_bounds__(kThreads)
+split_decode_kernel(const Args a) {
+  using Sw = tiles::Swizzle<D>;
+  constexpr bool kTc = R == 16;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int kvh = blockIdx.x / a.head_groups;
+  const int g0 = (blockIdx.x % a.head_groups) * R;
+  const int b = blockIdx.y, split = blockIdx.z;
+  const int nh = min(R, a.group - g0);                 // rows served
+  const long long row0 = (long long)b * a.heads + kvh * a.group + g0;
+  const int max_tokens = a.max_pages * a.tokens_per_page;
+  const int start = (int)((long long)split * a.tiles / a.splits) * kTile;
+  const int cap = min(
+      max_tokens, (int)((long long)(split + 1) * a.tiles / a.splits) * kTile);
+  const bf16* kbase = a.kbuf + a.k_off + kvh * D;
+  const bf16* vbase = a.vbuf + a.v_off + kvh * D;
+  auto slot = [&](int stage) {
+    return ring + (stage * kWarps + warp) * 2 * kWarpTokens * D;
+  };
+
+  // page id of lane's token (lanes < 16) of tile jt of the split, -1 past
+  // what the table addresses; needs no length, so it is read while the
+  // length is
+  auto page_of = [&](int jt) -> int {
+    const int pos = start + jt * kTile + warp * kWarpTokens + lane;
+    if (lane >= kWarpTokens || pos >= cap) return -1;
+    return a.table ? a.table[(long long)b * a.max_pages +
+                             pos / a.tokens_per_page]
+                   : b;
+  };
+  int pages[kStages];
+#pragma unroll
+  for (int st = 0; st < kStages; ++st) pages[st] = page_of(st);
+  const int length = max(0, min(a.lengths[b], max_tokens));
+  const int end = min(length, cap);
+
+  // q * scale rounded to bf16: the G heads as mma A fragments (rows past
+  // nh are 0), or E elements of each of the R heads per lane
+  const int gq = lane >> 2, tq = lane & 3;      // mma fragment coordinates
+  const int gi = lane >> 3, li = lane & 7;      // CUDA-core token groups
+  constexpr int E = D / 8;
+  constexpr int TR = kTc ? 2 : R;               // rows a thread tracks
+  uint32_t qf[kTc ? D / 16 : 1][4];
+  float qv[kTc ? 1 : R][E];
+  if constexpr (kTc) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = gq + (i & 1) * 8, col = kk * 16 + 2 * tq + (i >> 1) * 8;
+        float2 f = make_float2(0.f, 0.f);
+        if (r < nh) f = scaled_pair(a.q + (row0 + r) * D + col, a.scale);
+        qf[kk][i] = tiles::pack_bf16(f.x, f.y);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bf16* qr = a.q + (row0 + r) * D + li * E;
+      if constexpr (E == 1) {
+        qv[r][0] = r < nh ? scaled_one(qr, a.scale) : 0.f;
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; e += 2) {
+          float2 f = make_float2(0.f, 0.f);
+          if (r < nh) f = scaled_pair(qr + e, a.scale);
+          qv[r][e] = f.x;
+          qv[r][e + 1] = f.y;
+        }
+      }
+    }
+  }
+
+  if (start >= end) {                 // nothing of this row in the split
+    if (a.splits == 1) {
+      for (int i = threadIdx.x; i < nh * D; i += kThreads)
+        a.out[row0 * D + i] = __float2bfloat16(0.f);
+    } else {
+      for (int r = threadIdx.x; r < nh; r += kThreads) {
+        a.part_m[(row0 + r) * a.splits + split] = kNegInf;
+        a.part_l[(row0 + r) * a.splits + split] = 0.f;
+      }
+    }
+    return;
+  }
+  const int n_tiles = (end - start + kTile - 1) / kTile;
+
+  // cp.async the warp's 16 K and V rows of tile jt; returns the mask of
+  // tokens that hold data (the others, past the length or on pages < 0,
+  // are zero-filled and never read)
+  auto fetch = [&](int jt, int page) -> unsigned {
+    const int pos = start + jt * kTile + warp * kWarpTokens + lane;
+    const long long off =
+        page < 0 || pos >= end
+            ? -1
+            : (long long)page * a.page_elems +
+                  (long long)(pos % a.tokens_per_page) * a.per_tok;
+    const unsigned mask = __ballot_sync(0xffffffffu, off >= 0) & 0xffffu;
+    bf16* ks = slot(jt % kStages);
+    bf16* vs = ks + kWarpTokens * D;
+    constexpr int CT = D / 4;          // 16-byte chunks per token, K then V
+#pragma unroll
+    for (int it = 0; it < kWarpTokens * CT / 32; ++it) {
+      const int idx = it * 32 + lane, tok = idx / CT, c = idx % CT;
+      const long long o = __shfl_sync(0xffffffffu, off, tok);
+      const bool is_v = c >= D / 8;
+      const int cc = is_v ? c - D / 8 : c;
+      const bf16* src = o < 0 ? a.kbuf : (is_v ? vbase : kbase) + o + cc * 8;
+      tiles::cp_async_16((is_v ? vs : ks) + Sw::at(tok, cc), src, o >= 0);
+    }
+    return mask;
+  };
+
+  // prologue: the first kStages - 1 tiles in flight
+  unsigned long long masks = 0;        // 16 bits per tile in flight
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_tiles)
+      masks |= (unsigned long long)fetch(st, pages[st]) << (16 * st);
+    tiles::cp_async_commit();
+  }
+  int page_next = pages[kStages - 1];
+
+  float o[kTc ? D / 8 : R][kTc ? 4 : E];
+  float m[TR], l[TR];
+#pragma unroll
+  for (int r = 0; r < TR; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < (kTc ? D / 8 : R); ++i)
+#pragma unroll
+    for (int e = 0; e < (kTc ? 4 : E); ++e) o[i][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int jn = j + kStages - 1;
+    if (jn < n_tiles)
+      masks |= (unsigned long long)fetch(jn, page_next) << (16 * (kStages - 1));
+    tiles::cp_async_commit();
+    page_next = page_of(jn + 1);       // consumed by the next fetch
+    tiles::cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const unsigned mask = (unsigned)(masks & 0xffffu);
+    masks >>= 16;
+    const bf16* kt = slot(j % kStages);
+    const bf16* vt = kt + kWarpTokens * D;
+
+    if constexpr (kTc) {
+      // S = Q K^T: the G heads x 16 tokens
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t kf[4];
+        tiles::ldmatrix_x4(kf, kt + Sw::at((lane & 7) + (lane >> 4) * 8,
+                                           kk * 2 + ((lane >> 3) & 1)));
+        tiles::mma_bf16(sc[0], qf[kk], kf[0], kf[1]);
+        tiles::mma_bf16(sc[1], qf[kk], kf[2], kf[3]);
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = n * 8 + 2 * tq + (e & 1);
+          const float x = (mask >> t) & 1u ? sc[n][e] * kLog2e : kNegInf;
+          sc[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = tiles::exp2_approx(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = sc[n][e] == kNegInf
+                              ? 0.f
+                              : tiles::exp2_approx(sc[n][e] - m[e >> 1]);
+          sc[n][e] = p;
+          l[e >> 1] += p;
+        }
+      }
+      const uint32_t pa[4] = {tiles::pack_bf16(sc[0][0], sc[0][1]),
+                              tiles::pack_bf16(sc[0][2], sc[0][3]),
+                              tiles::pack_bf16(sc[1][0], sc[1][1]),
+                              tiles::pack_bf16(sc[1][2], sc[1][3])};
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        o[2 * dd][0] *= alpha[0];
+        o[2 * dd][1] *= alpha[0];
+        o[2 * dd][2] *= alpha[1];
+        o[2 * dd][3] *= alpha[1];
+        o[2 * dd + 1][0] *= alpha[0];
+        o[2 * dd + 1][1] *= alpha[0];
+        o[2 * dd + 1][2] *= alpha[1];
+        o[2 * dd + 1][3] *= alpha[1];
+        uint32_t vf[4];
+        tiles::ldmatrix_x4_trans(
+            vf, vt + Sw::at((lane & 7) + ((lane >> 3) & 1) * 8,
+                            dd * 2 + (lane >> 4)));
+        tiles::mma_bf16(o[2 * dd], pa, vf[0], vf[1]);
+        tiles::mma_bf16(o[2 * dd + 1], pa, vf[2], vf[3]);
+      }
+    } else {
+      // 4 steps of 4 tokens; lane group gi takes token 4 * step + gi, its
+      // 8 lanes E elements each; scores reduced over the 8 lanes
+      float s[R][4];
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        const int t = 4 * st + gi;
+        float kx[E];
+        load_row<D, E>(kx, kt, t, li * E);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < E; ++e) dot = fmaf(qv[r][e], kx[e], dot);
+          dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+          dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+          dot += __shfl_xor_sync(0xffffffffu, dot, 4);
+          s[r][st] = (mask >> t) & 1u ? dot * kLog2e : kNegInf;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        mx = fmaxf(mx, m[r]);
+        const float alpha = tiles::exp2_approx(m[r] - mx);
+        m[r] = mx;
+        l[r] *= alpha;
+#pragma unroll
+        for (int e = 0; e < E; ++e) o[r][e] *= alpha;
+      }
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        float vx[E];
+        load_row<D, E>(vx, vt, 4 * st + gi, li * E);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float p = s[r][st] == kNegInf
+                              ? 0.f
+                              : tiles::exp2_approx(s[r][st] - m[r]);
+          l[r] += p;
+#pragma unroll
+          for (int e = 0; e < E; ++e) o[r][e] = fmaf(p, vx[e], o[r][e]);
+        }
+      }
+    }
+    __syncwarp();                      // the stage is refilled next round
+  }
+  tiles::cp_async_wait<0>();
+
+  // each warp's (m, l, acc) per row into shared memory, then merged
+  if constexpr (kTc) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 8);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 16);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        o[r][e] += __shfl_xor_sync(0xffffffffu, o[r][e], 8);
+        o[r][e] += __shfl_xor_sync(0xffffffffu, o[r][e], 16);
+      }
+    }
+  }
+  __syncthreads();                     // every warp is done with the ring
+  float* wm = reinterpret_cast<float*>(smem_raw);     // [kWarps][R]
+  float* wl = wm + kWarps * R;                         // [kWarps][R]
+  float* wo = wl + kWarps * R;                         // [kWarps][R][D]
+  if constexpr (kTc) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = gq + 8 * r;
+      if (tq == 0) {
+        wm[warp * R + row] = m[r];
+        wl[warp * R + row] = l[r];
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(wo + (warp * R + row) * D + n * 8 + 2 * tq) =
+            make_float2(o[n][2 * r], o[n][2 * r + 1]);
+    }
+  } else if (gi == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (li == 0) {
+        wm[warp * R + r] = m[r];
+        wl[warp * R + r] = l[r];
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) wo[(warp * R + r) * D + li * E + e] = o[r][e];
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nh * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * R + r]);
+    float lsum = 0.f, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float lw = wl[w * R + r];
+      if (lw > 0.f) {
+        const float f = tiles::exp2_approx(wm[w * R + r] - mx);
+        lsum += f * lw;
+        acc += f * wo[(w * R + r) * D + d];
+      }
+    }
+    if (a.splits == 1) {
+      a.out[(row0 + r) * D + d] =
+          __float2bfloat16(lsum == 0.f ? 0.f : acc / lsum);
+    } else {
+      const long long at = (row0 + r) * a.splits + split;
+      a.part_acc[at * D + d] = acc;
+      if (d == 0) {
+        a.part_m[at] = mx;
+        a.part_l[at] = lsum;
+      }
+    }
+  }
+}
+
+// out = sum_s 2^(m_s - M) acc_s / sum_s 2^(m_s - M) l_s over the splits
+// with l_s > 0 (M their largest m_s), and 0 where there is none.  One block
+// of kMergeLanes x D threads per (batch row, head): the splits' m and l are
+// staged in shared memory with one load each and their weights computed
+// once; thread (p, d) sums column d over the splits s = p mod kMergeLanes,
+// loads in flight together, and the kMergeLanes sums are added at the end.
+constexpr int kMergeLanes = 4;
+
+__global__ void merge_splits_kernel(const float* __restrict__ acc,
+                                    const float* __restrict__ m,
+                                    const float* __restrict__ l,
+                                    bf16* __restrict__ out, int splits) {
+  extern __shared__ float stage[];     // w, l [splits]; num, den [lanes][D]
+  const int D = blockDim.x / kMergeLanes;
+  const int d = threadIdx.x % D, p = threadIdx.x / D;
+  float* w = stage;
+  float* ls = w + splits;
+  float* nums = ls + splits;
+  float* dens = nums + kMergeLanes * D;
+  const long long row = blockIdx.x;
+  for (int s = threadIdx.x; s < splits; s += blockDim.x) {
+    w[s] = m[row * splits + s];
+    ls[s] = l[row * splits + s];
+  }
+  __syncthreads();
+  float mx = kNegInf;
+  for (int s = 0; s < splits; ++s)
+    if (ls[s] > 0.f) mx = fmaxf(mx, w[s]);
+  __syncthreads();
+  for (int s = threadIdx.x; s < splits; s += blockDim.x)
+    w[s] = ls[s] > 0.f ? tiles::exp2_approx(w[s] - mx) : 0.f;
+  __syncthreads();
+  const float* col = acc + row * splits * D + d;
+  float num = 0.f, den = 0.f;
+#pragma unroll 8
+  for (int s = p; s < splits; s += kMergeLanes) {
+    // read even where the weight is 0: a split with no token left its
+    // acc unset, and the select drops it
+    const float f = w[s], a = col[(long long)s * D];
+    den = fmaf(f, ls[s], den);
+    num += f != 0.f ? f * a : 0.f;
+  }
+  nums[p * D + d] = num;
+  dens[p * D + d] = den;
+  __syncthreads();
+  if (p == 0) {
+    for (int i = 1; i < kMergeLanes; ++i) {
+      num += nums[i * D + d];
+      den += dens[i * D + d];
+    }
+    out[row * D + d] = __float2bfloat16(den == 0.f ? 0.f : num / den);
+  }
+}
+
+using LaunchFn = int (*)(const Args&, int, int, cudaStream_t);
+
+template <int D, int R>
+int launch(const Args& a, int kv_heads, int batch, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<D, R>();
+  static bool configured = false;      // once, before any graph capture
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        split_decode_kernel<D, R>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const dim3 grid(kv_heads * a.head_groups, batch, a.splits);
+  split_decode_kernel<D, R><<<grid, kThreads, bytes, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return (int)err;
+  const size_t merge_bytes =
+      sizeof(float) * (2 * a.splits + 2 * kMergeLanes * D);
+  merge_splits_kernel<<<batch * a.heads, kMergeLanes * D, merge_bytes,
+                        stream>>>(a.part_acc, a.part_m, a.part_l, a.out,
+                                  a.splits);
+  return (int)cudaGetLastError();
+}
+
+// D = 8 (the smoke configs' head dim) has no tensor-core route: m16n8k16
+// takes k in steps of 16.
+template <int D>
+LaunchFn pick_rows(int rows) {
+  if constexpr (D >= 16)
+    if (rows == 16) return launch<D, 16>;
+  switch (rows) {
+    case 4: return launch<D, 4>;
+    case 2: return launch<D, 2>;
+    case 1: return launch<D, 1>;
+    default: return nullptr;
+  }
+}
+
+LaunchFn pick(int head_dim, int rows) {
+  switch (head_dim) {
+    case 8: return pick_rows<8>(rows);
+    case 16: return pick_rows<16>(rows);
+    case 32: return pick_rows<32>(rows);
+    case 64: return pick_rows<64>(rows);
+    case 128: return pick_rows<128>(rows);
+    default: return nullptr;
+  }
+}
+
+// The geometry shared by the paged and the contiguous entry points; the
+// caller sets the addressing fields.
+int run(Args a, int batch, int kv_heads, int head_dim, int rows,
+        void* stream) {
+  const LaunchFn fn = pick(head_dim, rows);
+  if (fn == nullptr || kv_heads <= 0 || a.heads % kv_heads ||
+      a.splits < 1 || a.splits > a.tiles ||
+      (a.splits > 1 && !(a.part_acc && a.part_m && a.part_l)))
+    return (int)cudaErrorInvalidValue;
+  a.group = a.heads / kv_heads;
+  a.head_groups = (a.group + rows - 1) / rows;
+  return fn(a, kv_heads, batch, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace split
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, the KV and out share it).
-extern "C" int paged_gqa_decode(const void* q, const void* pool,
-                                const int* table, const int* lengths,
-                                void* out, int batch, int heads, int kv_heads,
-                                int head_dim, int max_pages,
-                                int tokens_per_page, long long page_elems,
-                                int dtype, void* stream) {
-  Geometry g = gqa_geometry(heads, kv_heads, head_dim);
+// q, pool, out: bf16.  part_*: f32 partials, used when splits > 1.
+// rows: query heads a block serves (16: tensor cores; 1, 2, 4: CUDA
+// cores).
+extern "C" int paged_gqa_decode_bf16(
+    const void* q, const void* pool, const int* table, const int* lengths,
+    void* out, float* part_acc, float* part_m, float* part_l, int batch,
+    int heads, int kv_heads, int head_dim, int rows, int max_pages,
+    int tokens_per_page, long long page_elems, int splits, int tiles,
+    float scale, void* stream) {
+  using split::bf16;
+  split::Args a{};
+  a.q = static_cast<const bf16*>(q);
+  a.kbuf = a.vbuf = static_cast<const bf16*>(pool);
+  a.table = table;
+  a.lengths = lengths;
+  a.out = static_cast<bf16*>(out);
+  a.part_acc = part_acc;
+  a.part_m = part_m;
+  a.part_l = part_l;
+  a.heads = heads;
+  a.tokens_per_page = tokens_per_page;
+  a.per_tok = 2 * kv_heads * head_dim;
+  a.max_pages = max_pages;
+  a.page_elems = page_elems;
+  a.k_off = 0;
+  a.v_off = kv_heads * head_dim;
+  a.splits = splits;
+  a.tiles = tiles;
+  a.scale = scale;
+  return split::run(a, batch, kv_heads, head_dim, rows, stream);
+}
+
+// k, v: bf16 [batch, max_len, kv_heads, head_dim] each, contiguous.
+extern "C" int contiguous_gqa_decode_bf16(
+    const void* q, const void* k, const void* v, const int* lengths,
+    void* out, float* part_acc, float* part_m, float* part_l, int batch,
+    int heads, int kv_heads, int head_dim, int rows, int max_len,
+    int splits, int tiles, float scale, void* stream) {
+  using split::bf16;
+  split::Args a{};
+  a.q = static_cast<const bf16*>(q);
+  a.kbuf = static_cast<const bf16*>(k);
+  a.vbuf = static_cast<const bf16*>(v);
+  a.table = nullptr;
+  a.lengths = lengths;
+  a.out = static_cast<bf16*>(out);
+  a.part_acc = part_acc;
+  a.part_m = part_m;
+  a.part_l = part_l;
+  a.heads = heads;
+  a.tokens_per_page = max_len;
+  a.per_tok = kv_heads * head_dim;
+  a.max_pages = 1;
+  a.page_elems = (long long)max_len * kv_heads * head_dim;
+  a.k_off = 0;
+  a.v_off = 0;
+  a.splits = splits;
+  a.tiles = tiles;
+  a.scale = scale;
+  return split::run(a, batch, kv_heads, head_dim, rows, stream);
+}
+
+// q, pool, out: float32.
+extern "C" int paged_gqa_decode_f32(const void* q, const void* pool,
+                                    const int* table, const int* lengths,
+                                    void* out, int batch, int heads,
+                                    int kv_heads, int head_dim, int max_pages,
+                                    int tokens_per_page, long long page_elems,
+                                    float scale, void* stream) {
+  if (kv_heads <= 0 || heads % kv_heads) return (int)cudaErrorInvalidValue;
+  Geometry g = gqa_geometry(heads, kv_heads, head_dim, scale);
   g.v_base = kv_heads * head_dim;
   g.tokens_per_page = tokens_per_page;
   g.per_tok = 2 * kv_heads * head_dim;
   g.page_elems = page_elems;
   g.max_pages = max_pages;
-  return dispatch_dtype<false>(dtype, q, pool, pool, table, lengths, out,
-                               batch, kv_heads, g, stream);
+  return dispatch<float, false>(q, pool, pool, table, lengths, out, batch,
+                                kv_heads, g, static_cast<cudaStream_t>(stream));
 }
 
-// k, v: [batch, max_len, kv_heads, head_dim] each, contiguous.
-extern "C" int contiguous_gqa_decode(const void* q, const void* k,
-                                     const void* v, const int* lengths,
-                                     void* out, int batch, int heads,
-                                     int kv_heads, int head_dim, int max_len,
-                                     int dtype, void* stream) {
-  Geometry g = gqa_geometry(heads, kv_heads, head_dim);
+// k, v: float32 [batch, max_len, kv_heads, head_dim] each, contiguous.
+extern "C" int contiguous_gqa_decode_f32(const void* q, const void* k,
+                                         const void* v, const int* lengths,
+                                         void* out, int batch, int heads,
+                                         int kv_heads, int head_dim,
+                                         int max_len, float scale,
+                                         void* stream) {
+  if (kv_heads <= 0 || heads % kv_heads) return (int)cudaErrorInvalidValue;
+  Geometry g = gqa_geometry(heads, kv_heads, head_dim, scale);
   g.tokens_per_page = max_len;
   g.per_tok = kv_heads * head_dim;
   g.page_elems = (long long)max_len * kv_heads * head_dim;
   g.max_pages = 1;
-  return dispatch_dtype<false>(dtype, q, k, v, nullptr, lengths, out, batch,
-                               kv_heads, g, stream);
+  return dispatch<float, false>(q, k, v, nullptr, lengths, out, batch,
+                                kv_heads, g, static_cast<cudaStream_t>(stream));
 }
 
+// dtype: 0 = float32, 1 = bfloat16 (q, the pool and out share it).  q
+// arrives pre-scaled.
 extern "C" int paged_mla_decode(const void* q, const void* pool,
                                 const int* table, const int* lengths,
                                 void* out, int batch, int heads,
@@ -449,7 +1118,14 @@ extern "C" int paged_mla_decode(const void* q, const void* pool,
   g.page_elems = page_elems;
   g.max_pages = max_pages;
   g.tile = kMaxTile;
+  g.q_scale = 1.f;
   const int grid_x = (heads + g.heads_per_block - 1) / g.heads_per_block;
-  return dispatch_dtype<true>(dtype, q, pool, pool, table, lengths, out,
-                              batch, grid_x, g, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch<float, true>(q, pool, pool, table, lengths, out, batch,
+                                 grid_x, g, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16, true>(q, pool, pool, table, lengths, out,
+                                         batch, grid_x, g, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -4,9 +4,10 @@ The kernels live in ``csrc/paged_attention.cu`` (see the note there for
 what they replace, their bound and their design), built at first use by
 ``repro_torch.kernels.build`` and wrapped here:
 
-* ``paged_decode_attention``       -> ``paged_gqa_decode``
+* ``paged_decode_attention``       -> ``paged_gqa_decode_bf16`` / ``_f32``
 * ``paged_mla_decode_attention``   -> ``paged_mla_decode``
-* ``contiguous_decode_attention``  -> ``contiguous_gqa_decode``
+* ``contiguous_decode_attention``  -> ``contiguous_gqa_decode_bf16`` /
+                                      ``_f32``
 
 The paged wrappers take the FLAT pool ``[n_pages, page_elems]`` and the
 page geometry instead of a typed page view: the kernels compute every
@@ -15,18 +16,30 @@ contiguous wrapper takes the dense-cache layer ``[B, T, KV, D]`` of the
 fallback families as it is.  On a CUDA tensor a wrapper launches its
 kernel or raises; only a tensor that lies on the CPU takes the plain
 PyTorch version (``repro_torch.kernels.ref``).  Each wrapper counts its
-kernel launches in its ``launches`` attribute.  The kernels have no
+calls that reach the card in its ``launches`` attribute (one per call,
+however many CUDA launches the call makes).  The kernels have no
 backward: a CUDA call under grad mode with an input that requires grad
 raises (``build.refuse_grad``).
 
-Like the TPU kernels (``src/repro/kernels/paged_attention.py:92,183,284``)
-the wrappers fold ``scale`` into q once and round it back to q's dtype
-before the launch.
+The GQA routes follow the dtype.  bfloat16 takes the split-KV kernels
+(flash-decoding): ``kv_splits`` cuts the context into runs of whole
+``TILE``-token tiles from host-known shapes only, the partials go to f32
+buffers from ``torch.empty`` and a second small kernel merges them, so a
+call makes no host read and can be captured in a CUDA graph.  Within it,
+a kv head's ``G = H / KV`` query heads run on tensor cores when ``G >=
+8`` and on CUDA cores otherwise (``rows_per_block``; head dims in
+``check_bf16_geometry``).  float32 takes the
+first design (one block per kv head and batch row, CUDA cores), which holds
+the card-vs-CPU checks at 2e-5.  Both GQA routes fold ``scale`` into q in
+the kernel (f32 product rounded to q's dtype), as the TPU wrappers do
+(``src/repro/kernels/paged_attention.py:92,183``); the MLA wrapper folds
+it here (``_scaled``) before the launch.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -34,23 +47,107 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import DTYPE_CODES, launch
 
 SOURCE = build.CSRC / "paged_attention.cu"
+#: tokens per tile of the split-KV kernels; a split covers whole tiles
+TILE = 64
+#: most splits of one row's context
+MAX_SPLITS = 128
+#: blocks per SM the split count aims at
+BLOCKS_PER_SM = 2
+#: head dims the bf16 GQA kernels are instantiated for: every one on CUDA
+#: cores, and from 16 up on tensor cores (``mma.sync.m16n8k16`` steps k by
+#: 16); 8 is the smoke configs' head dim
+HEAD_DIMS = (8, 16, 32, 64, 128)
+TENSOR_CORE_HEAD_DIMS = (16, 32, 64, 128)
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels, with typed entry points."""
     lib = build.load(SOURCE.name)
-    ptrs = [ctypes.c_void_p] * 5
-    ints = [ctypes.c_int] * 6
-    for fn in (lib.paged_gqa_decode, lib.paged_mla_decode):
-        fn.argtypes = ptrs + ints + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_void_p]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.paged_gqa_decode_bf16.argtypes = (
+        [ptr] * 8 + [i32] * 7 + [ctypes.c_longlong, i32, i32,
+                                 ctypes.c_float, ptr])
+    lib.contiguous_gqa_decode_bf16.argtypes = (
+        [ptr] * 8 + [i32] * 8 + [ctypes.c_float, ptr])
+    lib.paged_gqa_decode_f32.argtypes = (
+        [ptr] * 5 + [i32] * 6 + [ctypes.c_longlong, ctypes.c_float, ptr])
+    lib.contiguous_gqa_decode_f32.argtypes = (
+        [ptr] * 5 + [i32] * 5 + [ctypes.c_float, ptr])
+    lib.paged_mla_decode.argtypes = (
+        [ptr] * 5 + [i32] * 6 + [ctypes.c_longlong, i32, ptr])
+    for fn in (lib.paged_gqa_decode_bf16, lib.contiguous_gqa_decode_bf16,
+               lib.paged_gqa_decode_f32, lib.contiguous_gqa_decode_f32,
+               lib.paged_mla_decode):
         fn.restype = ctypes.c_int
-    lib.contiguous_gqa_decode.argtypes = ([ctypes.c_void_p] * 5
-                                          + [ctypes.c_int] * 6
-                                          + [ctypes.c_void_p])
-    lib.contiguous_gqa_decode.restype = ctypes.c_int
     return lib
+
+
+def rows_per_block(group: int) -> int:
+    """Query heads one bf16 GQA block serves, from the group size ``G =
+    H / KV``: 16 for ``G >= 8`` (tensor cores: the heads are the 16 rows
+    of ``mma.sync``; a larger G takes several blocks), else 1, 2 or 4
+    (bf16x2 products on CUDA cores)."""
+    if group >= 8:
+        return 16
+    return group if group <= 2 else 4
+
+
+def n_tiles(max_tokens: int) -> int:
+    """``TILE``-token tiles covering ``max_tokens`` (at least one)."""
+    return max(1, -(-max_tokens // TILE))
+
+
+def kv_splits(batch: int, kv_blocks: int, max_tokens: int,
+              sm_count: int) -> int:
+    """How many splits the bf16 GQA kernels cut a row's context into.
+
+    ``kv_blocks`` blocks serve one batch row before the split (kv heads x
+    head groups); ``max_tokens`` is what the table can address (``max_pages
+    x tokens_per_page``, or the cache's T).  Aims at ``BLOCKS_PER_SM``
+    blocks per SM in all, with at least one tile per split and at most
+    ``MAX_SPLITS``.  Only host-known shapes enter: never the lengths,
+    which live on the card, so a call needs no host read and its launch
+    shape is fixed.
+    """
+    want = -(-BLOCKS_PER_SM * sm_count // max(1, batch * kv_blocks))
+    return max(1, min(want, n_tiles(max_tokens), MAX_SPLITS))
+
+
+def split_plan(batch: int, heads: int, n_kv: int, max_tokens: int,
+               sm_count: int) -> Tuple[int, int]:
+    """(query heads per block, splits) of a bf16 GQA decode call."""
+    group = heads // n_kv
+    rows = rows_per_block(group)
+    return rows, kv_splits(batch, n_kv * -(-group // rows), max_tokens,
+                           sm_count)
+
+
+def check_bf16_geometry(heads: int, n_kv: int, head_dim: int) -> None:
+    """Raise ``ValueError`` unless the bf16 GQA kernels are instantiated
+    for ``heads`` query heads over ``n_kv`` kv heads of ``head_dim``."""
+    if n_kv <= 0 or heads % n_kv:
+        raise ValueError(f"{heads} query heads do not group over {n_kv} kv "
+                         f"heads")
+    tensor_cores = rows_per_block(heads // n_kv) == 16
+    dims = TENSOR_CORE_HEAD_DIMS if tensor_cores else HEAD_DIMS
+    if head_dim not in dims:
+        raise ValueError(
+            f"bf16 GQA kernels take head dims {dims} on "
+            f"{'tensor' if tensor_cores else 'CUDA'} cores (G = "
+            f"{heads // n_kv}), got {head_dim}")
+
+
+def split_start(split: int, splits: int, max_tokens: int) -> int:
+    """First token of ``split``: split s covers the tiles [s * n / splits,
+    (s + 1) * n / splits) of the n = ``n_tiles(max_tokens)``, as the
+    kernel computes it."""
+    return split * n_tiles(max_tokens) // splits * TILE
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_launch_inputs(q, pool, page_table, lengths, per_tok: int,
@@ -74,15 +171,47 @@ def _check_launch_inputs(q, pool, page_table, lengths, per_tok: int,
         raise ValueError("page_table must be [B, max_pages] and lengths [B]")
 
 
-def _launch(fn, q, pool, page_table, lengths, out, dims) -> None:
-    launch(fn, q.device, q, pool, page_table.to(torch.int32).contiguous(),
-           lengths.to(torch.int32).contiguous(), out, *dims,
-           DTYPE_CODES[q.dtype])
-
-
 def _scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
     """Fold ``scale`` into q once and round back to q's dtype."""
     return (q.float() * scale).to(q.dtype).contiguous()
+
+
+def _gqa_route(q: torch.Tensor, kv: torch.Tensor, n_kv: int) -> str:
+    """The GQA kernel body for these inputs ("bf16" or "f32"); raises on
+    what neither takes."""
+    H, D = q.shape[2], q.shape[3]
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if H % n_kv:
+        raise ValueError(f"{H} query heads do not group over {n_kv} kv heads")
+    if q.dtype == torch.float32:
+        return "f32"
+    check_bf16_geometry(H, n_kv, D)
+    if kv.data_ptr() % 16:
+        raise ValueError("the KV must start on 16 bytes (cp.async)")
+    return "bf16"
+
+
+def _split_launch(fn, q, kv, lengths, n_kv, max_tokens, geometry,
+                  scale) -> torch.Tensor:
+    """Launch a bf16 split-KV entry point: ``kv`` are its KV pointer
+    arguments (and table), ``geometry`` its shape arguments after the
+    rows.  Allocates ``out`` and, for more than one split, the f32
+    partials, with ``torch.empty`` only; reads nothing back."""
+    B, _, H, D = q.shape
+    rows, splits = split_plan(B, H, n_kv, max_tokens,
+                              _sm_count(q.device.index))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    parts = (None, None, None)
+    if splits > 1:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        parts = (torch.empty((B, H, splits, D), **f32),
+                 torch.empty((B, H, splits), **f32),
+                 torch.empty((B, H, splits), **f32))
+    launch(fn, q.device, q.contiguous(), *kv,
+           lengths.to(torch.int32).contiguous(), out, *parts, B, H, n_kv, D,
+           rows, *geometry, splits, n_tiles(max_tokens), float(scale))
+    return out
 
 
 def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor,
@@ -105,16 +234,24 @@ def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor,
                                           scale)
     if q.device.type != "cuda":
         raise ValueError(f"no paged attention kernel for {q.device}")
-    if H % n_kv:
-        raise ValueError(f"{H} query heads do not group over {n_kv} kv heads")
+    route = _gqa_route(q, pool, n_kv)
     _check_launch_inputs(q, pool, page_table, lengths, per_tok,
                          tokens_per_page)
     build.refuse_grad("paged_decode_attention", q, pool)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(load_library().paged_gqa_decode, _scaled(q, scale), pool,
-            page_table, lengths, out,
-            (B, H, n_kv, D, page_table.shape[1], tokens_per_page,
-             pool.shape[1]))
+    lib, max_pages = load_library(), page_table.shape[1]
+    table = page_table.to(torch.int32).contiguous()
+    if route == "bf16":
+        if pool.shape[1] % 8:
+            raise ValueError("bf16 pages must hold a multiple of 8 elements")
+        out = _split_launch(lib.paged_gqa_decode_bf16, q, (pool, table),
+                            lengths, n_kv, max_pages * tokens_per_page,
+                            (max_pages, tokens_per_page, pool.shape[1]),
+                            scale)
+    else:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        launch(lib.paged_gqa_decode_f32, q.device, q.contiguous(), pool,
+               table, lengths.to(torch.int32).contiguous(), out, B, H, n_kv,
+               D, max_pages, tokens_per_page, pool.shape[1], float(scale))
     paged_decode_attention.launches += 1
     return out
 
@@ -144,10 +281,11 @@ def paged_mla_decode_attention(q: torch.Tensor, pool: torch.Tensor,
     _check_launch_inputs(q, pool, page_table, lengths, e, tokens_per_page)
     build.refuse_grad("paged_mla_decode_attention", q, pool)
     out = torch.empty((B, 1, H, latent_dim), dtype=q.dtype, device=q.device)
-    _launch(load_library().paged_mla_decode, _scaled(q, scale), pool,
-            page_table, lengths, out,
-            (B, H, latent_dim, e - latent_dim, page_table.shape[1],
-             tokens_per_page, pool.shape[1]))
+    launch(load_library().paged_mla_decode, q.device, _scaled(q, scale),
+           pool, page_table.to(torch.int32).contiguous(),
+           lengths.to(torch.int32).contiguous(), out, B, H, latent_dim,
+           e - latent_dim, page_table.shape[1], tokens_per_page,
+           pool.shape[1], DTYPE_CODES[q.dtype])
     paged_mla_decode_attention.launches += 1
     return out
 
@@ -170,8 +308,7 @@ def contiguous_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
         raise ValueError(f"no decode attention kernel for {q.device}")
     B, _, H, D = q.shape
     T, KV = cache_k.shape[1], cache_k.shape[2]
-    if q.dtype not in DTYPE_CODES:
-        raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    route = _gqa_route(q, cache_k, KV)
     for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError(f"{name} is {t.dtype} on {t.device}, q is "
@@ -179,16 +316,20 @@ def contiguous_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
         if t.shape != (B, T, KV, D) or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous [B,T,KV,D] "
                              f"tensor, got {tuple(t.shape)}")
-    if H % KV:
-        raise ValueError(f"{H} query heads do not group over {KV} kv heads")
+    if route == "bf16" and cache_v.data_ptr() % 16:
+        raise ValueError("cache_v must start on 16 bytes (cp.async)")
     if lengths.shape != (B,) or lengths.device != q.device:
         raise ValueError("lengths must be [B] on q's device")
     build.refuse_grad("decode_attention", q, cache_k, cache_v)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    launch(load_library().contiguous_gqa_decode, q.device,
-           _scaled(q, scale), cache_k, cache_v,
-           lengths.to(torch.int32).contiguous(), out, B, H, KV, D, T,
-           DTYPE_CODES[q.dtype])
+    lib = load_library()
+    if route == "bf16":
+        out = _split_launch(lib.contiguous_gqa_decode_bf16, q,
+                            (cache_k, cache_v), lengths, KV, T, (T,), scale)
+    else:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        launch(lib.contiguous_gqa_decode_f32, q.device, q.contiguous(),
+               cache_k, cache_v, lengths.to(torch.int32).contiguous(), out,
+               B, H, KV, D, T, float(scale))
     contiguous_decode_attention.launches += 1
     return out
 

@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs import PAPER_COLOC_SET, get_smoke_config
 from repro_torch.configs.base import EngineConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ssd_chunked import ssd_scan_chunked
 from repro_torch.models.model import build_model
@@ -91,6 +92,145 @@ def test_mla_kernel_matches_plain(cuda, dtype, tol, H, r, rp, ps):
                                atol=tol)
 
 
+def _edge_inputs(rng, lengths, npages, ps, H, KV, D, holes):
+    """q, a flat pool that is NaN wherever no valid token lies (past every
+    length, unmapped pages, page slack, the pages of ``holes``), a
+    shuffled table and the lengths; ``holes`` are (row, page) pairs
+    unmapped (-1) inside the row's length."""
+    per_tok, B = 2 * KV * D, len(lengths)
+    n_phys = B * npages + 3
+    pool = np.full((n_phys, ps * per_tok + 8), np.nan, np.float32)
+    table = np.full((B, npages), -1, np.int32)
+    ids = rng.permutation(n_phys)
+    for b, n in enumerate(lengths):
+        for p in range(-(-n // ps)):
+            table[b, p] = ids[b * npages + p]
+            if (b, p) not in holes:
+                k = min(ps, n - p * ps)
+                pool[table[b, p], : k * per_tok] = rng.standard_normal(
+                    k * per_tok)
+    for b, p in holes:
+        table[b, p] = -1
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    return q, pool, table, np.array(lengths, np.int32)
+
+
+def _without_holes(table, lengths, holes, ps):
+    """The table and lengths on which the plain version computes what the
+    kernel does: each hole (a whole page inside a length, skipped) taken
+    out, the row's later pages moved up, its length cut by a page."""
+    table, lengths = table.copy(), lengths.copy()
+    for b in {b for b, _ in holes}:
+        gone = [p for r, p in holes if r == b]
+        assert all((p + 1) * ps < lengths[b] for p in gone)
+        row = [t for p, t in enumerate(table[b]) if p not in gone]
+        table[b] = row + [-1] * len(gone)
+        lengths[b] -= len(gone) * ps
+    return table, lengths
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("H,KV,D,ps", [(64, 4, 128, 8), (16, 16, 128, 2),
+                                       (8, 2, 64, 8), (48, 2, 32, 4),
+                                       (8, 2, 8, 4)])
+def test_gqa_kernel_edges(cuda, dtype, tol, H, KV, D, ps):
+    """The split kernel's edges: lengths 0 and 1, on a split boundary and
+    one token either side of it, ending mid-page; unmapped (-1) pages
+    inside two lengths; NaN past every length.  Geometries: qwen3-moe
+    (tensor cores), moonshot (MHA, CUDA cores), G = 4 (CUDA cores),
+    G = 24 (tensor cores, two blocks per kv head) and the smoke configs'
+    head dim 8 (CUDA cores)."""
+    rng = np.random.default_rng(H * D + ps)
+    npages = 512 // ps
+    _, splits = pa.split_plan(6, H, KV, npages * ps,
+                              torch.cuda.get_device_properties(cuda)
+                              .multi_processor_count)
+    edge = pa.split_start(1, splits, npages * ps)
+    lengths = [0, 1, edge, edge - 1, edge + 1, ps * 50 + max(1, ps // 2)]
+    holes = ((3, 1), (5, 2), (5, 4))
+    q, pool, table, lengths = _edge_inputs(rng, lengths, npages, ps, H, KV,
+                                           D, holes)
+    plain_table, plain_lengths = _without_holes(table, lengths, holes, ps)
+    args = [torch.from_numpy(a).to(cuda) for a in (q, pool, table, lengths,
+                                                   plain_table,
+                                                   plain_lengths)]
+    q, pool = args[0].to(dtype), args[1].to(dtype)
+    got = kops.paged_decode_attention(q, pool, args[2], args[3],
+                                      tokens_per_page=ps, n_kv=KV,
+                                      scale=D ** -0.5)
+    typed = pool[:, : ps * 2 * KV * D].reshape(-1, ps, 2, KV, D)
+    want = tref.paged_decode_attention(q, typed, args[4], args[5], D ** -0.5)
+    assert torch.isfinite(got).all()
+    assert not got[0].any()                          # length 0 writes 0
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("H,KV,D,ps", [(64, 4, 128, 8), (16, 16, 128, 2)])
+def test_gqa_kernel_long_context(cuda, H, KV, D, ps):
+    """One row at context 32768 (many tiles per split), bf16."""
+    gen = torch.Generator(device=cuda).manual_seed(ps)
+    npages = 32768 // ps
+    per_tok = 2 * KV * D
+    pool = torch.randn((npages + 2, ps * per_tok), generator=gen,
+                       device=cuda).to(torch.bfloat16)
+    table = torch.randperm(npages + 2, generator=gen, device=cuda)[
+        :npages].to(torch.int32)[None]
+    lengths = torch.tensor([32768 - 3], dtype=torch.int32, device=cuda)
+    q = torch.randn((1, 1, H, D), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    got = kops.paged_decode_attention(q, pool, table, lengths,
+                                      tokens_per_page=ps, n_kv=KV,
+                                      scale=D ** -0.5)
+    want = tref.paged_decode_attention(
+        q, pool.reshape(-1, ps, 2, KV, D), table, lengths, D ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_gqa_decode_is_sync_free_and_capturable(cuda):
+    """The bf16 GQA wrappers read nothing back to the host (they run under
+    ``set_sync_debug_mode("error")``), and a paged call captured in a
+    CUDA graph, replayed after new lengths are written in place, equals
+    an eager call on those lengths."""
+    rng = np.random.default_rng(0)
+    H, KV, D, ps = 64, 4, 128, 8
+    q, pool, table, lengths = (torch.from_numpy(a).to(cuda) for a in
+                               _edge_inputs(rng, [500, 512, 77, 1], 64, ps,
+                                            H, KV, D, ()))
+    q, pool = q.to(torch.bfloat16), pool.to(torch.bfloat16)
+    kw = dict(tokens_per_page=ps, n_kv=KV, scale=D ** -0.5)
+    ck = torch.randn((2, 256, 4, 64), device=cuda).to(torch.bfloat16)
+    qc = torch.randn((2, 1, 4, 64), device=cuda).to(torch.bfloat16)
+    clens = torch.tensor([256, 30], dtype=torch.int32, device=cuda)
+
+    def calls():
+        return (kops.paged_decode_attention(q, pool, table, lengths, **kw),
+                kops.decode_attention(qc, ck, ck, clens, scale=0.125))
+    calls()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        calls()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kops.paged_decode_attention(q, pool, table, lengths, **kw)
+    lengths.copy_(torch.tensor([300, 0, 77, 1], dtype=torch.int32))
+    graph.replay()
+    want = kops.paged_decode_attention(q, pool, table, lengths, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert not out[1].any()
+
+
 def test_kernel_refuses_mismatched_dtypes(cuda):
     q = torch.zeros((1, 1, 4, 8), device=cuda)
     pool = torch.zeros((2, 64), dtype=torch.bfloat16, device=cuda)
@@ -100,10 +240,13 @@ def test_kernel_refuses_mismatched_dtypes(cuda):
                                     tokens_per_page=4, n_kv=1, scale=1.0)
 
 
-def test_engine_on_the_card_serves_and_returns_every_page(cuda):
-    """The float32 smoke coloc set served on the card: every request gets
-    its tokens, both kernels launch, every page comes back."""
-    models = {n: get_smoke_config(n).replace(dtype="float32")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_engine_on_the_card_serves_and_returns_every_page(cuda, dtype):
+    """The smoke coloc set served on the card, in float32 and in bf16 (its
+    configs' own dtype, which ``python -m repro_torch.launch.serve`` runs
+    by default; head dim 8): every request gets its tokens, both kernels
+    launch, every page comes back."""
+    models = {n: get_smoke_config(n).replace(dtype=dtype)
               for n in PAPER_COLOC_SET}
     params = {}
     for i, (n, c) in enumerate(models.items()):
@@ -148,10 +291,55 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, B, S, T, H, KV, D):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("B,S,T,H,KV,D", [
+    (1, 100, 1000, 8, 2, 64),        # T > S, offset 900: no tile multiple
+    (2, 77, 77, 4, 4, 16),           # S = T off the tile
+    (1, 190, 250, 8, 2, 16), (1, 190, 250, 8, 2, 32),
+    (1, 190, 250, 8, 2, 64), (1, 190, 250, 8, 2, 128),
+    (1, 4096, 4096, 32, 32, 64),     # zamba2's heads at S = 4096
+])
+def test_flash_kernel_edges_bf16(cuda, B, S, T, H, KV, D):
+    """The tensor-core route at its edges, bf16 within 2e-2."""
+    gen = torch.Generator(device=cuda).manual_seed(S + T + D)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               .to(torch.bfloat16)
+               for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D)))
+    got = kops.flash_attention(q, k, v, scale=D ** -0.5)
+    want = tref.flash_attention(q, k, v, D ** -0.5)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_contiguous_decode_kernel_edges(cuda, dtype, tol):
+    """Zamba2's cache (H = KV = 32, D = 64, T = 1024): lengths 0 and 1,
+    on a split boundary and one past it, and past T; NaN past each."""
+    B, T, H, KV, D = 6, 1024, 32, 32, 64
+    _, splits = pa.split_plan(B, H, KV, T,
+                              torch.cuda.get_device_properties(cuda)
+                              .multi_processor_count)
+    edge = pa.split_start(1, splits, T)
+    lengths = [0, 1, edge, edge + 1, 700, T + 5]
+    gen = torch.Generator(device=cuda).manual_seed(edge)
+    q = torch.randn((B, 1, H, D), generator=gen, device=cuda).to(dtype)
+    ck, cv = (torch.randn((B, T, KV, D), generator=gen, device=cuda)
+              .to(dtype) for _ in range(2))
+    for b, n in enumerate(lengths):
+        ck[b, n:] = float("nan")
+        cv[b, n:] = float("nan")
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got = kops.decode_attention(q, ck, cv, lens, scale=D ** -0.5)
+    want = tref.decode_attention(q, ck, cv, lens, D ** -0.5)
+    assert torch.isfinite(got).all() and not got[0].any()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("B,T,H,KV,D", [(4, 1024, 32, 32, 64),
-                                        (3, 77, 8, 2, 128)])
+                                        (3, 77, 8, 2, 128), (2, 50, 8, 2, 8)])
 def test_contiguous_decode_kernel_matches_plain(cuda, dtype, tol, B, T, H,
                                                 KV, D):
     """Ragged lengths (one full, one past T: clamped) with NaN in the
@@ -205,11 +393,14 @@ def test_ssd_kernel_matches_plain(cuda, dtype, tol, with_h0, B, S, H, P, G,
     torch.testing.assert_close(h, wh, rtol=1e-3, atol=1e-3)
 
 
-def test_fallback_engine_on_the_card_serves_and_returns_every_page(cuda):
-    """Float32 smoke zamba2 + mamba2 on the card: every request gets its
-    tokens through the three kernels, every page comes back."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fallback_engine_on_the_card_serves_and_returns_every_page(cuda,
+                                                                   dtype):
+    """Smoke zamba2 + mamba2 on the card, in float32 and in bf16: every
+    request gets its tokens through the three kernels, every page comes
+    back."""
     names = ("zamba2-1.2b", "mamba2-130m")
-    models = {n: get_smoke_config(n).replace(dtype="float32") for n in names}
+    models = {n: get_smoke_config(n).replace(dtype=dtype) for n in names}
     engine = CrossPoolEngine(models, page_budget=512, page_bytes=4096,
                              max_batch=2, max_ctx=64, device=cuda)
     counts = {f: getattr(kops, f).launches

@@ -10,6 +10,8 @@ scan within 1e-3 (``tests/test_kernels.py``'s tolerance: the chunked
 form sums in another order than the recurrence).  The CUDA kernels
 themselves run only on a card (``tests/test_torch_cuda.py``).
 """
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,8 +30,11 @@ from repro.kernels.paged_attention import (contiguous_decode_attention as
 from repro.kernels.ssd_chunked import ssd_scan_chunked as j_chunked
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd
 from repro_torch.bridge import to_torch
+from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
+from repro_torch.core import split_exec
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ssd_chunked import (ssd_decode_step,
                                              ssd_scan_chunked)
@@ -210,6 +215,163 @@ def test_every_source_has_its_own_library():
     libs = {build.library_path(p).name for p in srcs}
     assert len(libs) == len(srcs)
     assert all(build.library_path(p).parent == build.BUILD_DIR for p in srcs)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 GQA decode kernels' split-KV plan and merge (flash-decoding)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("batch,kv_blocks,max_tokens", [
+    (4, 4, 1024),          # qwen3-moe, B=4, 1k context
+    (1, 4, 8192),          # qwen3-moe, B=1, 8k
+    (1, 4, 32768),
+    (4, 32, 1024),         # zamba2's contiguous cache
+    (1, 32, 1024),
+    (4, 16, 1024),         # moonshot
+    (1, 1, 100),           # fewer tiles than SMs
+    (64, 8, 4096),         # a large batch: no split
+    (1, 1, 10 ** 6),       # capped
+])
+def test_kv_split_plan(batch, kv_blocks, max_tokens):
+    """At least one split, never more than tiles (so no split lies wholly
+    past a full context) or ``MAX_SPLITS``, and ``BLOCKS_PER_SM`` blocks
+    per SM where the context has the tiles for it; the splits tile the context without gap
+    or overlap.  The plan reads no lengths."""
+    sm = 132
+    splits = pa.kv_splits(batch, kv_blocks, max_tokens, sm)
+    tiles = pa.n_tiles(max_tokens)
+    assert 1 <= splits <= min(tiles, pa.MAX_SPLITS)
+    blocks = batch * kv_blocks * splits
+    assert blocks >= min(pa.BLOCKS_PER_SM * sm,
+                         batch * kv_blocks * min(tiles, pa.MAX_SPLITS))
+    starts = [pa.split_start(s, splits, max_tokens)
+              for s in range(splits + 1)]
+    assert starts[0] == 0 and starts[-1] >= max_tokens
+    assert all(a < b for a, b in zip(starts, starts[1:]))
+    assert all(a < max_tokens for a in starts[:-1])
+    assert all(a % pa.TILE == 0 for a in starts)
+    assert "lengths" not in inspect.signature(pa.kv_splits).parameters
+
+
+@pytest.mark.parametrize("group,rows", [(1, 1), (2, 2), (3, 4), (4, 4),
+                                        (7, 4), (8, 16), (16, 16),
+                                        (32, 16)])
+def test_rows_per_block_routes_by_group(group, rows):
+    """G >= 8 query heads per kv head go to tensor cores (16 rows a
+    block), fewer to CUDA cores (1, 2 or 4 a block)."""
+    assert pa.rows_per_block(group) == rows
+
+
+@pytest.mark.parametrize("H,KV,groups", [(64, 4, 1), (16, 16, 1),
+                                         (48, 2, 2), (56, 8, 2)])
+def test_split_plan_counts_head_groups(H, KV, groups):
+    """A kv head whose G query heads exceed a block's rows takes several
+    blocks (qwen3-moe G=16: one; G=24: two of 16; llava G=7: two of 4),
+    and the split plan counts them; it reads no lengths either."""
+    rows, splits = pa.split_plan(2, H, KV, 4096, 132)
+    assert rows == pa.rows_per_block(H // KV)
+    assert -(-(H // KV) // rows) == groups
+    assert splits == pa.kv_splits(2, KV * groups, 4096, 132)
+    assert "lengths" not in inspect.signature(pa.split_plan).parameters
+
+
+def _served_gqa_geometries():
+    """(name, H, KV, D) of every GQA model the engine serves, at its
+    published and its smoke widths: the split path's families and the
+    hybrid's shared attention block."""
+    out = []
+    for name in ARCH_NAMES:
+        for width, cfg in (("full", get_config(name)),
+                           ("smoke", get_smoke_config(name))):
+            served = (split_exec.supports_split(cfg)
+                      or cfg.family == "hybrid")
+            if served and cfg.attention == "gqa":
+                out.append((f"{name}-{width}", cfg.n_heads, cfg.n_kv_heads,
+                            cfg.head_dim))
+    return out
+
+
+@pytest.mark.parametrize("name,H,KV,D", _served_gqa_geometries())
+def test_bf16_gqa_kernels_take_every_served_geometry(name, H, KV, D):
+    """The bf16 GQA decode kernels are instantiated for every model the
+    engine serves in bf16, the smoke configs' head dim 8 included (the
+    serve CLI's default models)."""
+    pa.check_bf16_geometry(H, KV, D)
+
+
+@pytest.mark.parametrize("H,KV,D", [(16, 1, 8), (8, 2, 256), (8, 2, 48),
+                                    (6, 4, 64)])
+def test_bf16_gqa_kernels_refuse_what_they_lack(H, KV, D):
+    """Head dim 8 on tensor cores (G >= 8), head dims without an
+    instantiation, and heads that do not group over the kv heads."""
+    with pytest.raises(ValueError):
+        pa.check_bf16_geometry(H, KV, D)
+
+
+def _split_and_merge(q, k, v, lengths, splits, scale):
+    """Flash-decoding in torch, as the bf16 GQA kernels compute it: per
+    split the (m, l, acc) of its tokens below the length (m = -1e30, l =
+    0 for a split with none), then ``out = sum_s e^(m_s - M) acc_s /
+    sum_s e^(m_s - M) l_s`` over the splits with l_s > 0, 0 where there
+    is none.  q [B,1,H,D]; k, v [B,T,KV,D] dense."""
+    B, _, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    qs = (q.float() * scale).to(q.dtype).float().reshape(B, KV, H // KV, D)
+    m = torch.full((B, H, splits), -1e30)
+    l = torch.zeros((B, H, splits))
+    acc = torch.zeros((B, H, splits, D))
+    for s in range(splits):
+        lo = pa.split_start(s, splits, T)
+        for b in range(B):
+            hi = min(pa.split_start(s + 1, splits, T), int(lengths[b]), T)
+            if lo >= hi:
+                continue
+            sc = torch.einsum("kgd,tkd->kgt", qs[b], k[b, lo:hi].float())
+            mx = sc.amax(-1)
+            p = torch.exp(sc - mx[..., None])
+            m[b, :, s] = mx.reshape(H)
+            l[b, :, s] = p.sum(-1).reshape(H)
+            acc[b, :, s] = torch.einsum("kgt,tkd->kgd", p,
+                                        v[b, lo:hi].float()).reshape(H, D)
+    big = torch.where(l > 0, m, torch.full_like(m, -1e30)).amax(-1,
+                                                                keepdim=True)
+    w = torch.where(l > 0, torch.exp(m - big), torch.zeros_like(m))
+    den = (w * l).sum(-1)
+    num = (w[..., None] * acc).sum(-2)
+    out = torch.where(den[..., None] > 0,
+                      num / den.clamp(min=1e-30)[..., None],
+                      torch.zeros_like(num))
+    return out.reshape(B, 1, H, D)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 16])
+def test_split_and_merge_matches_the_plain_version_and_jax(splits):
+    """The merge the kernels rely on equals one softmax over the whole
+    context (the port's plain version, and the JAX oracle on the rows
+    with a token), within 2e-5, for uneven splits, splits with no token
+    (past a length, or more splits than tiles) and a row of length 0,
+    which writes 0 as the TPU kernel does (the oracle, which has no
+    ``l == 0`` guard, averages the rows past the length instead)."""
+    rng = np.random.default_rng(splits)
+    B, H, KV, D, ps, npages = 5, 8, 2, 16, 16, 40
+    q, pages, table, lengths = _paged_inputs(
+        rng, B, npages, ps, B * npages + 3, (2, KV, D), H, D)
+    lengths[:3] = [0, 1, npages * ps]                 # empty, one, full
+    table[2] = rng.permutation(B * npages + 3)[:npages]
+    scale = D ** -0.5
+    safe = np.maximum(table, 0)
+    dense = pages[safe].reshape(B, npages * ps, 2, KV, D)
+    got = _split_and_merge(_t(q), _t(dense[:, :, 0]), _t(dense[:, :, 1]),
+                           _t(lengths), splits, scale)
+    want = tref.paged_decode_attention(_t(q), _t(pages), _t(table),
+                                       _t(lengths), scale)
+    torch.testing.assert_close(got, want, **TOL)
+    oracle = jref.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(pages), jnp.asarray(table),
+        jnp.asarray(lengths), scale)
+    np.testing.assert_allclose(got[1:].numpy(), np.asarray(oracle)[1:],
+                               **TOL)
+    assert not got[0].any()                           # length 0 -> 0
 
 
 # ---------------------------------------------------------------------------
