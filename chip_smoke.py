@@ -26,13 +26,15 @@ other than 0) if any phase fails:
              4096, T > S, S and T off the tile, every head dim),
              contiguous decode (ragged lengths with 0 and a split
              boundary, NaN past them) and the SSD scan (float32 within
-             1e-3, bf16 ``y`` within 2e-2, with and without ``h0``) at
-             the zamba2 / mamba2 geometries; then times kernel, plain
+             1e-3, bf16 ``y`` within 2e-2, ``h`` within 1e-3, with and
+             without ``h0``) at the zamba2 / mamba2 geometries, and at
+             64 chunks (S = 4096, chunk 64), a chunk of 8, G = 2 and
+             B = 2 with ``h0``; then times kernel, plain
              version and, for attention, one
              ``scaled_dot_product_attention`` call on the same data under
              each SDPA backend that takes it (a yardstick only: the port
              never calls it; the fastest is ``library_ms``), beside the
-             bound;
+             bound (the SSD scan at S = 1024 and 512);
 4. small   — float32 smoke-size models on the card against the CPU
              (plain versions): the colocated set and zamba2 + mamba2;
              prefill and one decode step give the same logits within
@@ -65,16 +67,19 @@ other than 0) if any phase fails:
              and bf16 within 2e-2, at both shapes phase 7 gives it
              (gate/up: K = d_model, M = d_ff; down: K = d_ff, M = d_model)
              with each layer's recorded load, with that load's 4 least
-             loaded experts emptied, and on a small shape with empty
-             experts; then times it at the gate/up shape and layer 0's
-             load.
+             loaded experts emptied, with every expert boundary one row
+             past a 128-row tile edge, with one expert holding 90% of
+             the rows, and on a small shape with empty experts and rows
+             off 16 bytes; then times it at the gate/up shape and layer
+             0's load.
 
 Phase 4 also runs one float32 smoke train step of qwen3-moe (both MoE
 paths) and minicpm3 on the card against the CPU (loss, grad norm and
 updated params within 1e-4 of each leaf's scale, max(1, max|leaf|)).
 
-Launch counts are set to 0 just before each serve or train phase and
-read just after it.  It prints a JSON line with every kernel's numbers,
+The profile of phase 6's prefill step prints the SSD scan's share of
+the device time.  Launch counts are set to 0 just before each serve or
+train phase and read just after it.  It prints a JSON line with every kernel's numbers,
 then, as its last line, ``{"ok": true, "device": {...}}``.  The full
 kernel table, the serve and train figures and the profiles go to
 ``build/chip_smoke.json``.
@@ -102,7 +107,8 @@ SPIN_CYCLES = 2_000_000
 #: the __global__ functions of ``csrc/``, as the profiler names them
 PORT_KERNELS = ("flash_prefill", "split_decode_kernel", "merge_splits_kernel",
                 "paged_gqa_decode_kernel", "paged_mla_decode_kernel",
-                "ssd_scan_kernel", "moe_gemm")
+                "ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                "ssd_chunk_output_kernel", "moe_gemm")
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
                  "MATH")
 SERVE_K = 4
@@ -601,42 +607,66 @@ def fallback_kernel_phase(torch, kops, ref, ssd_scan_chunked):
         errs["decode_attention"] = max(errs["decode_attention"], e)
 
     # SSD scan: zamba2 and mamba2 at S = 1024, chunk 256
-    S, L = 1024, 256
+    def ssd_inputs(B, S, Hs, P, G, N, dtype, with_h0, shift=2.0):
+        x = randn(B, S, Hs, P, dtype=dtype)
+        dt = torch.nn.functional.softplus(
+            randn(B, S, Hs, dtype=torch.float32) - shift)
+        A = -torch.exp(torch.linspace(0.0, 2.77, Hs, device="cuda"))
+        Bm, Cm = randn(B, S, G, N, dtype=dtype), randn(B, S, G, N,
+                                                       dtype=dtype)
+        h0 = randn(B, Hs, P, N, dtype=torch.float32) if with_h0 else None
+        return x, dt, A, Bm, Cm, h0
+
+    def ssd_check(what, L, x, dt, A, Bm, Cm, h0, tol):
+        y, h = kops.ssd_scan(x, dt, A, Bm, Cm, chunk=L, h0=h0)
+        wy, wh = ssd_scan_chunked(x, dt, A, Bm, Cm, chunk=L, h0=h0)
+        e = close_or_raise(torch, what + " y", y, wy, tol)
+        close_or_raise(torch, what + " h", h, wh, 1e-3)
+        errs["ssd_scan"] = max(errs.get("ssd_scan", 0), e)
+
+    geoms = {}
     for label, cfg in (("zamba2", zamba), ("mamba2", mamba)):
         s = cfg.ssm
-        Hs, P, G, N = s.n_heads(cfg.d_model), s.head_dim, s.n_groups, s.d_state
+        geoms[label] = (s.n_heads(cfg.d_model), s.head_dim, s.n_groups,
+                        s.d_state)
+    S, L = 1024, 256
+    for label, (Hs, P, G, N) in geoms.items():
         for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
             for with_h0 in (False, True):
-                x = randn(1, S, Hs, P, dtype=dtype)
-                dt = torch.nn.functional.softplus(
-                    randn(1, S, Hs, dtype=torch.float32) - 2.0)
-                A = -torch.exp(torch.linspace(0.0, 2.77, Hs, device="cuda"))
-                Bm, Cm = randn(1, S, G, N, dtype=dtype), randn(
-                    1, S, G, N, dtype=dtype)
-                h0 = randn(1, Hs, P, N, dtype=torch.float32) \
-                    if with_h0 else None
-                y, h = kops.ssd_scan(x, dt, A, Bm, Cm, chunk=L, h0=h0)
-                wy, wh = ssd_scan_chunked(x, dt, A, Bm, Cm, chunk=L, h0=h0)
-                what = f"ssd {label} S={S} chunk {L} {dtype} h0={with_h0}"
-                e = close_or_raise(torch, what + " y", y, wy, tol)
-                close_or_raise(torch, what + " h", h, wh, 1e-3)
-                errs["ssd_scan"] = max(errs.get("ssd_scan", 0), e)
-        x = randn(1, S, Hs, P)
-        dt = torch.nn.functional.softplus(randn(1, S, Hs, dtype=torch.float32))
-        A = -torch.exp(torch.linspace(0.0, 2.77, Hs, device="cuda"))
-        Bm, Cm = randn(1, S, G, N), randn(1, S, G, N)
-        nbytes = (2 * S * Hs * P * 2 + S * Hs * 4 + Hs * 4 + 2 * S * G * N * 2
-                  + Hs * P * N * 4)
-        flops = Hs * (S // L) * (L * L * (N + P) + 4 * L * N * P)
-        b_ms, b_by = bound_ms(nbytes, flops)
-        rows.append(dict(
-            kernel="ssd_scan", shape=f"{label} H={Hs} P={P} N={N} S={S} "
-                                     f"chunk {L} bf16",
-            ms=time_ms(torch, lambda: kops.ssd_scan(x, dt, A, Bm, Cm,
-                                                    chunk=L)),
-            plain_ms=time_ms(torch, lambda: ssd_scan_chunked(
-                x, dt, A, Bm, Cm, chunk=L)),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+                ssd_check(f"ssd {label} S={S} chunk {L} {dtype} h0={with_h0}",
+                          L, *ssd_inputs(1, S, Hs, P, G, N, dtype, with_h0),
+                          tol)
+    # the chunk-parallel design's edges: 64 chunks, a chunk off the mma
+    # tile, two groups, two batch rows with h0
+    Hz, Pz, _, Nz = geoms["zamba2"]
+    Hm, Pm, _, Nm = geoms["mamba2"]
+    for B, S_, Hs, P, G, N, L_, with_h0, note in (
+            (1, 4096, Hm, Pm, 1, Nm, 64, True, "64 chunks"),
+            (1, 40, 4, Pz, 1, Nz, 8, True, "chunk 8"),
+            (1, 512, 8, Pz, 2, Nz, 128, False, "G=2"),
+            (2, 512, Hz, Pz, 1, Nz, 256, True, "B=2 with h0")):
+        for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
+            ssd_check(f"ssd {note}: B={B} S={S_} H={Hs} P={P} G={G} N={N} "
+                      f"chunk {L_} {dtype} h0={with_h0}", L_,
+                      *ssd_inputs(B, S_, Hs, P, G, N, dtype, with_h0), tol)
+    # timed at the path's two prompt sizes: 200-900-token prompts mostly
+    # run the 512 bucket, the profiled 1024 bucket is the largest
+    for S in (1024, 512):
+        for label, (Hs, P, G, N) in geoms.items():
+            x, dt, A, Bm, Cm, _ = ssd_inputs(1, S, Hs, P, G, N,
+                                             torch.bfloat16, False, 0.0)
+            nbytes = (2 * S * Hs * P * 2 + S * Hs * 4 + Hs * 4
+                      + 2 * S * G * N * 2 + Hs * P * N * 4)
+            flops = Hs * (S // L) * (L * L * (N + P) + 4 * L * N * P)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            rows.append(dict(
+                kernel="ssd_scan", shape=f"{label} H={Hs} P={P} N={N} "
+                                         f"S={S} chunk {L} bf16",
+                ms=time_ms(torch, lambda: kops.ssd_scan(x, dt, A, Bm, Cm,
+                                                        chunk=L)),
+                plain_ms=time_ms(torch, lambda: ssd_scan_chunked(
+                    x, dt, A, Bm, Cm, chunk=L)),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by))
     for r in rows:
         lib = ("library none (no single PyTorch call computes it)"
                if r["library_ms"] is None else
@@ -657,6 +687,24 @@ def with_empty_experts(np, sizes, n_empty: int = 4):
     out[busiest] += out[idle].sum()
     out[idle] = 0
     return out
+
+
+def off_tile_edges(np, n, experts, tile=128):
+    """``n`` rows over ``experts`` whose every boundary falls one row past
+    a ``tile``-row edge (the grouped GEMM's row tile)."""
+    per = n // experts // tile * tile
+    sizes = np.full(experts, per, np.int32)
+    sizes[0] += 1
+    sizes[-1] = n - int(sizes[:-1].sum())
+    return sizes
+
+
+def skewed(np, n, experts, share=0.9):
+    """``n`` rows with one expert holding at least ``share`` of them."""
+    rest = int(n * (1 - share)) // (experts - 1)
+    sizes = np.full(experts, rest, np.int32)
+    sizes[experts // 2] = n - rest * (experts - 1)
+    return sizes
 
 
 def library_grouped_mm(torch, a, b, offs):
@@ -701,6 +749,10 @@ def moe_kernel_phase(torch, np, kops, ref, loads):
               for proj, k, m in (("gate/up", D, F), ("down", F, D))]
     shapes += [(f"{proj} layer 0, 4 experts emptied", N, k, m,
                 with_empty_experts(np, loads[0]))
+               for proj, k, m in (("gate/up", D, F), ("down", F, D))]
+    shapes += [(f"{proj} {name} load", N, k, m, sizes)
+               for name, sizes in (("off-tile-edge", off_tile_edges(np, N, E)),
+                                   ("skewed", skewed(np, N, E)))
                for proj, k, m in (("gate/up", D, F), ("down", F, D))]
     shapes.append(("small", 77, 48, 130, np.array([30, 0, 0, 40, 0],
                                                   np.int32)))
@@ -1176,8 +1228,12 @@ def device_summary(prof, wall, label):
     for r in port:
         log(f"profile:   port {r['ms']:9.3f} ms {r['calls']:5d}x  "
             f"{r['kernel']}")
+    ssd_ms = sum(r["ms"] for r in port if "ssd_" in r["kernel"])
+    if ssd_ms:
+        log(f"profile: {label}: SSD scan kernels {ssd_ms:.3f} ms = "
+            f"{ssd_ms / busy_ms:.1%} of device busy time")
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms, top=top[:10],
-                port=port)
+                port=port, ssd_ms=ssd_ms)
 
 
 def profile_decode_step(torch, engine, names, k):

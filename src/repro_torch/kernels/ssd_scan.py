@@ -1,12 +1,13 @@
-"""Mamba2 SSD chunked scan: the CUDA kernel's binding and wrapper.
+"""Mamba2 SSD chunked scan: the CUDA kernels' binding and wrapper.
 
-The kernel lives in ``csrc/ssd_scan.cu`` (see the note there for what it
-replaces, its bound and its design), built at first use by
-``repro_torch.kernels.build``.  On a CUDA tensor ``ssd_scan`` launches it
-or raises; only a tensor that lies on the CPU takes the plain PyTorch
+The kernels live in ``csrc/ssd_scan.cu`` (see the note there for what
+they replace, their bound and their design: chunk states, state passing
+and outputs, three launches behind one entry point), built at first use
+by ``repro_torch.kernels.build``.  On a CUDA tensor ``ssd_scan`` launches
+them or raises; only a tensor that lies on the CPU takes the plain PyTorch
 version, the chunked form the reference's XLA route runs
 (``repro_torch.kernels.ssd_chunked.ssd_scan_chunked``).  Launches are
-counted in ``ssd_scan.launches``.
+counted in ``ssd_scan.launches``, one per call.
 """
 from __future__ import annotations
 
@@ -27,12 +28,14 @@ SOURCE = build.CSRC / "ssd_scan.cu"
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel, with typed entry points."""
     lib = build.load(SOURCE.name)
-    lib.ssd_chunked_scan.argtypes = ([ctypes.c_void_p] * 8
+    lib.ssd_chunked_scan.argtypes = ([ctypes.c_void_p] * 9
                                      + [ctypes.c_int] * 8
                                      + [ctypes.c_void_p])
     lib.ssd_chunked_scan.restype = ctypes.c_int
     lib.ssd_scan_supported.argtypes = [ctypes.c_int] * 3
     lib.ssd_scan_supported.restype = ctypes.c_int
+    lib.ssd_scan_workspace.argtypes = [ctypes.c_int] * 6
+    lib.ssd_scan_workspace.restype = ctypes.c_longlong
     return lib
 
 
@@ -73,8 +76,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f" chunk {chunk}")
     y = torch.empty_like(x)
     h_out = torch.empty((Bb, H, P, N), dtype=f32, device=x.device)
+    # La, the chunks' decays and their states: the three kernels' scratch
+    work = torch.empty(lib.ssd_scan_workspace(Bb, S, H, P, N, chunk),
+                       dtype=f32, device=x.device)
     launch(lib.ssd_chunked_scan, x.device, x, dt, A, B_, C_, h0, y, h_out,
-           Bb, S, H, P, G, N, chunk, DTYPE_CODES[x.dtype])
+           work, Bb, S, H, P, G, N, chunk, DTYPE_CODES[x.dtype])
     ssd_scan.launches += 1
     return y, h_out
 

@@ -371,6 +371,10 @@ def test_contiguous_decode_kernel_matches_plain(cuda, dtype, tol, B, T, H,
     (1, 1024, 64, 64, 1, 64, 256),      # zamba2
     (1, 512, 24, 64, 1, 128, 256),      # mamba2
     (2, 48, 4, 16, 2, 16, 16),          # ragged tiles, two groups
+    (1, 4096, 4, 64, 1, 128, 64),       # 64 chunks
+    (1, 40, 4, 64, 1, 64, 8),           # a chunk off the mma tile
+    (2, 256, 8, 64, 2, 64, 64),         # G = 2, two batch rows
+    (1, 48, 2, 8, 1, 4, 16),            # P and N below one mma tile
 ])
 def test_ssd_kernel_matches_plain(cuda, dtype, tol, with_h0, B, S, H, P, G,
                                   N, chunk):
@@ -427,6 +431,9 @@ def test_fallback_engine_on_the_card_serves_and_returns_every_page(cuda,
     (300, 64, 96, [100, 0, 150, 0, 50]),      # empty experts
     (1000, 256, 200, [0, 0, 0, 333, 333, 334]),
     (77, 48, 130, [70, 0, 0]),                # rows past the groups
+    (1000, 64, 136, [129, 127, 255, 1, 257, 231]),  # tile-straddling
+    (300, 64, 96, [5, 3, 0, 270, 9, 13]),     # experts under 16 rows
+    (64, 36, 130, [10, 54]),                  # 72- and 260-byte bf16 rows
 ])
 def test_moe_gemm_kernels_match_plain(cuda, dtype, tol, N, K, M, sizes):
     """Forward, input gradient and weight gradient (through autograd)
@@ -450,6 +457,37 @@ def test_moe_gemm_kernels_match_plain(cuda, dtype, tol, N, K, M, sizes):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
     assert not out[covered:].any() and not xg.grad[covered:].any()
+
+
+def test_moe_gemm_and_ssd_are_sync_free(cuda):
+    """The grouped GEMM's three wrappers and the SSD scan read nothing back
+    to the host (they run under ``set_sync_debug_mode("error")``): group
+    sizes, offsets and lengths stay on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    x, dy, w = rand(300, 64), rand(300, 96), rand(5, 64, 96)
+    gs = torch.tensor([100, 0, 150, 0, 50], dtype=torch.int32, device=cuda)
+    xs, dt = rand(2, 128, 4, 64), rand(2, 128, 4, dtype=torch.float32)
+    dt = torch.nn.functional.softplus(dt)
+    A = -torch.exp(rand(4, dtype=torch.float32))
+    Bm, Cm = rand(2, 128, 1, 64), rand(2, 128, 1, 64)
+    h0 = rand(2, 4, 64, 64, dtype=torch.float32)
+
+    def calls():
+        return (kops.moe_gemm(x, w, gs), kops.moe_gemm_dgrad(dy, w, gs),
+                kops.moe_gemm_wgrad(x, dy, gs),
+                kops.ssd_scan(xs, dt, A, Bm, Cm, chunk=64, h0=h0))
+    calls()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        calls()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def test_kernels_without_backward_refuse_grad(cuda):
