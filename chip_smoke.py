@@ -17,11 +17,13 @@ other than 0) if any phase fails:
              colocated models (bf16 within 2e-2, float32 within 2e-5 on
              a small shape), with ragged lengths, unmapped (-1) table
              entries past and inside lengths and NaN garbage beyond every
-             length, and for GQA lengths 0 and 1, on and beside a split
-             boundary, ending mid-page, one row at context 32768 and
-             the smoke configs' head dim 8;
-             a CUDA-graph replay of the paged GQA call with new lengths
-             against an eager call, and both GQA wrappers under
+             length, lengths 0 and 1, on and beside a split boundary,
+             ending mid-page and one row at context 32768 (GQA and MLA),
+             and the smoke configs' geometries (GQA head dim 8, MLA
+             r = 16, rp = 8);
+             a CUDA-graph replay of the paged GQA and of the paged MLA
+             call with new lengths against an eager call, and the GQA and
+             MLA wrappers under
              ``set_sync_debug_mode("error")``; flash prefill (S = T up to
              4096, T > S, S and T off the tile, every head dim),
              contiguous decode (ragged lengths with 0 and a split
@@ -71,14 +73,15 @@ other than 0) if any phase fails:
              past a 128-row tile edge, with one expert holding 90% of
              the rows, and on a small shape with empty experts and rows
              off 16 bytes; then times it at the gate/up shape and layer
-             0's load.
+             0's load, and the weight gradient at the skewed load too.
 
 Phase 4 also runs one float32 smoke train step of qwen3-moe (both MoE
 paths) and minicpm3 on the card against the CPU (loss, grad norm and
 updated params within 1e-4 of each leaf's scale, max(1, max|leaf|)).
 
 The profile of phase 6's prefill step prints the SSD scan's share of
-the device time.  Launch counts are set to 0 just before each serve or
+the device time, the profiles of phase 5 paged MLA's.  Launch counts
+are set to 0 just before each serve or
 train phase and read just after it.  It prints a JSON line with every kernel's numbers,
 then, as its last line, ``{"ok": true, "device": {...}}``.  The full
 kernel table, the serve and train figures and the profiles go to
@@ -107,6 +110,7 @@ SPIN_CYCLES = 2_000_000
 #: the __global__ functions of ``csrc/``, as the profiler names them
 PORT_KERNELS = ("flash_prefill", "split_decode_kernel", "merge_splits_kernel",
                 "paged_gqa_decode_kernel", "paged_mla_decode_kernel",
+                "mla_split_decode_kernel", "mla_merge_splits_kernel",
                 "ssd_chunk_state_kernel", "ssd_state_pass_kernel",
                 "ssd_chunk_output_kernel", "moe_gemm")
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
@@ -122,6 +126,10 @@ KERNELS = ("paged_decode_attention", "paged_mla_decode_attention",
 TRAIN_MODEL = "moonshot-v1-16b-a3b"
 TRAIN_DEPTH = 2
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
+#: phase 8 times these kernels at these of its shapes and loads
+TIMED_LOADS = {"gate/up layer 0": ("moe_gemm", "moe_gemm_dgrad",
+                                   "moe_gemm_wgrad"),
+               "gate/up skewed load": ("moe_gemm_wgrad",)}
 
 
 def log(msg: str) -> None:
@@ -345,13 +353,17 @@ def bound(case, B, ctx, max_pages, itemsize):
 
 
 def split_boundary(torch, case, B, max_pages) -> int:
-    """First token of the second split of the bf16 GQA kernel for B rows
-    over this table: a length equal to it ends exactly on a boundary."""
+    """First token of the second split of the bf16 GQA or MLA kernel for
+    B rows over this table: a length equal to it ends exactly on a
+    boundary."""
     from repro_torch.kernels import paged_attention as pa
-    _, splits = pa.split_plan(B, case.H, case.KV, max_pages * case.tpp,
-                              torch.cuda.get_device_properties(0)
-                              .multi_processor_count)
-    return pa.split_start(1, splits, max_pages * case.tpp)
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    tokens = max_pages * case.tpp
+    if case.kind == "gqa":
+        _, splits = pa.split_plan(B, case.H, case.KV, tokens, sm)
+    else:
+        _, splits = pa.mla_split_plan(B, case.H, tokens, sm)
+    return pa.split_start(1, splits, tokens)
 
 
 def kernel_phase(torch, kops, ref, cases):
@@ -373,12 +385,11 @@ def kernel_phase(torch, kops, ref, cases):
         max_pages = math.ceil(1024 / tpp)
         run_check(case, [1000, whole, mid, 1], max_pages, torch.bfloat16,
                   2e-2)
-        if case.kind != "gqa":
-            continue
         # the split kernel's edges: length 0 and 1, on a split boundary
         # and one token either side of it, ending mid-page
         edge = split_boundary(torch, case, 6, max_pages)
-        lengths = [0, 1, edge, edge - 1, edge + 1, tpp * 50 + max(1, tpp // 2)]
+        lengths = [0, 1, edge, edge - 1, edge + 1,
+                   tpp * min(50, max_pages - 3) + max(1, tpp // 2)]
         run_check(case, lengths, max_pages, torch.bfloat16, 2e-2,
                   note=f" (split boundary {edge})")
         # unmapped (-1) pages inside a length are skipped
@@ -399,6 +410,11 @@ def kernel_phase(torch, kops, ref, cases):
     # the serve CLI runs by default
     d8 = Case("gqa-smoke-d8", "gqa", 8, 8 * 2 * 2 * 8, H=8, KV=2, D=8)
     run_check(d8, [0, 1, 37, 64], 8, torch.bfloat16, 2e-2)
+    # ... and its MLA geometry (r + rp = 24: the score's k padded to 32)
+    mla_smoke = Case("mla-smoke", "mla", 8, 8 * 24 + 8, H=4, r=16, rp=8)
+    run_check(mla_smoke, [0, 1, 37, 64], 8, torch.bfloat16, 2e-2)
+    run_check(mla_smoke, [300, 65, 64, 63], 40, torch.bfloat16, 2e-2,
+              note=" (several splits)")
     rows = []
     for case in cases:
         for ctx in CONTEXTS:
@@ -431,18 +447,22 @@ def fmt_backends(times) -> str:
                      else f"{k.lower()} {v}" for k, v in times.items())
 
 
-def capture_check(torch, kops, case):
-    """The bf16 GQA decode wrappers read nothing back to the host (they
-    run under ``set_sync_debug_mode("error")``), and a paged call captured
-    in a CUDA graph, replayed after new lengths are written in place,
-    equals an eager call on those lengths."""
+def capture_check(torch, kops, cases):
+    """The bf16 GQA and MLA decode wrappers read nothing back to the host
+    (they run under ``set_sync_debug_mode("error")``), and a paged GQA
+    call and a paged MLA call, each captured in a CUDA graph and replayed
+    after new lengths are written in place, equal an eager call on those
+    lengths."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    max_pages = math.ceil(1024 / case.tpp)
-    q, pool, table, lens = make_inputs(torch, case, [1000, 1024, 333, 64],
-                                       max_pages, torch.bfloat16, gen,
-                                       garbage=True)
-    kw = dict(tokens_per_page=case.tpp, n_kv=case.KV, scale=case.scale)
+    gqa = next(c for c in cases if c.kind == "gqa")
+    mla = next(c for c in cases if c.kind == "mla")
+    paged = []
+    for case in (gqa, mla):
+        max_pages = math.ceil(1024 / case.tpp)
+        paged.append((case, make_inputs(torch, case, [1000, 1024, 333, 64],
+                                        max_pages, torch.bfloat16, gen,
+                                        garbage=True)))
     ck = torch.randn((2, 512, 2, 64), generator=gen, device="cuda").to(
         torch.bfloat16)
     qc = torch.randn((2, 1, 8, 64), generator=gen, device="cuda").to(
@@ -450,8 +470,8 @@ def capture_check(torch, kops, case):
     clens = torch.tensor([512, 77], dtype=torch.int32, device="cuda")
 
     def calls():
-        return (kops.paged_decode_attention(q, pool, table, lens, **kw),
-                kops.decode_attention(qc, ck, ck, clens, scale=0.125))
+        return ([run_kernel(kops, case, *inputs) for case, inputs in paged]
+                + [kops.decode_attention(qc, ck, ck, clens, scale=0.125)])
     calls()                                  # built, attributes set
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -464,19 +484,22 @@ def capture_check(torch, kops, case):
     with torch.cuda.stream(side):
         calls()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = kops.paged_decode_attention(q, pool, table, lens, **kw)
-    lens.copy_(torch.tensor([700, 1, 0, 64], dtype=torch.int32))
-    graph.replay()
-    want = kops.paged_decode_attention(q, pool, table, lens, **kw)
-    torch.cuda.synchronize()
-    if not torch.equal(out, want):
-        raise AssertionError("graph replay of paged_decode_attention after "
-                             "new lengths differs from an eager call")
-    log(f"kernel check {case.name}: no host sync under "
-        f"set_sync_debug_mode('error') (paged and contiguous); a CUDA-graph "
-        f"replay with new lengths [700, 1, 0, 64] equals eager")
+    for case, inputs in paged:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = run_kernel(kops, case, *inputs)
+        inputs[3].copy_(torch.tensor([700, 1, 0, 64], dtype=torch.int32))
+        graph.replay()
+        want = run_kernel(kops, case, *inputs)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"graph replay of the {case.name} decode "
+                                 f"call after new lengths differs from an "
+                                 f"eager call")
+    log(f"kernel check {gqa.name} and {mla.name}: no host sync under "
+        f"set_sync_debug_mode('error') (paged GQA, paged MLA, contiguous); "
+        f"a CUDA-graph replay of each paged call with new lengths "
+        f"[700, 1, 0, 64] equals eager")
 
 
 def close_or_raise(torch, what, got, want, tol) -> float:
@@ -731,7 +754,8 @@ def moe_kernel_phase(torch, np, kops, ref, loads):
     small ragged shape with empty experts: forward, input gradient and
     weight gradient against the plain versions (float32 within 1e-4, bf16
     within 2e-2).  Then timed in both types at the gate/up shape and
-    ``loads[0]``, beside the bound and one ``torch._grouped_mm`` call
+    ``loads[0]`` (the weight gradient at the skewed load too,
+    ``TIMED_LOADS``), beside the bound and one ``torch._grouped_mm`` call
     where the card's torch takes the type.  Inputs at the model's scales:
     x unit normal, w LeCun normal (as ``init_moe``), dy unit normal over
     sqrt(rows per expert), so that every sum is O(1) as in training (with
@@ -778,7 +802,8 @@ def moe_kernel_phase(torch, np, kops, ref, loads):
             if dtype == torch.float32:
                 errs["moe_gemm"] = max(errs["moe_gemm"], e1, e2)
                 errs["moe_gemm_wgrad"] = max(errs["moe_gemm_wgrad"], e3)
-            if label != "gate/up layer 0":
+            timed = TIMED_LOADS.get(label)
+            if timed is None:
                 continue
             itemsize = x.element_size()
             fp32 = dtype == torch.float32
@@ -801,12 +826,14 @@ def moe_kernel_phase(torch, np, kops, ref, loads):
                      lambda: kops.moe_gemm_wgrad(x, dy, gs),
                      lambda: ref.moe_gemm_wgrad(x, dy, gs), (x.T, dy),
                      (n * k + n * m + E * k * m) * itemsize + (E + 1) * 4)):
+                if kernel not in timed:
+                    continue
                 lib, why = library_grouped_mm(torch, *lib_args, offs)
                 b_ms, b_by = bound_ms(nbytes, flops, fp32=fp32)
                 rows.append(dict(
                     kernel=kernel, shape=f"N={n} K={k} M={m} E={E} "
                                          f"{str(dtype)[6:]}",
-                    dtype=str(dtype)[6:], ms=time_ms(torch, call),
+                    load=label, dtype=str(dtype)[6:], ms=time_ms(torch, call),
                     plain_ms=time_ms(torch, plain),
                     library_ms=None if lib is None else time_ms(torch, lib),
                     library_note=why, bound_ms=b_ms, bound_by=b_by))
@@ -814,7 +841,7 @@ def moe_kernel_phase(torch, np, kops, ref, loads):
     for r in rows:
         lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
                else f"none ({r['library_note']})")
-        log(f"time {r['kernel']} {r['shape']} (layer 0's load): kernel "
+        log(f"time {r['kernel']} {r['shape']} ({r['load']}): kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, _grouped_mm "
             f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return errs, rows
@@ -1228,12 +1255,16 @@ def device_summary(prof, wall, label):
     for r in port:
         log(f"profile:   port {r['ms']:9.3f} ms {r['calls']:5d}x  "
             f"{r['kernel']}")
-    ssd_ms = sum(r["ms"] for r in port if "ssd_" in r["kernel"])
-    if ssd_ms:
-        log(f"profile: {label}: SSD scan kernels {ssd_ms:.3f} ms = "
-            f"{ssd_ms / busy_ms:.1%} of device busy time")
+    shares = {}
+    for what, tag in (("SSD scan", "ssd_"), ("paged MLA", "mla_")):
+        ms = sum(r["ms"] for r in port if tag in r["kernel"])
+        shares[what] = ms
+        if ms:
+            log(f"profile: {label}: {what} kernels {ms:.3f} ms = "
+                f"{ms / busy_ms:.1%} of device busy time")
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms, top=top[:10],
-                port=port, ssd_ms=ssd_ms)
+                port=port, ssd_ms=shares["SSD scan"],
+                mla_ms=shares["paged MLA"])
 
 
 def profile_decode_step(torch, engine, names, k):
@@ -1328,7 +1359,7 @@ def main() -> int:
             cases.append(Case(name, "gqa", tpp, page_elems, H=cfg.n_heads,
                               KV=cfg.n_kv_heads, D=cfg.head_dim))
     errs, rows = kernel_phase(torch, kops, ref, cases)
-    capture_check(torch, kops, next(c for c in cases if c.kind == "gqa"))
+    capture_check(torch, kops, cases)
     f_errs, f_rows = fallback_kernel_phase(torch, kops, ref,
                                            ssd_scan_chunked)
 
@@ -1407,7 +1438,8 @@ def main() -> int:
                        if r["dtype"] == "float32")
     for name in ("moe_gemm", "moe_gemm_wgrad"):       # wgrad: its gradient
         row = next(r for r in m_rows if r["kernel"] == name
-                   and r["shape"] == train_shape)
+                   and r["shape"] == train_shape
+                   and r["load"] == "gate/up layer 0")
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + "moe_gemm.cu",
             "replaces": "src/repro/kernels/moe_gemm.py:23",

@@ -66,24 +66,53 @@
 //     16-byte boundary) takes the guarded element loader instead of
 //     cp.async, chosen per call (kVec); empty experts get no tile; tiles
 //     and slices past N, K or M read zeros and write nothing.
-// moe_gemm_wgrad keeps the first design (one block per (expert, K tile,
-// M tile), CUDA cores, 8-deep synchronous slices; it is the next step),
-// with its row sum folded every 128 rows into a per-thread column of
-// shared memory: one running f32 sum over an expert holding 90% of
-// 24576 rows missed the 1e-4 check.
+// Design of moe_gemm_wgrad (dw[e] = x[rows of e]^T @ dy[rows of e]):
+//   * grid (M tile, K tile, expert) of 128 x 128 dw tiles, from shapes
+//     alone; each block reads its expert's offsets and reduces over the
+//     expert's rows, so no tile straddles experts.  An expert with no rows
+//     writes its zero tile with no reduction loop;
+//   * bf16: 8 warps of 64 x 32 on mma.sync.m16n8k16 (f32 accumulation)
+//     over 64-row slices through a 3-stage ring (96 KB, two blocks per SM)
+//     filled by 16-byte cp.async into XOR-swizzled shared memory, one
+//     barrier per slice.  Both operands lie with the reduction along rows
+//     (an x slice [64 rows x 128 k], a dy slice [64 rows x 128 m]), so both
+//     are read by ldmatrix.trans: A = x^T, B = dy as the forward reads
+//     w[e] [K,M].  The dw tile is rounded to bf16 through shared memory
+//     (the drained ring) and stored in coalesced 16-byte rows: at the
+//     training shape the write of dw (64 x 2048 x 1408 bf16, 369 MB of the
+//     539 MB a call moves) is the bound.  No fold: the skewed check (one
+//     expert 90% of 24576 rows) holds 2e-2 with one f32 sum per output;
+//   * short reductions: at phase 7's load an expert averages 384 rows, 6
+//     slices, so the ring's prologue and the 32 KB epilogue weigh as much
+//     as the loop; two blocks per SM let one's epilogue overlap the
+//     other's loop.  Measured (chip_smoke.py phase 8, NVIDIA H100 80GB
+//     HBM3, 700 W): 0.4892 ms at layer 0's load against 0.6337 ms at the
+//     skewed load, where one expert's 176 tiles (each 346 slices) carry
+//     90% of the products on 132 SMs and the other tiles finish early;
+//   * f32 (phase 7's type) keeps the first design: one block per tile on
+//     CUDA cores, 8-deep synchronous slices, its row sum folded every 128
+//     rows into a per-thread column of shared memory (one running f32 sum
+//     over an expert holding 90% of 24576 rows missed the 1e-4 check);
+//   * rows that are not 16-byte multiples (bf16 rows of 72 or 260 bytes)
+//     take the guarded element loader and element stores, chosen per
+//     call as the forward does (kVec).
 //
 // Times (chip_smoke.py phase 8, NVIDIA H100 80GB HBM3 at 700 W, median of
 // 20, L2 flushed): at the training shape and the router's load, f32
 // 4.12 ms forward and 4.02 ms dgrad (the first design: 6.31 / 5.77;
 // torch._grouped_mm 4.12 / 4.41), bf16 0.51 / 0.52 ms (7.28 / 6.06;
-// torch._grouped_mm 0.31 / 0.30).
+// torch._grouped_mm 0.31 / 0.30).  The weight gradient: f32 4.04 ms
+// (torch._grouped_mm 4.18), bf16 0.49 ms (the first design: 4.43;
+// torch._grouped_mm 0.34).
 //
 // ptxas (-Xptxas -v, sm_90a): moe_gemm_bf16_kernel 128 registers (bounded
 // for two blocks per SM), 96 KB of dynamic shared memory, no spills but 8
 // bytes in the forward's guarded-loader instance; moe_gemm_f32_kernel 167
 // registers (forward) and 244 / 252 (dgrad, guarded / cp.async), 60 KB of
-// dynamic shared memory, no spills; moe_gemm_wgrad_kernel 127 registers,
-// 8.4 KB static and 64 KB dynamic shared memory, no spills.
+// dynamic shared memory, no spills; moe_gemm_wgrad_kernel (f32) 127
+// registers, 8.4 KB static and 64 KB dynamic shared memory, no spills;
+// moe_gemm_wgrad_bf16_kernel 128 registers, 96 KB of dynamic shared
+// memory, no spills (32 bytes in the guarded-loader instance).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o libmoe_gemm.so moe_gemm.cu
@@ -515,7 +544,7 @@ moe_gemm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 }  // namespace tcr
 
 // ---------------------------------------------------------------------------
-// weight gradient: the first design
+// weight gradient, f32: the first design
 // ---------------------------------------------------------------------------
 
 namespace wg {
@@ -622,6 +651,150 @@ moe_gemm_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// weight gradient, bf16: tensor cores over an expert's rows
+// ---------------------------------------------------------------------------
+
+namespace wgt {
+
+constexpr int kThreads = 256;          // 8 warps: 2 (dw rows) x 4 (columns)
+constexpr int kTile = 128;             // dw tile edge (k and m)
+constexpr int kBR = 64;                // rows of the reduction per slice
+constexpr int kStages = 3;
+constexpr int kSlice = kBR * kTile;    // elements of one operand's slice
+constexpr int kStage = 2 * kSlice;
+constexpr int kSmemBytes = kStages * kStage * (int)sizeof(bf16);
+using Sw = tiles::Swizzle<kTile>;      // [row][128] slices, the dw tile
+
+// x rows [i0, i0 + 64) x columns [k0, k0 + 128) and the same dy rows x
+// columns [m0, m0 + 128); rows at or past `end` and columns past the
+// matrix read zeros.
+template <bool kVec>
+__device__ __forceinline__ void load_slice(
+    bf16* xs, bf16* ys, const bf16* __restrict__ x,
+    const bf16* __restrict__ dy, int i0, int end, int k0, int m0, int k_dim,
+    int m_dim) {
+#pragma unroll
+  for (int s = 0; s < kSlice / 8 / kThreads; ++s) {
+    const int i = threadIdx.x + s * kThreads;   // 64 rows x 16 chunks
+    const int r = i >> 4, c = i & 15;
+    const bool ok = i0 + r < end;
+    const long long row = ok ? i0 + r : 0;
+    copy16<kVec>(xs + Sw::at(r, c), x + row * k_dim + k0 + c * 8, x, ok,
+                 k0 + c * 8, k_dim);
+    copy16<kVec>(ys + Sw::at(r, c), dy + row * m_dim + m0 + c * 8, dy, ok,
+                 m0 + c * 8, m_dim);
+  }
+}
+
+// Grid (m tile, k tile, expert).  dw[e][k0.., m0..] = sum over the
+// expert's rows i of x[i][k] dy[i][m]: A = x^T and B = dy, both staged as
+// they lie (rows along the reduction) and read by ldmatrix.trans.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+moe_gemm_wgrad_bf16_kernel(const bf16* __restrict__ x,
+                           const bf16* __restrict__ dy,
+                           const int* __restrict__ offsets,
+                           bf16* __restrict__ dw, int rows, int k_dim,
+                           int m_dim) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wk = (warp & 1) * 64, wn = (warp >> 1) * 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = blockIdx.x * kTile, k0 = blockIdx.y * kTile;
+  const int e = blockIdx.z;
+  const int start = min(max(__ldg(offsets + e), 0), rows);
+  const int end = min(max(__ldg(offsets + e + 1), start), rows);
+  const int n_s = (end - start + kBR - 1) / kBR;   // 0: a zero tile
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+      acc[mi][nb][0] = acc[mi][nb][1] = acc[mi][nb][2] = acc[mi][nb][3] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_s)
+      load_slice<kVec>(smem + st * kStage, smem + st * kStage + kSlice, x, dy,
+                       start + st * kBR, end, k0, m0, k_dim, m_dim);
+    tiles::cp_async_commit();
+  }
+  for (int s = 0; s < n_s; ++s) {
+    tiles::cp_async_wait<kStages - 2>();   // slice s arrived
+    __syncthreads();                       // ... for all; s - 1 consumed
+    const int ns = s + kStages - 1;
+    if (ns < n_s) {
+      bf16* st = smem + (ns % kStages) * kStage;
+      load_slice<kVec>(st, st + kSlice, x, dy, start + ns * kBR, end, k0, m0,
+                       k_dim, m_dim);
+    }
+    tiles::cp_async_commit();
+    const bf16* xs = smem + (s % kStages) * kStage;
+    const bf16* ys = xs + kSlice;
+#pragma unroll
+    for (int kk = 0; kk < kBR / 16; ++kk) {
+      uint32_t af[4][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)   // [row][k]: transposed to dw's rows
+        tiles::ldmatrix_x4_trans(
+            af[mi], xs + Sw::at(kk * 16 + (lane & 7) + (lane >> 4) * 8,
+                                (wk + mi * 16) / 8 + ((lane >> 3) & 1)));
+#pragma unroll
+      for (int n2 = 0; n2 < 2; ++n2) {
+        uint32_t bfr[4];               // [row][m]: as the forward reads w
+        tiles::ldmatrix_x4_trans(
+            bfr, ys + Sw::at(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                             (wn + n2 * 16) / 8 + (lane >> 4)));
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          tiles::mma_bf16(acc[mi][2 * n2], af[mi], bfr[0], bfr[1]);
+          tiles::mma_bf16(acc[mi][2 * n2 + 1], af[mi], bfr[2], bfr[3]);
+        }
+      }
+    }
+  }
+  tiles::cp_async_wait<0>();
+  __syncthreads();                     // the ring is free for the dw tile
+
+  // the tile rounded to bf16 through shared memory, then stored in
+  // coalesced 16-byte rows
+  bf16* ot = smem;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const int r = wk + mi * 16 + gq + h * 8, c = wn + nb * 8 + 2 * tq;
+        *reinterpret_cast<uint32_t*>(ot + Sw::at(r, c / 8) + c % 8) =
+            tiles::pack_bf16(acc[mi][nb][2 * h], acc[mi][nb][2 * h + 1]);
+      }
+  __syncthreads();
+  bf16* dwe = dw + (long long)e * k_dim * m_dim;
+#pragma unroll
+  for (int s = 0; s < kTile * kTile / 8 / kThreads; ++s) {
+    const int i = threadIdx.x + s * kThreads;   // 128 rows x 16 chunks
+    const int r = i >> 4, c = i & 15;
+    const int k = k0 + r, m = m0 + c * 8;
+    if (k >= k_dim || m >= m_dim) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(ot + Sw::at(r, c));
+    bf16* dst = dwe + (long long)k * m_dim + m;
+    if (kVec) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      const bf16* h = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (m + j < m_dim) dst[j] = h[j];
+    }
+  }
+}
+
+}  // namespace wgt
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -673,17 +846,34 @@ int launch_gemm(const void* x, const void* w, const int* offsets, void* out,
 }
 
 template <typename T>
+using WgradKernel = void (*)(const T*, const T*, const int*, T*, int, int,
+                             int);
+
+template <typename T>
 int launch_wgrad(const void* x, const void* dy, const int* offsets, void* dw,
                  int rows, int k_dim, int m_dim, int experts,
                  cudaStream_t stream) {
+  static_assert(wg::kTile == wgt::kTile, "one grid for both routes");
   const dim3 grid((m_dim + wg::kTile - 1) / wg::kTile,
                   (k_dim + wg::kTile - 1) / wg::kTile, experts);
-  constexpr int smem = 64 * wg::kThreads * (int)sizeof(float);
+  WgradKernel<T> fn;
+  int smem, threads;
+  if constexpr (sizeof(T) == 4) {
+    fn = wg::moe_gemm_wgrad_kernel<T>;
+    smem = 64 * wg::kThreads * (int)sizeof(float);
+    threads = wg::kThreads;
+  } else {
+    const bool vec = aligned16(x) && aligned16(dy) && aligned16(dw) &&
+                     k_dim % 8 == 0 && m_dim % 8 == 0;
+    fn = vec ? wgt::moe_gemm_wgrad_bf16_kernel<true>
+             : wgt::moe_gemm_wgrad_bf16_kernel<false>;
+    smem = wgt::kSmemBytes;
+    threads = wgt::kThreads;
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      wg::moe_gemm_wgrad_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  wg::moe_gemm_wgrad_kernel<T><<<grid, wg::kThreads, smem, stream>>>(
+  fn<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), offsets,
       static_cast<T*>(dw), rows, k_dim, m_dim);
   return (int)cudaGetLastError();

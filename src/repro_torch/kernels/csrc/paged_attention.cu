@@ -4,7 +4,7 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/paged_attention.py:
 //   * paged_gqa_decode_bf16 / _f32       <- _paged_kernel      (:121,
 //                                           pallas_call :203)
-//   * paged_mla_decode                   <- _paged_mla_kernel  (:225,
+//   * paged_mla_decode_bf16 / _f32       <- _paged_mla_kernel  (:225,
 //                                           pallas_call :304)
 //   * contiguous_gqa_decode_bf16 / _f32  <- _decode_kernel     (:35,
 //                                           pallas_call :110)
@@ -16,8 +16,8 @@
 // positions at or past `length` are never read, their scores are -1e30
 // and contribute exactly 0, and a row with no valid position (l == 0,
 // length 0 included) writes 0.  q * scale is computed in f32 and rounded
-// to q's type before the dot, as the TPU wrappers fold the scale
-// (paged_attention.py:92,183); the MLA wrapper still folds it itself.
+// to q's type before the dot, inside every kernel, as the TPU wrappers
+// fold the scale (paged_attention.py:92,183,284).
 //
 // Layout.  The paged kernels read the FLAT pool [n_pages, page_elems] in
 // place: token t of page p starts at  pool + p * page_elems + t * per_tok.
@@ -39,7 +39,9 @@
 //   split path's shape (qwen3-moe: H 64, KV 4, D 128, 8 tokens a page;
 //   B = 4, context 1024, bf16) that is 8.4 MB, 2.5 us; at B = 1, context
 //   8192, 16.8 MB, 5.0 us; zamba2's contiguous cache (H = KV = 32, D = 64)
-//   at B = 4, T = 1024: 33.6 MB, 10 us.
+//   at B = 4, T = 1024: 33.6 MB, 10 us; minicpm3's MLA rows (288 bf16,
+//   28 tokens a 16 KiB page) at B = 4, context 1024: 2.4 MB, 0.7 us, at
+//   context 8192: 18.9 MB, 5.6 us.
 //
 // What the first GQA design lost: one block per (kv head, batch
 // row) walked the whole context, so qwen3-moe ran 16 blocks at B = 4 and
@@ -74,9 +76,48 @@
 //     by 16), 16, 32, 64 and 128;
 //   * the wrapper makes no host read and no allocation beyond
 //     torch.empty, so a call can be captured in a CUDA graph.
-// f32 GQA route and MLA: the first design (paged_decode_block), one block
-// per (kv head or MLA head group, batch row) over the whole context, f32
-// tiles in shared memory, CUDA cores.
+// bf16 MLA route (mla namespace), the same flash-decoding over the latent
+// row that all heads share:
+//   * grid (group of 16 heads, batch row, split); minicpm3's 40 heads take
+//     three groups, the last one's rows 40-47 empty.  The split count is
+//     the GQA route's (kernels/paged_attention.py mla_split_plan), the
+//     partials [B,H,S,r] merge in the same body (mla_merge_splits_kernel,
+//     its own name so a profile tells the two routes apart), and one
+//     split writes `out` with no second launch;
+//   * each of the 4 warps copies its 16 tokens of a 64-token tile into one
+//     block-wide 2-stage ring (a token row is 288 bf16 = 576 bytes, so a
+//     stage is 37 KB with the row padding; two stages keep two blocks on
+//     an SM, and a split holds 1-6 tiles at the timed shapes, so a deeper
+//     ring would only lengthen the prologue); page ids are read one tile
+//     ahead, tokens past the length or on pages < 0 are zero-filled;
+//   * scores on mma.sync.m16n8k16: the 16 heads are the A rows, from q
+//     staged once in shared memory (scaled, rounded, zero past E); K is
+//     read straight from the ring rows, which lie along the reduction
+//     (ldmatrix, no transpose): 18 k-steps at r + rp = 288, 5 at 80, 2 at
+//     24 (its k padded to 32 with zero columns in q and the ring);
+//   * a warp that owned its tokens' whole P.V would hold a 16 x 256 f32
+//     accumulator (128 registers a lane).  So warps split tokens for the
+//     scores, the tile's row maximum is combined through shared memory,
+//     P goes to shared memory as bf16, and warps then split the VALUE
+//     COLUMNS for P.V (r / 4 = 64 columns, 32 accumulator registers, V by
+//     ldmatrix.trans from the ring rows' latent prefix).  At r = 16 the
+//     four warps split the tile's tokens instead and add their
+//     accumulators at the end (the row maximum is common, so they add);
+//   * rows of q and the ring are an odd number of 16-byte chunks apart
+//     (296 elements at 288), so 8 rows of one ldmatrix phase fall on 8
+//     distinct bank groups; three barriers a tile;
+//   * the wrapper makes no host read and no allocation beyond
+//     torch.empty (graph-capturable, as GQA).
+//   Times (chip_smoke.py phase 3, NVIDIA H100 80GB HBM3, 700 W, median of
+//   20, L2 flushed): minicpm3 0.0174 / 0.0203 ms at context 1024, B = 1 /
+//   4, and 0.0247 / 0.0347 ms at 8192 (the first design: 0.35 / 0.35 /
+//   2.65 / 2.65 ms).
+// f32 GQA and f32 MLA: the first design (paged_decode_block), one block
+// per (kv head or group of 8 MLA heads, batch row) over the whole
+// context, f32 tiles in shared memory, CUDA cores; it holds the card
+// against the CPU at 2e-5.  Its bf16 MLA instance ran minicpm3 at 0.3455
+// ms (B = 4, context 1024) and 2.63 ms (context 8192, B = 1 and 4): 5 or
+// 20 blocks on 132 SMs, time linear in the context.
 //
 // ptxas (-Xptxas -v, sm_90a): no stack and no
 // spills in any kernel.  split_decode_kernel<D, R> registers:
@@ -88,8 +129,11 @@
 //   D =   8           --               32       40       48
 // shared memory (dynamic): the ring, 3 * 4 * 2 * 16 * D * 2 bytes = 96 /
 // 48 / 24 / 12 / 6 KB for D = 128 / 64 / 32 / 16 / 8 (two blocks fit an
-// SM at D = 128).  merge_splits_kernel: 32 registers.  The first design: 40
-// (scalar) / 64 (f32, 16-byte) / 117 (bf16, 16-byte) registers.
+// SM at D = 128).  merge_splits_kernel and mla_merge_splits_kernel: 32
+// registers.  mla_split_decode_kernel<r, rp>: 125 / 67 / 48 registers at
+// (256, 32) / (64, 16) / (16, 8); dynamic shared memory 86 / 27.5 / 14 KB
+// (ring, q, P, row maxima and sums).  The first design (f32 only now): 40
+// (scalar) / 64 (16-byte) registers.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o libpaged_attention.so paged_attention.cu
@@ -117,19 +161,12 @@ constexpr int kSmemLimit = 200 * 1024;   // of the 227 KB a block may use
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // VEC elements loaded by one instruction (16 bytes when VEC * sizeof(T)
@@ -496,6 +533,32 @@ __device__ __forceinline__ float scaled_one(const bf16* p, float scale) {
   return __bfloat162float(__float2bfloat16(__bfloat162float(*p) * scale));
 }
 
+// Tokens [x, y) of `split`: the whole tiles [split * tiles / splits,
+// (split + 1) * tiles / splits), capped at what the table addresses.
+__device__ __forceinline__ int2 split_range(int split, int splits, int tiles,
+                                            int max_tokens) {
+  return make_int2(
+      (int)((long long)split * tiles / splits) * kTile,
+      min(max_tokens, (int)((long long)(split + 1) * tiles / splits) * kTile));
+}
+
+// A split that holds none of its row's tokens: with one split the rows'
+// output is 0, else the split leaves an empty partial (m = -1e30, l = 0)
+// that the merge drops.
+__device__ __forceinline__ void write_empty_split(
+    bf16* out, float* part_m, float* part_l, long long row0, int rows,
+    int width, int splits, int split) {
+  if (splits == 1) {
+    for (int i = threadIdx.x; i < rows * width; i += blockDim.x)
+      out[row0 * width + i] = __float2bfloat16(0.f);
+  } else {
+    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+      part_m[(row0 + r) * splits + split] = kNegInf;
+      part_l[(row0 + r) * splits + split] = 0.f;
+    }
+  }
+}
+
 // E consecutive elements (E = D / 8) of row `tok`, from element e0 on, as
 // f32.
 template <int D, int E>
@@ -548,9 +611,8 @@ split_decode_kernel(const Args a) {
   const int nh = min(R, a.group - g0);                 // rows served
   const long long row0 = (long long)b * a.heads + kvh * a.group + g0;
   const int max_tokens = a.max_pages * a.tokens_per_page;
-  const int start = (int)((long long)split * a.tiles / a.splits) * kTile;
-  const int cap = min(
-      max_tokens, (int)((long long)(split + 1) * a.tiles / a.splits) * kTile);
+  const int2 range = split::split_range(split, a.splits, a.tiles, max_tokens);
+  const int start = range.x, cap = range.y;
   const bf16* kbase = a.kbuf + a.k_off + kvh * D;
   const bf16* vbase = a.vbuf + a.v_off + kvh * D;
   auto slot = [&](int stage) {
@@ -611,15 +673,8 @@ split_decode_kernel(const Args a) {
   }
 
   if (start >= end) {                 // nothing of this row in the split
-    if (a.splits == 1) {
-      for (int i = threadIdx.x; i < nh * D; i += kThreads)
-        a.out[row0 * D + i] = __float2bfloat16(0.f);
-    } else {
-      for (int r = threadIdx.x; r < nh; r += kThreads) {
-        a.part_m[(row0 + r) * a.splits + split] = kNegInf;
-        a.part_l[(row0 + r) * a.splits + split] = 0.f;
-      }
-    }
+    split::write_empty_split(a.out, a.part_m, a.part_l, row0, nh, D,
+                             a.splits, split);
     return;
   }
   const int n_tiles = (end - start + kTile - 1) / kTile;
@@ -882,12 +937,15 @@ split_decode_kernel(const Args a) {
 // staged in shared memory with one load each and their weights computed
 // once; thread (p, d) sums column d over the splits s = p mod kMergeLanes,
 // loads in flight together, and the kMergeLanes sums are added at the end.
+// The MLA route launches the same body under its own name
+// (mla::mla_merge_splits_kernel), so a profile tells the two apart.
 constexpr int kMergeLanes = 4;
 
-__global__ void merge_splits_kernel(const float* __restrict__ acc,
-                                    const float* __restrict__ m,
-                                    const float* __restrict__ l,
-                                    bf16* __restrict__ out, int splits) {
+__device__ __forceinline__ void merge_splits(const float* __restrict__ acc,
+                                             const float* __restrict__ m,
+                                             const float* __restrict__ l,
+                                             bf16* __restrict__ out,
+                                             int splits) {
   extern __shared__ float stage[];     // w, l [splits]; num, den [lanes][D]
   const int D = blockDim.x / kMergeLanes;
   const int d = threadIdx.x % D, p = threadIdx.x / D;
@@ -930,6 +988,18 @@ __global__ void merge_splits_kernel(const float* __restrict__ acc,
   }
 }
 
+__global__ void merge_splits_kernel(const float* __restrict__ acc,
+                                    const float* __restrict__ m,
+                                    const float* __restrict__ l,
+                                    bf16* __restrict__ out, int splits) {
+  merge_splits(acc, m, l, out, splits);
+}
+
+// Shared memory of a merge launch over D columns.
+inline size_t merge_bytes(int splits, int D) {
+  return sizeof(float) * (2 * splits + 2 * kMergeLanes * D);
+}
+
 using LaunchFn = int (*)(const Args&, int, int, cudaStream_t);
 
 template <int D, int R>
@@ -947,11 +1017,9 @@ int launch(const Args& a, int kv_heads, int batch, cudaStream_t stream) {
   split_decode_kernel<D, R><<<grid, kThreads, bytes, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return (int)err;
-  const size_t merge_bytes =
-      sizeof(float) * (2 * a.splits + 2 * kMergeLanes * D);
-  merge_splits_kernel<<<batch * a.heads, kMergeLanes * D, merge_bytes,
-                        stream>>>(a.part_acc, a.part_m, a.part_l, a.out,
-                                  a.splits);
+  merge_splits_kernel<<<batch * a.heads, kMergeLanes * D,
+                        merge_bytes(a.splits, D), stream>>>(
+      a.part_acc, a.part_m, a.part_l, a.out, a.splits);
   return (int)cudaGetLastError();
 }
 
@@ -995,6 +1063,391 @@ int run(Args a, int batch, int kv_heads, int head_dim, int rows,
 }
 
 }  // namespace split
+
+// ---------------------------------------------------------------------------
+// bf16 MLA route: split-KV on tensor cores over one block-wide cp.async ring
+// ---------------------------------------------------------------------------
+
+namespace mla {
+
+using tiles::bf16;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16;                     // query heads a block serves
+constexpr int kTile = split::kTile;           // tokens per tile (64)
+constexpr int kWarpTokens = kTile / kWarps;   // a warp's tokens of a tile
+constexpr int kStages = 2;                    // tiles in the ring
+constexpr float kLog2e = split::kLog2e;
+
+struct Args {
+  const bf16* q;             // [B, H, E]
+  const bf16* pool;          // token row: pool + page * page_elems + slot * E
+  const int* table;          // [B, max_pages]
+  const int* lengths;        // [B]
+  bf16* out;                 // [B, H, R]
+  float* part_acc;           // [B, H, splits, R]   (splits > 1)
+  float* part_m;             // [B, H, splits], log2 units
+  float* part_l;             // [B, H, splits]
+  int heads;
+  int tokens_per_page, max_pages;
+  long long page_elems;
+  int splits, tiles;         // as split::Args
+  float scale;
+};
+
+// One instance: R latent and RP rope elements a token (E = R + RP).  The
+// score's reduction runs over E padded to the mma's k of 16 (EK; the pad
+// columns of q and of the ring are zero).  Rows of q and of the ring are
+// LD elements apart, an odd number of 16-byte chunks, so the 8 rows one
+// ldmatrix phase reads (or one cp.async wave writes) fall on 8 distinct
+// bank groups; the P tile's rows are 9 chunks apart for the same reason.
+// P.V: the R value columns go to kColWarps warps in runs of kCols; where
+// R is too narrow for four (R = 16), kTokWarps warps split the tile's
+// tokens instead and add their accumulators at the end (the tile's row
+// maximum is common to all warps, so the sums simply add).
+template <int R, int RP>
+struct Geo {
+  static_assert((R + RP) % 8 == 0 && R % 16 == 0, "uninstantiable width");
+  static constexpr int E = R + RP;
+  static constexpr int EK = (E + 15) / 16 * 16;
+  static constexpr int CT = E / 8;                     // chunks a token
+  static constexpr int LD = ((EK / 8) | 1) * 8;
+  static constexpr int LDP = (kTile / 8 + 1) * 8;
+  static constexpr int kColWarps = R / 16 < kWarps ? R / 16 : kWarps;
+  static constexpr int kTokWarps = kWarps / kColWarps;
+  static constexpr int kCols = R / kColWarps;
+  static constexpr int kKSteps = kTile / 16 / kTokWarps;
+  static constexpr int kRing = kStages * kTile * LD;   // elements
+  static constexpr int kQ = kRows * LD;
+  static constexpr int kP = kRows * LDP;
+  // ring, q, P (bf16); tile row maxima and final row sums (f32)
+  static constexpr int kSmem = (kRing + kQ + kP) * 2 + 2 * kWarps * kRows * 4;
+  static_assert(kTokWarps == 1 || kWarps * kRows * kCols * 4 <= kRing * 2,
+                "the ring holds the warps' partial accumulators");
+};
+
+// One block per (group of 16 heads, batch row, split).  Each warp copies
+// its 16 tokens of every tile into the block's ring (cp.async, one tile in
+// flight while one is computed; tokens past the length or on pages < 0
+// are zero-filled with src-size 0 and never read from memory, so NaN past
+// a length cannot reach a tensor-core product) and takes their scores on
+// mma.sync (A = the 16 heads' q from shared memory, B = the ring's rows,
+// which lie along the reduction); the tile's row maximum is combined
+// across warps through shared memory, P goes to shared memory as bf16,
+// and P.V runs on mma.sync with V = the rows' latent prefix read by
+// ldmatrix.trans.  Three barriers a tile.
+template <int R, int RP>
+__global__ void __launch_bounds__(kThreads)
+mla_split_decode_kernel(const Args a) {
+  using G = Geo<R, RP>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  bf16* qs = ring + G::kRing;                          // [kRows][LD]
+  bf16* ps = qs + G::kQ;                               // [kRows][LDP]
+  float* red = reinterpret_cast<float*>(ps + G::kP);   // [kWarps][kRows]
+  float* wl = red + kWarps * kRows;                    // [kWarps][kRows]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;             // mma coordinates
+  const int cw = warp % G::kColWarps, tw = warp / G::kColWarps;
+  const int h0 = blockIdx.x * kRows;
+  const int b = blockIdx.y, split = blockIdx.z;
+  const int nh = min(kRows, a.heads - h0);
+  const long long row0 = (long long)b * a.heads + h0;
+  const int max_tokens = a.max_pages * a.tokens_per_page;
+  const int2 range = split::split_range(split, a.splits, a.tiles, max_tokens);
+  const int start = range.x, cap = range.y;
+
+  // page id of lane's token (lanes < 16) of the warp's part of tile jt,
+  // -1 past what the table addresses; read ahead of the length
+  auto page_of = [&](int jt) -> int {
+    const int pos = start + jt * kTile + warp * kWarpTokens + lane;
+    if (lane >= kWarpTokens || pos >= cap) return -1;
+    return a.table[(long long)b * a.max_pages + pos / a.tokens_per_page];
+  };
+  int pages[kStages];
+#pragma unroll
+  for (int st = 0; st < kStages; ++st) pages[st] = page_of(st);
+  const int length = max(0, min(a.lengths[b], max_tokens));
+  const int end = min(length, cap);
+
+  if (start >= end) {                 // nothing of this row in the split
+    split::write_empty_split(a.out, a.part_m, a.part_l, row0, nh, R,
+                             a.splits, split);
+    return;
+  }
+  const int n_tiles = (end - start + kTile - 1) / kTile;
+
+  // cp.async the warp's 16 token rows of tile jt into its stage; returns
+  // the mask of tokens that hold data
+  auto fetch = [&](int jt, int page) -> unsigned {
+    const int pos = start + jt * kTile + warp * kWarpTokens + lane;
+    const long long off =
+        page < 0 || pos >= end
+            ? -1
+            : (long long)page * a.page_elems +
+                  (long long)(pos % a.tokens_per_page) * G::E;
+    const unsigned mask = __ballot_sync(0xffffffffu, off >= 0) & 0xffffu;
+    bf16* dst = ring + ((jt % kStages) * kTile + warp * kWarpTokens) * G::LD;
+    constexpr int kChunks = kWarpTokens * G::CT;
+#pragma unroll
+    for (int it = 0; it < (kChunks + 31) / 32; ++it) {
+      const int idx = it * 32 + lane;
+      const int tok = min(idx / G::CT, kWarpTokens - 1), c = idx % G::CT;
+      const long long o = __shfl_sync(0xffffffffu, off, tok);
+      if (kChunks % 32 == 0 || idx < kChunks)
+        tiles::cp_async_16(dst + tok * G::LD + c * 8,
+                           o < 0 ? a.pool : a.pool + o + c * 8, o >= 0);
+    }
+    return mask;
+  };
+
+  // the first tile in flight while q is staged
+  unsigned long long masks = 0;        // 16 bits per warp-tile in flight
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_tiles)
+      masks |= (unsigned long long)fetch(st, pages[st]) << (16 * st);
+    tiles::cp_async_commit();
+  }
+  int page_next = pages[kStages - 1];
+
+  // q * scale rounded to bf16 (rows past nh and columns past E are 0);
+  // the ring's pad columns (E <= c < EK) are zeroed once, never copied to
+  for (int i = threadIdx.x; i < kRows * G::LD / 2; i += kThreads) {
+    const int r = i / (G::LD / 2), c = i % (G::LD / 2) * 2;
+    float2 f = make_float2(0.f, 0.f);
+    if (r < nh && c < G::E)
+      f = split::scaled_pair(a.q + (row0 + r) * G::E + c, a.scale);
+    *reinterpret_cast<uint32_t*>(qs + r * G::LD + c) =
+        tiles::pack_bf16(f.x, f.y);
+  }
+  if constexpr (G::EK > G::E) {
+    for (int i = threadIdx.x; i < kStages * kTile; i += kThreads)
+#pragma unroll
+      for (int c = G::E; c < G::EK; c += 8)
+        *reinterpret_cast<uint4*>(ring + i * G::LD + c) =
+            make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  float o[G::kCols / 8][4];
+#pragma unroll
+  for (int i = 0; i < G::kCols / 8; ++i)
+    o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf};     // rows gq, gq + 8: common to warps
+  float l[2] = {0.f, 0.f};             // ... over this warp's tokens
+
+  for (int j = 0; j < n_tiles; ++j) {
+    tiles::cp_async_wait<kStages - 2>();
+    __syncthreads();                   // tile j landed for all warps, q
+                                       // staged, tile j - 1's stage free
+    const int jn = j + kStages - 1;
+    if (jn < n_tiles)
+      masks |= (unsigned long long)fetch(jn, page_next) << (16 * (kStages - 1));
+    tiles::cp_async_commit();
+    page_next = page_of(jn + 1);
+    const unsigned mask = (unsigned)(masks & 0xffffu);
+    masks >>= 16;
+    const bf16* kt = ring + (j % kStages) * kTile * G::LD;
+
+    // S = Q K^T: 16 heads x the warp's 16 tokens
+    const bf16* kw = kt + warp * kWarpTokens * G::LD;
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < G::EK / 16; ++kk) {
+      uint32_t qa[4], kf[4];
+      tiles::ldmatrix_x4(qa, qs + ((lane & 7) + ((lane >> 3) & 1) * 8) * G::LD +
+                                 (kk * 2 + (lane >> 4)) * 8);
+      tiles::ldmatrix_x4(kf, kw + ((lane & 7) + (lane >> 4) * 8) * G::LD +
+                                 (kk * 2 + ((lane >> 3) & 1)) * 8);
+      tiles::mma_bf16(sc[0], qa, kf[0], kf[1]);
+      tiles::mma_bf16(sc[1], qa, kf[2], kf[3]);
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = n * 8 + 2 * tq + (e & 1);
+        const float x = (mask >> t) & 1u ? sc[n][e] * kLog2e : kNegInf;
+        sc[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    if (tq == 0) {
+      red[warp * kRows + gq] = mx[0];
+      red[warp * kRows + gq + 8] = mx[1];
+    }
+    __syncthreads();                   // every warp's maxima
+
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mt = m[r];
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        mt = fmaxf(mt, red[w * kRows + gq + 8 * r]);
+      alpha[r] = tiles::exp2_approx(m[r] - mt);
+      m[r] = mt;
+      l[r] *= alpha[r];
+    }
+    bf16* pw = ps + warp * kWarpTokens;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = sc[n][e] == kNegInf
+                            ? 0.f
+                            : tiles::exp2_approx(sc[n][e] - m[e >> 1]);
+        sc[n][e] = p;
+        l[e >> 1] += p;
+      }
+      *reinterpret_cast<uint32_t*>(pw + gq * G::LDP + n * 8 + 2 * tq) =
+          tiles::pack_bf16(sc[n][0], sc[n][1]);
+      *reinterpret_cast<uint32_t*>(pw + (gq + 8) * G::LDP + n * 8 + 2 * tq) =
+          tiles::pack_bf16(sc[n][2], sc[n][3]);
+    }
+    __syncthreads();                   // the tile's P
+
+    // O += P V over the warp's columns (and tokens)
+#pragma unroll
+    for (int i = 0; i < G::kCols / 8; ++i) {
+      o[i][0] *= alpha[0];
+      o[i][1] *= alpha[0];
+      o[i][2] *= alpha[1];
+      o[i][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int ks = 0; ks < G::kKSteps; ++ks) {
+      const int k0 = (tw * G::kKSteps + ks) * 16;
+      uint32_t pa[4];
+      tiles::ldmatrix_x4(pa, ps + ((lane & 7) + ((lane >> 3) & 1) * 8) * G::LDP +
+                                 k0 + (lane >> 4) * 8);
+#pragma unroll
+      for (int dd = 0; dd < G::kCols / 16; ++dd) {
+        uint32_t vf[4];
+        tiles::ldmatrix_x4_trans(
+            vf, kt + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * G::LD +
+                    cw * G::kCols + dd * 16 + (lane >> 4) * 8);
+        tiles::mma_bf16(o[2 * dd], pa, vf[0], vf[1]);
+        tiles::mma_bf16(o[2 * dd + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+  tiles::cp_async_wait<0>();
+
+  // row sums over the warps; with kTokWarps > 1 the token groups'
+  // accumulators added through the (now idle) ring
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  __syncthreads();                     // every warp is done with the ring
+  if (tq == 0) {
+    wl[warp * kRows + gq] = l[0];
+    wl[warp * kRows + gq + 8] = l[1];
+  }
+  float* wo = reinterpret_cast<float*>(smem_raw);   // [kWarps][kRows][kCols]
+  if constexpr (G::kTokWarps > 1) {
+#pragma unroll
+    for (int i = 0; i < G::kCols / 8; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(
+            wo + (warp * kRows + gq + 8 * r) * G::kCols + i * 8 + 2 * tq) =
+            make_float2(o[i][2 * r], o[i][2 * r + 1]);
+  }
+  __syncthreads();
+  if (tw != 0) return;
+  float lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    lsum[0] += wl[w * kRows + gq];
+    lsum[1] += wl[w * kRows + gq + 8];
+  }
+  if constexpr (G::kTokWarps > 1) {
+#pragma unroll
+    for (int i = 0; i < G::kCols / 8; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int t = 1; t < G::kTokWarps; ++t) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              wo + ((cw + t * G::kColWarps) * kRows + gq + 8 * r) * G::kCols +
+              i * 8 + 2 * tq);
+          o[i][2 * r] += v.x;
+          o[i][2 * r + 1] += v.y;
+        }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = gq + 8 * r;
+    if (row >= nh) continue;
+    const long long at = (row0 + row) * a.splits + split;
+#pragma unroll
+    for (int i = 0; i < G::kCols / 8; ++i) {
+      const int col = cw * G::kCols + i * 8 + 2 * tq;
+      const float v0 = o[i][2 * r], v1 = o[i][2 * r + 1];
+      if (a.splits == 1) {
+        const float inv = lsum[r] == 0.f ? 0.f : 1.f / lsum[r];
+        *reinterpret_cast<uint32_t*>(a.out + (row0 + row) * R + col) =
+            tiles::pack_bf16(v0 * inv, v1 * inv);
+      } else {
+        *reinterpret_cast<float2*>(a.part_acc + at * R + col) =
+            make_float2(v0, v1);
+      }
+    }
+    if (a.splits > 1 && cw == 0 && tq == 0) {
+      a.part_m[at] = m[r];
+      a.part_l[at] = lsum[r];
+    }
+  }
+}
+
+__global__ void mla_merge_splits_kernel(const float* __restrict__ acc,
+                                        const float* __restrict__ m,
+                                        const float* __restrict__ l,
+                                        bf16* __restrict__ out, int splits) {
+  split::merge_splits(acc, m, l, out, splits);
+}
+
+template <int R, int RP>
+int launch(const Args& a, int batch, cudaStream_t stream) {
+  constexpr int bytes = Geo<R, RP>::kSmem;
+  static bool configured = false;      // once, before any graph capture
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mla_split_decode_kernel<R, RP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const dim3 grid((a.heads + kRows - 1) / kRows, batch, a.splits);
+  mla_split_decode_kernel<R, RP><<<grid, kThreads, bytes, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return (int)err;
+  mla_merge_splits_kernel<<<batch * a.heads, split::kMergeLanes * R,
+                            split::merge_bytes(a.splits, R), stream>>>(
+      a.part_acc, a.part_m, a.part_l, a.out, a.splits);
+  return (int)cudaGetLastError();
+}
+
+// (latent, rope) widths: minicpm3 at its published width, the f32 card
+// check's small geometry and the smoke config (the serve CLI's default).
+using LaunchFn = int (*)(const Args&, int, cudaStream_t);
+LaunchFn pick(int latent_dim, int rope_dim) {
+  if (latent_dim == 256 && rope_dim == 32) return launch<256, 32>;
+  if (latent_dim == 64 && rope_dim == 16) return launch<64, 16>;
+  if (latent_dim == 16 && rope_dim == 8) return launch<16, 8>;
+  return nullptr;
+}
+
+}  // namespace mla
 
 }  // namespace
 
@@ -1095,14 +1548,46 @@ extern "C" int contiguous_gqa_decode_f32(const void* q, const void* k,
                                 kv_heads, g, static_cast<cudaStream_t>(stream));
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, the pool and out share it).  q
-// arrives pre-scaled.
-extern "C" int paged_mla_decode(const void* q, const void* pool,
-                                const int* table, const int* lengths,
-                                void* out, int batch, int heads,
-                                int latent_dim, int rope_dim, int max_pages,
-                                int tokens_per_page, long long page_elems,
-                                int dtype, void* stream) {
+// q, pool, out: bf16; part_*: f32 partials, used when splits > 1.  The
+// split-KV tensor-core kernel; (latent_dim, rope_dim) must be one of
+// mla::pick's instances.
+extern "C" int paged_mla_decode_bf16(
+    const void* q, const void* pool, const int* table, const int* lengths,
+    void* out, float* part_acc, float* part_m, float* part_l, int batch,
+    int heads, int latent_dim, int rope_dim, int max_pages,
+    int tokens_per_page, long long page_elems, int splits, int tiles,
+    float scale, void* stream) {
+  const mla::LaunchFn fn = mla::pick(latent_dim, rope_dim);
+  if (fn == nullptr || heads <= 0 || splits < 1 || splits > tiles ||
+      (splits > 1 && !(part_acc && part_m && part_l)))
+    return (int)cudaErrorInvalidValue;
+  mla::Args a{};
+  a.q = static_cast<const mla::bf16*>(q);
+  a.pool = static_cast<const mla::bf16*>(pool);
+  a.table = table;
+  a.lengths = lengths;
+  a.out = static_cast<mla::bf16*>(out);
+  a.part_acc = part_acc;
+  a.part_m = part_m;
+  a.part_l = part_l;
+  a.heads = heads;
+  a.tokens_per_page = tokens_per_page;
+  a.max_pages = max_pages;
+  a.page_elems = page_elems;
+  a.splits = splits;
+  a.tiles = tiles;
+  a.scale = scale;
+  return fn(a, batch, static_cast<cudaStream_t>(stream));
+}
+
+// q, pool, out: float32; the first design (paged_decode_block).
+extern "C" int paged_mla_decode_f32(const void* q, const void* pool,
+                                    const int* table, const int* lengths,
+                                    void* out, int batch, int heads,
+                                    int latent_dim, int rope_dim,
+                                    int max_pages, int tokens_per_page,
+                                    long long page_elems, float scale,
+                                    void* stream) {
   Geometry g;
   g.heads = heads;
   g.heads_per_block = heads < kMlaHeadsPerBlock ? heads : kMlaHeadsPerBlock;
@@ -1118,14 +1603,8 @@ extern "C" int paged_mla_decode(const void* q, const void* pool,
   g.page_elems = page_elems;
   g.max_pages = max_pages;
   g.tile = kMaxTile;
-  g.q_scale = 1.f;
+  g.q_scale = scale;
   const int grid_x = (heads + g.heads_per_block - 1) / g.heads_per_block;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float, true>(q, pool, pool, table, lengths, out, batch,
-                                 grid_x, g, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16, true>(q, pool, pool, table, lengths, out,
-                                         batch, grid_x, g, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<float, true>(q, pool, pool, table, lengths, out, batch,
+                               grid_x, g, static_cast<cudaStream_t>(stream));
 }

@@ -5,7 +5,7 @@ what they replace, their bound and their design), built at first use by
 ``repro_torch.kernels.build`` and wrapped here:
 
 * ``paged_decode_attention``       -> ``paged_gqa_decode_bf16`` / ``_f32``
-* ``paged_mla_decode_attention``   -> ``paged_mla_decode``
+* ``paged_mla_decode_attention``   -> ``paged_mla_decode_bf16`` / ``_f32``
 * ``contiguous_decode_attention``  -> ``contiguous_gqa_decode_bf16`` /
                                       ``_f32``
 
@@ -30,10 +30,13 @@ a kv head's ``G = H / KV`` query heads run on tensor cores when ``G >=
 8`` and on CUDA cores otherwise (``rows_per_block``; head dims in
 ``check_bf16_geometry``).  float32 takes the
 first design (one block per kv head and batch row, CUDA cores), which holds
-the card-vs-CPU checks at 2e-5.  Both GQA routes fold ``scale`` into q in
-the kernel (f32 product rounded to q's dtype), as the TPU wrappers do
-(``src/repro/kernels/paged_attention.py:92,183``); the MLA wrapper folds
-it here (``_scaled``) before the launch.
+the card-vs-CPU checks at 2e-5.  The MLA route follows the dtype too:
+bfloat16 takes the same split-KV structure with 16 heads a block on
+tensor cores over the latent row all heads share (``mla_split_plan``,
+widths in ``check_mla_geometry``), float32 the first design.  Every route
+folds ``scale`` into q in the kernel (f32 product rounded to q's dtype),
+as the TPU wrappers do (``src/repro/kernels/paged_attention.py:92,183,
+284``).
 """
 from __future__ import annotations
 
@@ -58,6 +61,11 @@ BLOCKS_PER_SM = 2
 #: 16); 8 is the smoke configs' head dim
 HEAD_DIMS = (8, 16, 32, 64, 128)
 TENSOR_CORE_HEAD_DIMS = (16, 32, 64, 128)
+#: (latent, rope) widths the bf16 MLA kernel is instantiated for: minicpm3
+#: at its published width, the small float32 check's and the smoke config's
+MLA_WIDTHS = ((256, 32), (64, 16), (16, 8))
+#: query heads one bf16 MLA block serves (the 16 rows of ``mma.sync``)
+MLA_ROWS = 16
 
 
 @functools.cache
@@ -74,11 +82,14 @@ def load_library() -> ctypes.CDLL:
         [ptr] * 5 + [i32] * 6 + [ctypes.c_longlong, ctypes.c_float, ptr])
     lib.contiguous_gqa_decode_f32.argtypes = (
         [ptr] * 5 + [i32] * 5 + [ctypes.c_float, ptr])
-    lib.paged_mla_decode.argtypes = (
-        [ptr] * 5 + [i32] * 6 + [ctypes.c_longlong, i32, ptr])
+    lib.paged_mla_decode_bf16.argtypes = (
+        [ptr] * 8 + [i32] * 6 + [ctypes.c_longlong, i32, i32,
+                                 ctypes.c_float, ptr])
+    lib.paged_mla_decode_f32.argtypes = (
+        [ptr] * 5 + [i32] * 6 + [ctypes.c_longlong, ctypes.c_float, ptr])
     for fn in (lib.paged_gqa_decode_bf16, lib.contiguous_gqa_decode_bf16,
                lib.paged_gqa_decode_f32, lib.contiguous_gqa_decode_f32,
-               lib.paged_mla_decode):
+               lib.paged_mla_decode_bf16, lib.paged_mla_decode_f32):
         fn.restype = ctypes.c_int
     return lib
 
@@ -138,6 +149,25 @@ def check_bf16_geometry(heads: int, n_kv: int, head_dim: int) -> None:
             f"{heads // n_kv}), got {head_dim}")
 
 
+def mla_split_plan(batch: int, heads: int, max_tokens: int,
+                   sm_count: int) -> Tuple[int, int]:
+    """(head groups, splits) of a bf16 MLA decode call: every head reads
+    the same latent row, so a block serves ``MLA_ROWS`` heads and the
+    split count aims at ``BLOCKS_PER_SM`` blocks per SM over the
+    ``batch x head groups`` blocks, from shapes alone."""
+    groups = -(-heads // MLA_ROWS)
+    return groups, kv_splits(batch, groups, max_tokens, sm_count)
+
+
+def check_mla_geometry(latent_dim: int, rope_dim: int) -> None:
+    """Raise ``ValueError`` unless the bf16 MLA kernel is instantiated for
+    ``latent_dim + rope_dim`` rows whose value is the ``latent_dim``
+    prefix."""
+    if (latent_dim, rope_dim) not in MLA_WIDTHS:
+        raise ValueError(f"the bf16 MLA kernel takes (latent, rope) widths "
+                         f"{MLA_WIDTHS}, got ({latent_dim}, {rope_dim})")
+
+
 def split_start(split: int, splits: int, max_tokens: int) -> int:
     """First token of ``split``: split s covers the tiles [s * n / splits,
     (s + 1) * n / splits) of the n = ``n_tiles(max_tokens)``, as the
@@ -171,11 +201,6 @@ def _check_launch_inputs(q, pool, page_table, lengths, per_tok: int,
         raise ValueError("page_table must be [B, max_pages] and lengths [B]")
 
 
-def _scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
-    """Fold ``scale`` into q once and round back to q's dtype."""
-    return (q.float() * scale).to(q.dtype).contiguous()
-
-
 def _gqa_route(q: torch.Tensor, kv: torch.Tensor, n_kv: int) -> str:
     """The GQA kernel body for these inputs ("bf16" or "f32"); raises on
     what neither takes."""
@@ -192,6 +217,17 @@ def _gqa_route(q: torch.Tensor, kv: torch.Tensor, n_kv: int) -> str:
     return "bf16"
 
 
+def _partials(B: int, H: int, splits: int, D: int, device):
+    """The f32 partials (acc [B,H,splits,D], m and l [B,H,splits]) of a
+    split-KV call, from ``torch.empty``; none for one split."""
+    if splits == 1:
+        return None, None, None
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((B, H, splits, D), **f32),
+            torch.empty((B, H, splits), **f32),
+            torch.empty((B, H, splits), **f32))
+
+
 def _split_launch(fn, q, kv, lengths, n_kv, max_tokens, geometry,
                   scale) -> torch.Tensor:
     """Launch a bf16 split-KV entry point: ``kv`` are its KV pointer
@@ -202,12 +238,7 @@ def _split_launch(fn, q, kv, lengths, n_kv, max_tokens, geometry,
     rows, splits = split_plan(B, H, n_kv, max_tokens,
                               _sm_count(q.device.index))
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    parts = (None, None, None)
-    if splits > 1:
-        f32 = dict(dtype=torch.float32, device=q.device)
-        parts = (torch.empty((B, H, splits, D), **f32),
-                 torch.empty((B, H, splits), **f32),
-                 torch.empty((B, H, splits), **f32))
+    parts = _partials(B, H, splits, D, q.device)
     launch(fn, q.device, q.contiguous(), *kv,
            lengths.to(torch.int32).contiguous(), out, *parts, B, H, n_kv, D,
            rows, *geometry, splits, n_tiles(max_tokens), float(scale))
@@ -268,6 +299,8 @@ def paged_mla_decode_attention(q: torch.Tensor, pool: torch.Tensor,
 
     q [B,1,H,r+rp] = [q_latent | q_rope]; pool [n_pages, page_elems] flat,
     token rows ``[r + rp]``.  Returns the latent context [B,1,H,r].
+    bf16 takes the split-KV tensor-core kernel (``mla_split_plan``; widths
+    in ``MLA_WIDTHS``), float32 the first design.
     """
     B, _, H, e = q.shape
     if q.device.type == "cpu":
@@ -280,12 +313,26 @@ def paged_mla_decode_attention(q: torch.Tensor, pool: torch.Tensor,
         raise ValueError(f"no paged attention kernel for {q.device}")
     _check_launch_inputs(q, pool, page_table, lengths, e, tokens_per_page)
     build.refuse_grad("paged_mla_decode_attention", q, pool)
+    rope_dim, max_pages = e - latent_dim, page_table.shape[1]
+    args = (q.contiguous(), pool, page_table.to(torch.int32).contiguous(),
+            lengths.to(torch.int32).contiguous())
     out = torch.empty((B, 1, H, latent_dim), dtype=q.dtype, device=q.device)
-    launch(load_library().paged_mla_decode, q.device, _scaled(q, scale),
-           pool, page_table.to(torch.int32).contiguous(),
-           lengths.to(torch.int32).contiguous(), out, B, H, latent_dim,
-           e - latent_dim, page_table.shape[1], tokens_per_page,
-           pool.shape[1], DTYPE_CODES[q.dtype])
+    if q.dtype == torch.bfloat16:
+        check_mla_geometry(latent_dim, rope_dim)
+        if pool.data_ptr() % 16 or pool.shape[1] % 8:
+            raise ValueError("bf16 pages must start on 16 bytes and hold a "
+                             "multiple of 8 elements (cp.async)")
+        max_tokens = max_pages * tokens_per_page
+        _, splits = mla_split_plan(B, H, max_tokens,
+                                   _sm_count(q.device.index))
+        launch(load_library().paged_mla_decode_bf16, q.device, *args, out,
+               *_partials(B, H, splits, latent_dim, q.device), B, H,
+               latent_dim, rope_dim, max_pages, tokens_per_page,
+               pool.shape[1], splits, n_tiles(max_tokens), float(scale))
+    else:
+        launch(load_library().paged_mla_decode_f32, q.device, *args, out, B,
+               H, latent_dim, rope_dim, max_pages, tokens_per_page,
+               pool.shape[1], float(scale))
     paged_mla_decode_attention.launches += 1
     return out
 

@@ -92,12 +92,13 @@ def test_mla_kernel_matches_plain(cuda, dtype, tol, H, r, rp, ps):
                                atol=tol)
 
 
-def _edge_inputs(rng, lengths, npages, ps, H, KV, D, holes):
-    """q, a flat pool that is NaN wherever no valid token lies (past every
-    length, unmapped pages, page slack, the pages of ``holes``), a
-    shuffled table and the lengths; ``holes`` are (row, page) pairs
-    unmapped (-1) inside the row's length."""
-    per_tok, B = 2 * KV * D, len(lengths)
+def _edge_inputs(rng, lengths, npages, ps, H, per_tok, q_dim, holes):
+    """q [B,1,H,q_dim], a flat pool of ``per_tok``-element token rows that
+    is NaN wherever no valid token lies (past every length, unmapped
+    pages, page slack, the pages of ``holes``), a shuffled table and the
+    lengths; ``holes`` are (row, page) pairs unmapped (-1) inside the
+    row's length."""
+    B = len(lengths)
     n_phys = B * npages + 3
     pool = np.full((n_phys, ps * per_tok + 8), np.nan, np.float32)
     table = np.full((B, npages), -1, np.int32)
@@ -111,7 +112,7 @@ def _edge_inputs(rng, lengths, npages, ps, H, KV, D, holes):
                     k * per_tok)
     for b, p in holes:
         table[b, p] = -1
-    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    q = rng.standard_normal((B, 1, H, q_dim)).astype(np.float32)
     return q, pool, table, np.array(lengths, np.int32)
 
 
@@ -149,8 +150,8 @@ def test_gqa_kernel_edges(cuda, dtype, tol, H, KV, D, ps):
     edge = pa.split_start(1, splits, npages * ps)
     lengths = [0, 1, edge, edge - 1, edge + 1, ps * 50 + max(1, ps // 2)]
     holes = ((3, 1), (5, 2), (5, 4))
-    q, pool, table, lengths = _edge_inputs(rng, lengths, npages, ps, H, KV,
-                                           D, holes)
+    q, pool, table, lengths = _edge_inputs(rng, lengths, npages, ps, H,
+                                           2 * KV * D, D, holes)
     plain_table, plain_lengths = _without_holes(table, lengths, holes, ps)
     args = [torch.from_numpy(a).to(cuda) for a in (q, pool, table, lengths,
                                                    plain_table,
@@ -165,6 +166,65 @@ def test_gqa_kernel_edges(cuda, dtype, tol, H, KV, D, ps):
     assert not got[0].any()                          # length 0 writes 0
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("H,r,rp,ps", [(40, 256, 32, 28), (12, 64, 16, 7),
+                                       (4, 16, 8, 8)])
+def test_mla_kernel_edges(cuda, dtype, tol, H, r, rp, ps):
+    """The MLA kernels at the GQA kernels' edges: lengths 0 and 1, on the
+    bf16 split plan's first boundary and one token either side of it,
+    ending mid-page; unmapped (-1) pages inside two lengths; NaN past
+    every length.  Geometries: minicpm3 at its published width (40 heads:
+    three blocks of 16, the last 8 rows empty), the small f32 check's and
+    the smoke config's (r + rp = 24: the score's k padded to 32)."""
+    rng = np.random.default_rng(H * r + ps)
+    npages = 512 // ps
+    _, splits = pa.mla_split_plan(6, H, npages * ps,
+                                  torch.cuda.get_device_properties(cuda)
+                                  .multi_processor_count)
+    edge = pa.split_start(1, splits, npages * ps)
+    lengths = [0, 1, edge, edge - 1, edge + 1,
+               ps * min(50, npages - 2) + max(1, ps // 2)]
+    holes = ((3, 1), (5, 2), (5, 4))
+    q, pool, table, lengths = _edge_inputs(rng, lengths, npages, ps, H,
+                                           r + rp, r + rp, holes)
+    plain_table, plain_lengths = _without_holes(table, lengths, holes, ps)
+    args = [torch.from_numpy(a).to(cuda) for a in (q, pool, table, lengths,
+                                                   plain_table,
+                                                   plain_lengths)]
+    q, pool = args[0].to(dtype), args[1].to(dtype)
+    scale = (r + rp) ** -0.5
+    before = kops.paged_mla_decode_attention.launches
+    got = kops.paged_mla_decode_attention(q, pool, args[2], args[3],
+                                          tokens_per_page=ps, latent_dim=r,
+                                          scale=scale)
+    assert kops.paged_mla_decode_attention.launches == before + 1
+    typed = pool[:, : ps * (r + rp)].reshape(-1, ps, r + rp)
+    want = tref.paged_mla_decode_attention(q, typed, args[4], args[5], r,
+                                           scale)
+    assert got.shape == (6, 1, H, r) and torch.isfinite(got).all()
+    assert not got[0].any()                          # length 0 writes 0
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_mla_kernel_refuses_what_it_lacks(cuda):
+    """bf16 MLA raises on a width it has no instance for, and on a pool
+    that cp.async cannot read (a page of an odd number of elements)."""
+    table = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    lens = torch.tensor([5], dtype=torch.int32, device=cuda)
+    bf = dict(dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="widths"):
+        kops.paged_mla_decode_attention(
+            torch.zeros((1, 1, 4, 48), **bf), torch.zeros((4, 4 * 48), **bf),
+            table, lens, tokens_per_page=4, latent_dim=32, scale=0.2)
+    with pytest.raises(ValueError, match="16 bytes"):
+        kops.paged_mla_decode_attention(
+            torch.zeros((1, 1, 4, 24), **bf),
+            torch.zeros((4, 4 * 24 + 3), **bf), table, lens,
+            tokens_per_page=4, latent_dim=16, scale=0.2)
 
 
 @pytest.mark.parametrize("H,KV,D,ps", [(64, 4, 128, 8), (16, 16, 128, 2)])
@@ -198,7 +258,7 @@ def test_gqa_decode_is_sync_free_and_capturable(cuda):
     H, KV, D, ps = 64, 4, 128, 8
     q, pool, table, lengths = (torch.from_numpy(a).to(cuda) for a in
                                _edge_inputs(rng, [500, 512, 77, 1], 64, ps,
-                                            H, KV, D, ()))
+                                            H, 2 * KV * D, D, ()))
     q, pool = q.to(torch.bfloat16), pool.to(torch.bfloat16)
     kw = dict(tokens_per_page=ps, n_kv=KV, scale=D ** -0.5)
     ck = torch.randn((2, 256, 4, 64), device=cuda).to(torch.bfloat16)
@@ -226,6 +286,44 @@ def test_gqa_decode_is_sync_free_and_capturable(cuda):
     lengths.copy_(torch.tensor([300, 0, 77, 1], dtype=torch.int32))
     graph.replay()
     want = kops.paged_decode_attention(q, pool, table, lengths, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert not out[1].any()
+
+
+def test_mla_decode_is_sync_free_and_capturable(cuda):
+    """The bf16 MLA wrapper at minicpm3's geometry reads nothing back to
+    the host (it runs under ``set_sync_debug_mode("error")``), and a call
+    captured in a CUDA graph, replayed after new lengths are written in
+    place, equals an eager call on those lengths."""
+    rng = np.random.default_rng(1)
+    H, r, rp, ps = 40, 256, 32, 28
+    q, pool, table, lengths = (torch.from_numpy(a).to(cuda) for a in
+                               _edge_inputs(rng, [500, 700, 77, 1], 37, ps,
+                                            H, r + rp, r + rp, ()))
+    q, pool = q.to(torch.bfloat16), pool.to(torch.bfloat16)
+    kw = dict(tokens_per_page=ps, latent_dim=r, scale=(r + rp) ** -0.5)
+
+    def call():
+        return kops.paged_mla_decode_attention(q, pool, table, lengths, **kw)
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    lengths.copy_(torch.tensor([300, 0, 77, 1], dtype=torch.int32))
+    graph.replay()
+    want = call()
     torch.cuda.synchronize()
     assert torch.equal(out, want)
     assert not out[1].any()
@@ -434,6 +532,7 @@ def test_fallback_engine_on_the_card_serves_and_returns_every_page(cuda,
     (1000, 64, 136, [129, 127, 255, 1, 257, 231]),  # tile-straddling
     (300, 64, 96, [5, 3, 0, 270, 9, 13]),     # experts under 16 rows
     (64, 36, 130, [10, 54]),                  # 72- and 260-byte bf16 rows
+    (4096, 64, 136, [3686, 7, 0, 403]),       # 90% on one expert, one of 7
 ])
 def test_moe_gemm_kernels_match_plain(cuda, dtype, tol, N, K, M, sizes):
     """Forward, input gradient and weight gradient (through autograd)

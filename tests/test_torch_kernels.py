@@ -275,6 +275,59 @@ def test_split_plan_counts_head_groups(H, KV, groups):
     assert "lengths" not in inspect.signature(pa.split_plan).parameters
 
 
+@pytest.mark.parametrize("batch,heads,max_tokens,groups", [
+    (4, 40, 37 * 28, 3),      # minicpm3 (40 heads: 3 blocks of 16), B=4, 1k
+    (1, 40, 37 * 28, 3),      # ... B=1, 1k
+    (1, 40, 293 * 28, 3),     # ... B=1, 8k: many tiles
+    (4, 40, 293 * 28, 3),
+    (6, 12, 73 * 7, 1),       # the small f32 check's geometry
+    (2, 4, 8 * 8, 1),         # the smoke config: one tile, one split
+    (96, 40, 37 * 28, 3),     # a large batch: no split
+])
+def test_mla_split_plan(batch, heads, max_tokens, groups):
+    """The bf16 MLA kernel serves 16 heads a block (``ceil(H / 16)``
+    blocks a row) and splits the context as the GQA kernels do, from
+    shapes alone: at least one split, never more than tiles or
+    ``MAX_SPLITS``, ``BLOCKS_PER_SM`` blocks per SM where the tiles allow;
+    it reads no lengths."""
+    sm = 132
+    got_groups, splits = pa.mla_split_plan(batch, heads, max_tokens, sm)
+    assert got_groups == groups == -(-heads // pa.MLA_ROWS)
+    assert splits == pa.kv_splits(batch, groups, max_tokens, sm)
+    tiles = pa.n_tiles(max_tokens)
+    assert 1 <= splits <= min(tiles, pa.MAX_SPLITS)
+    assert batch * groups * splits >= min(pa.BLOCKS_PER_SM * sm,
+                                          batch * groups * tiles)
+    assert "lengths" not in inspect.signature(pa.mla_split_plan).parameters
+
+
+def _served_mla_widths():
+    """(name, r, rp) of every MLA model the engine serves, at its
+    published and its smoke widths."""
+    return [(f"{name}-{width}", cfg.mla.kv_lora_rank,
+             cfg.mla.qk_rope_head_dim)
+            for name in ARCH_NAMES
+            for width, cfg in (("full", get_config(name)),
+                               ("smoke", get_smoke_config(name)))
+            if cfg.attention == "mla" and split_exec.supports_split(cfg)]
+
+
+@pytest.mark.parametrize("name,r,rp", _served_mla_widths())
+def test_bf16_mla_kernel_takes_every_served_width(name, r, rp):
+    """The bf16 MLA kernel is instantiated for every MLA model the engine
+    serves, published and smoke widths (the serve CLI's default)."""
+    pa.check_mla_geometry(r, rp)
+
+
+@pytest.mark.parametrize("r,rp", [(256, 64), (128, 32), (32, 16), (16, 0),
+                                  (8, 8)])
+def test_bf16_mla_kernel_refuses_what_it_lacks(r, rp):
+    """Widths without an instance raise ``ValueError``; the wrapper never
+    falls back to the plain version on a card."""
+    with pytest.raises(ValueError):
+        pa.check_mla_geometry(r, rp)
+
+
 def _served_gqa_geometries():
     """(name, H, KV, D) of every GQA model the engine serves, at its
     published and its smoke widths: the split path's families and the
@@ -309,17 +362,18 @@ def test_bf16_gqa_kernels_refuse_what_they_lack(H, KV, D):
 
 
 def _split_and_merge(q, k, v, lengths, splits, scale):
-    """Flash-decoding in torch, as the bf16 GQA kernels compute it: per
+    """Flash-decoding in torch, as the bf16 decode kernels compute it: per
     split the (m, l, acc) of its tokens below the length (m = -1e30, l =
     0 for a split with none), then ``out = sum_s e^(m_s - M) acc_s /
     sum_s e^(m_s - M) l_s`` over the splits with l_s > 0, 0 where there
-    is none.  q [B,1,H,D]; k, v [B,T,KV,D] dense."""
-    B, _, H, D = q.shape
-    T, KV = k.shape[1], k.shape[2]
-    qs = (q.float() * scale).to(q.dtype).float().reshape(B, KV, H // KV, D)
+    is none.  q [B,1,H,Dk]; k [B,T,KV,Dk], v [B,T,KV,Dv] dense (MLA: one
+    kv head whose value is the key row's latent prefix)."""
+    B, _, H, Dk = q.shape
+    T, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    qs = (q.float() * scale).to(q.dtype).float().reshape(B, KV, H // KV, Dk)
     m = torch.full((B, H, splits), -1e30)
     l = torch.zeros((B, H, splits))
-    acc = torch.zeros((B, H, splits, D))
+    acc = torch.zeros((B, H, splits, Dv))
     for s in range(splits):
         lo = pa.split_start(s, splits, T)
         for b in range(B):
@@ -332,7 +386,7 @@ def _split_and_merge(q, k, v, lengths, splits, scale):
             m[b, :, s] = mx.reshape(H)
             l[b, :, s] = p.sum(-1).reshape(H)
             acc[b, :, s] = torch.einsum("kgt,tkd->kgd", p,
-                                        v[b, lo:hi].float()).reshape(H, D)
+                                        v[b, lo:hi].float()).reshape(H, Dv)
     big = torch.where(l > 0, m, torch.full_like(m, -1e30)).amax(-1,
                                                                 keepdim=True)
     w = torch.where(l > 0, torch.exp(m - big), torch.zeros_like(m))
@@ -341,35 +395,57 @@ def _split_and_merge(q, k, v, lengths, splits, scale):
     out = torch.where(den[..., None] > 0,
                       num / den.clamp(min=1e-30)[..., None],
                       torch.zeros_like(num))
-    return out.reshape(B, 1, H, D)
+    return out.reshape(B, 1, H, Dv)
 
 
-@pytest.mark.parametrize("splits", [1, 2, 3, 7, 16])
-def test_split_and_merge_matches_the_plain_version_and_jax(splits):
-    """The merge the kernels rely on equals one softmax over the whole
-    context (the port's plain version, and the JAX oracle on the rows
-    with a token), within 2e-5, for uneven splits, splits with no token
-    (past a length, or more splits than tiles) and a row of length 0,
-    which writes 0 as the TPU kernel does (the oracle, which has no
-    ``l == 0`` guard, averages the rows past the length instead)."""
-    rng = np.random.default_rng(splits)
+def _gqa_case(rng):
+    """(q, typed pages, table, lengths, dense K, dense V, scale, the plain
+    version, the JAX oracle) of the GQA split-and-merge check."""
     B, H, KV, D, ps, npages = 5, 8, 2, 16, 16, 40
     q, pages, table, lengths = _paged_inputs(
         rng, B, npages, ps, B * npages + 3, (2, KV, D), H, D)
     lengths[:3] = [0, 1, npages * ps]                 # empty, one, full
     table[2] = rng.permutation(B * npages + 3)[:npages]
-    scale = D ** -0.5
-    safe = np.maximum(table, 0)
-    dense = pages[safe].reshape(B, npages * ps, 2, KV, D)
-    got = _split_and_merge(_t(q), _t(dense[:, :, 0]), _t(dense[:, :, 1]),
-                           _t(lengths), splits, scale)
-    want = tref.paged_decode_attention(_t(q), _t(pages), _t(table),
-                                       _t(lengths), scale)
+    dense = pages[np.maximum(table, 0)].reshape(B, npages * ps, 2, KV, D)
+    return (q, pages, table, lengths, dense[:, :, 0], dense[:, :, 1],
+            D ** -0.5, tref.paged_decode_attention,
+            jref.paged_decode_attention, ())
+
+
+def _mla_case(rng):
+    """The same for MLA: rows [r + rp] whose value is the latent prefix."""
+    B, H, r, rp, ps, npages = 5, 12, 32, 16, 7, 90
+    q, pages, table, lengths = _paged_inputs(
+        rng, B, npages, ps, B * npages + 3, (r + rp,), H, r + rp)
+    lengths[:3] = [0, 1, npages * ps]
+    table[2] = rng.permutation(B * npages + 3)[:npages]
+    dense = pages[np.maximum(table, 0)].reshape(B, npages * ps, 1, r + rp)
+    return (q, pages, table, lengths, dense, dense[..., :r],
+            (r + rp) ** -0.5, tref.paged_mla_decode_attention,
+            jref.paged_mla_decode_attention, (r,))
+
+
+@pytest.mark.parametrize("kind,splits", [
+    pytest.param(kind, s, id=s_id)
+    for kind, prefix in (("gqa", ""), ("mla", "mla-"))
+    for s in (1, 2, 3, 7, 16) for s_id in (f"{prefix}{s}",)])
+def test_split_and_merge_matches_the_plain_version_and_jax(kind, splits):
+    """The merge the kernels rely on equals one softmax over the whole
+    context (the port's plain version, and the JAX oracle on the rows
+    with a token), within 2e-5, for uneven splits, splits with no token
+    (past a length, or more splits than tiles) and a row of length 0,
+    which writes 0 as the TPU kernel does (the oracle, which has no
+    ``l == 0`` guard, averages the rows past the length instead).  For
+    MLA the key is the whole row and the value its latent prefix."""
+    rng = np.random.default_rng(splits)
+    (q, pages, table, lengths, k, v, scale, plain, oracle,
+     extra) = (_gqa_case if kind == "gqa" else _mla_case)(rng)
+    got = _split_and_merge(_t(q), _t(k), _t(v), _t(lengths), splits, scale)
+    want = plain(_t(q), _t(pages), _t(table), _t(lengths), *extra, scale)
     torch.testing.assert_close(got, want, **TOL)
-    oracle = jref.paged_decode_attention(
-        jnp.asarray(q), jnp.asarray(pages), jnp.asarray(table),
-        jnp.asarray(lengths), scale)
-    np.testing.assert_allclose(got[1:].numpy(), np.asarray(oracle)[1:],
+    jax_out = oracle(jnp.asarray(q), jnp.asarray(pages), jnp.asarray(table),
+                     jnp.asarray(lengths), *extra, scale)
+    np.testing.assert_allclose(got[1:].numpy(), np.asarray(jax_out)[1:],
                                **TOL)
     assert not got[0].any()                           # length 0 -> 0
 
