@@ -31,8 +31,11 @@ other than 0) if any phase fails:
              1e-3, bf16 ``y`` within 2e-2, ``h`` within 1e-3, with and
              without ``h0``) at the zamba2 / mamba2 geometries, and at
              64 chunks (S = 4096, chunk 64), a chunk of 8, G = 2 and
-             B = 2 with ``h0``; then times kernel, plain
-             version and, for attention, one
+             B = 2 with ``h0``; the pool write (``paged_kv_write``) bit
+             for bit against its plain version (-1 pages, an id past the
+             pool, f32 rows into a bf16 pool, an odd row width, 512 rows)
+             and under ``set_sync_debug_mode("error")``; then times
+             kernel, plain version and, for attention, one
              ``scaled_dot_product_attention`` call on the same data under
              each SDPA backend that takes it (a yardstick only: the port
              never calls it; the fastest is ``library_ms``), beside the
@@ -41,20 +44,37 @@ other than 0) if any phase fails:
              (plain versions): the colocated set and zamba2 + mamba2;
              prefill and one decode step give the same logits within
              1e-4; then the same smoke models in bf16, as the serve CLI
-             runs them by default, served through the engine;
+             runs them by default, served through the engine; then the
+             decode graphs: for the smoke coloc set in float32 and bf16
+             at K = 1 and 4, and zamba2 + mamba2 in both, a block's graph
+             replay gives the same tokens and pool (or dense cache) bytes
+             as the step body called eagerly from the same state; a
+             block dispatch (copy-in to replay) makes no host read under
+             ``set_sync_debug_mode("error")``; and a model evicted from
+             the arena and re-activated on other slabs serves the same
+             tokens through its graph;
 5. serve   — ``CrossPoolEngine(device="cuda")`` over the paper's three
              colocated models at their published widths, bf16, depths
              cut to ``FULL_WIDTH_DEPTHS``: 8 requests, prompts of
              200-900 tokens, 32 new tokens each, K=4.  Every request must
              finish with its token count, every page must return, no
-             logit may be NaN, and both paged kernels must have launched;
+             logit may be NaN, each model's decode graph must have
+             replayed exactly once per block, and the paged GQA and MLA
+             kernels and the pool write must have launched exactly as
+             often as the path runs them (per layer: K per replay, and
+             one write per prompt row); then (5h) the same requests under
+             ``lowering=False`` with the layer pipeline scheduler and
+             without it, with the same checks (one token per host-driven
+             step), printing the scheduler's stage count and
+             ``overlap_fraction``;
 6. serve   — the same engine over zamba2-1.2b and mamba2-130m at their
    fallback  FULL published configs (no depth cut), bf16, through the
              dense-cache fallback path: 8 requests (4 per model), the
              same prompts and outputs, K=1.  The same checks, and flash
              prefill (6 per zamba2 prompt), the SSD scan (32 per zamba2
              and 24 per mamba2 prompt) and contiguous decode (6 per
-             zamba2 decode step) must have launched that many times;
+             zamba2 decode step, one graph replay each) must have
+             launched that many times;
 7. train   — ``make_train_step`` on moonshot-v1-16b-a3b at its published
              widths, depth cut to ``TRAIN_DEPTH``, float32, through the
              grouped-GEMM MoE path: 5 AdamW steps on one fixed batch of
@@ -81,8 +101,9 @@ updated params within 1e-4 of each leaf's scale, max(1, max|leaf|)).
 
 The profile of phase 6's prefill step prints the SSD scan's share of
 the device time, the profiles of phase 5 paged MLA's.  Launch counts
-are set to 0 just before each serve or
-train phase and read just after it.  It prints a JSON line with every kernel's numbers,
+are set to 0 just before each serve or train phase and read just after
+it; the engine captures its decode graphs when it is built, before that,
+and each replay adds the kernel launches its capture recorded.  It prints a JSON line with every kernel's numbers,
 then, as its last line, ``{"ok": true, "device": {...}}``.  The full
 kernel table, the serve and train figures and the profiles go to
 ``build/chip_smoke.json``.
@@ -121,7 +142,7 @@ FALLBACK_MODELS = ("zamba2-1.2b", "mamba2-130m")
 #: every kernel entry point, by the name its launch counter is read under
 KERNELS = ("paged_decode_attention", "paged_mla_decode_attention",
            "flash_attention", "decode_attention", "ssd_scan", "moe_gemm",
-           "moe_gemm_wgrad")
+           "moe_gemm_wgrad", "paged_kv_write")
 #: phase 7: moonshot at published widths, this many layers, float32
 TRAIN_MODEL = "moonshot-v1-16b-a3b"
 TRAIN_DEPTH = 2
@@ -1129,13 +1150,15 @@ def train_phase(torch, np, kops):
     return launches, figures, loads
 
 
-def serve_phase(torch, np, kops, models, *, k, page_budget, label, check):
+def serve_phase(torch, np, kops, models, *, k, page_budget, label, check,
+                lowering=True, pipeline=True):
     """``CrossPoolEngine(device="cuda")`` over ``models`` (bf16): 8
     requests at time 0, prompts of 200-900 tokens, 32 new tokens each,
-    ``max_batch=4``, ``max_ctx=1024``, ``k`` tokens per dispatch.  Launch
-    counts are 0 just before the run and read just after it; ``check(
-    launches, stats, engine)`` adds the phase's own checks.  Returns
-    (launches, figures)."""
+    ``max_batch=4``, ``max_ctx=1024``, ``k`` tokens per dispatch, in the
+    given engine mode.  Launch counts are 0 just before the run and read
+    just after it; each model's decode graph must have replayed once per
+    block; ``check(launches, stats, engine)`` adds the phase's own checks.
+    Returns (launches, figures)."""
     from repro_torch.configs.base import EngineConfig
     from repro_torch.runtime.engine import CrossPoolEngine, EngineMode
     from repro_torch.runtime.observe import percentile
@@ -1146,7 +1169,9 @@ def serve_phase(torch, np, kops, models, *, k, page_budget, label, check):
     engine = CrossPoolEngine(
         models, page_budget=page_budget, max_batch=4, max_ctx=1024, seed=0,
         device="cuda",
-        config=EngineConfig(mode=EngineMode(decode_steps_per_dispatch=k)))
+        config=EngineConfig(mode=EngineMode(
+            lowering=lowering, pipeline=pipeline,
+            decode_steps_per_dispatch=k)))
     torch.cuda.synchronize()
     arena = (f"arena {engine.arena.device_bytes() / 2**30:.2f} GiB"
              if engine.arena is not None else "no arena")
@@ -1179,7 +1204,14 @@ def serve_phase(torch, np, kops, models, *, k, page_budget, label, check):
     bad = sum(int(r.nonfinite_logits) for r in engine.runners.values())
     if bad:
         raise AssertionError(f"{bad} non-finite logits")
+    graphs = graph_report(engine, stats, label)
     check(launches, stats, engine)
+    schedule = {}
+    if engine.scheduler is not None:
+        schedule = dict(stages=len(engine.scheduler.stage_log),
+                        overlap_fraction=engine.scheduler.overlap_fraction())
+        log(f"{label}: the scheduler issued {schedule['stages']} stages, "
+            f"overlap_fraction {schedule['overlap_fraction']:.4f}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{label}: {len(reqs)} requests, prompts "
         f"{[r.prompt_tokens for r in reqs]}, {stats.tokens_out} tokens in "
@@ -1200,15 +1232,65 @@ def serve_phase(torch, np, kops, models, *, k, page_budget, label, check):
         ttft_p50_ms=percentile(stats.ttft, 50) * 1e3,
         prefill=[dict(model=m, B=B, bucket=b, ms=dt * 1e3)
                  for m, B, b, dt in stats.prefill_times],
-        max_memory_gib=peak)
-    figures["profile"] = profile_decode_step(torch, engine, names, k)
+        max_memory_gib=peak, graphs=graphs, **schedule)
+    figures["profile"] = profile_decode_step(torch, engine, names,
+                                             engine.runners[names[0]]
+                                             .decode_steps)
     return launches, figures
 
 
+def graph_report(engine, stats, label) -> dict:
+    """Per model: graph captures, replays, decode blocks and host
+    dispatches per block; a model with a decode graph must have replayed
+    it exactly once per block."""
+    from repro_torch.core.control import dispatch_count
+    out = {}
+    for name, runner in engine.runners.items():
+        blocks = len(stats.step_times[name])
+        graph = runner.graph
+        if graph is not None:
+            if graph.replays != blocks:
+                raise AssertionError(f"{name}: {graph.replays} graph replays "
+                                     f"for {blocks} decode blocks")
+            row = dict(captures=1, replays=graph.replays, blocks=blocks,
+                       host_dispatches_per_block=dispatch_count(
+                           runner.cfg.n_layers, True),
+                       launches_per_replay=graph.launches_per_replay)
+        else:
+            row = dict(captures=0, replays=0, blocks=blocks,
+                       host_dispatches_per_block=dispatch_count(
+                           runner.cfg.n_layers, False))
+        out[name] = row
+        log(f"{label}: {name}: {row['captures']} graph capture, "
+            f"{row['replays']} replays for {blocks} decode blocks, "
+            f"{row['host_dispatches_per_block']} host dispatches per block"
+            + (f", kernel launches per replay {row['launches_per_replay']}"
+               if graph is not None else ""))
+    return out
+
+
 def check_coloc(launches, stats, engine) -> None:
-    for name in ("paged_decode_attention", "paged_mla_decode_attention"):
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+    """Exact launch counts of the split path: per layer of a model, one
+    paged attention call (GQA or MLA) and one pool write per decoded token
+    (K per replay, or one per host-driven step), and one pool write per
+    prompt row."""
+    want = {"paged_decode_attention": 0, "paged_mla_decode_attention": 0,
+            "paged_kv_write": 0}
+    for name, runner in engine.runners.items():
+        n_layers = runner.cfg.n_layers
+        kernel = ("paged_mla_decode_attention" if runner.cfg.attention == "mla"
+                  else "paged_decode_attention")
+        tokens = (runner.graph.replays * runner.decode_steps
+                  if runner.graph is not None
+                  else len(stats.step_times[name]))
+        rows = sum(B for m, B, *_ in stats.prefill_times if m == name)
+        want[kernel] += n_layers * tokens
+        want["paged_kv_write"] += n_layers * (tokens + rows)
+    for name, n in want.items():
+        if launches[name] != n or n <= 0:
+            raise AssertionError(f"{name} launched {launches[name]} times on "
+                                 f"the split path, expected {n}")
+    log(f"split path: launches exactly as expected: {want}")
 
 
 def check_fallback(launches, stats, engine) -> None:
@@ -1309,6 +1391,252 @@ def profile_train_step(torch, step, state, batch):
 
 
 # ---------------------------------------------------------------------------
+# the pool write and the decode graphs
+# ---------------------------------------------------------------------------
+
+def kv_write_phase(torch, kops, ref):
+    """The pool write kernel against its plain version (bit for bit: it
+    moves bytes), on rows with page ids below 0 and past the pool, rows
+    cast from float32 to a bf16 pool, an odd row width (2-byte stores) and
+    a prefill-sized batch; sync-free under ``set_sync_debug_mode("error")``;
+    timed at the serve decode block's shape (qwen3-moe: 4 rows of 2 x 4 x
+    128 bf16 into 16 KiB pages) and at a 512-token prompt's."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+
+    def inputs(n_pages, page_elems, n, e, dtype, row_dtype, drop=()):
+        pool = torch.randn((n_pages, page_elems), generator=gen,
+                           device="cuda").to(dtype)
+        rows = torch.randn((n, e), generator=gen, device="cuda").to(row_dtype)
+        # distinct (page, slot) targets: two rows on one slot would race
+        # in the kernel and in the plain version's scatter alike
+        tpp = page_elems // e
+        flat = torch.randperm(n_pages * tpp, generator=gen,
+                              device="cuda")[:n].to(torch.int32)
+        pages, slots = flat // tpp, flat % tpp
+        for i, p in drop:
+            pages[i] = p
+        return pool, rows, pages, slots
+
+    def same(what, pool, rows, pages, slots, plain_pages=None):
+        want = ref.paged_kv_write(pool.clone(), rows, plain_pages
+                                  if plain_pages is not None else pages,
+                                  slots)
+        got = kops.paged_kv_write(pool.clone(), rows, pages, slots)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"pool write {what}: kernel differs from "
+                                 f"the plain version")
+        log(f"kernel check paged_kv_write {what}: equal to the plain version")
+
+    same("qwen3-moe decode B=4, -1 pages", *inputs(
+        64, 8192, 4, 1024, torch.bfloat16, torch.bfloat16,
+        drop=((1, -1), (3, -1))))
+    same("minicpm3 decode B=4, f32 rows into bf16", *inputs(
+        64, 8192, 4, 288, torch.bfloat16, torch.float32, drop=((0, -1),)))
+    pool, rows, pages, slots = inputs(64, 8192, 6, 21, torch.float32,
+                                      torch.float32, drop=((2, -3),))
+    dropped = pages.clone()
+    pages[4] = 64                  # past the pool: dropped, as mode="drop"
+    dropped[4] = -1
+    same("odd width, an id past the pool", pool, rows, pages, slots,
+         plain_pages=dropped)
+    same("prefill 512 rows", *inputs(4096, 8192, 512, 1024, torch.bfloat16,
+                                     torch.bfloat16))
+    pool, rows, pages, slots = inputs(64, 8192, 4, 1024, torch.bfloat16,
+                                      torch.bfloat16, drop=((1, -1),))
+    kops.paged_kv_write(pool, rows, pages, slots)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kops.paged_kv_write(pool, rows, pages, slots)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("kernel check paged_kv_write: no host read under "
+        "set_sync_debug_mode('error') at a batch with -1 pages")
+    rows_out = []
+    for label, n in (("qwen3-moe decode B=4", 4), ("prefill 512 rows", 512)):
+        pool, rows, pages, slots = inputs(16384, 8192, n, 1024,
+                                          torch.bfloat16, torch.bfloat16)
+        ms = time_ms(torch, lambda: kops.paged_kv_write(pool, rows, pages,
+                                                        slots))
+        plain = time_ms(torch, lambda: ref.paged_kv_write(pool, rows, pages,
+                                                          slots))
+        b_ms, b_by = bound_ms(2 * n * 1024 * 2 + 8 * n, 0)
+        rows_out.append(dict(kernel="paged_kv_write", shape=label, ms=ms,
+                             plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None))
+        log(f"time paged_kv_write {label}: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}); no one PyTorch "
+            f"call drops rows")
+    return rows_out
+
+
+def smoke_engine(torch, names, dtype, k=1, lowering=True, pipeline=True,
+                 steps=1):
+    """Smoke configs of ``names`` in ``dtype`` served on the card: 4
+    requests at time 0 (prompts 5-26 tokens, 6 new tokens each, given
+    ids), ``steps`` engine steps taken (prefill and first blocks)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import EngineConfig
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime.engine import CrossPoolEngine, EngineMode
+    from repro_torch.runtime.request import Request
+
+    models = {n: get_smoke_config(n).replace(dtype=dtype) for n in names}
+    params = {n: init_params(torch.Generator().manual_seed(i), c)
+              for i, (n, c) in enumerate(models.items())}
+    engine = CrossPoolEngine(
+        models, page_budget=512, page_bytes=4096, slab_bytes=4096,
+        max_batch=2, max_ctx=64, params=params, device="cuda",
+        config=EngineConfig(mode=EngineMode(
+            lowering=lowering, pipeline=pipeline,
+            decode_steps_per_dispatch=k)))
+    reqs = [Request(i, names[i % len(names)], 5 + 7 * i, 6, 0.0,
+                    prompt_ids=list(range(3 + i, 8 + 8 * i)))
+            for i in range(4)]
+    for r in reqs:
+        engine.submit(r)
+    for _ in range(steps):
+        engine.step()
+    return engine, reqs
+
+
+def replay_matches_eager(torch, engine) -> None:
+    """For every model with requests in flight: its next decode block as
+    one graph replay, then the decode body called eagerly from the same
+    state (the pool, or the dense cache, put back first): the same tokens
+    and the same pool or cache bytes.  Leaves the engine mid-block: build
+    another to serve on."""
+    import numpy as np
+
+    def dev(a):
+        return torch.tensor(a, device="cuda")
+
+    for name, runner in engine.runners.items():
+        if not runner.active:
+            continue
+        if runner.paged:
+            act, steps = runner._reserve_decode_block()
+            tables = engine.virt.batch_tables_host(
+                name, runner._rids(), runner.max_pages).copy()
+            args = (runner.next_tokens.copy(), tables, runner.lengths.copy(),
+                    steps, runner._eos_ids())
+            state = {"pool": engine.virt.pool}
+            before = {"pool": engine.virt.pool.clone()}
+            toks, _ = runner.fused(args[0], engine.virt.pool, *args[1:])
+        else:
+            active = np.zeros(runner.max_batch, bool)
+            active[runner._active_slots()] = True
+            args = (runner.next_tokens.copy(), runner.lengths.copy(), active)
+            state = runner.cache
+            before = {k: v.clone() for k, v in state.items()}
+            toks = runner.decode_graph(tokens=args[0], lengths=args[1],
+                                       active=args[2])
+        got = toks.clone()
+        got_state = {k: v.clone() for k, v in state.items()}
+        for k, v in state.items():
+            v.copy_(before[k])
+        if runner.paged:
+            arena, table = runner.fused.pooled.arena.acquire(name)
+            want = runner.fused.body(engine.virt.pool, arena, table,
+                                     *[dev(a) for a in args])
+        else:
+            want = runner.decode_body(*[dev(a) for a in args])
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: the graph replay's tokens "
+                                 f"{got.tolist()} differ from the eager "
+                                 f"body's {want.tolist()}")
+        bad = [k for k, v in state.items() if not torch.equal(got_state[k],
+                                                              v)]
+        if bad:
+            raise AssertionError(f"{name}: the graph replay and the eager "
+                                 f"body leave different {bad} bytes")
+
+
+def block_is_sync_free(torch, engine) -> None:
+    """One decode block of every model with requests in flight, from the
+    copy-in to the replay, under ``set_sync_debug_mode("error")``; the
+    read-back comes after.  Leaves the engine mid-block."""
+    pending = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for runner in engine.runners.values():
+            if runner.active:
+                pending.append(runner.issue_decode())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not pending:
+        raise AssertionError("no model had a block to dispatch")
+
+
+def graph_phase(torch):
+    """The decode graphs on the smoke models: a replay equals the eager
+    body (coloc set in float32 and bf16 at K = 1 and 4; zamba2 + mamba2 in
+    both dtypes), a block dispatch makes no host read (coloc bf16 at K = 4
+    and the fallback pair), and a graph survives an evict and re-activate
+    of its model."""
+    from repro_torch.configs import PAPER_COLOC_SET
+    for names, ks in ((PAPER_COLOC_SET, (1, 4)), (FALLBACK_MODELS, (1,))):
+        for dtype in ("float32", "bfloat16"):
+            for k in ks:
+                engine, _ = smoke_engine(torch, names, dtype, k)
+                replay_matches_eager(torch, engine)
+                state = "pool" if names == PAPER_COLOC_SET else "dense cache"
+                log(f"graph check {', '.join(names)} {dtype} K={k}: the "
+                    f"replay equals the eager body (tokens, {state} bytes)")
+                del engine
+        engine, _ = smoke_engine(torch, names, "bfloat16", max(ks))
+        block_is_sync_free(torch, engine)
+        log(f"graph check {', '.join(names)} bf16 K={max(ks)}: a block "
+            f"dispatch makes no host read under "
+            f"set_sync_debug_mode('error')")
+        del engine
+    evict_check(torch)
+
+
+def evict_check(torch) -> list:
+    """A graph survives its model's evict and re-activate: the same request
+    served again after the model came back on other slabs gives the same
+    tokens, and a replay there still equals the eager body."""
+    import numpy as np
+    from repro_torch.configs import PAPER_COLOC_SET
+    from repro_torch.runtime.request import Request
+    name = PAPER_COLOC_SET[0]
+    engine, reqs = smoke_engine(torch, PAPER_COLOC_SET, "float32", 4,
+                                steps=0)
+    engine.drain()
+    first = [r.output_ids for r in reqs]
+    arena = engine.arena
+    old = arena.residency[name].slots.copy()
+    arena.evict(name)
+    again = [Request(10 + r.request_id, r.model, r.prompt_tokens,
+                     r.max_new_tokens, 0.0, prompt_ids=r.prompt_ids)
+             for r in reqs]
+    for r in again:
+        engine.submit(r)
+    engine.drain()
+    new = arena.residency[name].slots
+    if np.array_equal(old, new):
+        raise AssertionError(f"{name} came back on the same slabs")
+    if [r.output_ids for r in again] != first:
+        raise AssertionError(f"{name}: after evict and re-activate the "
+                             f"graph serves other tokens")
+    for r in again[:2]:
+        engine.submit(Request(20 + r.request_id, r.model, r.prompt_tokens,
+                              r.max_new_tokens, 0.0, prompt_ids=r.prompt_ids))
+    engine.step()
+    replay_matches_eager(torch, engine)
+    log(f"graph check {name}: evicted and re-activated on other slabs, the "
+        f"same tokens {first[0]}, and a replay equals the eager body")
+    return first
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import numpy as np
@@ -1362,12 +1690,14 @@ def main() -> int:
     capture_check(torch, kops, cases)
     f_errs, f_rows = fallback_kernel_phase(torch, kops, ref,
                                            ssd_scan_chunked)
+    w_rows = kv_write_phase(torch, kops, ref)
 
     # 4. small models, card against CPU
     small_phase(torch)
     fallback_small_phase(torch)
     smoke_serve_phase(torch)
     train_small_phase(torch)
+    graph_phase(torch)
 
     # 5. serve the colocated split path
     log("serve: published widths, depths cut to "
@@ -1377,6 +1707,19 @@ def main() -> int:
         page_budget=16384, label="serve", check=check_coloc)
     gc.collect()                 # request handles point back at the engine
     torch.cuda.empty_cache()
+
+    # 5h. the same requests under the host-driven lowering, with and
+    # without the layer pipeline scheduler
+    host = {}
+    for pipeline in (True, False):
+        label = f"serve host pipeline={pipeline}"
+        log(f"{label}: lowering=False, K=1")
+        _, host[label] = serve_phase(
+            torch, np, kops, coloc_models(full_width=True), k=1,
+            page_budget=16384, label=label, check=check_coloc,
+            lowering=False, pipeline=pipeline)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # 6. serve the dense-cache fallback path: full published configs
     log(f"serve fallback: {', '.join(FALLBACK_MODELS)} at their full "
@@ -1434,6 +1777,17 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library": row.get("library"), "shape": shape})
+    w_row = next(r for r in w_rows if r["shape"] == "qwen3-moe decode B=4")
+    kernels.append({
+        "name": "paged_kv_write", "route": "cuda",
+        "source": csrc + "kv_write.cu",
+        "replaces": "src/repro/kernels/ops.py:79 (an XLA scatter, no "
+                    "Pallas kernel)",
+        "launches": launches["paged_kv_write"], "max_abs_err": 0.0,
+        "ms": w_row["ms"], "plain_ms": w_row["plain_ms"],
+        "bound_ms": w_row["bound_ms"], "bound_by": w_row["bound_by"],
+        "library_ms": None, "library": None,
+        "shape": "qwen3-moe decode B=4 rows of 2 x 4 x 128 bf16"})
     train_shape = next(r["shape"] for r in m_rows
                        if r["dtype"] == "float32")
     for name in ("moe_gemm", "moe_gemm_wgrad"):       # wgrad: its gradient
@@ -1452,9 +1806,9 @@ def main() -> int:
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernel_times": rows + f_rows + m_rows,
-         "kernels": kernels, "serve": serve, "serve_fallback": f_serve,
-         "train": train}, indent=1))
+        {"card": card, "kernel_times": rows + f_rows + m_rows + w_rows,
+         "kernels": kernels, "serve": serve, "serve_host": host,
+         "serve_fallback": f_serve, "train": train}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

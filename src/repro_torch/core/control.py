@@ -1,29 +1,42 @@
-"""Decode and prefill control over the shared pools.
+"""Control lowering: host-driven vs device-resident decode step execution.
 
-Port of the lowering=ON half of ``src/repro/core/control.py``:
+Port of ``src/repro/core/control.py``.  The paper's §3.3 persistent
+kernels keep the per-layer control loop on the device; the reference
+compiles a decode step into ONE XLA program.  Here the same step body is
+captured ONCE as a CUDA graph and replayed once per dispatch
+(``DecodeGraph``): the host issues one replay per K-token block, the
+layers, the attention->FFN ping-pong and the K inner steps all live in
+the graph.  On the CPU there are no graphs and the same body runs
+eagerly; it is the same code, not a fallback.
 
 * ``StreamingPrefill`` — the prompt phase: per layer, full-sequence
   attention, the async upload of layer L+1's weight slabs behind it, the
   layer's prompt KV written into the shared paged pool, then the FFN
   gathered out of the arena once layer L's slabs have landed.
-* ``MultiStepFusedStep`` — K decode tokens per host call with greedy
-  sampling on the device.  The reference compiles this into one
-  ``lax.scan`` program; here it runs EAGERLY — a Python loop over the K
-  inner steps and over the layers, every op on the device, the pool
-  updated in place.  Capturing it as a CUDA graph is later work.
+* ``PagedFusedStep`` — lowering ON, one token: embed, every layer's paged
+  attention + FFN, the logits and an optional ``postprocess`` in one
+  replay.
+* ``MultiStepFusedStep`` — lowering ON, K tokens per replay with sampling
+  inside the graph.
+* ``HostDrivenStep`` — lowering OFF (Table 3's baseline): every layer
+  issues its attention stage and its FFN stage from the host, 2L+2
+  dispatches a token.  On a card the FFN stages run on a second stream,
+  the weights stream, and hidden states cross by ``pools.transfer``.
 
-Not ported yet: the host-driven lowering (``HostDrivenStep``), the
-single-step ``PagedFusedStep`` (K=1 runs the multi-step class) and the
-prefix-cache ``suffix`` pass.
+Not ported yet: the prefix-cache ``suffix`` pass.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import gc
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
-from repro_torch.core.pools import PooledModel
-from repro_torch.runtime.sampler import sample
+from repro_torch.core.pools import PooledModel, transfer
+from repro_torch.kernels import ops as kops
+from repro_torch.runtime.sampler import (gumbel_noise, sample_with_noise,
+                                         step_generator)
 
 
 def logit_index(true_len: Union[int, Sequence[int]], device=None
@@ -31,18 +44,42 @@ def logit_index(true_len: Union[int, Sequence[int]], device=None
     """Last-prompt-position index for ``prefill_logits``: an int when every
     row shares one unpadded length, a [B] int32 tensor for a coalesced
     batch where each row carries its own."""
-    if isinstance(true_len, int):
-        return true_len - 1
+    if isinstance(true_len, (int, np.integer)):
+        return int(true_len) - 1
     return torch.tensor([int(n) - 1 for n in true_len], dtype=torch.int32,
                         device=device)
 
 
+def run_ffn(pooled: PooledModel, ffn_in: torch.Tensor, layer: int,
+            w_stream=None) -> torch.Tensor:
+    """The weights-pool half of one layer: wait for the layer's slabs,
+    gather them out of the arena and run the FFN.  With ``w_stream`` (the
+    host-driven lowering on a card) it runs on that stream: ``ffn_in``
+    must have crossed to it already (``transfer``, A-to-F) and the output
+    crosses back (F-to-A), so the result is ready for the calling (KV)
+    stream either way."""
+    name, arena = pooled.cfg.name, pooled.arena
+    fns = pooled.stage_fns
+    if w_stream is None:
+        arena.wait_layer(name, layer)
+        return fns.ffn_stage(arena.arena, arena.slot_table(name), ffn_in,
+                             layer)
+    kv_stream = torch.cuda.current_stream(ffn_in.device)
+    with torch.cuda.stream(w_stream):
+        arena.wait_layer(name, layer, w_stream)
+        out = fns.ffn_stage(arena.arena, arena.slot_table(name), ffn_in,
+                            layer)
+        return transfer(out, kv_stream)
+
+
 class StreamingPrefill:
     """Arena-bounded prompt-phase execution with streamed weight uploads
-    (DESIGN.md §6)."""
+    (DESIGN.md §6).  ``w_stream``: where the FFN stages run (host mode on
+    a card), as ``run_ffn``."""
 
-    def __init__(self, pooled: PooledModel):
+    def __init__(self, pooled: PooledModel, w_stream=None):
         self.pooled = pooled
+        self.w_stream = w_stream
 
     def __call__(self, tokens: torch.Tensor, true_len, pool: torch.Tensor,
                  writer=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -63,16 +100,228 @@ class StreamingPrefill:
             arena.prefetch_layer(name, layer + 1)
             if writer is not None:
                 pool = writer(layer, layer_kv, pool)
-            arena.wait_layer(name, layer)
-            ffn_out = fns.ffn_stage(arena.arena, arena.slot_table(name),
-                                    ffn_in, layer)
-            x = fns.combine(x, ffn_out)
+            x = fns.combine(x, run_ffn(
+                self.pooled, transfer(ffn_in, self.w_stream), layer,
+                self.w_stream))
         return fns.prefill_logits(p_kv, x,
                                   logit_index(true_len, tokens.device)), pool
 
 
-class MultiStepFusedStep:
-    """Multi-step decode: K tokens per host call, sampled on the device.
+# ---------------------------------------------------------------------------
+# lowering ON: one CUDA graph replay per dispatch
+# ---------------------------------------------------------------------------
+
+class DecodeGraph:
+    """One CUDA graph of a decode body, replayed once per dispatch.
+
+    ``body(**static)`` returns one tensor.  Construction runs it once
+    eagerly on a side stream (kernels are built at their first call and
+    cached attributes set, which a capture must not do), puts the tensors
+    of ``restore`` back as they were, then captures it into ``pool`` (a
+    ``torch.cuda.graph_pool_handle()`` an engine shares among its decode
+    graphs; they replay on one stream) with its result copied into
+    ``output``, a tensor of its own outside that pool.  A call copies its
+    inputs into the static buffers (host arrays through pinned staging, so
+    nothing is read back) and replays: ``output`` then holds the result
+    until the next call.
+
+    The kernel wrappers count launches on the host, so a capture adds to
+    ``kops.KERNELS``' counters once and a replay never: the capture's
+    increase is taken back and added on every replay
+    (``launches_per_replay``).
+    """
+
+    def __init__(self, body: Callable[..., torch.Tensor],
+                 static: Dict[str, torch.Tensor], *,
+                 restore: Sequence[torch.Tensor] = (), pool=None):
+        device = next(iter(static.values())).device
+        self.static = static
+        self.staging = {k: torch.empty(v.shape, dtype=v.dtype,
+                                       pin_memory=True)
+                        for k, v in static.items()}
+        self._staged: Optional[torch.cuda.Event] = None
+        self.replays = 0
+        saved = [t.clone() for t in restore]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            warm = body(**static)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.output = torch.empty_like(warm)
+        for t, s in zip(restore, saved):
+            t.copy_(s)
+        del warm, saved
+        before = [f.launches for f in kops.KERNELS]
+        self.graph = torch.cuda.CUDAGraph()
+        # a dead object collected mid-capture (an earlier engine's graphs,
+        # events or pinned buffers) would make CUDA calls that invalidate
+        # the capture: collect first, and not again until it has ended
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                self.output.copy_(body(**static))
+        finally:
+            if collecting:
+                gc.enable()
+        self._deltas = [(f, f.launches - n)
+                        for f, n in zip(kops.KERNELS, before)
+                        if f.launches != n]
+        for f, n in zip(kops.KERNELS, before):
+            f.launches = n                # the capture launched nothing
+
+    @property
+    def launches_per_replay(self) -> Dict[str, int]:
+        """Kernel launches one replay makes, by wrapper name."""
+        return {f.__name__: n for f, n in self._deltas}
+
+    def load(self, name: str, value) -> None:
+        """Copy one input into its static buffer: a host array or CPU
+        tensor through its pinned staging buffer (no host read), a device
+        tensor directly; stream-ordered either way."""
+        dst = self.static[name]
+        src = torch.from_numpy(value) if isinstance(value, np.ndarray) \
+            else value
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: got {tuple(src.shape)}, the graph "
+                             f"was captured for {tuple(dst.shape)}")
+        if src.device.type == "cpu":
+            stage = self.staging[name]
+            stage.copy_(src)
+            dst.copy_(stage, non_blocking=True)
+        else:
+            dst.copy_(src)
+
+    def __call__(self, **inputs) -> torch.Tensor:
+        if self._staged is not None:
+            # the staging buffers are free again once the last copy-in ran
+            # (long ago in a serving loop, which reads every block back)
+            self._staged.synchronize()
+        for name, value in inputs.items():
+            self.load(name, value)
+        self._staged = torch.cuda.Event()
+        self._staged.record()
+        self.graph.replay()
+        for f, n in self._deltas:
+            f.launches += n
+        self.replays += 1
+        return self.output
+
+
+def _device_input(value, device) -> torch.Tensor:
+    """An eager body's input on ``device`` (a host array is copied)."""
+    if isinstance(value, np.ndarray):
+        return torch.tensor(value, device=device)
+    return value.to(device)
+
+
+class _FusedStep:
+    """What the fused steps share: ``body(pool, arena, slot_table,
+    **inputs)`` runs eagerly on the CPU and as one replay of its CUDA
+    graph on a card.  The graph is captured for one batch size and one
+    page-table width (``capture``; at the first call otherwise) over the
+    pool and arena it was given; a call with a pool or arena that moved
+    since raises (a stale address would be a wrong answer, not a
+    crash)."""
+
+    def __init__(self, pooled: PooledModel,
+                 nonfinite_logits: Optional[torch.Tensor] = None,
+                 graph_pool=None):
+        self.pooled = pooled
+        self.nonfinite_logits = nonfinite_logits
+        self.graph_pool = graph_pool
+        self.graph: Optional[DecodeGraph] = None
+        self._ptrs: Optional[Tuple[int, int]] = None
+
+    def _count_nonfinite(self, logits: torch.Tensor) -> None:
+        if self.nonfinite_logits is not None:
+            self.nonfinite_logits += (~torch.isfinite(logits)).sum()
+
+    def inactive_inputs(self, batch: int, max_pages: int, device
+                        ) -> Dict[str, torch.Tensor]:
+        """Static inputs of a block whose rows are all empty: no page is
+        mapped (every table entry -1), so the capture's warm-up run writes
+        nothing into the pool."""
+        n_tables = self.pooled.view.n_kv_layers
+        i32 = dict(dtype=torch.int32, device=device)
+        return dict(tokens=torch.zeros(batch, **i32),
+                    page_tables=torch.full((n_tables, batch, max_pages), -1,
+                                           **i32),
+                    lengths=torch.zeros(batch, **i32))
+
+    def capture(self, batch: int, max_pages: int, pool: torch.Tensor
+                ) -> None:
+        """Capture the body for ``batch`` rows and ``max_pages`` table
+        columns over ``pool`` and the model's static slot table."""
+        name, arena = self.pooled.cfg.name, self.pooled.arena
+        abuf, table = arena.arena, arena.static_table(name)
+        restore = [] if self.nonfinite_logits is None \
+            else [self.nonfinite_logits]
+        self.graph = DecodeGraph(
+            lambda **kw: self.body(pool, abuf, table, **kw),
+            self.inactive_inputs(batch, max_pages, pool.device),
+            restore=restore, pool=self.graph_pool)
+        self._ptrs = (pool.data_ptr(), abuf.data_ptr())
+
+    def _dispatch(self, pool: torch.Tensor, inputs: Dict) -> torch.Tensor:
+        # residency, uploads and their ordering stay outside any graph
+        abuf, table = self.pooled.arena.acquire(self.pooled.cfg.name)
+        if pool.device.type != "cuda":
+            return self.body(pool, abuf, table, **{
+                k: _device_input(v, pool.device) for k, v in inputs.items()})
+        if self.graph is None:
+            _, batch, max_pages = inputs["page_tables"].shape
+            self.capture(batch, max_pages, pool)
+        if (pool.data_ptr(), abuf.data_ptr()) != self._ptrs:
+            raise RuntimeError(
+                f"{self.pooled.cfg.name}: the KV pool or the weights arena "
+                f"moved since the decode graph was captured")
+        return self.graph(**inputs)
+
+
+class PagedFusedStep(_FusedStep):
+    """Device-resident control (lowering ON) over the shared paged pool,
+    one token: embed, every layer's paged attention + FFN and the logits
+    (then ``postprocess``, e.g. greedy sampling) in ONE replay (reference
+    ``control.py:289``)."""
+
+    def __init__(self, pooled: PooledModel,
+                 postprocess: Optional[Callable] = None, *,
+                 nonfinite_logits: Optional[torch.Tensor] = None,
+                 graph_pool=None):
+        super().__init__(pooled, nonfinite_logits, graph_pool)
+        self.postprocess = postprocess
+
+    def body(self, pool, arena, slot_table, tokens, page_tables, lengths
+             ) -> torch.Tensor:
+        """The eager step: the pool is written in place; returns the
+        logits [B,V] (or what ``postprocess`` makes of them)."""
+        fns, p_kv = self.pooled.stage_fns, self.pooled.kv_params
+        x = fns.embed(p_kv, tokens)
+        for layer in range(fns.n_layers):
+            x, ffn_in, pool = fns.attn_stage(p_kv, x, pool, page_tables,
+                                             lengths, layer)
+            x = fns.combine(x, fns.ffn_stage(arena, slot_table, ffn_in,
+                                             layer))
+        logits = fns.logits(p_kv, x)
+        self._count_nonfinite(logits)
+        return self.postprocess(logits) if self.postprocess else logits
+
+    def __call__(self, tokens, pool: torch.Tensor, page_tables, lengths
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens [B]; pool; page_tables [L,B,P]; lengths [B] (host arrays
+        or tensors).  Returns (logits [B,V] or ``postprocess(logits)``,
+        pool).  On a card the first is the graph's output buffer, valid
+        until the next call."""
+        return self._dispatch(pool, dict(tokens=tokens,
+                                         page_tables=page_tables,
+                                         lengths=lengths)), pool
+
+
+class MultiStepFusedStep(_FusedStep):
+    """Multi-step decode: K tokens per host dispatch, sampled on the
+    device, one replay a block (reference ``control.py:344``).
 
     Per-row freezing is the reference's (``control.py:393-416``, DESIGN.md
     §9): ``done0 = steps_left <= 0`` freezes inactive batch rows from step
@@ -83,35 +332,49 @@ class MultiStepFusedStep:
     ``commit_decode_block`` returns.  Valid tokens are a strict prefix of
     each ``[K]`` row.
 
-    ``nonfinite_logits`` (the caller's device int64 scalar) counts logits
-    that were NaN or infinite; it is added to on the device, so counting
-    never syncs the step.
+    ``temperature > 0`` (with optional ``top_k``) draws Gumbel noise for
+    the K inner steps from ``(seed, step)`` before the replay, into the
+    graph's static buffer, and takes the argmax inside the graph; greedy
+    draws nothing.  ``nonfinite_logits`` (the caller's device int64
+    scalar) counts logits that were NaN or infinite, on the device.
     """
 
     def __init__(self, pooled: PooledModel, k: int,
-                 nonfinite_logits: torch.Tensor):
+                 nonfinite_logits: Optional[torch.Tensor] = None, *,
+                 temperature: float = 0.0, top_k: int = 0,
+                 graph_pool=None):
         if k < 1:
             raise ValueError(f"decode steps per dispatch must be >= 1, "
                              f"got {k}")
-        self.pooled = pooled
+        super().__init__(pooled, nonfinite_logits, graph_pool)
         self.k = int(k)
-        self.nonfinite_logits = nonfinite_logits
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.vocab = pooled.kv_params["embed"]["tok"].shape[0]
 
-    def __call__(self, tokens: torch.Tensor, pool: torch.Tensor,
-                 page_tables: torch.Tensor, lengths: torch.Tensor,
-                 steps_left: torch.Tensor,
-                 eos_ids: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens [B]; pool; page_tables [L,B,P] PRE-EXTENDED to cover K
-        tokens; lengths [B]; steps_left [B] int32 per-row budget (0
-        freezes the row); eos_ids [B] int32, -1 disables EOS.  Returns
-        (token ids [K,B] int32, -1 past each row's valid prefix, pool)."""
-        name = self.pooled.cfg.name
-        fns = self.pooled.stage_fns
-        p_kv = self.pooled.kv_params
-        arena, slot_table = self.pooled.arena.acquire(name)
-        if eos_ids is None:
-            eos_ids = torch.full_like(tokens, -1)
+    def inactive_inputs(self, batch, max_pages, device):
+        static = super().inactive_inputs(batch, max_pages, device)
+        static["steps_left"] = torch.zeros(batch, dtype=torch.int32,
+                                           device=device)
+        static["eos_ids"] = torch.full((batch,), -1, dtype=torch.int32,
+                                       device=device)
+        if self.temperature > 0.0:
+            static["noise"] = torch.zeros((self.k, batch, self.vocab),
+                                          dtype=torch.float32, device=device)
+        return static
+
+    def draw_noise(self, seed: int, batch: int, device) -> torch.Tensor:
+        """[K,B,V] Gumbel noise, inner step t from ``(seed, t)``."""
+        return torch.stack([
+            gumbel_noise((batch, self.vocab),
+                         step_generator(seed, t, device), device=device)
+            for t in range(self.k)])
+
+    def body(self, pool, arena, slot_table, tokens, page_tables, lengths,
+             steps_left, eos_ids, noise=None) -> torch.Tensor:
+        """The eager block: the pool is written in place; returns token ids
+        [K,B] int32, -1 past each row's valid prefix."""
+        fns, p_kv = self.pooled.stage_fns, self.pooled.kv_params
         minus_one = torch.full_like(tokens, -1)
         toks, lens = tokens, lengths
         done = steps_left <= 0
@@ -124,11 +387,89 @@ class MultiStepFusedStep:
                 x = fns.combine(x, fns.ffn_stage(arena, slot_table, ffn_in,
                                                  layer))
             logits = fns.logits(p_kv, x)
-            self.nonfinite_logits += (~torch.isfinite(logits)).sum()
-            sampled = sample(logits)
+            self._count_nonfinite(logits)
+            sampled = sample_with_noise(
+                logits, None if noise is None else noise[t],
+                temperature=self.temperature, top_k=self.top_k)
             out.append(torch.where(done, minus_one, sampled))
             hit_eos = (~done) & (eos_ids >= 0) & (sampled == eos_ids)
             toks = torch.where(done, toks, sampled)
             lens = torch.where(done, lens, lens + 1)
             done = done | hit_eos | (steps_left <= t + 1)
-        return torch.stack(out), pool
+        return torch.stack(out)
+
+    def __call__(self, tokens, pool: torch.Tensor, page_tables, lengths,
+                 steps_left, eos_ids=None, seed: int = 0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens [B]; pool; page_tables [L,B,P] PRE-EXTENDED to cover K
+        tokens; lengths [B]; steps_left [B] int32 per-row budget (0
+        freezes the row); eos_ids [B] int32, -1 disables EOS (host arrays
+        or tensors); ``seed`` keys the draws of a temperature dispatch.
+        Returns (token ids [K,B] int32, -1 past each row's valid prefix,
+        pool).  On a card the first is the graph's output buffer, valid
+        until the next call."""
+        batch = len(tokens)
+        if eos_ids is None:
+            eos_ids = torch.full((batch,), -1, dtype=torch.int32)
+        inputs = dict(tokens=tokens, page_tables=page_tables,
+                      lengths=lengths, steps_left=steps_left,
+                      eos_ids=eos_ids)
+        if self.temperature > 0.0:
+            inputs["noise"] = self.draw_noise(seed, batch, pool.device)
+        return self._dispatch(pool, inputs), pool
+
+
+# ---------------------------------------------------------------------------
+# lowering OFF: per-layer host dispatch across the two pools
+# ---------------------------------------------------------------------------
+
+class HostDrivenStep:
+    """Per-layer host dispatch across the two pools (lowering OFF,
+    reference ``control.py:51``): the attention stages run on the calling
+    (KV) stream, the FFN stages on ``w_stream`` when one is given (a
+    card), with ``transfer`` at each crossing."""
+
+    def __init__(self, pooled: PooledModel, w_stream=None):
+        self.pooled = pooled
+        self.w_stream = w_stream
+        self.result: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def __call__(self, tokens: torch.Tensor, pool: torch.Tensor,
+                 page_tables: torch.Tensor, lengths: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens [B]; pool [n_pages, page_elems]; page_tables [L,B,P];
+        lengths [B].  Returns (logits [B,V], the pool, updated in
+        place)."""
+        for _ in self.stage_generator(tokens, pool, page_tables, lengths):
+            pass
+        return self.result
+
+    def stage_generator(self, tokens, pool, page_tables, lengths):
+        """Yield one pipeline stage at a time: ("attn"|"ffn", layer) after
+        issuing that stage, then ("logits", -1); ``self.result`` then
+        holds (logits, pool)."""
+        fns, p_kv = self.pooled.stage_fns, self.pooled.kv_params
+        self.pooled.arena.acquire(self.pooled.cfg.name)
+        x = fns.embed(p_kv, tokens)
+        for layer in range(fns.n_layers):
+            x, ffn_in, pool = fns.attn_stage(p_kv, x, pool, page_tables,
+                                             lengths, layer)
+            yield ("attn", layer)
+            ffn_out = run_ffn(self.pooled, transfer(ffn_in, self.w_stream),
+                              layer, self.w_stream)
+            yield ("ffn", layer)
+            x = fns.combine(x, ffn_out)
+        yield ("logits", -1)
+        self.result = (fns.logits(p_kv, x), pool)
+
+
+def dispatch_count(n_layers: int, fused: bool,
+                   decode_steps: int = 1) -> int:
+    """Host dispatches to commit ``decode_steps`` decode tokens (the
+    ablation's control metric).  Fused lowering commits the whole K-token
+    block in ONE dispatch (one graph replay); host-driven mode pays the
+    full per-layer dispatch train per token."""
+    if fused:
+        return 1
+    # embed + (attn + ffn + combine + 2 transfers) per layer + logits
+    return (2 + n_layers * 5) * decode_steps

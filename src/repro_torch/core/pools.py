@@ -5,7 +5,11 @@ colocated model's non-FFN params and the shared physical KV page pool
 (the virtualizer); ``WeightsPool`` owns the ONE slab arena holding every
 model's FFN/MoE weights, with the host master copies packed beside it.
 In the port both pools live on one device; hidden states are the only
-tensors that cross between the two halves of a layer.
+tensors that cross between the two halves of a layer.  Under the
+host-driven lowering on a card the halves run on two streams (attention
+on the KV stream, FFN on the weights stream) and ``transfer`` is the
+boundary between them, the counterpart of the reference's
+``jax.device_put`` (``src/repro/core/pools.py:124``).
 
 The fused fallback families (ssm, hybrid) never enter the arena: they get
 ``stage_fns=None``, their pool pages account for budget only, and their
@@ -81,6 +85,21 @@ class KVCachePool:
 
     def add_model(self, name: str, kv_params: Dict) -> None:
         self.attn_params[name] = _to_device(kv_params, self.device)
+
+
+def transfer(x: torch.Tensor, stream) -> torch.Tensor:
+    """The pool boundary: hand ``x``, produced on the current stream, to
+    ``stream``.  The producer records an event, ``stream`` waits on it,
+    and ``x.record_stream(stream)`` keeps the caching allocator from
+    giving ``x``'s block to another tensor before ``stream``'s reads are
+    done.  ``stream=None`` (one stream, or the CPU) hands ``x`` back."""
+    if stream is None:
+        return x
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(x.device))
+    stream.wait_event(event)
+    x.record_stream(stream)
+    return x
 
 
 def build_pools(models: Dict[str, ModelConfig], params: Dict[str, Dict], *,

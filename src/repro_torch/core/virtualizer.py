@@ -338,15 +338,14 @@ class KVVirtualizer:
     # ------------------------------------------------------------------
     # fast path: device views
     # ------------------------------------------------------------------
-    def batch_tables(self, model: str,
+    def _batch_entry(self, model: str,
                      request_ids: Sequence[Optional[int]],
-                     max_pages: int) -> torch.Tensor:
-        """[n_layers, B, max_pages] int32 table for a batch of slots.
-
-        ``None`` entries (empty batch slots) map to all ``-1`` rows.  The
-        device tensor is cached per (model, slot assignment, max_pages) and
-        rebuilt only when a row's page mapping actually changed.
-        """
+                     max_pages: int) -> dict:
+        """The cached [n_layers, B, max_pages] int32 host table of a batch
+        of slots (``None`` slots map to all ``-1`` rows), cached per
+        (model, slot assignment, max_pages): only the rows whose page
+        mapping changed are rewritten, in place, and then the device copy
+        is dropped."""
         view = self.views[model]
         key = (model,
                tuple(-1 if r is None else r for r in request_ids),
@@ -357,7 +356,7 @@ class KVVirtualizer:
             for rid in request_ids)
         entry = self._batch_cache.get(key)
         if entry is not None and entry["revs"] == revs:
-            return entry["dev"]
+            return entry
         if entry is None:
             buf = np.full((view.n_kv_layers, len(request_ids), max_pages),
                           -1, np.int32)
@@ -372,15 +371,33 @@ class KVVirtualizer:
                 for layer, tab in enumerate(self.requests[rid].tables):
                     m = min(len(tab), max_pages)
                     buf[layer, i, :m] = tab[:m]
-        # torch.tensor COPIES: torch.from_numpy aliases, and on the CPU
-        # ``.to(device)`` would hand back that alias — but ``buf`` is
-        # mutated in place on later mapping changes, which would corrupt
-        # tables already handed to earlier steps
-        dev = torch.tensor(buf, device=self.device)
         if len(self._batch_cache) > 64:     # bound stale slot assignments
             self._batch_cache.clear()
-        self._batch_cache[key] = {"buf": buf, "revs": revs, "dev": dev}
-        return dev
+        entry = {"buf": buf, "revs": revs, "dev": None}
+        self._batch_cache[key] = entry
+        return entry
+
+    def batch_tables_host(self, model: str,
+                          request_ids: Sequence[Optional[int]],
+                          max_pages: int) -> np.ndarray:
+        """[n_layers, B, max_pages] int32 host table for a batch of slots
+        (what a decode graph copies in).  Rewritten in place on later
+        mapping changes: copy it before keeping it past the next call."""
+        return self._batch_entry(model, request_ids, max_pages)["buf"]
+
+    def batch_tables(self, model: str,
+                     request_ids: Sequence[Optional[int]],
+                     max_pages: int) -> torch.Tensor:
+        """The device copy of ``batch_tables_host``, made again only when a
+        row's page mapping changed."""
+        entry = self._batch_entry(model, request_ids, max_pages)
+        if entry["dev"] is None:
+            # torch.tensor COPIES: torch.from_numpy aliases, and on the
+            # CPU ``.to(device)`` would hand back that alias — but the host
+            # table is mutated in place on later mapping changes, which
+            # would corrupt tables already handed to earlier steps
+            entry["dev"] = torch.tensor(entry["buf"], device=self.device)
+        return entry["dev"]
 
     def _token_coords(self, req: RequestPages, view: ModelView,
                       tokens: np.ndarray, layer: int

@@ -16,9 +16,13 @@ uint8 arena ``[slot_budget, slab_bytes]``:
     host bytes;
   * uploads copy host slabs into the arena IN PLACE (the reference
     donates and rebinds).  On a card they run on a side stream: each
-    layer's copy records an event and that layer's FFN waits on it, so
-    the FFN reads the arena only after its slabs have landed (DESIGN.md
-    §6) while the copy overlaps the attention issued before it.
+    layer's copy records an event and that layer's FFN waits on it (on
+    whichever stream runs the FFN), so the FFN reads the arena only after
+    its slabs have landed (DESIGN.md §6) while the copy overlaps the
+    attention issued before it;
+  * each model's device slot table is ONE tensor of fixed shape,
+    refreshed in place when an activation maps new slabs, so a captured
+    decode step keeps a valid address across evict and re-activate.
 
 Not ported yet: ``resize`` (the elastic boundary) raises.
 """
@@ -231,7 +235,10 @@ class WeightArena:
         self.pins: Dict[str, int] = {}
         self._clock = 0
         self._rev_counter = 0
-        self._table_cache: Dict[str, dict] = {}
+        # per model: the static device slot table and the activation rev
+        # its contents were copied from
+        self._tables: Dict[str, torch.Tensor] = {}
+        self._table_rev: Dict[str, int] = {}
         # uploads run on a side stream on a card; (model, layer) -> the
         # event its FFN waits on before reading the arena
         self._copy_stream = (torch.cuda.Stream(self.device)
@@ -379,7 +386,7 @@ class WeightArena:
             raise ValueError(f"cannot evict pinned model {name!r}")
         res = self.residency.pop(name)
         self.free_list.extend(int(s) for s in res.slots.ravel())
-        self._table_cache.pop(name, None)
+        self._table_rev.pop(name, None)
         for layer in range(len(res.uploaded)):
             self._pending.pop((name, layer), None)
         self.evictions += 1
@@ -413,12 +420,14 @@ class WeightArena:
             res.uploaded[layer] = True
             self.layer_uploads += 1
 
-    def wait_layer(self, name: str, layer: int) -> None:
-        """Order the current stream after ``layer``'s upload (if one is in
-        flight): the FFN reads the arena only once its slabs landed."""
+    def wait_layer(self, name: str, layer: int, stream=None) -> None:
+        """Order ``stream`` (default: the current stream), the one that
+        will read the slabs, after ``layer``'s upload if one is in flight:
+        the FFN reads the arena only once its slabs landed."""
         event = self._pending.pop((name, layer), None)
         if event is not None:
-            torch.cuda.current_stream(self.device).wait_event(event)
+            (stream or torch.cuda.current_stream(self.device)) \
+                .wait_event(event)
 
     def prefetch_layer(self, name: str, layer: int) -> None:
         """Issue the (async) upload of one layer's slabs; no-op if already
@@ -450,15 +459,29 @@ class WeightArena:
     # ------------------------------------------------------------------
     # fast path: device slot tables
     # ------------------------------------------------------------------
+    def static_table(self, name: str) -> torch.Tensor:
+        """The model's one device slot table [n_layers, slabs_per_layer]
+        int32: the same tensor for the arena's lifetime, whatever the
+        residency (its contents are valid once ``slot_table`` has run
+        after the model's latest activation)."""
+        table = self._tables.get(name)
+        if table is None:
+            view = self.views[name]
+            table = torch.zeros((view.n_layers, view.slabs_per_layer),
+                                dtype=torch.int32, device=self.device)
+            self._tables[name] = table
+        return table
+
     def slot_table(self, name: str) -> torch.Tensor:
-        """[n_layers, slabs_per_layer] int32 device table, cached per
-        activation rev."""
+        """The model's static device slot table, refreshed in place (a
+        stream-ordered copy) when its activation rev changed."""
         res = self.residency.get(name)
         if res is None:
             raise KeyError(f"model {name!r} is not resident in the arena")
-        entry = self._table_cache.get(name)
-        if entry is not None and entry["rev"] == res.rev:
-            return entry["dev"]
-        dev = torch.tensor(res.slots, device=self.device)
-        self._table_cache[name] = {"rev": res.rev, "dev": dev}
-        return dev
+        table = self.static_table(name)
+        if self._table_rev.get(name) != res.rev:
+            # ``res.slots`` is never written after the activation that made
+            # it, so the copy may read it asynchronously
+            table.copy_(torch.from_numpy(res.slots), non_blocking=True)
+            self._table_rev[name] = res.rev
+        return table

@@ -17,19 +17,23 @@ hand-written kernel or raises (there is no fallback between the two).
   token-sorted grouped expert GEMM of the grouped MoE path and its input
   and weight gradients (``csrc/moe_gemm.cu``); ``moe_gemm`` is
   differentiable, its backward runs the other two;
-* ``paged_kv_write`` — the pool write, one indexed store (no kernel of
-  its own on either side).
+* ``paged_kv_write`` — the pool write, the row scatter of
+  ``csrc/kv_write.cu`` (not a TPU kernel: the reference's is an XLA
+  scatter); it drops rows whose page id is below 0 on the card itself,
+  so it makes no host read.
 
-Each kernel entry point counts its launches in ``<name>.launches``.  The
+Each kernel entry point counts its launches in ``<name>.launches``;
+``KERNELS`` lists them (a CUDA graph adds a capture's counts back on
+every replay: ``core/control.py`` ``DecodeGraph``).  The
 attention and SSD kernels have no backward and raise when reached under
 grad mode with an input that requires grad.
 """
 from __future__ import annotations
 
-import torch
-
 from repro_torch.kernels.flash_attention import (  # noqa: F401  (re-export)
     flash_attention)
+from repro_torch.kernels.kv_write import (  # noqa: F401  (re-export)
+    paged_kv_write)
 from repro_torch.kernels.paged_attention import (  # noqa: F401  (re-export)
     contiguous_decode_attention as decode_attention, paged_decode_attention,
     paged_mla_decode_attention)
@@ -37,28 +41,7 @@ from repro_torch.kernels.moe_gemm import (  # noqa: F401  (re-export)
     moe_gemm, moe_gemm_dgrad, moe_gemm_wgrad)
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: F401  (re-export)
 
-
-def paged_kv_write(pool: torch.Tensor, kv_flat: torch.Tensor,
-                   pages: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
-    """Store per-token KV rows into the flat page pool, IN PLACE.
-
-    pool:    [n_pages, page_elems]  the shared physical pool
-    kv_flat: [n, per_token_elems]   one row per token (one layer's K+V,
-                                    or MLA latent+rope)
-    pages:   [n] int physical page ids (< 0 = drop the row)
-    slots:   [n] int token slot within the page
-
-    Rows whose page id is negative (unmapped / inactive batch slots) are
-    dropped, as the reference's ``mode="drop"`` scatter drops them
-    (``src/repro/kernels/ops.py:79-104``).  Where the reference donates the
-    pool and rebinds the returned buffer, this writes into ``pool`` with
-    ``index_put_`` and returns the same tensor.  Selecting the kept rows
-    reads the mask back to the host (one synchronisation on a card).
-    """
-    e = kv_flat.shape[-1]
-    keep = pages >= 0
-    rows = pages[keep].long()
-    cols = (slots[keep].long() * e)[:, None] \
-        + torch.arange(e, device=pool.device)[None, :]
-    pool.index_put_((rows[:, None], cols), kv_flat[keep].to(pool.dtype))
-    return pool
+#: every kernel entry point with a launch counter
+KERNELS = (paged_decode_attention, paged_mla_decode_attention,
+           decode_attention, flash_attention, ssd_scan, moe_gemm,
+           moe_gemm_wgrad, paged_kv_write)

@@ -11,7 +11,8 @@ output through ``0 * garbage``.  On finite inputs that is exactly the
 oracle's arithmetic.  ``moe_gemm`` and ``moe_gemm_wgrad`` are the
 grouped expert GEMM's forward and weight gradient.  ``ssd_scan`` is the
 per-token recurrence the chunked SSD scan (``ssd_chunked``, the SSD
-kernel's plain version) is tested against.
+kernel's plain version) is tested against.  ``paged_kv_write`` is the
+pool write's indexed store.
 """
 from __future__ import annotations
 
@@ -130,6 +131,22 @@ def paged_mla_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     values = torch.where(valid[:, :, None], rows[..., :latent_dim],
                          torch.zeros((), dtype=rows.dtype, device=rows.device))
     return torch.einsum("bhst,btr->bshr", w, values)
+
+
+def paged_kv_write(pool: torch.Tensor, kv_flat: torch.Tensor,
+                   pages: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """Store token rows ``kv_flat`` [n, e] at ``(pages, slots)`` of the
+    flat pool [n_pages, page_elems], IN PLACE, dropping rows whose page id
+    is below 0.  Selecting the kept rows reads the mask back to the host
+    (one synchronisation on a card): the kernel's yardstick, not a path
+    the card runs."""
+    e = kv_flat.shape[-1]
+    keep = pages >= 0
+    rows = pages[keep].long()
+    cols = (slots[keep].long() * e)[:, None] \
+        + torch.arange(e, device=pool.device)[None, :]
+    pool.index_put_((rows[:, None], cols), kv_flat[keep].to(pool.dtype))
+    return pool
 
 
 def _segments(group_sizes: torch.Tensor):

@@ -3,14 +3,17 @@
   python -m repro_torch.launch.serve --device cuda --rps 0.5 --horizon 10
   python -m repro_torch.launch.serve --device cuda --full-width --max-new 32
   python -m repro_torch.launch.serve --device cpu        # small, on the CPU
+  python -m repro_torch.launch.serve --device cpu --no-lowering
 
 Port of the engine path of ``src/repro/launch/serve.py``: colocates
 ``PAPER_COLOC_SET`` (at smoke scale by default, or with ``--full-width``
 at the configs' published widths with the depths of
 ``FULL_WIDTH_DEPTHS``), serves a synthetic ShareGPT-like trace and
 reports decode TBT percentiles and pool statistics.  Runs on the card
-unless ``--device cpu`` is given; the reference's other flags (dry-run,
-host-driven lowering, prefix cache, elastic, observability, SLO, flight
+unless ``--device cpu`` is given.  ``--no-lowering`` serves through the
+host-driven step (per-layer dispatches, K=1) and, with the default
+``--pipeline``, the layer pipeline scheduler.  The reference's other
+flags (dry-run, prefix cache, elastic, observability, SLO, flight
 recorder) belong to parts not ported yet and raise.
 """
 from __future__ import annotations
@@ -76,8 +79,6 @@ def main(argv: Optional[list] = None) -> None:
 
     given = [f"--{k.replace('_', '-')}" for k in _NOT_PORTED
              if getattr(args, k)]
-    if not args.lowering:
-        given.append("--no-lowering")
     if given:
         raise NotImplementedError(f"{', '.join(given)}: not ported yet")
 
@@ -91,7 +92,7 @@ def main(argv: Optional[list] = None) -> None:
         models, page_budget=args.page_budget, max_batch=4, max_ctx=max_ctx,
         device=args.device,
         config=EngineConfig(mode=EngineMode(
-            pipeline=args.pipeline, lowering=True,
+            pipeline=args.pipeline, lowering=args.lowering,
             decode_steps_per_dispatch=args.decode_steps)))
     reqs = trace_mod.make_requests(
         list(models), rps_per_model=args.rps, horizon_s=args.horizon,
@@ -103,6 +104,7 @@ def main(argv: Optional[list] = None) -> None:
             r.prompt_tokens = min(r.prompt_tokens, max_ctx - r.max_new_tokens)
     print(f"serving {len(reqs)} requests across {len(models)} cold models "
           f"on {engine.device} (pipeline={args.pipeline}, "
+          f"lowering={args.lowering}, "
           f"decode_steps={args.decode_steps}, "
           f"full_width={args.full_width})")
     stats = engine.run(reqs)

@@ -62,8 +62,9 @@ def rope_sin_cos(positions: torch.Tensor, dim: int, theta: float
     """sin/cos tables for integer positions.  Returns [..., dim//2]."""
     exponent = torch.arange(0, dim, 2, dtype=torch.float32,
                             device=positions.device) / dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                            device=positions.device),
+    # theta stays a host scalar: a device copy of it would be a host
+    # upload inside every decode step (and no CUDA graph can hold one)
+    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32),
                                exponent)
     angles = positions.float()[..., None] * inv_freq
     return torch.sin(angles), torch.cos(angles)

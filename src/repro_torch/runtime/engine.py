@@ -1,7 +1,6 @@
 """CrossPool serving engine: an online, continuously-batched session API.
 
-Port of ``src/repro/runtime/engine.py`` under its default lowering
-(control lowering ON, any K decode tokens per dispatch):
+Port of ``src/repro/runtime/engine.py`` in both lowering modes:
 
   submit(request) -> AdmissionController verdict on the returned handle
   step(now)
@@ -9,9 +8,16 @@ Port of ``src/repro/runtime/engine.py`` under its default lowering
         -> PrefillBatcher: coalesce admitted same-model arrivals into ONE
            [B, S] StreamingPrefill pass per (model, prompt-bucket) group;
            prompt KV lands in the SHARED paged pool
-        -> decode: one ``MultiStepFusedStep`` call per active model, K
-           tokens each, greedy sampling on the device (with pipeline=True
-           every model's block is issued before any is read back)
+        -> decode:
+             lowering=True:  one ``MultiStepFusedStep`` call per active
+               model, K tokens each, greedy sampling on the device — on a
+               card ONE CUDA-graph replay per block (with pipeline=True
+               every model's replay is issued before any is read back);
+             lowering=False: ``HostDrivenStep``, K=1, per-layer stages
+               from the host (FFN stages on a second stream on a card);
+               with pipeline=True the ``LayerPipelineScheduler``
+               interleaves two models' stages, prefill groups of distinct
+               models included
         -> completions: release slot + pages + weight pin
   cancel(handle) -> frees KV pages and drops the weight pin at once
   drain() -> step until quiescent
@@ -24,15 +30,19 @@ not take (ssm and hybrid here) serve as the reference's do
 (``engine.py:197-221``): a full device param tree and a dense per-model
 cache, one prefill per request into its batch slot, K=1 decode of every
 slot, and page accounting after each step.  Their prefill and decode take
-the kernel routes (``impl="flash"`` / ``"paged"``, and the SSD scan).
+the kernel routes (``impl="flash"`` / ``"paged"``, and the SSD scan); on
+a card their decode step is one CUDA-graph replay too, in both lowering
+modes (the reference jits it in both).
 
 The engine runs on ``device="cuda"`` unless told otherwise and raises
 when no card is present; ``device="cpu"`` runs the plain PyTorch
-versions of the kernels.  What is not ported yet raises
-``NotImplementedError`` at construction: ``lowering=False`` (the
-host-driven step and the layer pipeline scheduler), the elastic
-rebalancer, the prefix cache, SLO monitoring, the flight recorder, the
-sanitizer, observers, and the audio and sliding-window families.
+versions of the kernels and no graphs.  On a card every decode graph is
+captured when the engine is built (a failed capture raises; nothing runs
+the eager body instead), into one memory pool the engine's graphs share.
+What is not ported yet raises ``NotImplementedError`` at construction:
+the elastic rebalancer, the prefix cache, SLO monitoring, the flight
+recorder, the sanitizer, observers, and the audio and sliding-window
+families.
 """
 from __future__ import annotations
 
@@ -50,7 +60,9 @@ from repro_torch.configs.base import (DEFAULT_DECODE_STEPS_PER_DISPATCH,
 from repro_torch.core import split_exec
 from repro_torch.core.admission import (AdmissionController, AdmissionStats,
                                         PendingRequest)
-from repro_torch.core.control import MultiStepFusedStep, StreamingPrefill
+from repro_torch.core.control import (DecodeGraph, HostDrivenStep,
+                                      MultiStepFusedStep, StreamingPrefill)
+from repro_torch.core.pipeline import InflightBatch, LayerPipelineScheduler
 from repro_torch.core.pools import build_pools
 from repro_torch.core.virtualizer import (DEFAULT_PAGE_BYTES, KVVirtualizer,
                                           OutOfPagesError)
@@ -116,11 +128,18 @@ class ModelRunner:
     from the arena.  Fallback families (``pooled.stage_fns is None``):
     the model's whole device tree (``pooled.kv_params``) and a dense cache
     of ``max_batch`` slots, as the reference's (``engine.py:197-221``).
+
+    On a card the decode step is captured when the runner is built: the
+    split models' ``MultiStepFusedStep`` under lowering=True, the fallback
+    families' ``decode_body`` always (``graph``).  Host mode
+    (lowering=False) decodes split models one token at a time through the
+    engine's ``HostDrivenStep`` or its scheduler.
     """
 
     def __init__(self, name: str, cfg: ModelConfig, virt: KVVirtualizer, *,
                  max_batch: int, max_ctx: int, mode: EngineMode, pooled,
-                 prefill_step: Optional[StreamingPrefill] = None):
+                 prefill_step: Optional[StreamingPrefill] = None,
+                 graph_pool=None):
         self.name = name
         self.cfg = cfg
         self.max_batch = max_batch
@@ -135,23 +154,50 @@ class ModelRunner:
         #: (a device counter: read it once a run is over)
         self.nonfinite_logits = torch.zeros((), dtype=torch.int64,
                                             device=self.device)
+        self.fused: Optional[MultiStepFusedStep] = None
+        self.decode_graph: Optional[DecodeGraph] = None
+        on_card = self.device.type == "cuda"
         if self.paged:
             self.prefill_step = prefill_step
             self.view = virt.views[name]
             self.max_pages = max(
                 1, math.ceil(max_ctx / self.view.tokens_per_page))
-            self.decode_steps = max(1, int(mode.decode_steps_per_dispatch))
-            self.fused = MultiStepFusedStep(
-                pooled, k=self.decode_steps,
-                nonfinite_logits=self.nonfinite_logits)
+            # host-driven lowering keeps the per-token dispatch train, so
+            # K > 1 is fused-only (``engine.py:190-196``)
+            self.decode_steps = (max(1, int(mode.decode_steps_per_dispatch))
+                                 if mode.lowering else 1)
+            if mode.lowering:
+                self.fused = MultiStepFusedStep(
+                    pooled, k=self.decode_steps,
+                    nonfinite_logits=self.nonfinite_logits,
+                    graph_pool=graph_pool)
+                if on_card:
+                    self.fused.capture(max_batch, self.max_pages, virt.pool)
         else:
             self.params = pooled.kv_params
             self.decode_steps = 1          # the dense-cache path stays K=1
             self.model = build_model(cfg)
             self.cache = self.model.init_cache(max_batch, max_ctx,
                                                self.device)
+            if on_card:
+                i32 = dict(dtype=torch.int32, device=self.device)
+                self.decode_graph = DecodeGraph(
+                    self.decode_body,
+                    dict(tokens=torch.zeros(max_batch, **i32),
+                         lengths=torch.zeros(max_batch, **i32),
+                         active=torch.zeros(max_batch, dtype=torch.bool,
+                                            device=self.device)),
+                    restore=[*self.cache.values(), self.nonfinite_logits],
+                    pool=graph_pool)
 
     # ------------------------------------------------------------------
+    @property
+    def graph(self) -> Optional[DecodeGraph]:
+        """This model's decode graph (None on the CPU and for split models
+        in host mode)."""
+        return self.fused.graph if self.fused is not None \
+            else self.decode_graph
+
     def free_slot(self) -> Optional[int]:
         for i, s in enumerate(self.slots):
             if s is None:
@@ -198,14 +244,24 @@ class ModelRunner:
         req.output_ids.append(tok)       # the prefill-sampled first token
         return slot
 
-    def prefill_group(self, group: PrefillGroup) -> List[int]:
-        """Execute one coalesced prompt pass (fallback families: one pass
-        per row) and commit each row to a batch slot; returns the slots
-        in row order."""
+    def _commit_group(self, group: PrefillGroup, logits: torch.Tensor
+                      ) -> List[int]:
+        self.nonfinite_logits += (~torch.isfinite(logits)).sum()
+        toks = sample(logits).cpu().numpy()
+        return [self._commit_prefill(req, int(toks[i]))
+                for i, req in enumerate(group.requests)]
+
+    def _check_room(self, group: PrefillGroup) -> None:
         free = sum(1 for s in self.slots if s is None)
         if group.batch_size > free:
             raise RuntimeError(f"{self.name}: group of {group.batch_size} "
                                f"for {free} free slots")
+
+    def prefill_group(self, group: PrefillGroup) -> List[int]:
+        """Execute one coalesced prompt pass (fallback families: one pass
+        per row) and commit each row to a batch slot; returns the slots
+        in row order."""
+        self._check_room(group)
         if not self.paged:
             return [self._prefill_row(ids, req)
                     for ids, req in zip(group.ids, group.requests)]
@@ -214,10 +270,23 @@ class ModelRunner:
         logits, self.virt.pool = self.prefill_step(
             self._tensor(group.tokens()), group.true_lens(), self.virt.pool,
             self._group_writer(group))
-        self.nonfinite_logits += (~torch.isfinite(logits)).sum()
-        toks = sample(logits).cpu().numpy()
-        return [self._commit_prefill(req, int(toks[i]))
-                for i, req in enumerate(group.requests)]
+        return self._commit_group(group, logits)
+
+    def make_prefill_batch(self, group: PrefillGroup,
+                           batch_id: int) -> InflightBatch:
+        """Package one group's prompt phase for the layer-wise scheduler
+        (it interleaves with other models' stages)."""
+        self._check_room(group)
+        for req in group.requests:
+            self.virt.ensure_resident(req.request_id)
+        return InflightBatch(
+            batch_id=batch_id, model=self.name,
+            tokens=self._tensor(group.tokens()), prefill=True,
+            true_len=group.true_lens(), kv_writer=self._group_writer(group))
+
+    def apply_prefill_result(self, batch: InflightBatch,
+                             group: PrefillGroup) -> List[int]:
+        return self._commit_group(group, batch.logits)
 
     def _prefill_row(self, ids: np.ndarray, req: Request) -> int:
         """Fallback families: the whole bucket (padding included) into the
@@ -258,6 +327,9 @@ class ModelRunner:
                                            int(steps[i]))
         return act, steps
 
+    def _rids(self) -> List[Optional[int]]:
+        return [s.request_id if s is not None else None for s in self.slots]
+
     def _eos_ids(self) -> np.ndarray:
         eos = np.full(self.max_batch, -1, np.int32)
         for i, req in enumerate(self.slots):
@@ -265,27 +337,65 @@ class ModelRunner:
                 eos[i] = req.eos_id
         return eos
 
-    def issue_decode(self) -> Tuple[torch.Tensor, List[int], np.ndarray]:
+    def prepare_step(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                    List[int], np.ndarray]:
+        """(tokens, page_tables [L,B,P], lengths, active slots, per-slot
+        step budget [max_batch]) on the device, for a host-driven step."""
+        act, steps = self._reserve_decode_block()
+        tables = self.virt.batch_tables(self.name, self._rids(),
+                                        self.max_pages)
+        return (self._tensor(self.next_tokens), tables,
+                self._tensor(self.lengths), act, steps)
+
+    def decode_body(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                    active: torch.Tensor) -> torch.Tensor:
+        """Fallback families: one decode step of every slot (the dense
+        cache updated in place), the non-finite logits of the ``active``
+        rows counted, greedy tokens [1, B] int32.  What the fallback graph
+        holds; eager on the CPU."""
+        logits, _ = self.model.decode_step(self.params, tokens, self.cache,
+                                           lengths, impl="paged")
+        self.nonfinite_logits += (~torch.isfinite(logits)
+                                  & active[:, None]).sum()
+        return sample(logits)[None, :]
+
+    def issue_decode(self, host_step: Optional[HostDrivenStep] = None
+                     ) -> Tuple[torch.Tensor, List[int], np.ndarray]:
         """Run one decode block for all slots; returns (token ids [K, B]
         on the device, not read back yet; active slots; step budgets).
         Fallback families decode one token for EVERY slot, inactive ones
-        included, as the reference's (``engine.py:489-495``)."""
+        included, as the reference's (``engine.py:489-495``).  On a card
+        a lowering=True block (and every fallback step) is ONE graph
+        replay, its inputs copied in from host arrays: the block makes no
+        host read."""
         if not self.paged:
             act = self._active_slots()
-            logits, _ = self.model.decode_step(
-                self.params, self._tensor(self.next_tokens), self.cache,
-                self._tensor(self.lengths), impl="paged")
-            self.nonfinite_logits += (~torch.isfinite(logits[act])).sum()
+            active = np.zeros(self.max_batch, bool)
+            active[act] = True
+            inputs = dict(tokens=self.next_tokens, lengths=self.lengths,
+                          active=active)
+            if self.decode_graph is not None:
+                toks = self.decode_graph(**inputs)
+            else:
+                toks = self.decode_body(**{k: self._tensor(v)
+                                           for k, v in inputs.items()})
             steps = np.zeros(self.max_batch, np.int32)
             steps[act] = 1
+            return toks, act, steps
+        if host_step is not None:
+            # lowering=False: per-layer host dispatches, K=1, logits
+            # sampled by the runtime's one sampler
+            tokens, tables, lengths, act, steps = self.prepare_step()
+            logits, self.virt.pool = host_step(tokens, self.virt.pool,
+                                               tables, lengths)
+            self.nonfinite_logits += (~torch.isfinite(logits)).sum()
             return sample(logits)[None, :], act, steps
         act, steps = self._reserve_decode_block()
-        rids = [s.request_id if s is not None else None for s in self.slots]
-        tables = self.virt.batch_tables(self.name, rids, self.max_pages)
+        tables = self.virt.batch_tables_host(self.name, self._rids(),
+                                             self.max_pages)
         toks, self.virt.pool = self.fused(
-            self._tensor(self.next_tokens), self.virt.pool, tables,
-            self._tensor(self.lengths), self._tensor(steps),
-            self._tensor(self._eos_ids()))
+            self.next_tokens, self.virt.pool, tables, self.lengths, steps,
+            self._eos_ids())
         return toks, act, steps
 
     def commit_decode(self, pending) -> Tuple[np.ndarray, np.ndarray,
@@ -311,6 +421,22 @@ class ModelRunner:
                 # KV lives in the dense cache; pages track budget only)
                 self.virt.extend_request(rid, n)
         return toks, counts, act
+
+    # ------------------------------------------------------------------
+    def make_inflight_batch(self, batch_id: int
+                            ) -> Tuple[InflightBatch, List[int]]:
+        """Package this model's slots for the layer-wise scheduler."""
+        tokens, tables, lengths, act, _ = self.prepare_step()
+        return InflightBatch(batch_id=batch_id, model=self.name,
+                             tokens=tokens, page_tables=tables,
+                             lengths=lengths), act
+
+    def apply_pipeline_result(self, batch: InflightBatch, act: List[int]
+                              ) -> Tuple[np.ndarray, np.ndarray, List[int]]:
+        """Write back a batch the scheduler completed (its KV is already
+        in the pool): one token per active slot (host mode is K=1)."""
+        self.nonfinite_logits += (~torch.isfinite(batch.logits)).sum()
+        return self.commit_decode((sample(batch.logits)[None, :], act, None))
 
     def release(self, slot: int) -> Request:
         req = self.slots[slot]
@@ -352,10 +478,6 @@ class CrossPoolEngine:
             if value:
                 raise NotImplementedError(f"{name}: not ported yet")
         self.mode = config.mode or EngineMode()
-        if not self.mode.lowering:
-            raise NotImplementedError(
-                "lowering=False (HostDrivenStep and the layer pipeline "
-                "scheduler) is not ported yet")
         for name, cfg in models.items():
             if not split_exec.supports_split(cfg) \
                     and cfg.family not in ("ssm", "hybrid"):
@@ -396,12 +518,29 @@ class CrossPoolEngine:
         any_split = any(p.stage_fns is not None for p in self.pooled.values())
         self.arena = self.w_pool.arena if any_split else None
         self.admission = AdmissionController(self.virt, arena=self.arena)
+        on_card = self.device.type == "cuda"
+        # host mode on a card: FFN stages run on the weights stream
+        self.w_stream = (torch.cuda.Stream(self.device)
+                         if on_card and not self.mode.lowering else None)
+        self.host_steps: Optional[Dict[str, HostDrivenStep]] = None
+        self.scheduler: Optional[LayerPipelineScheduler] = None
+        if not self.mode.lowering:
+            self.host_steps = {
+                n: HostDrivenStep(self.pooled[n], self.w_stream)
+                for n in models if self.pooled[n].stage_fns is not None}
+            self.scheduler = LayerPipelineScheduler(self.pooled,
+                                                    self.w_stream)
+        # the engine's decode graphs share one memory pool (they replay
+        # one at a time on one stream)
+        graph_pool = torch.cuda.graph_pool_handle() if on_card else None
         self.runners = {
             n: ModelRunner(n, c, self.virt, max_batch=max_batch,
                            max_ctx=max_ctx, mode=self.mode,
                            pooled=self.pooled[n],
-                           prefill_step=StreamingPrefill(self.pooled[n])
-                           if self.pooled[n].stage_fns is not None else None)
+                           prefill_step=StreamingPrefill(self.pooled[n],
+                                                         self.w_stream)
+                           if self.pooled[n].stage_fns is not None else None,
+                           graph_pool=graph_pool)
             for n, c in models.items()
         }
         self.stats = EngineStats(step_times={n: [] for n in models},
@@ -655,11 +794,34 @@ class CrossPoolEngine:
             done=req.done))
 
     # ------------------------------------------------------------------
+    def _host_step(self, name: str) -> Optional[HostDrivenStep]:
+        if self.host_steps is None:
+            return None
+        return self.host_steps.get(name)
+
     def _prefill_groups(self, groups: List[PrefillGroup],
                         now: float) -> float:
-        """One [B, S] streaming pass per group, in order; each pass ends
-        with its first tokens read back, so ``dt`` is device time too."""
+        """Execute the coalesced groups.  In host-driven pipeline mode the
+        first group of each of two or more models interleaves through the
+        layer-wise scheduler (model A's layer-L attention beside model B's
+        FFN); everything else runs the sequential streaming path, one
+        [B, S] pass per group, each ending with its first tokens read back
+        (so ``dt`` is device time too)."""
         self.stats.prefill_batch_sizes.extend(g.batch_size for g in groups)
+        if self.scheduler is not None and self.mode.pipeline:
+            first: Dict[str, PrefillGroup] = {}
+            rest: List[PrefillGroup] = []
+            for g in groups:
+                # suffix groups stay on the streaming path (the scheduler
+                # has no suffix stage)
+                if (self.runners[g.model].paged and g.model not in first
+                        and g.fork == 0):
+                    first[g.model] = g
+                else:
+                    rest.append(g)
+            if len(first) >= 2:
+                now = self._prefill_pipelined(list(first.values()), now)
+                groups = rest
         for g in groups:
             t0 = time.perf_counter()
             self.runners[g.model].prefill_group(g)
@@ -671,18 +833,46 @@ class CrossPoolEngine:
                 self._book_first_token(req, now)
         return now
 
+    def _prefill_pipelined(self, groups: List[PrefillGroup],
+                           now: float) -> float:
+        """Concurrent cold-model prompt phases through the scheduler."""
+        t0 = time.perf_counter()
+        batches = [self.runners[g.model].make_prefill_batch(g, i)
+                   for i, g in enumerate(groups)]
+        done, self.virt.pool = self.scheduler.run(batches, self.virt.pool,
+                                                  max_inflight=2)
+        by_model = {g.model: g for g in groups}
+        for b in done:
+            self.runners[b.model].apply_prefill_result(b, by_model[b.model])
+        dt = time.perf_counter() - t0
+        now += dt
+        for b in done:
+            g = by_model[b.model]
+            self.stats.prefill_times.append((g.model, g.batch_size,
+                                             g.bucket, dt))
+            for req in g.requests:
+                self._book_first_token(req, now)
+        return now
+
     def _decode_model(self, name: str, now: float) -> float:
         runner = self.runners[name]
         t0 = time.perf_counter()
-        toks, counts, act = runner.commit_decode(runner.issue_decode())
+        toks, counts, act = runner.commit_decode(
+            runner.issue_decode(self._host_step(name)))
         dt = time.perf_counter() - t0
         self._record_step(name, dt)
         self._book_tokens(runner, toks, counts, act, now, dt)
         return now + dt
 
     def _decode_pipelined(self, active: List[str], now: float) -> float:
-        """Every active model's decode block is issued before any is read
-        back (the shared pool threads through the chain in order)."""
+        """Two or more models stepped with overlapping execution.
+
+        lowering=True: every active model's decode block (one replay on a
+        card) is issued before any is read back (the shared pool threads
+        through them in order).  lowering=False: the layer-wise scheduler
+        interleaves the models' attention and FFN stages (paper Fig. 4)."""
+        if not self.mode.lowering:
+            return self._decode_pipelined_host(active, now)
         t0 = time.perf_counter()
         issued = [(n, self.runners[n].issue_decode()) for n in active]
         dt_all = 0.0
@@ -694,3 +884,27 @@ class CrossPoolEngine:
         for n in active:
             self._record_step(n, dt_all / len(active))
         return now + dt_all
+
+    def _decode_pipelined_host(self, active: List[str], now: float) -> float:
+        """The layer-wise two-batch pipeline over the two pools; fallback
+        families step after it, one replay each."""
+        t0 = time.perf_counter()
+        paged = [n for n in active if self.runners[n].paged]
+        fallback = [n for n in active if not self.runners[n].paged]
+        batches, acts = [], {}
+        for i, n in enumerate(paged):
+            batch, acts[n] = self.runners[n].make_inflight_batch(i)
+            batches.append(batch)
+        done, self.virt.pool = self.scheduler.run(batches, self.virt.pool,
+                                                  max_inflight=2)
+        results = [(b.model, self.runners[b.model].apply_pipeline_result(
+            b, acts[b.model])) for b in done]
+        dt_all = time.perf_counter() - t0
+        for n, (toks, counts, act) in results:
+            self._book_tokens(self.runners[n], toks, counts, act, now,
+                              dt_all)
+            self._record_step(n, dt_all / max(len(paged), 1))
+        now += dt_all
+        for n in fallback:          # families outside split execution
+            now = self._decode_model(n, now)
+        return now

@@ -8,6 +8,9 @@ imports nothing of JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +30,15 @@ from repro_torch.training.train_step import TrainState, make_train_step
 from repro_torch.training.tree import leaves, map_tree
 
 pytestmark = pytest.mark.cuda
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture
+def smoke():
+    """``chip_smoke.py`` at the repo's root: its graph checks."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    return chip_smoke
 
 
 @pytest.fixture
@@ -666,3 +678,67 @@ def test_train_step_refuses_ssm_on_the_card(cuda):
     tokens = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         step(TrainState(params, opt.init(params)), {"tokens": tokens})
+
+
+# ---------------------------------------------------------------------------
+# the decode graphs and the pool write
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_replay_equals_eager(cuda, smoke, dtype, k):
+    """The smoke coloc set: a decode block's graph replay gives the same
+    tokens and pool bytes as the step body called eagerly from the same
+    state."""
+    engine, _ = smoke.smoke_engine(torch, PAPER_COLOC_SET, dtype, k)
+    smoke.replay_matches_eager(torch, engine)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fallback_replay_equals_eager(cuda, smoke, dtype):
+    """zamba2 + mamba2 smoke: a decode step's graph replay gives the same
+    tokens and dense cache as the eager body from the same state."""
+    engine, _ = smoke.smoke_engine(torch, smoke.FALLBACK_MODELS, dtype)
+    smoke.replay_matches_eager(torch, engine)
+
+
+@pytest.mark.parametrize("which", ["coloc", "fallback"])
+def test_block_dispatch_is_sync_free(cuda, smoke, which):
+    """From the copy-in to the replay, a decode block reads nothing back
+    to the host (``set_sync_debug_mode("error")``)."""
+    names = PAPER_COLOC_SET if which == "coloc" else smoke.FALLBACK_MODELS
+    engine, _ = smoke.smoke_engine(torch, names, "bfloat16", 4)
+    smoke.block_is_sync_free(torch, engine)
+
+
+def test_paged_kv_write_matches_plain_and_is_sync_free(cuda, smoke):
+    """Bit for bit the plain version (-1 pages, an id past the pool, rows
+    cast to the pool's type, an odd width, 512 rows), no host read."""
+    from repro_torch.kernels import ref
+    rows = smoke.kv_write_phase(torch, kops, ref)
+    assert {r["shape"] for r in rows} == {"qwen3-moe decode B=4",
+                                          "prefill 512 rows"}
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_host_mode_on_the_card_equals_lowering(cuda, smoke, pipeline):
+    """float32 smoke coloc set: the host-driven step (FFN stages on the
+    weights stream), with and without the layer pipeline, gives the same
+    greedy streams as the fused lowering's graph replays."""
+    streams = []
+    for lowering in (True, False):
+        engine, reqs = smoke.smoke_engine(torch, PAPER_COLOC_SET, "float32",
+                                          1, lowering=lowering,
+                                          pipeline=pipeline, steps=0)
+        engine.drain()
+        assert engine.virt.mapped_pages == 0
+        streams.append([r.output_ids for r in reqs])
+    assert streams[0] == streams[1]
+    assert all(len(s) == 6 for s in streams[0])
+
+
+def test_graph_survives_evict_and_reactivate(cuda, smoke):
+    """The model's graph, after its slabs were returned and mapped again
+    elsewhere, serves the same tokens and still equals the eager body."""
+    first = smoke.evict_check(torch)
+    assert len(first[0]) == 6

@@ -19,7 +19,7 @@ from repro.runtime.request import Request as JRequest
 from repro_torch.bridge import params_to_torch
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.configs.base import (CacheConfig, ElasticConfig,
-                                      EngineConfig)
+                                      EngineConfig, SLOConfig)
 from repro_torch.launch import serve
 from repro_torch.runtime.engine import CrossPoolEngine as TEngine
 from repro_torch.runtime.engine import EngineMode as TMode
@@ -118,6 +118,16 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     assert "'mapped_pages': 0" in out
 
 
+@pytest.mark.parametrize("pipeline", [[], ["--no-pipeline"]])
+def test_serve_cli_runs_on_the_cpu_without_lowering(capsys, pipeline):
+    """``--no-lowering``: the host-driven step, with and without the
+    layer pipeline scheduler, serves the trace and returns every page."""
+    serve.main(["--device", "cpu", "--horizon", "3", "--max-new", "3",
+                "--no-lowering"] + pipeline)
+    out = capsys.readouterr().out
+    assert "lowering=False" in out and "'mapped_pages': 0" in out
+
+
 # ---------------------------------------------------------------------------
 # boundaries
 # ---------------------------------------------------------------------------
@@ -133,7 +143,7 @@ def test_entry_points_raise_without_a_card(coloc):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(config=EngineConfig(mode=TMode(lowering=False))),
+    dict(config=EngineConfig(slo=SLOConfig())),
     dict(config=EngineConfig(cache=CacheConfig(enabled=True))),
     dict(config=EngineConfig(sanitize=True)),
     dict(config=EngineConfig(elastic=ElasticConfig())),
@@ -213,7 +223,7 @@ def test_fallback_streams_equal_live_jax_engine(which, k):
         assert ZAMBA not in te.arena.views
 
 
-@pytest.mark.parametrize("flag", [["--no-lowering"], ["--cache"],
+@pytest.mark.parametrize("flag", [["--slo", "ttft_p99:1.0"], ["--cache"],
                                   ["--elastic"], ["--dry-run"]])
 def test_serve_flags_not_ported_raise(flag):
     with pytest.raises(NotImplementedError):
