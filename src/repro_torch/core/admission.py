@@ -9,9 +9,10 @@ burst of cold-model arrivals queues at the front door instead of
 thrashing the arena's LRU.  Admission takes the request's arena pin;
 ``finish`` drops it.
 
-The reference's prefix-cache discount and the elastic rebalancer's page
-reserve are not ported yet (neither feature is), so a verdict reads the
-live page and slab budgets alone.
+Every verdict reads the live page and slab budgets (the elastic
+rebalancer resizes the pools in place) and holds ``reserve_pages`` free
+pages back: the swap tier's fault-in headroom.  The reference's
+prefix-cache discount is not ported yet.
 """
 from __future__ import annotations
 
@@ -77,6 +78,9 @@ class AdmissionController:
         # admitted-but-unfinished request count per model
         self.inflight: Dict[str, int] = collections.defaultdict(int)
         self._last_block: str = ""      # "pages" | "weights" | "" (admitted)
+        # the elastic rebalancer's pressure signal: free pages held back
+        # from admission (fault-in headroom for pages in the swap tier)
+        self.reserve_pages: int = 0
         self.stats = AdmissionStats()
 
     def offer(self, req: PendingRequest, now: float) -> str:
@@ -127,11 +131,11 @@ class AdmissionController:
 
     def try_admit(self, req: PendingRequest) -> bool:
         """Admit iff BOTH budgets hold: KV pages for the prompt (+ reserved
-        output) AND arena reachability for a cold model.  Takes the
-        request's arena pin on success."""
+        output), ``reserve_pages`` held back, AND arena reachability for a
+        cold model.  Takes the request's arena pin on success."""
         expect = req.expected_output if self.reserve_output else 0
-        if self.virt.admission_deficit(req.model, req.prompt_tokens,
-                                       expect) > 0:
+        if self.virt.admission_deficit(req.model, req.prompt_tokens, expect,
+                                       reserve=self.reserve_pages) > 0:
             self._last_block = "pages"
             return False
         if not self._weights_pressure_ok(req.model):

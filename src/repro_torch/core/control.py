@@ -28,7 +28,8 @@ Not ported yet: the prefix-cache ``suffix`` pass.
 from __future__ import annotations
 
 import gc
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -223,7 +224,10 @@ class _FusedStep:
     page-table width (``capture``; at the first call otherwise) over the
     pool and arena it was given; a call with a pool or arena that moved
     since raises (a stale address would be a wrong answer, not a
-    crash)."""
+    crash).  After an elastic resize moved either, ``recapture`` (or
+    ``release`` and the next call) captures the same body anew over the
+    new tensors.  ``captures`` and ``replays`` count over every graph the
+    step has had."""
 
     def __init__(self, pooled: PooledModel,
                  nonfinite_logits: Optional[torch.Tensor] = None,
@@ -233,6 +237,10 @@ class _FusedStep:
         self.graph_pool = graph_pool
         self.graph: Optional[DecodeGraph] = None
         self._ptrs: Optional[Tuple[int, int]] = None
+        self.captures = 0
+        self.replays = 0
+        #: host seconds of each capture (warm-up included)
+        self.capture_s: List[float] = []
 
     def _count_nonfinite(self, logits: torch.Tensor) -> None:
         if self.nonfinite_logits is not None:
@@ -254,6 +262,7 @@ class _FusedStep:
                 ) -> None:
         """Capture the body for ``batch`` rows and ``max_pages`` table
         columns over ``pool`` and the model's static slot table."""
+        t0 = time.perf_counter()
         name, arena = self.pooled.cfg.name, self.pooled.arena
         abuf, table = arena.arena, arena.static_table(name)
         restore = [] if self.nonfinite_logits is None \
@@ -263,6 +272,29 @@ class _FusedStep:
             self.inactive_inputs(batch, max_pages, pool.device),
             restore=restore, pool=self.graph_pool)
         self._ptrs = (pool.data_ptr(), abuf.data_ptr())
+        self.captures += 1
+        self.capture_s.append(time.perf_counter() - t0)
+
+    def release(self) -> None:
+        """Drop the graph; its memory goes back to the shared graph pool
+        now, before any new capture takes from it.  The next call (or
+        ``recapture``) captures anew."""
+        if self.graph is not None:
+            self.graph.graph.reset()
+        self.graph = None
+        self._ptrs = None
+
+    def recapture(self, pool: torch.Tensor) -> bool:
+        """If the pool or the arena moved since the capture (an elastic
+        resize), capture again for the same batch and table width over
+        the current tensors; returns whether it did."""
+        if self.graph is None or self._ptrs == (
+                pool.data_ptr(), self.pooled.arena.arena.data_ptr()):
+            return False
+        _, batch, max_pages = self.graph.static["page_tables"].shape
+        self.release()
+        self.capture(batch, max_pages, pool)
+        return True
 
     def _dispatch(self, pool: torch.Tensor, inputs: Dict) -> torch.Tensor:
         # residency, uploads and their ordering stay outside any graph
@@ -277,6 +309,7 @@ class _FusedStep:
             raise RuntimeError(
                 f"{self.pooled.cfg.name}: the KV pool or the weights arena "
                 f"moved since the decode graph was captured")
+        self.replays += 1
         return self.graph(**inputs)
 
 

@@ -86,6 +86,10 @@ class KVCachePool:
     def add_model(self, name: str, kv_params: Dict) -> None:
         self.attn_params[name] = _to_device(kv_params, self.device)
 
+    def resize(self, page_budget: int, protected=()):
+        """Elastic entry: live-resize the shared page pool (DESIGN.md §8)."""
+        return self.virtualizer.resize(page_budget, protected=protected)
+
 
 def transfer(x: torch.Tensor, stream) -> torch.Tensor:
     """The pool boundary: hand ``x``, produced on the current stream, to

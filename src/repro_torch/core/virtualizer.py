@@ -19,9 +19,19 @@ as ``tokens_per_page`` tokens of ONE layer's K+V (or MLA latent+rope).
 Where the reference donates the pool to a jitted scatter and rebinds the
 result, the port writes into the pool tensor in place.
 
-Not ported yet (they raise ``NotImplementedError``): the host swap tier
-and ``resize`` (the elastic boundary, DESIGN.md §8) and prefix sharing.
-Without a swap tier every mapped page is device-resident.
+Elasticity (DESIGN.md §8): ``resize`` grows or shrinks ``page_budget``
+at step boundaries, and a **host swap tier** (a pinned CPU tensor on a
+card) makes shrinking safe for in-flight requests: the coldest pages of
+the longest-idle requests move to the host (``swap_out``), survivors are
+compacted into the retained prefix of a new pool tensor with ONE
+``index_select``, and swapped pages fault back in on next touch
+(``ensure_resident``).  A swapped table entry is encoded in place as
+``-2 - host_slot``; ``-1`` stays the batch-table padding sentinel.  A
+resize gives the pool a new tensor, so a decode graph captured over the
+old one must be captured again (``core/control.py``).
+
+Not ported yet: prefix sharing (refcounts) and the prefix cache's
+second-chance tier.
 """
 from __future__ import annotations
 
@@ -83,9 +93,26 @@ def make_view(cfg: ModelConfig, page_elems: int) -> ModelView:
     return ModelView(cfg.name, per_tok, tpp, cfg.n_decoder_attn_layers, shape)
 
 
+#: Swapped page-table encoding: entry ``-2 - host_slot``.  ``-1`` stays
+#: the batch-table padding sentinel, so any entry <= _SWAP_BASE is a
+#: swapped page and ``_SWAP_BASE - entry`` recovers the host slot.
+_SWAP_BASE = -2
+
+
+def _swap_encode(host_slot: int) -> int:
+    return _SWAP_BASE - host_slot
+
+
+def _swap_decode(entry: int) -> int:
+    return _SWAP_BASE - entry
+
+
 @dataclass
 class RequestPages:
-    """Per-request mapping: tables[layer][chunk] -> physical page id."""
+    """Per-request mapping: tables[layer][chunk] -> physical page id.
+
+    Entries >= 0 are device pages; entries <= -2 encode pages swapped to
+    the host tier (``_swap_encode``), counted by ``n_swapped``."""
 
     request_id: int
     model: str
@@ -96,15 +123,28 @@ class RequestPages:
     # page-mapping change, so a reused request id never aliases a stale
     # cached batch table
     rev: int = -1
-    last_touch: int = 0
+    last_touch: int = 0            # idle clock (swap victim order)
+    n_swapped: int = 0             # table entries currently in the host tier
 
     def device_entries(self):
-        """Yield (table, index, page) for every mapped entry."""
+        """Yield (table, index, page) for every device-resident entry."""
         for tab in self.tables:
             for i, p in enumerate(tab):
-                yield tab, i, p
+                if p >= 0:
+                    yield tab, i, p
         for i, p in enumerate(self.state_pages):
-            yield self.state_pages, i, p
+            if p >= 0:
+                yield self.state_pages, i, p
+
+    def swapped_entries(self):
+        """Yield (table, index, host_slot) for every swapped entry."""
+        for tab in self.tables:
+            for i, p in enumerate(tab):
+                if p <= _SWAP_BASE:
+                    yield tab, i, _swap_decode(p)
+        for i, p in enumerate(self.state_pages):
+            if p <= _SWAP_BASE:
+                yield self.state_pages, i, _swap_decode(p)
 
 
 # ---------------------------------------------------------------------------
@@ -160,11 +200,20 @@ class KVVirtualizer:
         # incremental device page-table cache: key -> {buf, revs, dev}
         self._batch_cache: Dict[tuple, dict] = {}
         self._rev_counter = 0
+        # host swap tier: page rows a shrink evicted live here until the
+        # next touch faults them back in (allocated lazily, grows 2x;
+        # pinned when the pool is on a card)
+        self.swap_buffer: Optional[torch.Tensor] = None
+        self.swap_free: List[int] = []
         self._touch_clock = 0
         # stats
         self.peak_mapped = 0
         self.map_events = 0
         self.unmap_events = 0
+        self.swap_out_pages = 0
+        self.swap_in_pages = 0
+        self.resizes = 0
+        self.swapped_now = 0           # entries currently in the host tier
 
     # ------------------------------------------------------------------
     # accounting
@@ -177,15 +226,23 @@ class KVVirtualizer:
     def free_pages(self) -> int:
         return len(self.free_list)
 
+    def can_admit(self, model: str, prompt_tokens: int,
+                  expected_output: int = 0, reserve: int = 0) -> bool:
+        """``reserve`` pages are held back from admission: the elastic
+        rebalancer's fault-in headroom for the swap tier."""
+        return self.admission_deficit(model, prompt_tokens, expected_output,
+                                      reserve) == 0
+
     def admission_deficit(self, model: str, prompt_tokens: int,
-                          expected_output: int = 0) -> int:
-        """Pages MISSING for this admission (0 = admissible)."""
+                          expected_output: int = 0, reserve: int = 0) -> int:
+        """Pages MISSING for this admission (0 = admissible), with
+        ``reserve`` free pages held back."""
         view = self.views[model]
         cfg = self.configs[model]
         need = view.pages_for(prompt_tokens + expected_output) \
             if view.n_kv_layers else 0
         need += math.ceil(cfg.state_bytes_per_request() / self.page_bytes)
-        return max(need - self.free_pages, 0)
+        return max(need - (self.free_pages - max(reserve, 0)), 0)
 
     # ------------------------------------------------------------------
     # slow path: map / unmap
@@ -268,6 +325,9 @@ class KVVirtualizer:
         if not view.n_kv_layers:
             self.touch(request_id)
             return 0
+        check(req.n_swapped == 0,
+              f"request {request_id} has swapped pages; call ensure_resident "
+              f"before reserving a decode block")
         have = len(req.tables[0])
         need = math.ceil(max(req.tokens + k, 1) / view.tokens_per_page)
         delta = need - have
@@ -299,7 +359,13 @@ class KVVirtualizer:
         for tab in req.tables:
             extra = tab[keep:]
             del tab[keep:]
-            self.free_list.extend(reversed(extra))
+            for p in reversed(extra):
+                if p <= _SWAP_BASE:      # a reserved page swapped meanwhile
+                    self.swap_free.append(_swap_decode(p))
+                    req.n_swapped -= 1
+                    self.swapped_now -= 1
+                else:
+                    self.free_list.append(p)
             trimmed += len(extra)
         self.unmap_events += trimmed
         req.rev = self._next_rev()
@@ -312,28 +378,190 @@ class KVVirtualizer:
         for _, _, page in req.device_entries():
             self.free_list.append(page)
             n += 1
+        for _, _, slot in req.swapped_entries():
+            self.swap_free.append(slot)
+            self.swapped_now -= 1
+            n += 1
         self.unmap_events += n
 
     # ------------------------------------------------------------------
-    # elastic boundary (not ported yet)
+    # elastic boundary: host swap tier + live resize (DESIGN.md §8)
     # ------------------------------------------------------------------
     def touch(self, request_id: int) -> None:
-        """Mark a request recently used."""
+        """Mark a request recently used (swap victims are least-recent)."""
         self._touch_clock += 1
         self.requests[request_id].last_touch = self._touch_clock
 
-    def ensure_resident(self, request_id: int) -> int:
-        """Fault swapped pages back in; returns how many were faulted.
-        The port has no swap tier yet, so every page is resident: 0."""
-        check(request_id in self.requests, f"unknown request {request_id}")
-        return 0
+    def _swap_slots(self, n: int) -> List[int]:
+        """Take ``n`` host-tier slots, growing the swap buffer on demand
+        (zero-padded, the old rows copied on the host)."""
+        while len(self.swap_free) < n:
+            old = 0 if self.swap_buffer is None else len(self.swap_buffer)
+            cap = max(old * 2, n, 16)
+            buf = torch.zeros((cap, self.page_elems), dtype=self.dtype,
+                              pin_memory=self.device.type == "cuda")
+            if self.swap_buffer is not None:
+                buf[:old] = self.swap_buffer
+            self.swap_buffer = buf
+            self.swap_free.extend(range(cap - 1, old - 1, -1))
+        return [self.swap_free.pop() for _ in range(n)]
+
+    def _ids(self, ids: Sequence[int]) -> torch.Tensor:
+        """Page ids as a tensor on the pool's device."""
+        return torch.tensor(list(ids), dtype=torch.int64, device=self.device)
 
     def swap_out(self, request_id: int, max_pages: Optional[int] = None
                  ) -> int:
-        raise NotImplementedError("the host swap tier is not ported yet")
+        """Move up to ``max_pages`` of a request's device pages to the host
+        tier (coldest — lowest token chunks — first); returns the count.
+
+        The freed device ids go straight back to the free list, the table
+        entries take the swapped encoding and the request's revision
+        bumps.  Page contents move with the page (one device gather, one
+        synchronous copy to the host), so a later fault-in is bit for bit
+        invisible to attention."""
+        req = self.requests[request_id]
+        victims: List[Tuple[List[int], int, int]] = []
+        view = self.views[req.model]
+        chunks = len(req.tables[0]) if req.tables else 0
+        # chunk-major: the lowest (oldest-token) chunk of every layer goes
+        # first, so partial swaps shed the coldest KV across layers evenly
+        for c in range(chunks):
+            for layer in range(view.n_kv_layers):
+                p = req.tables[layer][c]
+                if p >= 0:
+                    victims.append((req.tables[layer], c, p))
+        for i, p in enumerate(req.state_pages):
+            if p >= 0:
+                victims.append((req.state_pages, i, p))
+        if max_pages is not None:
+            victims = victims[:max_pages]
+        if not victims:
+            return 0
+        slots = self._swap_slots(len(victims))
+        if self.pool is not None:
+            rows = _pool_row_gather(self.pool,
+                                    self._ids(p for _, _, p in victims))
+            self.swap_buffer.index_copy_(0, torch.tensor(slots), rows.cpu())
+        for (tab, i, page), slot in zip(victims, slots):
+            tab[i] = _swap_encode(slot)
+            self.free_list.append(page)
+        req.rev = self._next_rev()
+        req.n_swapped += len(victims)
+        self.swapped_now += len(victims)
+        self.swap_out_pages += len(victims)
+        return len(victims)
+
+    def ensure_resident(self, request_id: int) -> int:
+        """Fault a request's swapped pages back onto the device (the swap
+        tier's "next touch"); returns how many were faulted.  Atomic: the
+        device pages come from ONE ``_take``, so ``OutOfPagesError`` leaves
+        the tables, the swap tier and the free list untouched.  Returns at
+        once, with no device work, when nothing is swapped."""
+        req = self.requests[request_id]
+        if req.n_swapped == 0:
+            return 0
+        entries = list(req.swapped_entries())
+        pages = self._take(len(entries))
+        if self.pool is not None:
+            rows = self.swap_buffer.index_select(
+                0, torch.tensor([s for _, _, s in entries]))
+            _pool_row_scatter(self.pool, self._ids(pages),
+                              rows.to(self.device))
+        for (tab, i, slot), page in zip(entries, pages):
+            tab[i] = page
+            self.swap_free.append(slot)
+        req.rev = self._next_rev()
+        req.n_swapped = 0
+        self.swapped_now -= len(entries)
+        self.swap_in_pages += len(entries)
+        self.touch(request_id)
+        return len(entries)
+
+    def swap_out_idle(self, need: int, protected=()) -> int:
+        """Free ``need`` device pages by swapping the coldest pages of the
+        longest-idle requests (skipping ``protected`` ids); returns how
+        many were actually freed."""
+        freed = 0
+        protected = set(protected)
+        order = sorted(self.requests.values(), key=lambda r: r.last_touch)
+        for req in order:
+            if freed >= need:
+                break
+            if req.request_id in protected:
+                continue
+            freed += self.swap_out(req.request_id, need - freed)
+        return freed
 
     def resize(self, new_budget: int, protected=()) -> Dict[str, int]:
-        raise NotImplementedError("elastic pool resize is not ported yet")
+        """Grow or shrink the pool to ``new_budget`` pages at a step
+        boundary (reference ``virtualizer.py:791``).
+
+        Growing copies the pool into the prefix of a larger, zero-padded
+        tensor and puts the new ids at the FRONT of the free list.
+        Shrinking swaps out the coldest pages of the longest-idle
+        (non-``protected``) requests until the survivors fit, then
+        compacts them into the retained prefix with ONE ``index_select``
+        into a new tensor and remaps every table (all revisions bump; the
+        batch-table cache drops).  Raises ``OutOfPagesError`` — with no
+        state change beyond completed swaps — when the protected requests
+        alone exceed the new budget.  On a card the device is
+        synchronised first: the old pool's memory is freed here."""
+        new_budget = int(new_budget)
+        check(new_budget >= 1, f"page budget must be >= 1, got {new_budget}")
+        old_budget = self.page_budget
+        if new_budget == old_budget:
+            return {"page_budget": old_budget, "swapped_out": 0, "moved": 0}
+        if self.pool is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if new_budget > old_budget:
+            if self.pool is not None:
+                pad = torch.zeros((new_budget - old_budget, self.page_elems),
+                                  dtype=self.pool.dtype, device=self.device)
+                self.pool = torch.cat([self.pool, pad])
+            # new ids go to the FRONT of the (pop-from-the-end) free list,
+            # so existing low ids keep being preferred
+            self.free_list = list(range(new_budget - 1, old_budget - 1, -1)) \
+                + self.free_list
+            self.page_budget = new_budget
+            self.resizes += 1
+            return {"page_budget": new_budget, "swapped_out": 0, "moved": 0}
+
+        # --- shrink ----------------------------------------------------
+        swapped = 0
+        if self.mapped_pages > new_budget:
+            swapped = self.swap_out_idle(self.mapped_pages - new_budget,
+                                         protected)
+        if self.mapped_pages > new_budget:
+            raise OutOfPagesError(
+                f"cannot shrink to {new_budget} pages: {self.mapped_pages} "
+                f"still mapped after swapping {swapped} (protected "
+                f"requests hold too many pages)")
+        # compact survivors into [0, new_budget): requests by id, then
+        # layer-major table order
+        old_ids: List[int] = []
+        mapping: Dict[int, int] = {}
+        entries: List[Tuple[List[int], int, int]] = []
+        for rid in sorted(self.requests):
+            for tab, i, page in self.requests[rid].device_entries():
+                entries.append((tab, i, page))
+                if page not in mapping:
+                    mapping[page] = len(old_ids)
+                    old_ids.append(page)
+        k = len(old_ids)
+        if self.pool is not None:
+            self.pool = _pool_row_gather(
+                self.pool, self._ids(old_ids + [0] * (new_budget - k)))
+        for tab, i, page in entries:
+            tab[i] = mapping[page]
+        for req in self.requests.values():
+            req.rev = self._next_rev()
+        self._batch_cache.clear()
+        self.free_list = list(range(new_budget - 1, k - 1, -1))
+        self.page_budget = new_budget
+        self.resizes += 1
+        return {"page_budget": new_budget, "swapped_out": swapped,
+                "moved": k}
 
     # ------------------------------------------------------------------
     # fast path: device views
@@ -345,8 +573,15 @@ class KVVirtualizer:
         of slots (``None`` slots map to all ``-1`` rows), cached per
         (model, slot assignment, max_pages): only the rows whose page
         mapping changed are rewritten, in place, and then the device copy
-        is dropped."""
+        is dropped.  Raises for a row with swapped pages: the kernels read
+        any id < 0 as "no page", so a swapped entry in a table would drop
+        KV silently."""
         view = self.views[model]
+        for rid in request_ids:
+            if rid is not None and rid in self.requests:
+                check(self.requests[rid].n_swapped == 0,
+                      f"request {rid} has swapped pages; call "
+                      f"ensure_resident before building batch tables")
         key = (model,
                tuple(-1 if r is None else r for r in request_ids),
                max_pages)
@@ -403,6 +638,9 @@ class KVVirtualizer:
                       tokens: np.ndarray, layer: int
                       ) -> Tuple[np.ndarray, np.ndarray]:
         """(pages, slots) int32 arrays for token indices of one layer."""
+        check(req.n_swapped == 0,
+              f"request {req.request_id} has swapped pages; call "
+              f"ensure_resident before writing KV")
         chunk = tokens // view.tokens_per_page
         slots = (tokens % view.tokens_per_page).astype(np.int32)
         tab = np.asarray(req.tables[layer], np.int32)
@@ -443,6 +681,13 @@ class KVVirtualizer:
             "free_pages": self.free_pages,
             "peak_mapped": self.peak_mapped,
             "internal_frag_bytes": frag * itemsize,
+            # elastic-boundary signals (DESIGN.md §8)
             "page_budget": self.page_budget,
             "occupancy": self.mapped_pages / max(self.page_budget, 1),
+            "swapped_pages": self.swapped_now,
+            "swap_out_pages": self.swap_out_pages,
+            "swap_in_pages": self.swap_in_pages,
+            "swap_tier_bytes": (0 if self.swap_buffer is None
+                                else self.swap_buffer.numel() * itemsize),
+            "resizes": self.resizes,
         }

@@ -21,10 +21,15 @@ uint8 arena ``[slot_budget, slab_bytes]``:
     its slabs have landed (DESIGN.md §6) while the copy overlaps the
     attention issued before it;
   * each model's device slot table is ONE tensor of fixed shape,
-    refreshed in place when an activation maps new slabs, so a captured
-    decode step keeps a valid address across evict and re-activate.
-
-Not ported yet: ``resize`` (the elastic boundary) raises.
+    refreshed in place when an activation or a compaction maps new slabs,
+    so a captured decode step keeps a valid address across evict,
+    re-activate and resize;
+  * ``resize`` moves the arena's slot budget at a step boundary (the
+    elastic boundary, DESIGN.md §8): a grow copies the arena into a
+    larger zero-padded tensor, a shrink evicts idle models LRU and
+    compacts the survivors with one ``index_select``.  Either way the
+    arena tensor is a new one, so a decode graph captured over the old
+    one must be captured again (``core/control.py``).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.errors import check
 from repro_torch.models.moe import EXPERT_STACKED_LEAVES
 
 #: Slab granularity of the weights arena (1 MiB).
@@ -195,6 +201,38 @@ def build_view_and_slabs(name: str, cfg: ModelConfig, w_tree: Dict, *,
 
 
 # ---------------------------------------------------------------------------
+# Analytic accounting (planner — no weights needed)
+# ---------------------------------------------------------------------------
+
+def _cfg_itemsize(cfg: ModelConfig) -> int:
+    return 4 if cfg.dtype == "float32" else 2
+
+
+def slabs_for_config(cfg: ModelConfig, slab_bytes: int = DEFAULT_SLAB_BYTES
+                     ) -> int:
+    """Arena slabs a fully resident model needs, from the config alone
+    (the geometry of ``build_view_and_slabs``: per layer, E expert units
+    of 3 matrices + one rest unit, or the whole dense MLP)."""
+    d, isz = cfg.d_model, _cfg_itemsize(cfg)
+    n_mats = 3 if cfg.mlp_kind == "swiglu" else 2
+    if cfg.is_moe:
+        expert_bytes = 3 * d * cfg.d_ff * isz
+        rest_bytes = d * cfg.n_experts * 4                 # f32 router
+        if cfg.n_shared_experts:
+            rest_bytes += 3 * d * cfg.n_shared_experts * cfg.d_ff * isz
+        per_layer = (cfg.n_experts * math.ceil(expert_bytes / slab_bytes)
+                     + math.ceil(rest_bytes / slab_bytes))
+    else:
+        per_layer = math.ceil(n_mats * d * cfg.d_ff * isz / slab_bytes)
+    return cfg.n_layers * per_layer
+
+
+def static_ffn_bytes(cfg: ModelConfig) -> int:
+    """Per-model-static baseline: the model's full FFN bytes resident."""
+    return cfg.param_counts()["ffn"] * _cfg_itemsize(cfg)
+
+
+# ---------------------------------------------------------------------------
 # The arena
 # ---------------------------------------------------------------------------
 
@@ -248,6 +286,7 @@ class WeightArena:
         self.activations = 0
         self.evictions = 0
         self.layer_uploads = 0
+        self.resizes = 0
 
     # ------------------------------------------------------------------
     # registration / allocation
@@ -292,6 +331,26 @@ class WeightArena:
     def is_resident(self, name: str) -> bool:
         return name in self.residency
 
+    def pinned_slabs(self) -> int:
+        """Slabs the elastic rebalancer can never reclaim: every pinned
+        model's full footprint, resident or promised (admission pins a
+        cold model before its activation maps slots)."""
+        return sum(self.views[n].total_slabs
+                   for n in self.pins if n in self.views)
+
+    def min_slot_budget(self) -> int:
+        """Smallest budget a shrink may target: the pinned footprints, and
+        never below the largest registered model (a smaller arena could
+        never serve that model)."""
+        largest = max((v.total_slabs for v in self.views.values()),
+                      default=1)
+        return max(self.pinned_slabs(), largest, 1)
+
+    def residency_by_model(self) -> Dict[str, int]:
+        """Resident slab count per model."""
+        return {name: int(res.slots.size)
+                for name, res in self.residency.items()}
+
     def utilization(self) -> Dict[str, float]:
         return {
             "slot_budget": self.slot_budget,
@@ -303,6 +362,8 @@ class WeightArena:
             "layer_uploads": self.layer_uploads,
             "device_bytes": self.device_bytes(),
             "occupancy": self.resident_slabs / max(self.slot_budget, 1),
+            "pinned_slabs": self.pinned_slabs(),
+            "resizes": self.resizes,
         }
 
     # ------------------------------------------------------------------
@@ -391,8 +452,81 @@ class WeightArena:
             self._pending.pop((name, layer), None)
         self.evictions += 1
 
+    # ------------------------------------------------------------------
+    # elastic boundary: live resize (DESIGN.md §8)
+    # ------------------------------------------------------------------
     def resize(self, new_budget: int) -> Dict[str, int]:
-        raise NotImplementedError("elastic arena resize is not ported yet")
+        """Grow or shrink ``slot_budget`` at a step boundary (reference
+        ``weight_pool.py:507``).
+
+        Growing copies the arena into the prefix of a larger, zero-padded
+        tensor and puts the fresh ids at the FRONT of the (pop-from-the-
+        end) free list, so low slabs keep being preferred.  Shrinking
+        evicts idle unpinned models LRU until the survivors fit, then
+        compacts every survivor into the retained prefix with ONE
+        ``index_select`` into a new tensor and bumps each residency's rev;
+        the static slot tables are refreshed in place.  Raises
+        ``OutOfSlabsError`` when the pinned residents alone do not fit,
+        with no state change beyond completed evictions.
+
+        On a card the device is synchronised first: FFN stages on the
+        weights stream and uploads on the copy stream may still read or
+        write the old tensor, whose memory is freed here.
+        """
+        new_budget = int(new_budget)
+        check(new_budget >= 1, f"slot budget must be >= 1, got {new_budget}")
+        old_budget = self.slot_budget
+        if new_budget == old_budget:
+            return {"slot_budget": old_budget, "evicted": 0, "moved": 0}
+        if self.arena is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if new_budget > old_budget:
+            if self.arena is not None:
+                pad = torch.zeros((new_budget - old_budget, self.slab_bytes),
+                                  dtype=self.arena.dtype, device=self.device)
+                self.arena = torch.cat([self.arena, pad])
+            self.free_list = list(range(new_budget - 1, old_budget - 1, -1)) \
+                + self.free_list
+            self.slot_budget = new_budget
+            self.resizes += 1
+            return {"slot_budget": new_budget, "evicted": 0, "moved": 0}
+
+        # --- shrink: evict idle LRU until the survivors fit -------------
+        evicted = 0
+        while self.resident_slabs > new_budget:
+            idle = sorted((r.last_used, n) for n, r in self.residency.items()
+                          if n not in self.pins)
+            if not idle:
+                raise OutOfSlabsError(
+                    f"cannot shrink arena to {new_budget} slabs: "
+                    f"{self.resident_slabs} resident and every resident "
+                    f"model is pinned (pinned: {sorted(self.pins)})")
+            self.evict(idle[0][1])
+            evicted += 1
+        # compact survivors into [0, new_budget) in name order
+        old_ids: List[int] = []
+        for name in sorted(self.residency):
+            old_ids.extend(int(s) for s in self.residency[name].slots.ravel())
+        k = len(old_ids)
+        perm = np.zeros(new_budget, np.int64)
+        perm[:k] = old_ids
+        if self.arena is not None:
+            self.arena = self.arena.index_select(
+                0, torch.from_numpy(perm).to(self.device))
+        next_id = 0
+        for name in sorted(self.residency):
+            res = self.residency[name]
+            n = res.slots.size
+            res.slots = np.arange(next_id, next_id + n,
+                                  dtype=np.int32).reshape(res.slots.shape)
+            res.rev = self._next_rev()
+            next_id += n
+            if name in self._tables:
+                self.slot_table(name)          # refreshed in place
+        self.free_list = list(range(new_budget - 1, k - 1, -1))
+        self.slot_budget = new_budget
+        self.resizes += 1
+        return {"slot_budget": new_budget, "evicted": evicted, "moved": k}
 
     # ------------------------------------------------------------------
     # uploads (slow path, overlapped with compute on a card)

@@ -4,6 +4,7 @@
   python -m repro_torch.launch.serve --device cuda --full-width --max-new 32
   python -m repro_torch.launch.serve --device cpu        # small, on the CPU
   python -m repro_torch.launch.serve --device cpu --no-lowering
+  python -m repro_torch.launch.serve --device cpu --elastic
 
 Port of the engine path of ``src/repro/launch/serve.py``: colocates
 ``PAPER_COLOC_SET`` (at smoke scale by default, or with ``--full-width``
@@ -12,9 +13,10 @@ at the configs' published widths with the depths of
 reports decode TBT percentiles and pool statistics.  Runs on the card
 unless ``--device cpu`` is given.  ``--no-lowering`` serves through the
 host-driven step (per-layer dispatches, K=1) and, with the default
-``--pipeline``, the layer pipeline scheduler.  The reference's other
-flags (dry-run, prefix cache, elastic, observability, SLO, flight
-recorder) belong to parts not ported yet and raise.
+``--pipeline``, the layer pipeline scheduler.  ``--elastic`` turns on
+the online KV<->weights rebalancer (``ElasticConfig()``, DESIGN.md §8).
+The reference's other flags (dry-run, prefix cache, observability, SLO,
+flight recorder) belong to parts not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import argparse
 from typing import Dict, Optional
 
 from repro_torch.configs import PAPER_COLOC_SET, get_config, get_smoke_config
-from repro_torch.configs.base import EngineConfig, ModelConfig
+from repro_torch.configs.base import ElasticConfig, EngineConfig, ModelConfig
 
 #: Depth each coloc model is cut to at published width: weights of about
 #: 12.5, 5.9 and 1.2 GB in bf16 (embeddings included), ~20 GB together.
@@ -33,8 +35,7 @@ FULL_WIDTH_DEPTHS: Dict[str, int] = {
 }
 
 _NOT_PORTED = ("arch", "shape", "strategy", "dry_run", "multi_pod", "cache",
-               "elastic", "metrics_out", "trace_out", "slo",
-               "flight_record_out")
+               "metrics_out", "trace_out", "slo", "flight_record_out")
 
 
 def coloc_models(full_width: bool) -> Dict[str, ModelConfig]:
@@ -69,8 +70,9 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--strategy", default=None)
     ap.add_argument("--dry-run", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--elastic", action="store_true",
+                    help="enable the online KV<->weights rebalancer")
     ap.add_argument("--cache", action="store_true")
-    ap.add_argument("--elastic", action="store_true")
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--trace-out", default=None)
     ap.add_argument("--slo", action="append", default=None)
@@ -91,9 +93,10 @@ def main(argv: Optional[list] = None) -> None:
     engine = CrossPoolEngine(
         models, page_budget=args.page_budget, max_batch=4, max_ctx=max_ctx,
         device=args.device,
-        config=EngineConfig(mode=EngineMode(
-            pipeline=args.pipeline, lowering=args.lowering,
-            decode_steps_per_dispatch=args.decode_steps)))
+        config=EngineConfig(
+            mode=EngineMode(pipeline=args.pipeline, lowering=args.lowering,
+                            decode_steps_per_dispatch=args.decode_steps),
+            elastic=ElasticConfig() if args.elastic else None))
     reqs = trace_mod.make_requests(
         list(models), rps_per_model=args.rps, horizon_s=args.horizon,
         kind="sharegpt", scale_tokens=1.0 if args.full_width else 0.1,
@@ -106,7 +109,7 @@ def main(argv: Optional[list] = None) -> None:
           f"on {engine.device} (pipeline={args.pipeline}, "
           f"lowering={args.lowering}, "
           f"decode_steps={args.decode_steps}, "
-          f"full_width={args.full_width})")
+          f"full_width={args.full_width}, elastic={args.elastic})")
     stats = engine.run(reqs)
     print(f"tokens out: {stats.tokens_out}  virtual wall: {stats.wall_s:.2f}s "
           f"throughput: {stats.throughput:.1f} tok/s")
@@ -115,6 +118,9 @@ def main(argv: Optional[list] = None) -> None:
           f"{percentile(stats.tbt, 99) * 1e3:.1f} ms")
     print(f"admission: {engine.admission.stats}")
     print(f"pool: {engine.virt.utilization()}")
+    if engine.rebalancer is not None:
+        print(f"elastic: {len(stats.rebalance_events)} moves applied; "
+              f"{engine.rebalancer.snapshot()}")
     print(f"straggler steps flagged: {stats.slow_steps}")
 
 

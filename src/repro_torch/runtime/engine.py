@@ -39,10 +39,19 @@ when no card is present; ``device="cpu"`` runs the plain PyTorch
 versions of the kernels and no graphs.  On a card every decode graph is
 captured when the engine is built (a failed capture raises; nothing runs
 the eager body instead), into one memory pool the engine's graphs share.
+
+With ``config.elastic`` the KV/weights split is no longer frozen
+(DESIGN.md §8): per-step telemetry feeds a windowed Eq. (1)-(2) re-plan,
+and at the step boundary, after completions, the rebalancer may resize
+the two pools — the KV pool shrinks through the host swap tier (cold
+pages of idle requests fault back in on next touch), the arena by
+evicting idle models, total device bytes conserved.  A move gives the
+pool or the arena a new tensor, so every split model's decode graph is
+captured again right there, before its next replay.
+
 What is not ported yet raises ``NotImplementedError`` at construction:
-the elastic rebalancer, the prefix cache, SLO monitoring, the flight
-recorder, the sanitizer, observers, and the audio and sliding-window
-families.
+the prefix cache, SLO monitoring, the flight recorder, the sanitizer,
+observers, and the audio and sliding-window families.
 """
 from __future__ import annotations
 
@@ -62,6 +71,7 @@ from repro_torch.core.admission import (AdmissionController, AdmissionStats,
                                         PendingRequest)
 from repro_torch.core.control import (DecodeGraph, HostDrivenStep,
                                       MultiStepFusedStep, StreamingPrefill)
+from repro_torch.core.elastic import ElasticRebalancer
 from repro_torch.core.pipeline import InflightBatch, LayerPipelineScheduler
 from repro_torch.core.pools import build_pools
 from repro_torch.core.virtualizer import (DEFAULT_PAGE_BYTES, KVVirtualizer,
@@ -72,8 +82,9 @@ from repro_torch.models.transformer import init_params
 from repro_torch.runtime.request import Phase, Request
 from repro_torch.runtime.sampler import sample
 from repro_torch.runtime.session import (HandleState, PrefillBatcher,
-                                         PrefillGroup, RequestHandle,
-                                         TokenEvent)
+                                         PrefillGroup, RebalanceEvent,
+                                         RequestHandle, TokenEvent)
+from repro_torch.runtime.telemetry import DemandTelemetry
 
 
 @dataclass
@@ -100,6 +111,10 @@ class EngineStats:
         default_factory=list)
     admission: Optional[AdmissionStats] = None
     weights_pool: Dict[str, float] = field(default_factory=dict)
+    # applied elastic boundary moves (empty when elastic is off)
+    rebalance_events: List[RebalanceEvent] = field(default_factory=list)
+    # telemetry + rebalancer snapshot folded in by finalize()
+    elastic: Dict[str, float] = field(default_factory=dict)
 
     @property
     def throughput(self) -> float:
@@ -466,7 +481,6 @@ class CrossPoolEngine:
                  device="cuda"):
         config = config or EngineConfig()
         for name, value in (
-                ("the elastic rebalancer", config.elastic is not None),
                 ("the prefix cache",
                  config.cache is not None and config.cache.enabled),
                 ("the sanitizer", config.sanitize
@@ -518,6 +532,15 @@ class CrossPoolEngine:
         any_split = any(p.stage_fns is not None for p in self.pooled.values())
         self.arena = self.w_pool.arena if any_split else None
         self.admission = AdmissionController(self.virt, arena=self.arena)
+        # the elastic boundary (DESIGN.md §8): windowed demand telemetry
+        # and the step-boundary rebalancer, both None on a frozen split
+        self.telemetry: Optional[DemandTelemetry] = None
+        self.rebalancer: Optional[ElasticRebalancer] = None
+        if config.elastic is not None and self.arena is not None:
+            self.telemetry = DemandTelemetry(models, config.elastic)
+            self.rebalancer = ElasticRebalancer(
+                self.virt, self.arena, admission=self.admission,
+                telemetry=self.telemetry, cfg=config.elastic, seed=seed)
         on_card = self.device.type == "cuda"
         # host mode on a card: FFN stages run on the weights stream
         self.w_stream = (torch.cuda.Stream(self.device)
@@ -573,6 +596,8 @@ class CrossPoolEngine:
                              f"submitted")
         self._submitted[req.request_id] = req
         self._window.add(req.request_id)
+        if self.telemetry is not None:
+            self.telemetry.note_arrival(req.model, self.now)
         outcome = self._admit(req, self.now)
         if outcome == "admitted":
             req.admit_time = self.now
@@ -627,6 +652,66 @@ class CrossPoolEngine:
                 if req is not None and req.done:
                     runner.release(slot)
                     self._finish(req, self.now)
+        # the elastic boundary: no block is in flight, so page tables,
+        # slot tables and decode graphs can all be remapped here
+        if self.telemetry is not None:
+            self._observe_and_rebalance()
+
+    def _observe_and_rebalance(self) -> None:
+        """Fold this step into the telemetry window and let the
+        rebalancer repartition the device-byte boundary if the windowed
+        Eq. (1)-(2) estimate says so (reference ``engine.py:971``); then
+        capture again every decode graph whose pool or arena moved."""
+        self.telemetry.observe(self.now, self.virt, self.arena,
+                               self.admission)
+        protected: Dict[int, int] = {}
+        live: Optional[Dict[str, list]] = None
+        if self.rebalancer.would_evaluate():
+            # slotted requests with their REMAINING declared output: the
+            # KV shrink floor reserves their whole lifetime, as admission
+            # did
+            protected = {
+                req.request_id: max(req.max_new_tokens - req.generated, 1)
+                for runner in self.runners.values()
+                for req in runner.slots if req is not None}
+            live = {}
+            for req in self.waiting:
+                live.setdefault(req.model, []).append(
+                    (req.prompt_tokens, req.max_new_tokens))
+            for runner in self.runners.values():
+                for req in runner.slots:
+                    if req is not None:
+                        live.setdefault(req.model, []).append(
+                            (req.prompt_tokens, req.max_new_tokens))
+            # queued requests are exactly what the old split could not
+            # admit: the clearest demand signal
+            for q in self.admission.queues.values():
+                for p in q:
+                    live.setdefault(p.model, []).append(
+                        (p.prompt_tokens, p.expected_output))
+        decision = self.rebalancer.step(self.now, protected=protected,
+                                        live_requests=live)
+        # an aborted move may have resized one pool already: the check is
+        # by address, whatever the decision
+        for runner in self.runners.values():
+            if runner.fused is not None:
+                runner.fused.recapture(self.virt.pool)
+        if decision is None:
+            return
+        # the budgets just changed: re-drain the front door now, so a
+        # session whose load was all queued behind the old split makes
+        # progress this step
+        self._drain_front_door()
+        self.stats.rebalance_events.append(RebalanceEvent(
+            step=decision.step, time=decision.now,
+            page_budget=(decision.old_page_budget, decision.new_page_budget),
+            slot_budget=(decision.old_slot_budget, decision.new_slot_budget),
+            kv_delta_bytes=(decision.new_page_budget
+                            - decision.old_page_budget)
+            * self.virt.page_bytes,
+            swapped_out=decision.swapped_out,
+            evicted_models=decision.evicted_models,
+            reason=decision.reason))
 
     def cancel(self, handle: Union[RequestHandle, int]) -> bool:
         """Abort a submitted request, returning its resources in one host
@@ -682,6 +767,9 @@ class CrossPoolEngine:
                           for t in self._submitted[rid].tbt_samples()]
         if self.arena is not None:
             self.stats.weights_pool = self.arena.utilization()
+        if self.telemetry is not None:
+            self.stats.elastic = self.telemetry.snapshot()
+            self.stats.elastic.update(self.rebalancer.snapshot())
         return self.stats
 
     def run(self, requests: List[Request], *,
@@ -713,9 +801,10 @@ class CrossPoolEngine:
 
     def _try_activate(self, req: Request) -> bool:
         """Residency gate for the prefill batcher: map a cold model's
-        slabs (no upload — prefill streams them in); False keeps the
-        request waiting until pinned models finish.  Fallback families
-        never enter the arena."""
+        slabs (no upload — prefill streams them in) and fault the
+        request's swapped pages back in; False keeps the request waiting
+        (until pinned models finish, or pages free up).  Fallback
+        families never enter the arena."""
         if self.arena is None or not self.runners[req.model].paged:
             return True
         try:
@@ -725,6 +814,13 @@ class CrossPoolEngine:
                     > self.arena.slot_budget:
                 raise
             return False
+        # pages a shrink pushed to the host tier while the request waited
+        # fault back in HERE, where deferral is graceful: one free page
+        # for each swapped entry, or the request keeps waiting
+        if self.virt.requests[req.request_id].n_swapped \
+                > self.virt.free_pages:
+            return False
+        self.virt.ensure_resident(req.request_id)
         return True
 
     def _admit(self, req: Request, now: float) -> str:
@@ -738,6 +834,9 @@ class CrossPoolEngine:
     def _finish(self, req: Request, now: float) -> None:
         req.phase = Phase.FINISHED
         req.finish_time = now
+        if self.telemetry is not None:
+            self.telemetry.note_finish(req.model, req.prompt_tokens,
+                                       req.generated, req.admit_time, now)
         self.virt.release_request(req.request_id)
         self.admission.finish(req.model)      # drops the weight pin too
         handle = self.handles.get(req.request_id)

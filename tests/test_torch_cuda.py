@@ -742,3 +742,10 @@ def test_graph_survives_evict_and_reactivate(cuda, smoke):
     elsewhere, serves the same tokens and still equals the eager body."""
     first = smoke.evict_check(torch)
     assert len(first[0]) == 6
+
+
+def test_replay_over_a_moved_buffer_raises_until_recaptured(cuda, smoke):
+    """After a resize moved the pool, then the arena, a decode block's
+    replay raises; ``recapture`` captures it over the new tensors, and
+    then a replay equals the eager body."""
+    smoke.moved_graph_check(torch)

@@ -169,13 +169,21 @@ def test_pool_row_ops_match():
 
 
 def test_swap_tier_and_resize_are_not_ported():
-    _, tv = _virts(budget=8)
-    tv.register_request(0, MOE, 3)
-    with pytest.raises(NotImplementedError):
-        tv.swap_out(0)
-    with pytest.raises(NotImplementedError):
-        tv.resize(16)
-    assert tv.ensure_resident(0) == 0
+    """Named for when the port raised here; the swap tier and resize are
+    ported now: a swap-out, a grow, a shrink and the fault-in leave the
+    reference's tables and free lists (``tests/test_torch_elastic.py``
+    holds the full sequences)."""
+    jv, tv = _virts(budget=8)
+    for v in (jv, tv):
+        v.register_request(0, MOE, 3)
+        assert v.ensure_resident(0) == 0
+        assert v.swap_out(0) > 0
+        v.resize(16)
+        v.resize(4)
+        assert v.ensure_resident(0) > 0
+    _same_state(jv, tv)
+    assert tv.swap_free == jv.swap_free
+    assert tv.utilization() == jv.utilization()
 
 
 # ---------------------------------------------------------------------------
