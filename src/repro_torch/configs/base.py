@@ -354,9 +354,10 @@ class ElasticConfig:
 class CacheConfig:
     """Knobs for the radix-tree prefix cache over the shared KV pool.
 
-    Pure data, interpreted by ``repro.core.prefix_cache`` and the engine.
-    Disabled by default: with ``enabled=False`` the engine is byte-for-byte
-    the pre-cache engine (no tree, no refcounts, no extra device work).
+    Pure data, interpreted by ``repro_torch.core.prefix_cache`` and the
+    engine.  Disabled by default: with ``enabled=False`` the engine is
+    byte-for-byte the pre-cache engine (no tree, no refcounts, no extra
+    device work).
 
     ``max_pages_fraction`` bounds the DEVICE pages the tree may retain
     beyond live requests (as a fraction of the live page budget); inserts

@@ -11,14 +11,20 @@ thrashing the arena's LRU.  Admission takes the request's arena pin;
 
 Every verdict reads the live page and slab budgets (the elastic
 rebalancer resizes the pools in place) and holds ``reserve_pages`` free
-pages back: the swap tier's fault-in headroom.  The reference's
-prefix-cache discount is not ported yet.
+pages back: the swap tier's fault-in headroom.
+
+With a prefix cache attached (``cache``), admission is cache-aware
+(DESIGN.md §11): a request's matched prefix maps the tree's pages
+read-only, so device-resident cached chunks are a page DISCOUNT, and the
+tree's unshared LRU chunks are shed before a request is queued.
 """
 from __future__ import annotations
 
 import collections
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional
+
+import numpy as np
 
 from repro_torch.core.virtualizer import KVVirtualizer
 from repro_torch.core.weight_pool import OutOfSlabsError, WeightArena
@@ -32,6 +38,17 @@ class PendingRequest:
     expected_output: int
     arrival_time: float
     enqueue_time: float = 0.0
+    # prefix-cache inputs, filled by the engine: real prompt ids (None =
+    # synthetic, never cached), the request's opt-out and its prefill
+    # bucket (half of the cache key)
+    prompt_ids: Optional[np.ndarray] = None
+    cache: bool = True
+    bucket: int = 0
+    # prefix-cache outputs, set by ``try_admit`` on success: the fork (the
+    # cached tokens mapped from the tree) and the cached prefix's
+    # captured MoE routing [fork, L, k] (None for a dense model)
+    cached_tokens: int = 0
+    prefix_routes: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -81,6 +98,8 @@ class AdmissionController:
         # the elastic rebalancer's pressure signal: free pages held back
         # from admission (fault-in headroom for pages in the swap tier)
         self.reserve_pages: int = 0
+        # the prefix cache (``core.prefix_cache.PrefixCache``) or None
+        self.cache = None
         self.stats = AdmissionStats()
 
     def offer(self, req: PendingRequest, now: float) -> str:
@@ -132,18 +151,78 @@ class AdmissionController:
     def try_admit(self, req: PendingRequest) -> bool:
         """Admit iff BOTH budgets hold: KV pages for the prompt (+ reserved
         output), ``reserve_pages`` held back, AND arena reachability for a
-        cold model.  Takes the request's arena pin on success."""
+        cold model.  Takes the request's arena pin on success.
+
+        With a prefix cache, an eligible request (real ids, in its
+        bucket) first probes the tree (reference ``admission.py:176``):
+        the fork is ``min(matched, prompt - 1)`` (the suffix pass makes
+        the first token's logits), device-resident full chunks are a
+        discount, a swapped fork chunk a surcharge.  On a deficit the
+        tree sheds that many pages and the discount is taken again from
+        the chunks' new state.  Only once both budgets hold are swapped
+        chunks faulted in and the request registered on them."""
         expect = req.expected_output if self.reserve_output else 0
-        if self.virt.admission_deficit(req.model, req.prompt_tokens, expect,
-                                       reserve=self.reserve_pages) > 0:
+        cache = self.cache
+        view = self.virt.views.get(req.model)
+        eligible = (cache is not None and req.cache
+                    and req.prompt_ids is not None
+                    and view is not None and view.n_kv_layers > 0
+                    and 0 < req.prompt_tokens <= req.bucket)
+        fork, nodes, n_full, rem = 0, [], 0, 0
+        if eligible:
+            matched, nodes = cache.match_prefix(req.model, req.bucket,
+                                                req.prompt_ids)
+            fork = min(matched, req.prompt_tokens - 1)
+            if fork > 0 and self.virt.configs[req.model].is_moe and any(
+                    n.routes is None for n in nodes):
+                fork = 0      # an MoE suffix needs the routing to replay
+            n_full, rem = divmod(fork, view.tokens_per_page) if fork \
+                else (0, 0)
+
+        def discount() -> int:
+            if fork == 0:
+                return 0
+            resident = sum(1 for n in nodes[:n_full] if not n.swapped)
+            cow_swapped = rem and nodes[n_full].swapped
+            return view.n_kv_layers * (resident - (1 if cow_swapped else 0))
+
+        def deficit() -> int:
+            return self.virt.admission_deficit(
+                req.model, req.prompt_tokens, expect,
+                reserve=self.reserve_pages, discount_pages=discount())
+
+        short = deficit()
+        if short > 0 and cache is not None:
+            # the tree's unshared LRU pages are reclaimable: shed them
+            # before cache retention queues a request a cache-off engine
+            # would admit (the shed may swap chunks this match uses)
+            cache.shed(short)
+            short = deficit()
+        if short > 0:
             self._last_block = "pages"
             return False
         if not self._weights_pressure_ok(req.model):
             self._last_block = "weights"
             return False
         self._last_block = ""
-        self.virt.register_request(req.request_id, req.model,
-                                   req.prompt_tokens)
+        if fork > 0:
+            used = nodes[:n_full + (1 if rem else 0)]
+            cache.fault_chunks(used)
+            self.virt.register_request_with_prefix(
+                req.request_id, req.model, req.prompt_tokens,
+                [n.pages for n in nodes[:n_full]],
+                nodes[n_full].pages if rem else None)
+            routes = [n.routes for n in used]
+            if routes and all(r is not None for r in routes):
+                req.prefix_routes = np.concatenate(routes, axis=0)[:fork]
+        else:
+            self.virt.register_request(req.request_id, req.model,
+                                       req.prompt_tokens)
+        req.cached_tokens = fork
+        if eligible:
+            # once per registration: a queued retry that fails the budget
+            # never counts twice
+            cache.record_admission(req.model, req.prompt_tokens, fork)
         self.inflight[req.model] += 1
         if self.arena is not None and req.model in self.arena.views:
             self.arena.pin(req.model)

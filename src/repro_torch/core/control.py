@@ -12,7 +12,9 @@ eagerly; it is the same code, not a fallback.
 * ``StreamingPrefill`` — the prompt phase: per layer, full-sequence
   attention, the async upload of layer L+1's weight slabs behind it, the
   layer's prompt KV written into the shared paged pool, then the FFN
-  gathered out of the arena once layer L's slabs have landed.
+  gathered out of the arena once layer L's slabs have landed.  It can
+  capture the prompt's MoE routing, and ``suffix`` prefills only the
+  uncached tail of a prefix-cache hit (DESIGN.md §11).
 * ``PagedFusedStep`` — lowering ON, one token: embed, every layer's paged
   attention + FFN, the logits and an optional ``postprocess`` in one
   replay.
@@ -22,8 +24,6 @@ eagerly; it is the same code, not a fallback.
   issues its attention stage and its FFN stage from the host, 2L+2
   dispatches a token.  On a card the FFN stages run on a second stream,
   the weights stream, and hidden states cross by ``pools.transfer``.
-
-Not ported yet: the prefix-cache ``suffix`` pass.
 """
 from __future__ import annotations
 
@@ -52,60 +52,126 @@ def logit_index(true_len: Union[int, Sequence[int]], device=None
 
 
 def run_ffn(pooled: PooledModel, ffn_in: torch.Tensor, layer: int,
-            w_stream=None) -> torch.Tensor:
+            w_stream=None, ffn: Optional[Callable] = None) -> torch.Tensor:
     """The weights-pool half of one layer: wait for the layer's slabs,
-    gather them out of the arena and run the FFN.  With ``w_stream`` (the
-    host-driven lowering on a card) it runs on that stream: ``ffn_in``
-    must have crossed to it already (``transfer``, A-to-F) and the output
-    crosses back (F-to-A), so the result is ready for the calling (KV)
-    stream either way."""
+    gather them out of the arena and run the FFN (``ffn(arena,
+    slot_table, ffn_in, layer)``, the model's ``ffn_stage`` unless
+    given).  With ``w_stream`` (the host-driven lowering on a card) it
+    runs on that stream: ``ffn_in`` must have crossed to it already
+    (``transfer``, A-to-F) and the output crosses back (F-to-A), so the
+    result is ready for the calling (KV) stream either way."""
     name, arena = pooled.cfg.name, pooled.arena
-    fns = pooled.stage_fns
+    ffn = ffn or pooled.stage_fns.ffn_stage
     if w_stream is None:
         arena.wait_layer(name, layer)
-        return fns.ffn_stage(arena.arena, arena.slot_table(name), ffn_in,
-                             layer)
+        return ffn(arena.arena, arena.slot_table(name), ffn_in, layer)
     kv_stream = torch.cuda.current_stream(ffn_in.device)
     with torch.cuda.stream(w_stream):
         arena.wait_layer(name, layer, w_stream)
-        out = fns.ffn_stage(arena.arena, arena.slot_table(name), ffn_in,
-                            layer)
+        out = ffn(arena.arena, arena.slot_table(name), ffn_in, layer)
         return transfer(out, kv_stream)
 
 
 class StreamingPrefill:
     """Arena-bounded prompt-phase execution with streamed weight uploads
     (DESIGN.md §6).  ``w_stream``: where the FFN stages run (host mode on
-    a card), as ``run_ffn``."""
+    a card), as ``run_ffn``.
+
+    With ``capture_routes`` (an MoE model) a pass also records each
+    layer's top-k expert choice, read back ONCE at the end (a prefill
+    may read the device, a decode body never does):
+    ``captured_routes`` [S, L, k] numpy int32, None otherwise."""
 
     def __init__(self, pooled: PooledModel, w_stream=None):
         self.pooled = pooled
         self.w_stream = w_stream
+        self.captured_routes: Optional[np.ndarray] = None
 
-    def __call__(self, tokens: torch.Tensor, true_len, pool: torch.Tensor,
-                 writer=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens [B,S] prompt ids; ``true_len`` the unpadded length (an
-        int, or one per row); ``writer(layer, layer_kv, pool) -> pool``
-        stores one layer's prompt KV in the shared pool.  Returns
-        (logits [B,V], pool)."""
+    def _run(self, tokens: torch.Tensor, logit_idx, pool: torch.Tensor,
+             writer, attn: Callable, ffn: Callable, capture_routes: bool
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The per-layer loop both passes share: ``attn(x, layer) -> (x,
+        ffn_in, layer_kv)`` on the KV side, ``ffn`` on the weights side
+        (as ``run_ffn``'s)."""
         name = self.pooled.cfg.name
         arena = self.pooled.arena
         fns = self.pooled.stage_fns
         p_kv = self.pooled.kv_params
+        route = fns.prefill_route if capture_routes else None
+        captured: List[torch.Tensor] = []
+        self.captured_routes = None
         arena.activate(name, upload=False)
         arena.prefetch_layer(name, 0)        # first FFN never stalls long
+
+        def ffn_and_route(abuf, table, h, layer):
+            if route is not None:
+                captured.append(route(abuf, table, h, layer))
+            return ffn(abuf, table, h, layer)
+
         x = fns.prefill_embed(p_kv, tokens)
         for layer in range(fns.n_layers):
-            x, ffn_in, layer_kv = fns.prefill_attn(p_kv, x, layer)
+            x, ffn_in, layer_kv = attn(x, layer)
             # layer L+1's slabs upload while layer L's attention runs
             arena.prefetch_layer(name, layer + 1)
             if writer is not None:
                 pool = writer(layer, layer_kv, pool)
             x = fns.combine(x, run_ffn(
                 self.pooled, transfer(ffn_in, self.w_stream), layer,
-                self.w_stream))
-        return fns.prefill_logits(p_kv, x,
-                                  logit_index(true_len, tokens.device)), pool
+                self.w_stream, ffn_and_route))
+        logits = fns.prefill_logits(p_kv, x, logit_idx)
+        if captured:
+            # [L][1,S,k] -> [S, L, k]: one read-back for the whole pass
+            self.captured_routes = torch.stack(
+                [c[0] for c in captured], dim=1).cpu().numpy()
+        return logits, pool
+
+    def __call__(self, tokens: torch.Tensor, true_len, pool: torch.Tensor,
+                 writer=None, *, capture_routes: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens [B,S] prompt ids; ``true_len`` the unpadded length (an
+        int, or one per row); ``writer(layer, layer_kv, pool) -> pool``
+        stores one layer's prompt KV in the shared pool.  Returns
+        (logits [B,V], pool)."""
+        fns, p_kv = self.pooled.stage_fns, self.pooled.kv_params
+        return self._run(
+            tokens, logit_index(true_len, tokens.device), pool, writer,
+            lambda x, layer: fns.prefill_attn(p_kv, x, layer),
+            fns.ffn_stage, capture_routes)
+
+    def suffix(self, tokens: torch.Tensor, true_suffix_len: int, fork: int,
+               kv_extent: int, prefix_rows: torch.Tensor, pool: torch.Tensor,
+               writer=None, slot_offsets: Optional[np.ndarray] = None,
+               capacity: int = 0, capture_routes: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Prefill ONLY the uncached suffix of a prompt (reference
+        ``control.py:227``).
+
+        tokens: [1, S_suf] suffix ids zero-padded to the suffix bucket;
+        ``true_suffix_len`` its unpadded length (the logits row);
+        ``fork`` the cached prefix's length; ``kv_extent`` the PRODUCING
+        pass's prefill bucket; ``prefix_rows`` the ``[n_kv_layers, fork,
+        *kv_shape]`` stack of ``KVVirtualizer.gather_prompt_rows``;
+        ``writer`` stores the suffix's KV from token ``fork`` on (through
+        the same pool write as a full pass); ``slot_offsets`` [L, E] the
+        prefix's routed-pair counts and ``capacity`` the producing pass's
+        expert capacity (MoE).  The offsets go to the device once.
+        Returns (logits [1, V], pool)."""
+        fns, p_kv = self.pooled.stage_fns, self.pooled.kv_params
+        if fns.suffix_attn is None:
+            raise ValueError(f"{self.pooled.cfg.name} has no suffix path")
+        device = tokens.device
+        B, S_suf = tokens.shape
+        positions = (torch.arange(S_suf, device=device)[None, :]
+                     + int(fork)).expand(B, S_suf)
+        offsets = None if slot_offsets is None else torch.tensor(
+            np.asarray(slot_offsets, np.int32), device=device)
+        return self._run(
+            tokens, logit_index(true_suffix_len, device), pool, writer,
+            lambda x, layer: fns.suffix_attn(p_kv, x, prefix_rows, positions,
+                                             layer, int(kv_extent)),
+            lambda abuf, table, h, layer: fns.suffix_ffn(
+                abuf, table, h, layer, offsets, int(capacity)),
+            capture_routes)
 
 
 # ---------------------------------------------------------------------------

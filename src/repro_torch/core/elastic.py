@@ -99,6 +99,10 @@ class ElasticRebalancer:
         self.skipped_cooldown = 0
         self.skipped_no_signal = 0
         self.aborted = 0
+        # the prefix cache (``core.prefix_cache.PrefixCache``) or None:
+        # its hit-token fraction discounts the re-plan's KV demand, since
+        # cached prompt tokens map shared tree pages (DESIGN.md §11)
+        self.cache = None
 
     # ------------------------------------------------------------------
     # floors and clamps
@@ -214,12 +218,16 @@ class ElasticRebalancer:
         if not specs:
             self.skipped_no_signal += 1
             return None
+        cached_frac = 0.0
+        if self.cache is not None and self.cache.prompt_tokens_seen:
+            cached_frac = (self.cache.hit_tokens
+                           / self.cache.prompt_tokens_seen)
         try:
             plan = replan_split(
                 specs, self.total_bytes, page_bytes=self.virt.page_bytes,
                 slab_bytes=self.arena.slab_bytes if self.arena else 0,
                 quantile=cfg.quantile, window_s=cfg.window_s,
-                seed=self.seed)
+                seed=self.seed, cached_token_fraction=cached_frac)
         except (ValueError, ZeroDivisionError):
             self.skipped_no_signal += 1
             return None

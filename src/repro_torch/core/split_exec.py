@@ -9,9 +9,13 @@ The attention stage reads and writes KV through the virtualizer's shared
 paged pool (``(x, pool, page_tables, lengths)``); the FFN stage takes
 ``(arena, slot_table, ffn_input, layer)`` and unpacks the layer's slabs —
 no per-model FFN tree exists on the device.  Supported families: dense /
-moe / vlm with GQA or MLA attention.  The prefix-cache stages
-(``suffix_attn``, ``suffix_ffn``, ``prefill_route``) are not ported yet
-and stay ``None``.
+moe / vlm with GQA or MLA attention.  The prefix cache's suffix prefill
+(DESIGN.md §11) has its own stages: ``suffix_attn`` attends over the
+cached prefix KV read from the pool plus the suffix's fresh KV at the
+producing pass's extent, ``suffix_ffn`` runs the FFN with the producing
+pass's expert capacity and the prefix's slot offsets, and
+``prefill_route`` recomputes the router's top-k choice so a prompt's
+routing can be captured.
 """
 from __future__ import annotations
 
@@ -43,8 +47,13 @@ class StageFns(NamedTuple):
     #                           logit_index int | [B])         -> [B,V]
     n_layers: int
     suffix_attn: Optional[Callable] = None
+    # (params, x [B,S_suf,D], prefix_rows [L, fork, *kv_shape],
+    #  positions [B,S_suf], layer, kv_extent) -> (x, ffn_input, layer_kv)
     suffix_ffn: Optional[Callable] = None
+    # (arena, slot_table, ffn_input, layer, slot_offsets [L,E] | None,
+    #  capacity) -> ffn_out
     prefill_route: Optional[Callable] = None
+    # (arena, slot_table, ffn_input, layer) -> experts [B,S,k] (MoE only)
 
 
 def _layer_params(params: Dict, layer: int) -> Dict:
@@ -132,9 +141,54 @@ def make_stage_fns(cfg: ModelConfig, view: ModelView,
         x_last = layers.rms_norm(x_last, params["final_norm"], cfg.norm_eps)
         return layers.unembed(params["embed"], x_last)[:, 0]
 
+    # ---- the prefix cache's suffix prefill (DESIGN.md §11) --------------
+    # The cached prefix KV (read from the pool) is concatenated with the
+    # suffix's fresh KV at the PRODUCING pass's reduction extent; the FFN
+    # keeps the producing pass's expert capacity and starts each expert's
+    # slots behind the prefix's routed pairs, so every suffix row is the
+    # full pass's row.
+
+    def suffix_attn(params, x, prefix_rows, positions, layer, kv_extent):
+        p_l = _layer_params(params, layer)
+        rows = prefix_rows[layer]
+        if cfg.attention == "mla":
+            r = cfg.mla.kv_lora_rank
+            prefix_a, prefix_b = rows[None, :, :r], rows[None, :, r:]
+            suffix = attn.mla_suffix
+        else:
+            prefix_a, prefix_b = rows[None, :, 0], rows[None, :, 1]
+            suffix = attn.gqa_suffix
+        h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
+        out, layer_kv = suffix(p_l["attn"], cfg, h, positions, prefix_a,
+                               prefix_b, kv_extent)
+        x = x + out
+        ffn_in = layers.rms_norm(x, p_l["ln2"], cfg.norm_eps)
+        return x, ffn_in, layer_kv
+
+    def suffix_ffn(arena, slot_table, ffn_in, layer, slot_offsets,
+                   capacity):
+        p_l = w_view.unpack_layer(arena, slot_table[layer])
+        if not cfg.is_moe:
+            return layers.apply_mlp(p_l["mlp"], ffn_in, cfg.mlp_kind)
+        # a suffix group is one row, so the plain dispatch is the
+        # producing pass's
+        offset = None if slot_offsets is None else slot_offsets[layer]
+        return moe_mod.apply_moe(p_l["moe"], ffn_in, cfg, capacity=capacity,
+                                 slot_offset=offset)[0]
+
+    prefill_route = None
+    if cfg.is_moe:
+        def prefill_route(arena, slot_table, ffn_in, layer):
+            # the router lives in the layer's "rest" unit: its slabs only
+            p_l = w_view.unpack_layer(arena, slot_table[layer], kind="rest")
+            B, S, d = ffn_in.shape
+            _, experts, _ = moe_mod.route(p_l["moe"], ffn_in.reshape(-1, d),
+                                          cfg)
+            return experts.reshape(B, S, cfg.experts_per_token)
+
     return StageFns(embed, attn_stage, ffn_stage, combine, logits,
                     prefill_embed, prefill_attn, prefill_logits,
-                    cfg.n_layers)
+                    cfg.n_layers, suffix_attn, suffix_ffn, prefill_route)
 
 
 def split_params(params: Dict, cfg: ModelConfig) -> Tuple[Dict, Dict]:

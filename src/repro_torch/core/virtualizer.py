@@ -30,8 +30,15 @@ compacted into the retained prefix of a new pool tensor with ONE
 resize gives the pool a new tensor, so a decode graph captured over the
 old one must be captured again (``core/control.py``).
 
-Not ported yet: prefix sharing (refcounts) and the prefix cache's
-second-chance tier.
+Prefix sharing (DESIGN.md §11): a page may have several holders — the
+radix tree (``core/prefix_cache.py``) and every request that maps a
+cached chunk read-only — counted in a sparse refcount dict (absent =
+one holder); a page is freed only at refcount 0.  A request that forks
+mid-chunk gets a private copy of the fork page in every layer
+(``register_request_with_prefix``), so decode writes past the fork never
+touch the shared original.  Tree pages shed to the swap tier as a second
+chance (``swap_pages_out`` / ``fault_pages_in``), and the tree is the
+``cache_provider`` that idle swap and compaction consult.
 """
 from __future__ import annotations
 
@@ -214,6 +221,13 @@ class KVVirtualizer:
         self.swap_in_pages = 0
         self.resizes = 0
         self.swapped_now = 0           # entries currently in the host tier
+        # per-page holder counts of shared pages (prefix sharing): absent
+        # = refcount 1, so the cache-off path never touches the dict
+        self._refs: Dict[int, int] = {}
+        # the prefix cache (``core.prefix_cache.PrefixCache``): it holds
+        # device pages outside any request table, which idle swap and
+        # compaction must see (``shed`` / ``device_pages`` / ``remap``)
+        self.cache_provider = None
 
     # ------------------------------------------------------------------
     # accounting
@@ -227,22 +241,56 @@ class KVVirtualizer:
         return len(self.free_list)
 
     def can_admit(self, model: str, prompt_tokens: int,
-                  expected_output: int = 0, reserve: int = 0) -> bool:
+                  expected_output: int = 0, reserve: int = 0,
+                  discount_pages: int = 0) -> bool:
         """``reserve`` pages are held back from admission: the elastic
-        rebalancer's fault-in headroom for the swap tier."""
+        rebalancer's fault-in headroom for the swap tier.
+        ``discount_pages``: the prefix cache's credit (see
+        ``admission_deficit``)."""
         return self.admission_deficit(model, prompt_tokens, expected_output,
-                                      reserve) == 0
+                                      reserve, discount_pages) == 0
 
     def admission_deficit(self, model: str, prompt_tokens: int,
-                          expected_output: int = 0, reserve: int = 0) -> int:
+                          expected_output: int = 0, reserve: int = 0,
+                          discount_pages: int = 0) -> int:
         """Pages MISSING for this admission (0 = admissible), with
-        ``reserve`` free pages held back."""
+        ``reserve`` free pages held back.  ``discount_pages`` is the
+        prefix cache's net credit: pages the request maps read-only from
+        device-resident cached chunks instead of taking them from the
+        free list (negative when a swapped copy-on-write source must be
+        faulted in on top of the cold need)."""
         view = self.views[model]
         cfg = self.configs[model]
         need = view.pages_for(prompt_tokens + expected_output) \
             if view.n_kv_layers else 0
+        need = max(need - discount_pages, 0)
         need += math.ceil(cfg.state_bytes_per_request() / self.page_bytes)
         return max(need - (self.free_pages - max(reserve, 0)), 0)
+
+    # ------------------------------------------------------------------
+    # per-page refcounts (prefix sharing, DESIGN.md §11)
+    # ------------------------------------------------------------------
+    def page_refs(self, page: int) -> int:
+        return self._refs.get(page, 1)
+
+    def retain_page(self, page: int) -> None:
+        """Add one holder to a device page (the prefix tree or a sharing
+        request); a page fresh from ``_take`` has an implicit count of 1."""
+        check(page >= 0, f"cannot retain non-device entry {page}")
+        self._refs[page] = self._refs.get(page, 1) + 1
+
+    def _unref(self, page: int) -> bool:
+        """Drop one holder; True when that was the last one (the caller
+        returns the page to the free list)."""
+        c = self._refs.get(page, 1) - 1
+        if c == 0:
+            self._refs.pop(page, None)
+            return True
+        if c == 1:
+            self._refs.pop(page, None)    # back to the implicit sole owner
+        else:
+            self._refs[page] = c
+        return False
 
     # ------------------------------------------------------------------
     # slow path: map / unmap
@@ -283,6 +331,89 @@ class KVVirtualizer:
         self.requests[request_id] = req
         self.touch(request_id)
         return req
+
+    def register_request_with_prefix(
+            self, request_id: int, model: str, prompt_tokens: int,
+            shared_chunks: Sequence[Sequence[int]],
+            cow_chunk: Optional[Sequence[int]] = None) -> RequestPages:
+        """Map a request whose leading prompt chunks are cached
+        (reference ``virtualizer.py:393``).
+
+        ``shared_chunks[c][layer]``: device ids of cached FULL chunks,
+        mapped read-only (one more holder each).  ``cow_chunk[layer]``:
+        the fork chunk's source pages, copied into FRESH pages of every
+        layer (copy-on-write: the request writes its suffix into its own
+        copy, the cached original is never written).  Every id must be
+        device-resident: the caller faults swapped chunks in first.
+        Atomic like ``register_request``: all fresh pages come from ONE
+        ``_take``, and retains and the copy happen only after it."""
+        view = self.views[model]
+        cfg = self.configs[model]
+        L = view.n_kv_layers
+        chunks = math.ceil(max(prompt_tokens, 1) / view.tokens_per_page) \
+            if L else 0
+        n_shared = len(shared_chunks)
+        check(n_shared + (1 if cow_chunk is not None else 0) <= chunks,
+              f"prefix covers {n_shared} shared chunks"
+              f"{' + a copy-on-write chunk' if cow_chunk is not None else ''}"
+              f" but the prompt only spans {chunks}")
+        state_pages = math.ceil(cfg.state_bytes_per_request()
+                                / self.page_bytes)
+        fresh_per_layer = chunks - n_shared
+        pages = self._take(fresh_per_layer * L + state_pages)
+        req = RequestPages(request_id, model)
+        for layer in range(L):
+            fresh = pages[layer * fresh_per_layer:
+                          (layer + 1) * fresh_per_layer]
+            req.tables.append(
+                [shared_chunks[c][layer] for c in range(n_shared)] + fresh)
+        if state_pages:
+            req.state_pages = pages[L * fresh_per_layer:]
+        for c in range(n_shared):
+            for layer in range(L):
+                self.retain_page(shared_chunks[c][layer])
+        if cow_chunk is not None:
+            # chunk ``n_shared`` of every layer is the private fork copy:
+            # one row gather + one row scatter, byte for byte
+            srcs = [int(cow_chunk[layer]) for layer in range(L)]
+            check(all(s >= 0 for s in srcs),
+                  f"copy-on-write source chunk is not device-resident: "
+                  f"{srcs}")
+            if self.pool is not None:
+                dsts = [req.tables[layer][n_shared] for layer in range(L)]
+                _pool_row_scatter(self.pool, self._ids(dsts),
+                                  _pool_row_gather(self.pool,
+                                                   self._ids(srcs)))
+        req.tokens = prompt_tokens
+        req.rev = self._next_rev()
+        self.requests[request_id] = req
+        self.touch(request_id)
+        return req
+
+    def gather_prompt_rows(self, model: str, request_id: int,
+                           n_tokens: int) -> torch.Tensor:
+        """KV rows of tokens ``[0, n_tokens)`` of EVERY layer, read through
+        the request's own page table: ``[n_kv_layers, n_tokens,
+        *kv_shape]``, one gather (reference ``virtualizer.py:453``).
+        Shared pages are read in place."""
+        view = self.views[model]
+        req = self.requests[request_id]
+        check(req.n_swapped == 0,
+              f"request {request_id} has swapped pages; call ensure_resident "
+              f"before gathering prefix KV")
+        toks = np.arange(n_tokens)
+        chunk = toks // view.tokens_per_page
+        pages = np.stack([np.asarray(req.tables[layer], np.int64)[chunk]
+                          for layer in range(view.n_kv_layers)])
+        slots = toks % view.tokens_per_page
+        # the pool as [pages, tokens_per_page, per_token] (a view: each
+        # page's slack elements are skipped, nothing is copied)
+        typed = self.pool.as_strided(
+            (self.page_budget, view.tokens_per_page, view.per_token_elems),
+            (self.page_elems, view.per_token_elems, 1))
+        out = typed[torch.from_numpy(pages).to(self.device),
+                    torch.from_numpy(slots).to(self.device)[None, :]]
+        return out.reshape((view.n_kv_layers, n_tokens) + view.kv_shape)
 
     def pages_needed_for_extend(self, request_id: int,
                                 new_tokens: int = 1) -> int:
@@ -376,7 +507,10 @@ class KVVirtualizer:
         req = self.requests.pop(request_id)
         n = 0
         for _, _, page in req.device_entries():
-            self.free_list.append(page)
+            # a shared page survives until its LAST holder (other sharing
+            # requests or the prefix tree) lets go
+            if self._unref(page):
+                self.free_list.append(page)
             n += 1
         for _, _, slot in req.swapped_entries():
             self.swap_free.append(slot)
@@ -429,7 +563,9 @@ class KVVirtualizer:
         for c in range(chunks):
             for layer in range(view.n_kv_layers):
                 p = req.tables[layer][c]
-                if p >= 0:
+                # a shared page never swaps through one of its requests:
+                # the other holders (the tree, sharing requests) read it
+                if p >= 0 and self.page_refs(p) == 1:
                     victims.append((req.tables[layer], c, p))
         for i, p in enumerate(req.state_pages):
             if p >= 0:
@@ -438,11 +574,7 @@ class KVVirtualizer:
             victims = victims[:max_pages]
         if not victims:
             return 0
-        slots = self._swap_slots(len(victims))
-        if self.pool is not None:
-            rows = _pool_row_gather(self.pool,
-                                    self._ids(p for _, _, p in victims))
-            self.swap_buffer.index_copy_(0, torch.tensor(slots), rows.cpu())
+        slots = self._to_swap([p for _, _, p in victims])
         for (tab, i, page), slot in zip(victims, slots):
             tab[i] = _swap_encode(slot)
             self.free_list.append(page)
@@ -463,11 +595,7 @@ class KVVirtualizer:
             return 0
         entries = list(req.swapped_entries())
         pages = self._take(len(entries))
-        if self.pool is not None:
-            rows = self.swap_buffer.index_select(
-                0, torch.tensor([s for _, _, s in entries]))
-            _pool_row_scatter(self.pool, self._ids(pages),
-                              rows.to(self.device))
+        self._from_swap([s for _, _, s in entries], pages)
         for (tab, i, slot), page in zip(entries, pages):
             tab[i] = page
             self.swap_free.append(slot)
@@ -478,11 +606,77 @@ class KVVirtualizer:
         self.touch(request_id)
         return len(entries)
 
+    def _to_swap(self, pages: Sequence[int]) -> List[int]:
+        """Copy device pages into fresh host-tier slots (one device
+        gather, one synchronous copy to the host); returns the slots."""
+        slots = self._swap_slots(len(pages))
+        if self.pool is not None:
+            rows = _pool_row_gather(self.pool, self._ids(pages))
+            self.swap_buffer.index_copy_(0, torch.tensor(slots), rows.cpu())
+        return slots
+
+    def _from_swap(self, slots: Sequence[int], pages: Sequence[int]) -> None:
+        """Copy host-tier slots back into device pages."""
+        if self.pool is not None:
+            rows = self.swap_buffer.index_select(0, torch.tensor(list(slots)))
+            _pool_row_scatter(self.pool, self._ids(pages),
+                              rows.to(self.device))
+
+    def swap_pages_out(self, pages: Sequence[int]) -> List[int]:
+        """Move table-less device pages (prefix-tree chunks) to the host
+        tier; returns their swapped encodings in order (reference
+        ``virtualizer.py:710``).  The caller holds every page ALONE
+        (refcount 1, in no request table): the second-chance shed.
+        Contents move with the page, so a later fault-in is bit-exact."""
+        if not pages:
+            return []
+        check(all(p >= 0 and self.page_refs(p) == 1 for p in pages),
+              f"swap_pages_out requires sole-owned device pages: "
+              f"{list(pages)}")
+        slots = self._to_swap(pages)
+        self.free_list.extend(pages)
+        self.swapped_now += len(pages)
+        self.swap_out_pages += len(pages)
+        return [_swap_encode(s) for s in slots]
+
+    def fault_pages_in(self, encoded: Sequence[int]) -> List[int]:
+        """Fault host-tier pages back onto the device (a second-chance
+        cache hit); returns the fresh device ids in order.  Atomic: ONE
+        ``_take``, so ``OutOfPagesError`` leaves the swap tier intact."""
+        if not encoded:
+            return []
+        check(all(e <= _SWAP_BASE for e in encoded),
+              f"fault_pages_in takes swapped encodings only: "
+              f"{list(encoded)}")
+        slots = [_swap_decode(e) for e in encoded]
+        pages = self._take(len(slots))
+        self._from_swap(slots, pages)
+        self.swap_free.extend(slots)
+        self.swapped_now -= len(slots)
+        self.swap_in_pages += len(slots)
+        return pages
+
+    def release_cached_page(self, entry: int) -> bool:
+        """Drop the prefix tree's hold on one entry (a device id or a
+        swapped encoding); True when a DEVICE page was freed."""
+        if entry <= _SWAP_BASE:
+            self.swap_free.append(_swap_decode(entry))
+            self.swapped_now -= 1
+            return False
+        if self._unref(entry):
+            self.free_list.append(entry)
+            self.unmap_events += 1
+            return True
+        return False
+
     def swap_out_idle(self, need: int, protected=()) -> int:
         """Free ``need`` device pages by swapping the coldest pages of the
         longest-idle requests (skipping ``protected`` ids); returns how
-        many were actually freed."""
+        many were actually freed.  The prefix cache sheds FIRST: its
+        refcount-1 LRU chunks hold no work in flight."""
         freed = 0
+        if self.cache_provider is not None and need > 0:
+            freed = self.cache_provider.shed(need)
         protected = set(protected)
         order = sorted(self.requests.values(), key=lambda r: r.last_touch)
         for req in order:
@@ -538,7 +732,8 @@ class KVVirtualizer:
                 f"still mapped after swapping {swapped} (protected "
                 f"requests hold too many pages)")
         # compact survivors into [0, new_budget): requests by id, then
-        # layer-major table order
+        # layer-major table order, then tree-held pages in no table; a
+        # shared page moves ONCE (one new id for all its holders)
         old_ids: List[int] = []
         mapping: Dict[int, int] = {}
         entries: List[Tuple[List[int], int, int]] = []
@@ -548,12 +743,21 @@ class KVVirtualizer:
                 if page not in mapping:
                     mapping[page] = len(old_ids)
                     old_ids.append(page)
+        if self.cache_provider is not None:
+            for page in self.cache_provider.device_pages():
+                if page not in mapping:
+                    mapping[page] = len(old_ids)
+                    old_ids.append(page)
         k = len(old_ids)
         if self.pool is not None:
             self.pool = _pool_row_gather(
                 self.pool, self._ids(old_ids + [0] * (new_budget - k)))
         for tab, i, page in entries:
             tab[i] = mapping[page]
+        self._refs = {mapping[p]: c for p, c in self._refs.items()
+                      if p in mapping}
+        if self.cache_provider is not None:
+            self.cache_provider.remap(mapping)
         for req in self.requests.values():
             req.rev = self._next_rev()
         self._batch_cache.clear()
@@ -666,6 +870,28 @@ class KVVirtualizer:
             batch_index=batch_index, mla=len(view.kv_shape) == 1)
 
     # ------------------------------------------------------------------
+    def accounting_snapshot(self) -> Dict[str, int]:
+        """Integer holder-class partition of the page budget (reference
+        ``virtualizer.py:1048``), with the refcount summary: pages with
+        more than one holder and their total holder count."""
+        live = set()
+        for req in self.requests.values():
+            for _, _, page in req.device_entries():
+                live.add(page)
+        return {
+            "page_budget": self.page_budget,
+            "free_pages": self.free_pages,
+            "mapped_pages": self.mapped_pages,
+            "request_pages": len(live),
+            "swapped_now": self.swapped_now,
+            "peak_mapped": self.peak_mapped,
+            "swap_out_pages": self.swap_out_pages,
+            "swap_in_pages": self.swap_in_pages,
+            "resizes": self.resizes,
+            "shared_pages": sum(1 for c in self._refs.values() if c > 1),
+            "ref_total": sum(self._refs.values()),
+        }
+
     def utilization(self) -> Dict[str, float]:
         frag = 0.0
         for req in self.requests.values():

@@ -128,20 +128,28 @@ class ModelArenaView:
     def total_slabs(self) -> int:
         return self.n_layers * self.slabs_per_layer
 
-    def unpack_layer(self, arena: torch.Tensor, row: torch.Tensor) -> Dict:
+    def unpack_layer(self, arena: torch.Tensor, row: torch.Tensor,
+                     kind: Optional[str] = None) -> Dict:
         """Rebuild one layer's FFN param tree from the arena.
 
         ``arena``: [slot_budget, slab_bytes] uint8; ``row``:
         [slabs_per_layer] slab ids.  ONE ``index_select`` for the whole
         layer, then slices and ``view(dtype)`` bitcasts (views, no further
         copies).  A leaf's byte offset is a multiple of its itemsize by
-        construction, which ``view(dtype)`` requires.
+        construction, which ``view(dtype)`` requires.  ``kind`` ("rest"
+        or "expert") gathers that unit's slabs only: the prefix cache's
+        route capture reads the router without the experts.
         """
-        rows = arena.index_select(0, row.long())   # [slabs_per_layer, slab]
+        if kind is None:
+            rows = arena.index_select(0, row.long())   # [slabs_per_layer, .]
         out: Dict = {}
         for u in self.units:
-            chunk = rows[u.slab_offset:
-                         u.slab_offset + u.count * u.slabs_per_unit]
+            if kind is not None and u.kind != kind:
+                continue
+            span = slice(u.slab_offset,
+                         u.slab_offset + u.count * u.slabs_per_unit)
+            chunk = (rows[span] if kind is None
+                     else arena.index_select(0, row[span].long()))
             chunk = chunk.view(u.count, u.slabs_per_unit * self.slab_bytes)
             for leaf in u.leaves:
                 val = chunk[:, leaf.offset:leaf.offset + leaf.nbytes] \

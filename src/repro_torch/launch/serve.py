@@ -5,6 +5,7 @@
   python -m repro_torch.launch.serve --device cpu        # small, on the CPU
   python -m repro_torch.launch.serve --device cpu --no-lowering
   python -m repro_torch.launch.serve --device cpu --elastic
+  python -m repro_torch.launch.serve --device cpu --cache
 
 Port of the engine path of ``src/repro/launch/serve.py``: colocates
 ``PAPER_COLOC_SET`` (at smoke scale by default, or with ``--full-width``
@@ -15,16 +16,22 @@ unless ``--device cpu`` is given.  ``--no-lowering`` serves through the
 host-driven step (per-layer dispatches, K=1) and, with the default
 ``--pipeline``, the layer pipeline scheduler.  ``--elastic`` turns on
 the online KV<->weights rebalancer (``ElasticConfig()``, DESIGN.md §8).
-The reference's other flags (dry-run, prefix cache, observability, SLO,
-flight recorder) belong to parts not ported yet and raise.
+``--cache`` turns on the radix-tree prefix cache (DESIGN.md §11): each
+request gets real prompt ids whose head is a 64-token per-model "system
+prompt", and the cache's snapshot is printed.  The reference's other
+flags (dry-run, observability, SLO, flight recorder) belong to parts not
+ported yet and raise.
 """
 from __future__ import annotations
 
 import argparse
 from typing import Dict, Optional
 
+import numpy as np
+
 from repro_torch.configs import PAPER_COLOC_SET, get_config, get_smoke_config
-from repro_torch.configs.base import ElasticConfig, EngineConfig, ModelConfig
+from repro_torch.configs.base import (CacheConfig, ElasticConfig,
+                                      EngineConfig, ModelConfig)
 
 #: Depth each coloc model is cut to at published width: weights of about
 #: 12.5, 5.9 and 1.2 GB in bf16 (embeddings included), ~20 GB together.
@@ -34,7 +41,7 @@ FULL_WIDTH_DEPTHS: Dict[str, int] = {
     "minicpm3-4b": 4,
 }
 
-_NOT_PORTED = ("arch", "shape", "strategy", "dry_run", "multi_pod", "cache",
+_NOT_PORTED = ("arch", "shape", "strategy", "dry_run", "multi_pod",
                "metrics_out", "trace_out", "slo", "flight_record_out")
 
 
@@ -72,7 +79,10 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--elastic", action="store_true",
                     help="enable the online KV<->weights rebalancer")
-    ap.add_argument("--cache", action="store_true")
+    ap.add_argument("--cache", action="store_true",
+                    help="enable the radix-tree prefix cache over the KV "
+                         "pool: requests get real prompt ids sharing a "
+                         "per-model system prefix")
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--trace-out", default=None)
     ap.add_argument("--slo", action="append", default=None)
@@ -96,7 +106,8 @@ def main(argv: Optional[list] = None) -> None:
         config=EngineConfig(
             mode=EngineMode(pipeline=args.pipeline, lowering=args.lowering,
                             decode_steps_per_dispatch=args.decode_steps),
-            elastic=ElasticConfig() if args.elastic else None))
+            elastic=ElasticConfig() if args.elastic else None,
+            cache=CacheConfig(enabled=args.cache)))
     reqs = trace_mod.make_requests(
         list(models), rps_per_model=args.rps, horizon_s=args.horizon,
         kind="sharegpt", scale_tokens=1.0 if args.full_width else 0.1,
@@ -105,11 +116,24 @@ def main(argv: Optional[list] = None) -> None:
         # published-width prompts fit the context with their outputs
         for r in reqs:
             r.prompt_tokens = min(r.prompt_tokens, max_ctx - r.max_new_tokens)
+    if args.cache:
+        # synthetic prompts are never cached: give each request REAL ids
+        # whose head is a per-model "system prompt", so same-bucket
+        # requests share a cacheable prefix
+        rng = np.random.default_rng(0)
+        system = {n: rng.integers(0, models[n].vocab_size, 64)
+                  .astype(np.int32) for n in models}
+        for r in reqs:
+            n = r.prompt_tokens
+            ids = np.concatenate([system[r.model][:n], rng.integers(
+                0, models[r.model].vocab_size, max(0, n - 64))])
+            r.prompt_ids = ids[:n].astype(np.int32)
     print(f"serving {len(reqs)} requests across {len(models)} cold models "
           f"on {engine.device} (pipeline={args.pipeline}, "
           f"lowering={args.lowering}, "
           f"decode_steps={args.decode_steps}, "
-          f"full_width={args.full_width}, elastic={args.elastic})")
+          f"full_width={args.full_width}, elastic={args.elastic}, "
+          f"cache={args.cache})")
     stats = engine.run(reqs)
     print(f"tokens out: {stats.tokens_out}  virtual wall: {stats.wall_s:.2f}s "
           f"throughput: {stats.throughput:.1f} tok/s")
@@ -118,6 +142,8 @@ def main(argv: Optional[list] = None) -> None:
           f"{percentile(stats.tbt, 99) * 1e3:.1f} ms")
     print(f"admission: {engine.admission.stats}")
     print(f"pool: {engine.virt.utilization()}")
+    if engine.cache is not None:
+        print(f"prefix cache: {stats.prefix_cache}")
     if engine.rebalancer is not None:
         print(f"elastic: {len(stats.rebalance_events)} moves applied; "
               f"{engine.rebalancer.snapshot()}")

@@ -2,13 +2,15 @@
 
 Port of the parts of ``src/repro/models/attention.py`` the serving paths
 run: whole-sequence attention for prefill (``gqa_full`` with the
-reference's ``impl`` routes, ``mla_full``), one-token decode against the
-shared paged pool (``gqa_paged_decode`` / ``mla_paged_decode``,
-``attention.py:256-334``) for the split-execution path, and one-token
-decode against a contiguous per-model cache (``write_kv_cache`` /
-``gqa_decode``, ``:193-253``) for the fused fallback families.  Decode
-writes the new token's KV IN PLACE (into the pool, or the cache layer)
-and reads the KV back through the hand-written kernels.
+reference's ``impl`` routes, ``mla_full``), the prefix cache's
+suffix-only prefill (``gqa_suffix`` / ``mla_suffix``), one-token decode
+against the shared paged pool (``gqa_paged_decode`` /
+``mla_paged_decode``, ``attention.py:256-334``) for the split-execution
+path, and one-token decode against a contiguous per-model cache
+(``write_kv_cache`` / ``gqa_decode``, ``:193-253``) for the fused
+fallback families.  Decode writes the new token's KV IN PLACE (into the
+pool, or the cache layer) and reads the KV back through the
+hand-written kernels.
 """
 from __future__ import annotations
 
@@ -104,6 +106,54 @@ def gqa_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         mask = causal_mask(positions, positions)[:, None, None, :, :]
         out = attention_core(q, k, v, mask, scale)
+    B, S = x.shape[:2]
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"], (k, v)
+
+
+def _pad_to_extent(arr: torch.Tensor, extent: int) -> torch.Tensor:
+    """Zero-pad or truncate axis 1 to exactly ``extent`` rows
+    (``attention.py:135``).  The suffix passes pin their KV reduction
+    extent to the PRODUCING pass's bucket, so softmax sums run over the
+    same span: pad rows are masked (exact 0 weight) and truncated rows
+    are pad rows no real query attends."""
+    T = arr.shape[1]
+    if T >= extent:
+        return arr[:, :extent]
+    pad = arr.new_zeros((arr.shape[0], extent - T) + tuple(arr.shape[2:]))
+    return torch.cat([arr, pad], dim=1)
+
+
+def gqa_suffix(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, prefix_k: torch.Tensor,
+               prefix_v: torch.Tensor, kv_extent: int
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Suffix-only prefill attention against a cached prompt prefix
+    (``attention.py:153-188``).
+
+    x: [B,S_suf,D] post-norm hidden of the UNCACHED suffix tokens;
+    positions: [B,S_suf] absolute (``fork + i``); prefix_k / prefix_v:
+    [B,fork,KV,hd] read from the pool (post-RoPE, the full pass's rows);
+    ``kv_extent``: the producing pass's prefill bucket.  The suffix K/V
+    rows are the full pass's (same per-row math), the concatenated KV is
+    cut or zero-padded to the full pass's extent, and the causal mask
+    over absolute positions masks every row that differs.  Takes the
+    plain ``attention_core``, the route the split path's full prefill
+    takes.  Returns (out [B,S_suf,D_model], (k_suf, v_suf) for the
+    pool)."""
+    q, k, v = _project_qkv(p, cfg, x)
+    if cfg.rope_theta > 0:
+        sin, cos = layers.rope_sin_cos(positions, cfg.head_dim,
+                                       cfg.rope_theta)
+        q = layers.apply_rope(q, sin, cos)
+        k = layers.apply_rope(k, sin, cos)
+    k_all = _pad_to_extent(torch.cat([prefix_k.to(k.dtype), k], dim=1),
+                           kv_extent)
+    v_all = _pad_to_extent(torch.cat([prefix_v.to(v.dtype), v], dim=1),
+                           kv_extent)
+    kv_pos = torch.arange(kv_extent, device=x.device)[None, :]
+    mask = causal_mask(positions, kv_pos)[:, None, None, :, :]
+    out = attention_core(q, k_all, v_all, mask, cfg.head_dim ** -0.5)
     B, S = x.shape[:2]
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return out @ p["wo"], (k, v)
@@ -282,6 +332,40 @@ def mla_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
+    out = attention_core(q, k, v, mask, scale)
+    out = out.reshape(B, S, H * m.v_head_dim)
+    return out @ p["wo"], (latent, k_rope)
+
+
+def mla_suffix(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, prefix_latent: torch.Tensor,
+               prefix_rope: torch.Tensor, kv_extent: int
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Suffix-only expanded-form MLA against a cached prompt prefix
+    (``attention.py:454-491``): prefix_latent [B,fork,r] / prefix_rope
+    [B,fork,rp] are the pool's rows (post-norm latent, post-RoPE key).
+    The same argument as ``gqa_suffix``: the ``latent @ wuk`` / ``@ wuv``
+    expansions are per row, so padded rows only give masked scores.
+    Returns (out, (latent_suf, rope_suf) for the pool)."""
+    m = cfg.mla
+    B, S = x.shape[:2]
+    H = cfg.n_heads
+    q_nope, q_rope = _mla_queries(p, cfg, x, positions)
+    latent, k_rope = _mla_latent(p, cfg, x, positions)
+    latent_all = _pad_to_extent(
+        torch.cat([prefix_latent.to(latent.dtype), latent], dim=1),
+        kv_extent)
+    rope_all = _pad_to_extent(
+        torch.cat([prefix_rope.to(k_rope.dtype), k_rope], dim=1), kv_extent)
+    k_nope = (latent_all @ p["wuk"]).reshape(B, kv_extent, H,
+                                             m.qk_nope_head_dim)
+    v = (latent_all @ p["wuv"]).reshape(B, kv_extent, H, m.v_head_dim)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    kv_pos = torch.arange(kv_extent, device=x.device)[None, :]
+    mask = causal_mask(positions, kv_pos)[:, None, None, :, :]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, rope_all[:, :, None, :].expand(
+        B, kv_extent, H, m.qk_rope_head_dim)], dim=-1)
     out = attention_core(q, k, v, mask, scale)
     out = out.reshape(B, S, H * m.v_head_dim)
     return out @ p["wo"], (latent, k_rope)

@@ -69,7 +69,8 @@ def route(p: Dict, x: torch.Tensor, cfg: ModelConfig
     return gates, experts.to(torch.int32), probs
 
 
-def dispatch_indices(experts: torch.Tensor, n_experts: int, capacity: int
+def dispatch_indices(experts: torch.Tensor, n_experts: int, capacity: int,
+                     offset: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each (token, k) pair's slot within its expert.
 
@@ -77,21 +78,35 @@ def dispatch_indices(experts: torch.Tensor, n_experts: int, capacity: int
     past capacity).  The slot of pair (n,j) is the number of EARLIER
     pairs routed to the same expert, counted in row-major (n, j) order —
     an exclusive cumsum, which decides which pairs are dropped.
+
+    ``offset`` ([E] int) pre-counts pairs routed to each expert by tokens
+    that come BEFORE this call's tokens in the same sequence: the suffix
+    prefill passes the cached prefix's routed-pair counts, so the
+    suffix's slots (and so its drops) land where a full-prompt pass puts
+    them (``moe.py:69-94``).
     """
     N, k = experts.shape
     flat = experts.reshape(-1).long()                        # [N*k]
     onehot = F.one_hot(flat, n_experts).to(torch.int32)      # [N*k, E]
     pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
     slot = pos.gather(1, flat[:, None])[:, 0]
+    if offset is not None:
+        slot = slot + offset.to(device=slot.device, dtype=slot.dtype)[flat]
     keep = slot < capacity
     return slot.reshape(N, k), keep.reshape(N, k)
 
 
 def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
-              capacity: Optional[int] = None
+              capacity: Optional[int] = None,
+              slot_offset: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed expert FFN.  x: [B,S,D] (or [N,D]).  Returns (out same
-    shape, aux — the Switch load-balance loss)."""
+    shape, aux — the Switch load-balance loss).
+
+    ``slot_offset`` ([E]) shifts each expert's dispatch slots as if that
+    many pairs were routed there already (``dispatch_indices``); with the
+    producing pass's ``capacity`` it is the prefix-cached suffix prefill.
+    A pair pushed past capacity is dropped by the keep mask and adds 0."""
     orig_shape = x.shape
     d = cfg.d_model
     xf = x.reshape(-1, d)                                    # [N,D]
@@ -100,7 +115,7 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     C = capacity or expert_capacity(N, cfg)
 
     gates, experts, probs = route(p, xf, cfg)                # [N,k]x2, [N,E]
-    slot, keep = dispatch_indices(experts, E, C)
+    slot, keep = dispatch_indices(experts, E, C, offset=slot_offset)
 
     # ---- dispatch: scatter tokens into [E, C, D] ---------------------------
     flat_expert = experts.reshape(-1).long()                 # [N*k]

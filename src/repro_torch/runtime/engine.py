@@ -49,9 +49,17 @@ evicting idle models, total device bytes conserved.  A move gives the
 pool or the arena a new tensor, so every split model's decode graph is
 captured again right there, before its next replay.
 
+With ``config.cache`` enabled, a radix-tree prefix cache over the shared
+pool (DESIGN.md §11, ``core/prefix_cache.py``) indexes every B=1 prompt
+with real ids after its prefill; a later request with the same prefix
+in the same bucket maps the cached chunks read-only (the fork chunk
+copied on write) and prefills only its suffix, at the producing pass's
+KV extent and MoE expert capacity with the prefix's routing replayed as
+slot offsets.  Off by default, and then nothing of it runs.
+
 What is not ported yet raises ``NotImplementedError`` at construction:
-the prefix cache, SLO monitoring, the flight recorder, the sanitizer,
-observers, and the audio and sliding-window families.
+SLO monitoring, the flight recorder, the sanitizer, observers, and the
+audio and sliding-window families.
 """
 from __future__ import annotations
 
@@ -74,16 +82,19 @@ from repro_torch.core.control import (DecodeGraph, HostDrivenStep,
 from repro_torch.core.elastic import ElasticRebalancer
 from repro_torch.core.pipeline import InflightBatch, LayerPipelineScheduler
 from repro_torch.core.pools import build_pools
+from repro_torch.core.prefix_cache import PrefixCache
 from repro_torch.core.virtualizer import (DEFAULT_PAGE_BYTES, KVVirtualizer,
                                           OutOfPagesError)
 from repro_torch.core.weight_pool import DEFAULT_SLAB_BYTES, OutOfSlabsError
 from repro_torch.models.model import build_model
+from repro_torch.models.moe import expert_capacity
 from repro_torch.models.transformer import init_params
 from repro_torch.runtime.request import Phase, Request
 from repro_torch.runtime.sampler import sample
 from repro_torch.runtime.session import (HandleState, PrefillBatcher,
                                          PrefillGroup, RebalanceEvent,
-                                         RequestHandle, TokenEvent)
+                                         RequestHandle, TokenEvent,
+                                         prompt_bucket)
 from repro_torch.runtime.telemetry import DemandTelemetry
 
 
@@ -115,6 +126,8 @@ class EngineStats:
     rebalance_events: List[RebalanceEvent] = field(default_factory=list)
     # telemetry + rebalancer snapshot folded in by finalize()
     elastic: Dict[str, float] = field(default_factory=dict)
+    # the prefix cache's snapshot, folded in by finalize() (empty = off)
+    prefix_cache: Dict[str, float] = field(default_factory=dict)
 
     @property
     def throughput(self) -> float:
@@ -171,6 +184,11 @@ class ModelRunner:
                                             device=self.device)
         self.fused: Optional[MultiStepFusedStep] = None
         self.decode_graph: Optional[DecodeGraph] = None
+        # the prefix cache's wiring, set by the engine: the shared tree
+        # and the engine's request_id -> (fork, prefix routes) map of
+        # admission outcomes
+        self.prefix_cache: Optional[PrefixCache] = None
+        self.prefix_info: Dict[int, Tuple[int, Optional[np.ndarray]]] = {}
         on_card = self.device.type == "cuda"
         if self.paged:
             self.prefill_step = prefill_step
@@ -236,14 +254,15 @@ class ModelRunner:
     # ------------------------------------------------------------------
     def _group_writer(self, group: PrefillGroup):
         """Per-layer pool writer storing EVERY row's prompt KV into its
-        own request's pages."""
+        own request's pages; a suffix group's rows land from token
+        ``group.fork`` on (0 for a full prompt)."""
 
         def writer(layer, layer_kv, pool):
             for i, (req, n_w) in enumerate(zip(group.requests,
                                                group.n_writes)):
                 pool = self.virt.write_prompt_layer(
                     pool, self.name, req.request_id, layer, layer_kv, n_w,
-                    batch_index=i)
+                    batch_index=i, start=group.fork)
             return pool
 
         return writer
@@ -272,19 +291,97 @@ class ModelRunner:
             raise RuntimeError(f"{self.name}: group of {group.batch_size} "
                                f"for {free} free slots")
 
+    def cache_insert_candidate(self, group: PrefillGroup) -> bool:
+        """Whether this group's committed prompt goes into the prefix
+        tree: B=1 groups with REAL untruncated prompt ids only (a
+        coalesced row's routing is not captured; a synthetic prompt is
+        never cached)."""
+        cache = self.prefix_cache
+        if cache is None or self.name not in cache.models \
+                or group.batch_size != 1:
+            return False
+        req = group.requests[0]
+        return (req.cache and req.prompt_ids is not None
+                and 0 < req.prompt_tokens <= group.bucket)
+
+    def _prefill_suffix(self, group: PrefillGroup, capture: bool):
+        """The uncached suffix pass of a prefix-cache hit: the cached rows
+        are read through the request's (shared) page table and the suffix
+        runs at positions ``[fork, prompt)`` with the producing pass's KV
+        extent and, for MoE, its expert capacity with the prefix's routed
+        pairs as slot offsets — every written row is the full pass's."""
+        req = group.requests[0]
+        fork = group.fork
+        prefix_rows = self.virt.gather_prompt_rows(self.name,
+                                                   req.request_id, fork)
+        slot_offsets, capacity = None, 0
+        if self.cfg.is_moe:
+            routes = self.prefix_info.get(req.request_id, (0, None))[1]
+            if routes is None or len(routes) < fork:
+                raise RuntimeError(
+                    f"{self.name}: request {req.request_id}'s MoE suffix "
+                    f"prefill needs the prefix's captured routing")
+            E = self.cfg.n_experts
+            # the prefix tokens' routed-pair count per expert and layer:
+            # the suffix's slots start behind them, where the full pass's
+            # cumsum put them
+            slot_offsets = np.stack([
+                np.bincount(np.asarray(routes[:fork, layer, :],
+                                       np.int64).ravel(),
+                            minlength=E).astype(np.int32)
+                for layer in range(self.cfg.n_layers)])
+            capacity = expert_capacity(group.bucket, self.cfg)
+        return self.prefill_step.suffix(
+            self._tensor(group.tokens()), group.true_lens(), fork,
+            group.bucket, prefix_rows, self.virt.pool,
+            self._group_writer(group), slot_offsets, capacity,
+            capture_routes=capture)
+
+    def _cache_insert(self, group: PrefillGroup) -> None:
+        """Index a just-committed prompt in the prefix tree: the request's
+        table entries become chunk pages (one more holder each), with the
+        captured MoE routing attached for later suffix passes."""
+        req = group.requests[0]
+        routes = None
+        if self.cfg.is_moe:
+            cap = self.prefill_step.captured_routes
+            if group.fork > 0:
+                pre = self.prefix_info[req.request_id][1]
+                routes = np.concatenate(
+                    [np.asarray(pre[:group.fork]),
+                     cap[:req.prompt_tokens - group.fork]], axis=0)
+            else:
+                routes = cap[:req.prompt_tokens]
+        ids = np.asarray(req.prompt_ids,
+                         np.int32).reshape(-1)[:req.prompt_tokens]
+        rp = self.virt.requests[req.request_id]
+        L = self.view.n_kv_layers
+        n_chunks = math.ceil(req.prompt_tokens / self.view.tokens_per_page)
+        chunk_pages = [[rp.tables[layer][c] for layer in range(L)]
+                       for c in range(n_chunks)]
+        self.prefix_cache.insert(self.name, group.bucket, ids, chunk_pages,
+                                 routes)
+
     def prefill_group(self, group: PrefillGroup) -> List[int]:
         """Execute one coalesced prompt pass (fallback families: one pass
-        per row) and commit each row to a batch slot; returns the slots
-        in row order."""
+        per row; a prefix-cache hit: its suffix pass) and commit each row
+        to a batch slot; returns the slots in row order."""
         self._check_room(group)
         if not self.paged:
             return [self._prefill_row(ids, req)
                     for ids, req in zip(group.ids, group.requests)]
         for req in group.requests:
             self.virt.ensure_resident(req.request_id)
-        logits, self.virt.pool = self.prefill_step(
-            self._tensor(group.tokens()), group.true_lens(), self.virt.pool,
-            self._group_writer(group))
+        insert = self.cache_insert_candidate(group)
+        if group.fork > 0:
+            logits, self.virt.pool = self._prefill_suffix(group, insert)
+        else:
+            logits, self.virt.pool = self.prefill_step(
+                self._tensor(group.tokens()), group.true_lens(),
+                self.virt.pool, self._group_writer(group),
+                capture_routes=insert)
+        if insert:
+            self._cache_insert(group)
         return self._commit_group(group, logits)
 
     def make_prefill_batch(self, group: PrefillGroup,
@@ -481,8 +578,6 @@ class CrossPoolEngine:
                  device="cuda"):
         config = config or EngineConfig()
         for name, value in (
-                ("the prefix cache",
-                 config.cache is not None and config.cache.enabled),
                 ("the sanitizer", config.sanitize
                  or os.environ.get("CROSSPOOL_SANITIZE", "") == "1"),
                 ("SLO monitoring", config.slo is not None),
@@ -532,6 +627,17 @@ class CrossPoolEngine:
         any_split = any(p.stage_fns is not None for p in self.pooled.values())
         self.arena = self.w_pool.arena if any_split else None
         self.admission = AdmissionController(self.virt, arena=self.arena)
+        # the radix-tree prefix cache (DESIGN.md §11), off by default; the
+        # cacheable models are the split subset (a fallback family's
+        # pages are accounting only, it has no pool KV to share).  The
+        # tree registers itself as the virtualizer's cache provider.
+        self.cache: Optional[PrefixCache] = None
+        if config.cache is not None and config.cache.enabled and any_split:
+            self.cache = PrefixCache(
+                self.virt, config.cache,
+                models=[n for n in models
+                        if self.pooled[n].stage_fns is not None])
+            self.admission.cache = self.cache
         # the elastic boundary (DESIGN.md §8): windowed demand telemetry
         # and the step-boundary rebalancer, both None on a frozen split
         self.telemetry: Optional[DemandTelemetry] = None
@@ -541,6 +647,8 @@ class CrossPoolEngine:
             self.rebalancer = ElasticRebalancer(
                 self.virt, self.arena, admission=self.admission,
                 telemetry=self.telemetry, cfg=config.elastic, seed=seed)
+            # cache-aware re-plan: cached prompt tokens map shared pages
+            self.rebalancer.cache = self.cache
         on_card = self.device.type == "cuda"
         # host mode on a card: FFN stages run on the weights stream
         self.w_stream = (torch.cuda.Stream(self.device)
@@ -568,6 +676,13 @@ class CrossPoolEngine:
         }
         self.stats = EngineStats(step_times={n: [] for n in models},
                                  admission=self.admission.stats)
+        # admission-time prefix-cache outcomes of live requests:
+        # request_id -> (fork, the cached prefix's routes); the batcher's
+        # forks and the suffix pass read it
+        self._prefix_info: Dict[int, Tuple[int, Optional[np.ndarray]]] = {}
+        for runner in self.runners.values():
+            runner.prefix_cache = self.cache
+            runner.prefix_info = self._prefix_info
 
         # --- session state -------------------------------------------------
         self.now = 0.0
@@ -607,8 +722,12 @@ class CrossPoolEngine:
             state = HandleState.QUEUED
         else:
             state = HandleState.REJECTED
+        info = self._prefix_info.get(req.request_id)
         handle = RequestHandle(request=req, admission=outcome, state=state,
-                               on_token=on_token, _engine=self)
+                               on_token=on_token,
+                               cached_tokens=info[0] if info else 0,
+                               cache_hit=bool(info and info[0] > 0),
+                               _engine=self)
         self.handles[req.request_id] = handle
         return handle
 
@@ -632,13 +751,23 @@ class CrossPoolEngine:
         for p in self.admission.drain(self.now):
             req = self._submitted[p.request_id]
             req.admit_time = self.now
-            self.handles[req.request_id].state = HandleState.ADMITTED
+            handle = self.handles[req.request_id]
+            handle.state = HandleState.ADMITTED
+            if self.cache is not None:
+                self._prefix_info[p.request_id] = (p.cached_tokens,
+                                                   p.prefix_routes)
+                handle.cached_tokens = p.cached_tokens
+                handle.cache_hit = p.cached_tokens > 0
             self.waiting.append(req)
 
     def _step_phases(self) -> None:
         self._drain_front_door()
+        forks = None
+        if self.cache is not None:
+            forks = {rid: info[0] for rid, info in self._prefix_info.items()
+                     if info[0] > 0}
         groups, self.waiting = self.batcher.plan(
-            self.waiting, self.runners, self.rng, self._try_activate)
+            self.waiting, self.runners, self.rng, self._try_activate, forks)
         if groups:
             self.now = self._prefill_groups(groups, self.now)
         active = [n for n, r in self.runners.items() if r.active]
@@ -740,6 +869,7 @@ class CrossPoolEngine:
                                 if r.request_id != req.request_id]
             self.virt.release_request(req.request_id)
             self.admission.finish(req.model)
+            self._prefix_info.pop(req.request_id, None)
         req.phase = Phase.CANCELLED
         req.finish_time = self.now
         handle.state = HandleState.CANCELLED
@@ -770,6 +900,8 @@ class CrossPoolEngine:
         if self.telemetry is not None:
             self.stats.elastic = self.telemetry.snapshot()
             self.stats.elastic.update(self.rebalancer.snapshot())
+        if self.cache is not None:
+            self.stats.prefix_cache = self.cache.snapshot()
         return self.stats
 
     def run(self, requests: List[Request], *,
@@ -826,7 +958,16 @@ class CrossPoolEngine:
     def _admit(self, req: Request, now: float) -> str:
         pending = PendingRequest(req.request_id, req.model,
                                  req.prompt_tokens, req.max_new_tokens, now)
+        if self.cache is not None:
+            if req.prompt_ids is not None:
+                pending.prompt_ids = np.asarray(req.prompt_ids,
+                                                np.int32).reshape(-1)
+            pending.cache = req.cache
+            pending.bucket = prompt_bucket(req.prompt_tokens, self.max_ctx)
         outcome = self.admission.offer(pending, now)
+        if outcome == "admitted" and self.cache is not None:
+            self._prefix_info[req.request_id] = (pending.cached_tokens,
+                                                 pending.prefix_routes)
         if outcome == "rejected":
             req.phase = Phase.REJECTED
         return outcome
@@ -839,6 +980,7 @@ class CrossPoolEngine:
                                        req.generated, req.admit_time, now)
         self.virt.release_request(req.request_id)
         self.admission.finish(req.model)      # drops the weight pin too
+        self._prefix_info.pop(req.request_id, None)
         handle = self.handles.get(req.request_id)
         if handle is not None:
             handle.state = HandleState.FINISHED
@@ -911,10 +1053,12 @@ class CrossPoolEngine:
             first: Dict[str, PrefillGroup] = {}
             rest: List[PrefillGroup] = []
             for g in groups:
-                # suffix groups stay on the streaming path (the scheduler
-                # has no suffix stage)
-                if (self.runners[g.model].paged and g.model not in first
-                        and g.fork == 0):
+                runner = self.runners[g.model]
+                # suffix groups and tree-insert candidates stay on the
+                # streaming path: the scheduler has no suffix stage and
+                # captures no routes
+                if (runner.paged and g.model not in first and g.fork == 0
+                        and not runner.cache_insert_candidate(g)):
                     first[g.model] = g
                 else:
                     rest.append(g)

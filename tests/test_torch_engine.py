@@ -18,8 +18,8 @@ from repro.runtime.engine import EngineMode as JMode
 from repro.runtime.request import Request as JRequest
 from repro_torch.bridge import params_to_torch
 from repro_torch.configs import get_smoke_config as t_smoke
-from repro_torch.configs.base import (CacheConfig, EngineConfig,
-                                      FlightRecorderConfig, SLOConfig)
+from repro_torch.configs.base import (EngineConfig, FlightRecorderConfig,
+                                      SLOConfig)
 from repro_torch.launch import serve
 from repro_torch.runtime.engine import CrossPoolEngine as TEngine
 from repro_torch.runtime.engine import EngineMode as TMode
@@ -144,15 +144,15 @@ def test_entry_points_raise_without_a_card(coloc):
 
 @pytest.mark.parametrize("kw", [
     dict(config=EngineConfig(slo=SLOConfig())),
-    dict(config=EngineConfig(cache=CacheConfig(enabled=True))),
     dict(config=EngineConfig(sanitize=True)),
     dict(config=EngineConfig(flightrec=FlightRecorderConfig())),
     dict(observer=object()),
 ])
 def test_parts_not_ported_raise(coloc, kw):
-    """The prefix cache, SLO monitoring, the sanitizer, the flight
-    recorder and observers are not ported yet (the elastic rebalancer,
-    once in this list, is: ``tests/test_torch_elastic.py``)."""
+    """SLO monitoring, the sanitizer, the flight recorder and observers
+    are not ported yet (the elastic rebalancer and the prefix cache, once
+    in this list, are: ``tests/test_torch_elastic.py``,
+    ``tests/test_torch_prefix_cache.py``)."""
     _, tm, _ = coloc
     with pytest.raises(NotImplementedError):
         TEngine(tm, page_budget=64, device="cpu", **kw)
@@ -226,7 +226,7 @@ def test_fallback_streams_equal_live_jax_engine(which, k):
         assert ZAMBA not in te.arena.views
 
 
-@pytest.mark.parametrize("flag", [["--slo", "ttft_p99:1.0"], ["--cache"],
+@pytest.mark.parametrize("flag", [["--slo", "ttft_p99:1.0"],
                                   ["--flight-record-out", "record.json"],
                                   ["--dry-run"]])
 def test_serve_flags_not_ported_raise(flag):
