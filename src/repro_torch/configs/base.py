@@ -453,7 +453,7 @@ class EngineConfig:
     prefix cache.  ``None`` fields mean "engine default".
 
     ``sanitize`` attaches the pool shadow-sanitizer
-    (``repro.analysis.sanitizer.PoolSanitizer``): every hook event is
+    (``repro_torch.analysis.sanitizer.PoolSanitizer``): every hook event is
     reconciled against the pool counters and a full structural audit runs
     at each step boundary — pure checking, no behavior change.  The
     ``CROSSPOOL_SANITIZE=1`` environment variable forces it on regardless

@@ -101,11 +101,16 @@ class AdmissionController:
         # the prefix cache (``core.prefix_cache.PrefixCache``) or None
         self.cache = None
         self.stats = AdmissionStats()
+        # the observability sink (``core.hooks.CoreHooks``) or None; its
+        # calls sit one for one beside the ``stats.bump`` sites
+        self.hooks = None
 
     def offer(self, req: PendingRequest, now: float) -> str:
         """Returns 'admitted' | 'queued' | 'rejected'."""
         if self.try_admit(req):
             self.stats.bump(req.model, "admitted")
+            if self.hooks is not None:
+                self.hooks.admission(req.model, "admitted", "")
             return "admitted"
         if len(self.queues[req.model]) < self.max_queue:
             req.enqueue_time = now
@@ -115,8 +120,12 @@ class AdmissionController:
                 self.stats.weight_pressure_queued += 1
             elif self._last_block == "pages":
                 self.stats.page_pressure_queued += 1
+            if self.hooks is not None:
+                self.hooks.admission(req.model, "queued", self._last_block)
             return "queued"
         self.stats.bump(req.model, "rejected")
+        if self.hooks is not None:
+            self.hooks.admission(req.model, "rejected", "")
         return "rejected"
 
     # ------------------------------------------------------------------
@@ -264,6 +273,10 @@ class AdmissionController:
                     q.popleft()
                     self.stats.queue_wait_total += now - head.enqueue_time
                     self.stats.bump(model, "admitted")
+                    if self.hooks is not None:
+                        self.hooks.admission(model, "admitted", "")
+                        self.hooks.admission_wait(
+                            model, now - head.enqueue_time)
                     admitted.append(head)
                     progress = True
         return admitted

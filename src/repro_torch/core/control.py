@@ -283,14 +283,22 @@ def _device_input(value, device) -> torch.Tensor:
     return value.to(device)
 
 
+def _buffers(pool: torch.Tensor, arena: torch.Tensor) -> Tuple:
+    """What a captured graph bakes in of the pool and the arena: their
+    addresses and their shapes (a buffer of another size may come back
+    at a freed one's address)."""
+    return (pool.data_ptr(), tuple(pool.shape),
+            arena.data_ptr(), tuple(arena.shape))
+
+
 class _FusedStep:
     """What the fused steps share: ``body(pool, arena, slot_table,
     **inputs)`` runs eagerly on the CPU and as one replay of its CUDA
     graph on a card.  The graph is captured for one batch size and one
     page-table width (``capture``; at the first call otherwise) over the
     pool and arena it was given; a call with a pool or arena that moved
-    since raises (a stale address would be a wrong answer, not a
-    crash).  After an elastic resize moved either, ``recapture`` (or
+    or changed shape since raises (a stale address would be a wrong
+    answer, not a crash).  After an elastic resize moved either, ``recapture`` (or
     ``release`` and the next call) captures the same body anew over the
     new tensors.  ``captures`` and ``replays`` count over every graph the
     step has had."""
@@ -302,7 +310,8 @@ class _FusedStep:
         self.nonfinite_logits = nonfinite_logits
         self.graph_pool = graph_pool
         self.graph: Optional[DecodeGraph] = None
-        self._ptrs: Optional[Tuple[int, int]] = None
+        #: the captured (pool, arena) buffers: addresses and shapes
+        self._bufs: Optional[Tuple] = None
         self.captures = 0
         self.replays = 0
         #: host seconds of each capture (warm-up included)
@@ -337,7 +346,7 @@ class _FusedStep:
             lambda **kw: self.body(pool, abuf, table, **kw),
             self.inactive_inputs(batch, max_pages, pool.device),
             restore=restore, pool=self.graph_pool)
-        self._ptrs = (pool.data_ptr(), abuf.data_ptr())
+        self._bufs = _buffers(pool, abuf)
         self.captures += 1
         self.capture_s.append(time.perf_counter() - t0)
 
@@ -348,14 +357,14 @@ class _FusedStep:
         if self.graph is not None:
             self.graph.graph.reset()
         self.graph = None
-        self._ptrs = None
+        self._bufs = None
 
     def recapture(self, pool: torch.Tensor) -> bool:
         """If the pool or the arena moved since the capture (an elastic
         resize), capture again for the same batch and table width over
         the current tensors; returns whether it did."""
-        if self.graph is None or self._ptrs == (
-                pool.data_ptr(), self.pooled.arena.arena.data_ptr()):
+        if self.graph is None or self._bufs == _buffers(
+                pool, self.pooled.arena.arena):
             return False
         _, batch, max_pages = self.graph.static["page_tables"].shape
         self.release()
@@ -371,10 +380,11 @@ class _FusedStep:
         if self.graph is None:
             _, batch, max_pages = inputs["page_tables"].shape
             self.capture(batch, max_pages, pool)
-        if (pool.data_ptr(), abuf.data_ptr()) != self._ptrs:
+        if _buffers(pool, abuf) != self._bufs:
             raise RuntimeError(
                 f"{self.pooled.cfg.name}: the KV pool or the weights arena "
-                f"moved since the decode graph was captured")
+                f"moved or changed shape since the decode graph was "
+                f"captured")
         self.replays += 1
         return self.graph(**inputs)
 

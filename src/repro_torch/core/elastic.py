@@ -99,6 +99,9 @@ class ElasticRebalancer:
         self.skipped_cooldown = 0
         self.skipped_no_signal = 0
         self.aborted = 0
+        # the observability sink (``core.hooks.CoreHooks``) or None: fires
+        # once per APPLIED decision, after both pools finished resizing
+        self.hooks = None
         # the prefix cache (``core.prefix_cache.PrefixCache``) or None:
         # its hit-token fraction discounts the re-plan's KV demand, since
         # cached prompt tokens map shared tree pages (DESIGN.md §11)
@@ -288,6 +291,8 @@ class ElasticRebalancer:
             reason="kv_demand" if new_pages > cur_pages
             else "weight_demand")
         self.events.append(decision)
+        if self.hooks is not None:
+            self.hooks.rebalance(decision)
         return decision
 
     # ------------------------------------------------------------------

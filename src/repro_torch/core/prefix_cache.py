@@ -25,8 +25,10 @@ Layout:
     move to the host swap tier instead of being dropped, and a later
     match faults them back bit for bit (``fault_chunks``).
 
-The reference's observability hooks (``core/hooks.py``) are not ported;
-the counters below are what they would read.
+Each counter below has its observability hook (``core/hooks.py``)
+beside it: ``cache_hit`` / ``cache_miss`` per cache-eligible admission,
+``cache_evict`` per shed or evicted chunk, ``cache_fault`` per
+second-chance fault, each after the counter moved.
 """
 from __future__ import annotations
 
@@ -98,6 +100,8 @@ class PrefixCache:
         self.evicted_pages = 0
         self.shed_pages = 0
         self.faulted_pages = 0
+        # the observability sink (``core.hooks.CoreHooks``) or None
+        self.hooks = None
         virt.cache_provider = self
 
     # ------------------------------------------------------------------
@@ -123,11 +127,13 @@ class PrefixCache:
             self._device_pages.difference_update(node.pages)
             node.pages = self.virt.swap_pages_out(node.pages)
             self.shed_pages += n
-            return True
-        if not node.is_leaf:
+        elif node.is_leaf:
+            self._drop_node(node)
+            self.evicted_pages += n
+        else:
             return False
-        self._drop_node(node)
-        self.evicted_pages += n
+        if self.hooks is not None:
+            self.hooks.cache_evict(n)
         return True
 
     def _sheddable(self, node: _Chunk) -> bool:
@@ -201,7 +207,10 @@ class PrefixCache:
             node.pages = self.virt.fault_pages_in(node.pages)
             self._device_pages.update(node.pages)
             n += len(node.pages)
-        self.faulted_pages += n
+        if n:
+            self.faulted_pages += n
+            if self.hooks is not None:
+                self.hooks.cache_fault(n)
         return n
 
     def record_admission(self, model: str, prompt_tokens: int,
@@ -212,8 +221,12 @@ class PrefixCache:
         if cached_tokens > 0:
             self.hits += 1
             self.hit_tokens += cached_tokens
+            if self.hooks is not None:
+                self.hooks.cache_hit(model, cached_tokens)
         else:
             self.misses += 1
+            if self.hooks is not None:
+                self.hooks.cache_miss(model)
 
     def _new_node(self, parent: _Chunk, tokens: Tuple[int, ...],
                   pages: Sequence[int], routes) -> _Chunk:
@@ -299,6 +312,8 @@ class PrefixCache:
                 self._drop_node(node)
                 dropped += n_dev
                 self.evicted_pages += n_dev
+                if n_dev and self.hooks is not None:
+                    self.hooks.cache_evict(n_dev)
                 progress = True
         return dropped
 

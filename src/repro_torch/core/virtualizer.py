@@ -228,6 +228,9 @@ class KVVirtualizer:
         # device pages outside any request table, which idle swap and
         # compaction must see (``shed`` / ``device_pages`` / ``remap``)
         self.cache_provider = None
+        # the observability sink (``core.hooks.CoreHooks``) or None; every
+        # hook fires AFTER the stat counter beside it has been updated
+        self.hooks = None
 
     # ------------------------------------------------------------------
     # accounting
@@ -470,6 +473,8 @@ class KVVirtualizer:
             tab.extend(pages[layer * delta:(layer + 1) * delta])
         req.rev = self._next_rev()
         self.touch(request_id)
+        if self.hooks is not None:
+            self.hooks.kv_reserved(len(pages))
         return len(pages)
 
     def commit_decode_block(self, request_id: int, n_committed: int) -> int:
@@ -501,6 +506,8 @@ class KVVirtualizer:
         self.unmap_events += trimmed
         req.rev = self._next_rev()
         self.touch(request_id)
+        if self.hooks is not None and trimmed:
+            self.hooks.kv_trimmed(trimmed)
         return trimmed
 
     def release_request(self, request_id: int) -> None:
@@ -582,6 +589,8 @@ class KVVirtualizer:
         req.n_swapped += len(victims)
         self.swapped_now += len(victims)
         self.swap_out_pages += len(victims)
+        if self.hooks is not None:
+            self.hooks.kv_swap_out(len(victims))
         return len(victims)
 
     def ensure_resident(self, request_id: int) -> int:
@@ -604,6 +613,8 @@ class KVVirtualizer:
         self.swapped_now -= len(entries)
         self.swap_in_pages += len(entries)
         self.touch(request_id)
+        if self.hooks is not None:
+            self.hooks.kv_swap_in(len(entries))
         return len(entries)
 
     def _to_swap(self, pages: Sequence[int]) -> List[int]:
@@ -637,6 +648,8 @@ class KVVirtualizer:
         self.free_list.extend(pages)
         self.swapped_now += len(pages)
         self.swap_out_pages += len(pages)
+        if self.hooks is not None:
+            self.hooks.kv_swap_out(len(pages))
         return [_swap_encode(s) for s in slots]
 
     def fault_pages_in(self, encoded: Sequence[int]) -> List[int]:
@@ -654,6 +667,8 @@ class KVVirtualizer:
         self.swap_free.extend(slots)
         self.swapped_now -= len(slots)
         self.swap_in_pages += len(slots)
+        if self.hooks is not None:
+            self.hooks.kv_swap_in(len(slots))
         return pages
 
     def release_cached_page(self, entry: int) -> bool:
@@ -719,6 +734,8 @@ class KVVirtualizer:
                 + self.free_list
             self.page_budget = new_budget
             self.resizes += 1
+            if self.hooks is not None:
+                self.hooks.kv_resize(old_budget, new_budget, 0, 0)
             return {"page_budget": new_budget, "swapped_out": 0, "moved": 0}
 
         # --- shrink ----------------------------------------------------
@@ -764,6 +781,8 @@ class KVVirtualizer:
         self.free_list = list(range(new_budget - 1, k - 1, -1))
         self.page_budget = new_budget
         self.resizes += 1
+        if self.hooks is not None:
+            self.hooks.kv_resize(old_budget, new_budget, swapped, k)
         return {"page_budget": new_budget, "swapped_out": swapped,
                 "moved": k}
 

@@ -295,6 +295,9 @@ class WeightArena:
         self.evictions = 0
         self.layer_uploads = 0
         self.resizes = 0
+        # the observability sink (``core.hooks.CoreHooks``) or None; every
+        # hook fires AFTER the stat counter beside it has been updated
+        self.hooks = None
 
     # ------------------------------------------------------------------
     # registration / allocation
@@ -444,6 +447,8 @@ class WeightArena:
         self.residency[name] = res
         self.activations += 1
         self.touch(name)
+        if self.hooks is not None:
+            self.hooks.arena_activate(name, view.total_slabs)
         if upload:
             self.ensure_model_uploaded(name)
         return res
@@ -459,6 +464,8 @@ class WeightArena:
         for layer in range(len(res.uploaded)):
             self._pending.pop((name, layer), None)
         self.evictions += 1
+        if self.hooks is not None:
+            self.hooks.arena_evict(name, res.slots.size)
 
     # ------------------------------------------------------------------
     # elastic boundary: live resize (DESIGN.md §8)
@@ -497,6 +504,8 @@ class WeightArena:
                 + self.free_list
             self.slot_budget = new_budget
             self.resizes += 1
+            if self.hooks is not None:
+                self.hooks.arena_resize(old_budget, new_budget, 0, 0)
             return {"slot_budget": new_budget, "evicted": 0, "moved": 0}
 
         # --- shrink: evict idle LRU until the survivors fit -------------
@@ -534,6 +543,8 @@ class WeightArena:
         self.free_list = list(range(new_budget - 1, k - 1, -1))
         self.slot_budget = new_budget
         self.resizes += 1
+        if self.hooks is not None:
+            self.hooks.arena_resize(old_budget, new_budget, evicted, k)
         return {"slot_budget": new_budget, "evicted": evicted, "moved": k}
 
     # ------------------------------------------------------------------
@@ -561,6 +572,9 @@ class WeightArena:
                         self._pending[(name, layer)] = event
             res.uploaded[layer] = True
             self.layer_uploads += 1
+        if self.hooks is not None and len(layers):
+            self.hooks.arena_upload(
+                name, len(layers) * self.views[name].slabs_per_layer)
 
     def wait_layer(self, name: str, layer: int, stream=None) -> None:
         """Order ``stream`` (default: the current stream), the one that

@@ -6,6 +6,9 @@
   python -m repro_torch.launch.serve --device cpu --no-lowering
   python -m repro_torch.launch.serve --device cpu --elastic
   python -m repro_torch.launch.serve --device cpu --cache
+  python -m repro_torch.launch.serve --device cpu \
+      --metrics-out metrics.prom --trace-out trace.json \
+      --slo '*:ttft_ms=200' --flight-record-out flight.json
 
 Port of the engine path of ``src/repro/launch/serve.py``: colocates
 ``PAPER_COLOC_SET`` (at smoke scale by default, or with ``--full-width``
@@ -18,9 +21,13 @@ host-driven step (per-layer dispatches, K=1) and, with the default
 the online KV<->weights rebalancer (``ElasticConfig()``, DESIGN.md §8).
 ``--cache`` turns on the radix-tree prefix cache (DESIGN.md §11): each
 request gets real prompt ids whose head is a 64-token per-model "system
-prompt", and the cache's snapshot is printed.  The reference's other
-flags (dry-run, observability, SLO, flight recorder) belong to parts not
-ported yet and raise.
+prompt", and the cache's snapshot is printed.  ``--metrics-out`` /
+``--trace-out`` attach an ``EngineObserver`` and write Prometheus text /
+a Perfetto-loadable Chrome trace (DESIGN.md §10); ``--slo`` declares
+burn-rate objectives and ``--flight-record-out`` dumps the session's
+flight record, which ``python -m repro_torch.launch.replay`` replays
+(DESIGN.md §13).  The reference's dry-run flags belong to a part not
+ported and raise.
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ import numpy as np
 
 from repro_torch.configs import PAPER_COLOC_SET, get_config, get_smoke_config
 from repro_torch.configs.base import (CacheConfig, ElasticConfig,
-                                      EngineConfig, ModelConfig)
+                                      EngineConfig, FlightRecorderConfig,
+                                      ModelConfig, SLObjective, SLOConfig)
 
 #: Depth each coloc model is cut to at published width: weights of about
 #: 12.5, 5.9 and 1.2 GB in bf16 (embeddings included), ~20 GB together.
@@ -41,8 +49,35 @@ FULL_WIDTH_DEPTHS: Dict[str, int] = {
     "minicpm3-4b": 4,
 }
 
-_NOT_PORTED = ("arch", "shape", "strategy", "dry_run", "multi_pod",
-               "metrics_out", "trace_out", "slo", "flight_record_out")
+_NOT_PORTED = ("arch", "shape", "strategy", "dry_run", "multi_pod")
+
+
+def parse_slo_specs(specs: list, model_names: list) -> SLOConfig:
+    """``"model:ttft_ms=200,tbt_p99_ms=50"`` (repeatable) -> SLOConfig.
+    Model ``*`` expands to every colocated model; later specs override
+    (the reference's parser)."""
+    objectives = {}
+    for spec in specs:
+        model, _, body = spec.partition(":")
+        if not body:
+            raise SystemExit(f"--slo {spec!r}: expected model:k=v[,k=v...]")
+        kwargs = {}
+        for item in body.split(","):
+            key, _, val = item.partition("=")
+            try:
+                kwargs[key.strip()] = float(val)
+            except ValueError:
+                raise SystemExit(f"--slo {spec!r}: bad value {item!r}")
+        try:
+            obj = SLObjective(**kwargs)
+        except TypeError as err:
+            raise SystemExit(f"--slo {spec!r}: {err}")
+        for name in (model_names if model.strip() == "*" else [model.strip()]):
+            if name not in model_names:
+                raise SystemExit(f"--slo {spec!r}: unknown model {name!r} "
+                                 f"(colocated: {model_names})")
+            objectives[name] = obj
+    return SLOConfig(objectives=objectives)
 
 
 def coloc_models(full_width: bool) -> Dict[str, ModelConfig]:
@@ -83,10 +118,20 @@ def main(argv: Optional[list] = None) -> None:
                     help="enable the radix-tree prefix cache over the KV "
                          "pool: requests get real prompt ids sharing a "
                          "per-model system prefix")
-    ap.add_argument("--metrics-out", default=None)
-    ap.add_argument("--trace-out", default=None)
-    ap.add_argument("--slo", action="append", default=None)
-    ap.add_argument("--flight-record-out", default=None)
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write Prometheus-text metrics here after serving")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write Chrome trace-event JSON here after serving "
+                         "(open in Perfetto / chrome://tracing)")
+    ap.add_argument("--slo", action="append", default=None, metavar="SPEC",
+                    help='per-model latency objective, repeatable: '
+                         '"model:ttft_ms=200,tbt_p99_ms=50,'
+                         'queue_wait_ms=500,target=0.99"; model "*" '
+                         'applies to every colocated model')
+    ap.add_argument("--flight-record-out", default=None, metavar="PATH",
+                    help="dump the flight record here after serving; "
+                         "replay with `python -m repro_torch.launch.replay "
+                         "PATH`")
     args = ap.parse_args(argv)
 
     given = [f"--{k.replace('_', '-')}" for k in _NOT_PORTED
@@ -96,18 +141,24 @@ def main(argv: Optional[list] = None) -> None:
 
     from repro_torch.runtime import observe as trace_mod
     from repro_torch.runtime.engine import CrossPoolEngine, EngineMode
-    from repro_torch.runtime.observe import percentile
+    from repro_torch.runtime.observe import EngineObserver, percentile
 
+    observer = (EngineObserver()
+                if args.metrics_out or args.trace_out else None)
     models = coloc_models(args.full_width)
+    slo_cfg = parse_slo_specs(args.slo, list(models)) if args.slo else None
+    rec_cfg = (FlightRecorderConfig(dump_path=args.flight_record_out)
+               if args.flight_record_out else None)
     max_ctx = 1024 if args.full_width else 128
     engine = CrossPoolEngine(
         models, page_budget=args.page_budget, max_batch=4, max_ctx=max_ctx,
-        device=args.device,
+        device=args.device, observer=observer,
         config=EngineConfig(
             mode=EngineMode(pipeline=args.pipeline, lowering=args.lowering,
                             decode_steps_per_dispatch=args.decode_steps),
             elastic=ElasticConfig() if args.elastic else None,
-            cache=CacheConfig(enabled=args.cache)))
+            cache=CacheConfig(enabled=args.cache),
+            slo=slo_cfg, flightrec=rec_cfg))
     reqs = trace_mod.make_requests(
         list(models), rps_per_model=args.rps, horizon_s=args.horizon,
         kind="sharegpt", scale_tokens=1.0 if args.full_width else 0.1,
@@ -148,6 +199,23 @@ def main(argv: Optional[list] = None) -> None:
         print(f"elastic: {len(stats.rebalance_events)} moves applied; "
               f"{engine.rebalancer.snapshot()}")
     print(f"straggler steps flagged: {stats.slow_steps}")
+    if engine.slo is not None:
+        print(engine.slo.report_line(engine.now))
+    if args.flight_record_out:
+        engine.recorder.dump(args.flight_record_out)
+        print(f"flight record -> {args.flight_record_out} "
+              f"({len(engine.recorder.ring)} events, "
+              f"{len(engine.recorder.snapshots)} snapshots); replay with "
+              f"`python -m repro_torch.launch.replay "
+              f"{args.flight_record_out} --device {args.device}`")
+    if observer is not None:
+        if args.metrics_out:
+            observer.metrics.write(args.metrics_out)
+            print(f"metrics -> {args.metrics_out}")
+        if args.trace_out:
+            observer.tracer.write(args.trace_out)
+            print(f"trace -> {args.trace_out} "
+                  f"({len(observer.tracer.events)} events)")
 
 
 if __name__ == "__main__":

@@ -57,12 +57,23 @@ copied on write) and prefills only its suffix, at the producing pass's
 KV extent and MoE expert capacity with the prefix's routing replayed as
 slot offsets.  Off by default, and then nothing of it runs.
 
+Observability and forensics (DESIGN.md §10, §12-13) attach as in the
+reference, all host-side and all off by default: an ``observer``
+(``runtime/observe.py`` ``EngineObserver``: metrics, Chrome trace,
+request and step spans), the pool shadow-sanitizer
+(``config.sanitize`` or ``CROSSPOOL_SANITIZE=1``; it audits at step
+boundaries and after ``submit``, never inside a dispatch), SLO
+burn-rate monitoring (``config.slo``) and the flight recorder
+(``config.flightrec``), whose record ``launch/replay.py`` replays
+bit-exactly with ``attach_replay_clock``.  With none attached, each
+site in the step loop is one ``is not None`` check.
+
 What is not ported yet raises ``NotImplementedError`` at construction:
-SLO monitoring, the flight recorder, the sanitizer, observers, and the
-audio and sliding-window families.
+the audio and sliding-window families.
 """
 from __future__ import annotations
 
+import collections
 import math
 import os
 import time
@@ -72,6 +83,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitizer import PoolSanitizer, PoolSanitizerError
 from repro_torch.configs.base import (DEFAULT_DECODE_STEPS_PER_DISPATCH,
                                       EngineConfig, ModelConfig)
 from repro_torch.core import split_exec
@@ -80,6 +92,8 @@ from repro_torch.core.admission import (AdmissionController, AdmissionStats,
 from repro_torch.core.control import (DecodeGraph, HostDrivenStep,
                                       MultiStepFusedStep, StreamingPrefill)
 from repro_torch.core.elastic import ElasticRebalancer
+from repro_torch.core.errors import PoolAccountingError
+from repro_torch.core.hooks import CompositeHooks
 from repro_torch.core.pipeline import InflightBatch, LayerPipelineScheduler
 from repro_torch.core.pools import build_pools
 from repro_torch.core.prefix_cache import PrefixCache
@@ -89,6 +103,10 @@ from repro_torch.core.weight_pool import DEFAULT_SLAB_BYTES, OutOfSlabsError
 from repro_torch.models.model import build_model
 from repro_torch.models.moe import expert_capacity
 from repro_torch.models.transformer import init_params
+from repro_torch.runtime.flightrec import (FlightRecorder, ReplayDivergence,
+                                           engine_header, pool_snapshot)
+from repro_torch.runtime.observe import (EngineObserver, MetricsRegistry,
+                                         SLOMonitor)
 from repro_torch.runtime.request import Phase, Request
 from repro_torch.runtime.sampler import sample
 from repro_torch.runtime.session import (HandleState, PrefillBatcher,
@@ -564,7 +582,8 @@ class CrossPoolEngine:
     reference's trees through ``repro_torch.bridge``); the engine splits
     them into the pools and keeps no full tree.  Without it each model's
     weights are drawn on the engine's device from
-    ``torch.Generator(seed + i)``, in model order.
+    ``torch.Generator(seed + i)``, in model order (what a flight record's
+    replay rebuilds: the record holds no weights).
     """
 
     def __init__(self, models: Dict[str, ModelConfig], *,
@@ -573,19 +592,10 @@ class CrossPoolEngine:
                  slab_bytes: int = DEFAULT_SLAB_BYTES,
                  max_batch: int = 4, max_ctx: int = 256,
                  config: Optional[EngineConfig] = None, seed: int = 0,
-                 observer=None,
+                 observer: Optional[EngineObserver] = None,
                  params: Optional[Dict[str, Dict]] = None,
                  device="cuda"):
         config = config or EngineConfig()
-        for name, value in (
-                ("the sanitizer", config.sanitize
-                 or os.environ.get("CROSSPOOL_SANITIZE", "") == "1"),
-                ("SLO monitoring", config.slo is not None),
-                ("the flight recorder",
-                 config.flightrec is not None and config.flightrec.enabled),
-                ("engine observers", observer is not None)):
-            if value:
-                raise NotImplementedError(f"{name}: not ported yet")
         self.mode = config.mode or EngineMode()
         for name, cfg in models.items():
             if not split_exec.supports_split(cfg) \
@@ -638,6 +648,55 @@ class CrossPoolEngine:
                 models=[n for n in models
                         if self.pooled[n].stage_fns is not None])
             self.admission.cache = self.cache
+        # observability (DESIGN.md §10): the observer is optional — every
+        # step-loop site is one ``observer is not None`` check — but a
+        # metrics registry is always there (report()'s event lines read
+        # it); with an observer the engine shares its registry
+        self.observer = observer
+        self.metrics = (observer.metrics if observer is not None
+                        else MetricsRegistry())
+        # the pool shadow-sanitizer (DESIGN.md §12): pure checking, on
+        # request only; it audits at step boundaries
+        self.sanitizer: Optional[PoolSanitizer] = None
+        want_sanitize = (config.sanitize
+                         or os.environ.get("CROSSPOOL_SANITIZE", "") == "1")
+        if want_sanitize:
+            self.sanitizer = PoolSanitizer(
+                self.virt, arena=self.arena, admission=self.admission,
+                cache=self.cache)
+        # SLO burn-rate monitoring (DESIGN.md §13) over engine virtual
+        # time, in the engine's registry
+        self.slo: Optional[SLOMonitor] = None
+        if config.slo is not None and config.slo.objectives:
+            self.slo = SLOMonitor(config.slo, registry=self.metrics)
+        # the flight recorder (DESIGN.md §13): the session's black box
+        self.recorder: Optional[FlightRecorder] = None
+        if config.flightrec is not None and config.flightrec.enabled:
+            self.recorder = FlightRecorder(
+                config.flightrec,
+                header=engine_header(
+                    models=models, page_budget=page_budget,
+                    page_bytes=page_bytes, slot_budget=slot_budget,
+                    slab_bytes=slab_bytes, max_batch=max_batch,
+                    max_ctx=max_ctx, seed=seed, mode=self.mode,
+                    elastic=config.elastic, cache=config.cache,
+                    sanitize=want_sanitize, slo=config.slo,
+                    flightrec=config.flightrec),
+                virt=self.virt, arena=self.arena, cache=self.cache)
+        # one hook stream fanned out observer -> recorder -> sanitizer: a
+        # raising audit cannot hide the event that tripped it
+        sinks = [s for s in (observer, self.recorder, self.sanitizer)
+                 if s is not None]
+        sink = (sinks[0] if len(sinks) == 1
+                else CompositeHooks(*sinks) if sinks else None)
+        self._sink = sink           # engine-originated events (SLO breaches)
+        if sink is not None:
+            self.virt.hooks = sink
+            if self.arena is not None:
+                self.arena.hooks = sink
+            self.admission.hooks = sink
+            if self.cache is not None:
+                self.cache.hooks = sink
         # the elastic boundary (DESIGN.md §8): windowed demand telemetry
         # and the step-boundary rebalancer, both None on a frozen split
         self.telemetry: Optional[DemandTelemetry] = None
@@ -649,6 +708,8 @@ class CrossPoolEngine:
                 telemetry=self.telemetry, cfg=config.elastic, seed=seed)
             # cache-aware re-plan: cached prompt tokens map shared pages
             self.rebalancer.cache = self.cache
+            if sink is not None:
+                self.rebalancer.hooks = sink
         on_card = self.device.type == "cuda"
         # host mode on a card: FFN stages run on the weights stream
         self.w_stream = (torch.cuda.Stream(self.device)
@@ -686,7 +747,7 @@ class CrossPoolEngine:
 
         # --- session state -------------------------------------------------
         self.now = 0.0
-        self.batcher = PrefillBatcher()
+        self.batcher = PrefillBatcher(observer=observer)
         self.handles: Dict[int, RequestHandle] = {}
         self.waiting: List[Request] = []     # admitted, no batch slot yet
         self._submitted: Dict[int, Request] = {}
@@ -694,6 +755,11 @@ class CrossPoolEngine:
         self._events: List[TokenEvent] = []
         self._in_step = False
         self._deferred_cancels: List[RequestHandle] = []
+        self._step_index = 0               # monotone step counter
+        # the replay clock (flight recorder): when attached, dispatch
+        # durations come from the recorded stream instead of
+        # ``time.perf_counter``, the engine's one nondeterministic input
+        self._replay_dts: Optional[collections.deque] = None
 
     # ------------------------------------------------------------------
     # the session API
@@ -701,6 +767,8 @@ class CrossPoolEngine:
     def advance(self, now: float) -> float:
         """Move the session clock forward (it never runs backwards)."""
         self.now = max(self.now, float(now))
+        if self.recorder is not None:
+            self.recorder.record_op("advance", now=self.now)
         return self.now
 
     def submit(self, req: Request, on_token=None) -> RequestHandle:
@@ -709,6 +777,10 @@ class CrossPoolEngine:
         if req.request_id in self._submitted:
             raise ValueError(f"request id {req.request_id} already "
                              f"submitted")
+        if self.recorder is not None:
+            # recorded BEFORE any mutation: the op is the causal input,
+            # whatever verdict admission hands back
+            self.recorder.record_submit(req, self.now)
         self._submitted[req.request_id] = req
         self._window.add(req.request_id)
         if self.telemetry is not None:
@@ -729,6 +801,19 @@ class CrossPoolEngine:
                                cache_hit=bool(info and info[0] > 0),
                                _engine=self)
         self.handles[req.request_id] = handle
+        if self.observer is not None:
+            self.observer.request_submitted(req, outcome)
+        if self.slo is not None and outcome == "admitted":
+            # an immediate admission is a zero-wait queue sample: without
+            # them one slow drain would read as a 100% bad window
+            self.slo.note("queue_wait", req.model, 0.0, self.now)
+        if self.sanitizer is not None and not self._in_step:
+            try:
+                self.sanitizer.audit()  # the admission mapping is quiescent
+            except (PoolSanitizerError, PoolAccountingError) as err:
+                if self.recorder is not None:
+                    self.recorder.note_failure(self._step_index, err)
+                raise
         return handle
 
     def step(self, now: Optional[float] = None) -> List[TokenEvent]:
@@ -736,21 +821,50 @@ class CrossPoolEngine:
         completions.  Returns the tokens generated this step."""
         if now is not None:
             self.now = max(self.now, float(now))
+        self._step_index += 1
+        rec = self.recorder
+        if rec is not None:
+            rec.record_step(self._step_index, self.now)
         self._events = []
         self._in_step = True
+        obs = self.observer
+        if obs is not None:
+            obs.step_begin(self.now)
         try:
-            self._step_phases()
-        finally:
-            self._in_step = False
-            deferred, self._deferred_cancels = self._deferred_cancels, []
-            for handle in deferred:     # reentrant cancels, now safe
-                self.cancel(handle)
+            try:
+                self._step_phases()
+            finally:
+                if obs is not None:
+                    obs.step_end()
+                self._in_step = False
+                deferred, self._deferred_cancels = \
+                    self._deferred_cancels, []
+                for handle in deferred:     # reentrant cancels, now safe
+                    self.cancel(handle, _deferred=True)
+            if self.sanitizer is not None:
+                # the step boundary: no block in flight and no cross-object
+                # handoff half done, so the full walk (SAN01..SAN08) holds
+                self.sanitizer.audit()
+        except (PoolSanitizerError, PoolAccountingError) as err:
+            # black-box the incident before surfacing it: the dumped
+            # record replays to this same failing step (DESIGN.md §13)
+            if rec is not None:
+                rec.note_failure(self._step_index, err)
+            raise
+        if rec is not None:
+            # a breach's dump lands here, once the step has retired: its
+            # final accounting is a state a replay reaches too
+            rec.maybe_breach_dump()
         return self._events
 
     def _drain_front_door(self) -> None:
+        obs = self.observer
         for p in self.admission.drain(self.now):
             req = self._submitted[p.request_id]
             req.admit_time = self.now
+            if self.slo is not None:
+                self.slo.note("queue_wait", p.model,
+                              self.now - p.enqueue_time, self.now)
             handle = self.handles[req.request_id]
             handle.state = HandleState.ADMITTED
             if self.cache is not None:
@@ -759,38 +873,79 @@ class CrossPoolEngine:
                 handle.cached_tokens = p.cached_tokens
                 handle.cache_hit = p.cached_tokens > 0
             self.waiting.append(req)
+            if obs is not None:
+                obs.request_admitted(req)
 
     def _step_phases(self) -> None:
+        obs = self.observer
+        if obs is not None:
+            obs.phase_begin("admission_drain")
         self._drain_front_door()
+        if obs is not None:
+            obs.phase_end("admission_drain")
+            obs.phase_begin("batcher")
         forks = None
         if self.cache is not None:
             forks = {rid: info[0] for rid, info in self._prefix_info.items()
                      if info[0] > 0}
         groups, self.waiting = self.batcher.plan(
             self.waiting, self.runners, self.rng, self._try_activate, forks)
+        if obs is not None:
+            obs.phase_end("batcher")
         if groups:
+            if obs is not None:
+                obs.phase_begin("prefill")
             self.now = self._prefill_groups(groups, self.now)
+            if obs is not None:
+                obs.phase_end("prefill")
         active = [n for n, r in self.runners.items() if r.active]
         if self.mode.pipeline and len(active) >= 2:
             self.now = self._decode_pipelined(active, self.now)
         else:
             for n in active:
                 self.now = self._decode_model(n, self.now)
+        if obs is not None:
+            obs.phase_begin("completions")
         for runner in self.runners.values():
             for slot, req in enumerate(runner.slots):
                 if req is not None and req.done:
                     runner.release(slot)
                     self._finish(req, self.now)
+        if obs is not None:
+            obs.phase_end("completions")
+            obs.phase_begin("rebalance")
         # the elastic boundary: no block is in flight, so page tables,
         # slot tables and decode graphs can all be remapped here
-        if self.telemetry is not None:
-            self._observe_and_rebalance()
+        self._observe_and_rebalance()
+        if obs is not None:
+            obs.phase_end("rebalance")
+        # the SLO scan and the pool timelines / snapshots see the step's
+        # final pool shape (after any move); all of it host state
+        if self.slo is not None:
+            for breach in self.slo.evaluate(self.now):
+                if self._sink is not None:
+                    self._sink.slo_breach(breach)
+        rec = self.recorder
+        snap_due = rec is not None and rec.snapshot_due(self._step_index)
+        if obs is not None or snap_due:
+            snap = pool_snapshot(self.virt, self.arena, self.cache)
+            if obs is not None:
+                obs.pool_counters(snap)
+            if snap_due:
+                rec.snapshot(self._step_index, self.now, snap)
 
     def _observe_and_rebalance(self) -> None:
         """Fold this step into the telemetry window and let the
         rebalancer repartition the device-byte boundary if the windowed
         Eq. (1)-(2) estimate says so (reference ``engine.py:971``); then
-        capture again every decode graph whose pool or arena moved."""
+        capture again every decode graph whose pool or arena moved.  The
+        observer's gauges are sampled first, from the pools telemetry
+        reads next."""
+        if self.observer is not None:
+            self.observer.sample(self.virt, self.arena, self.admission,
+                                 len(self.waiting))
+        if self.telemetry is None:
+            return
         self.telemetry.observe(self.now, self.virt, self.arena,
                                self.admission)
         protected: Dict[int, int] = {}
@@ -831,6 +986,14 @@ class CrossPoolEngine:
         # session whose load was all queued behind the old split makes
         # progress this step
         self._drain_front_door()
+        # the registry's bounded event log is report()'s one source of
+        # move lines, so the text report and the metrics agree
+        self.metrics.log_event(
+            "rebalance", step=decision.step, time=decision.now,
+            page_budget=(decision.old_page_budget, decision.new_page_budget),
+            slot_budget=(decision.old_slot_budget, decision.new_slot_budget),
+            swapped_out=decision.swapped_out,
+            evicted_models=decision.evicted_models, reason=decision.reason)
         self.stats.rebalance_events.append(RebalanceEvent(
             step=decision.step, time=decision.now,
             page_budget=(decision.old_page_budget, decision.new_page_budget),
@@ -842,12 +1005,19 @@ class CrossPoolEngine:
             evicted_models=decision.evicted_models,
             reason=decision.reason))
 
-    def cancel(self, handle: Union[RequestHandle, int]) -> bool:
+    def cancel(self, handle: Union[RequestHandle, int], *,
+               _deferred: bool = False) -> bool:
         """Abort a submitted request, returning its resources in one host
         transaction; a cancel from inside a step (an ``on_token``
         callback) is deferred to the step boundary."""
         if isinstance(handle, int):
             handle = self.handles[handle]
+        if self.recorder is not None and (_deferred or not self._in_step):
+            # ringed when APPLIED: a mid-step cancel lands at the step
+            # boundary, where a replay (which applies the op after the
+            # step) lands too
+            self.recorder.record_cancel(handle.request.request_id,
+                                        self.now, in_step=self._in_step)
         if handle.state.terminal:
             return False
         if self._in_step:
@@ -874,6 +1044,8 @@ class CrossPoolEngine:
         req.finish_time = self.now
         handle.state = HandleState.CANCELLED
         self.stats.cancelled += 1
+        if self.observer is not None:
+            self.observer.request_cancelled(req)
         return True
 
     def drain(self, *, max_steps: int = 10_000) -> EngineStats:
@@ -902,6 +1074,29 @@ class CrossPoolEngine:
             self.stats.elastic.update(self.rebalancer.snapshot())
         if self.cache is not None:
             self.stats.prefix_cache = self.cache.snapshot()
+        return self.stats
+
+    def reset_stats(self) -> EngineStats:
+        """Open a fresh measurement window on a live session: step-time
+        logs, token counters and per-request latency folds restart (the
+        admission controller's lifetime counters keep accumulating), and
+        terminal requests and their handles are PRUNED — what bounds a
+        long session's memory (reference ``engine.py:1136``)."""
+        if self.recorder is not None:
+            # causal: pruning changes the stats window, so a replay must
+            # reset at the same point
+            self.recorder.record_op("reset_stats", now=self.now)
+        self.stats = EngineStats(step_times={n: [] for n in self.models},
+                                 admission=self.admission.stats)
+        for rid, handle in list(self.handles.items()):
+            if handle.state.terminal:
+                del self.handles[rid]
+                del self._submitted[rid]
+        self._window.clear()
+        if self.observer is not None:
+            self.observer.reset_window()
+        if self.slo is not None:
+            self.slo.reset()       # windowed SLO state follows the window
         return self.stats
 
     def run(self, requests: List[Request], *,
@@ -984,6 +1179,142 @@ class CrossPoolEngine:
         handle = self.handles.get(req.request_id)
         if handle is not None:
             handle.state = HandleState.FINISHED
+        if self.observer is not None:
+            self.observer.request_finished(req)
+
+    # ------------------------------------------------------------------
+    def report(self) -> str:
+        """Human-readable serving report: throughput, per-model admission
+        outcomes, KV-pool and weights-arena use (reference
+        ``engine.py:1278``, line for line)."""
+        s = self.stats
+        lines = [f"tokens={s.tokens_out} wall={s.wall_s:.2f}s "
+                 f"throughput={s.throughput:.1f} tok/s "
+                 f"slow_steps={s.slow_steps}"]
+        adm = self.admission.stats
+        lines.append(f"admission: admitted={adm.admitted} "
+                     f"queued={adm.queued} rejected={adm.rejected} "
+                     f"(pressure: pages={adm.page_pressure_queued} "
+                     f"weights={adm.weight_pressure_queued}, "
+                     f"reserve={self.admission.reserve_pages} pages)")
+        for name in self.models:
+            m = adm.per_model.get(name)
+            if m is not None:
+                lines.append(f"  {name}: admitted={m.admitted} "
+                             f"queued={m.queued} rejected={m.rejected}")
+        coalesced = [b for b in s.prefill_batch_sizes if b > 1]
+        lines.append(f"prefill: {len(s.prefill_batch_sizes)} passes, "
+                     f"{len(coalesced)} coalesced "
+                     f"(max B = {max(s.prefill_batch_sizes, default=0)})")
+        u = self.virt.utilization()
+        lines.append(f"kv pool: peak {u['peak_mapped']}/"
+                     f"{self.virt.page_budget} pages, "
+                     f"frag {u['internal_frag_bytes'] / 1024:.1f} KiB, "
+                     f"swap {u['swap_out_pages']} out / "
+                     f"{u['swap_in_pages']} in "
+                     f"({u['swapped_pages']} held), "
+                     f"{u['resizes']} resizes")
+        if self.cache is not None:
+            c = self.cache.snapshot()
+            lines.append(
+                f"prefix cache: {int(c['hits'])} hits / "
+                f"{int(c['misses'])} misses "
+                f"({c['hit_token_fraction']:.1%} of prompt tokens cached), "
+                f"{int(c['device_pages_held'])} pages held, "
+                f"{int(c['shed_pages'])} shed / {int(c['faulted_pages'])} "
+                f"re-faulted, {int(c['evicted_pages'])} evicted")
+        if self.telemetry is not None:
+            t = self.telemetry.snapshot()
+            lines.append(
+                f"elastic: occupancy EWMA kv={t['kv_occupancy_ewma']:.3f} "
+                f"slabs={t['slab_occupancy_ewma']:.3f} "
+                f"queue={t['queue_depth_ewma']:.2f}")
+            r = self.rebalancer.snapshot()
+            lines.append(
+                f"  rebalancer: {int(r['rebalances'])} applied / "
+                f"{int(r['evaluations'])} evaluated "
+                f"(hysteresis skips {int(r['skipped_hysteresis'])}, "
+                f"cooldown {int(r['skipped_cooldown'])}, "
+                f"aborted {int(r['aborted'])}); live split "
+                f"{int(r['page_budget'])} pages / "
+                f"{int(r['slot_budget'])} slabs")
+            # from the registry's event log (not EngineStats), so this
+            # text never disagrees with the metrics
+            for e in self.metrics.recent_events("rebalance", 3):
+                lines.append(
+                    f"  move @step {e['step']}: pages "
+                    f"{e['page_budget'][0]}->{e['page_budget'][1]}, "
+                    f"slabs {e['slot_budget'][0]}->"
+                    f"{e['slot_budget'][1]} "
+                    f"({e['reason']}, swapped {e['swapped_out']}, "
+                    f"evicted {e['evicted_models']})")
+        if self.arena is not None:
+            w = self.arena.utilization()
+            lines.append(
+                f"weights arena: {w['resident_slabs']}/{w['slot_budget']} "
+                f"slabs resident ({w['resident_models']} models), "
+                f"{w['activations']} activations, {w['evictions']} "
+                f"evictions, {w['layer_uploads']} layer uploads")
+            lines.append(
+                f"  device FFN bytes (prefill AND decode): "
+                f"{w['device_bytes'] / 2 ** 20:.1f} MiB — slot_budget x "
+                f"slab_bytes, no full-tree phase remains")
+        if self.slo is not None:
+            lines.append(self.slo.report_line(self.now))
+            for e in self.metrics.recent_events("slo_breach", 3):
+                lines.append(
+                    f"  breach @{e['time']:.2f}s: {e['model']} "
+                    f"{e['metric']} > {e['threshold_ms']:g}ms "
+                    f"(burn {e['long_burn']:.1f}x long / "
+                    f"{e['short_burn']:.1f}x short, "
+                    f"window value {e['window_value_ms']:.1f}ms)")
+        dropped = self.metrics.events_dropped()
+        if dropped:
+            # the event log is bounded: say the lines above may be cut
+            lines.append("event log overflow: " + ", ".join(
+                f"{kind} dropped {n}"
+                for kind, n in sorted(dropped.items())))
+        if self.recorder is not None:
+            lines.append(
+                f"flight recorder: {len(self.recorder.ring)} events "
+                f"ringed, {len(self.recorder.snapshots)} snapshots, "
+                f"{self.recorder.dumps} dumps")
+        return "\n".join(lines)
+
+    # ------------------------------------------------------------------
+    # virtual-clock folding (the engine's one nondeterministic input)
+    # ------------------------------------------------------------------
+    def attach_replay_clock(self, entries) -> None:
+        """Replay mode: dispatch durations come from this recorded
+        ``(tag, dt)`` stream instead of the host clock.  Everything else
+        in the engine is deterministic, so consuming the stream in order
+        reproduces the recorded session bit-exactly."""
+        self._replay_dts = collections.deque(entries)
+
+    def _clocked(self, tag: str, t0: float) -> float:
+        """Wall duration of one dispatch since ``t0``, taken after the
+        read-back that ends it: replaced by the recorded stream when one
+        is attached, and recorded as used (so a replay re-records a
+        bit-identical clock stream)."""
+        dt = time.perf_counter() - t0
+        if self._replay_dts is not None:
+            dt = self._next_replay_dt(tag)
+        if self.recorder is not None:
+            self.recorder.record_dt(tag, dt)
+        return dt
+
+    def _next_replay_dt(self, tag: str) -> float:
+        if not self._replay_dts:
+            raise ReplayDivergence(
+                f"clock stream exhausted at '{tag}' "
+                f"(step {self._step_index}): the replay dispatched more "
+                f"work than the record")
+        rec_tag, dt = self._replay_dts.popleft()
+        if rec_tag != tag:
+            raise ReplayDivergence(
+                f"clock stream diverged at step {self._step_index}: "
+                f"recorded '{rec_tag}', live '{tag}'")
+        return float(dt)
 
     # ------------------------------------------------------------------
     def _record_step(self, name: str, dt: float) -> None:
@@ -991,6 +1322,10 @@ class CrossPoolEngine:
         if len(log) > 8 and dt > np.median(log) * 4.0:
             self.stats.slow_steps += 1     # straggler flag
         log.append(dt)
+        if self.observer is not None:
+            # the stats log's attribution, so the dispatch histogram
+            # mirrors it exactly
+            self.observer.decode_dispatch(name, dt)
 
     def _emit(self, event: TokenEvent) -> None:
         self._events.append(event)
@@ -1003,15 +1338,32 @@ class CrossPoolEngine:
                      dt: float) -> None:
         """Fan one committed decode block out into per-token events; the
         block's wall time is spread over each row's tokens."""
+        obs = self.observer
+        rec = self.recorder
+        slo = self.slo
         for i in act:
             req = runner.slots[i]
             n = int(counts[i])
+            if n:
+                if obs is not None:
+                    obs.decode_block(req, n, dt)
+                if rec is not None:
+                    rec.record_commit(req.request_id, req.model, n, dt)
             for t in range(n):
                 tok = int(toks[i, t])
                 req.generated += 1
                 req.output_ids.append(tok)
                 when = start + dt * (t + 1) / n
+                # the pairwise gap tbt_samples() rebuilds: the TBT
+                # histogram, EngineStats.tbt and the SLO window agree
+                gap = when - req.token_times[-1]
+                if obs is not None:
+                    obs.token(req, gap)
+                if slo is not None:
+                    slo.note("tbt", req.model, gap, when)
                 req.token_times.append(when)
+                if rec is not None:
+                    rec.note_token(req.request_id, req.model, tok, when)
                 self.stats.tokens_out += 1
                 if req.eos_id is not None and tok == req.eos_id:
                     req.eos_seen = True
@@ -1026,6 +1378,15 @@ class CrossPoolEngine:
         req.generated += 1
         self.stats.tokens_out += 1
         self.stats.ttft.append(now - req.arrival_time)
+        if self.observer is not None:
+            self.observer.first_token(req, now - req.arrival_time)
+        if self.slo is not None:
+            self.slo.note("ttft", req.model, now - req.arrival_time, now)
+        if self.recorder is not None:
+            self.recorder.record_commit(req.request_id, req.model, 1, 0.0,
+                                        first=True)
+            self.recorder.note_token(req.request_id, req.model,
+                                     req.output_ids[-1], now)
         handle = self.handles.get(req.request_id)
         if handle is not None:
             handle.state = HandleState.DECODING
@@ -1068,8 +1429,10 @@ class CrossPoolEngine:
         for g in groups:
             t0 = time.perf_counter()
             self.runners[g.model].prefill_group(g)
-            dt = time.perf_counter() - t0
+            dt = self._clocked("prefill", t0)
             now += dt
+            if self.observer is not None:
+                self.observer.prefill(g.model, g.batch_size, dt)
             self.stats.prefill_times.append((g.model, g.batch_size,
                                              g.bucket, dt))
             for req in g.requests:
@@ -1087,10 +1450,12 @@ class CrossPoolEngine:
         by_model = {g.model: g for g in groups}
         for b in done:
             self.runners[b.model].apply_prefill_result(b, by_model[b.model])
-        dt = time.perf_counter() - t0
+        dt = self._clocked("prefill_pipe", t0)
         now += dt
         for b in done:
             g = by_model[b.model]
+            if self.observer is not None:
+                self.observer.prefill(g.model, g.batch_size, dt)
             self.stats.prefill_times.append((g.model, g.batch_size,
                                              g.bucket, dt))
             for req in g.requests:
@@ -1099,10 +1464,18 @@ class CrossPoolEngine:
 
     def _decode_model(self, name: str, now: float) -> float:
         runner = self.runners[name]
+        obs = self.observer
         t0 = time.perf_counter()
-        toks, counts, act = runner.commit_decode(
-            runner.issue_decode(self._host_step(name)))
-        dt = time.perf_counter() - t0
+        if obs is not None:
+            obs.phase_begin("dispatch")
+        pending = runner.issue_decode(self._host_step(name))
+        if obs is not None:
+            obs.phase_end("dispatch")
+            obs.phase_begin("commit")
+        toks, counts, act = runner.commit_decode(pending)
+        if obs is not None:
+            obs.phase_end("commit")
+        dt = self._clocked("decode", t0)
         self._record_step(name, dt)
         self._book_tokens(runner, toks, counts, act, now, dt)
         return now + dt
@@ -1116,14 +1489,24 @@ class CrossPoolEngine:
         interleaves the models' attention and FFN stages (paper Fig. 4)."""
         if not self.mode.lowering:
             return self._decode_pipelined_host(active, now)
+        obs = self.observer
         t0 = time.perf_counter()
+        if obs is not None:
+            obs.phase_begin("dispatch")
         issued = [(n, self.runners[n].issue_decode()) for n in active]
+        if obs is not None:
+            obs.phase_end("dispatch")
+            obs.phase_begin("commit")
         dt_all = 0.0
         for n, pending in issued:
             runner = self.runners[n]
             toks, counts, act = runner.commit_decode(pending)
-            dt_all = time.perf_counter() - t0
+            # one clock read per model's read-back: each is a replay
+            # injection point, taken in model order
+            dt_all = self._clocked("decode_pipe", t0)
             self._book_tokens(runner, toks, counts, act, now, dt_all)
+        if obs is not None:
+            obs.phase_end("commit")
         for n in active:
             self._record_step(n, dt_all / len(active))
         return now + dt_all
@@ -1131,7 +1514,10 @@ class CrossPoolEngine:
     def _decode_pipelined_host(self, active: List[str], now: float) -> float:
         """The layer-wise two-batch pipeline over the two pools; fallback
         families step after it, one replay each."""
+        obs = self.observer
         t0 = time.perf_counter()
+        if obs is not None:
+            obs.phase_begin("dispatch")
         paged = [n for n in active if self.runners[n].paged]
         fallback = [n for n in active if not self.runners[n].paged]
         batches, acts = [], {}
@@ -1142,11 +1528,16 @@ class CrossPoolEngine:
                                                   max_inflight=2)
         results = [(b.model, self.runners[b.model].apply_pipeline_result(
             b, acts[b.model])) for b in done]
-        dt_all = time.perf_counter() - t0
+        dt_all = self._clocked("decode_host", t0)
+        if obs is not None:
+            obs.phase_end("dispatch")
+            obs.phase_begin("commit")
         for n, (toks, counts, act) in results:
             self._book_tokens(self.runners[n], toks, counts, act, now,
                               dt_all)
             self._record_step(n, dt_all / max(len(paged), 1))
+        if obs is not None:
+            obs.phase_end("commit")
         now += dt_all
         for n in fallback:          # families outside split execution
             now = self._decode_model(n, now)

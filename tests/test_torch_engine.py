@@ -19,10 +19,11 @@ from repro.runtime.request import Request as JRequest
 from repro_torch.bridge import params_to_torch
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.configs.base import (EngineConfig, FlightRecorderConfig,
-                                      SLOConfig)
+                                      SLObjective, SLOConfig)
 from repro_torch.launch import serve
 from repro_torch.runtime.engine import CrossPoolEngine as TEngine
 from repro_torch.runtime.engine import EngineMode as TMode
+from repro_torch.runtime.observe import EngineObserver
 from repro_torch.runtime.request import Request as TRequest
 from repro_torch.runtime.session import HandleState
 
@@ -143,19 +144,25 @@ def test_entry_points_raise_without_a_card(coloc):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(config=EngineConfig(slo=SLOConfig())),
+    dict(config=EngineConfig(slo=SLOConfig(objectives={
+        MOE: SLObjective(ttft_ms=1.0)}))),
     dict(config=EngineConfig(sanitize=True)),
     dict(config=EngineConfig(flightrec=FlightRecorderConfig())),
-    dict(observer=object()),
+    dict(observer=EngineObserver()),
 ])
 def test_parts_not_ported_raise(coloc, kw):
     """SLO monitoring, the sanitizer, the flight recorder and observers
-    are not ported yet (the elastic rebalancer and the prefix cache, once
-    in this list, are: ``tests/test_torch_elastic.py``,
-    ``tests/test_torch_prefix_cache.py``)."""
+    were the last parts of this list; they are ported now
+    (``tests/test_torch_observe.py``, ``tests/test_torch_flightrec.py``)
+    and each constructs and serves.  What stays unported raises:
+    ``test_fallback_families_raise``."""
     _, tm, _ = coloc
-    with pytest.raises(NotImplementedError):
-        TEngine(tm, page_budget=64, device="cpu", **kw)
+    engine = TEngine(tm, page_budget=256, page_bytes=4096, slab_bytes=4096,
+                     max_batch=2, max_ctx=64, device="cpu", **kw)
+    req = TRequest(0, MOE, 6, 2, 0.0)
+    engine.submit(req)
+    engine.drain()
+    assert len(req.output_ids) == 2 and engine.virt.mapped_pages == 0
 
 
 @pytest.mark.parametrize("name", ["whisper-small", "gemma3-12b"])
@@ -226,10 +233,13 @@ def test_fallback_streams_equal_live_jax_engine(which, k):
         assert ZAMBA not in te.arena.views
 
 
-@pytest.mark.parametrize("flag", [["--slo", "ttft_p99:1.0"],
-                                  ["--flight-record-out", "record.json"],
+@pytest.mark.parametrize("flag", [["--arch", "qwen3-14b"],
+                                  ["--multi-pod"],
                                   ["--dry-run"]])
 def test_serve_flags_not_ported_raise(flag):
+    """The dry-run surface stays unported (``--slo`` and
+    ``--flight-record-out``, once here, are ported:
+    ``tests/test_torch_observe.py``)."""
     with pytest.raises(NotImplementedError):
         serve.main(["--device", "cpu"] + flag)
 
