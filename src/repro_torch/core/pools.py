@@ -63,6 +63,18 @@ class WeightsPool:
                  allocate: bool = True) -> None:
         self.arena.finalize(slot_budget, allocate=allocate)
 
+    def total_bytes(self) -> int:
+        """DEVICE weights-pool bytes: the arena, fixed by
+        ``slot_budget``."""
+        return self.arena.device_bytes()
+
+    def host_master_bytes(self) -> int:
+        """Bytes of the host master trees kept beside the arena: the
+        reference keeps the fallback families' FFN trees there
+        (``pools.py:89``); the port keeps none (a fallback model's whole
+        tree is its device ``kv_params``), so 0."""
+        return 0
+
 
 def _to_device(tree: Dict, device: torch.device) -> Dict:
     return {k: _to_device(v, device) if isinstance(v, dict)
@@ -89,6 +101,16 @@ class KVCachePool:
     def resize(self, page_budget: int, protected=()):
         """Elastic entry: live-resize the shared page pool (DESIGN.md §8)."""
         return self.virtualizer.resize(page_budget, protected=protected)
+
+    def total_param_bytes(self) -> int:
+        """Bytes of every model's params held here (the split models'
+        non-FFN trees, the fallback models' whole trees)."""
+        return sum(_tree_bytes(t) for t in self.attn_params.values())
+
+
+def _tree_bytes(tree: Dict) -> int:
+    return sum(_tree_bytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in tree.values())
 
 
 def transfer(x: torch.Tensor, stream) -> torch.Tensor:

@@ -12,7 +12,7 @@
 // contributing exactly 0, key / value rows past T read as 0, and a row
 // with no valid key (l == 0) writing 0, as the TPU kernel does.  T >= S.
 // Layout: q, out [B,S,H,D]; k, v [B,T,KV,D]; contiguous; D in {16, 32,
-// 64, 128}.
+// 64, 128, 256}.
 //
 // Bound.  Causal attention does 4 * B * H * D * (pairs i, t on or below
 // the diagonal) flops and reads q, k, v once and writes out once.  At the
@@ -34,6 +34,13 @@
 //     registers (ldmatrix, once).  For D <= 64 a warp runs two m16 tiles
 //     (128-row q tiles), so every K and V fragment it loads feeds two
 //     products; at D = 128 (registers) one (64-row q tiles);
+//   * D = 256 (gemma3's global layers): one m16 tile a warp, whose 16 x
+//     256 f32 accumulator alone is 128 registers a lane; so the Q
+//     fragments are read again from the Q tile in shared memory for every
+//     K tile instead of held (64 registers saved, one more ldmatrix per
+//     k-slice), and the ring has two stages: (64 + 2 * 2 * 64) * 256 * 2
+//     = 160 KB, where three would be 224 KB of the 227 KB a block may
+//     have; one block an SM either way;
 //   * K and V tiles of 64 keys stay bf16 in a 3-stage shared-memory ring
 //     filled by 16-byte cp.async.cg copies (keys >= T zero-filled with
 //     src-size 0), XOR-swizzled so ldmatrix is free of bank conflicts; one
@@ -57,8 +64,15 @@
 // flash_prefill_tc_kernel<D> uses 167 / 182 / 240 / 179 registers for
 // D = 16 / 32 / 64 / 128, no stack, no spills; shared memory is dynamic,
 // (q tile rows + 6 * 64) * D * 2 bytes = 16 / 32 / 64 / 112 KB, so two
-// blocks (8 warps) fit an SM.  f32 route: 40 / 40 / 48 / 80
-// registers, 8 bytes of spill at D = 64.
+// blocks (8 warps) fit an SM.  At D = 256: 255 registers, no stack, no
+// spills, 160 KB, one block an SM; Q held in registers too would need 64
+// more.  gemma3's global layers (B = 4, S = T = 2048,
+// H 16 over KV 8; chip_smoke.py phase 12, NVIDIA H100 80GB HBM3, 700 W):
+// 0.841 ms against a 0.139 ms bound (operations) and cuDNN's 0.255 ms:
+// four warps an SM hide little latency (the first target of a redesign:
+// more warps a block, wgmma).  f32 route: 40 / 40 / 48 / 80 / 127
+// registers (D = 16 ... 256), 8 bytes of spill at D = 64; 209 KB of
+// shared memory at D = 256.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
@@ -89,19 +103,28 @@ namespace tc {
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBK = 64;                // keys per tile
-constexpr int kStages = 3;             // K/V tiles in the ring
 
 // m16 row tiles per warp: two where the registers allow (the K and V
-// fragments then feed two products each), one at D = 128.
+// fragments then feed two products each), one from D = 128 on.
 template <int D>
 __host__ __device__ constexpr int m_tiles() { return D <= 64 ? 2 : 1; }
 template <int D>
 __host__ __device__ constexpr int block_rows() {
   return 16 * kWarps * m_tiles<D>();
 }
+// K/V tiles in the ring: three, two at D = 256 (three would take 229,376
+// of the 232,448 bytes a block may have, and add nothing a second block
+// could not: one block fits an SM either way).
+template <int D>
+__host__ __device__ constexpr int stages() { return D <= 128 ? 3 : 2; }
+// Q's A fragments stay in registers up to D = 128; at D = 256 they would
+// take 64 registers beside the 128 of the output accumulator, so each
+// tile reads them again from the Q tile in shared memory (ldmatrix).
+template <int D>
+__host__ __device__ constexpr bool q_in_registers() { return D <= 128; }
 template <int D>
 __host__ __device__ constexpr int smem_bytes() {
-  return (block_rows<D>() + 2 * kStages * kBK) * D * (int)sizeof(bf16);
+  return (block_rows<D>() + 2 * stages<D>() * kBK) * D * (int)sizeof(bf16);
 }
 
 // cp.async rows [row0, row0 + ROWS) of a [rows, stride] bf16 matrix into a
@@ -133,6 +156,9 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int WR = 16 * KM;          // query rows per warp
   constexpr int KS = D / 16;           // k-slices of a Q row
   constexpr int NB = D / 8;            // 8-column blocks of an output row
+  constexpr int kStages = stages<D>();
+  constexpr bool kQRegs = q_in_registers<D>();
+  constexpr int QK = kQRegs ? KS : 1;  // k-slices of Q held at once
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);          // [BQ][D]
   bf16* ks = qs + BQ * D;                                // [kStages][kBK][D]
@@ -168,7 +194,7 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tiles::cp_async_commit();
   }
 
-  uint32_t qf[KM][KS][4];
+  uint32_t qf[KM][QK][4];
   float o[KM][NB][4];
   float m[KM][2], l[KM][2];
 #pragma unroll
@@ -194,16 +220,18 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       tiles::cp_async_commit();
     }
-    if (j == 0) {
+    // Q's A fragment of k-slice kk (the warp reads only its own Q rows)
+    auto load_q = [&](uint32_t(&dst)[4], int mi, int kk) {
+      tiles::ldmatrix_x4(
+          dst, qs + Sw::at(warp * WR + mi * 16 + (lane & 7) +
+                               ((lane >> 3) & 1) * 8,
+                           kk * 2 + (lane >> 4)));
+    };
+    if (kQRegs && j == 0) {
 #pragma unroll
       for (int mi = 0; mi < KM; ++mi)
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          tiles::ldmatrix_x4(
-              qf[mi][kk],
-              qs + Sw::at(warp * WR + mi * 16 + (lane & 7) +
-                              ((lane >> 3) & 1) * 8,
-                          kk * 2 + (lane >> 4)));
+        for (int kk = 0; kk < QK; ++kk) load_q(qf[mi][kk], mi, kk);
     }
     const bf16* kt = ks + (j % kStages) * kBK * D;
     const bf16* vt = vs + (j % kStages) * kBK * D;
@@ -219,6 +247,11 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         sc[mi][n][0] = sc[mi][n][1] = sc[mi][n][2] = sc[mi][n][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      if constexpr (!kQRegs) {
+#pragma unroll
+        for (int mi = 0; mi < KM; ++mi) load_q(qf[mi][0], mi, kk);
+      }
+      const int qk = kQRegs ? kk : 0;
 #pragma unroll
       for (int n2 = 0; n2 < 4; ++n2) {
         uint32_t kf[4];
@@ -226,8 +259,8 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                            kk * 2 + ((lane >> 3) & 1)));
 #pragma unroll
         for (int mi = 0; mi < KM; ++mi) {
-          tiles::mma_bf16(sc[mi][2 * n2], qf[mi][kk], kf[0], kf[1]);
-          tiles::mma_bf16(sc[mi][2 * n2 + 1], qf[mi][kk], kf[2], kf[3]);
+          tiles::mma_bf16(sc[mi][2 * n2], qf[mi][qk], kf[0], kf[1]);
+          tiles::mma_bf16(sc[mi][2 * n2 + 1], qf[mi][qk], kf[2], kf[3]);
         }
       }
     }
@@ -531,14 +564,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 using LaunchFn = int (*)(const void*, const void*, const void*, void*, int,
                          const Dims&, cudaStream_t);
 
-// by_dim: the route's launcher for D = 16, 32, 64, 128.
-int dispatch(const LaunchFn (&by_dim)[4], int head_dim, const void* q,
+// by_dim: the route's launcher for D = 16, 32, 64, 128, 256.
+int dispatch(const LaunchFn (&by_dim)[5], int head_dim, const void* q,
              const void* k, const void* v, void* out, int batch, int q_len,
              int kv_len, int heads, int kv_heads, float scale, void* stream) {
   if (kv_len < q_len || kv_heads <= 0 || heads % kv_heads)
     return (int)cudaErrorInvalidValue;
   const int at = head_dim == 16 ? 0 : head_dim == 32 ? 1
-               : head_dim == 64 ? 2 : head_dim == 128 ? 3 : -1;
+               : head_dim == 64 ? 2 : head_dim == 128 ? 3
+               : head_dim == 256 ? 4 : -1;
   if (at < 0) return (int)cudaErrorInvalidValue;
   const Dims g{q_len, kv_len, heads, kv_heads, scale};
   return by_dim[at](q, k, v, out, batch, g,
@@ -552,8 +586,9 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
                                   void* out, int batch, int q_len, int kv_len,
                                   int heads, int kv_heads, int head_dim,
                                   float scale, void* stream) {
-  static const LaunchFn by_dim[4] = {tc::launch<16>, tc::launch<32>,
-                                     tc::launch<64>, tc::launch<128>};
+  static const LaunchFn by_dim[5] = {tc::launch<16>, tc::launch<32>,
+                                     tc::launch<64>, tc::launch<128>,
+                                     tc::launch<256>};
   return dispatch(by_dim, head_dim, q, k, v, out, batch, q_len, kv_len,
                   heads, kv_heads, scale, stream);
 }
@@ -563,8 +598,9 @@ extern "C" int flash_prefill_f32(const void* q, const void* k, const void* v,
                                  void* out, int batch, int q_len, int kv_len,
                                  int heads, int kv_heads, int head_dim,
                                  float scale, void* stream) {
-  static const LaunchFn by_dim[4] = {f32::launch<16>, f32::launch<32>,
-                                     f32::launch<64>, f32::launch<128>};
+  static const LaunchFn by_dim[5] = {f32::launch<16>, f32::launch<32>,
+                                     f32::launch<64>, f32::launch<128>,
+                                     f32::launch<256>};
   return dispatch(by_dim, head_dim, q, k, v, out, batch, q_len, kv_len,
                   heads, kv_heads, scale, stream);
 }

@@ -73,7 +73,9 @@
 //     cores, 8 lanes per token and 4 tokens per step, up to 4 heads per
 //     block (tensor cores would waste most of the tile);
 //   * head dims 8 (the smoke configs'; CUDA cores only: m16n8k16 steps k
-//     by 16), 16, 32, 64 and 128;
+//     by 16), 16, 32, 64, 128 and 256 (gemma3, G = 2: CUDA cores, 1 or 2
+//     rows a block; its 3-stage ring is 192 KB, one block an SM, 4 warps
+//     of E = 32 elements a lane);
 //   * the wrapper makes no host read and no allocation beyond
 //     torch.empty, so a call can be captured in a CUDA graph.
 // bf16 MLA route (mla namespace), the same flash-decoding over the latent
@@ -122,14 +124,18 @@
 // ptxas (-Xptxas -v, sm_90a): no stack and no
 // spills in any kernel.  split_decode_kernel<D, R> registers:
 //            R = 16 (tensor cores)   R = 1    R = 2    R = 4
+//   D = 256           --              128      221       --
 //   D = 128          168               80      128      236
 //   D =  64          124               56       72      128
 //   D =  32           64               40       64       80
 //   D =  16           48               40       40       64
 //   D =   8           --               32       40       48
-// shared memory (dynamic): the ring, 3 * 4 * 2 * 16 * D * 2 bytes = 96 /
-// 48 / 24 / 12 / 6 KB for D = 128 / 64 / 32 / 16 / 8 (two blocks fit an
-// SM at D = 128).  merge_splits_kernel and mla_merge_splits_kernel: 32
+// shared memory (dynamic): the ring, 3 * 4 * 2 * 16 * D * 2 bytes = 192 /
+// 96 / 48 / 24 / 12 / 6 KB for D = 256 / 128 / 64 / 32 / 16 / 8 (two
+// blocks fit an SM at D = 128, one at 256).  gemma3 (D = 256, G = 2,
+// chip_smoke.py phase 12, NVIDIA H100 80GB HBM3, 700 W): 0.0810 ms at
+// B = 4 over its 4096-token global cache (bound 0.0401), 0.0332 ms over
+// a full 1024-slot ring (bound 0.0100).  merge_splits_kernel and mla_merge_splits_kernel: 32
 // registers.  mla_split_decode_kernel<r, rp>: 125 / 67 / 48 registers at
 // (256, 32) / (64, 16) / (16, 8); dynamic shared memory 86 / 27.5 / 14 KB
 // (ring, q, P, row maxima and sums).  The first design (f32 only now): 40
@@ -1024,13 +1030,16 @@ int launch(const Args& a, int kv_heads, int batch, cudaStream_t stream) {
 }
 
 // D = 8 (the smoke configs' head dim) has no tensor-core route: m16n8k16
-// takes k in steps of 16.
+// takes k in steps of 16.  D = 256 (gemma3) has CUDA-core bodies of 1 and
+// 2 rows only: a 16-row tile would hold a 16 x 256 f32 accumulator and 4
+// rows 256 q and accumulator registers a lane.
 template <int D>
 LaunchFn pick_rows(int rows) {
-  if constexpr (D >= 16)
+  if constexpr (D >= 16 && D <= 128)
     if (rows == 16) return launch<D, 16>;
+  if constexpr (D <= 128)
+    if (rows == 4) return launch<D, 4>;
   switch (rows) {
-    case 4: return launch<D, 4>;
     case 2: return launch<D, 2>;
     case 1: return launch<D, 1>;
     default: return nullptr;
@@ -1044,6 +1053,7 @@ LaunchFn pick(int head_dim, int rows) {
     case 32: return pick_rows<32>(rows);
     case 64: return pick_rows<64>(rows);
     case 128: return pick_rows<128>(rows);
+    case 256: return pick_rows<256>(rows);
     default: return nullptr;
   }
 }

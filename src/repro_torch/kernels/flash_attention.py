@@ -22,8 +22,8 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import launch
 
 SOURCE = build.CSRC / "flash_attention.cu"
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the kernel is instantiated for (256: gemma3's global layers)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 @functools.cache

@@ -28,7 +28,7 @@ buffers from ``torch.empty`` and a second small kernel merges them, so a
 call makes no host read and can be captured in a CUDA graph.  Within it,
 a kv head's ``G = H / KV`` query heads run on tensor cores when ``G >=
 8`` and on CUDA cores otherwise (``rows_per_block``; head dims in
-``check_bf16_geometry``).  float32 takes the
+``check_bf16_geometry``: at 256, gemma3's, only ``G <= 2``).  float32 takes the
 first design (one block per kv head and batch row, CUDA cores), which holds
 the card-vs-CPU checks at 2e-5.  The MLA route follows the dtype too:
 bfloat16 takes the same split-KV structure with 16 heads a block on
@@ -57,10 +57,14 @@ MAX_SPLITS = 128
 #: blocks per SM the split count aims at
 BLOCKS_PER_SM = 2
 #: head dims the bf16 GQA kernels are instantiated for: every one on CUDA
-#: cores, and from 16 up on tensor cores (``mma.sync.m16n8k16`` steps k by
-#: 16); 8 is the smoke configs' head dim
-HEAD_DIMS = (8, 16, 32, 64, 128)
+#: cores, and 16-128 on tensor cores (``mma.sync.m16n8k16`` steps k by
+#: 16); 8 is the smoke configs' head dim, 256 gemma3's
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 TENSOR_CORE_HEAD_DIMS = (16, 32, 64, 128)
+#: head dims whose CUDA-core bodies serve at most 2 query heads a block
+#: (4 heads' q and accumulator rows of 256 would not fit the registers):
+#: G <= 2, as gemma3's G = 2
+TWO_ROW_HEAD_DIMS = (256,)
 #: (latent, rope) widths the bf16 MLA kernel is instantiated for: minicpm3
 #: at its published width, the small float32 check's and the smoke config's
 MLA_WIDTHS = ((256, 32), (64, 16), (16, 8))
@@ -140,13 +144,17 @@ def check_bf16_geometry(heads: int, n_kv: int, head_dim: int) -> None:
     if n_kv <= 0 or heads % n_kv:
         raise ValueError(f"{heads} query heads do not group over {n_kv} kv "
                          f"heads")
-    tensor_cores = rows_per_block(heads // n_kv) == 16
+    rows = rows_per_block(heads // n_kv)
+    tensor_cores = rows == 16
     dims = TENSOR_CORE_HEAD_DIMS if tensor_cores else HEAD_DIMS
     if head_dim not in dims:
         raise ValueError(
             f"bf16 GQA kernels take head dims {dims} on "
             f"{'tensor' if tensor_cores else 'CUDA'} cores (G = "
             f"{heads // n_kv}), got {head_dim}")
+    if head_dim in TWO_ROW_HEAD_DIMS and rows > 2:
+        raise ValueError(f"bf16 GQA kernels at head dim {head_dim} take "
+                         f"groups G <= 2, got G = {heads // n_kv}")
 
 
 def mla_split_plan(batch: int, heads: int, max_tokens: int,

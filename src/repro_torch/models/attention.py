@@ -1,16 +1,19 @@
-"""Attention for the serving paths: GQA and MLA (MiniCPM3 style).
+"""Attention variants: GQA/MHA/MQA, MLA (MiniCPM3 style), sliding window.
 
-Port of the parts of ``src/repro/models/attention.py`` the serving paths
-run: whole-sequence attention for prefill (``gqa_full`` with the
-reference's ``impl`` routes, ``mla_full``), the prefix cache's
-suffix-only prefill (``gqa_suffix`` / ``mla_suffix``), one-token decode
-against the shared paged pool (``gqa_paged_decode`` /
+Port of ``src/repro/models/attention.py``: whole-sequence attention for
+prefill and training (``gqa_full`` with the reference's ``impl`` routes,
+its window, cross-attention and non-causal forms; ``mla_full``), the
+prefix cache's suffix-only prefill (``gqa_suffix`` / ``mla_suffix``),
+one-token decode against the shared paged pool (``gqa_paged_decode`` /
 ``mla_paged_decode``, ``attention.py:256-334``) for the split-execution
-path, and one-token decode against a contiguous per-model cache
-(``write_kv_cache`` / ``gqa_decode``, ``:193-253``) for the fused
-fallback families.  Decode writes the new token's KV IN PLACE (into the
-pool, or the cache layer) and reads the KV back through the
-hand-written kernels.
+path, and one-token decode against a contiguous per-model cache for the
+dense-cache Model path (``write_kv_cache`` / ``gqa_decode`` :193-253,
+the sliding-window ring ``swa_decode`` :341 and the absorbed
+``mla_decode`` :496).  Decode writes the new token's KV IN PLACE (into
+the pool, or the cache layer) and reads the KV back through the
+hand-written kernels where the reference reaches its Pallas kernels
+(``impl="paged"``); an fp8 cache is read through the masked softmax,
+dequantized to bfloat16 as the reference's is.
 """
 from __future__ import annotations
 
@@ -25,9 +28,20 @@ from repro_torch.models import layers
 NEG_INF = -1e30
 
 
-def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
-    """Boolean [.., S, T] mask: True = attend."""
-    return q_pos[..., :, None] >= k_pos[..., None, :]
+def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                window: int = 0) -> torch.Tensor:
+    """Boolean [.., S, T] mask: True = attend.  ``window`` > 0 adds
+    locality (a key less than ``window`` positions back)."""
+    m = q_pos[..., :, None] >= k_pos[..., None, :]
+    if window > 0:
+        m = m & (q_pos[..., :, None] - k_pos[..., None, :] < window)
+    return m
+
+
+def _project_out(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``out @ w`` with JAX's type promotion: the bfloat16 context read
+    from an fp8 cache meets a float32 model's weight in float32."""
+    return out.to(torch.promote_types(out.dtype, w.dtype)) @ w
 
 
 # ---------------------------------------------------------------------------
@@ -40,8 +54,11 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Grouped-query attention with f32 scores and softmax.
 
     q: [B,S,H,D]; k/v: [B,T,KV,D]; mask: broadcastable to [B,KV,G,S,T].
-    Returns [B,S,H,Dv] in v's dtype.
+    Returns [B,S,H,Dv] in v's dtype (bfloat16 for an fp8 cache, which is
+    dequantized first, as the reference's ``attention.py:49-51``).
     """
+    if k.element_size() == 1:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
     B, S, H, D = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, D)
@@ -85,30 +102,44 @@ def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor):
 
 
 def gqa_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-             positions: torch.Tensor, *, impl: str = "xla"
+             positions: torch.Tensor, *, window: int = 0,
+             kv_positions: Optional[torch.Tensor] = None,
+             kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+             causal: bool = True, impl: str = "xla"
              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Whole-sequence causal self-attention.
+    """Whole-sequence self-attention, or cross-attention over
+    ``kv_override`` (k, v [B,T,KV,hd], taken as they are: no RoPE).
 
-    ``impl="flash"`` runs the flash prefill kernel (``ops.flash_attention``)
-    as the reference's does (``attention.py:122-129``; the port has no
-    sliding window or cross-attention, the reference's other conditions);
-    any other ``impl`` the masked softmax of ``attention_core``.
-    Returns (output [B,S,D_model], (k, v) [B,S,KV,hd] for the cache).
+    The reference's routes (``attention.py:122-129``): a causal call with
+    ``impl="flash"``, no window and no override runs the flash prefill
+    kernel (``ops.flash_attention``); a windowed, cross or other causal
+    call the masked softmax of ``attention_core`` over ``kv_positions``
+    (default: ``positions``); a non-causal call (the whisper encoder,
+    cross-attention) ``attention_core`` unmasked.
+    Returns (output [B,S,D_model], (k, v) for the cache).
     """
     q, k, v = _project_qkv(p, cfg, x)
+    if kv_override is not None:
+        k, v = kv_override
+    kv_pos = positions if kv_positions is None else kv_positions
     if cfg.rope_theta > 0:
         sin, cos = layers.rope_sin_cos(positions, cfg.head_dim, cfg.rope_theta)
         q = layers.apply_rope(q, sin, cos)
-        k = layers.apply_rope(k, sin, cos)
+        if kv_override is None:
+            sin, cos = layers.rope_sin_cos(kv_pos, cfg.head_dim,
+                                           cfg.rope_theta)
+            k = layers.apply_rope(k, sin, cos)
     scale = cfg.head_dim ** -0.5
-    if impl == "flash":
+    if not causal:
+        out = attention_core(q, k, v, None, scale)
+    elif impl == "flash" and window == 0 and kv_override is None:
         out = kops.flash_attention(q, k, v, scale=scale)
     else:
-        mask = causal_mask(positions, positions)[:, None, None, :, :]
+        mask = causal_mask(positions, kv_pos, window)[:, None, None, :, :]
         out = attention_core(q, k, v, mask, scale)
     B, S = x.shape[:2]
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return out @ p["wo"], (k, v)
+    return _project_out(out, p["wo"]), (k, v)
 
 
 def _pad_to_extent(arr: torch.Tensor, extent: int) -> torch.Tensor:
@@ -164,16 +195,17 @@ def write_kv_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
                    lengths: torch.Tensor) -> None:
     """Insert one new KV per sequence at its own index, IN PLACE.
 
-    cache [B,T,KV,hd]; new [B,1,KV,hd]; lengths [B].  A row whose length
-    is T or more writes nothing, as the reference's masked ``where``
-    (``attention.py:210-215``): its index is clamped and the old row
-    written back, so no index leaves the cache and nothing reads back to
-    the host.
+    cache [B,T,...]; new [B,1,...]; lengths [B] (the GQA layer's
+    [B,T,KV,hd] and the MLA latent / rope rows [B,T,r] alike).  A row
+    whose length is T or more writes nothing, as the reference's masked
+    ``where`` (``attention.py:210-215``): its index is clamped and the
+    old row written back, so no index leaves the cache and nothing reads
+    back to the host.
     """
     B, T = cache_k.shape[:2]
     rows = torch.arange(B, device=cache_k.device)
     idx = lengths.clamp(max=T - 1).long()
-    keep = (lengths < T)[:, None, None]
+    keep = (lengths < T).view((B,) + (1,) * (cache_k.dim() - 2))
     for cache, new in ((cache_k, k_new), (cache_v, v_new)):
         cache[rows, idx] = torch.where(keep, new[:, 0].to(cache.dtype),
                                        cache[rows, idx])
@@ -208,7 +240,83 @@ def gqa_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         mask = (kv_pos <= pos)[:, None, None, None, :]        # [B,1,1,1,T]
         out = attention_core(q, cache_k, cache_v, mask, scale)
     out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
-    return out @ p["wo"]
+    return _project_out(out, p["wo"])
+
+
+def ring_write_positions(cache_pos: torch.Tensor, cur: torch.Tensor
+                         ) -> None:
+    """Record position ``cur`` [B] in ring slot ``cur % W`` of
+    ``cache_pos`` [..., B, W] IN PLACE (every leading index at once: the
+    gemma3 decode writes its local layers' rings in one op)."""
+    B, W = cache_pos.shape[-2:]
+    rows = torch.arange(B, device=cache_pos.device)
+    cache_pos[..., rows, (cur % W).long()] = cur.to(cache_pos.dtype)
+
+
+def ring_count(cache_pos: torch.Tensor) -> torch.Tensor:
+    """[B] int32: the ring slots holding a position (``cache_pos >= 0``).
+
+    After a prefill and the decode steps that follow it (each step's
+    ``cur`` one past the last, the first at most the prefilled length S),
+    these slots are exactly the ones the reference attends to
+    (``attention.py:370``, ``valid = (pos >= 0) & (pos > cur - W)``), and
+    they are the prefix ``[0, n)`` of the ring:
+      * prefill fills slots ``[0, min(S, W))`` (slot w holds the latest
+        position ``p < S`` with ``p % W == w``) and marks the rest -1;
+        decode writes slot ``cur % W``, which is ``cur`` itself while
+        ``cur < W``, so the filled slots stay a prefix until all W are;
+      * every filled slot holds a position above ``cur - W``: a prefill
+        position ``p >= S - W > cur - W`` while ``cur < S``; once
+        ``cur >= S``, any older position ``p <= cur - W`` shares its slot
+        with ``p + W <= cur``, which a later decode step wrote over it;
+        a decode position ``p <= cur - W`` likewise.
+    Attention depends only on which slots it reads, not their order, so
+    the contiguous decode kernel over ``n`` tokens computes the
+    reference's masked softmax.  Pad positions of a bucket prefilled past
+    the real prompt (``cur < S``) are positive and held: the reference
+    attends to them, and so does ``[0, n)``.
+    """
+    return (cache_pos >= 0).sum(-1, dtype=torch.int32)
+
+
+def swa_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+               cache_k: torch.Tensor, cache_v: torch.Tensor,
+               cache_pos: torch.Tensor, cur_len: torch.Tensor,
+               count: torch.Tensor, *, impl: str = "xla") -> torch.Tensor:
+    """One-token decode against a sliding-window ring (gemma3's local
+    layers, ``attention.py:341-375``).
+
+    x [B,1,D]; cache_k / cache_v [B,W,KV,hd], updated IN PLACE: the new
+    token's K/V go to slot ``cur_len % W``.  cache_pos [B,W] (absolute
+    positions, -1 = empty) already holds this step's position: the caller
+    writes it with ``ring_write_positions`` and takes ``count`` =
+    ``ring_count(cache_pos)``, once for every local layer.
+    ``impl="paged"`` reads the ring through the contiguous decode kernel
+    (``ops.decode_attention``) over its first ``count`` slots
+    (``ring_count`` says why those are the reference's slots); any other
+    ``impl`` through the reference's masked softmax.  Returns out
+    [B,1,D].
+    """
+    B, W = cache_pos.shape
+    q, k, v = _project_qkv(p, cfg, x)
+    pos = cur_len[:, None]
+    if cfg.rope_theta > 0:
+        sin, cos = layers.rope_sin_cos(pos, cfg.head_dim, cfg.rope_theta)
+        q = layers.apply_rope(q, sin, cos)
+        k = layers.apply_rope(k, sin, cos)
+    rows = torch.arange(B, device=x.device)
+    slot = (cur_len % W).long()
+    cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+    scale = cfg.head_dim ** -0.5
+    if impl == "paged":
+        out = kops.decode_attention(q, cache_k, cache_v, count, scale=scale)
+    else:
+        valid = (cache_pos >= 0) & (cache_pos > pos - W)          # [B,W]
+        out = attention_core(q, cache_k, cache_v,
+                             valid[:, None, None, None, :], scale)
+    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
+    return _project_out(out, p["wo"])
 
 
 def _write_page(page_table: torch.Tensor, lengths: torch.Tensor,
@@ -402,3 +510,42 @@ def mla_paged_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     out = torch.einsum("bshr,rhv->bshv", ctx, wuv)
     out = out.reshape(B, 1, H * m.v_head_dim).to(x.dtype)
     return out @ p["wo"], pool
+
+
+def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+               cache_latent: torch.Tensor, cache_rope: torch.Tensor,
+               lengths: torch.Tensor) -> torch.Tensor:
+    """One-token absorbed-MLA decode against a contiguous latent cache
+    (``attention.py:496-552``; the reference's route is XLA einsums, so
+    this is plain torch).
+
+    x [B,1,D]; cache_latent [B,T,r] and cache_rope [B,T,rp], updated IN
+    PLACE at ``lengths`` [B].  Attention reads only the compressed rows:
+    ``W_uk`` is absorbed into q, ``W_uv`` applied to the latent context.
+    Returns out [B,1,D].
+    """
+    m = cfg.mla
+    B, T = cache_latent.shape[:2]
+    H = cfg.n_heads
+    pos = lengths[:, None]
+    q_nope, q_rope = _mla_queries(p, cfg, x, pos)
+    latent_new, rope_new = _mla_latent(p, cfg, x, pos)
+    write_kv_cache(cache_latent, cache_rope, latent_new, rope_new, lengths)
+    wuk = p["wuk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wuk)
+    latent, rope = cache_latent, cache_rope
+    if latent.element_size() == 1:          # fp8 latent cache
+        latent, rope = latent.to(torch.bfloat16), rope.to(torch.bfloat16)
+    scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), latent.float())
+              + torch.einsum("bshp,btp->bhst", q_rope.float(), rope.float()))
+    scores = scores * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    kv_pos = torch.arange(T, device=x.device)[None, None, None, :]
+    scores = torch.where(kv_pos <= pos[:, None, :, None], scores,
+                         torch.tensor(NEG_INF, device=scores.device))
+    w = torch.softmax(scores, dim=-1).to(latent.dtype)
+    ctx = torch.einsum("bhst,btr->bshr", w, latent)
+    wuv = p["wuv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    ctx = ctx.to(torch.promote_types(ctx.dtype, wuv.dtype))
+    out = torch.einsum("bshr,rhv->bshv", ctx, wuv)
+    out = out.reshape(B, 1, H * m.v_head_dim)
+    return _project_out(out, p["wo"])

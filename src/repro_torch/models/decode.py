@@ -1,25 +1,38 @@
-"""Decode-side programs of the fused fallback families: cache init,
-prefill (cache seeding) and the one-token step.
+"""Decode-side programs of the dense-cache Model path: cache init, prefill
+(cache seeding) and the one-token step, for every family.
 
-Port of the ssm and hybrid branches of ``src/repro/models/decode.py``
-(``init_cache`` :38, ``prefill`` :124 with ``_prefill_hybrid`` :254,
-``decode_step`` :285 with ``_decode_hybrid`` :408).  The reference scans
-over stacked layers and returns a new cache; here a Python loop runs the
-layers and the cache is updated IN PLACE, so a caller may pass views of
-a larger cache (the engine passes one batch slot).  The other families
-raise ``NotImplementedError``: the split path serves dense/moe/vlm, and
-the audio and sliding-window families are not ported yet.
+Port of ``src/repro/models/decode.py`` (``init_cache`` :39, ``prefill``
+:121 with ``_prefill_swa`` :212 and ``_prefill_hybrid`` :254,
+``decode_step`` :291 with ``_decode_swa`` :375 and ``_decode_hybrid``
+:408).  The reference scans over stacked layers and returns a new cache;
+here a Python loop runs the layers and the cache is updated IN PLACE, so
+a caller may pass views of a larger cache (the engine passes one batch
+slot of the ssm / hybrid caches).  ``impl`` picks the attention route as
+the reference's does: ``"flash"`` prefill and ``"paged"`` decode take the
+hand-written kernels where the reference reaches its Pallas kernels (the
+GQA self-attention layers, gemma3's ring included: ``attention.py``
+``ring_count``), ``"xla"`` the masked softmax.  Sliding-window prefill
+layers, cross-attention, the whisper encoder and MLA read through the
+masked softmax on every route, as the reference's XLA does.
 
 Cache layouts (T = max context length in the cache):
-  ssm    : {"h": [L,B,H,P,N] f32, "conv": [L,B,W-1,conv]}
-  hybrid : ssm stacks for the grouped layers ({"h", "conv"}) and the tail
-           ({"tail_h", "tail_conv"}) + the shared attention block's
-           {"k", "v": [G,B,T,KV,hd]}
+  gqa dense/moe/vlm : {"k","v": [L,B,T,KV,hd]}
+  mla               : {"latent": [L,B,T,r], "rope": [L,B,T,rp]}
+  gemma3 swa        : local ring  {"lk","lv": [G,P-1,B,W,KV,hd],
+                                   "lpos": [G,P-1,B,W] int32, -1 = empty}
+                      global full {"gk","gv": [G,B,T,KV,hd]}
+  ssm               : {"h": [L,B,H,P,N] f32, "conv": [L,B,W-1,conv]}
+  hybrid            : ssm stacks for the grouped layers ({"h", "conv"}) and
+                      the tail ({"tail_h", "tail_conv"}) + the shared
+                      attention block's {"k", "v": [G,B,T,KV,hd]}
+  audio             : self {"k","v": [L,B,T,KV,hd]} + static cross
+                      {"ck","cv": [L,B,Tenc,KV,hd]}
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -28,38 +41,67 @@ from repro_torch.models import layers, ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the fused dense-cache path of the {cfg.family} "
-            f"family is not ported (dense/moe/vlm run the split path; "
-            f"audio and sliding-window models are not ported yet)")
-
-
 def _pick(tree: Dict, i: int) -> Dict:
     """Layer ``i`` of a stacked param tree."""
     return {k: _pick(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device) -> Dict:
-    _check_family(cfg)
+def kv_dtype_of(cfg: ModelConfig, kv_dtype: Optional[str]) -> torch.dtype:
+    """The cache's element type: the model's (None), fp8-e4m3 ("f8": half
+    the cache bytes, dequantized at attention) or a torch dtype's name."""
+    if kv_dtype is None:
+        return tfm.dtype_of(cfg)
+    if kv_dtype == "f8":
+        return torch.float8_e4m3fn
+    return getattr(torch, kv_dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+               kv_dtype: Optional[str] = None) -> Dict:
+    dt = kv_dtype_of(cfg, kv_dtype)
+    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    fam = cfg.family
+    if fam in ("dense", "vlm", "moe"):
+        if cfg.attention == "mla":
+            m = cfg.mla
+            return {"latent": zeros(L, batch, max_len, m.kv_lora_rank),
+                    "rope": zeros(L, batch, max_len, m.qk_rope_head_dim)}
+        if cfg.swa_pattern > 0:
+            G, P = cfg.n_layers // cfg.swa_pattern, cfg.swa_pattern
+            W = min(cfg.sliding_window, max_len)
+            return {"lk": zeros(G, P - 1, batch, W, KV, hd),
+                    "lv": zeros(G, P - 1, batch, W, KV, hd),
+                    "lpos": torch.full((G, P - 1, batch, W), -1,
+                                       dtype=torch.int32, device=device),
+                    "gk": zeros(G, batch, max_len, KV, hd),
+                    "gv": zeros(G, batch, max_len, KV, hd)}
+        return {"k": zeros(L, batch, max_len, KV, hd),
+                "v": zeros(L, batch, max_len, KV, hd)}
+    if fam == "audio":
+        return {"k": zeros(L, batch, max_len, KV, hd),
+                "v": zeros(L, batch, max_len, KV, hd),
+                "ck": zeros(L, batch, cfg.encoder_seq, KV, hd),
+                "cv": zeros(L, batch, cfg.encoder_seq, KV, hd)}
+    if fam not in ("ssm", "hybrid"):
+        raise ValueError(f"unknown family {fam}")
+
     st = ssm_mod.init_ssm_state(cfg, batch, device)
 
     def stack(n: int, leaf: torch.Tensor) -> torch.Tensor:
-        return torch.zeros((n,) + leaf.shape, dtype=leaf.dtype,
-                           device=device)
+        return zeros(n, *leaf.shape, dtype=leaf.dtype)
 
-    if cfg.family == "ssm":
-        return {"h": stack(cfg.n_layers, st["h"]),
-                "conv": stack(cfg.n_layers, st["conv"])}
-    G, KV, hd = cfg.hybrid_groups, cfg.n_kv_heads, cfg.head_dim
+    if fam == "ssm":
+        return {"h": stack(L, st["h"]), "conv": stack(L, st["conv"])}
+    G = cfg.hybrid_groups
     n_ssm = G * cfg.ssm_per_group
-    kv = torch.zeros((G, batch, max_len, KV, hd), dtype=tfm.dtype_of(cfg),
-                     device=device)
     c = {"h": stack(n_ssm, st["h"]), "conv": stack(n_ssm, st["conv"]),
-         "k": kv, "v": torch.zeros_like(kv)}
+         "k": zeros(G, batch, max_len, KV, hd),
+         "v": zeros(G, batch, max_len, KV, hd)}
     if cfg.tail_ssm_layers:
         c["tail_h"] = stack(cfg.tail_ssm_layers, st["h"])
         c["tail_conv"] = stack(cfg.tail_ssm_layers, st["conv"])
@@ -90,21 +132,53 @@ def _ssm_decode_layer(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: Dict, *, impl: str = "xla",
-            logit_index: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
-    """tokens [B,S] -> (logits [B,V] at ``logit_index`` (default and
-    upper limit: the last position), the cache seeded in place).  Every
-    position runs, padding included: the SSM states continue from the
-    whole sequence, as the reference's do."""
-    _check_family(cfg)
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    x = tfm.embed_inputs(params, cfg, tokens)
-    if cfg.family == "ssm":
+            cache: Dict, *, embeddings: Optional[torch.Tensor] = None,
+            encoder_frames: Optional[torch.Tensor] = None,
+            impl: str = "xla", logit_index: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Dict]:
+    """tokens [B,S_txt] (after the stub ``embeddings`` [B,S_emb,D] prefix
+    of a vlm; whisper's ``encoder_frames`` [B,T_enc,D]) -> (logits [B,V]
+    at ``logit_index`` (default and upper limit: the last position), the
+    cache seeded in place).  Every position runs, padding included: the
+    caches and SSM states hold the whole sequence, as the reference's
+    do."""
+    fam = cfg.family
+    B = tokens.shape[0]
+    S = tokens.shape[1] + (embeddings.shape[1] if embeddings is not None
+                           else 0)
+    positions = tfm.positions_of(B, S, tokens.device)
+    x = tfm.embed_inputs(params, cfg, tokens, embeddings, positions)
+    if fam in ("dense", "vlm", "moe"):
+        if cfg.swa_pattern > 0:
+            x = _prefill_swa(params, cfg, x, positions, cache, impl)
+        elif cfg.attention == "mla":
+            for i in range(cfg.n_layers):
+                p_l = _pick(params["layers"], i)
+                x, (lat, rope) = tfm._attn_full(p_l, cfg, x, positions)
+                x, _ = tfm._ffn_full(p_l, cfg, x)
+                cache["latent"][i, :, :S] = lat
+                cache["rope"][i, :, :S] = rope
+        else:
+            for i in range(cfg.n_layers):
+                p_l = _pick(params["layers"], i)
+                x, (k, v) = tfm._attn_full(p_l, cfg, x, positions, impl)
+                x, _ = tfm._ffn_full(p_l, cfg, x)
+                cache["k"][i, :, :S] = k
+                cache["v"][i, :, :S] = v
+    elif fam == "audio":
+        enc_out = tfm.encode(params, cfg, encoder_frames)
+        for i in range(cfg.n_layers):
+            x, (k, v), (kx, vx) = tfm._decoder_layer(
+                _pick(params["layers"], i), cfg, x, positions, enc_out, impl)
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+            cache["ck"][i] = kx
+            cache["cv"][i] = vx
+    elif fam == "ssm":
         for i in range(cfg.n_layers):
             x = _ssm_full_layer(_pick(params["layers"], i), cfg, x,
                                 cache["h"], cache["conv"], i)
-    else:
+    elif fam == "hybrid":
         shared = params["shared_block"]
         per = cfg.ssm_per_group
         for g in range(cfg.hybrid_groups):
@@ -118,24 +192,103 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         for i in range(cfg.tail_ssm_layers):
             x = _ssm_full_layer(_pick(params["tail"], i), cfg, x,
                                 cache["tail_h"], cache["tail_conv"], i)
+    else:
+        raise ValueError(f"unknown family {fam}")
     # clamped into the sequence, as the reference's dynamic slice is
     at = S - 1 if logit_index is None else min(logit_index, S - 1)
     return tfm._logits(params, cfg, x[:, at:at + 1])[:, 0], cache
 
 
+def ring_layout(S: int, W: int) -> np.ndarray:
+    """[W] position each ring slot holds after a prefill of S tokens, -1
+    where none (``decode.py:220-223``): slot w holds the latest position
+    p < S with p % W == w, if it is within the last W."""
+    slot_pos = np.array([S - 1 - ((S - 1 - w) % W) for w in range(W)])
+    return np.where(slot_pos >= max(0, S - W), slot_pos, -1)
+
+
+def _prefill_swa(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor, cache: Dict, impl: str
+                 ) -> torch.Tensor:
+    """gemma3: groups of (P-1 local ring layers + 1 global layer).  Local
+    layers take the window-masked softmax (the reference's XLA route);
+    global layers the flash kernel under ``impl="flash"``.  A local ring
+    keeps its old rows where no position lands (S < W) and takes the
+    static layout's positions, -1 included."""
+    G, P = cfg.n_layers // cfg.swa_pattern, cfg.swa_pattern
+    B, S = x.shape[:2]
+    W = cache["lk"].shape[3]
+    slot_pos = ring_layout(S, W)
+    filled = np.flatnonzero(slot_pos >= 0)        # host-known: no sync
+    dst = torch.as_tensor(filled, device=x.device)
+    src = torch.as_tensor(slot_pos[filled], device=x.device)
+    ring_pos = torch.as_tensor(slot_pos, dtype=torch.int32, device=x.device)
+    for g in range(G):
+        for j in range(P - 1):
+            p_l = _pick(params["layers"], g * P + j)
+            x, (k, v) = tfm._attn_full(p_l, cfg, x, positions, impl,
+                                       window=cfg.sliding_window)
+            x, _ = tfm._ffn_full(p_l, cfg, x)
+            cache["lk"][g, j][:, dst] = k[:, src].to(cache["lk"].dtype)
+            cache["lv"][g, j][:, dst] = v[:, src].to(cache["lv"].dtype)
+            cache["lpos"][g, j] = ring_pos
+        p_g = _pick(params["layers"], g * P + P - 1)
+        x, (k, v) = tfm._attn_full(p_g, cfg, x, positions, impl)
+        x, _ = tfm._ffn_full(p_g, cfg, x)
+        cache["gk"][g, :, :S] = k
+        cache["gv"][g, :, :S] = v
+    return x
+
+
 def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: Dict, lengths: torch.Tensor, *, impl: str = "xla"
-                ) -> Tuple[torch.Tensor, Dict]:
-    """tokens [B] next ids; lengths [B] current context lengths (the new
-    token's KV goes to that index).  Returns (logits [B,V], the cache
-    updated in place)."""
-    _check_family(cfg)
-    x = tfm.embed_inputs(params, cfg, tokens[:, None])
-    if cfg.family == "ssm":
+                cache: Dict, lengths: Union[int, torch.Tensor], *,
+                impl: str = "xla") -> Tuple[torch.Tensor, Dict]:
+    """tokens [B] next ids; lengths [B] (or one int for every row) current
+    context lengths (the new token's KV goes to that index).  Returns
+    (logits [B,V], the cache updated in place)."""
+    fam = cfg.family
+    B = tokens.shape[0]
+    lengths = torch.as_tensor(lengths, device=tokens.device)
+    if lengths.dim() == 0:
+        lengths = lengths.expand(B)
+    pos = lengths[:, None]
+    x = tfm.embed_inputs(params, cfg, tokens[:, None], None,
+                         pos if cfg.rope_theta == 0 else None)
+    if fam in ("dense", "vlm", "moe"):
+        if cfg.swa_pattern > 0:
+            x = _decode_swa(params, cfg, x, cache, lengths, impl)
+        else:
+            for i in range(cfg.n_layers):
+                p_l = _pick(params["layers"], i)
+                h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
+                if cfg.attention == "mla":
+                    x = x + attn.mla_decode(p_l["attn"], cfg, h,
+                                            cache["latent"][i],
+                                            cache["rope"][i], lengths)
+                else:
+                    x = x + attn.gqa_decode(p_l["attn"], cfg, h,
+                                            cache["k"][i], cache["v"][i],
+                                            lengths, impl=impl)
+                x, _ = tfm._ffn_full(p_l, cfg, x)
+    elif fam == "audio":
+        for i in range(cfg.n_layers):
+            p_l = _pick(params["layers"], i)
+            h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
+            x = x + attn.gqa_decode(p_l["self"], cfg, h, cache["k"][i],
+                                    cache["v"][i], lengths, impl=impl)
+            h = layers.rms_norm(x, p_l["ln2"], cfg.norm_eps)
+            out, _ = attn.gqa_full(p_l["cross"], cfg, h, pos,
+                                   kv_override=(cache["ck"][i],
+                                                cache["cv"][i]),
+                                   causal=False)
+            x = x + out
+            h = layers.rms_norm(x, p_l["ln3"], cfg.norm_eps)
+            x = x + layers.apply_mlp(p_l["mlp"], h, cfg.mlp_kind)
+    elif fam == "ssm":
         for i in range(cfg.n_layers):
             x = _ssm_decode_layer(_pick(params["layers"], i), cfg, x,
                                   cache["h"], cache["conv"], i)
-    else:
+    elif fam == "hybrid":
         shared = params["shared_block"]
         per = cfg.ssm_per_group
         for g in range(cfg.hybrid_groups):
@@ -149,4 +302,32 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         for i in range(cfg.tail_ssm_layers):
             x = _ssm_decode_layer(_pick(params["tail"], i), cfg, x,
                                   cache["tail_h"], cache["tail_conv"], i)
+    else:
+        raise ValueError(f"unknown family {fam}")
     return tfm._logits(params, cfg, x)[:, 0], cache
+
+
+def _decode_swa(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                cache: Dict, lengths: torch.Tensor, impl: str
+                ) -> torch.Tensor:
+    """gemma3's step: every local ring's position slot written at once
+    and the ring count taken once (the rings' positions are the same in
+    every local layer), then per group P-1 ``swa_decode`` layers and one
+    global ``gqa_decode`` layer."""
+    G, P = cfg.n_layers // cfg.swa_pattern, cfg.swa_pattern
+    attn.ring_write_positions(cache["lpos"], lengths)
+    count = attn.ring_count(cache["lpos"][0, 0])
+    for g in range(G):
+        for j in range(P - 1):
+            p_l = _pick(params["layers"], g * P + j)
+            h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
+            x = x + attn.swa_decode(p_l["attn"], cfg, h, cache["lk"][g, j],
+                                    cache["lv"][g, j], cache["lpos"][g, j],
+                                    lengths, count, impl=impl)
+            x, _ = tfm._ffn_full(p_l, cfg, x)
+        p_g = _pick(params["layers"], g * P + P - 1)
+        h = layers.rms_norm(x, p_g["ln1"], cfg.norm_eps)
+        x = x + attn.gqa_decode(p_g["attn"], cfg, h, cache["gk"][g],
+                                cache["gv"][g], lengths, impl=impl)
+        x, _ = tfm._ffn_full(p_g, cfg, x)
+    return x

@@ -86,6 +86,18 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
     return out.to(dtype)
 
 
+def sinusoidal_positions(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Whisper-style absolute sinusoidal position embeddings [..., dim]
+    in f32 (``layers.py:73``): sines of the first half, cosines of the
+    second."""
+    half = dim // 2
+    log_timescale = math.log(10_000.0) / max(half - 1, 1)
+    inv = torch.exp(-log_timescale * torch.arange(
+        half, dtype=torch.float32, device=positions.device))
+    scaled = positions.float()[..., None] * inv
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------

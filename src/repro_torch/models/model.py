@@ -1,13 +1,14 @@
 """Model facade: config -> init / forward / init_cache / prefill /
 decode_step.
 
-Port of ``src/repro/models/model.py``: the full-sequence ``forward`` the
-training substrate runs, and the fused dense-cache path (the ssm and
-hybrid families) the engine's fallback runner calls.
-``impl`` picks the attention route as in the reference: ``"flash"`` for
-prefill and ``"paged"`` for decode take the hand-written kernels,
-``"xla"`` the masked softmax.  The SSD scan takes its kernel whenever the
-tensors lie on a card.
+Port of ``src/repro/models/model.py``: the full-sequence ``forward``
+(training; a vlm's stub ``embeddings`` prefix, whisper's
+``encoder_frames``), and the dense-cache path of every family (the engine
+serves the ssm and hybrid families through it; ``examples``-style
+callers run any architecture).  ``impl`` picks the attention route as in
+the reference: ``"flash"`` for prefill and ``"paged"`` for decode take
+the hand-written kernels, ``"xla"`` the masked softmax.  The SSD scan
+takes its kernel whenever the tensors lie on a card.
 """
 from __future__ import annotations
 
@@ -29,20 +30,28 @@ class Model:
         return tfm.init_params(gen, self.cfg)
 
     def forward(self, params: Dict, tokens: torch.Tensor, *,
+                embeddings: Optional[torch.Tensor] = None,
+                encoder_frames: Optional[torch.Tensor] = None,
                 impl: str = "xla") -> Tuple[torch.Tensor, torch.Tensor]:
-        return tfm.forward(params, self.cfg, tokens, impl=impl)
+        return tfm.forward(params, self.cfg, tokens, embeddings=embeddings,
+                           encoder_frames=encoder_frames, impl=impl)
 
-    def init_cache(self, batch: int, max_len: int, device) -> Dict:
-        return dec.init_cache(self.cfg, batch, max_len, device)
+    def init_cache(self, batch: int, max_len: int, device,
+                   kv_dtype: Optional[str] = None) -> Dict:
+        return dec.init_cache(self.cfg, batch, max_len, device, kv_dtype)
 
     def prefill(self, params: Dict, tokens: torch.Tensor, cache: Dict, *,
+                embeddings: Optional[torch.Tensor] = None,
+                encoder_frames: Optional[torch.Tensor] = None,
                 impl: str = "xla", logit_index: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
-        return dec.prefill(params, self.cfg, tokens, cache, impl=impl,
+        return dec.prefill(params, self.cfg, tokens, cache,
+                           embeddings=embeddings,
+                           encoder_frames=encoder_frames, impl=impl,
                            logit_index=logit_index)
 
     def decode_step(self, params: Dict, tokens: torch.Tensor, cache: Dict,
-                    lengths: torch.Tensor, *, impl: str = "xla"
+                    lengths, *, impl: str = "xla"
                     ) -> Tuple[torch.Tensor, Dict]:
         return dec.decode_step(params, self.cfg, tokens, cache, lengths,
                                impl=impl)

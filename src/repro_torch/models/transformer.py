@@ -1,19 +1,22 @@
-"""Decoder parameters, the full-sequence sub-blocks and the training
-forward.
+"""Model parameters, the full-sequence sub-blocks and the forward, for
+every family.
 
-Port of ``src/repro/models/transformer.py`` except its sliding-window and
-audio parts: ``init_params`` (``:106``) for the dense / MoE / VLM decoders
-with GQA or MLA attention and for the ssm and hybrid (zamba2) families,
-``embed_inputs`` (``:152``), ``_logits`` (``:165``), ``_attn_full``
-(``:175``), ``_ffn_full`` (``:186``) and ``forward`` (``:207``).  The param
+Port of ``src/repro/models/transformer.py``: ``init_params`` (``:106``)
+for the dense / MoE / VLM decoders with GQA or MLA attention (gemma3's
+sliding-window layers included), the ssm and hybrid (zamba2) families and
+the whisper encoder-decoder, ``embed_inputs`` (``:152``, with the stub
+modality prefix and sinusoidal positions), ``_logits`` (``:165``),
+``_attn_full`` (``:175``), ``_ffn_full`` (``:186``), ``forward``
+(``:207``), ``_cross_kv`` / ``encode`` (``:303-332``) and the
+sliding-window forward's ``_swa_global_flags`` (``:335``).  The param
 tree has the reference's shape: per-layer leaves stacked on a leading
-axis under ``"layers"`` (and ``"tail"``), the hybrid's ONE shared
-attention + MLP block under ``"shared_block"``, so ``repro_torch.bridge``
-maps a reference tree onto it leaf for leaf.
+axis under ``"layers"`` (and ``"tail"``, ``"enc_layers"``), the hybrid's
+ONE shared attention + MLP block under ``"shared_block"``, so
+``repro_torch.bridge`` maps a reference tree onto it leaf for leaf.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -48,6 +51,29 @@ def _init_ssm_layer(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
             "ssm": ssm_mod.init_ssm(gen, cfg, dtype)}
 
 
+def _init_enc_layer(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
+    """A whisper encoder layer (``transformer.py:80``)."""
+    zeros = dict(dtype=dtype, device=gen.device)
+    return {"ln1": torch.zeros((cfg.d_model,), **zeros),
+            "attn": attn.init_gqa(gen, cfg, dtype),
+            "ln2": torch.zeros((cfg.d_model,), **zeros),
+            "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
+                                   dtype)}
+
+
+def _init_encdec_layer(gen: torch.Generator, cfg: ModelConfig, dtype
+                       ) -> Dict:
+    """A whisper decoder layer: self, cross and MLP (``:90``)."""
+    zeros = dict(dtype=dtype, device=gen.device)
+    return {"ln1": torch.zeros((cfg.d_model,), **zeros),
+            "self": attn.init_gqa(gen, cfg, dtype),
+            "ln2": torch.zeros((cfg.d_model,), **zeros),
+            "cross": attn.init_gqa(gen, cfg, dtype),
+            "ln3": torch.zeros((cfg.d_model,), **zeros),
+            "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
+                                   dtype)}
+
+
 def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -61,13 +87,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     reproduce: the same config gives the same SHAPES and scales here, not
     the same numbers (tests bridge the reference's own tree instead).
     """
-    decoder = (cfg.family in ("dense", "moe", "vlm")
-               and cfg.attention in ("gqa", "mla"))
-    if not decoder and cfg.family not in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the port initialises dense/moe/vlm decoders with "
-            f"gqa/mla attention and the ssm/hybrid families only (family "
-            f"{cfg.family}, attention {cfg.attention})")
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
+        raise ValueError(f"unknown family {cfg.family}")
     dtype = dtype_of(cfg)
     p: Dict = {
         "embed": layers.init_embed(gen, cfg.vocab_size, cfg.d_model, dtype,
@@ -76,8 +97,15 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
                                   device=gen.device),
     }
     # one layer at a time: the draw's f32 temporaries stay one layer big
-    if decoder:
+    if cfg.family in ("dense", "moe", "vlm"):
         p["layers"] = _stack([_init_layer(gen, cfg, dtype)
+                              for _ in range(cfg.n_layers)])
+    elif cfg.family == "audio":
+        p["enc_layers"] = _stack([_init_enc_layer(gen, cfg, dtype)
+                                  for _ in range(cfg.n_encoder_layers)])
+        p["enc_norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
+                                    device=gen.device)
+        p["layers"] = _stack([_init_encdec_layer(gen, cfg, dtype)
                               for _ in range(cfg.n_layers)])
     elif cfg.family == "ssm":
         p["layers"] = _stack([_init_ssm_layer(gen, cfg, dtype)
@@ -95,15 +123,24 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     return p
 
 
-def embed_inputs(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
-                 ) -> torch.Tensor:
-    """tokens [B,S] -> [B,S,D].  The reference's stub modality prefix
-    (vlm) and sinusoidal positions (``rope_theta == 0``, whisper) belong
-    to families not ported yet."""
-    if cfg.rope_theta == 0:
-        raise NotImplementedError(f"{cfg.name}: sinusoidal positions are "
-                                  f"not ported yet")
-    return layers.embed_tokens(params["embed"], tokens)
+def embed_inputs(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 embeddings: Optional[torch.Tensor] = None,
+                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens [B,S_txt] -> [B,S,D]: the stub modality embeddings
+    [B,S_emb,D] (llava's patches) prepended when given, and whisper's
+    sinusoidal positions added when ``rope_theta == 0`` and ``positions``
+    [B,S] are given (``transformer.py:152-162``)."""
+    x = layers.embed_tokens(params["embed"], tokens)
+    if embeddings is not None:
+        x = torch.cat([embeddings.to(x.dtype), x], dim=1)
+    if cfg.rope_theta == 0 and positions is not None:
+        x = x + layers.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+    return x
+
+
+def positions_of(B: int, S: int, device) -> torch.Tensor:
+    """[B,S] positions 0..S-1 of every row."""
+    return torch.arange(S, device=device)[None, :].expand(B, S)
 
 
 def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor
@@ -113,13 +150,15 @@ def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor
 
 
 def _attn_full(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor, impl: str = "xla"):
-    """Pre-norm full-sequence attention + residual: (x, layer_kv)."""
+               positions: torch.Tensor, impl: str = "xla", window: int = 0):
+    """Pre-norm full-sequence attention + residual: (x, layer_kv);
+    ``window`` > 0 bounds a GQA layer to its sliding window."""
     h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
     if cfg.attention == "mla":
         out, kv = attn.mla_full(p_l["attn"], cfg, h, positions)
     else:
-        out, kv = attn.gqa_full(p_l["attn"], cfg, h, positions, impl=impl)
+        out, kv = attn.gqa_full(p_l["attn"], cfg, h, positions,
+                                window=window, impl=impl)
     return x + out, kv
 
 
@@ -160,31 +199,41 @@ def _call(body, remat: bool, *args):
 
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            embeddings: Optional[torch.Tensor] = None,
+            encoder_frames: Optional[torch.Tensor] = None,
             impl: str = "xla", moe_path: str = "capacity",
             remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward (training): (logits [B,S,V], aux scalar f32).
+    """Full-sequence forward (training, prefill without a cache):
+    (logits [B,S,V], aux scalar f32).
 
-    Port of ``transformer.py:207-300`` for the dense / vlm / moe decoders
-    (GQA or MLA attention; MoE by ``moe_path``, the aux loss averaged
-    over the layers) and the ssm and hybrid stacks.  ``remat=True``
-    recomputes each layer's (each hybrid group's) activations in the
-    backward.  Sliding-window attention and the audio family are not
-    ported and raise; the vlm stub-embedding prefix is not ported either
-    (text tokens only).
+    Port of ``transformer.py:207-300`` for every family: the dense / vlm
+    / moe decoders (GQA or MLA attention; gemma3's layers by the masked
+    softmax, windowed on the local ones; MoE by ``moe_path``, the aux
+    loss averaged over the layers; the vlm's stub ``embeddings``
+    prefix), the ssm and hybrid stacks, and the whisper decoder over
+    ``encode(encoder_frames)``.
+    ``remat=True`` recomputes each layer's (each hybrid group's)
+    activations in the backward.
     """
     fam = cfg.family
-    if fam not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"{cfg.name}: family {fam} is not ported")
-    if cfg.sliding_window:
-        raise NotImplementedError(f"{cfg.name}: sliding-window attention "
-                                  f"is not ported")
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    x = embed_inputs(params, cfg, tokens)
+    if fam not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio"):
+        raise ValueError(f"unknown family {fam}")
+    B = tokens.shape[0]
+    S = tokens.shape[1] + (embeddings.shape[1] if embeddings is not None
+                           else 0)
+    positions = positions_of(B, S, tokens.device)
+    x = embed_inputs(params, cfg, tokens, embeddings, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def block(xc, p_l):
-        xc, _ = _attn_full(p_l, cfg, xc, positions, impl)
+    def block(xc, p_l, is_global=True):
+        if cfg.sliding_window:
+            # the reference's ``_attn_full_swa`` (:343-364): the masked
+            # softmax for every layer, bounded to the window on the local
+            # ones
+            xc, _ = _attn_full(p_l, cfg, xc, positions, "xla",
+                               0 if is_global else cfg.sliding_window)
+        else:
+            xc, _ = _attn_full(p_l, cfg, xc, positions, impl)
         return _ffn_full(p_l, cfg, xc, moe_path)
 
     def ssm_block(xc, p_l):
@@ -193,13 +242,24 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         return xc + out
 
     if fam in ("dense", "vlm", "moe"):
-        for p_l in _unstack(params["layers"], cfg.n_layers):
-            x, a = _call(block, remat, x, p_l)
+        flags = _swa_global_flags(cfg)
+        for p_l, glob in zip(_unstack(params["layers"], cfg.n_layers),
+                             flags):
+            x, a = _call(block, remat, x, p_l, glob)
             aux = aux + a
         return _logits(params, cfg, x), aux / max(cfg.n_layers, 1)
     if fam == "ssm":
         for p_l in _unstack(params["layers"], cfg.n_layers):
             x = _call(ssm_block, remat, x, p_l)
+        return _logits(params, cfg, x), aux
+    if fam == "audio":
+        enc_out = encode(params, cfg, encoder_frames)
+
+        def dec_block(xc, p_l):
+            return _decoder_layer(p_l, cfg, xc, positions, enc_out, impl)[0]
+
+        for p_l in _unstack(params["layers"], cfg.n_layers):
+            x = _call(dec_block, remat, x, p_l)
         return _logits(params, cfg, x), aux
 
     per = cfg.ssm_per_group
@@ -218,3 +278,66 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         for p_l in _unstack(params["tail"], cfg.tail_ssm_layers):
             x = ssm_block(x, p_l)
     return _logits(params, cfg, x), aux
+
+
+# ---------------------------------------------------------------------------
+# whisper: the encoder and the decoder layer
+# ---------------------------------------------------------------------------
+
+def _cross_kv(p_attn: Dict, cfg: ModelConfig, enc_out: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K, V [B,T_enc,KV,hd] of the encoder output."""
+    B, T, _ = enc_out.shape
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    return ((enc_out @ p_attn["wk"]).reshape(B, T, KV, hd),
+            (enc_out @ p_attn["wv"]).reshape(B, T, KV, hd))
+
+
+def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """Whisper encoder over stub frame embeddings [B,T_enc,D]
+    (``transformer.py:311-332``): sinusoidal positions, then pre-norm
+    non-causal self-attention + MLP layers and a final norm."""
+    B, T, _ = frames.shape
+    pos = positions_of(B, T, frames.device)
+    x = frames + layers.sinusoidal_positions(pos, cfg.d_model).to(
+        frames.dtype)
+    for p_l in _unstack(params["enc_layers"], cfg.n_encoder_layers):
+        h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
+        out, _ = attn.gqa_full(p_l["attn"], cfg, h, pos, causal=False)
+        x = x + out
+        h = layers.rms_norm(x, p_l["ln2"], cfg.norm_eps)
+        x = x + layers.apply_mlp(p_l["mlp"], h, cfg.mlp_kind)
+    return layers.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _decoder_layer(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor, enc_out: torch.Tensor,
+                   impl: str = "xla"):
+    """One whisper decoder layer over the whole sequence: causal self-
+    attention (``impl`` routes it), non-causal cross-attention over the
+    encoder output, MLP.  Returns (x, (k, v) self, (k, v) cross)."""
+    h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
+    out, self_kv = attn.gqa_full(p_l["self"], cfg, h, positions, impl=impl)
+    x = x + out
+    cross_kv = _cross_kv(p_l["cross"], cfg, enc_out)
+    h = layers.rms_norm(x, p_l["ln2"], cfg.norm_eps)
+    out, _ = attn.gqa_full(p_l["cross"], cfg, h, positions,
+                           kv_override=cross_kv, causal=False)
+    x = x + out
+    h = layers.rms_norm(x, p_l["ln3"], cfg.norm_eps)
+    return x + layers.apply_mlp(p_l["mlp"], h, cfg.mlp_kind), self_kv, \
+        cross_kv
+
+
+# ---------------------------------------------------------------------------
+# sliding window (gemma3): per-layer global / local flag
+# ---------------------------------------------------------------------------
+
+def _swa_global_flags(cfg: ModelConfig) -> List[bool]:
+    """[L] flags, True where the layer attends globally: every
+    ``swa_pattern``-th layer, or all of them without a pattern."""
+    if cfg.swa_pattern == 0:
+        return [True] * max(cfg.n_layers, 1)
+    return [(i + 1) % cfg.swa_pattern == 0 for i in range(cfg.n_layers)]
+

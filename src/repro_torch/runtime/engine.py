@@ -598,12 +598,22 @@ class CrossPoolEngine:
         config = config or EngineConfig()
         self.mode = config.mode or EngineMode()
         for name, cfg in models.items():
-            if not split_exec.supports_split(cfg) \
-                    and cfg.family not in ("ssm", "hybrid"):
+            # the reference's engine cannot serve these either: its runner
+            # slices every cache leaf on axis 1, where the ring keeps the
+            # batch on axis 2 (src/repro/runtime/engine.py:203-213), and
+            # it prefills whisper with no encoder frames (:207)
+            if cfg.swa_pattern:
                 raise NotImplementedError(
-                    f"{name} ({cfg.family}"
-                    f"{', sliding window' if cfg.swa_pattern else ''}): its "
-                    f"fused fallback path is not ported yet")
+                    f"{name}: the engine does not serve sliding-window "
+                    f"models; the reference's runner slices the ring cache "
+                    f"on the wrong axis (src/repro/runtime/engine.py:"
+                    f"203-213); the Model path (models/model.py) runs them")
+            if cfg.family == "audio":
+                raise NotImplementedError(
+                    f"{name}: the engine does not serve encoder-decoder "
+                    f"models; the reference's runner prefills without "
+                    f"encoder frames (src/repro/runtime/engine.py:207); the "
+                    f"Model path (models/model.py) runs them")
         self.device = resolve_device(device)
         self.models = models
         self.max_ctx = max_ctx
@@ -1123,6 +1133,13 @@ class CrossPoolEngine:
         return self.finalize()
 
     # ------------------------------------------------------------------
+    @property
+    def busy(self) -> bool:
+        """Whether stepping can make progress now: requests hold batch
+        slots or wait, admitted, for one (``engine.py:1193-1198``; queued
+        backpressure shows in ``admission.queued_count()``)."""
+        return bool(self.waiting) or self._any_active()
+
     def _any_active(self) -> bool:
         return any(r.active for r in self.runners.values())
 

@@ -150,12 +150,10 @@ def test_entry_points_raise_without_a_card(coloc):
     dict(config=EngineConfig(flightrec=FlightRecorderConfig())),
     dict(observer=EngineObserver()),
 ])
-def test_parts_not_ported_raise(coloc, kw):
+def test_observability_parts_construct_and_serve(coloc, kw):
     """SLO monitoring, the sanitizer, the flight recorder and observers
-    were the last parts of this list; they are ported now
-    (``tests/test_torch_observe.py``, ``tests/test_torch_flightrec.py``)
-    and each constructs and serves.  What stays unported raises:
-    ``test_fallback_families_raise``."""
+    (``tests/test_torch_observe.py``, ``tests/test_torch_flightrec.py``):
+    an engine with each constructs and serves."""
     _, tm, _ = coloc
     engine = TEngine(tm, page_budget=256, page_bytes=4096, slab_bytes=4096,
                      max_batch=2, max_ctx=64, device="cpu", **kw)
@@ -165,11 +163,18 @@ def test_parts_not_ported_raise(coloc, kw):
     assert len(req.output_ids) == 2 and engine.virt.mapped_pages == 0
 
 
-@pytest.mark.parametrize("name", ["whisper-small", "gemma3-12b"])
-def test_fallback_families_raise(name):
-    """The audio and sliding-window fallback families are not ported."""
+@pytest.mark.parametrize("name,fault", [
+    ("whisper-small", "prefills without encoder frames "
+                      r"\(src/repro/runtime/engine.py:207\)"),
+    ("gemma3-12b", "slices the ring cache on the wrong axis "
+                   r"\(src/repro/runtime/engine.py:203-213\)")],
+    ids=["whisper-small", "gemma3-12b"])
+def test_fallback_families_raise(name, fault):
+    """The engine does not serve the audio and sliding-window families:
+    the reference's engine fails on both (the message names its fault);
+    the Model path runs them (``tests/test_torch_families.py``)."""
     models = {name: t_smoke(name)}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=fault):
         TEngine(models, page_budget=64, device="cpu")
 
 

@@ -154,7 +154,7 @@ def drive(engine, pkg):
     engine.reset_stats()
     h4 = engine.submit(reqs[4])
     for _ in range(40):
-        if not (engine.waiting or engine._any_active()):
+        if not engine.busy:
             break
         engine.step()
     engine.cancel(h4)

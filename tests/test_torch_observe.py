@@ -31,9 +31,10 @@ import math
 import jax
 import numpy as np
 import pytest
-from hypothesis import given, settings, strategies as st
+from hypothesis import example, given, settings, strategies as st
 
-from repro.analysis.sanitizer import PoolSanitizer as JSanitizer
+from repro.analysis.sanitizer import (PoolSanitizer as JSanitizer,
+                                      PoolSanitizerError as JSanitizerError)
 from repro.configs import ElasticConfig as JElastic
 from repro.configs import EngineConfig as JConfig
 from repro.configs import FlightRecorderConfig as JRec
@@ -52,7 +53,7 @@ from repro.runtime.engine import CrossPoolEngine as JEngine
 from repro.runtime.engine import EngineMode as JMode
 from repro.runtime.flightrec import record_clock
 from repro.runtime.request import Request as JRequest
-from repro_torch.analysis.sanitizer import PoolSanitizer
+from repro_torch.analysis.sanitizer import PoolSanitizer, PoolSanitizerError
 from repro_torch.bridge import params_to_torch
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.configs.base import (ElasticConfig, EngineConfig,
@@ -484,21 +485,28 @@ def test_composite_hooks_fan_out_in_order():
               st.sampled_from([MOE, MLA, MOON]),
               st.integers(1, 600)),
     min_size=1, max_size=30))
+@example(ops=[("register", MOE, 32), ("commit", MOE, 1)])   # SAN05 in both
 def test_virtualizer_hooks_equal_reference_and_audit_clean(ops):
     """``test_torch_elastic``'s swap / resize sequence with decode-block
     reserve / commit added: both packages fire the same hooks with the
     same payloads, and the port's sanitizer (after the log in the
-    fan-out) reconciles every counter and audits clean after each op."""
+    fan-out) reconciles every counter and audits clean after each op,
+    except after a commit that outruns its reservation, where both
+    packages' sanitizers raise the same SAN05."""
     jv, tv = _virt_pair(64)
     j_log, t_log = _Log(), _Log()
-    sanitizer = PoolSanitizer(tv)
-    jv.hooks = CompositeHooks(j_log, JSanitizer(jv))
+    sanitizer, j_sanitizer = PoolSanitizer(tv), JSanitizer(jv)
+    jv.hooks = CompositeHooks(j_log, j_sanitizer)
     tv.hooks = CompositeHooks(t_log, sanitizer)
     live, next_id = [], 0
     for op, model, arg in ops:
         if op == "register" or not live:
             op = "register"
         rid = live[0] if live else next_id
+        # a commit past the pages its reservation mapped is a fault no
+        # engine makes: the sanitizer must name it (SAN05), and the pool
+        # is left corrupt, so the sequence ends there
+        outruns = op == "commit" and _commit_outruns(tv, rid, arg % 3)
         outs = []
         for v, err in ((jv, j_virt.OutOfPagesError),
                        (tv, t_virt.OutOfPagesError)):
@@ -532,9 +540,25 @@ def test_virtualizer_hooks_equal_reference_and_audit_clean(ops):
         elif op == "release":
             live.remove(rid)
         assert t_log.calls == j_log.calls
+        if outruns:
+            with pytest.raises(JSanitizerError, match="SAN05") as want:
+                j_sanitizer.audit()
+            with pytest.raises(PoolSanitizerError, match="SAN05") as got:
+                sanitizer.audit()
+            assert str(got.value) == str(want.value)
+            break
         _check_invariants(tv)
         sanitizer.audit()
     assert sanitizer.events == len(t_log.calls)
+
+
+def _commit_outruns(virt, rid: int, n: int) -> bool:
+    """Whether committing ``n`` tokens of ``rid`` needs more chunks a
+    layer than its tables map (what a reservation would have mapped)."""
+    req = virt.requests[rid]
+    view = virt.views[req.model]
+    return bool(view.n_kv_layers) and len(req.tables[0]) < math.ceil(
+        max(req.tokens + n, 1) / view.tokens_per_page)
 
 
 @settings(max_examples=12, deadline=None)

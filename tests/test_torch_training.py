@@ -171,11 +171,15 @@ def test_forward_matches_jax(name, moe_path):
 
 
 def test_forward_refuses_what_is_not_ported():
-    _, tcfg = _cfgs("gemma3-12b")
-    with pytest.raises(NotImplementedError):
-        ttfm.forward({}, tcfg, torch.zeros((1, 4), dtype=torch.int32))
+    """Every family's forward is ported (gemma3's sliding window and
+    whisper since the dense-cache slice: ``tests/test_torch_families.py``);
+    what is left to refuse is a family and a MoE path that do not
+    exist."""
     _, tcfg = _cfgs(MOE)
     _, tp = _params(MOE)
+    with pytest.raises(ValueError, match="unknown family"):
+        ttfm.forward(tp, tcfg.replace(family="retnet"),
+                     torch.zeros((1, 4), dtype=torch.int32))
     with pytest.raises(ValueError):
         ttfm.forward(tp, tcfg, torch.zeros((1, 4), dtype=torch.int32),
                      moe_path="dense")
