@@ -202,7 +202,40 @@ other than 0) if any phase fails:
              step (48, 12), gemma3's ring counts at the end equal to
              min(max(cur + 1, bucket), 1024).  It prints prefill ms,
              decode ms per step, tokens/s, one profiled decode step
-             (wall and device busy) and peak memory.
+             (wall and device busy) and peak memory;
+13. examples — (a) one long-context request through the shared pool at
+             full width: minicpm3-4b's published config in a bf16
+             ``KVVirtualizer`` of 73,728 16 KiB pages, 32768 tokens of
+             all 62 layers written from a dense MLA cache with
+             ``write_prompt_from_cache`` (one pool write), then layer 0
+             anew with ``write_tokens``; the whole pool must equal a
+             plain scatter of the same rows through
+             ``page_table_array`` bit for bit, and ``typed_pages`` must
+             be a view; the long_context_pooling example's float32
+             packed-latent call of the paged GQA kernel (head dim 256,
+             one kv head for 40 query heads) over layer 0 within 2e-5 of
+             its plain version, and the paged MLA kernel in bf16 over
+             the last layer's typed pages (2e-2 and the row RMS limit),
+             each launched exactly once and timed beside its bound, its
+             plain version and SDPA; then the
+             admission burst at published widths (moonshot, 4 x 32768
+             tokens into 48 GiB of pages: the shared pool must admit
+             more than a static third); (b) the four examples
+             (``repro_torch.examples``) through their ``main`` at the
+             reference's settings: quickstart for qwen3-moe, moonshot,
+             minicpm3 and qwen3-14b, serve_multi_model ``--online
+             --elastic --slo-demo`` (its flight record must replay
+             BIT-EXACT on the card), train_moe's 200 steps and
+             long_context_pooling.  Gates: each prints its ``OK`` line;
+             each quickstart launches its prefill's and decode's kernels
+             (flash, contiguous and paged decode for a GQA arch, paged
+             MLA decode for minicpm3) and, for a MoE arch, the grouped
+             GEMM with its weight gradient; train_moe launches both.  It
+             prints each example's wall time and launches.
+
+Phases 3 and 13 hold the paged GQA and MLA kernels in bf16 to the same
+row limit as rows 3-4: each output row's relative RMS error within 1e-2
+(``BF16_ROW_RMS``) on top of the elementwise 2e-2.
 
 Phase 4 also runs one float32 smoke train step of qwen3-moe (both MoE
 paths) and minicpm3 on the card against the CPU (loss, grad norm and
@@ -233,9 +266,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12              # H100 SXM float32 peak (CUDA cores)
-#: rows 3 and 4 in bf16: the limit on each output row's relative RMS
-#: error against the plain version (a correct kernel differs by the
-#: rounding of its bf16 probabilities and output, ~3e-3)
+#: the attention kernels (rows 1-4) in bf16: the limit on each output
+#: row's relative RMS error against the plain version (a correct kernel
+#: differs by the rounding of its bf16 probabilities and output, ~3e-3)
 BF16_ROW_RMS = 1e-2
 CONTEXTS = (1024, 8192)
 BATCHES = (1, 4)
@@ -285,6 +318,16 @@ GEMMA_RUNS = (("batch", GEMMA_BATCH, GEMMA_PROMPT, 64, None),
               ("crossing", 1, 1000, 48, None),
               ("pad quirk", 1, 512, 16, 300))
 WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS = 4, 64, 64
+#: phase 13: the long-context request (model, tokens, pool pages of 16
+#: KiB) and the archs quickstart runs on the card
+LONG_MODEL, LONG_CTX, LONG_PAGES = "minicpm3-4b", 32768, 73728
+#: phase 13a's admission burst at published widths: 4 requests of 32768
+#: tokens (a LongAlign-like length, one of Fig. 6's bins) against a 48
+#: GiB pool of 16 KiB pages, host bookkeeping only
+FULL_WIDTH_BURST = dict(total_pages=3 * 2 ** 20, page_bytes=16384,
+                        long_ctx=32768)
+EXAMPLE_ARCHS = ("qwen3-moe-235b-a22b", "moonshot-v1-16b-a3b", "minicpm3-4b",
+                 "qwen3-14b")
 #: phase 8 times these kernels at these of its shapes and loads
 TIMED_LOADS = {"gate/up layer 0": ("moe_gemm", "moe_gemm_dgrad",
                                    "moe_gemm_wgrad"),
@@ -462,8 +505,24 @@ def run_plain(ref, case, q, pool, table, lens):
                                           case.scale)
 
 
+def rows_close_or_raise(what, got, want, limit=BF16_ROW_RMS) -> float:
+    """The largest relative RMS error of an output row (the last axis),
+    ``|got - want|_2 / |want|_2`` (a row of zeros counts 0 when both are
+    zero); raises past ``limit``."""
+    err = (got.float() - want.float()).norm(dim=-1)
+    rel = (err / want.float().norm(dim=-1).clamp_min(1e-30)).max().item()
+    if rel > limit:
+        raise AssertionError(f"{what}: kernel disagrees with the plain "
+                             f"version (row relative RMS error {rel:.3g}, "
+                             f"limit {limit})")
+    return rel
+
+
 def check(torch, kops, ref, case, lengths, max_pages, dtype, tol, gen,
           holes=()):
+    """(max abs err, worst row's relative RMS error or None in float32)
+    of the kernel against its plain version; raises past ``tol + tol *
+    |plain|`` anywhere or, in bf16, past ``BF16_ROW_RMS`` in any row."""
     q, pool, table, lens = make_inputs(torch, case, lengths, max_pages,
                                        dtype, gen, garbage=True, holes=holes)
     got = run_kernel(kops, case, q, pool, table, lens).float()
@@ -478,7 +537,9 @@ def check(torch, kops, ref, case, lengths, max_pages, dtype, tol, gen,
         raise AssertionError(
             f"{case.name} {dtype}: kernel disagrees with the plain version "
             f"(max abs err {err.max().item():.3g}, tolerance {tol})")
-    return err.max().item()
+    rel = (rows_close_or_raise(f"{case.name} {dtype}", got, want)
+           if dtype == torch.bfloat16 else None)
+    return err.max().item(), rel
 
 
 def sdpa_call(torch, case, q, pool, table, lens):
@@ -531,11 +592,16 @@ def kernel_phase(torch, kops, ref, cases):
     errs = {}
 
     def run_check(case, lengths, max_pages, dtype, tol, holes=(), note=""):
-        e = check(torch, kops, ref, case, lengths, max_pages, dtype, tol,
-                  gen, holes)
+        e, rel = check(torch, kops, ref, case, lengths, max_pages, dtype,
+                       tol, gen, holes)
         errs[case.kind] = max(errs.get(case.kind, 0.0), e)
+        rule = f"tolerance {tol}"
+        if rel is not None:
+            key = f"{case.kind}_row_rms"
+            errs[key] = max(errs.get(key, 0.0), rel)
+            rule += f"; row relative RMS err {rel:.3g} <= {BF16_ROW_RMS}"
         log(f"kernel check {case.name} {str(dtype)[6:]} lengths {lengths}"
-            f"{note}: max abs err {e:.3g} (tolerance {tol})")
+            f"{note}: max abs err {e:.3g} ({rule})")
 
     for case in cases:
         tpp = case.tpp
@@ -668,11 +734,16 @@ def shared_page_phase(torch, kops, ref, cases):
                     f"shared pages {case.name} {dtype}: kernel disagrees "
                     f"with the plain version (max abs err "
                     f"{err.max().item():.3g}, tolerance {tol})")
+            rule = f"tolerance {tol}"
+            if dtype == torch.bfloat16:
+                rel = rows_close_or_raise(f"shared pages {case.name} {dtype}",
+                                          got, want)
+                rule += f"; row relative RMS err {rel:.3g} <= {BF16_ROW_RMS}"
             errs[(case.kind, str(dtype))] = err.max().item()
             log(f"kernel check {case.name} {str(dtype)[6:]} shared pages: "
                 f"{n_shared} pages shared by 2 rows, copy-on-write forks at "
                 f"slots {forks} of {tpp}, lengths {lengths}: max abs err "
-                f"{err.max().item():.3g} (tolerance {tol})")
+                f"{err.max().item():.3g} ({rule})")
             # the pool write of row 0's suffix, from the fork on
             pos = torch.arange(n_shared * tpp + forks[0], lengths[0],
                                device="cuda")
@@ -775,7 +846,7 @@ def close_or_raise(torch, what, got, want, tol, row_rms=None) -> float:
     attention row over T keys is ~sqrt(e / T), about ``tol`` itself at
     T = 4096."""
     got, want = got.float(), want.float()
-    torch.cuda.synchronize()
+    sync(torch, got.device)
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: kernel output is not finite")
     err = (got - want).abs()
@@ -785,12 +856,7 @@ def close_or_raise(torch, what, got, want, tol, row_rms=None) -> float:
                              f" tolerance {tol})")
     rule = f"|err| <= {tol} + {tol} * |plain|"
     if row_rms is not None:
-        rel = (err.norm(dim=-1)
-               / want.norm(dim=-1).clamp_min(1e-30)).max().item()
-        if rel > row_rms:
-            raise AssertionError(f"{what}: kernel disagrees with the plain "
-                                 f"version (row relative RMS error "
-                                 f"{rel:.3g}, limit {row_rms})")
+        rel = rows_close_or_raise(what, got, want, row_rms)
         rule += f"; row relative RMS err {rel:.3g} <= {row_rms}"
     log(f"kernel check {what}: max abs err {err.max().item():.3g} "
         f"(passes {rule})")
@@ -3287,12 +3353,10 @@ def family_inputs(torch, cfg, B, S_txt, gen, device):
 
 def families_small_phase(torch, device="cuda"):
     """(12b) gemma3, whisper and llava smoke configs in float32 on the card
-    against the CPU (plain versions): forward, prefill (flash where the
-    head dim has an instance; logits read 5 tokens before the end) and
-    two paged decode steps (one row inside the prompt), logits within
-    1e-4.  gemma3's prompt (40) outruns its window (16)."""
+    against the CPU (plain versions): forward, prefill (flash; logits read
+    5 tokens before the end) and two paged decode steps (one row inside
+    the prompt), logits within 1e-4.  gemma3's prompt (40) outruns its window (16)."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
     from repro_torch.models.model import build_model
     from repro_torch.training.tree import map_tree
 
@@ -3304,15 +3368,14 @@ def families_small_phase(torch, device="cuda"):
                                    torch.Generator().manual_seed(7), "cpu")
         S = tokens.shape[1] + (kw["embeddings"].shape[1]
                                if "embeddings" in kw else 0)
-        impl = "flash" if cfg.head_dim in HEAD_DIMS else "xla"
         out = {}
         for dev in (device, "cpu"):
             p = map_tree(lambda t: t.to(dev, copy=True), params)
             dkw = {k: v.to(dev) for k, v in kw.items()}
             fwd, _ = model.forward(p, tokens.to(dev), **dkw)
             cache = model.init_cache(2, S + 8, dev)
-            first, _ = model.prefill(p, tokens.to(dev), cache, impl=impl,
-                                     logit_index=S - 5, **dkw)
+            first, _ = model.prefill(p, tokens.to(dev), cache,
+                                     impl="flash", logit_index=S - 5, **dkw)
             lengths = torch.tensor([S - 4, S], dtype=torch.int32, device=dev)
             steps, tok = [], first.argmax(-1).to(torch.int32)
             for _ in range(2):
@@ -3327,7 +3390,7 @@ def families_small_phase(torch, device="cuda"):
             if not err <= 1e-4:
                 raise AssertionError(f"{name} {phase} logits: card vs CPU "
                                      f"max abs err {err:.3g} > 1e-4")
-            log(f"small {name} {phase} (prefill {impl}, decode paged): card "
+            log(f"small {name} {phase} (prefill flash, decode paged): card "
                 f"vs CPU logits max abs err {err:.3g} (tolerance 1e-4)")
 
 
@@ -3535,6 +3598,309 @@ def families_phase(torch, kops, ref) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 13: the examples and the long-context pool
+# ---------------------------------------------------------------------------
+
+def long_context_phase(torch, kops, ref, device="cuda") -> dict:
+    """(13a) One long-context request through the shared pool at full
+    width: minicpm3 at its published config (62 layers, 40 heads,
+    latent 256 + rope 32: 288 bf16 scalars a token a layer), a bf16
+    ``KVVirtualizer`` of ``LONG_PAGES`` 16 KiB pages, one request of
+    ``LONG_CTX`` tokens.  Every layer's KV goes in from a dense MLA cache
+    with ``write_prompt_from_cache`` (one pool write), then layer 0's
+    anew with ``write_tokens``; the whole pool must equal a plain scatter
+    of the same rows through ``page_table_array`` bit for bit.  The
+    long_context_pooling example's float32 packed-latent call of row 1
+    (head dim 256, one kv head for 40 query heads) over layer 0 within
+    2e-5 of its plain version, and row 2 in bf16 over the last layer's
+    ``typed_pages`` (2e-2 and the row RMS limit), each launched exactly
+    once and timed beside its bound.  Then the admission burst at
+    published widths (moonshot, ``FULL_WIDTH_BURST``): the shared pool
+    admits more than a static third.  ``device="cpu"`` with ``LONG_*``
+    made small rehearses it (launch counts stay 0 there)."""
+    import numpy as np
+    from repro_torch.configs import PAPER_COLOC_SET, get_config
+    from repro_torch.core.virtualizer import DEFAULT_PAGE_BYTES, KVVirtualizer
+    from repro_torch.examples import long_context_pooling as lcp
+    on_card = device == "cuda"
+    cfg = get_config(LONG_MODEL)
+    r, rp, H, L = (cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim,
+                   cfg.n_heads, cfg.n_layers)
+    e = r + rp
+    page_elems = DEFAULT_PAGE_BYTES // 2
+    tpp = page_elems // e
+    max_pages = math.ceil(LONG_CTX / tpp)
+    out = dict(model=LONG_MODEL, context=LONG_CTX, page_budget=LONG_PAGES,
+               tokens_per_page=tpp, pages=max_pages, layers=L)
+    log(f"long context: {LONG_MODEL} published config ({L} layers, H={H}, "
+        f"r={r}, rope {rp}), one request of {LONG_CTX} tokens = {L} x "
+        f"{max_pages} = {L * max_pages} pages of {tpp} tokens, pool "
+        f"{LONG_PAGES} pages ({LONG_PAGES * DEFAULT_PAGE_BYTES / 1e9:.2f} "
+        f"GB bf16)")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()      # 13a's own peak
+    virt = KVVirtualizer({LONG_MODEL: cfg}, page_budget=LONG_PAGES,
+                         page_bytes=DEFAULT_PAGE_BYTES, device=device)
+    virt.register_request(0, LONG_MODEL, prompt_tokens=LONG_CTX)
+    gen = torch.Generator(device=device).manual_seed(13)
+    cache = {name: torch.randn((L, 1, LONG_CTX, dim), generator=gen,
+                               device=device).to(torch.bfloat16)
+             for name, dim in (("latent", r), ("rope", rp))}
+    rng = np.random.default_rng(0)
+    kv0 = torch.from_numpy(rng.normal(size=(LONG_CTX, e))).to(torch.bfloat16)
+
+    reset_launches(kops)
+    t0 = time.perf_counter()
+    virt.write_prompt_from_cache(LONG_MODEL, 0, cache, LONG_CTX)
+    sync(torch, device)
+    out["prompt_write_s"] = time.perf_counter() - t0
+    virt.write_tokens(LONG_MODEL, 0, 0, 0, kv0)
+    writes = read_launches(kops)["paged_kv_write"]
+    if on_card and writes != 2:
+        raise AssertionError(f"long context: {writes} pool writes, want 2 "
+                             f"(one for all layers, one for layer 0)")
+    out["launches_write"] = writes
+
+    # the plain scatter: each layer's rows at (its page table, slot)
+    tables = [virt.page_table_array([0], layer, max_pages=max_pages)
+              for layer in range(L)]
+    want_pool = torch.zeros_like(virt.pool)
+    want_typed = want_pool[:, :tpp * e].view(-1, tpp, e)
+    t = torch.arange(LONG_CTX, device=virt.device)
+    for layer in range(L):
+        rows = kv0.to(virt.device) if layer == 0 else torch.cat(
+            [cache["latent"][layer, 0], cache["rope"][layer, 0]], dim=-1)
+        want_typed[tables[layer][0, t // tpp].long(), t % tpp] = rows
+    if not torch.equal(virt.pool, want_pool):
+        bad = (virt.pool != want_pool).any(dim=1).sum().item()
+        raise AssertionError(f"long context: {bad} pool pages differ from a "
+                             f"plain scatter of the {L} layers' rows")
+    log(f"long context: write_prompt_from_cache ({L} layers x {LONG_CTX} "
+        f"tokens, one pool write) in {out['prompt_write_s']:.2f} s wall, "
+        f"then write_tokens of layer 0: the pool equals a plain scatter "
+        f"through page_table_array bit for bit")
+    del want_pool, want_typed, cache
+
+    typed = virt.typed_pages(LONG_MODEL)
+    if typed.data_ptr() != virt.pool.data_ptr():
+        raise AssertionError("typed_pages is not a view of the pool")
+    lengths = torch.tensor([LONG_CTX], dtype=torch.int32, device=virt.device)
+
+    # row 1: the example's float32 packed-latent call, over layer 0
+    packed = lcp.packed_latent(typed, r)
+    flat = packed.reshape(packed.shape[0], -1)
+    q = torch.from_numpy(rng.normal(size=(1, 1, H, r))).float().to(
+        virt.device)
+    scale = r ** -0.5
+    table1 = tables[0]
+
+    def row1():
+        return kops.paged_decode_attention(
+            q, flat, table1, lengths, tokens_per_page=tpp, n_kv=1,
+            scale=scale)
+    before = kops.paged_decode_attention.launches
+    got1 = row1()
+    out["launches_row1"] = kops.paged_decode_attention.launches - before
+    if on_card and out["launches_row1"] != 1:
+        raise AssertionError("long context row 1: not launched exactly once")
+    out["row1_max_abs_err"] = close_or_raise(
+        torch, f"long context row 1 f32 (D={r}, G={H}, {LONG_CTX} tokens)",
+        got1, ref.paged_decode_attention(q, packed, table1, lengths, scale),
+        2e-5)
+
+    # row 2 in bf16 over the last layer's typed pages
+    q2 = torch.randn((1, 1, H, e), generator=gen, device=device).to(
+        torch.bfloat16)
+    case = Case(LONG_MODEL, "mla", tpp, page_elems, H=H, r=r, rp=rp)
+    table2 = tables[L - 1]
+
+    def row2():
+        return kops.paged_mla_decode_attention(
+            q2, virt.pool, table2, lengths, tokens_per_page=tpp,
+            latent_dim=r, scale=case.scale)
+    before = kops.paged_mla_decode_attention.launches
+    got2 = row2()
+    out["launches_row2"] = kops.paged_mla_decode_attention.launches - before
+    if on_card and out["launches_row2"] != 1:
+        raise AssertionError("long context row 2: not launched exactly once")
+    want2 = ref.paged_mla_decode_attention(q2, typed, table2, lengths, r,
+                                           case.scale)
+    what = f"long context row 2 bf16 (layer {L - 1}, {LONG_CTX} tokens)"
+    out["row2_max_abs_err"] = close_or_raise(torch, what, got2, want2, 2e-2,
+                                             row_rms=BF16_ROW_RMS)
+    out["row2_row_rms"] = rows_close_or_raise(what, got2, want2)
+
+    if on_card:
+        nbytes = (2 * LONG_CTX * r * 4 + q.numel() * 4 * 2
+                  + max_pages * 4 + 4)
+        b1, by1 = bound_ms(nbytes, 2 * H * LONG_CTX * 2 * r, fp32=True)
+        rows = {"row1": dict(
+            kernel="paged_decode_attention", dtype="float32",
+            shape=f"{LONG_MODEL} packed latent B=1 ctx {LONG_CTX} H={H} "
+                  f"KV=1 D={r} f32",
+            ms=time_ms(torch, row1),
+            plain_ms=time_ms(torch, lambda: ref.paged_decode_attention(
+                q, packed, table1, lengths, scale)),
+            bound_ms=b1, bound_by=by1)}
+        k1 = packed[table1[0].long()][:, :, 0, 0].reshape(
+            1, 1, -1, r)[:, :, :LONG_CTX].contiguous()
+        lib1, name1, all1 = library_sdpa(
+            torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k1, k1, scale=scale, enable_gqa=True))
+        rows["row1"].update(library_ms=lib1, library=name1,
+                            library_all=all1)
+        b2, by2 = bound(case, 1, LONG_CTX, max_pages, 2)
+        lib2, name2, all2 = library_sdpa(
+            torch, sdpa_call(torch, case, q2, virt.pool, table2, lengths))
+        rows["row2"] = dict(
+            kernel="paged_mla_decode_attention", dtype="bfloat16",
+            shape=f"{LONG_MODEL} B=1 ctx {LONG_CTX} H={H} r={r} rp={rp} "
+                  f"bf16",
+            ms=time_ms(torch, row2),
+            plain_ms=time_ms(torch, lambda: ref.paged_mla_decode_attention(
+                q2, typed, table2, lengths, r, case.scale)),
+            bound_ms=b2, bound_by=by2, library_ms=lib2, library=name2,
+            library_all=all2)
+        for key, row in rows.items():
+            log(f"time long context {key} {row['shape']}: kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"{row['library']} {row['library_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}); sdpa "
+                f"backends {fmt_backends(row['library_all'])}")
+        out["rows"] = rows
+        out["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del virt, typed, packed, flat
+    gc.collect()
+
+    models = {n: get_config(n) for n in PAPER_COLOC_SET}
+    burst = lcp.admission_burst(models, **FULL_WIDTH_BURST)
+    if not burst["admitted_shared"] > burst["admitted_static"]:
+        raise AssertionError(f"long context burst: shared pool admitted "
+                             f"{burst['admitted_shared']}, a static third "
+                             f"{burst['admitted_static']}")
+    kappa = models[lcp.BURST_MODEL].kv_bytes_per_token()
+    log(f"long context burst at published widths: 4 x "
+        f"{FULL_WIDTH_BURST['long_ctx']} tokens of {lcp.BURST_MODEL} "
+        f"({kappa} B a token, {burst['need']} pages each) into "
+        f"{FULL_WIDTH_BURST['total_pages']} pages: the shared pool "
+        f"admits {burst['admitted_shared']}/4, a static third "
+        f"({burst['static_share']} pages) {burst['admitted_static']}/4")
+    out["burst"] = burst
+    return out
+
+
+def run_example(torch, kops, label, main, argv) -> dict:
+    """One example's ``main(argv)`` on the card with every launch counter
+    set to 0 just before and read just after: its wall time, launches,
+    result, and its output (which must end with its ``OK`` line)."""
+    import contextlib
+    import io
+    reset_launches(kops)
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    lines = text.rstrip().splitlines()
+    if not lines or not lines[-1].endswith(" OK"):
+        raise AssertionError(f"example {label}: no OK line; output ends "
+                             f"{lines[-5:]}")
+    launches = read_launches(kops)
+    log(f"example {label}: {lines[-1]} in {wall:.1f} s wall; launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    for line in lines[-6:-1]:
+        log(f"  {label} | {line}")
+    return dict(argv=argv, wall_s=wall, launches=launches, output=text,
+                result=result if isinstance(result, dict) else None,
+                max_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def examples_phase(torch, kops) -> dict:
+    """(13b) The four examples on the card through their ``main`` at the
+    reference's settings: quickstart for ``EXAMPLE_ARCHS``,
+    serve_multi_model online + elastic with the SLO demo (its record
+    replays bit for bit on the card), train_moe's 200 steps, and
+    long_context_pooling.  Each quickstart must launch its prefill's and
+    decode's kernels (flash, contiguous decode and paged decode for a GQA
+    arch, paged MLA decode for an MLA one) and, for a MoE arch, row 5
+    and its weight gradient; rows 1, 2 and 5 must each be launched."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import (long_context_pooling, quickstart,
+                                      serve_multi_model, train_moe)
+    from repro_torch.launch import replay
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    record = build / "slo_flight.json"
+    record.unlink(missing_ok=True)
+    out = {}
+    for arch in EXAMPLE_ARCHS:
+        got = run_example(torch, kops, f"quickstart {arch}", quickstart.main,
+                          ["--arch", arch])
+        cfg = get_smoke_config(arch)
+        want = (["paged_mla_decode_attention"] if cfg.mla is not None else
+                ["flash_attention", "decode_attention",
+                 "paged_decode_attention"])
+        if cfg.family == "moe":
+            want += ["moe_gemm", "moe_gemm_wgrad"]
+        missing = [n for n in want if not got["launches"][n]]
+        if missing:
+            raise AssertionError(f"quickstart {arch}: {missing} never "
+                                 f"launched")
+        out[f"quickstart {arch}"] = got
+    out["serve_multi_model"] = run_example(
+        torch, kops, "serve_multi_model", serve_multi_model.main,
+        ["--online", "--elastic", "--slo-demo", str(record),
+         "--metrics-out", str(build / "metrics.prom"),
+         "--trace-out", str(build / "trace.json")])
+    if not record.exists():
+        raise AssertionError("serve_multi_model: the SLO demo wrote no "
+                             "flight record")
+    t0 = time.perf_counter()
+    rc = replay.main([str(record), "-q"])
+    if rc != 0:
+        raise AssertionError("serve_multi_model: the SLO demo's record did "
+                             "not replay bit for bit on the card")
+    log(f"example serve_multi_model: flight record {record.name} "
+        f"({record.stat().st_size} B) replayed BIT-EXACT on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ckpt = build / "train_moe_ckpt"
+    out["train_moe"] = run_example(torch, kops, "train_moe", train_moe.main,
+                                   ["--ckpt-dir", str(ckpt)])
+    out["long_context_pooling"] = run_example(
+        torch, kops, "long_context_pooling", long_context_pooling.main, [])
+    total = {k: sum(r["launches"][k] for r in out.values())
+             for k in KERNELS}
+    for name in ("paged_decode_attention", "paged_mla_decode_attention",
+                 "moe_gemm", "moe_gemm_wgrad"):
+        if not total[name]:
+            raise AssertionError(f"examples: {name} was never launched")
+    for name in ("moe_gemm", "moe_gemm_wgrad"):
+        if not out["train_moe"]["launches"][name]:
+            raise AssertionError(f"train_moe: {name} was never launched")
+    if out["long_context_pooling"]["launches"]["paged_decode_attention"] \
+            != 1:
+        raise AssertionError("long_context_pooling: paged decode not "
+                             "launched exactly once")
+    out["launches"] = total
+    return out
+
+
+def examples_long_phase(torch, kops, ref) -> dict:
+    """Phase 13: (a) the long-context pool at full width, (b) the four
+    examples on the card."""
+    t0 = time.perf_counter()
+    out = {"long_context": long_context_phase(torch, kops, ref)}
+    torch.cuda.empty_cache()
+    out["examples"] = examples_phase(torch, kops)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"examples: phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3667,6 +4033,13 @@ def main() -> int:
 
     # 12. the dense-cache Model path: gemma3 and whisper at full configs
     families = families_phase(torch, kops, ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13. the long-context pool at full width, then the four examples
+    examples = examples_long_phase(torch, kops, ref)
+    ex_launches = examples["examples"]["launches"]
+    long_rows = examples["long_context"]["rows"]
 
     csrc = "src/repro_torch/kernels/csrc/"
     main_shape = {"gqa": ("qwen3-moe-235b-a22b", 1024, 4),
@@ -3686,11 +4059,23 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "launches_elastic": e_launches[name],
             "launches_cache": c_launches[name],
+            "launches_examples": ex_launches[name],
             "max_abs_err": errs[kind], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library": row["library"],
+            "max_row_rms_bf16": errs[f"{kind}_row_rms"],
             "shape": f"{geom} B={B} context {ctx} bf16"})
+        # phase 13a's long-context call of this kernel
+        lc = examples["long_context"]
+        long_row = long_rows["row1" if kind == "gqa" else "row2"]
+        kernels[-1]["long_context"] = dict(
+            {k: long_row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "library")},
+            max_abs_err=lc["row1_max_abs_err" if kind == "gqa"
+                           else "row2_max_abs_err"],
+            launches=lc["launches_row1" if kind == "gqa"
+                        else "launches_row2"])
     for name, source, replaces, shape in (
             ("flash_attention", "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:29",
@@ -3705,6 +4090,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + source,
             "replaces": replaces, "launches": f_launches[name],
+            "launches_examples": ex_launches[name],
             "max_abs_err": f_errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -3733,7 +4119,9 @@ def main() -> int:
                     "Pallas kernel)",
         "launches": launches["paged_kv_write"],
         "launches_elastic": e_launches["paged_kv_write"],
-        "launches_cache": c_launches["paged_kv_write"], "max_abs_err": 0.0,
+        "launches_cache": c_launches["paged_kv_write"],
+        "launches_examples": ex_launches["paged_kv_write"],
+        "max_abs_err": 0.0,
         "ms": w_row["ms"], "plain_ms": w_row["plain_ms"],
         "bound_ms": w_row["bound_ms"], "bound_by": w_row["bound_by"],
         "library_ms": None, "library": None,
@@ -3748,6 +4136,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": csrc + "moe_gemm.cu",
             "replaces": "src/repro/kernels/moe_gemm.py:23",
             "launches": t_launches[name],
+            "launches_examples": ex_launches[name],
             "max_abs_err": m_errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -3759,7 +4148,8 @@ def main() -> int:
         {"card": card, "kernel_times": rows + f_rows + m_rows + w_rows,
          "kernels": kernels, "serve": serve, "serve_host": host,
          "serve_fallback": f_serve, "train": train, "elastic": elastic,
-         "cache": cache, "observe": observe, "families": families},
+         "cache": cache, "observe": observe, "families": families,
+         "examples": examples},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

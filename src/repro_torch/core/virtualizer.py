@@ -857,17 +857,68 @@ class KVVirtualizer:
             entry["dev"] = torch.tensor(entry["buf"], device=self.device)
         return entry["dev"]
 
+    def page_table_array(self, request_ids: Sequence[int], layer: int,
+                         max_pages: int) -> torch.Tensor:
+        """[B, max_pages] int32 physical ids (-1 = unmapped) of one layer,
+        on the pool's device.  Raises for a request with swapped pages, as
+        ``batch_tables`` does: a kernel would read its encoded entries as
+        "no page" and drop that KV silently."""
+        out = np.full((len(request_ids), max_pages), -1, np.int32)
+        for i, rid in enumerate(request_ids):
+            req = self.requests[rid]
+            check(req.n_swapped == 0,
+                  f"request {rid} has swapped pages; call ensure_resident "
+                  f"before building a page table")
+            tab = req.tables[layer]
+            out[i, : min(len(tab), max_pages)] = tab[: max_pages]
+        return torch.from_numpy(out).to(self.device)
+
+    def typed_pages(self, model: str) -> torch.Tensor:
+        """The pool viewed as ``[page_budget, tokens_per_page, *kv_shape]``:
+        a view of the current pool tensor (no copy); the slack elements at
+        the end of each page are outside it."""
+        view = self.views[model]
+        used = view.tokens_per_page * view.per_token_elems
+        return self.pool[:, :used].unflatten(
+            1, (view.tokens_per_page,) + tuple(view.kv_shape))
+
     def _token_coords(self, req: RequestPages, view: ModelView,
-                      tokens: np.ndarray, layer: int
+                      tokens: np.ndarray, layer: Optional[int] = None
                       ) -> Tuple[np.ndarray, np.ndarray]:
-        """(pages, slots) int32 arrays for token indices of one layer."""
+        """(pages, slots) int32 arrays for token indices of one request.
+
+        ``layer=None`` covers ALL layers: ``tokens`` is [n] and the result
+        is [n_layers * n] in layer-major order."""
         check(req.n_swapped == 0,
               f"request {req.request_id} has swapped pages; call "
               f"ensure_resident before writing KV")
         chunk = tokens // view.tokens_per_page
         slots = (tokens % view.tokens_per_page).astype(np.int32)
-        tab = np.asarray(req.tables[layer], np.int32)
-        return tab[chunk], slots
+        if layer is not None:
+            tab = np.asarray(req.tables[layer], np.int32)
+            return tab[chunk], slots
+        tabs = np.asarray(req.tables, np.int32)        # [L, chunks]
+        return tabs[:, chunk].reshape(-1), np.tile(slots, view.n_kv_layers)
+
+    def _write_rows(self, rows: torch.Tensor, pages: np.ndarray,
+                    slots: np.ndarray) -> None:
+        """Store token rows at (pages, slots) of the CURRENT pool tensor, in
+        place (a resize replaces ``self.pool``: never keep an old one)."""
+        dev = self.pool.device
+        paged_kv_write(self.pool, rows.to(dev),
+                       torch.from_numpy(pages).to(dev),
+                       torch.from_numpy(slots).to(dev))
+
+    def write_tokens(self, model: str, layer: int, request_id: int,
+                     start_token: int, kv: torch.Tensor) -> None:
+        """Write ``kv [n_new, *kv_shape]`` at token offset ``start_token``
+        of one layer: one pool write for the whole token range."""
+        view = self.views[model]
+        n = kv.shape[0]
+        toks = np.arange(start_token, start_token + n)
+        pages, slots = self._token_coords(self.requests[request_id], view,
+                                          toks, layer)
+        self._write_rows(kv.reshape(n, view.per_token_elems), pages, slots)
 
     def write_prompt_layer(self, pool: torch.Tensor, model: str,
                            request_id: int, layer: int, layer_kv,
@@ -887,6 +938,32 @@ class KVVirtualizer:
             pool, a, b, torch.from_numpy(pages).to(pool.device),
             torch.from_numpy(slots).to(pool.device), n_tokens=n_tokens,
             batch_index=batch_index, mla=len(view.kv_shape) == 1)
+
+    def write_prompt_from_cache(self, model: str, request_id: int,
+                                cache: Dict, n_tokens: int,
+                                batch_index: int = 0) -> None:
+        """Seed a request's mapped pages from a dense prefill cache.
+
+        ``cache`` is the Model path's contiguous cache (GQA ``{"k", "v":
+        [L,B,T,KV,hd]}`` or MLA ``{"latent", "rope"}``); tokens
+        ``[0, n_tokens)`` of row ``batch_index`` go into the request's
+        pages of ALL layers in one pool write."""
+        view = self.views[model]
+        if "k" in cache:
+            kv = torch.stack([cache["k"][:, batch_index, :n_tokens],
+                              cache["v"][:, batch_index, :n_tokens]],
+                             dim=2)                       # [L,n,2,KV,hd]
+        else:
+            kv = torch.cat([cache["latent"][:, batch_index, :n_tokens],
+                            cache["rope"][:, batch_index, :n_tokens]],
+                           dim=-1)
+        L = kv.shape[0]
+        check(L == view.n_kv_layers,
+              f"prefill cache has {L} layers, view expects {view.n_kv_layers}")
+        pages, slots = self._token_coords(self.requests[request_id], view,
+                                          np.arange(n_tokens))
+        self._write_rows(kv.reshape(L * n_tokens, view.per_token_elems),
+                         pages, slots)
 
     # ------------------------------------------------------------------
     def accounting_snapshot(self) -> Dict[str, int]:

@@ -12,7 +12,8 @@
 // contributing exactly 0, key / value rows past T read as 0, and a row
 // with no valid key (l == 0) writing 0, as the TPU kernel does.  T >= S.
 // Layout: q, out [B,S,H,D]; k, v [B,T,KV,D]; contiguous; D in {16, 32,
-// 64, 128, 256}.
+// 64, 128, 256}, and 8 on the f32 route (the smoke configs' head dim:
+// below the tensor cores' k16, so the bf16 route refuses it).
 //
 // Bound.  Causal attention does 4 * B * H * D * (pairs i, t on or below
 // the diagonal) flops and reads q, k, v once and writes out once.  At the
@@ -72,7 +73,8 @@
 // four warps an SM hide little latency (the first target of a redesign:
 // more warps a block, wgmma).  f32 route: 40 / 40 / 48 / 80 / 127
 // registers (D = 16 ... 256), 8 bytes of spill at D = 64; 209 KB of
-// shared memory at D = 256.
+// shared memory at D = 256; D = 8 (8 lanes a row, two accumulator
+// rows a thread) is the f32 body at its smallest width.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
@@ -564,16 +566,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 using LaunchFn = int (*)(const void*, const void*, const void*, void*, int,
                          const Dims&, cudaStream_t);
 
-// by_dim: the route's launcher for D = 16, 32, 64, 128, 256.
-int dispatch(const LaunchFn (&by_dim)[5], int head_dim, const void* q,
+// by_dim: the route's launcher for D = 8, 16, 32, 64, 128, 256 (null
+// where the route has no instance).
+int dispatch(const LaunchFn (&by_dim)[6], int head_dim, const void* q,
              const void* k, const void* v, void* out, int batch, int q_len,
              int kv_len, int heads, int kv_heads, float scale, void* stream) {
   if (kv_len < q_len || kv_heads <= 0 || heads % kv_heads)
     return (int)cudaErrorInvalidValue;
-  const int at = head_dim == 16 ? 0 : head_dim == 32 ? 1
-               : head_dim == 64 ? 2 : head_dim == 128 ? 3
-               : head_dim == 256 ? 4 : -1;
-  if (at < 0) return (int)cudaErrorInvalidValue;
+  const int at = head_dim == 8 ? 0 : head_dim == 16 ? 1
+               : head_dim == 32 ? 2 : head_dim == 64 ? 3
+               : head_dim == 128 ? 4 : head_dim == 256 ? 5 : -1;
+  if (at < 0 || by_dim[at] == nullptr) return (int)cudaErrorInvalidValue;
   const Dims g{q_len, kv_len, heads, kv_heads, scale};
   return by_dim[at](q, k, v, out, batch, g,
                     static_cast<cudaStream_t>(stream));
@@ -586,9 +589,9 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
                                   void* out, int batch, int q_len, int kv_len,
                                   int heads, int kv_heads, int head_dim,
                                   float scale, void* stream) {
-  static const LaunchFn by_dim[5] = {tc::launch<16>, tc::launch<32>,
-                                     tc::launch<64>, tc::launch<128>,
-                                     tc::launch<256>};
+  static const LaunchFn by_dim[6] = {nullptr, tc::launch<16>,
+                                     tc::launch<32>, tc::launch<64>,
+                                     tc::launch<128>, tc::launch<256>};
   return dispatch(by_dim, head_dim, q, k, v, out, batch, q_len, kv_len,
                   heads, kv_heads, scale, stream);
 }
@@ -598,9 +601,9 @@ extern "C" int flash_prefill_f32(const void* q, const void* k, const void* v,
                                  void* out, int batch, int q_len, int kv_len,
                                  int heads, int kv_heads, int head_dim,
                                  float scale, void* stream) {
-  static const LaunchFn by_dim[5] = {f32::launch<16>, f32::launch<32>,
-                                     f32::launch<64>, f32::launch<128>,
-                                     f32::launch<256>};
+  static const LaunchFn by_dim[6] = {f32::launch<8>, f32::launch<16>,
+                                     f32::launch<32>, f32::launch<64>,
+                                     f32::launch<128>, f32::launch<256>};
   return dispatch(by_dim, head_dim, q, k, v, out, batch, q_len, kv_len,
                   heads, kv_heads, scale, stream);
 }

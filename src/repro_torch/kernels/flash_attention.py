@@ -22,8 +22,11 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import launch
 
 SOURCE = build.CSRC / "flash_attention.cu"
-#: head dims the kernel is instantiated for (256: gemma3's global layers)
-HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims each route is instantiated for (256: gemma3's global layers;
+#: 8, the smoke configs' head dim, only in float32: the tensor cores'
+#: products take 16 at least)
+HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128, 256),
+             torch.float32: (8, 16, 32, 64, 128, 256)}
 
 
 @functools.cache
@@ -57,8 +60,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     T, KV = k.shape[1], k.shape[2]
     if q.dtype not in ENTRIES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if D not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS[q.dtype]} for "
+                         f"{q.dtype}")
     if T < S or H % KV:
         raise ValueError(f"needs T >= S and KV dividing H (S={S}, T={T}, "
                          f"H={H}, KV={KV})")

@@ -415,6 +415,24 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, B, S, T, H, KV, D):
     _assert_rows_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("B,S,T,H,KV", [(1, 32, 32, 8, 2), (2, 70, 130, 8, 8)])
+def test_flash_kernel_head_dim_8_f32(cuda, B, S, T, H, KV):
+    """The smoke configs' head dim 8: the float32 route launches within
+    2e-5 of the plain version; the bf16 route has no instance and
+    raises."""
+    gen = torch.Generator(device=cuda).manual_seed(S + 8)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               for shape in ((B, S, H, 8), (B, T, KV, 8), (B, T, KV, 8)))
+    before = kops.flash_attention.launches
+    got = kops.flash_attention(q, k, v, scale=8 ** -0.5)
+    assert kops.flash_attention.launches == before + 1
+    torch.testing.assert_close(got, tref.flash_attention(q, k, v, 8 ** -0.5),
+                               rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="head dim 8"):
+        kops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                             scale=8 ** -0.5)
+
+
 @pytest.mark.parametrize("B,S,T,H,KV,D", [
     (1, 100, 1000, 8, 2, 64),        # T > S, offset 900: no tile multiple
     (2, 77, 77, 4, 4, 16),           # S = T off the tile
@@ -807,3 +825,63 @@ def test_replay_over_a_moved_buffer_raises_until_recaptured(cuda, smoke):
     replay raises; ``recapture`` captures it over the new tensors, and
     then a replay equals the eager body."""
     smoke.moved_graph_check(torch)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_writes_on_the_card_equal_the_cpu(cuda, dtype):
+    """``write_tokens`` (start offsets mid-page) and
+    ``write_prompt_from_cache`` (GQA and MLA caches) through the pool
+    write kernel give the CPU pool bit for bit; ``page_table_array`` and
+    ``typed_pages`` (a view of the pool) agree."""
+    from repro_torch.core.virtualizer import KVVirtualizer
+    rng = np.random.default_rng(5)
+    models = {n: get_smoke_config(n) for n in PAPER_COLOC_SET}
+    virts = [KVVirtualizer(models, page_budget=96, page_bytes=2048,
+                           dtype=dtype, device=d) for d in ("cuda", "cpu")]
+    for rid, name in enumerate(PAPER_COLOC_SET):
+        cfg, view = models[name], virts[0].views[name]
+        if cfg.attention == "mla":
+            m = cfg.mla
+            cache = {"latent": rng.standard_normal(
+                         (cfg.n_layers, 2, 50, m.kv_lora_rank)),
+                     "rope": rng.standard_normal(
+                         (cfg.n_layers, 2, 50, m.qk_rope_head_dim))}
+        else:
+            shape = (cfg.n_layers, 2, 50, cfg.n_kv_heads, cfg.head_dim)
+            cache = {"k": rng.standard_normal(shape),
+                     "v": rng.standard_normal(shape)}
+        kv = rng.standard_normal((37, *view.kv_shape))
+        for v, dev in zip(virts, ("cuda", "cpu")):
+            v.register_request(rid, name, 90)
+            v.write_prompt_from_cache(
+                name, rid, {k: torch.from_numpy(x).float().to(dev)
+                            for k, x in cache.items()}, 45, batch_index=1)
+            v.write_tokens(name, view.n_kv_layers - 1, rid, 45,
+                           torch.from_numpy(kv).float().to(dev))
+    card, cpu = virts
+    assert torch.equal(card.pool.cpu(), cpu.pool)
+    for name in PAPER_COLOC_SET:
+        typed = card.typed_pages(name)
+        assert typed.data_ptr() == card.pool.data_ptr()
+        assert torch.equal(typed.cpu(), cpu.typed_pages(name))
+    table = card.page_table_array([0, 1, 2], 1, 6)
+    assert table.is_cuda and torch.equal(table.cpu(),
+                                         cpu.page_table_array([0, 1, 2], 1, 6))
+
+
+def test_long_context_calls_hold_at_a_smaller_context(cuda, smoke,
+                                                      monkeypatch):
+    """``chip_smoke.py`` phase 13a at 4096 tokens: minicpm3's published
+    geometry through the pool, the f32 packed-latent paged GQA call
+    (D = 256, G = 40) within 2e-5 and the bf16 paged MLA call within the
+    bf16 gate, each launched once, the all-layer prompt write equal to a
+    plain scatter, and the burst at published widths."""
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(smoke, "LONG_CTX", 4096)
+    monkeypatch.setattr(smoke, "LONG_PAGES", 62 * 147 + 64)
+    out = smoke.long_context_phase(torch, kops, ref)
+    assert np.isfinite(out["row1_max_abs_err"])
+    assert out["row2_row_rms"] <= smoke.BF16_ROW_RMS
+    assert out["launches_row1"] == out["launches_row2"] == 1
+    assert out["launches_write"] == 2
+    assert out["burst"]["admitted_shared"] > out["burst"]["admitted_static"]
