@@ -1,0 +1,267 @@
+"""The sharded serve step, and the dry-run's per-device bytes of every
+(arch x shape x mesh) cell.
+
+Port of ``src/repro/launch/dryrun.py``.  ``build_serve_cell`` is the
+reference's cell builder: it returns the step each rank runs SPMD on its
+local shards (``decode_step`` for decode shapes, ``prefill`` for prefill
+shapes) with the strategy's hooks, whose collectives run over
+``torch.distributed`` (``sharding/strategies.py`` says which leaves the
+step places by the rules, and ``shard_params`` / ``shard_cache`` /
+``local_rows`` cut a whole tree into this rank's part).
+
+``run_cell`` is the dry-run: it builds the production mesh (shape only)
+and the strategy, and reports what each device would hold: the bytes of
+every argument leaf under the rules (params, cache at ``kv_dtype``, the
+inputs; for train cells the AdamW moments and the error-feedback tree),
+from shapes alone: the trees are built on the ``meta`` device, so a
+405B-parameter model allocates nothing.  There is nothing to lower or
+compile: the reference's ``lower_s`` / ``compile_s``, its temp / output /
+code bytes and its roofline are left out until the tooling slice.
+
+  python -m repro_torch.launch.dryrun --arch qwen3-14b --shape decode_32k
+  python -m repro_torch.launch.dryrun --all --multi-pod --out dryrun.jsonl
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import traceback
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs import (ARCH_NAMES, SHAPES_BY_NAME, get_config,
+                                 shape_applicable)
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import decode as dec
+from repro_torch.models import transformer as tfm
+from repro_torch.models.model import build_model
+from repro_torch.sharding.spec import (axis_size, local_slices, shard_tree,
+                                       tree_bytes)
+from repro_torch.sharding.strategies import Strategy, make_strategy
+from repro_torch.training.tree import leaves
+
+MESH_NAMES = {False: "pod16x16", True: "pod2x16x16"}
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the ``meta`` device: the model's
+    own init then builds a shape-only tree."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """The param tree of ``cfg`` as meta tensors (no allocation)."""
+    return tfm.init_params(_MetaGenerator(), cfg)
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                 kv_dtype: Optional[str] = None) -> Dict:
+    return dec.init_cache(cfg, batch, max_len, "meta", kv_dtype)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+    """Meta stand-ins for every model input of this cell."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = tfm.dtype_of(cfg)
+
+    def meta(*dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    specs: Dict = {}
+    if shape.kind in ("train", "prefill"):
+        txt = S
+        if cfg.frontend == "vision_patches":
+            txt = S - cfg.frontend_tokens
+            specs["embeddings"] = meta(B, cfg.frontend_tokens, cfg.d_model,
+                                       dtype=dt)
+        if cfg.family == "audio":
+            specs["encoder_frames"] = meta(B, cfg.encoder_seq, cfg.d_model,
+                                           dtype=dt)
+        specs["tokens"] = meta(B, txt, dtype=torch.int32)
+    else:  # decode: one new token against a seq_len-deep cache
+        specs["tokens"] = meta(B, dtype=torch.int32)
+        specs["lengths"] = meta(dtype=torch.int32)
+    return specs
+
+
+def _input_bytes(strategy: Strategy, specs: Dict) -> int:
+    total = 0
+    for name, t in specs.items():
+        spec = (strategy.scalar_sharding() if name == "lengths"
+                else strategy.input_sharding(t.dim()))
+        local = [n // axis_size(strategy.mesh, ax)
+                 for n, ax in zip(t.shape, tuple(spec) + (None,) * t.dim())]
+        total += math.prod(local) * t.element_size()
+    return total
+
+
+def argument_bytes(strategy: Strategy) -> int:
+    """Per-device bytes of the cell's arguments under the rules."""
+    cfg, shape, mesh = strategy.cfg, strategy.shape, strategy.mesh
+    params = param_shapes(cfg)
+    rules = strategy.param_rules()
+    total = _input_bytes(strategy, input_specs(cfg, shape))
+    if shape.kind == "train":
+        total += tree_bytes(rules, mesh, params)
+        big = cfg.param_counts()["total"] > 5e10
+        moment = torch.bfloat16 if big else torch.float32
+        # the step count (an int32 scalar), then AdamW's m and v
+        total += 4 + 2 * tree_bytes(rules, mesh, _retyped(params, moment))
+        if strategy.perf.compress_grads:
+            total += tree_bytes(rules, mesh, _retyped(params, torch.float32))
+        return total
+    cache = cache_shapes(cfg, shape.global_batch, shape.seq_len,
+                         strategy.perf.kv_dtype)
+    return (total + tree_bytes(rules, mesh, params)
+            + tree_bytes(strategy.cache_rules(), mesh, cache))
+
+
+def _retyped(tree: Dict, dtype: torch.dtype) -> Dict:
+    return {k: _retyped(v, dtype) if isinstance(v, dict)
+            else torch.empty(v.shape, dtype=dtype, device="meta")
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# The sharded serve step
+# ---------------------------------------------------------------------------
+
+def shard_params(strategy: Strategy, params: Dict, device=None) -> Dict:
+    """This rank's part of a whole param tree (the leaves the step
+    places by the rules split, every other leaf whole)."""
+    return shard_tree(strategy.step_param_rules(), strategy.mesh, params,
+                      device=device)
+
+
+def shard_cache(strategy: Strategy, cache: Dict, device=None) -> Dict:
+    """This rank's part of a whole cache tree: its batch rows, and its
+    slice of the sequence where the decode reads it sequence-sharded."""
+    return shard_tree(strategy.step_cache_rules(), strategy.mesh, cache,
+                      device=device)
+
+
+def local_rows(strategy: Strategy, x: torch.Tensor) -> torch.Tensor:
+    """This rank's batch rows of an input (tokens, lengths, embeddings)."""
+    rows = strategy.row_axes
+    return x[local_slices(strategy.mesh, x.shape, (rows,))]
+
+
+def resident_bytes(tree: Dict) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def build_serve_cell(cfg: ModelConfig, shape: ShapeConfig,
+                     strategy: Strategy, *, impl: str = "xla"):
+    """decode shapes -> serve_step(params, tokens, cache, lengths);
+    prefill shapes -> prefill_fn(params, tokens, cache, **extra).  Both
+    return (logits [B_loc, V], cache updated in place) on this rank's
+    local shards; the greedy token is ``logits.argmax(-1)``.  ``impl``
+    routes the attention as the Model path's."""
+    model = build_model(cfg)
+    hooks = strategy.hooks()
+
+    if shape.is_decode:
+        def serve_step(params, tokens, cache, lengths):
+            return model.decode_step(params, tokens, cache, lengths,
+                                     hooks=hooks, impl=impl)
+        return serve_step
+
+    def prefill_fn(params, tokens, cache, **extra):
+        return model.prefill(params, tokens, cache, hooks=hooks, impl=impl,
+                             **extra)
+    return prefill_fn
+
+
+# ---------------------------------------------------------------------------
+# Runner
+# ---------------------------------------------------------------------------
+
+def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+             strategy_name: str = "auto", verbose: bool = True,
+             perf=None) -> Dict:
+    cfg = get_config(arch)
+    shape = SHAPES_BY_NAME[shape_name]
+    mesh_name = MESH_NAMES[multi_pod]
+    record: Dict = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+                    "strategy": strategy_name, "ok": False}
+
+    ok, why = shape_applicable(cfg, shape)
+    if not ok:
+        record.update(skipped=True, reason=why)
+        if verbose:
+            print(f"[skip] {arch} x {shape_name}: {why}")
+        return record
+
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    strategy = make_strategy(strategy_name, mesh, cfg, shape, perf=perf)
+    record["strategy"] = strategy.name
+    if perf is not None:
+        record["perf"] = {k: v for k, v in vars(perf).items()
+                          if v not in (None, False)}
+    record.update(ok=True, memory={"argument_bytes": argument_bytes(strategy)})
+    if verbose:
+        gib = record["memory"]["argument_bytes"] / 2 ** 30
+        print(f"[ok] {arch} x {shape_name} x {mesh_name} ({strategy.name}) "
+              f"| args {gib:.2f} GiB /dev")
+    return record
+
+
+def run_cells(cells, *, multi_pod: bool = False, strategy_name: str = "auto",
+              out: Optional[str] = None) -> int:
+    """Run ``cells`` [(arch, shape)], print each record line and the
+    summary line; returns the number of failed cells."""
+    records = []
+    failures = 0
+    for arch, shape in cells:
+        try:
+            rec = run_cell(arch, shape, multi_pod=multi_pod,
+                           strategy_name=strategy_name)
+        except Exception as e:  # a failing cell is a bug in our system
+            failures += 1
+            rec = {"arch": arch, "shape": shape, "ok": False,
+                   "mesh": MESH_NAMES[multi_pod],
+                   "error": f"{type(e).__name__}: {e}",
+                   "trace": traceback.format_exc()[-2000:]}
+            print(f"[FAIL] {arch} x {shape}: {type(e).__name__}: {e}")
+        records.append(rec)
+        if out:
+            with open(out, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+    n_ok = sum(1 for r in records if r.get("ok"))
+    n_skip = sum(1 for r in records if r.get("skipped"))
+    print(f"\n== dry-run: {n_ok} ok, {n_skip} skipped, {failures} failed, "
+          f"{len(records)} total ==")
+    return failures
+
+
+def main(argv: Optional[list] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=list(ARCH_NAMES))
+    ap.add_argument("--shape", choices=list(SHAPES_BY_NAME))
+    ap.add_argument("--strategy", default="auto",
+                    choices=["auto", "train", "crosspool", "monolithic"])
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--all", action="store_true",
+                    help="sweep every (arch x shape) cell")
+    ap.add_argument("--out", default=None, help="append JSON records here")
+    args = ap.parse_args(argv)
+
+    if args.all:
+        cells = [(a, s) for a in ARCH_NAMES for s in SHAPES_BY_NAME]
+    else:
+        if not (args.arch and args.shape):
+            ap.error("--arch/--shape or --all")
+        cells = [(args.arch, args.shape)]
+    failures = run_cells(cells, multi_pod=args.multi_pod,
+                         strategy_name=args.strategy, out=args.out)
+    raise SystemExit(1 if failures else 0)
+
+
+if __name__ == "__main__":
+    main()

@@ -9,6 +9,8 @@
   python -m repro_torch.launch.serve --device cpu \
       --metrics-out metrics.prom --trace-out trace.json \
       --slo '*:ttft_ms=200' --flight-record-out flight.json
+  python -m repro_torch.launch.serve --dry-run --arch minicpm3-4b \
+      --shape decode_32k [--strategy auto] [--multi-pod]
 
 Port of the engine path of ``src/repro/launch/serve.py``: colocates
 ``PAPER_COLOC_SET`` (at smoke scale by default, or with ``--full-width``
@@ -26,8 +28,9 @@ prompt", and the cache's snapshot is printed.  ``--metrics-out`` /
 a Perfetto-loadable Chrome trace (DESIGN.md §10); ``--slo`` declares
 burn-rate objectives and ``--flight-record-out`` dumps the session's
 flight record, which ``python -m repro_torch.launch.replay`` replays
-(DESIGN.md §13).  The reference's dry-run flags belong to a part not
-ported and raise.
+(DESIGN.md §13).  ``--dry-run`` reports one (arch x shape) cell's
+per-device argument bytes on the production mesh under ``--strategy``
+(``launch/dryrun.py``); it touches no device.
 """
 from __future__ import annotations
 
@@ -48,9 +51,6 @@ FULL_WIDTH_DEPTHS: Dict[str, int] = {
     "moonshot-v1-16b-a3b": 4,
     "minicpm3-4b": 4,
 }
-
-_NOT_PORTED = ("arch", "shape", "strategy", "dry_run", "multi_pod")
-
 
 def parse_slo_specs(specs: list, model_names: list) -> SLOConfig:
     """``"model:ttft_ms=200,tbt_p99_ms=50"`` (repeatable) -> SLOConfig.
@@ -106,10 +106,10 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--decode-steps", type=int, default=1,
                     help="K tokens committed per fused decode dispatch")
-    # the reference's other surfaces: accepted so they fail loudly
-    ap.add_argument("--arch", default=None)
-    ap.add_argument("--shape", default=None)
-    ap.add_argument("--strategy", default=None)
+    ap.add_argument("--arch", default=None, help="dry-run arch")
+    ap.add_argument("--shape", default="decode_32k")
+    ap.add_argument("--strategy", default="crosspool",
+                    choices=["auto", "crosspool", "monolithic"])
     ap.add_argument("--dry-run", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--elastic", action="store_true",
@@ -134,10 +134,14 @@ def main(argv: Optional[list] = None) -> None:
                          "PATH`")
     args = ap.parse_args(argv)
 
-    given = [f"--{k.replace('_', '-')}" for k in _NOT_PORTED
-             if getattr(args, k)]
-    if given:
-        raise NotImplementedError(f"{', '.join(given)}: not ported yet")
+    if args.dry_run:
+        from repro_torch.launch import dryrun
+        if not args.arch:
+            ap.error("--arch required with --dry-run")
+        failures = dryrun.run_cells([(args.arch, args.shape)],
+                                    multi_pod=args.multi_pod,
+                                    strategy_name=args.strategy)
+        raise SystemExit(1 if failures else 0)
 
     from repro_torch.runtime import observe as trace_mod
     from repro_torch.runtime.engine import CrossPoolEngine, EngineMode

@@ -2,13 +2,16 @@
 
   python -m repro_torch.launch.train --arch qwen3-14b --smoke --steps 100
   python -m repro_torch.launch.train --device cpu --arch qwen3-14b --smoke
+  python -m repro_torch.launch.train --arch llama3-405b --dry-run --multi-pod
 
 Port of ``src/repro/launch/train.py``: the same flags (float32, AdamW with
 10 warm-up steps, periodic async checkpoints, resume from the latest
 step, a straggler counter per step), plus ``--device``: the card by
 default, ``cpu`` for the plain kernel versions; without a card and
-without ``--device cpu`` it raises.  ``--dry-run`` (the reference's
-fleet-scale lowering) is not ported and raises.
+without ``--device cpu`` it raises.  ``--dry-run [--multi-pod]``
+reports the ``train_4k`` cell's per-device argument bytes under the
+``train`` strategy on the production mesh (``launch/dryrun.py``; no
+device).
 """
 from __future__ import annotations
 
@@ -38,13 +41,16 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--dry-run", action="store_true",
-                    help="the reference's fleet-scale lowering (not ported)")
+                    help="per-device bytes of the production train step")
     ap.add_argument("--multi-pod", action="store_true")
     args = ap.parse_args(argv)
 
-    if args.dry_run or args.multi_pod:
-        raise NotImplementedError("--dry-run / --multi-pod lower the "
-                                  "reference's sharded step; not ported")
+    if args.dry_run:
+        from repro_torch.launch import dryrun
+        failures = dryrun.run_cells([(args.arch, "train_4k")],
+                                    multi_pod=args.multi_pod,
+                                    strategy_name="train")
+        raise SystemExit(1 if failures else 0)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: pass --device cpu to train on the "

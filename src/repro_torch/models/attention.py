@@ -24,6 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
+from repro_torch.models.hooks import IDENTITY_HOOKS, Hooks
 
 NEG_INF = -1e30
 
@@ -105,7 +106,8 @@ def gqa_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor, *, window: int = 0,
              kv_positions: Optional[torch.Tensor] = None,
              kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-             causal: bool = True, impl: str = "xla"
+             causal: bool = True, impl: str = "xla",
+             hooks: Hooks = IDENTITY_HOOKS
              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Whole-sequence self-attention, or cross-attention over
     ``kv_override`` (k, v [B,T,KV,hd], taken as they are: no RoPE).
@@ -129,6 +131,8 @@ def gqa_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
             sin, cos = layers.rope_sin_cos(kv_pos, cfg.head_dim,
                                            cfg.rope_theta)
             k = layers.apply_rope(k, sin, cos)
+    q = hooks.attn_q(q)
+    k, v = hooks.kv(k), hooks.kv(v)
     scale = cfg.head_dim ** -0.5
     if not causal:
         out = attention_core(q, k, v, None, scale)
@@ -139,7 +143,7 @@ def gqa_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         out = attention_core(q, k, v, mask, scale)
     B, S = x.shape[:2]
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return _project_out(out, p["wo"]), (k, v)
+    return hooks.attn_out(_project_out(out, p["wo"])), (k, v)
 
 
 def _pad_to_extent(arr: torch.Tensor, extent: int) -> torch.Tensor:
@@ -196,16 +200,21 @@ def write_kv_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
     """Insert one new KV per sequence at its own index, IN PLACE.
 
     cache [B,T,...]; new [B,1,...]; lengths [B] (the GQA layer's
-    [B,T,KV,hd] and the MLA latent / rope rows [B,T,r] alike).  A row
-    whose length is T or more writes nothing, as the reference's masked
-    ``where`` (``attention.py:210-215``): its index is clamped and the
-    old row written back, so no index leaves the cache and nothing reads
-    back to the host.
+    [B,T,KV,hd] and the MLA latent / rope rows [B,T,r] alike), counted
+    from this cache's first row.  A row whose index lies outside
+    ``[0, T)`` writes nothing, as the reference's masked ``where``
+    (``attention.py:210-215``): its index is clamped and the old row
+    written back, so no index leaves the cache and nothing reads back to
+    the host.  A negative index is a token that precedes this cache: a
+    sequence-sharded cache holds a slice of the context
+    (``Hooks.kv_offset``), and only the shard that owns the position
+    writes it.
     """
     B, T = cache_k.shape[:2]
     rows = torch.arange(B, device=cache_k.device)
-    idx = lengths.clamp(max=T - 1).long()
-    keep = (lengths < T).view((B,) + (1,) * (cache_k.dim() - 2))
+    idx = lengths.clamp(min=0, max=T - 1).long()
+    keep = ((lengths >= 0) & (lengths < T)).view(
+        (B,) + (1,) * (cache_k.dim() - 2))
     for cache, new in ((cache_k, k_new), (cache_v, v_new)):
         cache[rows, idx] = torch.where(keep, new[:, 0].to(cache.dtype),
                                        cache[rows, idx])
@@ -213,14 +222,18 @@ def write_kv_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
 
 def gqa_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                cache_k: torch.Tensor, cache_v: torch.Tensor,
-               lengths: torch.Tensor, *, impl: str = "xla") -> torch.Tensor:
+               lengths: torch.Tensor, *, impl: str = "xla",
+               hooks: Hooks = IDENTITY_HOOKS) -> torch.Tensor:
     """One-token decode against a contiguous cache layer.
 
     x [B,1,D]; cache [B,T,KV,hd], updated in place; lengths [B] current
-    context lengths (the new token goes to that index).  ``impl="paged"``
-    reads the KV through the contiguous decode kernel
-    (``ops.decode_attention`` over ``lengths + 1`` tokens), any other
-    ``impl`` through the masked softmax.  Returns out [B,1,D].
+    context lengths (the new token goes to that index, less
+    ``hooks.kv_offset`` when the cache is this rank's slice of the
+    sequence).  ``hooks.decode_attn`` (crosspool's sequence-sharded
+    attention, ``attention.py:244-246``) reads the KV when set;
+    otherwise ``impl="paged"`` reads it through the contiguous decode
+    kernel (``ops.decode_attention`` over ``lengths + 1`` tokens), any
+    other ``impl`` through the masked softmax.  Returns out [B,1,D].
     """
     B = x.shape[0]
     T = cache_k.shape[1]
@@ -230,9 +243,12 @@ def gqa_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         sin, cos = layers.rope_sin_cos(pos, cfg.head_dim, cfg.rope_theta)
         q = layers.apply_rope(q, sin, cos)
         k = layers.apply_rope(k, sin, cos)
-    write_kv_cache(cache_k, cache_v, k, v, lengths)
+    write_kv_cache(cache_k, cache_v, k, v, _local(lengths, hooks))
+    cache_k, cache_v = hooks.kv(cache_k), hooks.kv(cache_v)
     scale = cfg.head_dim ** -0.5
-    if impl == "paged":
+    if hooks.decode_attn is not None:
+        out = hooks.decode_attn(q, cache_k, cache_v, lengths + 1)
+    elif impl == "paged":
         out = kops.decode_attention(q, cache_k, cache_v, lengths + 1,
                                     scale=scale)
     else:
@@ -240,7 +256,12 @@ def gqa_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         mask = (kv_pos <= pos)[:, None, None, None, :]        # [B,1,1,1,T]
         out = attention_core(q, cache_k, cache_v, mask, scale)
     out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
-    return _project_out(out, p["wo"])
+    return hooks.attn_out(_project_out(out, p["wo"]))
+
+
+def _local(lengths: torch.Tensor, hooks: Hooks) -> torch.Tensor:
+    """Cache index of the new token in this rank's slice of the cache."""
+    return lengths - hooks.kv_offset if hooks.kv_offset else lengths
 
 
 def ring_write_positions(cache_pos: torch.Tensor, cur: torch.Tensor
@@ -282,7 +303,8 @@ def ring_count(cache_pos: torch.Tensor) -> torch.Tensor:
 def swa_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                cache_k: torch.Tensor, cache_v: torch.Tensor,
                cache_pos: torch.Tensor, cur_len: torch.Tensor,
-               count: torch.Tensor, *, impl: str = "xla") -> torch.Tensor:
+               count: torch.Tensor, *, impl: str = "xla",
+               hooks: Hooks = IDENTITY_HOOKS) -> torch.Tensor:
     """One-token decode against a sliding-window ring (gemma3's local
     layers, ``attention.py:341-375``).
 
@@ -308,6 +330,7 @@ def swa_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     slot = (cur_len % W).long()
     cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+    cache_k, cache_v = hooks.kv(cache_k), hooks.kv(cache_v)
     scale = cfg.head_dim ** -0.5
     if impl == "paged":
         out = kops.decode_attention(q, cache_k, cache_v, count, scale=scale)
@@ -316,7 +339,7 @@ def swa_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         out = attention_core(q, cache_k, cache_v,
                              valid[:, None, None, None, :], scale)
     out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
-    return _project_out(out, p["wo"])
+    return hooks.attn_out(_project_out(out, p["wo"]))
 
 
 def _write_page(page_table: torch.Tensor, lengths: torch.Tensor,
@@ -425,7 +448,7 @@ def _mla_latent(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def mla_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-             positions: torch.Tensor
+             positions: torch.Tensor, *, hooks: Hooks = IDENTITY_HOOKS
              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Whole-sequence MLA in the expanded (prefill) form."""
     m = cfg.mla
@@ -433,6 +456,7 @@ def mla_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     H = cfg.n_heads
     q_nope, q_rope = _mla_queries(p, cfg, x, positions)
     latent, k_rope = _mla_latent(p, cfg, x, positions)
+    latent, k_rope = hooks.kv(latent), hooks.kv(k_rope)
     k_nope = (latent @ p["wuk"]).reshape(B, S, H, m.qk_nope_head_dim)
     v = (latent @ p["wuv"]).reshape(B, S, H, m.v_head_dim)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
@@ -442,7 +466,7 @@ def mla_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         B, S, H, m.qk_rope_head_dim)], dim=-1)
     out = attention_core(q, k, v, mask, scale)
     out = out.reshape(B, S, H * m.v_head_dim)
-    return out @ p["wo"], (latent, k_rope)
+    return hooks.attn_out(out @ p["wo"]), (latent, k_rope)
 
 
 def mla_suffix(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -514,14 +538,17 @@ def mla_paged_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                cache_latent: torch.Tensor, cache_rope: torch.Tensor,
-               lengths: torch.Tensor) -> torch.Tensor:
+               lengths: torch.Tensor, *, hooks: Hooks = IDENTITY_HOOKS
+               ) -> torch.Tensor:
     """One-token absorbed-MLA decode against a contiguous latent cache
     (``attention.py:496-552``; the reference's route is XLA einsums, so
     this is plain torch).
 
     x [B,1,D]; cache_latent [B,T,r] and cache_rope [B,T,rp], updated IN
-    PLACE at ``lengths`` [B].  Attention reads only the compressed rows:
-    ``W_uk`` is absorbed into q, ``W_uv`` applied to the latent context.
+    PLACE at ``lengths`` [B] (less ``hooks.kv_offset``: see
+    ``gqa_decode``).  Attention reads only the compressed rows: ``W_uk``
+    is absorbed into q, ``W_uv`` applied to the latent context, which
+    ``hooks.decode_attn_mla`` computes when set (``attention.py:531-534``).
     Returns out [B,1,D].
     """
     m = cfg.mla
@@ -530,22 +557,30 @@ def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     pos = lengths[:, None]
     q_nope, q_rope = _mla_queries(p, cfg, x, pos)
     latent_new, rope_new = _mla_latent(p, cfg, x, pos)
-    write_kv_cache(cache_latent, cache_rope, latent_new, rope_new, lengths)
+    write_kv_cache(cache_latent, cache_rope, latent_new, rope_new,
+                   _local(lengths, hooks))
+    cache_latent, cache_rope = hooks.kv(cache_latent), hooks.kv(cache_rope)
     wuk = p["wuk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
     q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wuk)
-    latent, rope = cache_latent, cache_rope
-    if latent.element_size() == 1:          # fp8 latent cache
-        latent, rope = latent.to(torch.bfloat16), rope.to(torch.bfloat16)
-    scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), latent.float())
-              + torch.einsum("bshp,btp->bhst", q_rope.float(), rope.float()))
-    scores = scores * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    kv_pos = torch.arange(T, device=x.device)[None, None, None, :]
-    scores = torch.where(kv_pos <= pos[:, None, :, None], scores,
-                         torch.tensor(NEG_INF, device=scores.device))
-    w = torch.softmax(scores, dim=-1).to(latent.dtype)
-    ctx = torch.einsum("bhst,btr->bshr", w, latent)
+    if hooks.decode_attn_mla is not None:
+        ctx = hooks.decode_attn_mla(q_lat, q_rope, cache_latent, cache_rope,
+                                    lengths + 1)
+    else:
+        latent, rope = cache_latent, cache_rope
+        if latent.element_size() == 1:          # fp8 latent cache
+            latent, rope = latent.to(torch.bfloat16), rope.to(torch.bfloat16)
+        scores = (torch.einsum("bshr,btr->bhst", q_lat.float(),
+                               latent.float())
+                  + torch.einsum("bshp,btp->bhst", q_rope.float(),
+                                 rope.float()))
+        scores = scores * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+        kv_pos = torch.arange(T, device=x.device)[None, None, None, :]
+        scores = torch.where(kv_pos <= pos[:, None, :, None], scores,
+                             torch.tensor(NEG_INF, device=scores.device))
+        w = torch.softmax(scores, dim=-1).to(latent.dtype)
+        ctx = torch.einsum("bhst,btr->bshr", w, latent)
     wuv = p["wuv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     ctx = ctx.to(torch.promote_types(ctx.dtype, wuv.dtype))
     out = torch.einsum("bshr,rhv->bshv", ctx, wuv)
     out = out.reshape(B, 1, H * m.v_head_dim)
-    return _project_out(out, p["wo"])
+    return hooks.attn_out(_project_out(out, p["wo"]))

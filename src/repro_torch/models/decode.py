@@ -39,6 +39,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, ssm as ssm_mod
 from repro_torch.models import transformer as tfm
+from repro_torch.models.hooks import IDENTITY_HOOKS, Hooks
 
 
 def _pick(tree: Dict, i: int) -> Dict:
@@ -109,33 +110,34 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
 
 
 def _ssm_full_layer(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
-                    hs: torch.Tensor, convs: torch.Tensor, i: int
-                    ) -> torch.Tensor:
+                    hs: torch.Tensor, convs: torch.Tensor, i: int,
+                    hooks: Hooks) -> torch.Tensor:
     """One pre-norm SSD layer over the sequence; its final state replaces
     entry ``i`` of the cache stacks."""
     out, st = ssm_mod.ssm_full(p_l["ssm"], cfg,
-                               layers.rms_norm(x, p_l["ln"], cfg.norm_eps))
+                               layers.rms_norm(x, p_l["ln"], cfg.norm_eps),
+                               hooks=hooks)
     hs[i].copy_(st["h"])
     convs[i].copy_(st["conv"])
-    return x + out
+    return x + hooks.act(out)
 
 
 def _ssm_decode_layer(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
-                      hs: torch.Tensor, convs: torch.Tensor, i: int
-                      ) -> torch.Tensor:
+                      hs: torch.Tensor, convs: torch.Tensor, i: int,
+                      hooks: Hooks) -> torch.Tensor:
     out, st = ssm_mod.ssm_decode(
         p_l["ssm"], cfg, layers.rms_norm(x, p_l["ln"], cfg.norm_eps),
-        {"h": hs[i], "conv": convs[i]})
+        {"h": hs[i], "conv": convs[i]}, hooks=hooks)
     hs[i].copy_(st["h"])
     convs[i].copy_(st["conv"])
-    return x + out
+    return x + hooks.act(out)
 
 
 def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Dict, *, embeddings: Optional[torch.Tensor] = None,
             encoder_frames: Optional[torch.Tensor] = None,
-            impl: str = "xla", logit_index: Optional[int] = None
-            ) -> Tuple[torch.Tensor, Dict]:
+            impl: str = "xla", logit_index: Optional[int] = None,
+            hooks: Hooks = IDENTITY_HOOKS) -> Tuple[torch.Tensor, Dict]:
     """tokens [B,S_txt] (after the stub ``embeddings`` [B,S_emb,D] prefix
     of a vlm; whisper's ``encoder_frames`` [B,T_enc,D]) -> (logits [B,V]
     at ``logit_index`` (default and upper limit: the last position), the
@@ -150,26 +152,29 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = tfm.embed_inputs(params, cfg, tokens, embeddings, positions)
     if fam in ("dense", "vlm", "moe"):
         if cfg.swa_pattern > 0:
-            x = _prefill_swa(params, cfg, x, positions, cache, impl)
+            x = _prefill_swa(params, cfg, x, positions, cache, impl, hooks)
         elif cfg.attention == "mla":
             for i in range(cfg.n_layers):
                 p_l = _pick(params["layers"], i)
-                x, (lat, rope) = tfm._attn_full(p_l, cfg, x, positions)
-                x, _ = tfm._ffn_full(p_l, cfg, x)
+                x, (lat, rope) = tfm._attn_full(p_l, cfg, x, positions,
+                                                hooks=hooks)
+                x, _ = tfm._ffn_full(p_l, cfg, x, hooks=hooks)
                 cache["latent"][i, :, :S] = lat
                 cache["rope"][i, :, :S] = rope
         else:
             for i in range(cfg.n_layers):
                 p_l = _pick(params["layers"], i)
-                x, (k, v) = tfm._attn_full(p_l, cfg, x, positions, impl)
-                x, _ = tfm._ffn_full(p_l, cfg, x)
+                x, (k, v) = tfm._attn_full(p_l, cfg, x, positions, impl,
+                                           hooks=hooks)
+                x, _ = tfm._ffn_full(p_l, cfg, x, hooks=hooks)
                 cache["k"][i, :, :S] = k
                 cache["v"][i, :, :S] = v
     elif fam == "audio":
-        enc_out = tfm.encode(params, cfg, encoder_frames)
+        enc_out = tfm.encode(params, cfg, encoder_frames, hooks)
         for i in range(cfg.n_layers):
             x, (k, v), (kx, vx) = tfm._decoder_layer(
-                _pick(params["layers"], i), cfg, x, positions, enc_out, impl)
+                _pick(params["layers"], i), cfg, x, positions, enc_out, impl,
+                hooks)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
             cache["ck"][i] = kx
@@ -177,26 +182,27 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     elif fam == "ssm":
         for i in range(cfg.n_layers):
             x = _ssm_full_layer(_pick(params["layers"], i), cfg, x,
-                                cache["h"], cache["conv"], i)
+                                cache["h"], cache["conv"], i, hooks)
     elif fam == "hybrid":
         shared = params["shared_block"]
         per = cfg.ssm_per_group
         for g in range(cfg.hybrid_groups):
             for i in range(g * per, (g + 1) * per):
                 x = _ssm_full_layer(_pick(params["layers"], i), cfg, x,
-                                    cache["h"], cache["conv"], i)
-            x, (k, v) = tfm._attn_full(shared, cfg, x, positions, impl)
-            x, _ = tfm._ffn_full(shared, cfg, x)
+                                    cache["h"], cache["conv"], i, hooks)
+            x, (k, v) = tfm._attn_full(shared, cfg, x, positions, impl,
+                                       hooks=hooks)
+            x, _ = tfm._ffn_full(shared, cfg, x, hooks=hooks)
             cache["k"][g, :, :S] = k
             cache["v"][g, :, :S] = v
         for i in range(cfg.tail_ssm_layers):
             x = _ssm_full_layer(_pick(params["tail"], i), cfg, x,
-                                cache["tail_h"], cache["tail_conv"], i)
+                                cache["tail_h"], cache["tail_conv"], i, hooks)
     else:
         raise ValueError(f"unknown family {fam}")
     # clamped into the sequence, as the reference's dynamic slice is
     at = S - 1 if logit_index is None else min(logit_index, S - 1)
-    return tfm._logits(params, cfg, x[:, at:at + 1])[:, 0], cache
+    return tfm._logits(params, cfg, x[:, at:at + 1], hooks)[:, 0], cache
 
 
 def ring_layout(S: int, W: int) -> np.ndarray:
@@ -208,8 +214,8 @@ def ring_layout(S: int, W: int) -> np.ndarray:
 
 
 def _prefill_swa(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor, cache: Dict, impl: str
-                 ) -> torch.Tensor:
+                 positions: torch.Tensor, cache: Dict, impl: str,
+                 hooks: Hooks) -> torch.Tensor:
     """gemma3: groups of (P-1 local ring layers + 1 global layer).  Local
     layers take the window-masked softmax (the reference's XLA route);
     global layers the flash kernel under ``impl="flash"``.  A local ring
@@ -227,14 +233,14 @@ def _prefill_swa(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         for j in range(P - 1):
             p_l = _pick(params["layers"], g * P + j)
             x, (k, v) = tfm._attn_full(p_l, cfg, x, positions, impl,
-                                       window=cfg.sliding_window)
-            x, _ = tfm._ffn_full(p_l, cfg, x)
+                                       window=cfg.sliding_window, hooks=hooks)
+            x, _ = tfm._ffn_full(p_l, cfg, x, hooks=hooks)
             cache["lk"][g, j][:, dst] = k[:, src].to(cache["lk"].dtype)
             cache["lv"][g, j][:, dst] = v[:, src].to(cache["lv"].dtype)
             cache["lpos"][g, j] = ring_pos
         p_g = _pick(params["layers"], g * P + P - 1)
-        x, (k, v) = tfm._attn_full(p_g, cfg, x, positions, impl)
-        x, _ = tfm._ffn_full(p_g, cfg, x)
+        x, (k, v) = tfm._attn_full(p_g, cfg, x, positions, impl, hooks=hooks)
+        x, _ = tfm._ffn_full(p_g, cfg, x, hooks=hooks)
         cache["gk"][g, :, :S] = k
         cache["gv"][g, :, :S] = v
     return x
@@ -242,10 +248,12 @@ def _prefill_swa(params: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Dict, lengths: Union[int, torch.Tensor], *,
-                impl: str = "xla") -> Tuple[torch.Tensor, Dict]:
+                impl: str = "xla", hooks: Hooks = IDENTITY_HOOKS
+                ) -> Tuple[torch.Tensor, Dict]:
     """tokens [B] next ids; lengths [B] (or one int for every row) current
     context lengths (the new token's KV goes to that index).  Returns
-    (logits [B,V], the cache updated in place)."""
+    (logits [B,V], the cache updated in place).  ``hooks`` reach every
+    site the reference's do (``decode.py:291-443``)."""
     fam = cfg.family
     B = tokens.shape[0]
     lengths = torch.as_tensor(lengths, device=tokens.device)
@@ -256,59 +264,62 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                          pos if cfg.rope_theta == 0 else None)
     if fam in ("dense", "vlm", "moe"):
         if cfg.swa_pattern > 0:
-            x = _decode_swa(params, cfg, x, cache, lengths, impl)
+            x = _decode_swa(params, cfg, x, cache, lengths, impl, hooks)
         else:
             for i in range(cfg.n_layers):
                 p_l = _pick(params["layers"], i)
                 h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
                 if cfg.attention == "mla":
-                    x = x + attn.mla_decode(p_l["attn"], cfg, h,
-                                            cache["latent"][i],
-                                            cache["rope"][i], lengths)
+                    out = attn.mla_decode(p_l["attn"], cfg, h,
+                                          cache["latent"][i],
+                                          cache["rope"][i], lengths,
+                                          hooks=hooks)
                 else:
-                    x = x + attn.gqa_decode(p_l["attn"], cfg, h,
-                                            cache["k"][i], cache["v"][i],
-                                            lengths, impl=impl)
-                x, _ = tfm._ffn_full(p_l, cfg, x)
+                    out = attn.gqa_decode(p_l["attn"], cfg, h,
+                                          cache["k"][i], cache["v"][i],
+                                          lengths, impl=impl, hooks=hooks)
+                x = x + hooks.act(out)
+                x, _ = tfm._ffn_full(p_l, cfg, x, hooks=hooks)
     elif fam == "audio":
         for i in range(cfg.n_layers):
             p_l = _pick(params["layers"], i)
             h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
-            x = x + attn.gqa_decode(p_l["self"], cfg, h, cache["k"][i],
-                                    cache["v"][i], lengths, impl=impl)
+            x = x + hooks.act(attn.gqa_decode(
+                p_l["self"], cfg, h, cache["k"][i], cache["v"][i], lengths,
+                impl=impl, hooks=hooks))
             h = layers.rms_norm(x, p_l["ln2"], cfg.norm_eps)
             out, _ = attn.gqa_full(p_l["cross"], cfg, h, pos,
                                    kv_override=(cache["ck"][i],
                                                 cache["cv"][i]),
-                                   causal=False)
-            x = x + out
-            h = layers.rms_norm(x, p_l["ln3"], cfg.norm_eps)
-            x = x + layers.apply_mlp(p_l["mlp"], h, cfg.mlp_kind)
+                                   causal=False, hooks=hooks)
+            x = tfm._mlp_boundary(p_l, cfg, x + hooks.act(out), hooks)
     elif fam == "ssm":
         for i in range(cfg.n_layers):
             x = _ssm_decode_layer(_pick(params["layers"], i), cfg, x,
-                                  cache["h"], cache["conv"], i)
+                                  cache["h"], cache["conv"], i, hooks)
     elif fam == "hybrid":
         shared = params["shared_block"]
         per = cfg.ssm_per_group
         for g in range(cfg.hybrid_groups):
             for i in range(g * per, (g + 1) * per):
                 x = _ssm_decode_layer(_pick(params["layers"], i), cfg, x,
-                                      cache["h"], cache["conv"], i)
+                                      cache["h"], cache["conv"], i, hooks)
             h = layers.rms_norm(x, shared["ln1"], cfg.norm_eps)
-            x = x + attn.gqa_decode(shared["attn"], cfg, h, cache["k"][g],
-                                    cache["v"][g], lengths, impl=impl)
-            x, _ = tfm._ffn_full(shared, cfg, x)
+            x = x + hooks.act(attn.gqa_decode(
+                shared["attn"], cfg, h, cache["k"][g], cache["v"][g],
+                lengths, impl=impl, hooks=hooks))
+            x, _ = tfm._ffn_full(shared, cfg, x, hooks=hooks)
         for i in range(cfg.tail_ssm_layers):
             x = _ssm_decode_layer(_pick(params["tail"], i), cfg, x,
-                                  cache["tail_h"], cache["tail_conv"], i)
+                                  cache["tail_h"], cache["tail_conv"], i,
+                                  hooks)
     else:
         raise ValueError(f"unknown family {fam}")
-    return tfm._logits(params, cfg, x)[:, 0], cache
+    return tfm._logits(params, cfg, x, hooks)[:, 0], cache
 
 
 def _decode_swa(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                cache: Dict, lengths: torch.Tensor, impl: str
+                cache: Dict, lengths: torch.Tensor, impl: str, hooks: Hooks
                 ) -> torch.Tensor:
     """gemma3's step: every local ring's position slot written at once
     and the ring count taken once (the rings' positions are the same in
@@ -321,13 +332,14 @@ def _decode_swa(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         for j in range(P - 1):
             p_l = _pick(params["layers"], g * P + j)
             h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
-            x = x + attn.swa_decode(p_l["attn"], cfg, h, cache["lk"][g, j],
-                                    cache["lv"][g, j], cache["lpos"][g, j],
-                                    lengths, count, impl=impl)
-            x, _ = tfm._ffn_full(p_l, cfg, x)
+            x = x + hooks.act(attn.swa_decode(
+                p_l["attn"], cfg, h, cache["lk"][g, j], cache["lv"][g, j],
+                cache["lpos"][g, j], lengths, count, impl=impl, hooks=hooks))
+            x, _ = tfm._ffn_full(p_l, cfg, x, hooks=hooks)
         p_g = _pick(params["layers"], g * P + P - 1)
         h = layers.rms_norm(x, p_g["ln1"], cfg.norm_eps)
-        x = x + attn.gqa_decode(p_g["attn"], cfg, h, cache["gk"][g],
-                                cache["gv"][g], lengths, impl=impl)
-        x, _ = tfm._ffn_full(p_g, cfg, x)
+        x = x + hooks.act(attn.gqa_decode(
+            p_g["attn"], cfg, h, cache["gk"][g], cache["gv"][g], lengths,
+            impl=impl, hooks=hooks))
+        x, _ = tfm._ffn_full(p_g, cfg, x, hooks=hooks)
     return x

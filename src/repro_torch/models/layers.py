@@ -118,16 +118,23 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, kind: str,
     raise ValueError(f"unknown mlp kind {kind}")
 
 
-def apply_mlp(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+def apply_mlp(params: dict, x: torch.Tensor, kind: str, hook=None,
+              down=None) -> torch.Tensor:
     """Position-wise MLP (SwiGLU, or GELU with the tanh approximation as
-    ``jax.nn.gelu(approximate=True)``, ``layers.py:111``)."""
+    ``jax.nn.gelu(approximate=True)``, ``layers.py:111``).  ``hook`` sees
+    the hidden (the reference's ``ffn_hidden`` site); ``down(h, w)``
+    (``Hooks.ffn_down``), when given, is the down projection."""
     if kind == "swiglu":
         h = F.silu(x @ params["wg"]) * (x @ params["wu"])
-        return h @ params["wd"]
-    if kind == "gelu":
+        w = params["wd"]
+    elif kind == "gelu":
         h = F.gelu(x @ params["wi"], approximate="tanh")
-        return h @ params["wo"]
-    raise ValueError(f"unknown mlp kind {kind}")
+        w = params["wo"]
+    else:
+        raise ValueError(f"unknown mlp kind {kind}")
+    if hook is not None:
+        h = hook(h)
+    return down(h, w) if down is not None else h @ w
 
 
 # ---------------------------------------------------------------------------

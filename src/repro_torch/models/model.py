@@ -8,7 +8,9 @@ serves the ssm and hybrid families through it; ``examples``-style
 callers run any architecture).  ``impl`` picks the attention route as in
 the reference: ``"flash"`` for prefill and ``"paged"`` for decode take
 the hand-written kernels, ``"xla"`` the masked softmax.  The SSD scan
-takes its kernel whenever the tensors lie on a card.
+takes its kernel whenever the tensors lie on a card.  ``hooks``
+(``models/hooks.py``) is the sharding seam, as the reference's
+(``model.py:40, 61, 68``); the default is the identity.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import decode as dec
 from repro_torch.models import transformer as tfm
+from repro_torch.models.hooks import IDENTITY_HOOKS, Hooks
 
 
 @dataclass(frozen=True)
@@ -32,9 +35,11 @@ class Model:
     def forward(self, params: Dict, tokens: torch.Tensor, *,
                 embeddings: Optional[torch.Tensor] = None,
                 encoder_frames: Optional[torch.Tensor] = None,
-                impl: str = "xla") -> Tuple[torch.Tensor, torch.Tensor]:
+                hooks: Hooks = IDENTITY_HOOKS, impl: str = "xla"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         return tfm.forward(params, self.cfg, tokens, embeddings=embeddings,
-                           encoder_frames=encoder_frames, impl=impl)
+                           encoder_frames=encoder_frames, impl=impl,
+                           hooks=hooks)
 
     def init_cache(self, batch: int, max_len: int, device,
                    kv_dtype: Optional[str] = None) -> Dict:
@@ -43,18 +48,19 @@ class Model:
     def prefill(self, params: Dict, tokens: torch.Tensor, cache: Dict, *,
                 embeddings: Optional[torch.Tensor] = None,
                 encoder_frames: Optional[torch.Tensor] = None,
-                impl: str = "xla", logit_index: Optional[int] = None
+                hooks: Hooks = IDENTITY_HOOKS, impl: str = "xla",
+                logit_index: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
         return dec.prefill(params, self.cfg, tokens, cache,
                            embeddings=embeddings,
                            encoder_frames=encoder_frames, impl=impl,
-                           logit_index=logit_index)
+                           logit_index=logit_index, hooks=hooks)
 
     def decode_step(self, params: Dict, tokens: torch.Tensor, cache: Dict,
-                    lengths, *, impl: str = "xla"
-                    ) -> Tuple[torch.Tensor, Dict]:
+                    lengths, *, hooks: Hooks = IDENTITY_HOOKS,
+                    impl: str = "xla") -> Tuple[torch.Tensor, Dict]:
         return dec.decode_step(params, self.cfg, tokens, cache, lengths,
-                               impl=impl)
+                               hooks=hooks, impl=impl)
 
 
 def build_model(cfg: ModelConfig) -> Model:

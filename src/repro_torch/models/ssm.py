@@ -21,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ssd_chunked import ssd_decode_step
 from repro_torch.models import layers
+from repro_torch.models.hooks import IDENTITY_HOOKS, Hooks
 
 
 def _dims(cfg: ModelConfig):
@@ -108,7 +109,8 @@ def _gate_out(y: torch.Tensor, z: torch.Tensor, p: Dict, cfg: ModelConfig
 
 
 def ssm_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-             state: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
+             state: Optional[Dict] = None, *, hooks: Hooks = IDENTITY_HOOKS
+             ) -> Tuple[torch.Tensor, Dict]:
     """Whole-sequence SSD block.  x [B,S,D] -> (out [B,S,D], final state
     ``{"h": [B,H,P,N] f32, "conv": [B,W-1,conv_dim]}``); ``state`` seeds
     the scan and the conv (or None)."""
@@ -126,7 +128,8 @@ def ssm_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                                chunk=scan_chunk(S, s.chunk_size), h0=h0)
     y = y + xh * p["D"][None, None, :, None]             # skip connection
     y = y.reshape(B, S, d_in).to(x.dtype)
-    return _gate_out(y, z, p, cfg), {"h": h_final, "conv": conv_tail}
+    return _gate_out(y, z, p, cfg), {"h": hooks.kv_state(h_final),
+                                     "conv": conv_tail}
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, device) -> Dict:
@@ -140,8 +143,8 @@ def init_ssm_state(cfg: ModelConfig, batch: int, device) -> Dict:
     }
 
 
-def ssm_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, state: Dict
-               ) -> Tuple[torch.Tensor, Dict]:
+def ssm_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, state: Dict, *,
+               hooks: Hooks = IDENTITY_HOOKS) -> Tuple[torch.Tensor, Dict]:
     """Single-token SSD recurrence.  x [B,1,D] -> (out [B,1,D], new
     state); the conv window sums in f32 and rounds back to x's dtype."""
     s, d_in, nh, conv_dim, N = _dims(cfg)
@@ -161,4 +164,4 @@ def ssm_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, state: Dict
     y_t = y_t + xh * p["D"][None, :, None]
     y_t = y_t.reshape(B, d_in).to(x.dtype)
     out = _gate_out(y_t, z, p, cfg)[:, None, :]
-    return out, {"h": h_next, "conv": new_tail}
+    return out, {"h": hooks.kv_state(h_next), "conv": new_tail}

@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe as moe_mod, ssm as ssm_mod
+from repro_torch.models.hooks import IDENTITY_HOOKS, Hooks
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -143,41 +144,49 @@ def positions_of(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None, :].expand(B, S)
 
 
-def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor
-            ) -> torch.Tensor:
+def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+            hooks: Hooks = IDENTITY_HOOKS) -> torch.Tensor:
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return layers.unembed(params["embed"], x)
+    return hooks.logits(layers.unembed(params["embed"], x))
 
 
 def _attn_full(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor, impl: str = "xla", window: int = 0):
+               positions: torch.Tensor, impl: str = "xla", window: int = 0,
+               hooks: Hooks = IDENTITY_HOOKS):
     """Pre-norm full-sequence attention + residual: (x, layer_kv);
     ``window`` > 0 bounds a GQA layer to its sliding window."""
     h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
     if cfg.attention == "mla":
-        out, kv = attn.mla_full(p_l["attn"], cfg, h, positions)
+        out, kv = attn.mla_full(p_l["attn"], cfg, h, positions, hooks=hooks)
     else:
         out, kv = attn.gqa_full(p_l["attn"], cfg, h, positions,
-                                window=window, impl=impl)
-    return x + out, kv
+                                window=window, impl=impl, hooks=hooks)
+    return x + hooks.act(out), kv
 
 
 def _ffn_full(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
-              moe_path: str = "capacity"):
+              moe_path: str = "capacity", hooks: Hooks = IDENTITY_HOOKS):
     """Pre-norm MLP or routed-expert FFN + residual: (x, aux).  MoE layers
-    take the capacity path (``apply_moe``) or the grouped-GEMM path
-    (``apply_moe_grouped``); a dense layer's aux is 0."""
-    h = layers.rms_norm(x, p_l["ln2"], cfg.norm_eps)
+    take ``hooks.moe_apply`` when set (the explicit all-to-all dispatch,
+    ``transformer.py:191-192``), else the capacity path (``apply_moe``)
+    or the grouped-GEMM path (``apply_moe_grouped``); a dense layer's aux
+    is 0.  ``hooks.boundary_in`` / ``boundary_out`` bracket the FFN: the
+    pool boundary."""
+    h = hooks.boundary_in(layers.rms_norm(x, p_l["ln2"], cfg.norm_eps))
     if cfg.is_moe:
         if moe_path not in ("capacity", "grouped"):
             raise ValueError(f"unknown moe_path {moe_path!r}")
-        fn = (moe_mod.apply_moe if moe_path == "capacity"
-              else moe_mod.apply_moe_grouped)
-        f, aux = fn(p_l["moe"], h, cfg)
+        if hooks.moe_apply is not None:
+            f, aux = hooks.moe_apply(p_l["moe"], h)
+        else:
+            fn = (moe_mod.apply_moe if moe_path == "capacity"
+                  else moe_mod.apply_moe_grouped)
+            f, aux = fn(p_l["moe"], h, cfg, hooks=hooks)
     else:
-        f = layers.apply_mlp(p_l["mlp"], h, cfg.mlp_kind)
+        f = layers.apply_mlp(p_l["mlp"], h, cfg.mlp_kind,
+                             hook=hooks.ffn_hidden, down=hooks.ffn_down)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + f, aux
+    return x + hooks.act(hooks.boundary_out(f)), aux
 
 
 def _unstack(tree, n: int):
@@ -202,7 +211,8 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             embeddings: Optional[torch.Tensor] = None,
             encoder_frames: Optional[torch.Tensor] = None,
             impl: str = "xla", moe_path: str = "capacity",
-            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            remat: bool = False, hooks: Hooks = IDENTITY_HOOKS
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward (training, prefill without a cache):
     (logits [B,S,V], aux scalar f32).
 
@@ -231,15 +241,15 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             # softmax for every layer, bounded to the window on the local
             # ones
             xc, _ = _attn_full(p_l, cfg, xc, positions, "xla",
-                               0 if is_global else cfg.sliding_window)
+                               0 if is_global else cfg.sliding_window, hooks)
         else:
-            xc, _ = _attn_full(p_l, cfg, xc, positions, impl)
-        return _ffn_full(p_l, cfg, xc, moe_path)
+            xc, _ = _attn_full(p_l, cfg, xc, positions, impl, hooks=hooks)
+        return _ffn_full(p_l, cfg, xc, moe_path, hooks)
 
     def ssm_block(xc, p_l):
         h = layers.rms_norm(xc, p_l["ln"], cfg.norm_eps)
-        out, _ = ssm_mod.ssm_full(p_l["ssm"], cfg, h)
-        return xc + out
+        out, _ = ssm_mod.ssm_full(p_l["ssm"], cfg, h, hooks=hooks)
+        return xc + hooks.act(out)
 
     if fam in ("dense", "vlm", "moe"):
         flags = _swa_global_flags(cfg)
@@ -247,20 +257,21 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                              flags):
             x, a = _call(block, remat, x, p_l, glob)
             aux = aux + a
-        return _logits(params, cfg, x), aux / max(cfg.n_layers, 1)
+        return _logits(params, cfg, x, hooks), aux / max(cfg.n_layers, 1)
     if fam == "ssm":
         for p_l in _unstack(params["layers"], cfg.n_layers):
             x = _call(ssm_block, remat, x, p_l)
-        return _logits(params, cfg, x), aux
+        return _logits(params, cfg, x, hooks), aux
     if fam == "audio":
-        enc_out = encode(params, cfg, encoder_frames)
+        enc_out = encode(params, cfg, encoder_frames, hooks)
 
         def dec_block(xc, p_l):
-            return _decoder_layer(p_l, cfg, xc, positions, enc_out, impl)[0]
+            return _decoder_layer(p_l, cfg, xc, positions, enc_out, impl,
+                                  hooks)[0]
 
         for p_l in _unstack(params["layers"], cfg.n_layers):
             x = _call(dec_block, remat, x, p_l)
-        return _logits(params, cfg, x), aux
+        return _logits(params, cfg, x, hooks), aux
 
     per = cfg.ssm_per_group
     ssm_layers = _unstack(params["layers"], cfg.hybrid_groups * per)
@@ -268,8 +279,9 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     def group(xc, group_layers):
         for p_l in group_layers:
             xc = ssm_block(xc, p_l)
-        xc, _ = _attn_full(params["shared_block"], cfg, xc, positions, impl)
-        xc, _ = _ffn_full(params["shared_block"], cfg, xc)
+        xc, _ = _attn_full(params["shared_block"], cfg, xc, positions, impl,
+                           hooks=hooks)
+        xc, _ = _ffn_full(params["shared_block"], cfg, xc, hooks=hooks)
         return xc
 
     for g in range(cfg.hybrid_groups):
@@ -277,7 +289,7 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     if cfg.tail_ssm_layers:
         for p_l in _unstack(params["tail"], cfg.tail_ssm_layers):
             x = ssm_block(x, p_l)
-    return _logits(params, cfg, x), aux
+    return _logits(params, cfg, x, hooks), aux
 
 
 # ---------------------------------------------------------------------------
@@ -293,8 +305,8 @@ def _cross_kv(p_attn: Dict, cfg: ModelConfig, enc_out: torch.Tensor
             (enc_out @ p_attn["wv"]).reshape(B, T, KV, hd))
 
 
-def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor
-           ) -> torch.Tensor:
+def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor,
+           hooks: Hooks = IDENTITY_HOOKS) -> torch.Tensor:
     """Whisper encoder over stub frame embeddings [B,T_enc,D]
     (``transformer.py:311-332``): sinusoidal positions, then pre-norm
     non-causal self-attention + MLP layers and a final norm."""
@@ -304,30 +316,41 @@ def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor
         frames.dtype)
     for p_l in _unstack(params["enc_layers"], cfg.n_encoder_layers):
         h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
-        out, _ = attn.gqa_full(p_l["attn"], cfg, h, pos, causal=False)
-        x = x + out
+        out, _ = attn.gqa_full(p_l["attn"], cfg, h, pos, causal=False,
+                               hooks=hooks)
+        x = x + hooks.act(out)
         h = layers.rms_norm(x, p_l["ln2"], cfg.norm_eps)
-        x = x + layers.apply_mlp(p_l["mlp"], h, cfg.mlp_kind)
+        x = x + hooks.act(layers.apply_mlp(p_l["mlp"], h, cfg.mlp_kind,
+                                           hook=hooks.ffn_hidden))
     return layers.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def _decoder_layer(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor, enc_out: torch.Tensor,
-                   impl: str = "xla"):
+                   impl: str = "xla", hooks: Hooks = IDENTITY_HOOKS):
     """One whisper decoder layer over the whole sequence: causal self-
     attention (``impl`` routes it), non-causal cross-attention over the
     encoder output, MLP.  Returns (x, (k, v) self, (k, v) cross)."""
     h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
-    out, self_kv = attn.gqa_full(p_l["self"], cfg, h, positions, impl=impl)
-    x = x + out
+    out, self_kv = attn.gqa_full(p_l["self"], cfg, h, positions, impl=impl,
+                                 hooks=hooks)
+    x = x + hooks.act(out)
     cross_kv = _cross_kv(p_l["cross"], cfg, enc_out)
     h = layers.rms_norm(x, p_l["ln2"], cfg.norm_eps)
     out, _ = attn.gqa_full(p_l["cross"], cfg, h, positions,
-                           kv_override=cross_kv, causal=False)
-    x = x + out
-    h = layers.rms_norm(x, p_l["ln3"], cfg.norm_eps)
-    return x + layers.apply_mlp(p_l["mlp"], h, cfg.mlp_kind), self_kv, \
-        cross_kv
+                           kv_override=cross_kv, causal=False, hooks=hooks)
+    x = x + hooks.act(out)
+    return _mlp_boundary(p_l, cfg, x, hooks), self_kv, cross_kv
+
+
+def _mlp_boundary(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
+                  hooks: Hooks) -> torch.Tensor:
+    """Whisper's decoder MLP + residual across the pool boundary
+    (``decode.py:190-194``)."""
+    h = hooks.boundary_in(layers.rms_norm(x, p_l["ln3"], cfg.norm_eps))
+    f = layers.apply_mlp(p_l["mlp"], h, cfg.mlp_kind, hook=hooks.ffn_hidden,
+                         down=hooks.ffn_down)
+    return x + hooks.act(hooks.boundary_out(f))
 
 
 # ---------------------------------------------------------------------------

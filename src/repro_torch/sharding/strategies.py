@@ -1,0 +1,523 @@
+"""Pooling/parallelism strategies: how (arch x shape x mesh) maps to
+shardings.  Port of ``src/repro/sharding/strategies.py``.
+
+Three strategies:
+
+* ``train``      — DP over (pod,data) + FSDP weight sharding over the same
+                   axes + TP over ``model`` (attention heads / FFN hidden /
+                   expert axis).  Used by ``train_4k`` cells.
+* ``monolithic`` — the kvcached-style serving baseline (paper §2.2): TP
+                   over ``model`` *within* a replica, weights replicated
+                   across ``data`` replicas, DP attention for
+                   KV-head-limited models.  KV + weights colocated per
+                   replica.
+* ``crosspool``  — the paper: FFN/expert weights consolidated ONCE across
+                   the whole mesh (weights pool); KV caches
+                   sequence-sharded so a single request sees the aggregate
+                   KV capacity of the pool (KV-cache pool); attention
+                   executes where KV lives; the boundary exchanges hidden
+                   states only.
+
+A Strategy emits (a) path-pattern rules for params and caches (the
+reference's tables, verbatim), (b) :class:`Hooks` and (c) input specs.
+
+The reference hands its rules to the partitioner, which places every
+leaf and derives the collectives.  The port's sharded step
+(``launch/dryrun.py`` ``build_serve_cell``) writes the collectives out,
+so it places by the rules only the leaves whose collectives it writes
+(``step_param_rules`` / ``step_cache_rules``):
+
+* the KV-cache pool: a cache leaf's batch rows over the step's row axes
+  (``row_axes``), and under crosspool decode with the sequence-sharded
+  override (Type II) the ``k`` / ``v`` / ``latent`` / ``rope`` (and
+  gemma3's ``gk`` / ``gv``) sequence over ``kv_seq_axes``.  A Type I
+  cache keeps its sequence whole: with no override its attention reads
+  every row, and splitting it would take an all-gather a step;
+* the dense weights pool under crosspool: ``*mlp/w[gui]`` / ``w[do]`` and
+  the shared experts ``*moe/shared/*`` of the decoder stack, hidden over
+  ``tp_all`` (the input replicated at ``boundary_in``, the partial
+  products summed by ``ffn_down``, this rank's rows taken back at
+  ``boundary_out``);
+* the routed experts under crosspool with ``perf.moe_a2a``: ``*moe/w[gu]``
+  / ``*moe/wd``, experts over ``data`` and ``f`` over ``model``, consumed
+  by ``make_moe_a2a``.
+
+Every other leaf is whole on every rank: attention projections,
+embeddings and head, routed experts without ``moe_a2a``, SSM projections
+and the SSM state's heads.  Their rules need the partitioner's automatic
+propagation, which the port does not write (ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+import fnmatch
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import layers
+from repro_torch.models.hooks import Hooks
+from repro_torch.sharding import seq_attention
+from repro_torch.sharding.spec import (PartitionSpec, RuleSet, axis_size,
+                                       batch_axes, local_slices, pool_axes,
+                                       safe_spec)
+
+#: cache leaves whose sequence dimension the sequence-sharded decode reads
+SEQ_SPLIT_LEAVES = ("k", "v", "latent", "rope", "gk", "gv")
+#: gemma3's ring leaves keep the batch on axis 2 ([G,P-1,B,W,...]); every
+#: other cache leaf on axis 1 ([L,B,...])
+RING_LEAVES = ("lk", "lv", "lpos")
+
+
+@dataclass(frozen=True)
+class PerfOpts:
+    """Hillclimb levers for the §Perf iteration loop."""
+
+    seq_parallel: bool = False      # shard the residual stream's S over
+    #                                 'model' (Megatron-SP)
+    compress_grads: bool = False    # error-feedback int8 DP reduction
+    microbatches: Optional[int] = None  # override TRAIN_MICROBATCHES
+    kv_seq_override: Optional[Tuple[str, ...]] = None  # decode KV shard axes
+    moe_a2a: bool = False           # explicit all-to-all expert dispatch
+    #                                 (+ for train: experts sharded on 'data')
+    kv_dtype: Optional[str] = None  # "f8" = fp8-e4m3 KV cache (2x memory)
+    f8_dispatch: bool = False       # fp8 a2a dispatch transport (2x payload)
+
+
+class PlacedRules:
+    """What the sharded step places: ``keep(path, rule_spec, shape)``
+    turns the rules' spec of a leaf into the step's (``RuleSet``'s
+    interface)."""
+
+    def __init__(self, rules: RuleSet, keep):
+        self.rules = rules
+        self.keep = keep
+
+    def spec_for(self, mesh: Mesh, path: str, shape) -> PartitionSpec:
+        spec = self.rules.spec_for(mesh, path, shape)
+        return PartitionSpec(*self.keep(path, spec, tuple(shape)))
+
+
+@dataclass(frozen=True)
+class Strategy:
+    name: str
+    mesh: Mesh = field(compare=False)
+    cfg: ModelConfig
+    shape: ShapeConfig
+    perf: PerfOpts = PerfOpts()
+
+    # ------------------------------------------------------------------
+    # axis helpers
+    # ------------------------------------------------------------------
+    @property
+    def bax(self) -> Tuple[str, ...]:
+        return tuple(batch_axes(self.mesh))
+
+    @property
+    def pool(self) -> Tuple[str, ...]:
+        """Expert/FSDP placement axes.  Training: FSDP spans (pod, data).
+        Serving: the ``pod`` axis is a pure replica axis (§7 Related)."""
+        if self.name == "train":
+            return tuple(pool_axes(self.mesh))
+        return ("data",)
+
+    @property
+    def tp_all(self) -> Tuple[str, ...]:
+        """Pool-wide axis tuple (dense weights pool); excludes ``pod`` for
+        serving strategies (pod = replica axis)."""
+        if self.name == "train":
+            return tuple(self.mesh.axis_names)
+        return tuple(a for a in self.mesh.axis_names if a != "pod")
+
+    @property
+    def model_size(self) -> int:
+        return self.mesh.shape["model"]
+
+    @property
+    def batch_sharded(self) -> bool:
+        return self.shape.global_batch % axis_size(self.mesh, self.bax) == 0 \
+            and self.shape.global_batch >= axis_size(self.mesh, self.bax)
+
+    @property
+    def kv_seq_axes(self) -> Tuple[str, ...]:
+        """Axes the KV sequence dim shards over under crosspool: ``model``
+        when the batch occupies the data axes; the ENTIRE mesh for a
+        batch-1 long-context request (the paper's headline)."""
+        if self.perf.kv_seq_override is not None:
+            return self.perf.kv_seq_override
+        if not self.batch_sharded:
+            return self.tp_all
+        return ("model",)
+
+    @property
+    def type_ii(self) -> bool:
+        """KV-head-limited (paper §2.2): fewer KV heads than TP width."""
+        if self.cfg.attention == "mla":
+            return True
+        if self.cfg.attn_free:
+            return False
+        return self.cfg.n_kv_heads < self.model_size
+
+    # ------------------------------------------------------------------
+    # parameter rules
+    # ------------------------------------------------------------------
+    def param_rules(self) -> RuleSet:
+        FSDP = self.pool          # ZeRO-style weight sharding axes
+        TP = "model"
+        POOL = self.pool
+        ALL = self.tp_all
+
+        if self.name == "train":
+            if self.perf.moe_a2a:
+                # data-EP: experts live with the batch axis, a2a dispatch
+                moe_rules = [
+                    ("*moe/router", (None, None)),
+                    ("*moe/w[gu]", ("data", None, TP)),
+                    ("*moe/wd", ("data", TP, None)),
+                ]
+            else:
+                moe_rules = [
+                    ("*moe/router", (FSDP, None)),
+                    ("*moe/w[gu]", (TP, FSDP, None)),  # [L,E,d,f]: E@model
+                    ("*moe/wd", (TP, None, FSDP)),
+                ]
+            rules = [
+                ("embed/tok", (TP, FSDP)),
+                ("embed/head", (FSDP, TP)),
+                ("*attn/wq", (FSDP, TP)),
+                ("*attn/wk", (FSDP, TP)),
+                ("*attn/wv", (FSDP, TP)),
+                ("*attn/wo", (TP, FSDP)),
+                ("*attn/wuq", (FSDP, TP)),
+                ("*attn/wdq", (FSDP, TP)),
+                ("*attn/wdkv", (FSDP, TP)),
+                ("*attn/wuk", (FSDP, TP)),
+                ("*attn/wuv", (FSDP, TP)),
+                ("*mlp/w[gui]", (FSDP, TP)),
+                ("*mlp/w[do]", (TP, FSDP)),
+                *moe_rules,
+                ("*moe/shared/w[gu]", (FSDP, TP)),
+                ("*moe/shared/wd", (TP, FSDP)),
+                ("*ssm/in_proj", (FSDP, TP)),
+                ("*ssm/out_proj", (TP, FSDP)),
+                ("*ssm/conv_w", (None, TP)),
+            ]
+        elif self.name == "monolithic":
+            # kvcached-style: TP inside a replica, replicated over data
+            rules = [
+                ("embed/tok", (TP, None)),
+                ("embed/head", (None, TP)),
+                ("*attn/wq", (None, TP)),
+                ("*attn/wk", (None, TP)),
+                ("*attn/wv", (None, TP)),
+                ("*attn/wo", (TP, None)),
+                ("*attn/wuq", (None, TP)),
+                ("*attn/wdq", (None, TP)),
+                ("*attn/wdkv", (None, TP)),
+                ("*attn/wuk", (None, TP)),
+                ("*attn/wuv", (None, TP)),
+                ("*mlp/w[gui]", (None, TP)),
+                ("*mlp/w[do]", (TP, None)),
+                ("*moe/router", (None, None)),
+                ("*moe/w[gu]", (TP, None, None)),   # E over model, replicated@data
+                ("*moe/wd", (TP, None, None)),
+                ("*moe/shared/w[gu]", (None, TP)),
+                ("*moe/shared/wd", (TP, None)),
+                ("*ssm/in_proj", (None, TP)),
+                ("*ssm/out_proj", (TP, None)),
+                ("*ssm/conv_w", (None, TP)),
+            ]
+        elif self.name == "crosspool":
+            # weights pool consolidates FFN/expert weights across the WHOLE
+            # mesh; attention (KV pool) stays TP over model.
+            rules = [
+                ("embed/tok", (TP, None)),
+                ("embed/head", (None, TP)),
+                ("*attn/wq", (None, TP)),
+                ("*attn/wk", (None, TP)),
+                ("*attn/wv", (None, TP)),
+                ("*attn/wo", (TP, None)),
+                ("*attn/wuq", (None, TP)),
+                ("*attn/wdq", (None, TP)),
+                ("*attn/wdkv", (None, TP)),
+                ("*attn/wuk", (None, TP)),
+                ("*attn/wuv", (None, TP)),
+                # consolidated MoE weights pool: E over (pod,data), f over model
+                ("*moe/router", (None, None)),
+                ("*moe/w[gu]", (POOL, None, TP)),
+                ("*moe/wd", (POOL, TP, None)),
+                ("*moe/shared/w[gu]", (None, ALL)),
+                ("*moe/shared/wd", (ALL, None)),
+                # dense FFN weights pool: hidden dim across the whole mesh
+                ("*mlp/w[gui]", (None, ALL)),
+                ("*mlp/w[do]", (ALL, None)),
+                ("*ssm/in_proj", (None, ALL)),
+                ("*ssm/out_proj", (ALL, None)),
+                ("*ssm/conv_w", (None, ALL)),
+            ]
+        else:
+            raise ValueError(f"unknown strategy {self.name}")
+        return RuleSet(rules, default=())
+
+    # ------------------------------------------------------------------
+    # cache rules
+    # ------------------------------------------------------------------
+    def cache_rules(self) -> RuleSet:
+        B = self.bax if self.batch_sharded else None
+        TP = "model"
+        if self.name == "crosspool":
+            KT = self.kv_seq_axes
+            rules = [
+                ("k", (B, KT, None, None)),         # [L,B,T,KV,hd]
+                ("v", (B, KT, None, None)),
+                ("latent", (B, KT, None)),          # MLA [L,B,T,r]
+                ("rope", (B, KT, None)),
+                ("gk", (B, KT, None, None)),        # gemma3 global [G,B,T,KV,hd]
+                ("gv", (B, KT, None, None)),
+                ("lk", (B, None, None, None)),      # ring [G,P-1,B,W,KV,hd]
+                ("lv", (B, None, None, None)),
+                ("lpos", (B, None)),
+                ("ck", (B, None, None, None)),      # whisper cross (static)
+                ("cv", (B, None, None, None)),
+                ("h", (B, TP, None, None)),         # SSM state [L,B,H,P,N]
+                ("tail_h", (B, TP, None, None)),
+                ("conv", (B, None, None)),
+                ("tail_conv", (B, None, None)),
+            ]
+        else:
+            # monolithic: Type II -> DP attention (batch over data x model),
+            # Type I -> KV heads over model, batch over data.
+            if self.type_ii:
+                dpa = self._dpa_axes()
+                rules = [
+                    ("k", (dpa, None, None, None)),
+                    ("v", (dpa, None, None, None)),
+                    ("latent", (dpa, None, None)),
+                    ("rope", (dpa, None, None)),
+                    ("gk", (dpa, None, None, None)),
+                    ("gv", (dpa, None, None, None)),
+                    ("lk", (dpa, None, None, None)),
+                    ("lv", (dpa, None, None, None)),
+                    ("lpos", (dpa, None)),
+                    ("ck", (dpa, None, None, None)),
+                    ("cv", (dpa, None, None, None)),
+                    ("h", (dpa, None, None, None)),
+                    ("tail_h", (dpa, None, None, None)),
+                    ("conv", (dpa, None, None)),
+                    ("tail_conv", (dpa, None, None)),
+                ]
+            else:
+                rules = [
+                    ("k", (B, None, TP, None)),
+                    ("v", (B, None, TP, None)),
+                    ("latent", (B, None, None)),
+                    ("rope", (B, None, None)),
+                    ("gk", (B, None, TP, None)),
+                    ("gv", (B, None, TP, None)),
+                    ("lk", (B, None, TP, None)),
+                    ("lv", (B, None, TP, None)),
+                    ("lpos", (B, None)),
+                    ("ck", (B, None, TP, None)),
+                    ("cv", (B, None, TP, None)),
+                    ("h", (B, TP, None, None)),
+                    ("tail_h", (B, TP, None, None)),
+                    ("conv", (B, None, None)),
+                    ("tail_conv", (B, None, None)),
+                ]
+        # patterns match the LAST path component
+        rules = [("*" + name, spec) for name, spec in rules]
+        return RuleSet(rules, default=())
+
+    def _dpa_axes(self) -> Optional[Tuple[str, ...]]:
+        """DP-attention batch axes for the monolithic baseline."""
+        cand = self.bax + ("model",)
+        if self.shape.global_batch % axis_size(self.mesh, cand) == 0:
+            return cand
+        return self.bax if self.batch_sharded else None
+
+    # ------------------------------------------------------------------
+    # what the port's sharded step places (see the module docstring)
+    # ------------------------------------------------------------------
+    @property
+    def row_axes(self) -> Optional[Tuple[str, ...]]:
+        """Axes the serve step's batch rows split over: the caches' batch
+        axes (DP attention's under monolithic Type II)."""
+        if self.name == "monolithic" and self.type_ii:
+            return self._dpa_axes()
+        return self.bax if self.batch_sharded else None
+
+    @property
+    def seq_split(self) -> bool:
+        """Whether the decode reads a sequence-sharded cache (crosspool
+        decode, Type II: the reference's shard_map override)."""
+        return self.name == "crosspool" and self.shape.is_decode \
+            and self.type_ii
+
+    @property
+    def a2a(self) -> bool:
+        """Whether the serve step's routed experts take ``make_moe_a2a``
+        (``:318-323``; the reference's monolithic hooks leave it out)."""
+        return (self.name == "crosspool" and self.perf.moe_a2a
+                and self.cfg.is_moe and self.batch_sharded
+                and self.cfg.n_experts % self.mesh.shape["data"] == 0)
+
+    def step_param_rules(self) -> PlacedRules:
+        pooled = ["*mlp/w[gui]", "*mlp/w[do]", "*moe/shared/*"]
+        if self.a2a:
+            pooled += ["*moe/w[gu]", "*moe/wd"]
+
+        def keep(path, spec, shape):
+            placed = (self.name == "crosspool"
+                      and path.split("/")[0] in ("layers", "shared_block")
+                      and any(fnmatch.fnmatch(path, p) for p in pooled))
+            return spec if placed else (None,) * len(spec)
+        return PlacedRules(self.param_rules(), keep)
+
+    def step_cache_rules(self) -> PlacedRules:
+        """Batch rows over ``row_axes`` and, for the sequence-sharded
+        decode, the sequence over ``kv_seq_axes``: the cache rules' B and
+        KT entries, placed by the leaf's own layout.  (The rules' patterns
+        match the last path component with a leading ``*``, so ``*v``
+        also catches ``conv``, ``lv`` and ``cv``, and ``*k`` ``lk`` and
+        ``ck``: the reference's tables, kept verbatim, give those leaves
+        the k/v spec, aligned to other dimensions.)"""
+        def keep(path, spec, shape):
+            name = path.split("/")[-1]
+            b = 2 if name in RING_LEAVES else 1
+            want = [None] * len(shape)
+            want[b] = self.row_axes
+            if self.seq_split and name in SEQ_SPLIT_LEAVES:
+                want[b + 1] = self.kv_seq_axes
+            return safe_spec(self.mesh, shape, want)
+        return PlacedRules(self.cache_rules(), keep)
+
+    # ------------------------------------------------------------------
+    # hooks
+    # ------------------------------------------------------------------
+    def _scale(self) -> float:
+        if self.cfg.attention == "mla" and self.cfg.mla:
+            return (self.cfg.mla.qk_nope_head_dim
+                    + self.cfg.mla.qk_rope_head_dim) ** -0.5
+        if self.cfg.head_dim:
+            return self.cfg.head_dim ** -0.5
+        return 1.0                      # attn-free: never used
+
+    def _ffn_split_axes(self):
+        """Axes the decoder stack's FFN hidden splits over in the step
+        (``None`` when whole): the last dim of its up projection."""
+        cfg = self.cfg
+        if cfg.is_moe:
+            if not cfg.n_shared_experts:
+                return None
+            path, f = "layers/moe/shared/wg", cfg.n_shared_experts * cfg.d_ff
+        elif cfg.family in ("dense", "vlm", "audio", "hybrid"):
+            w = "wg" if cfg.mlp_kind == "swiglu" else "wi"
+            top = "shared_block" if cfg.family == "hybrid" else "layers"
+            path, f = f"{top}/mlp/{w}", cfg.d_ff
+        else:
+            return None
+        L = 1 if cfg.family == "hybrid" else cfg.n_layers
+        shape = (cfg.d_model, f) if cfg.family == "hybrid" \
+            else (L, cfg.d_model, f)
+        return self.step_param_rules().spec_for(self.mesh, path, shape)[-1]
+
+    def hooks(self) -> Hooks:
+        """The step's hooks on a live mesh: the collectives the
+        reference's partitioner derives, written out."""
+        m = self.mesh
+        if m.coord is None:
+            raise ValueError("Strategy.hooks() needs a live mesh")
+        if self.name == "train":
+            raise NotImplementedError(
+                "the sharded training step is not ported (ROADMAP Queue 1)")
+        rows = self.row_axes
+        n_rows = axis_size(m, rows)
+        split = self._ffn_split_axes()
+
+        def ffn_down(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+            # this rank's partial product in float32, summed over the
+            # weights pool, rounded once: the one rounding of the whole
+            # product (a partial rounded to bf16 on each rank would add
+            # the pool's width in rounding errors)
+            y = h.float() @ w.float()
+            return m.all_reduce(y, split).to(torch.promote_types(h.dtype,
+                                                                 w.dtype))
+
+        def gather(x: torch.Tensor) -> torch.Tensor:
+            return m.all_gather(x, rows, 0)
+
+        def own_rows(x: torch.Tensor) -> torch.Tensor:
+            return x[local_slices(m, x.shape, (rows,))]
+
+        moe_apply = None
+        if self.a2a:
+            from repro_torch.models import moe as moe_mod
+            wg = self.step_param_rules().spec_for(
+                m, "layers/moe/wg",
+                (self.cfg.n_layers, self.cfg.n_experts, self.cfg.d_model,
+                 self.cfg.d_ff))
+
+            def pool_shared(p, x2):
+                y = layers.apply_mlp(p, gather(x2), "swiglu",
+                                     down=ffn_down if split else None)
+                return own_rows(y)
+            moe_apply = moe_mod.make_moe_a2a(
+                m, self.cfg, expert_axis="data", tp_axis=wg[-1],
+                batch_axes=self.bax, f8_dispatch=self.perf.f8_dispatch,
+                shared=pool_shared)
+
+        # the pool boundary: the weights pool multiplies every row (a
+        # split hidden needs them all; the capacity MoE's drops depend on
+        # the whole batch); the a2a dispatch moves its own tokens
+        cross = n_rows > 1 and moe_apply is None and (
+            split is not None or self.cfg.is_moe)
+        decode_attn = decode_attn_mla = None
+        kv_offset = 0
+        if self.seq_split:
+            KT = self.kv_seq_axes
+            n_kv = axis_size(m, KT)
+            if self.shape.seq_len % n_kv:
+                raise ValueError(f"cache length {self.shape.seq_len} does "
+                                 f"not split over {KT} ({n_kv})")
+            kv_offset = m.index(KT) * (self.shape.seq_len // n_kv)
+            if self.cfg.attention == "mla":
+                decode_attn_mla = seq_attention.make_seq_mla_decode_attn(
+                    m, KT, rows, self._scale())
+            else:
+                decode_attn = seq_attention.make_seq_decode_attn(
+                    m, KT, rows, self._scale())
+        return Hooks(
+            boundary_in=gather if cross else Hooks.boundary_in,
+            boundary_out=own_rows if cross else Hooks.boundary_out,
+            ffn_down=ffn_down if split is not None else None,
+            decode_attn=decode_attn, decode_attn_mla=decode_attn_mla,
+            moe_apply=moe_apply, kv_offset=kv_offset)
+
+    # ------------------------------------------------------------------
+    # input specs
+    # ------------------------------------------------------------------
+    def input_sharding(self, ndim: int) -> PartitionSpec:
+        B = self.bax if self.batch_sharded else None
+        return PartitionSpec(*((B,) + (None,) * (ndim - 1)))
+
+    def scalar_sharding(self) -> PartitionSpec:
+        return PartitionSpec()
+
+
+def make_strategy(name: str, mesh: Mesh, cfg: ModelConfig,
+                  shape: ShapeConfig,
+                  perf: Optional[PerfOpts] = None) -> Strategy:
+    if name == "auto":
+        if shape.kind == "train":
+            name = "train"
+        elif shape.kind == "prefill":
+            # paper §4: prefill runs on separate temporal-multiplexing
+            # engines, NOT through the disaggregated pools — the
+            # hidden-state boundary cost scales with batch*tokens and only
+            # decode's tiny token counts amortize it.
+            name = "monolithic"
+        else:
+            name = "crosspool"
+    return Strategy(name, mesh, cfg, shape, perf or PerfOpts())

@@ -5,8 +5,12 @@
     the tree structure, shapes, dtypes and step; a failed write leaves the
     previous checkpoint intact (write to a tmp dir + atomic rename), and
     only the last three checkpoints are kept;
-  * ``restore(..., device=)`` places every leaf on ``device`` (the
-    reference's ``shardings`` argument re-lays leaves out on a mesh);
+  * ``restore(..., device=)`` places every leaf on ``device``; with
+    ``rules=`` and a live ``mesh=`` it returns this rank's local shards
+    under those rules (the reference's ``shardings`` argument: a
+    checkpoint written under one mesh restores onto another);
+  * ``save(..., specs=, mesh=)`` from a sharded run gathers the whole
+    leaves and rank 0 writes them once;
   * ``save_async`` copies the tensors to the host before its thread
     starts, so training can go on updating them in place while the
     filesystem write completes.
@@ -25,6 +29,9 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
+from repro_torch.sharding.spec import gather_tree, shard_tree
 from repro_torch.training.tree import leaves_with_path, map_tree
 
 _SEP = "___"
@@ -53,8 +60,23 @@ def _from_host(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     return t.to(device) if device is not None else t
 
 
-def save(tree, step: int, directory: str) -> str:
-    """Synchronous atomic checkpoint write.  Returns the final path."""
+def save(tree, step: int, directory: str, *, specs=None,
+         mesh=None) -> Optional[str]:
+    """Synchronous atomic checkpoint write.  Returns the final path.
+
+    With a live ``mesh``, ``tree`` holds this rank's shards under
+    ``specs`` (a tree of partition specs, ``RuleSet.tree_specs`` of the
+    whole tree): every rank gathers the whole leaves, rank 0 writes them
+    and returns the path, the others None once it is written."""
+    if mesh is not None:
+        tree = gather_tree(specs, mesh, tree)
+        path = _write(tree, step, directory) if mesh.rank == 0 else None
+        dist.barrier()
+        return path
+    return _write(tree, step, directory)
+
+
+def _write(tree, step: int, directory: str) -> str:
     tmp = directory + f".tmp-{step}"
     os.makedirs(tmp, exist_ok=True)
     index: Dict[str, Any] = {"step": step, "leaves": {}}
@@ -83,7 +105,7 @@ def save(tree, step: int, directory: str) -> str:
 def save_async(tree, step: int, directory: str) -> threading.Thread:
     """Snapshot the tensors to the host now; write on a worker thread."""
     snapshot = map_tree(lambda x: None if x is None else _Host(x), tree)
-    t = threading.Thread(target=save, args=(snapshot, step, directory),
+    t = threading.Thread(target=_write, args=(snapshot, step, directory),
                          daemon=True)
     t.start()
     return t
@@ -98,13 +120,16 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore(directory: str, step: Optional[int] = None, *,
-            target_tree=None, device=None) -> Tuple[Any, int]:
+            target_tree=None, device=None, rules=None,
+            mesh=None) -> Tuple[Any, int]:
     """Load a checkpoint (the latest when ``step`` is None) onto
     ``device`` (the CPU when None).
 
     ``target_tree``: a tree with the expected structure (its leaves'
     values are ignored), rebuilt with the loaded leaves; if None, the
-    result is nested dicts keyed by the path parts.
+    result is nested dicts keyed by the path parts.  ``rules`` (a
+    ``RuleSet``, e.g. a strategy's ``param_rules()``) and a live ``mesh``
+    re-lay a dict tree out: each leaf is cut to this rank's shard.
     """
     step = step if step is not None else latest_step(directory)
     if step is None:
@@ -120,9 +145,14 @@ def restore(directory: str, step: Optional[int] = None, *,
         flat[key] = _from_host(np.load(os.path.join(path, meta["file"])),
                                meta["dtype"], device)
     if target_tree is None:
-        return _unflatten(flat), step
-    it = iter(_SEP.join(path) for path, _ in leaves_with_path(target_tree))
-    return map_tree(lambda _: flat[next(it)], target_tree), step
+        tree = _unflatten(flat)
+    else:
+        it = iter(_SEP.join(path) for path, _ in
+                  leaves_with_path(target_tree))
+        tree = map_tree(lambda _: flat[next(it)], target_tree)
+    if rules is not None:
+        tree = shard_tree(rules, mesh, tree, device=device)
+    return tree, step
 
 
 def _unflatten(flat: Dict[str, Any]):

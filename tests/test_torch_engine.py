@@ -241,12 +241,22 @@ def test_fallback_streams_equal_live_jax_engine(which, k):
 @pytest.mark.parametrize("flag", [["--arch", "qwen3-14b"],
                                   ["--multi-pod"],
                                   ["--dry-run"]])
-def test_serve_flags_not_ported_raise(flag):
-    """The dry-run surface stays unported (``--slo`` and
-    ``--flight-record-out``, once here, are ported:
-    ``tests/test_torch_observe.py``)."""
-    with pytest.raises(NotImplementedError):
-        serve.main(["--device", "cpu"] + flag)
+def test_serve_flags_not_ported_raise(flag, capsys):
+    """The dry-run surface, once refused here, is ported
+    (``launch/dryrun.py``; ``tests/test_torch_sharding.py`` holds its
+    bytes against the reference's rules): with each flag the dry-run
+    prints the cell's record line and the summary line and touches no
+    device; ``--dry-run`` without ``--arch`` is refused."""
+    with pytest.raises(SystemExit) as done:
+        serve.main(["--dry-run", "--arch", "qwen3-14b"] + flag)
+    assert done.value.code == 0
+    out = capsys.readouterr().out
+    mesh = "pod2x16x16" if "--multi-pod" in flag else "pod16x16"
+    assert f"[ok] qwen3-14b x decode_32k x {mesh} (crosspool)" in out
+    assert "== dry-run: 1 ok, 0 skipped, 0 failed, 1 total ==" in out
+    with pytest.raises(SystemExit) as refused:
+        serve.main(["--device", "cpu", "--dry-run"])
+    assert refused.value.code == 2
 
 
 def _port_sources():

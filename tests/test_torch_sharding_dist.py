@@ -1,0 +1,492 @@
+"""The port's sharding layer on four ``gloo`` processes (CPU), against the
+JAX package on the same numbers.
+
+Each job runs in 4 ranks started with ``torch.multiprocessing`` (spawn;
+rendezvous through a file under ``tmp_path``, so parallel test workers
+never share a port) and is bounded by ``TIMEOUT`` seconds: a hung
+collective fails the test instead of eating the suite's time.  Inputs
+come from numpy seeds; params from the reference's own init, bridged.
+
+* collectives: the sequence-sharded GQA decode on a (2,2) mesh
+  (``kv_axes=("model",)``, batch over ``data``) and over the whole mesh
+  for B = 1, against ``repro.kernels.ref.decode_attention`` at 1e-5; the
+  MLA one against the reference test's dense oracle at 1e-5;
+  ``make_moe_a2a`` (experts over ``data``, f over ``model``) against
+  ``repro.models.moe.apply_moe`` at ``capacity_factor=8.0``: out 2e-5,
+  aux 1e-5 relative; ``f8_dispatch`` within the bound of the reference's
+  fp8 KV test (``err < 0.1 * scale + 0.5``);
+* the sharded steps (``launch/dryrun.py`` ``build_serve_cell``): the
+  smoke minicpm3-4b (Type II), qwen3-moe (with and without ``moe_a2a``;
+  also with a shared expert) and zamba2-1.2b, crosspool decode on (1,4)
+  and (2,2), monolithic prefill on (4,1): the gathered logits against
+  the JAX package's single-device ``decode_step`` / ``prefill`` at 2e-4
+  (``tests/test_sharding.py:155-156``); every leaf the step places by
+  the rules holds exactly the rules' shard on its rank;
+* a checkpoint written under (2,2) restores onto (4,1) with every leaf
+  equal (``test_elastic_reshard_across_meshes``).
+"""
+import os
+import time
+from dataclasses import replace
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.bridge import params_to_torch
+from repro_torch.configs import SHAPES_BY_NAME as T_SHAPES
+from repro_torch.configs import get_smoke_config as t_smoke
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import moe as tmoe
+from repro_torch.sharding.seq_attention import (make_seq_decode_attn,
+                                                make_seq_mla_decode_attn)
+from repro_torch.sharding.spec import (local_slices, path_str, shard_shape,
+                                       shard_tree)
+from repro_torch.sharding.strategies import (SEQ_SPLIT_LEAVES, PerfOpts,
+                                             make_strategy)
+from repro_torch.training import checkpoint as ckpt
+
+WORLD = 4
+TIMEOUT = 120           # seconds a job's four ranks may take, start to end
+STEP_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the ranks
+# ---------------------------------------------------------------------------
+
+def _worker(rank: int, tmp: str, job: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=WORLD)
+    payload = torch.load(os.path.join(tmp, "in.pt"), weights_only=False)
+    out = JOBS[job](payload)
+    torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _run(tmp_path, job: str, payload) -> list:
+    """Run ``job`` on 4 ranks; returns each rank's result."""
+    tmp = str(tmp_path)
+    torch.save(payload, os.path.join(tmp, "in.pt"))
+    ctx = mp.start_processes(_worker, args=(tmp, job), nprocs=WORLD,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + TIMEOUT
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                pytest.fail(f"{job}: the ranks did not finish in {TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [torch.load(os.path.join(tmp, f"out{r}.pt"), weights_only=False)
+            for r in range(WORLD)]
+
+
+def _rows(mesh, x, axes):
+    return x[local_slices(mesh, x.shape, (axes,))]
+
+
+def _collectives_job(p):
+    out = {}
+    mesh = Mesh((2, 2), ("data", "model"), live=True)
+    # GQA, batch over data, KV sequence over model
+    q, k, v, lengths = (torch.from_numpy(p["gqa"][n])
+                        for n in ("q", "k", "v", "lengths"))
+    fn = make_seq_decode_attn(mesh, ("model",), ("data",), p["gqa"]["scale"])
+    kl = k[local_slices(mesh, k.shape, ("data", "model"))]
+    vl = v[local_slices(mesh, v.shape, ("data", "model"))]
+    out["gqa"] = fn(_rows(mesh, q, "data"), kl, vl,
+                    _rows(mesh, lengths, "data"))
+    # B = 1: the KV pooled over the whole mesh
+    q, k, v, lengths = (torch.from_numpy(p["pool"][n])
+                        for n in ("q", "k", "v", "lengths"))
+    axes = ("data", "model")
+    fn = make_seq_decode_attn(mesh, axes, None, p["pool"]["scale"])
+    sl = local_slices(mesh, k.shape, (None, axes))
+    out["pool"] = fn(q, k[sl], v[sl], lengths)
+    # MLA: latent sequence over model
+    q_lat, q_rope, latent, rope, lengths = (
+        torch.from_numpy(p["mla"][n])
+        for n in ("q_lat", "q_rope", "latent", "rope", "lengths"))
+    fn = make_seq_mla_decode_attn(mesh, ("model",), ("data",),
+                                  p["mla"]["scale"])
+    spec = ("data", "model")
+    out["mla"] = fn(_rows(mesh, q_lat, "data"), _rows(mesh, q_rope, "data"),
+                    latent[local_slices(mesh, latent.shape, spec)],
+                    rope[local_slices(mesh, rope.shape, spec)],
+                    _rows(mesh, lengths, "data"))
+    # the expert all-to-all: experts over data, f over model
+    cfg, moe_p, x = p["a2a"]["cfg"], p["a2a"]["params"], p["a2a"]["x"]
+    local = {"router": moe_p["router"]}
+    for name in ("wg", "wu", "wd"):
+        spec = ("data", None, "model") if name != "wd" \
+            else ("data", "model", None)
+        w = moe_p[name]
+        local[name] = w[local_slices(mesh, w.shape, spec)]
+    for f8 in (False, True):
+        a2a = tmoe.make_moe_a2a(mesh, cfg, expert_axis="data",
+                                tp_axis="model", batch_axes=("data",),
+                                capacity_mult=8.0, f8_dispatch=f8)
+        out[f"a2a_f8={f8}"] = a2a(local, _rows(mesh, x, "data"))
+    out["coord"] = mesh.coord
+    return out
+
+
+def _steps_job(p):
+    out = []
+    for case in p["cases"]:
+        cfg, shape = case["cfg"], case["shape"]
+        mesh = Mesh(case["mesh"], ("data", "model"), live=True)
+        st = make_strategy(case["strategy"], mesh, cfg, shape, case["perf"])
+        params = dryrun.shard_params(st, case["params"])
+        cache = dryrun.shard_cache(st, case["cache"])
+        step = dryrun.build_serve_cell(cfg, shape, st)
+        tokens = dryrun.local_rows(st, case["tokens"])
+        if shape.is_decode:
+            logits, cache = step(params, tokens, cache,
+                                 dryrun.local_rows(st, case["lengths"]))
+        else:
+            logits, cache = step(params, tokens, cache)
+        # every leaf the step places holds its shard: the rules' own for
+        # the params and the sequence-split caches
+        placed = []
+        for kind, whole, local, rules, step_rules in (
+                ("params", case["params"], params, st.param_rules(),
+                 st.step_param_rules()),
+                ("cache", case["cache"], cache, st.cache_rules(),
+                 st.step_cache_rules())):
+            for path, leaf in _flat(whole):
+                spec = step_rules.spec_for(mesh, path, leaf.shape)
+                if all(a is None for a in spec):
+                    continue
+                by_rule = kind == "params" or (
+                    st.seq_split and path in SEQ_SPLIT_LEAVES)
+                if by_rule:
+                    spec = rules.spec_for(mesh, path, leaf.shape)
+                placed.append((kind, path, tuple(_get(local, path).shape),
+                               shard_shape(mesh, leaf.shape, spec),
+                               tuple(spec)))
+        out.append(dict(logits=logits, coord=mesh.coord, placed=placed,
+                        seq_split=st.seq_split, a2a=st.a2a,
+                        rows=dryrun.local_rows(st, torch.arange(
+                            case["tokens"].shape[0])),
+                        bytes=dryrun.resident_bytes(params)
+                        + dryrun.resident_bytes(cache)))
+    return out
+
+
+def _ckpt_job(p):
+    cfg, params, tmp = p["cfg"], p["params"], p["dir"]
+    shape = T_SHAPES["train_4k"]
+    mesh_a = Mesh((2, 2), ("data", "model"), live=True)
+    st_a = make_strategy("train", mesh_a, cfg, shape)
+    rules_a = st_a.param_rules()
+    local_a = shard_tree(rules_a, mesh_a, params)
+    path = ckpt.save(local_a, 1, tmp, specs=rules_a.tree_specs(mesh_a, params),
+                     mesh=mesh_a)
+    mesh_b = Mesh((4, 1), ("data", "model"), live=True)
+    st_b = make_strategy("train", mesh_b, cfg, shape)
+    rules_b = st_b.param_rules()
+    restored, step = ckpt.restore(tmp, target_tree=params, rules=rules_b,
+                                  mesh=mesh_b)
+    shapes = {path: (tuple(_get(restored, path).shape),
+                     shard_shape(mesh_b, leaf.shape,
+                                 rules_b.spec_for(mesh_b, path, leaf.shape)))
+              for path, leaf in _flat(params)}
+    expect = shard_tree(rules_b, mesh_b, params)
+    equal = all(torch.equal(_get(restored, k), _get(expect, k))
+                for k, _ in _flat(params))
+    return dict(step=step, path=path, shapes=shapes, equal=equal,
+                rank=mesh_b.rank)
+
+
+JOBS = {"collectives": _collectives_job, "steps": _steps_job,
+        "ckpt": _ckpt_job}
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield path_str(prefix + (k,)), v
+
+
+def _get(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# the reference (imported here only: the ranks import no JAX)
+# ---------------------------------------------------------------------------
+
+def _np_tree(tree):
+    import jax
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def collectives(tmp_path_factory):
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_smoke_config
+    from repro.kernels import ref
+    from repro.models import moe as jmoe
+
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+
+    def randn(*s):
+        return rng.standard_normal(s).astype(f32)
+
+    B, T, H, KV, D = 4, 64, 8, 2, 16
+    gqa = dict(q=randn(B, 1, H, D), k=randn(B, T, KV, D),
+               v=randn(B, T, KV, D),
+               lengths=np.array([5, 64, 33, 17], np.int32), scale=D ** -0.5)
+    B, T, H, KV, D = 1, 128, 4, 1, 32
+    pool = dict(q=randn(B, 1, H, D), k=randn(B, T, KV, D),
+                v=randn(B, T, KV, D), lengths=np.array([100], np.int32),
+                scale=D ** -0.5)
+    B, T, H, R, Rp = 2, 32, 4, 16, 8
+    mla = dict(q_lat=randn(B, 1, H, R), q_rope=randn(B, 1, H, Rp),
+               latent=randn(B, T, R), rope=randn(B, T, Rp),
+               lengths=np.array([20, 32], np.int32), scale=(R + Rp) ** -0.5)
+    over = dict(dtype="float32", n_experts=8, experts_per_token=2,
+                capacity_factor=8.0)       # high cf: no drops -> exact
+    j_cfg = get_smoke_config("qwen3-moe-235b-a22b").replace(**over)
+    t_cfg = t_smoke("qwen3-moe-235b-a22b").replace(**over)
+    j_p = jmoe.init_moe(jax.random.PRNGKey(0), j_cfg, jnp.float32)
+    x = randn(8, 4, j_cfg.d_model)
+    want_y, want_aux = jmoe.apply_moe(j_p, jnp.asarray(x), j_cfg)
+    payload = dict(gqa=gqa, pool=pool, mla=mla,
+                   a2a=dict(cfg=t_cfg, params=params_to_torch(_np_tree(j_p)),
+                            x=torch.from_numpy(x)))
+    got = _run(tmp_path_factory.mktemp("collectives"), "collectives", payload)
+
+    def j(a):
+        return jnp.asarray(a)
+
+    # the dense MLA oracle of the reference's own test
+    s = (jnp.einsum("bshr,btr->bhst", j(mla["q_lat"]), j(mla["latent"]))
+         + jnp.einsum("bshp,btp->bhst", j(mla["q_rope"]), j(mla["rope"]))) \
+        * mla["scale"]
+    mask = jnp.arange(mla["latent"].shape[1])[None, None, None, :] \
+        < j(mla["lengths"])[:, None, None, None]
+    w = jax.nn.softmax(jnp.where(mask, s, -1e30), axis=-1)
+    want = dict(
+        gqa=ref.decode_attention(j(gqa["q"]), j(gqa["k"]), j(gqa["v"]),
+                                 j(gqa["lengths"]), gqa["scale"]),
+        pool=ref.decode_attention(j(pool["q"]), j(pool["k"]), j(pool["v"]),
+                                  j(pool["lengths"]), pool["scale"]),
+        mla=jnp.einsum("bhst,btr->bshr", w, j(mla["latent"])),
+        a2a=(want_y, want_aux))
+    return got, {k: np.asarray(v) if k != "a2a" else
+                 (np.asarray(v[0]), float(v[1])) for k, v in want.items()}
+
+
+def _by_rows(got, key, n_rows, data_size=2):
+    """Assemble the full batch from the ranks' row blocks (rows over
+    ``data``) and check that ranks holding the same rows agree."""
+    blocks = {}
+    for g in got:
+        d = g["coord"][0]
+        out = g[key][0] if isinstance(g[key], tuple) else g[key]
+        if d in blocks:
+            assert torch.equal(blocks[d], out), "model ranks disagree"
+        blocks[d] = out
+    return torch.cat([blocks[d] for d in range(data_size)]).numpy()
+
+
+def test_seq_decode_attention_matches_reference(collectives):
+    got, want = collectives
+    np.testing.assert_allclose(_by_rows(got, "gqa", 4), want["gqa"],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_seq_decode_attention_whole_mesh_pool(collectives):
+    """B = 1: the KV sequence split over all four ranks."""
+    got, want = collectives
+    for g in got:
+        np.testing.assert_allclose(g["pool"].numpy(), want["pool"],
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_seq_mla_decode_matches_dense_oracle(collectives):
+    got, want = collectives
+    np.testing.assert_allclose(_by_rows(got, "mla", 2), want["mla"],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_moe_a2a_matches_capacity_path(collectives):
+    got, want = collectives
+    y_want, aux_want = want["a2a"]
+    y = _by_rows(got, "a2a_f8=False", 8)
+    np.testing.assert_allclose(y, y_want, rtol=2e-5, atol=2e-5)
+    for g in got:
+        np.testing.assert_allclose(float(g["a2a_f8=False"][1]), aux_want,
+                                   rtol=1e-5)
+
+
+def test_moe_a2a_f8_dispatch_within_fp8_error(collectives):
+    """The fp8 transport stays within the reference fp8 KV test's bound."""
+    got, want = collectives
+    y_want = want["a2a"][0]
+    y = _by_rows(got, "a2a_f8=True", 8)
+    assert np.isfinite(y).all()
+    err, scale = np.abs(y - y_want).max(), np.abs(y_want).max()
+    assert err < 0.1 * scale + 0.5, (err, scale)
+    assert err > 0           # the tokens did travel as fp8
+
+
+# ---------------------------------------------------------------------------
+# the sharded steps
+# ---------------------------------------------------------------------------
+
+#: (arch, strategy, mesh, perf levers, config overrides)
+STEP_CASES = (
+    ("minicpm3-4b", "crosspool", (1, 4), {}, {}),
+    ("minicpm3-4b", "crosspool", (2, 2), {}, {}),
+    ("qwen3-moe-235b-a22b", "crosspool", (1, 4), {}, {}),
+    ("qwen3-moe-235b-a22b", "crosspool", (2, 2), {}, {}),
+    # the a2a's own capacities (C2, C3) differ from the capacity path's:
+    # a high capacity factor keeps both drop-free, as the reference's a2a
+    # test does
+    ("qwen3-moe-235b-a22b", "crosspool", (1, 4), {"moe_a2a": True},
+     {"capacity_factor": 8.0}),
+    ("qwen3-moe-235b-a22b", "crosspool", (2, 2), {"moe_a2a": True},
+     {"capacity_factor": 8.0}),
+    ("qwen3-moe-235b-a22b", "crosspool", (2, 2), {"moe_a2a": True},
+     {"capacity_factor": 8.0, "n_shared_experts": 1}),
+    ("qwen3-moe-235b-a22b", "crosspool", (2, 2), {},
+     {"n_shared_experts": 1}),
+    ("zamba2-1.2b", "crosspool", (1, 4), {}, {}),
+    ("zamba2-1.2b", "crosspool", (2, 2), {}, {}),
+    ("minicpm3-4b", "monolithic", (4, 1), {}, {}),
+    ("qwen3-moe-235b-a22b", "monolithic", (4, 1), {}, {}),
+    ("zamba2-1.2b", "monolithic", (4, 1), {}, {}),
+)
+B, SEQ, MAX_LEN = 8, 8, 16
+
+
+@pytest.fixture(scope="module")
+def steps(tmp_path_factory):
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_smoke_config
+    from repro.models import build_model
+
+    cases, wants = [], []
+    rng = np.random.default_rng(0)
+    for i, (arch, strat, mesh, perf, over) in enumerate(STEP_CASES):
+        over = dict(over, dtype="float32")
+        j_cfg = get_smoke_config(arch).replace(**over)
+        model = build_model(j_cfg)
+        params = model.init(jax.random.PRNGKey(3))
+        tokens = rng.integers(0, j_cfg.vocab_size, (B, SEQ)).astype(np.int32)
+        cache = model.init_cache(B, MAX_LEN)
+        logits, cache_p = model.prefill(params, jnp.asarray(tokens), cache)
+        kind = "prefill" if strat == "monolithic" else "decode"
+        shape = replace(T_SHAPES["prefill_32k" if kind == "prefill"
+                                 else "decode_32k"],
+                        seq_len=MAX_LEN, global_batch=B)
+        case = dict(cfg=t_smoke(arch).replace(**over), shape=shape,
+                    mesh=mesh, strategy=strat, perf=PerfOpts(**perf),
+                    params=params_to_torch(_np_tree(params)))
+        if kind == "prefill":
+            case.update(tokens=torch.from_numpy(tokens),
+                        cache=params_to_torch(_np_tree(cache)))
+            want = logits
+        else:
+            nxt = rng.integers(0, j_cfg.vocab_size, (B,)).astype(np.int32)
+            want, _ = model.decode_step(params, jnp.asarray(nxt), cache_p,
+                                        jnp.int32(SEQ))
+            case.update(tokens=torch.from_numpy(nxt),
+                        lengths=torch.full((B,), SEQ, dtype=torch.int32),
+                        cache=params_to_torch(_np_tree(cache_p)))
+        cases.append(case)
+        wants.append(np.asarray(want))
+    got = _run(tmp_path_factory.mktemp("steps"), "steps", {"cases": cases})
+    return got, wants
+
+
+@pytest.mark.parametrize("i", range(len(STEP_CASES)),
+                         ids=[f"{a}-{s}-{m[0]}x{m[1]}"
+                              + "".join(f"-{k}" for k in p)
+                              + "".join(f"-{k}={v}" for k, v in o.items())
+                              for a, s, m, p, o in STEP_CASES])
+def test_sharded_step_matches_single_device(steps, i):
+    """The gathered logits equal the JAX package's single-device step
+    within its own tolerance; every rank's placed leaves hold the rules'
+    shard, and ranks with the same rows give the same logits."""
+    got, wants = steps
+    full = {}
+    for rank in got:
+        r = rank[i]
+        for row, logit in zip(r["rows"].tolist(), r["logits"]):
+            if row in full:
+                assert torch.equal(full[row], logit), row
+            full[row] = logit
+        for kind, path, shape, want, spec in r["placed"]:
+            assert shape == want, (kind, path, spec)
+    logits = torch.stack([full[r] for r in range(B)]).numpy()
+    np.testing.assert_allclose(logits, wants[i], **STEP_TOL)
+    arch, strat, mesh, perf, over = STEP_CASES[i]
+    placed = {(k, p): spec for k, p, _, _, spec in got[0][i]["placed"]}
+    if strat == "crosspool":
+        # Type II (MLA; qwen3-moe's 2 KV heads under a model axis of 4)
+        # reads the sequence-split cache through the override
+        type_ii = arch == "minicpm3-4b" or (
+            arch == "qwen3-moe-235b-a22b" and mesh == (1, 4))
+        assert got[0][i]["seq_split"] == type_ii
+        seq = placed[("cache", "latent" if arch == "minicpm3-4b" else "k")]
+        assert (seq[2] is not None) == type_ii
+        # the dense weights pool (qwen3-moe has no dense FFN of its own)
+        if arch != "qwen3-moe-235b-a22b" or over.get("n_shared_experts"):
+            assert any(k == "params" and "/moe/w" not in p
+                       for k, p in placed)
+        assert got[0][i]["a2a"] == bool(perf.get("moe_a2a"))
+        if perf.get("moe_a2a"):
+            assert ("params", "layers/moe/wg") in placed
+    if mesh != (1, 1):
+        assert max(g[i]["bytes"] for g in got) < sum(g[i]["bytes"]
+                                                     for g in got)
+
+
+# ---------------------------------------------------------------------------
+# checkpoint resharding
+# ---------------------------------------------------------------------------
+
+def test_elastic_reshard_across_meshes(tmp_path):
+    """A checkpoint written under a (2,2) mesh (rank 0 writes the gathered
+    leaves once) restores onto a (4,1) mesh: every rank's shards equal the
+    new rules' cut of the original leaves."""
+    import jax
+    from repro.configs import get_smoke_config
+    from repro.models import build_model
+
+    cfg = get_smoke_config("qwen3-14b").replace(dtype="float32")
+    params = params_to_torch(_np_tree(
+        build_model(cfg).init(jax.random.PRNGKey(7))))
+    d = tmp_path / "ckpt"
+    got = _run(tmp_path, "ckpt", dict(
+        cfg=t_smoke("qwen3-14b").replace(dtype="float32"), params=params,
+        dir=str(d)))
+    assert sorted(g["rank"] for g in got) == list(range(WORLD))
+    assert [g["path"] is not None for g in got] == [True, False, False, False]
+    for g in got:
+        assert g["step"] == 1 and g["equal"]
+        assert all(a == b for a, b in g["shapes"].values())
+    # the restored leaves live under the NEW mesh: some leaf is split 4 ways
+    assert any(a != tuple(_get(params, p).shape)
+               for p, (a, _) in got[0]["shapes"].items())
+    whole, _ = ckpt.restore(str(d), target_tree=params)
+    for path, leaf in _flat(params):
+        assert torch.equal(_get(whole, path), leaf), path

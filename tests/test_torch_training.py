@@ -488,9 +488,16 @@ def test_train_launcher_on_the_cpu_resumes(capsys):
     assert "done: 3 steps" in out.split("resumed from step 2")[1]
 
 
-def test_train_launcher_refuses_what_it_cannot_run():
-    with pytest.raises(NotImplementedError):
-        t_train.main(["--arch", MOE, "--dry-run", "--device", "cpu"])
+def test_train_launcher_refuses_what_it_cannot_run(capsys):
+    """``--dry-run`` (ported: the ``train_4k`` cell's per-device bytes on
+    the production mesh, no device) runs anywhere; training without a
+    card and without ``--device cpu`` is refused."""
+    with pytest.raises(SystemExit) as done:
+        t_train.main(["--arch", MOE, "--dry-run", "--multi-pod"])
+    assert done.value.code == 0
+    out = capsys.readouterr().out
+    assert f"[ok] {MOE} x train_4k x pod2x16x16 (train)" in out
+    assert "== dry-run: 1 ok, 0 skipped, 0 failed, 1 total ==" in out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             t_train.main(["--arch", MOE, "--smoke"])
