@@ -257,6 +257,26 @@ other than 0) if any phase fails:
              with the gate: tokens equal, logits within the row limit;
              its times are a one-card rehearsal.
 
+15. sharded train — the sharded training step (``build_train_cell``)
+             on phase 7's model at published widths (2 layers, float32,
+             8 x 512 tokens, the grouped MoE path, remat, 1 microbatch),
+             ``SHARDED_STEPS`` steps, plain and with ``seq_parallel`` +
+             ``compress_grads``: (a) in phase 14's one-rank NCCL group,
+             beside ``make_train_step`` on the same params and batch
+             (losses and grad norms within 1e-5 relative, params within
+             the AdamW sign bound, ``moe_gemm`` / ``moe_gemm_wgrad``
+             launched exactly 9 / 3 times a layer a step in both, the
+             cell's peak within ``SHARDED_PEAK_SLACK_GIB`` of the
+             reference's); (b) every variant over a (2, 2) mesh of four
+             processes (spawned once) sharing the card over gloo, every
+             leaf of params, m and v split by the train
+             rules: each rank's losses and grad norms within 1e-4
+             relative of (a)'s, its shards within the sign bound of the
+             same slices of (a)'s params, its resident bytes equal to
+             the dry-run's, its launches exact; ms a step, tokens/s and
+             peak GiB a rank, a one-card rehearsal.  Under
+             ``"sharded_train"`` in ``build/chip_smoke.json``.
+
 Phases 3 and 13 hold the paged GQA and MLA kernels in bf16 to the same
 row limit as rows 3-4: each output row's relative RMS error within 1e-2
 (``BF16_ROW_RMS``) on top of the elementwise 2e-2.
@@ -371,6 +391,26 @@ POOL_TIMEOUT = 300
 #: layer, past the row limit and into other greedy tokens (the bf16 run
 #: beside it measures how far; PERF.md, PR 23)
 POOL_GATE_DTYPE = "float32"
+#: phase 15: the sharded training step (``build_train_cell``) on phase 7's
+#: model, depth, batch and sequence (float32, the grouped MoE path), this
+#: many steps a run (the second is past the first step's warm-up, and each
+#: of 15b's steps stages ~10 GB through the host); 15b's mesh (data,
+#: model), four processes sharing the
+#: card over gloo; the microbatches of every phase-15 run:
+#: TRAIN_MICROBATCHES gives moonshot 4, and each one repeats 15b's FSDP
+#: gathers and reduce-scatters through gloo's host staging
+SHARDED_STEPS = 2
+SHARDED_MESH = (2, 2)
+SHARDED_MICROBATCHES = 1
+#: at one rank the cell's step runs make_train_step's ops: its peak may
+#: exceed the reference's by this much at most
+SHARDED_PEAK_SLACK_GIB = 0.25
+#: 15a's and 15b's runs: (label, PerfOpts levers)
+SHARDED_VARIANTS = (("plain", {}),
+                    ("seq_parallel+compress_grads",
+                     {"seq_parallel": True, "compress_grads": True}))
+#: seconds phase 15b's ranks may take, start to end, for every variant
+SHARDED_TIMEOUT = 400
 EXAMPLE_ARCHS = ("qwen3-moe-235b-a22b", "moonshot-v1-16b-a3b", "minicpm3-4b",
                  "qwen3-14b")
 #: phase 8 times these kernels at these of its shapes and loads
@@ -4199,6 +4239,25 @@ def _pool_rank(rank, tmp, device, cfg, gate):
     dist.destroy_process_group()
 
 
+def _spawn_ranks(fn, args, n, timeout, label):
+    """``fn(rank, *args)`` in ``n`` spawned processes, all of which must
+    exit 0 within ``timeout`` seconds; any still alive then is killed."""
+    import torch.multiprocessing as mp
+    procs = mp.start_processes(fn, args=args, nprocs=n, join=False,
+                               start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not procs.join(timeout=max(0.1,
+                                         deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{label}: the ranks did not finish "
+                                     f"in {timeout} s")
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.kill()
+
+
 def sharding_pool(torch, tmp, cfg, device="cuda", ctx=POOL_CTX,
                   gate=True) -> dict:
     """(14b) One request's KV over the pool: minicpm3-4b at its published
@@ -4216,7 +4275,6 @@ def sharding_pool(torch, tmp, cfg, device="cuda", ctx=POOL_CTX,
     ``BF16_ROW_RMS``, else the agreement is measured and printed.  Times
     are a one-card gloo rehearsal, not a multi-card figure.  Needs an
     initialized one-rank process group (the reference's)."""
-    import torch.multiprocessing as mp
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import Mesh
 
@@ -4242,20 +4300,8 @@ def sharding_pool(torch, tmp, cfg, device="cuda", ctx=POOL_CTX,
         f"{ctx} tokens; one rank: {ms:.2f} ms/step, params "
         f"{one['param_bytes'] / 2**30:.3f} GiB, cache "
         f"{one['cache_bytes'] / 2**30:.3f} GiB; tokens {toks[:, 0].tolist()}")
-    procs = mp.start_processes(_pool_rank, args=(tmp, device, cfg, gate),
-                               nprocs=POOL_RANKS, join=False,
-                               start_method="spawn")
-    deadline = time.monotonic() + POOL_TIMEOUT
-    try:
-        while not procs.join(timeout=max(0.1,
-                                         deadline - time.monotonic())):
-            if time.monotonic() > deadline:
-                raise AssertionError(f"{label}: the ranks did not finish "
-                                     f"in {POOL_TIMEOUT} s")
-    finally:
-        for p in procs.processes:
-            if p.is_alive():
-                p.kill()
+    _spawn_ranks(_pool_rank, (tmp, device, cfg, gate), POOL_RANKS,
+                 POOL_TIMEOUT, label)
     ranks = [json.loads(Path(f"{tmp}/pool_rank{r}.json").read_text())
              for r in range(POOL_RANKS)]
     for r in ranks:
@@ -4281,11 +4327,359 @@ def sharding_pool(torch, tmp, cfg, device="cuda", ctx=POOL_CTX,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the sharded training step
+# ---------------------------------------------------------------------------
+
+def _sharded_cfg():
+    from repro_torch.configs import get_config
+    return get_config(TRAIN_MODEL).replace(n_layers=TRAIN_DEPTH,
+                                           dtype="float32")
+
+
+def _train_cell(mesh, cfg, levers):
+    """(strategy, ``build_train_cell``) for phase 15 on ``mesh``."""
+    from dataclasses import replace
+    from repro_torch.configs import SHAPES_BY_NAME
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding.strategies import PerfOpts, make_strategy
+    shape = replace(SHAPES_BY_NAME["train_4k"], seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH)
+    st = make_strategy("train", mesh, cfg, shape, PerfOpts(
+        microbatches=SHARDED_MICROBATCHES, **levers))
+    return st, dryrun.build_train_cell(cfg, shape, st, moe_path="grouped")
+
+
+def _train_batch(torch, cfg, device):
+    gen = torch.Generator(device=device).manual_seed(3)
+    return {"tokens": torch.randint(0, cfg.vocab_size,
+                                    (TRAIN_BATCH, TRAIN_SEQ), generator=gen,
+                                    device=device, dtype=torch.int32)}
+
+
+def _fresh_state(opt, params, compress):
+    from repro_torch.training.compression import init_error_feedback
+    from repro_torch.training.train_step import TrainState
+    return TrainState(params, opt.init(params),
+                      init_error_feedback(params) if compress else None)
+
+
+def _train_steps(torch, kops, step, box, batch, device):
+    """``SHARDED_STEPS`` steps from the state in the one-element list
+    ``box``, which is emptied: the step replaces the error-feedback tree
+    (the params and moments are updated in place), and a caller that kept
+    the first state would hold its tree through the run.  Launch counts
+    from 0.  Returns (state, losses, grad norms, ms a step, launches)."""
+    state = box.pop()
+    if torch.device(device).type == "cuda":
+        log(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+            f"before the steps")
+    reset_launches(kops)
+    losses, gnorms, ms = [], [], []
+    for _ in range(SHARDED_STEPS):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))        # waits for the step
+        gnorms.append(float(metrics["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    sync(torch, device)
+    return state, losses, gnorms, ms, read_launches(kops)
+
+
+def _train_launches(cell) -> dict:
+    """Each layer's three grouped GEMMs a microbatch: forward, the
+    rematerialised forward, the input gradient; and their weight
+    gradients."""
+    n = TRAIN_DEPTH * cell.microbatches * SHARDED_STEPS
+    return {"moe_gemm": 9 * n, "moe_gemm_wgrad": 3 * n}
+
+
+def _lr_bound(opt) -> float:
+    """Twice the learning rate summed over the steps, + 1e-5: how far an
+    element whose gradient changes sign between two runs can part in
+    AdamW's first steps."""
+    return 2 * sum(opt.lr * min(t / max(opt.warmup_steps, 1), 1.0)
+                   for t in range(1, SHARDED_STEPS + 1)) + 1e-5
+
+
+def _close_rel(what, got, want, rtol) -> float:
+    worst = max(abs(g - w) / max(abs(w), 1e-30) for g, w in zip(got, want))
+    if not worst <= rtol:
+        raise AssertionError(f"{what}: {got} vs {want} (rel {worst:.3g} > "
+                             f"{rtol})")
+    return worst
+
+
+def _median_after_first(ms):
+    rest = sorted(ms[1:])
+    return rest[len(rest) // 2]
+
+
+def sharded_train_one_rank(torch, kops, tmp, index, device="cuda",
+                           cfg=None) -> dict:
+    """(15a) ``build_train_cell``'s step for ``SHARDED_VARIANTS[index]``
+    on a one-rank group beside ``make_train_step``'s, from the same
+    seeded params and batch: per-step loss and grad norm within 1e-5
+    relative, params within the AdamW sign bound, ``moe_gemm`` /
+    ``moe_gemm_wgrad`` launched exactly as ``_train_launches`` says in
+    both, and the cell's peak within ``SHARDED_PEAK_SLACK_GIB`` of the
+    reference's (at one rank every collective is the identity: a higher
+    peak is a tree the step keeps).  The reference run's params go to
+    the host before the cell's run draws its own (one state on the card
+    at a time); the cell's final params and metrics are saved under
+    ``tmp`` for 15b.  Needs an initialized one-rank process group."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.tree import leaves, leaves_with_path
+
+    label, levers = SHARDED_VARIANTS[index]
+    on_card = torch.device(device).type == "cuda"
+    cfg = cfg or _sharded_cfg()
+    compress = bool(levers.get("compress_grads"))
+    st, cell = _train_cell(Mesh((1, 1), ("data", "model"), live=True), cfg,
+                           levers)
+    model = build_model(cfg)
+    batch = _train_batch(torch, cfg, device)
+    opt = cell.optimizer
+    ref_step = make_train_step(
+        model, opt, num_microbatches=cell.microbatches, compress=compress,
+        remat=True, extra_inputs=lambda b: {"moe_path": "grouped"})
+    t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    state, ref_losses, ref_gnorms, ref_ms, ref_launches = _train_steps(
+        torch, kops, ref_step,
+        [_fresh_state(opt, _seeded_params(torch, model, device), compress)],
+        batch, device)
+    ref_peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    # detached: a copy of a param that requires grad keeps an autograd
+    # edge to the card's tensor, and with it the whole reference run
+    ref_params = [t.detach().cpu() for t in leaves(state.params)]
+    del state
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    # the same draw again, cut by the train rules
+    state, losses, gnorms, ms, launches = _train_steps(
+        torch, kops, cell.step,
+        [cell.shard_state(_fresh_state(
+            opt, _seeded_params(torch, model, device), compress))],
+        batch, device)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    t2 = time.perf_counter()
+    tag = f"sharded train 15a {label}"
+    loss_rel = _close_rel(f"{tag} loss", losses, ref_losses, 1e-5)
+    gnorm_rel = _close_rel(f"{tag} grad norm", gnorms, ref_gnorms, 1e-5)
+    final = {"/".join(p): t.detach().cpu()
+             for p, t in leaves_with_path(state.params)}
+    param_err = max(float((a - b).abs().max())
+                    for a, b in zip(final.values(), ref_params))
+    if not param_err <= _lr_bound(opt):
+        raise AssertionError(f"{tag}: params part from make_train_step's by "
+                             f"{param_err:.3g} > {_lr_bound(opt):.3g}")
+    if not peak <= ref_peak + SHARDED_PEAK_SLACK_GIB:
+        raise AssertionError(f"{tag}: the cell's step peaked at {peak:.2f} "
+                             f"GiB, make_train_step's at {ref_peak:.2f}")
+    want = _train_launches(cell)
+    if on_card:
+        for run, got in (("make_train_step", ref_launches),
+                         ("build_train_cell", launches)):
+            check_counts(f"{tag} {run}", got, want)
+    torch.save(dict(losses=losses, gnorms=gnorms, params=final),
+               f"{tmp}/train_ref{index}.pt")
+    del state, final, ref_params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    steady = _median_after_first(ms)
+    out = dict(label=label, levers=levers, microbatches=cell.microbatches,
+               steps=SHARDED_STEPS, losses=losses, grad_norms=gnorms,
+               ref_losses=ref_losses, ref_grad_norms=ref_gnorms,
+               loss_rel=loss_rel, grad_norm_rel=gnorm_rel,
+               max_param_diff=param_err, param_bound=_lr_bound(opt),
+               step_ms=ms, ref_step_ms=ref_ms, median_step_ms=steady,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / steady * 1e3,
+               peak_gib=peak, ref_peak_gib=ref_peak, launches=launches,
+               ref_launches=ref_launches,
+               argument_bytes=dryrun.argument_bytes(st),
+               seconds={"reference": t1 - t0, "cell": t2 - t1,
+                        "check_and_save": time.perf_counter() - t2})
+    log(f"{tag}: losses {losses} (make_train_step {ref_losses}, rel "
+        f"{loss_rel:.3g}), grad norms rel {gnorm_rel:.3g}, params within "
+        f"{param_err:.3g}; {steady:.1f} ms/step after the first = "
+        f"{out['tokens_per_s']:.0f} tokens/s (make_train_step "
+        f"{_median_after_first(ref_ms):.1f}), peak {peak:.2f} GiB "
+        f"({ref_peak:.2f}); launches {launches}; seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items()))
+    return out
+
+
+def _train_rank_run(torch, kops, tmp, mesh, cfg, index, device) -> dict:
+    """One variant on one of phase 15b's ranks: draws the params (one
+    rank at a time: one whole tree on the card at once) and keeps its
+    shards under the train rules, runs the steps, and holds its losses,
+    grad norms, shards, resident bytes and launches against 15a's."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.spec import local_slices
+    from repro_torch.training.train_step import TrainState
+    from repro_torch.training.tree import leaves_with_path
+    label, levers = SHARDED_VARIANTS[index]
+    on_card = device == "cuda"
+    rank = dist.get_rank()
+    t0 = time.perf_counter()
+    st, cell = _train_cell(mesh, cfg, levers)
+    for r in range(mesh.size):
+        if r == rank:
+            params = cell.shard_state(TrainState(
+                _seeded_params(torch, build_model(cfg), device), None)
+                ).params
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    box = [_fresh_state(cell.optimizer, params,
+                        bool(levers.get("compress_grads")))]
+    del params
+    batch = cell.local_batch(_train_batch(torch, cfg, device))
+    resident = dryrun.resident_bytes(box[0]) + dryrun.resident_bytes(batch)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    state, losses, gnorms, ms, launches = _train_steps(
+        torch, kops, cell.step, box, batch, device)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    t2 = time.perf_counter()
+    ref = torch.load(f"{tmp}/train_ref{index}.pt", mmap=True)
+    tag = f"sharded train 15b {label} rank {rank}"
+    loss_rel = _close_rel(f"{tag} loss", losses, ref["losses"], 1e-4)
+    gnorm_rel = _close_rel(f"{tag} grad norm", gnorms, ref["gnorms"], 1e-4)
+    specs = st.train_specs()
+    param_err = 0.0
+    for path, local in leaves_with_path(state.params):
+        path = "/".join(path)
+        whole = ref["params"][path]
+        want = whole[local_slices(mesh, whole.shape, specs[path])]
+        param_err = max(param_err,
+                        float((local.detach().cpu() - want).abs().max()))
+    bound = _lr_bound(cell.optimizer)
+    if not param_err <= bound:
+        raise AssertionError(f"{tag}: shards part from 15a's by "
+                             f"{param_err:.3g} > {bound:.3g}")
+    if resident != dryrun.argument_bytes(st):
+        raise AssertionError(f"{tag}: {resident} resident bytes, the dry-run "
+                             f"says {dryrun.argument_bytes(st)}")
+    if on_card:
+        check_counts(tag, launches, _train_launches(cell))
+    del state, ref
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    steady = _median_after_first(ms)
+    return dict(rank=rank, coord=list(mesh.coord), losses=losses,
+                grad_norms=gnorms, loss_rel=loss_rel,
+                grad_norm_rel=gnorm_rel, max_param_diff=param_err,
+                param_bound=bound, step_ms=ms, median_step_ms=steady,
+                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / steady * 1e3,
+                peak_gib=peak, resident_bytes=resident,
+                argument_bytes=dryrun.argument_bytes(st), launches=launches,
+                seconds={"setup": t1 - t0, "steps": t2 - t1,
+                         "check": time.perf_counter() - t2})
+
+
+def _train_rank(rank, tmp, device, cfg):
+    """One of phase 15b's ranks: joins the gloo group and runs every
+    variant (``_train_rank_run``) in turn."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import Mesh
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/train_pg",
+                            rank=rank, world_size=math.prod(SHARDED_MESH))
+    mesh = Mesh(SHARDED_MESH, ("data", "model"), live=True)
+    runs = [_train_rank_run(torch, kops, tmp, mesh, cfg, i, device)
+            for i in range(len(SHARDED_VARIANTS))]
+    with open(f"{tmp}/train_rank{rank}.json", "w") as f:
+        json.dump(runs, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_train_pool(torch, tmp, device="cuda", cfg=None) -> list:
+    """(15b) Every variant's steps over ``SHARDED_MESH``, four processes
+    sharing the card over gloo on CUDA tensors (spawned once for all
+    variants), every leaf of params, m and v split by the train rules.
+    Each rank's per-step losses and grad norms within 1e-4 relative of
+    15a's, its shards within ``_lr_bound`` of the same slices of 15a's
+    params, its resident bytes equal to the dry-run's per-device argument
+    bytes, its launch counts exact.  The times are a one-card gloo
+    rehearsal, not a multi-card figure.  Returns one entry a variant."""
+    cfg = cfg or _sharded_cfg()
+    n = math.prod(SHARDED_MESH)
+    _spawn_ranks(_train_rank, (tmp, device, cfg), n, SHARDED_TIMEOUT,
+                 "sharded train 15b")
+    ranks = [json.loads(Path(f"{tmp}/train_rank{r}.json").read_text())
+             for r in range(n)]
+    out = []
+    for index, (label, levers) in enumerate(SHARDED_VARIANTS):
+        runs = [runs_r[index] for runs_r in ranks]
+        for r in runs:
+            log(f"sharded train 15b {label} rank {r['rank']} (coord "
+                f"{r['coord']}): losses rel {r['loss_rel']:.3g}, grad norms "
+                f"rel {r['grad_norm_rel']:.3g}, shards within "
+                f"{r['max_param_diff']:.3g} (bound {r['param_bound']:.3g});"
+                f" {r['median_step_ms']:.1f} ms/step = "
+                f"{r['tokens_per_s']:.0f} tokens/s (one-card gloo "
+                f"rehearsal), peak {r['peak_gib']:.2f} GiB; resident "
+                f"{r['resident_bytes'] / 2**30:.3f} GiB, dry-run "
+                f"{r['argument_bytes'] / 2**30:.3f} GiB; launches "
+                f"{r['launches']}; seconds "
+                + ", ".join(f"{k} {v:.1f}" for k, v in r["seconds"].items()))
+        out.append(dict(label=label, levers=levers, mesh=list(SHARDED_MESH),
+                        ranks=runs))
+    return out
+
+
+def sharded_train_phase(torch, kops, tmp, card) -> dict:
+    """Phase 15: every variant's 15a (one rank), then 15b (four ranks,
+    every variant in one spawn)."""
+    t0 = time.perf_counter()
+    out = {"card": card, "model": TRAIN_MODEL, "layers": TRAIN_DEPTH,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": SHARDED_STEPS,
+           "microbatches": SHARDED_MICROBATCHES}
+    ones = []
+    for index in range(len(SHARDED_VARIANTS)):
+        ones.append(sharded_train_one_rank(torch, kops, tmp, index))
+        gc.collect()
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    pools = sharded_train_pool(torch, tmp)
+    out["runs"] = [{"one_rank": one, "four_ranks": pool}
+                   for one, pool in zip(ones, pools)]
+    out["seconds_one_rank"] = t1 - t0
+    out["seconds_four_ranks"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    log(f"sharded train: phase 15 took {out['seconds']:.1f} s (15a "
+        f"{out['seconds_one_rank']:.1f}, 15b {out['seconds_four_ranks']:.1f};"
+        f" {card})")
+    return out
+
+
 def sharding_phase(torch, kops, card) -> dict:
     """Phase 14: (a) the sharded step at one rank over NCCL, at published
     widths; (b) one 32768-token request's KV over four ranks sharing the
-    card over gloo.  The kernels are built already (phase 2): no rank
-    builds."""
+    card over gloo.  Then phase 15 (the sharded training step) in the same
+    one-rank NCCL group, under ``"sharded_train"``.  The kernels are built
+    already (phase 2): no rank builds."""
     import tempfile
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -4305,10 +4699,15 @@ def sharding_phase(torch, kops, card) -> dict:
             torch.cuda.empty_cache()
             out["pool_gate"] = sharding_pool(
                 torch, tmp, cfg.replace(dtype=POOL_GATE_DTYPE))
+            out["seconds_14"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["sharded_train"] = sharded_train_phase(torch, kops, tmp,
+                                                       card)
         finally:
             dist.destroy_process_group()
     out["seconds"] = time.perf_counter() - t0
-    log(f"sharding: phase 14 took {out['seconds']:.1f} s ({card})")
+    log(f"sharding: phase 14 took {out['seconds_14']:.1f} s ({card})")
     return out
 
 
@@ -4454,9 +4853,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 14. the sharding layer: one rank over NCCL, then four over gloo
+    # 14-15. the sharding layer: one rank over NCCL, then four over gloo;
+    # then the sharded training step the same way
     sharding = sharding_phase(torch, kops, card)
     sh = sharding["one_rank"]
+    sharded_train = sharding.pop("sharded_train")
 
     csrc = "src/repro_torch/kernels/csrc/"
     main_shape = {"gqa": ("qwen3-moe-235b-a22b", 1024, 4),
@@ -4560,6 +4961,13 @@ def main() -> int:
             "replaces": "src/repro/kernels/moe_gemm.py:23",
             "launches": t_launches[name],
             "launches_examples": ex_launches[name],
+            "launches_sharded_train": {
+                f"{run['one_rank']['label']} {part}": counts
+                for run in sharded_train["runs"]
+                for part, counts in (
+                    ("one rank", run["one_rank"]["launches"][name]),
+                    ("four ranks", [r["launches"][name] for r in
+                                    run["four_ranks"]["ranks"]]))},
             "max_abs_err": m_errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -4572,7 +4980,8 @@ def main() -> int:
          "kernels": kernels, "serve": serve, "serve_host": host,
          "serve_fallback": f_serve, "train": train, "elastic": elastic,
          "cache": cache, "observe": observe, "families": families,
-         "examples": examples, "sharding": sharding},
+         "examples": examples, "sharding": sharding,
+         "sharded_train": sharded_train},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

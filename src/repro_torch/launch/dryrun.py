@@ -1,13 +1,16 @@
-"""The sharded serve step, and the dry-run's per-device bytes of every
-(arch x shape x mesh) cell.
+"""The sharded train and serve steps, and the dry-run's per-device bytes
+of every (arch x shape x mesh) cell.
 
-Port of ``src/repro/launch/dryrun.py``.  ``build_serve_cell`` is the
-reference's cell builder: it returns the step each rank runs SPMD on its
-local shards (``decode_step`` for decode shapes, ``prefill`` for prefill
-shapes) with the strategy's hooks, whose collectives run over
-``torch.distributed`` (``sharding/strategies.py`` says which leaves the
-step places by the rules, and ``shard_params`` / ``shard_cache`` /
-``local_rows`` cut a whole tree into this rank's part).
+Port of ``src/repro/launch/dryrun.py``.  ``build_train_cell`` and
+``build_serve_cell`` are the reference's cell builders: each returns the
+step each rank runs SPMD on its local shards with the strategy's hooks,
+whose collectives run over ``torch.distributed``
+(``sharding/strategies.py`` says which leaves each step places by the
+rules).  The train cell (``train_4k`` shapes, the decoder families)
+takes ``TRAIN_MICROBATCHES`` and cuts a whole ``TrainState`` and batch
+into this rank's part (``TrainCell.shard_state`` / ``local_batch``); the
+serve cell is ``decode_step`` for decode shapes and ``prefill`` for
+prefill shapes (``shard_params`` / ``shard_cache`` / ``local_rows``).
 
 ``run_cell`` is the dry-run: it builds the production mesh (shape only)
 and the strategy, and reports what each device would hold: the bytes of
@@ -27,7 +30,7 @@ import argparse
 import json
 import math
 import traceback
-from typing import Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -37,27 +40,34 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import decode as dec
 from repro_torch.models import transformer as tfm
+from repro_torch.models.hooks import Hooks
 from repro_torch.models.model import build_model
-from repro_torch.sharding.spec import (axis_size, local_slices, shard_tree,
-                                       tree_bytes)
+from repro_torch.models.transformer import param_shapes
+from repro_torch.sharding.spec import (PartitionSpec, axis_size,
+                                       local_slices, shard_by_specs,
+                                       shard_tree, tree_bytes)
 from repro_torch.sharding.strategies import Strategy, make_strategy
+from repro_torch.training.optimizer import AdamW, AdamWState
+from repro_torch.training.train_step import TrainState, make_grad_fn, \
+    make_train_step
 from repro_torch.training.tree import leaves
 
 MESH_NAMES = {False: "pod16x16", True: "pod2x16x16"}
 
-
-class _MetaGenerator(torch.Generator):
-    """A generator whose draws land on the ``meta`` device: the model's
-    own init then builds a shape-only tree."""
-
-    @property
-    def device(self):
-        return torch.device("meta")
-
-
-def param_shapes(cfg: ModelConfig) -> Dict:
-    """The param tree of ``cfg`` as meta tensors (no allocation)."""
-    return tfm.init_params(_MetaGenerator(), cfg)
+#: Gradient-accumulation depth per arch for train_4k (the reference's
+#: ``dryrun.py:46-59``, tuned there against its memory analysis).
+TRAIN_MICROBATCHES = {
+    "llama3-405b": 16,
+    "qwen3-moe-235b-a22b": 8,
+    "llava-next-34b": 8,
+    "gemma3-12b": 4,
+    "qwen3-14b": 4,
+    "moonshot-v1-16b-a3b": 4,
+    "minicpm3-4b": 2,
+    "zamba2-1.2b": 2,
+    "mamba2-130m": 1,
+    "whisper-small": 1,
+}
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
@@ -101,6 +111,11 @@ def _input_bytes(strategy: Strategy, specs: Dict) -> int:
     return total
 
 
+def moment_dtype(cfg: ModelConfig) -> str:
+    """AdamW's moments: bf16 for the 100B+ configs (``dryrun.py:98``)."""
+    return "bfloat16" if cfg.param_counts()["total"] > 5e10 else "float32"
+
+
 def argument_bytes(strategy: Strategy) -> int:
     """Per-device bytes of the cell's arguments under the rules."""
     cfg, shape, mesh = strategy.cfg, strategy.shape, strategy.mesh
@@ -109,8 +124,8 @@ def argument_bytes(strategy: Strategy) -> int:
     total = _input_bytes(strategy, input_specs(cfg, shape))
     if shape.kind == "train":
         total += tree_bytes(rules, mesh, params)
-        big = cfg.param_counts()["total"] > 5e10
-        moment = torch.bfloat16 if big else torch.float32
+        moment = (torch.bfloat16 if moment_dtype(cfg) == "bfloat16"
+                  else torch.float32)
         # the step count (an int32 scalar), then AdamW's m and v
         total += 4 + 2 * tree_bytes(rules, mesh, _retyped(params, moment))
         if strategy.perf.compress_grads:
@@ -126,6 +141,83 @@ def _retyped(tree: Dict, dtype: torch.dtype) -> Dict:
     return {k: _retyped(v, dtype) if isinstance(v, dict)
             else torch.empty(v.shape, dtype=dtype, device="meta")
             for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# The sharded train step
+# ---------------------------------------------------------------------------
+
+class TrainCell(NamedTuple):
+    """What ``build_train_cell`` returns; every function runs on this
+    rank (every rank calls it: the collectives are SPMD)."""
+    step: Callable          # (state, batch) -> (state, metrics), in place
+    grads: Callable         # (params, batch) -> (metrics, grads)
+    optimizer: AdamW
+    microbatches: int
+    hooks: Hooks
+    shard_state: Callable   # whole TrainState -> this rank's shards
+    state_specs: Callable   # TrainState -> its tree of partition specs
+    local_batch: Callable   # whole batch {name: [B, ...]} -> this rank's rows
+
+
+def build_train_cell(cfg: ModelConfig, shape: ShapeConfig,
+                     strategy: Strategy, *, moe_path: str = "capacity",
+                     optimizer: Optional[AdamW] = None) -> TrainCell:
+    """The reference's ``build_train_cell`` (``dryrun.py:95-138``): AdamW
+    with its moment dtype, ``TRAIN_MICROBATCHES`` (or
+    ``perf.microbatches``), remat, ``perf.compress_grads``, the stub
+    modality inputs, and the strategy's hooks.  Every leaf of the state
+    (params, m, v, the error-feedback tree) is placed by the train rules;
+    ``local_batch`` gives this rank the rows of each microbatch the
+    reference places there (the batch split [G, B/G], each microbatch's
+    rows over the batch axes).  ``moe_path`` routes the MoE as
+    ``forward``'s (the grouped path runs ``moe_gemm`` over this rank's
+    experts).  ``optimizer`` replaces the reference's AdamW (its moment
+    dtype kept by the caller).  The ssm, hybrid and audio families raise
+    (their cells are queued: ``strategies.TRAIN_LEFT_OUT``)."""
+    model = build_model(cfg)
+    hooks = strategy.hooks()
+    optimizer = optimizer or AdamW(moment_dtype=moment_dtype(cfg))
+    G = strategy.perf.microbatches or TRAIN_MICROBATCHES.get(cfg.name, 1)
+    compress = strategy.perf.compress_grads
+    mesh, bax = strategy.mesh, strategy.bax
+
+    def extra(batch):
+        kw = {k: batch[k] for k in ("embeddings",) if k in batch}
+        return dict(kw, moe_path=moe_path)
+    kw = dict(hooks=hooks, num_microbatches=G, remat=True,
+              extra_inputs=extra)
+    rules = strategy.step_param_rules()
+
+    def state_specs(state: TrainState) -> TrainState:
+        def specs(tree):
+            return None if tree is None else rules.tree_specs(mesh, tree)
+        opt = state.opt
+        return TrainState(specs(state.params), opt and AdamWState(
+            PartitionSpec(), specs(opt.m), specs(opt.v)),
+            specs(state.error_fb))
+
+    def shard_state(state: TrainState) -> TrainState:
+        return shard_by_specs(state_specs(state), mesh, state)
+
+    def local_batch(batch: Dict) -> Dict:
+        out = {}
+        for name, x in batch.items():
+            B = x.shape[0]
+            if B % (G * axis_size(mesh, bax)):
+                raise ValueError(f"batch {B} does not split into {G} "
+                                 f"microbatches over {bax}")
+            mb = x.reshape(G, B // G, *x.shape[1:])
+            mb = mb[(slice(None),) + local_slices(mesh, mb.shape[1:],
+                                                  (bax,))]
+            out[name] = mb.reshape(-1, *x.shape[1:])
+        return out
+
+    return TrainCell(
+        step=make_train_step(model, optimizer, compress=compress, **kw),
+        grads=make_grad_fn(model, **kw), optimizer=optimizer,
+        microbatches=G, hooks=hooks, shard_state=shard_state,
+        state_specs=state_specs, local_batch=local_batch)
 
 
 # ---------------------------------------------------------------------------
@@ -152,8 +244,9 @@ def local_rows(strategy: Strategy, x: torch.Tensor) -> torch.Tensor:
     return x[local_slices(strategy.mesh, x.shape, (rows,))]
 
 
-def resident_bytes(tree: Dict) -> int:
-    return sum(t.numel() * t.element_size() for t in leaves(tree))
+def resident_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(tree)
+               if t is not None)
 
 
 def build_serve_cell(cfg: ModelConfig, shape: ShapeConfig,
@@ -204,6 +297,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     if perf is not None:
         record["perf"] = {k: v for k, v in vars(perf).items()
                           if v not in (None, False)}
+    if shape.kind == "train":
+        record["microbatches"] = (strategy.perf.microbatches
+                                  or TRAIN_MICROBATCHES.get(arch, 1))
     record.update(ok=True, memory={"argument_bytes": argument_bytes(strategy)})
     if verbose:
         gib = record["memory"]["argument_bytes"] / 2 ** 30

@@ -159,6 +159,29 @@ class Mesh:
         by_rank = dict(zip(sorted(ranks), parts))
         return torch.cat([by_rank[r] for r in ranks], dim=dim)
 
+    def reduce_scatter(self, x: torch.Tensor, axis: AxisName, dim: int
+                       ) -> torch.Tensor:
+        """``x`` summed over the ranks along ``axis``, this rank's chunk of
+        ``dim`` (chunks in the axis tuple's row-major order), by
+        ``reduce_scatter_tensor``; gloo on a CUDA tensor (not relied on
+        there) all-reduces a copy and takes this rank's chunk."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return x
+        group, ranks = self._group(axis)
+        if x.is_cuda and dist.get_backend(group) == "gloo":
+            full = x.contiguous().clone()
+            dist.all_reduce(full, group=group)
+            return full.chunk(n, dim)[self.index(axis)].contiguous()
+        # the group's chunk i goes to its i-th rank (ascending global
+        # rank): order the axis chunks that way
+        chunks = x.movedim(dim, 0).chunk(n, 0)
+        pos = {r: i for i, r in enumerate(ranks)}
+        src = torch.cat([chunks[pos[r]] for r in sorted(ranks)]).contiguous()
+        out = torch.empty_like(chunks[0], memory_format=torch.contiguous_format)
+        dist.reduce_scatter_tensor(out, src, group=group)
+        return out.movedim(0, dim)
+
     def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Equal chunks of ``x``'s leading dim: chunk ``i`` goes to the
         rank at index ``i`` on ``axis``; the result's chunk ``i`` came

@@ -117,23 +117,49 @@ def gqa_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     kernel (``ops.flash_attention``); a windowed, cross or other causal
     call the masked softmax of ``attention_core`` over ``kv_positions``
     (default: ``positions``); a non-causal call (the whisper encoder,
-    cross-attention) ``attention_core`` unmasked.
+    cross-attention) ``attention_core`` unmasked.  Under the sharded
+    training step's ``hooks.tp`` it runs on this rank's query heads, each
+    reading its group's KV head from this rank's KV heads or the gathered
+    ones (``n_kv_heads`` below the model axis: a rank holds part of a
+    head; the helpers below).
     Returns (output [B,S,D_model], (k, v) for the cache).
     """
-    q, k, v = _project_qkv(p, cfg, x)
+    tp = hooks.tp
+    if tp.size > 1 and (kv_override is not None or kv_positions is not None):
+        raise NotImplementedError("tensor-parallel cross-attention")
+    B, S = x.shape[:2]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, h0 = _tp_heads(x, p["wq"], H, hd, tp)
+    k, k0 = _tp_heads(x, p["wk"], KV, hd, tp)
+    v, _ = _tp_heads(x, p["wv"], KV, hd, tp)
+    nq = q.shape[2]
+    if cfg.qk_norm:
+        q = layers.head_rms_norm(
+            q, tp.enter(p["q_norm"]) if nq < H else p["q_norm"], cfg.norm_eps)
+        k = layers.head_rms_norm(
+            k, tp.enter(p["k_norm"]) if k.shape[2] < KV else p["k_norm"],
+            cfg.norm_eps)
     if kv_override is not None:
         k, v = kv_override
     kv_pos = positions if kv_positions is None else kv_positions
     if cfg.rope_theta > 0:
-        sin, cos = layers.rope_sin_cos(positions, cfg.head_dim, cfg.rope_theta)
+        sin, cos = layers.rope_sin_cos(positions, hd, cfg.rope_theta)
         q = layers.apply_rope(q, sin, cos)
         if kv_override is None:
-            sin, cos = layers.rope_sin_cos(kv_pos, cfg.head_dim,
-                                           cfg.rope_theta)
+            sin, cos = layers.rope_sin_cos(kv_pos, hd, cfg.rope_theta)
             k = layers.apply_rope(k, sin, cos)
+    # each of this rank's query heads reads its group's KV head
+    G = H // KV
+    lo, hi = h0 // G, (h0 + nq - 1) // G
+    if lo == hi or (h0 % G == 0 and nq % G == 0):
+        want = list(range(lo, hi + 1))            # whole groups
+    else:
+        want = [(h0 + i) // G for i in range(nq)]  # one KV head a query
+    k = _heads_for(k, k0, want, KV, nq < H, tp)
+    v = _heads_for(v, k0, want, KV, nq < H, tp)
     q = hooks.attn_q(q)
     k, v = hooks.kv(k), hooks.kv(v)
-    scale = cfg.head_dim ** -0.5
+    scale = hd ** -0.5
     if not causal:
         out = attention_core(q, k, v, None, scale)
     elif impl == "flash" and window == 0 and kv_override is None:
@@ -141,9 +167,74 @@ def gqa_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         mask = causal_mask(positions, kv_pos, window)[:, None, None, :, :]
         out = attention_core(q, k, v, mask, scale)
+    y, partial = _tp_out(out.reshape(B, S, nq * hd), p["wo"], nq, H, tp)
+    return hooks.attn_out(tp.seq_out(y, partial)), (k, v)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallel: this rank's heads (the sharded training step)
+# ---------------------------------------------------------------------------
+#
+# The train rules split every projection's head columns (``wq``, ``wk``,
+# ``wv``, ``wuq``, ``wuk``, ``wuv``; MLA's ``wdq`` / ``wdkv`` latents)
+# and ``wo``'s rows over ``model`` where the width divides (``safe_spec``).
+# The input is replicated over ``hooks.tp``; a split projection gives
+# this rank's heads when its split falls on whole heads, and is gathered
+# (the whole heads on every rank) when it falls inside one, as the
+# partitioner does.  The attention runs on this rank's query heads; the
+# output projection's partial sums are reduced (``tp.seq_out``).  At one
+# rank every helper is the plain projection of the whole heads.
+
+def _tp_cols(x: torch.Tensor, w: torch.Tensor, width: int, tp
+             ) -> torch.Tensor:
+    """``x @ w`` with all ``width`` columns on every rank."""
+    if w.shape[-1] == width:
+        return x @ w
+    return tp.gather(tp.enter(x) @ w, -1)
+
+
+def _tp_heads(x: torch.Tensor, w: torch.Tensor, n_heads: int,
+              head_dim: int, tp) -> Tuple[torch.Tensor, int]:
+    """``x @ w`` as heads: (this rank's [B,S,n/tp,hd], its first head)
+    when ``w``'s columns split on whole heads, else (all [B,S,n,hd], 0)."""
     B, S = x.shape[:2]
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return hooks.attn_out(_project_out(out, p["wo"])), (k, v)
+    if w.shape[-1] == n_heads * head_dim or n_heads % tp.size:
+        return _tp_cols(x, w, n_heads * head_dim, tp).reshape(
+            B, S, n_heads, head_dim), 0
+    n = n_heads // tp.size
+    return (tp.enter(x) @ w).reshape(B, S, n, head_dim), tp.index * n
+
+
+def _heads_for(t: torch.Tensor, t0: int, want, n_total: int,
+               split_consumer: bool, tp) -> torch.Tensor:
+    """The heads ``want`` (global indices, in order) of ``t`` [B,T,n,D],
+    which holds heads ``[t0, t0 + n)``.  Heads this rank does not hold
+    are gathered; a replicated ``t`` read by this rank's heads only
+    (``split_consumer``) enters the tensor-parallel region."""
+    n = t.shape[2]
+    if n < n_total:
+        if want == list(range(t0, t0 + n)):
+            return t
+        if t0 <= want[0] and want[-1] < t0 + n:
+            return t[:, :, [h - t0 for h in want]]
+        t = tp.gather(t, 2)
+    elif split_consumer:
+        t = tp.enter(t)
+    return t if want == list(range(n_total)) else t[:, :, want]
+
+
+def _tp_out(out: torch.Tensor, wo: torch.Tensor, n_q: int, n_heads: int,
+            tp) -> Tuple[torch.Tensor, bool]:
+    """The output projection of ``n_q`` heads' context [B,S,n_q*dv]:
+    (partial sums, True) when ``wo``'s rows split, else (the output,
+    False)."""
+    if wo.shape[0] < n_heads * (out.shape[-1] // n_q):
+        if n_q == n_heads:
+            out = tp.split(out, -1)
+        return _project_out(out, wo), True
+    if n_q < n_heads:
+        out = tp.gather(out, -1)
+    return _project_out(out, wo), False
 
 
 def _pad_to_extent(arr: torch.Tensor, extent: int) -> torch.Tensor:
@@ -450,23 +541,42 @@ def _mla_latent(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 def mla_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor, *, hooks: Hooks = IDENTITY_HOOKS
              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Whole-sequence MLA in the expanded (prefill) form."""
+    """Whole-sequence MLA in the expanded (prefill) form.  Under the
+    sharded training step's ``hooks.tp`` it runs on this rank's heads:
+    the q and KV latents (``wdq`` / ``wdkv``'s columns split over
+    ``model``) are gathered whole, since their norms read every column;
+    ``wuq`` / ``wuk`` / ``wuv`` give this rank's heads (``_tp_heads``)."""
+    tp = hooks.tp
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.n_heads
-    q_nope, q_rope = _mla_queries(p, cfg, x, positions)
-    latent, k_rope = _mla_latent(p, cfg, x, positions)
+    H, nope, rp = cfg.n_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
+    r = m.kv_lora_rank
+    if m.q_lora_rank:
+        cq = layers.rms_norm(_tp_cols(x, p["wdq"], m.q_lora_rank, tp),
+                             p["q_ln"], cfg.norm_eps)
+        q, h0 = _tp_heads(cq, p["wuq"], H, nope + rp, tp)
+    else:
+        q, h0 = _tp_heads(x, p["wuq"], H, nope + rp, tp)
+    nq = q.shape[2]
+    sin, cos = layers.rope_sin_cos(positions, rp, cfg.rope_theta)
+    q_nope, q_rope = q[..., :nope], layers.apply_rope(q[..., nope:], sin, cos)
+    ckv = _tp_cols(x, p["wdkv"], r + rp, tp)
+    latent = layers.rms_norm(ckv[..., :r], p["kv_ln"], cfg.norm_eps)
+    k_rope = layers.apply_rope(ckv[..., None, r:], sin, cos)[:, :, 0, :]
     latent, k_rope = hooks.kv(latent), hooks.kv(k_rope)
-    k_nope = (latent @ p["wuk"]).reshape(B, S, H, m.qk_nope_head_dim)
-    v = (latent @ p["wuv"]).reshape(B, S, H, m.v_head_dim)
-    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    mask = causal_mask(positions, positions)[:, None, None, :, :]
+    want = list(range(h0, h0 + nq))
+    k_nope, hk = _tp_heads(latent, p["wuk"], H, nope, tp)
+    v, hv = _tp_heads(latent, p["wuv"], H, m.v_head_dim, tp)
+    k_nope = _heads_for(k_nope, hk, want, H, nq < H, tp)
+    v = _heads_for(v, hv, want, H, nq < H, tp)
+    kr = tp.enter(k_rope) if nq < H else k_rope
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        B, S, H, m.qk_rope_head_dim)], dim=-1)
-    out = attention_core(q, k, v, mask, scale)
-    out = out.reshape(B, S, H * m.v_head_dim)
-    return hooks.attn_out(out @ p["wo"]), (latent, k_rope)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, nq, rp)], dim=-1)
+    mask = causal_mask(positions, positions)[:, None, None, :, :]
+    out = attention_core(q, k, v, mask, (nope + rp) ** -0.5)
+    y, partial = _tp_out(out.reshape(B, S, nq * m.v_head_dim), p["wo"], nq,
+                         H, tp)
+    return hooks.attn_out(tp.seq_out(y, partial)), (latent, k_rope)
 
 
 def mla_suffix(p: Dict, cfg: ModelConfig, x: torch.Tensor,

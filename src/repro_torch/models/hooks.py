@@ -28,6 +28,31 @@ to carry them:
   when the cache's sequence dimension is split; the new token's KV is
   written only by the rank that owns position ``lengths``.
 
+The sharded training step (``launch/dryrun.py`` ``build_train_cell``)
+places every leaf by the train rules, so the models also compute on
+split weights.  Three more fields carry what its partitioner derives:
+
+* ``params`` — the leaves' placement (:class:`WholeParams` here,
+  ``sharding/strategies.py`` ``ParamShards`` in the step):
+  ``gather(tree, path)`` is the per-layer FSDP gather of the leaves under
+  ``path`` (the forward all-gathers a leaf's dims on the pool axes, the
+  backward reduce-scatters its gradient); ``grad_mean(grads)`` is the
+  data-parallel mean; ``leaf_stats`` reduces a per-leaf statistic over
+  the axes the leaf is split on (the global norm, the int8 scale).
+* ``tp`` — the collectives over ``model`` (:class:`LocalAxis` here,
+  ``sharding/collectives.py`` ``AxisGroup`` in the step).  The models
+  read what is split from their weights' local shapes: attention on this
+  rank's heads with the output projection's partial sums reduced,
+  experts over ``model`` with the combine reduced, the embedding and the
+  head over the vocabulary (a lookup masks the ids the rank does not
+  own; the loss reduces the max, the sum of exponentials and the gold
+  logit), and, with ``tp.seq``, the residual stream's sequence split
+  (``seq_in`` gathers it before a block, ``seq_out`` reduce-scatters the
+  block's partial sums).
+* ``dp`` — the collectives over the batch axes: the statistics the MoE
+  routing takes over the whole (micro)batch (the capacity's slot
+  offsets, the load-balance loss's means).
+
 Everything defaults to identity (offset 0) so the models run standalone
 on one device, bit for bit as without the seam.
 """
@@ -39,6 +64,71 @@ from typing import Callable, Optional
 
 def _identity(x):
     return x
+
+
+class LocalAxis:
+    """A mesh axis of one rank: every collective is the identity.  The
+    sharded step's ``AxisGroup`` (``sharding/collectives.py``) has these
+    methods and the ones only a split reaches (``sum``, ``gather_sum``,
+    ``max``, ``all_to_all``); its docstring gives each one's forward and
+    backward."""
+
+    size = 1
+    index = 0
+    seq = False          # the residual stream's sequence split over it
+
+    def enter(self, x):
+        return x
+
+    def reduce(self, x):
+        return x
+
+    def gather(self, x, dim: int):
+        return x
+
+    def split(self, x, dim: int):
+        return x
+
+    def reduce_scatter(self, x, dim: int):
+        return x
+
+    # -- the sequence-parallel residual stream ([B, S, D], S on dim 1) ----
+    def seq_in(self, x):
+        """A block's input: the whole sequence (the backward takes this
+        rank's part; split consumers ``enter`` it)."""
+        return self.gather(x, 1) if self.seq else x
+
+    def seq_out(self, y, partial: bool):
+        """A block's output back to the residual layout: ``partial``
+        sums are reduced (scattered over S under ``seq``); a whole output
+        is split over S under ``seq``."""
+        if partial:
+            return self.reduce_scatter(y, 1) if self.seq else self.reduce(y)
+        return self.split(y, 1) if self.seq else y
+
+    def seq_weight(self, w):
+        """A replicated weight that meets the S-split residual (a norm's):
+        its gradient is partial there."""
+        return self.enter(w) if self.seq else w
+
+
+class WholeParams:
+    """Every leaf whole on every rank: nothing to gather or reduce."""
+
+    def gather(self, tree, path: str):
+        return tree
+
+    def grad_mean(self, grads):
+        return grads
+
+    def leaf_stats(self, stats: dict, op: str = "sum") -> dict:
+        """{path: this rank's statistic of the leaf} -> the statistic of
+        the whole leaf."""
+        return stats
+
+
+LOCAL = LocalAxis()
+WHOLE = WholeParams()
 
 
 @dataclass(frozen=True)
@@ -65,6 +155,10 @@ class Hooks:
     # fn(h [..,F_loc], w [F_loc,D]) -> out [..,D]: the split FFN's product
     ffn_down: Optional[Callable] = None
     kv_offset: int = 0                 # first cache row's token index
+    # --- the sharded training step (see the docstring) ---------------------
+    params: WholeParams = WHOLE        # FSDP gather, DP mean, leaf statistics
+    tp: LocalAxis = LOCAL              # collectives over 'model'
+    dp: LocalAxis = LOCAL              # collectives over the batch axes
 
 
 IDENTITY_HOOKS = Hooks()

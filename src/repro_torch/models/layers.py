@@ -7,7 +7,7 @@ function here.  Randomness comes from an explicit ``torch.Generator``.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -137,6 +137,18 @@ def apply_mlp(params: dict, x: torch.Tensor, kind: str, hook=None,
     return down(h, w) if down is not None else h @ w
 
 
+def apply_mlp_split(params: dict, x: torch.Tensor, kind: str, hidden: int,
+                    tp, hook=None, down=None) -> Tuple[torch.Tensor, bool]:
+    """``apply_mlp`` over this rank's part of the hidden dimension (the
+    train rules' ``w[gui]`` columns and ``w[do]`` rows over ``tp``):
+    (partial sums, True); a whole MLP (``hidden`` not split) gives (the
+    output, False).  ``x`` is replicated over ``tp``."""
+    w_in = params["wg"] if kind == "swiglu" else params["wi"]
+    if w_in.shape[-1] == hidden:
+        return apply_mlp(params, x, kind, hook=hook, down=down), False
+    return apply_mlp(params, tp.enter(x), kind, hook=hook, down=down), True
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
@@ -149,11 +161,31 @@ def init_embed(gen: torch.Generator, vocab: int, d_model: int, dtype,
     return p
 
 
-def embed_tokens(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok"][tokens.long()]
+def embed_tokens(params: dict, tokens: torch.Tensor,
+                 vocab: Optional[int] = None, tp=None) -> torch.Tensor:
+    """The rows of ``tokens`` [B,S].  A table split over the vocabulary
+    on ``tp`` (the train rules' ``embed/tok`` (TP, FSDP): this rank's
+    [V/tp, D], ids ``[index * V/tp, (index + 1) * V/tp)``, below
+    ``vocab`` rows) gives 0 for the ids it does not own, and the parts
+    are summed over ``tp`` (``models/hooks.py``)."""
+    tok = params["tok"]
+    n = tok.shape[0]
+    if vocab is None or n == vocab:
+        return tok[tokens.long()]
+    ids = tokens.long() - tp.index * n
+    own = (ids >= 0) & (ids < n)
+    rows = tok[ids.clamp(0, n - 1)]
+    return tp.reduce(torch.where(own[..., None], rows,
+                                 torch.zeros((), dtype=rows.dtype,
+                                             device=rows.device)))
 
 
-def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
-    if "head" in params:
-        return x @ params["head"]
-    return x @ params["tok"].T
+def unembed(params: dict, x: torch.Tensor, vocab: Optional[int] = None,
+            tp=None) -> torch.Tensor:
+    """Logits (the tied table read transposed); over this rank's part of
+    the vocabulary [.., V/tp] when the head splits on ``tp`` (``embed/
+    head`` (FSDP, TP)), ``x`` replicated over ``tp``."""
+    w = params["head"] if "head" in params else params["tok"].T
+    if vocab is None or w.shape[-1] == vocab:
+        return x @ w
+    return tp.enter(x) @ w

@@ -124,19 +124,38 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     return p
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the ``meta`` device: the model's
+    own init then builds a shape-only tree."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """The param tree of ``cfg`` as meta tensors (no allocation)."""
+    return init_params(_MetaGenerator(), cfg)
+
+
 def embed_inputs(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                  embeddings: Optional[torch.Tensor] = None,
-                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 positions: Optional[torch.Tensor] = None,
+                 hooks: Hooks = IDENTITY_HOOKS) -> torch.Tensor:
     """tokens [B,S_txt] -> [B,S,D]: the stub modality embeddings
     [B,S_emb,D] (llava's patches) prepended when given, and whisper's
     sinusoidal positions added when ``rope_theta == 0`` and ``positions``
-    [B,S] are given (``transformer.py:152-162``)."""
-    x = layers.embed_tokens(params["embed"], tokens)
+    [B,S] are given (``transformer.py:152-162``).  Under the sharded
+    step's hooks the table is gathered over the pool axes and looked up
+    over its vocabulary split (``layers.embed_tokens``), and the result
+    split over S when the residual stream is (``hooks.tp.seq``)."""
+    x = layers.embed_tokens(_embed_leaf(params, "tok", hooks), tokens,
+                            cfg.vocab_size, hooks.tp)
     if embeddings is not None:
         x = torch.cat([embeddings.to(x.dtype), x], dim=1)
     if cfg.rope_theta == 0 and positions is not None:
         x = x + layers.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
-    return x
+    return hooks.tp.split(x, 1) if hooks.tp.seq else x
 
 
 def positions_of(B: int, S: int, device) -> torch.Tensor:
@@ -146,16 +165,34 @@ def positions_of(B: int, S: int, device) -> torch.Tensor:
 
 def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor,
             hooks: Hooks = IDENTITY_HOOKS) -> torch.Tensor:
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return hooks.logits(layers.unembed(params["embed"], x))
+    """The final norm and the head; under the sharded step's hooks the
+    head's vocabulary may split over ``model`` (logits [.., V/tp])."""
+    tp = hooks.tp
+    norm = hooks.params.gather(params["final_norm"], "final_norm")
+    x = tp.seq_in(layers.rms_norm(x, tp.seq_weight(norm), cfg.norm_eps))
+    head = "head" if "head" in params["embed"] else "tok"
+    return hooks.logits(layers.unembed(_embed_leaf(params, head, hooks), x,
+                                       cfg.vocab_size, tp))
+
+
+def _embed_leaf(params: Dict, name: str, hooks: Hooks) -> Dict:
+    """``{name: params["embed"][name]}``, gathered over the pool axes
+    (only the leaf that is read: the head's gather is the table's
+    size)."""
+    return {name: hooks.params.gather(params["embed"][name],
+                                      f"embed/{name}")}
 
 
 def _attn_full(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor, impl: str = "xla", window: int = 0,
                hooks: Hooks = IDENTITY_HOOKS):
     """Pre-norm full-sequence attention + residual: (x, layer_kv);
-    ``window`` > 0 bounds a GQA layer to its sliding window."""
-    h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
+    ``window`` > 0 bounds a GQA layer to its sliding window.  Under
+    sequence parallelism the block reads the whole sequence
+    (``tp.seq_in``) and the attention returns the residual's layout."""
+    tp = hooks.tp
+    h = tp.seq_in(layers.rms_norm(x, tp.seq_weight(p_l["ln1"]),
+                                  cfg.norm_eps))
     if cfg.attention == "mla":
         out, kv = attn.mla_full(p_l["attn"], cfg, h, positions, hooks=hooks)
     else:
@@ -171,8 +208,14 @@ def _ffn_full(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
     ``transformer.py:191-192``), else the capacity path (``apply_moe``)
     or the grouped-GEMM path (``apply_moe_grouped``); a dense layer's aux
     is 0.  ``hooks.boundary_in`` / ``boundary_out`` bracket the FFN: the
-    pool boundary."""
-    h = hooks.boundary_in(layers.rms_norm(x, p_l["ln2"], cfg.norm_eps))
+    pool boundary.  Under the sharded training step's hooks the dense
+    MLP's hidden splits over ``tp`` (its partial sums reduced back to the
+    residual's layout, ``tp.seq_out``), and under sequence parallelism
+    the FFN reads the whole sequence (``tp.seq_in``)."""
+    tp = hooks.tp
+    h = tp.seq_in(hooks.boundary_in(
+        layers.rms_norm(x, tp.seq_weight(p_l["ln2"]), cfg.norm_eps)))
+    partial = False
     if cfg.is_moe:
         if moe_path not in ("capacity", "grouped"):
             raise ValueError(f"unknown moe_path {moe_path!r}")
@@ -183,10 +226,11 @@ def _ffn_full(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
                   else moe_mod.apply_moe_grouped)
             f, aux = fn(p_l["moe"], h, cfg, hooks=hooks)
     else:
-        f = layers.apply_mlp(p_l["mlp"], h, cfg.mlp_kind,
-                             hook=hooks.ffn_hidden, down=hooks.ffn_down)
+        f, partial = layers.apply_mlp_split(
+            p_l["mlp"], h, cfg.mlp_kind, cfg.d_ff, tp,
+            hook=hooks.ffn_hidden, down=hooks.ffn_down)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + hooks.act(hooks.boundary_out(f)), aux
+    return x + hooks.act(hooks.boundary_out(tp.seq_out(f, partial))), aux
 
 
 def _unstack(tree, n: int):
@@ -232,10 +276,13 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     S = tokens.shape[1] + (embeddings.shape[1] if embeddings is not None
                            else 0)
     positions = positions_of(B, S, tokens.device)
-    x = embed_inputs(params, cfg, tokens, embeddings, positions)
+    x = embed_inputs(params, cfg, tokens, embeddings, positions, hooks)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def block(xc, p_l, is_global=True):
+        # the layer's FSDP gather, inside the rematerialised body: the
+        # backward gathers again (ZeRO-3)
+        p_l = hooks.params.gather(p_l, "layers")
         if cfg.sliding_window:
             # the reference's ``_attn_full_swa`` (:343-364): the masked
             # softmax for every layer, bounded to the window on the local

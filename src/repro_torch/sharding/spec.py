@@ -115,6 +115,26 @@ class RuleSet:
         return walk(tree, ())
 
 
+def spec_axes(mesh: Mesh, spec: Sequence[AxisName]) -> Tuple[str, ...]:
+    """The mesh axes ``spec`` splits some dimension over, in the mesh's
+    order."""
+    used = {a for ax in spec for a in mesh.axes_of(ax)}
+    return tuple(a for a in mesh.axis_names if a in used)
+
+
+def dims_on(mesh: Mesh, spec: Sequence[AxisName], axes: Sequence[str]
+            ) -> Tuple[Tuple[int, Tuple[str, ...]], ...]:
+    """(dim, its axes among ``axes``) for every dimension ``spec`` splits
+    over some of ``axes``: a leaf's FSDP dims for the pool axes, its
+    tensor-parallel dim for ``("model",)``."""
+    out = []
+    for dim, ax in enumerate(spec):
+        mine = tuple(a for a in mesh.axes_of(ax) if a in axes)
+        if mine:
+            out.append((dim, mine))
+    return tuple(out)
+
+
 # ---------------------------------------------------------------------------
 # What a rank holds
 # ---------------------------------------------------------------------------
@@ -178,14 +198,37 @@ def tree_bytes(rules, mesh: Mesh, tree) -> int:
     return total
 
 
+def map_specs(fn, specs, tree):
+    """``fn(spec, leaf)`` over the leaves of ``tree`` (dicts and
+    NamedTuples such as a ``TrainState``; None stays None), ``specs`` a
+    tree of :class:`PartitionSpec` with its structure."""
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, specs[k], v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(map_specs(fn, s, t)
+                            for s, t in zip(specs, tree)))
+    return None if tree is None else fn(specs, tree)
+
+
 def gather_tree(specs, mesh: Mesh, tree):
     """The whole leaves back from every rank's shards of ``tree`` (a live
     mesh; every rank calls it): each dimension that ``specs`` (a tree of
     :class:`PartitionSpec` with ``tree``'s structure) splits is
     all-gathered over its axes."""
-    if isinstance(tree, dict):
-        return {k: gather_tree(specs[k], mesh, v) for k, v in tree.items()}
-    for dim, ax in enumerate(specs):
-        if ax is not None:
-            tree = mesh.all_gather(tree, ax, dim)
-    return tree
+    def whole(spec, leaf):
+        for dim, ax in enumerate(spec):
+            if ax is not None:
+                leaf = mesh.all_gather(leaf, ax, dim)
+        return leaf
+    return map_specs(whole, specs, tree)
+
+
+def shard_by_specs(specs, mesh: Mesh, tree, device=None):
+    """This rank's shards of ``tree`` under ``specs`` (``shard_tree``'s
+    cut, by a tree of specs: a ``TrainState``'s, ``TrainCell.state_specs``)."""
+    def cut(spec, leaf):
+        part = leaf[local_slices(mesh, leaf.shape, spec)]
+        if part.shape != leaf.shape:
+            part = part.clone()
+        return part if device is None else part.to(device)
+    return map_specs(cut, specs, tree)

@@ -22,10 +22,32 @@ A Strategy emits (a) path-pattern rules for params and caches (the
 reference's tables, verbatim), (b) :class:`Hooks` and (c) input specs.
 
 The reference hands its rules to the partitioner, which places every
-leaf and derives the collectives.  The port's sharded step
-(``launch/dryrun.py`` ``build_serve_cell``) writes the collectives out,
-so it places by the rules only the leaves whose collectives it writes
-(``step_param_rules`` / ``step_cache_rules``):
+leaf and derives the collectives.  The port's sharded steps write the
+collectives out (``sharding/collectives.py``).
+
+The training step (``launch/dryrun.py`` ``build_train_cell``, the
+``train`` strategy) places EVERY leaf by the train rules, params, AdamW's
+moments and the error-feedback tree alike (``step_param_rules`` is the
+rules themselves), and its hooks carry (``hooks()``):
+
+* FSDP over the pool axes: each layer's leaves are all-gathered on their
+  pool dims inside the rematerialised layer (``ParamShards.gather``; the
+  backward reduce-scatters their gradients), the embedding and the head
+  where they are read;
+* TP over ``model`` (``Hooks.tp``): attention heads with ``wo``'s partial
+  sums reduced, the MLP hidden, the experts (the combine reduced), the
+  vocabulary of the embedding, the head and the loss; with
+  ``perf.seq_parallel`` the residual stream's S over ``model``;
+* the batch over the batch axes (``Hooks.dp``): the MoE's capacity slots
+  and load-balance means over the whole (micro)batch, the gradients'
+  mean (``ParamShards.grad_mean``); the global norm and the int8 scales
+  of the whole tensors (``ParamShards.leaf_stats``);
+* with ``perf.moe_a2a``, the experts over ``data`` through
+  ``make_moe_a2a``.
+
+The serve step (``launch/dryrun.py`` ``build_serve_cell``) places by the
+rules only the leaves whose collectives it writes (``step_param_rules``
+/ ``step_cache_rules``):
 
 * the KV-cache pool: a cache leaf's batch rows over the step's row axes
   (``row_axes``), and under crosspool decode with the sequence-sharded
@@ -42,10 +64,11 @@ so it places by the rules only the leaves whose collectives it writes
   / ``*moe/wd``, experts over ``data`` and ``f`` over ``model``, consumed
   by ``make_moe_a2a``.
 
-Every other leaf is whole on every rank: attention projections,
-embeddings and head, routed experts without ``moe_a2a``, SSM projections
-and the SSM state's heads.  Their rules need the partitioner's automatic
-propagation, which the port does not write (ROADMAP Queue 1).
+Every other leaf of the serve step is whole on every rank: attention
+projections, embeddings and head, routed experts without ``moe_a2a``,
+SSM projections and the SSM state's heads (ROADMAP Queue 1 item 1.2:
+the training step's blocks serve them).  The train cells of the ssm,
+hybrid and audio families are not ported (``TRAIN_LEFT_OUT``).
 """
 from __future__ import annotations
 
@@ -58,17 +81,28 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import layers
-from repro_torch.models.hooks import Hooks
-from repro_torch.sharding import seq_attention
+from repro_torch.models import transformer as tfm
+from repro_torch.models.hooks import Hooks, WholeParams
+from repro_torch.sharding import moe_a2a, seq_attention
+from repro_torch.sharding.collectives import AxisGroup
 from repro_torch.sharding.spec import (PartitionSpec, RuleSet, axis_size,
-                                       batch_axes, local_slices, pool_axes,
-                                       safe_spec)
+                                       batch_axes, dims_on, local_slices,
+                                       path_str, pool_axes, safe_spec,
+                                       spec_axes)
+from repro_torch.training.tree import leaves_with_path, unflatten
 
 #: cache leaves whose sequence dimension the sequence-sharded decode reads
 SEQ_SPLIT_LEAVES = ("k", "v", "latent", "rope", "gk", "gv")
 #: gemma3's ring leaves keep the batch on axis 2 ([G,P-1,B,W,...]); every
 #: other cache leaf on axis 1 ([L,B,...])
 RING_LEAVES = ("lk", "lv", "lpos")
+#: the families whose train cells are not ported, and where they are queued
+TRAIN_LEFT_OUT = {
+    "ssm": "ROADMAP Queue 1 item 1.4, after Queue 2 item 8",
+    "hybrid": "ROADMAP Queue 1 item 1.4, after Queue 2 item 8",
+    "audio": "ROADMAP Queue 1 item 1.5"}
+#: the routed experts' leaves, over ``data`` under the train ``moe_a2a``
+EXPERT_LEAVES = ("*moe/w[gu]", "*moe/wd")
 
 
 @dataclass(frozen=True)
@@ -84,6 +118,76 @@ class PerfOpts:
     #                                 (+ for train: experts sharded on 'data')
     kv_dtype: Optional[str] = None  # "f8" = fp8-e4m3 KV cache (2x memory)
     f8_dispatch: bool = False       # fp8 a2a dispatch transport (2x payload)
+
+
+class ParamShards(WholeParams):
+    """Every leaf of a train state placed by ``specs`` ({path: spec of
+    the whole leaf}) on a live mesh: the ``Hooks.params`` of the sharded
+    training step (the interface is ``models/hooks.py``'s).
+
+    ``gather`` all-gathers a tree's leaves on their pool-axis dims (the
+    FSDP dims; the backward reduce-scatters the gradient), except the
+    leaves matching ``expert_parallel``, which the all-to-all dispatch
+    consumes as shards.  ``grad_mean`` sums each leaf's gradient over the
+    batch axes it is replicated on (one all-reduce per set of axes) and
+    divides every leaf by the batch axes' width.  ``leaf_stats`` reduces
+    a per-leaf statistic over the axes the leaf is split on."""
+
+    def __init__(self, mesh: Mesh, specs, pool: Tuple[str, ...],
+                 batch: Tuple[str, ...], expert_parallel=()):
+        self.mesh, self.specs = mesh, specs
+        self.pool, self.batch = pool, batch
+        self.expert_parallel = tuple(expert_parallel)
+
+    def _split(self, path: str) -> Tuple[str, ...]:
+        """The axes (of more than one rank) the leaf at ``path`` splits
+        over."""
+        return tuple(a for a in spec_axes(self.mesh, self.specs[path])
+                     if self.mesh.shape[a] > 1)
+
+    def gather(self, tree, path: str):
+        if isinstance(tree, dict):
+            return {k: self.gather(v, f"{path}/{k}") for k, v in tree.items()}
+        if any(fnmatch.fnmatch(path, p) for p in self.expert_parallel):
+            return tree
+        spec = self.specs[path]
+        # a layer of a stacked leaf has lost the layer dim
+        spec = spec[len(spec) - tree.dim():]
+        for dim, axes in dims_on(self.mesh, spec, self.pool):
+            tree = AxisGroup(self.mesh, axes).gather_sum(tree, dim)
+        return tree
+
+    def _all_reduce(self, values: dict, axes_of, op: str) -> dict:
+        """``values`` ({key: tensor}) all-reduced over ``axes_of(key)``:
+        one flat buffer per (axes, dtype)."""
+        groups: dict = {}
+        for key, v in values.items():
+            axes = axes_of(key)
+            if axes:
+                groups.setdefault((axes, v.dtype), []).append(key)
+        out = dict(values)
+        for (axes, _), keys in groups.items():
+            buf = torch.cat([values[k].reshape(-1) for k in keys])
+            self.mesh.all_reduce(buf, axes, op)
+            parts = buf.split([values[k].numel() for k in keys])
+            out.update({k: part.view_as(values[k])
+                        for k, part in zip(keys, parts)})
+        return out
+
+    @torch.no_grad()
+    def grad_mean(self, grads):
+        flat = {path_str(p): g for p, g in leaves_with_path(grads)}
+        summed = self._all_reduce(
+            flat, lambda k: tuple(a for a in self.batch
+                                  if self.mesh.shape[a] > 1
+                                  and a not in self._split(k)), "sum")
+        n = axis_size(self.mesh, self.batch)
+        return unflatten(grads, [g / n if n > 1 else g
+                                 for g in summed.values()])
+
+    @torch.no_grad()
+    def leaf_stats(self, stats: dict, op: str = "sum") -> dict:
+        return self._all_reduce(stats, self._split, op)
 
 
 class PlacedRules:
@@ -357,13 +461,18 @@ class Strategy:
 
     @property
     def a2a(self) -> bool:
-        """Whether the serve step's routed experts take ``make_moe_a2a``
+        """Whether the step's routed experts take ``make_moe_a2a``
         (``:318-323``; the reference's monolithic hooks leave it out)."""
-        return (self.name == "crosspool" and self.perf.moe_a2a
+        return (self.name in ("crosspool", "train") and self.perf.moe_a2a
                 and self.cfg.is_moe and self.batch_sharded
                 and self.cfg.n_experts % self.mesh.shape["data"] == 0)
 
-    def step_param_rules(self) -> PlacedRules:
+    def step_param_rules(self):
+        """The rules the step places params by: the train step places
+        every leaf by them; the serve steps the leaves of the module
+        docstring, every other leaf whole."""
+        if self.name == "train":
+            return self.param_rules()
         pooled = ["*mlp/w[gui]", "*mlp/w[do]", "*moe/shared/*"]
         if self.a2a:
             pooled += ["*moe/w[gu]", "*moe/wd"]
@@ -430,8 +539,7 @@ class Strategy:
         if m.coord is None:
             raise ValueError("Strategy.hooks() needs a live mesh")
         if self.name == "train":
-            raise NotImplementedError(
-                "the sharded training step is not ported (ROADMAP Queue 1)")
+            return self._train_hooks()
         rows = self.row_axes
         n_rows = axis_size(m, rows)
         split = self._ffn_split_axes()
@@ -453,7 +561,6 @@ class Strategy:
 
         moe_apply = None
         if self.a2a:
-            from repro_torch.models import moe as moe_mod
             wg = self.step_param_rules().spec_for(
                 m, "layers/moe/wg",
                 (self.cfg.n_layers, self.cfg.n_experts, self.cfg.d_model,
@@ -463,7 +570,7 @@ class Strategy:
                 y = layers.apply_mlp(p, gather(x2), "swiglu",
                                      down=ffn_down if split else None)
                 return own_rows(y)
-            moe_apply = moe_mod.make_moe_a2a(
+            moe_apply = moe_a2a.make_moe_a2a(
                 m, self.cfg, expert_axis="data", tp_axis=wg[-1],
                 batch_axes=self.bax, f8_dispatch=self.perf.f8_dispatch,
                 shared=pool_shared)
@@ -494,6 +601,47 @@ class Strategy:
             ffn_down=ffn_down if split is not None else None,
             decode_attn=decode_attn, decode_attn_mla=decode_attn_mla,
             moe_apply=moe_apply, kv_offset=kv_offset)
+
+    def train_specs(self) -> dict:
+        """{path: the train rules' spec} of every param leaf (from the
+        config's shapes alone)."""
+        rules = self.param_rules()
+        return {path_str(p): rules.spec_for(self.mesh, path_str(p),
+                                            tuple(leaf.shape))
+                for p, leaf in leaves_with_path(tfm.param_shapes(self.cfg))}
+
+    def _train_hooks(self) -> Hooks:
+        """The hooks of the sharded training step (the module docstring):
+        the reference's ``act`` / ``attn_q`` / ``kv`` / ``ffn_hidden`` /
+        ``moe_*`` / ``logits`` constraints (``:326-343``), as the
+        collectives its partitioner derives from them."""
+        cfg, m = self.cfg, self.mesh
+        if cfg.family in TRAIN_LEFT_OUT:
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} family's sharded train cell "
+                f"is not ported ({TRAIN_LEFT_OUT[cfg.family]})")
+        seq = (self.perf.seq_parallel
+               and self.shape.seq_len % self.model_size == 0)
+        tp, dp = AxisGroup(m, "model", seq=seq), AxisGroup(m, self.bax)
+        moe_apply, expert_parallel = None, ()
+        if cfg.is_moe and self.perf.moe_a2a:
+            if not self.a2a:
+                raise NotImplementedError(
+                    f"{cfg.name}: the train moe_a2a variant needs the batch "
+                    f"and the {cfg.n_experts} experts split over data")
+
+            def shared(p, x2):
+                y, partial = layers.apply_mlp_split(
+                    p, x2, "swiglu", cfg.n_shared_experts * cfg.d_ff, tp)
+                return tp.reduce(y) if partial else y
+            moe_apply = moe_a2a.make_moe_a2a(
+                m, cfg, expert_axis="data", tp_axis="model",
+                batch_axes=self.bax, f8_dispatch=self.perf.f8_dispatch,
+                shared=shared)
+            expert_parallel = EXPERT_LEAVES
+        return Hooks(params=ParamShards(m, self.train_specs(), self.pool,
+                                        self.bax, expert_parallel),
+                     tp=tp, dp=dp, moe_apply=moe_apply)
 
     # ------------------------------------------------------------------
     # input specs

@@ -6,9 +6,11 @@
     previous checkpoint intact (write to a tmp dir + atomic rename), and
     only the last three checkpoints are kept;
   * ``restore(..., device=)`` places every leaf on ``device``; with
-    ``rules=`` and a live ``mesh=`` it returns this rank's local shards
-    under those rules (the reference's ``shardings`` argument: a
-    checkpoint written under one mesh restores onto another);
+    ``rules=`` (a param tree's) or ``specs=`` (any tree's, a sharded
+    ``TrainState``'s: ``TrainCell.state_specs``) and a live ``mesh=`` it
+    returns this rank's local shards (the reference's ``shardings``
+    argument: a checkpoint written under one mesh restores onto
+    another);
   * ``save(..., specs=, mesh=)`` from a sharded run gathers the whole
     leaves and rank 0 writes them once;
   * ``save_async`` copies the tensors to the host before its thread
@@ -31,7 +33,7 @@ import torch
 
 import torch.distributed as dist
 
-from repro_torch.sharding.spec import gather_tree, shard_tree
+from repro_torch.sharding.spec import gather_tree, shard_by_specs, shard_tree
 from repro_torch.training.tree import leaves_with_path, map_tree
 
 _SEP = "___"
@@ -120,7 +122,7 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore(directory: str, step: Optional[int] = None, *,
-            target_tree=None, device=None, rules=None,
+            target_tree=None, device=None, rules=None, specs=None,
             mesh=None) -> Tuple[Any, int]:
     """Load a checkpoint (the latest when ``step`` is None) onto
     ``device`` (the CPU when None).
@@ -129,7 +131,9 @@ def restore(directory: str, step: Optional[int] = None, *,
     values are ignored), rebuilt with the loaded leaves; if None, the
     result is nested dicts keyed by the path parts.  ``rules`` (a
     ``RuleSet``, e.g. a strategy's ``param_rules()``) and a live ``mesh``
-    re-lay a dict tree out: each leaf is cut to this rank's shard.
+    re-lay a dict tree out: each leaf is cut to this rank's shard;
+    ``specs`` (a tree of partition specs with the target's structure)
+    does the same for any tree.
     """
     step = step if step is not None else latest_step(directory)
     if step is None:
@@ -152,6 +156,8 @@ def restore(directory: str, step: Optional[int] = None, *,
         tree = map_tree(lambda _: flat[next(it)], target_tree)
     if rules is not None:
         tree = shard_tree(rules, mesh, tree, device=device)
+    elif specs is not None:
+        tree = shard_by_specs(specs, mesh, tree, device=device)
     return tree, step
 
 

@@ -13,11 +13,12 @@ state) and returns the same tensors.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.training.tree import leaves, map_tree
+from repro_torch.models.hooks import WHOLE, WholeParams
+from repro_torch.training.tree import leaves, leaves_with_path, map_tree
 
 
 class AdamWState(NamedTuple):
@@ -26,10 +27,15 @@ class AdamWState(NamedTuple):
     v: Dict
 
 
-def global_norm(grads: Dict) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in leaves(grads)))
+def global_norm(grads: Dict, shards: WholeParams = WHOLE) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in f32.  Under the sharded
+    step's ``shards`` (``Hooks.params``; ``grads`` this rank's shards) it
+    is the norm of the whole gradient: each leaf's sum of squares is
+    summed over the axes the leaf is split on and counted once over those
+    it is replicated on."""
+    sq = shards.leaf_stats({"/".join(path): torch.sum(torch.square(g.float()))
+                            for path, g in leaves_with_path(grads)}, "sum")
+    return torch.sqrt(sum(sq.values()))
 
 
 def _store(dst: torch.Tensor, value: torch.Tensor) -> None:
@@ -66,13 +72,17 @@ class AdamW:
         return self.lr * warm
 
     @torch.no_grad()
-    def update(self, grads: Dict, state: AdamWState, params: Dict
+    def update(self, grads: Dict, state: AdamWState, params: Dict,
+               gnorm: Optional[torch.Tensor] = None
                ) -> Tuple[Dict, AdamWState]:
         """One step; ``params`` and the moments are updated in place and
-        returned."""
+        returned.  ``gnorm``: the gradient's global norm when the caller
+        has it (a sharded step's is the whole gradient's,
+        ``global_norm(grads, shards)``)."""
         count = state.count + 1
-        scale = torch.clamp(self.grad_clip / (global_norm(grads) + 1e-12),
-                            max=1.0)
+        if gnorm is None:
+            gnorm = global_norm(grads)
+        scale = torch.clamp(self.grad_clip / (gnorm + 1e-12), max=1.0)
         lr = self.schedule(count)
         b1c = 1.0 - self.b1 ** count.float()
         b2c = 1.0 - self.b2 ** count.float()

@@ -8,6 +8,9 @@ microbatches), optional error-feedback int8 compression, then AdamW.
 MoE path is ``extra_inputs=lambda b: {"moe_path": "grouped"}``, the route
 the reference allows.  The step runs where the params lie; the ssm and
 hybrid families train on the CPU only (their SSD kernel has no backward).
+``hooks`` (the reference's argument) make it the sharded step of
+``launch/dryrun.py`` ``build_train_cell``: each rank's local shards and
+rows, the collectives written out by the hooks.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import transformer as tfm
+from repro_torch.models.hooks import IDENTITY_HOOKS, Hooks
 from repro_torch.models.model import Model
 from repro_torch.training import compression
 from repro_torch.training.optimizer import AdamW, AdamWState, global_norm
@@ -30,48 +34,67 @@ class TrainState(NamedTuple):
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None, *, tp=None,
+                  vocab: Optional[int] = None) -> torch.Tensor:
     """Mean next-token cross-entropy, logsumexp in f32.  logits [B,S,V],
-    labels [B,S]."""
+    labels [B,S].  Logits over this rank's part of the vocabulary
+    ([B,S,V/tp], ids ``[index * V/tp, ...)``, when ``V`` is below
+    ``vocab``) take the split softmax: the max and the sum of
+    exponentials are reduced over ``tp`` and the gold logit comes from
+    the rank that owns its id."""
     V = logits.shape[-1]
-    nll = F.cross_entropy(logits.float().reshape(-1, V),
-                          labels.reshape(-1).long(),
-                          reduction="none").reshape(labels.shape)
+    if tp is None or vocab is None or V == vocab:
+        nll = F.cross_entropy(logits.float().reshape(-1, V),
+                              labels.reshape(-1).long(),
+                              reduction="none").reshape(labels.shape)
+    else:
+        lf = logits.float()
+        top = tp.max(lf.detach().amax(dim=-1, keepdim=True))
+        sumexp = tp.reduce(torch.exp(lf - top).sum(dim=-1))
+        ids = labels.long() - tp.index * V
+        own = (ids >= 0) & (ids < V)
+        gold = lf.gather(-1, ids.clamp(0, V - 1)[..., None])[..., 0]
+        gold = tp.reduce(torch.where(own, gold, torch.zeros_like(gold)))
+        nll = top[..., 0] + torch.log(sumexp) - gold
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
 
 
-def make_loss_fn(model: Model, *, aux_weight: float = 0.01,
-                 remat: bool = True,
+def make_loss_fn(model: Model, *, hooks: Hooks = IDENTITY_HOOKS,
+                 aux_weight: float = 0.01, remat: bool = True,
                  extra_inputs: Optional[Callable[[Dict], Dict]] = None):
+    """loss_fn(params, batch) -> (loss, metrics).  Under the sharded
+    step's ``hooks`` it is this rank's loss: the mean cross-entropy of its
+    rows plus the (global) aux loss."""
     def loss_fn(params: Dict, batch: Dict) -> Tuple[torch.Tensor, Dict]:
         kwargs = extra_inputs(batch) if extra_inputs else {}
         logits, aux = tfm.forward(params, model.cfg, batch["tokens"],
-                                  remat=remat, **kwargs)
+                                  remat=remat, hooks=hooks, **kwargs)
         S_txt = batch["tokens"].shape[1]
         logits_txt = logits[:, -S_txt:, :]
-        ce = cross_entropy(logits_txt[:, :-1], batch["tokens"][:, 1:])
+        ce = cross_entropy(logits_txt[:, :-1], batch["tokens"][:, 1:],
+                           tp=hooks.tp, vocab=model.cfg.vocab_size)
         loss = ce + aux_weight * aux
         return loss, {"ce": ce, "aux": aux, "loss": loss}
     return loss_fn
 
 
-def make_train_step(model: Model, optimizer: AdamW, *,
-                    num_microbatches: int = 1,
-                    compress: bool = False,
-                    aux_weight: float = 0.01,
-                    remat: bool = True,
-                    extra_inputs: Optional[Callable[[Dict], Dict]] = None):
-    """Returns step(state, batch) -> (state, metrics).
-
-    batch["tokens"]: [global_batch, S].  With ``num_microbatches`` G > 1
-    the batch is split [G, B/G, S] and the gradients accumulate in f32,
-    each divided by G.  The state's params and moments are updated in
-    place (``AdamW.update``); metrics are detached f32 scalars.
-    """
-    loss_fn = make_loss_fn(model, aux_weight=aux_weight, remat=remat,
-                           extra_inputs=extra_inputs)
+def make_grad_fn(model: Model, *, hooks: Hooks = IDENTITY_HOOKS,
+                 num_microbatches: int = 1, aux_weight: float = 0.01,
+                 remat: bool = True,
+                 extra_inputs: Optional[Callable[[Dict], Dict]] = None):
+    """grad_fn(params, batch) -> (metrics, grads): the loss's gradient
+    (accumulated in f32 over ``num_microbatches`` G: the batch split
+    [G, B/G, ...], each part's gradient divided by G) and the metrics,
+    detached f32 scalars.  Under the sharded step's hooks ``params`` and
+    ``grads`` are this rank's shards and ``batch`` its rows (microbatch i
+    is rows ``[i * B/G, (i+1) * B/G)`` of them: ``build_train_cell``'s
+    ``local_batch`` places each microbatch's rows as the reference
+    does); the gradients get the data-parallel mean
+    (``hooks.params.grad_mean``) and the cross-entropy the batch's mean."""
+    loss_fn = make_loss_fn(model, hooks=hooks, aux_weight=aux_weight,
+                           remat=remat, extra_inputs=extra_inputs)
     G = num_microbatches
 
     def grads_of(params: Dict, batch: Dict) -> Tuple[Dict, Dict]:
@@ -85,14 +108,7 @@ def make_train_step(model: Model, optimizer: AdamW, *,
         return ({k: v.detach().float() for k, v in metrics.items()},
                 unflatten(params, grads))
 
-    def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        params = state.params
-        if (model.cfg.family in ("ssm", "hybrid")
-                and batch["tokens"].device.type == "cuda"):
-            raise NotImplementedError(
-                f"{model.cfg.name}: training the ssm/hybrid families on a "
-                f"card needs SSD scan and flash attention backward kernels "
-                f"(ROADMAP Queue 2 item 8); train them on the CPU")
+    def grad_fn(params: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         if G == 1:
             metrics, grads = grads_of(params, batch)
         else:
@@ -107,12 +123,56 @@ def make_train_step(model: Model, optimizer: AdamW, *,
                     acc.add_(g.float() / G)
                 for k, v in m_i.items():
                     metrics[k] = metrics.get(k, 0.0) + v / G
+        dp = hooks.dp
+        if dp.size > 1:
+            with torch.no_grad():
+                metrics["ce"] = dp.reduce(metrics["ce"]) / dp.size
+            metrics["loss"] = metrics["ce"] + aux_weight * metrics["aux"]
+        return metrics, hooks.params.grad_mean(grads)
+
+    return grad_fn
+
+
+def make_train_step(model: Model, optimizer: AdamW, *,
+                    hooks: Hooks = IDENTITY_HOOKS,
+                    num_microbatches: int = 1,
+                    compress: bool = False,
+                    aux_weight: float = 0.01,
+                    remat: bool = True,
+                    extra_inputs: Optional[Callable[[Dict], Dict]] = None):
+    """Returns step(state, batch) -> (state, metrics).
+
+    batch["tokens"]: [global_batch, S].  With ``num_microbatches`` G > 1
+    the batch is split [G, B/G, S] and the gradients accumulate in f32,
+    each divided by G (``make_grad_fn``).  The state's params and moments
+    are updated in place (``AdamW.update``); metrics are detached f32
+    scalars.  ``hooks``: the sharded step's (``Strategy.hooks()``), with
+    ``state`` this rank's shards: the global norm and the compression's
+    scales are the whole gradient's.
+    """
+    grad_fn = make_grad_fn(model, hooks=hooks,
+                           num_microbatches=num_microbatches,
+                           aux_weight=aux_weight, remat=remat,
+                           extra_inputs=extra_inputs)
+
+    def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        params = state.params
+        if (model.cfg.family in ("ssm", "hybrid")
+                and batch["tokens"].device.type == "cuda"):
+            raise NotImplementedError(
+                f"{model.cfg.name}: training the ssm/hybrid families on a "
+                f"card needs SSD scan and flash attention backward kernels "
+                f"(ROADMAP Queue 2 item 8); train them on the CPU")
+        metrics, grads = grad_fn(params, batch)
         error_fb = state.error_fb
         if compress:
-            grads, error_fb = compression.compress_grads(grads, error_fb)
-        new_params, new_opt = optimizer.update(grads, state.opt, params)
+            grads, error_fb = compression.compress_grads(grads, error_fb,
+                                                         hooks.params)
+        gnorm = global_norm(grads, hooks.params)
+        new_params, new_opt = optimizer.update(grads, state.opt, params,
+                                               gnorm=gnorm)
         metrics = dict(metrics)
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = gnorm
         return TrainState(new_params, new_opt, error_fb), metrics
 
     return step

@@ -40,7 +40,7 @@ from repro_torch.configs import SHAPES_BY_NAME as T_SHAPES
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import Mesh
-from repro_torch.models import moe as tmoe
+from repro_torch.sharding import moe_a2a
 from repro_torch.sharding.seq_attention import (make_seq_decode_attn,
                                                 make_seq_mla_decode_attn)
 from repro_torch.sharding.spec import (local_slices, path_str, shard_shape,
@@ -130,7 +130,7 @@ def _collectives_job(p):
         w = moe_p[name]
         local[name] = w[local_slices(mesh, w.shape, spec)]
     for f8 in (False, True):
-        a2a = tmoe.make_moe_a2a(mesh, cfg, expert_axis="data",
+        a2a = moe_a2a.make_moe_a2a(mesh, cfg, expert_axis="data",
                                 tp_axis="model", batch_axes=("data",),
                                 capacity_mult=8.0, f8_dispatch=f8)
         out[f"a2a_f8={f8}"] = a2a(local, _rows(mesh, x, "data"))
