@@ -249,7 +249,8 @@ other than 0) if any phase fails:
              rope cache comes from a seeded generator, split over four
              processes sharing the card over gloo (crosspool on a (1, 4)
              mesh: the sequence-sharded MLA decode, each rank 8192
-             tokens of the cache and a quarter of the dense FFN): 8
+             tokens of the cache, its heads of the attention, a quarter
+             of the vocabulary and of the dense FFN): 8
              decode steps fed the same decode's tokens at one rank on
              the whole cache, in bf16 (every rank exits 0 with finite
              logits and a quarter of the one rank's cache bytes; the
@@ -276,6 +277,32 @@ other than 0) if any phase fails:
              the dry-run's, its launches exact; ms a step, tokens/s and
              peak GiB a rank, a one-card rehearsal.  Under
              ``"sharded_train"`` in ``build/chip_smoke.json``.
+
+16. sharded serve — the serve step (``build_serve_cell``) with every
+             param leaf placed by the serving rules (heads and vocabulary
+             over ``model``, experts over ``model`` or ``data``), in
+             phase 14's one-rank NCCL group and then four processes
+             (spawned once) sharing the card over gloo: (a) qwen3-14b at
+             its full published config (40 layers, bf16) under
+             monolithic over (1, 4), each rank a quarter of every leaf
+             (10 query heads over 2 KV heads, its KV heads' share of the
+             cache); (b) moonshot-v1-16b-a3b at published widths (14a's
+             depth rule) under crosspool over (2, 2) (8 heads a rank, 32
+             of 64 experts with 704 of each expert's 1408 ``f``).  Each
+             draws its params leaf by leaf (``dryrun.draw_params``) and
+             builds its cache at its local shapes: its resident param
+             and cache bytes must equal the rules' exactly; 4 prompts of
+             512 tokens through the flash prefill, 8 paged decode steps
+             fed the one-rank run's tokens, ``flash_attention`` launched
+             once a layer a prefill and ``decode_attention`` once a layer
+             a step on every rank.  The one-rank reference is the
+             unsharded Model path on the same draw, run first.  In bf16
+             the greedy agreement (``dryrun.greedy``'s split argmax) and
+             the logit rows' error are printed; each is run again in
+             float32 at a depth that fits, where the ids must be equal
+             and every row within 1e-4.  Rows 3-4 are timed at the ranks'
+             head geometries.  Under ``"sharded_serve"``; its times are a
+             one-card gloo rehearsal.
 
 Phases 3 and 13 hold the paged GQA and MLA kernels in bf16 to the same
 row limit as rows 3-4: each output row's relative RMS error within 1e-2
@@ -411,6 +438,26 @@ SHARDED_VARIANTS = (("plain", {}),
                      {"seq_parallel": True, "compress_grads": True}))
 #: seconds phase 15b's ranks may take, start to end, for every variant
 SHARDED_TIMEOUT = 400
+#: phase 16: the sharded serve step with every param leaf placed by the
+#: serving rules, (label, arch, strategy, (data, model), dtype, depth:
+#: None = the published depth, "fit" = phase 14a's rule at the dtype);
+#: each float32 run is the equality gate of the bf16 run above it (in
+#: bf16 the four ranks' partial sums round in another order than one
+#: rank's: PERF.md on phase 14b)
+SERVE_SHARD_RUNS = (
+    ("16a bf16", "qwen3-14b", "monolithic", (1, 4), "bfloat16", None),
+    ("16a float32", "qwen3-14b", "monolithic", (1, 4), "float32", "fit"),
+    ("16b bf16", "moonshot-v1-16b-a3b", "crosspool", (2, 2), "bfloat16",
+     "fit"),
+    ("16b float32", "moonshot-v1-16b-a3b", "crosspool", (2, 2), "float32",
+     "fit"))
+#: phase 16's (prompts, prompt tokens, decode steps), its processes, the
+#: seconds they may take start to end, and its float32 gate's limit on a
+#: logit row's relative RMS error against the one-rank run
+SERVE_SHARD_SIZES = (4, 512, 8)
+SERVE_SHARD_RANKS = 4
+SERVE_SHARD_TIMEOUT = 300
+SERVE_SHARD_ROW_RMS = 1e-4
 EXAMPLE_ARCHS = ("qwen3-moe-235b-a22b", "moonshot-v1-16b-a3b", "minicpm3-4b",
                  "qwen3-14b")
 #: phase 8 times these kernels at these of its shapes and loads
@@ -3327,6 +3374,49 @@ def observe_phase(torch, np, kops, models, card) -> dict:
 # phase 12: the dense-cache Model path of the remaining families
 # ---------------------------------------------------------------------------
 
+def flash_time_row(torch, kops, ref, shape, q, k, v, scale) -> dict:
+    """Row 4 on causal bf16 ``q`` [B,S,H,D], ``k`` / ``v`` [B,S,KV,D]:
+    kernel, plain version and the fastest SDPA backend timed beside the
+    bound."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    b_ms, b_by = bound_ms((2 * B * S * H * D + 2 * B * S * KV * D) * 2,
+                          4 * B * H * D * (S * (S + 1) // 2))
+    lib, lib_name, lib_all = library_sdpa(torch, lambda: sdpa(
+        qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True))
+    return dict(
+        kernel="flash_attention", shape=shape,
+        ms=time_ms(torch, lambda: kops.flash_attention(q, k, v,
+                                                       scale=scale)),
+        plain_ms=time_ms(torch, lambda: ref.flash_attention(q, k, v, scale)),
+        library_ms=lib, library=lib_name, library_all=lib_all,
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def decode_time_row(torch, kops, ref, shape, q, ck, cv, lens, scale
+                    ) -> dict:
+    """Row 3 on bf16 ``q`` [B,1,H,D] over a full cache [B,T,KV,D]: kernel,
+    plain version and the fastest SDPA backend timed beside the bound."""
+    B, _, H, D = q.shape
+    T, KV = ck.shape[1], ck.shape[2]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, ck, cv))
+    b_ms, b_by = bound_ms(2 * B * T * KV * D * 2 + 2 * B * H * D * 2
+                          + 4 * B, 4 * B * H * T * D)
+    lib, lib_name, lib_all = library_sdpa(torch, lambda: sdpa(
+        qt, kt, vt, scale=scale, enable_gqa=True))
+    return dict(
+        kernel="decode_attention", shape=shape,
+        ms=time_ms(torch, lambda: kops.decode_attention(q, ck, cv, lens,
+                                                        scale=scale)),
+        plain_ms=time_ms(torch, lambda: ref.decode_attention(q, ck, cv, lens,
+                                                             scale)),
+        library_ms=lib, library=lib_name, library_all=lib_all,
+        bound_ms=b_ms, bound_by=b_by)
+
+
 def families_kernel_phase(torch, kops, ref):
     """(12a) Rows 3 and 4 at gemma3's head geometry (H 16 over KV 8, head
     dim 256) against their plain versions (bf16 2e-2 and a row relative
@@ -3339,7 +3429,6 @@ def families_kernel_phase(torch, kops, ref):
     cfg = get_config(GEMMA)
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     W = cfg.sliding_window
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
 
@@ -3370,20 +3459,9 @@ def families_kernel_phase(torch, kops, ref):
                 row_limit(torch, dtype))
             errs["decode_attention"] = max(errs.get("decode_attention", 0), e)
         q, ck, cv, lens = decode_case(B, T, [T] * B, torch.bfloat16)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, ck, cv))
-        b_ms, b_by = bound_ms(2 * B * T * KV * D * 2 + 2 * B * H * D * 2
-                              + 4 * B, 4 * B * H * T * D)
-        lib, lib_name, lib_all = library_sdpa(torch, lambda: sdpa(
-            qt, kt, vt, scale=D ** -0.5, enable_gqa=True))
-        rows.append(dict(
-            kernel="decode_attention", shape=f"gemma3 {label} B={B} T={T} "
-                                             f"H={H} KV={KV} D={D} bf16",
-            ms=time_ms(torch, lambda: kops.decode_attention(
-                q, ck, cv, lens, scale=D ** -0.5)),
-            plain_ms=time_ms(torch, lambda: ref.decode_attention(
-                q, ck, cv, lens, D ** -0.5)),
-            library_ms=lib, library=lib_name, library_all=lib_all,
-            bound_ms=b_ms, bound_by=b_by))
+        rows.append(decode_time_row(
+            torch, kops, ref, f"gemma3 {label} B={B} T={T} H={H} KV={KV} "
+                              f"D={D} bf16", q, ck, cv, lens, D ** -0.5))
 
     for B, S, T, dtype, tol in ((GEMMA_BATCH, GEMMA_PROMPT, GEMMA_PROMPT,
                                  torch.bfloat16, 2e-2),
@@ -3401,21 +3479,9 @@ def families_kernel_phase(torch, kops, ref):
         errs["flash_attention"] = max(errs.get("flash_attention", 0), e)
     B, S = GEMMA_BATCH, GEMMA_PROMPT
     q, k, v = (randn(B, S, h, D) for h in (H, KV, KV))
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    pairs = S * (S + 1) // 2
-    b_ms, b_by = bound_ms((2 * B * S * H * D + 2 * B * S * KV * D) * 2,
-                          4 * B * H * D * pairs)
-    lib, lib_name, lib_all = library_sdpa(torch, lambda: sdpa(
-        qt, kt, vt, is_causal=True, scale=D ** -0.5, enable_gqa=True))
-    rows.append(dict(
-        kernel="flash_attention", shape=f"gemma3 B={B} S=T={S} H={H} "
-                                        f"KV={KV} D={D} bf16",
-        ms=time_ms(torch, lambda: kops.flash_attention(q, k, v,
-                                                       scale=D ** -0.5)),
-        plain_ms=time_ms(torch, lambda: ref.flash_attention(q, k, v,
-                                                            D ** -0.5)),
-        library_ms=lib, library=lib_name, library_all=lib_all,
-        bound_ms=b_ms, bound_by=b_by))
+    rows.append(flash_time_row(torch, kops, ref, f"gemma3 B={B} S=T={S} "
+                               f"H={H} KV={KV} D={D} bf16", q, k, v,
+                               D ** -0.5))
     for r in rows:
         log(f"time {r['kernel']} {r['shape']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -4007,11 +4073,12 @@ def _cell_shape(kind, seq_len, batch):
 
 
 def _decode_steps(torch, step, params, cache, tokens, lengths, steps,
-                  device, forced=None):
+                  device, forced=None, greedy=None):
     """``steps`` decode steps of ``step(params, tok, cache, lengths)``:
-    greedy, or fed ``forced[i]`` at step i (the other run's tokens).
-    Returns (logits per step [steps, B, V] float32, greedy tokens [steps,
-    B], ms a step); the card is synchronised around the run."""
+    greedy (``greedy(logits)``, default the argmax), or fed ``forced[i]``
+    at step i (the other run's tokens).  Returns (logits per step [steps,
+    B, V] float32, greedy tokens [steps, B], ms a step); the card is
+    synchronised around the run."""
     logits_all, toks = [], []
     tok = tokens
     sync(torch, device)
@@ -4019,7 +4086,8 @@ def _decode_steps(torch, step, params, cache, tokens, lengths, steps,
     for i in range(steps):
         logits, _ = step(params, tok, cache, lengths)
         logits_all.append(logits.float())
-        toks.append(logits.argmax(-1).to(torch.int32))
+        toks.append((logits.argmax(-1) if greedy is None
+                     else greedy(logits)).to(torch.int32))
         tok = toks[-1] if forced is None else forced[i]
         lengths = lengths + 1
     sync(torch, device)
@@ -4060,14 +4128,7 @@ def sharding_one_rank(torch, kops, device="cuda", cfg=None, depth=None):
     on_card = torch.device(device).type == "cuda"
     cfg = cfg or get_config(SHARD_MODEL)
     if depth is None:
-        one = dryrun.param_shapes(cfg.replace(n_layers=1))
-        two = dryrun.param_shapes(cfg.replace(n_layers=2))
-        nbytes = [sum(t.numel() * t.element_size() for t in leaves(p))
-                  for p in (one, two)]
-        layer, rest = nbytes[1] - nbytes[0], 2 * nbytes[0] - nbytes[1]
-        free = torch.cuda.mem_get_info()[0]
-        depth = min(cfg.n_layers,
-                    int((free * SHARD_MEMORY_SHARE - rest) // layer))
+        depth = _fit_depth(torch, cfg)
     cfg = cfg.replace(n_layers=depth)
     cfg_dec = cfg.replace(capacity_factor=SHARD_DECODE_CAPACITY)
     B, S, steps = SHARD_BATCH, SHARD_PROMPT, SHARD_STEPS
@@ -4191,15 +4252,17 @@ def _pool_decode(torch, st, params, cache, cfg, tok0, device, forced=None):
     lengths = torch.full((1,), st.shape.seq_len - POOL_STEPS,
                          dtype=torch.int32, device=device)
     return _decode_steps(torch, step, params, cache, tok0, lengths,
-                         POOL_STEPS, device, forced=forced)
+                         POOL_STEPS, device, forced=forced,
+                         greedy=lambda logits: dryrun.greedy(st, logits))
 
 
 def _pool_rank(rank, tmp, device, cfg, gate):
     """One of phase 14b's ranks: joins the gloo group, draws the model
     and the cache (one rank at a time, so one whole tree is alive on the
     card at once), keeps its shards, then decodes fed the one-rank run's
-    tokens and writes what it measured; with ``gate`` its greedy tokens
-    and logit rows must agree with the one-rank run's."""
+    tokens and writes what it measured (its logits gathered over the
+    vocabulary split); with ``gate`` its greedy tokens and logit rows
+    must agree with the one-rank run's."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import dryrun
@@ -4222,7 +4285,9 @@ def _pool_rank(rank, tmp, device, cfg, gate):
     logits, toks, ms = _pool_decode(
         torch, st, params, cache, cfg, ref["tok0"].to(device), device,
         forced=ref["tokens"].to(device))
-    logits, toks = logits.cpu(), toks.cpu()
+    # the whole rows from the ranks' vocabulary shards (gloo, host)
+    logits = mesh.all_gather(logits.cpu(), "model", -1)
+    toks = toks.cpu()
     if gate:
         _agree(torch, f"sharding 14b {cfg.dtype} rank {rank}", logits, toks,
                ref["logits"], ref["tokens"])
@@ -4266,8 +4331,9 @@ def sharding_pool(torch, tmp, cfg, device="cuda", ctx=POOL_CTX,
     crosspool on a (1, ``POOL_RANKS``) mesh (Type II: the
     sequence-sharded MLA decode), ``POOL_RANKS`` processes sharing the
     card over gloo on CUDA tensors.  Each rank holds its ``ctx /
-    POOL_RANKS``-token slice of the cache and its share of the dense
-    FFN.  The reference is the same decode at one rank on the whole
+    POOL_RANKS``-token slice of the cache and its share of every param
+    leaf (the serve rules: heads, vocabulary, the dense FFN).  The
+    reference is the same decode at one rank on the whole
     cache (this process, its one-rank group): ``POOL_STEPS`` greedy
     steps, fed to the ranks.  Every rank must exit 0 with finite logits
     and a quarter of the one-rank run's cache bytes; with ``gate`` its
@@ -4560,7 +4626,7 @@ def _train_rank_run(torch, kops, tmp, mesh, cfg, index, device) -> dict:
     tag = f"sharded train 15b {label} rank {rank}"
     loss_rel = _close_rel(f"{tag} loss", losses, ref["losses"], 1e-4)
     gnorm_rel = _close_rel(f"{tag} grad norm", gnorms, ref["gnorms"], 1e-4)
-    specs = st.train_specs()
+    specs = st.param_specs()
     param_err = 0.0
     for path, local in leaves_with_path(state.params):
         path = "/".join(path)
@@ -4674,6 +4740,362 @@ def sharded_train_phase(torch, kops, tmp, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the sharded serve step
+# ---------------------------------------------------------------------------
+
+def _fit_depth(torch, cfg) -> int:
+    """The most layers of ``cfg`` whose whole tree fits
+    ``SHARD_MEMORY_SHARE`` of the card's free memory (phase 14a's rule)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.training.tree import leaves
+    one = dryrun.param_shapes(cfg.replace(n_layers=1))
+    two = dryrun.param_shapes(cfg.replace(n_layers=2))
+    nbytes = [sum(t.numel() * t.element_size() for t in leaves(p))
+              for p in (one, two)]
+    layer, rest = nbytes[1] - nbytes[0], 2 * nbytes[0] - nbytes[1]
+    free = torch.cuda.mem_get_info()[0]
+    return min(cfg.n_layers, int((free * SHARD_MEMORY_SHARE - rest) // layer))
+
+
+def serve_shard_cfg(torch, run):
+    """The config of one ``SERVE_SHARD_RUNS`` entry: the published config
+    in the run's dtype, at its depth (None: every layer; "fit":
+    ``_fit_depth`` of the run's dtype)."""
+    from repro_torch.configs import get_config
+    label, arch, strategy, mesh, dtype, depth = run
+    cfg = get_config(arch).replace(dtype=dtype)
+    if depth == "fit":
+        depth = _fit_depth(torch, cfg)
+    return cfg.replace(n_layers=depth or cfg.n_layers)
+
+
+def _serve_reference(torch, kops, tmp, index, cfg, sizes, device="cuda"):
+    """(16, one rank) The unsharded Model path on the run's seeded draw:
+    a flash prefill of ``B`` prompts of ``S`` tokens and ``steps`` greedy
+    paged decode steps; its prompt, logits (prefill first) and greedy
+    tokens go to ``tmp/serve_ref{index}.pt`` for the ranks, and the whole
+    tree is freed.  Returns its figures."""
+    from repro_torch.models.model import build_model
+    from repro_torch.training.tree import leaves
+    B, S, steps = sizes
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = _seeded_params(torch, model, device)
+    sync(torch, device)
+    draw_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    gen = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=device, dtype=torch.int32)
+    cache = model.init_cache(B, S + steps, device)
+    reset_launches(kops)
+    sync(torch, device)
+    t0 = time.perf_counter()
+    first, _ = model.prefill(params, tokens, cache, impl="flash")
+    sync(torch, device)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre = read_launches(kops)
+
+    def unsharded(p, tok, c, lens):
+        return model.decode_step(p, tok, c, lens, impl="paged")
+    reset_launches(kops)
+    logits, toks, ms = _decode_steps(
+        torch, unsharded, params, cache, first.argmax(-1).to(torch.int32),
+        torch.full((B,), S, dtype=torch.int32, device=device), steps, device)
+    dec = read_launches(kops)
+    torch.save(dict(tokens=tokens.cpu(),
+                    logits=torch.cat([first.float()[None], logits]).cpu(),
+                    toks=torch.cat([first.argmax(-1).to(torch.int32)[None],
+                                    toks]).cpu()),
+               f"{tmp}/serve_ref{index}.pt")
+    out = dict(params=n_params,
+               param_bytes=sum(t.numel() * t.element_size()
+                               for t in leaves(params)),
+               draw_s=draw_s, prefill_ms=prefill_ms, decode_ms=ms,
+               tokens_per_s=B * 1e3 / ms, launches_prefill=pre,
+               launches_decode=dec)
+    del params, cache, first, logits
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _serve_rank_run(torch, kops, tmp, index, run, cfg, sizes, device):
+    """One ``SERVE_SHARD_RUNS`` entry on this rank: its params drawn leaf
+    by leaf and cut (``dryrun.draw_params``), its local cache
+    (``dryrun.local_cache``), resident bytes equal to the rules', the
+    serve cell's flash prefill and ``steps`` paged decode steps fed the
+    one-rank run's tokens, exact launches on the card.  Saves the
+    rank's logit shards and greedy ids beside the figures."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding.spec import tree_bytes
+    from repro_torch.sharding.strategies import make_strategy
+    label, _, strategy, mesh_shape, _, _ = run
+    B, S, steps = sizes
+    T = S + steps
+    on_card = torch.device(device).type == "cuda"
+    ref = torch.load(f"{tmp}/serve_ref{index}.pt")
+    mesh = Mesh(mesh_shape, ("data", "model"), live=True)
+    st_pre = make_strategy(strategy, mesh, cfg, _cell_shape("prefill", T, B))
+    st_dec = make_strategy(strategy, mesh, cfg, _cell_shape("decode", T, B))
+    meta = dryrun.cache_shapes(cfg, B, T)
+    if any(st_pre.step_cache_rules().spec_for(mesh, k, v.shape)
+           != st_dec.step_cache_rules().spec_for(mesh, k, v.shape)
+           for k, v in meta.items()):
+        raise AssertionError(f"sharded serve {label}: the prefill's and "
+                             f"the decode's caches are placed apart")
+    tag = f"sharded serve {label} rank {mesh.rank}"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    sync(torch, device)
+    t0 = time.perf_counter()
+    params = dryrun.draw_params(st_pre, torch.Generator(
+        device=device).manual_seed(0))
+    cache = dryrun.local_cache(st_pre, B, T, device)
+    sync(torch, device)
+    draw_s = time.perf_counter() - t0
+    param_bytes = dryrun.resident_bytes(params)
+    cache_bytes = dryrun.resident_bytes(cache)
+    want = (tree_bytes(st_pre.param_rules(), mesh, dryrun.param_shapes(cfg)),
+            tree_bytes(st_pre.step_cache_rules(), mesh, meta))
+    if (param_bytes, cache_bytes) != want:
+        raise AssertionError(f"{tag}: resident params / cache "
+                             f"{param_bytes} / {cache_bytes} bytes, the "
+                             f"rules' {want}")
+    prefill = dryrun.build_serve_cell(cfg, st_pre.shape, st_pre,
+                                      impl="flash")
+    step = dryrun.build_serve_cell(cfg, st_dec.shape, st_dec, impl="paged")
+    tokens = dryrun.local_rows(st_pre, ref["tokens"].to(device))
+    inputs = ref["toks"][:steps].to(device)
+    reset_launches(kops)
+    sync(torch, device)
+    t0 = time.perf_counter()
+    first, _ = prefill(params, tokens, cache)
+    ids = [dryrun.greedy(st_pre, first)]
+    sync(torch, device)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre = read_launches(kops)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=device)
+    lengths = dryrun.local_rows(st_dec, lengths)
+    shards = [first.float()]
+    reset_launches(kops)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, _ = step(params, dryrun.local_rows(st_dec, inputs[i]), cache,
+                         lengths)
+        shards.append(logits.float())
+        ids.append(dryrun.greedy(st_dec, logits))
+        lengths = lengths + 1
+    sync(torch, device)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    dec = read_launches(kops)
+    if on_card:
+        check_counts(f"{tag} prefill", pre,
+                     {"flash_attention": cfg.n_layers,
+                      "decode_attention": 0})
+        check_counts(f"{tag} decode", dec,
+                     {"flash_attention": 0,
+                      "decode_attention": cfg.n_layers * steps})
+    vocab = first.shape[-1]
+    torch.save(dict(logits=torch.stack(shards).cpu(),
+                    ids=torch.stack(ids).cpu(),
+                    rows=dryrun.local_rows(st_dec, torch.arange(B)),
+                    vocab0=0 if vocab == cfg.vocab_size
+                    else mesh.index("model") * vocab),
+               f"{tmp}/serve_shards{index}_{mesh.rank}.pt")
+    out = dict(rank=mesh.rank, coord=list(mesh.coord), draw_s=draw_s,
+               param_bytes=param_bytes, cache_bytes=cache_bytes,
+               prefill_ms=prefill_ms, decode_ms=decode_ms,
+               tokens_per_s=B * 1e3 / decode_ms,
+               peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                         if on_card else 0.0),
+               launches_prefill=pre, launches_decode=dec)
+    del params, cache, first, logits
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _serve_rank(rank, tmp, device, runs, cfgs, sizes):
+    """One of phase 16's ranks: joins the gloo group and runs every entry
+    of ``runs`` (at ``cfgs``) in turn."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops as kops
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/serve_pg",
+                            rank=rank, world_size=SERVE_SHARD_RANKS)
+    out = [_serve_rank_run(torch, kops, tmp, i, run, cfg, sizes, device)
+           for i, (run, cfg) in enumerate(zip(runs, cfgs))]
+    with open(f"{tmp}/serve_rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _serve_agreement(torch, tmp, index, sizes) -> dict:
+    """The four ranks' logit shards of run ``index`` assembled into whole
+    rows (ranks holding the same entries must agree bit for bit), against
+    the one-rank run's: the largest row relative RMS error, and the
+    greedy ids each rank took (the split argmax) against the one-rank
+    run's, prefill first."""
+    ref = torch.load(f"{tmp}/serve_ref{index}.pt")
+    whole = torch.full_like(ref["logits"], float("nan"))
+    equal = total = 0
+    for r in range(SERVE_SHARD_RANKS):
+        got = torch.load(f"{tmp}/serve_shards{index}_{r}.pt")
+        rows, v0 = got["rows"], got["vocab0"]
+        n = got["logits"].shape[-1]
+        part = whole[:, rows, v0:v0 + n]
+        seen = ~torch.isnan(part)
+        if not torch.equal(part[seen], got["logits"][seen]):
+            raise AssertionError(f"sharded serve run {index}: ranks part on "
+                                 f"the same logits")
+        whole[:, rows, v0:v0 + n] = got["logits"]
+        equal += int((got["ids"] == ref["toks"][:, rows]).sum())
+        total += got["ids"].numel()
+    if torch.isnan(whole).any():
+        raise AssertionError(f"sharded serve run {index}: the ranks' "
+                             f"shards do not cover the logits")
+    return dict(max_row_rms=row_error(whole, ref["logits"]),
+                ids_equal=equal, ids_total=total,
+                finite=bool(torch.isfinite(whole).all()))
+
+
+def local_heads_kernel_rows(torch, kops, ref, geometries):
+    """Rows 3 and 4 at phase 16's geometries ((label, B, S, T, [(H, KV)
+    of the prefill, of the decode], D): a rank's heads): each against its
+    plain version (bf16 2e-2 and the row limit), then timed beside its
+    bound and SDPA."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows, errs = [], {}
+    for label, B, S, T, ((H, KV), (H1, KV1)), D in geometries:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen,
+                               device="cuda").to(torch.bfloat16)
+        scale = D ** -0.5
+        q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
+        shape = f"{label} B={B} S=T={S} H={H} KV={KV} D={D} bf16"
+        errs["flash_attention"] = max(errs.get("flash_attention", 0.0),
+                                      close_or_raise(
+            torch, f"flash {shape}", kops.flash_attention(q, k, v,
+                                                          scale=scale),
+            ref.flash_attention(q, k, v, scale), 2e-2, BF16_ROW_RMS))
+        rows.append(flash_time_row(torch, kops, ref, shape, q, k, v, scale))
+        q, ck, cv = randn(B, 1, H1, D), randn(B, T, KV1, D), randn(B, T, KV1,
+                                                                   D)
+        lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+        shape = f"{label} B={B} T={T} H={H1} KV={KV1} D={D} bf16"
+        errs["decode_attention"] = max(errs.get("decode_attention", 0.0),
+                                       close_or_raise(
+            torch, f"decode {shape}", kops.decode_attention(
+                q, ck, cv, lens, scale=scale),
+            ref.decode_attention(q, ck, cv, lens, scale), 2e-2,
+            BF16_ROW_RMS))
+        rows.append(decode_time_row(torch, kops, ref, shape, q, ck, cv, lens,
+                                    scale))
+    for r in rows:
+        log(f"time {r['kernel']} {r['shape']}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {r['library']} {r['library_ms']:.4f} ms "
+            f"(sdpa backends {fmt_backends(r['library_all'])})")
+    return errs, rows
+
+
+def sharded_serve_phase(torch, kops, tmp, card, device="cuda",
+                        runs=SERVE_SHARD_RUNS, cfgs=None,
+                        sizes=SERVE_SHARD_SIZES) -> dict:
+    """Phase 16: every ``runs`` entry's one-rank reference
+    (``_serve_reference``, this process), then the four ranks (every run
+    in one spawn, gloo on CUDA tensors), then each run's agreement: in
+    float32 the greedy ids equal and every logit row within
+    ``SERVE_SHARD_ROW_RMS``, in bf16 measured and printed.  ``cfgs``
+    (default ``serve_shard_cfg``) and ``sizes`` (B, S, steps) rehearse it
+    on the CPU (``device="cpu"``: launch gates and timing are card-only).
+    The times are a one-card gloo rehearsal, not a multi-card figure."""
+    t0 = time.perf_counter()
+    cfgs = cfgs or [serve_shard_cfg(torch, run) for run in runs]
+    ones = []
+    for index, cfg in enumerate(cfgs):
+        ones.append(_serve_reference(torch, kops, tmp, index, cfg, sizes,
+                                     device))
+        log(f"sharded serve {runs[index][0]}: {cfg.name} {cfg.n_layers} "
+            f"layers {cfg.dtype} ({ones[-1]['params'] / 1e9:.3f} B params, "
+            f"{ones[-1]['param_bytes'] / 2**30:.3f} GiB) at one rank: draw "
+            f"{ones[-1]['draw_s']:.1f} s, prefill {ones[-1]['prefill_ms']:.1f}"
+            f" ms, decode {ones[-1]['decode_ms']:.2f} ms/step")
+    t1 = time.perf_counter()
+    _spawn_ranks(_serve_rank, (tmp, device, list(runs), cfgs, sizes),
+                 SERVE_SHARD_RANKS, SERVE_SHARD_TIMEOUT, "sharded serve 16")
+    t2 = time.perf_counter()
+    ranks = [json.loads(Path(f"{tmp}/serve_rank{r}.json").read_text())
+             for r in range(SERVE_SHARD_RANKS)]
+    out = {"card": card, "sizes": dict(zip(("batch", "prompt", "steps"),
+                                           sizes)), "runs": []}
+    for index, (run, cfg, one) in enumerate(zip(runs, cfgs, ones)):
+        label, _, strategy, mesh, dtype, _ = run
+        agree = _serve_agreement(torch, tmp, index, sizes)
+        tag = f"sharded serve {label}"
+        if not agree["finite"]:
+            raise AssertionError(f"{tag}: non-finite logits")
+        if dtype == "float32" and (
+                agree["ids_equal"] != agree["ids_total"]
+                or agree["max_row_rms"] > SERVE_SHARD_ROW_RMS):
+            raise AssertionError(
+                f"{tag}: greedy ids equal at {agree['ids_equal']} of "
+                f"{agree['ids_total']}, logit rows within "
+                f"{agree['max_row_rms']:.3g} (limit {SERVE_SHARD_ROW_RMS})")
+        rs = [r[index] for r in ranks]
+        for r in rs:
+            log(f"{tag} rank {r['rank']} (coord {r['coord']}): params "
+                f"{r['param_bytes'] / 2**30:.3f} GiB "
+                f"({r['param_bytes'] / one['param_bytes']:.3f} of one "
+                f"rank's), cache {r['cache_bytes'] / 2**30:.4f} GiB, "
+                f"resident = the rules'; draw {r['draw_s']:.1f} s, prefill "
+                f"{r['prefill_ms']:.1f} ms, decode {r['decode_ms']:.2f} "
+                f"ms/step = {r['tokens_per_s']:.1f} tokens/s, peak "
+                f"{r['peak_gib']:.2f} GiB; launches flash "
+                f"{r['launches_prefill']['flash_attention']} a prefill, "
+                f"decode {r['launches_decode']['decode_attention']} in "
+                f"{sizes[2]} steps ({card}; a one-card gloo rehearsal)")
+        log(f"{tag}: {cfg.name} {cfg.n_layers} layers {dtype}, {strategy} "
+            f"over {tuple(mesh)}: greedy ids equal to one rank's at "
+            f"{agree['ids_equal']} of {agree['ids_total']}, logit rows "
+            f"within {agree['max_row_rms']:.3g}"
+            + (" (gated)" if dtype == "float32" else " (reported)"))
+        out["runs"].append(dict(label=label, arch=cfg.name, strategy=strategy,
+                                mesh=list(mesh), dtype=dtype,
+                                layers=cfg.n_layers, one_rank=one, ranks=rs,
+                                **agree))
+    if device == "cuda":
+        from repro_torch.kernels import ref
+        geoms = []
+        for (_, _, strategy, (data, model), dtype, _), cfg in zip(runs, cfgs):
+            if dtype != "bfloat16":
+                continue
+            # a rank's heads: the prefill's split over model; the decode's
+            # too under monolithic Type I, whole under crosspool Type I
+            # (its cache keeps every head)
+            split = (model, model if strategy == "monolithic" else 1)
+            geoms.append((f"{cfg.name} {strategy} over ({data}, {model})",
+                          sizes[0] // data, sizes[1], sizes[1] + sizes[2],
+                          [(cfg.n_heads // n, cfg.n_kv_heads // n)
+                           for n in split], cfg.head_dim))
+        out["kernel_errs"], out["kernel_rows"] = local_heads_kernel_rows(
+            torch, kops, ref, geoms)
+    out["seconds"] = dict(one_rank=t1 - t0, four_ranks=t2 - t1,
+                          total=time.perf_counter() - t0)
+    log(f"sharded serve: phase 16 took {out['seconds']['total']:.1f} s "
+        f"(one rank {t1 - t0:.1f}, four ranks {t2 - t1:.1f}; {card})")
+    return out
+
+
 def sharding_phase(torch, kops, card) -> dict:
     """Phase 14: (a) the sharded step at one rank over NCCL, at published
     widths; (b) one 32768-token request's KV over four ranks sharing the
@@ -4703,6 +5125,10 @@ def sharding_phase(torch, kops, card) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
             out["sharded_train"] = sharded_train_phase(torch, kops, tmp,
+                                                       card)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["sharded_serve"] = sharded_serve_phase(torch, kops, tmp,
                                                        card)
         finally:
             dist.destroy_process_group()
@@ -4858,6 +5284,7 @@ def main() -> int:
     sharding = sharding_phase(torch, kops, card)
     sh = sharding["one_rank"]
     sharded_train = sharding.pop("sharded_train")
+    sharded_serve = sharding.pop("sharded_serve")
 
     csrc = "src/repro_torch/kernels/csrc/"
     main_shape = {"gqa": ("qwen3-moe-235b-a22b", 1024, 4),
@@ -4919,6 +5346,17 @@ def main() -> int:
             kernels[-1]["launches_sharding"] = {
                 "unsharded": sh[f"launches_{part}_unsharded"][name],
                 "sharded": sh[f"launches_{part}"][name]}
+            # phase 16's runs: one rank, then each of the four ranks
+            kernels[-1]["launches_sharded_serve"] = {
+                run["label"]: {
+                    "one rank": run["one_rank"][f"launches_{part}"][name],
+                    "four ranks": [r[f"launches_{part}"][name]
+                                   for r in run["ranks"]]}
+                for run in sharded_serve["runs"]}
+            kernels[-1]["local_heads"] = [
+                dict(r, max_abs_err=sharded_serve["kernel_errs"][name])
+                for r in sharded_serve["kernel_rows"]
+                if r["kernel"] == name]
         if name in families["kernel_errs"]:
             # phase 12's shapes at head dim 256 and its launches
             g, w = families["gemma3"], families["whisper"]
@@ -4981,7 +5419,7 @@ def main() -> int:
          "serve_fallback": f_serve, "train": train, "elastic": elastic,
          "cache": cache, "observe": observe, "families": families,
          "examples": examples, "sharding": sharding,
-         "sharded_train": sharded_train},
+         "sharded_train": sharded_train, "sharded_serve": sharded_serve},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

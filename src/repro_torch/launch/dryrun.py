@@ -10,7 +10,9 @@ rules).  The train cell (``train_4k`` shapes, the decoder families)
 takes ``TRAIN_MICROBATCHES`` and cuts a whole ``TrainState`` and batch
 into this rank's part (``TrainCell.shard_state`` / ``local_batch``); the
 serve cell is ``decode_step`` for decode shapes and ``prefill`` for
-prefill shapes (``shard_params`` / ``shard_cache`` / ``local_rows``).
+prefill shapes (``shard_params`` / ``shard_cache`` / ``local_rows``, or
+``draw_params`` / ``local_cache`` for a model whose whole tree a rank
+should never hold), and ``greedy`` reads its logits.
 
 ``run_cell`` is the dry-run: it builds the production mesh (shape only)
 and the strategy, and reports what each device would hold: the bytes of
@@ -43,14 +45,16 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.hooks import Hooks
 from repro_torch.models.model import build_model
 from repro_torch.models.transformer import param_shapes
+from repro_torch.sharding.collectives import AxisGroup
 from repro_torch.sharding.spec import (PartitionSpec, axis_size,
-                                       local_slices, shard_by_specs,
+                                       local_slices, path_str,
+                                       shard_by_specs, shard_shape,
                                        shard_tree, tree_bytes)
 from repro_torch.sharding.strategies import Strategy, make_strategy
 from repro_torch.training.optimizer import AdamW, AdamWState
 from repro_torch.training.train_step import TrainState, make_grad_fn, \
     make_train_step
-from repro_torch.training.tree import leaves
+from repro_torch.training.tree import leaves, leaves_with_path
 
 MESH_NAMES = {False: "pod16x16", True: "pod2x16x16"}
 
@@ -231,11 +235,46 @@ def shard_params(strategy: Strategy, params: Dict, device=None) -> Dict:
                       device=device)
 
 
+def draw_params(strategy: Strategy, gen: torch.Generator) -> Dict:
+    """``shard_params(strategy, build_model(cfg).init(gen))`` without the
+    whole tree: the same seeded draw on ``gen.device``, each leaf (a
+    stacked leaf one layer at a time) cut to this rank's part as it is
+    drawn and the rest freed."""
+    cfg, mesh = strategy.cfg, strategy.mesh
+    rules = strategy.step_param_rules()
+    shapes = {path_str(p): tuple(leaf.shape)
+              for p, leaf in leaves_with_path(param_shapes(cfg))}
+
+    def cut(path: str, leaf: torch.Tensor) -> torch.Tensor:
+        spec = rules.spec_for(mesh, path, shapes[path])
+        spec = spec[len(spec) - leaf.dim():]    # a layer: no layer dim
+        part = leaf[local_slices(mesh, leaf.shape, spec)]
+        return part.clone() if part.shape != leaf.shape else part
+    return tfm.init_params(gen, cfg, cut=cut)
+
+
 def shard_cache(strategy: Strategy, cache: Dict, device=None) -> Dict:
     """This rank's part of a whole cache tree: its batch rows, and its
     slice of the sequence where the decode reads it sequence-sharded."""
     return shard_tree(strategy.step_cache_rules(), strategy.mesh, cache,
                       device=device)
+
+
+def local_cache(strategy: Strategy, batch: int, max_len: int, device,
+                kv_dtype: Optional[str] = None) -> Dict:
+    """``shard_cache(strategy, init_cache(...))`` allocated at this
+    rank's shapes directly: the whole cache is never built."""
+    rules, mesh = strategy.step_cache_rules(), strategy.mesh
+
+    def local(path, leaf):
+        if isinstance(leaf, dict):
+            return {k: local(f"{path}/{k}" if path else k, v)
+                    for k, v in leaf.items()}
+        shape = shard_shape(mesh, leaf.shape,
+                            rules.spec_for(mesh, path, leaf.shape))
+        return torch.full(shape, -1 if path.endswith("lpos") else 0,
+                          dtype=leaf.dtype, device=device)
+    return local("", cache_shapes(strategy.cfg, batch, max_len, kv_dtype))
 
 
 def local_rows(strategy: Strategy, x: torch.Tensor) -> torch.Tensor:
@@ -249,12 +288,27 @@ def resident_bytes(tree) -> int:
                if t is not None)
 
 
+def greedy(strategy: Strategy, logits: torch.Tensor) -> torch.Tensor:
+    """The greedy ids of the serve step's logits: a vocabulary split over
+    ``model`` takes the split argmax (every rank of the ``model`` group
+    gets its rows' ids; ties go to the lowest global id, as
+    ``torch.argmax``'s); a whole vocabulary is ``logits.argmax(-1)``."""
+    if logits.shape[-1] == strategy.cfg.vocab_size:
+        return logits.argmax(-1)
+    return AxisGroup(strategy.mesh, "model").argmax(logits)
+
+
 def build_serve_cell(cfg: ModelConfig, shape: ShapeConfig,
                      strategy: Strategy, *, impl: str = "xla"):
     """decode shapes -> serve_step(params, tokens, cache, lengths);
     prefill shapes -> prefill_fn(params, tokens, cache, **extra).  Both
-    return (logits [B_loc, V], cache updated in place) on this rank's
-    local shards; the greedy token is ``logits.argmax(-1)``.  ``impl``
+    run on this rank's local shards (``shard_params`` / ``shard_cache``
+    / ``local_rows``) and return (logits, the cache updated in place).
+    The logits are this rank's rows (``local_rows``) over this rank's
+    vocabulary shard [B_loc, V/model] as the reference's ``logits``
+    constraint leaves them (``strategies.py:396``); under monolithic DP
+    attention (``:356``) and for the ``SERVE_LEFT_OUT`` families over
+    the whole vocabulary [B_loc, V]; ``greedy`` reads either.  ``impl``
     routes the attention as the Model path's."""
     model = build_model(cfg)
     hooks = strategy.hooks()

@@ -24,7 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
-from repro_torch.models.hooks import IDENTITY_HOOKS, Hooks
+from repro_torch.models.hooks import IDENTITY_HOOKS, LOCAL, Hooks
 
 NEG_INF = -1e30
 
@@ -122,7 +122,9 @@ def gqa_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     reading its group's KV head from this rank's KV heads or the gathered
     ones (``n_kv_heads`` below the model axis: a rank holds part of a
     head; the helpers below).
-    Returns (output [B,S,D_model], (k, v) for the cache).
+    Returns (output [B,S,D_model], (k, v) for the cache: this rank's KV
+    heads when the projections split on whole heads, else every head;
+    ``cache_heads`` gathers them for a cache that holds every head).
     """
     tp = hooks.tp
     if tp.size > 1 and (kv_override is not None or kv_positions is not None):
@@ -148,6 +150,7 @@ def gqa_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         if kv_override is None:
             sin, cos = layers.rope_sin_cos(kv_pos, hd, cfg.rope_theta)
             k = layers.apply_rope(k, sin, cos)
+    kv = (k, v)                 # this rank's KV heads (or all), cached
     # each of this rank's query heads reads its group's KV head
     G = H // KV
     lo, hi = h0 // G, (h0 + nq - 1) // G
@@ -168,7 +171,7 @@ def gqa_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         mask = causal_mask(positions, kv_pos, window)[:, None, None, :, :]
         out = attention_core(q, k, v, mask, scale)
     y, partial = _tp_out(out.reshape(B, S, nq * hd), p["wo"], nq, H, tp)
-    return hooks.attn_out(tp.seq_out(y, partial)), (k, v)
+    return hooks.attn_out(tp.seq_out(y, partial)), kv
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +238,24 @@ def _tp_out(out: torch.Tensor, wo: torch.Tensor, n_q: int, n_heads: int,
     if n_q < n_heads:
         out = tp.gather(out, -1)
     return _project_out(out, wo), False
+
+
+def _w_heads(w: torch.Tensor, n_heads: int, head_dim: int, tp
+             ) -> torch.Tensor:
+    """A projection ``w`` [rows, cols] as heads [rows, n, head_dim]: this
+    rank's heads when its columns split on whole heads (``_tp_heads``'s),
+    else every head (gathered when the split falls inside one)."""
+    if w.shape[-1] != n_heads * head_dim and n_heads % tp.size:
+        w = tp.gather(w, -1)
+    return w.reshape(w.shape[0], -1, head_dim)
+
+
+def cache_heads(t: torch.Tensor, n_cache: int, tp) -> torch.Tensor:
+    """``t`` [B,S,n,D] (this rank's heads, or every head) as a cache of
+    ``n_cache`` heads holds them: gathered over ``tp`` when the cache
+    holds every head and ``t`` this rank's (crosspool keeps a Type I
+    cache's heads whole on every ``model`` rank)."""
+    return t if t.shape[2] == n_cache else tp.gather(t, 2)
 
 
 def _pad_to_extent(arr: torch.Tensor, extent: int) -> torch.Tensor:
@@ -324,16 +345,13 @@ def gqa_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     attention, ``attention.py:244-246``) reads the KV when set;
     otherwise ``impl="paged"`` reads it through the contiguous decode
     kernel (``ops.decode_attention`` over ``lengths + 1`` tokens), any
-    other ``impl`` through the masked softmax.  Returns out [B,1,D].
+    other ``impl`` through the masked softmax.  Under the sharded serve
+    step's ``hooks.tp`` the heads are ``_decode_qkv``'s and ``wo``'s
+    partial sums are reduced.  Returns out [B,1,D].
     """
-    B = x.shape[0]
     T = cache_k.shape[1]
-    q, k, v = _project_qkv(p, cfg, x)
     pos = lengths[:, None]
-    if cfg.rope_theta > 0:
-        sin, cos = layers.rope_sin_cos(pos, cfg.head_dim, cfg.rope_theta)
-        q = layers.apply_rope(q, sin, cos)
-        k = layers.apply_rope(k, sin, cos)
+    q, k, v = _decode_qkv(p, cfg, x, pos, cache_k.shape[2], hooks.tp)
     write_kv_cache(cache_k, cache_v, k, v, _local(lengths, hooks))
     cache_k, cache_v = hooks.kv(cache_k), hooks.kv(cache_v)
     scale = cfg.head_dim ** -0.5
@@ -346,8 +364,49 @@ def gqa_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         kv_pos = torch.arange(T, device=x.device)[None, :]
         mask = (kv_pos <= pos)[:, None, None, None, :]        # [B,1,1,1,T]
         out = attention_core(q, cache_k, cache_v, mask, scale)
-    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
-    return hooks.attn_out(_project_out(out, p["wo"]))
+    return _decode_out(out, p, cfg, hooks)
+
+
+def _decode_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                pos: torch.Tensor, n_cache: int, tp):
+    """The new token's q, k, v [B,1,n,hd] (RoPE at ``pos`` [B,1]) as the
+    heads of a cache layer of ``n_cache`` KV heads: this rank's query
+    heads over its KV heads (monolithic Type I: the cache holds this
+    rank's KV heads), or every head where the cache holds every KV head.
+    Crosspool keeps a Type I cache whole on every ``model`` rank, and the
+    kernel takes a contiguous cache only (a head slice of it is not): so
+    the one token's heads are gathered over ``tp`` (small), the whole row
+    is written, every head attends, and ``_decode_out`` takes this rank's
+    rows of ``wo``."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, _ = _tp_heads(x, p["wq"], H, hd, tp)
+    k, _ = _tp_heads(x, p["wk"], KV, hd, tp)
+    v, _ = _tp_heads(x, p["wv"], KV, hd, tp)
+    if cfg.qk_norm:
+        q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = layers.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.rope_theta > 0:
+        sin, cos = layers.rope_sin_cos(pos, hd, cfg.rope_theta)
+        q = layers.apply_rope(q, sin, cos)
+        k = layers.apply_rope(k, sin, cos)
+    if n_cache == KV:
+        return (cache_heads(q, H, tp), cache_heads(k, KV, tp),
+                cache_heads(v, KV, tp))
+    if k.shape[2] != n_cache:
+        raise ValueError(f"a cache of {n_cache} KV heads against this "
+                         f"rank's {k.shape[2]}")
+    return q, k, v
+
+
+def _decode_out(out: torch.Tensor, p: Dict, cfg: ModelConfig,
+                hooks: Hooks) -> torch.Tensor:
+    """The output projection of a decode's context [B,1,n,hd] (this
+    rank's heads or every head), ``wo``'s partial sums reduced over
+    ``hooks.tp``."""
+    B, _, n, hd = out.shape
+    y, partial = _tp_out(out.reshape(B, 1, n * hd), p["wo"], n,
+                         cfg.n_heads, hooks.tp)
+    return hooks.attn_out(hooks.tp.reduce(y) if partial else y)
 
 
 def _local(lengths: torch.Tensor, hooks: Hooks) -> torch.Tensor:
@@ -407,16 +466,12 @@ def swa_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     ``impl="paged"`` reads the ring through the contiguous decode kernel
     (``ops.decode_attention``) over its first ``count`` slots
     (``ring_count`` says why those are the reference's slots); any other
-    ``impl`` through the reference's masked softmax.  Returns out
-    [B,1,D].
+    ``impl`` through the reference's masked softmax.  The heads under
+    ``hooks.tp`` are ``gqa_decode``'s.  Returns out [B,1,D].
     """
     B, W = cache_pos.shape
-    q, k, v = _project_qkv(p, cfg, x)
     pos = cur_len[:, None]
-    if cfg.rope_theta > 0:
-        sin, cos = layers.rope_sin_cos(pos, cfg.head_dim, cfg.rope_theta)
-        q = layers.apply_rope(q, sin, cos)
-        k = layers.apply_rope(k, sin, cos)
+    q, k, v = _decode_qkv(p, cfg, x, pos, cache_k.shape[2], hooks.tp)
     rows = torch.arange(B, device=x.device)
     slot = (cur_len % W).long()
     cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
@@ -429,8 +484,7 @@ def swa_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         valid = (cache_pos >= 0) & (cache_pos > pos - W)          # [B,W]
         out = attention_core(q, cache_k, cache_v,
                              valid[:, None, None, None, :], scale)
-    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
-    return hooks.attn_out(_project_out(out, p["wo"]))
+    return _decode_out(out, p, cfg, hooks)
 
 
 def _write_page(page_table: torch.Tensor, lengths: torch.Tensor,
@@ -504,40 +558,6 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
     return p
 
 
-def _mla_queries(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor):
-    """Returns (q_nope [B,S,H,nope], q_rope [B,S,H,rope]) with RoPE."""
-    m = cfg.mla
-    B, S, _ = x.shape
-    H = cfg.n_heads
-    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
-    if m.q_lora_rank:
-        cq = layers.rms_norm(x @ p["wdq"], p["q_ln"], cfg.norm_eps)
-        q = (cq @ p["wuq"]).reshape(B, S, H, qk_dim)
-    else:
-        q = (x @ p["wuq"]).reshape(B, S, H, qk_dim)
-    q_nope = q[..., : m.qk_nope_head_dim]
-    q_rope = q[..., m.qk_nope_head_dim:]
-    sin, cos = layers.rope_sin_cos(positions, m.qk_rope_head_dim,
-                                   cfg.rope_theta)
-    return q_nope, layers.apply_rope(q_rope, sin, cos)
-
-
-def _mla_latent(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor):
-    """Compressed KV: (latent [B,S,r] post-norm, k_rope [B,S,rope]
-    post-RoPE) — together the entire KV cache of a token."""
-    m = cfg.mla
-    ckv = x @ p["wdkv"]
-    latent = layers.rms_norm(ckv[..., : m.kv_lora_rank], p["kv_ln"],
-                             cfg.norm_eps)
-    k_rope = ckv[..., m.kv_lora_rank:]
-    sin, cos = layers.rope_sin_cos(positions, m.qk_rope_head_dim,
-                                   cfg.rope_theta)
-    k_rope = layers.apply_rope(k_rope[:, :, None, :], sin, cos)[:, :, 0, :]
-    return latent, k_rope
-
-
 def mla_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor, *, hooks: Hooks = IDENTITY_HOOKS
              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
@@ -550,19 +570,9 @@ def mla_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     m = cfg.mla
     B, S, _ = x.shape
     H, nope, rp = cfg.n_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
-    r = m.kv_lora_rank
-    if m.q_lora_rank:
-        cq = layers.rms_norm(_tp_cols(x, p["wdq"], m.q_lora_rank, tp),
-                             p["q_ln"], cfg.norm_eps)
-        q, h0 = _tp_heads(cq, p["wuq"], H, nope + rp, tp)
-    else:
-        q, h0 = _tp_heads(x, p["wuq"], H, nope + rp, tp)
-    nq = q.shape[2]
-    sin, cos = layers.rope_sin_cos(positions, rp, cfg.rope_theta)
-    q_nope, q_rope = q[..., :nope], layers.apply_rope(q[..., nope:], sin, cos)
-    ckv = _tp_cols(x, p["wdkv"], r + rp, tp)
-    latent = layers.rms_norm(ckv[..., :r], p["kv_ln"], cfg.norm_eps)
-    k_rope = layers.apply_rope(ckv[..., None, r:], sin, cos)[:, :, 0, :]
+    q_nope, q_rope, h0, latent, k_rope = _mla_project(p, cfg, x, positions,
+                                                      tp)
+    nq = q_nope.shape[2]
     latent, k_rope = hooks.kv(latent), hooks.kv(k_rope)
     want = list(range(h0, h0 + nq))
     k_nope, hk = _tp_heads(latent, p["wuk"], H, nope, tp)
@@ -579,6 +589,31 @@ def mla_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     return hooks.attn_out(tp.seq_out(y, partial)), (latent, k_rope)
 
 
+def _mla_project(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor, tp):
+    """MLA's projections of ``x`` [B,S,D] at ``positions``: (q_nope,
+    q_rope (RoPE'd) [B,S,n,.] of this rank's heads from the first, h0;
+    the latent [B,S,r] post-norm and the rope key [B,S,rp] post-RoPE,
+    whole).  ``wdq`` / ``wdkv``'s latent columns split over ``tp`` are
+    gathered (the norms read every column, and every head reads the
+    cache's whole latent)."""
+    m = cfg.mla
+    H, nope, rp = cfg.n_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
+    r = m.kv_lora_rank
+    if m.q_lora_rank:
+        cq = layers.rms_norm(_tp_cols(x, p["wdq"], m.q_lora_rank, tp),
+                             p["q_ln"], cfg.norm_eps)
+        q, h0 = _tp_heads(cq, p["wuq"], H, nope + rp, tp)
+    else:
+        q, h0 = _tp_heads(x, p["wuq"], H, nope + rp, tp)
+    sin, cos = layers.rope_sin_cos(positions, rp, cfg.rope_theta)
+    q_nope, q_rope = q[..., :nope], layers.apply_rope(q[..., nope:], sin, cos)
+    ckv = _tp_cols(x, p["wdkv"], r + rp, tp)
+    latent = layers.rms_norm(ckv[..., :r], p["kv_ln"], cfg.norm_eps)
+    k_rope = layers.apply_rope(ckv[..., None, r:], sin, cos)[:, :, 0, :]
+    return q_nope, q_rope, h0, latent, k_rope
+
+
 def mla_suffix(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor, prefix_latent: torch.Tensor,
                prefix_rope: torch.Tensor, kv_extent: int
@@ -592,8 +627,8 @@ def mla_suffix(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     m = cfg.mla
     B, S = x.shape[:2]
     H = cfg.n_heads
-    q_nope, q_rope = _mla_queries(p, cfg, x, positions)
-    latent, k_rope = _mla_latent(p, cfg, x, positions)
+    q_nope, q_rope, _, latent, k_rope = _mla_project(p, cfg, x, positions,
+                                                     LOCAL)
     latent_all = _pad_to_extent(
         torch.cat([prefix_latent.to(latent.dtype), latent], dim=1),
         kv_extent)
@@ -626,8 +661,8 @@ def mla_paged_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     B = x.shape[0]
     H = cfg.n_heads
     pos = lengths[:, None]
-    q_nope, q_rope = _mla_queries(p, cfg, x, pos)
-    latent_new, rope_new = _mla_latent(p, cfg, x, pos)
+    q_nope, q_rope, _, latent_new, rope_new = _mla_project(p, cfg, x, pos,
+                                                           LOCAL)
     kv_tok = torch.cat([latent_new[:, 0], rope_new[:, 0]], dim=-1)
     page = _write_page(page_table, lengths, tokens_per_page)
     kops.paged_kv_write(pool, kv_tok, page, lengths % tokens_per_page)
@@ -659,22 +694,31 @@ def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     ``gqa_decode``).  Attention reads only the compressed rows: ``W_uk``
     is absorbed into q, ``W_uv`` applied to the latent context, which
     ``hooks.decode_attn_mla`` computes when set (``attention.py:531-534``).
-    Returns out [B,1,D].
+    Under the sharded serve step's ``hooks.tp`` the heads are this
+    rank's (``_mla_project``; ``wuk`` / ``wuv`` / ``wo`` by their local
+    shapes) and ``wo``'s partial sums are reduced; the sequence-split
+    override's combine sums over ranks that must hold the same heads, so
+    every head's absorbed query is gathered before it and this rank's
+    heads are taken after.  Returns out [B,1,D].
     """
     m = cfg.mla
+    tp = hooks.tp
     B, T = cache_latent.shape[:2]
     H = cfg.n_heads
     pos = lengths[:, None]
-    q_nope, q_rope = _mla_queries(p, cfg, x, pos)
-    latent_new, rope_new = _mla_latent(p, cfg, x, pos)
+    q_nope, q_rope, h0, latent_new, rope_new = _mla_project(p, cfg, x, pos,
+                                                            tp)
+    nq = q_nope.shape[2]
     write_kv_cache(cache_latent, cache_rope, latent_new, rope_new,
                    _local(lengths, hooks))
     cache_latent, cache_rope = hooks.kv(cache_latent), hooks.kv(cache_rope)
-    wuk = p["wuk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    wuk = _w_heads(p["wuk"], H, m.qk_nope_head_dim, tp)
     q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wuk)
     if hooks.decode_attn_mla is not None:
-        ctx = hooks.decode_attn_mla(q_lat, q_rope, cache_latent, cache_rope,
-                                    lengths + 1)
+        ctx = hooks.decode_attn_mla(cache_heads(q_lat, H, tp),
+                                    cache_heads(q_rope, H, tp), cache_latent,
+                                    cache_rope, lengths + 1)
+        ctx = ctx[:, :, h0:h0 + nq]
     else:
         latent, rope = cache_latent, cache_rope
         if latent.element_size() == 1:          # fp8 latent cache
@@ -689,8 +733,7 @@ def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                              torch.tensor(NEG_INF, device=scores.device))
         w = torch.softmax(scores, dim=-1).to(latent.dtype)
         ctx = torch.einsum("bhst,btr->bshr", w, latent)
-    wuv = p["wuv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    wuv = _w_heads(p["wuv"], H, m.v_head_dim, tp)
     ctx = ctx.to(torch.promote_types(ctx.dtype, wuv.dtype))
-    out = torch.einsum("bshr,rhv->bshv", ctx, wuv)
-    out = out.reshape(B, 1, H * m.v_head_dim)
-    return hooks.attn_out(_project_out(out, p["wo"]))
+    return _decode_out(torch.einsum("bshr,rhv->bshv", ctx, wuv), p, cfg,
+                       hooks)

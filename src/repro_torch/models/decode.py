@@ -48,6 +48,25 @@ def _pick(tree: Dict, i: int) -> Dict:
             for k, v in tree.items()}
 
 
+def _layer(params: Dict, i: int, hooks: Hooks) -> Dict:
+    """Decoder layer ``i``, its leaves gathered where the serve step's
+    ``hooks.params`` gathers them (the attention under DP attention)."""
+    return hooks.params.gather(_pick(params["layers"], i), "layers")
+
+
+def _write_prefill(cache_k: torch.Tensor, cache_v: torch.Tensor, kv,
+                   S: int, hooks: Hooks, dst=None, src=None) -> None:
+    """A prefill's K / V [B,S,n,hd] into a cache layer [B,T,KV,hd]: rows
+    ``[0, S)``, or the ring slots ``dst`` from positions ``src``; the
+    heads as the cache holds them (``attention.cache_heads``)."""
+    for cache, t in zip((cache_k, cache_v), kv):
+        t = attn.cache_heads(t, cache.shape[2], hooks.tp)
+        if dst is None:
+            cache[:, :S] = t
+        else:
+            cache[:, dst] = t[:, src].to(cache.dtype)
+
+
 def kv_dtype_of(cfg: ModelConfig, kv_dtype: Optional[str]) -> torch.dtype:
     """The cache's element type: the model's (None), fp8-e4m3 ("f8": half
     the cache bytes, dequantized at attention) or a torch dtype's name."""
@@ -149,13 +168,13 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     S = tokens.shape[1] + (embeddings.shape[1] if embeddings is not None
                            else 0)
     positions = tfm.positions_of(B, S, tokens.device)
-    x = tfm.embed_inputs(params, cfg, tokens, embeddings, positions)
+    x = tfm.embed_inputs(params, cfg, tokens, embeddings, positions, hooks)
     if fam in ("dense", "vlm", "moe"):
         if cfg.swa_pattern > 0:
             x = _prefill_swa(params, cfg, x, positions, cache, impl, hooks)
         elif cfg.attention == "mla":
             for i in range(cfg.n_layers):
-                p_l = _pick(params["layers"], i)
+                p_l = _layer(params, i, hooks)
                 x, (lat, rope) = tfm._attn_full(p_l, cfg, x, positions,
                                                 hooks=hooks)
                 x, _ = tfm._ffn_full(p_l, cfg, x, hooks=hooks)
@@ -163,12 +182,11 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache["rope"][i, :, :S] = rope
         else:
             for i in range(cfg.n_layers):
-                p_l = _pick(params["layers"], i)
-                x, (k, v) = tfm._attn_full(p_l, cfg, x, positions, impl,
-                                           hooks=hooks)
+                p_l = _layer(params, i, hooks)
+                x, kv = tfm._attn_full(p_l, cfg, x, positions, impl,
+                                       hooks=hooks)
                 x, _ = tfm._ffn_full(p_l, cfg, x, hooks=hooks)
-                cache["k"][i, :, :S] = k
-                cache["v"][i, :, :S] = v
+                _write_prefill(cache["k"][i], cache["v"][i], kv, S, hooks)
     elif fam == "audio":
         enc_out = tfm.encode(params, cfg, encoder_frames, hooks)
         for i in range(cfg.n_layers):
@@ -231,18 +249,17 @@ def _prefill_swa(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     ring_pos = torch.as_tensor(slot_pos, dtype=torch.int32, device=x.device)
     for g in range(G):
         for j in range(P - 1):
-            p_l = _pick(params["layers"], g * P + j)
-            x, (k, v) = tfm._attn_full(p_l, cfg, x, positions, impl,
-                                       window=cfg.sliding_window, hooks=hooks)
+            p_l = _layer(params, g * P + j, hooks)
+            x, kv = tfm._attn_full(p_l, cfg, x, positions, impl,
+                                   window=cfg.sliding_window, hooks=hooks)
             x, _ = tfm._ffn_full(p_l, cfg, x, hooks=hooks)
-            cache["lk"][g, j][:, dst] = k[:, src].to(cache["lk"].dtype)
-            cache["lv"][g, j][:, dst] = v[:, src].to(cache["lv"].dtype)
+            _write_prefill(cache["lk"][g, j], cache["lv"][g, j], kv, S,
+                           hooks, dst, src)
             cache["lpos"][g, j] = ring_pos
-        p_g = _pick(params["layers"], g * P + P - 1)
-        x, (k, v) = tfm._attn_full(p_g, cfg, x, positions, impl, hooks=hooks)
+        p_g = _layer(params, g * P + P - 1, hooks)
+        x, kv = tfm._attn_full(p_g, cfg, x, positions, impl, hooks=hooks)
         x, _ = tfm._ffn_full(p_g, cfg, x, hooks=hooks)
-        cache["gk"][g, :, :S] = k
-        cache["gv"][g, :, :S] = v
+        _write_prefill(cache["gk"][g], cache["gv"][g], kv, S, hooks)
     return x
 
 
@@ -261,13 +278,13 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         lengths = lengths.expand(B)
     pos = lengths[:, None]
     x = tfm.embed_inputs(params, cfg, tokens[:, None], None,
-                         pos if cfg.rope_theta == 0 else None)
+                         pos if cfg.rope_theta == 0 else None, hooks)
     if fam in ("dense", "vlm", "moe"):
         if cfg.swa_pattern > 0:
             x = _decode_swa(params, cfg, x, cache, lengths, impl, hooks)
         else:
             for i in range(cfg.n_layers):
-                p_l = _pick(params["layers"], i)
+                p_l = _layer(params, i, hooks)
                 h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
                 if cfg.attention == "mla":
                     out = attn.mla_decode(p_l["attn"], cfg, h,
@@ -330,13 +347,13 @@ def _decode_swa(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     count = attn.ring_count(cache["lpos"][0, 0])
     for g in range(G):
         for j in range(P - 1):
-            p_l = _pick(params["layers"], g * P + j)
+            p_l = _layer(params, g * P + j, hooks)
             h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
             x = x + hooks.act(attn.swa_decode(
                 p_l["attn"], cfg, h, cache["lk"][g, j], cache["lv"][g, j],
                 cache["lpos"][g, j], lengths, count, impl=impl, hooks=hooks))
             x, _ = tfm._ffn_full(p_l, cfg, x, hooks=hooks)
-        p_g = _pick(params["layers"], g * P + P - 1)
+        p_g = _layer(params, g * P + P - 1, hooks)
         h = layers.rms_norm(x, p_g["ln1"], cfg.norm_eps)
         x = x + hooks.act(attn.gqa_decode(
             p_g["attn"], cfg, h, cache["gk"][g], cache["gv"][g], lengths,

@@ -53,6 +53,24 @@ split weights.  Three more fields carry what its partitioner derives:
   routing takes over the whole (micro)batch (the capacity's slot
   offsets, the load-balance loss's means).
 
+The sharded serve step (``build_serve_cell``) places every param leaf
+of the decoder families by the serving rules and reuses ``params``
+(the attention leaves gathered under DP attention), ``tp`` (heads and
+vocabulary over ``model``) and ``dp`` (the capacity's slot offsets);
+three more fields carry the rest:
+
+* ``rows`` — the collectives over ``model`` when the batch rows split
+  over it (monolithic DP attention): the vocabulary-split embedding and
+  head gather the rows of the rank's ``model`` group, and the head
+  returns this rank's rows over the whole vocabulary.
+* ``experts`` — the collectives over the axes the routed experts split
+  over when they are not ``tp``'s (crosspool's experts over ``data``,
+  ``f`` over ``model``); ``None``: ``tp``.
+* ``moe_sum`` — fn(routed [N,D] f32, shared [N,D] f32 or None) -> [N,D]
+  f32: the experts' partial sums (split experts, split ``f``, a split
+  shared expert) completed over the weights pool, in float32, so the
+  FFN's output is rounded once (``None``: the unsharded combine).
+
 Everything defaults to identity (offset 0) so the models run standalone
 on one device, bit for bit as without the seam.
 """
@@ -91,6 +109,9 @@ class LocalAxis:
 
     def reduce_scatter(self, x, dim: int):
         return x
+
+    def argmax(self, x):
+        return x.argmax(-1)
 
     # -- the sequence-parallel residual stream ([B, S, D], S on dim 1) ----
     def seq_in(self, x):
@@ -159,6 +180,11 @@ class Hooks:
     params: WholeParams = WHOLE        # FSDP gather, DP mean, leaf statistics
     tp: LocalAxis = LOCAL              # collectives over 'model'
     dp: LocalAxis = LOCAL              # collectives over the batch axes
+    # --- the sharded serve step (see the docstring) ------------------------
+    rows: LocalAxis = LOCAL            # 'model' when the rows split over it
+    experts: Optional[LocalAxis] = None  # the routed experts' split (tp)
+    # fn(routed f32, shared f32 | None) -> f32: the pool's partial sums
+    moe_sum: Optional[Callable] = None
 
 
 IDENTITY_HOOKS = Hooks()

@@ -140,13 +140,16 @@ def apply_mlp(params: dict, x: torch.Tensor, kind: str, hook=None,
 def apply_mlp_split(params: dict, x: torch.Tensor, kind: str, hidden: int,
                     tp, hook=None, down=None) -> Tuple[torch.Tensor, bool]:
     """``apply_mlp`` over this rank's part of the hidden dimension (the
-    train rules' ``w[gui]`` columns and ``w[do]`` rows over ``tp``):
-    (partial sums, True); a whole MLP (``hidden`` not split) gives (the
-    output, False).  ``x`` is replicated over ``tp``."""
+    rules' ``w[gui]`` columns and ``w[do]`` rows): (partial sums over
+    ``tp``, True), or, when ``down`` (``Hooks.ffn_down``) completes the
+    product over the axes the hidden splits on, (the output, False); a
+    whole MLP (``hidden`` not split) gives (the output, False).  ``x``
+    is replicated over the split."""
     w_in = params["wg"] if kind == "swiglu" else params["wi"]
     if w_in.shape[-1] == hidden:
         return apply_mlp(params, x, kind, hook=hook, down=down), False
-    return apply_mlp(params, tp.enter(x), kind, hook=hook, down=down), True
+    return (apply_mlp(params, tp.enter(x), kind, hook=hook, down=down),
+            down is None)
 
 
 # ---------------------------------------------------------------------------

@@ -153,8 +153,16 @@ def _routed(p: Dict, x: torch.Tensor, cfg: ModelConfig, moe_path: str,
     sorted local experts first, the others' rows past the groups (the
     kernel leaves them 0).  The combine is summed over tp and the
     load-balance loss takes its means over the global batch.  At one
-    rank every step is the unsharded one."""
+    rank every step is the unsharded one.
+
+    Under the sharded serve step's hooks the experts split over
+    ``hooks.experts`` (crosspool's ``data``; monolithic's ``model`` is
+    ``tp``) and, on the capacity path, their ``f`` over ``tp``
+    (crosspool): a down product over this rank's ``f`` is taken in
+    float32, and ``hooks.moe_sum`` completes the routed and shared
+    partial sums over the weights pool at once, rounded once."""
     tp, dp = hooks.tp, hooks.dp
+    ep = tp if hooks.experts is None else hooks.experts
     orig_shape = x.shape
     d = cfg.d_model
     xf = x.reshape(-1, d)                                    # [N,D]
@@ -162,11 +170,11 @@ def _routed(p: Dict, x: torch.Tensor, cfg: ModelConfig, moe_path: str,
     E, k = cfg.n_experts, cfg.experts_per_token
     E_loc = p["wg"].shape[0]
     split = E_loc < E
-    e0 = tp.index * E_loc if split else 0
+    e0 = ep.index * E_loc if split else 0
 
     gates, experts, probs = route(p, xf, cfg)                # [N,k]x2, [N,E]
-    x_in = tp.enter(xf) if split else xf
-    gate = (tp.enter(gates) if split else gates).reshape(-1)  # [N*k]
+    x_in = ep.enter(xf) if split else xf
+    gate = (ep.enter(gates) if split else gates).reshape(-1)  # [N*k]
     flat = experts.reshape(-1).long()                        # [N*k]
     local = flat - e0
     mine = (local >= 0) & (local < E_loc) if split else None
@@ -192,7 +200,11 @@ def _routed(p: Dict, x: torch.Tensor, cfg: ModelConfig, moe_path: str,
         h = F.silu(torch.bmm(expert_in, p["wg"])) \
             * torch.bmm(expert_in, p["wu"])
         h = hooks.moe_hidden(h)
-        expert_out = hooks.moe_inputs(torch.bmm(h, p["wd"]))  # [E_loc,C,D]
+        if p["wd"].shape[1] < cfg.d_ff:      # partial over this rank's f
+            down = torch.bmm(h.float(), p["wd"].float())
+        else:
+            down = torch.bmm(h, p["wd"])
+        expert_out = hooks.moe_inputs(down)                  # [E_loc,C,D]
         # ---- combine: gather back, weight by gates --------------------------
         y_pairs = expert_out.reshape(E_loc * C, d)[
             dst.clamp(max=E_loc * C - 1)] * (gate * keep)[:, None]
@@ -214,7 +226,15 @@ def _routed(p: Dict, x: torch.Tensor, cfg: ModelConfig, moe_path: str,
     # pairs are token-major (``token_ids`` repeats each token k times in
     # order), so the reference's segment sum over token ids is a sum over
     # the k axis: same terms, no atomics, deterministic on the card
-    y = y_pairs.float().reshape(N, k, d).sum(dim=1).to(x.dtype)
+    y = y_pairs.float().reshape(N, k, d).sum(dim=1)
+    aux = _aux_loss(experts, probs, cfg, dp)
+    if hooks.moe_sum is not None:
+        ys = None
+        if cfg.n_shared_experts:
+            ys = layers.apply_mlp(p["shared"], xf, "swiglu",
+                                  hook=hooks.ffn_hidden, down=_f32_down)
+        return hooks.moe_sum(y, ys).to(x.dtype).reshape(orig_shape), aux
+    y = y.to(x.dtype)
 
     partial = split
     if cfg.n_shared_experts:
@@ -223,12 +243,17 @@ def _routed(p: Dict, x: torch.Tensor, cfg: ModelConfig, moe_path: str,
             p["shared"], xf, "swiglu", cfg.n_shared_experts * cfg.d_ff, tp,
             hook=hooks.ffn_hidden, down=hooks.ffn_down)
         if s_partial != partial:          # sum whole outputs only
-            y, ys = (tp.reduce(y), ys) if partial else (y, tp.reduce(ys))
+            y, ys = (ep.reduce(y), ys) if partial else (y, tp.reduce(ys))
             partial = False
         y = y + ys
     if partial:
-        y = tp.reduce(y)
-    return y.reshape(orig_shape), _aux_loss(experts, probs, cfg, dp)
+        y = ep.reduce(y)
+    return y.reshape(orig_shape), aux
+
+
+def _f32_down(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A down projection's (partial) product in float32."""
+    return h.float() @ w.float()
 
 
 def _aux_loss(experts: torch.Tensor, probs: torch.Tensor, cfg: ModelConfig,

@@ -75,52 +75,88 @@ def _init_encdec_layer(gen: torch.Generator, cfg: ModelConfig, dtype
                                    dtype)}
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _keep(cut, tree, path: str):
+    """``cut(path, leaf)`` over a drawn tree's leaves (None: the tree)."""
+    if cut is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _keep(cut, v, f"{path}/{k}") for k, v in tree.items()}
+    return cut(path, tree)
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+def _stack_draw(n: int, draw, cut, path: str):
+    """``n`` layers drawn one at a time by ``draw()`` and stacked on a
+    leading axis: each layer is copied into the stacked leaves as it is
+    drawn (and ``cut``), so only one layer is ever held beside them."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                           device=t.device)
+
+    def put(dst, t, i):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                put(dst[k], v, i)
+        else:
+            dst[i].copy_(t)
+
+    first = _keep(cut, draw(), path)
+    out = alloc(first)
+    put(out, first, 0)
+    del first
+    for i in range(1, n):
+        put(out, _keep(cut, draw(), path), i)
+    return out
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, cut=None) -> Dict:
     """Random decoder params drawn from ``gen`` on ``gen.device``.
 
     The reference draws from ``jax.random`` keys, which torch cannot
     reproduce: the same config gives the same SHAPES and scales here, not
     the same numbers (tests bridge the reference's own tree instead).
+    ``cut(path, leaf)``, when given, keeps a part of each leaf as it is
+    drawn (``path`` the tree's, ``leaf`` one layer's slice of a stacked
+    leaf): the draw is the same, and the whole tree is never held
+    (``launch/dryrun.py`` ``draw_params``).
     """
     if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
         raise ValueError(f"unknown family {cfg.family}")
     dtype = dtype_of(cfg)
+    zeros = dict(dtype=dtype, device=gen.device)
     p: Dict = {
-        "embed": layers.init_embed(gen, cfg.vocab_size, cfg.d_model, dtype,
-                                   cfg.tie_embeddings),
-        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
-                                  device=gen.device),
+        "embed": _keep(cut, layers.init_embed(gen, cfg.vocab_size,
+                                              cfg.d_model, dtype,
+                                              cfg.tie_embeddings), "embed"),
+        "final_norm": _keep(cut, torch.zeros((cfg.d_model,), **zeros),
+                            "final_norm"),
     }
+
+    def stack(name, n, init):
+        return _stack_draw(n, lambda: init(gen, cfg, dtype), cut, name)
+
     # one layer at a time: the draw's f32 temporaries stay one layer big
     if cfg.family in ("dense", "moe", "vlm"):
-        p["layers"] = _stack([_init_layer(gen, cfg, dtype)
-                              for _ in range(cfg.n_layers)])
+        p["layers"] = stack("layers", cfg.n_layers, _init_layer)
     elif cfg.family == "audio":
-        p["enc_layers"] = _stack([_init_enc_layer(gen, cfg, dtype)
-                                  for _ in range(cfg.n_encoder_layers)])
-        p["enc_norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
-                                    device=gen.device)
-        p["layers"] = _stack([_init_encdec_layer(gen, cfg, dtype)
-                              for _ in range(cfg.n_layers)])
+        p["enc_layers"] = stack("enc_layers", cfg.n_encoder_layers,
+                                _init_enc_layer)
+        p["enc_norm"] = _keep(cut, torch.zeros((cfg.d_model,), **zeros),
+                              "enc_norm")
+        p["layers"] = stack("layers", cfg.n_layers, _init_encdec_layer)
     elif cfg.family == "ssm":
-        p["layers"] = _stack([_init_ssm_layer(gen, cfg, dtype)
-                              for _ in range(cfg.n_layers)])
+        p["layers"] = stack("layers", cfg.n_layers, _init_ssm_layer)
     else:
         n_ssm = cfg.hybrid_groups * cfg.ssm_per_group
-        p["layers"] = _stack([_init_ssm_layer(gen, cfg, dtype)
-                              for _ in range(n_ssm)]) if n_ssm else {}
+        p["layers"] = stack("layers", n_ssm, _init_ssm_layer) if n_ssm \
+            else {}
         if cfg.tail_ssm_layers:
-            p["tail"] = _stack([_init_ssm_layer(gen, cfg, dtype)
-                                for _ in range(cfg.tail_ssm_layers)])
+            p["tail"] = stack("tail", cfg.tail_ssm_layers, _init_ssm_layer)
         # the zamba2 hallmark: ONE shared attention + MLP block, reused by
         # every group
-        p["shared_block"] = _init_layer(gen, cfg, dtype)
+        p["shared_block"] = _keep(cut, _init_layer(gen, cfg, dtype),
+                                  "shared_block")
     return p
 
 
@@ -148,9 +184,13 @@ def embed_inputs(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     [B,S] are given (``transformer.py:152-162``).  Under the sharded
     step's hooks the table is gathered over the pool axes and looked up
     over its vocabulary split (``layers.embed_tokens``), and the result
-    split over S when the residual stream is (``hooks.tp.seq``)."""
-    x = layers.embed_tokens(_embed_leaf(params, "tok", hooks), tokens,
-                            cfg.vocab_size, hooks.tp)
+    split over S when the residual stream is (``hooks.tp.seq``); under
+    the serve step's ``hooks.rows`` (rows split over ``model``) the ids
+    of the rank's ``model`` group are looked up and its own rows kept."""
+    rows = hooks.rows
+    x = rows.split(layers.embed_tokens(
+        _embed_leaf(params, "tok", hooks), rows.gather(tokens, 0),
+        cfg.vocab_size, hooks.tp), 0)
     if embeddings is not None:
         x = torch.cat([embeddings.to(x.dtype), x], dim=1)
     if cfg.rope_theta == 0 and positions is not None:
@@ -166,13 +206,21 @@ def positions_of(B: int, S: int, device) -> torch.Tensor:
 def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor,
             hooks: Hooks = IDENTITY_HOOKS) -> torch.Tensor:
     """The final norm and the head; under the sharded step's hooks the
-    head's vocabulary may split over ``model`` (logits [.., V/tp])."""
-    tp = hooks.tp
+    head's vocabulary may split over ``model`` (logits [.., V/tp]).
+    Under the serve step's ``hooks.rows`` (monolithic DP attention, whose
+    logits keep the vocabulary whole) the rows of the rank's ``model``
+    group are projected and this rank's rows returned over every id."""
+    tp, rows = hooks.tp, hooks.rows
     norm = hooks.params.gather(params["final_norm"], "final_norm")
     x = tp.seq_in(layers.rms_norm(x, tp.seq_weight(norm), cfg.norm_eps))
     head = "head" if "head" in params["embed"] else "tok"
-    return hooks.logits(layers.unembed(_embed_leaf(params, head, hooks), x,
-                                       cfg.vocab_size, tp))
+    logits = layers.unembed(_embed_leaf(params, head, hooks),
+                            rows.gather(x, 0), cfg.vocab_size, tp)
+    if rows.size > 1:
+        if logits.shape[-1] < cfg.vocab_size:
+            logits = tp.gather(logits, -1)
+        logits = rows.split(logits, 0)
+    return hooks.logits(logits)
 
 
 def _embed_leaf(params: Dict, name: str, hooks: Hooks) -> Dict:

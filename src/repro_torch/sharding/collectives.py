@@ -28,6 +28,7 @@ single-device path stays bit for bit as it was):
 ``sum``             all-reduce (sum)             all-reduce (sum)
 ``all_to_all``      all-to-all                   all-to-all
 ``max``             all-reduce (max), no grad
+``argmax``          the split argmax, no grad
 ==================  ===========================  ========================
 
 ``gather_sum`` is the FSDP gather of a weight (and the sequence-
@@ -198,3 +199,21 @@ class AxisGroup(LocalAxis):
     def max(self, x):
         return x if self._one() else _all_reduce(self.mesh, self.axis, x,
                                                  "max")
+
+    @torch.no_grad()
+    def argmax(self, x):
+        """The global index of the largest entry of the last dimension,
+        split over the axis (this rank's ids ``[index * n, (index + 1) *
+        n)``): every rank's maximum and its id are gathered, and ties go
+        to the lowest global id, as ``torch.argmax``'s (each rank's
+        argmax is its first maximum; the gathered shards are in id
+        order)."""
+        idx = x.argmax(-1)
+        if self._one():
+            return idx
+        val = x.gather(-1, idx[..., None])[..., 0].float()
+        gid = (idx + self.index * x.shape[-1]).float()   # exact below 2**24
+        both = self.mesh.all_gather(torch.stack([val, gid])[None],
+                                    self.axis, 0)        # [size, 2, ...]
+        best = both[:, 0].argmax(0, keepdim=True)
+        return both[:, 1].gather(0, best)[0].long()

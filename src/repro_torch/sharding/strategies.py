@@ -45,30 +45,47 @@ rules themselves), and its hooks carry (``hooks()``):
 * with ``perf.moe_a2a``, the experts over ``data`` through
   ``make_moe_a2a``.
 
-The serve step (``launch/dryrun.py`` ``build_serve_cell``) places by the
-rules only the leaves whose collectives it writes (``step_param_rules``
-/ ``step_cache_rules``):
+The serve step (``launch/dryrun.py`` ``build_serve_cell``, monolithic and
+crosspool) places EVERY param leaf of the decoder families (dense, moe,
+vlm) by the serve rules (``step_param_rules`` is the rules themselves)
+and its hooks carry (``hooks()``):
 
+* attention heads over ``model`` (``Hooks.tp``): this rank's query and
+  KV heads, ``wo``'s partial sums reduced; a decode whose cache holds
+  every KV head (crosspool) gathers the new token's heads, and the
+  sequence-sharded decode (crosspool Type II) gathers every head's query
+  before its combine;
+* the vocabulary of the embedding and the head over ``model``: the
+  lookup masks the ids a rank does not own and sums, and the step returns
+  this rank's vocabulary shard of its rows' logits (``dryrun.greedy``
+  takes the split argmax);
+* the FFN's weights pool: the dense FFN's hidden over ``model``
+  (monolithic) or over ``tp_all`` (crosspool), completed by ``ffn_down``;
+  the routed experts over ``model`` (monolithic) or over ``data`` with
+  ``f`` over ``model`` (crosspool, ``Hooks.experts``), their partial sums
+  and a shared expert's completed at once by ``moe_sum``; the capacity's
+  slots over the rows still split at the FFN (``Hooks.dp``), so the drops
+  are the whole batch's; with ``perf.moe_a2a`` (crosspool) the experts
+  go through ``make_moe_a2a``;
+* monolithic DP attention (``_dpa_axes``, rows over ``data`` and
+  ``model``): the attention leaves gathered over ``model`` where a layer
+  reads them (``Hooks.params``), and the rows of the rank's ``model``
+  group gathered into the embedding, the FFN and the head and this
+  rank's taken back (``Hooks.rows``, ``boundary_in`` / ``out``);
 * the KV-cache pool: a cache leaf's batch rows over the step's row axes
-  (``row_axes``), and under crosspool decode with the sequence-sharded
-  override (Type II) the ``k`` / ``v`` / ``latent`` / ``rope`` (and
-  gemma3's ``gk`` / ``gv``) sequence over ``kv_seq_axes``.  A Type I
-  cache keeps its sequence whole: with no override its attention reads
-  every row, and splitting it would take an all-gather a step;
-* the dense weights pool under crosspool: ``*mlp/w[gui]`` / ``w[do]`` and
-  the shared experts ``*moe/shared/*`` of the decoder stack, hidden over
-  ``tp_all`` (the input replicated at ``boundary_in``, the partial
-  products summed by ``ffn_down``, this rank's rows taken back at
-  ``boundary_out``);
-* the routed experts under crosspool with ``perf.moe_a2a``: ``*moe/w[gu]``
-  / ``*moe/wd``, experts over ``data`` and ``f`` over ``model``, consumed
-  by ``make_moe_a2a``.
+  (``row_axes``); under monolithic Type I the KV heads of ``k`` / ``v``
+  (gemma3's ``gk`` / ``gv`` and ring ``lk`` / ``lv``) over ``model``;
+  under crosspool decode with the sequence-sharded override (Type II) the
+  ``k`` / ``v`` / ``latent`` / ``rope`` (and ``gk`` / ``gv``) sequence
+  over ``kv_seq_axes``.  A crosspool Type I cache keeps its sequence and
+  its heads whole: with no override its attention reads every row, and
+  splitting it would take an all-gather a step.
 
-Every other leaf of the serve step is whole on every rank: attention
-projections, embeddings and head, routed experts without ``moe_a2a``,
-SSM projections and the SSM state's heads (ROADMAP Queue 1 item 1.2:
-the training step's blocks serve them).  The train cells of the ssm,
-hybrid and audio families are not ported (``TRAIN_LEFT_OUT``).
+The ssm, hybrid and audio families keep the serve placement of the
+dense weights pool alone (``SERVE_LEFT_OUT``): under crosspool their
+``*mlp/w[gui]`` / ``w[do]`` and shared experts over ``tp_all``, every
+other leaf whole, their caches by rows (and sequence, as above).  Their
+train cells are not ported either (``TRAIN_LEFT_OUT``).
 """
 from __future__ import annotations
 
@@ -101,8 +118,19 @@ TRAIN_LEFT_OUT = {
     "ssm": "ROADMAP Queue 1 item 1.4, after Queue 2 item 8",
     "hybrid": "ROADMAP Queue 1 item 1.4, after Queue 2 item 8",
     "audio": "ROADMAP Queue 1 item 1.5"}
+#: the families whose serve step places only the dense weights pool (the
+#: module docstring), and where the rest of their placement is queued
+SERVE_LEFT_OUT = {
+    "ssm": "ROADMAP Queue 1 item 1.4 (SSM projections, SSM state heads)",
+    "hybrid": "ROADMAP Queue 1 item 1.4 (SSM projections, SSM state heads)",
+    "audio": "ROADMAP Queue 1 item 1.5 (whisper's encoder and cross "
+             "attention)"}
 #: the routed experts' leaves, over ``data`` under the train ``moe_a2a``
 EXPERT_LEAVES = ("*moe/w[gu]", "*moe/wd")
+#: the attention leaves monolithic DP attention gathers where it reads them
+ATTN_LEAVES = ("*attn/*",)
+#: cache leaves whose KV heads monolithic Type I splits over ``model``
+KV_HEAD_LEAVES = ("k", "v", "gk", "gv", "lk", "lv")
 
 
 @dataclass(frozen=True)
@@ -128,16 +156,19 @@ class ParamShards(WholeParams):
     ``gather`` all-gathers a tree's leaves on their pool-axis dims (the
     FSDP dims; the backward reduce-scatters the gradient), except the
     leaves matching ``expert_parallel``, which the all-to-all dispatch
-    consumes as shards.  ``grad_mean`` sums each leaf's gradient over the
-    batch axes it is replicated on (one all-reduce per set of axes) and
-    divides every leaf by the batch axes' width.  ``leaf_stats`` reduces
-    a per-leaf statistic over the axes the leaf is split on."""
+    consumes as shards (with ``only``, just the leaves matching it: the
+    serve step's attention under DP attention, ``pool`` = ``model``).
+    ``grad_mean`` sums each leaf's gradient over the batch axes it is
+    replicated on (one all-reduce per set of axes) and divides every leaf
+    by the batch axes' width.  ``leaf_stats`` reduces a per-leaf
+    statistic over the axes the leaf is split on."""
 
     def __init__(self, mesh: Mesh, specs, pool: Tuple[str, ...],
-                 batch: Tuple[str, ...], expert_parallel=()):
+                 batch: Tuple[str, ...], expert_parallel=(), only=None):
         self.mesh, self.specs = mesh, specs
         self.pool, self.batch = pool, batch
         self.expert_parallel = tuple(expert_parallel)
+        self.only = only
 
     def _split(self, path: str) -> Tuple[str, ...]:
         """The axes (of more than one rank) the leaf at ``path`` splits
@@ -148,7 +179,9 @@ class ParamShards(WholeParams):
     def gather(self, tree, path: str):
         if isinstance(tree, dict):
             return {k: self.gather(v, f"{path}/{k}") for k, v in tree.items()}
-        if any(fnmatch.fnmatch(path, p) for p in self.expert_parallel):
+        if any(fnmatch.fnmatch(path, p) for p in self.expert_parallel) or (
+                self.only is not None
+                and not any(fnmatch.fnmatch(path, p) for p in self.only)):
             return tree
         spec = self.specs[path]
         # a layer of a stacked leaf has lost the layer dim
@@ -455,9 +488,11 @@ class Strategy:
     @property
     def seq_split(self) -> bool:
         """Whether the decode reads a sequence-sharded cache (crosspool
-        decode, Type II: the reference's shard_map override)."""
+        decode, Type II, over more than one rank: the reference's
+        shard_map override; at one rank the plain attention reads the
+        whole cache)."""
         return self.name == "crosspool" and self.shape.is_decode \
-            and self.type_ii
+            and self.type_ii and axis_size(self.mesh, self.kv_seq_axes) > 1
 
     @property
     def a2a(self) -> bool:
@@ -467,11 +502,25 @@ class Strategy:
                 and self.cfg.is_moe and self.batch_sharded
                 and self.cfg.n_experts % self.mesh.shape["data"] == 0)
 
+    @property
+    def places_all(self) -> bool:
+        """Whether the step places every param leaf by the rules: the
+        train step, and the serve step of the decoder families."""
+        return self.name == "train" or self.cfg.family not in SERVE_LEFT_OUT
+
+    @property
+    def head_split(self) -> bool:
+        """Whether the serve step's cache splits its KV heads over
+        ``model`` (monolithic Type I, ``cache_rules``)."""
+        return (self.name == "monolithic" and not self.type_ii
+                and self.places_all)
+
     def step_param_rules(self):
-        """The rules the step places params by: the train step places
-        every leaf by them; the serve steps the leaves of the module
-        docstring, every other leaf whole."""
-        if self.name == "train":
+        """The rules the step places params by: the train step and the
+        decoder families' serve step place every leaf by them; the serve
+        step of ``SERVE_LEFT_OUT`` the dense weights pool alone, every
+        other leaf whole."""
+        if self.places_all:
             return self.param_rules()
         pooled = ["*mlp/w[gui]", "*mlp/w[do]", "*moe/shared/*"]
         if self.a2a:
@@ -485,9 +534,10 @@ class Strategy:
         return PlacedRules(self.param_rules(), keep)
 
     def step_cache_rules(self) -> PlacedRules:
-        """Batch rows over ``row_axes`` and, for the sequence-sharded
-        decode, the sequence over ``kv_seq_axes``: the cache rules' B and
-        KT entries, placed by the leaf's own layout.  (The rules' patterns
+        """Batch rows over ``row_axes``, for the sequence-sharded decode
+        the sequence over ``kv_seq_axes``, and under ``head_split`` the KV
+        heads over ``model``: the cache rules' B, KT and TP entries, placed
+        by the leaf's own layout.  (The rules' patterns
         match the last path component with a leading ``*``, so ``*v``
         also catches ``conv``, ``lv`` and ``cv``, and ``*k`` ``lk`` and
         ``ck``: the reference's tables, kept verbatim, give those leaves
@@ -499,6 +549,8 @@ class Strategy:
             want[b] = self.row_axes
             if self.seq_split and name in SEQ_SPLIT_LEAVES:
                 want[b + 1] = self.kv_seq_axes
+            if self.head_split and name in KV_HEAD_LEAVES:
+                want[-2] = "model"
             return safe_spec(self.mesh, shape, want)
         return PlacedRules(self.cache_rules(), keep)
 
@@ -513,35 +565,52 @@ class Strategy:
             return self.cfg.head_dim ** -0.5
         return 1.0                      # attn-free: never used
 
-    def _ffn_split_axes(self):
-        """Axes the decoder stack's FFN hidden splits over in the step
-        (``None`` when whole): the last dim of its up projection."""
+    def _split_axes(self, path: str, shape, dims) -> Tuple[str, ...]:
+        """The mesh axes (of more than one rank, in the mesh's order) the
+        step's rules split ``dims`` of the leaf at ``path`` over."""
+        spec = self.step_param_rules().spec_for(self.mesh, path, shape)
+        used = {a for d in dims for a in self.mesh.axes_of(spec[d])}
+        return tuple(a for a in self.mesh.axis_names
+                     if a in used and self.mesh.shape[a] > 1)
+
+    def _ffn_split_axes(self) -> Tuple[str, ...]:
+        """Axes the decoder stack's dense FFN (a MoE's shared experts)
+        splits its hidden over in the step: the last dim of its up
+        projection."""
         cfg = self.cfg
         if cfg.is_moe:
             if not cfg.n_shared_experts:
-                return None
+                return ()
             path, f = "layers/moe/shared/wg", cfg.n_shared_experts * cfg.d_ff
         elif cfg.family in ("dense", "vlm", "audio", "hybrid"):
             w = "wg" if cfg.mlp_kind == "swiglu" else "wi"
             top = "shared_block" if cfg.family == "hybrid" else "layers"
             path, f = f"{top}/mlp/{w}", cfg.d_ff
         else:
-            return None
-        L = 1 if cfg.family == "hybrid" else cfg.n_layers
+            return ()
         shape = (cfg.d_model, f) if cfg.family == "hybrid" \
-            else (L, cfg.d_model, f)
-        return self.step_param_rules().spec_for(self.mesh, path, shape)[-1]
+            else (cfg.n_layers, cfg.d_model, f)
+        return self._split_axes(path, shape, (-1,))
+
+    def _expert_axes(self) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+        """(the axes the routed experts split over, the axes their ``f``
+        splits over) in the step: monolithic (model, ()), crosspool
+        (data, model)."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.d_ff)
+        return (self._split_axes("layers/moe/wg", shape, (1,)),
+                self._split_axes("layers/moe/wg", shape, (3,)))
 
     def hooks(self) -> Hooks:
         """The step's hooks on a live mesh: the collectives the
-        reference's partitioner derives, written out."""
-        m = self.mesh
+        reference's partitioner derives, written out (the module
+        docstring)."""
+        m, cfg = self.mesh, self.cfg
         if m.coord is None:
             raise ValueError("Strategy.hooks() needs a live mesh")
         if self.name == "train":
             return self._train_hooks()
         rows = self.row_axes
-        n_rows = axis_size(m, rows)
         split = self._ffn_split_axes()
 
         def ffn_down(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -563,23 +632,57 @@ class Strategy:
         if self.a2a:
             wg = self.step_param_rules().spec_for(
                 m, "layers/moe/wg",
-                (self.cfg.n_layers, self.cfg.n_experts, self.cfg.d_model,
-                 self.cfg.d_ff))
+                (cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.d_ff))
 
             def pool_shared(p, x2):
                 y = layers.apply_mlp(p, gather(x2), "swiglu",
                                      down=ffn_down if split else None)
                 return own_rows(y)
             moe_apply = moe_a2a.make_moe_a2a(
-                m, self.cfg, expert_axis="data", tp_axis=wg[-1],
+                m, cfg, expert_axis="data", tp_axis=wg[-1],
                 batch_axes=self.bax, f8_dispatch=self.perf.f8_dispatch,
                 shared=pool_shared)
 
-        # the pool boundary: the weights pool multiplies every row (a
-        # split hidden needs them all; the capacity MoE's drops depend on
-        # the whole batch); the a2a dispatch moves its own tokens
-        cross = n_rows > 1 and moe_apply is None and (
-            split is not None or self.cfg.is_moe)
+        # the pool boundary: crosspool's weights pool multiplies every row
+        # (a split hidden needs them all; the capacity MoE's experts live
+        # on other ranks); the a2a dispatch moves its own tokens; under
+        # monolithic DP attention the rows of the rank's model group meet
+        # its split FFN
+        whole = tuple(a for a in m.axes_of(rows) if m.shape[a] > 1)
+        if self.name == "crosspool":
+            bnd = whole if moe_apply is None and (split or cfg.is_moe) \
+                else ()
+        else:
+            bnd = ("model",) if self.places_all and "model" in whole else ()
+        hooks = {}
+        if bnd:
+            hooks.update(
+                boundary_in=lambda x: m.all_gather(x, bnd, 0),
+                boundary_out=lambda x: x[local_slices(m, x.shape, (bnd,))])
+        if self.places_all:
+            hooks["tp"] = AxisGroup(m, "model")
+            if bnd == ("model",):
+                hooks["rows"] = hooks["tp"]
+                hooks["params"] = ParamShards(m, self.param_specs(),
+                                              ("model",), (),
+                                              only=ATTN_LEAVES)
+        if cfg.is_moe and self.places_all and moe_apply is None:
+            left = tuple(a for a in whole if a not in bnd)
+            if left:
+                hooks["dp"] = AxisGroup(m, left)
+            ep, f_ax = self._expert_axes()
+            if ep and ep != ("model",):
+                hooks["experts"] = AxisGroup(m, ep)
+            routed = tuple(a for a in m.axis_names if a in ep + f_ax)
+            if routed or split:
+                def moe_sum(y: torch.Tensor, ys: Optional[torch.Tensor]
+                            ) -> torch.Tensor:
+                    # float32 partials over the pool, summed once
+                    if ys is not None and split == routed:
+                        return m.all_reduce(y + ys, routed)
+                    y = m.all_reduce(y, routed)
+                    return y if ys is None else y + m.all_reduce(ys, split)
+                hooks["moe_sum"] = moe_sum
         decode_attn = decode_attn_mla = None
         kv_offset = 0
         if self.seq_split:
@@ -589,22 +692,20 @@ class Strategy:
                 raise ValueError(f"cache length {self.shape.seq_len} does "
                                  f"not split over {KT} ({n_kv})")
             kv_offset = m.index(KT) * (self.shape.seq_len // n_kv)
-            if self.cfg.attention == "mla":
+            if cfg.attention == "mla":
                 decode_attn_mla = seq_attention.make_seq_mla_decode_attn(
                     m, KT, rows, self._scale())
             else:
                 decode_attn = seq_attention.make_seq_decode_attn(
                     m, KT, rows, self._scale())
         return Hooks(
-            boundary_in=gather if cross else Hooks.boundary_in,
-            boundary_out=own_rows if cross else Hooks.boundary_out,
-            ffn_down=ffn_down if split is not None else None,
+            ffn_down=ffn_down if split else None,
             decode_attn=decode_attn, decode_attn_mla=decode_attn_mla,
-            moe_apply=moe_apply, kv_offset=kv_offset)
+            moe_apply=moe_apply, kv_offset=kv_offset, **hooks)
 
-    def train_specs(self) -> dict:
-        """{path: the train rules' spec} of every param leaf (from the
-        config's shapes alone)."""
+    def param_specs(self) -> dict:
+        """{path: the rules' spec} of every param leaf (from the config's
+        shapes alone)."""
         rules = self.param_rules()
         return {path_str(p): rules.spec_for(self.mesh, path_str(p),
                                             tuple(leaf.shape))
@@ -639,7 +740,7 @@ class Strategy:
                 batch_axes=self.bax, f8_dispatch=self.perf.f8_dispatch,
                 shared=shared)
             expert_parallel = EXPERT_LEAVES
-        return Hooks(params=ParamShards(m, self.train_specs(), self.pool,
+        return Hooks(params=ParamShards(m, self.param_specs(), self.pool,
                                         self.bax, expert_parallel),
                      tp=tp, dp=dp, moe_apply=moe_apply)
 

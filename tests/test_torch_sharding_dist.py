@@ -15,13 +15,21 @@ come from numpy seeds; params from the reference's own init, bridged.
   ``repro.models.moe.apply_moe`` at ``capacity_factor=8.0``: out 2e-5,
   aux 1e-5 relative; ``f8_dispatch`` within the bound of the reference's
   fp8 KV test (``err < 0.1 * scale + 0.5``);
+* the split argmax over ``model`` (ties across shards go to the lowest
+  global id, as ``torch.argmax``'s);
 * the sharded steps (``launch/dryrun.py`` ``build_serve_cell``): the
   smoke minicpm3-4b (Type II), qwen3-moe (with and without ``moe_a2a``;
   also with a shared expert) and zamba2-1.2b, crosspool decode on (1,4)
-  and (2,2), monolithic prefill on (4,1): the gathered logits against
-  the JAX package's single-device ``decode_step`` / ``prefill`` at 2e-4
-  (``tests/test_sharding.py:155-156``); every leaf the step places by
-  the rules holds exactly the rules' shard on its rank;
+  and (2,2), monolithic prefill on (4,1); then every decoder arch under
+  both strategies, prefill and decode, on (2,2), (1,4) (split heads, DP
+  attention) and (4,1) (``SERVE_CASES``): the logits gathered over rows
+  and vocabulary shards against the JAX package's single-device
+  ``decode_step`` / ``prefill`` at 2e-4 (``tests/test_sharding.py:
+  155-156``); every leaf the step places by the rules holds exactly the
+  rules' shard on its rank (the decoder archs: every param leaf, values
+  and bytes); ``dryrun.greedy`` equals the gathered argmax;
+* over a one-rank group the serve hooks leave the steps bit for bit as
+  without hooks;
 * a checkpoint written under (2,2) restores onto (4,1) with every leaf
   equal (``test_elastic_reshard_across_meshes``).
 """
@@ -40,12 +48,16 @@ from repro_torch.configs import SHAPES_BY_NAME as T_SHAPES
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import Mesh
+from repro_torch.models.model import build_model as t_build_model
 from repro_torch.sharding import moe_a2a
+from repro_torch.sharding.collectives import AxisGroup
 from repro_torch.sharding.seq_attention import (make_seq_decode_attn,
                                                 make_seq_mla_decode_attn)
 from repro_torch.sharding.spec import (local_slices, path_str, shard_shape,
-                                       shard_tree)
-from repro_torch.sharding.strategies import (SEQ_SPLIT_LEAVES, PerfOpts,
+                                       shard_tree, tree_bytes)
+from repro_torch.sharding.strategies import (KV_HEAD_LEAVES,
+                                             SEQ_SPLIT_LEAVES,
+                                             SERVE_LEFT_OUT, PerfOpts,
                                              make_strategy)
 from repro_torch.training import checkpoint as ckpt
 
@@ -134,6 +146,10 @@ def _collectives_job(p):
                                 tp_axis="model", batch_axes=("data",),
                                 capacity_mult=8.0, f8_dispatch=f8)
         out[f"a2a_f8={f8}"] = a2a(local, _rows(mesh, x, "data"))
+    # the split argmax over model: this rank's vocabulary shard
+    x = torch.from_numpy(p["argmax"])
+    out["argmax"] = AxisGroup(mesh, "model").argmax(
+        x[local_slices(mesh, x.shape, (None, "model"))])
     out["coord"] = mesh.coord
     return out
 
@@ -148,13 +164,15 @@ def _steps_job(p):
         cache = dryrun.shard_cache(st, case["cache"])
         step = dryrun.build_serve_cell(cfg, shape, st)
         tokens = dryrun.local_rows(st, case["tokens"])
+        extra = {k: dryrun.local_rows(st, v)
+                 for k, v in case.get("extra", {}).items()}
         if shape.is_decode:
             logits, cache = step(params, tokens, cache,
                                  dryrun.local_rows(st, case["lengths"]))
         else:
-            logits, cache = step(params, tokens, cache)
+            logits, cache = step(params, tokens, cache, **extra)
         # every leaf the step places holds its shard: the rules' own for
-        # the params and the sequence-split caches
+        # the params, the sequence-split and the head-split caches
         placed = []
         for kind, whole, local, rules, step_rules in (
                 ("params", case["params"], params, st.param_rules(),
@@ -166,16 +184,32 @@ def _steps_job(p):
                 if all(a is None for a in spec):
                     continue
                 by_rule = kind == "params" or (
-                    st.seq_split and path in SEQ_SPLIT_LEAVES)
+                    st.seq_split and path in SEQ_SPLIT_LEAVES) or (
+                    st.head_split and path in KV_HEAD_LEAVES)
                 if by_rule:
                     spec = rules.spec_for(mesh, path, leaf.shape)
                 placed.append((kind, path, tuple(_get(local, path).shape),
                                shard_shape(mesh, leaf.shape, spec),
                                tuple(spec)))
+        # the rules' cut of every param leaf, by value
+        rules = st.step_param_rules()
+        cut = all(torch.equal(
+            _get(params, path),
+            leaf[local_slices(mesh, leaf.shape,
+                              rules.spec_for(mesh, path, leaf.shape))])
+            for path, leaf in _flat(case["params"]))
+        vocab = logits.shape[-1]
         out.append(dict(logits=logits, coord=mesh.coord, placed=placed,
                         seq_split=st.seq_split, a2a=st.a2a,
+                        head_split=st.head_split, type_ii=st.type_ii,
                         rows=dryrun.local_rows(st, torch.arange(
                             case["tokens"].shape[0])),
+                        vocab0=0 if vocab == cfg.vocab_size
+                        else mesh.index("model") * vocab,
+                        greedy=dryrun.greedy(st, logits), cut=cut,
+                        param_bytes=dryrun.resident_bytes(params),
+                        rule_bytes=tree_bytes(st.param_rules(), mesh,
+                                              case["params"]),
                         bytes=dryrun.resident_bytes(params)
                         + dryrun.resident_bytes(cache)))
     return out
@@ -266,7 +300,15 @@ def collectives(tmp_path_factory):
     j_p = jmoe.init_moe(jax.random.PRNGKey(0), j_cfg, jnp.float32)
     x = randn(8, 4, j_cfg.d_model)
     want_y, want_aux = jmoe.apply_moe(j_p, jnp.asarray(x), j_cfg)
-    payload = dict(gqa=gqa, pool=pool, mla=mla,
+    # [4 rows, 16 ids] over model = 2 (ids 0-7 | 8-15): ties inside a
+    # shard, across the shards, a maximum in the upper shard only, and
+    # the upper shard's first id tied with the lower shard's last
+    am = rng.standard_normal((4, 16)).astype(f32)
+    am[0, [3, 11]] = 9.0
+    am[1, [10, 14]] = 9.0
+    am[2, [2, 5, 9]] = 9.0
+    am[3, [7, 8]] = 9.0
+    payload = dict(gqa=gqa, pool=pool, mla=mla, argmax=am,
                    a2a=dict(cfg=t_cfg, params=params_to_torch(_np_tree(j_p)),
                             x=torch.from_numpy(x)))
     got = _run(tmp_path_factory.mktemp("collectives"), "collectives", payload)
@@ -287,6 +329,7 @@ def collectives(tmp_path_factory):
         pool=ref.decode_attention(j(pool["q"]), j(pool["k"]), j(pool["v"]),
                                   j(pool["lengths"]), pool["scale"]),
         mla=jnp.einsum("bhst,btr->bshr", w, j(mla["latent"])),
+        argmax=torch.from_numpy(am).argmax(-1),
         a2a=(want_y, want_aux))
     return got, {k: np.asarray(v) if k != "a2a" else
                  (np.asarray(v[0]), float(v[1])) for k, v in want.items()}
@@ -335,6 +378,16 @@ def test_moe_a2a_matches_capacity_path(collectives):
                                    rtol=1e-5)
 
 
+def test_split_argmax_ties_to_the_lowest_id(collectives):
+    """``AxisGroup.argmax`` over a vocabulary split on ``model`` gives
+    every rank ``torch.argmax``'s ids of the whole rows, ties across the
+    shards included."""
+    got, want = collectives
+    assert want["argmax"].tolist() == [3, 10, 2, 7]
+    for g in got:
+        assert g["argmax"].tolist() == want["argmax"].tolist()
+
+
 def test_moe_a2a_f8_dispatch_within_fp8_error(collectives):
     """The fp8 transport stays within the reference fp8 KV test's bound."""
     got, want = collectives
@@ -374,47 +427,108 @@ STEP_CASES = (
     ("zamba2-1.2b", "monolithic", (4, 1), {}, {}),
 )
 B, SEQ, MAX_LEN = 8, 8, 16
+#: the serve step's placement of every param leaf, the decoder archs:
+#: (arch, strategy, mesh, step).  Each arch runs under both strategies;
+#: (1,4) splits the heads of KV = 2 inside them (crosspool: Type II, the
+#: sequence-split decode) or takes DP attention (monolithic), (2,2) and
+#: (4,1) keep whole KV heads a rank (Type I: monolithic splits the
+#: cache's heads, crosspool keeps them whole), and (4,1) puts the
+#: experts over data alone
+SERVE_CASES = (
+    ("qwen3-moe-235b-a22b", "monolithic", (1, 4), "decode"),
+    ("qwen3-moe-235b-a22b", "crosspool", (2, 2), "prefill"),
+    ("moonshot-v1-16b-a3b", "monolithic", (2, 2), "decode"),
+    ("moonshot-v1-16b-a3b", "crosspool", (1, 4), "decode"),
+    ("moonshot-v1-16b-a3b", "crosspool", (4, 1), "prefill"),
+    ("qwen3-14b", "monolithic", (1, 4), "prefill"),
+    ("qwen3-14b", "crosspool", (2, 2), "decode"),
+    ("gemma3-12b", "monolithic", (2, 2), "decode"),
+    ("gemma3-12b", "crosspool", (1, 4), "decode"),
+    ("llama3-405b", "monolithic", (4, 1), "decode"),
+    ("llama3-405b", "crosspool", (1, 4), "prefill"),
+    ("minicpm3-4b", "monolithic", (2, 2), "decode"),
+    ("minicpm3-4b", "crosspool", (2, 2), "prefill"),
+    ("llava-next-34b", "monolithic", (2, 2), "prefill"),
+    ("llava-next-34b", "crosspool", (1, 4), "decode"),
+)
+#: llava's stub patch embeddings ahead of the prompt in its prefill
+N_PATCHES = 4
 
 
-@pytest.fixture(scope="module")
-def steps(tmp_path_factory):
+def _reference_case(rng, arch, strat, mesh, kind, perf, over):
+    """One sharded-step case on the JAX package's seeded params and its
+    single-device logits."""
     import jax
     import jax.numpy as jnp
     from repro.configs import get_smoke_config
     from repro.models import build_model
 
+    over = dict(over, dtype="float32")
+    j_cfg = get_smoke_config(arch).replace(**over)
+    model = build_model(j_cfg)
+    params = model.init(jax.random.PRNGKey(3))
+    tokens = rng.integers(0, j_cfg.vocab_size, (B, SEQ)).astype(np.int32)
+    cache = model.init_cache(B, MAX_LEN)
+    extra = {}
+    if kind == "prefill" and j_cfg.frontend == "vision_patches":
+        extra["embeddings"] = rng.standard_normal(
+            (B, N_PATCHES, j_cfg.d_model)).astype(np.float32)
+    logits, cache_p = model.prefill(
+        params, jnp.asarray(tokens), cache,
+        **{k: jnp.asarray(v) for k, v in extra.items()})
+    shape = replace(T_SHAPES["prefill_32k" if kind == "prefill"
+                             else "decode_32k"],
+                    seq_len=MAX_LEN, global_batch=B)
+    case = dict(cfg=t_smoke(arch).replace(**over), shape=shape,
+                mesh=mesh, strategy=strat, perf=PerfOpts(**perf),
+                params=params_to_torch(_np_tree(params)))
+    if kind == "prefill":
+        case.update(tokens=torch.from_numpy(tokens),
+                    cache=params_to_torch(_np_tree(cache)),
+                    extra={k: torch.from_numpy(v) for k, v in extra.items()})
+        return case, np.asarray(logits)
+    nxt = rng.integers(0, j_cfg.vocab_size, (B,)).astype(np.int32)
+    want, _ = model.decode_step(params, jnp.asarray(nxt), cache_p,
+                                jnp.int32(SEQ))
+    case.update(tokens=torch.from_numpy(nxt),
+                lengths=torch.full((B,), SEQ, dtype=torch.int32),
+                cache=params_to_torch(_np_tree(cache_p)))
+    return case, np.asarray(want)
+
+
+@pytest.fixture(scope="module")
+def steps(tmp_path_factory):
+    """Every case of ``STEP_CASES`` then ``SERVE_CASES``, in one spawn."""
     cases, wants = [], []
     rng = np.random.default_rng(0)
-    for i, (arch, strat, mesh, perf, over) in enumerate(STEP_CASES):
-        over = dict(over, dtype="float32")
-        j_cfg = get_smoke_config(arch).replace(**over)
-        model = build_model(j_cfg)
-        params = model.init(jax.random.PRNGKey(3))
-        tokens = rng.integers(0, j_cfg.vocab_size, (B, SEQ)).astype(np.int32)
-        cache = model.init_cache(B, MAX_LEN)
-        logits, cache_p = model.prefill(params, jnp.asarray(tokens), cache)
+    for arch, strat, mesh, perf, over in STEP_CASES:
         kind = "prefill" if strat == "monolithic" else "decode"
-        shape = replace(T_SHAPES["prefill_32k" if kind == "prefill"
-                                 else "decode_32k"],
-                        seq_len=MAX_LEN, global_batch=B)
-        case = dict(cfg=t_smoke(arch).replace(**over), shape=shape,
-                    mesh=mesh, strategy=strat, perf=PerfOpts(**perf),
-                    params=params_to_torch(_np_tree(params)))
-        if kind == "prefill":
-            case.update(tokens=torch.from_numpy(tokens),
-                        cache=params_to_torch(_np_tree(cache)))
-            want = logits
-        else:
-            nxt = rng.integers(0, j_cfg.vocab_size, (B,)).astype(np.int32)
-            want, _ = model.decode_step(params, jnp.asarray(nxt), cache_p,
-                                        jnp.int32(SEQ))
-            case.update(tokens=torch.from_numpy(nxt),
-                        lengths=torch.full((B,), SEQ, dtype=torch.int32),
-                        cache=params_to_torch(_np_tree(cache_p)))
+        case, want = _reference_case(rng, arch, strat, mesh, kind, perf, over)
         cases.append(case)
-        wants.append(np.asarray(want))
+        wants.append(want)
+    for arch, strat, mesh, kind in SERVE_CASES:
+        case, want = _reference_case(rng, arch, strat, mesh, kind, {}, {})
+        cases.append(case)
+        wants.append(want)
     got = _run(tmp_path_factory.mktemp("steps"), "steps", {"cases": cases})
     return got, wants
+
+
+def _gathered(got, i):
+    """Case ``i``'s logits [B, V] assembled from every rank's rows and
+    vocabulary shard; ranks holding the same entries agree bit for bit."""
+    full = {}
+    for rank in got:
+        r = rank[i]
+        v0, n = r["vocab0"], r["logits"].shape[-1]
+        for row, logit in zip(r["rows"].tolist(), r["logits"]):
+            for j, x in zip(range(v0, v0 + n), logit.tolist()):
+                assert full.setdefault((row, j), x) == x, (row, j)
+        for kind, path, shape, want, spec in r["placed"]:
+            assert shape == want, (kind, path, spec)
+    V = 1 + max(j for _, j in full)
+    return np.array([[full[(row, j)] for j in range(V)] for row in range(B)],
+                    dtype=np.float32)
 
 
 @pytest.mark.parametrize("i", range(len(STEP_CASES)),
@@ -425,18 +539,10 @@ def steps(tmp_path_factory):
 def test_sharded_step_matches_single_device(steps, i):
     """The gathered logits equal the JAX package's single-device step
     within its own tolerance; every rank's placed leaves hold the rules'
-    shard, and ranks with the same rows give the same logits."""
+    shard, and ranks with the same rows and vocabulary shard give the
+    same logits."""
     got, wants = steps
-    full = {}
-    for rank in got:
-        r = rank[i]
-        for row, logit in zip(r["rows"].tolist(), r["logits"]):
-            if row in full:
-                assert torch.equal(full[row], logit), row
-            full[row] = logit
-        for kind, path, shape, want, spec in r["placed"]:
-            assert shape == want, (kind, path, spec)
-    logits = torch.stack([full[r] for r in range(B)]).numpy()
+    logits = _gathered(got, i)
     np.testing.assert_allclose(logits, wants[i], **STEP_TOL)
     arch, strat, mesh, perf, over = STEP_CASES[i]
     placed = {(k, p): spec for k, p, _, _, spec in got[0][i]["placed"]}
@@ -458,6 +564,85 @@ def test_sharded_step_matches_single_device(steps, i):
     if mesh != (1, 1):
         assert max(g[i]["bytes"] for g in got) < sum(g[i]["bytes"]
                                                      for g in got)
+
+
+@pytest.mark.parametrize("i", range(len(SERVE_CASES)),
+                         ids=[f"{a}-{s}-{m[0]}x{m[1]}-{k}"
+                              for a, s, m, k in SERVE_CASES])
+def test_serve_step_places_every_leaf(steps, i):
+    """The decoder archs' serve step on every param leaf placed by the
+    serve rules: the logits gathered over rows and vocabulary shards
+    within 2e-4 of the JAX package's single-device step; every leaf the
+    rules' cut by value and the rank's param bytes the rules' exactly;
+    ``greedy`` the gathered argmax; monolithic Type I holds its KV heads'
+    share of the cache, crosspool Type I the whole heads."""
+    got, wants = steps
+    j = len(STEP_CASES) + i
+    logits = _gathered(got, j)
+    np.testing.assert_allclose(logits, wants[j], **STEP_TOL)
+    arch, strat, mesh, kind = SERVE_CASES[i]
+    argmax = logits.argmax(-1)
+    for g in got:
+        r = g[j]
+        assert r["cut"]
+        assert r["param_bytes"] == r["rule_bytes"]
+        assert r["greedy"].tolist() == argmax[r["rows"].numpy()].tolist()
+        assert r["head_split"] == (strat == "monolithic"
+                                   and not r["type_ii"])
+        # the vocabulary splits over model, but DP attention returns it
+        # whole (the reference's monolithic logits constraint)
+        dpa = strat == "monolithic" and r["type_ii"]
+        assert (r["logits"].shape[-1] < logits.shape[-1]) == (
+            mesh[1] > 1 and not dpa)
+    placed = {(k, p): spec for k, p, _, _, spec in got[0][j]["placed"]}
+    name = "gk" if arch == "gemma3-12b" else "k"
+    if ("cache", name) in placed:
+        assert (placed[("cache", name)][-2] is not None) == \
+            got[0][j]["head_split"]
+    assert max(g[j]["param_bytes"] for g in got) < sum(
+        g[j]["param_bytes"] for g in got)
+
+
+def test_one_rank_serve_hooks_are_bit_exact(tmp_path):
+    """Over a one-rank group the serve hooks of both strategies leave
+    ``prefill`` and ``decode_step`` bit for bit as without hooks (a MoE
+    with a shared expert, an MLA and a tied sliding-window arch); the
+    left-out families are named with their ROADMAP items."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        mesh = Mesh((1, 1), ("data", "model"), live=True)
+        for arch, over in (("qwen3-moe-235b-a22b", {"n_shared_experts": 1}),
+                           ("minicpm3-4b", {}), ("gemma3-12b", {})):
+            cfg = t_smoke(arch).replace(dtype="float32", **over)
+            model = t_build_model(cfg)
+            params = model.init(torch.Generator().manual_seed(0))
+            gen = torch.Generator().manual_seed(1)
+            tokens = torch.randint(0, cfg.vocab_size, (2, SEQ),
+                                   generator=gen, dtype=torch.int32)
+            nxt = tokens[:, 0]
+            for strat in ("monolithic", "crosspool"):
+                runs = []
+                for hooked in (False, True):
+                    cache = model.init_cache(2, MAX_LEN, "cpu")
+                    kw = {}
+                    if hooked:
+                        kw["hooks"] = make_strategy(
+                            strat, mesh, cfg, replace(
+                                T_SHAPES["decode_32k"], seq_len=MAX_LEN,
+                                global_batch=2)).hooks()
+                    first, _ = model.prefill(params, tokens, cache, **kw)
+                    step, _ = model.decode_step(params, nxt, cache, SEQ,
+                                                **kw)
+                    runs.append((first, step, cache))
+                (a0, a1, ca), (b0, b1, cb) = runs
+                assert torch.equal(a0, b0) and torch.equal(a1, b1)
+                assert all(torch.equal(ca[k], cb[k]) for k in ca)
+    finally:
+        dist.destroy_process_group()
+    assert set(SERVE_LEFT_OUT) == {"ssm", "hybrid", "audio"}
+    assert all("ROADMAP Queue 1 item 1." in v
+               for v in SERVE_LEFT_OUT.values())
 
 
 # ---------------------------------------------------------------------------

@@ -176,7 +176,7 @@ def _step_job(p):
             m=_flat(state.opt.m), v=_flat(state.opt.v),
             error_fb=None if state.error_fb is None
             else _flat(state.error_fb),
-            specs={k: tuple(v) for k, v in st.train_specs().items()},
+            specs={k: tuple(v) for k, v in st.param_specs().items()},
             placed=placed, resident=resident,
             argument_bytes=dryrun.argument_bytes(st)))
     if p.get("ckpt"):
