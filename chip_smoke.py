@@ -304,6 +304,31 @@ other than 0) if any phase fails:
              head geometries.  Under ``"sharded_serve"``; its times are a
              one-card gloo rehearsal.
 
+17. sharded families — the ssm, hybrid and audio archs (zamba2-1.2b,
+             mamba2-130m, whisper-small) at their full published configs
+             through the same steps, in bf16 and float32, phase 16's
+             sizes (whisper over seeded stub encoder frames): (a) the
+             Model path, then the serve cell over (1, 1) on the same
+             params, bit for bit, and the Model path once more on every
+             weight matrix moved by one float32 ulp (its row error);
+             (b) four processes (spawned once) under monolithic (1, 4)
+             and crosspool (2, 2), every arch in float32 and zamba2 in
+             bf16 too: each rank's param and cache bytes the rules'
+             exactly (the SSM's projections over the weights pool, its
+             state's heads over ``model``), ``ssd_scan`` once a SSM
+             layer a prefill and flash / contiguous decode once a GQA
+             self-attention layer on every rank, in float32 every greedy
+             id equal and every row within the larger of 1e-4 and 2.5x
+             (a)'s ulp row error (the SSD scan's decays amplify one ulp),
+             bf16 printed; a control, zamba2 and mamba2 over (2, 2) with
+             TF32 matmuls, must fail that row limit; (c) whisper's train
+             cell (float32, 2 steps, 2 + 2 layers) at one rank bit for
+             bit against ``make_train_step``, then over (2, 2) on (b)'s
+             ranks (losses within 1e-5 relative, shards within the sign
+             bound, resident bytes the dry-run's).  Rows
+             3, 4 and 6 are timed at a (1, 4) rank's heads.  Under
+             ``"sharded_families"``.
+
 Phases 3 and 13 hold the paged GQA and MLA kernels in bf16 to the same
 row limit as rows 3-4: each output row's relative RMS error within 1e-2
 (``BF16_ROW_RMS``) on top of the elementwise 2e-2.
@@ -458,6 +483,36 @@ SERVE_SHARD_SIZES = (4, 512, 8)
 SERVE_SHARD_RANKS = 4
 SERVE_SHARD_TIMEOUT = 300
 SERVE_SHARD_ROW_RMS = 1e-4
+#: phase 17: the ssm, hybrid and audio archs at their full published
+#: configs, phase 16's sizes: (a) the serve cell at one rank beside the
+#: Model path, in each dtype; (b) four ranks on each (strategy, (data,
+#: model)), every run in one spawn: float32 for every arch (the gate),
+#: bf16 (measured, not gated) for FAMILY_BF16_ARCH alone, which keeps
+#: the phase inside its 150 s
+FAMILY_SHARD_ARCHS = ("zamba2-1.2b", "mamba2-130m", "whisper-small")
+FAMILY_SHARD_MESHES = (("monolithic", (1, 4)), ("crosspool", (2, 2)))
+FAMILY_SHARD_DTYPES = ("bfloat16", "float32")
+FAMILY_BF16_ARCH = "zamba2-1.2b"
+#: 17c: whisper's train cell, float32, at one rank and over (2, 2):
+#: batch, tokens, the encoder and decoder depth (None: the published 12
+#: each; 2: phase 17's 150 s, as phase 15's moonshot); SHARDED_STEPS
+#: steps
+AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ, AUDIO_TRAIN_DEPTH = 4, 128, 2
+AUDIO_TRAIN_MESH = (2, 2)
+#: 17b's float32 row limit: SERVE_SHARD_ROW_RMS, or this many times the
+#: row error one float32 ulp of noise on every weight matrix gives the
+#: one-rank Model path (17a measures it), whichever is larger.  The SSD
+#: scan's decays are exp(La_i - La_j) of cumulative sums in the hundreds
+#: over 512 tokens, so a one-ulp change of dt moves them ~1e-4 relative
+#: (the JAX package's chunked form and the kernel alike): a reordered f32
+#: sum anywhere upstream does the same.  Sound four-rank runs have read
+#: up to 1.2x this witness (mamba2 over (2, 2); PERF.md)
+FAMILY_NOISE_FACTOR = 2.5
+#: 17b's control: these archs once more in float32 over crosspool (2, 2)
+#: with TF32 matmuls (10 mantissa bits); each must FAIL the row limit
+#: above, or the limit could not tell a lower-precision split from the
+#: float32 rounding it allows
+FAMILY_CONTROL_ARCHS = ("zamba2-1.2b", "mamba2-130m")
 EXAMPLE_ARCHS = ("qwen3-moe-235b-a22b", "moonshot-v1-16b-a3b", "minicpm3-4b",
                  "qwen3-14b")
 #: phase 8 times these kernels at these of its shapes and loads
@@ -486,6 +541,15 @@ def bound_ms(nbytes: float, flops: float, fp32: bool = False):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / (FP32_FLOPS if fp32 else BF16_FLOPS) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_bound(B, S, H, P, G, N, L):
+    """Row 6's least time for one call: x and y bf16, dt f32, B / C bf16
+    and the final f32 state moved once; the chunked form's products."""
+    nbytes = (2 * B * S * H * P * 2 + B * S * H * 4 + H * 4
+              + 2 * B * S * G * N * 2 + B * H * P * N * 4)
+    flops = B * H * (S // L) * (L * L * (N + P) + 4 * L * N * P)
+    return bound_ms(nbytes, flops)
 
 
 # ---------------------------------------------------------------------------
@@ -1162,10 +1226,7 @@ def fallback_kernel_phase(torch, kops, ref, ssd_scan_chunked):
         for label, (Hs, P, G, N) in geoms.items():
             x, dt, A, Bm, Cm, _ = ssd_inputs(1, S, Hs, P, G, N,
                                              torch.bfloat16, False, 0.0)
-            nbytes = (2 * S * Hs * P * 2 + S * Hs * 4 + Hs * 4
-                      + 2 * S * G * N * 2 + Hs * P * N * 4)
-            flops = Hs * (S // L) * (L * L * (N + P) + 4 * L * N * P)
-            b_ms, b_by = bound_ms(nbytes, flops)
+            b_ms, b_by = ssd_bound(1, S, Hs, P, G, N, L)
             rows.append(dict(
                 kernel="ssd_scan", shape=f"{label} H={Hs} P={P} N={N} "
                                          f"S={S} chunk {L} bf16",
@@ -4770,12 +4831,145 @@ def serve_shard_cfg(torch, run):
     return cfg.replace(n_layers=depth or cfg.n_layers)
 
 
+def serve_launches(cfg, steps) -> tuple:
+    """The serve step's exact launches of a flash prefill and of ``steps``
+    paged decode steps: flash and contiguous decode once per GQA self-
+    attention layer (zamba2's shared block once per group; whisper's
+    cross-attention and encoder take the plain route), the SSD scan once
+    per SSM layer a prefill."""
+    n_ssm = n_attn = 0
+    if cfg.family == "ssm":
+        n_ssm = cfg.n_layers
+    elif cfg.family == "hybrid":
+        n_ssm = (cfg.hybrid_groups * cfg.ssm_per_group
+                 + cfg.tail_ssm_layers)
+        n_attn = cfg.hybrid_groups
+    else:
+        n_attn = cfg.n_layers
+    return ({"flash_attention": n_attn, "decode_attention": 0,
+             "ssd_scan": n_ssm},
+            {"flash_attention": 0, "decode_attention": n_attn * steps,
+             "ssd_scan": 0})
+
+
+def _path(launches) -> dict:
+    """The counts of the kernels the serve steps' path reaches."""
+    return {k: launches[k] for k in ("flash_attention", "decode_attention",
+                                     "ssd_scan")}
+
+
+def _serve_inputs(torch, cfg, B, S, device) -> dict:
+    """The serve runs' seeded prompts, and whisper's stub encoder frames."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                   device=device, dtype=torch.int32)}
+    if cfg.family == "audio":
+        from repro_torch.models.transformer import dtype_of
+        out["encoder_frames"] = torch.randn(
+            (B, cfg.encoder_seq, cfg.d_model), generator=gen,
+            device=device).to(dtype_of(cfg))
+    return out
+
+
+def _ulp_noise_rows(torch, model, params, inputs, sizes, logits, toks,
+                    device) -> float:
+    """(17a) How far one float32 ulp moves the Model path: every weight
+    matrix times (1 + eps * N(0, 1)) (seeded), the same prefill and
+    decode steps fed ``toks``; the largest logit row's relative RMS error
+    against ``logits`` (the run on the unperturbed params)."""
+    from repro_torch.training.tree import map_tree
+    gen = torch.Generator(device=device).manual_seed(2)
+    eps = torch.finfo(torch.float32).eps
+
+    def noisy(t):
+        if t.dim() < 2 or not t.is_floating_point():
+            return t
+        return t * (1 + eps * torch.randn(t.shape, generator=gen,
+                                          device=t.device, dtype=t.dtype))
+    B, S, steps = sizes
+    extra = {k: v for k, v in inputs.items() if k != "tokens"}
+    moved = map_tree(noisy, params)
+    cache = model.init_cache(B, S + steps, device)
+    first, _ = model.prefill(moved, inputs["tokens"], cache, impl="flash",
+                             **extra)
+
+    def unsharded(p, tok, c, lens):
+        return model.decode_step(p, tok, c, lens, impl="paged")
+    got, _, _ = _decode_steps(
+        torch, unsharded, moved, cache, toks[0],
+        torch.full((B,), S, dtype=torch.int32, device=device), steps, device,
+        forced=toks[1:])
+    err = row_error(torch.cat([first.float()[None], got]), logits)
+    log(f"sharded serve 17a {model.cfg.name} float32: one ulp of noise on "
+        f"every weight matrix moves the Model path's logit rows by "
+        f"{err:.3g}")
+    del moved, cache
+    return err
+
+
+def _one_rank_cell(torch, kops, cfg, params, inputs, sizes, logits, toks,
+                   device) -> dict:
+    """(17a) The serve cell monolithic over (1, 1) on ``params`` and a
+    fresh local cache: its prefill and its decode steps fed the Model
+    path's greedy tokens must give the Model path's ``logits`` and
+    ``toks`` bit for bit; on the card each launches as ``serve_launches``
+    says.  Needs a one-rank process group."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding.strategies import make_strategy
+    B, S, steps = sizes
+    mesh = Mesh((1, 1), ("data", "model"), live=True)
+    st_pre = make_strategy("monolithic", mesh, cfg,
+                           _cell_shape("prefill", S + steps, B))
+    st_dec = make_strategy("monolithic", mesh, cfg,
+                           _cell_shape("decode", S + steps, B))
+    cache = dryrun.local_cache(st_pre, B, S + steps, device)
+    extra = {k: v for k, v in inputs.items() if k != "tokens"}
+    reset_launches(kops)
+    sync(torch, device)
+    t0 = time.perf_counter()
+    first, _ = dryrun.build_serve_cell(cfg, st_pre.shape, st_pre,
+                                       impl="flash")(
+        params, inputs["tokens"], cache, **extra)
+    sync(torch, device)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre = read_launches(kops)
+    step = dryrun.build_serve_cell(cfg, st_dec.shape, st_dec, impl="paged")
+    reset_launches(kops)
+    got, got_toks, ms = _decode_steps(
+        torch, step, params, cache, first.argmax(-1).to(torch.int32),
+        torch.full((B,), S, dtype=torch.int32, device=device), steps, device,
+        forced=toks[1:], greedy=lambda x: dryrun.greedy(st_dec, x))
+    dec = read_launches(kops)
+    got = torch.cat([first.float()[None], got])
+    got_toks = torch.cat([dryrun.greedy(st_pre, first).to(torch.int32)[None],
+                          got_toks])
+    tag = f"sharded serve 17a {cfg.name} {cfg.dtype} one rank"
+    if not (torch.equal(got, logits) and torch.equal(got_toks, toks)):
+        raise AssertionError(
+            f"{tag}: the cell parts from the Model path by "
+            f"{float((got - logits).abs().max()):.3g}, ids equal at "
+            f"{int((got_toks == toks).sum())} of {toks.numel()}")
+    if torch.device(device).type == "cuda":
+        want_pre, want_dec = serve_launches(cfg, steps)
+        check_counts(f"{tag} prefill", pre, want_pre)
+        check_counts(f"{tag} decode", dec, want_dec)
+    log(f"{tag}: logits and ids equal to the Model path's bit for bit; "
+        f"prefill {prefill_ms:.1f} ms, decode {ms:.2f} ms/step, launches "
+        f"{pre} a prefill, {dec} in {steps} steps")
+    del cache
+    return dict(prefill_ms=prefill_ms, decode_ms=ms, launches_prefill=pre,
+                launches_decode=dec, bit_exact=True)
+
+
 def _serve_reference(torch, kops, tmp, index, cfg, sizes, device="cuda"):
-    """(16, one rank) The unsharded Model path on the run's seeded draw:
-    a flash prefill of ``B`` prompts of ``S`` tokens and ``steps`` greedy
-    paged decode steps; its prompt, logits (prefill first) and greedy
-    tokens go to ``tmp/serve_ref{index}.pt`` for the ranks, and the whole
-    tree is freed.  Returns its figures."""
+    """(16, 17a; one rank) The unsharded Model path on the run's seeded
+    draw: a flash prefill of ``B`` prompts of ``S`` tokens (whisper's
+    over seeded stub frames) and ``steps`` greedy paged decode steps,
+    launching exactly ``serve_launches`` on the card; its inputs, logits
+    (prefill first) and greedy tokens go to ``tmp/serve_ref{index}.pt``
+    for the ranks.  Returns (figures, model, params, inputs, logits,
+    toks): the caller frees the tree."""
     from repro_torch.models.model import build_model
     from repro_torch.training.tree import leaves
     B, S, steps = sizes
@@ -4785,14 +4979,14 @@ def _serve_reference(torch, kops, tmp, index, cfg, sizes, device="cuda"):
     sync(torch, device)
     draw_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in leaves(params))
-    gen = torch.Generator(device=device).manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                           device=device, dtype=torch.int32)
+    inputs = _serve_inputs(torch, cfg, B, S, device)
+    extra = {k: v for k, v in inputs.items() if k != "tokens"}
     cache = model.init_cache(B, S + steps, device)
     reset_launches(kops)
     sync(torch, device)
     t0 = time.perf_counter()
-    first, _ = model.prefill(params, tokens, cache, impl="flash")
+    first, _ = model.prefill(params, inputs["tokens"], cache, impl="flash",
+                             **extra)
     sync(torch, device)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     pre = read_launches(kops)
@@ -4804,40 +4998,53 @@ def _serve_reference(torch, kops, tmp, index, cfg, sizes, device="cuda"):
         torch, unsharded, params, cache, first.argmax(-1).to(torch.int32),
         torch.full((B,), S, dtype=torch.int32, device=device), steps, device)
     dec = read_launches(kops)
-    torch.save(dict(tokens=tokens.cpu(),
-                    logits=torch.cat([first.float()[None], logits]).cpu(),
-                    toks=torch.cat([first.argmax(-1).to(torch.int32)[None],
-                                    toks]).cpu()),
+    logits = torch.cat([first.float()[None], logits])
+    toks = torch.cat([first.argmax(-1).to(torch.int32)[None], toks])
+    torch.save(dict({k: v.cpu() for k, v in inputs.items()},
+                    logits=logits.cpu(), toks=toks.cpu()),
                f"{tmp}/serve_ref{index}.pt")
+    if torch.device(device).type == "cuda":
+        want_pre, want_dec = serve_launches(cfg, steps)
+        check_counts(f"serve reference {cfg.name} {cfg.dtype} prefill",
+                     pre, want_pre)
+        check_counts(f"serve reference {cfg.name} {cfg.dtype} decode",
+                     dec, want_dec)
     out = dict(params=n_params,
                param_bytes=sum(t.numel() * t.element_size()
                                for t in leaves(params)),
                draw_s=draw_s, prefill_ms=prefill_ms, decode_ms=ms,
                tokens_per_s=B * 1e3 / ms, launches_prefill=pre,
                launches_decode=dec)
-    del params, cache, first, logits
+    del cache, first
+    return out, model, params, inputs, logits, toks
+
+
+def _free(torch, device) -> None:
     gc.collect()
-    if device == "cuda":
+    if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    return out
 
 
-def _serve_rank_run(torch, kops, tmp, index, run, cfg, sizes, device):
-    """One ``SERVE_SHARD_RUNS`` entry on this rank: its params drawn leaf
+def _serve_rank_run(torch, kops, tmp, job, sizes, device):
+    """One serve job (``_serve_job``) on this rank: its params drawn leaf
     by leaf and cut (``dryrun.draw_params``), its local cache
     (``dryrun.local_cache``), resident bytes equal to the rules', the
     serve cell's flash prefill and ``steps`` paged decode steps fed the
-    one-rank run's tokens, exact launches on the card.  Saves the
-    rank's logit shards and greedy ids beside the figures."""
+    one-rank run's inputs and tokens (``tmp/serve_ref{job['ref']}.pt``),
+    exact launches on the card; float32 matmuls in TF32 where the job
+    says so (17b's control).  Saves the rank's logit shards and greedy
+    ids beside the figures."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import Mesh
     from repro_torch.sharding.spec import tree_bytes
     from repro_torch.sharding.strategies import make_strategy
-    label, _, strategy, mesh_shape, _, _ = run
+    label, _, strategy, mesh_shape, _, _ = job["run"]
+    cfg, index = job["cfg"], job["id"]
     B, S, steps = sizes
     T = S + steps
     on_card = torch.device(device).type == "cuda"
-    ref = torch.load(f"{tmp}/serve_ref{index}.pt")
+    torch.backends.cuda.matmul.allow_tf32 = job["tf32"]
+    ref = torch.load(f"{tmp}/serve_ref{job['ref']}.pt")
     mesh = Mesh(mesh_shape, ("data", "model"), live=True)
     st_pre = make_strategy(strategy, mesh, cfg, _cell_shape("prefill", T, B))
     st_dec = make_strategy(strategy, mesh, cfg, _cell_shape("decode", T, B))
@@ -4869,11 +5076,13 @@ def _serve_rank_run(torch, kops, tmp, index, run, cfg, sizes, device):
                                       impl="flash")
     step = dryrun.build_serve_cell(cfg, st_dec.shape, st_dec, impl="paged")
     tokens = dryrun.local_rows(st_pre, ref["tokens"].to(device))
+    extra = {k: dryrun.local_rows(st_pre, ref[k].to(device))
+             for k in ("encoder_frames",) if k in ref}
     inputs = ref["toks"][:steps].to(device)
     reset_launches(kops)
     sync(torch, device)
     t0 = time.perf_counter()
-    first, _ = prefill(params, tokens, cache)
+    first, _ = prefill(params, tokens, cache, **extra)
     ids = [dryrun.greedy(st_pre, first)]
     sync(torch, device)
     prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -4893,12 +5102,9 @@ def _serve_rank_run(torch, kops, tmp, index, run, cfg, sizes, device):
     decode_ms = (time.perf_counter() - t0) * 1e3 / steps
     dec = read_launches(kops)
     if on_card:
-        check_counts(f"{tag} prefill", pre,
-                     {"flash_attention": cfg.n_layers,
-                      "decode_attention": 0})
-        check_counts(f"{tag} decode", dec,
-                     {"flash_attention": 0,
-                      "decode_attention": cfg.n_layers * steps})
+        want_pre, want_dec = serve_launches(cfg, steps)
+        check_counts(f"{tag} prefill", pre, want_pre)
+        check_counts(f"{tag} decode", dec, want_dec)
     vocab = first.shape[-1]
     torch.save(dict(logits=torch.stack(shards).cpu(),
                     ids=torch.stack(ids).cpu(),
@@ -4913,16 +5119,24 @@ def _serve_rank_run(torch, kops, tmp, index, run, cfg, sizes, device):
                peak_gib=(torch.cuda.max_memory_allocated() / 2**30
                          if on_card else 0.0),
                launches_prefill=pre, launches_decode=dec)
+    torch.backends.cuda.matmul.allow_tf32 = False
     del params, cache, first, logits
-    gc.collect()
-    if on_card:
-        torch.cuda.empty_cache()
+    _free(torch, device)
     return out
 
 
-def _serve_rank(rank, tmp, device, runs, cfgs, sizes):
-    """One of phase 16's ranks: joins the gloo group and runs every entry
-    of ``runs`` (at ``cfgs``) in turn."""
+def _serve_job(index, ref, run, cfg, tf32=False) -> dict:
+    """A serve job of the ranks: ``run`` (a ``SERVE_SHARD_RUNS``-shaped
+    entry) at ``cfg``, its files under ``index``, fed the one-rank run
+    ``ref``'s inputs and held against its logits."""
+    return dict(id=index, ref=ref, run=run, cfg=cfg, tf32=tf32)
+
+
+def _serve_rank(rank, tmp, device, jobs, sizes):
+    """One of phase 16's (17b-c's) ranks: joins the gloo group and runs
+    every job in turn: a serve job (``_serve_job``) through
+    ``_serve_rank_run``, whose figures go to ``tmp/serve_rank{rank}.json``,
+    or ``{"train": cfg}``, 17c's train cell (``_audio_rank_run``)."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import ops as kops
@@ -4931,21 +5145,36 @@ def _serve_rank(rank, tmp, device, runs, cfgs, sizes):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/serve_pg",
                             rank=rank, world_size=SERVE_SHARD_RANKS)
-    out = [_serve_rank_run(torch, kops, tmp, i, run, cfg, sizes, device)
-           for i, (run, cfg) in enumerate(zip(runs, cfgs))]
+    out = []
+    for job in jobs:
+        if "train" in job:
+            _audio_rank_run(torch, kops, tmp, device, job["train"])
+        else:
+            out.append(_serve_rank_run(torch, kops, tmp, job, sizes,
+                                       device))
     with open(f"{tmp}/serve_rank{rank}.json", "w") as f:
         json.dump(out, f)
     dist.barrier()
     dist.destroy_process_group()
 
 
-def _serve_agreement(torch, tmp, index, sizes) -> dict:
+def _serve_spawn(tmp, device, jobs, sizes, label) -> list:
+    """``jobs`` on ``SERVE_SHARD_RANKS`` ranks, spawned once; each rank's
+    figures of the serve jobs, in order."""
+    Path(f"{tmp}/serve_pg").unlink(missing_ok=True)    # an earlier spawn's
+    _spawn_ranks(_serve_rank, (tmp, device, jobs, sizes), SERVE_SHARD_RANKS,
+                 SERVE_SHARD_TIMEOUT, label)
+    return [json.loads(Path(f"{tmp}/serve_rank{r}.json").read_text())
+            for r in range(SERVE_SHARD_RANKS)]
+
+
+def _serve_agreement(torch, tmp, index, ref) -> dict:
     """The four ranks' logit shards of run ``index`` assembled into whole
     rows (ranks holding the same entries must agree bit for bit), against
-    the one-rank run's: the largest row relative RMS error, and the
-    greedy ids each rank took (the split argmax) against the one-rank
+    the one-rank run ``ref``'s: the largest row relative RMS error, and
+    the greedy ids each rank took (the split argmax) against the one-rank
     run's, prefill first."""
-    ref = torch.load(f"{tmp}/serve_ref{index}.pt")
+    ref = torch.load(f"{tmp}/serve_ref{ref}.pt")
     whole = torch.full_like(ref["logits"], float("nan"))
     equal = total = 0
     for r in range(SERVE_SHARD_RANKS):
@@ -5024,23 +5253,24 @@ def sharded_serve_phase(torch, kops, tmp, card, device="cuda",
     ones = []
     for index, cfg in enumerate(cfgs):
         ones.append(_serve_reference(torch, kops, tmp, index, cfg, sizes,
-                                     device))
+                                     device)[0])
+        _free(torch, device)
         log(f"sharded serve {runs[index][0]}: {cfg.name} {cfg.n_layers} "
             f"layers {cfg.dtype} ({ones[-1]['params'] / 1e9:.3f} B params, "
             f"{ones[-1]['param_bytes'] / 2**30:.3f} GiB) at one rank: draw "
             f"{ones[-1]['draw_s']:.1f} s, prefill {ones[-1]['prefill_ms']:.1f}"
             f" ms, decode {ones[-1]['decode_ms']:.2f} ms/step")
     t1 = time.perf_counter()
-    _spawn_ranks(_serve_rank, (tmp, device, list(runs), cfgs, sizes),
-                 SERVE_SHARD_RANKS, SERVE_SHARD_TIMEOUT, "sharded serve 16")
+    ranks = _serve_spawn(tmp, device, [
+        _serve_job(i, i, run, cfg)
+        for i, (run, cfg) in enumerate(zip(runs, cfgs))], sizes,
+        "sharded serve 16")
     t2 = time.perf_counter()
-    ranks = [json.loads(Path(f"{tmp}/serve_rank{r}.json").read_text())
-             for r in range(SERVE_SHARD_RANKS)]
     out = {"card": card, "sizes": dict(zip(("batch", "prompt", "steps"),
                                            sizes)), "runs": []}
     for index, (run, cfg, one) in enumerate(zip(runs, cfgs, ones)):
         label, _, strategy, mesh, dtype, _ = run
-        agree = _serve_agreement(torch, tmp, index, sizes)
+        agree = _serve_agreement(torch, tmp, index, index)
         tag = f"sharded serve {label}"
         if not agree["finite"]:
             raise AssertionError(f"{tag}: non-finite logits")
@@ -5096,6 +5326,364 @@ def sharded_serve_phase(torch, kops, tmp, card, device="cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the ssm, hybrid and audio archs through the sharded steps
+# ---------------------------------------------------------------------------
+
+def ssd_rank_rows(torch, kops, ssd_scan_chunked, geometries):
+    """Row 6 at a rank's heads ((label, B, S, H, P, G, N, chunk)): the
+    kernel against its plain version (bf16 2e-2 and the row limit), then
+    both timed beside the bound (no single PyTorch call computes it)."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows, err = [], 0.0
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    for label, B, S, H, P, G, N, L in geometries:
+        x = randn(B, S, H, P)
+        dt = torch.nn.functional.softplus(randn(B, S, H, dtype=torch.float32))
+        A = -torch.exp(torch.linspace(0.0, 2.77, H, device="cuda"))
+        Bm, Cm = randn(B, S, G, N), randn(B, S, G, N)
+        shape = f"{label} B={B} H={H} P={P} N={N} S={S} chunk {L} bf16"
+        y, _ = kops.ssd_scan(x, dt, A, Bm, Cm, chunk=L)
+        wy, _ = ssd_scan_chunked(x, dt, A, Bm, Cm, chunk=L)
+        err = max(err, close_or_raise(torch, f"ssd {shape}", y, wy, 2e-2,
+                                      BF16_ROW_RMS))
+        b_ms, b_by = ssd_bound(B, S, H, P, G, N, L)
+        rows.append(dict(
+            kernel="ssd_scan", shape=shape,
+            ms=time_ms(torch, lambda: kops.ssd_scan(x, dt, A, Bm, Cm,
+                                                    chunk=L)),
+            plain_ms=time_ms(torch, lambda: ssd_scan_chunked(
+                x, dt, A, Bm, Cm, chunk=L)),
+            library_ms=None, library=None, bound_ms=b_ms, bound_by=b_by))
+        r = rows[-1]
+        log(f"time ssd_scan {shape}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
+            f"none (no single PyTorch call computes it)")
+    return err, rows
+
+
+def audio_train_cfg():
+    from repro_torch.configs import get_config
+    cfg = get_config(WHISPER).replace(dtype="float32")
+    if AUDIO_TRAIN_DEPTH:
+        cfg = cfg.replace(n_layers=AUDIO_TRAIN_DEPTH,
+                          n_encoder_layers=AUDIO_TRAIN_DEPTH)
+    return cfg
+
+
+def _audio_cell(mesh, cfg):
+    """(strategy, ``build_train_cell``) of 17c on ``mesh``."""
+    from dataclasses import replace
+    from repro_torch.configs import SHAPES_BY_NAME
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding.strategies import PerfOpts, make_strategy
+    shape = replace(SHAPES_BY_NAME["train_4k"], seq_len=AUDIO_TRAIN_SEQ,
+                    global_batch=AUDIO_TRAIN_BATCH)
+    st = make_strategy("train", mesh, cfg, shape, PerfOpts(microbatches=1))
+    return st, dryrun.build_train_cell(cfg, shape, st)
+
+
+def _audio_batch(torch, cfg, device):
+    gen = torch.Generator(device=device).manual_seed(3)
+    return {"tokens": torch.randint(0, cfg.vocab_size,
+                                    (AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ),
+                                    generator=gen, device=device,
+                                    dtype=torch.int32),
+            "encoder_frames": torch.randn(
+                (AUDIO_TRAIN_BATCH, cfg.encoder_seq, cfg.d_model),
+                generator=gen, device=device)}
+
+
+def audio_train_one_rank(torch, kops, tmp, device="cuda", cfg=None) -> dict:
+    """(17c, one rank) whisper's train cell over (1, 1) beside
+    ``make_train_step`` from the same seeded params and batch, each
+    ``SHARDED_STEPS`` steps: losses, grad norms and final params equal bit
+    for bit.  The cell's final params and metrics go to
+    ``tmp/audio_ref.pt`` for the ranks.  Needs a one-rank process group."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.tree import leaves, leaves_with_path
+    cfg = cfg or audio_train_cfg()
+    st, cell = _audio_cell(Mesh((1, 1), ("data", "model"), live=True), cfg)
+    model = build_model(cfg)
+    batch = _audio_batch(torch, cfg, device)
+    opt = cell.optimizer
+    ref_step = make_train_step(
+        model, opt, num_microbatches=1, remat=True,
+        extra_inputs=lambda b: {"encoder_frames": b["encoder_frames"]})
+    t0 = time.perf_counter()
+    state, ref_losses, ref_gnorms, ref_ms, _ = _train_steps(
+        torch, kops, ref_step,
+        [_fresh_state(opt, _seeded_params(torch, model, device), False)],
+        batch, device)
+    ref_params = [t.detach().cpu() for t in leaves(state.params)]
+    del state
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    state, losses, gnorms, ms, launches = _train_steps(
+        torch, kops, cell.step,
+        [cell.shard_state(_fresh_state(
+            opt, _seeded_params(torch, model, device), False))],
+        batch, device)
+    final = {"/".join(p): t.detach().cpu()
+             for p, t in leaves_with_path(state.params)}
+    tag = "sharded train 17c whisper one rank"
+    equal = (losses == ref_losses and gnorms == ref_gnorms
+             and all(torch.equal(a, b) for a, b in zip(final.values(),
+                                                       ref_params)))
+    if not equal:
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(final.values(), ref_params))
+        raise AssertionError(f"{tag}: the cell parts from make_train_step: "
+                             f"losses {losses} vs {ref_losses}, params by "
+                             f"{diff:.3g}")
+    torch.save(dict(losses=losses, gnorms=gnorms, params=final),
+               f"{tmp}/audio_ref.pt")
+    del state, final, ref_params
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    out = dict(layers=[cfg.n_encoder_layers, cfg.n_layers],
+               batch=AUDIO_TRAIN_BATCH, seq=AUDIO_TRAIN_SEQ,
+               steps=SHARDED_STEPS, losses=losses, grad_norms=gnorms,
+               step_ms=ms, ref_step_ms=ref_ms, launches=launches,
+               seconds=time.perf_counter() - t0)
+    log(f"{tag}: {cfg.n_encoder_layers} + {cfg.n_layers} layers float32, "
+        f"batch {AUDIO_TRAIN_BATCH} x {AUDIO_TRAIN_SEQ} tokens over "
+        f"{cfg.encoder_seq} frames: losses {losses}, grad norms {gnorms}, "
+        f"params equal to make_train_step's bit for bit; step ms {ms} "
+        f"(make_train_step {ref_ms})")
+    return out
+
+
+def _audio_rank_run(torch, kops, tmp, device, cfg) -> None:
+    """17c on one of 17b's ranks (after its serve runs, in the same gloo
+    group): the cell's steps over ``AUDIO_TRAIN_MESH``, held against the
+    one-rank run: losses and grad norms within 1e-5 relative, the shards
+    within ``_lr_bound``, resident bytes equal to the dry-run's."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.spec import local_slices
+    from repro_torch.training.train_step import TrainState
+    from repro_torch.training.tree import leaves_with_path
+    mesh = Mesh(AUDIO_TRAIN_MESH, ("data", "model"), live=True)
+    st, cell = _audio_cell(mesh, cfg)
+    params = cell.shard_state(TrainState(
+        _seeded_params(torch, build_model(cfg), device), None)).params
+    gc.collect()
+    box = [_fresh_state(cell.optimizer, params, False)]
+    del params
+    batch = cell.local_batch(_audio_batch(torch, cfg, device))
+    resident = dryrun.resident_bytes(box[0]) + dryrun.resident_bytes(batch)
+    state, losses, gnorms, ms, launches = _train_steps(
+        torch, kops, cell.step, box, batch, device)
+    ref = torch.load(f"{tmp}/audio_ref.pt", mmap=True)
+    tag = f"sharded train 17c whisper rank {mesh.rank}"
+    loss_rel = _close_rel(f"{tag} loss", losses, ref["losses"], 1e-5)
+    gnorm_rel = _close_rel(f"{tag} grad norm", gnorms, ref["gnorms"], 1e-5)
+    specs = st.param_specs()
+    err = 0.0
+    for path, local in leaves_with_path(state.params):
+        path = "/".join(path)
+        whole = ref["params"][path]
+        want = whole[local_slices(mesh, whole.shape, specs[path])]
+        err = max(err, float((local.detach().cpu() - want).abs().max()))
+    if not err <= _lr_bound(cell.optimizer):
+        raise AssertionError(f"{tag}: shards part from the one rank's by "
+                             f"{err:.3g}")
+    if resident != dryrun.argument_bytes(st):
+        raise AssertionError(f"{tag}: {resident} resident bytes, the dry-run "
+                             f"says {dryrun.argument_bytes(st)}")
+    with open(f"{tmp}/audio_rank{mesh.rank}.json", "w") as f:
+        json.dump(dict(rank=mesh.rank, coord=list(mesh.coord), losses=losses,
+                       loss_rel=loss_rel, grad_norm_rel=gnorm_rel,
+                       max_param_diff=err, step_ms=ms,
+                       resident_bytes=resident, launches=launches), f)
+    del state, ref
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _family_row_limit(one) -> float:
+    """17b's float32 row limit for an arch whose 17a figures are ``one``:
+    the larger of ``SERVE_SHARD_ROW_RMS`` and ``FAMILY_NOISE_FACTOR``
+    times its one-ulp row error."""
+    return max(SERVE_SHARD_ROW_RMS,
+               FAMILY_NOISE_FACTOR * one.get("ulp_noise_rows", 0.0))
+
+
+def family_shard_phase(torch, kops, tmp, card, device="cuda", cfgs=None,
+                       sizes=SERVE_SHARD_SIZES, train_cfg=None) -> dict:
+    """Phase 17: the ssm, hybrid and audio archs through the sharded steps
+    with every leaf placed by the rules.  (a) For each arch and dtype of
+    ``cfgs`` ({(arch, dtype): config}; default the published configs) the
+    Model path's prefill and decode steps (``_serve_reference``), the
+    serve cell at one rank beside them, bit for bit (``_one_rank_cell``),
+    and in float32 the one-ulp row error (``_ulp_noise_rows``); (b) four
+    ranks (one spawn, gloo on CUDA tensors) for each of
+    ``FAMILY_SHARD_MESHES``: each rank's param and cache bytes the
+    rules', exact launches, in float32 every greedy id equal to (a)'s and
+    every logit row within ``_family_row_limit``, in bf16
+    (``FAMILY_BF16_ARCH`` only) measured; on the card, the TF32 control
+    runs of ``FAMILY_CONTROL_ARCHS``, each of which must fail that limit;
+    (c) whisper's train cell at one rank (bit for bit), then over
+    ``AUDIO_TRAIN_MESH`` on (b)'s ranks after their serve runs; then the
+    ranks' kernel geometries.  ``cfgs``, ``sizes`` and ``train_cfg``
+    rehearse it on the CPU (``device="cpu"``: launch gates, the control
+    and timing are card-only).  The four-rank times are a one-card gloo
+    rehearsal."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    cfgs = cfgs or {(a, d): get_config(a).replace(dtype=d)
+                    for a in FAMILY_SHARD_ARCHS for d in FAMILY_SHARD_DTYPES}
+    out = {"card": card, "sizes": dict(zip(("batch", "prompt", "steps"),
+                                           sizes)), "one_rank": {},
+           "runs": [], "controls": []}
+    for (arch, dtype), cfg in cfgs.items():
+        one, model, params, inputs, logits, toks = _serve_reference(
+            torch, kops, tmp, f"17-{arch}-{dtype}", cfg, sizes, device)
+        one["cell"] = _one_rank_cell(torch, kops, cfg, params, inputs, sizes,
+                                     logits, toks, device)
+        if dtype == "float32":
+            one["ulp_noise_rows"] = _ulp_noise_rows(
+                torch, model, params, inputs, sizes, logits, toks, device)
+        del model, params, inputs, logits, toks
+        _free(torch, device)
+        out["one_rank"][f"{arch} {dtype}"] = one
+        log(f"sharded serve 17a {arch} {cfg.n_layers} layers {dtype} "
+            f"({one['params'] / 1e9:.4f} B params, "
+            f"{one['param_bytes'] / 2**30:.4f} GiB) at one rank: draw "
+            f"{one['draw_s']:.1f} s, Model path prefill "
+            f"{one['prefill_ms']:.1f} ms, decode {one['decode_ms']:.2f} "
+            f"ms/step; launches {_path(one['launches_prefill'])} a prefill, "
+            f"{_path(one['launches_decode'])} in {sizes[2]} steps ({card})")
+    train_cfg = train_cfg or audio_train_cfg()
+    out["audio_train"] = dict(one_rank=audio_train_one_rank(
+        torch, kops, tmp, device, train_cfg))
+    jobs = []
+    for (arch, dtype), cfg in cfgs.items():
+        if dtype == "float32" or arch == FAMILY_BF16_ARCH:
+            for strategy, mesh in FAMILY_SHARD_MESHES:
+                jobs.append(_serve_job(
+                    f"17-{len(jobs)}", f"17-{arch}-{dtype}",
+                    (f"17b {arch} {strategy} {dtype}", arch, strategy, mesh,
+                     dtype, None), cfg))
+    if torch.device(device).type == "cuda":
+        strategy, mesh = FAMILY_SHARD_MESHES[1]
+        for arch in FAMILY_CONTROL_ARCHS:
+            jobs.append(_serve_job(
+                f"17-{len(jobs)}", f"17-{arch}-float32",
+                (f"17b control {arch} {strategy} float32 with TF32 matmuls",
+                 arch, strategy, mesh, "float32", None),
+                cfgs[arch, "float32"], tf32=True))
+    t1 = time.perf_counter()
+    # 17b's runs, then 17c's four ranks, in one spawn
+    ranks = _serve_spawn(tmp, device, jobs + [{"train": train_cfg}], sizes,
+                         "sharded 17b-c")
+    t2 = time.perf_counter()
+    for i, job in enumerate(jobs):
+        label, arch, strategy, mesh, dtype, _ = job["run"]
+        agree = _serve_agreement(torch, tmp, job["id"], job["ref"])
+        limit = _family_row_limit(out["one_rank"][f"{arch} {dtype}"])
+        agree["row_limit"] = limit
+        if job["tf32"]:
+            # the control: a lower precision the gate must refuse
+            if not agree["max_row_rms"] > limit:
+                raise AssertionError(
+                    f"sharded serve {label}: logit rows within "
+                    f"{agree['max_row_rms']:.3g}, inside the float32 limit "
+                    f"{limit:.3g}: the limit cannot tell TF32 from float32")
+            log(f"sharded serve {label}: greedy ids equal to one rank's at "
+                f"{agree['ids_equal']} of {agree['ids_total']}, logit rows "
+                f"within {agree['max_row_rms']:.3g}: fails the float32 "
+                f"limit {limit:.3g}, as it must ({card})")
+            out["controls"].append(dict(label=label, arch=arch,
+                                        strategy=strategy, mesh=list(mesh),
+                                        **agree))
+            continue
+        if not agree["finite"]:
+            raise AssertionError(f"sharded serve {label}: non-finite logits")
+        if dtype == "float32" and (
+                agree["ids_equal"] != agree["ids_total"]
+                or agree["max_row_rms"] > limit):
+            raise AssertionError(
+                f"sharded serve {label}: greedy ids equal at "
+                f"{agree['ids_equal']} of {agree['ids_total']}, logit rows "
+                f"within {agree['max_row_rms']:.3g} (limit {limit:.3g})")
+        rs = [r[i] for r in ranks]
+        whole = out["one_rank"][f"{arch} {dtype}"]["param_bytes"]
+        for r in rs:
+            log(f"sharded serve {label} rank {r['rank']} (coord "
+                f"{r['coord']}): params {r['param_bytes'] / 2**30:.4f} GiB "
+                f"({r['param_bytes'] / whole:.3f} of the whole), cache "
+                f"{r['cache_bytes'] / 2**30:.4f} GiB, resident = the "
+                f"rules'; prefill {r['prefill_ms']:.1f} ms, decode "
+                f"{r['decode_ms']:.2f} ms/step, peak {r['peak_gib']:.2f} "
+                f"GiB; launches {_path(r['launches_prefill'])} a prefill, "
+                f"{_path(r['launches_decode'])} in {sizes[2]} steps ({card}; "
+                f"a one-card gloo rehearsal)")
+        log(f"sharded serve {label}: {job['cfg'].n_layers} layers, over "
+            f"{tuple(mesh)}: greedy ids equal to one rank's at "
+            f"{agree['ids_equal']} of {agree['ids_total']}, logit rows "
+            f"within {agree['max_row_rms']:.3g}"
+            + (f" (gated at {limit:.3g})" if dtype == "float32"
+               else " (reported)"))
+        out["runs"].append(dict(label=label, arch=arch, strategy=strategy,
+                                mesh=list(mesh), dtype=dtype,
+                                layers=job["cfg"].n_layers, ranks=rs,
+                                **agree))
+    out["audio_train"]["four_ranks"] = [
+        json.loads(Path(f"{tmp}/audio_rank{r}.json").read_text())
+        for r in range(math.prod(AUDIO_TRAIN_MESH))]
+    for r in out["audio_train"]["four_ranks"]:
+        log(f"sharded train 17c whisper rank {r['rank']} (coord "
+            f"{r['coord']}): losses {r['losses']} (rel {r['loss_rel']:.3g} "
+            f"of one rank's), grad norms rel {r['grad_norm_rel']:.3g}, "
+            f"shards within {r['max_param_diff']:.3g}; resident "
+            f"{r['resident_bytes'] / 2**30:.4f} GiB = the dry-run's; step "
+            f"ms {r['step_ms']} ({card}; a one-card gloo rehearsal)")
+    t3 = time.perf_counter()
+    if device == "cuda":
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.ssd_chunked import ssd_scan_chunked
+        from repro_torch.models.ssm import scan_chunk
+        B, S, steps = sizes
+        n = FAMILY_SHARD_MESHES[0][1][1]          # monolithic (1, model)
+        geoms, ssd = [], []
+        for (arch, dtype), cfg in cfgs.items():
+            if dtype != "bfloat16":
+                continue
+            label = f"{arch} rank of {n}"
+            if cfg.n_heads:
+                H, KV = cfg.n_heads // n, cfg.n_kv_heads // n
+                geoms.append((label, B, S, S + steps, [(H, KV), (H, KV)],
+                              cfg.head_dim))
+            if cfg.ssm is not None:
+                s = cfg.ssm
+                ssd.append((label, B, S, s.n_heads(cfg.d_model) // n,
+                            s.head_dim, s.n_groups, s.d_state,
+                            scan_chunk(S, s.chunk_size)))
+        out["kernel_errs"], out["kernel_rows"] = local_heads_kernel_rows(
+            torch, kops, ref, geoms)
+        out["kernel_errs"]["ssd_scan"], ssd_rows = ssd_rank_rows(
+            torch, kops, ssd_scan_chunked, ssd)
+        out["kernel_rows"] += ssd_rows
+    out["seconds"] = dict(one_rank=t1 - t0, four_ranks=t2 - t1,
+                          kernels=time.perf_counter() - t3,
+                          total=time.perf_counter() - t0)
+    log(f"sharded families: phase 17 took {out['seconds']['total']:.1f} s "
+        f"(17a and 17c's one rank {t1 - t0:.1f}, 17b-c's four ranks "
+        f"{t2 - t1:.1f}, kernel rows {out['seconds']['kernels']:.1f}; "
+        f"{card})")
+    return out
+
+
 def sharding_phase(torch, kops, card) -> dict:
     """Phase 14: (a) the sharded step at one rank over NCCL, at published
     widths; (b) one 32768-token request's KV over four ranks sharing the
@@ -5130,6 +5718,10 @@ def sharding_phase(torch, kops, card) -> dict:
             torch.cuda.empty_cache()
             out["sharded_serve"] = sharded_serve_phase(torch, kops, tmp,
                                                        card)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["sharded_families"] = family_shard_phase(torch, kops, tmp,
+                                                         card)
         finally:
             dist.destroy_process_group()
     out["seconds"] = time.perf_counter() - t0
@@ -5152,6 +5744,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_chunked import ssd_scan_chunked
     from repro_torch.launch.serve import FULL_WIDTH_DEPTHS, coloc_models
 
+    t_start = time.perf_counter()
     # 1. card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5285,6 +5878,7 @@ def main() -> int:
     sh = sharding["one_rank"]
     sharded_train = sharding.pop("sharded_train")
     sharded_serve = sharding.pop("sharded_serve")
+    sharded_families = sharding.pop("sharded_families")
 
     csrc = "src/repro_torch/kernels/csrc/"
     main_shape = {"gqa": ("qwen3-moe-235b-a22b", 1024, 4),
@@ -5357,6 +5951,20 @@ def main() -> int:
                 dict(r, max_abs_err=sharded_serve["kernel_errs"][name])
                 for r in sharded_serve["kernel_rows"]
                 if r["kernel"] == name]
+        # phase 17's runs: each arch and dtype at one rank (the Model
+        # path, the cell), then each of the four ranks; and the ranks'
+        # geometries
+        part = "decode" if name == "decode_attention" else "prefill"
+        kernels[-1]["launches_sharded_families"] = {
+            **{f"17a {key}": {"model path": one[f"launches_{part}"][name],
+                              "cell": one["cell"][f"launches_{part}"][name]}
+               for key, one in sharded_families["one_rank"].items()},
+            **{run["label"]: [r[f"launches_{part}"][name]
+                              for r in run["ranks"]]
+               for run in sharded_families["runs"]}}
+        kernels[-1]["rank_heads"] = [
+            dict(r, max_abs_err=sharded_families["kernel_errs"][name])
+            for r in sharded_families["kernel_rows"] if r["kernel"] == name]
         if name in families["kernel_errs"]:
             # phase 12's shapes at head dim 256 and its launches
             g, w = families["gemma3"], families["whisper"]
@@ -5419,8 +6027,11 @@ def main() -> int:
          "serve_fallback": f_serve, "train": train, "elastic": elastic,
          "cache": cache, "observe": observe, "families": families,
          "examples": examples, "sharding": sharding,
-         "sharded_train": sharded_train, "sharded_serve": sharded_serve},
+         "sharded_train": sharded_train, "sharded_serve": sharded_serve,
+         "sharded_families": sharded_families},
         indent=1, default=str))
+    log(f"chip_smoke: all 17 phases in {time.perf_counter() - t_start:.1f} "
+        f"s ({card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

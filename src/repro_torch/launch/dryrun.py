@@ -5,9 +5,8 @@ Port of ``src/repro/launch/dryrun.py``.  ``build_train_cell`` and
 ``build_serve_cell`` are the reference's cell builders: each returns the
 step each rank runs SPMD on its local shards with the strategy's hooks,
 whose collectives run over ``torch.distributed``
-(``sharding/strategies.py`` says which leaves each step places by the
-rules).  The train cell (``train_4k`` shapes, the decoder families)
-takes ``TRAIN_MICROBATCHES`` and cuts a whole ``TrainState`` and batch
+(``sharding/strategies.py`` says how each step places every leaf by the
+rules).  The train cell (``train_4k`` shapes, every family) takes ``TRAIN_MICROBATCHES`` and cuts a whole ``TrainState`` and batch
 into this rank's part (``TrainCell.shard_state`` / ``local_batch``); the
 serve cell is ``decode_step`` for decode shapes and ``prefill`` for
 prefill shapes (``shard_params`` / ``shard_cache`` / ``local_rows``, or
@@ -177,8 +176,9 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeConfig,
     rows over the batch axes).  ``moe_path`` routes the MoE as
     ``forward``'s (the grouped path runs ``moe_gemm`` over this rank's
     experts).  ``optimizer`` replaces the reference's AdamW (its moment
-    dtype kept by the caller).  The ssm, hybrid and audio families raise
-    (their cells are queued: ``strategies.TRAIN_LEFT_OUT``)."""
+    dtype kept by the caller).  The stub modality inputs (a vlm's
+    ``embeddings``, whisper's ``encoder_frames``) go to ``forward`` as
+    the reference's ``extra`` passes them (``dryrun.py:45-48``)."""
     model = build_model(cfg)
     hooks = strategy.hooks()
     optimizer = optimizer or AdamW(moment_dtype=moment_dtype(cfg))
@@ -187,11 +187,12 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeConfig,
     mesh, bax = strategy.mesh, strategy.bax
 
     def extra(batch):
-        kw = {k: batch[k] for k in ("embeddings",) if k in batch}
+        kw = {k: batch[k] for k in ("embeddings", "encoder_frames")
+              if k in batch}
         return dict(kw, moe_path=moe_path)
     kw = dict(hooks=hooks, num_microbatches=G, remat=True,
               extra_inputs=extra)
-    rules = strategy.step_param_rules()
+    rules = strategy.param_rules()
 
     def state_specs(state: TrainState) -> TrainState:
         def specs(tree):
@@ -229,9 +230,9 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeConfig,
 # ---------------------------------------------------------------------------
 
 def shard_params(strategy: Strategy, params: Dict, device=None) -> Dict:
-    """This rank's part of a whole param tree (the leaves the step
-    places by the rules split, every other leaf whole)."""
-    return shard_tree(strategy.step_param_rules(), strategy.mesh, params,
+    """This rank's part of a whole param tree, every leaf cut by the
+    rules."""
+    return shard_tree(strategy.param_rules(), strategy.mesh, params,
                       device=device)
 
 
@@ -241,7 +242,7 @@ def draw_params(strategy: Strategy, gen: torch.Generator) -> Dict:
     stacked leaf one layer at a time) cut to this rank's part as it is
     drawn and the rest freed."""
     cfg, mesh = strategy.cfg, strategy.mesh
-    rules = strategy.step_param_rules()
+    rules = strategy.param_rules()
     shapes = {path_str(p): tuple(leaf.shape)
               for p, leaf in leaves_with_path(param_shapes(cfg))}
 
@@ -307,9 +308,9 @@ def build_serve_cell(cfg: ModelConfig, shape: ShapeConfig,
     The logits are this rank's rows (``local_rows``) over this rank's
     vocabulary shard [B_loc, V/model] as the reference's ``logits``
     constraint leaves them (``strategies.py:396``); under monolithic DP
-    attention (``:356``) and for the ``SERVE_LEFT_OUT`` families over
-    the whole vocabulary [B_loc, V]; ``greedy`` reads either.  ``impl``
-    routes the attention as the Model path's."""
+    attention (``:356``), and for a vocabulary that does not split over
+    ``model``, over the whole vocabulary [B_loc, V]; ``greedy`` reads
+    either.  ``impl`` routes the attention as the Model path's."""
     model = build_model(cfg)
     hooks = strategy.hooks()
 

@@ -118,31 +118,36 @@ def gqa_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     call the masked softmax of ``attention_core`` over ``kv_positions``
     (default: ``positions``); a non-causal call (the whisper encoder,
     cross-attention) ``attention_core`` unmasked.  Under the sharded
-    training step's ``hooks.tp`` it runs on this rank's query heads, each
-    reading its group's KV head from this rank's KV heads or the gathered
-    ones (``n_kv_heads`` below the model axis: a rank holds part of a
-    head; the helpers below).
+    step's ``hooks.tp`` it runs on this rank's query heads, each reading
+    its group's KV head from this rank's KV heads or the gathered ones
+    (``n_kv_heads`` below the model axis: a rank holds part of a head;
+    the helpers below); ``kv_override`` then holds this rank's KV heads
+    (``rank_heads`` cuts a whole layer's) or every head.
     Returns (output [B,S,D_model], (k, v) for the cache: this rank's KV
     heads when the projections split on whole heads, else every head;
     ``cache_heads`` gathers them for a cache that holds every head).
     """
     tp = hooks.tp
-    if tp.size > 1 and (kv_override is not None or kv_positions is not None):
-        raise NotImplementedError("tensor-parallel cross-attention")
+    if tp.size > 1 and kv_positions is not None:
+        raise NotImplementedError("tensor-parallel attention over "
+                                  "kv_positions")
     B, S = x.shape[:2]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, h0 = _tp_heads(x, p["wq"], H, hd, tp)
-    k, k0 = _tp_heads(x, p["wk"], KV, hd, tp)
-    v, _ = _tp_heads(x, p["wv"], KV, hd, tp)
     nq = q.shape[2]
+    if kv_override is None:
+        k, k0 = _tp_heads(x, p["wk"], KV, hd, tp)
+        v, _ = _tp_heads(x, p["wv"], KV, hd, tp)
+    else:
+        k, v = kv_override
+        k0 = tp.index * k.shape[2] if k.shape[2] < KV else 0
     if cfg.qk_norm:
         q = layers.head_rms_norm(
             q, tp.enter(p["q_norm"]) if nq < H else p["q_norm"], cfg.norm_eps)
-        k = layers.head_rms_norm(
-            k, tp.enter(p["k_norm"]) if k.shape[2] < KV else p["k_norm"],
-            cfg.norm_eps)
-    if kv_override is not None:
-        k, v = kv_override
+        if kv_override is None:
+            k = layers.head_rms_norm(
+                k, tp.enter(p["k_norm"]) if k.shape[2] < KV else p["k_norm"],
+                cfg.norm_eps)
     kv_pos = positions if kv_positions is None else kv_positions
     if cfg.rope_theta > 0:
         sin, cos = layers.rope_sin_cos(positions, hd, cfg.rope_theta)
@@ -248,6 +253,23 @@ def _w_heads(w: torch.Tensor, n_heads: int, head_dim: int, tp
     if w.shape[-1] != n_heads * head_dim and n_heads % tp.size:
         w = tp.gather(w, -1)
     return w.reshape(w.shape[0], -1, head_dim)
+
+
+def rank_heads(p: Dict, cfg: ModelConfig, n_cache: int, tp) -> Dict:
+    """A GQA layer whose weights the rules keep whole (whisper's decoder
+    ``self`` / ``cross``), cut to this rank's heads when its cache holds
+    ``n_cache`` < ``n_kv_heads`` of them (monolithic Type I splits the
+    cache's heads over ``tp``): ``wq`` / ``wk`` / ``wv``'s columns and
+    ``wo``'s rows of this rank's heads, views of the whole leaves, the cut
+    the rules give a placed layer; else ``p``."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if n_cache == KV or p["wk"].shape[-1] != KV * hd:
+        return p
+    G, i = H // KV, tp.index
+    qc = slice(i * n_cache * G * hd, (i + 1) * n_cache * G * hd)
+    kc = slice(i * n_cache * hd, (i + 1) * n_cache * hd)
+    return dict(p, wq=p["wq"][:, qc], wk=p["wk"][:, kc], wv=p["wv"][:, kc],
+                wo=p["wo"][qc])
 
 
 def cache_heads(t: torch.Tensor, n_cache: int, tp) -> torch.Tensor:

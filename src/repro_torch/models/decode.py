@@ -48,10 +48,22 @@ def _pick(tree: Dict, i: int) -> Dict:
             for k, v in tree.items()}
 
 
-def _layer(params: Dict, i: int, hooks: Hooks) -> Dict:
-    """Decoder layer ``i``, its leaves gathered where the serve step's
-    ``hooks.params`` gathers them (the attention under DP attention)."""
-    return hooks.params.gather(_pick(params["layers"], i), "layers")
+def _layer(params: Dict, i: int, hooks: Hooks, top: str = "layers") -> Dict:
+    """Layer ``i`` of the stack ``params[top]``, its leaves gathered where
+    the serve step's ``hooks.params`` gathers them (the attention and SSM
+    leaves under DP attention)."""
+    return hooks.params.gather(_pick(params[top], i), top)
+
+
+def _audio_layer(params: Dict, cfg: ModelConfig, i: int, cache: Dict,
+                 hooks: Hooks) -> Dict:
+    """Whisper decoder layer ``i`` with its whole ``self`` / ``cross``
+    weights cut to the heads its cache layers hold (``attention.
+    rank_heads``: this rank's under monolithic Type I)."""
+    p_l = _layer(params, i, hooks)
+    return dict(p_l, **{k: attn.rank_heads(p_l[k], cfg, cache[c].shape[-2],
+                                           hooks.tp)
+                        for k, c in (("self", "k"), ("cross", "ck"))})
 
 
 def _write_prefill(cache_k: torch.Tensor, cache_v: torch.Tensor, kv,
@@ -189,32 +201,31 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 _write_prefill(cache["k"][i], cache["v"][i], kv, S, hooks)
     elif fam == "audio":
         enc_out = tfm.encode(params, cfg, encoder_frames, hooks)
+        T_enc = cache["ck"].shape[2]
         for i in range(cfg.n_layers):
-            x, (k, v), (kx, vx) = tfm._decoder_layer(
-                _pick(params["layers"], i), cfg, x, positions, enc_out, impl,
-                hooks)
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
-            cache["ck"][i] = kx
-            cache["cv"][i] = vx
+            x, kv, cross = tfm._decoder_layer(
+                _audio_layer(params, cfg, i, cache, hooks), cfg, x,
+                positions, enc_out, impl, hooks)
+            _write_prefill(cache["k"][i], cache["v"][i], kv, S, hooks)
+            _write_prefill(cache["ck"][i], cache["cv"][i], cross, T_enc,
+                           hooks)
     elif fam == "ssm":
         for i in range(cfg.n_layers):
-            x = _ssm_full_layer(_pick(params["layers"], i), cfg, x,
+            x = _ssm_full_layer(_layer(params, i, hooks), cfg, x,
                                 cache["h"], cache["conv"], i, hooks)
     elif fam == "hybrid":
-        shared = params["shared_block"]
+        shared = hooks.params.gather(params["shared_block"], "shared_block")
         per = cfg.ssm_per_group
         for g in range(cfg.hybrid_groups):
             for i in range(g * per, (g + 1) * per):
-                x = _ssm_full_layer(_pick(params["layers"], i), cfg, x,
+                x = _ssm_full_layer(_layer(params, i, hooks), cfg, x,
                                     cache["h"], cache["conv"], i, hooks)
-            x, (k, v) = tfm._attn_full(shared, cfg, x, positions, impl,
-                                       hooks=hooks)
+            x, kv = tfm._attn_full(shared, cfg, x, positions, impl,
+                                   hooks=hooks)
             x, _ = tfm._ffn_full(shared, cfg, x, hooks=hooks)
-            cache["k"][g, :, :S] = k
-            cache["v"][g, :, :S] = v
+            _write_prefill(cache["k"][g], cache["v"][g], kv, S, hooks)
         for i in range(cfg.tail_ssm_layers):
-            x = _ssm_full_layer(_pick(params["tail"], i), cfg, x,
+            x = _ssm_full_layer(_layer(params, i, hooks, "tail"), cfg, x,
                                 cache["tail_h"], cache["tail_conv"], i, hooks)
     else:
         raise ValueError(f"unknown family {fam}")
@@ -299,7 +310,7 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 x, _ = tfm._ffn_full(p_l, cfg, x, hooks=hooks)
     elif fam == "audio":
         for i in range(cfg.n_layers):
-            p_l = _pick(params["layers"], i)
+            p_l = _audio_layer(params, cfg, i, cache, hooks)
             h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
             x = x + hooks.act(attn.gqa_decode(
                 p_l["self"], cfg, h, cache["k"][i], cache["v"][i], lengths,
@@ -309,17 +320,18 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                                    kv_override=(cache["ck"][i],
                                                 cache["cv"][i]),
                                    causal=False, hooks=hooks)
-            x = tfm._mlp_boundary(p_l, cfg, x + hooks.act(out), hooks)
+            x, _ = tfm._ffn_full(p_l, cfg, x + hooks.act(out), hooks=hooks,
+                                 ln="ln3")
     elif fam == "ssm":
         for i in range(cfg.n_layers):
-            x = _ssm_decode_layer(_pick(params["layers"], i), cfg, x,
+            x = _ssm_decode_layer(_layer(params, i, hooks), cfg, x,
                                   cache["h"], cache["conv"], i, hooks)
     elif fam == "hybrid":
-        shared = params["shared_block"]
+        shared = hooks.params.gather(params["shared_block"], "shared_block")
         per = cfg.ssm_per_group
         for g in range(cfg.hybrid_groups):
             for i in range(g * per, (g + 1) * per):
-                x = _ssm_decode_layer(_pick(params["layers"], i), cfg, x,
+                x = _ssm_decode_layer(_layer(params, i, hooks), cfg, x,
                                       cache["h"], cache["conv"], i, hooks)
             h = layers.rms_norm(x, shared["ln1"], cfg.norm_eps)
             x = x + hooks.act(attn.gqa_decode(
@@ -327,7 +339,7 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 lengths, impl=impl, hooks=hooks))
             x, _ = tfm._ffn_full(shared, cfg, x, hooks=hooks)
         for i in range(cfg.tail_ssm_layers):
-            x = _ssm_decode_layer(_pick(params["tail"], i), cfg, x,
+            x = _ssm_decode_layer(_layer(params, i, hooks, "tail"), cfg, x,
                                   cache["tail_h"], cache["tail_conv"], i,
                                   hooks)
     else:

@@ -54,10 +54,10 @@ split weights.  Three more fields carry what its partitioner derives:
   offsets, the load-balance loss's means).
 
 The sharded serve step (``build_serve_cell``) places every param leaf
-of the decoder families by the serving rules and reuses ``params``
-(the attention leaves gathered under DP attention), ``tp`` (heads and
-vocabulary over ``model``) and ``dp`` (the capacity's slot offsets);
-three more fields carry the rest:
+by the serving rules and reuses ``params`` (the attention and SSM
+leaves gathered under DP attention), ``tp`` (heads and vocabulary over
+``model``) and ``dp`` (the capacity's slot offsets); four more fields
+carry the rest:
 
 * ``rows`` — the collectives over ``model`` when the batch rows split
   over it (monolithic DP attention): the vocabulary-split embedding and
@@ -70,6 +70,11 @@ three more fields carry the rest:
   f32: the experts' partial sums (split experts, split ``f``, a split
   shared expert) completed over the weights pool, in float32, so the
   FFN's output is rounded once (``None``: the unsharded combine).
+* ``ssm`` — the collectives over the axes the SSM's projections split
+  over (``in_proj``'s columns, ``conv_w``'s channels, ``out_proj``'s
+  rows) when they are not ``tp``'s (crosspool's weights pool over
+  ``tp_all``); ``None``: ``tp``.  The SSM state's heads split over
+  ``tp`` (``models/ssm.py``).
 
 Everything defaults to identity (offset 0) so the models run standalone
 on one device, bit for bit as without the seam.
@@ -185,6 +190,7 @@ class Hooks:
     experts: Optional[LocalAxis] = None  # the routed experts' split (tp)
     # fn(routed f32, shared f32 | None) -> f32: the pool's partial sums
     moe_sum: Optional[Callable] = None
+    ssm: Optional[LocalAxis] = None    # the SSM projections' split (tp)
 
 
 IDENTITY_HOOKS = Hooks()

@@ -250,8 +250,10 @@ def _attn_full(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _ffn_full(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
-              moe_path: str = "capacity", hooks: Hooks = IDENTITY_HOOKS):
-    """Pre-norm MLP or routed-expert FFN + residual: (x, aux).  MoE layers
+              moe_path: str = "capacity", hooks: Hooks = IDENTITY_HOOKS,
+              ln: str = "ln2"):
+    """Pre-norm (``p_l[ln]``) MLP or routed-expert FFN + residual: (x,
+    aux).  MoE layers
     take ``hooks.moe_apply`` when set (the explicit all-to-all dispatch,
     ``transformer.py:191-192``), else the capacity path (``apply_moe``)
     or the grouped-GEMM path (``apply_moe_grouped``); a dense layer's aux
@@ -262,7 +264,7 @@ def _ffn_full(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
     the FFN reads the whole sequence (``tp.seq_in``)."""
     tp = hooks.tp
     h = tp.seq_in(hooks.boundary_in(
-        layers.rms_norm(x, tp.seq_weight(p_l["ln2"]), cfg.norm_eps)))
+        layers.rms_norm(x, tp.seq_weight(p_l[ln]), cfg.norm_eps)))
     partial = False
     if cfg.is_moe:
         if moe_path not in ("capacity", "grouped"):
@@ -341,8 +343,11 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             xc, _ = _attn_full(p_l, cfg, xc, positions, impl, hooks=hooks)
         return _ffn_full(p_l, cfg, xc, moe_path, hooks)
 
-    def ssm_block(xc, p_l):
-        h = layers.rms_norm(xc, p_l["ln"], cfg.norm_eps)
+    def ssm_block(xc, p_l, top="layers"):
+        p_l = hooks.params.gather(p_l, top)
+        tp = hooks.tp
+        h = tp.seq_in(layers.rms_norm(xc, tp.seq_weight(p_l["ln"]),
+                                      cfg.norm_eps))
         out, _ = ssm_mod.ssm_full(p_l["ssm"], cfg, h, hooks=hooks)
         return xc + hooks.act(out)
 
@@ -361,8 +366,8 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         enc_out = encode(params, cfg, encoder_frames, hooks)
 
         def dec_block(xc, p_l):
-            return _decoder_layer(p_l, cfg, xc, positions, enc_out, impl,
-                                  hooks)[0]
+            return _decoder_layer(hooks.params.gather(p_l, "layers"), cfg,
+                                  xc, positions, enc_out, impl, hooks)[0]
 
         for p_l in _unstack(params["layers"], cfg.n_layers):
             x = _call(dec_block, remat, x, p_l)
@@ -374,16 +379,16 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     def group(xc, group_layers):
         for p_l in group_layers:
             xc = ssm_block(xc, p_l)
-        xc, _ = _attn_full(params["shared_block"], cfg, xc, positions, impl,
-                           hooks=hooks)
-        xc, _ = _ffn_full(params["shared_block"], cfg, xc, hooks=hooks)
+        shared = hooks.params.gather(params["shared_block"], "shared_block")
+        xc, _ = _attn_full(shared, cfg, xc, positions, impl, hooks=hooks)
+        xc, _ = _ffn_full(shared, cfg, xc, hooks=hooks)
         return xc
 
     for g in range(cfg.hybrid_groups):
         x = _call(group, remat, x, ssm_layers[g * per:(g + 1) * per])
     if cfg.tail_ssm_layers:
         for p_l in _unstack(params["tail"], cfg.tail_ssm_layers):
-            x = ssm_block(x, p_l)
+            x = ssm_block(x, p_l, "tail")
     return _logits(params, cfg, x, hooks), aux
 
 
@@ -393,31 +398,34 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def _cross_kv(p_attn: Dict, cfg: ModelConfig, enc_out: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cross-attention K, V [B,T_enc,KV,hd] of the encoder output."""
+    """Cross-attention K, V [B,T_enc,KV,hd] of the encoder output (the
+    heads of ``p_attn``'s columns: every head, or ``rank_heads``')."""
     B, T, _ = enc_out.shape
-    KV, hd = cfg.n_kv_heads, cfg.head_dim
-    return ((enc_out @ p_attn["wk"]).reshape(B, T, KV, hd),
-            (enc_out @ p_attn["wv"]).reshape(B, T, KV, hd))
+    hd = cfg.head_dim
+    return ((enc_out @ p_attn["wk"]).reshape(B, T, -1, hd),
+            (enc_out @ p_attn["wv"]).reshape(B, T, -1, hd))
 
 
 def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor,
            hooks: Hooks = IDENTITY_HOOKS) -> torch.Tensor:
     """Whisper encoder over stub frame embeddings [B,T_enc,D]
     (``transformer.py:311-332``): sinusoidal positions, then pre-norm
-    non-causal self-attention + MLP layers and a final norm."""
+    non-causal self-attention + MLP layers and a final norm.  Under the
+    sharded step's hooks the layers run as the decoder families' do: the
+    attention on this rank's heads, the MLP over its part of the hidden
+    across the pool boundary."""
     B, T, _ = frames.shape
     pos = positions_of(B, T, frames.device)
     x = frames + layers.sinusoidal_positions(pos, cfg.d_model).to(
         frames.dtype)
     for p_l in _unstack(params["enc_layers"], cfg.n_encoder_layers):
+        p_l = hooks.params.gather(p_l, "enc_layers")
         h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
         out, _ = attn.gqa_full(p_l["attn"], cfg, h, pos, causal=False,
                                hooks=hooks)
-        x = x + hooks.act(out)
-        h = layers.rms_norm(x, p_l["ln2"], cfg.norm_eps)
-        x = x + hooks.act(layers.apply_mlp(p_l["mlp"], h, cfg.mlp_kind,
-                                           hook=hooks.ffn_hidden))
-    return layers.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+        x, _ = _ffn_full(p_l, cfg, x + hooks.act(out), hooks=hooks)
+    norm = hooks.params.gather(params["enc_norm"], "enc_norm")
+    return layers.rms_norm(x, norm, cfg.norm_eps)
 
 
 def _decoder_layer(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -425,7 +433,9 @@ def _decoder_layer(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
                    impl: str = "xla", hooks: Hooks = IDENTITY_HOOKS):
     """One whisper decoder layer over the whole sequence: causal self-
     attention (``impl`` routes it), non-causal cross-attention over the
-    encoder output, MLP.  Returns (x, (k, v) self, (k, v) cross)."""
+    encoder output, MLP.  Returns (x, (k, v) self, (k, v) cross): the
+    heads of the ``self`` / ``cross`` weights (the serve step cuts them
+    to a cache's, ``decode._audio_layer``)."""
     h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
     out, self_kv = attn.gqa_full(p_l["self"], cfg, h, positions, impl=impl,
                                  hooks=hooks)
@@ -434,18 +444,8 @@ def _decoder_layer(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
     h = layers.rms_norm(x, p_l["ln2"], cfg.norm_eps)
     out, _ = attn.gqa_full(p_l["cross"], cfg, h, positions,
                            kv_override=cross_kv, causal=False, hooks=hooks)
-    x = x + hooks.act(out)
-    return _mlp_boundary(p_l, cfg, x, hooks), self_kv, cross_kv
-
-
-def _mlp_boundary(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
-                  hooks: Hooks) -> torch.Tensor:
-    """Whisper's decoder MLP + residual across the pool boundary
-    (``decode.py:190-194``)."""
-    h = hooks.boundary_in(layers.rms_norm(x, p_l["ln3"], cfg.norm_eps))
-    f = layers.apply_mlp(p_l["mlp"], h, cfg.mlp_kind, hook=hooks.ffn_hidden,
-                         down=hooks.ffn_down)
-    return x + hooks.act(hooks.boundary_out(f))
+    x, _ = _ffn_full(p_l, cfg, x + hooks.act(out), hooks=hooks, ln="ln3")
+    return x, self_kv, cross_kv
 
 
 # ---------------------------------------------------------------------------

@@ -27,8 +27,8 @@ collectives out (``sharding/collectives.py``).
 
 The training step (``launch/dryrun.py`` ``build_train_cell``, the
 ``train`` strategy) places EVERY leaf by the train rules, params, AdamW's
-moments and the error-feedback tree alike (``step_param_rules`` is the
-rules themselves), and its hooks carry (``hooks()``):
+moments and the error-feedback tree alike, and its hooks carry
+(``hooks()``):
 
 * FSDP over the pool axes: each layer's leaves are all-gathered on their
   pool dims inside the rematerialised layer (``ParamShards.gather``; the
@@ -36,8 +36,10 @@ rules themselves), and its hooks carry (``hooks()``):
   where they are read;
 * TP over ``model`` (``Hooks.tp``): attention heads with ``wo``'s partial
   sums reduced, the MLP hidden, the experts (the combine reduced), the
-  vocabulary of the embedding, the head and the loss; with
-  ``perf.seq_parallel`` the residual stream's S over ``model``;
+  SSM's projections and heads (``models/ssm.py``), the vocabulary of the
+  embedding, the head and the loss; with ``perf.seq_parallel`` the
+  residual stream's S over ``model`` (not for whisper, whose encoder's
+  stream stays whole: ROADMAP Queue 1 item 1.7);
 * the batch over the batch axes (``Hooks.dp``): the MoE's capacity slots
   and load-balance means over the whole (micro)batch, the gradients'
   mean (``ParamShards.grad_mean``); the global norm and the int8 scales
@@ -46,19 +48,19 @@ rules themselves), and its hooks carry (``hooks()``):
   ``make_moe_a2a``.
 
 The serve step (``launch/dryrun.py`` ``build_serve_cell``, monolithic and
-crosspool) places EVERY param leaf of the decoder families (dense, moe,
-vlm) by the serve rules (``step_param_rules`` is the rules themselves)
-and its hooks carry (``hooks()``):
+crosspool) places EVERY param leaf by the serve rules, and its hooks
+carry (``hooks()``):
 
 * attention heads over ``model`` (``Hooks.tp``): this rank's query and
   KV heads, ``wo``'s partial sums reduced; a decode whose cache holds
   every KV head (crosspool) gathers the new token's heads, and the
   sequence-sharded decode (crosspool Type II) gathers every head's query
-  before its combine;
+  before its combine; whisper's encoder likewise;
 * the vocabulary of the embedding and the head over ``model``: the
   lookup masks the ids a rank does not own and sums, and the step returns
   this rank's vocabulary shard of its rows' logits (``dryrun.greedy``
-  takes the split argmax);
+  takes the split argmax); a vocabulary that does not divide (whisper's
+  51865) stays whole;
 * the FFN's weights pool: the dense FFN's hidden over ``model``
   (monolithic) or over ``tp_all`` (crosspool), completed by ``ffn_down``;
   the routed experts over ``model`` (monolithic) or over ``data`` with
@@ -67,25 +69,29 @@ and its hooks carry (``hooks()``):
   slots over the rows still split at the FFN (``Hooks.dp``), so the drops
   are the whole batch's; with ``perf.moe_a2a`` (crosspool) the experts
   go through ``make_moe_a2a``;
+* the SSM's projections in the same pool (``in_proj``'s columns,
+  ``conv_w``'s channels, ``out_proj``'s rows over ``model`` or over
+  ``tp_all``: ``Hooks.ssm``) and the state's heads over ``model``
+  (``ssm_heads``; ``models/ssm.py`` says how a rank's columns meet its
+  heads);
 * monolithic DP attention (``_dpa_axes``, rows over ``data`` and
-  ``model``): the attention leaves gathered over ``model`` where a layer
-  reads them (``Hooks.params``), and the rows of the rank's ``model``
-  group gathered into the embedding, the FFN and the head and this
-  rank's taken back (``Hooks.rows``, ``boundary_in`` / ``out``);
-* the KV-cache pool: a cache leaf's batch rows over the step's row axes
-  (``row_axes``); under monolithic Type I the KV heads of ``k`` / ``v``
-  (gemma3's ``gk`` / ``gv`` and ring ``lk`` / ``lv``) over ``model``;
-  under crosspool decode with the sequence-sharded override (Type II) the
-  ``k`` / ``v`` / ``latent`` / ``rope`` (and ``gk`` / ``gv``) sequence
-  over ``kv_seq_axes``.  A crosspool Type I cache keeps its sequence and
-  its heads whole: with no override its attention reads every row, and
-  splitting it would take an all-gather a step.
-
-The ssm, hybrid and audio families keep the serve placement of the
-dense weights pool alone (``SERVE_LEFT_OUT``): under crosspool their
-``*mlp/w[gui]`` / ``w[do]`` and shared experts over ``tp_all``, every
-other leaf whole, their caches by rows (and sequence, as above).  Their
-train cells are not ported either (``TRAIN_LEFT_OUT``).
+  ``model``): the attention and SSM leaves gathered over ``model`` where
+  a layer reads them (``Hooks.params``), and the rows of the rank's
+  ``model`` group gathered into the embedding, the FFN and the head and
+  this rank's taken back (``Hooks.rows``, ``boundary_in`` / ``out``);
+* the KV-cache pool (``step_cache_rules``): a cache leaf's batch rows
+  over the step's row axes (``row_axes``); under monolithic Type I the
+  KV heads of ``k`` / ``v`` (gemma3's ``gk`` / ``gv`` and ring ``lk`` /
+  ``lv``, whisper's cross ``ck`` / ``cv``) over ``model``, a layer whose
+  weights the rules keep whole (whisper's decoder ``self`` / ``cross``)
+  cut to this rank's heads where it reads them; the SSM state ``h`` /
+  ``tail_h``'s heads over ``model`` (``conv`` / ``tail_conv`` keep their
+  rows only); under crosspool decode with the sequence-sharded override
+  (Type II) the ``k`` / ``v`` / ``latent`` / ``rope`` (and ``gk`` /
+  ``gv``) sequence over ``kv_seq_axes``.  A crosspool Type I cache keeps
+  its sequence and its heads whole (ROADMAP Queue 1 item 1.6): with no
+  override its attention reads every row, and splitting it would take an
+  all-gather a step.
 """
 from __future__ import annotations
 
@@ -98,6 +104,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import layers
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.hooks import Hooks, WholeParams
 from repro_torch.sharding import moe_a2a, seq_attention
@@ -113,24 +120,16 @@ SEQ_SPLIT_LEAVES = ("k", "v", "latent", "rope", "gk", "gv")
 #: gemma3's ring leaves keep the batch on axis 2 ([G,P-1,B,W,...]); every
 #: other cache leaf on axis 1 ([L,B,...])
 RING_LEAVES = ("lk", "lv", "lpos")
-#: the families whose train cells are not ported, and where they are queued
-TRAIN_LEFT_OUT = {
-    "ssm": "ROADMAP Queue 1 item 1.4, after Queue 2 item 8",
-    "hybrid": "ROADMAP Queue 1 item 1.4, after Queue 2 item 8",
-    "audio": "ROADMAP Queue 1 item 1.5"}
-#: the families whose serve step places only the dense weights pool (the
-#: module docstring), and where the rest of their placement is queued
-SERVE_LEFT_OUT = {
-    "ssm": "ROADMAP Queue 1 item 1.4 (SSM projections, SSM state heads)",
-    "hybrid": "ROADMAP Queue 1 item 1.4 (SSM projections, SSM state heads)",
-    "audio": "ROADMAP Queue 1 item 1.5 (whisper's encoder and cross "
-             "attention)"}
 #: the routed experts' leaves, over ``data`` under the train ``moe_a2a``
 EXPERT_LEAVES = ("*moe/w[gu]", "*moe/wd")
-#: the attention leaves monolithic DP attention gathers where it reads them
-ATTN_LEAVES = ("*attn/*",)
+#: the attention and SSM leaves monolithic DP attention gathers where it
+#: reads them
+DPA_GATHERED = ("*attn/*", "*ssm/*")
 #: cache leaves whose KV heads monolithic Type I splits over ``model``
-KV_HEAD_LEAVES = ("k", "v", "gk", "gv", "lk", "lv")
+KV_HEAD_LEAVES = ("k", "v", "gk", "gv", "lk", "lv", "ck", "cv")
+#: the SSM state's leaves ([L,B,H,P,N]), their heads over ``model`` where
+#: the step splits them (``Strategy.ssm_heads``)
+SSM_HEAD_LEAVES = ("h", "tail_h")
 
 
 @dataclass(frozen=True)
@@ -503,45 +502,33 @@ class Strategy:
                 and self.cfg.n_experts % self.mesh.shape["data"] == 0)
 
     @property
-    def places_all(self) -> bool:
-        """Whether the step places every param leaf by the rules: the
-        train step, and the serve step of the decoder families."""
-        return self.name == "train" or self.cfg.family not in SERVE_LEFT_OUT
-
-    @property
     def head_split(self) -> bool:
         """Whether the serve step's cache splits its KV heads over
         ``model`` (monolithic Type I, ``cache_rules``)."""
-        return (self.name == "monolithic" and not self.type_ii
-                and self.places_all)
+        return self.name == "monolithic" and not self.type_ii
 
-    def step_param_rules(self):
-        """The rules the step places params by: the train step and the
-        decoder families' serve step place every leaf by them; the serve
-        step of ``SERVE_LEFT_OUT`` the dense weights pool alone, every
-        other leaf whole."""
-        if self.places_all:
-            return self.param_rules()
-        pooled = ["*mlp/w[gui]", "*mlp/w[do]", "*moe/shared/*"]
-        if self.a2a:
-            pooled += ["*moe/w[gu]", "*moe/wd"]
-
-        def keep(path, spec, shape):
-            placed = (self.name == "crosspool"
-                      and path.split("/")[0] in ("layers", "shared_block")
-                      and any(fnmatch.fnmatch(path, p) for p in pooled))
-            return spec if placed else (None,) * len(spec)
-        return PlacedRules(self.param_rules(), keep)
+    @property
+    def ssm_heads(self) -> bool:
+        """Whether the serve step splits the SSM state's heads over
+        ``model`` (the cache rules' ``h`` / ``tail_h``): where ``in_proj``'s
+        columns split and the rows do not split over ``model`` (under DP
+        attention a rank runs every head of its own rows)."""
+        return (self.name != "train" and self.model_size > 1
+                and bool(self._ssm_split_axes())
+                and "model" not in self.mesh.axes_of(self.row_axes))
 
     def step_cache_rules(self) -> PlacedRules:
         """Batch rows over ``row_axes``, for the sequence-sharded decode
-        the sequence over ``kv_seq_axes``, and under ``head_split`` the KV
-        heads over ``model``: the cache rules' B, KT and TP entries, placed
-        by the leaf's own layout.  (The rules' patterns
-        match the last path component with a leading ``*``, so ``*v``
-        also catches ``conv``, ``lv`` and ``cv``, and ``*k`` ``lk`` and
-        ``ck``: the reference's tables, kept verbatim, give those leaves
-        the k/v spec, aligned to other dimensions.)"""
+        the sequence over ``kv_seq_axes``, under ``head_split`` the KV
+        heads over ``model`` and under ``ssm_heads`` the SSM state's: the
+        cache rules' B, KT and TP entries, placed by the leaf's own layout.
+        (The rules' patterns match the last path component with a leading
+        ``*``, so ``*v`` also catches ``conv``, ``lv`` and ``cv``, ``*k``
+        ``lk`` and ``ck``, and ``*h`` ``tail_h``: the reference's tables,
+        kept verbatim, give those leaves the k/v (h) spec, aligned to other
+        dimensions; so crosspool's ``ck`` / ``cv`` keep their rows only
+        here, where the reference's table would put ``k``'s sequence split
+        on them.)"""
         def keep(path, spec, shape):
             name = path.split("/")[-1]
             b = 2 if name in RING_LEAVES else 1
@@ -551,6 +538,8 @@ class Strategy:
                 want[b + 1] = self.kv_seq_axes
             if self.head_split and name in KV_HEAD_LEAVES:
                 want[-2] = "model"
+            if self.ssm_heads and name in SSM_HEAD_LEAVES:
+                want[b + 1] = "model"
             return safe_spec(self.mesh, shape, want)
         return PlacedRules(self.cache_rules(), keep)
 
@@ -568,7 +557,7 @@ class Strategy:
     def _split_axes(self, path: str, shape, dims) -> Tuple[str, ...]:
         """The mesh axes (of more than one rank, in the mesh's order) the
         step's rules split ``dims`` of the leaf at ``path`` over."""
-        spec = self.step_param_rules().spec_for(self.mesh, path, shape)
+        spec = self.param_rules().spec_for(self.mesh, path, shape)
         used = {a for d in dims for a in self.mesh.axes_of(spec[d])}
         return tuple(a for a in self.mesh.axis_names
                      if a in used and self.mesh.shape[a] > 1)
@@ -592,6 +581,16 @@ class Strategy:
             else (cfg.n_layers, cfg.d_model, f)
         return self._split_axes(path, shape, (-1,))
 
+    def _ssm_split_axes(self) -> Tuple[str, ...]:
+        """Axes the SSM's projections split over in the step: the last dim
+        of ``in_proj`` (``conv_w`` and ``out_proj`` split over the same)."""
+        cfg = self.cfg
+        if cfg.family not in ("ssm", "hybrid"):
+            return ()
+        return self._split_axes(
+            "layers/ssm/in_proj",
+            (cfg.n_layers, cfg.d_model, ssm_mod.proj_width(cfg)), (-1,))
+
     def _expert_axes(self) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
         """(the axes the routed experts split over, the axes their ``f``
         splits over) in the step: monolithic (model, ()), crosspool
@@ -612,6 +611,7 @@ class Strategy:
             return self._train_hooks()
         rows = self.row_axes
         split = self._ffn_split_axes()
+        ssm_split = self._ssm_split_axes()
 
         def ffn_down(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             # this rank's partial product in float32, summed over the
@@ -630,7 +630,7 @@ class Strategy:
 
         moe_apply = None
         if self.a2a:
-            wg = self.step_param_rules().spec_for(
+            wg = self.param_rules().spec_for(
                 m, "layers/moe/wg",
                 (cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.d_ff))
 
@@ -644,29 +644,28 @@ class Strategy:
                 shared=pool_shared)
 
         # the pool boundary: crosspool's weights pool multiplies every row
-        # (a split hidden needs them all; the capacity MoE's experts live
-        # on other ranks); the a2a dispatch moves its own tokens; under
-        # monolithic DP attention the rows of the rank's model group meet
-        # its split FFN
+        # (a split hidden or SSM projection needs them all; the capacity
+        # MoE's experts live on other ranks); the a2a dispatch moves its
+        # own tokens; under monolithic DP attention the rows of the rank's
+        # model group meet its split FFN
         whole = tuple(a for a in m.axes_of(rows) if m.shape[a] > 1)
         if self.name == "crosspool":
-            bnd = whole if moe_apply is None and (split or cfg.is_moe) \
-                else ()
+            bnd = whole if moe_apply is None and (
+                split or ssm_split or cfg.is_moe) else ()
         else:
-            bnd = ("model",) if self.places_all and "model" in whole else ()
-        hooks = {}
+            bnd = ("model",) if "model" in whole else ()
+        hooks = {"tp": AxisGroup(m, "model")}
         if bnd:
             hooks.update(
                 boundary_in=lambda x: m.all_gather(x, bnd, 0),
                 boundary_out=lambda x: x[local_slices(m, x.shape, (bnd,))])
-        if self.places_all:
-            hooks["tp"] = AxisGroup(m, "model")
-            if bnd == ("model",):
-                hooks["rows"] = hooks["tp"]
-                hooks["params"] = ParamShards(m, self.param_specs(),
-                                              ("model",), (),
-                                              only=ATTN_LEAVES)
-        if cfg.is_moe and self.places_all and moe_apply is None:
+        if bnd == ("model",):
+            hooks["rows"] = hooks["tp"]
+            hooks["params"] = ParamShards(m, self.param_specs(), ("model",),
+                                          (), only=DPA_GATHERED)
+        elif ssm_split and ssm_split != ("model",):
+            hooks["ssm"] = AxisGroup(m, ssm_split)
+        if cfg.is_moe and moe_apply is None:
             left = tuple(a for a in whole if a not in bnd)
             if left:
                 hooks["dp"] = AxisGroup(m, left)
@@ -717,12 +716,13 @@ class Strategy:
         ``moe_*`` / ``logits`` constraints (``:326-343``), as the
         collectives its partitioner derives from them."""
         cfg, m = self.cfg, self.mesh
-        if cfg.family in TRAIN_LEFT_OUT:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family's sharded train cell "
-                f"is not ported ({TRAIN_LEFT_OUT[cfg.family]})")
         seq = (self.perf.seq_parallel
                and self.shape.seq_len % self.model_size == 0)
+        if seq and cfg.family == "audio" and self.model_size > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: seq_parallel over the encoder-decoder (the "
+                f"encoder's residual stream is not split; ROADMAP Queue 1 "
+                f"item 1.7)")
         tp, dp = AxisGroup(m, "model", seq=seq), AxisGroup(m, self.bax)
         moe_apply, expert_parallel = None, ()
         if cfg.is_moe and self.perf.moe_a2a:

@@ -7,9 +7,10 @@ microbatches), optional error-feedback int8 compression, then AdamW.
 ``extra_inputs`` forwards keyword arguments to ``forward``: the grouped
 MoE path is ``extra_inputs=lambda b: {"moe_path": "grouped"}``, the route
 the reference allows.  The step runs where the params lie; the ssm and
-hybrid families train on the CPU only (their SSD kernel has no backward).
-``hooks`` (the reference's argument) make it the sharded step of
-``launch/dryrun.py`` ``build_train_cell``: each rank's local shards and
+hybrid families train on the CPU only, sharded or not (their SSD and
+flash kernels have no backward: ROADMAP Queue 2 item 8).  ``hooks`` (the
+reference's argument) make it the sharded step of ``launch/dryrun.py``
+``build_train_cell`` for every family: each rank's local shards and
 rows, the collectives written out by the hooks.
 """
 from __future__ import annotations

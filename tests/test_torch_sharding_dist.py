@@ -20,16 +20,19 @@ come from numpy seeds; params from the reference's own init, bridged.
 * the sharded steps (``launch/dryrun.py`` ``build_serve_cell``): the
   smoke minicpm3-4b (Type II), qwen3-moe (with and without ``moe_a2a``;
   also with a shared expert) and zamba2-1.2b, crosspool decode on (1,4)
-  and (2,2), monolithic prefill on (4,1); then every decoder arch under
-  both strategies, prefill and decode, on (2,2), (1,4) (split heads, DP
-  attention) and (4,1) (``SERVE_CASES``): the logits gathered over rows
-  and vocabulary shards against the JAX package's single-device
-  ``decode_step`` / ``prefill`` at 2e-4 (``tests/test_sharding.py:
-  155-156``); every leaf the step places by the rules holds exactly the
-  rules' shard on its rank (the decoder archs: every param leaf, values
-  and bytes); ``dryrun.greedy`` equals the gathered argmax;
+  and (2,2), monolithic prefill on (4,1), and monolithic DP attention
+  (2 KV heads under a model axis of 4) for zamba2 and whisper on (1,4);
+  then every arch under both strategies, prefill and decode, on (2,2),
+  (1,4) (split heads, DP attention) and (4,1) (``SERVE_CASES``): the
+  logits gathered over rows and vocabulary shards against the JAX
+  package's single-device ``decode_step`` / ``prefill`` at 2e-4
+  (``tests/test_sharding.py:155-156``); every leaf the step places by
+  the rules holds exactly the rules' shard on its rank (every param
+  leaf, values and bytes; the cache's KV and SSM-state heads); the cache
+  bytes are the step's cache rules'; ``dryrun.greedy`` equals the
+  gathered argmax;
 * over a one-rank group the serve hooks leave the steps bit for bit as
-  without hooks;
+  without hooks, for every family;
 * a checkpoint written under (2,2) restores onto (4,1) with every leaf
   equal (``test_elastic_reshard_across_meshes``).
 """
@@ -57,7 +60,7 @@ from repro_torch.sharding.spec import (local_slices, path_str, shard_shape,
                                        shard_tree, tree_bytes)
 from repro_torch.sharding.strategies import (KV_HEAD_LEAVES,
                                              SEQ_SPLIT_LEAVES,
-                                             SERVE_LEFT_OUT, PerfOpts,
+                                             SSM_HEAD_LEAVES, PerfOpts,
                                              make_strategy)
 from repro_torch.training import checkpoint as ckpt
 
@@ -176,7 +179,7 @@ def _steps_job(p):
         placed = []
         for kind, whole, local, rules, step_rules in (
                 ("params", case["params"], params, st.param_rules(),
-                 st.step_param_rules()),
+                 st.param_rules()),
                 ("cache", case["cache"], cache, st.cache_rules(),
                  st.step_cache_rules())):
             for path, leaf in _flat(whole):
@@ -185,14 +188,15 @@ def _steps_job(p):
                     continue
                 by_rule = kind == "params" or (
                     st.seq_split and path in SEQ_SPLIT_LEAVES) or (
-                    st.head_split and path in KV_HEAD_LEAVES)
+                    st.head_split and path in KV_HEAD_LEAVES) or (
+                    st.ssm_heads and path in SSM_HEAD_LEAVES)
                 if by_rule:
                     spec = rules.spec_for(mesh, path, leaf.shape)
                 placed.append((kind, path, tuple(_get(local, path).shape),
                                shard_shape(mesh, leaf.shape, spec),
                                tuple(spec)))
         # the rules' cut of every param leaf, by value
-        rules = st.step_param_rules()
+        rules = st.param_rules()
         cut = all(torch.equal(
             _get(params, path),
             leaf[local_slices(mesh, leaf.shape,
@@ -202,6 +206,10 @@ def _steps_job(p):
         out.append(dict(logits=logits, coord=mesh.coord, placed=placed,
                         seq_split=st.seq_split, a2a=st.a2a,
                         head_split=st.head_split, type_ii=st.type_ii,
+                        ssm_heads=st.ssm_heads,
+                        cache_bytes=dryrun.resident_bytes(cache),
+                        cache_rule_bytes=tree_bytes(
+                            st.step_cache_rules(), mesh, case["cache"]),
                         rows=dryrun.local_rows(st, torch.arange(
                             case["tokens"].shape[0])),
                         vocab0=0 if vocab == cfg.vocab_size
@@ -425,15 +433,22 @@ STEP_CASES = (
     ("minicpm3-4b", "monolithic", (4, 1), {}, {}),
     ("qwen3-moe-235b-a22b", "monolithic", (4, 1), {}, {}),
     ("zamba2-1.2b", "monolithic", (4, 1), {}, {}),
+    # DP attention: the SSM and attention leaves gathered where they are
+    # read, the state's rows over data x model with every head
+    ("zamba2-1.2b", "monolithic", (1, 4), {}, {"n_kv_heads": 2}),
+    ("whisper-small", "monolithic", (1, 4), {}, {"n_kv_heads": 2}),
 )
 B, SEQ, MAX_LEN = 8, 8, 16
-#: the serve step's placement of every param leaf, the decoder archs:
-#: (arch, strategy, mesh, step).  Each arch runs under both strategies;
-#: (1,4) splits the heads of KV = 2 inside them (crosspool: Type II, the
-#: sequence-split decode) or takes DP attention (monolithic), (2,2) and
-#: (4,1) keep whole KV heads a rank (Type I: monolithic splits the
-#: cache's heads, crosspool keeps them whole), and (4,1) puts the
-#: experts over data alone
+#: the serve step's placement of every param leaf: (arch, strategy, mesh,
+#: step).  Each arch runs under both strategies; (1,4) splits the heads of
+#: KV = 2 inside them (crosspool: Type II, the sequence-split decode) or
+#: takes DP attention (monolithic), (2,2) and (4,1) keep whole KV heads a
+#: rank (Type I: monolithic splits the cache's heads, crosspool keeps them
+#: whole), and (4,1) puts the experts over data alone.  The ssm, hybrid
+#: and audio archs: the SSM projections over model or over data x model
+#: (crosspool's pool, whose rows are not a rank's heads on (2,2)), the
+#: state's heads over model, whisper's encoder on split heads and its
+#: whole decoder attention cut to a rank's cached heads
 SERVE_CASES = (
     ("qwen3-moe-235b-a22b", "monolithic", (1, 4), "decode"),
     ("qwen3-moe-235b-a22b", "crosspool", (2, 2), "prefill"),
@@ -450,6 +465,13 @@ SERVE_CASES = (
     ("minicpm3-4b", "crosspool", (2, 2), "prefill"),
     ("llava-next-34b", "monolithic", (2, 2), "prefill"),
     ("llava-next-34b", "crosspool", (1, 4), "decode"),
+    ("mamba2-130m", "monolithic", (1, 4), "prefill"),
+    ("mamba2-130m", "crosspool", (2, 2), "decode"),
+    ("mamba2-130m", "crosspool", (4, 1), "decode"),
+    ("zamba2-1.2b", "monolithic", (2, 2), "decode"),
+    ("zamba2-1.2b", "crosspool", (1, 4), "prefill"),
+    ("whisper-small", "monolithic", (1, 4), "decode"),
+    ("whisper-small", "crosspool", (2, 2), "prefill"),
 )
 #: llava's stub patch embeddings ahead of the prompt in its prefill
 N_PATCHES = 4
@@ -473,6 +495,9 @@ def _reference_case(rng, arch, strat, mesh, kind, perf, over):
     if kind == "prefill" and j_cfg.frontend == "vision_patches":
         extra["embeddings"] = rng.standard_normal(
             (B, N_PATCHES, j_cfg.d_model)).astype(np.float32)
+    if j_cfg.family == "audio":
+        extra["encoder_frames"] = rng.standard_normal(
+            (B, j_cfg.encoder_seq, j_cfg.d_model)).astype(np.float32)
     logits, cache_p = model.prefill(
         params, jnp.asarray(tokens), cache,
         **{k: jnp.asarray(v) for k, v in extra.items()})
@@ -570,12 +595,14 @@ def test_sharded_step_matches_single_device(steps, i):
                          ids=[f"{a}-{s}-{m[0]}x{m[1]}-{k}"
                               for a, s, m, k in SERVE_CASES])
 def test_serve_step_places_every_leaf(steps, i):
-    """The decoder archs' serve step on every param leaf placed by the
-    serve rules: the logits gathered over rows and vocabulary shards
-    within 2e-4 of the JAX package's single-device step; every leaf the
-    rules' cut by value and the rank's param bytes the rules' exactly;
-    ``greedy`` the gathered argmax; monolithic Type I holds its KV heads'
-    share of the cache, crosspool Type I the whole heads."""
+    """The serve step on every param leaf placed by the serve rules: the
+    logits gathered over rows and vocabulary shards within 2e-4 of the
+    JAX package's single-device step; every leaf the rules' cut by value
+    and the rank's param and cache bytes the rules' exactly; ``greedy``
+    the gathered argmax; monolithic Type I holds its KV heads' share of
+    the cache (whisper's cross ``ck`` too), crosspool Type I the whole
+    heads; the SSM state holds a rank's heads wherever ``model`` splits
+    them."""
     got, wants = steps
     j = len(STEP_CASES) + i
     logits = _gathered(got, j)
@@ -586,6 +613,7 @@ def test_serve_step_places_every_leaf(steps, i):
         r = g[j]
         assert r["cut"]
         assert r["param_bytes"] == r["rule_bytes"]
+        assert r["cache_bytes"] == r["cache_rule_bytes"]
         assert r["greedy"].tolist() == argmax[r["rows"].numpy()].tolist()
         assert r["head_split"] == (strat == "monolithic"
                                    and not r["type_ii"])
@@ -595,10 +623,13 @@ def test_serve_step_places_every_leaf(steps, i):
         assert (r["logits"].shape[-1] < logits.shape[-1]) == (
             mesh[1] > 1 and not dpa)
     placed = {(k, p): spec for k, p, _, _, spec in got[0][j]["placed"]}
-    name = "gk" if arch == "gemma3-12b" else "k"
-    if ("cache", name) in placed:
-        assert (placed[("cache", name)][-2] is not None) == \
-            got[0][j]["head_split"]
+    for name in ("gk" if arch == "gemma3-12b" else "k", "ck"):
+        if ("cache", name) in placed:
+            assert (placed[("cache", name)][-2] is not None) == \
+                got[0][j]["head_split"]
+    if ("cache", "h") in placed or got[0][j]["ssm_heads"]:
+        assert got[0][j]["ssm_heads"] == (mesh[1] > 1)
+        assert (placed[("cache", "h")][2] is not None) == (mesh[1] > 1)
     assert max(g[j]["param_bytes"] for g in got) < sum(
         g[j]["param_bytes"] for g in got)
 
@@ -606,20 +637,26 @@ def test_serve_step_places_every_leaf(steps, i):
 def test_one_rank_serve_hooks_are_bit_exact(tmp_path):
     """Over a one-rank group the serve hooks of both strategies leave
     ``prefill`` and ``decode_step`` bit for bit as without hooks (a MoE
-    with a shared expert, an MLA and a tied sliding-window arch); the
-    left-out families are named with their ROADMAP items."""
+    with a shared expert, an MLA, a tied sliding-window arch, and the
+    ssm, hybrid and audio archs)."""
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
                             rank=0, world_size=1)
     try:
         mesh = Mesh((1, 1), ("data", "model"), live=True)
         for arch, over in (("qwen3-moe-235b-a22b", {"n_shared_experts": 1}),
-                           ("minicpm3-4b", {}), ("gemma3-12b", {})):
+                           ("minicpm3-4b", {}), ("gemma3-12b", {}),
+                           ("mamba2-130m", {}), ("zamba2-1.2b", {}),
+                           ("whisper-small", {})):
             cfg = t_smoke(arch).replace(dtype="float32", **over)
             model = t_build_model(cfg)
             params = model.init(torch.Generator().manual_seed(0))
             gen = torch.Generator().manual_seed(1)
             tokens = torch.randint(0, cfg.vocab_size, (2, SEQ),
                                    generator=gen, dtype=torch.int32)
+            extra = {}
+            if cfg.family == "audio":
+                extra["encoder_frames"] = torch.randn(
+                    2, cfg.encoder_seq, cfg.d_model, generator=gen)
             nxt = tokens[:, 0]
             for strat in ("monolithic", "crosspool"):
                 runs = []
@@ -631,7 +668,8 @@ def test_one_rank_serve_hooks_are_bit_exact(tmp_path):
                             strat, mesh, cfg, replace(
                                 T_SHAPES["decode_32k"], seq_len=MAX_LEN,
                                 global_batch=2)).hooks()
-                    first, _ = model.prefill(params, tokens, cache, **kw)
+                    first, _ = model.prefill(params, tokens, cache, **kw,
+                                             **extra)
                     step, _ = model.decode_step(params, nxt, cache, SEQ,
                                                 **kw)
                     runs.append((first, step, cache))
@@ -640,9 +678,6 @@ def test_one_rank_serve_hooks_are_bit_exact(tmp_path):
                 assert all(torch.equal(ca[k], cb[k]) for k in ca)
     finally:
         dist.destroy_process_group()
-    assert set(SERVE_LEFT_OUT) == {"ssm", "hybrid", "audio"}
-    assert all("ROADMAP Queue 1 item 1." in v
-               for v in SERVE_LEFT_OUT.values())
 
 
 # ---------------------------------------------------------------------------

@@ -6,13 +6,16 @@ the fixture's directory, each bounded by ``TIMEOUT`` seconds), one per
 module-scoped fixture; the JAX side runs in this process.  Inputs come
 from numpy seeds; params from the reference's own init, bridged.
 
-* forward: the 7 decoder archs' float32 smoke configs on a (2,2) mesh
-  (every leaf split by the train rules): the gathered logits within
-  2e-4 of the JAX package's single-device ``forward``
-  (``tests/test_sharding.py:235-253``);
+* forward: the 10 archs' float32 smoke configs on a (2,2) mesh (every
+  leaf split by the train rules): the gathered logits within 2e-4 of the
+  JAX package's single-device ``forward``
+  (``tests/test_sharding.py:235-253``); whisper's ``seq_parallel`` cell
+  raises, naming its ROADMAP item;
 * loss and gradients (``build_train_cell``'s ``grads`` and ``step``):
-  qwen3-moe (capacity and grouped MoE), minicpm3 (MLA), qwen3-14b and
-  gemma3 (tied, sliding window) on (2,2), and the variants
+  qwen3-moe (capacity and grouped MoE), minicpm3 (MLA), qwen3-14b,
+  gemma3 (tied, sliding window), zamba2 (hybrid) and whisper (encoder-
+  decoder) on (2,2), mamba2 (ssm) on (1,4) and with ``seq_parallel``,
+  and the variants
   ``seq_parallel``, ``compress_grads``, 2 microbatches (capacity path:
   the row order), ``moe_a2a`` (experts over data; its capacities at
   8x, drop-free, against the JAX package's drop-free grouped path, as the
@@ -29,9 +32,8 @@ from numpy seeds; params from the reference's own init, bridged.
   exactly its rule's shard, and a rank's resident bytes equal
   ``dryrun.argument_bytes`` for that mesh and shape;
 * a sharded ``TrainState`` saved under (2,2) restores onto (4,1);
-* on a one-rank group the train hooks leave ``forward`` bit for bit; the
-  ssm / hybrid / audio train cells raise; ``TRAIN_MICROBATCHES`` is the
-  reference's table.
+* on a one-rank group the train hooks leave ``forward`` bit for bit, for
+  every family; ``TRAIN_MICROBATCHES`` is the reference's table.
 """
 import ast
 import functools
@@ -70,6 +72,7 @@ LR = dict(lr=3e-3, warmup_steps=10)
 MOE = "qwen3-moe-235b-a22b"
 B, S = 8, 16
 LLAVA = "llava-next-34b"
+MAMBA, ZAMBA, WHISPER = "mamba2-130m", "zamba2-1.2b", "whisper-small"
 GEMMA_S = 32            # past gemma3's smoke window of 16
 
 
@@ -127,8 +130,18 @@ def _forward_job(p):
         batch = cell.local_batch(case["batch"])
         logits, _ = ttfm.forward(params, case["cfg"], batch["tokens"],
                                  embeddings=batch.get("embeddings"),
+                                 encoder_frames=batch.get("encoder_frames"),
                                  hooks=cell.hooks)
         out.append(dict(logits=logits, coord=mesh.coord))
+    # whisper's encoder stream is not split: its seq_parallel cell raises
+    mesh = Mesh((1, 4), ("data", "model"), live=True)
+    cfg = t_smoke("whisper-small")
+    try:
+        make_strategy("train", mesh, cfg, _shape(B, S),
+                      PerfOpts(seq_parallel=True)).hooks()
+        out.append("no refusal")
+    except NotImplementedError as e:
+        out.append(str(e))
     return out
 
 
@@ -269,11 +282,20 @@ def _j_setup(arch, seq=S, **over):
     if arch == LLAVA:
         batch["embeddings"] = rng.standard_normal(
             (B, j_cfg.frontend_tokens, j_cfg.d_model)).astype(np.float32)
+    if arch == WHISPER:
+        batch["encoder_frames"] = rng.standard_normal(
+            (B, j_cfg.encoder_seq, j_cfg.d_model)).astype(np.float32)
     return j_cfg, model, params, batch, t_smoke(arch).replace(**over)
 
 
+def _inputs(batch):
+    """The modality inputs of a batch, as ``forward`` takes them."""
+    return {k: batch[k] for k in ("embeddings", "encoder_frames")
+            if k in batch}
+
+
 FWD_ARCHS = ("llama3-405b", "qwen3-14b", MOE, "moonshot-v1-16b-a3b",
-             "gemma3-12b", "minicpm3-4b", LLAVA)
+             "gemma3-12b", "minicpm3-4b", LLAVA, MAMBA, ZAMBA, WHISPER)
 
 
 @pytest.fixture(scope="module")
@@ -285,7 +307,7 @@ def forward_runs(tmp_path_factory):
         seq = GEMMA_S if arch in ("gemma3-12b", LLAVA) else S
         j_cfg, model, params, batch, t_cfg = _j_setup(arch, seq)
         want, _ = jax.jit(lambda p, b: model.forward(
-            p, b["tokens"], embeddings=b.get("embeddings")))(
+            p, b["tokens"], **_inputs(b)))(
                 params, {k: jnp.asarray(v) for k, v in batch.items()})
         cases.append(dict(cfg=t_cfg, shape=_shape(B, seq), mesh=(2, 2),
                           perf=PerfOpts(microbatches=1), moe_path="capacity",
@@ -296,6 +318,14 @@ def forward_runs(tmp_path_factory):
     got = _run(tmp_path_factory.mktemp("forward"), "forward",
                {"cases": cases})
     return got, wants
+
+
+def test_whisper_seq_parallel_refused(forward_runs):
+    """Whisper's train cell under ``seq_parallel`` raises, naming its
+    ROADMAP item: the encoder's residual stream is not split."""
+    got, _ = forward_runs
+    for g in got:
+        assert "ROADMAP Queue 1 item 1.7" in g[-1], g[-1]
 
 
 @pytest.mark.parametrize("i", range(len(FWD_ARCHS)), ids=FWD_ARCHS)
@@ -334,6 +364,11 @@ STEP_CASES = (
     ("moe-a2a", MOE, (2, 2), {"moe_a2a": True}, "capacity", "moe-grouped"),
     ("mesh-1x4", MOE, (1, 4), {}, "capacity", "moe-capacity"),
     ("mesh-4x1", MOE, (4, 1), {}, "capacity", "moe-capacity"),
+    ("mamba2-ssm-1x4", MAMBA, (1, 4), {}, "capacity", "mamba2"),
+    ("mamba2-seq-parallel", MAMBA, (2, 2), {"seq_parallel": True},
+     "capacity", "mamba2"),
+    ("zamba2-hybrid", ZAMBA, (2, 2), {}, "capacity", "zamba2"),
+    ("whisper-audio", WHISPER, (2, 2), {}, "capacity", "whisper"),
 )
 
 
@@ -348,14 +383,13 @@ def _reference(arch, moe_path, G, seq):
     from repro.training.optimizer import AdamW as JAdamW
     from repro.training.train_step import make_loss_fn
     j_cfg, model, params, batch, t_cfg = _j_setup(arch, seq)
-    extra = (lambda b: {"moe_path": moe_path})
+    extra = (lambda b: dict(_inputs(b), moe_path=moe_path))
     vg = jax.jit(jax.value_and_grad(
         make_loss_fn(model, remat=False, extra_inputs=extra), has_aux=True))
-    tok = batch["tokens"]
-    parts = np.split(tok, G)
     metrics, grads = None, None
-    for part in parts:
-        (_, m), g = vg(params, {"tokens": jnp.asarray(part)})
+    for i in range(G):
+        part = {k: jnp.asarray(np.split(v, G)[i]) for k, v in batch.items()}
+        (_, m), g = vg(params, part)
         m = {k: float(v) / G for k, v in m.items()}
         g = jax.tree.map(lambda a: np.asarray(a, np.float32) / G, g)
         metrics = m if metrics is None else {k: metrics[k] + m[k]
@@ -393,6 +427,9 @@ REFERENCES = {
     "minicpm3": ("minicpm3-4b", "capacity", 1, S),
     "qwen3-14b": ("qwen3-14b", "capacity", 1, S),
     "gemma3": ("gemma3-12b", "capacity", 1, GEMMA_S),
+    "mamba2": (MAMBA, "capacity", 1, S),
+    "zamba2": (ZAMBA, "capacity", 1, S),
+    "whisper": (WHISPER, "capacity", 1, S),
 }
 
 
@@ -407,7 +444,7 @@ def step_runs(tmp_path_factory):
             cfg=cfg, shape=_shape(B, REFERENCES[key][3]), mesh=mesh,
             perf=PerfOpts(**dict({"microbatches": 1}, **perf)),
             moe_path=moe_path, params=params_to_torch(ref["params"]),
-            batch={"tokens": torch.from_numpy(ref["batch"]["tokens"])}))
+            batch={k: torch.from_numpy(v) for k, v in ref["batch"].items()}))
     tmp = tmp_path_factory.mktemp("step")
     ckpt_case = dict(cfg=refs["qwen3-14b"]["cfg"],
                      params=params_to_torch(refs["qwen3-14b"]["params"]),
@@ -476,13 +513,14 @@ def test_train_state_placed_by_the_rules(step_runs, i):
         for path, shape, want, _, exact in r["placed"]:
             assert shape == want and exact, path
         assert r["resident"] == r["argument_bytes"]
-        # the embedding, the head and every stacked layer leaf of the
-        # params, m and v are split (all of them divide on these meshes)
+        # the embedding, the head and the stacked attention or SSM leaves
+        # of the params, m and v are split (they divide on these meshes)
         split = {p for p, shape, _, whole, _ in r["placed"]
                  if shape != whole}
         for kind in ("params", "opt/m", "opt/v"):
             assert f"{kind}/embed/tok" in split
-            assert any(p.startswith(f"{kind}/layers/attn/w") for p in split)
+            assert any(p.startswith(f"{kind}/") and (
+                "/attn/w" in p or "/ssm/in_proj" in p) for p in split)
 
 def test_sharded_train_state_checkpoint_reshards(step_runs):
     """A sharded TrainState written under (2,2) (rank 0 writes once)
@@ -500,32 +538,32 @@ def test_sharded_train_state_checkpoint_reshards(step_runs):
 # one rank; refusals; the table
 # ---------------------------------------------------------------------------
 
-def test_one_rank_hooks_are_bit_exact_and_refusals(tmp_path):
+def test_one_rank_train_hooks_are_bit_exact(tmp_path):
     """Over a one-rank group the train hooks leave ``forward`` bit for
-    bit as without hooks (a MoE, an MLA and a tied sliding-window arch);
-    the ssm, hybrid and audio train cells raise, naming the ROADMAP
-    item."""
+    bit as without hooks (a MoE, an MLA, a tied sliding-window arch, and
+    the ssm, hybrid and audio archs, whose ``build_train_cell`` builds)."""
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
                             rank=0, world_size=1)
     try:
         mesh = Mesh((1, 1), ("data", "model"), live=True)
         shape = _shape(B, S)
-        for arch in (MOE, "minicpm3-4b", "gemma3-12b"):
+        for arch in (MOE, "minicpm3-4b", "gemma3-12b", MAMBA, ZAMBA,
+                     WHISPER):
             cfg = t_smoke(arch).replace(dtype="float32")
             params = build_model(cfg).init(torch.Generator().manual_seed(0))
-            tokens = torch.randint(0, cfg.vocab_size, (2, S),
-                                   generator=torch.Generator().manual_seed(1))
-            hooks = make_strategy("train", mesh, cfg, shape).hooks()
+            gen = torch.Generator().manual_seed(1)
+            tokens = torch.randint(0, cfg.vocab_size, (2, S), generator=gen)
+            kw = {}
+            if arch == WHISPER:
+                kw["encoder_frames"] = torch.randn(
+                    2, cfg.encoder_seq, cfg.d_model, generator=gen)
+            cell = dryrun.build_train_cell(cfg, shape, make_strategy(
+                "train", mesh, cfg, shape))
             for path in ("capacity", "grouped"):
-                want = ttfm.forward(params, cfg, tokens, moe_path=path)
+                want = ttfm.forward(params, cfg, tokens, moe_path=path, **kw)
                 got = ttfm.forward(params, cfg, tokens, moe_path=path,
-                                   hooks=hooks)
+                                   hooks=cell.hooks, **kw)
                 assert all(torch.equal(a, b) for a, b in zip(got, want))
-        for arch in ("mamba2-130m", "zamba2-1.2b", "whisper-small"):
-            cfg = t_smoke(arch)
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-                dryrun.build_train_cell(cfg, shape, make_strategy(
-                    "train", mesh, cfg, shape))
     finally:
         dist.destroy_process_group()
 
