@@ -14,8 +14,10 @@ other than 0) if any phase fails:
              one's ``-Xptxas -v`` report;
 3. kernels — holds each kernel against its plain PyTorch version:
              the paged decode kernels at the head geometries of the three
-             colocated models (bf16 within 2e-2, float32 within 2e-5 on
-             a small shape), with ragged lengths, unmapped (-1) table
+             colocated models (bf16 within 2e-2, float32 within 2e-5 at
+             the same geometries, the float32 split boundary and context
+             32768 included, and on a small shape), with ragged lengths,
+             unmapped (-1) table
              entries past and inside lengths and NaN garbage beyond every
              length, lengths 0 and 1, on and beside a split boundary,
              ending mid-page and one row at context 32768 (GQA and MLA),
@@ -44,11 +46,13 @@ other than 0) if any phase fails:
              ``scaled_dot_product_attention`` call on the same data under
              each SDPA backend that takes it (a yardstick only: the port
              never calls it; the fastest is ``library_ms``), beside the
-             bound (the SSD scan at S = 1024 and 512);
+             bound (the paged decode kernels also in float32 over 16 KiB
+             f32 pages at B = 4; the SSD scan at S = 1024 and 512);
 4. small   — float32 smoke-size models on the card against the CPU
              (plain versions): the colocated set and zamba2 + mamba2;
              prefill and one decode step give the same logits within
-             1e-4; then the same smoke models in bf16, as the serve CLI
+             1e-4 (the colocated set's float32 decode step must launch
+             the paged GQA and MLA kernels); then the same smoke models in bf16, as the serve CLI
              runs them by default, served through the engine; then the
              decode graphs: for the smoke coloc set in float32 and bf16
              at K = 1 and 4, and zamba2 + mamba2 in both, a block's graph
@@ -99,8 +103,10 @@ other than 0) if any phase fails:
              loaded experts emptied, with every expert boundary one row
              past a 128-row tile edge, with one expert holding 90% of
              the rows, and on a small shape with empty experts and rows
-             off 16 bytes; then times it at the gate/up shape and layer
-             0's load, and the weight gradient at the skewed load too.
+             off 16 bytes (the float32 weight gradient equal bit for bit
+             across two calls at each); then times it at the gate/up
+             shape and layer 0's load, and the weight gradient at the
+             skewed load too.
 
 9. elastic — the elastic KV<->weights boundary (DESIGN.md §8) on the
              colocated set at published widths, bf16, depths cut to
@@ -225,7 +231,7 @@ other than 0) if any phase fails:
              reference's settings: quickstart for qwen3-moe, moonshot,
              minicpm3 and qwen3-14b, serve_multi_model ``--online
              --elastic --slo-demo`` (its flight record must replay
-             BIT-EXACT on the card), train_moe's 200 steps and
+             BIT-EXACT on the card), train_moe's 100 steps and
              long_context_pooling.  Gates: each prints its ``OK`` line;
              each quickstart launches its prefill's and decode's kernels
              (flash, contiguous and paged decode for a GQA arch, paged
@@ -250,7 +256,7 @@ other than 0) if any phase fails:
              processes sharing the card over gloo (crosspool on a (1, 4)
              mesh: the sequence-sharded MLA decode, each rank 8192
              tokens of the cache, its heads of the attention, a quarter
-             of the vocabulary and of the dense FFN): 8
+             of the vocabulary and of the dense FFN): ``POOL_STEPS``
              decode steps fed the same decode's tokens at one rank on
              the whole cache, in bf16 (every rank exits 0 with finite
              logits and a quarter of the one rank's cache bytes; the
@@ -372,7 +378,6 @@ BATCHES = (1, 4)
 SPIN_CYCLES = 2_000_000
 #: the __global__ functions of ``csrc/``, as the profiler names them
 PORT_KERNELS = ("flash_prefill", "split_decode_kernel", "merge_splits_kernel",
-                "paged_gqa_decode_kernel", "paged_mla_decode_kernel",
                 "mla_split_decode_kernel", "mla_merge_splits_kernel",
                 "ssd_chunk_state_kernel", "ssd_state_pass_kernel",
                 "ssd_chunk_output_kernel", "moe_gemm")
@@ -415,8 +420,11 @@ GEMMA_RUNS = (("batch", GEMMA_BATCH, GEMMA_PROMPT, 64, None),
               ("pad quirk", 1, 512, 16, 300))
 WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS = 4, 64, 64
 #: phase 13: the long-context request (model, tokens, pool pages of 16
-#: KiB) and the archs quickstart runs on the card
+#: KiB), the archs quickstart runs on the card and train_moe's steps (its
+#: loss falls below 0.8x the first ten steps' by step ~50; one
+#: checkpoint lands at step 100)
 LONG_MODEL, LONG_CTX, LONG_PAGES = "minicpm3-4b", 32768, 73728
+TRAIN_MOE_STEPS = 100
 #: phase 13a's admission burst at published widths: 4 requests of 32768
 #: tokens (a LongAlign-like length, one of Fig. 6's bins) against a 48
 #: GiB pool of 16 KiB pages, host bookkeeping only
@@ -434,7 +442,7 @@ SHARD_DECODE_CAPACITY = 20.0
 SHARD_MEMORY_SHARE = 0.4
 #: phase 14b: minicpm3-4b at its published config, one request's cache of
 #: POOL_CTX tokens split over POOL_RANKS processes sharing the card (gloo)
-POOL_MODEL, POOL_CTX, POOL_RANKS, POOL_STEPS = "minicpm3-4b", 32768, 4, 8
+POOL_MODEL, POOL_CTX, POOL_RANKS, POOL_STEPS = "minicpm3-4b", 32768, 4, 4
 #: seconds phase 14b's ranks may take, start to end
 POOL_TIMEOUT = 300
 #: phase 14b's equality gate runs the model in float32: in bf16 the
@@ -765,29 +773,34 @@ def sdpa_call(torch, case, q, pool, table, lens):
 
 def bound(case, B, ctx, max_pages, itemsize):
     """Least time for the work: bytes (KV read once, q/table/lengths
-    read, out written) over HBM rate vs flops over the bf16 peak."""
+    read, out written) over HBM rate vs flops over the peak of the type
+    (bf16 tensor cores, or float32 for 4-byte items)."""
     nbytes = (B * ctx * case.per_tok * itemsize
               + B * case.H * (case.q_dim + case.out_dim) * itemsize
               + B * max_pages * 4 + B * 4)
     flops = 2 * B * case.H * ctx * (case.q_dim + case.out_dim)
-    return bound_ms(nbytes, flops)
+    return bound_ms(nbytes, flops, fp32=itemsize == 4)
 
 
-def split_boundary(torch, case, B, max_pages) -> int:
-    """First token of the second split of the bf16 GQA or MLA kernel for
-    B rows over this table: a length equal to it ends exactly on a
-    boundary."""
+def split_boundary(torch, case, B, max_pages, dtype=None) -> int:
+    """First token of the second split of the GQA or MLA kernel in
+    ``dtype`` (bf16 by default) for B rows over this table: a length
+    equal to it ends exactly on a boundary."""
     from repro_torch.kernels import paged_attention as pa
+    dtype = dtype or torch.bfloat16
     sm = torch.cuda.get_device_properties(0).multi_processor_count
     tokens = max_pages * case.tpp
     if case.kind == "gqa":
-        _, splits = pa.split_plan(B, case.H, case.KV, tokens, sm)
-    else:
+        _, splits = pa.split_plan(B, case.H, case.KV, tokens, sm, dtype)
+    elif dtype == torch.bfloat16:
         _, splits = pa.mla_split_plan(B, case.H, tokens, sm)
+    else:
+        _, splits = pa.split_plan(B, case.H, 1, tokens, sm, dtype)
     return pa.split_start(1, splits, tokens)
 
 
 def kernel_phase(torch, kops, ref, cases):
+    from repro_torch.core.virtualizer import DEFAULT_PAGE_BYTES
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     errs = {}
@@ -796,6 +809,8 @@ def kernel_phase(torch, kops, ref, cases):
         e, rel = check(torch, kops, ref, case, lengths, max_pages, dtype,
                        tol, gen, holes)
         errs[case.kind] = max(errs.get(case.kind, 0.0), e)
+        key = f"{case.kind}_{str(dtype)[6:]}"
+        errs[key] = max(errs.get(key, 0.0), e)
         rule = f"tolerance {tol}"
         if rel is not None:
             key = f"{case.kind}_row_rms"
@@ -825,6 +840,21 @@ def kernel_phase(torch, kops, ref, cases):
         # one row at a long context: many tiles per split
         run_check(case, [32768 - 3], math.ceil(32768 / tpp), torch.bfloat16,
                   2e-2)
+    # float32 at the path's geometries: the f32 body's split edges, -1
+    # pages inside a length, one row at context 32768
+    for case in cases:
+        tpp = case.tpp
+        max_pages = math.ceil(1024 / tpp)
+        edge = split_boundary(torch, case, 6, max_pages, torch.float32)
+        lengths = [0, 1, edge, edge - 1, edge + 1,
+                   tpp * min(50, max_pages - 3) + max(1, tpp // 2)]
+        run_check(case, lengths, max_pages, torch.float32, 2e-5,
+                  note=f" (f32 split boundary {edge})")
+        run_check(case, [1000, 700], max_pages, torch.float32, 2e-5,
+                  holes=((0, 3), (1, 10), (1, 11)),
+                  note=" (-1 pages inside the lengths)")
+        run_check(case, [32768 - 3], math.ceil(32768 / tpp), torch.float32,
+                  2e-5)
     # float32 on one small shape per kernel
     small = [Case("gqa-small", "gqa", 8, 8 * 2 * 4 * 64, H=16, KV=4, D=64),
              Case("mla-small", "mla", 8, 8 * 80 + 16, H=8, r=64, rp=16)]
@@ -842,12 +872,19 @@ def kernel_phase(torch, kops, ref, cases):
     run_check(mla_smoke, [300, 65, 64, 63], 40, torch.bfloat16, 2e-2,
               note=" (several splits)")
     rows = []
-    for case in cases:
+    # bf16 at both batches; float32 at B = 4 over f32 pages of 16 KiB
+    timed = [(case, torch.bfloat16, BATCHES) for case in cases]
+    f32_elems = DEFAULT_PAGE_BYTES // 4
+    timed += [(Case(c.name, c.kind, f32_elems // c.per_tok, f32_elems, H=c.H,
+                    KV=c.KV, D=c.D, r=c.r, rp=c.rp), torch.float32, (4,))
+              for c in cases]
+    for case, dtype, batches in timed:
+        itemsize = torch.tensor([], dtype=dtype).element_size()
         for ctx in CONTEXTS:
             max_pages = math.ceil(ctx / case.tpp)
-            for B in BATCHES:
+            for B in batches:
                 q, pool, table, lens = make_inputs(
-                    torch, case, [ctx] * B, max_pages, torch.bfloat16, gen,
+                    torch, case, [ctx] * B, max_pages, dtype, gen,
                     garbage=False)
                 ms = time_ms(torch, lambda: run_kernel(kops, case, q, pool,
                                                        table, lens))
@@ -855,12 +892,14 @@ def kernel_phase(torch, kops, ref, cases):
                                                          table, lens))
                 lib, lib_name, lib_all = library_sdpa(
                     torch, sdpa_call(torch, case, q, pool, table, lens))
-                b_ms, b_by = bound(case, B, ctx, max_pages, 2)
+                b_ms, b_by = bound(case, B, ctx, max_pages, itemsize)
                 rows.append(dict(case=case.name, kind=case.kind, ctx=ctx,
-                                 B=B, ms=ms, plain_ms=plain, library_ms=lib,
+                                 B=B, dtype=str(dtype)[6:], ms=ms,
+                                 plain_ms=plain, library_ms=lib,
                                  library=lib_name, library_all=lib_all,
                                  bound_ms=b_ms, bound_by=b_by))
-                log(f"time {case.name} ctx {ctx} B {B}: kernel {ms:.4f} ms, "
+                log(f"time {case.name} {str(dtype)[6:]} ctx {ctx} B {B}: "
+                    f"kernel {ms:.4f} ms, "
                     f"plain {plain:.4f} ms, {lib_name} {lib:.4f} ms, "
                     f"bound {b_ms:.4f} ms ({b_by}); sdpa backends "
                     f"{fmt_backends(lib_all)}")
@@ -1298,7 +1337,8 @@ def moe_kernel_phase(torch, np, kops, ref, loads):
     [E] array per layer), the first of them with 4 experts emptied, and a
     small ragged shape with empty experts: forward, input gradient and
     weight gradient against the plain versions (float32 within 1e-4, bf16
-    within 2e-2).  Then timed in both types at the gate/up shape and
+    within 2e-2; the float32 weight gradient also equal bit for bit across
+    two calls).  Then timed in both types at the gate/up shape and
     ``loads[0]`` (the weight gradient at the skewed load too,
     ``TIMED_LOADS``), beside the bound and one ``torch._grouped_mm`` call
     where the card's torch takes the type.  Inputs at the model's scales:
@@ -1341,9 +1381,17 @@ def moe_kernel_phase(torch, np, kops, ref, loads):
             e2 = close_or_raise(torch, what + " dgrad",
                                 kops.moe_gemm_dgrad(dy, w, gs),
                                 ref.moe_gemm(dy, w.transpose(1, 2), gs), tol)
-            e3 = close_or_raise(torch, what + " wgrad",
-                                kops.moe_gemm_wgrad(x, dy, gs),
+            dw = kops.moe_gemm_wgrad(x, dy, gs)
+            e3 = close_or_raise(torch, what + " wgrad", dw,
                                 ref.moe_gemm_wgrad(x, dy, gs), tol)
+            if dtype == torch.float32:
+                # the chunks of an expert add into dw in a fixed order
+                if not torch.equal(dw, kops.moe_gemm_wgrad(x, dy, gs)):
+                    raise AssertionError(f"{what} wgrad: two calls on the "
+                                         f"same inputs differ")
+                log(f"kernel check {what} wgrad: two calls equal bit for "
+                    f"bit")
+            del dw
             if dtype == torch.float32:
                 errs["moe_gemm"] = max(errs["moe_gemm"], e1, e2)
                 errs["moe_gemm_wgrad"] = max(errs["moe_gemm_wgrad"], e3)
@@ -1396,9 +1444,11 @@ def moe_kernel_phase(torch, np, kops, ref, loads):
 # engine phases
 # ---------------------------------------------------------------------------
 
-def small_phase(torch):
+def small_phase(torch, kops):
     """Float32 smoke models on the card against the CPU (plain versions):
-    the same params, prompt and one decode step give the same logits."""
+    the same params, prompt and one decode step give the same logits.
+    Returns the card pass's launches (the float32 decode kernels must
+    have run)."""
     from repro_torch.configs import PAPER_COLOC_SET, get_smoke_config
     from repro_torch.core.control import StreamingPrefill
     from repro_torch.core.pools import build_pools
@@ -1413,8 +1463,9 @@ def small_phase(torch):
         params[n] = init_params(gen, c)
     prompt = torch.randint(0, 256, (1, 37), generator=torch.Generator()
                            .manual_seed(7), dtype=torch.int32)
-    logits = {}
+    logits, launches = {}, {}
     for device in ("cuda", "cpu"):
+        reset_launches(kops)
         kv_pool, _, pooled = build_pools(
             models, dict(params), device=device, page_budget=128,
             page_bytes=4096, pool_dtype=torch.float32, slab_bytes=4096)
@@ -1440,6 +1491,16 @@ def small_phase(torch):
                                                       tables, lens, layer)
                 x = fns.combine(x, fns.ffn_stage(arena, slots, ffn_in, layer))
             logits[(device, name)] = (first.cpu(), fns.logits(p_kv, x).cpu())
+        if device == "cuda":
+            launches = read_launches(kops)
+    for kernel in ("paged_decode_attention", "paged_mla_decode_attention"):
+        if not launches[kernel]:
+            raise AssertionError(f"small: the float32 decode step never "
+                                 f"launched {kernel}")
+    log(f"small: float32 decode launches on the card: "
+        f"paged_decode_attention {launches['paged_decode_attention']}, "
+        f"paged_mla_decode_attention "
+        f"{launches['paged_mla_decode_attention']}")
     for name in models:
         for phase, got, want in zip(("prefill", "decode"),
                                     logits[("cuda", name)],
@@ -1450,6 +1511,7 @@ def small_phase(torch):
                                      f"max abs err {err:.3g} > 1e-4")
             log(f"small {name} {phase}: card vs CPU logits max abs err "
                 f"{err:.3g} (tolerance 1e-4)")
+    return launches
 
 
 def smoke_serve_phase(torch):
@@ -3436,15 +3498,17 @@ def observe_phase(torch, np, kops, models, card) -> dict:
 # ---------------------------------------------------------------------------
 
 def flash_time_row(torch, kops, ref, shape, q, k, v, scale) -> dict:
-    """Row 4 on causal bf16 ``q`` [B,S,H,D], ``k`` / ``v`` [B,S,KV,D]:
-    kernel, plain version and the fastest SDPA backend timed beside the
-    bound."""
+    """Row 4 on causal ``q`` [B,S,H,D], ``k`` / ``v`` [B,S,KV,D] (bf16 or
+    float32): kernel, plain version and the fastest SDPA backend timed
+    beside the bound."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    b_ms, b_by = bound_ms((2 * B * S * H * D + 2 * B * S * KV * D) * 2,
-                          4 * B * H * D * (S * (S + 1) // 2))
+    b_ms, b_by = bound_ms((2 * B * S * H * D + 2 * B * S * KV * D)
+                          * q.element_size(),
+                          4 * B * H * D * (S * (S + 1) // 2),
+                          fp32=q.dtype == torch.float32)
     lib, lib_name, lib_all = library_sdpa(torch, lambda: sdpa(
         qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True))
     return dict(
@@ -3458,14 +3522,16 @@ def flash_time_row(torch, kops, ref, shape, q, k, v, scale) -> dict:
 
 def decode_time_row(torch, kops, ref, shape, q, ck, cv, lens, scale
                     ) -> dict:
-    """Row 3 on bf16 ``q`` [B,1,H,D] over a full cache [B,T,KV,D]: kernel,
-    plain version and the fastest SDPA backend timed beside the bound."""
+    """Row 3 on ``q`` [B,1,H,D] over a full cache [B,T,KV,D] (bf16 or
+    float32): kernel, plain version and the fastest SDPA backend timed
+    beside the bound."""
     B, _, H, D = q.shape
     T, KV = ck.shape[1], ck.shape[2]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, ck, cv))
-    b_ms, b_by = bound_ms(2 * B * T * KV * D * 2 + 2 * B * H * D * 2
-                          + 4 * B, 4 * B * H * T * D)
+    b_ms, b_by = bound_ms((2 * B * T * KV * D + 2 * B * H * D)
+                          * q.element_size() + 4 * B, 4 * B * H * T * D,
+                          fp32=q.dtype == torch.float32)
     lib, lib_name, lib_all = library_sdpa(torch, lambda: sdpa(
         qt, kt, vt, scale=scale, enable_gqa=True))
     return dict(
@@ -4040,7 +4106,7 @@ def examples_phase(torch, kops) -> dict:
     """(13b) The four examples on the card through their ``main`` at the
     reference's settings: quickstart for ``EXAMPLE_ARCHS``,
     serve_multi_model online + elastic with the SLO demo (its record
-    replays bit for bit on the card), train_moe's 200 steps, and
+    replays bit for bit on the card), train_moe's 100 steps, and
     long_context_pooling.  Each quickstart must launch its prefill's and
     decode's kernels (flash, contiguous decode and paged decode for a GQA
     arch, paged MLA decode for an MLA one) and, for a MoE arch, row 5
@@ -4086,7 +4152,8 @@ def examples_phase(torch, kops) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     ckpt = build / "train_moe_ckpt"
     out["train_moe"] = run_example(torch, kops, "train_moe", train_moe.main,
-                                   ["--ckpt-dir", str(ckpt)])
+                                   ["--steps", str(TRAIN_MOE_STEPS),
+                                    "--ckpt-dir", str(ckpt)])
     out["long_context_pooling"] = run_example(
         torch, kops, "long_context_pooling", long_context_pooling.main, [])
     total = {k: sum(r["launches"][k] for r in out.values())
@@ -5199,34 +5266,36 @@ def _serve_agreement(torch, tmp, index, ref) -> dict:
 
 def local_heads_kernel_rows(torch, kops, ref, geometries):
     """Rows 3 and 4 at phase 16's geometries ((label, B, S, T, [(H, KV)
-    of the prefill, of the decode], D): a rank's heads): each against its
-    plain version (bf16 2e-2 and the row limit), then timed beside its
-    bound and SDPA."""
+    of the prefill, of the decode], D): a rank's heads), in bf16 and in
+    float32 (the sharded steps' equality gates run float32): each against
+    its plain version (bf16 2e-2 and the row limit, float32 2e-5), then
+    timed beside its bound and SDPA."""
     gen = torch.Generator(device="cuda").manual_seed(16)
     rows, errs = [], {}
-    for label, B, S, T, ((H, KV), (H1, KV1)), D in geometries:
+    for (label, B, S, T, ((H, KV), (H1, KV1)), D), (dtype, tol) in (
+            (g, d) for g in geometries
+            for d in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5))):
         def randn(*shape):
             return torch.randn(shape, generator=gen,
-                               device="cuda").to(torch.bfloat16)
-        scale = D ** -0.5
+                               device="cuda").to(dtype)
+        scale, name, rms = D ** -0.5, str(dtype)[6:], row_limit(torch, dtype)
         q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
-        shape = f"{label} B={B} S=T={S} H={H} KV={KV} D={D} bf16"
+        shape = f"{label} B={B} S=T={S} H={H} KV={KV} D={D} {name}"
         errs["flash_attention"] = max(errs.get("flash_attention", 0.0),
                                       close_or_raise(
             torch, f"flash {shape}", kops.flash_attention(q, k, v,
                                                           scale=scale),
-            ref.flash_attention(q, k, v, scale), 2e-2, BF16_ROW_RMS))
+            ref.flash_attention(q, k, v, scale), tol, rms))
         rows.append(flash_time_row(torch, kops, ref, shape, q, k, v, scale))
         q, ck, cv = randn(B, 1, H1, D), randn(B, T, KV1, D), randn(B, T, KV1,
                                                                    D)
         lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
-        shape = f"{label} B={B} T={T} H={H1} KV={KV1} D={D} bf16"
+        shape = f"{label} B={B} T={T} H={H1} KV={KV1} D={D} {name}"
         errs["decode_attention"] = max(errs.get("decode_attention", 0.0),
                                        close_or_raise(
             torch, f"decode {shape}", kops.decode_attention(
                 q, ck, cv, lens, scale=scale),
-            ref.decode_attention(q, ck, cv, lens, scale), 2e-2,
-            BF16_ROW_RMS))
+            ref.decode_attention(q, ck, cv, lens, scale), tol, rms))
         rows.append(decode_time_row(torch, kops, ref, shape, q, ck, cv, lens,
                                     scale))
     for r in rows:
@@ -5786,7 +5855,7 @@ def main() -> int:
     w_rows = kv_write_phase(torch, kops, ref)
 
     # 4. small models, card against CPU
-    small_phase(torch)
+    small_launches = small_phase(torch, kops)
     fallback_small_phase(torch)
     smoke_serve_phase(torch)
     train_small_phase(torch)
@@ -5891,7 +5960,8 @@ def main() -> int:
              "src/repro/kernels/paged_attention.py:225")):
         geom, ctx, B = main_shape[kind]
         row = next(r for r in rows if r["case"] == geom
-                   and r["ctx"] == ctx and r["B"] == B)
+                   and r["ctx"] == ctx and r["B"] == B
+                   and r["dtype"] == "bfloat16")
         kernels.append({
             "name": name, "route": "cuda",
             "source": csrc + "paged_attention.cu",
@@ -5915,6 +5985,16 @@ def main() -> int:
                            else "row2_max_abs_err"],
             launches=lc["launches_row1" if kind == "gqa"
                         else "launches_row2"])
+        # the float32 body at the same geometry (16 KiB f32 pages), both
+        # contexts, and the float32 decode step of phase 4 that runs it
+        kernels[-1]["f32"] = dict(
+            rows=[{k: r[k] for k in ("ctx", "B", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "library")}
+                  for r in rows if r["case"] == geom
+                  and r["dtype"] == "float32"],
+            max_abs_err=errs[f"{kind}_float32"],
+            launches_small=small_launches[name])
     for name, source, replaces, shape in (
             ("flash_attention", "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:29",
@@ -5951,6 +6031,17 @@ def main() -> int:
                 dict(r, max_abs_err=sharded_serve["kernel_errs"][name])
                 for r in sharded_serve["kernel_rows"]
                 if r["kernel"] == name]
+            # the float32 body: the ranks' geometries and the float32
+            # serve runs' launches at one rank
+            kernels[-1]["f32"] = dict(
+                rows=[r for r in sharded_serve["kernel_rows"]
+                      + sharded_families["kernel_rows"]
+                      if r["kernel"] == name
+                      and r["shape"].endswith("float32")],
+                launches={run["label"]:
+                          run["one_rank"][f"launches_{part}"][name]
+                          for run in sharded_serve["runs"]
+                          if "float32" in run["label"]})
         # phase 17's runs: each arch and dtype at one rank (the Model
         # path, the cell), then each of the four ranks; and the ranks'
         # geometries
@@ -6019,6 +6110,12 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library": "torch._grouped_mm" if row["library_ms"] else None,
             "shape": train_shape})
+        if name == "moe_gemm_wgrad":
+            sk = next(r for r in m_rows if r["kernel"] == name
+                      and r["shape"] == train_shape
+                      and r["load"] == "gate/up skewed load")
+            kernels[-1]["skewed_load"] = {k: sk[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(

@@ -1,0 +1,178 @@
+#!/usr/bin/env python3
+"""The float32 decode and weight-gradient kernels of trees of this repo,
+timed on one card, alternated.
+
+    python3 kernel_ab.py PARENT . . PARENT [--loads build/chip_smoke.json]
+
+Each argument is a checkout of the repo (for example the parent commit
+unpacked with ``git archive`` into a directory under ``/tmp``).  For each,
+in the order given, a fresh process builds that tree's kernels into the
+tree's own ``build/`` and times, through its public wrappers, the float32
+calls the paths make: row 1 (paged GQA) at the long_context_pooling
+example's packed latent and at qwen3-moe's geometry, row 2 (paged MLA) at
+minicpm3's, row 3 (contiguous decode) at the sharded serve steps' rank
+geometries, and row 5w (the grouped GEMM's weight gradient) at phase 7's
+training shape under the skewed load and a router load (phase 7's first
+layer, read from ``--loads``, a ``chip_smoke.py`` report, else a seeded
+draw).  Inputs come from fixed seeds, so every tree sees the same ones.
+The timing is ``chip_smoke.py``'s (median of 20, L2 flushed, a spin
+ahead); each result is also held against the plain version (2e-5, or
+1e-4 for the weight gradient).  It prints one ``AB`` line per call and
+then each call's time per tree, and writes every figure, beside the
+card's name and power limit, to ``build/kernel_ab.json``.  Times
+move between cards and calls, so trees are compared only within one call.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+from collections import defaultdict
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+#: f32 pages of 16 KiB, as the pools hold them
+PAGE_ELEMS = 4096
+#: phase 16's serve shape: a 512-token prompt and 8 steps
+RANK_T = 520
+
+
+def _cases(torch, ref, kops, loads):
+    """(label, kernel call, plain call, tolerance) of every timed call."""
+    gen = torch.Generator(device="cuda").manual_seed(27)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def paged(B, ctx, per_tok, tpp, page_elems):
+        npages = math.ceil(ctx / tpp)
+        pool = randn(B * npages + 2, page_elems)
+        table = torch.randperm(B * npages + 2, generator=gen, device="cuda")[
+            :B * npages].reshape(B, npages).to(torch.int32)
+        lens = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+        return pool, table, lens
+
+    out = []
+    for label, B, ctx, H, KV, D, tpp in (
+            ("row 1 packed latent B=1 ctx 32768 H 40 KV 1 D 256", 1, 32768,
+             40, 1, 256, 28),
+            ("row 1 qwen3-moe B=4 ctx 1024 H 64 KV 4 D 128", 4, 1024, 64, 4,
+             128, PAGE_ELEMS // (2 * 4 * 128))):
+        per_tok = 2 * KV * D
+        pool, table, lens = paged(B, ctx, per_tok, tpp, tpp * per_tok)
+        q = randn(B, 1, H, D)
+        typed = pool.reshape(-1, tpp, 2, KV, D)
+        out.append((label, lambda q=q, pool=pool, table=table, lens=lens,
+                    tpp=tpp, KV=KV, D=D: kops.paged_decode_attention(
+                        q, pool, table, lens, tokens_per_page=tpp, n_kv=KV,
+                        scale=D ** -0.5),
+                    lambda q=q, typed=typed, table=table, lens=lens, D=D:
+                    ref.paged_decode_attention(q, typed, table, lens,
+                                               D ** -0.5), 2e-5))
+    r, rp, tpp = 256, 32, PAGE_ELEMS // 288
+    for ctx in (1024, 8192):
+        pool, table, lens = paged(4, ctx, r + rp, tpp, PAGE_ELEMS)
+        q = randn(4, 1, 40, r + rp)
+        typed = pool[:, :tpp * (r + rp)].reshape(-1, tpp, r + rp)
+        out.append((f"row 2 minicpm3 B=4 ctx {ctx} H 40 r 256 rp 32",
+                    lambda q=q, pool=pool, table=table, lens=lens:
+                    kops.paged_mla_decode_attention(
+                        q, pool, table, lens, tokens_per_page=tpp,
+                        latent_dim=r, scale=(r + rp) ** -0.5),
+                    lambda q=q, typed=typed, table=table, lens=lens:
+                    ref.paged_mla_decode_attention(q, typed, table, lens, r,
+                                                   (r + rp) ** -0.5), 2e-5))
+    for label, B, H, KV, D in (("qwen3-14b rank of (1,4)", 4, 10, 2, 128),
+                               ("moonshot whole heads", 2, 16, 16, 128),
+                               ("zamba2 rank of (1,4)", 4, 8, 8, 64),
+                               ("whisper rank of (1,4)", 4, 3, 3, 64)):
+        q, ck, cv = (randn(B, 1, H, D), randn(B, RANK_T, KV, D),
+                     randn(B, RANK_T, KV, D))
+        lens = torch.full((B,), RANK_T, dtype=torch.int32, device="cuda")
+        out.append((f"row 3 {label} B={B} T={RANK_T} H {H} KV {KV} D {D}",
+                    lambda q=q, ck=ck, cv=cv, lens=lens, D=D:
+                    kops.decode_attention(q, ck, cv, lens, scale=D ** -0.5),
+                    lambda q=q, ck=ck, cv=cv, lens=lens, D=D:
+                    ref.decode_attention(q, ck, cv, lens, D ** -0.5), 2e-5))
+    N, K, M, E = 24576, 2048, 1408, 64
+    x = randn(N, K)
+    dy = randn(N, M) * (E / N) ** 0.5
+    rest = int(N * 0.1) // (E - 1)
+    skewed = [rest] * E
+    skewed[E // 2] = N - rest * (E - 1)
+    for name, sizes in (("skewed load", skewed), ("router load", loads)):
+        gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        out.append((f"row 5w wgrad N={N} K={K} M={M} E={E} {name}",
+                    lambda gs=gs: kops.moe_gemm_wgrad(x, dy, gs),
+                    lambda gs=gs: ref.moe_gemm_wgrad(x, dy, gs), 1e-4))
+    return out
+
+
+def one(root: str, loads_path: str) -> None:
+    """Time this tree's kernels in this process; prints ``AB`` lines."""
+    sys.path.insert(0, str(Path(root).resolve() / "src"))
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs               # the timing harness of this tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()
+    if loads_path:
+        loads = json.loads(Path(loads_path).read_text())["train"]["loads"][0]
+    else:
+        rng = np.random.default_rng(7)
+        p = np.exp(rng.standard_normal(64))
+        loads = rng.multinomial(24576, p / p.sum()).tolist()
+    for label, call, plain, tol in _cases(torch, ref, kops, loads):
+        got, want = call().float(), plain().float()
+        err = (got - want).abs()
+        if not torch.isfinite(got).all() or (err > tol + tol * want.abs()
+                                             ).any():
+            raise AssertionError(f"{root} {label}: kernel disagrees with "
+                                 f"the plain version (max abs err "
+                                 f"{err.max().item():.3g}, tolerance {tol})")
+        print(f"AB {label} | {cs.time_ms(torch, call):.4f} ms "
+              f"err {err.max().item():.3g}", flush=True)
+
+
+def main(argv) -> int:
+    if argv[:1] == ["--one"]:
+        one(argv[1], argv[2])
+        return 0
+    loads = ""
+    if "--loads" in argv:
+        i = argv.index("--loads")
+        loads, argv = argv[i + 1], argv[:i] + argv[i + 2:]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    times = defaultdict(list)
+    for root in argv:
+        run = subprocess.run([sys.executable, __file__, "--one", root, loads],
+                             capture_output=True, text=True)
+        sys.stdout.write(run.stdout)
+        if run.returncode:
+            sys.stderr.write(run.stderr[-4000:])
+            return run.returncode
+        for line in run.stdout.splitlines():
+            if line.startswith("AB "):
+                label, rest = line[3:].split(" | ")
+                times[label].append((root, float(rest.split()[0])))
+    for label, runs in times.items():
+        print(f"{label}: " + ", ".join(f"{r} {ms:.4f}" for r, ms in runs))
+    out = HERE / "build"
+    out.mkdir(exist_ok=True)
+    (out / "kernel_ab.json").write_text(json.dumps(
+        {"card": card, "trees": argv, "ms": times}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

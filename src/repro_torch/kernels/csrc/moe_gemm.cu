@@ -67,12 +67,12 @@
 //     cp.async, chosen per call (kVec); empty experts get no tile; tiles
 //     and slices past N, K or M read zeros and write nothing.
 // Design of moe_gemm_wgrad (dw[e] = x[rows of e]^T @ dy[rows of e]):
-//   * grid (M tile, K tile, expert) of 128 x 128 dw tiles, from shapes
-//     alone; each block reads its expert's offsets and reduces over the
-//     expert's rows, so no tile straddles experts.  An expert with no rows
-//     writes its zero tile with no reduction loop;
-//   * bf16: 8 warps of 64 x 32 on mma.sync.m16n8k16 (f32 accumulation)
-//     over 64-row slices through a 3-stage ring (96 KB, two blocks per SM)
+//   * bf16: grid (M tile, K tile, expert) of 128 x 128 dw tiles, from
+//     shapes alone; each block reads its expert's offsets and reduces over
+//     the expert's rows, so no tile straddles experts.  An expert with no
+//     rows writes its zero tile with no reduction loop.  8 warps of
+//     64 x 32 on mma.sync.m16n8k16 (f32 accumulation) over 64-row slices
+//     through a 3-stage ring (96 KB, two blocks per SM)
 //     filled by 16-byte cp.async into XOR-swizzled shared memory, one
 //     barrier per slice.  Both operands lie with the reduction along rows
 //     (an x slice [64 rows x 128 k], a dy slice [64 rows x 128 m]), so both
@@ -89,10 +89,25 @@
 //     HBM3, 700 W): 0.4892 ms at layer 0's load against 0.6337 ms at the
 //     skewed load, where one expert's 176 tiles (each 346 slices) carry
 //     90% of the products on 132 SMs and the other tiles finish early;
-//   * f32 (phase 7's type) keeps the first design: one block per tile on
-//     CUDA cores, 8-deep synchronous slices, its row sum folded every 128
-//     rows into a per-thread column of shared memory (one running f32 sum
-//     over an expert holding 90% of 24576 rows missed the 1e-4 check);
+//   * f32 (phase 7's type): the unit of work is (dw tile, expert, row
+//     chunk).  Each expert's rows are cut into max(1, ceil(n_e / 1024))
+//     chunks, a work list the blocks build on the card as the forward's
+//     tiles (a warp scan of the per-expert chunk counts); the grid is
+//     (dw tiles, ceil(N / 1024) + E chunk slots), an upper bound from the
+//     shapes alone, and blocks past the list's end exit.  So a hot expert's
+//     rows spread over many blocks (the skewed load's 22119 rows: 22
+//     chunks of each of its 176 tiles) while a small expert pays one
+//     chunk.  A block reduces its chunk on CUDA cores (8 x 8 outputs a
+//     thread) through a 2-stage ring of 16-row slices filled by 16-byte
+//     cp.async, one barrier a slice, its sum folded every 128 rows into a
+//     per-thread column of shared memory (a running f32 sum over a whole
+//     1024-row chunk of unit-scale rows missed the 1e-4 check; the fold
+//     holds it), 97 KB a block, two blocks an SM.  The chunks of a tile
+//     then add into dw in chunk order: chunk 0 stores, chunk j waits for
+//     an int32 flag (zeroed by the wrapper) to read j, adds its sum to the
+//     stored tile (read from L2) and sets j + 1.  A chunk waits only on a
+//     lower slot, whose block started earlier, so the wait ends; there are
+//     no floating-point atomics, and two calls give the same bits;
 //   * rows that are not 16-byte multiples (bf16 rows of 72 or 260 bytes)
 //     take the guarded element loader and element stores, chosen per
 //     call as the forward does (kVec).
@@ -101,16 +116,19 @@
 // 20, L2 flushed): at the training shape and the router's load, f32
 // 4.12 ms forward and 4.02 ms dgrad (the first design: 6.31 / 5.77;
 // torch._grouped_mm 4.12 / 4.41), bf16 0.51 / 0.52 ms (7.28 / 6.06;
-// torch._grouped_mm 0.31 / 0.30).  The weight gradient: f32 4.04 ms
-// (torch._grouped_mm 4.18), bf16 0.49 ms (the first design: 4.43;
-// torch._grouped_mm 0.34).
+// torch._grouped_mm 0.31 / 0.30).  The weight gradient: bf16 0.49 ms (the
+// first design: 4.43; torch._grouped_mm 0.34); f32 (kernel_ab.py, the
+// same card, one call, the one-block-per-tile design in parentheses)
+// 3.2998 ms at a router load (4.0317) and 3.3752 ms at the skewed load
+// (5.7098; torch._grouped_mm 3.3124 there), bound 2.1154.
 //
 // ptxas (-Xptxas -v, sm_90a): moe_gemm_bf16_kernel 128 registers (bounded
 // for two blocks per SM), 96 KB of dynamic shared memory, no spills but 8
 // bytes in the forward's guarded-loader instance; moe_gemm_f32_kernel 167
 // registers (forward) and 244 / 252 (dgrad, guarded / cp.async), 60 KB of
-// dynamic shared memory, no spills; moe_gemm_wgrad_kernel (f32) 127
-// registers, 8.4 KB static and 64 KB dynamic shared memory, no spills;
+// dynamic shared memory, no spills; moe_gemm_wgrad_kernel (f32) 127 / 121
+// registers (guarded / cp.async), 97 KB of dynamic shared memory, no
+// spills;
 // moe_gemm_wgrad_bf16_kernel 128 registers, 96 KB of dynamic shared
 // memory, no spills (32 bytes in the guarded-loader instance).
 //
@@ -128,8 +146,6 @@ namespace {
 
 using tiles::bf16;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -142,14 +158,18 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// the expert-aligned tile schedule
+// the expert-aligned work lists, built on the card from the offsets
 // ---------------------------------------------------------------------------
 
 constexpr int kBM = 128;               // rows per tile (both routes)
 
-struct Tile {
-  int row0, rows, expert;              // expert == experts: rows past the
-};                                     // groups; -1: past the list's end
+// One unit of a work list: rows [row0, row0 + rows) of group `expert`
+// (expert == experts: the rows past the groups; -1: past the list's end),
+// the `index`-th unit of its group.
+struct Unit {
+  int row0, rows, expert, index;
+};
+using Tile = Unit;
 
 // Start of group g's rows: groups 0..E-1 are the experts, group E the
 // rows past offsets[E]; offsets are clamped into [0, rows].
@@ -160,24 +180,29 @@ __device__ __forceinline__ int group_start(const int* __restrict__ offsets,
   return min(max(__ldg(offsets + g), 0), rows);
 }
 
-// Row tile `tile` of the schedule, found by the block's first warp (each
-// lane sums the tile counts of a run of groups, a warp scan places the
-// runs) and broadcast through shared memory.
-__device__ Tile find_tile(const int* __restrict__ offsets, int experts,
-                          int rows, int tile) {
-  __shared__ int found[3];
+// Unit `unit` of the list that cuts each of the first `groups` groups, in
+// order, into runs of at most kRows rows: ceil(n / kRows) units a group,
+// at least one with kKeepEmpty (an empty group's unit has no rows).
+// Found by the block's first warp (each lane sums the unit counts of a
+// run of groups, a warp scan places the runs) and broadcast through
+// shared memory.
+template <int kRows, bool kKeepEmpty>
+__device__ Unit find_unit(const int* __restrict__ offsets, int experts,
+                          int rows, int groups, int unit) {
+  __shared__ int found[4];
+  auto units = [](int n) {
+    const int c = (n + kRows - 1) / kRows;
+    return kKeepEmpty ? max(1, c) : c;
+  };
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
-    const int groups = experts + 1;
     const int seg = (groups + 31) / 32;
     const int lo = min(lane * seg, groups), hi = min(lo + seg, groups);
     int count = 0;
-    for (int g = lo; g < hi; ++g) {
-      const int n = max(group_start(offsets, experts, rows, g + 1) -
-                            group_start(offsets, experts, rows, g),
-                        0);
-      count += (n + kBM - 1) / kBM;
-    }
+    for (int g = lo; g < hi; ++g)
+      count += units(max(group_start(offsets, experts, rows, g + 1) -
+                             group_start(offsets, experts, rows, g),
+                         0));
     int incl = count;
     for (int o = 1; o < 32; o <<= 1) {
       const int up = __shfl_up_sync(0xffffffffu, incl, o);
@@ -185,26 +210,34 @@ __device__ Tile find_tile(const int* __restrict__ offsets, int experts,
     }
     const int total = __shfl_sync(0xffffffffu, incl, 31);
     int base = incl - count;
-    if (tile >= base && tile < incl) {
+    if (unit >= base && unit < incl) {
       for (int g = lo; g < hi; ++g) {
         const int start = group_start(offsets, experts, rows, g);
         const int n =
             max(group_start(offsets, experts, rows, g + 1) - start, 0);
-        const int cnt = (n + kBM - 1) / kBM;
-        if (tile < base + cnt) {
-          const int r0 = start + (tile - base) * kBM;
-          found[0] = r0;
-          found[1] = min(kBM, start + n - r0);
+        if (unit < base + units(n)) {
+          const int j = unit - base;
+          found[0] = start + j * kRows;
+          found[1] = min(kRows, n - j * kRows);
           found[2] = g;
+          found[3] = j;
           break;
         }
-        base += cnt;
+        base += units(n);
       }
     }
-    if (lane == 0 && tile >= total) found[2] = -1;
+    if (lane == 0 && unit >= total) found[2] = -1;
   }
   __syncthreads();
-  return Tile{found[0], found[1], found[2]};
+  return Unit{found[0], found[1], found[2], found[3]};
+}
+
+// Row tile `tile` of the forward's schedule: each expert's rows cut into
+// 128-row tiles, experts in order, then the rows past offsets[E] (no tile
+// for an empty group).
+__device__ __forceinline__ Tile find_tile(const int* __restrict__ offsets,
+                                          int experts, int rows, int tile) {
+  return find_unit<kBM, false>(offsets, experts, rows, experts + 1, tile);
 }
 
 // Copy one 16-byte chunk (4 floats or 8 bf16) global -> shared: one
@@ -544,32 +577,72 @@ moe_gemm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 }  // namespace tcr
 
 // ---------------------------------------------------------------------------
-// weight gradient, f32: the first design
+// weight gradient, f32: each expert's rows cut into chunks, one block per
+// (dw tile, chunk), the chunks added in order
 // ---------------------------------------------------------------------------
 
 namespace wg {
 
-constexpr int kThreads = 256;          // 16 x 16 threads
-constexpr int kTile = 128;             // output tile edge
-constexpr int kDepth = 8;              // reduction depth staged per step
-constexpr int kLd = kTile + 4;         // staged row length (floats)
+constexpr int kThreads = 256;          // 16 x 16 threads, 8 x 8 outputs each
+constexpr int kTile = 128;             // dw tile edge (k and m)
+constexpr int kBR = 16;                // rows of the reduction per slice
+constexpr int kStages = 2;
+constexpr int kLd = kTile + 4;         // a staged row: [row][k or m]
+constexpr int kSlice = kBR * kLd;      // floats of one operand's slice
+constexpr int kStage = 2 * kSlice;
+constexpr int kRing = kStages * kStage;
 constexpr int kFold = 128;             // rows summed before each fold
+// the ring, then each thread's column of 64 folded sums: 97 KB, two
+// blocks an SM
+constexpr int kSmemBytes = (kRing + 64 * kThreads) * (int)sizeof(float);
+constexpr int kChunk = 1024;           // rows one block reduces, at most
+
+// Chunk `slot` of the work list: each expert's rows cut into max(1,
+// ceil(n_e / kChunk)) chunks, experts in order (an empty expert keeps one
+// chunk of no rows, which writes its zero tile); the rows past offsets[E]
+// are no expert's and get none.
+__device__ __forceinline__ Unit find_chunk(const int* __restrict__ offsets,
+                                           int experts, int rows, int slot) {
+  return find_unit<kChunk, true>(offsets, experts, rows, experts, slot);
+}
+
+// x rows [i0, i0 + 16) x columns [k0, k0 + 128) and the same dy rows x
+// columns [m0, m0 + 128), both as they lie (rows along the reduction);
+// rows at or past `end` and columns past the matrix read zeros.
+template <bool kVec>
+__device__ __forceinline__ void load_slice(
+    float* xs, float* ys, const float* __restrict__ x,
+    const float* __restrict__ dy, int i0, int end, int k0, int m0,
+    int k_dim, int m_dim) {
+#pragma unroll
+  for (int s = 0; s < kBR * kTile / 4 / kThreads; ++s) {
+    const int i = threadIdx.x + s * kThreads;   // 16 rows x 32 chunks
+    const int r = i >> 5, cc = (i & 31) * 4;
+    const bool ok = i0 + r < end;
+    const long long row = ok ? i0 + r : 0;
+    copy16<kVec>(xs + r * kLd + cc, x + row * k_dim + k0 + cc, x, ok,
+                 k0 + cc, k_dim);
+    copy16<kVec>(ys + r * kLd + cc, dy + row * m_dim + m0 + cc, dy, ok,
+                 m0 + cc, m_dim);
+  }
+}
 
 __device__ __forceinline__ int micro(int t, int i) {
   return (i < 4 ? 0 : 60) + t * 4 + i;
 }
 
 // acc[i][j] += sum_p a[p][micro(ty, i)] * b[p][micro(tx, j)]
-__device__ __forceinline__ void multiply(const float (*a)[kLd],
-                                         const float (*b)[kLd],
+__device__ __forceinline__ void multiply(const float* a, const float* b,
                                          float (&acc)[8][8], int ty,
                                          int tx) {
 #pragma unroll
-  for (int p = 0; p < kDepth; ++p) {
-    const float4 a0 = *reinterpret_cast<const float4*>(&a[p][ty * 4]);
-    const float4 a1 = *reinterpret_cast<const float4*>(&a[p][64 + ty * 4]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&b[p][tx * 4]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&b[p][64 + tx * 4]);
+  for (int p = 0; p < kBR; ++p) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a + p * kLd + ty * 4);
+    const float4 a1 =
+        *reinterpret_cast<const float4*>(a + p * kLd + 64 + ty * 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(b + p * kLd + tx * 4);
+    const float4 b1 =
+        *reinterpret_cast<const float4*>(b + p * kLd + 64 + tx * 4);
     const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
     const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -579,24 +652,52 @@ __device__ __forceinline__ void multiply(const float (*a)[kLd],
   }
 }
 
-// dw [E,K,M]: dw[e] = x[rows of e]^T @ dy[rows of e]; x [N,K], dy [N,M].
-template <typename T>
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// Grid (dw tile, chunk slot): ceil(N / kChunk) + E slots, an upper bound
+// from the shapes alone; blocks past the list's end exit.  A block reduces
+// its chunk's rows through a 2-stage ring of 16-row slices (16-byte
+// cp.async, one barrier a slice; two blocks an SM overlap each other's
+// copies), folding every 128 rows, then adds its sum into the dw tile in
+// chunk order: chunk 0 stores it, chunk j waits until flags[e][tile] = j
+// (chunk j - 1 has stored), adds its sum to the stored tile (read from
+// L2) and sets the flag to j + 1.  A chunk waits only on one of a lower
+// slot, whose block started earlier, so the wait always ends; the sum is
+// ((c0 + c1) + c2) + ... in every call, with no floating-point atomics.
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-moe_gemm_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                      const int* __restrict__ offsets, T* __restrict__ dw,
-                      int rows, int k_dim, int m_dim) {
-  // as[p][r] = x[i0 + p][k0 + r], bs[p][c] = dy[i0 + p][m0 + c]
-  __shared__ __align__(16) float as[kDepth][kLd];
-  __shared__ __align__(16) float bs[kDepth][kLd];
+moe_gemm_wgrad_kernel(const float* __restrict__ x,
+                      const float* __restrict__ dy,
+                      const int* __restrict__ offsets, float* __restrict__ dw,
+                      int* __restrict__ flags, int rows, int k_dim,
+                      int m_dim, int experts) {
+  extern __shared__ __align__(16) float smem[];
+  const Unit c = find_chunk(offsets, experts, rows, blockIdx.y);
+  if (c.expert < 0) return;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.x * kTile, k0 = blockIdx.y * kTile;
-  const int e = blockIdx.z;
-  const int start = max(offsets[e], 0), end = min(offsets[e + 1], rows);
+  const int tiles_m = (m_dim + kTile - 1) / kTile;
+  const int m0 = (blockIdx.x % tiles_m) * kTile;
+  const int k0 = (blockIdx.x / tiles_m) * kTile;
+  const int end = c.row0 + c.rows;
+  const int n_s = (c.rows + kBR - 1) / kBR;    // 0: a zero tile
   // sums of 128 rows at a time in acc, folded into this thread's column
-  // of `total` (shared memory, so the registers stay as they were): one
-  // f32 sum over an expert of ~20k rows lost ~2e-4 against the plain
-  // version
-  extern __shared__ float total[];     // [64][kThreads]
+  // of `total` (shared memory, so that two blocks still share an SM): a
+  // running f32 sum over a whole chunk of unit-scale rows missed the
+  // 1e-4 check
+  float* total = smem + kRing;         // [64][kThreads]
+
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -606,8 +707,15 @@ moe_gemm_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
       total[(i * 8 + j) * kThreads + tid] = 0.f;
     }
 
-  for (int i0 = start; i0 < end; i0 += kDepth) {
-    if (i0 > start && ((i0 - start) & (kFold - 1)) == 0) {
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_s)
+      load_slice<kVec>(smem + st * kStage, smem + st * kStage + kSlice, x,
+                       dy, c.row0 + st * kBR, end, k0, m0, k_dim, m_dim);
+    tiles::cp_async_commit();
+  }
+  for (int s = 0; s < n_s; ++s) {
+    if (s > 0 && s % (kFold / kBR) == 0) {
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -616,37 +724,62 @@ moe_gemm_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
           acc[i][j] = 0.f;
         }
     }
-    __syncthreads();
-#pragma unroll
-    for (int s = 0; s < kDepth * kTile / kThreads; ++s) {
-      const int idx = tid + s * kThreads;
-      const int c = idx % kTile, p = idx / kTile;
-      const int row = i0 + p;
-      const bool live = row < end;
-      as[p][c] = (live && k0 + c < k_dim)
-                     ? to_f32(x[(long long)row * k_dim + k0 + c])
-                     : 0.f;
-      bs[p][c] = (live && m0 + c < m_dim)
-                     ? to_f32(dy[(long long)row * m_dim + m0 + c])
-                     : 0.f;
+    tiles::cp_async_wait<kStages - 2>();   // slice s arrived
+    __syncthreads();                       // ... for all; s - 1 consumed
+    const int ns = s + kStages - 1;
+    if (ns < n_s) {
+      float* st = smem + (ns % kStages) * kStage;
+      load_slice<kVec>(st, st + kSlice, x, dy, c.row0 + ns * kBR, end, k0,
+                       m0, k_dim, m_dim);
     }
-    __syncthreads();
-    multiply(as, bs, acc, ty, tx);
+    tiles::cp_async_commit();
+    const float* xs = smem + (s % kStages) * kStage;
+    multiply(xs, xs + kSlice, acc, ty, tx);
   }
+  tiles::cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      acc[i][j] += total[(i * 8 + j) * kThreads + tid];
 
-  T* dwe = dw + (long long)e * k_dim * m_dim;
+  float* dwe = dw + (long long)c.expert * k_dim * m_dim;
+  int* flag = flags + (long long)c.expert * gridDim.x + blockIdx.x;
+  if (c.index > 0) {                   // chunk index - 1 has stored
+    if (tid == 0)
+      while (load_acquire(flag) != c.index) {
+      }
+    __syncthreads();
+  }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int k = k0 + micro(ty, i);
     if (k >= k_dim) continue;
+    float* row = dwe + (long long)k * m_dim + m0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int m = m0 + micro(tx, j);
-      if (m < m_dim)
-        dwe[(long long)k * m_dim + m] =
-            from_f32<T>(total[(i * 8 + j) * kThreads + tid] + acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      const int col = h * 64 + tx * 4;
+      float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                    acc[i][4 * h + 3]};
+      if (kVec && m0 + col + 3 < m_dim) {
+        if (c.index > 0) {
+          const float4 p = __ldcg(reinterpret_cast<const float4*>(row + col));
+          v[0] = p.x + v[0], v[1] = p.y + v[1], v[2] = p.z + v[2],
+          v[3] = p.w + v[3];
+        }
+        *reinterpret_cast<float4*>(row + col) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (m0 + col + e < m_dim)
+            row[col + e] = c.index > 0 ? __ldcg(row + col + e) + v[e] : v[e];
+      }
     }
   }
+  __threadfence();
+  __syncthreads();                     // the whole tile is stored
+  if (tid == 0) store_release(flag, c.index + 1);
 }
 
 }  // namespace wg
@@ -845,37 +978,43 @@ int launch_gemm(const void* x, const void* w, const int* offsets, void* out,
   return fn(x, w, offsets, out, rows, k_in, m_out, experts, stream);
 }
 
-template <typename T>
-using WgradKernel = void (*)(const T*, const T*, const int*, T*, int, int,
-                             int);
-
-template <typename T>
-int launch_wgrad(const void* x, const void* dy, const int* offsets, void* dw,
-                 int rows, int k_dim, int m_dim, int experts,
-                 cudaStream_t stream) {
-  static_assert(wg::kTile == wgt::kTile, "one grid for both routes");
-  const dim3 grid((m_dim + wg::kTile - 1) / wg::kTile,
-                  (k_dim + wg::kTile - 1) / wg::kTile, experts);
-  WgradKernel<T> fn;
-  int smem, threads;
-  if constexpr (sizeof(T) == 4) {
-    fn = wg::moe_gemm_wgrad_kernel<T>;
-    smem = 64 * wg::kThreads * (int)sizeof(float);
-    threads = wg::kThreads;
-  } else {
-    const bool vec = aligned16(x) && aligned16(dy) && aligned16(dw) &&
-                     k_dim % 8 == 0 && m_dim % 8 == 0;
-    fn = vec ? wgt::moe_gemm_wgrad_bf16_kernel<true>
-             : wgt::moe_gemm_wgrad_bf16_kernel<false>;
-    smem = wgt::kSmemBytes;
-    threads = wgt::kThreads;
-  }
+// The f32 weight gradient's grid: (dw tiles, ceil(rows / kChunk) + E
+// chunk slots); flags [E, dw tiles] int32, zero on entry.
+int launch_wgrad_f32(const void* x, const void* dy, const int* offsets,
+                     void* dw, int* flags, int rows, int k_dim, int m_dim,
+                     int experts, cudaStream_t stream) {
+  const bool vec = aligned16(x) && aligned16(dy) && aligned16(dw) &&
+                   k_dim % 4 == 0 && m_dim % 4 == 0;
+  auto* fn = vec ? wg::moe_gemm_wgrad_kernel<true>
+                 : wg::moe_gemm_wgrad_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  fn<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), offsets,
-      static_cast<T*>(dw), rows, k_dim, m_dim);
+  const dim3 grid(((m_dim + wg::kTile - 1) / wg::kTile) *
+                      ((k_dim + wg::kTile - 1) / wg::kTile),
+                  (rows + wg::kChunk - 1) / wg::kChunk + experts);
+  fn<<<grid, wg::kThreads, wg::kSmemBytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy), offsets,
+      static_cast<float*>(dw), flags, rows, k_dim, m_dim, experts);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 weight gradient's grid: (M tile, K tile, expert).
+int launch_wgrad_bf16(const void* x, const void* dy, const int* offsets,
+                      void* dw, int rows, int k_dim, int m_dim, int experts,
+                      cudaStream_t stream) {
+  const bool vec = aligned16(x) && aligned16(dy) && aligned16(dw) &&
+                   k_dim % 8 == 0 && m_dim % 8 == 0;
+  auto* fn = vec ? wgt::moe_gemm_wgrad_bf16_kernel<true>
+                 : wgt::moe_gemm_wgrad_bf16_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, wgt::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((m_dim + wgt::kTile - 1) / wgt::kTile,
+                  (k_dim + wgt::kTile - 1) / wgt::kTile, experts);
+  fn<<<grid, wgt::kThreads, wgt::kSmemBytes, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dy), offsets,
+      static_cast<bf16*>(dw), rows, k_dim, m_dim);
   return (int)cudaGetLastError();
 }
 
@@ -902,18 +1041,21 @@ extern "C" int moe_gemm(const void* x, const void* w, const void* offsets,
 }
 
 // dw [E, k, m] = per expert x[rows of e]^T @ dy[rows of e]; x [rows, k],
-// dy [rows, m].  dtype: 0 = float32, 1 = bfloat16.
+// dy [rows, m].  dtype: 0 = float32, 1 = bfloat16.  flags: float32 only,
+// [E, ceil(k / 128) * ceil(m / 128)] int32, all 0 on entry (the chunks'
+// order of addition; left at each tile's chunk count).
 extern "C" int moe_gemm_wgrad(const void* x, const void* dy,
-                              const void* offsets, void* dw, int rows,
-                              int k, int m, int experts, int dtype,
+                              const void* offsets, void* dw, void* flags,
+                              int rows, int k, int m, int experts, int dtype,
                               void* stream) {
   if (rows < 0 || k <= 0 || m <= 0 || experts <= 0)
     return (int)cudaErrorInvalidValue;
   const int* off = static_cast<const int*>(offsets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_wgrad<float>(x, dy, off, dw, rows, k, m, experts, s);
+  if (dtype == 0 && flags != nullptr)
+    return launch_wgrad_f32(x, dy, off, dw, static_cast<int*>(flags), rows,
+                            k, m, experts, s);
   if (dtype == 1)
-    return launch_wgrad<bf16>(x, dy, off, dw, rows, k, m, experts, s);
+    return launch_wgrad_bf16(x, dy, off, dw, rows, k, m, experts, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,13 +1,11 @@
 // Decode attention for Hopper (sm_90a): paged GQA, paged absorbed MLA and
 // GQA over a contiguous cache.
 //
-// Replaces the Pallas TPU kernels of src/repro/kernels/paged_attention.py:
-//   * paged_gqa_decode_bf16 / _f32       <- _paged_kernel      (:121,
-//                                           pallas_call :203)
-//   * paged_mla_decode_bf16 / _f32       <- _paged_mla_kernel  (:225,
-//                                           pallas_call :304)
-//   * contiguous_gqa_decode_bf16 / _f32  <- _decode_kernel     (:35,
-//                                           pallas_call :110)
+// Replaces the Pallas TPU kernels of src/repro/kernels/paged_attention.py
+// (each entry point takes float32 or bfloat16 through a dtype code):
+//   * paged_gqa_decode       <- _paged_kernel      (:121, pallas_call :203)
+//   * paged_mla_decode       <- _paged_mla_kernel  (:225, pallas_call :304)
+//   * contiguous_gqa_decode  <- _decode_kernel     (:35, pallas_call :110)
 //
 // What they compute (one new token per sequence):
 //   s(t)  = (q * scale) . k_t       for t < length
@@ -43,11 +41,14 @@
 //   28 tokens a 16 KiB page) at B = 4, context 1024: 2.4 MB, 0.7 us, at
 //   context 8192: 18.9 MB, 5.6 us.
 //
-// What the first GQA design lost: one block per (kv head, batch
-// row) walked the whole context, so qwen3-moe ran 16 blocks at B = 4 and
-// 4 at B = 1 on 132 SMs; every tile was staged through registers into f32
-// shared memory with no copy overlapping math, and scores and P.V were
-// scalar loops over shared memory: 0.35 ms at B = 4, ~140x its bound.
+// What the first design lost (it served every dtype at first, float32
+// alone later, and is gone): one block per (kv head, batch row) walked the
+// whole context, so qwen3-moe ran 16 blocks at B = 4 and 4 at B = 1 on
+// 132 SMs, and the long_context_pooling example's packed latent (40 heads
+// on one kv head) ran ONE block for 32768 tokens; every tile was staged
+// through registers into f32 shared memory with no copy overlapping math,
+// and scores and P.V were scalar loops over shared memory: 0.35 ms at
+// B = 4, ~140x its bound, and 39.60 ms for the packed latent.
 //
 // bf16 GQA route (split namespace), flash-decoding:
 //   * grid (kv head x head group, batch row, split).  The split count comes
@@ -114,12 +115,42 @@
 //   20, L2 flushed): minicpm3 0.0174 / 0.0203 ms at context 1024, B = 1 /
 //   4, and 0.0247 / 0.0347 ms at 8192 (the first design: 0.35 / 0.35 /
 //   2.65 / 2.65 ms).
-// f32 GQA and f32 MLA: the first design (paged_decode_block), one block
-// per (kv head or group of 8 MLA heads, batch row) over the whole
-// context, f32 tiles in shared memory, CUDA cores; it holds the card
-// against the CPU at 2e-5.  Its bf16 MLA instance ran minicpm3 at 0.3455
-// ms (B = 4, context 1024) and 2.63 ms (context 8192, B = 1 and 4): 5 or
-// 20 blocks on 132 SMs, time linear in the context.
+// f32 route (f32 namespace), the same flash-decoding for paged GQA,
+// contiguous GQA and paged MLA alike, on CUDA cores (FFMA, no TF32: the
+// card holds the CPU at 2e-5):
+//   * grid (kv head x head group, batch row, split); the split plan is the
+//     bf16 GQA route's (kernels/paged_attention.py split_plan) with 1, 4 or
+//     16 query heads a block.  MLA is one kv head for all H heads: its key
+//     row is the token's whole row (r + rp), its value the latent prefix of
+//     the same staged row, read once.  A group past 16 takes several
+//     blocks (the packed latent's 40 heads: three of 16), each staging the
+//     KV for its rows; the three read one split's rows together, so the
+//     re-reads mostly hit L2.  The partials merge in merge_splits_kernel
+//     <float>, the bf16 route's merge templated on the output;
+//   * a ring of f32 rows filled by 16-byte cp.async.cg: TT tokens a stage
+//     (64; 32 at D = 128 and MLA's 288; 16 at D = 256: a stage holds at
+//     most 36 KB), 3 stages where two blocks still share an SM, else 2;
+//     each thread copies its own token's chunks, so its page id is read
+//     once a sub-tile, one sub-tile ahead; tokens past the length or on
+//     pages < 0 are zero-filled and never read;
+//   * scores: KW = 128 / TT lanes a token, each over KD / KW elements (16-
+//     byte chunks p + KW j), q read from shared memory (one address across
+//     the warp's tokens: a broadcast), summed by shuffles; the online
+//     softmax takes a warp per row over P in shared memory; P.V gives each
+//     thread 4 columns of R rows, the tokens split over 128 / (VD / 4)
+//     groups whose sums meet through shuffles and the drained ring;
+//   * registers: q lives in shared memory, never in registers, so a thread
+//     holds R x 4 accumulators and R scores whatever the key width: at
+//     R = 16, 136-162 registers for every width, D = 256 and MLA's 288
+//     included (two blocks of 128 threads an SM); 40-72 at R <= 4.
+//   Times (kernel_ab.py, NVIDIA H100 80GB HBM3 at 700 W, median of 20, L2
+//   flushed; the first design in the same call in parentheses): the
+//   packed latent (B = 1, context 32768, H 40 / KV 1, D = 256) 0.1313 ms
+//   (39.6013), bound 0.0201; minicpm3 MLA at B = 4, context 1024 / 8192:
+//   0.0376 / 0.1245 ms (0.3253 / 2.5407); qwen3-moe paged at B = 4,
+//   context 1024: 0.0287 (0.3209); contiguous at the sharded ranks' heads
+//   (B = 4, T = 520): qwen3-14b H 10 / KV 2 0.0201 (0.1097), zamba2
+//   H 8 / KV 8 0.0174 (0.0626), whisper H 3 / KV 3 0.0130 (0.0612).
 //
 // ptxas (-Xptxas -v, sm_90a): no stack and no
 // spills in any kernel.  split_decode_kernel<D, R> registers:
@@ -135,11 +166,21 @@
 // blocks fit an SM at D = 128, one at 256).  gemma3 (D = 256, G = 2,
 // chip_smoke.py phase 12, NVIDIA H100 80GB HBM3, 700 W): 0.0810 ms at
 // B = 4 over its 4096-token global cache (bound 0.0401), 0.0332 ms over
-// a full 1024-slot ring (bound 0.0100).  merge_splits_kernel and mla_merge_splits_kernel: 32
-// registers.  mla_split_decode_kernel<r, rp>: 125 / 67 / 48 registers at
-// (256, 32) / (64, 16) / (16, 8); dynamic shared memory 86 / 27.5 / 14 KB
-// (ring, q, P, row maxima and sums).  The first design (f32 only now): 40
-// (scalar) / 64 (16-byte) registers.
+// a full 1024-slot ring (bound 0.0100).  merge_splits_kernel and
+// mla_merge_splits_kernel: 32 registers.  mla_split_decode_kernel<r, rp>:
+// 125 / 67 / 48 registers at (256, 32) / (64, 16) / (16, 8); dynamic
+// shared memory 86 / 27.5 / 14 KB (ring, q, P, row maxima and sums).
+// f32_split_decode_kernel<KD, VD, prefix, R> registers:
+//            R = 16   R = 4   R = 1     shared memory at R = 16
+//   D = 256     158      72      52     81 KB (2 stages of 16 tokens)
+//   D = 128     160      72      48     79 KB (2 stages of 32)
+//   D =  64     162      72      44    111 KB (3 stages of 64)
+//   D =  32     156      64      41     61 KB
+//   D =  16     144      60      40     49 KB
+//   D =   8     136      48      40     17 KB
+//   MLA 288     155      62      58     97 KB (2 stages of 32)
+//   MLA  80     152      67      43     89 KB
+//   MLA  24     152      62      42     37 KB
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o libpaged_attention.so paged_attention.cu
@@ -154,334 +195,7 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// The first design: f32 GQA and MLA
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 8;               // loads in flight per thread
-constexpr int kMlaHeadsPerBlock = 8;
-constexpr int kMaxTile = 64;             // tokens per tile
-constexpr int kSmemLimit = 200 * 1024;   // of the 227 KB a block may use
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-
-// VEC elements loaded by one instruction (16 bytes when VEC * sizeof(T)
-// is 16 and every row start is 16-byte aligned; else one element).
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
-
-// Where one block finds its query heads and its key / value rows.
-struct Geometry {
-  int heads;            // query heads of the layer (H)
-  int heads_per_block;  // query heads one block serves
-  int k_dim;            // key row length: the score dot product
-  int v_dim;            // value row length: the output width
-  int k_base;           // key row offset in a token: k_base + bx * k_step
-  int k_step;
-  int v_base;           // value row offset in a token: v_base + bx * v_step
-  int v_step;
-  int kv_shared;        // 1: the value row is the key row's prefix (MLA)
-  int tokens_per_page;
-  int per_tok;          // elements one token occupies in a page
-  long long page_elems;
-  int max_pages;        // page table width
-  int tile;             // tokens per tile (<= kMaxTile)
-  float q_scale;        // q * q_scale, rounded to T, before the dot
-};
-
-// q and key rows sit in shared memory with one float of padding, so the
-// threads of a warp (consecutive tokens, or heads) hit distinct banks.
-__host__ __device__ inline int row_stride(int dim) { return dim + 1; }
-
-// Shared memory (floats) one block needs; the host computes the same sum.
-__host__ __device__ inline int smem_floats(const Geometry& g) {
-  const int hpb = g.heads_per_block, tt = g.tile;
-  const int ks = row_stride(g.k_dim);
-  return hpb * ks + tt * ks + (g.kv_shared ? 0 : tt * g.v_dim) +
-         hpb * g.v_dim + hpb * tt + 3 * hpb + tt;
-}
-
-// Copy `dim` elements at offset `off` of every token of the tile into
-// dst[t * stride + ...] as f32 (zeros for tokens whose page is -1).
-template <typename T, int VEC>
-__device__ __forceinline__ void load_rows(
-    float* __restrict__ dst, int stride, const T* __restrict__ pool,
-    const int* __restrict__ tile_page, int t0, int dim, int off,
-    const Geometry& g) {
-  using P = Pack<T, VEC>;
-  const int vecs = dim / VEC;
-  const int units = g.tile * vecs;
-  for (int base = threadIdx.x; base < units; base += kThreads * kUnroll) {
-    P regs[kUnroll];
-#pragma unroll
-    for (int j = 0; j < kUnroll; ++j) {
-      const int u = base + j * kThreads;
-      int page = -1, t = 0, vj = 0;
-      if (u < units) {
-        t = u / vecs;
-        vj = u - t * vecs;
-        page = tile_page[t];
-      }
-      if (page >= 0) {
-        const size_t slot = (size_t)((t0 + t) % g.tokens_per_page);
-        regs[j] = *reinterpret_cast<const P*>(
-            pool + (size_t)page * g.page_elems + slot * g.per_tok + off +
-            vj * VEC);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) regs[j].v[e] = from_f32<T>(0.f);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kUnroll; ++j) {
-      const int u = base + j * kThreads;
-      if (u < units) {
-        const int t = u / vecs;
-        float* row = dst + t * stride + (u - t * vecs) * VEC;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) row[e] = to_f32(regs[j].v[e]);
-      }
-    }
-  }
-}
-
-// `kpool` holds the key rows and `vpool` the value rows (the same pool
-// for the paged kernels); a null `table` means page id = batch row.
-template <typename T, int VEC>
-__device__ __forceinline__ void paged_decode_block(
-    const T* __restrict__ q, const T* __restrict__ kpool,
-    const T* __restrict__ vpool, const int* __restrict__ table,
-    const int* __restrict__ lengths, T* __restrict__ out,
-    const Geometry& g) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.y;
-  const int hpb = g.heads_per_block, tt = g.tile;
-  const int h0 = blockIdx.x * hpb;
-  const int nh = min(hpb, g.heads - h0);
-  const int k_stride = row_stride(g.k_dim);
-  const int v_stride = g.kv_shared ? k_stride : g.v_dim;
-
-  float* qs = smem;                                        // [hpb][k_stride]
-  float* ks = qs + hpb * k_stride;                         // [tt][k_stride]
-  float* vs = g.kv_shared ? ks : ks + tt * k_stride;       // [tt][v_stride]
-  float* acc = ks + tt * k_stride + (g.kv_shared ? 0 : tt * g.v_dim);
-  float* sc = acc + hpb * g.v_dim;                         // [hpb][tt]
-  float* m = sc + hpb * tt;
-  float* l = m + hpb;
-  float* alpha = l + hpb;
-  int* tile_page = reinterpret_cast<int*>(alpha + hpb);    // [tt]
-
-  const int length = min(lengths[b], g.max_pages * g.tokens_per_page);
-  for (int i = tid; i < hpb * g.k_dim; i += kThreads) {
-    const int hh = i / g.k_dim, d = i % g.k_dim;
-    qs[hh * k_stride + d] = hh < nh
-        ? to_f32(from_f32<T>(
-              to_f32(q[((size_t)b * g.heads + h0 + hh) * g.k_dim + d]) *
-              g.q_scale))
-        : 0.f;
-  }
-  for (int i = tid; i < hpb * g.v_dim; i += kThreads) acc[i] = 0.f;
-  for (int i = tid; i < hpb; i += kThreads) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-  }
-
-  const int k_off = g.k_base + blockIdx.x * g.k_step;
-  const int v_off = g.v_base + blockIdx.x * g.v_step;
-  for (int t0 = 0; t0 < length; t0 += tt) {
-    // the tile's page ids: -1 for unmapped pages and positions >= length
-    for (int t = tid; t < tt; t += kThreads) {
-      const int pos = t0 + t;
-      tile_page[t] = pos >= length ? -1
-          : table ? table[(size_t)b * g.max_pages + pos / g.tokens_per_page]
-                  : b;
-    }
-    __syncthreads();
-    load_rows<T, VEC>(ks, k_stride, kpool, tile_page, t0, g.k_dim, k_off, g);
-    if (!g.kv_shared)
-      load_rows<T, VEC>(vs, v_stride, vpool, tile_page, t0, g.v_dim, v_off,
-                        g);
-    __syncthreads();
-
-    // scores: one thread per (head, token) pair, four partial sums
-    for (int pr = tid; pr < hpb * tt; pr += kThreads) {
-      const int hh = pr / tt, t = pr - hh * tt;
-      float s = kNegInf;
-      if (tile_page[t] >= 0) {
-        const float* qr = qs + hh * k_stride;
-        const float* kr = ks + t * k_stride;
-        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-        int d = 0;
-        for (; d + 4 <= g.k_dim; d += 4) {
-          s0 += qr[d] * kr[d];
-          s1 += qr[d + 1] * kr[d + 1];
-          s2 += qr[d + 2] * kr[d + 2];
-          s3 += qr[d + 3] * kr[d + 3];
-        }
-        for (; d < g.k_dim; ++d) s0 += qr[d] * kr[d];
-        s = (s0 + s1) + (s2 + s3);
-      }
-      sc[hh * tt + t] = s;
-    }
-    __syncthreads();
-
-    // online-softmax statistics: one warp per head, lanes over the tile
-    for (int hh = warp; hh < hpb; hh += kWarps) {
-      float* row = sc + hh * tt;
-      const float m_prev = m[hh];
-      float m_cur = m_prev;
-      for (int t = lane; t < tt; t += 32) m_cur = fmaxf(m_cur, row[t]);
-      for (int o = 16; o > 0; o >>= 1)
-        m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, o));
-      float sum = 0.f;
-      for (int t = lane; t < tt; t += 32) {
-        const float e = tile_page[t] >= 0 ? expf(row[t] - m_cur) : 0.f;
-        row[t] = e;
-        sum += e;
-      }
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float a = expf(m_prev - m_cur);
-        l[hh] = l[hh] * a + sum;
-        m[hh] = m_cur;
-        alpha[hh] = a;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < hpb * g.v_dim; i += kThreads) {
-      const int hh = i / g.v_dim, d = i - hh * g.v_dim;
-      const float* pr = sc + hh * tt;
-      const float* vc = vs + d;
-      float a0 = 0.f, a1 = 0.f;
-      int t = 0;
-      for (; t + 2 <= tt; t += 2) {
-        a0 += pr[t] * vc[t * v_stride];
-        a1 += pr[t + 1] * vc[(t + 1) * v_stride];
-      }
-      if (t < tt) a0 += pr[t] * vc[t * v_stride];
-      acc[i] = acc[i] * alpha[hh] + (a0 + a1);
-    }
-    __syncthreads();
-  }
-  __syncthreads();     // l is complete even when no tile ran (length 0)
-
-  for (int i = tid; i < nh * g.v_dim; i += kThreads) {
-    const int hh = i / g.v_dim, d = i % g.v_dim;
-    const float lv = l[hh];
-    out[((size_t)b * g.heads + h0 + hh) * g.v_dim + d] =
-        from_f32<T>(lv == 0.f ? 0.f : acc[i] / lv);
-  }
-}
-
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-paged_gqa_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                        const T* __restrict__ vpool,
-                        const int* __restrict__ table,
-                        const int* __restrict__ lengths, T* __restrict__ out,
-                        const Geometry g) {
-  paged_decode_block<T, VEC>(q, kpool, vpool, table, lengths, out, g);
-}
-
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-paged_mla_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                        const T* __restrict__ vpool,
-                        const int* __restrict__ table,
-                        const int* __restrict__ lengths, T* __restrict__ out,
-                        const Geometry g) {
-  paged_decode_block<T, VEC>(q, kpool, vpool, table, lengths, out, g);
-}
-
-template <typename T>
-using KernelFn = void (*)(const T*, const T*, const T*, const int*,
-                          const int*, T*, const Geometry);
-
-// Largest tile whose shared memory fits the limit.
-inline int pick_tile(Geometry g) {
-  for (g.tile = kMaxTile; g.tile > 1; g.tile /= 2)
-    if (sizeof(float) * (size_t)smem_floats(g) <= (size_t)kSmemLimit) break;
-  return g.tile;
-}
-
-template <typename T>
-bool vectorizable(const void* kpool, const void* vpool, const Geometry& g) {
-  constexpr int vec = 16 / sizeof(T);
-  const long long elems[] = {g.k_dim, g.v_dim, g.k_base, g.k_step, g.v_base,
-                             g.v_step, g.per_tok, g.page_elems};
-  for (long long e : elems)
-    if (e % vec) return false;
-  return reinterpret_cast<uintptr_t>(kpool) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(vpool) % 16 == 0;
-}
-
-template <typename T>
-int launch(KernelFn<T> kernel, const void* q, const void* kpool,
-           const void* vpool, const int* table, const int* lengths,
-           void* out, int batch, int grid_x, const Geometry& g,
-           cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * (size_t)smem_floats(g);
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<dim3(grid_x, batch), kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kpool),
-      static_cast<const T*>(vpool), table, lengths, static_cast<T*>(out), g);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, bool kMla>
-int dispatch(const void* q, const void* kpool, const void* vpool,
-             const int* table, const int* lengths, void* out, int batch,
-             int grid_x, Geometry g, cudaStream_t stream) {
-  constexpr int vec = 16 / sizeof(T);
-  g.tile = pick_tile(g);
-  if (vectorizable<T>(kpool, vpool, g))
-    return launch<T>(kMla ? paged_mla_decode_kernel<T, vec>
-                          : paged_gqa_decode_kernel<T, vec>,
-                     q, kpool, vpool, table, lengths, out, batch, grid_x, g,
-                     stream);
-  return launch<T>(kMla ? paged_mla_decode_kernel<T, 1>
-                        : paged_gqa_decode_kernel<T, 1>,
-                   q, kpool, vpool, table, lengths, out, batch, grid_x, g,
-                   stream);
-}
-
-// GQA geometry shared by the paged and the contiguous entry points.
-Geometry gqa_geometry(int heads, int kv_heads, int head_dim,
-                      float scale) {
-  Geometry g;
-  g.heads = heads;
-  g.heads_per_block = heads / kv_heads;
-  g.k_dim = head_dim;
-  g.v_dim = head_dim;
-  g.k_base = 0;
-  g.k_step = head_dim;
-  g.v_base = 0;
-  g.v_step = head_dim;
-  g.kv_shared = 0;
-  g.tile = kMaxTile;
-  g.q_scale = scale;
-  return g;
-}
-
 
 // ---------------------------------------------------------------------------
 // bf16 GQA route: split-KV over a cp.async ring
@@ -497,14 +211,18 @@ constexpr int kTile = kWarps * kWarpTokens;   // tokens per tile (64)
 constexpr int kStages = 3;                    // tiles in each warp's ring
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The arguments of a GQA-shaped split-KV launch, bf16 or f32 (T).  The f32
+// route takes MLA through it too: one kv head for all H heads, the key row
+// the token's whole row, the value its latent prefix (k_off = v_off = 0).
+template <typename T>
 struct Args {
-  const bf16* q;             // [B, H, D]
-  const bf16* kbuf;          // key rows: kbuf + page * page_elems +
-  const bf16* vbuf;          //   slot * per_tok + k_off + kv_head * D
+  const T* q;                // [B, H, KD]
+  const T* kbuf;             // key rows: kbuf + page * page_elems +
+  const T* vbuf;             //   slot * per_tok + k_off + kv_head * KD
   const int* table;          // [B, max_pages]; null: page id = batch row
   const int* lengths;        // [B]
-  bf16* out;                 // [B, H, D]
-  float* part_acc;           // [B, H, splits, D]   (splits > 1)
+  T* out;                    // [B, H, VD]
+  float* part_acc;           // [B, H, splits, VD]  (splits > 1)
   float* part_m;             // [B, H, splits], log2 units
   float* part_l;             // [B, H, splits]
   int heads, group;          // H, G = H / KV
@@ -548,15 +266,21 @@ __device__ __forceinline__ int2 split_range(int split, int splits, int tiles,
       min(max_tokens, (int)((long long)(split + 1) * tiles / splits) * kTile));
 }
 
+__device__ __forceinline__ void put(bf16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+
 // A split that holds none of its row's tokens: with one split the rows'
 // output is 0, else the split leaves an empty partial (m = -1e30, l = 0)
 // that the merge drops.
+template <typename T>
 __device__ __forceinline__ void write_empty_split(
-    bf16* out, float* part_m, float* part_l, long long row0, int rows,
+    T* out, float* part_m, float* part_l, long long row0, int rows,
     int width, int splits, int split) {
   if (splits == 1) {
     for (int i = threadIdx.x; i < rows * width; i += blockDim.x)
-      out[row0 * width + i] = __float2bfloat16(0.f);
+      put(out + row0 * width + i, 0.f);
   } else {
     for (int r = threadIdx.x; r < rows; r += blockDim.x) {
       part_m[(row0 + r) * splits + split] = kNegInf;
@@ -605,7 +329,7 @@ __device__ __forceinline__ void load_row(float (&x)[E], const bf16* tile,
 // rows), 1 / 2 / 4 -> bf16x2 products on CUDA cores (8 lanes per token).
 template <int D, int R>
 __global__ void __launch_bounds__(kThreads)
-split_decode_kernel(const Args a) {
+split_decode_kernel(const Args<bf16> a) {
   using Sw = tiles::Swizzle<D>;
   constexpr bool kTc = R == 16;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -943,14 +667,16 @@ split_decode_kernel(const Args a) {
 // staged in shared memory with one load each and their weights computed
 // once; thread (p, d) sums column d over the splits s = p mod kMergeLanes,
 // loads in flight together, and the kMergeLanes sums are added at the end.
-// The MLA route launches the same body under its own name
-// (mla::mla_merge_splits_kernel), so a profile tells the two apart.
+// The output is bf16 or f32 (T).  The bf16 MLA route launches the same
+// body under its own name (mla::mla_merge_splits_kernel), so a profile
+// tells the two apart.
 constexpr int kMergeLanes = 4;
 
+template <typename T>
 __device__ __forceinline__ void merge_splits(const float* __restrict__ acc,
                                              const float* __restrict__ m,
                                              const float* __restrict__ l,
-                                             bf16* __restrict__ out,
+                                             T* __restrict__ out,
                                              int splits) {
   extern __shared__ float stage[];     // w, l [splits]; num, den [lanes][D]
   const int D = blockDim.x / kMergeLanes;
@@ -990,14 +716,15 @@ __device__ __forceinline__ void merge_splits(const float* __restrict__ acc,
       num += nums[i * D + d];
       den += dens[i * D + d];
     }
-    out[row * D + d] = __float2bfloat16(den == 0.f ? 0.f : num / den);
+    put(out + row * D + d, den == 0.f ? 0.f : num / den);
   }
 }
 
+template <typename T>
 __global__ void merge_splits_kernel(const float* __restrict__ acc,
                                     const float* __restrict__ m,
                                     const float* __restrict__ l,
-                                    bf16* __restrict__ out, int splits) {
+                                    T* __restrict__ out, int splits) {
   merge_splits(acc, m, l, out, splits);
 }
 
@@ -1006,10 +733,11 @@ inline size_t merge_bytes(int splits, int D) {
   return sizeof(float) * (2 * splits + 2 * kMergeLanes * D);
 }
 
-using LaunchFn = int (*)(const Args&, int, int, cudaStream_t);
+using LaunchFn = int (*)(const Args<bf16>&, int, int, cudaStream_t);
 
 template <int D, int R>
-int launch(const Args& a, int kv_heads, int batch, cudaStream_t stream) {
+int launch(const Args<bf16>& a, int kv_heads, int batch,
+           cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D, R>();
   static bool configured = false;      // once, before any graph capture
   if (!configured) {
@@ -1023,8 +751,8 @@ int launch(const Args& a, int kv_heads, int batch, cudaStream_t stream) {
   split_decode_kernel<D, R><<<grid, kThreads, bytes, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return (int)err;
-  merge_splits_kernel<<<batch * a.heads, kMergeLanes * D,
-                        merge_bytes(a.splits, D), stream>>>(
+  merge_splits_kernel<bf16><<<batch * a.heads, kMergeLanes * D,
+                              merge_bytes(a.splits, D), stream>>>(
       a.part_acc, a.part_m, a.part_l, a.out, a.splits);
   return (int)cudaGetLastError();
 }
@@ -1058,11 +786,400 @@ LaunchFn pick(int head_dim, int rows) {
   }
 }
 
-// The geometry shared by the paged and the contiguous entry points; the
-// caller sets the addressing fields.
-int run(Args a, int batch, int kv_heads, int head_dim, int rows,
-        void* stream) {
-  const LaunchFn fn = pick(head_dim, rows);
+}  // namespace split
+
+// ---------------------------------------------------------------------------
+// f32 route: the same split-KV structure over an f32 cp.async ring, CUDA
+// cores (GQA, contiguous and MLA alike)
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStageBytes = 36 * 1024;   // rows one ring stage holds, at most
+// the most shared memory a block may take for two blocks to share an SM
+// (228 KB less 1 KB reserved per block, halved)
+constexpr int kTwoBlocks = 113 * 1024;
+
+// One instance: key rows of KD floats, value rows of VD (kPrefix: the
+// value is the key row's first VD floats, staged once), R query heads.
+//   * TT tokens a ring stage: 64, or 32 / 16 where a stage of 64 rows would
+//     pass kStageBytes (D = 128: 32, D = 256: 16, MLA's 288: 32).  The
+//     splits still cover whole 64-token tiles; a split walks them in
+//     sub-tiles of TT;
+//   * scores: KW = 128 / TT lanes per token, each holding KC float4 chunks
+//     of the key row (chunk p + KW j), reduced by shuffles; q is read from
+//     shared memory (a broadcast across the warp's tokens);
+//   * P.V: CG = VD / 4 float4 column groups, TW = 128 / CG token groups
+//     (tokens tw, tw + TW, ...); each thread holds R x 4 accumulators;
+//   * key rows are LDK floats apart, LDK / 4 = KW (mod 8) chunks, so the
+//     8 lanes of one LDS.128 phase (8 / KW tokens x KW chunks) fall on 8
+//     distinct bank groups;
+//   * 3 ring stages where two blocks still fit an SM, else 2.
+template <int KD, int VD, bool kPrefix, int R>
+struct Geo {
+  static_assert(KD % 4 == 0 && VD % 4 == 0 && VD <= KD, "uninstantiable");
+  static_assert(kPrefix || KD == VD, "a GQA instance has KD == VD");
+  static constexpr int kRowBytes = 4 * (KD + (kPrefix ? 0 : VD));
+  static constexpr int TT = 64 * kRowBytes <= kStageBytes   ? 64
+                            : 32 * kRowBytes <= kStageBytes ? 32
+                                                            : 16;
+  static constexpr int KW = kThreads / TT;
+  static_assert(KD % (4 * KW) == 0, "a key row splits into KW lanes");
+  static constexpr int KC = KD / 4 / KW;
+  static constexpr int LDK = KD + 4 * ((KW % 8 - (KD / 4) % 8 + 8) % 8);
+  static constexpr int CG = VD / 4;
+  static_assert(kThreads % CG == 0, "the columns split the block");
+  static constexpr int TW = kThreads / CG;
+  static_assert(TT % TW == 0, "the token groups split the sub-tile");
+  static constexpr int CW = CG < 32 ? CG : 32;      // a warp's columns
+  static constexpr int WC = CG / CW;                // warps per column set
+  static constexpr int TWW = kWarps / WC;           // ... token groups
+  static constexpr int kVRow = kPrefix ? LDK : VD;  // value row stride
+  static constexpr int kStage = TT * (LDK + (kPrefix ? 0 : VD));
+  // q [R][LDK], P [R][TT], m / l / alpha [R] (floats)
+  static constexpr int kFixed = R * LDK + R * TT + 3 * R;
+  static constexpr int kStages =
+      4 * (3 * kStage + kFixed) <= kTwoBlocks ? 3 : 2;
+  static constexpr int kRing = kStages * kStage;
+  static_assert((TWW - 1) * R * VD <= kRing, "the ring holds the reduction");
+  static constexpr int kSmem = 4 * (kRing + kFixed);
+};
+
+// One block per (kv head x head group, batch row, split), 4 warps.  Each
+// thread copies its token's key (and value) chunks of every sub-tile into
+// the block's ring with 16-byte cp.async.cg, kStages - 1 sub-tiles in
+// flight while one is computed (tokens past the length or on pages < 0
+// are zero-filled and never read from memory); the page ids are read one
+// sub-tile ahead.  A sub-tile: scores into P (shared), barrier; each
+// warp takes rows for the online softmax (m, l in log2 units), barrier;
+// P.V into registers.  Products are f32 FFMA on CUDA cores: no TF32, so
+// the card holds the CPU at 2e-5.
+template <int KD, int VD, bool kPrefix, int R>
+__global__ void __launch_bounds__(kThreads)
+f32_split_decode_kernel(const split::Args<float> a) {
+  using G = Geo<KD, VD, kPrefix, R>;
+  constexpr int S = G::kStages, TT = G::TT, KW = G::KW;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                    // [S][TT][LDK] (+ [TT][VD] each)
+  float* qs = ring + G::kRing;           // [R][LDK]
+  float* ps = qs + R * G::LDK;           // [R][TT]
+  float* ms = ps + R * TT;               // [R] running max (log2 units)
+  float* ls = ms + R;                    // [R] running sum
+  float* as = ls + R;                    // [R] the sub-tile's rescale
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kvh = blockIdx.x / a.head_groups;
+  const int g0 = (blockIdx.x % a.head_groups) * R;
+  const int b = blockIdx.y, split = blockIdx.z;
+  const int nh = min(R, a.group - g0);
+  const long long row0 = (long long)b * a.heads + kvh * a.group + g0;
+  const int max_tokens = a.max_pages * a.tokens_per_page;
+  const int2 range = split::split_range(split, a.splits, a.tiles, max_tokens);
+  const int start = range.x, cap = range.y;
+  const float* kbase = a.kbuf + a.k_off + (long long)kvh * KD;
+  const float* vbase = a.vbuf + a.v_off + (long long)kvh * VD;
+  const int tok = tid / KW, part = tid % KW;   // scores and copies
+
+  // page id of this thread's token of sub-tile jt, -1 past what the table
+  // addresses; needs no length, so it is read while the length is
+  auto page_of = [&](int jt) -> int {
+    const int pos = start + jt * TT + tok;
+    if (pos >= cap) return -1;
+    return a.table ? a.table[(long long)b * a.max_pages +
+                             pos / a.tokens_per_page]
+                   : b;
+  };
+  int pages[S];
+#pragma unroll
+  for (int st = 0; st < S; ++st) pages[st] = page_of(st);
+  const int length = max(0, min(a.lengths[b], max_tokens));
+  const int end = min(length, cap);
+  if (start >= end) {                 // nothing of this row in the split
+    split::write_empty_split(a.out, a.part_m, a.part_l, row0, nh, VD,
+                             a.splits, split);
+    return;
+  }
+  const int n_sub = (end - start + TT - 1) / TT;
+
+  // cp.async this thread's chunks of its token of sub-tile jt; true where
+  // the token holds data
+  auto fetch = [&](int jt, int page) -> bool {
+    const int pos = start + jt * TT + tok;
+    const bool ok = page >= 0 && pos < end;
+    const long long off =
+        ok ? (long long)page * a.page_elems +
+                 (long long)(pos % a.tokens_per_page) * a.per_tok
+           : 0;
+    float* ks = ring + (jt % S) * G::kStage + tok * G::LDK;
+#pragma unroll
+    for (int j = 0; j < G::KC; ++j) {
+      const int c = 4 * (part + KW * j);
+      tiles::cp_async_16(ks + c, ok ? kbase + off + c : a.kbuf, ok);
+    }
+    if constexpr (!kPrefix) {
+      float* vs = ring + (jt % S) * G::kStage + TT * G::LDK + tok * VD;
+#pragma unroll
+      for (int j = 0; j < G::KC; ++j) {
+        const int c = 4 * (part + KW * j);
+        tiles::cp_async_16(vs + c, ok ? vbase + off + c : a.vbuf, ok);
+      }
+    }
+    return ok;
+  };
+
+  // bit s: this thread's token of the sub-tile in stage s holds data
+  unsigned valid = 0;
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < n_sub) valid |= (unsigned)fetch(st, pages[st]) << st;
+    tiles::cp_async_commit();
+  }
+  int page_next = pages[S - 1];
+
+  // q * scale (rows past nh and the pad columns 0), m and l
+  for (int i = tid; i < R * G::LDK; i += kThreads) {
+    const int r = i / G::LDK, d = i % G::LDK;
+    qs[i] = r < nh && d < KD ? a.q[(row0 + r) * KD + d] * a.scale : 0.f;
+  }
+  for (int r = tid; r < R; r += kThreads) {
+    ms[r] = kNegInf;
+    ls[r] = 0.f;
+  }
+
+  const int col = tid % G::CG, tw = tid / G::CG;   // P.V coordinates
+  float acc[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+
+  for (int j = 0; j < n_sub; ++j) {
+    tiles::cp_async_wait<S - 2>();
+    __syncthreads();                   // sub-tile j landed for all, q
+                                       // staged, j - 1's stage and P free
+    const int jn = j + S - 1, sn = jn % S;
+    valid &= ~(1u << sn);
+    if (jn < n_sub) valid |= (unsigned)fetch(jn, page_next) << sn;
+    tiles::cp_async_commit();
+    page_next = page_of(jn + 1);
+    const float* kt = ring + (j % S) * G::kStage;
+    const float* vt = kPrefix ? kt : kt + TT * G::LDK;
+
+    // S = q k^T: KW lanes a token, each over KC chunks of the row
+    float sc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) sc[r] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < G::KC; ++jj) {
+      const int c = 4 * (part + KW * jj);
+      const float4 k4 =
+          *reinterpret_cast<const float4*>(kt + tok * G::LDK + c);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 q4 =
+            *reinterpret_cast<const float4*>(qs + r * G::LDK + c);
+        sc[r] = fmaf(q4.x, k4.x, sc[r]);
+        sc[r] = fmaf(q4.y, k4.y, sc[r]);
+        sc[r] = fmaf(q4.z, k4.z, sc[r]);
+        sc[r] = fmaf(q4.w, k4.w, sc[r]);
+      }
+    }
+    const bool mine = (valid >> (j % S)) & 1u;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int o = KW / 2; o > 0; o >>= 1)
+        sc[r] += __shfl_xor_sync(0xffffffffu, sc[r], o);
+      if (r % KW == part)
+        ps[r * TT + tok] = mine ? sc[r] * split::kLog2e : kNegInf;
+    }
+    __syncthreads();                   // the sub-tile's scores
+
+    // online softmax: a warp per row, lanes over the sub-tile
+    for (int r = warp; r < R; r += kWarps) {
+      float* row = ps + r * TT;
+      const float x0 = lane < TT ? row[lane] : kNegInf;
+      const float x1 = lane + 32 < TT ? row[lane + 32] : kNegInf;
+      const float m_old = ms[r];
+      float mx = fmaxf(x0, x1);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m_old, mx);
+      const float p0 = x0 == kNegInf ? 0.f : tiles::exp2_approx(x0 - m_new);
+      const float p1 = x1 == kNegInf ? 0.f : tiles::exp2_approx(x1 - m_new);
+      if (lane < TT) row[lane] = p0;
+      if (lane + 32 < TT) row[lane + 32] = p1;
+      float sum = p0 + p1;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane == 0) {
+        const float alpha = tiles::exp2_approx(m_old - m_new);
+        ls[r] = ls[r] * alpha + sum;
+        ms[r] = m_new;
+        as[r] = alpha;
+      }
+    }
+    __syncthreads();                   // P and the rescales
+
+    // O = alpha O + P V over this thread's columns and tokens
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float alpha = as[r];
+      acc[r][0] *= alpha;
+      acc[r][1] *= alpha;
+      acc[r][2] *= alpha;
+      acc[r][3] *= alpha;
+    }
+#pragma unroll
+    for (int i = 0; i < TT / G::TW; ++i) {
+      const int t = tw + G::TW * i;
+      const float4 v4 =
+          *reinterpret_cast<const float4*>(vt + t * G::kVRow + 4 * col);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float p = ps[r * TT + t];
+        acc[r][0] = fmaf(p, v4.x, acc[r][0]);
+        acc[r][1] = fmaf(p, v4.y, acc[r][1]);
+        acc[r][2] = fmaf(p, v4.z, acc[r][2]);
+        acc[r][3] = fmaf(p, v4.w, acc[r][3]);
+      }
+    }
+  }
+  tiles::cp_async_wait<0>();
+  __syncthreads();                     // every thread is done with the ring
+
+  // the token groups' accumulators added: lanes of a warp by shuffles,
+  // then the warps through the (idle) ring
+  if constexpr (G::CG < 32) {
+#pragma unroll
+    for (int o = G::CG; o < 32; o <<= 1)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+  }
+  const int slot = warp / G::WC;
+  if constexpr (G::TWW > 1) {
+    if (slot > 0 && lane < G::CW) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        *reinterpret_cast<float4*>(ring + ((slot - 1) * R + r) * VD +
+                                   4 * col) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+    __syncthreads();
+  }
+  if (slot != 0 || lane >= G::CW) return;
+#pragma unroll
+  for (int t = 1; t < G::TWW; ++t)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          ring + ((t - 1) * R + r) * VD + 4 * col);
+      acc[r][0] += v.x;
+      acc[r][1] += v.y;
+      acc[r][2] += v.z;
+      acc[r][3] += v.w;
+    }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= nh) break;
+    const float l = ls[r];
+    if (a.splits == 1) {
+      const float inv = l == 0.f ? 0.f : 1.f / l;
+      *reinterpret_cast<float4*>(a.out + (row0 + r) * VD + 4 * col) =
+          make_float4(acc[r][0] * inv, acc[r][1] * inv, acc[r][2] * inv,
+                      acc[r][3] * inv);
+    } else {
+      const long long at = (row0 + r) * a.splits + split;
+      *reinterpret_cast<float4*>(a.part_acc + at * VD + 4 * col) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      if (col == 0) {
+        a.part_m[at] = ms[r];
+        a.part_l[at] = l;
+      }
+    }
+  }
+}
+
+using LaunchFn = int (*)(const split::Args<float>&, int, int, cudaStream_t);
+
+template <int KD, int VD, bool kPrefix, int R>
+int launch(const split::Args<float>& a, int kv_heads, int batch,
+           cudaStream_t stream) {
+  constexpr int bytes = Geo<KD, VD, kPrefix, R>::kSmem;
+  static bool configured = false;      // once, before any graph capture
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        f32_split_decode_kernel<KD, VD, kPrefix, R>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const dim3 grid(kv_heads * a.head_groups, batch, a.splits);
+  f32_split_decode_kernel<KD, VD, kPrefix, R>
+      <<<grid, kThreads, bytes, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return (int)err;
+  split::merge_splits_kernel<float>
+      <<<batch * a.heads, split::kMergeLanes * VD,
+         split::merge_bytes(a.splits, VD), stream>>>(a.part_acc, a.part_m,
+                                                     a.part_l, a.out,
+                                                     a.splits);
+  return (int)cudaGetLastError();
+}
+
+// Query heads a block serves: 1 (G = 1), 4 (G <= 4) or 16, the rows past
+// G empty.  At R = 16 a thread holds 64 accumulators (R x 4 columns) and
+// 16 scores: q lives in shared memory, never in registers, so the key
+// width (256 or MLA's 288) does not enter the register count.
+template <int KD, int VD, bool kPrefix>
+LaunchFn pick_rows(int rows) {
+  switch (rows) {
+    case 1: return launch<KD, VD, kPrefix, 1>;
+    case 4: return launch<KD, VD, kPrefix, 4>;
+    case 16: return launch<KD, VD, kPrefix, 16>;
+    default: return nullptr;
+  }
+}
+
+// GQA head dims (KD = VD) and MLA's (r + rp, r) widths: minicpm3, the
+// small card check's and the smoke config's (kernels/paged_attention.py
+// F32_HEAD_DIMS, MLA_WIDTHS).
+LaunchFn pick(int key_dim, int value_dim, int rows) {
+  if (key_dim == value_dim) {
+    switch (key_dim) {
+      case 8: return pick_rows<8, 8, false>(rows);
+      case 16: return pick_rows<16, 16, false>(rows);
+      case 32: return pick_rows<32, 32, false>(rows);
+      case 64: return pick_rows<64, 64, false>(rows);
+      case 128: return pick_rows<128, 128, false>(rows);
+      case 256: return pick_rows<256, 256, false>(rows);
+      default: return nullptr;
+    }
+  }
+  if (key_dim == 288 && value_dim == 256)
+    return pick_rows<288, 256, true>(rows);
+  if (key_dim == 80 && value_dim == 64) return pick_rows<80, 64, true>(rows);
+  if (key_dim == 24 && value_dim == 16) return pick_rows<24, 16, true>(rows);
+  return nullptr;
+}
+
+}  // namespace f32
+
+// A GQA-shaped split-KV launch in T (bf16 or f32), its instance picked by
+// (key width, value width, rows); the caller sets the addressing fields.
+template <typename T>
+int run(split::Args<T> a, int batch, int kv_heads, int key_dim,
+        int value_dim, int rows, void* stream) {
+  int (*fn)(const split::Args<T>&, int, int, cudaStream_t) = nullptr;
+  if constexpr (sizeof(T) == 4)
+    fn = f32::pick(key_dim, value_dim, rows);
+  else if (key_dim == value_dim)
+    fn = split::pick(key_dim, rows);
   if (fn == nullptr || kv_heads <= 0 || a.heads % kv_heads ||
       a.splits < 1 || a.splits > a.tiles ||
       (a.splits > 1 && !(a.part_acc && a.part_m && a.part_l)))
@@ -1071,8 +1188,6 @@ int run(Args a, int batch, int kv_heads, int head_dim, int rows,
   a.head_groups = (a.group + rows - 1) / rows;
   return fn(a, kv_heads, batch, static_cast<cudaStream_t>(stream));
 }
-
-}  // namespace split
 
 // ---------------------------------------------------------------------------
 // bf16 MLA route: split-KV on tensor cores over one block-wide cp.async ring
@@ -1461,114 +1576,99 @@ LaunchFn pick(int latent_dim, int rope_dim) {
 
 }  // namespace
 
-// q, pool, out: bf16.  part_*: f32 partials, used when splits > 1.
-// rows: query heads a block serves (16: tensor cores; 1, 2, 4: CUDA
-// cores).
-extern "C" int paged_gqa_decode_bf16(
-    const void* q, const void* pool, const int* table, const int* lengths,
-    void* out, float* part_acc, float* part_m, float* part_l, int batch,
-    int heads, int kv_heads, int head_dim, int rows, int max_pages,
-    int tokens_per_page, long long page_elems, int splits, int tiles,
-    float scale, void* stream) {
-  using split::bf16;
-  split::Args a{};
-  a.q = static_cast<const bf16*>(q);
-  a.kbuf = a.vbuf = static_cast<const bf16*>(pool);
+namespace {
+
+// The split-KV launch of a GQA-shaped call in T: key rows of key_dim and
+// value rows of value_dim per kv head at k_off / v_off of a token.
+template <typename T>
+int gqa(const void* q, const void* kbuf, const void* vbuf, const int* table,
+        const int* lengths, void* out, float* part_acc, float* part_m,
+        float* part_l, int batch, int heads, int kv_heads, int key_dim,
+        int value_dim, int rows, int tokens_per_page, int per_tok,
+        int max_pages, long long page_elems, int k_off, int v_off,
+        int splits, int tiles, float scale, void* stream) {
+  split::Args<T> a{};
+  a.q = static_cast<const T*>(q);
+  a.kbuf = static_cast<const T*>(kbuf);
+  a.vbuf = static_cast<const T*>(vbuf);
   a.table = table;
   a.lengths = lengths;
-  a.out = static_cast<bf16*>(out);
+  a.out = static_cast<T*>(out);
   a.part_acc = part_acc;
   a.part_m = part_m;
   a.part_l = part_l;
   a.heads = heads;
   a.tokens_per_page = tokens_per_page;
-  a.per_tok = 2 * kv_heads * head_dim;
+  a.per_tok = per_tok;
   a.max_pages = max_pages;
   a.page_elems = page_elems;
-  a.k_off = 0;
-  a.v_off = kv_heads * head_dim;
+  a.k_off = k_off;
+  a.v_off = v_off;
   a.splits = splits;
   a.tiles = tiles;
   a.scale = scale;
-  return split::run(a, batch, kv_heads, head_dim, rows, stream);
+  return run<T>(a, batch, kv_heads, key_dim, value_dim, rows, stream);
 }
 
-// k, v: bf16 [batch, max_len, kv_heads, head_dim] each, contiguous.
-extern "C" int contiguous_gqa_decode_bf16(
+}  // namespace
+
+// Every entry point: q, the KV and out in one dtype (0 = float32, 1 =
+// bfloat16); part_*: f32 partials, used when splits > 1; rows: query
+// heads a block serves (bf16 GQA: 16 on tensor cores, 1, 2, 4 on CUDA
+// cores; f32: 1, 4, 16).  pool: the flat [n_pages, page_elems] pool.
+extern "C" int paged_gqa_decode(
+    const void* q, const void* pool, const int* table, const int* lengths,
+    void* out, float* part_acc, float* part_m, float* part_l, int batch,
+    int heads, int kv_heads, int head_dim, int rows, int max_pages,
+    int tokens_per_page, long long page_elems, int splits, int tiles,
+    float scale, int dtype, void* stream) {
+  auto fn = dtype == 0   ? gqa<float>
+            : dtype == 1 ? gqa<split::bf16>
+                         : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(q, pool, pool, table, lengths, out, part_acc, part_m, part_l,
+            batch, heads, kv_heads, head_dim, head_dim, rows,
+            tokens_per_page, 2 * kv_heads * head_dim, max_pages, page_elems,
+            0, kv_heads * head_dim, splits, tiles, scale, stream);
+}
+
+// k, v: [batch, max_len, kv_heads, head_dim] each, contiguous; read as if
+// row b were one page of max_len tokens (no table: page id = b).
+extern "C" int contiguous_gqa_decode(
     const void* q, const void* k, const void* v, const int* lengths,
     void* out, float* part_acc, float* part_m, float* part_l, int batch,
     int heads, int kv_heads, int head_dim, int rows, int max_len,
-    int splits, int tiles, float scale, void* stream) {
-  using split::bf16;
-  split::Args a{};
-  a.q = static_cast<const bf16*>(q);
-  a.kbuf = static_cast<const bf16*>(k);
-  a.vbuf = static_cast<const bf16*>(v);
-  a.table = nullptr;
-  a.lengths = lengths;
-  a.out = static_cast<bf16*>(out);
-  a.part_acc = part_acc;
-  a.part_m = part_m;
-  a.part_l = part_l;
-  a.heads = heads;
-  a.tokens_per_page = max_len;
-  a.per_tok = kv_heads * head_dim;
-  a.max_pages = 1;
-  a.page_elems = (long long)max_len * kv_heads * head_dim;
-  a.k_off = 0;
-  a.v_off = 0;
-  a.splits = splits;
-  a.tiles = tiles;
-  a.scale = scale;
-  return split::run(a, batch, kv_heads, head_dim, rows, stream);
+    int splits, int tiles, float scale, int dtype, void* stream) {
+  auto fn = dtype == 0   ? gqa<float>
+            : dtype == 1 ? gqa<split::bf16>
+                         : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(q, k, v, nullptr, lengths, out, part_acc, part_m, part_l, batch,
+            heads, kv_heads, head_dim, head_dim, rows, max_len,
+            kv_heads * head_dim, 1, (long long)max_len * kv_heads * head_dim,
+            0, 0, splits, tiles, scale, stream);
 }
 
-// q, pool, out: float32.
-extern "C" int paged_gqa_decode_f32(const void* q, const void* pool,
-                                    const int* table, const int* lengths,
-                                    void* out, int batch, int heads,
-                                    int kv_heads, int head_dim, int max_pages,
-                                    int tokens_per_page, long long page_elems,
-                                    float scale, void* stream) {
-  if (kv_heads <= 0 || heads % kv_heads) return (int)cudaErrorInvalidValue;
-  Geometry g = gqa_geometry(heads, kv_heads, head_dim, scale);
-  g.v_base = kv_heads * head_dim;
-  g.tokens_per_page = tokens_per_page;
-  g.per_tok = 2 * kv_heads * head_dim;
-  g.page_elems = page_elems;
-  g.max_pages = max_pages;
-  return dispatch<float, false>(q, pool, pool, table, lengths, out, batch,
-                                kv_heads, g, static_cast<cudaStream_t>(stream));
-}
-
-// k, v: float32 [batch, max_len, kv_heads, head_dim] each, contiguous.
-extern "C" int contiguous_gqa_decode_f32(const void* q, const void* k,
-                                         const void* v, const int* lengths,
-                                         void* out, int batch, int heads,
-                                         int kv_heads, int head_dim,
-                                         int max_len, float scale,
-                                         void* stream) {
-  if (kv_heads <= 0 || heads % kv_heads) return (int)cudaErrorInvalidValue;
-  Geometry g = gqa_geometry(heads, kv_heads, head_dim, scale);
-  g.tokens_per_page = max_len;
-  g.per_tok = kv_heads * head_dim;
-  g.page_elems = (long long)max_len * kv_heads * head_dim;
-  g.max_pages = 1;
-  return dispatch<float, false>(q, k, v, nullptr, lengths, out, batch,
-                                kv_heads, g, static_cast<cudaStream_t>(stream));
-}
-
-// q, pool, out: bf16; part_*: f32 partials, used when splits > 1.  The
-// split-KV tensor-core kernel; (latent_dim, rope_dim) must be one of
-// mla::pick's instances.
-extern "C" int paged_mla_decode_bf16(
+// Token rows [latent_dim + rope_dim]; out [B, H, latent_dim].  bf16: the
+// tensor-core kernel (16 heads a block; rows must be 16), f32: the f32
+// split-KV body with one kv head for all H heads and the value the key
+// row's latent prefix.  (latent_dim, rope_dim) must be one of the
+// instances of mla::pick / f32::pick.
+extern "C" int paged_mla_decode(
     const void* q, const void* pool, const int* table, const int* lengths,
     void* out, float* part_acc, float* part_m, float* part_l, int batch,
-    int heads, int latent_dim, int rope_dim, int max_pages,
+    int heads, int latent_dim, int rope_dim, int rows, int max_pages,
     int tokens_per_page, long long page_elems, int splits, int tiles,
-    float scale, void* stream) {
+    float scale, int dtype, void* stream) {
+  const int width = latent_dim + rope_dim;
+  if (dtype == 0)
+    return gqa<float>(q, pool, pool, table, lengths, out, part_acc, part_m,
+                      part_l, batch, heads, 1, width, latent_dim, rows,
+                      tokens_per_page, width, max_pages, page_elems, 0, 0,
+                      splits, tiles, scale, stream);
   const mla::LaunchFn fn = mla::pick(latent_dim, rope_dim);
-  if (fn == nullptr || heads <= 0 || splits < 1 || splits > tiles ||
+  if (dtype != 1 || fn == nullptr || rows != mla::kRows || heads <= 0 ||
+      splits < 1 || splits > tiles ||
       (splits > 1 && !(part_acc && part_m && part_l)))
     return (int)cudaErrorInvalidValue;
   mla::Args a{};
@@ -1588,33 +1688,4 @@ extern "C" int paged_mla_decode_bf16(
   a.tiles = tiles;
   a.scale = scale;
   return fn(a, batch, static_cast<cudaStream_t>(stream));
-}
-
-// q, pool, out: float32; the first design (paged_decode_block).
-extern "C" int paged_mla_decode_f32(const void* q, const void* pool,
-                                    const int* table, const int* lengths,
-                                    void* out, int batch, int heads,
-                                    int latent_dim, int rope_dim,
-                                    int max_pages, int tokens_per_page,
-                                    long long page_elems, float scale,
-                                    void* stream) {
-  Geometry g;
-  g.heads = heads;
-  g.heads_per_block = heads < kMlaHeadsPerBlock ? heads : kMlaHeadsPerBlock;
-  g.k_dim = latent_dim + rope_dim;
-  g.v_dim = latent_dim;
-  g.k_base = 0;
-  g.k_step = 0;
-  g.v_base = 0;
-  g.v_step = 0;
-  g.kv_shared = 1;
-  g.tokens_per_page = tokens_per_page;
-  g.per_tok = latent_dim + rope_dim;
-  g.page_elems = page_elems;
-  g.max_pages = max_pages;
-  g.tile = kMaxTile;
-  g.q_scale = scale;
-  const int grid_x = (heads + g.heads_per_block - 1) / g.heads_per_block;
-  return dispatch<float, true>(q, pool, pool, table, lengths, out, batch,
-                               grid_x, g, static_cast<cudaStream_t>(stream));
 }

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Tuple
 
 import torch
 
@@ -29,6 +30,10 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import DTYPE_CODES, launch
 
 SOURCE = build.CSRC / "moe_gemm.cu"
+#: the float32 weight gradient's dw tile edge and the most rows one block
+#: reduces (``csrc/moe_gemm.cu`` ``wg::kTile``, ``wg::kChunk``)
+WGRAD_TILE = 128
+WGRAD_CHUNK = 1024
 
 
 @functools.cache
@@ -38,7 +43,7 @@ def load_library() -> ctypes.CDLL:
     lib.moe_gemm.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                              + [ctypes.c_void_p])
     lib.moe_gemm.restype = ctypes.c_int
-    lib.moe_gemm_wgrad.argtypes = ([ctypes.c_void_p] * 4
+    lib.moe_gemm_wgrad.argtypes = ([ctypes.c_void_p] * 5
                                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.moe_gemm_wgrad.restype = ctypes.c_int
     return lib
@@ -94,11 +99,52 @@ def moe_gemm_dgrad(dy: torch.Tensor, w: torch.Tensor,
     return _gemm(dy, w, group_sizes, transpose=True)
 
 
+def wgrad_plan(rows: int, k: int, m: int, experts: int) -> Tuple[int, int]:
+    """(dw tiles, chunk slots) of a float32 weight-gradient launch, from
+    the shapes alone: the grid's two axes.  Every expert's rows are cut
+    into ``max(1, ceil(n_e / WGRAD_CHUNK))`` chunks, at most ``rows /
+    WGRAD_CHUNK + experts`` in all; the host never reads the sizes."""
+    tiles = -(-k // WGRAD_TILE) * -(-m // WGRAD_TILE)
+    return tiles, -(-rows // WGRAD_CHUNK) + experts
+
+
+def wgrad_chunks(group_sizes, chunk: int = WGRAD_CHUNK
+                 ) -> List[Tuple[int, int, int, int]]:
+    """The float32 weight gradient's work list as the kernel builds it on
+    the card, in slot order: (expert, index within the expert, first row,
+    rows) for every chunk; an empty expert keeps one chunk of no rows.  A
+    host mirror for tests: the wrapper never calls it."""
+    out, start = [], 0
+    for e, n in enumerate(int(v) for v in group_sizes):
+        for j in range(max(1, -(-n // chunk))):
+            out.append((e, j, start + j * chunk, min(chunk, n - j * chunk)))
+        start += n
+    return out
+
+
+def moe_gemm_wgrad_chunked(x: torch.Tensor, dy: torch.Tensor,
+                           group_sizes, chunk: int = WGRAD_CHUNK
+                           ) -> torch.Tensor:
+    """The float32 weight gradient in the kernel's order, in plain
+    PyTorch: each chunk of ``wgrad_chunks`` summed on its own, the chunks
+    of an expert added into dw[e] one after another (chunk 0 stores).
+    Sums in f32, returns x's dtype."""
+    E, K, M = len(group_sizes), x.shape[1], dy.shape[1]
+    dw = torch.empty((E, K, M), dtype=torch.float32, device=x.device)
+    for e, j, row0, n in wgrad_chunks(group_sizes, chunk):
+        part = x[row0:row0 + n].float().T @ dy[row0:row0 + n].float()
+        dw[e] = part if j == 0 else dw[e] + part
+    return dw.to(x.dtype)
+
+
 def moe_gemm_wgrad(x: torch.Tensor, dy: torch.Tensor,
                    group_sizes: torch.Tensor) -> torch.Tensor:
     """The weight gradient of ``moe_gemm``: x [N,K], dy [N,M] ->
     dw [E,K,M] with ``dw[e] = x[rows of e]^T @ dy[rows of e]`` (f32 sums,
-    x's dtype); an expert with no rows gets zeros."""
+    x's dtype); an expert with no rows gets zeros.  float32 reduces each
+    expert's rows in chunks (``wgrad_plan``) added in a fixed order, so
+    two calls give the same bits; the kernel orders them through an int32
+    flag per (expert, dw tile), zeroed here."""
     if x.device.type == "cpu":
         return ref.moe_gemm_wgrad(x, dy, group_sizes)
     if x.device.type != "cuda":
@@ -108,8 +154,12 @@ def moe_gemm_wgrad(x: torch.Tensor, dy: torch.Tensor,
     if group_sizes.device != x.device or group_sizes.dim() != 1:
         raise ValueError(f"group_sizes must be [E] on {x.device}")
     dw = torch.empty((E, K, M), dtype=x.dtype, device=x.device)
+    flags = (torch.zeros((E, wgrad_plan(N, K, M, E)[0]), dtype=torch.int32,
+                         device=x.device)
+             if x.dtype == torch.float32 else None)
     launch(load_library().moe_gemm_wgrad, x.device, x, dy,
-           _offsets(group_sizes), dw, N, K, M, E, DTYPE_CODES[x.dtype])
+           _offsets(group_sizes), dw, flags, N, K, M, E,
+           DTYPE_CODES[x.dtype])
     moe_gemm_wgrad.launches += 1
     return dw
 

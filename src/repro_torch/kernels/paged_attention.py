@@ -4,14 +4,14 @@ The kernels live in ``csrc/paged_attention.cu`` (see the note there for
 what they replace, their bound and their design), built at first use by
 ``repro_torch.kernels.build`` and wrapped here:
 
-* ``paged_decode_attention``       -> ``paged_gqa_decode_bf16`` / ``_f32``
-* ``paged_mla_decode_attention``   -> ``paged_mla_decode_bf16`` / ``_f32``
-* ``contiguous_decode_attention``  -> ``contiguous_gqa_decode_bf16`` /
-                                      ``_f32``
+* ``paged_decode_attention``       -> ``paged_gqa_decode``
+* ``paged_mla_decode_attention``   -> ``paged_mla_decode``
+* ``contiguous_decode_attention``  -> ``contiguous_gqa_decode``
 
-The paged wrappers take the FLAT pool ``[n_pages, page_elems]`` and the
-page geometry instead of a typed page view: the kernels compute every
-address themselves, so no per-call copy of the pool is ever made.  The
+each taking float32 or bfloat16 through a dtype code.  The paged wrappers
+take the FLAT pool ``[n_pages, page_elems]`` and the page geometry
+instead of a typed page view: the kernels compute every address
+themselves, so no per-call copy of the pool is ever made.  The
 contiguous wrapper takes the dense-cache layer ``[B, T, KV, D]`` of the
 fallback families as it is.  On a CUDA tensor a wrapper launches its
 kernel or raises; only a tensor that lies on the CPU takes the plain
@@ -21,28 +21,29 @@ however many CUDA launches the call makes).  The kernels have no
 backward: a CUDA call under grad mode with an input that requires grad
 raises (``build.refuse_grad``).
 
-The GQA routes follow the dtype.  bfloat16 takes the split-KV kernels
-(flash-decoding): ``kv_splits`` cuts the context into runs of whole
-``TILE``-token tiles from host-known shapes only, the partials go to f32
-buffers from ``torch.empty`` and a second small kernel merges them, so a
-call makes no host read and can be captured in a CUDA graph.  Within it,
-a kv head's ``G = H / KV`` query heads run on tensor cores when ``G >=
-8`` and on CUDA cores otherwise (``rows_per_block``; head dims in
-``check_bf16_geometry``: at 256, gemma3's, only ``G <= 2``).  float32 takes the
-first design (one block per kv head and batch row, CUDA cores), which holds
-the card-vs-CPU checks at 2e-5.  The MLA route follows the dtype too:
-bfloat16 takes the same split-KV structure with 16 heads a block on
+Every route is split-KV (flash-decoding): ``kv_splits`` cuts the context
+into runs of whole ``TILE``-token tiles from host-known shapes only, the
+partials go to f32 buffers from ``torch.empty`` and a second small
+kernel merges them, so a call makes no host read and can be captured in
+a CUDA graph.  bfloat16 GQA runs a kv head's ``G = H / KV`` query heads
+on tensor cores when ``G >= 8`` and on CUDA cores otherwise
+(``rows_per_block``; head dims in ``check_bf16_geometry``: at 256,
+gemma3's, only ``G <= 2``); bfloat16 MLA serves 16 heads a block on
 tensor cores over the latent row all heads share (``mla_split_plan``,
-widths in ``check_mla_geometry``), float32 the first design.  Every route
-folds ``scale`` into q in the kernel (f32 product rounded to q's dtype),
-as the TPU wrappers do (``src/repro/kernels/paged_attention.py:92,183,
-284``).
+widths in ``check_mla_geometry``).  float32 takes one body on CUDA cores
+(f32 FFMA, no TF32, which holds the card-vs-CPU checks at 2e-5) for GQA,
+contiguous and MLA alike: MLA is one kv head for all H heads, its value
+the key row's latent prefix (``F32_ROWS`` heads a block, widths in
+``check_f32_geometry``).  A width no route is instantiated for raises
+``ValueError``.  Every route folds ``scale`` into q in the kernel (f32
+product rounded to q's dtype), as the TPU wrappers do
+(``src/repro/kernels/paged_attention.py:92,183,284``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -65,11 +66,15 @@ TENSOR_CORE_HEAD_DIMS = (16, 32, 64, 128)
 #: (4 heads' q and accumulator rows of 256 would not fit the registers):
 #: G <= 2, as gemma3's G = 2
 TWO_ROW_HEAD_DIMS = (256,)
-#: (latent, rope) widths the bf16 MLA kernel is instantiated for: minicpm3
-#: at its published width, the small float32 check's and the smoke config's
+#: (latent, rope) widths the MLA kernels are instantiated for (bf16 and
+#: f32): minicpm3 at its published width, the small float32 check's and
+#: the smoke config's
 MLA_WIDTHS = ((256, 32), (64, 16), (16, 8))
 #: query heads one bf16 MLA block serves (the 16 rows of ``mma.sync``)
 MLA_ROWS = 16
+#: query heads one f32 block serves (``rows_per_block``); a larger group
+#: takes several blocks, each staging the KV once for its rows
+F32_ROWS = (1, 4, 16)
 
 
 @functools.cache
@@ -77,32 +82,28 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels, with typed entry points."""
     lib = build.load(SOURCE.name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.paged_gqa_decode_bf16.argtypes = (
+    lib.paged_gqa_decode.argtypes = (
         [ptr] * 8 + [i32] * 7 + [ctypes.c_longlong, i32, i32,
-                                 ctypes.c_float, ptr])
-    lib.contiguous_gqa_decode_bf16.argtypes = (
-        [ptr] * 8 + [i32] * 8 + [ctypes.c_float, ptr])
-    lib.paged_gqa_decode_f32.argtypes = (
-        [ptr] * 5 + [i32] * 6 + [ctypes.c_longlong, ctypes.c_float, ptr])
-    lib.contiguous_gqa_decode_f32.argtypes = (
-        [ptr] * 5 + [i32] * 5 + [ctypes.c_float, ptr])
-    lib.paged_mla_decode_bf16.argtypes = (
-        [ptr] * 8 + [i32] * 6 + [ctypes.c_longlong, i32, i32,
-                                 ctypes.c_float, ptr])
-    lib.paged_mla_decode_f32.argtypes = (
-        [ptr] * 5 + [i32] * 6 + [ctypes.c_longlong, ctypes.c_float, ptr])
-    for fn in (lib.paged_gqa_decode_bf16, lib.contiguous_gqa_decode_bf16,
-               lib.paged_gqa_decode_f32, lib.contiguous_gqa_decode_f32,
-               lib.paged_mla_decode_bf16, lib.paged_mla_decode_f32):
+                                 ctypes.c_float, i32, ptr])
+    lib.contiguous_gqa_decode.argtypes = (
+        [ptr] * 8 + [i32] * 8 + [ctypes.c_float, i32, ptr])
+    lib.paged_mla_decode.argtypes = (
+        [ptr] * 8 + [i32] * 7 + [ctypes.c_longlong, i32, i32,
+                                 ctypes.c_float, i32, ptr])
+    for fn in (lib.paged_gqa_decode, lib.contiguous_gqa_decode,
+               lib.paged_mla_decode):
         fn.restype = ctypes.c_int
     return lib
 
 
-def rows_per_block(group: int) -> int:
-    """Query heads one bf16 GQA block serves, from the group size ``G =
-    H / KV``: 16 for ``G >= 8`` (tensor cores: the heads are the 16 rows
-    of ``mma.sync``; a larger G takes several blocks), else 1, 2 or 4
-    (bf16x2 products on CUDA cores)."""
+def rows_per_block(group: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Query heads one GQA block serves, from the group size ``G = H /
+    KV``.  bf16: 16 for ``G >= 8`` (tensor cores: the heads are the 16
+    rows of ``mma.sync``; a larger G takes several blocks), else 1, 2 or 4
+    (bf16x2 products on CUDA cores).  float32: the least of ``F32_ROWS``
+    that holds G, 16 for any larger G (several blocks)."""
+    if dtype == torch.float32:
+        return next((r for r in F32_ROWS if r >= group), F32_ROWS[-1])
     if group >= 8:
         return 16
     return group if group <= 2 else 4
@@ -115,7 +116,7 @@ def n_tiles(max_tokens: int) -> int:
 
 def kv_splits(batch: int, kv_blocks: int, max_tokens: int,
               sm_count: int) -> int:
-    """How many splits the bf16 GQA kernels cut a row's context into.
+    """How many splits the split-KV kernels cut a row's context into.
 
     ``kv_blocks`` blocks serve one batch row before the split (kv heads x
     head groups); ``max_tokens`` is what the table can address (``max_pages
@@ -130,10 +131,12 @@ def kv_splits(batch: int, kv_blocks: int, max_tokens: int,
 
 
 def split_plan(batch: int, heads: int, n_kv: int, max_tokens: int,
-               sm_count: int) -> Tuple[int, int]:
-    """(query heads per block, splits) of a bf16 GQA decode call."""
+               sm_count: int, dtype: torch.dtype = torch.bfloat16
+               ) -> Tuple[int, int]:
+    """(query heads per block, splits) of a GQA decode call in ``dtype``,
+    or of a float32 MLA call (``n_kv = 1``: all heads read one row)."""
     group = heads // n_kv
-    rows = rows_per_block(group)
+    rows = rows_per_block(group, dtype)
     return rows, kv_splits(batch, n_kv * -(-group // rows), max_tokens,
                            sm_count)
 
@@ -155,6 +158,28 @@ def check_bf16_geometry(heads: int, n_kv: int, head_dim: int) -> None:
     if head_dim in TWO_ROW_HEAD_DIMS and rows > 2:
         raise ValueError(f"bf16 GQA kernels at head dim {head_dim} take "
                          f"groups G <= 2, got G = {heads // n_kv}")
+
+
+def check_f32_geometry(heads: int, n_kv: int, key_dim: int,
+                       value_dim: Optional[int] = None) -> None:
+    """Raise ``ValueError`` unless the float32 kernel is instantiated for
+    ``heads`` query heads over ``n_kv`` kv heads with key rows of
+    ``key_dim`` and value rows of ``value_dim`` (GQA: both the head dim,
+    one of ``HEAD_DIMS``; MLA: ``n_kv = 1``, ``key_dim = r + rp`` and
+    ``value_dim = r`` with (r, rp) one of ``MLA_WIDTHS``).  Any group
+    size runs (``F32_ROWS`` heads a block)."""
+    if n_kv <= 0 or heads <= 0 or heads % n_kv:
+        raise ValueError(f"{heads} query heads do not group over {n_kv} kv "
+                         f"heads")
+    if value_dim is None or value_dim == key_dim:
+        if key_dim not in HEAD_DIMS:
+            raise ValueError(f"the f32 GQA kernel takes head dims "
+                             f"{HEAD_DIMS}, got {key_dim}")
+        return
+    if n_kv != 1 or (value_dim, key_dim - value_dim) not in MLA_WIDTHS:
+        raise ValueError(f"the f32 MLA kernel takes one kv head and (latent, "
+                         f"rope) widths {MLA_WIDTHS}, got {n_kv} kv heads "
+                         f"and ({value_dim}, {key_dim - value_dim})")
 
 
 def mla_split_plan(batch: int, heads: int, max_tokens: int,
@@ -209,20 +234,24 @@ def _check_launch_inputs(q, pool, page_table, lengths, per_tok: int,
         raise ValueError("page_table must be [B, max_pages] and lengths [B]")
 
 
-def _gqa_route(q: torch.Tensor, kv: torch.Tensor, n_kv: int) -> str:
-    """The GQA kernel body for these inputs ("bf16" or "f32"); raises on
-    what neither takes."""
+def _check_gqa(q: torch.Tensor, kv: torch.Tensor, n_kv: int) -> None:
+    """Raise unless a GQA kernel is instantiated for ``q``'s heads, head
+    dim and dtype over ``n_kv`` kv heads and ``kv`` starts on 16 bytes."""
     H, D = q.shape[2], q.shape[3]
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
-    if H % n_kv:
-        raise ValueError(f"{H} query heads do not group over {n_kv} kv heads")
     if q.dtype == torch.float32:
-        return "f32"
-    check_bf16_geometry(H, n_kv, D)
+        check_f32_geometry(H, n_kv, D)
+    else:
+        check_bf16_geometry(H, n_kv, D)
     if kv.data_ptr() % 16:
         raise ValueError("the KV must start on 16 bytes (cp.async)")
-    return "bf16"
+
+
+def _check_pages(pool: torch.Tensor) -> None:
+    if pool.data_ptr() % 16 or pool.shape[1] * pool.element_size() % 16:
+        raise ValueError("pages must start on 16 bytes and hold a multiple "
+                         "of 16 bytes (cp.async)")
 
 
 def _partials(B: int, H: int, splits: int, D: int, device):
@@ -236,20 +265,21 @@ def _partials(B: int, H: int, splits: int, D: int, device):
             torch.empty((B, H, splits), **f32))
 
 
-def _split_launch(fn, q, kv, lengths, n_kv, max_tokens, geometry,
-                  scale) -> torch.Tensor:
-    """Launch a bf16 split-KV entry point: ``kv`` are its KV pointer
-    arguments (and table), ``geometry`` its shape arguments after the
-    rows.  Allocates ``out`` and, for more than one split, the f32
-    partials, with ``torch.empty`` only; reads nothing back."""
-    B, _, H, D = q.shape
-    rows, splits = split_plan(B, H, n_kv, max_tokens,
-                              _sm_count(q.device.index))
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    parts = _partials(B, H, splits, D, q.device)
+def _split_launch(fn, q, kv, lengths, widths, plan, max_tokens, geometry,
+                  scale, out_dim: int) -> torch.Tensor:
+    """Launch a split-KV entry point: ``kv`` are its KV pointer arguments
+    (and table), ``widths`` its shape arguments before the rows, ``plan``
+    (rows, splits), ``geometry`` its shape arguments after the rows.
+    Allocates ``out`` [B,1,H,out_dim] and, for more than one split, the
+    f32 partials, with ``torch.empty`` only; reads nothing back."""
+    B, _, H, _ = q.shape
+    rows, splits = plan
+    out = torch.empty((B, 1, H, out_dim), dtype=q.dtype, device=q.device)
     launch(fn, q.device, q.contiguous(), *kv,
-           lengths.to(torch.int32).contiguous(), out, *parts, B, H, n_kv, D,
-           rows, *geometry, splits, n_tiles(max_tokens), float(scale))
+           lengths.to(torch.int32).contiguous(), out,
+           *_partials(B, H, splits, out_dim, q.device), B, H, *widths, rows,
+           *geometry, splits, n_tiles(max_tokens), float(scale),
+           DTYPE_CODES[q.dtype])
     return out
 
 
@@ -273,24 +303,19 @@ def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor,
                                           scale)
     if q.device.type != "cuda":
         raise ValueError(f"no paged attention kernel for {q.device}")
-    route = _gqa_route(q, pool, n_kv)
+    _check_gqa(q, pool, n_kv)
     _check_launch_inputs(q, pool, page_table, lengths, per_tok,
                          tokens_per_page)
+    _check_pages(pool)
     build.refuse_grad("paged_decode_attention", q, pool)
-    lib, max_pages = load_library(), page_table.shape[1]
-    table = page_table.to(torch.int32).contiguous()
-    if route == "bf16":
-        if pool.shape[1] % 8:
-            raise ValueError("bf16 pages must hold a multiple of 8 elements")
-        out = _split_launch(lib.paged_gqa_decode_bf16, q, (pool, table),
-                            lengths, n_kv, max_pages * tokens_per_page,
-                            (max_pages, tokens_per_page, pool.shape[1]),
-                            scale)
-    else:
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        launch(lib.paged_gqa_decode_f32, q.device, q.contiguous(), pool,
-               table, lengths.to(torch.int32).contiguous(), out, B, H, n_kv,
-               D, max_pages, tokens_per_page, pool.shape[1], float(scale))
+    max_pages = page_table.shape[1]
+    max_tokens = max_pages * tokens_per_page
+    plan = split_plan(B, H, n_kv, max_tokens, _sm_count(q.device.index),
+                      q.dtype)
+    out = _split_launch(load_library().paged_gqa_decode, q,
+                        (pool, page_table.to(torch.int32).contiguous()),
+                        lengths, (n_kv, D), plan, max_tokens,
+                        (max_pages, tokens_per_page, pool.shape[1]), scale, D)
     paged_decode_attention.launches += 1
     return out
 
@@ -307,8 +332,9 @@ def paged_mla_decode_attention(q: torch.Tensor, pool: torch.Tensor,
 
     q [B,1,H,r+rp] = [q_latent | q_rope]; pool [n_pages, page_elems] flat,
     token rows ``[r + rp]``.  Returns the latent context [B,1,H,r].
-    bf16 takes the split-KV tensor-core kernel (``mla_split_plan``; widths
-    in ``MLA_WIDTHS``), float32 the first design.
+    bf16 takes the split-KV tensor-core kernel (``mla_split_plan``),
+    float32 the f32 split-KV body with one kv head for all H heads; both
+    take the widths in ``MLA_WIDTHS``.
     """
     B, _, H, e = q.shape
     if q.device.type == "cpu":
@@ -320,27 +346,22 @@ def paged_mla_decode_attention(q: torch.Tensor, pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"no paged attention kernel for {q.device}")
     _check_launch_inputs(q, pool, page_table, lengths, e, tokens_per_page)
-    build.refuse_grad("paged_mla_decode_attention", q, pool)
     rope_dim, max_pages = e - latent_dim, page_table.shape[1]
-    args = (q.contiguous(), pool, page_table.to(torch.int32).contiguous(),
-            lengths.to(torch.int32).contiguous())
-    out = torch.empty((B, 1, H, latent_dim), dtype=q.dtype, device=q.device)
+    max_tokens = max_pages * tokens_per_page
+    sm = _sm_count(q.device.index)
     if q.dtype == torch.bfloat16:
         check_mla_geometry(latent_dim, rope_dim)
-        if pool.data_ptr() % 16 or pool.shape[1] % 8:
-            raise ValueError("bf16 pages must start on 16 bytes and hold a "
-                             "multiple of 8 elements (cp.async)")
-        max_tokens = max_pages * tokens_per_page
-        _, splits = mla_split_plan(B, H, max_tokens,
-                                   _sm_count(q.device.index))
-        launch(load_library().paged_mla_decode_bf16, q.device, *args, out,
-               *_partials(B, H, splits, latent_dim, q.device), B, H,
-               latent_dim, rope_dim, max_pages, tokens_per_page,
-               pool.shape[1], splits, n_tiles(max_tokens), float(scale))
+        plan = MLA_ROWS, mla_split_plan(B, H, max_tokens, sm)[1]
     else:
-        launch(load_library().paged_mla_decode_f32, q.device, *args, out, B,
-               H, latent_dim, rope_dim, max_pages, tokens_per_page,
-               pool.shape[1], float(scale))
+        check_f32_geometry(H, 1, e, latent_dim)
+        plan = split_plan(B, H, 1, max_tokens, sm, q.dtype)
+    _check_pages(pool)
+    build.refuse_grad("paged_mla_decode_attention", q, pool)
+    out = _split_launch(load_library().paged_mla_decode, q,
+                        (pool, page_table.to(torch.int32).contiguous()),
+                        lengths, (latent_dim, rope_dim), plan, max_tokens,
+                        (max_pages, tokens_per_page, pool.shape[1]), scale,
+                        latent_dim)
     paged_mla_decode_attention.launches += 1
     return out
 
@@ -363,7 +384,7 @@ def contiguous_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
         raise ValueError(f"no decode attention kernel for {q.device}")
     B, _, H, D = q.shape
     T, KV = cache_k.shape[1], cache_k.shape[2]
-    route = _gqa_route(q, cache_k, KV)
+    _check_gqa(q, cache_k, KV)
     for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError(f"{name} is {t.dtype} on {t.device}, q is "
@@ -371,20 +392,15 @@ def contiguous_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
         if t.shape != (B, T, KV, D) or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous [B,T,KV,D] "
                              f"tensor, got {tuple(t.shape)}")
-    if route == "bf16" and cache_v.data_ptr() % 16:
+    if cache_v.data_ptr() % 16:
         raise ValueError("cache_v must start on 16 bytes (cp.async)")
     if lengths.shape != (B,) or lengths.device != q.device:
         raise ValueError("lengths must be [B] on q's device")
     build.refuse_grad("decode_attention", q, cache_k, cache_v)
-    lib = load_library()
-    if route == "bf16":
-        out = _split_launch(lib.contiguous_gqa_decode_bf16, q,
-                            (cache_k, cache_v), lengths, KV, T, (T,), scale)
-    else:
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        launch(lib.contiguous_gqa_decode_f32, q.device, q.contiguous(),
-               cache_k, cache_v, lengths.to(torch.int32).contiguous(), out,
-               B, H, KV, D, T, float(scale))
+    plan = split_plan(B, H, KV, T, _sm_count(q.device.index), q.dtype)
+    out = _split_launch(load_library().contiguous_gqa_decode, q,
+                        (cache_k, cache_v), lengths, (KV, D), plan, T, (T,),
+                        scale, D)
     contiguous_decode_attention.launches += 1
     return out
 

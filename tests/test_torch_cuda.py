@@ -158,7 +158,7 @@ def test_gqa_kernel_edges(cuda, dtype, tol, H, KV, D, ps):
     npages = 512 // ps
     _, splits = pa.split_plan(6, H, KV, npages * ps,
                               torch.cuda.get_device_properties(cuda)
-                              .multi_processor_count)
+                              .multi_processor_count, dtype)
     edge = pa.split_start(1, splits, npages * ps)
     lengths = [0, 1, edge, edge - 1, edge + 1, ps * 50 + max(1, ps // 2)]
     holes = ((3, 1), (5, 2), (5, 4))
@@ -193,9 +193,10 @@ def test_mla_kernel_edges(cuda, dtype, tol, H, r, rp, ps):
     the smoke config's (r + rp = 24: the score's k padded to 32)."""
     rng = np.random.default_rng(H * r + ps)
     npages = 512 // ps
-    _, splits = pa.mla_split_plan(6, H, npages * ps,
-                                  torch.cuda.get_device_properties(cuda)
-                                  .multi_processor_count)
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, splits = (pa.mla_split_plan(6, H, npages * ps, sm)
+                 if dtype == torch.bfloat16
+                 else pa.split_plan(6, H, 1, npages * ps, sm, dtype))
     edge = pa.split_start(1, splits, npages * ps)
     lengths = [0, 1, edge, edge - 1, edge + 1,
                ps * min(50, npages - 2) + max(1, ps // 2)]
@@ -465,7 +466,7 @@ def test_contiguous_decode_kernel_edges(cuda, dtype, tol):
     B, T, H, KV, D = 6, 1024, 32, 32, 64
     _, splits = pa.split_plan(B, H, KV, T,
                               torch.cuda.get_device_properties(cuda)
-                              .multi_processor_count)
+                              .multi_processor_count, dtype)
     edge = pa.split_start(1, splits, T)
     lengths = [0, 1, edge, edge + 1, 700, T + 5]
     gen = torch.Generator(device=cuda).manual_seed(edge)
@@ -885,3 +886,140 @@ def test_long_context_calls_hold_at_a_smaller_context(cuda, smoke,
     assert out["launches_row1"] == out["launches_row2"] == 1
     assert out["launches_write"] == 2
     assert out["burst"]["admitted_shared"] > out["burst"]["admitted_static"]
+
+
+# ---------------------------------------------------------------------------
+# the float32 split-KV decode body and the chunked float32 weight gradient
+# ---------------------------------------------------------------------------
+
+def _f32_decode_call(cuda, kind, lengths, T, seed):
+    """(call, plain, lengths tensor) of one float32 decode wrapper over ``lengths`` (NaN
+    past each): "paged" the long_context_pooling example's packed latent
+    (H 40 over one kv head of 256, 28-token pages), "contiguous" the same
+    heads over a dense cache, "mla" minicpm3's rows (r 256, rp 32)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    B, H, ps = len(lengths), 40, 28
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+    if kind == "contiguous":
+        D = 256
+        q, ck, cv = randn(B, 1, H, D), randn(B, T, 1, D), randn(B, T, 1, D)
+        for b, n in enumerate(lengths):
+            ck[b, n:] = float("nan")
+            cv[b, n:] = float("nan")
+        return (lambda: kops.decode_attention(q, ck, cv, lens,
+                                              scale=D ** -0.5),
+                lambda: tref.decode_attention(q, ck, cv, lens, D ** -0.5),
+                lens)
+    per_tok = 2 * 256 if kind == "paged" else 288
+    npages = -(-T // ps)
+    pool = torch.full((B * npages + 2, ps * per_tok), float("nan"),
+                      device=cuda)
+    table = torch.randperm(B * npages + 2, generator=gen, device=cuda)[
+        :B * npages].reshape(B, npages).to(torch.int32)
+    for b, n in enumerate(lengths):
+        rows = pool[table[b].long()].reshape(-1, per_tok)
+        rows[:n] = randn(n, per_tok)
+        pool[table[b].long()] = rows.reshape(npages, -1)
+    if kind == "paged":
+        q = randn(B, 1, H, 256)
+        typed = pool.reshape(-1, ps, 2, 1, 256)
+        return (lambda: kops.paged_decode_attention(
+                    q, pool, table, lens, tokens_per_page=ps, n_kv=1,
+                    scale=256 ** -0.5),
+                lambda: tref.paged_decode_attention(q, typed, table, lens,
+                                                    256 ** -0.5), lens)
+    q = randn(B, 1, H, 288)
+    typed = pool.reshape(-1, ps, 288)
+    return (lambda: kops.paged_mla_decode_attention(
+                q, pool, table, lens, tokens_per_page=ps, latent_dim=256,
+                scale=288 ** -0.5),
+            lambda: tref.paged_mla_decode_attention(q, typed, table, lens,
+                                                    256, 288 ** -0.5), lens)
+
+
+@pytest.mark.parametrize("kind", ["paged", "contiguous", "mla"])
+@pytest.mark.parametrize("lengths,T", [([32768 - 3], 32768),
+                                       ([4096, 1001, 1, 0], 4096)])
+def test_f32_decode_matches_plain_at_the_packed_latent_geometry(
+        cuda, kind, lengths, T):
+    """The float32 split-KV body within 2e-5 of the plain version at the
+    long_context_pooling example's geometry (40 query heads on one kv head
+    of 256: three blocks of 16 rows) and minicpm3's MLA rows: one row at
+    context 32768, and ragged rows down to lengths 1 and 0 (which writes
+    0), NaN past every length; one counted launch a call."""
+    call, plain, _ = _f32_decode_call(cuda, kind, lengths, T, len(lengths))
+    counter = {"paged": kops.paged_decode_attention,
+               "contiguous": kops.decode_attention,
+               "mla": kops.paged_mla_decode_attention}[kind]
+    before = counter.launches
+    got = call()
+    assert counter.launches == before + 1
+    want = plain()
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    if lengths[-1] == 0:
+        assert not got[-1].any()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("kind", ["paged", "contiguous", "mla"])
+def test_f32_decode_is_sync_free_and_capturable(cuda, kind):
+    """The float32 wrappers read nothing back to the host (they run under
+    ``set_sync_debug_mode("error")``), and a call captured in a CUDA
+    graph, replayed after new lengths are written in place, equals an
+    eager call on those lengths."""
+    lengths = [4000, 1001, 77, 1]
+    call, _, lens = _f32_decode_call(cuda, kind, lengths, 4096, 7)
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    lens.copy_(torch.tensor([300, 0, 77, 1], dtype=torch.int32))
+    graph.replay()
+    want = call()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert not out[1].any()
+
+
+@pytest.mark.parametrize("K,M", [(256, 384), (48, 130)])
+def test_f32_wgrad_at_a_skewed_load_is_close_and_repeatable(cuda, K, M):
+    """90% of 24576 rows on one expert (22 chunks of that expert added in
+    order), an empty expert and rows past the groups: within 1e-4 of the
+    plain version, the same bits from two calls, and no host read (under
+    ``set_sync_debug_mode("error")``).  M = 130 takes the guarded element
+    loader."""
+    gen = torch.Generator(device=cuda).manual_seed(K)
+    N, E = 24576, 64
+    rest = int(N * 0.1) // (E - 1)
+    sizes = [rest] * E
+    sizes[E // 2] = N - rest * (E - 1) - 300       # 300 rows past the groups
+    sizes[3] = 0
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    x = torch.randn((N, K), generator=gen, device=cuda)
+    dy = torch.randn((N, M), generator=gen, device=cuda) * (E / N) ** 0.5
+    first = kops.moe_gemm_wgrad(x, dy, gs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = kops.moe_gemm_wgrad(x, dy, gs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = tref.moe_gemm_wgrad(x, dy, gs)
+    assert torch.equal(first, second)
+    assert not first[3].any()
+    torch.testing.assert_close(first, want, rtol=1e-4, atol=1e-4)
+

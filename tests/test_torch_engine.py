@@ -261,7 +261,8 @@ def test_serve_flags_not_ported_raise(flag, capsys):
 
 def _port_sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "serve_ab.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "serve_ab.py",
+                    ROOT / "kernel_ab.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),

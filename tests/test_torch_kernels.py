@@ -361,13 +361,17 @@ def test_bf16_gqa_kernels_refuse_what_they_lack(H, KV, D):
         pa.check_bf16_geometry(H, KV, D)
 
 
-def _split_and_merge(q, k, v, lengths, splits, scale):
-    """Flash-decoding in torch, as the bf16 decode kernels compute it: per
+def _split_and_merge(q, k, v, lengths, splits, scale, value_dim=None):
+    """Flash-decoding in torch, as the decode kernels compute it: per
     split the (m, l, acc) of its tokens below the length (m = -1e30, l =
     0 for a split with none), then ``out = sum_s e^(m_s - M) acc_s /
     sum_s e^(m_s - M) l_s`` over the splits with l_s > 0, 0 where there
     is none.  q [B,1,H,Dk]; k [B,T,KV,Dk], v [B,T,KV,Dv] dense (MLA: one
-    kv head whose value is the key row's latent prefix)."""
+    kv head whose value is the key row's latent prefix).  With ``v``
+    None the value is read from the key row itself, its first
+    ``value_dim`` elements, as the float32 body reads MLA's rows."""
+    if v is None:
+        v = k[..., :value_dim]
     B, _, H, Dk = q.shape
     T, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     qs = (q.float() * scale).to(q.dtype).float().reshape(B, KV, H // KV, Dk)
@@ -448,6 +452,45 @@ def test_split_and_merge_matches_the_plain_version_and_jax(kind, splits):
     np.testing.assert_allclose(got[1:].numpy(), np.asarray(jax_out)[1:],
                                **TOL)
     assert not got[0].any()                           # length 0 -> 0
+
+
+def _f32_splits():
+    """(id, kind, splits): the float32 plan's split counts for the two
+    cases' shapes on 132 and 16 SMs, and uneven counts."""
+    out = []
+    for kind, (B, H, KV, T) in (("gqa", (5, 8, 2, 640)),
+                                ("mla", (5, 12, 1, 630))):
+        plans = {pa.split_plan(B, H, KV, T, sm, torch.float32)[1]
+                 for sm in (132, 16)}
+        out += [(f"{kind}-f32-{s}", kind, s) for s in sorted(plans | {3, 7})]
+    return out
+
+
+@pytest.mark.parametrize("name,kind,splits", _f32_splits())
+def test_f32_split_and_merge_reads_the_value_from_the_key_row(name, kind,
+                                                              splits):
+    """The float32 body's form: MLA as one kv head for all H heads, the
+    value the key row's latent prefix read from the staged key row (no
+    value tensor), GQA with its own value rows; split as the float32 plan
+    splits (and unevenly), merged, within 2e-5 of the JAX oracle, with
+    splits that hold no token and a row of length 0 (which writes 0)."""
+    rng = np.random.default_rng(splits + 100)
+    (q, pages, table, lengths, k, v, scale, plain, oracle,
+     extra) = (_gqa_case if kind == "gqa" else _mla_case)(rng)
+    if kind == "mla":
+        got = _split_and_merge(_t(q), _t(k), None, _t(lengths), splits,
+                               scale, value_dim=extra[0])
+    else:
+        got = _split_and_merge(_t(q), _t(k), _t(v), _t(lengths), splits,
+                               scale)
+    jax_out = oracle(jnp.asarray(q), jnp.asarray(pages), jnp.asarray(table),
+                     jnp.asarray(lengths), *extra, scale)
+    np.testing.assert_allclose(got[1:].numpy(), np.asarray(jax_out)[1:],
+                               **TOL)
+    torch.testing.assert_close(
+        got, plain(_t(q), _t(pages), _t(table), _t(lengths), *extra, scale),
+        **TOL)
+    assert not got[0].any()
 
 
 # ---------------------------------------------------------------------------
