@@ -1146,7 +1146,7 @@ def fallback_kernel_phase(torch, kops, ref, ssd_scan_chunked):
                 q, k, v, D ** -0.5)),
             library_ms=lib, library=lib_name, library_all=lib_all,
             bound_ms=b_ms, bound_by=b_by))
-    # the tensor-core route's edges: T > S (an offset that is no multiple
+    # the wgmma body's edges: T > S (an offset that is no multiple
     # of the tile), S and T off the tile, every head dim, GQA groups
     for B, S, T, Hh, Kh, Dh in ((1, 100, 1000, 8, 2, 64),
                                 (2, 77, 77, 4, 4, 16),
@@ -5268,8 +5268,9 @@ def local_heads_kernel_rows(torch, kops, ref, geometries):
     """Rows 3 and 4 at phase 16's geometries ((label, B, S, T, [(H, KV)
     of the prefill, of the decode], D): a rank's heads), in bf16 and in
     float32 (the sharded steps' equality gates run float32): each against
-    its plain version (bf16 2e-2 and the row limit, float32 2e-5), then
-    timed beside its bound and SDPA."""
+    its plain version (bf16 2e-2 and the row limit, float32 2e-5; float32
+    flash also equal bit for bit across two calls), then timed beside its
+    bound and SDPA."""
     gen = torch.Generator(device="cuda").manual_seed(16)
     rows, errs = [], {}
     for (label, B, S, T, ((H, KV), (H1, KV1)), D), (dtype, tol) in (
@@ -5281,11 +5282,15 @@ def local_heads_kernel_rows(torch, kops, ref, geometries):
         scale, name, rms = D ** -0.5, str(dtype)[6:], row_limit(torch, dtype)
         q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
         shape = f"{label} B={B} S=T={S} H={H} KV={KV} D={D} {name}"
+        got = kops.flash_attention(q, k, v, scale=scale)
         errs["flash_attention"] = max(errs.get("flash_attention", 0.0),
                                       close_or_raise(
-            torch, f"flash {shape}", kops.flash_attention(q, k, v,
-                                                          scale=scale),
+            torch, f"flash {shape}", got,
             ref.flash_attention(q, k, v, scale), tol, rms))
+        if dtype == torch.float32 and not torch.equal(
+                got, kops.flash_attention(q, k, v, scale=scale)):
+            raise AssertionError(f"flash {shape}: two calls differ (the "
+                                 f"float32 body merges in a fixed order)")
         rows.append(flash_time_row(torch, kops, ref, shape, q, k, v, scale))
         q, ck, cv = randn(B, 1, H1, D), randn(B, T, KV1, D), randn(B, T, KV1,
                                                                    D)

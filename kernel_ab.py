@@ -1,26 +1,30 @@
 #!/usr/bin/env python3
-"""The float32 decode and weight-gradient kernels of trees of this repo,
-timed on one card, alternated.
+"""Kernels of trees of this repo timed on one card, alternated.
 
     python3 kernel_ab.py PARENT . . PARENT [--loads build/chip_smoke.json]
 
 Each argument is a checkout of the repo (for example the parent commit
 unpacked with ``git archive`` into a directory under ``/tmp``).  For each,
 in the order given, a fresh process builds that tree's kernels into the
-tree's own ``build/`` and times, through its public wrappers, the float32
-calls the paths make: row 1 (paged GQA) at the long_context_pooling
+tree's own ``build/`` and times, through its public wrappers, the calls
+the paths make: in float32 row 1 (paged GQA) at the long_context_pooling
 example's packed latent and at qwen3-moe's geometry, row 2 (paged MLA) at
 minicpm3's, row 3 (contiguous decode) at the sharded serve steps' rank
 geometries, and row 5w (the grouped GEMM's weight gradient) at phase 7's
 training shape under the skewed load and a router load (phase 7's first
 layer, read from ``--loads``, a ``chip_smoke.py`` report, else a seeded
-draw).  Inputs come from fixed seeds, so every tree sees the same ones.
-The timing is ``chip_smoke.py``'s (median of 20, L2 flushed, a spin
-ahead); each result is also held against the plain version (2e-5, or
-1e-4 for the weight gradient).  It prints one ``AB`` line per call and
-then each call's time per tree, and writes every figure, beside the
-card's name and power limit, to ``build/kernel_ab.json``.  Times
-move between cards and calls, so trees are compared only within one call.
+draw); row 4 (flash prefill) in float32 at the four rank geometries of
+the sharded serve steps and in bf16 at zamba2's S = T = 1024, gemma3's
+global layers (D = 256) and the same four ranks.  Inputs come from fixed
+seeds, so every tree sees the same ones.  The timing is
+``chip_smoke.py``'s (median of 20, L2 flushed, a spin ahead); each result
+is also held against the plain version (2e-5, 2e-2 in bf16, or 1e-4 for
+the weight gradient).  Beside each row 4 call the fastest SDPA backend is
+timed in the same process (``LIB`` lines; a yardstick the port never
+calls).  It prints one ``AB`` line per call and then each call's time per
+tree, and writes every figure, beside the card's name and power limit, to
+``build/kernel_ab.json``.  Times move between cards and calls, so trees
+are compared only within one call.
 """
 from __future__ import annotations
 
@@ -95,6 +99,31 @@ def _cases(torch, ref, kops, loads):
                     kops.decode_attention(q, ck, cv, lens, scale=D ** -0.5),
                     lambda q=q, ck=ck, cv=cv, lens=lens, D=D:
                     ref.decode_attention(q, ck, cv, lens, D ** -0.5), 2e-5))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, B, S, H, KV, D, dtype in (
+            ("moonshot rank of (2,2)", 2, 512, 8, 8, 128, torch.float32),
+            ("qwen3-14b rank of (1,4)", 4, 512, 10, 2, 128, torch.float32),
+            ("zamba2 rank of (1,4)", 4, 512, 8, 8, 64, torch.float32),
+            ("whisper rank of (1,4)", 4, 512, 3, 3, 64, torch.float32),
+            ("zamba2", 1, 1024, 32, 32, 64, torch.bfloat16),
+            ("gemma3 global", 4, 2048, 16, 8, 256, torch.bfloat16),
+            ("moonshot rank of (2,2)", 2, 512, 8, 8, 128, torch.bfloat16),
+            ("qwen3-14b rank of (1,4)", 4, 512, 10, 2, 128, torch.bfloat16),
+            ("zamba2 rank of (1,4)", 4, 512, 8, 8, 64, torch.bfloat16),
+            ("whisper rank of (1,4)", 4, 512, 3, 3, 64, torch.bfloat16)):
+        q, k, v = (randn(B, S, n, D).to(dtype) for n in (H, KV, KV))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        name = "f32" if dtype == torch.float32 else "bf16"
+        out.append((f"row 4 {name} {label} B={B} S=T={S} H {H} KV {KV} "
+                    f"D {D}",
+                    lambda q=q, k=k, v=v, D=D: kops.flash_attention(
+                        q, k, v, scale=D ** -0.5),
+                    lambda q=q, k=k, v=v, D=D: ref.flash_attention(
+                        q, k, v, D ** -0.5),
+                    2e-5 if dtype == torch.float32 else 2e-2,
+                    lambda qt=qt, kt=kt, vt=vt, D=D: sdpa(
+                        qt, kt, vt, is_causal=True, scale=D ** -0.5,
+                        enable_gqa=True)))
     N, K, M, E = 24576, 2048, 1408, 64
     x = randn(N, K)
     dy = randn(N, M) * (E / N) ** 0.5
@@ -129,7 +158,8 @@ def one(root: str, loads_path: str) -> None:
         rng = np.random.default_rng(7)
         p = np.exp(rng.standard_normal(64))
         loads = rng.multinomial(24576, p / p.sum()).tolist()
-    for label, call, plain, tol in _cases(torch, ref, kops, loads):
+    for label, call, plain, tol, *library in _cases(torch, ref, kops,
+                                                    loads):
         got, want = call().float(), plain().float()
         err = (got - want).abs()
         if not torch.isfinite(got).all() or (err > tol + tol * want.abs()
@@ -139,6 +169,9 @@ def one(root: str, loads_path: str) -> None:
                                  f"{err.max().item():.3g}, tolerance {tol})")
         print(f"AB {label} | {cs.time_ms(torch, call):.4f} ms "
               f"err {err.max().item():.3g}", flush=True)
+        if library:
+            ms, backend, _ = cs.library_sdpa(torch, library[0])
+            print(f"LIB {label} | {ms:.4f} ms {backend}", flush=True)
 
 
 def main(argv) -> int:
@@ -153,7 +186,7 @@ def main(argv) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
-    times = defaultdict(list)
+    times, library = defaultdict(list), defaultdict(list)
     for root in argv:
         run = subprocess.run([sys.executable, __file__, "--one", root, loads],
                              capture_output=True, text=True)
@@ -162,15 +195,20 @@ def main(argv) -> int:
             sys.stderr.write(run.stderr[-4000:])
             return run.returncode
         for line in run.stdout.splitlines():
-            if line.startswith("AB "):
-                label, rest = line[3:].split(" | ")
-                times[label].append((root, float(rest.split()[0])))
+            for tag, into in (("AB ", times), ("LIB ", library)):
+                if line.startswith(tag):
+                    label, rest = line[len(tag):].split(" | ")
+                    into[label].append((root, float(rest.split()[0]),
+                                        rest.split()[-1]))
     for label, runs in times.items():
-        print(f"{label}: " + ", ".join(f"{r} {ms:.4f}" for r, ms in runs))
+        print(f"{label}: " + ", ".join(f"{r} {ms:.4f}" for r, ms, _ in runs)
+              + "".join(f"; sdpa {b} {ms:.4f}" for _, ms, b in
+                        library.get(label, ())))
     out = HERE / "build"
     out.mkdir(exist_ok=True)
     (out / "kernel_ab.json").write_text(json.dumps(
-        {"card": card, "trees": argv, "ms": times}, indent=1))
+        {"card": card, "trees": argv, "ms": times, "library_ms": library},
+        indent=1))
     return 0
 
 

@@ -458,6 +458,79 @@ def test_flash_kernel_edges_bf16(cuda, B, S, T, H, KV, D):
     _assert_rows_close(got, want, torch.bfloat16)
 
 
+#: the sharded steps' prefills at a rank's heads (B, S = T, H, KV, D):
+#: moonshot of (2,2), qwen3-14b, zamba2 and whisper of (1,4)
+RANK_FLASH = [(2, 512, 8, 8, 128), (4, 512, 10, 2, 128), (4, 512, 8, 8, 64),
+              (4, 512, 3, 3, 64)]
+#: the T > S and ragged edges of ``test_flash_kernel_edges_bf16``
+FLASH_EDGES = [(1, 100, 1000, 8, 2, 64), (2, 77, 77, 4, 4, 16),
+               (1, 190, 250, 8, 2, 16), (1, 190, 250, 8, 2, 32),
+               (1, 190, 250, 8, 2, 64), (1, 190, 250, 8, 2, 128),
+               (1, 4096, 4096, 32, 32, 64), (1, 190, 250, 16, 8, 256),
+               (2, 2048, 2048, 16, 8, 256)]
+
+
+def _flash_f32_twice(cuda, B, S, T, H, KV, D):
+    """The float32 body on seeded inputs: within 2e-5 of the plain
+    version, one launch a call, and two calls equal bit for bit (the
+    column warps' partials merge in a fixed order, no atomics)."""
+    gen = torch.Generator(device=cuda).manual_seed(B * S + T + H + D)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D)))
+    before = kops.flash_attention.launches
+    got = kops.flash_attention(q, k, v, scale=D ** -0.5)
+    again = kops.flash_attention(q, k, v, scale=D ** -0.5)
+    assert kops.flash_attention.launches == before + 2
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, tref.flash_attention(q, k, v, D ** -0.5),
+                               rtol=2e-5, atol=2e-5)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("B,S,H,KV,D", RANK_FLASH)
+def test_flash_f32_rank_geometries(cuda, B, S, H, KV, D):
+    _flash_f32_twice(cuda, B, S, S, H, KV, D)
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,D", FLASH_EDGES)
+def test_flash_f32_edges(cuda, B, S, T, H, KV, D):
+    _flash_f32_twice(cuda, B, S, T, H, KV, D)
+
+
+@pytest.mark.parametrize("D", (16, 32, 64, 128, 256))
+@pytest.mark.parametrize("B,S,T,H,KV", [(1, 1, 1, 1, 1), (1, 5, 9, 2, 1),
+                                        (2, 129, 300, 4, 2),
+                                        (3, 255, 255, 2, 2)])
+def test_flash_bf16_head_dims_edges(cuda, B, S, T, H, KV, D):
+    """The wgmma body at every head dim: one row, a prefix offset, a q
+    tile one row past 128 (its second warpgroup reads only TMA fill), S
+    one short of two tiles; 2e-2 and each row within the row limit."""
+    gen = torch.Generator(device=cuda).manual_seed(S + T + D)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               .to(torch.bfloat16)
+               for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D)))
+    before = kops.flash_attention.launches
+    got = kops.flash_attention(q, k, v, scale=D ** -0.5)
+    assert kops.flash_attention.launches == before + 1
+    want = tref.flash_attention(q, k, v, D ** -0.5)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    _assert_rows_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_flash_plan_matches_library(cuda, dtype):
+    """``flash_plan`` (the host mirror) against the plan the built library
+    reports for every head dim of the body."""
+    from repro_torch.kernels import flash_attention as fa
+    for D in fa.HEAD_DIMS[dtype]:
+        plan = fa.flash_plan(D, dtype)
+        assert fa.kernel_plan(D, dtype) == {
+            key: plan[key] for key in ("rows", "key_tile", "stages",
+                                       "warps", "smem_bytes")}, D
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 def test_contiguous_decode_kernel_edges(cuda, dtype, tol):

@@ -501,6 +501,11 @@ def test_f32_split_and_merge_reads_the_value_from_the_key_row(name, kind,
     (1, 16, 16, 4, 4, 16),
     (2, 12, 20, 4, 2, 32),           # prefix offset T - S = 8
     (1, 33, 33, 8, 1, 16),           # ragged tiles, MQA
+    # the sharded steps' rank geometries, scaled down: S < T with an
+    # offset (37, 33) that is no multiple of any tile of either body
+    (1, 24, 61, 8, 8, 128),          # moonshot's rank of (2,2)
+    (1, 24, 61, 10, 2, 128),         # qwen3-14b's rank of (1,4)
+    (1, 20, 53, 16, 8, 256),         # gemma3's global layers
 ])
 def test_plain_flash_matches_jax_oracle_and_pallas(B, S, T, H, KV, D):
     rng = np.random.default_rng(S * 10 + T)
