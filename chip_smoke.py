@@ -357,6 +357,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -1330,6 +1331,36 @@ def library_grouped_mm(torch, a, b, offs):
     return (lambda: fn(a, b, offs=offs)), None
 
 
+def bf16_gemm_report(mgk, D, F, E):
+    """Lines on the bf16 grouped GEMM bodies as built: each instance's
+    registers and spills from the build's ``-Xptxas -v`` report, and the
+    plan (tile, stages, dynamic shared memory) each of phase 8's calls is
+    launched with, from the library."""
+    from repro_torch.kernels import build
+    text = build.library_path(build.CSRC / "moe_gemm.cu").with_suffix(
+        ".so.log").read_text()
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        found = re.search(r"grouped_gemm_bf16_kernelILi(\d)ELi(\d+)ELi(\d+)"
+                          r"ELb(\d)", line)
+        if found:
+            op, bm, bn, tma = found.groups()
+            name = (f"{mgk.OPS[int(op)]} {bm}x{bn} "
+                    f"{mgk.ROUTES[int(tma)]}")
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line:
+            out.append(f"bf16 body {name}: {line.split(':', 1)[1].strip()}; "
+                       f"{spill}")
+            name = None
+    for op, k, m in (("forward", D, F), ("dgrad", F, D), ("wgrad", D, F),
+                     ("forward", F, D), ("dgrad", D, F), ("wgrad", F, D)):
+        cols = k if op == "dgrad" else m
+        plan = mgk.kernel_plan(op, "tma", cols, E, kdim=k)
+        out.append(f"bf16 plan {op} K={k} M={m}: {plan}")
+    return out
+
+
 def moe_kernel_phase(torch, np, kops, ref, loads):
     """Phase 8: the grouped GEMM at the shapes phase 7 gives it (x
     [8*512*top-6, K], w [E, K, M] with (K, M) = (d_model, d_ff) for gate
@@ -1337,8 +1368,9 @@ def moe_kernel_phase(torch, np, kops, ref, loads):
     [E] array per layer), the first of them with 4 experts emptied, and a
     small ragged shape with empty experts: forward, input gradient and
     weight gradient against the plain versions (float32 within 1e-4, bf16
-    within 2e-2; the float32 weight gradient also equal bit for bit across
-    two calls).  Then timed in both types at the gate/up shape and
+    within 2e-2; the weight gradient in both types also equal bit for bit
+    across two calls; each bf16 call's route logged, and the bf16 bodies'
+    registers, spills and plans, ``bf16_gemm_report``).  Then timed in both types at the gate/up shape and
     ``loads[0]`` (the weight gradient at the skewed load too,
     ``TIMED_LOADS``), beside the bound and one ``torch._grouped_mm`` call
     where the card's torch takes the type.  Inputs at the model's scales:
@@ -1347,6 +1379,7 @@ def moe_kernel_phase(torch, np, kops, ref, loads):
     unit weights a K = 2048 sum carries f32 rounding of ~1e-4 in any
     order)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_gemm as mgk
     cfg = get_config(TRAIN_MODEL)
     N = TRAIN_BATCH * TRAIN_SEQ * cfg.experts_per_token
     D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
@@ -1375,23 +1408,27 @@ def moe_kernel_phase(torch, np, kops, ref, loads):
                   * (len(sizes) / n) ** 0.5).to(dtype)
             what = f"moe_gemm {label} N={n} K={k} M={m} E={len(sizes)} " \
                    f"{dtype}"
-            e1 = close_or_raise(torch, what + " forward",
-                                kops.moe_gemm(x, w, gs),
+            out = kops.moe_gemm(x, w, gs)
+            e1 = close_or_raise(torch, what + " forward", out,
                                 ref.moe_gemm(x, w, gs), tol)
-            e2 = close_or_raise(torch, what + " dgrad",
-                                kops.moe_gemm_dgrad(dy, w, gs),
+            dx = kops.moe_gemm_dgrad(dy, w, gs)
+            e2 = close_or_raise(torch, what + " dgrad", dx,
                                 ref.moe_gemm(dy, w.transpose(1, 2), gs), tol)
             dw = kops.moe_gemm_wgrad(x, dy, gs)
             e3 = close_or_raise(torch, what + " wgrad", dw,
                                 ref.moe_gemm_wgrad(x, dy, gs), tol)
-            if dtype == torch.float32:
-                # the chunks of an expert add into dw in a fixed order
-                if not torch.equal(dw, kops.moe_gemm_wgrad(x, dy, gs)):
-                    raise AssertionError(f"{what} wgrad: two calls on the "
-                                         f"same inputs differ")
-                log(f"kernel check {what} wgrad: two calls equal bit for "
-                    f"bit")
-            del dw
+            # float32: the chunks of an expert add into dw in a fixed
+            # order; bf16: one block sums each dw tile
+            if not torch.equal(dw, kops.moe_gemm_wgrad(x, dy, gs)):
+                raise AssertionError(f"{what} wgrad: two calls on the "
+                                     f"same inputs differ")
+            log(f"kernel check {what} wgrad: two calls equal bit for bit")
+            if dtype == torch.bfloat16:
+                log(f"kernel route {what}: forward "
+                    f"{mgk.kernel_route(x, w, out)}, dgrad "
+                    f"{mgk.kernel_route(dy, w, dx)}, wgrad "
+                    f"{mgk.kernel_route(x, dy, dw)}")
+            del out, dx, dw
             if dtype == torch.float32:
                 errs["moe_gemm"] = max(errs["moe_gemm"], e1, e2)
                 errs["moe_gemm_wgrad"] = max(errs["moe_gemm_wgrad"], e3)
@@ -1431,6 +1468,8 @@ def moe_kernel_phase(torch, np, kops, ref, loads):
                     library_ms=None if lib is None else time_ms(torch, lib),
                     library_note=why, bound_ms=b_ms, bound_by=b_by))
             del x, w, dy
+    for line in bf16_gemm_report(mgk, D, F, E):
+        log(line)
     for r in rows:
         lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
                else f"none ({r['library_note']})")

@@ -10,18 +10,25 @@ tree's own ``build/`` and times, through its public wrappers, the calls
 the paths make: in float32 row 1 (paged GQA) at the long_context_pooling
 example's packed latent and at qwen3-moe's geometry, row 2 (paged MLA) at
 minicpm3's, row 3 (contiguous decode) at the sharded serve steps' rank
-geometries, and row 5w (the grouped GEMM's weight gradient) at phase 7's
-training shape under the skewed load and a router load (phase 7's first
-layer, read from ``--loads``, a ``chip_smoke.py`` report, else a seeded
-draw); row 4 (flash prefill) in float32 at the four rank geometries of
-the sharded serve steps and in bf16 at zamba2's S = T = 1024, gemma3's
-global layers (D = 256) and the same four ranks.  Inputs come from fixed
-seeds, so every tree sees the same ones.  The timing is
-``chip_smoke.py``'s (median of 20, L2 flushed, a spin ahead); each result
-is also held against the plain version (2e-5, 2e-2 in bf16, or 1e-4 for
-the weight gradient).  Beside each row 4 call the fastest SDPA backend is
-timed in the same process (``LIB`` lines; a yardstick the port never
-calls).  It prints one ``AB`` line per call and then each call's time per
+geometries; row 4 (flash prefill) in float32 at the four rank geometries
+of the sharded serve steps and in bf16 at zamba2's S = T = 1024,
+gemma3's global layers (D = 256) and the same four ranks; and the grouped
+GEMM at phase 7's training shape (N = 24576, K = 2048, M = 1408, E = 64)
+in float32 and bf16: row 5w (the weight gradient) under the skewed load
+and a router load (phase 7's first layer, read from ``--loads``, a
+``chip_smoke.py`` report, else a seeded draw), row 5 (forward and input
+gradient) under the router load.  Inputs come from fixed seeds, so every
+tree sees the same ones.  The timing is ``chip_smoke.py``'s (median of
+20, L2 flushed, a spin ahead); each result is also held against the
+plain version (2e-5, 2e-2 in bf16, or 1e-4 for float32 row 5).  Beside
+each row 4 call the fastest SDPA backend, beside each row 5 / 5w call
+``torch._grouped_mm`` on the same operands, is timed in the same process
+(``LIB`` lines; yardsticks the port never calls).
+
+    python3 kernel_ab.py --ablate [--loads build/chip_smoke.json]
+
+times this tree's bf16 grouped GEMM body whole and with its products, its
+epilogue or both removed (``ABLATIONS``), on the bf16 row 5 / 5w calls.  It prints one ``AB`` line per call and then each call's time per
 tree, and writes every figure, beside the card's name and power limit, to
 ``build/kernel_ab.json``.  Times move between cards and calls, so trees
 are compared only within one call.
@@ -127,14 +134,39 @@ def _cases(torch, ref, kops, loads):
     N, K, M, E = 24576, 2048, 1408, 64
     x = randn(N, K)
     dy = randn(N, M) * (E / N) ** 0.5
+    w = randn(E, K, M) * K ** -0.5
     rest = int(N * 0.1) // (E - 1)
     skewed = [rest] * E
     skewed[E // 2] = N - rest * (E - 1)
-    for name, sizes in (("skewed load", skewed), ("router load", loads)):
-        gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
-        out.append((f"row 5w wgrad N={N} K={K} M={M} E={E} {name}",
-                    lambda gs=gs: kops.moe_gemm_wgrad(x, dy, gs),
-                    lambda gs=gs: ref.moe_gemm_wgrad(x, dy, gs), 1e-4))
+    for dtype, name, tol in ((torch.float32, "f32", 1e-4),
+                             (torch.bfloat16, "bf16", 2e-2)):
+        xt, dyt, wt = (t.to(dtype) for t in (x, dy, w))
+        for load, sizes in (("skewed load", skewed), ("router load", loads)):
+            gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+            offs = torch.cumsum(gs, 0, dtype=torch.int32)
+            # every tensor bound now: the loops rebind their names
+            calls = [("5w wgrad",
+                      lambda gs=gs, a=xt, b=dyt: kops.moe_gemm_wgrad(a, b, gs),
+                      lambda gs=gs, a=xt, b=dyt: ref.moe_gemm_wgrad(a, b, gs),
+                      (xt.T, dyt))]
+            if load == "router load":
+                calls += [("5 forward",
+                           lambda gs=gs, a=xt, b=wt: kops.moe_gemm(a, b, gs),
+                           lambda gs=gs, a=xt, b=wt: ref.moe_gemm(a, b, gs),
+                           (xt, wt)),
+                          ("5 dgrad",
+                           lambda gs=gs, a=dyt, b=wt: kops.moe_gemm_dgrad(
+                               a, b, gs),
+                           lambda gs=gs, a=dyt, b=wt: ref.moe_gemm(
+                               a, b.transpose(1, 2), gs),
+                           (dyt, wt.transpose(1, 2)))]
+            for row, call, plain, lib_args in calls:
+                # torch._grouped_mm on the same operands (one() asks
+                # chip_smoke.library_grouped_mm): the library yardstick
+                label = (f"row {row} {name} N={N} K={K} M={M} E={E} "
+                         f"{load}")
+                out.append((label, call, plain, tol,
+                            ("_grouped_mm", lib_args + (offs,))))
     return out
 
 
@@ -169,9 +201,105 @@ def one(root: str, loads_path: str) -> None:
                                  f"{err.max().item():.3g}, tolerance {tol})")
         print(f"AB {label} | {cs.time_ms(torch, call):.4f} ms "
               f"err {err.max().item():.3g}", flush=True)
-        if library:
+        if library and isinstance(library[0], tuple):
+            backend, args = library[0]
+            lib_call, why = cs.library_grouped_mm(torch, *args)
+            if lib_call is None:
+                print(f"LIB {label} | none {why}", flush=True)
+            else:
+                print(f"LIB {label} | {cs.time_ms(torch, lib_call):.4f} ms "
+                      f"{backend}", flush=True)
+        elif library:
             ms, backend, _ = cs.library_sdpa(torch, library[0])
             print(f"LIB {label} | {ms:.4f} ms {backend}", flush=True)
+
+
+#: ablations of the bf16 grouped GEMM body (``--ablate``): each a list
+#: of (text of ``csrc/moe_gemm.cu``, its replacement)
+_PRODUCTS = """          hopper::wgmma_ss<BN, TA, TB>(acc[ms], desc_a(st, kk, ms),
+                                       desc_b(st, kk), s > 0 || kk > 0);"""
+_EPILOGUE = ("    if (row_base >= row_lim) continue;        "
+             "// no row of this warpgroup")
+ABLATIONS = {"whole": [], "no products": [(_PRODUCTS, "          {}")],
+             "no epilogue": [(_EPILOGUE, "    continue;")],
+             "loads only": [(_PRODUCTS, "          {}"),
+                            (_EPILOGUE, "    continue;")]}
+
+
+def ablate(loads_path: str) -> None:
+    """Where the bf16 grouped GEMM's time goes: this tree's
+    ``csrc/moe_gemm.cu`` built as it is and with its products, its
+    epilogue or both removed (``ABLATIONS``; the results are wrong, only
+    the times count), each timed on the bf16 row 5 / 5w calls at phase
+    7's shape, the variants in turns and then in reverse.  Prints one
+    ``ABL`` line per call."""
+    import ctypes
+    import shutil
+
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(HERE / "src"))
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels import ops as kops
+
+    real = mg.load_library()
+    text = mg.SOURCE.read_text()
+    out = HERE / "build" / "ablate"
+    out.mkdir(parents=True, exist_ok=True)
+    for header in build.CSRC.glob("*.cuh"):
+        shutil.copy(header, out / header.name)
+    jobs = {}
+    for name, edits in ABLATIONS.items():
+        variant = text
+        for old, new in edits:
+            if old not in variant:
+                raise ValueError(f"ablation {name!r}: csrc/moe_gemm.cu no "
+                                 f"longer holds {old.strip()[:40]!r}")
+            variant = variant.replace(old, new)
+        src = out / f"moe_gemm_{name.replace(' ', '_')}.cu"
+        src.write_text(variant)
+        jobs[name] = build._start(src, out)          # all nvcc at once
+    libs = {}
+    for name, job in jobs.items():
+        lib = ctypes.CDLL(str(build._finish(*job)))
+        for fn in ("moe_gemm", "moe_gemm_wgrad"):
+            getattr(lib, fn).argtypes = getattr(real, fn).argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    N, K, M, E = 24576, 2048, 1408, 64
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    x = torch.randn((N, K), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((E, K, M), generator=gen, device="cuda")
+         * K ** -0.5).bfloat16()
+    dy = (torch.randn((N, M), generator=gen, device="cuda")
+          * (E / N) ** 0.5).bfloat16()
+    if loads_path:
+        router = json.loads(Path(loads_path).read_text())["train"]["loads"][0]
+    else:
+        rng = np.random.default_rng(7)
+        p = np.exp(rng.standard_normal(E))
+        router = rng.multinomial(N, p / p.sum()).tolist()
+    rest = int(N * 0.1) // (E - 1)
+    skewed = [rest] * E
+    skewed[E // 2] = N - rest * (E - 1)
+    for load, sizes in (("router load", router), ("skewed load", skewed)):
+        gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        calls = [("wgrad", lambda gs=gs: kops.moe_gemm_wgrad(x, dy, gs))]
+        if load == "router load":
+            calls += [("forward", lambda gs=gs: kops.moe_gemm(x, w, gs)),
+                      ("dgrad", lambda gs=gs: kops.moe_gemm_dgrad(dy, w, gs))]
+        for call_name, call in calls:
+            times = defaultdict(list)
+            for name in list(libs) + list(libs)[::-1]:
+                mg.load_library = lambda lib=libs[name]: lib
+                times[name].append(cs.time_ms(torch, call))
+            mg.load_library = lambda: real
+            print(f"ABL bf16 {call_name} {load} | " + ", ".join(
+                f"{name} {a:.4f} / {b:.4f}" for name, (a, b) in
+                times.items()), flush=True)
 
 
 def main(argv) -> int:
@@ -182,6 +310,9 @@ def main(argv) -> int:
     if "--loads" in argv:
         i = argv.index("--loads")
         loads, argv = argv[i + 1], argv[:i] + argv[i + 2:]
+    if argv == ["--ablate"]:
+        ablate(loads)
+        return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
@@ -196,14 +327,14 @@ def main(argv) -> int:
             return run.returncode
         for line in run.stdout.splitlines():
             for tag, into in (("AB ", times), ("LIB ", library)):
-                if line.startswith(tag):
+                if line.startswith(tag) and " | none " not in line:
                     label, rest = line[len(tag):].split(" | ")
                     into[label].append((root, float(rest.split()[0]),
                                         rest.split()[-1]))
     for label, runs in times.items():
         print(f"{label}: " + ", ".join(f"{r} {ms:.4f}" for r, ms, _ in runs)
-              + "".join(f"; sdpa {b} {ms:.4f}" for _, ms, b in
-                        library.get(label, ())))
+              + "".join(f"; {'' if b == '_grouped_mm' else 'sdpa '}{b} "
+                        f"{ms:.4f}" for _, ms, b in library.get(label, ())))
     out = HERE / "build"
     out.mkdir(exist_ok=True)
     (out / "kernel_ab.json").write_text(json.dumps(

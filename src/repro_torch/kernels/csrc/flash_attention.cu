@@ -483,7 +483,8 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int c = 0; c < P::NCB; ++c)
       hopper::tma_store_4d(&to, q_s + c * kBQ * RB + 64 * cw * RB, c * BC,
                            head, wg_row0, b);
-    hopper::tma_store_commit_and_wait();
+    hopper::bulk_commit();
+    hopper::bulk_wait_read();
   }
 }
 

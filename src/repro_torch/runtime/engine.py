@@ -68,8 +68,11 @@ burn-rate monitoring (``config.slo``) and the flight recorder
 bit-exactly with ``attach_replay_clock``.  With none attached, each
 site in the step loop is one ``is not None`` check.
 
-What is not ported yet raises ``NotImplementedError`` at construction:
-the audio and sliding-window families.
+Sliding-window and audio (encoder-decoder) models raise
+``NotImplementedError`` at construction, mirroring the reference engine's
+own limits: its runner slices the ring cache on the wrong axis and
+prefills whisper with no encoder frames (ROADMAP "Not port items"); the
+Model path (``models/model.py``) runs both families.
 """
 from __future__ import annotations
 

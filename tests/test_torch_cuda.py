@@ -1096,3 +1096,153 @@ def test_f32_wgrad_at_a_skewed_load_is_close_and_repeatable(cuda, K, M):
     assert not first[3].any()
     torch.testing.assert_close(first, want, rtol=1e-4, atol=1e-4)
 
+
+
+# ---------------------------------------------------------------------------
+# the bf16 grouped GEMM body (wgmma fed by TMA, persistent)
+# ---------------------------------------------------------------------------
+
+MOE_PLAN_SHAPES = [(2048, 1408), (1408, 2048), (64, 96), (136, 200),
+                   (48, 130), (256, 384)]
+
+
+def test_moe_gemm_plan_matches_library(cuda):
+    """``gemm_plan`` (the host mirror) against the plan the built library
+    reports for every use, route and shape; ``gemm_route`` against the
+    route the library takes for aligned and unaligned operands."""
+    from repro_torch.kernels import moe_gemm as mg
+    for op in mg.OPS:
+        for route in mg.ROUTES:
+            for k, m in MOE_PLAN_SHAPES:
+                cols = k if op == "dgrad" else m
+                for experts in (1, 64, 128):
+                    plan = mg.gemm_plan(torch.bfloat16, route, op, cols,
+                                        experts, kdim=k)
+                    assert mg.kernel_plan(op, route, cols, experts,
+                                          kdim=k) == {
+                        key: plan[key] for key in (
+                            "rows", "cols", "depth", "stages", "warps",
+                            "smem_bytes")}
+    for rows, k, m, offset in ((300, 64, 96, 0), (64, 36, 130, 0),
+                               (300, 64, 96, 1), (1000, 136, 200, 0)):
+        a = torch.zeros(rows * k + 8, dtype=torch.bfloat16,
+                        device=cuda)[offset:offset + rows * k].view(rows, k)
+        b = torch.zeros((3, k, m), dtype=torch.bfloat16, device=cuda)
+        c = torch.zeros((rows, m), dtype=torch.bfloat16, device=cuda)
+        assert mg.kernel_route(a, b, c) == mg.gemm_route(
+            torch.bfloat16, rows, k, m, a.data_ptr(), b.data_ptr(),
+            c.data_ptr())
+    assert mg.kernel_route(a, b, c) == "tma"
+
+
+def _bf16_moe_inputs(cuda, N, K, M, sizes, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x, dy = (torch.randn(shape, generator=gen, device=cuda)
+             for shape in ((N, K), (N, M)))
+    w = torch.randn((len(sizes), K, M), generator=gen, device=cuda) \
+        * K ** -0.5
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    return x, dy, w, gs
+
+
+@pytest.mark.parametrize("N,K,M,sizes", [
+    (600, 128, 256, [60, 200, 40, 300]),     # tiles whose second
+                                             # warpgroup lies past the expert
+    (1000, 136, 200, [129, 500, 0, 371]),    # K, M off the 64 / 128 edges,
+                                             # 16-byte aligned (TMA)
+    (4200, 128, 256, [10, 4000, 12, 178]),   # under 16 rows beside 4000
+    (4200, 136, 200, [7, 4000, 15, 170]),
+], ids=["wg-past-expert", "K136-M200", "small-beside-4000",
+        "small-beside-4000-K136"])
+def test_bf16_moe_gemm_edges(cuda, N, K, M, sizes):
+    """The bf16 body's edges on the TMA route, through autograd: forward,
+    input gradient and weight gradient within 2e-2 of the plain versions,
+    rows past the groups 0, an empty expert's gradient 0."""
+    from repro_torch.kernels import moe_gemm as mg
+    x, dy, w = (t.to(torch.bfloat16) for t in
+                _bf16_moe_inputs(cuda, N, K, M, sizes, N + K)[:3])
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    out = kops.moe_gemm(xg, wg, gs)
+    assert mg.kernel_route(x, w, out) == "tma"
+    out.backward(dy)
+    covered = sum(sizes)
+    for got, want in ((out, tref.moe_gemm(x, w, gs)),
+                      (xg.grad, tref.moe_gemm(dy, w.transpose(1, 2), gs)),
+                      (wg.grad, tref.moe_gemm_wgrad(x, dy, gs))):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+    assert not out[covered:].any() and not xg.grad[covered:].any()
+    for e, n in enumerate(sizes):
+        if n == 0:
+            assert not wg.grad[e].any()
+
+
+@pytest.mark.parametrize("K,M", [(128, 256), (136, 200), (36, 130)],
+                         ids=["tma", "tma-off-edges", "guarded"])
+def test_bf16_moe_gemm_neighbours_of_1e4_do_not_leak(cuda, K, M):
+    """Experts of 10, 12 and 178 rows whose neighbours (an expert of 300
+    rows, one of 4000 and the rows past the groups) hold 1e4 in x and dy:
+    a tile or slice that read a row across an expert's edge would move
+    the watched experts' outputs and gradients by ~1e4.  The watched ones
+    within 2e-2 of the plain versions, the 1e4 ones within 2e-2 of their
+    own scale, the rows past the groups 0."""
+    sizes = [300, 10, 4000, 12, 178]
+    N = sum(sizes) + 20
+    x, dy, w, gs = _bf16_moe_inputs(cuda, N, K, M, sizes, 29)
+    off = np.concatenate([[0], np.cumsum(sizes), [N]])
+    for e in (0, 2, 5):                       # 5: the rows past the groups
+        x[off[e]:off[e + 1]] = 1e4
+        dy[off[e]:off[e + 1]] = 1e4
+    x, dy, w = (t.to(torch.bfloat16) for t in (x, dy, w))
+    got = (kops.moe_gemm(x, w, gs), kops.moe_gemm_dgrad(dy, w, gs),
+           kops.moe_gemm_wgrad(x, dy, gs))
+    want = (tref.moe_gemm(x, w, gs), tref.moe_gemm(dy, w.transpose(1, 2), gs),
+            tref.moe_gemm_wgrad(x, dy, gs))
+    for g in got:
+        assert torch.isfinite(g).all()
+    for e in (1, 3, 4):                       # the watched experts
+        rows = slice(off[e], off[e + 1])
+        for g, wv in ((got[0][rows], want[0][rows]),
+                      (got[1][rows], want[1][rows]), (got[2][e], want[2][e])):
+            torch.testing.assert_close(g.float(), wv.float(), rtol=2e-2,
+                                       atol=2e-2)
+    for e in (0, 2):                          # the 1e4 experts
+        rows = slice(off[e], off[e + 1])
+        for g, wv in ((got[0][rows], want[0][rows]),
+                      (got[1][rows], want[1][rows]), (got[2][e], want[2][e])):
+            err = (g.float() - wv.float()).abs().max()
+            assert err <= 2e-2 * wv.float().abs().max()
+    assert not got[0][off[5]:].any() and not got[1][off[5]:].any()
+
+
+@pytest.mark.parametrize("K,M", [(256, 384), (48, 130)])
+def test_bf16_wgrad_at_a_skewed_load_is_close_and_repeatable(cuda, K, M):
+    """90% of 24576 rows on one expert (heaviest first from the counter),
+    an empty expert and rows past the groups: within 2e-2 of the plain
+    version, the same bits from two calls (one f32 sum an output in one
+    block), and no host read (under ``set_sync_debug_mode("error")``).
+    M = 130 takes the guarded element loader."""
+    gen = torch.Generator(device=cuda).manual_seed(K)
+    N, E = 24576, 64
+    rest = int(N * 0.1) // (E - 1)
+    sizes = [rest] * E
+    sizes[E // 2] = N - rest * (E - 1) - 300       # 300 rows past the groups
+    sizes[3] = 0
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    x = torch.randn((N, K), generator=gen, device=cuda).to(torch.bfloat16)
+    dy = (torch.randn((N, M), generator=gen, device=cuda)
+          * (E / N) ** 0.5).to(torch.bfloat16)
+    first = kops.moe_gemm_wgrad(x, dy, gs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = kops.moe_gemm_wgrad(x, dy, gs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = tref.moe_gemm_wgrad(x, dy, gs)
+    assert torch.equal(first, second)
+    assert not first[3].any()
+    torch.testing.assert_close(first.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)

@@ -241,7 +241,7 @@ def test_fallback_streams_equal_live_jax_engine(which, k):
 @pytest.mark.parametrize("flag", [["--arch", "qwen3-14b"],
                                   ["--multi-pod"],
                                   ["--dry-run"]])
-def test_serve_flags_not_ported_raise(flag, capsys):
+def test_serve_dry_run_flags_print_their_records(flag, capsys):
     """The dry-run surface, once refused here, is ported
     (``launch/dryrun.py``; ``tests/test_torch_sharding.py`` holds its
     bytes against the reference's rules): with each flag the dry-run

@@ -168,11 +168,10 @@ def test_pool_row_ops_match():
                                            jnp.asarray(ids))))
 
 
-def test_swap_tier_and_resize_are_not_ported():
-    """Named for when the port raised here; the swap tier and resize are
-    ported now: a swap-out, a grow, a shrink and the fault-in leave the
-    reference's tables and free lists (``tests/test_torch_elastic.py``
-    holds the full sequences)."""
+def test_swap_tier_and_resize_match_the_reference():
+    """A swap-out, a grow, a shrink and the fault-in leave the reference's
+    tables and free lists (``tests/test_torch_elastic.py`` holds the full
+    sequences)."""
     jv, tv = _virts(budget=8)
     for v in (jv, tv):
         v.register_request(0, MOE, 3)
