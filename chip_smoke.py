@@ -38,7 +38,13 @@ other than 0) if any phase fails:
              1e-3, bf16 ``y`` within 2e-2, ``h`` within 1e-3, with and
              without ``h0``) at the zamba2 / mamba2 geometries, and at
              64 chunks (S = 4096, chunk 64), a chunk of 8, G = 2 and
-             B = 2 with ``h0``; the pool write (``paged_kv_write``) bit
+             B = 2 with ``h0``; the SSD scan's backward
+             (``ssd_scan_bwd``) against autograd of the chunked form, each
+             gradient within 1e-3 (float32) or 2e-2 (bf16) of its scale
+             and equal bit for bit across two calls, at both geometries
+             (S = 1024, with and without ``h0`` and ``dh``), the train
+             shape (8 x 512), chunks of 8 and 64 with 8 chunks, G = 2 and
+             a zero ``dh``; the pool write (``paged_kv_write``) bit
              for bit against its plain version (-1 pages, an id past the
              pool, f32 rows into a bf16 pool, an odd row width, 512 rows)
              and under ``set_sync_debug_mode("error")``; then times
@@ -47,7 +53,9 @@ other than 0) if any phase fails:
              each SDPA backend that takes it (a yardstick only: the port
              never calls it; the fastest is ``library_ms``), beside the
              bound (the paged decode kernels also in float32 over 16 KiB
-             f32 pages at B = 4; the SSD scan at S = 1024 and 512);
+             f32 pages at B = 4; the SSD scan at S = 1024 and 512, its
+             backward at the train shape in float32 and at S = 1024 in
+             bf16);
 4. small   — float32 smoke-size models on the card against the CPU
              (plain versions): the colocated set and zamba2 + mamba2;
              prefill and one decode step give the same logits within
@@ -94,7 +102,17 @@ other than 0) if any phase fails:
              grouped GEMM must have launched exactly 6 times per layer
              per step (3 forward, 3 input gradients) and its wgrad kernel
              3 times; the router's load of the last step (the group sizes
-             of each layer) is recorded;
+             of each layer) is recorded; then (7b) mamba2-130m and (7c)
+             zamba2-1.2b at their full published configs (24 layers; 38
+             with the six shared attention blocks), float32, the same
+             optimizer, steps and 8 x 512 batch, no remat: the first
+             step's gradients on the kernel route against the plain route
+             (``PlainSSD``: the chunked form by autograd) within 1e-3 of
+             each leaf's scale, then finite losses and grad norms, a
+             falling loss, ``ssd_scan`` and ``ssd_scan_bwd`` launched
+             exactly once a SSM layer a step (24; 32) and no other
+             kernel; ms a step, tokens/s, peak memory and one profiled
+             step;
 8. moe gemm — holds the grouped GEMM (forward, input and weight
              gradients) against its plain versions, float32 within 1e-4
              and bf16 within 2e-2, at both shapes phase 7 gives it
@@ -333,7 +351,13 @@ other than 0) if any phase fails:
              ranks (losses within 1e-5 relative, shards within the sign
              bound, resident bytes the dry-run's).  Rows
              3, 4 and 6 are timed at a (1, 4) rank's heads.  Under
-             ``"sharded_families"``.
+             ``"sharded_families"``.  Then (7d, in the same one-rank
+             group) zamba2's train cell at published widths cut to 2 + 1
+             SSM layers and the shared block, float32, 8 x 512, against
+             ``make_train_step`` bit for bit, ``ssd_scan`` twice a
+             grouped SSM layer and once the tail's (remat recomputes the
+             groups) and ``ssd_scan_bwd`` once a SSM layer a step in
+             both.
 
 Phases 3 and 13 hold the paged GQA and MLA kernels in bf16 to the same
 row limit as rows 3-4: each output row's relative RMS error within 1e-2
@@ -381,7 +405,9 @@ SPIN_CYCLES = 2_000_000
 PORT_KERNELS = ("flash_prefill", "split_decode_kernel", "merge_splits_kernel",
                 "mla_split_decode_kernel", "mla_merge_splits_kernel",
                 "ssd_chunk_state_kernel", "ssd_state_pass_kernel",
-                "ssd_chunk_output_kernel", "moe_gemm")
+                "ssd_chunk_output_kernel", "ssd_bwd_state_kernel",
+                "ssd_bwd_target_kernel", "ssd_bwd_source_kernel",
+                "ssd_bwd_reduce_kernel", "moe_gemm")
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
                  "MATH")
 SERVE_K = 4
@@ -389,12 +415,24 @@ SERVE_MAX_NEW = 32
 FALLBACK_MODELS = ("zamba2-1.2b", "mamba2-130m")
 #: every kernel entry point, by the name its launch counter is read under
 KERNELS = ("paged_decode_attention", "paged_mla_decode_attention",
-           "flash_attention", "decode_attention", "ssd_scan", "moe_gemm",
-           "moe_gemm_wgrad", "paged_kv_write")
+           "flash_attention", "decode_attention", "ssd_scan", "ssd_scan_bwd",
+           "moe_gemm", "moe_gemm_wgrad", "paged_kv_write")
 #: phase 7: moonshot at published widths, this many layers, float32
 TRAIN_MODEL = "moonshot-v1-16b-a3b"
 TRAIN_DEPTH = 2
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
+#: phases 7b / 7c: the ssm and hybrid archs at their full published
+#: configs, float32, phase 7's optimizer, sequence and steps, this many
+#: rows a batch; 7d: zamba2's sharded train cell at one rank, at
+#: published widths cut to one group of SSM_CELL_DEPTH SSM layers, the
+#: shared attention block and one tail SSM layer
+SSM_TRAIN_BATCH = {"mamba2-130m": 8, "zamba2-1.2b": 8}
+SSM_CELL_DEPTH = 2
+#: phase 3: the SSD backward's timed shapes (label, B, S, chunk, dtype),
+#: at each of the zamba2 and mamba2 geometries; the first is the train
+#: path's call (phases 7b / 7c), the kernel line's row
+SSD_BWD_TIMED = (("train shape", TRAIN_BATCH, TRAIN_SEQ, 256, "float32"),
+                 ("S=1024", 1, 1024, 256, "bfloat16"))
 #: phase 9: the elastic engine's knobs, its starting page budget (16 KiB
 #: pages) and context
 ELASTIC = dict(interval_steps=1, cooldown_steps=1, hysteresis=0.05,
@@ -559,6 +597,19 @@ def ssd_bound(B, S, H, P, G, N, L):
               + 2 * B * S * G * N * 2 + B * H * P * N * 4)
     flops = B * H * (S // L) * (L * L * (N + P) + 4 * L * N * P)
     return bound_ms(nbytes, flops)
+
+
+def ssd_bwd_bound(B, S, H, P, G, N, L, itemsize):
+    """Row 6b's least time for one call without h0 or dh (the train
+    path's): x, dy, dx and B, C, dB, dC in the input type, dt and ddt, A
+    and dA f32, dh0 f32, each moved once; the gradient's products over
+    the lower triangle (C.B, dy.x, dx, dB, dC: L^2 (3N + 2P) flops a
+    chunk) and its five P x N state products (the recomputed states, the
+    reverse pass, dS.B, x.dS, dy.h: 10 L P N), at the f32 peak for f32."""
+    nbytes = ((3 * B * S * H * P + 4 * B * S * G * N) * itemsize
+              + 2 * B * S * H * 4 + 2 * H * 4 + B * H * P * N * 4)
+    flops = B * H * (S // L) * (L * L * (3 * N + 2 * P) + 10 * L * N * P)
+    return bound_ms(nbytes, flops, fp32=itemsize == 4)
 
 
 # ---------------------------------------------------------------------------
@@ -1110,7 +1161,6 @@ def fallback_kernel_phase(torch, kops, ref, ssd_scan_chunked):
     from repro_torch.configs import get_config
     from repro_torch.kernels import paged_attention as pa
     zamba = get_config("zamba2-1.2b")
-    mamba = get_config("mamba2-130m")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -1235,11 +1285,7 @@ def fallback_kernel_phase(torch, kops, ref, ssd_scan_chunked):
         close_or_raise(torch, what + " h", h, wh, 1e-3)
         errs["ssd_scan"] = max(errs.get("ssd_scan", 0), e)
 
-    geoms = {}
-    for label, cfg in (("zamba2", zamba), ("mamba2", mamba)):
-        s = cfg.ssm
-        geoms[label] = (s.n_heads(cfg.d_model), s.head_dim, s.n_groups,
-                        s.d_state)
+    geoms = ssd_geometries()
     S, L = 1024, 256
     for label, (Hs, P, G, N) in geoms.items():
         for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
@@ -1284,6 +1330,120 @@ def fallback_kernel_phase(torch, kops, ref, ssd_scan_chunked):
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), {lib}")
     return errs, rows
+
+
+def ssd_geometries():
+    """{label: (H, P, G, N)} of the zamba2 and mamba2 SSD blocks."""
+    from repro_torch.configs import get_config
+    out = {}
+    for label, name in (("zamba2", "zamba2-1.2b"), ("mamba2", "mamba2-130m")):
+        cfg = get_config(name)
+        s = cfg.ssm
+        out[label] = (s.n_heads(cfg.d_model), s.head_dim, s.n_groups,
+                      s.d_state)
+    return out
+
+
+def ssd_backward_phase(torch, kops, ssd_scan_chunked_bwd):
+    """Row 6b, the SSD scan's backward, against autograd of the chunked
+    form on the card: each of dx, ddt, dA, dB, dC, dh0 within 1e-3 (f32)
+    or 2e-2 (bf16) of its scale, max(1, max|plain|) (the decays are exp of
+    log-decay sums taken in another order, as in the forward's check);
+    two calls equal bit for bit.  At the zamba2 and mamba2 geometries at
+    S = 1024, chunk 256 (without h0 and dh, and with both), the train
+    shape, chunks of 8 and 64 with nc >= 8, and G = 2; dh zero, given and
+    absent.  Then times it (``SSD_BWD_TIMED``) beside its bound and the
+    plain version.  Returns (the worst error against scale, the largest
+    absolute error, timed rows)."""
+    geoms = ssd_geometries()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def inputs(B, S, H, P, G, N, dtype, with_h0, dh, shift=2.0):
+        def randn(*shape, dtype=f32):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        x = randn(B, S, H, P, dtype=dtype)
+        dt = torch.nn.functional.softplus(randn(B, S, H) - shift)
+        A = -torch.exp(torch.linspace(0.0, 2.77, H, device="cuda"))
+        Bm, Cm = randn(B, S, G, N, dtype=dtype), randn(B, S, G, N, dtype=dtype)
+        h0 = randn(B, H, P, N) if with_h0 else None
+        dy = randn(B, S, H, P, dtype=dtype)
+        dhv = {None: None, "zero": torch.zeros((B, H, P, N), device="cuda"),
+               "given": randn(B, H, P, N)}[dh]
+        return x, dt, A, Bm, Cm, h0, dy, dhv
+
+    Hz, Pz, _, Nz = geoms["zamba2"]
+    Hm, Pm, _, Nm = geoms["mamba2"]
+    cases = []
+    for label, (H, P, G, N) in geoms.items():
+        for dtype in (f32, bf16):
+            cases.append((f"{label} S=1024", 1, 1024, H, P, G, N, 256, dtype,
+                          False, None))
+            cases.append((f"{label} S=1024", 1, 1024, H, P, G, N, 256, dtype,
+                          True, "given"))
+        cases.append((f"{label} train shape", TRAIN_BATCH, TRAIN_SEQ, H, P,
+                      G, N, 256, f32, False, None))
+    for dtype in (f32, bf16):
+        cases += [("chunk 8", 1, 64, 4, Pz, 1, Nz, 8, dtype, True, "zero"),
+                  ("chunk 64", 1, 512, 8, Pm, 1, Nm, 64, dtype, True,
+                   "given"),
+                  ("G=2", 2, 512, 8, Pz, 2, Nz, 128, dtype, True, "given")]
+    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+    worst, abs_err = 0.0, 0.0
+    for label, B, S, H, P, G, N, L, dtype, with_h0, dh in cases:
+        what = (f"ssd backward {label}: B={B} S={S} H={H} P={P} G={G} N={N} "
+                f"chunk {L} {dtype} h0={with_h0} dh={dh}")
+        tol = 1e-3 if dtype == f32 else 2e-2
+        ins = inputs(B, S, H, P, G, N, dtype, with_h0, dh)
+        got = kops.ssd_scan_bwd(*ins, chunk=L)
+        again = kops.ssd_scan_bwd(*ins, chunk=L)
+        want = ssd_scan_chunked_bwd(*ins, chunk=L)
+        sync(torch, "cuda")
+        errs = []
+        for name, g, a, w in zip(names, got, again, want):
+            if not torch.equal(g, a):
+                raise AssertionError(f"{what}: {name} differs between two "
+                                     f"calls")
+            g, w = g.float(), w.float()
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{what}: {name} is not finite")
+            scale = max(1.0, float(w.abs().max()))
+            err = float((g - w).abs().max())
+            if not err <= tol * scale:
+                raise AssertionError(f"{what}: {name} disagrees with the "
+                                     f"plain version ({err:.3g} > {tol} x "
+                                     f"scale {scale:.3g})")
+            errs.append(f"{name} {err / scale:.2g}")
+            worst = max(worst, err / scale)
+            abs_err = max(abs_err, err)
+        log(f"kernel check {what}: max abs err / scale {', '.join(errs)} "
+            f"(passes {tol} x max(1, max|plain|)); equal bit for bit across "
+            f"two calls")
+        del ins, got, again, want
+    rows = []
+    for label, B, S, L, dtype in SSD_BWD_TIMED:
+        dtype = getattr(torch, dtype)
+        for geom, (H, P, G, N) in geoms.items():
+            ins = inputs(B, S, H, P, G, N, dtype, False, None, 0.0)
+            b_ms, b_by = ssd_bwd_bound(B, S, H, P, G, N, L,
+                                       ins[0].element_size())
+            rows.append(dict(
+                kernel="ssd_scan_bwd", label=label,
+                shape=f"{geom} H={H} P={P} N={N} B={B} S={S} chunk {L} "
+                      f"{str(dtype).split('.')[-1]}",
+                ms=time_ms(torch, lambda: kops.ssd_scan_bwd(*ins, chunk=L)),
+                plain_ms=time_ms(torch, lambda: ssd_scan_chunked_bwd(
+                    *ins, chunk=L)),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by))
+            del ins
+    for r in rows:
+        log(f"time ssd_scan_bwd {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms (autograd of the chunked form, its "
+            f"forward included), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), library none (no single PyTorch call "
+            f"computes it)")
+    return worst, abs_err, rows
 
 
 def with_empty_experts(np, sizes, n_empty: int = 4):
@@ -1773,6 +1933,148 @@ def train_phase(torch, np, kops):
                    max_memory_gib=peak, loads=[s.tolist() for s in loads])
     figures["profile"] = profile_train_step(torch, step, state, batch)
     return launches, figures, loads
+
+
+class PlainSSD:
+    """Stands in for the kernel ops inside ``models.ssm``: the SSD scan's
+    plain version (the chunked form, differentiated by autograd) on the
+    same card, every other op passed on."""
+
+    def __init__(self, kops):
+        self.kops = kops
+
+    def __getattr__(self, name):
+        return getattr(self.kops, name)
+
+    @staticmethod
+    def ssd_scan(x, dt, A, B_, C_, *, chunk=64, h0=None):
+        from repro_torch.kernels.ssd_chunked import ssd_scan_chunked
+        return ssd_scan_chunked(x, dt, A, B_, C_, chunk=chunk, h0=h0)
+
+
+def ssm_forwards(cfg, remat: bool) -> int:
+    """``ssd_scan`` launches a train step: one a SSD block, and under
+    remat one more for each block the checkpoint recomputes (every layer
+    of the ssm family, the hybrid's grouped layers: its tail layers run
+    outside a checkpoint, ``models/transformer.py`` ``forward``)."""
+    if not remat:
+        return cfg.n_ssm_layers
+    recomputed = (cfg.n_layers if cfg.family == "ssm"
+                  else cfg.hybrid_groups * cfg.ssm_per_group)
+    return cfg.n_ssm_layers + recomputed
+
+
+def ssm_train_phase(torch, kops, name, device="cuda", cfg=None):
+    """Phases 7b / 7c: ``name`` at its full published config, float32,
+    ``AdamW(lr=3e-3, warmup_steps=10)``, no remat, as ``launch/train.py``;
+    ``TRAIN_STEPS`` steps on one fixed ``SSM_TRAIN_BATCH[name]`` x
+    ``TRAIN_SEQ`` batch.  First the step's gradients on the kernel route
+    against the plain route (``PlainSSD``, with remat to bound its
+    memory) from the same params: each leaf within 1e-3 of its scale,
+    max(1, max|plain|).  Then the steps: finite losses and grad norms,
+    the last loss below the first, ``ssd_scan`` and ``ssd_scan_bwd``
+    launched exactly once a SSM layer a step and no other kernel
+    (attention trains through its plain version).  Returns figures.
+    ``device="cpu"`` with a smoke ``cfg`` rehearses it (launch gates and
+    memory are card-only)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.model import build_model
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_grad_fn,
+                                                 make_train_step)
+    from repro_torch.training.tree import leaves, leaves_with_path
+
+    cfg = cfg or get_config(name).replace(dtype="float32")
+    card = torch.device(device).type == "cuda"
+    model = build_model(cfg)
+    opt = AdamW(lr=3e-3, warmup_steps=10)
+    rows = SSM_TRAIN_BATCH[name]
+    n_ssm = cfg.n_ssm_layers
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(model, opt,
+                             torch.Generator(device=device).manual_seed(0))
+    n_params = sum(p.numel() for p in leaves(state.params))
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, rows))
+    batch = {"tokens": torch.from_numpy(next(data.batches())["tokens"])
+             .to(device)}
+    tag = f"train {name}"
+    log(f"{tag}: full published config ({cfg.n_layers} layers, {n_ssm} SSM "
+        f"blocks, d_model {cfg.d_model}), float32, {n_params / 1e9:.3f} B "
+        f"params, batch {rows} x {TRAIN_SEQ}; state built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the first step's gradients: kernel route, then the plain route
+    t0 = time.perf_counter()
+    _, g_kernel = make_grad_fn(model, remat=False)(state.params, batch)
+    ssm.kops = PlainSSD(kops)
+    try:
+        _, g_plain = make_grad_fn(model, remat=True)(state.params, batch)
+    finally:
+        ssm.kops = kops
+    worst, worst_leaf = 0.0, ""
+    for (path, a), b in zip(leaves_with_path(g_kernel), leaves(g_plain)):
+        leaf = "/".join(map(str, path))
+        scale = max(1.0, float(b.abs().max()))
+        err = float((a - b).abs().max())
+        if not (math.isfinite(err) and err <= 1e-3 * scale):
+            raise AssertionError(f"{tag}: gradient {leaf} on the kernel "
+                                 f"route parts from the plain route "
+                                 f"({err:.3g} > 1e-3 x scale {scale:.3g})")
+        if err / scale >= worst:
+            worst, worst_leaf = err / scale, leaf
+    log(f"{tag}: first step's gradients, kernel route against the plain "
+        f"route, every leaf within {worst:.3g} of its scale ({worst_leaf}; "
+        f"tolerance 1e-3) in {time.perf_counter() - t0:.1f} s")
+    del g_kernel, g_plain
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+
+    step = make_train_step(model, opt, remat=False)
+    # the main path's run: launch counts start at 0 here
+    reset_launches(kops)
+    losses, gnorms, times = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))     # waits for the step
+        gnorms.append(float(metrics["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+        log(f"{tag} step {i}: loss {losses[-1]:.5f} grad norm "
+            f"{gnorms[-1]:.4f}, {times[-1] * 1e3:.1f} ms")
+    sync(torch, device)
+    launches = read_launches(kops)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if card else 0.0
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        raise AssertionError(f"{tag}: non-finite loss or grad norm {losses} "
+                             f"{gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: loss did not fall on the fixed batch "
+                             f"{losses}")
+    want = {k: 0 for k in KERNELS}
+    want["ssd_scan"] = want["ssd_scan_bwd"] = n_ssm * TRAIN_STEPS
+    if card and launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+    tokens = rows * TRAIN_SEQ
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"{tag}: launches {launches} (expected: ssd_scan and ssd_scan_bwd "
+        f"{n_ssm} a step); median step after the first {steady * 1e3:.1f} "
+        f"ms = {tokens / steady:.0f} tokens/s; max memory allocated "
+        f"{peak:.2f} GiB")
+    figures = dict(model=name, layers=cfg.n_layers, ssm_layers=n_ssm,
+                   params=n_params, batch=rows, seq=TRAIN_SEQ, losses=losses,
+                   grad_norms=gnorms, step_ms=[t * 1e3 for t in times],
+                   median_step_ms=steady * 1e3, tokens_per_s=tokens / steady,
+                   max_memory_gib=peak, launches=launches,
+                   grad_vs_plain=worst, grad_vs_plain_leaf=worst_leaf)
+    if card:
+        figures["profile"] = profile_train_step(torch, step, state, batch)
+    return figures
 
 
 def serve_phase(torch, np, kops, models, *, k, page_budget, label, check,
@@ -5573,6 +5875,95 @@ def audio_train_one_rank(torch, kops, tmp, device="cuda", cfg=None) -> dict:
     return out
 
 
+def ssm_cell_cfg():
+    """7d's config: zamba2-1.2b at published widths, float32, one group of
+    ``SSM_CELL_DEPTH`` SSM layers and the shared attention block, then one
+    tail SSM layer."""
+    from repro_torch.configs import get_config
+    return get_config("zamba2-1.2b").replace(
+        dtype="float32", n_layers=SSM_CELL_DEPTH + 2, hybrid_groups=1,
+        ssm_per_group=SSM_CELL_DEPTH, tail_ssm_layers=1)
+
+
+def ssm_train_one_rank(torch, kops, device="cuda", cfg=None) -> dict:
+    """(7d) zamba2's sharded train cell (``build_train_cell`` over (1, 1),
+    remat as the cell runs it) beside ``make_train_step`` with remat from
+    the same seeded params and ``TRAIN_BATCH`` x ``TRAIN_SEQ`` batch,
+    ``SHARDED_STEPS`` steps each: losses, grad norms and final params
+    equal bit for bit, and in both ``ssd_scan`` launched as
+    ``ssm_forwards`` says with remat (the grouped layers twice: the
+    forward and its recompute), ``ssd_scan_bwd`` once a SSM layer a
+    step.
+    The first of phase 17's ssm/hybrid cells on the card.  Needs a
+    one-rank process group."""
+    from dataclasses import replace
+    from repro_torch.configs import SHAPES_BY_NAME
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.strategies import PerfOpts, make_strategy
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.tree import leaves
+    cfg = cfg or ssm_cell_cfg()
+    shape = replace(SHAPES_BY_NAME["train_4k"], seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH)
+    st = make_strategy("train", Mesh((1, 1), ("data", "model"), live=True),
+                       cfg, shape, PerfOpts(microbatches=1))
+    cell = dryrun.build_train_cell(cfg, shape, st)
+    model = build_model(cfg)
+    batch = _train_batch(torch, cfg, device)
+    opt = cell.optimizer
+    tag = "train 7d zamba2 cell one rank"
+    t0 = time.perf_counter()
+    runs = {}
+    for label, step, shard in (
+            ("make_train_step", make_train_step(model, opt, remat=True),
+             lambda s: s),
+            ("cell", cell.step, cell.shard_state)):
+        state, losses, gnorms, ms, launches = _train_steps(
+            torch, kops, step,
+            [shard(_fresh_state(opt, _seeded_params(torch, model, device),
+                                False))], batch, device)
+        runs[label] = dict(losses=losses, gnorms=gnorms, ms=ms,
+                           launches=launches,
+                           params=[t.detach().cpu()
+                                   for t in leaves(state.params)])
+        del state
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    ref, got = runs["make_train_step"], runs["cell"]
+    equal = (got["losses"] == ref["losses"] and got["gnorms"] == ref["gnorms"]
+             and all(torch.equal(a, b)
+                     for a, b in zip(got["params"], ref["params"])))
+    if not equal:
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(got["params"], ref["params"]))
+        raise AssertionError(f"{tag}: the cell parts from make_train_step: "
+                             f"losses {got['losses']} vs {ref['losses']}, "
+                             f"params by {diff:.3g}")
+    want = {"ssd_scan": ssm_forwards(cfg, True) * SHARDED_STEPS,
+            "ssd_scan_bwd": cfg.n_ssm_layers * SHARDED_STEPS}
+    if torch.device(device).type == "cuda":
+        for label, run in runs.items():
+            seen = {k: run["launches"][k] for k in want}
+            if seen != want:
+                raise AssertionError(f"{tag}: {label} launched {seen}, "
+                                     f"expected {want}")
+    out = dict(layers=cfg.n_layers, ssm_layers=cfg.n_ssm_layers,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=SHARDED_STEPS,
+               losses=got["losses"], grad_norms=got["gnorms"],
+               step_ms=got["ms"], ref_step_ms=ref["ms"],
+               launches=got["launches"], ref_launches=ref["launches"],
+               seconds=time.perf_counter() - t0)
+    log(f"{tag}: {cfg.n_layers} layers ({cfg.n_ssm_layers} SSM) float32, "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses {got['losses']}, grad "
+        f"norms {got['gnorms']}, params equal to make_train_step's bit for "
+        f"bit; launches {got['launches']} (expected {want}); step ms "
+        f"{got['ms']} (make_train_step {ref['ms']})")
+    return out
+
+
 def _audio_rank_run(torch, kops, tmp, device, cfg) -> None:
     """17c on one of 17b's ranks (after its serve runs, in the same gloo
     group): the cell's steps over ``AUDIO_TRAIN_MESH``, held against the
@@ -5835,6 +6226,9 @@ def sharding_phase(torch, kops, card) -> dict:
             torch.cuda.empty_cache()
             out["sharded_families"] = family_shard_phase(torch, kops, tmp,
                                                          card)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["ssm_cell"] = ssm_train_one_rank(torch, kops)
         finally:
             dist.destroy_process_group()
     out["seconds"] = time.perf_counter() - t0
@@ -5854,7 +6248,8 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_chunked import ssd_scan_chunked
+    from repro_torch.kernels.ssd_chunked import (ssd_scan_chunked,
+                                                 ssd_scan_chunked_bwd)
     from repro_torch.launch.serve import FULL_WIDTH_DEPTHS, coloc_models
 
     t_start = time.perf_counter()
@@ -5896,6 +6291,8 @@ def main() -> int:
     capture_check(torch, kops, cases)
     f_errs, f_rows = fallback_kernel_phase(torch, kops, ref,
                                            ssd_scan_chunked)
+    b_worst, b_err, b_rows = ssd_backward_phase(torch, kops,
+                                                ssd_scan_chunked_bwd)
     w_rows = kv_write_phase(torch, kops, ref)
 
     # 4. small models, card against CPU
@@ -5940,6 +6337,14 @@ def main() -> int:
     t_launches, train, loads = train_phase(torch, np, kops)
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 7b-7c. train mamba2-130m and zamba2-1.2b at their full published
+    # configs through the SSD scan kernel and its backward
+    ssm_train = {}
+    for name in SSM_TRAIN_BATCH:
+        ssm_train[name] = ssm_train_phase(torch, kops, name)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # 8. the grouped GEMM at phase 7's shapes and router load
     m_errs, m_rows = moe_kernel_phase(torch, np, kops, ref, loads)
@@ -5992,6 +6397,7 @@ def main() -> int:
     sharded_train = sharding.pop("sharded_train")
     sharded_serve = sharding.pop("sharded_serve")
     sharded_families = sharding.pop("sharded_families")
+    ssm_cell = sharding.pop("ssm_cell")
 
     csrc = "src/repro_torch/kernels/csrc/"
     main_shape = {"gqa": ("qwen3-moe-235b-a22b", 1024, 4),
@@ -6116,6 +6522,32 @@ def main() -> int:
             kernels[-1]["launches_families"].update({
                 f"{WHISPER} {part}": w[f"launches_{part}"][name]
                 for part in ("prefill", "decode")})
+        if name == "ssd_scan":
+            # phases 7b-7d: the train path's forwards
+            kernels[-1]["launches_train"] = {
+                **{f"7b-7c {m}": t["launches"][name]
+                   for m, t in ssm_train.items()},
+                "7d cell": ssm_cell["launches"][name]}
+    # row 6b: the SSD scan's backward, at the train path's shape
+    row = b_rows[0]
+    kernels.append({
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": csrc + "ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_chunked.py:41 (jax.vjp of the "
+                    "XLA route's chunked form, the reference's training "
+                    "path; the Pallas _ssd_kernel at ssd_scan.py:27 has no "
+                    "backward)",
+        "launches": sum(t["launches"]["ssd_scan_bwd"]
+                        for t in ssm_train.values()),
+        "launches_train": {
+            **{f"7b-7c {m}": t["launches"]["ssd_scan_bwd"]
+               for m, t in ssm_train.items()},
+            "7d cell": ssm_cell["launches"]["ssd_scan_bwd"]},
+        "max_abs_err": b_err, "max_err_over_scale": b_worst,
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None, "library": None, "shape": row["shape"],
+        "rows": b_rows})
     w_row = next(r for r in w_rows if r["shape"] == "qwen3-moe decode B=4")
     kernels.append({
         "name": "paged_kv_write", "route": "cuda",
@@ -6163,9 +6595,11 @@ def main() -> int:
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernel_times": rows + f_rows + m_rows + w_rows,
+        {"card": card,
+         "kernel_times": rows + f_rows + b_rows + m_rows + w_rows,
          "kernels": kernels, "serve": serve, "serve_host": host,
-         "serve_fallback": f_serve, "train": train, "elastic": elastic,
+         "serve_fallback": f_serve, "train": train, "train_ssm": ssm_train,
+         "ssm_cell": ssm_cell, "elastic": elastic,
          "cache": cache, "observe": observe, "families": families,
          "examples": examples, "sharding": sharding,
          "sharded_train": sharded_train, "sharded_serve": sharded_serve,

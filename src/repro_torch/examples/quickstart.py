@@ -9,11 +9,10 @@ Port of ``examples/quickstart.py``.  On a card the Model path's prefill
 takes the flash kernel (float32: the smoke configs' head dims 8 and 16
 have an instance) and its decode the contiguous decode kernel, a MoE
 model trains through the grouped-GEMM path (``moe_gemm`` and its
-weight gradient), and the session serves through the paged decode
-kernels.  The ssm and hybrid families (zamba2, mamba2) do not train on a
-card: ``make_train_step`` raises there, because the SSD scan and flash
-kernels have no backward (ROADMAP Queue 2 item 8); this example lets
-that error stop it.  On the CPU every family runs to the end.
+weight gradient), the ssm and hybrid families (zamba2, mamba2) train
+through the SSD scan kernel and its backward (``ssd_scan_bwd``), and the
+session serves through the paged decode kernels.  Every family runs to
+the end on either device.
 
 Two differences from the reference's example: the training batch's
 ``embeddings`` / ``encoder_frames`` are those of the batch (8 rows), not

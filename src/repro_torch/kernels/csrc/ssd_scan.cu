@@ -1,7 +1,9 @@
-// Mamba2 SSD chunked scan for Hopper (sm_90a), chunk-parallel.
+// Mamba2 SSD chunked scan for Hopper (sm_90a), chunk-parallel, and its
+// backward.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/ssd_scan.py:
 //   * ssd_chunked_scan  <- _ssd_kernel  (:27, pallas_call :94)
+//   * ssd_chunked_scan_bwd: see "The backward" below
 //
 // What it computes (arXiv:2405.21060 §6), per batch row b and head h, over
 // chunks of L positions, with a_t = dt_t * A[h] and La its inclusive
@@ -33,7 +35,8 @@
 // Design: the SSD decomposition with the chunk axis parallel.
 //   1. ssd_chunk_state_kernel, grid (chunk x P slice, head, batch row),
 //      256 threads, the P slices chosen so that some two blocks per SM
-//      run: La by a block scan of dt * A, written out with exp(La_L); the
+//      run: La by a left-to-right sum of dt * A (the plain version's
+//      order), written out with exp(La_L); the
 //      chunk state S_c = sum_s exp(La_L - La_s) dt_s x_s ⊗ B_s [P,N] over
 //      64-row tiles in a 2-stage cp.async ring.  The state check is 1e-3
 //      in both types and bf16 weights alone would miss it, so bf16 splits
@@ -48,7 +51,9 @@
 //      batch row), 4 warps of 16 target rows each: the inter term C . h^T,
 //      then for each 64-row source tile on or below the diagonal the
 //      scores C . B^T, weighted by exp(La_t - La_s) dt_s where s <= t (exp
-//      is never taken above the diagonal; La in log2 units, ex2.approx)
+//      is never taken above the diagonal; ex2.approx of the difference
+//      scaled to log2 units: La reaches the thousands a chunk, where
+//      an ulp of each scaled La is ~5e-4)
 //      and multiplied into x.  bf16:
 //      every product on mma.sync.m16n8k16 tensor cores with f32
 //      accumulation, tiles staged by 16-byte cp.async into XOR-swizzled
@@ -69,14 +74,51 @@
 // 0.07 / 0.06 ms; the plain chunked version 0.4-1.2 ms.
 //
 // ptxas (-Xptxas -v, sm_90a; no stack, no spills): ssd_chunk_state_kernel
-// 101 registers (bf16) / 76 (f32); ssd_state_pass_kernel 32;
-// ssd_chunk_output_kernel for P padded to 16 / 32 / 64 / 128: bf16 87 /
-// 128 / 135 / 178, f32 96 / 96 / 128 / 161.  Dynamic shared memory at
+// 101 registers (bf16) / 78 (f32); ssd_state_pass_kernel 32;
+// ssd_chunk_output_kernel for P padded to 16 / 32 / 64 / 128: bf16 85 /
+// 128 / 132 / 177, f32 96 / 96 / 128 / 162; the backward's kernels 4 / 5
+// / 6 / 7: 124 / 254 / 254 / 32 in both types.  Dynamic shared memory at
 // zamba2's shape: 58 KB (chunk states, two P slices) and 42 KB (outputs).
+//
+// The backward (ssd_chunked_scan_bwd).  It replaces no Pallas kernel: the
+// TPU kernel has no VJP, and the JAX package trains through jax.vjp of
+// the chunked form (src/repro/kernels/ssd_chunked.py:41-84, the XLA
+// route).  Its gradients, derived from that form's einsums and chunk
+// recurrence (g_c: the gradient of the state at chunk c's start, dS_c =
+// g_{c+1}, M1[s,t] = (C_t . B_s) exp(La_t - La_s) dt_s, M2[s,t] =
+// exp(La_t - La_s) dt_s (dy_t . x_s), w_s = exp(La_L - La_s), s <= t):
+//   g_nc = dh, g_c = exp(La_L) g_{c+1} + sum_t exp(La_t) dy_t ⊗ C_t, dh0 = g_0
+//   dx_s = sum_t M1[s,t] dy_t + w_s dt_s dS B_s
+//   dB_s = sum_t M2[s,t] C_t + w_s dt_s x_s dS     (summed over a group)
+//   dC_t = sum_s M2[s,t] B_s + exp(La_t) dy_t h_c  (summed over a group)
+//   ddt_s = sum_t (C_t . B_s) exp(La_t - La_s) (dy_t . x_s) + w_s x_s dS B_s
+//           + A rc_s,  dA = sum dt_s rc_s,  rc: the reverse cumsum of dLa
+//   dLa_t = sum_s (C_t . B_s) M2[s,t] + exp(La_t) C_t h_c dy_t - dt_t ddt_t
+//           (+ sum_s dt_s w_s x_s dS B_s + exp(La_L) <g_{c+1}, h_c> at L-1)
+// Six launches: kernels 1-2 again (La, decays, f32 states at the chunks'
+// starts: nothing of the forward is kept, so a layer holds no bytes for
+// the backward beyond its inputs), 4. the reverse state pass, 5. per
+// target tile (dC, La's gradient from the targets), 6. per chunk (dx, dB,
+// the direct ddt, then La's gradient, its reverse cumsum by a block scan,
+// ddt and the chunk's share of dA), 7. dB and dC summed over a group's
+// heads and dA over batch rows and chunks, in order.  No atomics: two
+// calls give the same bits.  Bound: x, dy, dx, B, C, dB, dC, dt, ddt
+// moved once, the products ~L^2 (3N + 2P) + 10 L P N flops a chunk, at
+// the f32 peak (67 TF/s) for f32: operations bound it at the train shape.
+// Every product is an f32 FMA on CUDA cores out of shared memory
+// (bf16 widened as it is staged: no bf16 rounding of the weighted
+// scores), tiles read as float4 along the reduced axis; exp is never
+// taken above the diagonal.  Times (chip_smoke.py phase 3, NVIDIA H100
+// 80GB HBM3 at 700 W, median of 20, L2 flushed): the train shape (B = 8,
+// S = 512, chunk 256, f32) zamba2 5.19 ms, mamba2 2.82 ms against
+// bounds of 0.48 / 0.31 ms; S = 1024 bf16 zamba2 1.92 ms, mamba2 1.15
+// ms; the plain version (autograd, its forward included) 4.2-8.6 ms.
+// In a zamba2 train step (phase 7c's profile) kernels 6 and 5 take 49%
+// and 38% of the call (one 256-thread block an SM), kernel 4 8%.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o libssd_scan.so ssd_scan.cu
-// The entry point returns cudaGetLastError() after its launches (0 = ok).
+// Each entry point returns cudaGetLastError() after its launches (0 = ok).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -269,7 +311,6 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   constexpr bool kTC = IsBf16<T>::value;
   constexpr int kRing = ring_stages(sizeof(T));
   extern __shared__ __align__(128) float smem[];
-  __shared__ float warp_sums[kWarps];
   const int tid = threadIdx.x;
   const int c = blockIdx.x / psplit, pq = blockIdx.x % psplit;
   const int head = blockIdx.y, b = blockIdx.z;
@@ -315,7 +356,19 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     la[i] = dv * a_h;
   }
   __syncthreads();
-  block_inclusive_scan(la, L, warp_sums);
+  // La summed left to right in f32, as the plain version's cumsum sums it:
+  // a chunk's La reaches the thousands (an ulp there is ~2e-4), where a
+  // tree's other rounding moves exp(La_t - La_s), and through zamba2's 32
+  // SSD layers that put its float32 gradients 6.5e-3 of scale from the
+  // plain route's (chip_smoke.py phase 7c; 3.7e-4 summed this way)
+  if (tid == 0) {
+    float run = 0.f;
+    for (int i = 0; i < L; ++i) {
+      run += la[i];
+      la[i] = run;
+    }
+  }
+  __syncthreads();
   const float last = la[L - 1];
   for (int i = tid; i < L; i += kThreads) {
     if (pq == 0) la_out[bh * S + (long long)c * L + i] = la[i];
@@ -564,7 +617,7 @@ ssd_chunk_output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const T* xb = x + pos0 * x_row + (long long)head * P;
   const T* bb = Bm + pos0 * bc_row + (long long)g * N;
   const T* cb = Cm + pos0 * bc_row + (long long)g * N;
-  float* la = reinterpret_cast<float*>(smem_raw);   // [L], log2 units
+  float* la = reinterpret_cast<float*>(smem_raw);   // [L]
   float* dts = la + round4(L);                      // [L]
   // the C tile, source stage 0, then the state; bf16 reuses the state's
   // region (grown to a stage if smaller) as source stage 1 once the inter
@@ -615,7 +668,7 @@ ssd_chunk_output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int i = i0 + q * kOutThreads + threadIdx.x;
-      if (i < src_end) la[i] = lv[q] * kLog2e, dts[i] = dv[q];
+      if (i < src_end) la[i] = lv[q], dts[i] = dv[q];
     }
   }
   tiles::cp_async_wait<0>();
@@ -637,8 +690,10 @@ ssd_chunk_output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   product_nt<T, NB>(acc, cs, wr, hh, NP);
   if constexpr (kTC) product_nt<T, NB>(acc, cs, wr, hl, NP);
   {
-    const float e0 = row0 < L ? tiles::exp2_approx(la[row0]) : 0.f;
-    const float e1 = row0 + 8 < L ? tiles::exp2_approx(la[row0 + 8]) : 0.f;
+    const float e0 =
+        row0 < L ? tiles::exp2_approx(la[row0] * kLog2e) : 0.f;
+    const float e1 =
+        row0 + 8 < L ? tiles::exp2_approx(la[row0 + 8] * kLog2e) : 0.f;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
       acc[nb][0] *= e0;
@@ -682,8 +737,9 @@ ssd_chunk_output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         for (int r = 0; r < 2; ++r) {
           const int t = row0 + r * 8;
           float& v = sc[nb][2 * r + j];
-          v = (s <= t && t < L) ? v * tiles::exp2_approx(lt[r] - ls) * ds
-                                : 0.f;
+          v = (s <= t && t < L)
+                  ? v * tiles::exp2_approx((lt[r] - ls) * kLog2e) * ds
+                  : 0.f;
         }
       }
     }
@@ -798,6 +854,46 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// The card's SM count (132 on an H100 SXM when the query fails).
+int sm_count() {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// Kernels 1-2: La, the chunks' decays and states, then the states at the
+// chunks' starts (kSplit: bf16 hi + lo planes) and the final state.
+template <typename T, bool kSplit>
+int launch_states(const T* x, const float* dt, const float* A, const T* Bm,
+                  const float* h0, float* la, float* decay, float* states,
+                  float* hstart, float* h_out, int batch, const Dims& d,
+                  bool aligned, cudaStream_t stream) {
+  const int S = d.seq, H = d.heads, P = d.head_dim, N = d.state;
+  const int nc = S / d.chunk;
+  const long long bhs = (long long)batch * H;
+  constexpr int E = 16 / (int)sizeof(T);
+  // P slices: enough blocks for two per SM where the state allows
+  const int sms = sm_count();
+  int psplit = 1;
+  while (psplit < 8 && (long long)nc * bhs * psplit < 2LL * sms &&
+         P % (2 * psplit) == 0 && (P / (2 * psplit)) * N >= kThreads)
+    psplit *= 2;
+  const int PS = P / psplit;
+  const int vec_s = aligned && PS % E == 0 && N % E == 0;
+  const size_t s_bytes = state_smem_bytes(P, N, d.chunk, psplit, sizeof(T));
+  if (int err = set_smem((const void*)ssd_chunk_state_kernel<T>, s_bytes))
+    return err;
+  ssd_chunk_state_kernel<T><<<dim3(nc * psplit, H, batch), kThreads, s_bytes,
+                              stream>>>(x, dt, A, Bm, la, decay, states, d,
+                                        psplit, vec_s);
+  if (int err = (int)cudaGetLastError()) return err;
+  const dim3 pass_grid((P * N + kThreads - 1) / kThreads, (unsigned)bhs);
+  ssd_state_pass_kernel<kSplit><<<pass_grid, kThreads, 0, stream>>>(
+      decay, states, hstart, h0, h_out, nc, P * N);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* xv, const float* dt, const float* A, const void* Bv,
            const void* Cv, const float* h0, void* yv, float* h_out,
@@ -818,30 +914,10 @@ int launch(const void* xv, const float* dt, const float* A, const void* Bv,
       aligned16(x) && aligned16(Bm) && aligned16(Cm) && aligned16(y);
   const int vec = aligned && P % E == 0 && N % E == 0;
   const int vec_h = vec && (P * N) % 8 == 0;
-
-  // P slices: enough blocks for two per SM where the state allows
-  int sms = 132;
-  int dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int psplit = 1;
-  while (psplit < 8 && (long long)nc * bhs * psplit < 2LL * sms &&
-         P % (2 * psplit) == 0 && (P / (2 * psplit)) * N >= kThreads)
-    psplit *= 2;
-  const int PS = P / psplit;
-  const int vec_s = aligned && PS % E == 0 && N % E == 0;
-  const size_t s_bytes = state_smem_bytes(P, N, L, psplit, sizeof(T));
-  if (int err = set_smem((const void*)ssd_chunk_state_kernel<T>, s_bytes))
+  if (int err = launch_states<T, IsBf16<T>::value>(
+          x, dt, A, Bm, h0, la, decay, states, hstart, h_out, batch, d,
+          aligned, stream))
     return err;
-  ssd_chunk_state_kernel<T><<<dim3(nc * psplit, H, batch), kThreads, s_bytes,
-                              stream>>>(x, dt, A, Bm, la, decay, states, d,
-                                        psplit, vec_s);
-  if (int err = (int)cudaGetLastError()) return err;
-  const dim3 pass_grid((P * N + kThreads - 1) / kThreads, (unsigned)bhs);
-  ssd_state_pass_kernel<IsBf16<T>::value>
-      <<<pass_grid, kThreads, 0, stream>>>(decay, states, hstart, h0, h_out,
-                                           nc, P * N);
-  if (int err = (int)cudaGetLastError()) return err;
   switch (pad16(P)) {
     case 16:
       return launch_output<T, 16>(x, dt, Bm, Cm, la, hstart, y, batch, d, vec,
@@ -859,11 +935,644 @@ int launch(const void* xv, const float* dt, const float* A, const void* Bv,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The backward: kernels 1-2 again (f32 states), then 4-7
+// ---------------------------------------------------------------------------
+//
+// Every product below is an f32 FMA on CUDA cores out of shared memory,
+// whatever the input type: bf16 operands are widened as they are staged.
+// In kernels 5-6 a tile of 64 positions is laid out [64][ld], ld = the
+// width rounded up to 4, plus 4: a row's 16-byte groups are read as
+// float4 along the reduced axis, and the 8 rows a quarter-warp reads at
+// one group fall on 8 distinct 16-byte bank groups.  Each 64 x 64 product
+// gives thread (ty, tx) = (tid / 16, tid % 16) rows ty + 16i and columns
+// tx + 16j (i, j < 4); a [64][width] output gives it rows ty + 16i and
+// columns tx + 16j for j < width / 16.
+
+constexpr int kRows = 64;          // positions per backward tile
+constexpr int kLdM = kRows + 4;    // row stride of a 64 x 64 weight tile
+constexpr int kMaxPJ = 8;          // columns tx + 16j of P (P <= 128)
+constexpr int kMaxNJ = 16;         // ... of N (N <= 256)
+
+// Row stride of a kernel 5-6 tile `width` wide.
+__host__ __device__ inline int tile_ld(int width) {
+  return round4(width) + 4;
+}
+
+// Backward shared memory (floats).  4. the reverse state pass, for a P
+// slice of ps rows: exp(La) of a tile, its dy slice and its C; 5. the
+// target tile: La and dt of its sources, C and dy of its targets, one
+// source stage of B and x (the state at the chunk's start first), the
+// weighted scores; 6. the whole chunk: La, dt, the direct ddt, dt * Q and
+// a scan buffer, the B / x source and C / dy target stages, both weighted
+// score tiles and dS.
+__host__ inline size_t bwd_state_floats(int ps, int N) {
+  return kRows + (size_t)kRows * (ps + 1) + (size_t)kRows * (N + 1);
+}
+__host__ inline size_t bwd_target_floats(int P, int N, int L) {
+  const size_t src = (size_t)kRows * (tile_ld(N) + tile_ld(P));
+  const size_t h = (size_t)round4(P) * tile_ld(N);
+  return 2 * (size_t)round4(L) + src + (src > h ? src : h) + kRows * kLdM;
+}
+__host__ inline size_t bwd_source_floats(int P, int N, int L) {
+  return 5 * (size_t)round4(L) +
+         2 * (size_t)kRows * (tile_ld(N) + tile_ld(P)) + 2 * kRows * kLdM +
+         (size_t)round4(P) * tile_ld(N);
+}
+
+// Rows [0, rows) of a global matrix (rows `step` elements apart, `width`
+// columns) into the first `cols` columns of an f32 tile of `tile_rows`
+// rows `ld` apart; rows past `rows` and columns past `width` are 0.
+template <typename T>
+__device__ __forceinline__ void stage_f32(float* dst, const T* __restrict__ src,
+                                          long long step, int rows, int width,
+                                          int cols, int ld,
+                                          int tile_rows = kRows) {
+  for (int i = threadIdx.x; i < tile_rows * cols; i += kThreads) {
+    const int r = i / cols, c = i - r * cols;
+    dst[r * ld + c] =
+        r < rows && c < width ? to_f32(src[r * step + c]) : 0.f;
+  }
+}
+
+// A kernel 5-6 tile: `width` columns at tile_ld(width), padded with 0.
+template <typename T>
+__device__ __forceinline__ void stage_tile(float* dst,
+                                           const T* __restrict__ src,
+                                           long long step, int rows,
+                                           int width) {
+  stage_f32<T>(dst, src, step, rows, width, round4(width), tile_ld(width));
+}
+
+// Sum over the 16 lanes of a half-warp (the tx of one ty), every lane.
+__device__ __forceinline__ float sum16(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The block's sum of v, in a fixed order, returned to thread 0.
+__device__ float block_sum(float v, float* warp_sums) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();                   // warp_sums free from any earlier use
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  float total = 0.f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < kWarps; ++w) total += warp_sums[w];
+  return total;
+}
+
+// acc[i][j] (row ty + 16i of a, row tx + 16j < nb of b) += the dot
+// product of the two rows over their first `kp` columns (a multiple of 4;
+// both tiles `ld` apart), read as float4.
+template <int kJ>
+__device__ __forceinline__ void dot_rows(float (&acc)[4][kJ], const float* a,
+                                         const float* b, int ld, int kp,
+                                         int nb, int ty, int tx) {
+  for (int k = 0; k < kp; k += 4) {
+    float4 av[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * ld + k);
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      if (tx + 16 * j < nb) {
+        const float4 bv =
+            *reinterpret_cast<const float4*>(b + (tx + 16 * j) * ld + k);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float v = fmaf(av[i].x, bv.x, acc[i][j]);
+          v = fmaf(av[i].y, bv.y, v);
+          v = fmaf(av[i].z, bv.z, v);
+          acc[i][j] = fmaf(av[i].w, bv.w, v);
+        }
+      }
+    }
+  }
+}
+
+// acc[i][j] (row ty + 16i, column tx + 16j < width) += m . v over the
+// first `kp` rows of v (a multiple of 4): m's rows read as float4 (`ldm`
+// apart), v's columns as scalars (`ldv` apart).
+template <int kJ>
+__device__ __forceinline__ void accumulate(float (&acc)[4][kJ],
+                                           const float* m, int ldm,
+                                           const float* v, int ldv, int kp,
+                                           int width, int ty, int tx) {
+  for (int k = 0; k < kp; k += 4) {
+    float4 mv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      mv[i] = *reinterpret_cast<const float4*>(m + (ty + 16 * i) * ldm + k);
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const int col = tx + 16 * j;
+      if (col < width) {
+        const float* vc = v + k * ldv + col;
+        const float v0 = vc[0], v1 = vc[ldv], v2 = vc[2 * ldv],
+                    v3 = vc[3 * ldv];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float a = fmaf(mv[i].x, v0, acc[i][j]);
+          a = fmaf(mv[i].y, v1, a);
+          a = fmaf(mv[i].z, v2, a);
+          acc[i][j] = fmaf(mv[i].w, v3, a);
+        }
+      }
+    }
+  }
+}
+
+// 4. Grid (P slice, head x batch row).  The reverse pass over the chunks:
+// g = dh (or 0); for c = nc - 1 .. 0: dS_c = g, hdot_c = <g, h_c> (this
+// slice's share), g = exp(La_L,c) g + sum_t exp(La_t) dy_t ⊗ C_t; dh0 = g.
+// dS goes to `dstate` (the chunk states' region, free once kernel 2 read
+// it).  Thread: column n, J consecutive rows p of the slice.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_state_kernel(const T* __restrict__ dy, const T* __restrict__ Cm,
+                     const float* __restrict__ la_g,
+                     const float* __restrict__ decay,
+                     const float* __restrict__ hstart,
+                     const float* __restrict__ dh, float* __restrict__ dstate,
+                     float* __restrict__ dh0, float* __restrict__ hdot,
+                     const Dims d, int psplit) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float warp_sums[kWarps];
+  const int tid = threadIdx.x;
+  const int pq = blockIdx.x;
+  const long long bh = blockIdx.y;
+  const int H = d.heads, P = d.head_dim, N = d.state, G = d.groups;
+  const int L = d.chunk, S = d.seq, nc = S / L;
+  const int b = (int)(bh / H), head = (int)(bh % H), g = head / (H / G);
+  const int PS = P / psplit, pbase = pq * PS;
+  const int J = max(1, PS * N / kThreads);
+  const int n = tid % N, p0 = (tid / N) * J;
+  const bool active = p0 < PS;
+  float* w = smem;                               // [64] exp(La_t)
+  float* dys = w + kRows;                        // [64][PS + 1]
+  float* cs = dys + kRows * (PS + 1);            // [64][N + 1]
+  const long long pn = (long long)P * N;
+  const long long e0 = (long long)(pbase + p0) * N + n;
+
+  float gv[kMaxAcc];
+#pragma unroll
+  for (int j = 0; j < kMaxAcc; ++j)
+    gv[j] = (active && j < J && dh) ? dh[bh * pn + e0 + (long long)j * N]
+                                    : 0.f;
+  for (int c = nc - 1; c >= 0; --c) {
+    const long long slot = (bh * nc + c) * pn;
+    float part = 0.f;
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < kMaxAcc; ++j)
+        if (j < J) {
+          const long long e = slot + e0 + (long long)j * N;
+          dstate[e] = gv[j];
+          part = fmaf(gv[j], hstart[e], part);
+        }
+    }
+    part = block_sum(part, warp_sums);
+    if (tid == 0) hdot[(bh * nc + c) * 8 + pq] = part;
+    float ev[kMaxAcc];
+#pragma unroll
+    for (int j = 0; j < kMaxAcc; ++j) ev[j] = 0.f;
+    const long long pos0 = (long long)b * S + (long long)c * L;
+    for (int s0 = 0; s0 < L; s0 += kRows) {
+      const int rows = min(kRows, L - s0);
+      __syncthreads();               // the previous tile consumed
+      for (int i = tid; i < rows; i += kThreads)
+        w[i] = expf(la_g[bh * S + (long long)c * L + s0 + i]);
+      stage_f32<T>(dys, dy + ((pos0 + s0) * H + head) * P + pbase,
+                   (long long)H * P, rows, PS, PS, PS + 1);
+      stage_f32<T>(cs, Cm + ((pos0 + s0) * G + g) * N, (long long)G * N,
+                   rows, N, N, N + 1);
+      __syncthreads();
+      if (active) {
+        for (int r = 0; r < rows; ++r) {
+          const float cv = w[r] * cs[r * (N + 1) + n];
+          const float* dr = dys + r * (PS + 1) + p0;
+#pragma unroll
+          for (int j = 0; j < kMaxAcc; ++j)
+            if (j < J) ev[j] = fmaf(dr[j], cv, ev[j]);
+        }
+      }
+    }
+    const float dc = decay[bh * nc + c];
+#pragma unroll
+    for (int j = 0; j < kMaxAcc; ++j) gv[j] = fmaf(dc, gv[j], ev[j]);
+  }
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < kMaxAcc; ++j)
+      if (j < J) dh0[bh * pn + e0 + (long long)j * N] = gv[j];
+  }
+}
+
+// 5. Grid (64-row target tile, chunk, head x batch row).  For target rows
+// t: dC_t = exp(La_t) dy_t . h_c + sum_{s<=t} M2[t,s] B_s with M2[t,s] =
+// exp(La_t - La_s) dt_s (dy_t . x_s), this head's share (f32, to dc_h);
+// and La's gradient from the targets' side, sum_s (C_t . B_s) M2[t,s] +
+// C_t . (exp(La_t) dy_t . h_c) (to dla_t).  exp is taken only where s <= t.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_target_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                      const T* __restrict__ Bm, const T* __restrict__ Cm,
+                      const T* __restrict__ dy,
+                      const float* __restrict__ la_g,
+                      const float* __restrict__ hstart,
+                      float* __restrict__ dc_h, float* __restrict__ dla_t,
+                      const Dims d) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int H = d.heads, P = d.head_dim, N = d.state, G = d.groups;
+  const int L = d.chunk, S = d.seq, nc = S / L;
+  const int t0 = blockIdx.x * kRows, c = blockIdx.y;
+  const long long bh = blockIdx.z;
+  const int b = (int)(bh / H), head = (int)(bh % H), g = head / (H / G);
+  const int src_end = min(L, t0 + kRows);
+  const int ldn = tile_ld(N), ldp = tile_ld(P);
+  const int N4 = round4(N), P4 = round4(P);
+  float* la = smem;                              // [L]
+  float* dts = la + round4(L);                   // [L]
+  float* cs = dts + round4(L);                   // [64][ldn]
+  float* dys = cs + kRows * ldn;                 // [64][ldp]
+  float* bs = dys + kRows * ldp;                 // [64][ldn]; h first
+  float* xs = bs + kRows * ldn;                  // [64][ldp]
+  float* hs = bs;                                // [P4][ldn]
+  const int src_floats = kRows * (ldn + ldp), h_floats = P4 * ldn;
+  float* m2 = bs + (src_floats > h_floats ? src_floats : h_floats);
+
+  const long long pos0 = (long long)b * S + (long long)c * L;
+  const long long x_row = (long long)H * P, bc_row = (long long)G * N;
+  for (int i = tid; i < src_end; i += kThreads) {
+    la[i] = la_g[bh * S + (long long)c * L + i];
+    dts[i] = dt[(pos0 + i) * H + head];
+  }
+  const int rows_t = min(kRows, L - t0);
+  stage_tile<T>(cs, Cm + (pos0 + t0) * bc_row + (long long)g * N, bc_row,
+                rows_t, N);
+  stage_tile<T>(dys, dy + (pos0 + t0) * x_row + (long long)head * P, x_row,
+                rows_t, P);
+  // the state at the chunk's start, rows past P zero
+  stage_f32<float>(hs, hstart + (bh * nc + c) * (long long)P * N, N, P, N,
+                   N, ldn, P4);
+  __syncthreads();
+
+  // the inter term: dC_t = exp(La_t) sum_p dy_t[p] h[p, :]
+  float acc[4][kMaxNJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kMaxNJ; ++j) acc[i][j] = 0.f;
+  accumulate<kMaxNJ>(acc, dys, ldp, hs, ldn, P4, N, ty, tx);
+  float rowv[4], roww[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + ty + 16 * i;
+    const float e = t < L ? expf(la[t]) : 0.f;
+    float v = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxNJ; ++j) {
+      const int nn = tx + 16 * j;
+      if (nn < N) {
+        acc[i][j] *= e;
+        v = fmaf(cs[(ty + 16 * i) * ldn + nn], acc[i][j], v);
+      }
+    }
+    rowv[i] = sum16(v);
+    roww[i] = 0.f;
+  }
+
+  // the intra terms, source tile by source tile up to the diagonal
+  for (int s0 = 0; s0 < src_end; s0 += kRows) {
+    const int rows_s = min(kRows, L - s0);
+    __syncthreads();                 // h, or the previous stage, consumed
+    stage_tile<T>(bs, Bm + (pos0 + s0) * bc_row + (long long)g * N, bc_row,
+                  rows_s, N);
+    stage_tile<T>(xs, x + (pos0 + s0) * x_row + (long long)head * P, x_row,
+                  rows_s, P);
+    __syncthreads();
+    float cb[4][4] = {}, dyx[4][4] = {};
+    dot_rows<4>(cb, cs, bs, ldn, N4, kRows, ty, tx);
+    dot_rows<4>(dyx, dys, xs, ldp, P4, kRows, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = t0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int s = s0 + tx + 16 * j;
+        const float m = (s <= t && t < L)
+                            ? expf(la[t] - la[s]) * dts[s] * dyx[i][j]
+                            : 0.f;
+        roww[i] = fmaf(cb[i][j], m, roww[i]);
+        m2[(ty + 16 * i) * kLdM + tx + 16 * j] = m;
+      }
+    }
+    __syncthreads();
+    accumulate<kMaxNJ>(acc, m2, kLdM, bs, ldn,
+                       round4(min(rows_s, src_end - s0)), N, ty, tx);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + ty + 16 * i;
+    const float w = sum16(roww[i]);
+    if (t >= L) continue;
+    float* out = dc_h + ((pos0 + t) * H + head) * (long long)N;
+#pragma unroll
+    for (int j = 0; j < kMaxNJ; ++j) {
+      const int nn = tx + 16 * j;
+      if (nn < N) out[nn] = acc[i][j];
+    }
+    if (tx == 0) dla_t[bh * S + (long long)c * L + t] = w + rowv[i];
+  }
+}
+
+// 6. Grid (chunk, head x batch row): the whole chunk, source tile by
+// source tile.  For source rows s, with w_s = exp(La_L - La_s), M1[s,t] =
+// (C_t . B_s) exp(La_t - La_s) dt_s and M2 as in 5.:
+//   dx_s  = sum_{t>=s} M1[s,t] dy_t + w_s dt_s dS . B_s
+//   dB_s  = sum_{t>=s} M2[s,t] C_t + w_s dt_s x_s . dS   (this head's share)
+//   ddt_s = sum_{t>=s} (C_t . B_s) exp(La_t - La_s) (dy_t . x_s) + Q_s,
+//           Q_s = w_s x_s . dS . B_s  (the direct part)
+// then La's gradient, dLa_s = dla_t[s] - dt_s ddt_s (+ sum_s dt_s Q_s +
+// exp(La_L) <dS, h_c> at s = L - 1), its reverse cumsum rc within the
+// chunk (a scan of the reversed row), ddt_s += A rc_s and the chunk's
+// share of dA, sum_s dt_s rc_s (to da_part).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_source_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                      const float* __restrict__ A, const T* __restrict__ Bm,
+                      const T* __restrict__ Cm, const T* __restrict__ dy,
+                      const float* __restrict__ la_g,
+                      const float* __restrict__ decay,
+                      const float* __restrict__ dstate,
+                      const float* __restrict__ hdot,
+                      const float* __restrict__ dla_t, T* __restrict__ dx,
+                      float* __restrict__ db_h, float* __restrict__ ddt,
+                      float* __restrict__ da_part, const Dims d,
+                      int hdot_parts) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float warp_sums[kWarps];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int H = d.heads, P = d.head_dim, N = d.state, G = d.groups;
+  const int L = d.chunk, S = d.seq, nc = S / L;
+  const int c = blockIdx.x;
+  const long long bh = blockIdx.y;
+  const int b = (int)(bh / H), head = (int)(bh % H), g = head / (H / G);
+  const int L4 = round4(L);
+  const int ldn = tile_ld(N), ldp = tile_ld(P);
+  const int N4 = round4(N), P4 = round4(P);
+  float* la = smem;                              // [L]
+  float* dts = la + L4;                          // [L]
+  float* ddir = dts + L4;                        // [L] direct ddt
+  float* qdt = ddir + L4;                        // [L] dt_s Q_s
+  float* scan = qdt + L4;                        // [L]
+  float* xs = scan + L4;                         // [64][ldp]
+  float* bs = xs + kRows * ldp;                  // [64][ldn]
+  float* cs = bs + kRows * ldn;                  // [64][ldn]
+  float* dys = cs + kRows * ldn;                 // [64][ldp]
+  float* m1 = dys + kRows * ldp;                 // [64][kLdM]
+  float* m2 = m1 + kRows * kLdM;                 // [64][kLdM]
+  float* ds = m2 + kRows * kLdM;                 // [P4][ldn]
+
+  const long long pos0 = (long long)b * S + (long long)c * L;
+  const long long x_row = (long long)H * P, bc_row = (long long)G * N;
+  for (int i = tid; i < L; i += kThreads) {
+    la[i] = la_g[bh * S + (long long)c * L + i];
+    dts[i] = dt[(pos0 + i) * H + head];
+  }
+  // dS, rows past P and columns past N zero
+  stage_f32<float>(ds, dstate + (bh * nc + c) * (long long)P * N, N, P, N,
+                   N4, ldn, P4);
+  __syncthreads();
+  const float la_last = la[L - 1];
+
+  for (int s0 = 0; s0 < L; s0 += kRows) {
+    const int rows_s = min(kRows, L - s0);
+    __syncthreads();                 // the previous source tile consumed
+    stage_tile<T>(xs, x + (pos0 + s0) * x_row + (long long)head * P, x_row,
+                  rows_s, P);
+    stage_tile<T>(bs, Bm + (pos0 + s0) * bc_row + (long long)g * N, bc_row,
+                  rows_s, N);
+    __syncthreads();
+    // the state terms: dSB = B . dS^T [s][p], xdS = x . dS [s][n]
+    float dxa[4][kMaxPJ], dba[4][kMaxNJ], ddt_acc[4], q[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < kMaxPJ; ++j) dxa[i][j] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kMaxNJ; ++j) dba[i][j] = 0.f;
+    }
+    dot_rows<kMaxPJ>(dxa, bs, ds, ldn, N4, P, ty, tx);
+    accumulate<kMaxNJ>(dba, xs, ldp, ds, ldn, P4, N, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = s0 + ty + 16 * i;
+      float v = 0.f;
+#pragma unroll
+      for (int j = 0; j < kMaxPJ; ++j) {
+        const int p = tx + 16 * j;
+        if (p < P) v = fmaf(xs[(ty + 16 * i) * ldp + p], dxa[i][j], v);
+      }
+      const float w = s < L ? expf(la_last - la[s]) : 0.f;
+      const float wd = s < L ? w * dts[s] : 0.f;
+      q[i] = w * sum16(v);
+      ddt_acc[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kMaxPJ; ++j) dxa[i][j] *= wd;
+#pragma unroll
+      for (int j = 0; j < kMaxNJ; ++j) dba[i][j] *= wd;
+    }
+
+    // the intra terms, target tile by target tile from the diagonal on
+    for (int t0 = s0; t0 < L; t0 += kRows) {
+      const int rows_t = min(kRows, L - t0);
+      __syncthreads();               // the previous target tile consumed
+      stage_tile<T>(cs, Cm + (pos0 + t0) * bc_row + (long long)g * N,
+                    bc_row, rows_t, N);
+      stage_tile<T>(dys, dy + (pos0 + t0) * x_row + (long long)head * P,
+                    x_row, rows_t, P);
+      __syncthreads();
+      float cb[4][4] = {}, dyx[4][4] = {};
+      dot_rows<4>(cb, bs, cs, ldn, N4, kRows, ty, tx);
+      dot_rows<4>(dyx, xs, dys, ldp, P4, kRows, ty, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = s0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int t = t0 + tx + 16 * j;
+          const float dec = (s <= t && t < L) ? expf(la[t] - la[s]) : 0.f;
+          const float cbd = cb[i][j] * dec;
+          const float dsv = (s <= t && t < L) ? dts[s] : 0.f;
+          ddt_acc[i] = fmaf(cbd, dyx[i][j], ddt_acc[i]);
+          m1[(ty + 16 * i) * kLdM + tx + 16 * j] = cbd * dsv;
+          m2[(ty + 16 * i) * kLdM + tx + 16 * j] = dyx[i][j] * dec * dsv;
+        }
+      }
+      __syncthreads();
+      accumulate<kMaxPJ>(dxa, m1, kLdM, dys, ldp, round4(rows_t), P, ty, tx);
+      accumulate<kMaxNJ>(dba, m2, kLdM, cs, ldn, round4(rows_t), N, ty, tx);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = s0 + ty + 16 * i;
+      const float direct = sum16(ddt_acc[i]) + q[i];
+      if (s >= L) continue;
+      if (tx == 0) {
+        ddir[s] = direct;
+        qdt[s] = dts[s] * q[i];
+      }
+      T* dxo = dx + (pos0 + s) * x_row + (long long)head * P;
+#pragma unroll
+      for (int j = 0; j < kMaxPJ; ++j) {
+        const int p = tx + 16 * j;
+        if (p < P) dxo[p] = from_f32<T>(dxa[i][j]);
+      }
+      float* dbo = db_h + ((pos0 + s) * H + head) * (long long)N;
+#pragma unroll
+      for (int j = 0; j < kMaxNJ; ++j) {
+        const int nn = tx + 16 * j;
+        if (nn < N) dbo[nn] = dba[i][j];
+      }
+    }
+  }
+  __syncthreads();
+  // the last position's terms: sum_s dt_s Q_s (a scan's last entry) and
+  // exp(La_L) <dS, h_c> (kernel 4's slices, in order)
+  block_inclusive_scan(qdt, L, warp_sums);
+  if (tid == 0) {
+    float hd = 0.f;
+    for (int k = 0; k < hdot_parts; ++k) hd += hdot[(bh * nc + c) * 8 + k];
+    scan[0] = qdt[L - 1] + decay[bh * nc + c] * hd;
+  }
+  __syncthreads();
+  const float last = scan[0];
+  __syncthreads();
+  // dLa, reversed, then its inclusive scan: scan[L-1-s] = rc_s
+  for (int s = tid; s < L; s += kThreads)
+    scan[L - 1 - s] = dla_t[bh * S + (long long)c * L + s] -
+                      dts[s] * ddir[s] + (s == L - 1 ? last : 0.f);
+  __syncthreads();
+  block_inclusive_scan(scan, L, warp_sums);
+  const float a_h = A[head];
+  for (int s = tid; s < L; s += kThreads) {
+    const float rc = scan[L - 1 - s];
+    ddt[(pos0 + s) * H + head] = fmaf(a_h, rc, ddir[s]);
+    qdt[s] = dts[s] * rc;            // dA's terms
+  }
+  __syncthreads();
+  block_inclusive_scan(qdt, L, warp_sums);
+  if (tid == 0) da_part[bh * nc + c] = qdt[L - 1];
+}
+
+// 7. dB and dC: each group's heads summed in order (f32, then x's type);
+// dA: each head's chunks summed in order, batch row by batch row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_reduce_kernel(const float* __restrict__ db_h,
+                      const float* __restrict__ dc_h,
+                      const float* __restrict__ da_part, T* __restrict__ dB,
+                      T* __restrict__ dC, float* __restrict__ dA,
+                      long long total, int batch, const Dims d) {
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int H = d.heads, N = d.state, G = d.groups, nc = d.seq / d.chunk;
+  const int rep = H / G;
+  if (e < total) {
+    const long long row = e / N;                 // b * S * G + s * G + g
+    const int nn = (int)(e - row * N), g = (int)(row % G);
+    const long long pos = row / G;               // b * S + s
+    const long long at = (pos * H + (long long)g * rep) * N + nn;
+    float sb = 0.f, sc = 0.f;
+    for (int r = 0; r < rep; ++r) {
+      sb += db_h[at + (long long)r * N];
+      sc += dc_h[at + (long long)r * N];
+    }
+    dB[e] = from_f32<T>(sb);
+    dC[e] = from_f32<T>(sc);
+  }
+  if (e < H) {
+    float s = 0.f;
+    for (int b = 0; b < batch; ++b)
+      for (int c = 0; c < nc; ++c)
+        s += da_part[((long long)b * H + e) * nc + c];
+    dA[e] = s;
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* xv, const float* dt, const float* A,
+               const void* Bv, const void* Cv, const float* h0,
+               const void* dyv, const float* dh, void* dxv, float* ddt,
+               float* dA, void* dBv, void* dCv, float* dh0, float* work,
+               int batch, const Dims& d, cudaStream_t stream) {
+  const T* x = static_cast<const T*>(xv);
+  const T* Bm = static_cast<const T*>(Bv);
+  const T* Cm = static_cast<const T*>(Cv);
+  const T* dy = static_cast<const T*>(dyv);
+  const int S = d.seq, H = d.heads, P = d.head_dim, N = d.state;
+  const int G = d.groups, L = d.chunk, nc = S / L;
+  const long long bhs = (long long)batch * H, pn = (long long)P * N;
+  float* la = work;                                   // [B,H,S]
+  float* decay = la + round4_ll(bhs * S);             // [B,H,nc]
+  float* states = decay + round4_ll(bhs * nc);        // [B,H,nc,P,N]: dS
+  float* hstart = states + round4_ll(bhs * nc * pn);  // [B,H,nc,P,N]
+  float* hfinal = hstart + round4_ll(bhs * nc * pn);  // [B,H,P,N]
+  float* hdot = hfinal + round4_ll(bhs * pn);         // [B,H,nc,8]
+  float* dla_t = hdot + round4_ll(bhs * nc * 8);      // [B,H,S]
+  float* da_part = dla_t + round4_ll(bhs * S);        // [B,H,nc]
+  float* db_h = da_part + round4_ll(bhs * nc);        // [B,S,H,N]
+  float* dc_h = db_h + round4_ll(bhs * S * N);        // [B,S,H,N]
+  const bool aligned = aligned16(x) && aligned16(Bm);
+  if (int err = launch_states<T, false>(x, dt, A, Bm, h0, la, decay, states,
+                                        hstart, hfinal, batch, d, aligned,
+                                        stream))
+    return err;
+  // 4. P slices as kernel 1 takes them: two blocks an SM where it can
+  const int sms = sm_count();
+  int ps = 1;
+  while (ps < 8 && bhs * ps < 2LL * sms && P % (2 * ps) == 0 &&
+         (P / (2 * ps)) * N >= kThreads)
+    ps *= 2;
+  const size_t b4 = sizeof(float) * bwd_state_floats(P / ps, N);
+  if (int err = set_smem((const void*)ssd_bwd_state_kernel<T>, b4))
+    return err;
+  ssd_bwd_state_kernel<T><<<dim3(ps, (unsigned)bhs), kThreads, b4, stream>>>(
+      dy, Cm, la, decay, hstart, dh, states, dh0, hdot, d, ps);
+  if (int err = (int)cudaGetLastError()) return err;
+  const size_t b5 = sizeof(float) * bwd_target_floats(P, N, L);
+  if (int err = set_smem((const void*)ssd_bwd_target_kernel<T>, b5))
+    return err;
+  ssd_bwd_target_kernel<T>
+      <<<dim3((L + kRows - 1) / kRows, nc, (unsigned)bhs), kThreads, b5,
+         stream>>>(x, dt, Bm, Cm, dy, la, hstart, dc_h, dla_t, d);
+  if (int err = (int)cudaGetLastError()) return err;
+  const size_t b6 = sizeof(float) * bwd_source_floats(P, N, L);
+  if (int err = set_smem((const void*)ssd_bwd_source_kernel<T>, b6))
+    return err;
+  ssd_bwd_source_kernel<T><<<dim3(nc, (unsigned)bhs), kThreads, b6, stream>>>(
+      x, dt, A, Bm, Cm, dy, la, decay, states, hdot, dla_t,
+      static_cast<T*>(dxv), db_h, ddt, da_part, d, ps);
+  if (int err = (int)cudaGetLastError()) return err;
+  const long long total = (long long)batch * S * G * N;
+  const long long items = total > H ? total : H;
+  ssd_bwd_reduce_kernel<T>
+      <<<(unsigned)((items + kThreads - 1) / kThreads), kThreads, 0,
+         stream>>>(db_h, dc_h, da_part, static_cast<T*>(dBv),
+                   static_cast<T*>(dCv), dA, total, batch, d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Shapes the kernels take: head_dim and state dividing 256, head_dim at
-// most 128, head_dim * state at most 8192, and every kernel's shared
-// memory within the block limit.
+// Shapes the kernels take, forward and backward: head_dim and state
+// dividing 256, head_dim at most 128, head_dim * state at most 8192, and
+// every kernel's shared memory within the block limit.
 extern "C" int ssd_scan_supported(int head_dim, int state, int chunk) {
   if (head_dim <= 0 || state <= 0 || chunk <= 0) return 0;
   if (kThreads % head_dim || kThreads % state || head_dim > 128 ||
@@ -873,7 +1582,10 @@ extern "C" int ssd_scan_supported(int head_dim, int state, int chunk) {
   return state_smem_bytes(head_dim, state, chunk, 1, 4) <= limit &&
          state_smem_bytes(head_dim, state, chunk, 1, 2) <= limit &&
          out_smem_bytes(head_dim, state, chunk, 4) <= limit &&
-         out_smem_bytes(head_dim, state, chunk, 2) <= limit;
+         out_smem_bytes(head_dim, state, chunk, 2) <= limit &&
+         sizeof(float) * bwd_state_floats(head_dim, state) <= limit &&
+         sizeof(float) * bwd_target_floats(head_dim, state, chunk) <= limit &&
+         sizeof(float) * bwd_source_floats(head_dim, state, chunk) <= limit;
 }
 
 // Floats of workspace one call needs: La, the chunks' decays, their
@@ -903,5 +1615,48 @@ extern "C" int ssd_chunked_scan(const void* x, const float* dt,
     return launch<float>(x, dt, A, Bm, Cm, h0, y, h_out, work, batch, d, s);
   if (dtype == 1)
     return launch<bf16>(x, dt, A, Bm, Cm, h0, y, h_out, work, batch, d, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Floats of workspace one backward call needs: the forward's La, decays
+// and states (whose region then holds dS), the f32 states at the chunks'
+// starts and the final state, <dS, h> by P slice, La's gradient from the
+// targets' side, the chunks' shares of dA, and dB and dC by head.
+extern "C" long long ssd_scan_bwd_workspace(int batch, int seq, int heads,
+                                            int head_dim, int state,
+                                            int chunk) {
+  const long long bhs = (long long)batch * heads, nc = seq / chunk;
+  const long long pn = (long long)head_dim * state;
+  return 2 * round4_ll(bhs * seq) + 2 * round4_ll(bhs * nc) +
+         2 * round4_ll(bhs * nc * pn) + round4_ll(bhs * pn) +
+         round4_ll(bhs * nc * 8) + 2 * round4_ll(bhs * seq * state);
+}
+
+// The backward of ssd_chunked_scan: from its inputs and dy (x's dtype and
+// shape) and dh (f32 [B,H,P,N], or null for a final state with no
+// gradient), dx, dB, dC in x's dtype and ddt, dA, dh0 in f32 (dh0 also
+// when h0 is null: the gradient of a zero start).  work:
+// ssd_scan_bwd_workspace() floats.  Every sum runs in a fixed order: two
+// calls give the same bits.
+extern "C" int ssd_chunked_scan_bwd(const void* x, const float* dt,
+                                    const float* A, const void* Bm,
+                                    const void* Cm, const float* h0,
+                                    const void* dy, const float* dh, void* dx,
+                                    float* ddt, float* dA, void* dB, void* dC,
+                                    float* dh0, float* work, int batch,
+                                    int seq, int heads, int head_dim,
+                                    int groups, int state, int chunk,
+                                    int dtype, void* stream) {
+  if (!ssd_scan_supported(head_dim, state, chunk) || seq % chunk ||
+      groups <= 0 || heads % groups || batch <= 0)
+    return (int)cudaErrorInvalidValue;
+  Dims d{seq, heads, head_dim, groups, state, chunk};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd<float>(x, dt, A, Bm, Cm, h0, dy, dh, dx, ddt, dA, dB,
+                             dC, dh0, work, batch, d, s);
+  if (dtype == 1)
+    return launch_bwd<bf16>(x, dt, A, Bm, Cm, h0, dy, dh, dx, ddt, dA, dB, dC,
+                            dh0, work, batch, d, s);
   return (int)cudaErrorInvalidValue;
 }

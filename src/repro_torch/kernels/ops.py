@@ -12,7 +12,9 @@ hand-written kernel or raises (there is no fallback between the two).
   file;
 * ``flash_attention`` — causal GQA prefill (``csrc/flash_attention.cu``);
 * ``ssd_scan`` — the Mamba2 SSD chunked scan (``csrc/ssd_scan.cu``); its
-  CPU version is the chunked form the reference's XLA route runs;
+  CPU version is the chunked form the reference's XLA route runs; it is
+  differentiable, its backward runs ``ssd_scan_bwd`` (the backward kernels
+  of the same file; their CPU version is autograd of the chunked form);
 * ``moe_gemm`` / ``moe_gemm_dgrad`` / ``moe_gemm_wgrad`` — the
   token-sorted grouped expert GEMM of the grouped MoE path and its input
   and weight gradients (``csrc/moe_gemm.cu``); ``moe_gemm`` is
@@ -25,8 +27,9 @@ hand-written kernel or raises (there is no fallback between the two).
 Each kernel entry point counts its launches in ``<name>.launches``;
 ``KERNELS`` lists them (a CUDA graph adds a capture's counts back on
 every replay: ``core/control.py`` ``DecodeGraph``).  The
-attention and SSD kernels have no backward and raise when reached under
-grad mode with an input that requires grad.
+attention kernels have no backward and raise when reached under grad
+mode with an input that requires grad (training takes the plain
+attention, as the reference's ``"xla"`` route does).
 """
 from __future__ import annotations
 
@@ -39,9 +42,10 @@ from repro_torch.kernels.paged_attention import (  # noqa: F401  (re-export)
     paged_mla_decode_attention)
 from repro_torch.kernels.moe_gemm import (  # noqa: F401  (re-export)
     moe_gemm, moe_gemm_dgrad, moe_gemm_wgrad)
-from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: F401  (re-export)
+from repro_torch.kernels.ssd_scan import (  # noqa: F401  (re-export)
+    ssd_scan, ssd_scan_bwd)
 
 #: every kernel entry point with a launch counter
 KERNELS = (paged_decode_attention, paged_mla_decode_attention,
-           decode_attention, flash_attention, ssd_scan, moe_gemm,
-           moe_gemm_wgrad, paged_kv_write)
+           decode_attention, flash_attention, ssd_scan, ssd_scan_bwd,
+           moe_gemm, moe_gemm_wgrad, paged_kv_write)

@@ -5,6 +5,8 @@ reference's XLA route runs (``kernels/ops.py:128``), and here the plain
 version of the SSD scan kernel (``csrc/ssd_scan.cu``) — the CPU path of
 ``kernels.ops.ssd_scan`` and the yardstick on the card.  O(S/chunk) steps
 with matmuls inside, against the O(S) recurrence of ``ref.ssd_scan``.
+``ssd_scan_chunked_bwd`` is its gradient by autograd, the plain version
+of the backward kernel (``kernels.ops.ssd_scan_bwd``).
 
 Math (arXiv:2405.21060 §6): within a chunk of length L with per-step log
 decay a_t = dt_t * A and inclusive cumsum La_t:
@@ -71,6 +73,32 @@ def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y_inter = torch.einsum("bclhn,bchpn->bclhp", C_dec, h_starts)
     y = (y_intra + y_inter).reshape(Bb, S, H, P).to(x.dtype)
     return y, h
+
+
+def ssd_scan_chunked_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                         B_: torch.Tensor, C_: torch.Tensor,
+                         h0: Optional[torch.Tensor], dy: torch.Tensor,
+                         dh: Optional[torch.Tensor], chunk: int = 64
+                         ) -> Tuple[torch.Tensor, ...]:
+    """The plain version of the SSD scan's backward: autograd of
+    ``ssd_scan_chunked`` (the gradient ``jax.vjp`` takes of the
+    reference's XLA route).  dy is y's gradient, dh h_final's (None: no
+    gradient reaches it).  Returns (dx, ddt, dA, dB, dC, dh0): dx, dB, dC
+    in x's dtype, ddt, dA, dh0 f32; dh0 is the gradient of a zero start
+    when h0 is None."""
+    Bb, _, H, P = x.shape
+    N = B_.shape[3]
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, dt, A, B_, C_)]
+        start = (torch.zeros((Bb, H, P, N), dtype=torch.float32,
+                             device=x.device) if h0 is None else h0)
+        start = start.detach().to(torch.float32).requires_grad_(True)
+        y, h = ssd_scan_chunked(*ins, chunk=chunk, h0=start)
+        outs, grads = [y], [dy]
+        if dh is not None:
+            outs.append(h)
+            grads.append(dh)
+        return torch.autograd.grad(outs, ins + [start], grads)
 
 
 def ssd_decode_step(h: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor,

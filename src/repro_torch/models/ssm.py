@@ -5,7 +5,8 @@ Port of ``src/repro/models/ssm.py``.  The recurrent state ``h [B,H,P,N]``
 constant size, whatever the context length.  Under the sharded step's
 hooks the block runs on this rank's heads (the section below).  The whole-sequence scan goes
 through ``kernels.ops.ssd_scan`` (the SSD kernel on a card, the chunked
-plain version on the CPU); decode runs the one-token recurrence.
+plain version on the CPU), differentiable on both (on a card its backward
+is the kernel ``ssd_scan_bwd``); decode runs the one-token recurrence.
 
 The two convolutions differ in dtype, as the reference's do: the prefill
 conv sums in the model dtype (``ssm.py:72``), the decode conv in f32 and

@@ -6,12 +6,13 @@ MoE load-balance aux), gradients by autograd (accumulated in f32 over
 microbatches), optional error-feedback int8 compression, then AdamW.
 ``extra_inputs`` forwards keyword arguments to ``forward``: the grouped
 MoE path is ``extra_inputs=lambda b: {"moe_path": "grouped"}``, the route
-the reference allows.  The step runs where the params lie; the ssm and
-hybrid families train on the CPU only, sharded or not (their SSD and
-flash kernels have no backward: ROADMAP Queue 2 item 8).  ``hooks`` (the
-reference's argument) make it the sharded step of ``launch/dryrun.py``
-``build_train_cell`` for every family: each rank's local shards and
-rows, the collectives written out by the hooks.
+the reference allows.  The step runs where the params lie, for every
+family: on a card the ssm and hybrid families' SSD scan is differentiable
+(its backward is a kernel, ``kernels.ops.ssd_scan_bwd``), and attention
+trains through its plain version, as the reference's ``"xla"`` route
+does.  ``hooks`` (the reference's argument) make it the sharded step of
+``launch/dryrun.py`` ``build_train_cell`` for every family: each rank's
+local shards and rows, the collectives written out by the hooks.
 """
 from __future__ import annotations
 
@@ -158,12 +159,6 @@ def make_train_step(model: Model, optimizer: AdamW, *,
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         params = state.params
-        if (model.cfg.family in ("ssm", "hybrid")
-                and batch["tokens"].device.type == "cuda"):
-            raise NotImplementedError(
-                f"{model.cfg.name}: training the ssm/hybrid families on a "
-                f"card needs SSD scan and flash attention backward kernels "
-                f"(ROADMAP Queue 2 item 8); train them on the CPU")
         metrics, grads = grad_fn(params, batch)
         error_fb = state.error_fb
         if compress:

@@ -20,7 +20,8 @@ from repro_torch.configs.base import EngineConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.ssd_chunked import ssd_scan_chunked
+from repro_torch.kernels.ssd_chunked import (ssd_scan_chunked,
+                                             ssd_scan_chunked_bwd)
 from repro_torch.models.model import build_model
 from repro_torch.models.transformer import init_params
 from repro_torch.runtime.engine import CrossPoolEngine, EngineMode
@@ -657,6 +658,83 @@ def test_ssd_kernel_matches_plain(cuda, dtype, tol, with_h0, B, S, H, P, G,
     torch.testing.assert_close(h, wh, rtol=1e-3, atol=1e-3)
 
 
+def _ssd_bwd_inputs(cuda, dtype, B, S, H, P, G, N, with_h0, with_dh, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    x = randn(B, S, H, P, dtype=dtype)
+    dt = torch.nn.functional.softplus(randn(B, S, H) - 2.0)
+    A = -torch.exp(randn(H))
+    Bm, Cm = randn(B, S, G, N, dtype=dtype), randn(B, S, G, N, dtype=dtype)
+    h0 = randn(B, H, P, N) if with_h0 else None
+    dy = randn(B, S, H, P, dtype=dtype)
+    dh = randn(B, H, P, N) if with_dh else None
+    return x, dt, A, Bm, Cm, h0, dy, dh
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,with_h0,with_dh", [
+    (2, 128, 4, 16, 2, 16, 32, True, True),     # G = 2, h0, dh
+    (1, 96, 2, 64, 1, 64, 32, False, False),    # no h0, no dh
+    (2, 48, 4, 16, 2, 16, 16, True, True),      # ragged against the tile
+    (1, 40, 4, 64, 1, 64, 8, True, True),       # chunk 8
+    (1, 160, 2, 64, 1, 128, 80, True, False),   # a chunk off 64 rows
+    (1, 48, 2, 8, 1, 4, 16, False, True),       # P and N below 16
+])
+def test_ssd_backward_kernel_matches_plain(cuda, dtype, tol, B, S, H, P, G,
+                                           N, chunk, with_h0, with_dh):
+    """The backward kernels against autograd of the chunked form on the
+    same inputs: each of dx, ddt, dA, dB, dC, dh0 within ``tol`` of its
+    scale (max(1, max|plain|)); a second call equal bit for bit."""
+    ins = _ssd_bwd_inputs(cuda, dtype, B, S, H, P, G, N, with_h0, with_dh,
+                          S + N)
+    before = kops.ssd_scan_bwd.launches
+    got = kops.ssd_scan_bwd(*ins, chunk=chunk)
+    assert kops.ssd_scan_bwd.launches == before + 1
+    again = kops.ssd_scan_bwd(*ins, chunk=chunk)
+    want = ssd_scan_chunked_bwd(*ins, chunk=chunk)
+    x, dt, A, Bm = ins[:4]
+    for name, g, a, w, like in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"),
+                                   got, again, want,
+                                   (x, dt, A, Bm, Bm, dt)):
+        assert g.dtype == like.dtype, name
+        assert torch.isfinite(g).all(), name
+        assert torch.equal(g, a), f"{name} differs between two calls"
+        scale = max(1.0, float(w.float().abs().max()))
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * scale, f"{name}: {err:.3g} > {tol} x {scale:.3g}"
+
+
+def test_ssd_scan_under_grad_runs_its_backward_kernel(cuda):
+    """Under grad mode ``ssd_scan`` returns tensors with a grad_fn; their
+    backward (a strided dy, as a reshape gives it) launches the backward
+    kernels once, and its gradients equal autograd of the chunked form
+    within 1e-3 of their scale.  Without an input that requires grad it
+    runs the forward alone."""
+    x, dt, A, Bm, Cm, h0, _, dh = _ssd_bwd_inputs(
+        cuda, torch.float32, 2, 64, 4, 16, 2, 16, True, True, 3)
+    leaves_in = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm,
+                                                          h0)]
+    y, h = kops.ssd_scan(*leaves_in[:5], chunk=16, h0=leaves_in[5])
+    assert y.grad_fn is not None and h.grad_fn is not None
+    w = torch.randn((64, 2, 4, 16), device=cuda).permute(1, 0, 2, 3)
+    before = kops.ssd_scan_bwd.launches
+    got = torch.autograd.grad((y * w).sum() + (h * dh).sum(), leaves_in)
+    assert kops.ssd_scan_bwd.launches == before + 1
+    plain = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm, h0)]
+    wy, wh = ssd_scan_chunked(*plain[:5], chunk=16, h0=plain[5])
+    want = torch.autograd.grad((wy * w).sum() + (wh * dh).sum(), plain)
+    for g, wg in zip(got, want):
+        scale = max(1.0, float(wg.abs().max()))
+        assert float((g - wg).abs().max()) <= 1e-3 * scale
+    with torch.no_grad():
+        y, _ = kops.ssd_scan(*leaves_in[:5], chunk=16, h0=leaves_in[5])
+    assert y.grad_fn is None
+    assert kops.ssd_scan_bwd.launches == before + 1
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fallback_engine_on_the_card_serves_and_returns_every_page(cuda,
                                                                    dtype):
@@ -752,17 +830,16 @@ def test_moe_gemm_and_ssd_are_sync_free(cuda):
 
 
 def test_kernels_without_backward_refuse_grad(cuda):
-    """Under grad mode with an input that requires grad, the attention and
-    SSD kernels raise instead of returning a tensor with no grad_fn; under
-    ``torch.no_grad()`` they run."""
+    """Under grad mode with an input that requires grad, the attention
+    kernels raise instead of returning a tensor with no grad_fn; under
+    ``torch.no_grad()`` they run.  (The SSD scan has its backward:
+    ``test_ssd_scan_under_grad_runs_its_backward_kernel``.)"""
     def rand(*shape):
         return torch.randn(shape, device=cuda)
 
     q = rand(1, 1, 4, 16).requires_grad_(True)
     lens = torch.tensor([5], dtype=torch.int32, device=cuda)
     table = torch.tensor([[0, 1]], dtype=torch.int32, device=cuda)
-    x = rand(2, 48, 4, 16).requires_grad_(True)
-    dt = torch.nn.functional.softplus(rand(2, 48, 4))
     calls = {
         "paged_decode_attention": lambda: kops.paged_decode_attention(
             q, rand(2, 4 * 2 * 2 * 16), table, lens, tokens_per_page=4,
@@ -776,9 +853,6 @@ def test_kernels_without_backward_refuse_grad(cuda):
         "flash_attention": lambda: kops.flash_attention(
             rand(1, 8, 4, 16).requires_grad_(True), rand(1, 8, 2, 16),
             rand(1, 8, 2, 16), scale=0.25),
-        "ssd_scan": lambda: kops.ssd_scan(
-            x, dt, -torch.exp(rand(4)), rand(2, 48, 2, 16), rand(2, 48, 2, 16),
-            chunk=16),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no backward"):
@@ -819,15 +893,56 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * scale)
 
 
-def test_train_step_refuses_ssm_on_the_card(cuda):
-    cfg = get_smoke_config("mamba2-130m").replace(dtype="float32")
-    model = build_model(cfg)
-    params = model.init(torch.Generator(device=cuda).manual_seed(0))
-    opt = AdamW()
-    step = make_train_step(model, opt, remat=False)
-    tokens = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step(TrainState(params, opt.init(params)), {"tokens": tokens})
+def _ssm_train_step(device, name, remat, params, tokens):
+    """One float32 smoke AdamW step of ``name`` on ``device`` from a copy
+    of ``params``: (metrics, updated leaves on the CPU, ssd_scan and
+    ssd_scan_bwd launches)."""
+    model = build_model(get_smoke_config(name).replace(dtype="float32"))
+    p = map_tree(lambda t: t.detach().clone().to(device), params)
+    opt = AdamW(lr=3e-3, warmup_steps=10)
+    step = make_train_step(model, opt, remat=remat)
+    before = kops.ssd_scan.launches, kops.ssd_scan_bwd.launches
+    state, metrics = step(TrainState(p, opt.init(p)),
+                          {"tokens": tokens.to(device)})
+    launches = (kops.ssd_scan.launches - before[0],
+                kops.ssd_scan_bwd.launches - before[1])
+    return metrics, [t.detach().cpu() for t in leaves(state.params)], launches
+
+
+def _ssm_launches(cfg, remat):
+    """(ssd_scan, ssd_scan_bwd) launches of one train step: a forward and
+    a backward a SSD block, and under remat a second forward for every
+    block the checkpoint recomputes (the hybrid's tail runs outside it)."""
+    if not remat:
+        return cfg.n_ssm_layers, cfg.n_ssm_layers
+    recomputed = (cfg.n_layers if cfg.family == "ssm"
+                  else cfg.hybrid_groups * cfg.ssm_per_group)
+    return cfg.n_ssm_layers + recomputed, cfg.n_ssm_layers
+
+
+@pytest.mark.parametrize("name,remat", [("mamba2-130m", False),
+                                        ("zamba2-1.2b", False),
+                                        ("zamba2-1.2b", True)])
+def test_ssm_train_step_on_the_card_matches_the_cpu(cuda, name, remat):
+    """One float32 smoke step of mamba2 / zamba2 on the card (the SSD scan
+    kernel and its backward) against the CPU (autograd of the chunked
+    form): loss, grad norm and updated params within 1e-4 of each leaf's
+    scale (max(1, max|leaf|)).  The forward runs once a SSM layer, twice
+    for a recomputed one under remat, the backward once."""
+    cfg = get_smoke_config(name).replace(dtype="float32")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32),
+                           generator=torch.Generator().manual_seed(1))
+    m_card, p_card, launches = _ssm_train_step(cuda, name, remat, params,
+                                               tokens)
+    m_cpu, p_cpu, _ = _ssm_train_step("cpu", name, remat, params, tokens)
+    assert launches == _ssm_launches(cfg, remat)
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m_card[k]) - float(m_cpu[k])) <= \
+            1e-4 * max(1.0, abs(float(m_cpu[k])))
+    for a, b in zip(p_card, p_cpu):
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * scale)
 
 
 # ---------------------------------------------------------------------------

@@ -186,7 +186,8 @@ def test_forward_refuses_what_is_not_ported():
 
 
 @pytest.mark.parametrize("name,moe_path", [
-    (MOE, "capacity"), (MOE, "grouped"), ("minicpm3-4b", "capacity")])
+    (MOE, "capacity"), (MOE, "grouped"), ("minicpm3-4b", "capacity"),
+    ("mamba2-130m", "capacity"), ("zamba2-1.2b", "capacity")])
 def test_loss_and_grads_match_jax(name, moe_path):
     """``jax.value_and_grad`` of the reference's loss against torch
     autograd of the port's: loss within 1e-5 (relative), every gradient
