@@ -53,9 +53,10 @@ other than 0) if any phase fails:
              each SDPA backend that takes it (a yardstick only: the port
              never calls it; the fastest is ``library_ms``), beside the
              bound (the paged decode kernels also in float32 over 16 KiB
-             f32 pages at B = 4; the SSD scan at S = 1024 and 512, its
-             backward at the train shape in float32 and at S = 1024 in
-             bf16);
+             f32 pages at B = 4; the SSD scan at S = 1024 and 512 in bf16
+             and in float32 at the train shape (8 x 512), its backward
+             at the train shape in float32 and at S = 1024 in bf16, one
+             call of it split by launch under the profiler);
 4. small   — float32 smoke-size models on the card against the CPU
              (plain versions): the colocated set and zamba2 + mamba2;
              prefill and one decode step give the same logits within
@@ -393,6 +394,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12              # H100 SXM float32 peak (CUDA cores)
+TF32_FLOPS = 495e12             # H100 SXM TF32 tensor-core peak (dense)
 #: the attention kernels (rows 1-4) in bf16: the limit on each output
 #: row's relative RMS error against the plain version (a correct kernel
 #: differs by the rounding of its bf16 probabilities and output, ~3e-3)
@@ -406,7 +408,7 @@ PORT_KERNELS = ("flash_prefill", "split_decode_kernel", "merge_splits_kernel",
                 "mla_split_decode_kernel", "mla_merge_splits_kernel",
                 "ssd_chunk_state_kernel", "ssd_state_pass_kernel",
                 "ssd_chunk_output_kernel", "ssd_bwd_state_kernel",
-                "ssd_bwd_target_kernel", "ssd_bwd_source_kernel",
+                "ssd_bwd_pass_kernel", "ssd_bwd_pair_kernel",
                 "ssd_bwd_reduce_kernel", "moe_gemm")
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
                  "MATH")
@@ -590,13 +592,20 @@ def bound_ms(nbytes: float, flops: float, fp32: bool = False):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def ssd_bound(B, S, H, P, G, N, L):
-    """Row 6's least time for one call: x and y bf16, dt f32, B / C bf16
-    and the final f32 state moved once; the chunked form's products."""
-    nbytes = (2 * B * S * H * P * 2 + B * S * H * 4 + H * 4
-              + 2 * B * S * G * N * 2 + B * H * P * N * 4)
+def ssd_bound(B, S, H, P, G, N, L, itemsize=2):
+    """Row 6's least time for one call: x and y, B and C in the input
+    type, dt f32 and the final f32 state moved once; the chunked form's
+    products, at the bf16 peak, or for f32 (``itemsize`` 4) the lesser of
+    the f32 peak and three TF32 passes (as ``ssd_bwd_bound``)."""
+    nbytes = ((2 * B * S * H * P + 2 * B * S * G * N) * itemsize
+              + B * S * H * 4 + H * 4 + B * H * P * N * 4)
     flops = B * H * (S // L) * (L * L * (N + P) + 4 * L * N * P)
-    return bound_ms(nbytes, flops)
+    if itemsize != 4:
+        return bound_ms(nbytes, flops)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = min(flops / FP32_FLOPS, 3 * flops / TF32_FLOPS) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations")
 
 
 def ssd_bwd_bound(B, S, H, P, G, N, L, itemsize):
@@ -605,11 +614,20 @@ def ssd_bwd_bound(B, S, H, P, G, N, L, itemsize):
     and dA f32, dh0 f32, each moved once; the gradient's products over
     the lower triangle (C.B, dy.x, dx, dB, dC: L^2 (3N + 2P) flops a
     chunk) and its five P x N state products (the recomputed states, the
-    reverse pass, dS.B, x.dS, dy.h: 10 L P N), at the f32 peak for f32."""
+    reverse pass, dS.B, x.dS, dy.h: 10 L P N).  For f32 the least time of
+    the two routes to f32-accurate products: the CUDA cores' f32 peak, or
+    three TF32 passes at the tensor cores' TF32 peak (3 x flops / 495
+    TF/s, the lesser); bf16 at the bf16 peak.  Never under the bytes'
+    time."""
     nbytes = ((3 * B * S * H * P + 4 * B * S * G * N) * itemsize
               + 2 * B * S * H * 4 + 2 * H * 4 + B * H * P * N * 4)
     flops = B * H * (S // L) * (L * L * (3 * N + 2 * P) + 10 * L * N * P)
-    return bound_ms(nbytes, flops, fp32=itemsize == 4)
+    if itemsize != 4:
+        return bound_ms(nbytes, flops)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = min(flops / FP32_FLOPS, 3 * flops / TF32_FLOPS) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -637,6 +655,25 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     torch.cuda.synchronize()
     times = sorted(s.elapsed_time(e) for s, e in zip(starts, ends))
     return times[len(times) // 2]
+
+
+def launch_split(torch, fn) -> dict:
+    """{kernel: ms} of one call of ``fn`` under ``torch.profiler``: where
+    a call of several launches spends its device time, each kernel of the
+    port by its name in ``PORT_KERNELS`` (a warm call, L2 not flushed)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if not e.self_device_time_total:
+            continue
+        name = next((n for n in PORT_KERNELS if n in e.key), e.key[:40])
+        out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
+    return out
 
 
 def library_sdpa(torch, call):
@@ -1321,6 +1358,21 @@ def fallback_kernel_phase(torch, kops, ref, ssd_scan_chunked):
                 plain_ms=time_ms(torch, lambda: ssd_scan_chunked(
                     x, dt, A, Bm, Cm, chunk=L)),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    # and in float32 at the train path's shape (phases 7b-7d)
+    for label, (Hs, P, G, N) in geoms.items():
+        x, dt, A, Bm, Cm, _ = ssd_inputs(TRAIN_BATCH, TRAIN_SEQ, Hs, P, G, N,
+                                         torch.float32, False, 0.0)
+        b_ms, b_by = ssd_bound(TRAIN_BATCH, TRAIN_SEQ, Hs, P, G, N, L, 4)
+        rows.append(dict(
+            kernel="ssd_scan", shape=f"{label} H={Hs} P={P} N={N} "
+                                     f"B={TRAIN_BATCH} S={TRAIN_SEQ} chunk "
+                                     f"{L} f32 (train shape)",
+            ms=time_ms(torch, lambda: kops.ssd_scan(x, dt, A, Bm, Cm,
+                                                    chunk=L)),
+            plain_ms=time_ms(torch, lambda: ssd_scan_chunked(
+                x, dt, A, Bm, Cm, chunk=L)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        del x, dt, A, Bm, Cm
     for r in rows:
         lib = ("library none (no single PyTorch call computes it)"
                if r["library_ms"] is None else
@@ -1353,8 +1405,9 @@ def ssd_backward_phase(torch, kops, ssd_scan_chunked_bwd):
     S = 1024, chunk 256 (without h0 and dh, and with both), the train
     shape, chunks of 8 and 64 with nc >= 8, and G = 2; dh zero, given and
     absent.  Then times it (``SSD_BWD_TIMED``) beside its bound and the
-    plain version.  Returns (the worst error against scale, the largest
-    absolute error, timed rows)."""
+    plain version, and splits one call's device time by launch
+    (``launch_split``).  Returns (the worst error against scale, the
+    largest absolute error, timed rows)."""
     geoms = ssd_geometries()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
@@ -1435,14 +1488,17 @@ def ssd_backward_phase(torch, kops, ssd_scan_chunked_bwd):
                 ms=time_ms(torch, lambda: kops.ssd_scan_bwd(*ins, chunk=L)),
                 plain_ms=time_ms(torch, lambda: ssd_scan_chunked_bwd(
                     *ins, chunk=L)),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by))
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                split=launch_split(torch, lambda: kops.ssd_scan_bwd(
+                    *ins, chunk=L))))
             del ins
     for r in rows:
         log(f"time ssd_scan_bwd {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms (autograd of the chunked form, its "
             f"forward included), bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), library none (no single PyTorch call "
-            f"computes it)")
+            f"computes it); one call by launch: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in r["split"].items()))
     return worst, abs_err, rows
 
 
@@ -6523,7 +6579,10 @@ def main() -> int:
                 f"{WHISPER} {part}": w[f"launches_{part}"][name]
                 for part in ("prefill", "decode")})
         if name == "ssd_scan":
-            # phases 7b-7d: the train path's forwards
+            # phases 7b-7d: the train path's forwards, timed in float32
+            kernels[-1]["train_rows"] = [
+                r for r in f_rows if r["kernel"] == name
+                and r["shape"].endswith("(train shape)")]
             kernels[-1]["launches_train"] = {
                 **{f"7b-7c {m}": t["launches"][name]
                    for m, t in ssm_train.items()},

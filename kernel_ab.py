@@ -17,18 +17,28 @@ GEMM at phase 7's training shape (N = 24576, K = 2048, M = 1408, E = 64)
 in float32 and bf16: row 5w (the weight gradient) under the skewed load
 and a router load (phase 7's first layer, read from ``--loads``, a
 ``chip_smoke.py`` report, else a seeded draw), row 5 (forward and input
-gradient) under the router load.  Inputs come from fixed seeds, so every
-tree sees the same ones.  The timing is ``chip_smoke.py``'s (median of
-20, L2 flushed, a spin ahead); each result is also held against the
-plain version (2e-5, 2e-2 in bf16, or 1e-4 for float32 row 5).  Beside
+gradient) under the router load; row 6b (the SSD scan's backward) at
+the zamba2 and mamba2 geometries at phase 3's timed shapes (float32 at
+the train shape, 8 x 512, and bf16 at S = 1024, chunk 256) and row 6 (the
+forward) in float32 at the train shape.  Inputs come from fixed seeds,
+so every tree sees the same ones.  The timing is ``chip_smoke.py``'s
+(median of 20, L2 flushed, a spin ahead); each result is also held
+against the plain version (2e-5, 2e-2 in bf16, or 1e-4 for float32 row
+5; the SSD rows by phase 3's rule, each output within 1e-3 / 2e-2 of
+max(1, max|plain|), since their decays are exp of log-decay sums taken
+in another order).  Beside
 each row 4 call the fastest SDPA backend, beside each row 5 / 5w call
 ``torch._grouped_mm`` on the same operands, is timed in the same process
-(``LIB`` lines; yardsticks the port never calls).
+(``LIB`` lines; yardsticks the port never calls; the SSD rows have none,
+and their ``LIB`` lines say so).
 
     python3 kernel_ab.py --ablate [--loads build/chip_smoke.json]
+    python3 kernel_ab.py --ablate-ssd
 
 times this tree's bf16 grouped GEMM body whole and with its products, its
-epilogue or both removed (``ABLATIONS``), on the bf16 row 5 / 5w calls.  It prints one ``AB`` line per call and then each call's time per
+epilogue or both removed (``ABLATIONS``), on the bf16 row 5 / 5w calls;
+or its SSD backward whole and with each of ``SSD_ABLATIONS`` on row 6b's
+calls.  It prints one ``AB`` line per call and then each call's time per
 tree, and writes every figure, beside the card's name and power limit, to
 ``build/kernel_ab.json``.  Times move between cards and calls, so trees
 are compared only within one call.
@@ -167,7 +177,76 @@ def _cases(torch, ref, kops, loads):
                          f"{load}")
                 out.append((label, call, plain, tol,
                             ("_grouped_mm", lib_args + (offs,))))
+    out += _ssd_cases(torch, kops, gen)
     return out
+
+
+#: rows 6 / 6b at phase 3's timed shapes (``chip_smoke.SSD_BWD_TIMED``):
+#: (label, B, S, dtype, tolerance of max(1, max|plain|)); chunk 256
+SSD_SHAPES = (("train shape", 8, 512, "float32", 1e-3),
+              ("S=1024", 1, 1024, "bfloat16", 2e-2))
+SSD_NO_LIBRARY = ("none", "(no single PyTorch call computes the SSD scan "
+                          "or its gradient)")
+
+
+def _ssd_cases(torch, kops, gen):
+    """Row 6b (the SSD scan's backward) at both geometries and both of
+    phase 3's timed shapes, and row 6 (the forward) in float32 at the
+    train shape, each checked by phase 3's scale-relative rule."""
+    import chip_smoke as cs
+    from repro_torch.kernels.ssd_chunked import (ssd_scan_chunked,
+                                                 ssd_scan_chunked_bwd)
+    out, L = [], 256
+    for geom, (H, P, G, N) in cs.ssd_geometries().items():
+        for label, B, S, dtype, tol in SSD_SHAPES:
+            dtype = getattr(torch, dtype)
+
+            def randn(*shape, dtype=torch.float32):
+                return torch.randn(shape, generator=gen,
+                                   device="cuda").to(dtype)
+            x, dy = randn(B, S, H, P, dtype=dtype), randn(B, S, H, P,
+                                                          dtype=dtype)
+            dt = torch.nn.functional.softplus(randn(B, S, H))
+            A = -torch.exp(torch.linspace(0.0, 2.77, H, device="cuda"))
+            Bm, Cm = (randn(B, S, G, N, dtype=dtype) for _ in range(2))
+            ins = (x, dt, A, Bm, Cm, None, dy, None)
+            name = str(dtype).split(".")[-1]
+            out.append((f"row 6b {geom} {label} B={B} S={S} chunk {L} "
+                        f"{name}",
+                        lambda ins=ins: kops.ssd_scan_bwd(*ins, chunk=L),
+                        lambda ins=ins: ssd_scan_chunked_bwd(*ins, chunk=L),
+                        ("scale", tol), SSD_NO_LIBRARY))
+            if dtype == torch.float32:
+                out.append((f"row 6 {geom} {label} B={B} S={S} chunk {L} "
+                            f"{name}",
+                            lambda ins=ins: kops.ssd_scan(*ins[:5], chunk=L),
+                            lambda ins=ins: ssd_scan_chunked(*ins[:5],
+                                                             chunk=L),
+                            ("scale", tol), SSD_NO_LIBRARY))
+    return out
+
+
+def _check(torch, root, label, got, want, tol):
+    """Hold a result against the plain version: elementwise (tol + tol
+    |plain|), or for ("scale", t) each output within t of max(1,
+    max|plain|), phase 3's rule for the SSD scan and its gradient.
+    Returns the largest absolute error."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        err = (g - w).abs()
+        if isinstance(tol, tuple):
+            bad = float(err.max()) > tol[1] * max(1.0, float(w.abs().max()))
+        else:
+            bad = bool((err > tol + tol * w.abs()).any())
+        if not torch.isfinite(g).all() or bad:
+            raise AssertionError(f"{root} {label}: kernel disagrees with "
+                                 f"the plain version (max abs err "
+                                 f"{err.max().item():.3g}, tolerance {tol})")
+        worst = max(worst, float(err.max()))
+    return worst
 
 
 def one(root: str, loads_path: str) -> None:
@@ -192,17 +271,14 @@ def one(root: str, loads_path: str) -> None:
         loads = rng.multinomial(24576, p / p.sum()).tolist()
     for label, call, plain, tol, *library in _cases(torch, ref, kops,
                                                     loads):
-        got, want = call().float(), plain().float()
-        err = (got - want).abs()
-        if not torch.isfinite(got).all() or (err > tol + tol * want.abs()
-                                             ).any():
-            raise AssertionError(f"{root} {label}: kernel disagrees with "
-                                 f"the plain version (max abs err "
-                                 f"{err.max().item():.3g}, tolerance {tol})")
+        err = _check(torch, root, label, call(), plain(), tol)
         print(f"AB {label} | {cs.time_ms(torch, call):.4f} ms "
-              f"err {err.max().item():.3g}", flush=True)
+              f"err {err:.3g}", flush=True)
         if library and isinstance(library[0], tuple):
             backend, args = library[0]
+            if backend == "none":
+                print(f"LIB {label} | none {args}", flush=True)
+                continue
             lib_call, why = cs.library_grouped_mm(torch, *args)
             if lib_call is None:
                 print(f"LIB {label} | none {why}", flush=True)
@@ -233,9 +309,6 @@ def ablate(loads_path: str) -> None:
     the times count), each timed on the bf16 row 5 / 5w calls at phase
     7's shape, the variants in turns and then in reverse.  Prints one
     ``ABL`` line per call."""
-    import ctypes
-    import shutil
-
     import numpy as np
     import torch
     sys.path.insert(0, str(HERE / "src"))
@@ -246,29 +319,9 @@ def ablate(loads_path: str) -> None:
     from repro_torch.kernels import ops as kops
 
     real = mg.load_library()
-    text = mg.SOURCE.read_text()
-    out = HERE / "build" / "ablate"
-    out.mkdir(parents=True, exist_ok=True)
-    for header in build.CSRC.glob("*.cuh"):
-        shutil.copy(header, out / header.name)
-    jobs = {}
-    for name, edits in ABLATIONS.items():
-        variant = text
-        for old, new in edits:
-            if old not in variant:
-                raise ValueError(f"ablation {name!r}: csrc/moe_gemm.cu no "
-                                 f"longer holds {old.strip()[:40]!r}")
-            variant = variant.replace(old, new)
-        src = out / f"moe_gemm_{name.replace(' ', '_')}.cu"
-        src.write_text(variant)
-        jobs[name] = build._start(src, out)          # all nvcc at once
-    libs = {}
-    for name, job in jobs.items():
-        lib = ctypes.CDLL(str(build._finish(*job)))
-        for fn in ("moe_gemm", "moe_gemm_wgrad"):
-            getattr(lib, fn).argtypes = getattr(real, fn).argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
+    libs = _variants(mg.SOURCE, ABLATIONS, build.BUILD_DIR / "ablate",
+                     {fn: getattr(real, fn) for fn in ("moe_gemm",
+                                                       "moe_gemm_wgrad")})
     N, K, M, E = 24576, 2048, 1408, 64
     gen = torch.Generator(device="cuda").manual_seed(29)
     x = torch.randn((N, K), generator=gen, device="cuda").bfloat16()
@@ -302,6 +355,115 @@ def ablate(loads_path: str) -> None:
                 times.items()), flush=True)
 
 
+#: ablations of the SSD backward's kernels (``--ablate-ssd``), each a list
+#: of (text of ``csrc/ssd_scan.cu``, its replacement): the TF32 split by
+#: ``cvt.rna.tf32`` in place of rounding by the bits, one product pass
+#: in place of three, no products, one target buffer in place of two
+_SPLIT = """    big = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+    small = __float_as_uint(a - __uint_as_float(big));"""
+_CVT = """    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(a));
+    const float rest = a - __uint_as_float(big);
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(rest));"""
+_SMALL = tuple(f"        if constexpr (kS{s}) mma_tf32(d, {a}, {b}[2 * h], "
+               f"{b}[2 * h + 1]);" for s, a, b in (("A", "as", "bb"),
+                                                   ("B", "ab", "bs")))
+_BIG = "        mma_tf32(d, ab, bb[2 * h], bb[2 * h + 1]);"
+_STAGES = "  return elem == 4 && sizeof(float) * pair_floats(P, N, L, 2) <="
+SSD_ABLATIONS = {
+    "whole": [], "cvt split": [(_SPLIT, _CVT)],
+    "one pass (wrong)": [(_SPLIT, "    big = __float_as_uint(a);\n"
+                                  "    small = 0u;")]
+    + [(s, "") for s in _SMALL],
+    "no products (wrong)": [(s, "") for s in _SMALL] + [(_BIG, "")],
+    "one target buffer": [(_STAGES, _STAGES.replace("elem == 4", "false"))]}
+
+
+def _variants(source, ablations, out, entries):
+    """Build each ablation of ``source`` (all nvcc at once) into ``out``
+    and load it with ``entries``' argument types: {name: library}."""
+    import ctypes
+    import shutil
+    from repro_torch.kernels import build
+    out.mkdir(parents=True, exist_ok=True)
+    for header in build.CSRC.glob("*.cuh"):
+        shutil.copy(header, out / header.name)
+    text, jobs = source.read_text(), {}
+    for name, edits in ablations.items():
+        variant = text
+        for old, new in edits:
+            if old not in variant:
+                raise ValueError(f"ablation {name!r}: {source.name} no "
+                                 f"longer holds {old.strip()[:40]!r}")
+            variant = variant.replace(old, new)
+        src = out / (source.stem + "_" + "".join(
+            ch if ch.isalnum() else "_" for ch in name) + ".cu")
+        src.write_text(variant)
+        jobs[name] = build._start(src, out)
+    libs = {}
+    for name, job in jobs.items():
+        lib = ctypes.CDLL(str(build._finish(*job)))
+        for fn, real in entries.items():
+            getattr(lib, fn).argtypes = real.argtypes
+            getattr(lib, fn).restype = real.restype
+        libs[name] = lib
+    return libs
+
+
+def ablate_ssd() -> None:
+    """Where the SSD backward's time goes: this tree's ``csrc/ssd_scan.cu``
+    built as it is and with each of ``SSD_ABLATIONS`` (the wrong ones for
+    their times only), each timed in turns and then in reverse on row
+    6b's calls (zamba2 and mamba2, f32 at 8 x 512 and bf16 at S = 1024),
+    beside its tile-pair kernel's time from one profiled call.  Prints one
+    ``ABL`` line per call and variant."""
+    import torch
+    sys.path.insert(0, str(HERE / "src"))
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ssd_chunked import ssd_scan_chunked_bwd
+
+    real = ssd.load_library()
+    libs = _variants(ssd.SOURCE, SSD_ABLATIONS, build.BUILD_DIR / "ablate",
+                     {fn: getattr(real, fn) for fn in (
+                         "ssd_chunked_scan_bwd", "ssd_scan_supported",
+                         "ssd_scan_bwd_workspace")})
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    for geom, (H, P, G, N) in cs.ssd_geometries().items():
+        for label, B, S, dtype, _ in SSD_SHAPES:
+            dtype = getattr(torch, dtype)
+
+            def randn(*shape, dtype=torch.float32):
+                return torch.randn(shape, generator=gen,
+                                   device="cuda").to(dtype)
+            ins = (randn(B, S, H, P, dtype=dtype),
+                   torch.nn.functional.softplus(randn(B, S, H)),
+                   -torch.exp(torch.linspace(0.0, 2.77, H, device="cuda")),
+                   randn(B, S, G, N, dtype=dtype),
+                   randn(B, S, G, N, dtype=dtype), None,
+                   randn(B, S, H, P, dtype=dtype), None)
+            want = ssd_scan_chunked_bwd(*ins, chunk=256)
+            runs = defaultdict(list)
+            for name in list(libs) + list(libs)[::-1]:
+                ssd.load_library = lambda lib=libs[name]: lib
+
+                def call():
+                    return kops.ssd_scan_bwd(*ins, chunk=256)
+                err = max(float((g.float() - w.float()).abs().max())
+                          / max(1.0, float(w.float().abs().max()))
+                          for g, w in zip(call(), want))
+                pair = sum(ms for k, ms in cs.launch_split(torch, call)
+                           .items() if "pair" in k)
+                runs[name].append((cs.time_ms(torch, call), pair, err))
+            ssd.load_library = lambda: real
+            for name, ((a, pa, e), (b, pb, _)) in runs.items():
+                print(f"ABL {geom} {label} {str(dtype)[6:]} {name}: "
+                      f"{a:.4f} / {b:.4f} ms, tile pairs {pa:.4f} / "
+                      f"{pb:.4f} ms, err / scale {e:.2e}", flush=True)
+
+
 def main(argv) -> int:
     if argv[:1] == ["--one"]:
         one(argv[1], argv[2])
@@ -312,6 +474,9 @@ def main(argv) -> int:
         loads, argv = argv[i + 1], argv[:i] + argv[i + 2:]
     if argv == ["--ablate"]:
         ablate(loads)
+        return 0
+    if argv == ["--ablate-ssd"]:
+        ablate_ssd()
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -31,8 +31,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 #: dtype codes of the C entry points (the kernels take f32 or bf16).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: ``--split-compile=0`` optimizes a source's kernels on every core
+#: (``ssd_scan.cu``'s 40-odd template instances: ``build_all`` 79.4 ->
+#: 37.2 s in ``chip_smoke.py``'s build on an H100 host of 8 cores)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 
 def _nvcc() -> str:

@@ -76,8 +76,7 @@
 // ptxas (-Xptxas -v, sm_90a; no stack, no spills): ssd_chunk_state_kernel
 // 101 registers (bf16) / 78 (f32); ssd_state_pass_kernel 32;
 // ssd_chunk_output_kernel for P padded to 16 / 32 / 64 / 128: bf16 85 /
-// 128 / 132 / 177, f32 96 / 96 / 128 / 162; the backward's kernels 4 / 5
-// / 6 / 7: 124 / 254 / 254 / 32 in both types.  Dynamic shared memory at
+// 128 / 132 / 177, f32 96 / 96 / 128 / 162.  Dynamic shared memory at
 // zamba2's shape: 58 KB (chunk states, two P slices) and 42 KB (outputs).
 //
 // The backward (ssd_chunked_scan_bwd).  It replaces no Pallas kernel: the
@@ -95,29 +94,70 @@
 //           + A rc_s,  dA = sum dt_s rc_s,  rc: the reverse cumsum of dLa
 //   dLa_t = sum_s (C_t . B_s) M2[s,t] + exp(La_t) C_t h_c dy_t - dt_t ddt_t
 //           (+ sum_s dt_s w_s x_s dS B_s + exp(La_L) <g_{c+1}, h_c> at L-1)
-// Six launches: kernels 1-2 again (La, decays, f32 states at the chunks'
-// starts: nothing of the forward is kept, so a layer holds no bytes for
-// the backward beyond its inputs), 4. the reverse state pass, 5. per
-// target tile (dC, La's gradient from the targets), 6. per chunk (dx, dB,
-// the direct ddt, then La's gradient, its reverse cumsum by a block scan,
-// ddt and the chunk's share of dA), 7. dB and dC summed over a group's
-// heads and dA over batch rows and chunks, in order.  No atomics: two
-// calls give the same bits.  Bound: x, dy, dx, B, C, dB, dC, dt, ddt
-// moved once, the products ~L^2 (3N + 2P) + 10 L P N flops a chunk, at
-// the f32 peak (67 TF/s) for f32: operations bound it at the train shape.
-// Every product is an f32 FMA on CUDA cores out of shared memory
-// (bf16 widened as it is staged: no bf16 rounding of the weighted
-// scores), tiles read as float4 along the reduced axis; exp is never
-// taken above the diagonal.  Times (chip_smoke.py phase 3, NVIDIA H100
-// 80GB HBM3 at 700 W, median of 20, L2 flushed): the train shape (B = 8,
-// S = 512, chunk 256, f32) zamba2 5.19 ms, mamba2 2.82 ms against
-// bounds of 0.48 / 0.31 ms; S = 1024 bf16 zamba2 1.92 ms, mamba2 1.15
-// ms; the plain version (autograd, its forward included) 4.2-8.6 ms.
-// In a zamba2 train step (phase 7c's profile) kernels 6 and 5 take 49%
-// and 38% of the call (one 256-thread block an SM), kernel 4 8%.
-//
+// Nothing of the forward is kept: the backward recomputes La, the decays
+// and the states at the chunks' starts, so a layer holds no bytes for it
+// beyond its inputs.  Four launches:
+//   A. per (chunk, head x batch row), twice: La (kernel 1's left-to-right
+//      sum), then S_c (as kernel 1) or E_c = sum_t exp(La_t) dy_t ⊗ C_t,
+//      the reverse pass's products, in parallel over the chunks;
+//   B. per P x N slice: the states at the chunks' starts (kernel 2's
+//      recurrence), then the short reverse recurrence g_c = exp(La_L) g +
+//      E_c: dS, dh0 and <dS, h_c> by slice;
+//   C. per 64-row source tile, the tiles with the most target tiles
+//      first: the state terms, then each target tile from the diagonal on
+//      with C.B and dy.x computed once for the pair, giving the source
+//      side (dx, dB by head, the direct ddt, held in registers over the
+//      walk) and the target side (the pair's partials of dC and of La's
+//      gradient, to workspace);
+//   D. the ordered sums: per head, La's gradient (the targets' partials in
+//      source order), its reverse cumsum by warp scans, ddt and dA; dB and
+//      dC over a group's heads (dC's partials over source tiles first).
+// No atomics: every sum runs in a fixed order, so two calls give the same
+// bits.  Why a block per source tile, with the target side as partials:
+// it gives 4x the blocks of a per-chunk design at chunk 256 (4096 at
+// zamba2's train shape, 1024 at S = 1024, B = 1), and the partials (one
+// [64][N] slab a tile pair, 2.5x the [B,S,H,N] slab at chunk 256) cost
+// ~0.1 ms where a cluster of a chunk's source tiles, summing them
+// through distributed shared memory, would hold its blocks in step
+// although they carry 4, 3, 2 and 1 target tiles.
+// Products (A and C): mma.sync.m16n8k8 in TF32 on tensor cores at f32
+// accuracy.  An f32 operand enters as big + small (big rounded to TF32 by
+// its bits, small = a - big, whose bits past TF32's the tensor cores
+// drop) and a product is small.big + big.small + big.big in f32 (3xTF32,
+// ~2^-21 relative): one rounded TF32 or bf16 pass misses 1e-5 of scale
+// where this holds it (tests/test_torch_ssd_backward.py), and 7c's
+// gradient gate is 1e-3.  bf16 inputs are exact in TF32, so their small
+// parts are 0: C.B and dy.x of bf16 take one pass, the f32 weighted scores
+// and states times a bf16 tile two (not bf16 m16n8k16: the weighted
+// scores would still need a hi + lo pair, and one body serves both
+// types).  Splitting by cvt.rna.tf32 instead of rounding by the bits
+// takes zamba2's call from 1.30 to 1.57 ms (kernel_ab.py --ablate-ssd,
+// NVIDIA H100 80GB HBM3 at 700 W).  Tiles are f32 in shared memory,
+// [rows][W] with W = max(32, width) and each row's 4-word groups XORed by
+// the row (fzx): ldmatrix along rows and scalar loads down columns both
+// fall on 32 banks.  The decays stay f32, exp of La_t - La_s, taken only
+// where s <= t.
+// Bound: x, dy, dx, B, C, dB, dC, dt, ddt moved once; the products ~L^2
+// (3N + 2P) + 10 L P N flops a chunk, for f32 at the lesser of the f32
+// peak (67 TF/s) and three TF32 passes (3 x flops / 495 TF/s): operations
+// bound it, 0.195 ms at zamba2's train shape.  Times (NVIDIA H100 80GB
+// HBM3 at 700 W, median of 20, L2 flushed; chip_smoke.py phase 3,
+// kernel_ab.py for the parent): the train shape (B = 8, S = 512, chunk
+// 256, f32) zamba2 1.30 ms, mamba2 0.78 (the first design 5.19 / 2.82);
+// S = 1024 bf16 0.37 / 0.21 (1.92 / 1.15).  One call by launch (zamba2,
+// f32): A 0.16 ms, B 0.03, C 0.99, D 0.12.  C without its products (an
+// ablation) still takes 0.39 ms: staging, partial stores and each
+// block's first loads, one block an SM.
+// ptxas (-Xptxas -v, sm_90a), registers for (W_P, W_N) = (32, 32) (32,
+// 64) (32, 128) (32, 256) (64, 32) (64, 64) (64, 128) (128, 32) (128, 64):
+// kernel C f32 182 200 231 255 190 226 251 213 231, bf16 128 204 238 255
+// 192 226 246 213 236; kernel A f32 64 75 128 202 48 74 118 71 117, bf16
+// 56 79 124 204 64 64 118 64 119; no spills but C at (32, 256) (f32 4
+// bytes, bf16 92; no config has N = 256); B 26, D 78.
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        -shared -Xcompiler -fPIC -o libssd_scan.so ssd_scan.cu
+//        -shared -Xcompiler -fPIC --split-compile=0 -o libssd_scan.so
+//        ssd_scan.cu  (the backward's template instances compile on every
+//        core: 37 s for all five sources against 79 s without)
 // Each entry point returns cudaGetLastError() after its launches (0 = ok).
 
 #include <cuda_bf16.h>
@@ -204,37 +244,6 @@ __host__ __device__ inline size_t out_smem_bytes(int P, int N, int L,
   const size_t scores = elem == 2 ? 0 : 4 * kBT * (kBS + 4);
   return 2 * sizeof(float) * (size_t)round4(L) +
          elem * (kBT * ldn + src + (elem == 2 && src > h ? src : h)) + scores;
-}
-
-// In-place inclusive prefix sum of v[0..n) by the whole block.
-__device__ void block_inclusive_scan(float* v, int n, float* warp_sums) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int seg = (n + kThreads - 1) / kThreads;
-  const int lo = min(tid * seg, n), hi = min(lo + seg, n);
-  float run = 0.f;
-  for (int i = lo; i < hi; ++i) {
-    run += v[i];
-    v[i] = run;
-  }
-  float inc = run;
-  for (int o = 1; o < 32; o <<= 1) {
-    const float up = __shfl_up_sync(0xffffffffu, inc, o);
-    if (lane >= o) inc += up;
-  }
-  if (lane == 31) warp_sums[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    float w = lane < kWarps ? warp_sums[lane] : 0.f;
-    for (int o = 1; o < kWarps; o <<= 1) {
-      const float up = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += up;
-    }
-    if (lane < kWarps) warp_sums[lane] = w;
-  }
-  __syncthreads();
-  const float offset = inc - run + (warp > 0 ? warp_sums[warp - 1] : 0.f);
-  for (int i = lo; i < hi; ++i) v[i] += offset;
-  __syncthreads();
 }
 
 // Element offset of 8-element chunk c of row r in a swizzled bf16 tile of
@@ -936,79 +945,200 @@ int launch(const void* xv, const float* dt, const float* A, const void* Bv,
 }
 
 // ---------------------------------------------------------------------------
-// The backward: kernels 1-2 again (f32 states), then 4-7
+// The backward: A. the chunk states and E; B. both state passes; C. the
+// tile pairs; D. the ordered sums
 // ---------------------------------------------------------------------------
 //
-// Every product below is an f32 FMA on CUDA cores out of shared memory,
-// whatever the input type: bf16 operands are widened as they are staged.
-// In kernels 5-6 a tile of 64 positions is laid out [64][ld], ld = the
-// width rounded up to 4, plus 4: a row's 16-byte groups are read as
-// float4 along the reduced axis, and the 8 rows a quarter-warp reads at
-// one group fall on 8 distinct 16-byte bank groups.  Each 64 x 64 product
-// gives thread (ty, tx) = (tid / 16, tid % 16) rows ty + 16i and columns
-// tx + 16j (i, j < 4); a [64][width] output gives it rows ty + 16i and
-// columns tx + 16j for j < width / 16.
+// Every product of kernels A and C runs on tensor cores as
+// mma.sync.m16n8k8 in TF32, at f32 accuracy: an f32 operand enters as big
+// + small halves (to_tf32), and a product is small.big + big.small +
+// big.big, accumulated in f32 (3xTF32, ~2^-21 relative); a bf16 operand
+// is exact in TF32, so its small part is 0 and its products are dropped
+// (C.B and dy.x of bf16 inputs take one pass, the f32 weighted scores
+// times a bf16 tile two).  Tiles are f32 in shared memory, [rows][W] with W = max(32, width)
+// and the columns of a row XOR-swizzled by the row (fz): the fragment
+// loads along a row (ldmatrix) and down a column (scalar) both fall on 32
+// distinct banks.
 
-constexpr int kRows = 64;          // positions per backward tile
-constexpr int kLdM = kRows + 4;    // row stride of a 64 x 64 weight tile
-constexpr int kMaxPJ = 8;          // columns tx + 16j of P (P <= 128)
-constexpr int kMaxNJ = 16;         // ... of N (N <= 256)
+constexpr int kBwRows = 64;                 // positions per backward tile
+constexpr int kHdotParts = 32;              // <dS, h> partials a chunk
+constexpr int kUFloats = 8192;              // dS, h or M1 | M2 (kernel C)
+constexpr int kRedFloats = 11 * kBwRows;    // kernel C's row / column sums
 
-// Row stride of a kernel 5-6 tile `width` wide.
-__host__ __device__ inline int tile_ld(int width) {
-  return round4(width) + 4;
+// A backward tile's width for `w` columns (w a power of two).
+__host__ __device__ inline int bw_width(int w) { return w < 32 ? 32 : w; }
+
+// Kernel C's dynamic shared memory (floats) with `stages` target buffers.
+__host__ inline size_t pair_floats(int P, int N, int L, int stages) {
+  return (size_t)kBwRows * (bw_width(P) + bw_width(N)) * (1 + stages) +
+         kUFloats + round4(L) + kRedFloats;
 }
 
-// Backward shared memory (floats).  4. the reverse state pass, for a P
-// slice of ps rows: exp(La) of a tile, its dy slice and its C; 5. the
-// target tile: La and dt of its sources, C and dy of its targets, one
-// source stage of B and x (the state at the chunk's start first), the
-// weighted scores; 6. the whole chunk: La, dt, the direct ddt, dt * Q and
-// a scan buffer, the B / x source and C / dy target stages, both weighted
-// score tiles and dS.
-__host__ inline size_t bwd_state_floats(int ps, int N) {
-  return kRows + (size_t)kRows * (ps + 1) + (size_t)kRows * (N + 1);
-}
-__host__ inline size_t bwd_target_floats(int P, int N, int L) {
-  const size_t src = (size_t)kRows * (tile_ld(N) + tile_ld(P));
-  const size_t h = (size_t)round4(P) * tile_ld(N);
-  return 2 * (size_t)round4(L) + src + (src > h ? src : h) + kRows * kLdM;
-}
-__host__ inline size_t bwd_source_floats(int P, int N, int L) {
-  return 5 * (size_t)round4(L) +
-         2 * (size_t)kRows * (tile_ld(N) + tile_ld(P)) + 2 * kRows * kLdM +
-         (size_t)round4(P) * tile_ld(N);
+// Target buffers of kernel C: two (the next pair's tiles copied while this
+// one is multiplied) for f32 where they fit, else one; bf16 is widened as
+// it is staged, so it copies nothing ahead and keeps one.
+__host__ inline int pair_stages(int P, int N, int L, size_t elem) {
+  return elem == 4 && sizeof(float) * pair_floats(P, N, L, 2) <=
+                          (size_t)kSmemLimit
+             ? 2
+             : 1;
 }
 
-// Rows [0, rows) of a global matrix (rows `step` elements apart, `width`
-// columns) into the first `cols` columns of an f32 tile of `tile_rows`
-// rows `ld` apart; rows past `rows` and columns past `width` are 0.
-template <typename T>
-__device__ __forceinline__ void stage_f32(float* dst, const T* __restrict__ src,
-                                          long long step, int rows, int width,
-                                          int cols, int ld,
-                                          int tile_rows = kRows) {
-  for (int i = threadIdx.x; i < tile_rows * cols; i += kThreads) {
-    const int r = i / cols, c = i - r * cols;
-    dst[r * ld + c] =
-        r < rows && c < width ? to_f32(src[r * step + c]) : 0.f;
+// The XOR of row r's columns in a backward tile: 4-word groups moved by
+// the row mod 8, so 8 rows x 4 words (a fragment's row-wise loads, one
+// ldmatrix) and 4 rows x 8 words (its column-wise loads, rows k and k + 4
+// alike) each fall on 32 distinct banks.
+__device__ __forceinline__ int fzx(int r) { return ((r & 3) << 3) | (r & 4); }
+
+// Word offset of column c of row r in an f32 tile W words wide (a power
+// of two, at least 32, so the XOR stays within the row).
+__device__ __forceinline__ int fz(int r, int c, int W) {
+  return r * W + (c ^ fzx(r));
+}
+
+// An operand as TF32 big + small, for f32 accuracy from three products
+// (3xTF32): big = a rounded to TF32 (to nearest, by its bits), small = a -
+// big (exact), whose bits past TF32's the tensor cores drop: ~2^-21 of a.
+// kSplit false: a value exact in TF32 (a bf16 input), taken as it is.
+template <bool kSplit>
+__device__ __forceinline__ void to_tf32(float a, uint32_t& big,
+                                        uint32_t& small) {
+  if constexpr (kSplit) {
+    big = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+    small = __float_as_uint(a - __uint_as_float(big));
+  } else {
+    big = __float_as_uint(a);
+    small = 0u;
   }
 }
 
-// A kernel 5-6 tile: `width` columns at tile_ld(width), padded with 0.
-template <typename T>
-__device__ __forceinline__ void stage_tile(float* dst,
-                                           const T* __restrict__ src,
-                                           long long step, int rows,
-                                           int width) {
-  stage_f32<T>(dst, src, step, rows, width, round4(width), tile_ld(width));
+// d += a * b: TF32 inputs, f32 accumulation.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Sum over the 16 lanes of a half-warp (the tx of one ty), every lane.
-__device__ __forceinline__ float sum16(float v) {
+// acc[nb] (16 output rows, 8 columns each) += A . B over k in [k0, k1)
+// (multiples of 8), in the fragment layout of mma.m16n8k8:
+//   A: kAR, a tile [m][k] (rows a_r0.., by ldmatrix); else a tile [k][m]
+//      (A = its transpose, columns a_r0..);
+//   B: kBR, a tile [n][k] (rows b_c0 + 16 n2.., ldmatrix, two 8-column
+//      blocks at a time); else a tile [k][n] (columns b_c0 + 8 nb..);
+// kSA / kSB: the operand is f32 (split, three products: small.big +
+// big.small + big.big, the small ones first) or exact in TF32.  Each
+// lane's offsets are fixed outside the k loop: k, a multiple of 8, moves
+// a row-wise load by an XOR of its column and a column-wise one by k rows.
+template <int NB, bool kAR, bool kBR, bool kSA, bool kSB>
+__device__ __forceinline__ void tile_mma(float (&acc)[NB][4], const float* a,
+                                         int wa, int a_r0, const float* b,
+                                         int wb, int b_c0, int k0, int k1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int mat = lane >> 3, mrow = lane & 7;
+  const float* ap;
+  int ao[4];
+  if constexpr (kAR) {
+    const int r = a_r0 + mrow + ((mat & 1) << 3);
+    ap = a + r * wa;
+    ao[0] = ((mat >> 1) << 2) ^ fzx(r);
+  } else {
+    ap = a + q * wa;
+    ao[0] = (a_r0 + g) ^ fzx(q);
+    ao[1] = (a_r0 + g + 8) ^ fzx(q);
+    ao[2] = 4 * wa + ((a_r0 + g) ^ (fzx(q) | 4));
+    ao[3] = 4 * wa + ((a_r0 + g + 8) ^ (fzx(q) | 4));
+  }
+  const float* bp;
+  int bo;
+  if constexpr (kBR) {
+    const int r = b_c0 + mrow + ((mat >> 1) << 3);
+    bp = b + r * wb;
+    bo = ((mat & 1) << 2) ^ fzx(r);
+  } else {
+    bp = b + q * wb;
+    bo = fzx(q);
+  }
+#pragma unroll 2
+  for (int k = k0; k < k1; k += 8) {
+    uint32_t ar[4];
+    if constexpr (kAR) {
+      tiles::ldmatrix_x4(ar, ap + (k ^ ao[0]));
+    } else {
+      const float* row = ap + k * wa;
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+      for (int i = 0; i < 4; ++i) ar[i] = __float_as_uint(row[ao[i]]);
+    }
+    uint32_t ab[4], as[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      to_tf32<kSA>(__uint_as_float(ar[i]), ab[i], as[i]);
+#pragma unroll
+    for (int n2 = 0; n2 < NB / 2; ++n2) {
+      uint32_t br[4];       // b0, b1 of block 2 n2, then of block 2 n2 + 1
+      if constexpr (kBR) {
+        tiles::ldmatrix_x4(br, bp + n2 * 16 * wb + (k ^ bo));
+      } else {
+        const float* row = bp + k * wb;
+        const int n = b_c0 + n2 * 16 + g;
+        br[0] = __float_as_uint(row[n ^ bo]);
+        br[1] = __float_as_uint(row[4 * wb + (n ^ (bo | 4))]);
+        br[2] = __float_as_uint(row[(n + 8) ^ bo]);
+        br[3] = __float_as_uint(row[4 * wb + ((n + 8) ^ (bo | 4))]);
+      }
+      uint32_t bb[4], bs[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        to_tf32<kSB>(__uint_as_float(br[i]), bb[i], bs[i]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float(&d)[4] = acc[2 * n2 + h];
+        if constexpr (kSA) mma_tf32(d, as, bb[2 * h], bb[2 * h + 1]);
+        if constexpr (kSB) mma_tf32(d, ab, bs[2 * h], bs[2 * h + 1]);
+        mma_tf32(d, ab, bb[2 * h], bb[2 * h + 1]);
+      }
+    }
+  }
+}
+
+// Rows [0, rows) of a global matrix (rows `step` elements apart, `width`
+// valid columns) into a swizzled f32 tile of tile_rows x W; other rows and
+// columns 0.  vec: f32 by 16-byte cp.async (the caller commits and waits),
+// bf16 by 8-byte loads widened; else element by element.
+template <typename T>
+__device__ __forceinline__ void stage_fz(float* dst, const T* __restrict__ src,
+                                         long long step, int rows,
+                                         int tile_rows, int width, int W,
+                                         bool vec) {
+  const int cpr = W >> 2;                  // 4-word groups a row
+  for (int i = threadIdx.x; i < tile_rows * cpr; i += kThreads) {
+    const int r = i / cpr, col = (i - r * cpr) << 2;
+    float* to = dst + fz(r, col, W);
+    const bool ok = r < rows && col < width;
+    if (vec) {
+      if constexpr (IsBf16<T>::value) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ok) {
+          const uint2 u = *reinterpret_cast<const uint2*>(src + r * step + col);
+          const __nv_bfloat162 lo =
+              *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+          const __nv_bfloat162 hi =
+              *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+          v = make_float4(__low2float(lo), __high2float(lo), __low2float(hi),
+                          __high2float(hi));
+        }
+        *reinterpret_cast<float4*>(to) = v;
+      } else {
+        tiles::cp_async_16(to, ok ? src + r * step + col : src, ok);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      to[k] = (r < rows && col + k < width) ? to_f32(src[r * step + col + k])
+                                            : 0.f;
+  }
 }
 
 // The block's sum of v, in a fixed order, returned to thread 0.
@@ -1025,484 +1155,707 @@ __device__ float block_sum(float v, float* warp_sums) {
   return total;
 }
 
-// acc[i][j] (row ty + 16i of a, row tx + 16j < nb of b) += the dot
-// product of the two rows over their first `kp` columns (a multiple of 4;
-// both tiles `ld` apart), read as float4.
-template <int kJ>
-__device__ __forceinline__ void dot_rows(float (&acc)[4][kJ], const float* a,
-                                         const float* b, int ld, int kp,
-                                         int nb, int ty, int tx) {
-  for (int k = 0; k < kp; k += 4) {
-    float4 av[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * ld + k);
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      if (tx + 16 * j < nb) {
-        const float4 bv =
-            *reinterpret_cast<const float4*>(b + (tx + 16 * j) * ld + k);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float v = fmaf(av[i].x, bv.x, acc[i][j]);
-          v = fmaf(av[i].y, bv.y, v);
-          v = fmaf(av[i].z, bv.z, v);
-          acc[i][j] = fmaf(av[i].w, bv.w, v);
-        }
-      }
-    }
-  }
-}
-
-// acc[i][j] (row ty + 16i, column tx + 16j < width) += m . v over the
-// first `kp` rows of v (a multiple of 4): m's rows read as float4 (`ldm`
-// apart), v's columns as scalars (`ldv` apart).
-template <int kJ>
-__device__ __forceinline__ void accumulate(float (&acc)[4][kJ],
-                                           const float* m, int ldm,
-                                           const float* v, int ldv, int kp,
-                                           int width, int ty, int tx) {
-  for (int k = 0; k < kp; k += 4) {
-    float4 mv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      mv[i] = *reinterpret_cast<const float4*>(m + (ty + 16 * i) * ldm + k);
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      const int col = tx + 16 * j;
-      if (col < width) {
-        const float* vc = v + k * ldv + col;
-        const float v0 = vc[0], v1 = vc[ldv], v2 = vc[2 * ldv],
-                    v3 = vc[3 * ldv];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float a = fmaf(mv[i].x, v0, acc[i][j]);
-          a = fmaf(mv[i].y, v1, a);
-          a = fmaf(mv[i].z, v2, a);
-          acc[i][j] = fmaf(mv[i].w, v3, a);
-        }
-      }
-    }
-  }
-}
-
-// 4. Grid (P slice, head x batch row).  The reverse pass over the chunks:
-// g = dh (or 0); for c = nc - 1 .. 0: dS_c = g, hdot_c = <g, h_c> (this
-// slice's share), g = exp(La_L,c) g + sum_t exp(La_t) dy_t ⊗ C_t; dh0 = g.
-// dS goes to `dstate` (the chunk states' region, free once kernel 2 read
-// it).  Thread: column n, J consecutive rows p of the slice.
-template <typename T>
+// A. Grid (chunk x 2, head, batch row).  La by kernel 1's left-to-right
+// sum of dt * A; then even blocks the chunk state S_c = sum_s exp(La_L -
+// La_s) dt_s x_s ⊗ B_s (and La, exp(La_L) to la_out, decay_out), odd
+// blocks E_c = sum_t exp(La_t) dy_t ⊗ C_t, [P][N] each, over 64-row tiles
+// of x (dy) and B (C), B's rows weighted in place, on tensor cores as in
+// kernel C: S^T's product x^T (w B) with both tiles read down their
+// columns.  Warp w: rows 16 (w % 4) (+ 64) of P, the half w / 4 of N.
+template <typename T, int WP, int WN>
 __global__ void __launch_bounds__(kThreads)
-ssd_bwd_state_kernel(const T* __restrict__ dy, const T* __restrict__ Cm,
-                     const float* __restrict__ la_g,
-                     const float* __restrict__ decay,
-                     const float* __restrict__ hstart,
-                     const float* __restrict__ dh, float* __restrict__ dstate,
-                     float* __restrict__ dh0, float* __restrict__ hdot,
-                     const Dims d, int psplit) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float warp_sums[kWarps];
-  const int tid = threadIdx.x;
-  const int pq = blockIdx.x;
-  const long long bh = blockIdx.y;
+ssd_bwd_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ A, const T* __restrict__ Bm,
+                     const T* __restrict__ Cm, const T* __restrict__ dy,
+                     float* __restrict__ la_out, float* __restrict__ decay_out,
+                     float* __restrict__ states, float* __restrict__ e_out,
+                     const Dims d, int vec) {
+  constexpr bool kS = !IsBf16<T>::value;
+  constexpr int MT = WP >= 64 ? WP / 64 : 1, NB = WN / 16;
+  extern __shared__ __align__(128) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3, wm = warp & 3, wn = warp >> 2;
   const int H = d.heads, P = d.head_dim, N = d.state, G = d.groups;
   const int L = d.chunk, S = d.seq, nc = S / L;
-  const int b = (int)(bh / H), head = (int)(bh % H), g = head / (H / G);
-  const int PS = P / psplit, pbase = pq * PS;
-  const int J = max(1, PS * N / kThreads);
-  const int n = tid % N, p0 = (tid / N) * J;
-  const bool active = p0 < PS;
-  float* w = smem;                               // [64] exp(La_t)
-  float* dys = w + kRows;                        // [64][PS + 1]
-  float* cs = dys + kRows * (PS + 1);            // [64][N + 1]
-  const long long pn = (long long)P * N;
-  const long long e0 = (long long)(pbase + p0) * N + n;
+  const int c = blockIdx.x >> 1, head = blockIdx.y, b = blockIdx.z;
+  const bool emode = blockIdx.x & 1;
+  const int grp = head / (H / G);
+  float* xt = smem;                              // [64][WP]
+  float* bt = xt + kBwRows * WP;                 // [64][WN]
+  float* la = bt + kBwRows * WN;                 // [L]
+  float* w = la + round4(L);                     // [L]: dt, then weights
+  const long long pos0 = (long long)b * S + (long long)c * L;
+  const long long bh = (long long)b * H + head;
+  const long long x_row = (long long)H * P, bc_row = (long long)G * N;
+  const T* xb = (emode ? dy : x) + pos0 * x_row + (long long)head * P;
+  const T* bb = (emode ? Cm : Bm) + pos0 * bc_row + (long long)grp * N;
+  const float a_h = A[head];
+  for (int i = tid; i < L; i += kThreads) {
+    const float dv = dt[(pos0 + i) * H + head];
+    w[i] = dv;
+    la[i] = dv * a_h;
+  }
+  __syncthreads();
+  if (tid == 0) {                    // the plain cumsum's order (kernel 1)
+    float run = 0.f;
+    for (int i = 0; i < L; ++i) {
+      run += la[i];
+      la[i] = run;
+    }
+  }
+  __syncthreads();
+  const float last = la[L - 1];
+  for (int i = tid; i < L; i += kThreads) {
+    if (!emode) la_out[bh * S + (long long)c * L + i] = la[i];
+    w[i] = emode ? expf(la[i]) : expf(last - la[i]) * w[i];
+  }
+  if (tid == 0 && !emode) decay_out[bh * nc + c] = expf(last);
 
-  float gv[kMaxAcc];
+  float acc[MT][NB][4];
 #pragma unroll
-  for (int j = 0; j < kMaxAcc; ++j)
-    gv[j] = (active && j < J && dh) ? dh[bh * pn + e0 + (long long)j * N]
-                                    : 0.f;
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      acc[mt][nb][0] = acc[mt][nb][1] = acc[mt][nb][2] = acc[mt][nb][3] = 0.f;
+  for (int s0 = 0; s0 < L; s0 += kBwRows) {
+    const int rows = min(kBwRows, L - s0);
+    __syncthreads();                 // the previous tiles consumed
+    stage_fz<T>(xt, xb + s0 * x_row, x_row, rows, kBwRows, P, WP, vec);
+    stage_fz<T>(bt, bb + s0 * bc_row, bc_row, rows, kBwRows, N, WN, vec);
+    tiles::cp_async_commit();
+    tiles::cp_async_wait<0>();
+    __syncthreads();
+    // the swizzle keeps a row's words in the row: scale them in place
+    for (int i = tid; i < rows * WN; i += kThreads) bt[i] *= w[s0 + i / WN];
+    __syncthreads();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int m0 = (wm + 4 * mt) * 16;
+      if (m0 < WP)
+        tile_mma<NB, false, false, kS, true>(acc[mt], xt, WP, m0, bt, WN,
+                                             wn * (WN / 2), 0,
+                                             (rows + 7) & ~7);
+    }
+  }
+  float* out = (emode ? e_out : states) + (bh * nc + c) * (long long)P * N;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int pr = (wm + 4 * mt) * 16 + g + 8 * (e >> 1);
+        const int n = wn * (WN / 2) + nb * 8 + 2 * q + (e & 1);
+        if (pr < P && n < N) out[pr * N + n] = acc[mt][nb][e];
+      }
+}
+
+// B. Grid (P * N / 256 slices, head x batch row).  The states at the
+// chunks' starts in f32 (kernel 2's recurrence over kernel A's S_c), the
+// then the reverse pass: g = dh (or 0); for c = nc - 1 .. 0: dS_c = g
+// (over S_c, read by then), this slice's share of <dS_c, h_c>, g =
+// exp(La_L,c) g + E_c; dh0 = g.  E_c came from kernel A, in parallel over
+// the chunks.
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_pass_kernel(const float* __restrict__ decay, float* __restrict__ states,
+                    const float* __restrict__ estates,
+                    float* __restrict__ hstart, const float* __restrict__ h0,
+                    const float* __restrict__ dh, float* __restrict__ dh0,
+                    float* __restrict__ hdot, int nc, int pn) {
+  __shared__ float warp_sums[kWarps];
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  const long long bh = blockIdx.y;
+  const bool active = e < pn;
+  const float* dec = decay + bh * nc;
+  float h = active && h0 ? h0[bh * pn + e] : 0.f;
+  for (int c = 0; c < nc; ++c) {
+    const long long at = (bh * nc + c) * pn + e;
+    if (active) {
+      hstart[at] = h;
+      h = fmaf(dec[c], h, states[at]);
+    }
+  }
+  float g = active && dh ? dh[bh * pn + e] : 0.f;
   for (int c = nc - 1; c >= 0; --c) {
-    const long long slot = (bh * nc + c) * pn;
+    const long long at = (bh * nc + c) * pn + e;
     float part = 0.f;
     if (active) {
-#pragma unroll
-      for (int j = 0; j < kMaxAcc; ++j)
-        if (j < J) {
-          const long long e = slot + e0 + (long long)j * N;
-          dstate[e] = gv[j];
-          part = fmaf(gv[j], hstart[e], part);
-        }
+      states[at] = g;
+      part = g * hstart[at];
     }
     part = block_sum(part, warp_sums);
-    if (tid == 0) hdot[(bh * nc + c) * 8 + pq] = part;
-    float ev[kMaxAcc];
-#pragma unroll
-    for (int j = 0; j < kMaxAcc; ++j) ev[j] = 0.f;
-    const long long pos0 = (long long)b * S + (long long)c * L;
-    for (int s0 = 0; s0 < L; s0 += kRows) {
-      const int rows = min(kRows, L - s0);
-      __syncthreads();               // the previous tile consumed
-      for (int i = tid; i < rows; i += kThreads)
-        w[i] = expf(la_g[bh * S + (long long)c * L + s0 + i]);
-      stage_f32<T>(dys, dy + ((pos0 + s0) * H + head) * P + pbase,
-                   (long long)H * P, rows, PS, PS, PS + 1);
-      stage_f32<T>(cs, Cm + ((pos0 + s0) * G + g) * N, (long long)G * N,
-                   rows, N, N, N + 1);
-      __syncthreads();
-      if (active) {
-        for (int r = 0; r < rows; ++r) {
-          const float cv = w[r] * cs[r * (N + 1) + n];
-          const float* dr = dys + r * (PS + 1) + p0;
-#pragma unroll
-          for (int j = 0; j < kMaxAcc; ++j)
-            if (j < J) ev[j] = fmaf(dr[j], cv, ev[j]);
-        }
-      }
-    }
-    const float dc = decay[bh * nc + c];
-#pragma unroll
-    for (int j = 0; j < kMaxAcc; ++j) gv[j] = fmaf(dc, gv[j], ev[j]);
+    if (threadIdx.x == 0) hdot[(bh * nc + c) * kHdotParts + blockIdx.x] = part;
+    if (active) g = fmaf(dec[c], g, estates[at]);
   }
-  if (active) {
-#pragma unroll
-    for (int j = 0; j < kMaxAcc; ++j)
-      if (j < J) dh0[bh * pn + e0 + (long long)j * N] = gv[j];
+  if (active) dh0[bh * pn + e] = g;
+}
+
+// Columns c and c + 1 (c even) of a row `width` wide: one 2-element store
+// where both lie in it and the width is even, else what lies in it.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* row, int c, int width, float a,
+                                           float b) {
+  if (c + 1 < width && width % 2 == 0) {
+    if constexpr (IsBf16<T>::value)
+      *reinterpret_cast<uint32_t*>(row + c) = tiles::pack_bf16(a, b);
+    else
+      *reinterpret_cast<float2*>(row + c) = make_float2(a, b);
+  } else if (c < width) {
+    row[c] = from_f32<T>(a);
   }
 }
 
-// 5. Grid (64-row target tile, chunk, head x batch row).  For target rows
-// t: dC_t = exp(La_t) dy_t . h_c + sum_{s<=t} M2[t,s] B_s with M2[t,s] =
-// exp(La_t - La_s) dt_s (dy_t . x_s), this head's share (f32, to dc_h);
-// and La's gradient from the targets' side, sum_s (C_t . B_s) M2[t,s] +
-// C_t . (exp(La_t) dy_t . h_c) (to dla_t).  exp is taken only where s <= t.
-template <typename T>
+// C. One block per (64-row source tile si, chunk, head x batch row), every
+// source tile's blocks before the next's (si = blockIdx.x / (nc B H): the
+// tiles with the most target tiles start first).  With M1[s,t] = (C_t .
+// B_s) exp(La_t - La_s) dt_s and M2[s,t] = (dy_t . x_s) exp(La_t - La_s)
+// dt_s (s <= t; exp is taken nowhere else), it walks the target tiles tj
+// >= si and computes, each pair's C.B and dy.x once:
+//   the source side, kept in registers over the walk: dx_s = sum_t M1 dy_t
+//     + w_s dt_s dS B_s, dB_s = sum_t M2 C_t + w_s dt_s x_s dS (this
+//     head's share), the direct ddt_s = sum_t (C.B)(dy.x) exp(..) + Q_s,
+//     Q_s = w_s x_s . dS B_s;
+//   the target side, one partial a pair (summed by D in source order):
+//     dC_t = sum_s M2[s,t] B_s (+ exp(La_t) dy_t . h_c on the diagonal)
+//     and La's gradient from the targets, sum_s (C.B) M2 (+ C_t . that
+//     term).
+// Warp w: rows 16 (w % 4).. of each 64-row output, the half w / 4 of its
+// columns (scores: 32 targets; dx: P; dB, dC: N).
+template <typename T, int WP, int WN>
 __global__ void __launch_bounds__(kThreads)
-ssd_bwd_target_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                      const T* __restrict__ Bm, const T* __restrict__ Cm,
-                      const T* __restrict__ dy,
-                      const float* __restrict__ la_g,
-                      const float* __restrict__ hstart,
-                      float* __restrict__ dc_h, float* __restrict__ dla_t,
-                      const Dims d) {
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+ssd_bwd_pair_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                    const T* __restrict__ Bm, const T* __restrict__ Cm,
+                    const T* __restrict__ dy, const float* __restrict__ la_g,
+                    const float* __restrict__ hstart,
+                    const float* __restrict__ dstate, T* __restrict__ dx,
+                    float* __restrict__ db_h, float* __restrict__ ddt_dir,
+                    float* __restrict__ qsum, float* __restrict__ dla_part,
+                    float* __restrict__ dc_part, const Dims d, int batch,
+                    int stages, int vec, int vec_s) {
+  constexpr bool kS = !IsBf16<T>::value;   // the inputs' tiles are split
+  constexpr int NBP = WP / 16, NBN = WN / 16;
+  extern __shared__ __align__(128) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3, wm = warp & 3, wn = warp >> 2;
   const int H = d.heads, P = d.head_dim, N = d.state, G = d.groups;
   const int L = d.chunk, S = d.seq, nc = S / L;
-  const int t0 = blockIdx.x * kRows, c = blockIdx.y;
-  const long long bh = blockIdx.z;
-  const int b = (int)(bh / H), head = (int)(bh % H), g = head / (H / G);
-  const int src_end = min(L, t0 + kRows);
-  const int ldn = tile_ld(N), ldp = tile_ld(P);
-  const int N4 = round4(N), P4 = round4(P);
-  float* la = smem;                              // [L]
-  float* dts = la + round4(L);                   // [L]
-  float* cs = dts + round4(L);                   // [64][ldn]
-  float* dys = cs + kRows * ldn;                 // [64][ldp]
-  float* bs = dys + kRows * ldp;                 // [64][ldn]; h first
-  float* xs = bs + kRows * ldn;                  // [64][ldp]
-  float* hs = bs;                                // [P4][ldn]
-  const int src_floats = kRows * (ldn + ldp), h_floats = P4 * ldn;
-  float* m2 = bs + (src_floats > h_floats ? src_floats : h_floats);
+  const int nt = (L + kBwRows - 1) / kBwRows, TR = min(L, kBwRows);
+  const int npairs = nt * (nt + 1) / 2;
+  const long long per = (long long)nc * batch * H;
+  const int si = (int)(blockIdx.x / per);
+  const long long rem = blockIdx.x - (long long)si * per;
+  const long long bh = rem / nc;
+  const int c = (int)(rem - bh * nc);
+  const int b = (int)(bh / H), head = (int)(bh % H), grp = head / (H / G);
+  const int s0 = si * kBwRows, rows_s = min(kBwRows, L - s0);
+  const int kP = (P + 7) & ~7, kN = (N + 7) & ~7;
+  const int r0 = wm * 16;                       // the warp's output rows
+
+  float* xs = smem;                              // [64][WP]
+  float* bs = xs + kBwRows * WP;                 // [64][WN]
+  float* tgt = bs + kBwRows * WN;                // stages x (dy, C) tiles
+  float* u = tgt + stages * kBwRows * (WP + WN); // dS, h, then M1 | M2
+  float* m1 = u;                                 // [64][64]
+  float* m2 = u + kBwRows * kBwRows;             // [64][64]
+  float* la = u + kUFloats;                      // [L]
+  float* red_col = la + round4(L);               // [4][64]
+  float* red_row = red_col + 4 * kBwRows;        // [2][64]
+  float* red_q = red_row + 2 * kBwRows;          // [2][64]
+  float* red_int = red_q + 2 * kBwRows;          // [2][64]
+  float* qdt = red_int + 2 * kBwRows;            // [64]
 
   const long long pos0 = (long long)b * S + (long long)c * L;
   const long long x_row = (long long)H * P, bc_row = (long long)G * N;
-  for (int i = tid; i < src_end; i += kThreads) {
+  const T* xb = x + pos0 * x_row + (long long)head * P;
+  const T* dyb = dy + pos0 * x_row + (long long)head * P;
+  const T* bb = Bm + pos0 * bc_row + (long long)grp * N;
+  const T* cb = Cm + pos0 * bc_row + (long long)grp * N;
+  const long long slab = (bh * nc + c) * (long long)P * N;   // dS_c, h_c
+  auto dy_tile = [&](int st) { return tgt + st * kBwRows * (WP + WN); };
+  auto c_tile = [&](int st) { return dy_tile(st) + kBwRows * WP; };
+  auto stage_target = [&](int tj, int st) {
+    const int t0 = tj * kBwRows, rows = min(kBwRows, L - t0);
+    stage_fz<T>(dy_tile(st), dyb + t0 * x_row, x_row, rows, kBwRows, P, WP,
+                vec);
+    stage_fz<T>(c_tile(st), cb + t0 * bc_row, bc_row, rows, kBwRows, N, WN,
+                vec);
+  };
+  stage_fz<T>(xs, xb + s0 * x_row, x_row, rows_s, kBwRows, P, WP, vec);
+  stage_fz<T>(bs, bb + s0 * bc_row, bc_row, rows_s, kBwRows, N, WN, vec);
+  stage_fz<float>(u, dstate + slab, N, P, WP, N, WN, vec_s);
+  stage_target(si, 0);
+  tiles::cp_async_commit();
+  for (int i = tid; i < L; i += kThreads)
     la[i] = la_g[bh * S + (long long)c * L + i];
-    dts[i] = dt[(pos0 + i) * H + head];
-  }
-  const int rows_t = min(kRows, L - t0);
-  stage_tile<T>(cs, Cm + (pos0 + t0) * bc_row + (long long)g * N, bc_row,
-                rows_t, N);
-  stage_tile<T>(dys, dy + (pos0 + t0) * x_row + (long long)head * P, x_row,
-                rows_t, P);
-  // the state at the chunk's start, rows past P zero
-  stage_f32<float>(hs, hstart + (bh * nc + c) * (long long)P * N, N, P, N,
-                   N, ldn, P4);
+  tiles::cp_async_wait<0>();
   __syncthreads();
 
-  // the inter term: dC_t = exp(La_t) sum_p dy_t[p] h[p, :]
-  float acc[4][kMaxNJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kMaxNJ; ++j) acc[i][j] = 0.f;
-  accumulate<kMaxNJ>(acc, dys, ldp, hs, ldn, P4, N, ty, tx);
-  float rowv[4], roww[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
-    const float e = t < L ? expf(la[t]) : 0.f;
-    float v = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxNJ; ++j) {
-      const int nn = tx + 16 * j;
-      if (nn < N) {
-        acc[i][j] *= e;
-        v = fmaf(cs[(ty + 16 * i) * ldn + nn], acc[i][j], v);
-      }
-    }
-    rowv[i] = sum16(v);
-    roww[i] = 0.f;
-  }
-
-  // the intra terms, source tile by source tile up to the diagonal
-  for (int s0 = 0; s0 < src_end; s0 += kRows) {
-    const int rows_s = min(kRows, L - s0);
-    __syncthreads();                 // h, or the previous stage, consumed
-    stage_tile<T>(bs, Bm + (pos0 + s0) * bc_row + (long long)g * N, bc_row,
-                  rows_s, N);
-    stage_tile<T>(xs, x + (pos0 + s0) * x_row + (long long)head * P, x_row,
-                  rows_s, P);
-    __syncthreads();
-    float cb[4][4] = {}, dyx[4][4] = {};
-    dot_rows<4>(cb, cs, bs, ldn, N4, kRows, ty, tx);
-    dot_rows<4>(dyx, dys, xs, ldp, P4, kRows, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int s = s0 + tx + 16 * j;
-        const float m = (s <= t && t < L)
-                            ? expf(la[t] - la[s]) * dts[s] * dyx[i][j]
-                            : 0.f;
-        roww[i] = fmaf(cb[i][j], m, roww[i]);
-        m2[(ty + 16 * i) * kLdM + tx + 16 * j] = m;
-      }
-    }
-    __syncthreads();
-    accumulate<kMaxNJ>(acc, m2, kLdM, bs, ldn,
-                       round4(min(rows_s, src_end - s0)), N, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
-    const float w = sum16(roww[i]);
-    if (t >= L) continue;
-    float* out = dc_h + ((pos0 + t) * H + head) * (long long)N;
-#pragma unroll
-    for (int j = 0; j < kMaxNJ; ++j) {
-      const int nn = tx + 16 * j;
-      if (nn < N) out[nn] = acc[i][j];
-    }
-    if (tx == 0) dla_t[bh * S + (long long)c * L + t] = w + rowv[i];
-  }
-}
-
-// 6. Grid (chunk, head x batch row): the whole chunk, source tile by
-// source tile.  For source rows s, with w_s = exp(La_L - La_s), M1[s,t] =
-// (C_t . B_s) exp(La_t - La_s) dt_s and M2 as in 5.:
-//   dx_s  = sum_{t>=s} M1[s,t] dy_t + w_s dt_s dS . B_s
-//   dB_s  = sum_{t>=s} M2[s,t] C_t + w_s dt_s x_s . dS   (this head's share)
-//   ddt_s = sum_{t>=s} (C_t . B_s) exp(La_t - La_s) (dy_t . x_s) + Q_s,
-//           Q_s = w_s x_s . dS . B_s  (the direct part)
-// then La's gradient, dLa_s = dla_t[s] - dt_s ddt_s (+ sum_s dt_s Q_s +
-// exp(La_L) <dS, h_c> at s = L - 1), its reverse cumsum rc within the
-// chunk (a scan of the reversed row), ddt_s += A rc_s and the chunk's
-// share of dA, sum_s dt_s rc_s (to da_part).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_source_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                      const float* __restrict__ A, const T* __restrict__ Bm,
-                      const T* __restrict__ Cm, const T* __restrict__ dy,
-                      const float* __restrict__ la_g,
-                      const float* __restrict__ decay,
-                      const float* __restrict__ dstate,
-                      const float* __restrict__ hdot,
-                      const float* __restrict__ dla_t, T* __restrict__ dx,
-                      float* __restrict__ db_h, float* __restrict__ ddt,
-                      float* __restrict__ da_part, const Dims d,
-                      int hdot_parts) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float warp_sums[kWarps];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int H = d.heads, P = d.head_dim, N = d.state, G = d.groups;
-  const int L = d.chunk, S = d.seq, nc = S / L;
-  const int c = blockIdx.x;
-  const long long bh = blockIdx.y;
-  const int b = (int)(bh / H), head = (int)(bh % H), g = head / (H / G);
-  const int L4 = round4(L);
-  const int ldn = tile_ld(N), ldp = tile_ld(P);
-  const int N4 = round4(N), P4 = round4(P);
-  float* la = smem;                              // [L]
-  float* dts = la + L4;                          // [L]
-  float* ddir = dts + L4;                        // [L] direct ddt
-  float* qdt = ddir + L4;                        // [L] dt_s Q_s
-  float* scan = qdt + L4;                        // [L]
-  float* xs = scan + L4;                         // [64][ldp]
-  float* bs = xs + kRows * ldp;                  // [64][ldn]
-  float* cs = bs + kRows * ldn;                  // [64][ldn]
-  float* dys = cs + kRows * ldn;                 // [64][ldp]
-  float* m1 = dys + kRows * ldp;                 // [64][kLdM]
-  float* m2 = m1 + kRows * kLdM;                 // [64][kLdM]
-  float* ds = m2 + kRows * kLdM;                 // [P4][ldn]
-
-  const long long pos0 = (long long)b * S + (long long)c * L;
-  const long long x_row = (long long)H * P, bc_row = (long long)G * N;
-  for (int i = tid; i < L; i += kThreads) {
-    la[i] = la_g[bh * S + (long long)c * L + i];
-    dts[i] = dt[(pos0 + i) * H + head];
-  }
-  // dS, rows past P and columns past N zero
-  stage_f32<float>(ds, dstate + (bh * nc + c) * (long long)P * N, N, P, N,
-                   N4, ldn, P4);
-  __syncthreads();
+  // the thread's two source rows (of the tile), their La, dt and w
+  const int sl[2] = {r0 + g, r0 + g + 8};
   const float la_last = la[L - 1];
+  float ls[2], dsr[2], wd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = sl[r] < rows_s;
+    ls[r] = ok ? la[s0 + sl[r]] : 0.f;
+    dsr[r] = ok ? dt[(pos0 + s0 + sl[r]) * H + head] : 0.f;
+    wd[r] = ok ? expf(la_last - ls[r]) : 0.f;
+  }
 
-  for (int s0 = 0; s0 < L; s0 += kRows) {
-    const int rows_s = min(kRows, L - s0);
-    __syncthreads();                 // the previous source tile consumed
-    stage_tile<T>(xs, x + (pos0 + s0) * x_row + (long long)head * P, x_row,
-                  rows_s, P);
-    stage_tile<T>(bs, Bm + (pos0 + s0) * bc_row + (long long)g * N, bc_row,
-                  rows_s, N);
-    __syncthreads();
-    // the state terms: dSB = B . dS^T [s][p], xdS = x . dS [s][n]
-    float dxa[4][kMaxPJ], dba[4][kMaxNJ], ddt_acc[4], q[4];
+  // the state terms: B_s . dS^T [s][p] and x_s . dS [s][n], then Q_s
+  float dxa[NBP][4], dba[NBN][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+  for (int nb = 0; nb < NBP; ++nb)
+    dxa[nb][0] = dxa[nb][1] = dxa[nb][2] = dxa[nb][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < kMaxPJ; ++j) dxa[i][j] = 0.f;
+  for (int nb = 0; nb < NBN; ++nb)
+    dba[nb][0] = dba[nb][1] = dba[nb][2] = dba[nb][3] = 0.f;
+  tile_mma<NBP, true, true, kS, true>(dxa, bs, WN, r0, u, WN, wn * (WP / 2),
+                                      0, kN);
+  tile_mma<NBN, true, false, kS, true>(dba, xs, WP, r0, u, WN, wn * (WN / 2),
+                                       0, kP);
+  {
+    float qr[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < kMaxNJ; ++j) dba[i][j] = 0.f;
-    }
-    dot_rows<kMaxPJ>(dxa, bs, ds, ldn, N4, P, ty, tx);
-    accumulate<kMaxNJ>(dba, xs, ldp, ds, ldn, P4, N, ty, tx);
+    for (int nb = 0; nb < NBP; ++nb)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int s = s0 + ty + 16 * i;
-      float v = 0.f;
-#pragma unroll
-      for (int j = 0; j < kMaxPJ; ++j) {
-        const int p = tx + 16 * j;
-        if (p < P) v = fmaf(xs[(ty + 16 * i) * ldp + p], dxa[i][j], v);
+      for (int e = 0; e < 4; ++e) {
+        const int p = wn * (WP / 2) + nb * 8 + 2 * q + (e & 1);
+        qr[e >> 1] = fmaf(xs[fz(sl[e >> 1], p, WP)], dxa[nb][e], qr[e >> 1]);
       }
-      const float w = s < L ? expf(la_last - la[s]) : 0.f;
-      const float wd = s < L ? w * dts[s] : 0.f;
-      q[i] = w * sum16(v);
-      ddt_acc[i] = 0.f;
 #pragma unroll
-      for (int j = 0; j < kMaxPJ; ++j) dxa[i][j] *= wd;
-#pragma unroll
-      for (int j = 0; j < kMaxNJ; ++j) dba[i][j] *= wd;
+    for (int r = 0; r < 2; ++r) {
+      float v = qr[r];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (q == 0) red_q[wn * kBwRows + sl[r]] = v;
     }
+#pragma unroll
+    for (int nb = 0; nb < NBP; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dxa[nb][e] *= wd[e >> 1] * dsr[e >> 1];
+#pragma unroll
+    for (int nb = 0; nb < NBN; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dba[nb][e] *= wd[e >> 1] * dsr[e >> 1];
+  }
+  __syncthreads();                   // dS consumed: U takes h_c
+  stage_fz<float>(u, hstart + slab, N, P, WP, N, WN, vec_s);
+  tiles::cp_async_commit();
 
-    // the intra terms, target tile by target tile from the diagonal on
-    for (int t0 = s0; t0 < L; t0 += kRows) {
-      const int rows_t = min(kRows, L - t0);
-      __syncthreads();               // the previous target tile consumed
-      stage_tile<T>(cs, Cm + (pos0 + t0) * bc_row + (long long)g * N,
-                    bc_row, rows_t, N);
-      stage_tile<T>(dys, dy + (pos0 + t0) * x_row + (long long)head * P,
-                    x_row, rows_t, P);
-      __syncthreads();
-      float cb[4][4] = {}, dyx[4][4] = {};
-      dot_rows<4>(cb, bs, cs, ldn, N4, kRows, ty, tx);
-      dot_rows<4>(dyx, xs, dys, ldp, P4, kRows, ty, tx);
+  float ddt_r[2] = {0.f, 0.f};
+  int st = 0;
+  for (int tj = si; tj < nt; ++tj) {
+    const bool diag = tj == si;
+    const int t0 = tj * kBwRows, rows_t = min(kBwRows, L - t0);
+    tiles::cp_async_wait<0>();
+    __syncthreads();                 // tile tj (and h) landed; pair tj - 1 done
+    if (stages == 2 && tj + 1 < nt) stage_target(tj + 1, st ^ 1);
+    tiles::cp_async_commit();
+    const float* dys = dy_tile(st);
+    const float* cs = c_tile(st);
+    float dca[NBN][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = s0 + ty + 16 * i;
+    for (int nb = 0; nb < NBN; ++nb)
+      dca[nb][0] = dca[nb][1] = dca[nb][2] = dca[nb][3] = 0.f;
+    if (diag) {
+      // the inter term: dC_t = exp(La_t) dy_t . h_c, and C_t . it
+      tile_mma<NBN, true, false, kS, true>(dca, dys, WP, r0, u, WN,
+                                           wn * (WN / 2), 0, kP);
+      float rv[2] = {0.f, 0.f}, et[2];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t = t0 + tx + 16 * j;
-          const float dec = (s <= t && t < L) ? expf(la[t] - la[s]) : 0.f;
-          const float cbd = cb[i][j] * dec;
-          const float dsv = (s <= t && t < L) ? dts[s] : 0.f;
-          ddt_acc[i] = fmaf(cbd, dyx[i][j], ddt_acc[i]);
-          m1[(ty + 16 * i) * kLdM + tx + 16 * j] = cbd * dsv;
-          m2[(ty + 16 * i) * kLdM + tx + 16 * j] = dyx[i][j] * dec * dsv;
+      for (int r = 0; r < 2; ++r)
+        et[r] = sl[r] < rows_t ? expf(la[t0 + sl[r]]) : 0.f;
+#pragma unroll
+      for (int nb = 0; nb < NBN; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int n = wn * (WN / 2) + nb * 8 + 2 * q + (e & 1);
+          dca[nb][e] *= et[e >> 1];
+          rv[e >> 1] =
+              fmaf(cs[fz(sl[e >> 1], n, WN)], dca[nb][e], rv[e >> 1]);
         }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float v = rv[r];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (q == 0) red_int[wn * kBwRows + sl[r]] = v;
       }
-      __syncthreads();
-      accumulate<kMaxPJ>(dxa, m1, kLdM, dys, ldp, round4(rows_t), P, ty, tx);
-      accumulate<kMaxNJ>(dba, m2, kLdM, cs, ldn, round4(rows_t), N, ty, tx);
+      __syncthreads();               // h consumed: U takes M1 and M2
     }
+
+    // the pair's scores, C.B and dy.x [s][t] (none above the diagonal)
+    float sc1[4][4], sc2[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int s = s0 + ty + 16 * i;
-      const float direct = sum16(ddt_acc[i]) + q[i];
-      if (s >= L) continue;
-      if (tx == 0) {
-        ddir[s] = direct;
-        qdt[s] = dts[s] * q[i];
-      }
-      T* dxo = dx + (pos0 + s) * x_row + (long long)head * P;
+    for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-      for (int j = 0; j < kMaxPJ; ++j) {
-        const int p = tx + 16 * j;
-        if (p < P) dxo[p] = from_f32<T>(dxa[i][j]);
-      }
-      float* dbo = db_h + ((pos0 + s) * H + head) * (long long)N;
+      for (int e = 0; e < 4; ++e) sc1[nb][e] = sc2[nb][e] = 0.f;
+    if (!(diag && r0 >= wn * 32 + 32)) {
+      tile_mma<4, true, true, kS, kS>(sc1, bs, WN, r0, cs, WN, wn * 32, 0,
+                                      kN);
+      tile_mma<4, true, true, kS, kS>(sc2, xs, WP, r0, dys, WP, wn * 32, 0,
+                                      kP);
+    }
+    float dla[4][2];
 #pragma unroll
-      for (int j = 0; j < kMaxNJ; ++j) {
-        const int nn = tx + 16 * j;
-        if (nn < N) dbo[nn] = dba[i][j];
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int t = t0 + wn * 32 + nb * 8 + 2 * q + j;
+        const float lt = t < L ? la[t] : 0.f;
+        float cm = 0.f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + j;
+          const bool ok = s0 + sl[r] <= t && t < L;
+          const float dec = ok ? expf(lt - ls[r]) : 0.f;
+          const float cbv = sc1[nb][e], dyx = sc2[nb][e];
+          const float cbd = cbv * dec;
+          ddt_r[r] = fmaf(cbd, dyx, ddt_r[r]);
+          const float mv2 = dyx * dec * dsr[r];
+          cm = fmaf(cbv, mv2, cm);
+          sc1[nb][e] = cbd * dsr[r];           // M1
+          sc2[nb][e] = mv2;                    // M2
+        }
+        dla[nb][j] = cm;
       }
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int at = fz(sl[r], wn * 32 + nb * 8 + 2 * q, kBwRows);
+        *reinterpret_cast<float2*>(m1 + at) =
+            make_float2(sc1[nb][2 * r], sc1[nb][2 * r + 1]);
+        *reinterpret_cast<float2*>(m2 + at) =
+            make_float2(sc2[nb][2 * r], sc2[nb][2 * r + 1]);
+      }
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float v = dla[nb][j];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (g == 0) red_col[wm * kBwRows + wn * 32 + nb * 8 + 2 * q + j] = v;
+      }
+    __syncthreads();                 // M1, M2 and the column sums written
+
+    // the source side over this pair's targets (t >= s) ...
+    const int kt = (rows_t + 7) & ~7;
+    const int klo = diag ? r0 : 0;
+    tile_mma<NBP, true, false, true, kS>(dxa, m1, kBwRows, r0, dys, WP,
+                                         wn * (WP / 2), klo, kt);
+    tile_mma<NBN, true, false, true, kS>(dba, m2, kBwRows, r0, cs, WN,
+                                         wn * (WN / 2), klo, kt);
+    // ... and the target side over its sources (s <= t)
+    const int ks = min(diag ? r0 + 16 : kBwRows, (rows_s + 7) & ~7);
+    tile_mma<NBN, false, false, true, kS>(dca, m2, kBwRows, r0, bs, WN,
+                                          wn * (WN / 2), 0, ks);
+    const long long slot =
+        (bh * nc + c) * npairs + tj * (tj + 1) / 2 + si;
+    float* dcp = dc_part + slot * TR * N;
+#pragma unroll
+    for (int nb = 0; nb < NBN; ++nb)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (sl[r] < rows_t)
+          store_pair(dcp + sl[r] * N, wn * (WN / 2) + nb * 8 + 2 * q, N,
+                     dca[nb][2 * r], dca[nb][2 * r + 1]);
+    if (tid < rows_t) {
+      float v = red_col[tid] + red_col[kBwRows + tid] +
+                red_col[2 * kBwRows + tid] + red_col[3 * kBwRows + tid];
+      if (diag) v += red_int[tid] + red_int[kBwRows + tid];
+      dla_part[slot * TR + tid] = v;
+    }
+    if (stages == 1) {
+      if (tj + 1 < nt) {
+        __syncthreads();             // every warp done with the tiles
+        stage_target(tj + 1, 0);
+        tiles::cp_async_commit();
+      }
+    } else {
+      st ^= 1;
     }
   }
+
+  // ddt's direct part, dt_s Q_s summed over the tile, dx and dB's share
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float v = ddt_r[r];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    if (q == 0) red_row[wn * kBwRows + sl[r]] = v;
+  }
   __syncthreads();
-  // the last position's terms: sum_s dt_s Q_s (a scan's last entry) and
-  // exp(La_L) <dS, h_c> (kernel 4's slices, in order)
-  block_inclusive_scan(qdt, L, warp_sums);
+  if (tid < kBwRows) {
+    float qv = 0.f;
+    if (tid < rows_s) {
+      const int s = s0 + tid;
+      const float qs =
+          expf(la_last - la[s]) * (red_q[tid] + red_q[kBwRows + tid]);
+      ddt_dir[bh * S + (long long)c * L + s] =
+          (red_row[tid] + red_row[kBwRows + tid]) + qs;
+      qv = dt[(pos0 + s) * H + head] * qs;
+    }
+    qdt[tid] = qv;
+  }
+  __syncthreads();
   if (tid == 0) {
-    float hd = 0.f;
-    for (int k = 0; k < hdot_parts; ++k) hd += hdot[(bh * nc + c) * 8 + k];
-    scan[0] = qdt[L - 1] + decay[bh * nc + c] * hd;
+    float sum = 0.f;
+    for (int i = 0; i < rows_s; ++i) sum += qdt[i];
+    qsum[(bh * nc + c) * nt + si] = sum;
   }
-  __syncthreads();
-  const float last = scan[0];
-  __syncthreads();
-  // dLa, reversed, then its inclusive scan: scan[L-1-s] = rc_s
-  for (int s = tid; s < L; s += kThreads)
-    scan[L - 1 - s] = dla_t[bh * S + (long long)c * L + s] -
-                      dts[s] * ddir[s] + (s == L - 1 ? last : 0.f);
-  __syncthreads();
-  block_inclusive_scan(scan, L, warp_sums);
-  const float a_h = A[head];
-  for (int s = tid; s < L; s += kThreads) {
-    const float rc = scan[L - 1 - s];
-    ddt[(pos0 + s) * H + head] = fmaf(a_h, rc, ddir[s]);
-    qdt[s] = dts[s] * rc;            // dA's terms
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (sl[r] >= rows_s) continue;
+    const long long pos = pos0 + s0 + sl[r];
+#pragma unroll
+    for (int nb = 0; nb < NBP; ++nb)
+      store_pair(dx + pos * x_row + (long long)head * P,
+                 wn * (WP / 2) + nb * 8 + 2 * q, P, dxa[nb][2 * r],
+                 dxa[nb][2 * r + 1]);
+#pragma unroll
+    for (int nb = 0; nb < NBN; ++nb)
+      store_pair(db_h + (pos * H + head) * (long long)N,
+                 wn * (WN / 2) + nb * 8 + 2 * q, N, dba[nb][2 * r],
+                 dba[nb][2 * r + 1]);
   }
-  __syncthreads();
-  block_inclusive_scan(qdt, L, warp_sums);
-  if (tid == 0) da_part[bh * nc + c] = qdt[L - 1];
 }
 
-// 7. dB and dC: each group's heads summed in order (f32, then x's type);
-// dA: each head's chunks summed in order, batch row by batch row.
+// D. Blocks [0, H): head h's chunks, batch row by batch row, a warp each
+// in turn: La's gradient dLa_t = (the targets' partials, in source order)
+// - dt_t ddt_t (+ sum_s dt_s Q_s + exp(La_L) <dS, h_c> at L - 1), its
+// reverse cumsum rc by warp scans, ddt = direct + A rc, and dA = sum dt rc
+// over the head's chunks (each warp's in order, then the warps in order).
+// Blocks from H on: dB and dC, a group's heads summed in order (dC's
+// source-tile partials summed first, within each head), 4 elements a
+// thread where N allows.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ssd_bwd_reduce_kernel(const float* __restrict__ db_h,
-                      const float* __restrict__ dc_h,
-                      const float* __restrict__ da_part, T* __restrict__ dB,
-                      T* __restrict__ dC, float* __restrict__ dA,
-                      long long total, int batch, const Dims d) {
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const int H = d.heads, N = d.state, G = d.groups, nc = d.seq / d.chunk;
-  const int rep = H / G;
-  if (e < total) {
-    const long long row = e / N;                 // b * S * G + s * G + g
-    const int nn = (int)(e - row * N), g = (int)(row % G);
-    const long long pos = row / G;               // b * S + s
-    const long long at = (pos * H + (long long)g * rep) * N + nn;
-    float sb = 0.f, sc = 0.f;
-    for (int r = 0; r < rep; ++r) {
-      sb += db_h[at + (long long)r * N];
-      sc += dc_h[at + (long long)r * N];
+ssd_bwd_reduce_kernel(const float* __restrict__ dt, const float* __restrict__ A,
+                      const float* __restrict__ decay,
+                      const float* __restrict__ hdot,
+                      const float* __restrict__ ddt_dir,
+                      const float* __restrict__ qsum,
+                      const float* __restrict__ dla_part,
+                      const float* __restrict__ db_h,
+                      const float* __restrict__ dc_part, T* __restrict__ dB,
+                      T* __restrict__ dC, float* __restrict__ ddt,
+                      float* __restrict__ dA, int batch, const Dims d,
+                      int hparts, int vec) {
+  __shared__ float warp_sums[kWarps];
+  const int H = d.heads, N = d.state, G = d.groups, L = d.chunk, S = d.seq;
+  const int nc = S / L, rep = H / G;
+  const int nt = (L + kBwRows - 1) / kBwRows, TR = min(L, kBwRows);
+  const int npairs = nt * (nt + 1) / 2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if ((int)blockIdx.x < H) {
+    const int h = blockIdx.x;
+    const float a_h = A[h];
+    float da_w = 0.f;
+    for (int k = warp; k < batch * nc; k += kWarps) {
+      const int b = k / nc, c = k - b * nc;
+      const long long bh = (long long)b * H + h, base = bh * nc + c;
+      float last = 0.f;
+      if (lane == 0) {
+        float sq = 0.f, hd = 0.f;
+        for (int i = 0; i < nt; ++i) sq += qsum[base * nt + i];
+        for (int i = 0; i < hparts; ++i) hd += hdot[base * kHdotParts + i];
+        last = sq + decay[base] * hd;
+      }
+      last = __shfl_sync(0xffffffffu, last, 0);
+      const long long pos0 = (long long)b * S + (long long)c * L;
+      float carry = 0.f, da = 0.f;
+      for (int seg = (L - 1) >> 5; seg >= 0; --seg) {
+        const int l = seg * 32 + lane;
+        float v = 0.f, dtl = 0.f, dd = 0.f;
+        if (l < L) {
+          const int tj = l / kBwRows, r = l - tj * kBwRows;
+          const float* part =
+              dla_part + (base * npairs + tj * (tj + 1) / 2) * TR + r;
+          for (int i = 0; i <= tj; ++i) v += part[i * TR];
+          dtl = dt[(pos0 + l) * H + h];
+          dd = ddt_dir[bh * S + (long long)c * L + l];
+          v -= dtl * dd;
+          if (l == L - 1) v += last;
+        }
+        // suffix sums within the segment, then the later segments' total
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const float up = __shfl_down_sync(0xffffffffu, v, o);
+          if (lane + o < 32) v += up;
+        }
+        const float rc = v + carry;
+        carry += __shfl_sync(0xffffffffu, v, 0);
+        if (l < L) {
+          ddt[(pos0 + l) * H + h] = fmaf(a_h, rc, dd);
+          da = fmaf(dtl, rc, da);
+        }
+      }
+#pragma unroll
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        da += __shfl_xor_sync(0xffffffffu, da, o);
+      da_w += da;
     }
-    dB[e] = from_f32<T>(sb);
-    dC[e] = from_f32<T>(sc);
+    if (lane == 0) warp_sums[warp] = da_w;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float s = 0.f;
+      for (int w = 0; w < kWarps; ++w) s += warp_sums[w];
+      dA[h] = s;
+    }
+    return;
   }
-  if (e < H) {
-    float s = 0.f;
-    for (int b = 0; b < batch; ++b)
-      for (int c = 0; c < nc; ++c)
-        s += da_part[((long long)b * H + e) * nc + c];
-    dA[e] = s;
+  // vec: 4 consecutive n a thread (16-byte loads; N % 4 == 0), else 1
+  const int per = vec ? 4 : 1;
+  const long long e = ((long long)(blockIdx.x - H) * kThreads + threadIdx.x) *
+                      per;
+  if (e >= (long long)batch * S * G * N) return;
+  const long long row = e / N;                 // (b * S + s) * G + g
+  const int nn = (int)(e - row * N), g = (int)(row % G);
+  const long long pos = row / G;               // b * S + s
+  const int b = (int)(pos / S), s = (int)(pos - (long long)b * S);
+  const int c = s / L, l = s - c * L, tj = l / kBwRows, r = l - tj * kBwRows;
+  float4 sb = make_float4(0.f, 0.f, 0.f, 0.f), sc = sb;
+  auto load = [&](const float* at) {
+    return vec ? *reinterpret_cast<const float4*>(at)
+               : make_float4(at[0], 0.f, 0.f, 0.f);
+  };
+#pragma unroll 4
+  for (int k = 0; k < rep; ++k) {
+    const int h = g * rep + k;
+    const long long bh = (long long)b * H + h;
+    const float4 d = load(db_h + (pos * H + h) * N + nn);
+    sb.x += d.x, sb.y += d.y, sb.z += d.z, sb.w += d.w;
+    const float* part = dc_part +
+        (((bh * nc + c) * npairs + tj * (tj + 1) / 2) * TR + r) * N + nn;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = 0; i <= tj; ++i) {
+      const float4 u = load(part + (long long)i * TR * N);
+      v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+    }
+    sc.x += v.x, sc.y += v.y, sc.z += v.z, sc.w += v.w;
   }
+  const float bo[4] = {sb.x, sb.y, sb.z, sb.w}, co[4] = {sc.x, sc.y, sc.z,
+                                                       sc.w};
+  for (int i = 0; i < per; ++i) {
+    dB[e + i] = from_f32<T>(bo[i]);
+    dC[e + i] = from_f32<T>(co[i]);
+  }
+}
+
+// Regions of the backward's workspace (floats, each rounded to 16 bytes),
+// in order: La, the chunks' decays, their states (then dS), E, the states
+// at their starts, <dS, h> by slice, the direct ddt, dt Q by source tile,
+// La's gradient and dC from the targets by tile pair, and dB by head.
+constexpr int kBwdRegions = 11;
+__host__ inline void bwd_regions(int batch, int seq, int heads, int head_dim,
+                                 int state, int chunk, long long* out) {
+  const long long bhs = (long long)batch * heads, nc = seq / chunk;
+  const long long pn = (long long)head_dim * state;
+  const long long nt = (chunk + kBwRows - 1) / kBwRows;
+  const long long tr = chunk < kBwRows ? chunk : kBwRows;
+  const long long pairs = nt * (nt + 1) / 2;
+  const long long sizes[kBwdRegions] = {
+      bhs * seq, bhs * nc, bhs * nc * pn, bhs * nc * pn, bhs * nc * pn,
+      bhs * nc * kHdotParts, bhs * seq, bhs * nc * nt, bhs * nc * pairs * tr,
+      bhs * seq * state, bhs * nc * pairs * tr * state};
+  for (int i = 0; i < kBwdRegions; ++i) out[i] = round4_ll(sizes[i]);
+}
+
+// Kernel A's dynamic shared memory (floats): the two tiles, La, weights.
+__host__ inline size_t state_bwd_floats(int P, int N, int L) {
+  return (size_t)kBwRows * (bw_width(P) + bw_width(N)) + 2 * (size_t)round4(L);
+}
+
+// The backward's four launches (grid x, y, z, threads, dynamic shared
+// bytes each), then kernels A and C's tile widths, kernel C's target
+// tiles a chunk, rows a partial and target buffers, and kernel B's slices.
+constexpr int kBwdPlan = 4 * 5 + 6;
+__host__ inline void bwd_plan(int batch, int seq, int heads, int head_dim,
+                              int groups, int state, int chunk, size_t elem,
+                              long long* out) {
+  const int P = head_dim, N = state, L = chunk, nc = seq / chunk;
+  const long long bhs = (long long)batch * heads;
+  const int nt = (L + kBwRows - 1) / kBwRows;
+  const int stages = pair_stages(P, N, L, elem);
+  const int hparts = (P * N + kThreads - 1) / kThreads;
+  const long long per = N % 4 ? kThreads : 4 * kThreads;
+  const long long sums = ((long long)batch * seq * groups * N + per - 1) / per;
+  const long long plan[kBwdPlan] = {
+      2LL * nc, heads, batch, kThreads,
+      (long long)(sizeof(float) * state_bwd_floats(P, N, L)),
+      hparts, bhs, 1, kThreads, 0,
+      (long long)nt * nc * bhs, 1, 1, kThreads,
+      (long long)(sizeof(float) * pair_floats(P, N, L, stages)),
+      heads + sums, 1, 1, kThreads, 0,
+      bw_width(P), bw_width(N), nt, L < kBwRows ? L : kBwRows, stages, hparts};
+  for (int i = 0; i < kBwdPlan; ++i) out[i] = plan[i];
+}
+
+// The backward's operands, the workspace's regions and the plan, as the
+// launches take them.
+template <typename T>
+struct BwdArgs {
+  const T *x, *Bm, *Cm, *dy;
+  const float *dt, *A, *h0, *dh;
+  T *dx, *dB, *dC;
+  float *ddt, *dA, *dh0;
+  float *la, *decay, *states, *estates, *hstart, *hdot, *ddt_dir, *qsum,
+      *dla_part, *db_h, *dc_part;
+  int batch, vec, vec_s;
+  long long plan[kBwdPlan];
+};
+
+// The four launches at tile widths W_P x W_N (W_P * W_N <= 8192 always).
+template <typename T, int WP, int WN>
+int launch_bwd_at(const BwdArgs<T>& a, const Dims& d, cudaStream_t stream) {
+  const int nc = d.seq / d.chunk;
+  const long long* plan = a.plan;
+  // A. La, the decays, the chunk states and E
+  auto* fa = ssd_bwd_state_kernel<T, WP, WN>;
+  if (int err = set_smem((const void*)fa, (size_t)plan[4])) return err;
+  fa<<<dim3((unsigned)plan[0], d.heads, a.batch), kThreads, (size_t)plan[4],
+       stream>>>(a.x, a.dt, a.A, a.Bm, a.Cm, a.dy, a.la, a.decay, a.states,
+                 a.estates, d, a.vec);
+  if (int err = (int)cudaGetLastError()) return err;
+  // B. the states at the chunks' starts, then the reverse pass
+  ssd_bwd_pass_kernel<<<dim3((unsigned)plan[5], (unsigned)plan[6]), kThreads,
+                        0, stream>>>(a.decay, a.states, a.estates, a.hstart,
+                                     a.h0, a.dh, a.dh0, a.hdot, nc,
+                                     d.head_dim * d.state);
+  if (int err = (int)cudaGetLastError()) return err;
+  // C. the tile pairs
+  auto* fc = ssd_bwd_pair_kernel<T, WP, WN>;
+  if (int err = set_smem((const void*)fc, (size_t)plan[14])) return err;
+  fc<<<(unsigned)plan[10], kThreads, (size_t)plan[14], stream>>>(
+      a.x, a.dt, a.Bm, a.Cm, a.dy, a.la, a.hstart, a.states, a.dx, a.db_h,
+      a.ddt_dir, a.qsum, a.dla_part, a.dc_part, d, a.batch, (int)plan[24],
+      a.vec, a.vec_s);
+  if (int err = (int)cudaGetLastError()) return err;
+  // D. the ordered sums: H scan blocks first, then dB and dC
+  ssd_bwd_reduce_kernel<T><<<(unsigned)plan[15], kThreads, 0, stream>>>(
+      a.dt, a.A, a.decay, a.hdot, a.ddt_dir, a.qsum, a.dla_part, a.db_h,
+      a.dc_part, a.dB, a.dC, a.ddt, a.dA, a.batch, d, (int)plan[5],
+      d.state % 4 == 0);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int WP>
+int launch_bwd_n(const BwdArgs<T>& a, const Dims& d, cudaStream_t stream) {
+  const int wn = bw_width(d.state);
+#define SSD_BWD_AT(W)                                        \
+  if constexpr (WP * (W) <= kUFloats)                        \
+    if (wn == (W)) return launch_bwd_at<T, WP, W>(a, d, stream);
+  SSD_BWD_AT(32)
+  SSD_BWD_AT(64)
+  SSD_BWD_AT(128)
+  SSD_BWD_AT(256)
+#undef SSD_BWD_AT
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -1511,61 +1864,42 @@ int launch_bwd(const void* xv, const float* dt, const float* A,
                const void* dyv, const float* dh, void* dxv, float* ddt,
                float* dA, void* dBv, void* dCv, float* dh0, float* work,
                int batch, const Dims& d, cudaStream_t stream) {
-  const T* x = static_cast<const T*>(xv);
-  const T* Bm = static_cast<const T*>(Bv);
-  const T* Cm = static_cast<const T*>(Cv);
-  const T* dy = static_cast<const T*>(dyv);
-  const int S = d.seq, H = d.heads, P = d.head_dim, N = d.state;
-  const int G = d.groups, L = d.chunk, nc = S / L;
-  const long long bhs = (long long)batch * H, pn = (long long)P * N;
-  float* la = work;                                   // [B,H,S]
-  float* decay = la + round4_ll(bhs * S);             // [B,H,nc]
-  float* states = decay + round4_ll(bhs * nc);        // [B,H,nc,P,N]: dS
-  float* hstart = states + round4_ll(bhs * nc * pn);  // [B,H,nc,P,N]
-  float* hfinal = hstart + round4_ll(bhs * nc * pn);  // [B,H,P,N]
-  float* hdot = hfinal + round4_ll(bhs * pn);         // [B,H,nc,8]
-  float* dla_t = hdot + round4_ll(bhs * nc * 8);      // [B,H,S]
-  float* da_part = dla_t + round4_ll(bhs * S);        // [B,H,nc]
-  float* db_h = da_part + round4_ll(bhs * nc);        // [B,S,H,N]
-  float* dc_h = db_h + round4_ll(bhs * S * N);        // [B,S,H,N]
-  const bool aligned = aligned16(x) && aligned16(Bm);
-  if (int err = launch_states<T, false>(x, dt, A, Bm, h0, la, decay, states,
-                                        hstart, hfinal, batch, d, aligned,
-                                        stream))
-    return err;
-  // 4. P slices as kernel 1 takes them: two blocks an SM where it can
-  const int sms = sm_count();
-  int ps = 1;
-  while (ps < 8 && bhs * ps < 2LL * sms && P % (2 * ps) == 0 &&
-         (P / (2 * ps)) * N >= kThreads)
-    ps *= 2;
-  const size_t b4 = sizeof(float) * bwd_state_floats(P / ps, N);
-  if (int err = set_smem((const void*)ssd_bwd_state_kernel<T>, b4))
-    return err;
-  ssd_bwd_state_kernel<T><<<dim3(ps, (unsigned)bhs), kThreads, b4, stream>>>(
-      dy, Cm, la, decay, hstart, dh, states, dh0, hdot, d, ps);
-  if (int err = (int)cudaGetLastError()) return err;
-  const size_t b5 = sizeof(float) * bwd_target_floats(P, N, L);
-  if (int err = set_smem((const void*)ssd_bwd_target_kernel<T>, b5))
-    return err;
-  ssd_bwd_target_kernel<T>
-      <<<dim3((L + kRows - 1) / kRows, nc, (unsigned)bhs), kThreads, b5,
-         stream>>>(x, dt, Bm, Cm, dy, la, hstart, dc_h, dla_t, d);
-  if (int err = (int)cudaGetLastError()) return err;
-  const size_t b6 = sizeof(float) * bwd_source_floats(P, N, L);
-  if (int err = set_smem((const void*)ssd_bwd_source_kernel<T>, b6))
-    return err;
-  ssd_bwd_source_kernel<T><<<dim3(nc, (unsigned)bhs), kThreads, b6, stream>>>(
-      x, dt, A, Bm, Cm, dy, la, decay, states, hdot, dla_t,
-      static_cast<T*>(dxv), db_h, ddt, da_part, d, ps);
-  if (int err = (int)cudaGetLastError()) return err;
-  const long long total = (long long)batch * S * G * N;
-  const long long items = total > H ? total : H;
-  ssd_bwd_reduce_kernel<T>
-      <<<(unsigned)((items + kThreads - 1) / kThreads), kThreads, 0,
-         stream>>>(db_h, dc_h, da_part, static_cast<T*>(dBv),
-                   static_cast<T*>(dCv), dA, total, batch, d);
-  return (int)cudaGetLastError();
+  BwdArgs<T> a;
+  a.x = static_cast<const T*>(xv);
+  a.Bm = static_cast<const T*>(Bv);
+  a.Cm = static_cast<const T*>(Cv);
+  a.dy = static_cast<const T*>(dyv);
+  a.dt = dt, a.A = A, a.h0 = h0, a.dh = dh;
+  a.dx = static_cast<T*>(dxv);
+  a.dB = static_cast<T*>(dBv);
+  a.dC = static_cast<T*>(dCv);
+  a.ddt = ddt, a.dA = dA, a.dh0 = dh0;
+  long long sizes[kBwdRegions];
+  bwd_regions(batch, d.seq, d.heads, d.head_dim, d.state, d.chunk, sizes);
+  float* region[kBwdRegions];
+  region[0] = work;
+  for (int i = 1; i < kBwdRegions; ++i)
+    region[i] = region[i - 1] + sizes[i - 1];
+  a.la = region[0], a.decay = region[1], a.states = region[2];
+  a.estates = region[3], a.hstart = region[4], a.hdot = region[5];
+  a.ddt_dir = region[6], a.qsum = region[7], a.dla_part = region[8];
+  a.db_h = region[9], a.dc_part = region[10];
+  a.batch = batch;
+  // whole 4-element groups staged where rows and pointers allow
+  a.vec = aligned16(a.x) && aligned16(a.Bm) && aligned16(a.Cm) &&
+          aligned16(a.dy) && d.head_dim % 4 == 0 && d.state % 4 == 0;
+  a.vec_s = aligned16(work) && d.state % 4 == 0;
+  bwd_plan(batch, d.seq, d.heads, d.head_dim, d.groups, d.state, d.chunk,
+           sizeof(T), a.plan);
+  switch (bw_width(d.head_dim)) {
+    case 32:
+      return launch_bwd_n<T, 32>(a, d, stream);
+    case 64:
+      return launch_bwd_n<T, 64>(a, d, stream);
+    case 128:
+      return launch_bwd_n<T, 128>(a, d, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1583,9 +1917,8 @@ extern "C" int ssd_scan_supported(int head_dim, int state, int chunk) {
          state_smem_bytes(head_dim, state, chunk, 1, 2) <= limit &&
          out_smem_bytes(head_dim, state, chunk, 4) <= limit &&
          out_smem_bytes(head_dim, state, chunk, 2) <= limit &&
-         sizeof(float) * bwd_state_floats(head_dim, state) <= limit &&
-         sizeof(float) * bwd_target_floats(head_dim, state, chunk) <= limit &&
-         sizeof(float) * bwd_source_floats(head_dim, state, chunk) <= limit;
+         sizeof(float) * state_bwd_floats(head_dim, state, chunk) <= limit &&
+         sizeof(float) * pair_floats(head_dim, state, chunk, 1) <= limit;
 }
 
 // Floats of workspace one call needs: La, the chunks' decays, their
@@ -1618,18 +1951,31 @@ extern "C" int ssd_chunked_scan(const void* x, const float* dt,
   return (int)cudaErrorInvalidValue;
 }
 
-// Floats of workspace one backward call needs: the forward's La, decays
-// and states (whose region then holds dS), the f32 states at the chunks'
-// starts and the final state, <dS, h> by P slice, La's gradient from the
-// targets' side, the chunks' shares of dA, and dB and dC by head.
+// Floats of workspace one backward call needs: the sum of its regions
+// (bwd_regions).
 extern "C" long long ssd_scan_bwd_workspace(int batch, int seq, int heads,
                                             int head_dim, int state,
                                             int chunk) {
-  const long long bhs = (long long)batch * heads, nc = seq / chunk;
-  const long long pn = (long long)head_dim * state;
-  return 2 * round4_ll(bhs * seq) + 2 * round4_ll(bhs * nc) +
-         2 * round4_ll(bhs * nc * pn) + round4_ll(bhs * pn) +
-         round4_ll(bhs * nc * 8) + 2 * round4_ll(bhs * seq * state);
+  long long sizes[kBwdRegions], total = 0;
+  bwd_regions(batch, seq, heads, head_dim, state, chunk, sizes);
+  for (int i = 0; i < kBwdRegions; ++i) total += sizes[i];
+  return total;
+}
+
+// The backward's plan as the launcher makes it (bwd_plan: 26 values),
+// then its workspace regions (bwd_regions: 11), into `out`;
+// 0, or cudaErrorInvalidValue for a shape the kernels do not take.
+// dtype as for ssd_chunked_scan_bwd.
+extern "C" int ssd_scan_bwd_plan(int batch, int seq, int heads, int head_dim,
+                                 int groups, int state, int chunk, int dtype,
+                                 long long* out) {
+  if (!ssd_scan_supported(head_dim, state, chunk) || seq % chunk ||
+      groups <= 0 || heads % groups || batch <= 0 || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  bwd_plan(batch, seq, heads, head_dim, groups, state, chunk,
+           dtype == 0 ? 4 : 2, out);
+  bwd_regions(batch, seq, heads, head_dim, state, chunk, out + kBwdPlan);
+  return 0;
 }
 
 // The backward of ssd_chunked_scan: from its inputs and dy (x's dtype and

@@ -682,6 +682,8 @@ def _ssd_bwd_inputs(cuda, dtype, B, S, H, P, G, N, with_h0, with_dh, seed):
     (1, 40, 4, 64, 1, 64, 8, True, True),       # chunk 8
     (1, 160, 2, 64, 1, 128, 80, True, False),   # a chunk off 64 rows
     (1, 48, 2, 8, 1, 4, 16, False, True),       # P and N below 16
+    (1, 256, 4, 128, 1, 64, 64, True, True),    # P = 128
+    (1, 128, 2, 32, 1, 256, 64, True, True),    # N = 256
 ])
 def test_ssd_backward_kernel_matches_plain(cuda, dtype, tol, B, S, H, P, G,
                                            N, chunk, with_h0, with_dh):
@@ -705,6 +707,27 @@ def test_ssd_backward_kernel_matches_plain(cuda, dtype, tol, B, S, H, P, G,
         scale = max(1.0, float(w.float().abs().max()))
         err = float((g.float() - w.float()).abs().max())
         assert err <= tol * scale, f"{name}: {err:.3g} > {tol} x {scale:.3g}"
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (8, 512, 64, 64, 1, 64, 256),       # zamba2's train shape
+    (8, 512, 24, 64, 1, 128, 256),      # mamba2's
+    (1, 1024, 64, 64, 1, 64, 256),
+    (1, 160, 2, 64, 1, 128, 80),
+    (1, 48, 2, 8, 1, 4, 16),
+    (1, 128, 2, 32, 1, 256, 64),
+    (1, 256, 4, 128, 1, 64, 64),
+])
+def test_ssd_bwd_plan_matches_library(cuda, dtype, B, S, H, P, G, N, chunk):
+    """``bwd_plan`` (the host mirror) against the plan the built library
+    reports, and ``bwd_workspace`` against ``ssd_scan_bwd_workspace``."""
+    from repro_torch.kernels import ssd_scan as tssd
+    got = tssd.kernel_bwd_plan(B, S, H, P, G, N, chunk, dtype)
+    want = tssd.bwd_plan(B, S, H, P, G, N, chunk, dtype)
+    assert got == {key: want[key] for key in got}
+    assert tssd.load_library().ssd_scan_bwd_workspace(
+        B, S, H, P, N, chunk) == tssd.bwd_workspace(B, S, H, P, N, chunk)
 
 
 def test_ssd_scan_under_grad_runs_its_backward_kernel(cuda):

@@ -161,3 +161,205 @@ def test_the_card_routes_autograd_function(monkeypatch, with_h0):
     assert seen == [(False, True)]
     for g, wg in zip(got, want):
         torch.testing.assert_close(g, wg, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' decomposition and product rule, emulated
+# ---------------------------------------------------------------------------
+
+def _tf32(a: torch.Tensor, nearest: bool = True) -> torch.Tensor:
+    """f32 cut to TF32 (10 mantissa bits): to nearest, ties away from zero
+    (the kernel's rounding of a big half, by its bits), or by truncation
+    (what the tensor cores do to the bits of a small half)."""
+    bits = a.contiguous().view(torch.int32)
+    return (((bits + 0x1000) if nearest else bits) & ~0x1FFF).view(
+        torch.float32)
+
+
+def _product(rule: str):
+    """a @ b (float64 operands) under one of the kernels' product rules:
+    ``"f64"`` exact; ``"3xtf32"`` (the kernel's rule for f32 operands)
+    each operand in f32 as big = tf32(a) (to nearest) + small = a - big
+    (its bits past TF32 dropped), the sum of small.big, big.small and
+    big.big in f32; ``"tf32"`` / ``"bf16"``
+    each f32 operand rounded once, one product in f32.  The result comes
+    back in float64."""
+    if rule == "f64":
+        return torch.matmul
+
+    def split(a):
+        big = _tf32(a)
+        return big, _tf32(a - big, nearest=False)
+
+    def mm(a, b):
+        a, b = a.float(), b.float()
+        if rule == "3xtf32":
+            (ab, as_), (bb, bs) = split(a), split(b)
+            out = as_ @ bb + ab @ bs + ab @ bb
+        elif rule == "tf32":
+            out = _tf32(a) @ _tf32(b)
+        else:
+            out = a.bfloat16().float() @ b.bfloat16().float()
+        return out.double()
+    return mm
+
+
+def kernel_backward(x, dt, A, Bm, Cm, h0, dy, dh, chunk, rule):
+    """The SSD scan's backward as ``csrc/ssd_scan.cu`` decomposes it in
+    float64, every matrix product under ``rule`` (``_product``).  A: La
+    (left to right), the decays, the chunk states and E_c; B: the states
+    at the chunks' starts and the reverse pass (dS, <dS, h>, dh0); C: per
+    64-row source tile, the state terms, then each target tile from the
+    diagonal on (C.B and dy.x once, M1, M2, dx, dB, the direct ddt, and
+    the pair's partials of dC and dLa, the inter term on the diagonal);
+    D: dLa, its reverse cumsum, ddt, dA, and dB / dC over a group's
+    heads.  Returns (dx, ddt, dA, dB, dC, dh0) in float64."""
+    f = torch.float64
+    mm = _product(rule)
+    Bb, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep, L, T = H // G, chunk, 64
+    nc, nt = S // L, -(-L // T)
+
+    def heads(t):                                   # [B,S,H,k] -> [B,H,S,k]
+        return t.to(f).permute(0, 2, 1, 3)
+    xs, dys = heads(x), heads(dy)
+    Bs = heads(Bm.to(f).repeat_interleave(rep, dim=2))
+    Cs = heads(Cm.to(f).repeat_interleave(rep, dim=2))
+    dts = dt.to(f).permute(0, 2, 1)                 # [B,H,S]
+    a = dts * A.to(f)[None, :, None]
+    La = a.reshape(Bb, H, nc, L).cumsum(-1)        # [B,H,nc,L]
+    last = La[..., -1]
+    tr = lambda t: t.transpose(-1, -2)             # noqa: E731
+
+    # A and B
+    h = torch.zeros((Bb, H, P, N), dtype=f) if h0 is None else h0.to(f)
+    hstart, E = [], []
+    for c in range(nc):
+        sl = slice(c * L, (c + 1) * L)
+        w = torch.exp(last[..., c, None] - La[..., c, :]) * dts[..., sl]
+        Sc = mm(tr(xs[..., sl, :] * w[..., None]), Bs[..., sl, :])
+        E.append(mm(tr(dys[..., sl, :] * torch.exp(La[..., c, :])[..., None]),
+                    Cs[..., sl, :]))
+        hstart.append(h)
+        h = torch.exp(last[..., c])[..., None, None] * h + Sc
+    g = torch.zeros((Bb, H, P, N), dtype=f) if dh is None else dh.to(f)
+    dS, hdot = [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        dS[c] = g
+        hdot[c] = (g * hstart[c]).sum((-1, -2))
+        g = torch.exp(last[..., c])[..., None, None] * g + E[c]
+    dh0 = g
+
+    # C
+    dx, dBh = torch.zeros_like(xs), torch.zeros_like(Bs)
+    ddt_dir = torch.zeros_like(dts)
+    qsum = torch.zeros((Bb, H, nc, nt), dtype=f)
+    dla_part, dc_part = {}, {}
+    for c in range(nc):
+        lac = La[..., c, :]
+        for si in range(nt):
+            s_ = slice(si * T, min(L, si * T + T))
+            rows = slice(c * L + s_.start, c * L + s_.stop)
+            xt, bt, dtt = xs[..., rows, :], Bs[..., rows, :], dts[..., rows]
+            w = torch.exp(last[..., c, None] - lac[..., s_])
+            dxa = mm(bt, tr(dS[c]))                # B_s . dS^T [s][p]
+            dba = mm(xt, dS[c])                    # x_s . dS [s][n]
+            q = w * (xt * dxa).sum(-1)
+            dxa = dxa * (w * dtt)[..., None]
+            dba = dba * (w * dtt)[..., None]
+            ddt_r = torch.zeros_like(dtt)
+            for tj in range(si, nt):
+                t_ = slice(tj * T, min(L, tj * T + T))
+                cols = slice(c * L + t_.start, c * L + t_.stop)
+                dyt, ct = dys[..., cols, :], Cs[..., cols, :]
+                dca = torch.zeros(ct.shape, dtype=f)
+                dla_int = 0.0
+                if tj == si:
+                    dca = torch.exp(lac[..., t_])[..., None] * mm(dyt,
+                                                                  hstart[c])
+                    dla_int = (ct * dca).sum(-1)
+                cb, dyx = mm(bt, tr(ct)), mm(xt, tr(dyt))   # [s][t]
+                sp = torch.arange(s_.start, s_.stop)[:, None]
+                tp = torch.arange(t_.start, t_.stop)[None, :]
+                diff = lac[..., t_][..., None, :] - lac[..., s_][..., :, None]
+                dec = torch.where(sp <= tp, torch.exp(
+                    torch.where(sp <= tp, diff, 0.0)), 0.0)
+                cbd = cb * dec
+                ddt_r = ddt_r + (cbd * dyx).sum(-1)
+                m1 = cbd * dtt[..., None]
+                m2 = dyx * dec * dtt[..., None]
+                dla_part[c, si, tj] = (cb * m2).sum(-2) + dla_int
+                dxa = dxa + mm(m1, dyt)
+                dba = dba + mm(m2, ct)
+                dc_part[c, si, tj] = dca + mm(tr(m2), bt)
+            ddt_dir[..., rows] = ddt_r + q
+            qsum[..., c, si] = (dtt * q).sum(-1)
+            dx[..., rows, :], dBh[..., rows, :] = dxa, dba
+
+    # D
+    ddt = torch.zeros_like(dts)
+    dA = torch.zeros(H, dtype=f)
+    dC = torch.zeros_like(Cs)
+    for c in range(nc):
+        rows = slice(c * L, (c + 1) * L)
+        dla = torch.cat([sum(dla_part[c, si, tj] for si in range(tj + 1))
+                         for tj in range(nt)], -1)
+        dla = dla - dts[..., rows] * ddt_dir[..., rows]
+        dla[..., -1] += (qsum[..., c, :].sum(-1)
+                         + torch.exp(last[..., c]) * hdot[c])
+        rc = dla.flip(-1).cumsum(-1).flip(-1)
+        ddt[..., rows] = ddt_dir[..., rows] + A.to(f)[None, :, None] * rc
+        dA = dA + (dts[..., rows] * rc).sum((0, 2))
+        dC[..., rows, :] = torch.cat(
+            [sum(dc_part[c, si, tj] for si in range(tj + 1))
+             for tj in range(nt)], -2)
+
+    def groups(t):                                 # [B,H,S,N] -> [B,S,G,N]
+        return t.permute(0, 2, 1, 3).reshape(Bb, S, G, rep, N).sum(3)
+    return (dx.permute(0, 2, 1, 3), ddt.permute(0, 2, 1), dA, groups(dBh),
+            groups(dC), dh0)
+
+
+#: (B, S, H, P, G, N, chunk): two 64-row tiles, a ragged second tile
+#: (chunk 80), P and N below one mma tile, two groups and batch rows
+EMULATED = [(2, 256, 4, 8, 2, 16, 128), (1, 160, 2, 16, 1, 8, 80),
+            (2, 96, 4, 4, 2, 4, 16)]
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", EMULATED)
+def test_kernel_decomposition_matches_the_plain_backward(B, S, H, P, G, N,
+                                                         chunk):
+    """The backward kernels' decomposition (``kernel_backward``) with exact
+    float64 products equals the plain backward (autograd of the chunked
+    form, f32) within 1e-5 of each gradient's scale: the tile pairs, their
+    partials, the last position's terms and the reverse cumsum add up to
+    the gradient."""
+    ins = _inputs(B, S, H, P, G, N, True, "given", seed=B * S + N)
+    t = [None if a is None else torch.from_numpy(a) for a in ins]
+    want = ssd_scan_chunked_bwd(*t, chunk=chunk)
+    got = kernel_backward(*t, chunk, "f64")
+    for name, g, w in zip(NAMES, got, want):
+        assert g.shape == w.shape, name
+        _close_scaled(name, g.numpy(), w.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", EMULATED)
+def test_three_tf32_passes_hold_f32_accuracy(B, S, H, P, G, N, chunk):
+    """The kernels' rule for f32 operands (3xTF32: big.big + big.small +
+    small.big of TF32 halves, f32 sums, small's bits past TF32 dropped) on
+    every product of the
+    decomposition keeps each gradient within 1e-5 of its scale of the exact
+    float64 products; one rounded pass (TF32 or bf16, as a single
+    tensor-core product would take an f32 operand) misses that bound: the
+    split is what holds f32 accuracy."""
+    ins = _inputs(B, S, H, P, G, N, True, "given", seed=B * S + N)
+    t = [None if a is None else torch.from_numpy(a) for a in ins]
+    exact = kernel_backward(*t, chunk, "f64")
+    for name, g, w in zip(NAMES, kernel_backward(*t, chunk, "3xtf32"), exact):
+        _close_scaled(name, g.numpy(), w.numpy(), 1e-5)
+    for rule in ("tf32", "bf16"):
+        worst = max(float((g - w).abs().max())
+                    / max(1.0, float(w.abs().max()))
+                    for g, w in zip(kernel_backward(*t, chunk, rule), exact))
+        assert worst > 1e-5, f"{rule}: {worst:.3g} of scale"
