@@ -47,7 +47,13 @@ other than 0) if any phase fails:
              a zero ``dh``; the pool write (``paged_kv_write``) bit
              for bit against its plain version (-1 pages, an id past the
              pool, f32 rows into a bf16 pool, an odd row width, 512 rows)
-             and under ``set_sync_debug_mode("error")``; then times
+             and under ``set_sync_debug_mode("error")``; contiguous
+             decode's log-sum-exp output (the sequence-sharded decode's
+             local body) at moonshot's and gemma3's heads in both dtypes,
+             lengths 0 / 1 / a split boundary +-1 / T, one split and
+             several (lse within the kernel tolerances and -inf at
+             length 0, the output equal bit for bit to the call without
+             lse), timed at a 16b rank's slice of the cache; then times
              kernel, plain version and, for attention, one
              ``scaled_dot_product_attention`` call on the same data under
              each SDPA backend that takes it (a yardstick only: the port
@@ -316,11 +322,17 @@ other than 0) if any phase fails:
              of 64 experts with 704 of each expert's 1408 ``f``).  Each
              draws its params leaf by leaf (``dryrun.draw_params``) and
              builds its cache at its local shapes: its resident param
-             and cache bytes must equal the rules' exactly; 4 prompts of
-             512 tokens through the flash prefill, 8 paged decode steps
-             fed the one-rank run's tokens, ``flash_attention`` launched
-             once a layer a prefill and ``decode_attention`` once a layer
-             a step on every rank.  The one-rank reference is the
+             and cache bytes must equal the rules' exactly (crosspool
+             splits the cache's sequence over ``model``, prefill and
+             decode alike: a rank's bytes of ``k`` / ``v`` must equal
+             the reference table's and be below its bytes with the
+             sequence whole); 4 prompts of 512 tokens through the flash
+             prefill (each rank writes its slice of the prompt's K / V),
+             8 paged decode steps fed the one-rank run's tokens,
+             ``flash_attention`` launched once a layer a prefill and
+             ``decode_attention`` once a layer a step on every rank,
+             under crosspool each call with its log-sum-exp output (the
+             slices combined by it).  The one-rank reference is the
              unsharded Model path on the same draw, run first.  In bf16
              the greedy agreement (``dryrun.greedy``'s split argmax) and
              the logit rows' error are printed; each is run again in
@@ -349,16 +361,22 @@ other than 0) if any phase fails:
              TF32 matmuls, must fail that row limit; (c) whisper's train
              cell (float32, 2 steps, 2 + 2 layers) at one rank bit for
              bit against ``make_train_step``, then over (2, 2) on (b)'s
-             ranks (losses within 1e-5 relative, shards within the sign
-             bound, resident bytes the dry-run's).  Rows
-             3, 4 and 6 are timed at a (1, 4) rank's heads.  Under
-             ``"sharded_families"``.  Then (7d, in the same one-rank
-             group) zamba2's train cell at published widths cut to 2 + 1
-             SSM layers and the shared block, float32, 8 x 512, against
-             ``make_train_step`` bit for bit, ``ssd_scan`` twice a
-             grouped SSM layer and once the tail's (remat recomputes the
-             groups) and ``ssd_scan_bwd`` once a SSM layer a step in
-             both.
+             ranks, plain and under ``seq_parallel`` (the decoder's
+             stream split over ``model``, the encoder's frames whole)
+             (losses within 1e-5 relative, shards within the sign
+             bound, resident bytes the dry-run's); (d) (7d) zamba2's
+             train cell at published widths cut to 2 + 1 SSM layers and
+             the shared block, and mamba2's cut to 2 layers, float32,
+             8 x 512, each at one rank against ``make_train_step`` bit
+             for bit, ``ssd_scan`` twice a grouped SSM layer and once
+             the tail's (remat recomputes the groups) and
+             ``ssd_scan_bwd`` once a SSM layer a step in both; then on
+             (b)'s ranks zamba2's over (2, 2) and mamba2's over (1, 4),
+             gated as (c), the SSD kernels launched as at one rank, ms a
+             step and peak GiB a rank printed.  Rows 3, 4 and 6 are
+             timed at a (1, 4) rank's heads.  Under
+             ``"sharded_families"``.  Every phase's seconds are printed
+             and kept under ``"phase_seconds"``.
 
 Phases 3 and 13 hold the paged GQA and MLA kernels in bf16 to the same
 row limit as rows 3-4: each output row's relative RMS error within 1e-2
@@ -548,6 +566,14 @@ FAMILY_BF16_ARCH = "zamba2-1.2b"
 #: steps
 AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ, AUDIO_TRAIN_DEPTH = 4, 128, 2
 AUDIO_TRAIN_MESH = (2, 2)
+#: 17c's four-rank runs of whisper's cell: (label, PerfOpts levers); the
+#: decoder's stream split over model under seq_parallel
+AUDIO_TRAIN_VARIANTS = (("plain", {}), ("seq_parallel", {"seq_parallel": True}))
+#: 17d: the ssm and hybrid train cells over four ranks, (label, the cell's
+#: config by ``ssm_cell_cfg``'s arch, (data, model)), each held against its
+#: one-rank run (7d's for zamba2)
+SSM_SHARD_CELLS = (("zamba2 (2, 2)", "zamba2-1.2b", (2, 2)),
+                   ("mamba2 (1, 4)", "mamba2-130m", (1, 4)))
 #: 17b's float32 row limit: SERVE_SHARD_ROW_RMS, or this many times the
 #: row error one float32 ulp of noise on every weight matrix gives the
 #: one-rank Model path (17a measures it), whichever is larger.  The SSD
@@ -564,6 +590,13 @@ FAMILY_NOISE_FACTOR = 2.5
 FAMILY_CONTROL_ARCHS = ("zamba2-1.2b", "mamba2-130m")
 EXAMPLE_ARCHS = ("qwen3-moe-235b-a22b", "moonshot-v1-16b-a3b", "minicpm3-4b",
                  "qwen3-14b")
+#: phase 3: row 3's log-sum-exp output checked at moonshot's heads (16b's
+#: Type I cache) and gemma3's (head dim 256), (label, H, KV, D), over
+#: LSE_BATCH rows and caches of each of LSE_CONTEXTS tokens (several
+#: splits; one tile: one split)
+LSE_GEOMETRIES = (("moonshot", 16, 16, 128), ("gemma3", 16, 8, 256))
+LSE_BATCH = 6
+LSE_CONTEXTS = (1024, 64)
 #: phase 8 times these kernels at these of its shapes and loads
 TIMED_LOADS = {"gate/up layer 0": ("moe_gemm", "moe_gemm_dgrad",
                                    "moe_gemm_wgrad"),
@@ -577,10 +610,15 @@ def log(msg: str) -> None:
 def reset_launches(kops) -> None:
     for name in KERNELS:
         getattr(kops, name).launches = 0
+    kops.decode_attention.lse_launches = 0
 
 
 def read_launches(kops) -> dict:
-    return {name: getattr(kops, name).launches for name in KERNELS}
+    """Every kernel's launches, and under ``decode_attention_lse`` row 3's
+    calls with the log-sum-exp output (counted in ``decode_attention``
+    too: one kernel)."""
+    return dict({name: getattr(kops, name).launches for name in KERNELS},
+                decode_attention_lse=kops.decode_attention.lse_launches)
 
 
 def bound_ms(nbytes: float, flops: float, fp32: bool = False):
@@ -2112,7 +2150,7 @@ def ssm_train_phase(torch, kops, name, device="cuda", cfg=None):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{tag}: loss did not fall on the fixed batch "
                              f"{losses}")
-    want = {k: 0 for k in KERNELS}
+    want = {k: 0 for k in read_launches(kops)}
     want["ssd_scan"] = want["ssd_scan_bwd"] = n_ssm * TRAIN_STEPS
     if card and launches != want:
         raise AssertionError(f"{tag}: launches {launches}, expected {want}")
@@ -3917,28 +3955,107 @@ def flash_time_row(torch, kops, ref, shape, q, k, v, scale) -> dict:
         bound_ms=b_ms, bound_by=b_by)
 
 
-def decode_time_row(torch, kops, ref, shape, q, ck, cv, lens, scale
-                    ) -> dict:
+def decode_time_row(torch, kops, ref, shape, q, ck, cv, lens, scale,
+                    lse: bool = False) -> dict:
     """Row 3 on ``q`` [B,1,H,D] over a full cache [B,T,KV,D] (bf16 or
-    float32): kernel, plain version and the fastest SDPA backend timed
-    beside the bound."""
+    float32), with its float32 log-sum-exp output [B,H] where ``lse``:
+    kernel, plain version and the fastest SDPA backend (which returns no
+    log-sum-exp: the yardstick of the other rows) timed beside the
+    bound."""
     B, _, H, D = q.shape
     T, KV = ck.shape[1], ck.shape[2]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, ck, cv))
     b_ms, b_by = bound_ms((2 * B * T * KV * D + 2 * B * H * D)
-                          * q.element_size() + 4 * B, 4 * B * H * T * D,
+                          * q.element_size() + 4 * B
+                          + (4 * B * H if lse else 0), 4 * B * H * T * D,
                           fp32=q.dtype == torch.float32)
     lib, lib_name, lib_all = library_sdpa(torch, lambda: sdpa(
         qt, kt, vt, scale=scale, enable_gqa=True))
     return dict(
-        kernel="decode_attention", shape=shape,
-        ms=time_ms(torch, lambda: kops.decode_attention(q, ck, cv, lens,
-                                                        scale=scale)),
-        plain_ms=time_ms(torch, lambda: ref.decode_attention(q, ck, cv, lens,
-                                                             scale)),
+        kernel="decode_attention", shape=shape, lse=lse,
+        ms=time_ms(torch, lambda: kops.decode_attention(
+            q, ck, cv, lens, scale=scale, return_lse=lse)),
+        plain_ms=time_ms(torch, lambda: ref.decode_attention(
+            q, ck, cv, lens, scale, return_lse=lse)),
         library_ms=lib, library=lib_name, library_all=lib_all,
         bound_ms=b_ms, bound_by=b_by)
+
+
+def lse_phase(torch, kops, ref) -> tuple:
+    """(3) Row 3's log-sum-exp output, the local body of the crosspool
+    decode over a sequence-sharded cache, against the plain version's at
+    ``LSE_GEOMETRIES`` in both dtypes: ``LSE_BATCH`` rows of lengths 0, 1,
+    one before a split boundary, on it, one past it and T, NaN past each,
+    over a cache of each of ``LSE_CONTEXTS`` (several splits: the merge
+    writes lse; one tile: the split kernel does).  Gates: lse within
+    2e-5 (float32) or 2e-2 (bf16) of the plain version's and -inf at
+    length 0, the output within the kernel tolerances (bf16 also the row
+    limit) and equal bit for bit to the call without lse.  Then timed at
+    a 16b rank's shard (``SERVE_SHARD_SIZES`` over 16b's (2, 2): its rows
+    over ``data``, its slice of the sequence over ``model``) beside its
+    bound and SDPA.  Returns ({"out": err, "lse": err}, rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attention as pa
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    errs = {"out": 0.0, "lse": 0.0}
+    B = LSE_BATCH
+    for (label, H, KV, D), T, (dtype, tol) in (
+            (g, t, d) for g in LSE_GEOMETRIES for t in LSE_CONTEXTS
+            for d in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2))):
+        _, splits = pa.split_plan(B, H, KV, T, sm, dtype)
+        edge = pa.split_start(1, splits, T) if splits > 1 else T // 2
+        lengths = [0, 1, edge - 1, edge, edge + 1, T]
+        q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(dtype)
+        ck, cv = (torch.randn((B, T, KV, D), generator=gen, device="cuda")
+                  .to(dtype) for _ in range(2))
+        for b, n in enumerate(lengths):
+            ck[b, n:] = float("nan")
+            cv[b, n:] = float("nan")
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        shape = (f"{label} B={B} T={T} H={H} KV={KV} D={D} {splits} "
+                 f"split{'s' if splits > 1 else ''} lengths {lengths} "
+                 f"{str(dtype)[6:]}")
+        got, lse = kops.decode_attention(q, ck, cv, lens, scale=D ** -0.5,
+                                         return_lse=True)
+        want, want_lse = ref.decode_attention(q, ck, cv, lens, D ** -0.5,
+                                              return_lse=True)
+        sync(torch, "cuda")
+        if not (torch.isneginf(lse[0]).all() and not got[0].any()):
+            raise AssertionError(f"decode lse {shape}: a row of length 0 "
+                                 f"must give lse -inf and output 0")
+        errs["lse"] = max(errs["lse"], close_or_raise(
+            torch, f"decode lse {shape} lse", lse[1:], want_lse[1:], tol))
+        errs["out"] = max(errs["out"], close_or_raise(
+            torch, f"decode lse {shape} output", got, want, tol,
+            row_limit(torch, dtype)))
+        if not torch.equal(got, kops.decode_attention(q, ck, cv, lens,
+                                                      scale=D ** -0.5)):
+            raise AssertionError(f"decode lse {shape}: the output differs "
+                                 f"from the call without lse")
+    # a 16b rank's shard: its rows and its slice of the cache, full
+    cfg = get_config(SERVE_SHARD_RUNS[2][1])
+    (data, model), (batch, prompt, steps) = SERVE_SHARD_RUNS[2][3], \
+        SERVE_SHARD_SIZES
+    B, T = batch // data, (prompt + steps) // model
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(dtype)
+        ck, cv = (torch.randn((B, T, KV, D), generator=gen, device="cuda")
+                  .to(dtype) for _ in range(2))
+        lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+        rows.append(decode_time_row(
+            torch, kops, ref, f"16b rank's slice B={B} T={T} H={H} KV={KV} "
+            f"D={D} with lse {str(dtype)[6:]}", q, ck, cv, lens, D ** -0.5,
+            lse=True))
+    for r in rows:
+        log(f"time decode_attention+lse {r['shape']}: kernel {r['ms']:.4f} "
+            f"ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {r['library']} {r['library_ms']:.4f} ms "
+            f"(no lse; sdpa backends {fmt_backends(r['library_all'])})")
+    return errs, rows
 
 
 def families_kernel_phase(torch, kops, ref):
@@ -5295,12 +5412,14 @@ def serve_shard_cfg(torch, run):
     return cfg.replace(n_layers=depth or cfg.n_layers)
 
 
-def serve_launches(cfg, steps) -> tuple:
+def serve_launches(cfg, steps, seq_split: bool = False) -> tuple:
     """The serve step's exact launches of a flash prefill and of ``steps``
     paged decode steps: flash and contiguous decode once per GQA self-
     attention layer (zamba2's shared block once per group; whisper's
     cross-attention and encoder take the plain route), the SSD scan once
-    per SSM layer a prefill."""
+    per SSM layer a prefill; where the step splits the cache's sequence
+    (``Strategy.seq_split``), every decode call of row 3 returns its
+    log-sum-exp (the sequence-sharded decode's local body)."""
     n_ssm = n_attn = 0
     if cfg.family == "ssm":
         n_ssm = cfg.n_layers
@@ -5311,15 +5430,16 @@ def serve_launches(cfg, steps) -> tuple:
     else:
         n_attn = cfg.n_layers
     return ({"flash_attention": n_attn, "decode_attention": 0,
-             "ssd_scan": n_ssm},
+             "decode_attention_lse": 0, "ssd_scan": n_ssm},
             {"flash_attention": 0, "decode_attention": n_attn * steps,
+             "decode_attention_lse": n_attn * steps if seq_split else 0,
              "ssd_scan": 0})
 
 
 def _path(launches) -> dict:
     """The counts of the kernels the serve steps' path reaches."""
     return {k: launches[k] for k in ("flash_attention", "decode_attention",
-                                     "ssd_scan")}
+                                     "decode_attention_lse", "ssd_scan")}
 
 
 def _serve_inputs(torch, cfg, B, S, device) -> dict:
@@ -5492,16 +5612,20 @@ def _free(torch, device) -> None:
 def _serve_rank_run(torch, kops, tmp, job, sizes, device):
     """One serve job (``_serve_job``) on this rank: its params drawn leaf
     by leaf and cut (``dryrun.draw_params``), its local cache
-    (``dryrun.local_cache``), resident bytes equal to the rules', the
-    serve cell's flash prefill and ``steps`` paged decode steps fed the
-    one-rank run's inputs and tokens (``tmp/serve_ref{job['ref']}.pt``),
-    exact launches on the card; float32 matmuls in TF32 where the job
-    says so (17b's control).  Saves the rank's logit shards and greedy
-    ids beside the figures."""
+    (``dryrun.local_cache``), resident bytes equal to the rules' (where
+    the step splits the cache's sequence, the bytes of ``k`` / ``v`` /
+    ``latent`` / ``rope`` / ``gk`` / ``gv`` equal to the reference
+    table's, ``dryrun.seq_leaf_bytes``, and the other leaves' to
+    ``step_cache_rules``'), the serve cell's flash prefill and ``steps``
+    paged decode steps fed the one-rank run's inputs and tokens
+    (``tmp/serve_ref{job['ref']}.pt``), exact launches on the card;
+    float32 matmuls in TF32 where the job says so (17b's control).  Saves
+    the rank's logit shards and greedy ids beside the figures."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import Mesh
     from repro_torch.sharding.spec import tree_bytes
-    from repro_torch.sharding.strategies import make_strategy
+    from repro_torch.sharding.strategies import (SEQ_SPLIT_LEAVES, PerfOpts,
+                                                 make_strategy)
     label, _, strategy, mesh_shape, _, _ = job["run"]
     cfg, index = job["cfg"], job["id"]
     B, S, steps = sizes
@@ -5530,12 +5654,24 @@ def _serve_rank_run(torch, kops, tmp, job, sizes, device):
     draw_s = time.perf_counter() - t0
     param_bytes = dryrun.resident_bytes(params)
     cache_bytes = dryrun.resident_bytes(cache)
+    seq = {k for k in meta if k in SEQ_SPLIT_LEAVES and st_dec.seq_split}
+    seq_bytes = dryrun.resident_bytes({k: cache[k] for k in seq})
+    got = (param_bytes, seq_bytes, cache_bytes - seq_bytes)
     want = (tree_bytes(st_pre.param_rules(), mesh, dryrun.param_shapes(cfg)),
-            tree_bytes(st_pre.step_cache_rules(), mesh, meta))
-    if (param_bytes, cache_bytes) != want:
-        raise AssertionError(f"{tag}: resident params / cache "
-                             f"{param_bytes} / {cache_bytes} bytes, the "
-                             f"rules' {want}")
+            dryrun.seq_leaf_bytes(st_pre, {k: meta[k] for k in seq}),
+            tree_bytes(st_pre.step_cache_rules(), mesh,
+                       {k: v for k, v in meta.items() if k not in seq}))
+    if got != want:
+        raise AssertionError(f"{tag}: resident params / sequence-split "
+                             f"cache leaves / other cache leaves {got} "
+                             f"bytes, the rules' {want}")
+    whole_bytes = cache_bytes
+    if seq:     # the same rank's cache with its sequence whole, allocated
+        whole = dryrun.local_cache(make_strategy(
+            strategy, mesh, cfg, st_dec.shape,
+            PerfOpts(kv_seq_override=())), B, T, device)
+        whole_bytes = dryrun.resident_bytes(whole)
+        del whole
     prefill = dryrun.build_serve_cell(cfg, st_pre.shape, st_pre,
                                       impl="flash")
     step = dryrun.build_serve_cell(cfg, st_dec.shape, st_dec, impl="paged")
@@ -5566,7 +5702,7 @@ def _serve_rank_run(torch, kops, tmp, job, sizes, device):
     decode_ms = (time.perf_counter() - t0) * 1e3 / steps
     dec = read_launches(kops)
     if on_card:
-        want_pre, want_dec = serve_launches(cfg, steps)
+        want_pre, want_dec = serve_launches(cfg, steps, st_dec.seq_split)
         check_counts(f"{tag} prefill", pre, want_pre)
         check_counts(f"{tag} decode", dec, want_dec)
     vocab = first.shape[-1]
@@ -5578,6 +5714,8 @@ def _serve_rank_run(torch, kops, tmp, job, sizes, device):
                f"{tmp}/serve_shards{index}_{mesh.rank}.pt")
     out = dict(rank=mesh.rank, coord=list(mesh.coord), draw_s=draw_s,
                param_bytes=param_bytes, cache_bytes=cache_bytes,
+               seq_split=st_dec.seq_split, seq_leaf_bytes=seq_bytes,
+               whole_seq_cache_bytes=whole_bytes,
                prefill_ms=prefill_ms, decode_ms=decode_ms,
                tokens_per_s=B * 1e3 / decode_ms,
                peak_gib=(torch.cuda.max_memory_allocated() / 2**30
@@ -5597,10 +5735,12 @@ def _serve_job(index, ref, run, cfg, tf32=False) -> dict:
 
 
 def _serve_rank(rank, tmp, device, jobs, sizes):
-    """One of phase 16's (17b-c's) ranks: joins the gloo group and runs
+    """One of phase 16's (17b-d's) ranks: joins the gloo group and runs
     every job in turn: a serve job (``_serve_job``) through
     ``_serve_rank_run``, whose figures go to ``tmp/serve_rank{rank}.json``,
-    or ``{"train": cfg}``, 17c's train cell (``_audio_rank_run``)."""
+    or a train job (``_train_job``) by its config's family: whisper's
+    cell (17c, ``_audio_rank_run``) or an ssm / hybrid cell (17d,
+    ``_ssm_rank_run``)."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import ops as kops
@@ -5612,7 +5752,9 @@ def _serve_rank(rank, tmp, device, jobs, sizes):
     out = []
     for job in jobs:
         if "train" in job:
-            _audio_rank_run(torch, kops, tmp, device, job["train"])
+            run = (_audio_rank_run if job["train"].family == "audio"
+                   else _ssm_rank_run)
+            run(torch, kops, tmp, device, job)
         else:
             out.append(_serve_rank_run(torch, kops, tmp, job, sizes,
                                        device))
@@ -5757,14 +5899,21 @@ def sharded_serve_phase(torch, kops, tmp, card, device="cuda",
             log(f"{tag} rank {r['rank']} (coord {r['coord']}): params "
                 f"{r['param_bytes'] / 2**30:.3f} GiB "
                 f"({r['param_bytes'] / one['param_bytes']:.3f} of one "
-                f"rank's), cache {r['cache_bytes'] / 2**30:.4f} GiB, "
-                f"resident = the rules'; draw {r['draw_s']:.1f} s, prefill "
+                f"rank's), cache {r['cache_bytes'] / 2**30:.4f} GiB"
+                + (f" (its slice of the sequence; k / v / latent / rope / "
+                   f"gk / gv {r['seq_leaf_bytes'] / 2**30:.4f} GiB = the "
+                   f"reference table's; the same rank's cache allocated "
+                   f"with the sequence whole "
+                   f"{r['whole_seq_cache_bytes'] / 2**30:.4f} GiB)"
+                   if r["seq_split"] else "")
+                + f", resident = the rules'; draw {r['draw_s']:.1f} s, prefill "
                 f"{r['prefill_ms']:.1f} ms, decode {r['decode_ms']:.2f} "
                 f"ms/step = {r['tokens_per_s']:.1f} tokens/s, peak "
                 f"{r['peak_gib']:.2f} GiB; launches flash "
                 f"{r['launches_prefill']['flash_attention']} a prefill, "
-                f"decode {r['launches_decode']['decode_attention']} in "
-                f"{sizes[2]} steps ({card}; a one-card gloo rehearsal)")
+                f"decode {r['launches_decode']['decode_attention']} "
+                f"({r['launches_decode']['decode_attention_lse']} with lse) "
+                f"in {sizes[2]} steps ({card}; a one-card gloo rehearsal)")
         log(f"{tag}: {cfg.name} {cfg.n_layers} layers {dtype}, {strategy} "
             f"over {tuple(mesh)}: greedy ids equal to one rank's at "
             f"{agree['ids_equal']} of {agree['ids_total']}, logit rows "
@@ -5781,11 +5930,14 @@ def sharded_serve_phase(torch, kops, tmp, card, device="cuda",
             if dtype != "bfloat16":
                 continue
             # a rank's heads: the prefill's split over model; the decode's
-            # too under monolithic Type I, whole under crosspool Type I
-            # (its cache keeps every head)
-            split = (model, model if strategy == "monolithic" else 1)
+            # too under monolithic Type I, whole under crosspool, whose
+            # cache keeps every head of its slice of the sequence
+            crosspool = strategy == "crosspool"
+            split = (model, 1 if crosspool else model)
+            cache_len = sizes[1] + sizes[2]
             geoms.append((f"{cfg.name} {strategy} over ({data}, {model})",
-                          sizes[0] // data, sizes[1], sizes[1] + sizes[2],
+                          sizes[0] // data, sizes[1],
+                          cache_len // model if crosspool else cache_len,
                           [(cfg.n_heads // n, cfg.n_kv_heads // n)
                            for n in split], cfg.head_dim))
         out["kernel_errs"], out["kernel_rows"] = local_heads_kernel_rows(
@@ -5844,16 +5996,24 @@ def audio_train_cfg():
     return cfg
 
 
-def _audio_cell(mesh, cfg):
-    """(strategy, ``build_train_cell``) of 17c on ``mesh``."""
+def _train_cell_of(mesh, cfg, seq, batch, levers=None):
+    """(strategy, ``build_train_cell``) of a 17c / 17d / 7d cell on
+    ``mesh``: ``batch`` x ``seq`` tokens, one microbatch, ``levers``."""
     from dataclasses import replace
     from repro_torch.configs import SHAPES_BY_NAME
     from repro_torch.launch import dryrun
     from repro_torch.sharding.strategies import PerfOpts, make_strategy
-    shape = replace(SHAPES_BY_NAME["train_4k"], seq_len=AUDIO_TRAIN_SEQ,
-                    global_batch=AUDIO_TRAIN_BATCH)
-    st = make_strategy("train", mesh, cfg, shape, PerfOpts(microbatches=1))
+    shape = replace(SHAPES_BY_NAME["train_4k"], seq_len=seq,
+                    global_batch=batch)
+    st = make_strategy("train", mesh, cfg, shape,
+                       PerfOpts(microbatches=1, **(levers or {})))
     return st, dryrun.build_train_cell(cfg, shape, st)
+
+
+def _audio_cell(mesh, cfg, levers=None):
+    """(strategy, ``build_train_cell``) of 17c on ``mesh``."""
+    return _train_cell_of(mesh, cfg, AUDIO_TRAIN_SEQ, AUDIO_TRAIN_BATCH,
+                          levers)
 
 
 def _audio_batch(torch, cfg, device):
@@ -5931,45 +6091,54 @@ def audio_train_one_rank(torch, kops, tmp, device="cuda", cfg=None) -> dict:
     return out
 
 
-def ssm_cell_cfg():
-    """7d's config: zamba2-1.2b at published widths, float32, one group of
-    ``SSM_CELL_DEPTH`` SSM layers and the shared attention block, then one
-    tail SSM layer."""
+def ssm_cell_cfg(arch="zamba2-1.2b"):
+    """7d's and 17d's configs at published widths, float32: zamba2-1.2b
+    as one group of ``SSM_CELL_DEPTH`` SSM layers and the shared
+    attention block, then one tail SSM layer; mamba2-130m cut to
+    ``SSM_CELL_DEPTH`` layers."""
     from repro_torch.configs import get_config
-    return get_config("zamba2-1.2b").replace(
-        dtype="float32", n_layers=SSM_CELL_DEPTH + 2, hybrid_groups=1,
-        ssm_per_group=SSM_CELL_DEPTH, tail_ssm_layers=1)
+    cfg = get_config(arch).replace(dtype="float32")
+    if cfg.family == "ssm":
+        return cfg.replace(n_layers=SSM_CELL_DEPTH)
+    return cfg.replace(n_layers=SSM_CELL_DEPTH + 2, hybrid_groups=1,
+                       ssm_per_group=SSM_CELL_DEPTH, tail_ssm_layers=1)
 
 
-def ssm_train_one_rank(torch, kops, device="cuda", cfg=None) -> dict:
-    """(7d) zamba2's sharded train cell (``build_train_cell`` over (1, 1),
-    remat as the cell runs it) beside ``make_train_step`` with remat from
+def _ssm_cell(mesh, cfg):
+    """(strategy, ``build_train_cell``) of 7d / 17d on ``mesh``."""
+    return _train_cell_of(mesh, cfg, TRAIN_SEQ, TRAIN_BATCH)
+
+
+def _ssm_want(cfg) -> dict:
+    """7d's and 17d's launches of the SSD kernels in ``SHARDED_STEPS``
+    steps of the cell (remat)."""
+    return {"ssd_scan": ssm_forwards(cfg, True) * SHARDED_STEPS,
+            "ssd_scan_bwd": cfg.n_ssm_layers * SHARDED_STEPS}
+
+
+def ssm_train_one_rank(torch, kops, device="cuda", cfg=None,
+                       tmp=None) -> dict:
+    """(7d; 17d's references) an ssm / hybrid train cell
+    (``build_train_cell`` over (1, 1), remat as the cell runs it; default
+    zamba2's ``ssm_cell_cfg``) beside ``make_train_step`` with remat from
     the same seeded params and ``TRAIN_BATCH`` x ``TRAIN_SEQ`` batch,
     ``SHARDED_STEPS`` steps each: losses, grad norms and final params
     equal bit for bit, and in both ``ssd_scan`` launched as
     ``ssm_forwards`` says with remat (the grouped layers twice: the
     forward and its recompute), ``ssd_scan_bwd`` once a SSM layer a
-    step.
-    The first of phase 17's ssm/hybrid cells on the card.  Needs a
-    one-rank process group."""
-    from dataclasses import replace
-    from repro_torch.configs import SHAPES_BY_NAME
-    from repro_torch.launch import dryrun
+    step.  With ``tmp``, the cell's final params and metrics go to
+    ``tmp/ssm_ref_<arch>.pt`` for 17d's ranks.  Needs a one-rank process
+    group."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.model import build_model
-    from repro_torch.sharding.strategies import PerfOpts, make_strategy
     from repro_torch.training.train_step import make_train_step
-    from repro_torch.training.tree import leaves
+    from repro_torch.training.tree import leaves, leaves_with_path
     cfg = cfg or ssm_cell_cfg()
-    shape = replace(SHAPES_BY_NAME["train_4k"], seq_len=TRAIN_SEQ,
-                    global_batch=TRAIN_BATCH)
-    st = make_strategy("train", Mesh((1, 1), ("data", "model"), live=True),
-                       cfg, shape, PerfOpts(microbatches=1))
-    cell = dryrun.build_train_cell(cfg, shape, st)
+    st, cell = _ssm_cell(Mesh((1, 1), ("data", "model"), live=True), cfg)
     model = build_model(cfg)
     batch = _train_batch(torch, cfg, device)
     opt = cell.optimizer
-    tag = "train 7d zamba2 cell one rank"
+    tag = f"train 7d {cfg.name} cell one rank"
     t0 = time.perf_counter()
     runs = {}
     for label, step, shard in (
@@ -5984,6 +6153,11 @@ def ssm_train_one_rank(torch, kops, device="cuda", cfg=None) -> dict:
                            launches=launches,
                            params=[t.detach().cpu()
                                    for t in leaves(state.params)])
+        if label == "cell" and tmp is not None:
+            torch.save(dict(losses=losses, gnorms=gnorms, params={
+                "/".join(p): t.detach().cpu()
+                for p, t in leaves_with_path(state.params)}),
+                f"{tmp}/ssm_ref_{cfg.name}.pt")
         del state
         gc.collect()
         if torch.device(device).type == "cuda":
@@ -5998,8 +6172,7 @@ def ssm_train_one_rank(torch, kops, device="cuda", cfg=None) -> dict:
         raise AssertionError(f"{tag}: the cell parts from make_train_step: "
                              f"losses {got['losses']} vs {ref['losses']}, "
                              f"params by {diff:.3g}")
-    want = {"ssd_scan": ssm_forwards(cfg, True) * SHARDED_STEPS,
-            "ssd_scan_bwd": cfg.n_ssm_layers * SHARDED_STEPS}
+    want = _ssm_want(cfg)
     if torch.device(device).type == "cuda":
         for label, run in runs.items():
             seen = {k: run["launches"][k] for k in want}
@@ -6020,30 +6193,42 @@ def ssm_train_one_rank(torch, kops, device="cuda", cfg=None) -> dict:
     return out
 
 
-def _audio_rank_run(torch, kops, tmp, device, cfg) -> None:
-    """17c on one of 17b's ranks (after its serve runs, in the same gloo
-    group): the cell's steps over ``AUDIO_TRAIN_MESH``, held against the
+def _train_job(label, cfg, mesh, ref, levers=None) -> dict:
+    """A train job of 17c / 17d's ranks: ``cfg``'s cell over ``mesh``
+    with ``levers``, held against the one-rank run saved as
+    ``tmp/<ref>.pt``; its figures under ``label``."""
+    return dict(train=cfg, label=label, mesh=mesh, ref=ref,
+                levers=levers or {})
+
+
+def _cell_rank_run(torch, kops, tmp, device, job, st, cell, batch,
+                   want=None) -> None:
+    """A train job's cell (``st``, ``cell``) on this rank: its steps on
+    the rank's rows of ``batch`` from the seeded params, held against the
     one-rank run: losses and grad norms within 1e-5 relative, the shards
-    within ``_lr_bound``, resident bytes equal to the dry-run's."""
+    within ``_lr_bound``, resident bytes equal to the dry-run's, and on
+    the card the launches ``want``.  Its figures (ms a step, peak GiB,
+    launches) go to ``tmp/train_rank_<label>_<rank>.json``."""
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import Mesh
     from repro_torch.models.model import build_model
     from repro_torch.sharding.spec import local_slices
     from repro_torch.training.train_step import TrainState
     from repro_torch.training.tree import leaves_with_path
-    mesh = Mesh(AUDIO_TRAIN_MESH, ("data", "model"), live=True)
-    st, cell = _audio_cell(mesh, cfg)
+    cfg, mesh = job["train"], st.mesh
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     params = cell.shard_state(TrainState(
         _seeded_params(torch, build_model(cfg), device), None)).params
     gc.collect()
     box = [_fresh_state(cell.optimizer, params, False)]
     del params
-    batch = cell.local_batch(_audio_batch(torch, cfg, device))
+    batch = cell.local_batch(batch)
     resident = dryrun.resident_bytes(box[0]) + dryrun.resident_bytes(batch)
     state, losses, gnorms, ms, launches = _train_steps(
         torch, kops, cell.step, box, batch, device)
-    ref = torch.load(f"{tmp}/audio_ref.pt", mmap=True)
-    tag = f"sharded train 17c whisper rank {mesh.rank}"
+    ref = torch.load(f"{tmp}/{job['ref']}.pt", mmap=True)
+    tag = f"sharded train {job['label']} rank {mesh.rank}"
     loss_rel = _close_rel(f"{tag} loss", losses, ref["losses"], 1e-5)
     gnorm_rel = _close_rel(f"{tag} grad norm", gnorms, ref["gnorms"], 1e-5)
     specs = st.param_specs()
@@ -6051,23 +6236,54 @@ def _audio_rank_run(torch, kops, tmp, device, cfg) -> None:
     for path, local in leaves_with_path(state.params):
         path = "/".join(path)
         whole = ref["params"][path]
-        want = whole[local_slices(mesh, whole.shape, specs[path])]
-        err = max(err, float((local.detach().cpu() - want).abs().max()))
+        want_leaf = whole[local_slices(mesh, whole.shape, specs[path])]
+        err = max(err, float((local.detach().cpu() - want_leaf).abs().max()))
     if not err <= _lr_bound(cell.optimizer):
         raise AssertionError(f"{tag}: shards part from the one rank's by "
                              f"{err:.3g}")
     if resident != dryrun.argument_bytes(st):
         raise AssertionError(f"{tag}: {resident} resident bytes, the dry-run "
                              f"says {dryrun.argument_bytes(st)}")
-    with open(f"{tmp}/audio_rank{mesh.rank}.json", "w") as f:
-        json.dump(dict(rank=mesh.rank, coord=list(mesh.coord), losses=losses,
+    if on_card and want is not None:
+        check_counts(tag, launches, want)
+    with open(f"{tmp}/train_rank_{job['label']}_{mesh.rank}.json", "w") as f:
+        json.dump(dict(label=job["label"], rank=mesh.rank,
+                       coord=list(mesh.coord), losses=losses,
                        loss_rel=loss_rel, grad_norm_rel=gnorm_rel,
                        max_param_diff=err, step_ms=ms,
-                       resident_bytes=resident, launches=launches), f)
+                       resident_bytes=resident,
+                       peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                                 if on_card else 0.0),
+                       launches=launches), f)
     del state, ref
     gc.collect()
-    if device == "cuda":
+    if on_card:
         torch.cuda.empty_cache()
+
+
+def _audio_rank_run(torch, kops, tmp, device, job) -> None:
+    """17c on one of 17b's ranks (after its serve runs, in the same gloo
+    group): whisper's cell over the job's mesh with its levers
+    (``seq_parallel`` splits the decoder's stream), held against the
+    one-rank run (``_cell_rank_run``)."""
+    from repro_torch.launch.mesh import Mesh
+    st, cell = _audio_cell(Mesh(job["mesh"], ("data", "model"), live=True),
+                           job["train"], job["levers"])
+    _cell_rank_run(torch, kops, tmp, device, job, st, cell,
+                   _audio_batch(torch, job["train"], device))
+
+
+def _ssm_rank_run(torch, kops, tmp, device, job) -> None:
+    """17d on one of the ranks: an ssm / hybrid cell (``ssm_cell_cfg``)
+    over the job's mesh, held against its one-rank run
+    (``_cell_rank_run``), ``ssd_scan`` / ``ssd_scan_bwd`` launched as at
+    one rank (``_ssm_want``)."""
+    from repro_torch.launch.mesh import Mesh
+    cfg = job["train"]
+    st, cell = _ssm_cell(Mesh(job["mesh"], ("data", "model"), live=True),
+                         cfg)
+    _cell_rank_run(torch, kops, tmp, device, job, st, cell,
+                   _train_batch(torch, cfg, device), _ssm_want(cfg))
 
 
 def _family_row_limit(one) -> float:
@@ -6079,7 +6295,8 @@ def _family_row_limit(one) -> float:
 
 
 def family_shard_phase(torch, kops, tmp, card, device="cuda", cfgs=None,
-                       sizes=SERVE_SHARD_SIZES, train_cfg=None) -> dict:
+                       sizes=SERVE_SHARD_SIZES, train_cfg=None,
+                       ssm_cfgs=None) -> dict:
     """Phase 17: the ssm, hybrid and audio archs through the sharded steps
     with every leaf placed by the rules.  (a) For each arch and dtype of
     ``cfgs`` ({(arch, dtype): config}; default the published configs) the
@@ -6093,8 +6310,13 @@ def family_shard_phase(torch, kops, tmp, card, device="cuda", cfgs=None,
     (``FAMILY_BF16_ARCH`` only) measured; on the card, the TF32 control
     runs of ``FAMILY_CONTROL_ARCHS``, each of which must fail that limit;
     (c) whisper's train cell at one rank (bit for bit), then over
-    ``AUDIO_TRAIN_MESH`` on (b)'s ranks after their serve runs; then the
-    ranks' kernel geometries.  ``cfgs``, ``sizes`` and ``train_cfg``
+    ``AUDIO_TRAIN_MESH`` on (b)'s ranks after their serve runs, once per
+    ``AUDIO_TRAIN_VARIANTS`` (plain, ``seq_parallel``); (d) the ssm and
+    hybrid train cells (``ssm_cell_cfg``) at one rank (7d: bit for bit
+    against ``make_train_step``), then over ``SSM_SHARD_CELLS``' meshes
+    on the same ranks; each four-rank cell within 1e-5 of its one-rank
+    run (``_cell_rank_run``); then the ranks' kernel geometries.
+    ``cfgs``, ``sizes``, ``train_cfg`` and ``ssm_cfgs`` ({arch: config})
     rehearse it on the CPU (``device="cpu"``: launch gates, the control
     and timing are card-only).  The four-rank times are a one-card gloo
     rehearsal."""
@@ -6126,6 +6348,21 @@ def family_shard_phase(torch, kops, tmp, card, device="cuda", cfgs=None,
     train_cfg = train_cfg or audio_train_cfg()
     out["audio_train"] = dict(one_rank=audio_train_one_rank(
         torch, kops, tmp, device, train_cfg))
+    # 7d and 17d's other reference: the ssm / hybrid cells at one rank
+    ssm_cfgs = ssm_cfgs or {arch: ssm_cell_cfg(arch)
+                            for _, arch, _ in SSM_SHARD_CELLS}
+    out["ssm_cells"] = {}
+    for arch, cfg in ssm_cfgs.items():
+        out["ssm_cells"][arch] = dict(one_rank=ssm_train_one_rank(
+            torch, kops, device, cfg, tmp))
+        _free(torch, device)
+    train_jobs = [
+        _train_job(f"17c whisper {label}", train_cfg, AUDIO_TRAIN_MESH,
+                   "audio_ref", levers)
+        for label, levers in AUDIO_TRAIN_VARIANTS] + [
+        _train_job(f"17d {label}", ssm_cfgs[arch], mesh,
+                   f"ssm_ref_{ssm_cfgs[arch].name}")
+        for label, arch, mesh in SSM_SHARD_CELLS]
     jobs = []
     for (arch, dtype), cfg in cfgs.items():
         if dtype == "float32" or arch == FAMILY_BF16_ARCH:
@@ -6143,9 +6380,9 @@ def family_shard_phase(torch, kops, tmp, card, device="cuda", cfgs=None,
                  arch, strategy, mesh, "float32", None),
                 cfgs[arch, "float32"], tf32=True))
     t1 = time.perf_counter()
-    # 17b's runs, then 17c's four ranks, in one spawn
-    ranks = _serve_spawn(tmp, device, jobs + [{"train": train_cfg}], sizes,
-                         "sharded 17b-c")
+    # 17b's runs, then 17c's and 17d's cells, in one spawn
+    ranks = _serve_spawn(tmp, device, jobs + train_jobs, sizes,
+                         "sharded 17b-d")
     t2 = time.perf_counter()
     for i, job in enumerate(jobs):
         label, arch, strategy, mesh, dtype, _ = job["run"]
@@ -6182,7 +6419,14 @@ def family_shard_phase(torch, kops, tmp, card, device="cuda", cfgs=None,
             log(f"sharded serve {label} rank {r['rank']} (coord "
                 f"{r['coord']}): params {r['param_bytes'] / 2**30:.4f} GiB "
                 f"({r['param_bytes'] / whole:.3f} of the whole), cache "
-                f"{r['cache_bytes'] / 2**30:.4f} GiB, resident = the "
+                f"{r['cache_bytes'] / 2**30:.4f} GiB"
+                + (f" (its slice of the sequence; k / v "
+                   f"{r['seq_leaf_bytes'] / 2**30:.4f} GiB = the reference "
+                   f"table's; the same rank's cache allocated with the "
+                   f"sequence whole "
+                   f"{r['whole_seq_cache_bytes'] / 2**30:.4f} GiB)"
+                   if r["seq_split"] else "")
+                + f", resident = the "
                 f"rules'; prefill {r['prefill_ms']:.1f} ms, decode "
                 f"{r['decode_ms']:.2f} ms/step, peak {r['peak_gib']:.2f} "
                 f"GiB; launches {_path(r['launches_prefill'])} a prefill, "
@@ -6198,16 +6442,29 @@ def family_shard_phase(torch, kops, tmp, card, device="cuda", cfgs=None,
                                 mesh=list(mesh), dtype=dtype,
                                 layers=job["cfg"].n_layers, ranks=rs,
                                 **agree))
-    out["audio_train"]["four_ranks"] = [
-        json.loads(Path(f"{tmp}/audio_rank{r}.json").read_text())
-        for r in range(math.prod(AUDIO_TRAIN_MESH))]
-    for r in out["audio_train"]["four_ranks"]:
-        log(f"sharded train 17c whisper rank {r['rank']} (coord "
-            f"{r['coord']}): losses {r['losses']} (rel {r['loss_rel']:.3g} "
-            f"of one rank's), grad norms rel {r['grad_norm_rel']:.3g}, "
-            f"shards within {r['max_param_diff']:.3g}; resident "
-            f"{r['resident_bytes'] / 2**30:.4f} GiB = the dry-run's; step "
-            f"ms {r['step_ms']} ({card}; a one-card gloo rehearsal)")
+    for job in train_jobs:
+        rs = [json.loads(Path(f"{tmp}/train_rank_{job['label']}_{r}.json")
+                         .read_text())
+              for r in range(math.prod(job["mesh"]))]
+        if job["train"].family == "audio":
+            out["audio_train"].setdefault("four_ranks", {})[
+                job["label"]] = rs
+        else:
+            arch = job["train"].name
+            out["ssm_cells"][arch].update(label=job["label"],
+                                          mesh=list(job["mesh"]),
+                                          four_ranks=rs)
+        for r in rs:
+            log(f"sharded train {job['label']} rank {r['rank']} (coord "
+                f"{r['coord']}): losses {r['losses']} (rel "
+                f"{r['loss_rel']:.3g} of one rank's), grad norms rel "
+                f"{r['grad_norm_rel']:.3g}, shards within "
+                f"{r['max_param_diff']:.3g}; resident "
+                f"{r['resident_bytes'] / 2**30:.4f} GiB = the dry-run's, "
+                f"peak {r['peak_gib']:.2f} GiB; step ms {r['step_ms']}; "
+                f"launches ssd_scan {r['launches']['ssd_scan']}, "
+                f"ssd_scan_bwd {r['launches']['ssd_scan_bwd']} ({card}; a "
+                f"one-card gloo rehearsal)")
     t3 = time.perf_counter()
     if device == "cuda":
         from repro_torch.kernels import ref
@@ -6238,7 +6495,7 @@ def family_shard_phase(torch, kops, tmp, card, device="cuda", cfgs=None,
                           kernels=time.perf_counter() - t3,
                           total=time.perf_counter() - t0)
     log(f"sharded families: phase 17 took {out['seconds']['total']:.1f} s "
-        f"(17a and 17c's one rank {t1 - t0:.1f}, 17b-c's four ranks "
+        f"(17a, 17c and 17d's one rank {t1 - t0:.1f}, 17b-d's four ranks "
         f"{t2 - t1:.1f}, kernel rows {out['seconds']['kernels']:.1f}; "
         f"{card})")
     return out
@@ -6284,7 +6541,8 @@ def sharding_phase(torch, kops, card) -> dict:
                                                          card)
             gc.collect()
             torch.cuda.empty_cache()
-            out["ssm_cell"] = ssm_train_one_rank(torch, kops)
+            out["ssm_cell"] = out["sharded_families"]["ssm_cells"][
+                "zamba2-1.2b"]["one_rank"]
         finally:
             dist.destroy_process_group()
     out["seconds"] = time.perf_counter() - t0
@@ -6315,6 +6573,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    seconds, last = {}, [t_start]
+
+    def mark(phase: str) -> None:
+        """Print and keep the seconds since the previous mark."""
+        now = time.perf_counter()
+        seconds[phase] = now - last[0]
+        last[0] = now
+        log(f"phase {phase}: {seconds[phase]:.1f} s ({card})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -6329,6 +6595,7 @@ def main() -> int:
     for src, lib in libs.items():
         log(f"build log {src}:")
         log(lib.with_suffix(".so.log").read_text().strip())
+    mark("1-2 card and build")
 
     # 3. kernels, at the main paths' geometries (bf16 pages of 16 KiB)
     page_elems = DEFAULT_PAGE_BYTES // 2
@@ -6350,6 +6617,8 @@ def main() -> int:
     b_worst, b_err, b_rows = ssd_backward_phase(torch, kops,
                                                 ssd_scan_chunked_bwd)
     w_rows = kv_write_phase(torch, kops, ref)
+    lse_errs, lse_rows = lse_phase(torch, kops, ref)
+    mark("3 kernels")
 
     # 4. small models, card against CPU
     small_launches = small_phase(torch, kops)
@@ -6357,6 +6626,7 @@ def main() -> int:
     smoke_serve_phase(torch)
     train_small_phase(torch)
     graph_phase(torch)
+    mark("4 small")
 
     # 5. serve the colocated split path
     log("serve: published widths, depths cut to "
@@ -6379,6 +6649,7 @@ def main() -> int:
             lowering=False, pipeline=pipeline)
         gc.collect()
         torch.cuda.empty_cache()
+    mark("5 serve")
 
     # 6. serve the dense-cache fallback path: full published configs
     log(f"serve fallback: {', '.join(FALLBACK_MODELS)} at their full "
@@ -6388,6 +6659,7 @@ def main() -> int:
         page_budget=32768, label="serve fallback", check=check_fallback)
     gc.collect()
     torch.cuda.empty_cache()
+    mark("6 serve fallback")
 
     # 7. train moonshot at published widths through the grouped MoE path
     t_launches, train, loads = train_phase(torch, np, kops)
@@ -6401,11 +6673,13 @@ def main() -> int:
         ssm_train[name] = ssm_train_phase(torch, kops, name)
         gc.collect()
         torch.cuda.empty_cache()
+    mark("7 train")
 
     # 8. the grouped GEMM at phase 7's shapes and router load
     m_errs, m_rows = moe_kernel_phase(torch, np, kops, ref, loads)
     gc.collect()
     torch.cuda.empty_cache()
+    mark("8 moe gemm")
 
     # 9. the elastic boundary: burst, moves, recaptures, forced cycle
     log(f"elastic: published widths, depths cut to FULL_WIDTH_DEPTHS, "
@@ -6415,6 +6689,7 @@ def main() -> int:
     e_launches = elastic["elastic"]["launches"]
     gc.collect()
     torch.cuda.empty_cache()
+    mark("9 elastic")
 
     # 10. the prefix cache: multi-turn conversations, cache on and off
     log(f"cache: each colocated model alone at published width, bf16, "
@@ -6425,6 +6700,7 @@ def main() -> int:
     c_launches = cache["launches"]
     gc.collect()
     torch.cuda.empty_cache()
+    mark("10 cache")
 
     # 11. observability and forensics on the serve configuration
     log(f"observe: phase 5's trace with the observer, recorder, sanitizer "
@@ -6433,11 +6709,13 @@ def main() -> int:
                             card)
     gc.collect()
     torch.cuda.empty_cache()
+    mark("11 observe")
 
     # 12. the dense-cache Model path: gemma3 and whisper at full configs
     families = families_phase(torch, kops, ref)
     gc.collect()
     torch.cuda.empty_cache()
+    mark("12 families")
 
     # 13. the long-context pool at full width, then the four examples
     examples = examples_long_phase(torch, kops, ref)
@@ -6445,6 +6723,7 @@ def main() -> int:
     long_rows = examples["long_context"]["rows"]
     gc.collect()
     torch.cuda.empty_cache()
+    mark("13 examples")
 
     # 14-15. the sharding layer: one rank over NCCL, then four over gloo;
     # then the sharded training step the same way
@@ -6454,6 +6733,15 @@ def main() -> int:
     sharded_serve = sharding.pop("sharded_serve")
     sharded_families = sharding.pop("sharded_families")
     ssm_cell = sharding.pop("ssm_cell")
+    seconds.update({
+        "14 sharding": sharding["seconds_14"],
+        "15 sharded train": sharded_train["seconds"],
+        "16 sharded serve": sharded_serve["seconds"]["total"],
+        "17 sharded families": sharded_families["seconds"]["total"]})
+    for phase in ("14 sharding", "15 sharded train", "16 sharded serve",
+                  "17 sharded families"):
+        log(f"phase {phase}: {seconds[phase]:.1f} s ({card})")
+    last[0] = time.perf_counter()
 
     csrc = "src/repro_torch/kernels/csrc/"
     main_shape = {"gqa": ("qwen3-moe-235b-a22b", 1024, 4),
@@ -6562,6 +6850,21 @@ def main() -> int:
         kernels[-1]["rank_heads"] = [
             dict(r, max_abs_err=sharded_families["kernel_errs"][name])
             for r in sharded_families["kernel_rows"] if r["kernel"] == name]
+        if name == "decode_attention":
+            # the log-sum-exp output: phase 3's check and a 16b rank's
+            # slice timed; its launches on every rank of each run that
+            # splits the cache's sequence (phases 16-17)
+            row = lse_rows[0]
+            kernels[-1]["lse"] = dict(
+                {k: row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms", "library")},
+                max_abs_err=lse_errs["lse"], max_abs_err_out=lse_errs["out"],
+                rows=lse_rows, launches={
+                    run["label"]: [r["launches_decode"]["decode_attention_lse"]
+                                   for r in run["ranks"]]
+                    for run in sharded_serve["runs"]
+                    + sharded_families["runs"]
+                    if run["ranks"][0]["seq_split"]})
         if name in families["kernel_errs"]:
             # phase 12's shapes at head dim 256 and its launches
             g, w = families["gemma3"], families["whisper"]
@@ -6655,7 +6958,8 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card,
-         "kernel_times": rows + f_rows + b_rows + m_rows + w_rows,
+         "kernel_times": rows + f_rows + b_rows + m_rows + w_rows
+         + lse_rows, "phase_seconds": seconds,
          "kernels": kernels, "serve": serve, "serve_host": host,
          "serve_fallback": f_serve, "train": train, "train_ssm": ssm_train,
          "ssm_cell": ssm_cell, "elastic": elastic,
@@ -6664,6 +6968,9 @@ def main() -> int:
          "sharded_train": sharded_train, "sharded_serve": sharded_serve,
          "sharded_families": sharded_families},
         indent=1, default=str))
+    mark("json")
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in seconds.items()))
     log(f"chip_smoke: all 17 phases in {time.perf_counter() - t_start:.1f} "
         f"s ({card})")
     print(json.dumps({"kernels": kernels}))

@@ -4,6 +4,7 @@ card, alternated.
 
     python3 serve_ab.py PARENT . . PARENT
     python3 serve_ab.py --no-fallback .@host-serial .@host .@host .@host-serial
+    python3 serve_ab.py PARENT@sharded .@sharded .@sharded PARENT@sharded
 
 Each argument is a checkout of the repo (for example the parent commit
 unpacked with ``git archive`` into ``build/parent``), optionally followed
@@ -14,7 +15,12 @@ by ``@MODE``, the engine mode of its split-path phase:
     host          lowering off, pipeline on   (the layer pipeline scheduler)
     host-serial   lowering off, pipeline off
 
-These are the four rows of the paper's Table 3 ablation.  For each
+These are the four rows of the paper's Table 3 ablation.  The mode
+``sharded`` runs instead phase 16's crosspool runs (16b: moonshot over
+(2, 2) ranks sharing the card over gloo, bf16 and float32, with their
+gates) once, and prints one ``AB`` line per run: the cell's tokens/s and
+the decode ms a step, each the mean over the four ranks, and each rank's
+ms.  For each
 argument, in the order given, a fresh process builds that tree's kernels
 and runs the serve phases of its ``chip_smoke.py`` (5: the colocated split
 path at published widths, in the given mode; 6: zamba2 + mamba2 through
@@ -56,6 +62,22 @@ def one(root: str, mode: str, fallback: bool) -> None:
     from repro_torch.kernels import ops as kops
     from repro_torch.launch.serve import coloc_models
 
+    if mode == "sharded":
+        import tempfile
+        build.build_all()
+        runs = [r for r in cs.SERVE_SHARD_RUNS if r[2] == "crosspool"]
+        with tempfile.TemporaryDirectory() as tmp:
+            fig = cs.sharded_serve_phase(torch, kops, tmp,
+                                         torch.cuda.get_device_name(0),
+                                         runs=runs)
+        for run in fig["runs"]:
+            ms = [r["decode_ms"] for r in run["ranks"]]
+            tps = [r["tokens_per_s"] for r in run["ranks"]]
+            print(f"AB {root}@{mode} {run['label']}: "
+                  f"{sum(tps) / len(tps):.1f} tok/s decode "
+                  f"{sum(ms) / len(ms):.2f} ms/step (ranks "
+                  f"{', '.join(f'{m:.2f}' for m in ms)})", flush=True)
+        return
     lowering, pipeline = MODES[mode]
     kw = {} if mode == "fused" else dict(lowering=lowering,
                                          pipeline=pipeline)
@@ -92,9 +114,9 @@ def main(argv) -> int:
     for arg in argv:
         root, _, mode = arg.partition("@")
         mode = mode or "fused"
-        if mode not in MODES:
-            print(f"unknown mode {mode!r}; one of {sorted(MODES)}",
-                  file=sys.stderr)
+        if mode not in MODES and mode != "sharded":
+            print(f"unknown mode {mode!r}; one of "
+                  f"{sorted(MODES) + ['sharded']}", file=sys.stderr)
             return 2
         res = subprocess.run([sys.executable, __file__, "--one", root, mode,
                               "1" if fallback else "0"],
@@ -103,7 +125,8 @@ def main(argv) -> int:
         for m in lines:
             print(m.string, flush=True)
             runs[(m.group(1), m.group(2))].append(float(m.group(3)))
-        if res.returncode != 0 or len(lines) != 1 + fallback:
+        if res.returncode != 0 or not lines or (
+                mode != "sharded" and len(lines) != 1 + fallback):
             print(res.stdout[-4000:] + res.stderr[-4000:], file=sys.stderr)
             return 1
     for (root, label), vals in runs.items():

@@ -16,6 +16,13 @@
 // length 0 included) writes 0.  q * scale is computed in f32 and rounded
 // to q's type before the dot, inside every kernel, as the TPU wrappers
 // fold the scale (paged_attention.py:92,183,284).
+// contiguous_gqa_decode can also write each row's log-sum-exp of its
+// scaled scores, lse = ln sum_t exp(s(t)) in f32 (-inf for a row of
+// length 0): the sequence-sharded decode (sharding/seq_attention.py)
+// combines the ranks' slices by it.  The bodies track the running max in
+// log2 units, so lse = m ln 2 + ln l; the merge writes it where a call
+// splits, the split kernel where it does not, and a null pointer leaves
+// every launch as it was.
 //
 // Layout.  The paged kernels read the FLAT pool [n_pages, page_elems] in
 // place: token t of page p starts at  pool + p * page_elems + t * per_tok.
@@ -189,6 +196,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "tiles.cuh"
@@ -196,6 +204,14 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The log-sum-exp of a row's scaled scores in natural-log units, from the
+// online softmax's running max m (log2 units) and sum l: m ln 2 + ln l,
+// and -inf where the row has no valid position (l == 0).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m * kLn2 + logf(l) : -INFINITY;
+}
 
 // ---------------------------------------------------------------------------
 // bf16 GQA route: split-KV over a cp.async ring
@@ -225,6 +241,7 @@ struct Args {
   float* part_acc;           // [B, H, splits, VD]  (splits > 1)
   float* part_m;             // [B, H, splits], log2 units
   float* part_l;             // [B, H, splits]
+  float* lse;                // [B, H] or null: row_lse of every row
   int heads, group;          // H, G = H / KV
   int head_groups;           // blocks per kv head: ceil(G / rows)
   int tokens_per_page, per_tok, max_pages;
@@ -272,15 +289,18 @@ __device__ __forceinline__ void put(bf16* p, float v) {
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 
 // A split that holds none of its row's tokens: with one split the rows'
-// output is 0, else the split leaves an empty partial (m = -1e30, l = 0)
-// that the merge drops.
+// output is 0 (and their lse, where asked, -inf), else the split leaves an
+// empty partial (m = -1e30, l = 0) that the merge drops.
 template <typename T>
 __device__ __forceinline__ void write_empty_split(
-    T* out, float* part_m, float* part_l, long long row0, int rows,
-    int width, int splits, int split) {
+    T* out, float* part_m, float* part_l, float* lse, long long row0,
+    int rows, int width, int splits, int split) {
   if (splits == 1) {
     for (int i = threadIdx.x; i < rows * width; i += blockDim.x)
       put(out + row0 * width + i, 0.f);
+    if (lse != nullptr)
+      for (int r = threadIdx.x; r < rows; r += blockDim.x)
+        lse[row0 + r] = -INFINITY;
   } else {
     for (int r = threadIdx.x; r < rows; r += blockDim.x) {
       part_m[(row0 + r) * splits + split] = kNegInf;
@@ -403,7 +423,7 @@ split_decode_kernel(const Args<bf16> a) {
   }
 
   if (start >= end) {                 // nothing of this row in the split
-    split::write_empty_split(a.out, a.part_m, a.part_l, row0, nh, D,
+    split::write_empty_split(a.out, a.part_m, a.part_l, a.lse, row0, nh, D,
                              a.splits, split);
     return;
   }
@@ -650,6 +670,7 @@ split_decode_kernel(const Args<bf16> a) {
     if (a.splits == 1) {
       a.out[(row0 + r) * D + d] =
           __float2bfloat16(lsum == 0.f ? 0.f : acc / lsum);
+      if (a.lse != nullptr && d == 0) a.lse[row0 + r] = row_lse(mx, lsum);
     } else {
       const long long at = (row0 + r) * a.splits + split;
       a.part_acc[at * D + d] = acc;
@@ -662,7 +683,8 @@ split_decode_kernel(const Args<bf16> a) {
 }
 
 // out = sum_s 2^(m_s - M) acc_s / sum_s 2^(m_s - M) l_s over the splits
-// with l_s > 0 (M their largest m_s), and 0 where there is none.  One block
+// with l_s > 0 (M their largest m_s), and 0 where there is none; where
+// `lse` is not null, the row's row_lse(M, sum_s 2^(m_s - M) l_s).  One block
 // of kMergeLanes x D threads per (batch row, head): the splits' m and l are
 // staged in shared memory with one load each and their weights computed
 // once; thread (p, d) sums column d over the splits s = p mod kMergeLanes,
@@ -677,6 +699,7 @@ __device__ __forceinline__ void merge_splits(const float* __restrict__ acc,
                                              const float* __restrict__ m,
                                              const float* __restrict__ l,
                                              T* __restrict__ out,
+                                             float* __restrict__ lse,
                                              int splits) {
   extern __shared__ float stage[];     // w, l [splits]; num, den [lanes][D]
   const int D = blockDim.x / kMergeLanes;
@@ -717,6 +740,7 @@ __device__ __forceinline__ void merge_splits(const float* __restrict__ acc,
       den += dens[i * D + d];
     }
     put(out + row * D + d, den == 0.f ? 0.f : num / den);
+    if (lse != nullptr && d == 0) lse[row] = row_lse(mx, den);
   }
 }
 
@@ -724,8 +748,9 @@ template <typename T>
 __global__ void merge_splits_kernel(const float* __restrict__ acc,
                                     const float* __restrict__ m,
                                     const float* __restrict__ l,
-                                    T* __restrict__ out, int splits) {
-  merge_splits(acc, m, l, out, splits);
+                                    T* __restrict__ out,
+                                    float* __restrict__ lse, int splits) {
+  merge_splits(acc, m, l, out, lse, splits);
 }
 
 // Shared memory of a merge launch over D columns.
@@ -753,7 +778,7 @@ int launch(const Args<bf16>& a, int kv_heads, int batch,
   if (err != cudaSuccess || a.splits == 1) return (int)err;
   merge_splits_kernel<bf16><<<batch * a.heads, kMergeLanes * D,
                               merge_bytes(a.splits, D), stream>>>(
-      a.part_acc, a.part_m, a.part_l, a.out, a.splits);
+      a.part_acc, a.part_m, a.part_l, a.out, a.lse, a.splits);
   return (int)cudaGetLastError();
 }
 
@@ -896,8 +921,8 @@ f32_split_decode_kernel(const split::Args<float> a) {
   const int length = max(0, min(a.lengths[b], max_tokens));
   const int end = min(length, cap);
   if (start >= end) {                 // nothing of this row in the split
-    split::write_empty_split(a.out, a.part_m, a.part_l, row0, nh, VD,
-                             a.splits, split);
+    split::write_empty_split(a.out, a.part_m, a.part_l, a.lse, row0, nh,
+                             VD, a.splits, split);
     return;
   }
   const int n_sub = (end - start + TT - 1) / TT;
@@ -1093,6 +1118,7 @@ f32_split_decode_kernel(const split::Args<float> a) {
       *reinterpret_cast<float4*>(a.out + (row0 + r) * VD + 4 * col) =
           make_float4(acc[r][0] * inv, acc[r][1] * inv, acc[r][2] * inv,
                       acc[r][3] * inv);
+      if (a.lse != nullptr && col == 0) a.lse[row0 + r] = row_lse(ms[r], l);
     } else {
       const long long at = (row0 + r) * a.splits + split;
       *reinterpret_cast<float4*>(a.part_acc + at * VD + 4 * col) =
@@ -1127,7 +1153,7 @@ int launch(const split::Args<float>& a, int kv_heads, int batch,
   split::merge_splits_kernel<float>
       <<<batch * a.heads, split::kMergeLanes * VD,
          split::merge_bytes(a.splits, VD), stream>>>(a.part_acc, a.part_m,
-                                                     a.part_l, a.out,
+                                                     a.part_l, a.out, a.lse,
                                                      a.splits);
   return (int)cudaGetLastError();
 }
@@ -1296,7 +1322,7 @@ mla_split_decode_kernel(const Args a) {
   const int end = min(length, cap);
 
   if (start >= end) {                 // nothing of this row in the split
-    split::write_empty_split(a.out, a.part_m, a.part_l, row0, nh, R,
+    split::write_empty_split(a.out, a.part_m, a.part_l, nullptr, row0, nh, R,
                              a.splits, split);
     return;
   }
@@ -1538,7 +1564,7 @@ __global__ void mla_merge_splits_kernel(const float* __restrict__ acc,
                                         const float* __restrict__ m,
                                         const float* __restrict__ l,
                                         bf16* __restrict__ out, int splits) {
-  split::merge_splits(acc, m, l, out, splits);
+  split::merge_splits(acc, m, l, out, nullptr, splits);
 }
 
 template <int R, int RP>
@@ -1583,7 +1609,8 @@ namespace {
 template <typename T>
 int gqa(const void* q, const void* kbuf, const void* vbuf, const int* table,
         const int* lengths, void* out, float* part_acc, float* part_m,
-        float* part_l, int batch, int heads, int kv_heads, int key_dim,
+        float* part_l, float* lse, int batch, int heads, int kv_heads,
+        int key_dim,
         int value_dim, int rows, int tokens_per_page, int per_tok,
         int max_pages, long long page_elems, int k_off, int v_off,
         int splits, int tiles, float scale, void* stream) {
@@ -1597,6 +1624,7 @@ int gqa(const void* q, const void* kbuf, const void* vbuf, const int* table,
   a.part_acc = part_acc;
   a.part_m = part_m;
   a.part_l = part_l;
+  a.lse = lse;
   a.heads = heads;
   a.tokens_per_page = tokens_per_page;
   a.per_tok = per_tok;
@@ -1627,24 +1655,28 @@ extern "C" int paged_gqa_decode(
                          : nullptr;
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return fn(q, pool, pool, table, lengths, out, part_acc, part_m, part_l,
-            batch, heads, kv_heads, head_dim, head_dim, rows,
+            nullptr, batch, heads, kv_heads, head_dim, head_dim, rows,
             tokens_per_page, 2 * kv_heads * head_dim, max_pages, page_elems,
             0, kv_heads * head_dim, splits, tiles, scale, stream);
 }
 
 // k, v: [batch, max_len, kv_heads, head_dim] each, contiguous; read as if
-// row b were one page of max_len tokens (no table: page id = b).
+// row b were one page of max_len tokens (no table: page id = b).  lse:
+// null, or [batch, heads] f32 that takes each row's log-sum-exp of its
+// scaled scores (natural log; -inf for a row of length 0), written by the
+// merge where the call splits and by the split kernel where it does not.
 extern "C" int contiguous_gqa_decode(
     const void* q, const void* k, const void* v, const int* lengths,
-    void* out, float* part_acc, float* part_m, float* part_l, int batch,
-    int heads, int kv_heads, int head_dim, int rows, int max_len,
-    int splits, int tiles, float scale, int dtype, void* stream) {
+    void* out, float* part_acc, float* part_m, float* part_l, float* lse,
+    int batch, int heads, int kv_heads, int head_dim, int rows,
+    int max_len, int splits, int tiles, float scale, int dtype,
+    void* stream) {
   auto fn = dtype == 0   ? gqa<float>
             : dtype == 1 ? gqa<split::bf16>
                          : nullptr;
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  return fn(q, k, v, nullptr, lengths, out, part_acc, part_m, part_l, batch,
-            heads, kv_heads, head_dim, head_dim, rows, max_len,
+  return fn(q, k, v, nullptr, lengths, out, part_acc, part_m, part_l, lse,
+            batch, heads, kv_heads, head_dim, head_dim, rows, max_len,
             kv_heads * head_dim, 1, (long long)max_len * kv_heads * head_dim,
             0, 0, splits, tiles, scale, stream);
 }
@@ -1663,9 +1695,9 @@ extern "C" int paged_mla_decode(
   const int width = latent_dim + rope_dim;
   if (dtype == 0)
     return gqa<float>(q, pool, pool, table, lengths, out, part_acc, part_m,
-                      part_l, batch, heads, 1, width, latent_dim, rows,
-                      tokens_per_page, width, max_pages, page_elems, 0, 0,
-                      splits, tiles, scale, stream);
+                      part_l, nullptr, batch, heads, 1, width, latent_dim,
+                      rows, tokens_per_page, width, max_pages, page_elems, 0,
+                      0, splits, tiles, scale, stream);
   const mla::LaunchFn fn = mla::pick(latent_dim, rope_dim);
   if (dtype != 1 || fn == nullptr || rows != mla::kRows || heads <= 0 ||
       splits < 1 || splits > tiles ||

@@ -9,7 +9,8 @@ hand-written kernel or raises (there is no fallback between the two).
   (``repro_torch.kernels.paged_attention``);
 * ``decode_attention`` — one-token GQA decode over a contiguous cache
   (the fallback families' dense cache), the contiguous kernel of the same
-  file;
+  file; with ``return_lse`` it also returns each row's log-sum-exp (the
+  sequence-sharded decode's local body, ``sharding/seq_attention.py``);
 * ``flash_attention`` — causal GQA prefill (``csrc/flash_attention.cu``);
 * ``ssd_scan`` — the Mamba2 SSD chunked scan (``csrc/ssd_scan.cu``); its
   CPU version is the chunked form the reference's XLA route runs; it is

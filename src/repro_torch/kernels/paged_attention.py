@@ -13,7 +13,9 @@ take the FLAT pool ``[n_pages, page_elems]`` and the page geometry
 instead of a typed page view: the kernels compute every address
 themselves, so no per-call copy of the pool is ever made.  The
 contiguous wrapper takes the dense-cache layer ``[B, T, KV, D]`` of the
-fallback families as it is.  On a CUDA tensor a wrapper launches its
+fallback families as it is, and with ``return_lse`` also returns each
+row's log-sum-exp of its scaled scores (float32, written by the kernel:
+the merge where the call splits, the split kernel where it does not).  On a CUDA tensor a wrapper launches its
 kernel or raises; only a tensor that lies on the CPU takes the plain
 PyTorch version (``repro_torch.kernels.ref``).  Each wrapper counts its
 calls that reach the card in its ``launches`` attribute (one per call,
@@ -86,7 +88,7 @@ def load_library() -> ctypes.CDLL:
         [ptr] * 8 + [i32] * 7 + [ctypes.c_longlong, i32, i32,
                                  ctypes.c_float, i32, ptr])
     lib.contiguous_gqa_decode.argtypes = (
-        [ptr] * 8 + [i32] * 8 + [ctypes.c_float, i32, ptr])
+        [ptr] * 9 + [i32] * 8 + [ctypes.c_float, i32, ptr])
     lib.paged_mla_decode.argtypes = (
         [ptr] * 8 + [i32] * 7 + [ctypes.c_longlong, i32, i32,
                                  ctypes.c_float, i32, ptr])
@@ -266,19 +268,21 @@ def _partials(B: int, H: int, splits: int, D: int, device):
 
 
 def _split_launch(fn, q, kv, lengths, widths, plan, max_tokens, geometry,
-                  scale, out_dim: int) -> torch.Tensor:
+                  scale, out_dim: int, lse=()) -> torch.Tensor:
     """Launch a split-KV entry point: ``kv`` are its KV pointer arguments
     (and table), ``widths`` its shape arguments before the rows, ``plan``
-    (rows, splits), ``geometry`` its shape arguments after the rows.
-    Allocates ``out`` [B,1,H,out_dim] and, for more than one split, the
-    f32 partials, with ``torch.empty`` only; reads nothing back."""
+    (rows, splits), ``geometry`` its shape arguments after the rows,
+    ``lse`` the pointer arguments after the partials (the contiguous
+    entry point's lse output, or None).  Allocates ``out`` [B,1,H,out_dim]
+    and, for more than one split, the f32 partials, with ``torch.empty``
+    only; reads nothing back."""
     B, _, H, _ = q.shape
     rows, splits = plan
     out = torch.empty((B, 1, H, out_dim), dtype=q.dtype, device=q.device)
     launch(fn, q.device, q.contiguous(), *kv,
            lengths.to(torch.int32).contiguous(), out,
-           *_partials(B, H, splits, out_dim, q.device), B, H, *widths, rows,
-           *geometry, splits, n_tiles(max_tokens), float(scale),
+           *_partials(B, H, splits, out_dim, q.device), *lse, B, H, *widths,
+           rows, *geometry, splits, n_tiles(max_tokens), float(scale),
            DTYPE_CODES[q.dtype])
     return out
 
@@ -371,15 +375,20 @@ paged_mla_decode_attention.launches = 0
 
 def contiguous_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                                 cache_v: torch.Tensor, lengths: torch.Tensor,
-                                *, scale: float) -> torch.Tensor:
+                                *, scale: float, return_lse: bool = False):
     """One-token GQA decode over a contiguous cache.
 
     q [B,1,H,D]; cache_k / cache_v [B,T,KV,D] (one dense-cache layer);
     lengths [B] valid tokens (clamped to T).  Returns [B,1,H,D] in q's
-    dtype.
+    dtype; with ``return_lse``, (that, lse [B,H] float32): each row's
+    log-sum-exp of its scaled scores, -inf for a row of length 0 (the
+    sequence-sharded decode combines the slices of a split cache by it).
+    Each call counts in ``launches``, and one with ``return_lse`` in
+    ``lse_launches`` too.
     """
     if q.device.type == "cpu":
-        return ref.decode_attention(q, cache_k, cache_v, lengths, scale)
+        return ref.decode_attention(q, cache_k, cache_v, lengths, scale,
+                                    return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"no decode attention kernel for {q.device}")
     B, _, H, D = q.shape
@@ -398,11 +407,17 @@ def contiguous_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
         raise ValueError("lengths must be [B] on q's device")
     build.refuse_grad("decode_attention", q, cache_k, cache_v)
     plan = split_plan(B, H, KV, T, _sm_count(q.device.index), q.dtype)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     out = _split_launch(load_library().contiguous_gqa_decode, q,
                         (cache_k, cache_v), lengths, (KV, D), plan, T, (T,),
-                        scale, D)
+                        scale, D, (lse,))
     contiguous_decode_attention.launches += 1
-    return out
+    if not return_lse:
+        return out
+    contiguous_decode_attention.lse_launches += 1
+    return out, lse
 
 
 contiguous_decode_attention.launches = 0
+contiguous_decode_attention.lse_launches = 0

@@ -51,10 +51,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, lengths: torch.Tensor,
-                     scale: float) -> torch.Tensor:
+                     scale: float, return_lse: bool = False):
     """One-token decode over a contiguous cache (``ref.py:43``).
 
-    q [B,1,H,D]; cache [B,T,KV,D]; lengths [B] valid prefix -> [B,1,H,D].
+    q [B,1,H,D]; cache [B,T,KV,D]; lengths [B] valid prefix -> [B,1,H,D];
+    with ``return_lse``, (that, lse [B,H] float32): the log-sum-exp of
+    each row's scaled scores over its valid prefix, from the same masked
+    scores (-inf for a row of length 0).
     """
     B, _, H, D = q.shape
     T, KV = cache_k.shape[1], cache_k.shape[2]
@@ -67,8 +70,12 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     scores = torch.where(valid[:, None, None, None, :], scores,
                          torch.tensor(NEG_INF, device=scores.device))
     w = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", w, v)
-    return out.reshape(B, 1, H, D)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v).reshape(B, 1, H, D)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(scores.masked_fill(
+        ~valid[:, None, None, None, :], float("-inf")), dim=-1)
+    return out, lse.reshape(B, H)
 
 
 def _gather_valid(page_table: torch.Tensor, lengths: torch.Tensor,

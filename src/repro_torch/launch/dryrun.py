@@ -49,7 +49,8 @@ from repro_torch.sharding.spec import (PartitionSpec, axis_size,
                                        local_slices, path_str,
                                        shard_by_specs, shard_shape,
                                        shard_tree, tree_bytes)
-from repro_torch.sharding.strategies import Strategy, make_strategy
+from repro_torch.sharding.strategies import (SEQ_SPLIT_LEAVES, Strategy,
+                                             make_strategy)
 from repro_torch.training.optimizer import AdamW, AdamWState
 from repro_torch.training.train_step import TrainState, make_grad_fn, \
     make_train_step
@@ -255,8 +256,9 @@ def draw_params(strategy: Strategy, gen: torch.Generator) -> Dict:
 
 
 def shard_cache(strategy: Strategy, cache: Dict, device=None) -> Dict:
-    """This rank's part of a whole cache tree: its batch rows, and its
-    slice of the sequence where the decode reads it sequence-sharded."""
+    """This rank's part of a whole cache tree (``step_cache_rules``): its
+    batch rows, and its slice of the sequence where the step splits it
+    (crosspool, prefill and decode alike)."""
     return shard_tree(strategy.step_cache_rules(), strategy.mesh, cache,
                       device=device)
 
@@ -276,6 +278,18 @@ def local_cache(strategy: Strategy, batch: int, max_len: int, device,
         return torch.full(shape, -1 if path.endswith("lpos") else 0,
                           dtype=leaf.dtype, device=device)
     return local("", cache_shapes(strategy.cfg, batch, max_len, kv_dtype))
+
+
+def seq_leaf_bytes(strategy: Strategy, cache: Dict) -> int:
+    """A rank's bytes of the cache tree ``cache``'s sequence-split leaves
+    (``strategies.SEQ_SPLIT_LEAVES``: ``k`` / ``v`` / ``latent`` /
+    ``rope`` / ``gk`` / ``gv``) under the reference's own table
+    (``strategy.cache_rules()``), which the step's placement
+    (``step_cache_rules``) must equal on these leaves.  Meta tensors are
+    enough."""
+    return tree_bytes(strategy.cache_rules(), strategy.mesh,
+                      {k: v for k, v in cache.items()
+                       if k in SEQ_SPLIT_LEAVES})
 
 
 def local_rows(strategy: Strategy, x: torch.Tensor) -> torch.Tensor:

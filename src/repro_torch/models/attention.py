@@ -275,8 +275,8 @@ def rank_heads(p: Dict, cfg: ModelConfig, n_cache: int, tp) -> Dict:
 def cache_heads(t: torch.Tensor, n_cache: int, tp) -> torch.Tensor:
     """``t`` [B,S,n,D] (this rank's heads, or every head) as a cache of
     ``n_cache`` heads holds them: gathered over ``tp`` when the cache
-    holds every head and ``t`` this rank's (crosspool keeps a Type I
-    cache's heads whole on every ``model`` rank)."""
+    holds every head and ``t`` this rank's (crosspool keeps every head
+    of its rank's slice of the sequence)."""
     return t if t.shape[2] == n_cache else tp.gather(t, 2)
 
 
@@ -395,11 +395,13 @@ def _decode_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     heads of a cache layer of ``n_cache`` KV heads: this rank's query
     heads over its KV heads (monolithic Type I: the cache holds this
     rank's KV heads), or every head where the cache holds every KV head.
-    Crosspool keeps a Type I cache whole on every ``model`` rank, and the
+    Crosspool splits the cache's sequence over ``kv_seq_axes`` and keeps
+    every head of a rank's slice (the reference's cache rules), and the
     kernel takes a contiguous cache only (a head slice of it is not): so
-    the one token's heads are gathered over ``tp`` (small), the whole row
-    is written, every head attends, and ``_decode_out`` takes this rank's
-    rows of ``wo``."""
+    the one token's heads are gathered over ``tp`` (small), the rank that
+    owns its position writes the whole row, every head attends over this
+    rank's slice (``hooks.decode_attn`` combines the slices), and
+    ``_decode_out`` takes this rank's rows of ``wo``."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, _ = _tp_heads(x, p["wq"], H, hd, tp)
     k, _ = _tp_heads(x, p["wk"], KV, hd, tp)

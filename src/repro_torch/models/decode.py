@@ -66,15 +66,31 @@ def _audio_layer(params: Dict, cfg: ModelConfig, i: int, cache: Dict,
                         for k, c in (("self", "k"), ("cross", "ck"))})
 
 
+def _prefill_rows(cache: torch.Tensor, t: torch.Tensor, offset: int
+                  ) -> None:
+    """A prefill's rows ``t`` [B,S,...] into a cache layer [B,T_loc,...]
+    that holds the sequence's positions ``[offset, offset + T_loc)``:
+    its rows ``[offset, offset + T_loc) & [0, S)``, from the cache's
+    first row (``offset`` 0 and T_loc >= S: rows ``[0, S)``)."""
+    n = min(t.shape[1] - offset, cache.shape[1])
+    if n > 0:
+        cache[:, :n] = t[:, offset:offset + n]
+
+
 def _write_prefill(cache_k: torch.Tensor, cache_v: torch.Tensor, kv,
-                   S: int, hooks: Hooks, dst=None, src=None) -> None:
-    """A prefill's K / V [B,S,n,hd] into a cache layer [B,T,KV,hd]: rows
-    ``[0, S)``, or the ring slots ``dst`` from positions ``src``; the
-    heads as the cache holds them (``attention.cache_heads``)."""
+                   hooks: Hooks, dst=None, src=None,
+                   offset: Optional[int] = None) -> None:
+    """A prefill's K / V [B,S,n,hd] into a cache layer [B,T_loc,KV,hd]:
+    the rows of the positions it holds (``_prefill_rows``; ``offset``
+    defaults to ``hooks.kv_offset``, this rank's slice of a sequence-
+    sharded cache, and is 0 for one that holds its rows whole), or the
+    ring slots ``dst`` from positions ``src``; the heads as the cache
+    holds them (``attention.cache_heads``)."""
+    offset = hooks.kv_offset if offset is None else offset
     for cache, t in zip((cache_k, cache_v), kv):
         t = attn.cache_heads(t, cache.shape[2], hooks.tp)
         if dst is None:
-            cache[:, :S] = t
+            _prefill_rows(cache, t, offset)
         else:
             cache[:, dst] = t[:, src].to(cache.dtype)
 
@@ -190,25 +206,24 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 x, (lat, rope) = tfm._attn_full(p_l, cfg, x, positions,
                                                 hooks=hooks)
                 x, _ = tfm._ffn_full(p_l, cfg, x, hooks=hooks)
-                cache["latent"][i, :, :S] = lat
-                cache["rope"][i, :, :S] = rope
+                _prefill_rows(cache["latent"][i], lat, hooks.kv_offset)
+                _prefill_rows(cache["rope"][i], rope, hooks.kv_offset)
         else:
             for i in range(cfg.n_layers):
                 p_l = _layer(params, i, hooks)
                 x, kv = tfm._attn_full(p_l, cfg, x, positions, impl,
                                        hooks=hooks)
                 x, _ = tfm._ffn_full(p_l, cfg, x, hooks=hooks)
-                _write_prefill(cache["k"][i], cache["v"][i], kv, S, hooks)
+                _write_prefill(cache["k"][i], cache["v"][i], kv, hooks)
     elif fam == "audio":
         enc_out = tfm.encode(params, cfg, encoder_frames, hooks)
-        T_enc = cache["ck"].shape[2]
         for i in range(cfg.n_layers):
             x, kv, cross = tfm._decoder_layer(
                 _audio_layer(params, cfg, i, cache, hooks), cfg, x,
                 positions, enc_out, impl, hooks)
-            _write_prefill(cache["k"][i], cache["v"][i], kv, S, hooks)
-            _write_prefill(cache["ck"][i], cache["cv"][i], cross, T_enc,
-                           hooks)
+            _write_prefill(cache["k"][i], cache["v"][i], kv, hooks)
+            _write_prefill(cache["ck"][i], cache["cv"][i], cross, hooks,
+                           offset=0)
     elif fam == "ssm":
         for i in range(cfg.n_layers):
             x = _ssm_full_layer(_layer(params, i, hooks), cfg, x,
@@ -223,7 +238,7 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             x, kv = tfm._attn_full(shared, cfg, x, positions, impl,
                                    hooks=hooks)
             x, _ = tfm._ffn_full(shared, cfg, x, hooks=hooks)
-            _write_prefill(cache["k"][g], cache["v"][g], kv, S, hooks)
+            _write_prefill(cache["k"][g], cache["v"][g], kv, hooks)
         for i in range(cfg.tail_ssm_layers):
             x = _ssm_full_layer(_layer(params, i, hooks, "tail"), cfg, x,
                                 cache["tail_h"], cache["tail_conv"], i, hooks)
@@ -264,13 +279,13 @@ def _prefill_swa(params: Dict, cfg: ModelConfig, x: torch.Tensor,
             x, kv = tfm._attn_full(p_l, cfg, x, positions, impl,
                                    window=cfg.sliding_window, hooks=hooks)
             x, _ = tfm._ffn_full(p_l, cfg, x, hooks=hooks)
-            _write_prefill(cache["lk"][g, j], cache["lv"][g, j], kv, S,
-                           hooks, dst, src)
+            _write_prefill(cache["lk"][g, j], cache["lv"][g, j], kv, hooks,
+                           dst, src)
             cache["lpos"][g, j] = ring_pos
         p_g = _layer(params, g * P + P - 1, hooks)
         x, kv = tfm._attn_full(p_g, cfg, x, positions, impl, hooks=hooks)
         x, _ = tfm._ffn_full(p_g, cfg, x, hooks=hooks)
-        _write_prefill(cache["gk"][g], cache["gv"][g], kv, S, hooks)
+        _write_prefill(cache["gk"][g], cache["gv"][g], kv, hooks)
     return x
 
 

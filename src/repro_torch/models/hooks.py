@@ -25,7 +25,8 @@ to carry them:
   partial sum, which the reference's partitioner completes with a
   reduction after the product (``None``: the plain ``h @ w``).
 * ``kv_offset`` — the global token index of this rank's first cache row
-  when the cache's sequence dimension is split; the new token's KV is
+  when the cache's sequence dimension is split: a prefill writes the
+  prompt's rows from that position on, and the new token's KV is
   written only by the rank that owns position ``lengths``.
 
 The sharded training step (``launch/dryrun.py`` ``build_train_cell``)
@@ -136,6 +137,12 @@ class LocalAxis:
         """A replicated weight that meets the S-split residual (a norm's):
         its gradient is partial there."""
         return self.enter(w) if self.seq else w
+
+    def whole_seq(self):
+        """These collectives with the residual stream whole (``seq``
+        off): a block that reads its own stream unsplit (whisper's
+        encoder under sequence parallelism)."""
+        return self
 
 
 class WholeParams:

@@ -16,6 +16,7 @@ ONE shared attention + MLP block under ``"shared_block"``, so
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -413,7 +414,10 @@ def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor,
     non-causal self-attention + MLP layers and a final norm.  Under the
     sharded step's hooks the layers run as the decoder families' do: the
     attention on this rank's heads, the MLP over its part of the hidden
-    across the pool boundary."""
+    across the pool boundary; under sequence parallelism the frames'
+    stream stays whole (``tp.whole_seq``): only the decoder's splits."""
+    if hooks.tp.seq:
+        hooks = replace(hooks, tp=hooks.tp.whole_seq())
     B, T, _ = frames.shape
     pos = positions_of(B, T, frames.device)
     x = frames + layers.sinusoidal_positions(pos, cfg.d_model).to(
@@ -433,15 +437,20 @@ def _decoder_layer(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
                    impl: str = "xla", hooks: Hooks = IDENTITY_HOOKS):
     """One whisper decoder layer over the whole sequence: causal self-
     attention (``impl`` routes it), non-causal cross-attention over the
-    encoder output, MLP.  Returns (x, (k, v) self, (k, v) cross): the
-    heads of the ``self`` / ``cross`` weights (the serve step cuts them
-    to a cache's, ``decode._audio_layer``)."""
-    h = layers.rms_norm(x, p_l["ln1"], cfg.norm_eps)
+    encoder output, MLP.  Under sequence parallelism each block reads the
+    whole sequence (``tp.seq_in``) and returns the residual's layout, as
+    ``_attn_full`` / ``_ffn_full``.  Returns (x, (k, v) self, (k, v)
+    cross): the heads of the ``self`` / ``cross`` weights (the serve step
+    cuts them to a cache's, ``decode._audio_layer``)."""
+    tp = hooks.tp
+    h = tp.seq_in(layers.rms_norm(x, tp.seq_weight(p_l["ln1"]),
+                                  cfg.norm_eps))
     out, self_kv = attn.gqa_full(p_l["self"], cfg, h, positions, impl=impl,
                                  hooks=hooks)
     x = x + hooks.act(out)
     cross_kv = _cross_kv(p_l["cross"], cfg, enc_out)
-    h = layers.rms_norm(x, p_l["ln2"], cfg.norm_eps)
+    h = tp.seq_in(layers.rms_norm(x, tp.seq_weight(p_l["ln2"]),
+                                  cfg.norm_eps))
     out, _ = attn.gqa_full(p_l["cross"], cfg, h, positions,
                            kv_override=cross_kv, causal=False, hooks=hooks)
     x, _ = _ffn_full(p_l, cfg, x + hooks.act(out), hooks=hooks, ln="ln3")

@@ -163,6 +163,9 @@ class AxisGroup(LocalAxis):
     def __repr__(self) -> str:
         return f"AxisGroup({self.axis}, size={self.size}, seq={self.seq})"
 
+    def whole_seq(self):
+        return AxisGroup(self.mesh, self.axis) if self.seq else self
+
     def _one(self) -> bool:
         return self.size == 1
 

@@ -38,8 +38,9 @@ moments and the error-feedback tree alike, and its hooks carry
   sums reduced, the MLP hidden, the experts (the combine reduced), the
   SSM's projections and heads (``models/ssm.py``), the vocabulary of the
   embedding, the head and the loss; with ``perf.seq_parallel`` the
-  residual stream's S over ``model`` (not for whisper, whose encoder's
-  stream stays whole: ROADMAP Queue 1 item 1.7);
+  residual stream's S over ``model`` (whisper's decoder stream; its
+  encoder runs on a ``tp`` that is not sequence-parallel, so the
+  encoder's frames stay whole);
 * the batch over the batch axes (``Hooks.dp``): the MoE's capacity slots
   and load-balance means over the whole (micro)batch, the gradients'
   mean (``ParamShards.grad_mean``); the global norm and the int8 scales
@@ -52,10 +53,10 @@ crosspool) places EVERY param leaf by the serve rules, and its hooks
 carry (``hooks()``):
 
 * attention heads over ``model`` (``Hooks.tp``): this rank's query and
-  KV heads, ``wo``'s partial sums reduced; a decode whose cache holds
-  every KV head (crosspool) gathers the new token's heads, and the
-  sequence-sharded decode (crosspool Type II) gathers every head's query
-  before its combine; whisper's encoder likewise;
+  KV heads, ``wo``'s partial sums reduced; a step whose cache holds
+  every KV head (crosspool) gathers the heads it writes (a prefill's
+  K / V, a decode's new token), and the sequence-sharded decode gathers
+  every head's query before its combine; whisper's encoder likewise;
 * the vocabulary of the embedding and the head over ``model``: the
   lookup masks the ids a rank does not own and sums, and the step returns
   this rank's vocabulary shard of its rows' logits (``dryrun.greedy``
@@ -86,12 +87,18 @@ carry (``hooks()``):
   weights the rules keep whole (whisper's decoder ``self`` / ``cross``)
   cut to this rank's heads where it reads them; the SSM state ``h`` /
   ``tail_h``'s heads over ``model`` (``conv`` / ``tail_conv`` keep their
-  rows only); under crosspool decode with the sequence-sharded override
-  (Type II) the ``k`` / ``v`` / ``latent`` / ``rope`` (and ``gk`` /
-  ``gv``) sequence over ``kv_seq_axes``.  A crosspool Type I cache keeps
-  its sequence and its heads whole (ROADMAP Queue 1 item 1.6): with no
-  override its attention reads every row, and splitting it would take an
-  all-gather a step.
+  rows only); under crosspool (``seq_split``: prefill and decode, Type I
+  and Type II alike, wherever ``kv_seq_axes`` spans more than one rank)
+  the sequence of ``k`` / ``v`` / ``latent`` / ``rope`` / ``gk`` / ``gv``
+  over ``kv_seq_axes`` with every head whole, as the reference's table
+  names them: a prefill writes this rank's rows of the prompt's K / V
+  (``Hooks.kv_offset``), a decode writes the new token on the rank that
+  owns its position and reads the split cache through the sequence-
+  sharded attention (``sharding/seq_attention.py``).  The leaves the
+  reference's ``*`` patterns catch only by accident keep the port's
+  placement: ``conv`` (by ``*v``), ``tail_h`` (by ``*h``), gemma3's ring
+  ``lk`` / ``lv`` and whisper's cross ``ck`` / ``cv``, whose named rules
+  are rows only (the reference's ``strategies.py:249-253``).
 """
 from __future__ import annotations
 
@@ -486,12 +493,13 @@ class Strategy:
 
     @property
     def seq_split(self) -> bool:
-        """Whether the decode reads a sequence-sharded cache (crosspool
-        decode, Type II, over more than one rank: the reference's
-        shard_map override; at one rank the plain attention reads the
-        whole cache)."""
-        return self.name == "crosspool" and self.shape.is_decode \
-            and self.type_ii and axis_size(self.mesh, self.kv_seq_axes) > 1
+        """Whether the step's attention cache is sequence-sharded over
+        ``kv_seq_axes`` (every crosspool step, prefill and decode, Type I
+        and Type II, of an arch whose cache holds a sequence, over more
+        than one rank: the reference's cache rules; at one rank the plain
+        attention reads the whole cache)."""
+        return self.name == "crosspool" and not self.cfg.attn_free \
+            and axis_size(self.mesh, self.kv_seq_axes) > 1
 
     @property
     def a2a(self) -> bool:
@@ -518,8 +526,8 @@ class Strategy:
                 and "model" not in self.mesh.axes_of(self.row_axes))
 
     def step_cache_rules(self) -> PlacedRules:
-        """Batch rows over ``row_axes``, for the sequence-sharded decode
-        the sequence over ``kv_seq_axes``, under ``head_split`` the KV
+        """Batch rows over ``row_axes``, under ``seq_split`` the sequence
+        over ``kv_seq_axes``, under ``head_split`` the KV
         heads over ``model`` and under ``ssm_heads`` the SSM state's: the
         cache rules' B, KT and TP entries, placed by the leaf's own layout.
         (The rules' patterns match the last path component with a leading
@@ -685,12 +693,14 @@ class Strategy:
         decode_attn = decode_attn_mla = None
         kv_offset = 0
         if self.seq_split:
+            # this rank's slice of a cache of ``shape.seq_len`` rows
             KT = self.kv_seq_axes
             n_kv = axis_size(m, KT)
             if self.shape.seq_len % n_kv:
                 raise ValueError(f"cache length {self.shape.seq_len} does "
                                  f"not split over {KT} ({n_kv})")
             kv_offset = m.index(KT) * (self.shape.seq_len // n_kv)
+        if self.seq_split and self.shape.is_decode:
             if cfg.attention == "mla":
                 decode_attn_mla = seq_attention.make_seq_mla_decode_attn(
                     m, KT, rows, self._scale())
@@ -718,11 +728,6 @@ class Strategy:
         cfg, m = self.cfg, self.mesh
         seq = (self.perf.seq_parallel
                and self.shape.seq_len % self.model_size == 0)
-        if seq and cfg.family == "audio" and self.model_size > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: seq_parallel over the encoder-decoder (the "
-                f"encoder's residual stream is not split; ROADMAP Queue 1 "
-                f"item 1.7)")
         tp, dp = AxisGroup(m, "model", seq=seq), AxisGroup(m, self.bax)
         moe_apply, expert_parallel = None, ()
         if cfg.is_moe and self.perf.moe_a2a:

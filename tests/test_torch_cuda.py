@@ -589,6 +589,141 @@ def test_contiguous_decode_kernel_matches_plain(cuda, dtype, tol, B, T, H,
     _assert_rows_close(got, want, dtype)
 
 
+def _nan_past(ck, cv, lengths):
+    """NaN in the cache rows past each length."""
+    for b, n in enumerate(lengths):
+        ck[b, n:] = float("nan")
+        cv[b, n:] = float("nan")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,T,H,KV,D", [(6, 1024, 32, 32, 64),
+                                        (6, 4096, 16, 8, 256),
+                                        (6, 1024, 32, 2, 128),
+                                        (6, 64, 16, 16, 128)])
+def test_contiguous_decode_lse_matches_plain(cuda, dtype, tol, B, T, H, KV,
+                                             D):
+    """The log-sum-exp output: lengths 0, 1, one before a split boundary,
+    on it, one past it, and T, with NaN past each; several splits (the
+    merge writes it) and one (T = 64: the split kernel writes it), head
+    dims 64-256.  The output is the call's without lse, bit for bit."""
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, splits = pa.split_plan(B, H, KV, T, sm, dtype)
+    assert (splits == 1) == (T == 64)
+    edge = pa.split_start(1, splits, T) if splits > 1 else T // 2
+    lengths = [0, 1, edge - 1, edge, edge + 1, T]
+    gen = torch.Generator(device=cuda).manual_seed(T + D)
+    q = torch.randn((B, 1, H, D), generator=gen, device=cuda).to(dtype)
+    ck, cv = (torch.randn((B, T, KV, D), generator=gen, device=cuda)
+              .to(dtype) for _ in range(2))
+    _nan_past(ck, cv, lengths)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = (kops.decode_attention.launches,
+              kops.decode_attention.lse_launches)
+    got, lse = kops.decode_attention(q, ck, cv, lens, scale=D ** -0.5,
+                                     return_lse=True)
+    assert (kops.decode_attention.launches,
+            kops.decode_attention.lse_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    want, want_lse = tref.decode_attention(q, ck, cv, lens, D ** -0.5,
+                                           return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    assert torch.isneginf(lse[0]).all() and not got[0].any()
+    assert torch.isfinite(lse[1:]).all()
+    torch.testing.assert_close(lse[1:], want_lse[1:], rtol=tol, atol=tol)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, kops.decode_attention(q, ck, cv, lens,
+                                                  scale=D ** -0.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_contiguous_decode_replay_equals_eager(cuda, dtype):
+    """A contiguous call without lse captured in a CUDA graph, replayed
+    after new lengths are written in place, equals the eager call on
+    those lengths bit for bit (so does one with lse)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    B, T, H, KV, D = 4, 1024, 16, 16, 128
+    q = torch.randn((B, 1, H, D), generator=gen, device=cuda).to(dtype)
+    ck, cv = (torch.randn((B, T, KV, D), generator=gen, device=cuda)
+              .to(dtype) for _ in range(2))
+    lens = torch.tensor([1024, 17, 0, 512], dtype=torch.int32, device=cuda)
+    kw = dict(scale=D ** -0.5)
+
+    def calls():
+        return (kops.decode_attention(q, ck, cv, lens, **kw),
+                kops.decode_attention(q, ck, cv, lens, return_lse=True,
+                                      **kw))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, (out_l, lse) = calls()
+    lens.copy_(torch.tensor([300, 0, 77, 1], dtype=torch.int32))
+    graph.replay()
+    want, (want_l, want_lse) = calls()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and not out[1].any()
+    assert torch.equal(out_l, want_l) and torch.equal(lse, want_lse)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_seq_split_local_body_on_the_kernel(cuda, dtype, tol):
+    """The sequence-sharded GQA decode's local body on CUDA tensors (the
+    contiguous kernel with lse) against the same body on the CPU (the
+    kernel's plain version), for each slice of a cache split four ways (a mesh of
+    (1, 4) at each coordinate; the combine's collectives of one slice);
+    and the slices' (o, lse) combined by hand against the plain decode
+    of the whole cache, rows whose last slices hold no token included."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding import seq_attention as sa
+    B, T, H, KV, D, n = 4, 1024, 16, 16, 128, 4
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn((B, 1, H, D), generator=gen, device=cuda).to(dtype)
+    ck, cv = (torch.randn((B, T, KV, D), generator=gen, device=cuda)
+              .to(dtype) for _ in range(2))
+    lengths = [1024, 300, 256, 1]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    mesh = Mesh((1, n), ("data", "model"))
+    mesh.all_gather = lambda x, axis, dim: x
+    local = sa.make_seq_decode_attn(mesh, ("model",), None, D ** -0.5)
+    t = T // n
+    num = torch.zeros((B, H, D), device=cuda)
+    den = torch.zeros((B, H), device=cuda)
+    m = torch.full((B, H), float("-inf"), device=cuda)
+    parts = []
+    for i in range(n):
+        mesh.coord = (0, i)
+        k, v = ck[:, i * t:(i + 1) * t].contiguous(), \
+            cv[:, i * t:(i + 1) * t].contiguous()
+        got = local(q, k, v, lens)
+        want = local(q.cpu(), k.cpu(), v.cpu(), lens.cpu())
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=tol, atol=tol)
+        held = (lens - i * t).clamp(0, t)
+        o, lse = kops.decode_attention(q, k, v, held, scale=D ** -0.5,
+                                       return_lse=True)
+        po, plse = tref.decode_attention(q, k, v, held, D ** -0.5,
+                                         return_lse=True)
+        torch.testing.assert_close(o.float(), po.float(), rtol=tol,
+                                   atol=tol)
+        torch.testing.assert_close(lse, plse, rtol=tol, atol=tol)
+        parts.append((o.reshape(B, H, D).float(), lse))
+        m = torch.maximum(m, lse)
+    assert torch.isneginf(parts[-1][1][1:]).all()     # rows 1-3: empty
+    for o, lse in parts:
+        w = torch.exp(lse - m)
+        num += w[..., None] * o
+        den += w
+    whole = tref.decode_attention(q, ck, cv, lens, D ** -0.5)
+    torch.testing.assert_close((num / den[..., None]).reshape(B, 1, H, D),
+                               whole.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 def test_gemma3_ring_decode_on_the_card(cuda, dtype, tol):

@@ -9,8 +9,10 @@ come from numpy seeds; params from the reference's own init, bridged.
 
 * collectives: the sequence-sharded GQA decode on a (2,2) mesh
   (``kv_axes=("model",)``, batch over ``data``) and over the whole mesh
-  for B = 1, against ``repro.kernels.ref.decode_attention`` at 1e-5; the
-  MLA one against the reference test's dense oracle at 1e-5;
+  for B = 1 and for B = 2 with slices that hold no token of a row (the
+  LSE combine of normalised slices), against
+  ``repro.kernels.ref.decode_attention`` at 1e-5; the MLA one against the
+  reference test's dense oracle at 1e-5;
   ``make_moe_a2a`` (experts over ``data``, f over ``model``) against
   ``repro.models.moe.apply_moe`` at ``capacity_factor=8.0``: out 2e-5,
   aux 1e-5 relative; ``f8_dispatch`` within the bound of the reference's
@@ -29,8 +31,16 @@ come from numpy seeds; params from the reference's own init, bridged.
   (``tests/test_sharding.py:155-156``); every leaf the step places by
   the rules holds exactly the rules' shard on its rank (every param
   leaf, values and bytes; the cache's KV and SSM-state heads); the cache
-  bytes are the step's cache rules'; ``dryrun.greedy`` equals the
-  gathered argmax;
+  bytes are the step's cache rules', and under crosspool (the
+  sequence of ``k`` / ``v`` / ``latent`` / ``rope`` / ``gk`` / ``gv``
+  split over ``kv_seq_axes``, prefill and decode alike) those leaves'
+  bytes are the reference table's (``dryrun.seq_leaf_bytes``);
+  ``dryrun.greedy`` equals the gathered argmax;
+* crosspool hand-offs (``HANDOFFS``): a prefill writes this rank's slice
+  of the sequence into an empty local cache, then decode steps continue
+  from it, every step's logits within 2e-4 of the JAX package's
+  single-device ``prefill`` + ``decode_step``; one request (B = 1) over
+  the whole mesh leaves a slice that holds no token of the row;
 * over a one-rank group the serve hooks leave the steps bit for bit as
   without hooks, for every family;
 * a checkpoint written under (2,2) restores onto (4,1) with every leaf
@@ -125,6 +135,12 @@ def _collectives_job(p):
     fn = make_seq_decode_attn(mesh, axes, None, p["pool"]["scale"])
     sl = local_slices(mesh, k.shape, (None, axes))
     out["pool"] = fn(q, k[sl], v[sl], lengths)
+    # B = 2 over the whole mesh, slices that hold no token of a row
+    q, k, v, lengths = (torch.from_numpy(p["empty"][n])
+                        for n in ("q", "k", "v", "lengths"))
+    fn = make_seq_decode_attn(mesh, axes, None, p["empty"]["scale"])
+    sl = local_slices(mesh, k.shape, (None, axes))
+    out["empty"] = fn(q, k[sl], v[sl], lengths)
     # MLA: latent sequence over model
     q_lat, q_rope, latent, rope, lengths = (
         torch.from_numpy(p["mla"][n])
@@ -210,6 +226,9 @@ def _steps_job(p):
                         cache_bytes=dryrun.resident_bytes(cache),
                         cache_rule_bytes=tree_bytes(
                             st.step_cache_rules(), mesh, case["cache"]),
+                        seq_bytes=_seq_bytes(cache),
+                        seq_rule_bytes=dryrun.seq_leaf_bytes(st,
+                                                             case["cache"]),
                         rows=dryrun.local_rows(st, torch.arange(
                             case["tokens"].shape[0])),
                         vocab0=0 if vocab == cfg.vocab_size
@@ -220,7 +239,62 @@ def _steps_job(p):
                                               case["params"]),
                         bytes=dryrun.resident_bytes(params)
                         + dryrun.resident_bytes(cache)))
+    out.extend(_handoff(case) for case in p["handoffs"])
     return out
+
+
+def _seq_bytes(cache) -> int:
+    """A rank's bytes of its cache's sequence-split leaves."""
+    return dryrun.resident_bytes({k: v for k, v in cache.items()
+                                  if k in SEQ_SPLIT_LEAVES})
+
+
+def _handoff(case):
+    """A crosspool prefill into an empty local cache (this rank's slice of
+    the sequence), then ``HANDOFF_STEPS`` decode steps from it: every
+    step's logits, the rank's sequence-split bytes beside the reference
+    table's, and the tokens of the row its slice holds at the end."""
+    cfg, tokens = case["cfg"], case["tokens"]
+    n = tokens.shape[0]
+    mesh = Mesh(case["mesh"], ("data", "model"), live=True)
+    st_pre, st_dec = (make_strategy("crosspool", mesh, cfg, replace(
+        T_SHAPES[name], seq_len=MAX_LEN, global_batch=n))
+        for name in ("prefill_32k", "decode_32k"))
+    params = dryrun.shard_params(st_pre, case["params"])
+    cache = dryrun.local_cache(st_pre, n, MAX_LEN, "cpu")
+    extra = {k: dryrun.local_rows(st_pre, v) for k, v in case["extra"].items()}
+    first, cache = dryrun.build_serve_cell(cfg, st_pre.shape, st_pre)(
+        params, dryrun.local_rows(st_pre, tokens), cache, **extra)
+    logits = [first]
+    step = dryrun.build_serve_cell(cfg, st_dec.shape, st_dec)
+    lengths = dryrun.local_rows(st_dec, torch.full((n,), SEQ,
+                                                   dtype=torch.int32))
+    for nxt in case["next"]:
+        got, cache = step(params, dryrun.local_rows(st_dec, nxt), cache,
+                          lengths)
+        logits.append(got)
+        lengths = lengths + 1
+    meta = dryrun.cache_shapes(cfg, n, MAX_LEN)
+    t_loc = next(v.shape[2] for k, v in cache.items()
+                 if k in SEQ_SPLIT_LEAVES)
+    offset = mesh.index(st_dec.kv_seq_axes) * t_loc
+    vocab = first.shape[-1]
+    return dict(logits=logits, coord=mesh.coord,
+                rows=dryrun.local_rows(st_dec, torch.arange(n)),
+                vocab0=0 if vocab == cfg.vocab_size
+                else mesh.index("model") * vocab,
+                seq_split=(st_pre.seq_split, st_dec.seq_split),
+                same_place=all(
+                    st_pre.step_cache_rules().spec_for(mesh, k, v.shape)
+                    == st_dec.step_cache_rules().spec_for(mesh, k, v.shape)
+                    for k, v in meta.items()),
+                seq_bytes=_seq_bytes(cache),
+                seq_rule_bytes=dryrun.seq_leaf_bytes(st_dec, meta),
+                whole_seq_bytes=_seq_bytes(meta),
+                cache_bytes=dryrun.resident_bytes(cache),
+                cache_rule_bytes=tree_bytes(st_dec.step_cache_rules(), mesh,
+                                            meta),
+                held=max(0, min(SEQ + len(case["next"]) - offset, t_loc)))
 
 
 def _ckpt_job(p):
@@ -297,6 +371,12 @@ def collectives(tmp_path_factory):
     pool = dict(q=randn(B, 1, H, D), k=randn(B, T, KV, D),
                 v=randn(B, T, KV, D), lengths=np.array([100], np.int32),
                 scale=D ** -0.5)
+    B, T, H, KV, D = 2, 64, 4, 2, 16
+    # 16 rows a slice: row 0 lives in the first slice alone, row 1 leaves
+    # the last one empty
+    empty = dict(q=randn(B, 1, H, D), k=randn(B, T, KV, D),
+                 v=randn(B, T, KV, D), lengths=np.array([5, 40], np.int32),
+                 scale=D ** -0.5)
     B, T, H, R, Rp = 2, 32, 4, 16, 8
     mla = dict(q_lat=randn(B, 1, H, R), q_rope=randn(B, 1, H, Rp),
                latent=randn(B, T, R), rope=randn(B, T, Rp),
@@ -316,7 +396,7 @@ def collectives(tmp_path_factory):
     am[1, [10, 14]] = 9.0
     am[2, [2, 5, 9]] = 9.0
     am[3, [7, 8]] = 9.0
-    payload = dict(gqa=gqa, pool=pool, mla=mla, argmax=am,
+    payload = dict(gqa=gqa, pool=pool, empty=empty, mla=mla, argmax=am,
                    a2a=dict(cfg=t_cfg, params=params_to_torch(_np_tree(j_p)),
                             x=torch.from_numpy(x)))
     got = _run(tmp_path_factory.mktemp("collectives"), "collectives", payload)
@@ -336,6 +416,9 @@ def collectives(tmp_path_factory):
                                  j(gqa["lengths"]), gqa["scale"]),
         pool=ref.decode_attention(j(pool["q"]), j(pool["k"]), j(pool["v"]),
                                   j(pool["lengths"]), pool["scale"]),
+        empty=ref.decode_attention(j(empty["q"]), j(empty["k"]),
+                                   j(empty["v"]), j(empty["lengths"]),
+                                   empty["scale"]),
         mla=jnp.einsum("bhst,btr->bshr", w, j(mla["latent"])),
         argmax=torch.from_numpy(am).argmax(-1),
         a2a=(want_y, want_aux))
@@ -367,6 +450,15 @@ def test_seq_decode_attention_whole_mesh_pool(collectives):
     got, want = collectives
     for g in got:
         np.testing.assert_allclose(g["pool"].numpy(), want["pool"],
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_seq_decode_combine_skips_empty_slices(collectives):
+    """The LSE combine of normalised slices: a slice that holds no token
+    of a row (lse -inf, o 0) adds nothing."""
+    got, want = collectives
+    for g in got:
+        np.testing.assert_allclose(g["empty"].numpy(), want["empty"],
                                    rtol=1e-5, atol=1e-5)
 
 
@@ -475,6 +567,21 @@ SERVE_CASES = (
 )
 #: llava's stub patch embeddings ahead of the prompt in its prefill
 N_PATCHES = 4
+#: crosspool prefill-then-decode hand-offs: (arch, mesh, batch).  On (2,2)
+#: with B = 8 the sequence splits over model (the prompt fills the first
+#: slice, the decode steps write the second); minicpm3 (MLA) over a model
+#: axis of 4 leaves its last slice empty; B = 1 (a batch that does not
+#: split) pools the sequence over the whole mesh, its last slice empty
+HANDOFFS = (
+    ("moonshot-v1-16b-a3b", (2, 2), B),
+    ("qwen3-14b", (2, 2), B),
+    ("zamba2-1.2b", (2, 2), B),
+    ("gemma3-12b", (2, 2), B),
+    ("whisper-small", (2, 2), B),
+    ("minicpm3-4b", (1, 4), B),
+    ("qwen3-14b", (2, 2), 1),
+)
+HANDOFF_STEPS = 3
 
 
 def _reference_case(rng, arch, strat, mesh, kind, perf, over):
@@ -521,9 +628,44 @@ def _reference_case(rng, arch, strat, mesh, kind, perf, over):
     return case, np.asarray(want)
 
 
+def _reference_handoff(rng, arch, mesh, n):
+    """One hand-off on the JAX package's seeded params: its single-device
+    ``prefill`` of ``n`` prompts of ``SEQ`` tokens into an empty cache of
+    ``MAX_LEN``, then ``HANDOFF_STEPS`` ``decode_step``s fed seeded ids;
+    the logits of each (prefill first)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_smoke_config
+    from repro.models import build_model
+    j_cfg = get_smoke_config(arch).replace(dtype="float32")
+    model = build_model(j_cfg)
+    params = model.init(jax.random.PRNGKey(3))
+    tokens = rng.integers(0, j_cfg.vocab_size, (n, SEQ)).astype(np.int32)
+    nxt = rng.integers(0, j_cfg.vocab_size,
+                       (HANDOFF_STEPS, n)).astype(np.int32)
+    extra = {}
+    if j_cfg.family == "audio":
+        extra["encoder_frames"] = rng.standard_normal(
+            (n, j_cfg.encoder_seq, j_cfg.d_model)).astype(np.float32)
+    logits, cache = model.prefill(
+        params, jnp.asarray(tokens), model.init_cache(n, MAX_LEN),
+        **{k: jnp.asarray(v) for k, v in extra.items()})
+    wants = [np.asarray(logits)]
+    for i in range(HANDOFF_STEPS):
+        logits, cache = model.decode_step(params, jnp.asarray(nxt[i]), cache,
+                                          jnp.int32(SEQ + i))
+        wants.append(np.asarray(logits))
+    case = dict(cfg=t_smoke(arch).replace(dtype="float32"), mesh=mesh,
+                params=params_to_torch(_np_tree(params)),
+                tokens=torch.from_numpy(tokens), next=torch.from_numpy(nxt),
+                extra={k: torch.from_numpy(v) for k, v in extra.items()})
+    return case, wants
+
+
 @pytest.fixture(scope="module")
 def steps(tmp_path_factory):
-    """Every case of ``STEP_CASES`` then ``SERVE_CASES``, in one spawn."""
+    """Every case of ``STEP_CASES``, ``SERVE_CASES`` then ``HANDOFFS``, in
+    one spawn."""
     cases, wants = [], []
     rng = np.random.default_rng(0)
     for arch, strat, mesh, perf, over in STEP_CASES:
@@ -535,25 +677,33 @@ def steps(tmp_path_factory):
         case, want = _reference_case(rng, arch, strat, mesh, kind, {}, {})
         cases.append(case)
         wants.append(want)
-    got = _run(tmp_path_factory.mktemp("steps"), "steps", {"cases": cases})
+    handoffs = []
+    for arch, mesh, n in HANDOFFS:
+        case, want = _reference_handoff(rng, arch, mesh, n)
+        handoffs.append(case)
+        wants.append(want)
+    got = _run(tmp_path_factory.mktemp("steps"), "steps",
+               {"cases": cases, "handoffs": handoffs})
     return got, wants
 
 
-def _gathered(got, i):
-    """Case ``i``'s logits [B, V] assembled from every rank's rows and
-    vocabulary shard; ranks holding the same entries agree bit for bit."""
+def _gathered(got, i, step=None, n_rows=B):
+    """Case ``i``'s logits [B, V] (a hand-off's of ``step``) assembled
+    from every rank's rows and vocabulary shard; ranks holding the same
+    entries agree bit for bit."""
     full = {}
     for rank in got:
         r = rank[i]
-        v0, n = r["vocab0"], r["logits"].shape[-1]
-        for row, logit in zip(r["rows"].tolist(), r["logits"]):
+        logits = r["logits"] if step is None else r["logits"][step]
+        v0, n = r["vocab0"], logits.shape[-1]
+        for row, logit in zip(r["rows"].tolist(), logits):
             for j, x in zip(range(v0, v0 + n), logit.tolist()):
                 assert full.setdefault((row, j), x) == x, (row, j)
-        for kind, path, shape, want, spec in r["placed"]:
+        for kind, path, shape, want, spec in r.get("placed", ()):
             assert shape == want, (kind, path, spec)
     V = 1 + max(j for _, j in full)
-    return np.array([[full[(row, j)] for j in range(V)] for row in range(B)],
-                    dtype=np.float32)
+    return np.array([[full[(row, j)] for j in range(V)]
+                     for row in range(n_rows)], dtype=np.float32)
 
 
 @pytest.mark.parametrize("i", range(len(STEP_CASES)),
@@ -572,13 +722,17 @@ def test_sharded_step_matches_single_device(steps, i):
     arch, strat, mesh, perf, over = STEP_CASES[i]
     placed = {(k, p): spec for k, p, _, _, spec in got[0][i]["placed"]}
     if strat == "crosspool":
-        # Type II (MLA; qwen3-moe's 2 KV heads under a model axis of 4)
-        # reads the sequence-split cache through the override
+        # Type I and Type II (MLA; qwen3-moe's 2 KV heads under a model
+        # axis of 4) alike: every crosspool case's kv_seq_axes (model)
+        # spans more than one rank, so the cache's sequence splits
         type_ii = arch == "minicpm3-4b" or (
             arch == "qwen3-moe-235b-a22b" and mesh == (1, 4))
-        assert got[0][i]["seq_split"] == type_ii
+        assert got[0][i]["type_ii"] == type_ii
+        assert got[0][i]["seq_split"]
         seq = placed[("cache", "latent" if arch == "minicpm3-4b" else "k")]
-        assert (seq[2] is not None) == type_ii
+        assert seq[2] is not None
+        for g in got:
+            assert g[i]["seq_bytes"] == g[i]["seq_rule_bytes"]
         # the dense weights pool (qwen3-moe has no dense FFN of its own)
         if arch != "qwen3-moe-235b-a22b" or over.get("n_shared_experts"):
             assert any(k == "params" and "/moe/w" not in p
@@ -614,6 +768,11 @@ def test_serve_step_places_every_leaf(steps, i):
         assert r["cut"]
         assert r["param_bytes"] == r["rule_bytes"]
         assert r["cache_bytes"] == r["cache_rule_bytes"]
+        # the sequence-split leaves as the reference's table places them
+        assert r["seq_split"] == (strat == "crosspool" and mesh[1] > 1
+                                  and arch != "mamba2-130m")
+        if strat == "crosspool":
+            assert r["seq_bytes"] == r["seq_rule_bytes"]
         assert r["greedy"].tolist() == argmax[r["rows"].numpy()].tolist()
         assert r["head_split"] == (strat == "monolithic"
                                    and not r["type_ii"])
@@ -632,6 +791,33 @@ def test_serve_step_places_every_leaf(steps, i):
         assert (placed[("cache", "h")][2] is not None) == (mesh[1] > 1)
     assert max(g[j]["param_bytes"] for g in got) < sum(
         g[j]["param_bytes"] for g in got)
+
+
+@pytest.mark.parametrize("h", range(len(HANDOFFS)),
+                         ids=[f"{a}-{m[0]}x{m[1]}-B{n}"
+                              for a, m, n in HANDOFFS])
+def test_crosspool_prefill_then_decode_split_cache(steps, h):
+    """A crosspool prefill writes this rank's slice of the sequence (both
+    steps place the cache alike), then decode steps continue from it:
+    every step's gathered logits within 2e-4 of the JAX package's
+    single-device ``prefill`` + ``decode_step``; a rank's bytes of the
+    sequence-split leaves the reference table's, a share of the whole;
+    the last slice holds no token of the row where the sequence pools
+    over four ranks."""
+    got, wants = steps
+    i = len(STEP_CASES) + len(SERVE_CASES) + h
+    arch, mesh, n = HANDOFFS[h]
+    for step, want in enumerate(wants[i]):
+        np.testing.assert_allclose(_gathered(got, i, step, n), want,
+                                   **STEP_TOL, err_msg=f"step {step}")
+    for g in got:
+        r = g[i]
+        assert r["seq_split"] == (True, True) and r["same_place"]
+        assert r["seq_bytes"] == r["seq_rule_bytes"] < r["whole_seq_bytes"]
+        assert r["cache_bytes"] == r["cache_rule_bytes"]
+    held = sorted(g[i]["held"] for g in got)
+    if mesh == (1, 4) or n == 1:
+        assert held[0] == 0 and held[-1] > 0, held
 
 
 def test_one_rank_serve_hooks_are_bit_exact(tmp_path):

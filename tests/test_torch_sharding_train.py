@@ -9,13 +9,14 @@ from numpy seeds; params from the reference's own init, bridged.
 * forward: the 10 archs' float32 smoke configs on a (2,2) mesh (every
   leaf split by the train rules): the gathered logits within 2e-4 of the
   JAX package's single-device ``forward``
-  (``tests/test_sharding.py:235-253``); whisper's ``seq_parallel`` cell
-  raises, naming its ROADMAP item;
+  (``tests/test_sharding.py:235-253``), and whisper's once more under
+  ``seq_parallel`` (its decoder's stream split over ``model``, the
+  encoder's frames whole);
 * loss and gradients (``build_train_cell``'s ``grads`` and ``step``):
   qwen3-moe (capacity and grouped MoE), minicpm3 (MLA), qwen3-14b,
   gemma3 (tied, sliding window), zamba2 (hybrid) and whisper (encoder-
   decoder) on (2,2), mamba2 (ssm) on (1,4) and with ``seq_parallel``,
-  and the variants
+  whisper with ``seq_parallel``, and the variants
   ``seq_parallel``, ``compress_grads``, 2 microbatches (capacity path:
   the row order), ``moe_a2a`` (experts over data; its capacities at
   8x, drop-free, against the JAX package's drop-free grouped path, as the
@@ -132,16 +133,8 @@ def _forward_job(p):
                                  embeddings=batch.get("embeddings"),
                                  encoder_frames=batch.get("encoder_frames"),
                                  hooks=cell.hooks)
-        out.append(dict(logits=logits, coord=mesh.coord))
-    # whisper's encoder stream is not split: its seq_parallel cell raises
-    mesh = Mesh((1, 4), ("data", "model"), live=True)
-    cfg = t_smoke("whisper-small")
-    try:
-        make_strategy("train", mesh, cfg, _shape(B, S),
-                      PerfOpts(seq_parallel=True)).hooks()
-        out.append("no refusal")
-    except NotImplementedError as e:
-        out.append(str(e))
+        out.append(dict(logits=logits, coord=mesh.coord,
+                        seq=cell.hooks.tp.seq))
     return out
 
 
@@ -296,6 +289,10 @@ def _inputs(batch):
 
 FWD_ARCHS = ("llama3-405b", "qwen3-14b", MOE, "moonshot-v1-16b-a3b",
              "gemma3-12b", "minicpm3-4b", LLAVA, MAMBA, ZAMBA, WHISPER)
+#: the forward cases on (2,2): (test id, arch, perf levers): every arch,
+#: then whisper with its decoder's stream split over model
+FWD_CASES = tuple((a, a, {}) for a in FWD_ARCHS) + (
+    ("whisper-seq-parallel", WHISPER, {"seq_parallel": True}),)
 
 
 @pytest.fixture(scope="module")
@@ -303,14 +300,15 @@ def forward_runs(tmp_path_factory):
     import jax
     import jax.numpy as jnp
     cases, wants = [], []
-    for arch in FWD_ARCHS:
+    for _, arch, perf in FWD_CASES:
         seq = GEMMA_S if arch in ("gemma3-12b", LLAVA) else S
         j_cfg, model, params, batch, t_cfg = _j_setup(arch, seq)
         want, _ = jax.jit(lambda p, b: model.forward(
             p, b["tokens"], **_inputs(b)))(
                 params, {k: jnp.asarray(v) for k, v in batch.items()})
         cases.append(dict(cfg=t_cfg, shape=_shape(B, seq), mesh=(2, 2),
-                          perf=PerfOpts(microbatches=1), moe_path="capacity",
+                          perf=PerfOpts(microbatches=1, **perf),
+                          moe_path="capacity",
                           params=params_to_torch(params),
                           batch={k: torch.from_numpy(v)
                                  for k, v in batch.items()}))
@@ -320,21 +318,17 @@ def forward_runs(tmp_path_factory):
     return got, wants
 
 
-def test_whisper_seq_parallel_refused(forward_runs):
-    """Whisper's train cell under ``seq_parallel`` raises, naming its
-    ROADMAP item: the encoder's residual stream is not split."""
-    got, _ = forward_runs
-    for g in got:
-        assert "ROADMAP Queue 1 item 1.7" in g[-1], g[-1]
-
-
-@pytest.mark.parametrize("i", range(len(FWD_ARCHS)), ids=FWD_ARCHS)
+@pytest.mark.parametrize("i", range(len(FWD_CASES)),
+                         ids=[c[0] for c in FWD_CASES])
 def test_sharded_forward_matches_single_device(forward_runs, i):
     """Rows over data, the vocabulary over model: the gathered logits
     equal the JAX package's single-device forward within the reference's
-    own sharded test's tolerance; ranks holding the same part agree."""
+    own sharded test's tolerance; ranks holding the same part agree
+    (under ``seq_parallel`` the cell's stream splits over model)."""
     got, wants = forward_runs
     want = wants[i]
+    assert all(g[i]["seq"] == bool(FWD_CASES[i][2].get("seq_parallel"))
+               for g in got)
     full = np.zeros_like(want)
     seen = {}
     for g in got:
@@ -369,6 +363,8 @@ STEP_CASES = (
      "capacity", "mamba2"),
     ("zamba2-hybrid", ZAMBA, (2, 2), {}, "capacity", "zamba2"),
     ("whisper-audio", WHISPER, (2, 2), {}, "capacity", "whisper"),
+    ("whisper-seq-parallel", WHISPER, (2, 2), {"seq_parallel": True},
+     "capacity", "whisper"),
 )
 
 
@@ -535,7 +531,7 @@ def test_sharded_train_state_checkpoint_reshards(step_runs):
 
 
 # ---------------------------------------------------------------------------
-# one rank; refusals; the table
+# one rank; the table
 # ---------------------------------------------------------------------------
 
 def test_one_rank_train_hooks_are_bit_exact(tmp_path):
