@@ -88,7 +88,18 @@ other than 0) if any phase fails:
              replayed exactly once per block, and the paged GQA and MLA
              kernels and the pool write must have launched exactly as
              often as the path runs them (per layer: K per replay, and
-             one write per prompt row); then (5h) the same requests under
+             one write per prompt row); (5a) the profiled decode step's
+             roofline (``launch/roofline.py`` on the H100's peaks: each
+             model's block counted on ``meta`` by
+             ``op_analysis.analyze_fused_step``, K x the analytic minimum
+             bytes) printed beside its wall and busy times, the bound at
+             most the busy time; the graph audit
+             (``analysis/graph_audit.py``) of each model's fused step
+             clean (no foreign read of 64 KiB or more, the pool updated
+             in place, no host read under ``set_sync_debug_mode
+             ("error")``, calls per body and per replay = K x layers),
+             and two planted bodies (a host read, a pool clone) flagged
+             CPA03 and CPA02; then (5h) the same requests under
              ``lowering=False`` with the layer pipeline scheduler and
              without it, with the same checks (one token per host-driven
              step), printing the scheduler's stage count and
@@ -409,10 +420,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
-BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
-FP32_FLOPS = 67e12              # H100 SXM float32 peak (CUDA cores)
-TF32_FLOPS = 495e12             # H100 SXM TF32 tensor-core peak (dense)
+# the H100 SXM's published peaks, kept in one place with their sources
+from repro_torch.launch.mesh import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_FLOPS,
+    PEAK_FLOPS_F32 as FP32_FLOPS, PEAK_FLOPS_TF32 as TF32_FLOPS)
 #: the attention kernels (rows 1-4) in bf16: the limit on each output
 #: row's relative RMS error against the plain version (a correct kernel
 #: differs by the rounding of its bf16 probabilities and output, ~3e-3)
@@ -2172,14 +2183,17 @@ def ssm_train_phase(torch, kops, name, device="cuda", cfg=None):
 
 
 def serve_phase(torch, np, kops, models, *, k, page_budget, label, check,
-                lowering=True, pipeline=True):
+                lowering=True, pipeline=True, audit=False):
     """``CrossPoolEngine(device="cuda")`` over ``models`` (bf16): 8
     requests at time 0, prompts of 200-900 tokens, 32 new tokens each,
     ``max_batch=4``, ``max_ctx=1024``, ``k`` tokens per dispatch, in the
     given engine mode.  Launch counts are 0 just before the run and read
     just after it; each model's decode graph must have replayed once per
     block; ``check(launches, stats, engine)`` adds the phase's own checks.
-    Returns (launches, figures)."""
+    With ``audit`` (5a) the profiled decode step's roofline is held
+    against its busy time (``decode_roofline``) and the engine's fused
+    steps go through the graph audit (``graph_audit_phase``).  Returns
+    (launches, figures)."""
     from repro_torch.configs.base import EngineConfig
     from repro_torch.runtime.engine import CrossPoolEngine, EngineMode
     from repro_torch.runtime.observe import percentile
@@ -2254,9 +2268,18 @@ def serve_phase(torch, np, kops, models, *, k, page_budget, label, check,
         prefill=[dict(model=m, B=B, bucket=b, ms=dt * 1e3)
                  for m, B, b, dt in stats.prefill_times],
         max_memory_gib=peak, graphs=graphs, **schedule)
+    t0 = time.perf_counter()
     figures["profile"] = profile_decode_step(torch, engine, names,
                                              engine.runners[names[0]]
-                                             .decode_steps)
+                                             .decode_steps, roofline=audit)
+    if audit:
+        t1 = time.perf_counter()
+        figures["audit"] = graph_audit_phase(torch, engine)
+        figures["audit"]["seconds"] = time.perf_counter() - t1
+        figures["phase_5a_s"] = (figures["profile"]["roofline"]["seconds"]
+                                 + figures["audit"]["seconds"])
+        log(f"{label}: profile, roofline and audit took "
+            f"{time.perf_counter() - t0:.1f} s")
     return launches, figures
 
 
@@ -2393,11 +2416,13 @@ def device_summary(prof, wall, label):
                 mla_ms=shares["paged MLA"])
 
 
-def profile_decode_step(torch, engine, names, k):
+def profile_decode_step(torch, engine, names, k, roofline=False):
     """Where the device time goes: 4 fresh requests (500 prompt tokens
     each) are submitted, then one engine step that prefills them (and
     decodes a first block) and one engine step that decodes a K-token
-    block for every model run under ``torch.profiler``."""
+    block for every model run under ``torch.profiler``; with
+    ``roofline`` the decode step's bound beside its times
+    (``decode_roofline``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime.request import Request
 
@@ -2408,6 +2433,11 @@ def profile_decode_step(torch, engine, names, k):
     torch.cuda.synchronize()
     out = {}
     for label in ("prefill step", "decode step"):
+        if roofline:
+            # the rows each model decodes in the profiled block, and their
+            # context lengths as it starts
+            active = {n: r.lengths[r._active_slots()].copy()
+                      for n, r in engine.runners.items()}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -2416,10 +2446,136 @@ def profile_decode_step(torch, engine, names, k):
             wall = time.perf_counter() - t0
         out[label] = device_summary(
             prof, wall, f"one {label} (K={k}, {len(names)} models)")
+    if roofline:
+        out["roofline"] = decode_roofline(torch, engine, active, k,
+                                          out["decode step"])
     engine.drain()
     if engine.virt.mapped_pages != 0:
         raise AssertionError("pages still mapped after the profiled run")
     return out
+
+
+def decode_token_bytes(cfg, shape) -> float:
+    """The least bytes one decode token of ``shape``'s rows reads and
+    writes on one card: ``analytic_bytes_estimate`` (every active weight,
+    the KV of the context, the state), less the input embedding table,
+    of which a step reads only its rows' own (a tied table is the head
+    too, and is read whole)."""
+    from repro_torch.launch import roofline as rf
+
+    out = rf.analytic_bytes_estimate(cfg, shape, 1)
+    if not cfg.tie_embeddings:
+        out += (shape.global_batch - cfg.vocab_size) * cfg.d_model * 2
+    return out
+
+
+def decode_roofline(torch, engine, active, k, summary) -> dict:
+    """(5a) The roofline of the profiled decode step on the H100's peaks
+    (``launch/roofline.py``, ``launch/mesh.py``).  For each model: its
+    block's FLOPs counted on ``meta`` (``op_analysis.analyze_fused_step``
+    at the captured graph's shapes: K tokens, every layer, the plain
+    paged attention over the whole table) and K times one token's
+    minimum bytes (``decode_token_bytes``; the weights, far larger than
+    the L2, are read again at every inner step).  The models' blocks
+    run one after another on one card, so the step's bound is the larger
+    of the summed compute and memory terms.  Gated: the bound is at most
+    the step's device busy time (a bound above a measured time means the
+    count is wrong)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch.op_analysis import analyze_fused_step
+
+    t0 = time.perf_counter()
+    rows, t_compute, t_memory = {}, 0.0, 0.0
+    for name, lens in active.items():
+        if not len(lens):
+            continue
+        runner = engine.runners[name]
+        stats = analyze_fused_step(runner.fused, engine.virt.pool,
+                                   batch=runner.max_batch,
+                                   max_pages=runner.max_pages)
+        shape = ShapeConfig(f"decode block K={k}", int(lens.mean()),
+                            len(lens), "decode")
+        report = rf.RooflineReport(
+            arch=name, shape=shape.name, mesh="one card",
+            strategy="split engine", chips=1, flops_per_device=stats.flops,
+            bytes_per_device=stats.bytes_accessed,
+            bytes_model=k * decode_token_bytes(runner.cfg, shape),
+            collective_per_device=0.0, collective_breakdown={},
+            model_flops=k * rf.model_flops_estimate(runner.cfg, shape))
+        rows[name] = dict(report.to_dict(), rows=len(lens),
+                          mean_context=float(lens.mean()),
+                          bound_ms=report.bound_time * 1e3,
+                          temp_bytes=stats.temp_bytes)
+        t_compute += report.t_compute
+        t_memory += report.t_memory
+        log(f"roofline: {name} block of {k} x {len(lens)} rows at context "
+            f"{float(lens.mean()):.1f}: {stats.flops:.4e} FLOPs, "
+            f"{report.bytes_model:.4e} B minimum ({stats.bytes_accessed:.4e}"
+            f" B accessed unfused): compute {report.t_compute * 1e3:.4f} ms"
+            f", memory {report.t_memory * 1e3:.4f} ms (unfused "
+            f"{report.t_memory_hlo * 1e3:.4f}) -> {report.dominant}")
+    bound = max(t_compute, t_memory) * 1e3
+    busy, wall = summary["device_busy_ms"], summary["wall_ms"]
+    log(f"roofline: the decode step's bound {bound:.4f} ms (compute "
+        f"{t_compute * 1e3:.4f}, memory {t_memory * 1e3:.4f}) against "
+        f"device busy {busy:.3f} ms and wall {wall:.3f} ms: "
+        f"{bound / busy:.2%} of busy, {bound / wall:.2%} of wall")
+    if not 0 < bound <= busy:
+        raise AssertionError(f"the decode step's bound {bound:.4f} ms is "
+                             f"not within its busy time {busy:.3f} ms: "
+                             f"the count is wrong")
+    return dict(models=rows, bound_ms=bound,
+                t_compute_ms=t_compute * 1e3, t_memory_ms=t_memory * 1e3,
+                busy_ms=busy, wall_ms=wall, share_of_busy=bound / busy,
+                share_of_wall=bound / wall,
+                seconds=time.perf_counter() - t0)
+
+
+def graph_audit_phase(torch, engine) -> dict:
+    """(5a) The graph audit (``analysis/graph_audit.py``) over phase 5's
+    engine: each model's fused step, at its captured graph's batch and
+    table width on inactive inputs, under
+    ``set_sync_debug_mode("error")``, must give no finding; its figures
+    are printed.  Then two planted bodies on the first model, one that
+    reads a token to the host (CPA03) and one that clones the pool
+    (CPA02), must each be flagged on the card."""
+    from repro_torch.analysis import graph_audit as ga
+
+    pool, out = engine.virt.pool, {}
+    for name, runner in engine.runners.items():
+        found, fig = ga.audit_fused_step(
+            runner.fused, pool, batch=runner.max_batch,
+            max_pages=runner.max_pages, target=name)
+        log(f"audit: {name}: largest foreign read {fig['largest_foreign_read']}"
+            f" B ({fig['foreign_reads']} foreign storages); the body's "
+            f"largest allocation {fig['largest_allocation'] / 2**20:.1f} MiB"
+            f", its own peak {fig['own_peak_bytes'] / 2**20:.1f} MiB, beside"
+            f" the pool's {fig['pool_bytes'] / 2**20:.1f} MiB and the "
+            f"arena's {fig['arena_bytes'] / 2**20:.1f} MiB; host reads "
+            f"{fig['host_reads']}; {fig['dispatches_per_block']} dispatch a"
+            f" block; calls per body {fig['calls_per_body']}, per replay "
+            f"{fig['calls_per_replay']}, claim {fig['claim']}")
+        if found:
+            raise AssertionError(f"audit: {name}: "
+                                 + "; ".join(str(f) for f in found))
+        out[name] = fig
+    name, runner = next(iter(engine.runners.items()))
+    step, batch, max_pages = runner.fused, runner.max_batch, runner.max_pages
+    if step.graph is not None:
+        _, batch, max_pages = step.graph.static["page_tables"].shape
+    planted = {}
+    for check in ("CPA03", "CPA02"):
+        found, _ = ga.audit_fused_step(
+            ga.planted(step, check), pool, batch=batch, max_pages=max_pages,
+            target=f"{name} planted {check}")
+        got = sorted({f.check for f in found})
+        if check not in got:
+            raise AssertionError(f"audit: the planted {check} body was not "
+                                 f"flagged ({got})")
+        planted[check] = [str(f) for f in found]
+        log(f"audit: planted {check} flagged: {planted[check]}")
+    return dict(models=out, planted=planted)
 
 
 def profile_train_step(torch, step, state, batch):
@@ -6633,7 +6789,10 @@ def main() -> int:
         + ", ".join(f"{n} {d} layers" for n, d in FULL_WIDTH_DEPTHS.items()))
     launches, serve = serve_phase(
         torch, np, kops, coloc_models(full_width=True), k=SERVE_K,
-        page_budget=16384, label="serve", check=check_coloc)
+        page_budget=16384, label="serve", check=check_coloc, audit=True)
+    seconds["5a audit and roofline"] = serve["phase_5a_s"]
+    log(f"phase 5a audit and roofline: {serve['phase_5a_s']:.1f} s, within "
+        f"phase 5 ({card})")
     gc.collect()                 # request handles point back at the engine
     torch.cuda.empty_cache()
 

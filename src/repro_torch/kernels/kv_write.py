@@ -4,7 +4,9 @@ The kernel lives in ``csrc/kv_write.cu`` (see the note there for what it
 computes, its bound and why it is a kernel), built at first use by
 ``repro_torch.kernels.build``.  On a CUDA tensor ``paged_kv_write``
 launches it or raises; only a pool that lies on the CPU takes the plain
-PyTorch version (``ref.paged_kv_write``).  The wrapper makes no host read
+PyTorch version (``ref.paged_kv_write``), and a pool on ``meta`` (the op
+analysis) is returned as it is: which rows drop is data, and a write in
+place changes no shape.  The wrapper makes no host read
 and allocates nothing beyond the cast of the rows to the pool's type, so
 a call can be captured in a CUDA graph.  Launches are counted in
 ``paged_kv_write.launches``, one per call that reaches the card (a call
@@ -42,6 +44,7 @@ def vector_bytes(*sizes: int) -> int:
     return vec
 
 
+@build.recorded
 def paged_kv_write(pool: torch.Tensor, kv_flat: torch.Tensor,
                    pages: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """Store per-token KV rows into the flat page pool, IN PLACE.
@@ -59,7 +62,11 @@ def paged_kv_write(pool: torch.Tensor, kv_flat: torch.Tensor,
     rebinds the returned buffer, this writes into ``pool`` and returns the
     same tensor.
     """
-    if pool.device.type == "cpu":
+    if build.plain_route(pool):
+        if pool.is_meta:
+            # shapes only: which rows drop is data, and the write in
+            # place changes no shape
+            return pool
         return ref.paged_kv_write(pool, kv_flat, pages, slots)
     if pool.device.type != "cuda":
         raise ValueError(f"no pool write kernel for {pool.device}")

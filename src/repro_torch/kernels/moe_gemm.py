@@ -13,7 +13,9 @@ they replace, their bound and their design), built at first use by
 backward runs the same kernel with the weight read transposed for ``dx``
 and the wgrad kernel for ``dw``.  On a CUDA tensor each wrapper launches
 its kernel or raises; only a tensor that lies on the CPU takes the plain
-PyTorch version (``repro_torch.kernels.ref``), backward included.
+PyTorch version (``repro_torch.kernels.ref``), backward included.  A
+``meta`` tensor raises too: the plain version reads the group sizes on
+the host, so it has no shape-only form.
 Launches of the one GEMM kernel are counted in ``moe_gemm.launches``
 (forward and input gradient alike), of the wgrad kernel in
 ``moe_gemm_wgrad.launches``.
@@ -251,6 +253,7 @@ def _gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     return out
 
 
+@build.recorded
 def moe_gemm_dgrad(dy: torch.Tensor, w: torch.Tensor,
                    group_sizes: torch.Tensor) -> torch.Tensor:
     """The input gradient of ``moe_gemm``: dy [N,M], w [E,K,M] ->
@@ -297,6 +300,7 @@ def moe_gemm_wgrad_chunked(x: torch.Tensor, dy: torch.Tensor,
     return dw.to(x.dtype)
 
 
+@build.recorded
 def moe_gemm_wgrad(x: torch.Tensor, dy: torch.Tensor,
                    group_sizes: torch.Tensor) -> torch.Tensor:
     """The weight gradient of ``moe_gemm``: x [N,K], dy [N,M] ->
@@ -352,6 +356,7 @@ class _GroupedGemm(torch.autograd.Function):
         return dx, dw, None
 
 
+@build.recorded
 def moe_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor
              ) -> torch.Tensor:
     """Token-sorted grouped matmul ``out[i] = x[i] @ w[expert_of(i)]``.

@@ -2,7 +2,9 @@
 
 The route is chosen by where the tensors live, not by a setting: a CPU
 tensor takes the plain PyTorch version, a CUDA tensor launches the
-hand-written kernel or raises (there is no fallback between the two).
+hand-written kernel or raises (there is no fallback between the two); a
+``meta`` tensor (shapes only, the op analysis) takes the plain version
+where it has a shape-only form (``build.plain_route``).
 
 * ``paged_decode_attention`` / ``paged_mla_decode_attention`` — the CUDA
   kernels of ``csrc/paged_attention.cu`` through their ctypes wrappers

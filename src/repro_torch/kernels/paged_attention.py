@@ -16,8 +16,9 @@ contiguous wrapper takes the dense-cache layer ``[B, T, KV, D]`` of the
 fallback families as it is, and with ``return_lse`` also returns each
 row's log-sum-exp of its scaled scores (float32, written by the kernel:
 the merge where the call splits, the split kernel where it does not).  On a CUDA tensor a wrapper launches its
-kernel or raises; only a tensor that lies on the CPU takes the plain
-PyTorch version (``repro_torch.kernels.ref``).  Each wrapper counts its
+kernel or raises; only a tensor that lies on the CPU (or on ``meta``:
+shapes only, ``build.plain_route``) takes the plain PyTorch version
+(``repro_torch.kernels.ref``).  Each wrapper counts its
 calls that reach the card in its ``launches`` attribute (one per call,
 however many CUDA launches the call makes).  The kernels have no
 backward: a CUDA call under grad mode with an input that requires grad
@@ -287,6 +288,7 @@ def _split_launch(fn, q, kv, lengths, widths, plan, max_tokens, geometry,
     return out
 
 
+@build.recorded
 def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor,
                            page_table: torch.Tensor, lengths: torch.Tensor,
                            *, tokens_per_page: int, n_kv: int,
@@ -299,7 +301,7 @@ def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor,
     """
     B, _, H, D = q.shape
     per_tok = 2 * n_kv * D
-    if q.device.type == "cpu":
+    if build.plain_route(q):
         n_pages = pool.shape[0]
         typed = pool[:, :tokens_per_page * per_tok].reshape(
             n_pages, tokens_per_page, 2, n_kv, D)
@@ -327,6 +329,7 @@ def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor,
 paged_decode_attention.launches = 0
 
 
+@build.recorded
 def paged_mla_decode_attention(q: torch.Tensor, pool: torch.Tensor,
                                page_table: torch.Tensor,
                                lengths: torch.Tensor, *,
@@ -341,7 +344,7 @@ def paged_mla_decode_attention(q: torch.Tensor, pool: torch.Tensor,
     take the widths in ``MLA_WIDTHS``.
     """
     B, _, H, e = q.shape
-    if q.device.type == "cpu":
+    if build.plain_route(q):
         n_pages = pool.shape[0]
         typed = pool[:, :tokens_per_page * e].reshape(
             n_pages, tokens_per_page, e)
@@ -373,6 +376,7 @@ def paged_mla_decode_attention(q: torch.Tensor, pool: torch.Tensor,
 paged_mla_decode_attention.launches = 0
 
 
+@build.recorded
 def contiguous_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                                 cache_v: torch.Tensor, lengths: torch.Tensor,
                                 *, scale: float, return_lse: bool = False):
@@ -386,7 +390,7 @@ def contiguous_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     Each call counts in ``launches``, and one with ``return_lse`` in
     ``lse_launches`` too.
     """
-    if q.device.type == "cpu":
+    if build.plain_route(q):
         return ref.decode_attention(q, cache_k, cache_v, lengths, scale,
                                     return_lse=return_lse)
     if q.device.type != "cuda":

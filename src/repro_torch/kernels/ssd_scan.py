@@ -10,7 +10,8 @@ source tile walking its target tiles, every product on tensor cores in
 ``repro_torch.kernels.build``.  On a CUDA tensor ``ssd_scan`` launches
 them or raises; under grad mode it goes through ``_SSDScan``, a
 ``torch.autograd.Function`` whose backward is ``ssd_scan_bwd``.  Only a
-tensor that lies on the CPU takes the plain PyTorch version, the chunked
+tensor that lies on the CPU (or on ``meta``: shapes only,
+``build.plain_route``) takes the plain PyTorch version, the chunked
 form the reference's XLA route runs
 (``repro_torch.kernels.ssd_chunked.ssd_scan_chunked``, differentiated by
 autograd).  Launches are counted in ``ssd_scan.launches`` and
@@ -312,6 +313,7 @@ class _SSDScan(torch.autograd.Function):
         return dx, ddt, dA, dB, dC, (None if h0 is None else dh0), None
 
 
+@build.recorded
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B_: torch.Tensor, C_: torch.Tensor, *, chunk: int = 64,
              h0: Optional[torch.Tensor] = None
@@ -320,7 +322,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     A [H] f32; B_/C_ [B,S,G,N] in x's dtype; h0 [B,H,P,N] f32 or None;
     S divisible by ``chunk``.  Returns (y [B,S,H,P], h_final f32),
     differentiable in every input on either device."""
-    if x.device.type == "cpu":
+    if build.plain_route(x):
         return ssd_scan_chunked(x, dt, A, B_, C_, chunk=chunk, h0=h0)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, A, B_, C_, h0)):
@@ -331,6 +333,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 ssd_scan.launches = 0
 
 
+@build.recorded
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  B_: torch.Tensor, C_: torch.Tensor,
                  h0: Optional[torch.Tensor], dy: torch.Tensor,
@@ -342,7 +345,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     x's dtype, ddt, dA, dh0 f32 (dh0 also for h0 None).  A CPU tensor
     takes that plain version; on the card the kernels' sums run in a
     fixed order, so two calls give the same bits."""
-    if x.device.type == "cpu":
+    if build.plain_route(x):
         return ssd_scan_chunked_bwd(x, dt, A, B_, C_, h0, dy, dh,
                                     chunk=chunk)
     # the gradients of a reshape or a sum may come in strided

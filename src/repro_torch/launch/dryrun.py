@@ -18,9 +18,14 @@ and the strategy, and reports what each device would hold: the bytes of
 every argument leaf under the rules (params, cache at ``kv_dtype``, the
 inputs; for train cells the AdamW moments and the error-feedback tree),
 from shapes alone: the trees are built on the ``meta`` device, so a
-405B-parameter model allocates nothing.  There is nothing to lower or
-compile: the reference's ``lower_s`` / ``compile_s``, its temp / output /
-code bytes and its roofline are left out until the tooling slice.
+405B-parameter model allocates nothing.  It then runs rank 0's step once
+on ``meta`` over a stand-in of the mesh (``analyze_cell``:
+``launch/op_analysis.py``) and records the step's ``roofline``
+(``launch/roofline.py``, on the H100's peaks), the high-water mark of
+the bytes the step makes (``memory.temp_bytes``) and the seconds the
+counting took (``analyze_s``).  There is nothing to lower or compile: the
+reference's ``lower_s`` / ``compile_s`` and its output and code bytes
+have no counterpart.
 
   python -m repro_torch.launch.dryrun --arch qwen3-14b --shape decode_32k
   python -m repro_torch.launch.dryrun --all --multi-pod --out dryrun.jsonl
@@ -28,8 +33,10 @@ code bytes and its roofline are left out until the tooling slice.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
+import time
 import traceback
 from typing import Callable, Dict, NamedTuple, Optional
 
@@ -38,7 +45,9 @@ import torch
 from repro_torch.configs import (ARCH_NAMES, SHAPES_BY_NAME, get_config,
                                  shape_applicable)
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch import roofline as rf
+from repro_torch.launch.mesh import make_production_mesh, mesh_chip_count
+from repro_torch.launch.op_analysis import ModuleStats, analyze_step
 from repro_torch.models import decode as dec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.hooks import Hooks
@@ -51,6 +60,7 @@ from repro_torch.sharding.spec import (PartitionSpec, axis_size,
                                        shard_tree, tree_bytes)
 from repro_torch.sharding.strategies import (SEQ_SPLIT_LEAVES, Strategy,
                                              make_strategy)
+from repro_torch.training.compression import init_error_feedback
 from repro_torch.training.optimizer import AdamW, AdamWState
 from repro_torch.training.train_step import TrainState, make_grad_fn, \
     make_train_step
@@ -280,6 +290,21 @@ def local_cache(strategy: Strategy, batch: int, max_len: int, device,
     return local("", cache_shapes(strategy.cfg, batch, max_len, kv_dtype))
 
 
+def local_params(strategy: Strategy, device="meta") -> Dict:
+    """This rank's param tree at its shard shapes, uninitialised on
+    ``device`` (``meta``: shapes only)."""
+    rules, mesh = strategy.param_rules(), strategy.mesh
+
+    def local(path, leaf):
+        if isinstance(leaf, dict):
+            return {k: local(f"{path}/{k}" if path else k, v)
+                    for k, v in leaf.items()}
+        shape = shard_shape(mesh, leaf.shape,
+                            rules.spec_for(mesh, path, leaf.shape))
+        return torch.empty(shape, dtype=leaf.dtype, device=device)
+    return local("", param_shapes(strategy.cfg))
+
+
 def seq_leaf_bytes(strategy: Strategy, cache: Dict) -> int:
     """A rank's bytes of the cache tree ``cache``'s sequence-split leaves
     (``strategies.SEQ_SPLIT_LEAVES``: ``k`` / ``v`` / ``latent`` /
@@ -309,7 +334,9 @@ def greedy(strategy: Strategy, logits: torch.Tensor) -> torch.Tensor:
     gets its rows' ids; ties go to the lowest global id, as
     ``torch.argmax``'s); a whole vocabulary is ``logits.argmax(-1)``."""
     if logits.shape[-1] == strategy.cfg.vocab_size:
+        # cp: allow(CP002) the dry-run's greedy read: the sampler's first-max rule
         return logits.argmax(-1)
+    # cp: allow(CP002) the split argmax (sharding/collectives.py) of that rule
     return AxisGroup(strategy.mesh, "model").argmax(logits)
 
 
@@ -341,12 +368,71 @@ def build_serve_cell(cfg: ModelConfig, shape: ShapeConfig,
 
 
 # ---------------------------------------------------------------------------
+# The step counted on meta
+# ---------------------------------------------------------------------------
+
+def padded_batch(strategy: Strategy, microbatches: int) -> int:
+    """The train batch a rank's share of which the op analysis counts:
+    the cell's, or, where a microbatch's rows do not split over the batch
+    axes (llama3-405b's 16 microbatches of 16 rows over the multi-pod
+    mesh's 32), the batch padded to whole rows a rank, as the reference's
+    partitioner pads it.  The port's train cell itself refuses such a
+    batch (``TrainCell.local_batch``; ROADMAP Queue 3 item 5)."""
+    per = microbatches * axis_size(strategy.mesh, strategy.bax)
+    return -(-strategy.shape.global_batch // per) * per
+
+
+def analyze_cell(cfg: ModelConfig, shape: ShapeConfig, strategy: Strategy
+                 ) -> ModuleStats:
+    """Run the cell's step once for rank 0 of ``strategy``'s mesh, which
+    must be a stand-in (``Mesh.stand_in``), on ``meta`` tensors at the
+    rank's shard shapes, and count it (``op_analysis.analyze_step``): the
+    train cell's whole step (every microbatch's forward and backward, the
+    AdamW update; the batch as ``padded_batch`` gives it) with grad
+    enabled, the serve cell's decode step or prefill under
+    ``torch.no_grad()``."""
+    mesh = strategy.mesh
+    if not mesh.is_stand_in:
+        raise ValueError("analyze_cell needs a stand-in mesh")
+    params = local_params(strategy)
+    specs = input_specs(cfg, shape)
+    if shape.kind == "train":
+        cell = build_train_cell(cfg, shape, strategy)
+        rows = padded_batch(strategy, cell.microbatches)
+        if rows != shape.global_batch:
+            specs = input_specs(cfg, dataclasses.replace(
+                shape, global_batch=rows))
+        fb = (init_error_feedback(params) if strategy.perf.compress_grads
+              else None)
+        state = TrainState(params, cell.optimizer.init(params), fb)
+        with torch.enable_grad():
+            return analyze_step(cell.step, state, cell.local_batch(specs),
+                                mesh=mesh)
+    step = build_serve_cell(cfg, shape, strategy)
+    cache = local_cache(strategy, shape.global_batch, shape.seq_len, "meta",
+                        strategy.perf.kv_dtype)
+    rows = {k: local_rows(strategy, v) if v.dim() else v
+            for k, v in specs.items()}
+    tokens = rows.pop("tokens")
+    with torch.no_grad():
+        if shape.is_decode:
+            return analyze_step(step, params, tokens, cache,
+                                rows["lengths"], mesh=mesh)
+        return analyze_step(step, params, tokens, cache, mesh=mesh, **rows)
+
+
+# ---------------------------------------------------------------------------
 # Runner
 # ---------------------------------------------------------------------------
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              strategy_name: str = "auto", verbose: bool = True,
              perf=None) -> Dict:
+    """One cell's record: its per-device argument bytes, and the step
+    counted on ``meta`` (``analyze_cell``): ``roofline``,
+    ``memory.temp_bytes`` and ``analyze_s`` (seconds to minutes:
+    llama3-405b's train cell runs 16 microbatches of 126 layers op by
+    op)."""
     cfg = get_config(arch)
     shape = SHAPES_BY_NAME[shape_name]
     mesh_name = MESH_NAMES[multi_pod]
@@ -360,20 +446,37 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             print(f"[skip] {arch} x {shape_name}: {why}")
         return record
 
-    mesh = make_production_mesh(multi_pod=multi_pod)
+    mesh = make_production_mesh(multi_pod=multi_pod).stand_in(0)
     strategy = make_strategy(strategy_name, mesh, cfg, shape, perf=perf)
     record["strategy"] = strategy.name
     if perf is not None:
         record["perf"] = {k: v for k, v in vars(perf).items()
                           if v not in (None, False)}
+    mb = 1
     if shape.kind == "train":
-        record["microbatches"] = (strategy.perf.microbatches
-                                  or TRAIN_MICROBATCHES.get(arch, 1))
+        mb = record["microbatches"] = (strategy.perf.microbatches
+                                       or TRAIN_MICROBATCHES.get(arch, 1))
     record.update(ok=True, memory={"argument_bytes": argument_bytes(strategy)})
+    if shape.kind == "train" and padded_batch(strategy, mb) \
+            != shape.global_batch:
+        record["analyzed_batch"] = padded_batch(strategy, mb)
+    t0 = time.perf_counter()
+    stats = analyze_cell(cfg, shape, strategy)
+    analyze_s = time.perf_counter() - t0
+    report = rf.build_report(
+        arch=arch, shape=shape, mesh_name=mesh_name, strategy=strategy.name,
+        chips=mesh_chip_count(mesh), stats=stats, cfg=cfg, microbatches=mb,
+        kv_itemsize=1 if strategy.perf.kv_dtype == "f8" else 2)
+    record["memory"]["temp_bytes"] = stats.temp_bytes
+    record.update(analyze_s=round(analyze_s, 2), roofline=report.to_dict())
     if verbose:
-        gib = record["memory"]["argument_bytes"] / 2 ** 30
+        m, r = record["memory"], record["roofline"]
         print(f"[ok] {arch} x {shape_name} x {mesh_name} ({strategy.name}) "
-              f"| args {gib:.2f} GiB /dev")
+              f"analyze {analyze_s:.1f}s | args "
+              f"{m['argument_bytes'] / 2 ** 30:.2f} GiB temp "
+              f"{m['temp_bytes'] / 2 ** 30:.2f} GiB /dev | compute "
+              f"{r['t_compute']:.3e}s memory {r['t_memory']:.3e}s "
+              f"collective {r['t_collective']:.3e}s -> {r['dominant']}")
     return record
 
 

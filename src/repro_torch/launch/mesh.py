@@ -1,5 +1,5 @@
 """Device meshes over ``torch.distributed`` (port of
-``src/repro/launch/mesh.py``).
+``src/repro/launch/mesh.py``), and the card's roofline constants.
 
 A :class:`Mesh` is the logical grid the sharding rules name: ordered axis
 names and sizes, as JAX's.  It is a shape only (no devices) unless a
@@ -7,13 +7,21 @@ process group is up and it was made with ``live=True``; then it also
 holds this rank's coordinate (row-major over the axes: rank ``r`` of the
 world sits where ``r`` unravels, the order ``jax.make_mesh`` gives host
 devices) and one process group per axis tuple, and does the collectives
-the sharded step writes out.
+the sharded step writes out.  ``Mesh.stand_in`` gives a shape-only mesh a
+rank's coordinate: its collectives move nothing and return their
+result's shape, which is how the op analysis (``launch/op_analysis.py``)
+counts one rank's step of a 256-rank mesh on one host.
 
 ``make_production_mesh`` returns the reference's production shapes,
 (data 16, model 16) and (pod 2, data 16, model 16), with no devices: the
 dry-run reads per-device bytes from shapes alone, as the reference's
-placeholder devices do.  The reference's TPU roofline constants are not
-carried over: the card's own belong with the tooling.
+placeholder devices do.
+
+The roofline constants are one NVIDIA H100 SXM5 80 GB's published peaks
+(the reference keeps its TPU v5e's here).  ``NVLINK_BW`` is the card's
+NVLink 4 rate in one direction; a production mesh of 256 or 512 ranks
+spans nodes, whose links are slower, so the roofline's collective term
+(bytes over ``NVLINK_BW``) is a lower bound there.
 """
 from __future__ import annotations
 
@@ -26,12 +34,32 @@ import torch.distributed as dist
 
 AxisName = Union[str, Tuple[str, ...], None]
 
+# NVIDIA H100 SXM5 80 GB, per card (the H100 datasheet's SXM column; the
+# tensor-core figures are dense, without sparsity)
+PEAK_FLOPS_BF16 = 989e12          # FLOP/s, bf16 tensor cores
+PEAK_FLOPS_TF32 = 495e12          # FLOP/s, TF32 tensor cores
+PEAK_FLOPS_F32 = 67e12            # FLOP/s, float32 on the CUDA cores
+HBM_BW = 3.35e12                  # bytes/s, HBM3
+NVLINK_BW = 450e9                 # bytes/s a direction (NVLink 4: 900 GB/s
+#                                   both directions together)
+
+#: the collective kinds a step's bytes are counted under (the reference's
+#: HLO opcode names, ``src/repro/launch/roofline.py:30``)
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
 
 class Mesh:
     """Named axes over ``prod(sizes)`` ranks.
 
     ``coord`` (this rank's index on every axis) and the process groups
-    exist only for a live mesh; the rules and the dry-run need neither.
+    exist only for a live mesh (and ``coord`` for a stand-in); the rules
+    and the dry-run's bytes need neither.  ``counted`` (None, or a dict
+    the caller sets) adds up each collective's result bytes by kind
+    (``COLLECTIVES``) and their number under ``"count"``: the per-device
+    payload the reference sums from the partitioned HLO
+    (``src/repro/launch/roofline.py:52``).  A group of one rank moves
+    nothing and counts nothing.
     """
 
     def __init__(self, sizes: Sequence[int], axis_names: Sequence[str], *,
@@ -45,12 +73,36 @@ class Mesh:
         self.coord: Optional[Tuple[int, ...]] = None
         self._groups: Dict[Tuple[str, ...], Tuple[object, Tuple[int, ...]]]
         self._groups = {}
+        self.counted: Optional[Dict[str, int]] = None
+        self.is_stand_in = False
         if live:
             self._connect()
 
     def __repr__(self) -> str:
         axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
-        return f"Mesh({axes}{', live' if self.coord is not None else ''})"
+        kind = (", stand-in" if self.is_stand_in
+                else ", live" if self.coord is not None else "")
+        return f"Mesh({axes}{kind})"
+
+    def stand_in(self, rank: int = 0) -> "Mesh":
+        """This mesh's shape as rank ``rank`` sees it, with no process
+        group: ``coord`` is set, so the sharded step's hooks build on it
+        (``Strategy.hooks``), and each collective returns an uninitialised
+        tensor of its result's shape on the input's device (``meta`` in
+        the op analysis: nothing moves, nothing computes) and counts its
+        result bytes in ``counted`` (set to {} here)."""
+        out = Mesh(tuple(self.shape.values()), self.axis_names)
+        out.coord = out.coord_of(rank)
+        out.is_stand_in = True
+        out.counted = {}
+        return out
+
+    def _count(self, kind: str, result: torch.Tensor) -> torch.Tensor:
+        if self.counted is not None:
+            self.counted[kind] = (self.counted.get(kind, 0)
+                                  + result.numel() * result.element_size())
+            self.counted["count"] = self.counted.get("count", 0) + 1
+        return result
 
     # -- the live part ------------------------------------------------------
     def _connect(self) -> None:
@@ -139,10 +191,12 @@ class Mesh:
         """``x`` reduced over the ranks along ``axis`` (in place)."""
         if self.axis_size(axis) == 1:
             return x
-        group, _ = self._group(axis)
-        dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM,
-                               "max": dist.ReduceOp.MAX}[op], group=group)
-        return x
+        if not self.is_stand_in:
+            group, _ = self._group(axis)
+            dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM,
+                                   "max": dist.ReduceOp.MAX}[op],
+                            group=group)
+        return self._count("all-reduce", x)
 
     def all_gather(self, x: torch.Tensor, axis: AxisName, dim: int
                    ) -> torch.Tensor:
@@ -151,13 +205,18 @@ class Mesh:
         n = self.axis_size(axis)
         if n == 1:
             return x
+        if self.is_stand_in:
+            shape = list(x.shape)
+            shape[dim] *= n
+            return self._count("all-gather", x.new_empty(shape))
         group, ranks = self._group(axis)
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x.contiguous(), group=group)
         # all_gather fills by group rank (ascending global rank); put the
         # parts in the axis tuple's order
         by_rank = dict(zip(sorted(ranks), parts))
-        return torch.cat([by_rank[r] for r in ranks], dim=dim)
+        return self._count("all-gather",
+                           torch.cat([by_rank[r] for r in ranks], dim=dim))
 
     def reduce_scatter(self, x: torch.Tensor, axis: AxisName, dim: int
                        ) -> torch.Tensor:
@@ -168,11 +227,15 @@ class Mesh:
         n = self.axis_size(axis)
         if n == 1:
             return x
+        if self.is_stand_in:
+            return self._count("reduce-scatter", x.new_empty(
+                x.chunk(n, dim)[self.index(axis)].shape))
         group, ranks = self._group(axis)
         if x.is_cuda and dist.get_backend(group) == "gloo":
             full = x.contiguous().clone()
             dist.all_reduce(full, group=group)
-            return full.chunk(n, dim)[self.index(axis)].contiguous()
+            return self._count("reduce-scatter", full.chunk(n, dim)[
+                self.index(axis)].contiguous())
         # the group's chunk i goes to its i-th rank (ascending global
         # rank): order the axis chunks that way
         chunks = x.movedim(dim, 0).chunk(n, 0)
@@ -180,7 +243,7 @@ class Mesh:
         src = torch.cat([chunks[pos[r]] for r in sorted(ranks)]).contiguous()
         out = torch.empty_like(chunks[0], memory_format=torch.contiguous_format)
         dist.reduce_scatter_tensor(out, src, group=group)
-        return out.movedim(0, dim)
+        return self._count("reduce-scatter", out.movedim(0, dim))
 
     def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Equal chunks of ``x``'s leading dim: chunk ``i`` goes to the
@@ -188,10 +251,11 @@ class Mesh:
         from it."""
         if self.shape[axis] == 1:
             return x
-        group, _ = self._group(axis)
         out = torch.empty_like(x)
-        dist.all_to_all_single(out, x.contiguous(), group=group)
-        return out
+        if not self.is_stand_in:
+            group, _ = self._group(axis)
+            dist.all_to_all_single(out, x.contiguous(), group=group)
+        return self._count("all-to-all", out)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

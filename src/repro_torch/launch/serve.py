@@ -30,7 +30,8 @@ burn-rate objectives and ``--flight-record-out`` dumps the session's
 flight record, which ``python -m repro_torch.launch.replay`` replays
 (DESIGN.md §13).  ``--dry-run`` reports one (arch x shape) cell's
 per-device argument bytes on the production mesh under ``--strategy``
-(``launch/dryrun.py``); it touches no device.
+and its roofline, the step counted on ``meta`` (``launch/dryrun.py``);
+it touches no device.
 """
 from __future__ import annotations
 

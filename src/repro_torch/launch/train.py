@@ -10,8 +10,8 @@ step, a straggler counter per step), plus ``--device``: the card by
 default, ``cpu`` for the plain kernel versions; without a card and
 without ``--device cpu`` it raises.  ``--dry-run [--multi-pod]``
 reports the ``train_4k`` cell's per-device argument bytes under the
-``train`` strategy on the production mesh (``launch/dryrun.py``; no
-device).
+``train`` strategy on the production mesh and its roofline, the step
+counted on ``meta`` (``launch/dryrun.py``; no device).
 """
 from __future__ import annotations
 
@@ -41,7 +41,8 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--dry-run", action="store_true",
-                    help="per-device bytes of the production train step")
+                    help="per-device bytes of the production train step, "
+                         "and its roofline (counted on meta)")
     ap.add_argument("--multi-pod", action="store_true")
     args = ap.parse_args(argv)
 

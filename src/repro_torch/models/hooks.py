@@ -117,6 +117,8 @@ class LocalAxis:
         return x
 
     def argmax(self, x):
+        # the split argmax at one rank: torch.argmax's first maximum is
+        # cp: allow(CP002) the sampler's greedy rule (runtime/sampler.py)
         return x.argmax(-1)
 
     # -- the sequence-parallel residual stream ([B, S, D], S on dim 1) ----

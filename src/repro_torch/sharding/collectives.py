@@ -211,6 +211,7 @@ class AxisGroup(LocalAxis):
         to the lowest global id, as ``torch.argmax``'s (each rank's
         argmax is its first maximum; the gathered shards are in id
         order)."""
+        # cp: allow(CP002) each shard's first maximum: the sampler's rule
         idx = x.argmax(-1)
         if self._one():
             return idx
@@ -218,5 +219,6 @@ class AxisGroup(LocalAxis):
         gid = (idx + self.index * x.shape[-1]).float()   # exact below 2**24
         both = self.mesh.all_gather(torch.stack([val, gid])[None],
                                     self.axis, 0)        # [size, 2, ...]
+        # cp: allow(CP002) the first (lowest-id) shard's maximum wins a tie
         best = both[:, 0].argmax(0, keepdim=True)
         return both[:, 1].gather(0, best)[0].long()

@@ -599,6 +599,24 @@ class Strategy:
             "layers/ssm/in_proj",
             (cfg.n_layers, cfg.d_model, ssm_mod.proj_width(cfg)), (-1,))
 
+    def _ssm_pool_axes(self) -> Tuple[str, ...]:
+        """Axes the SSM's split projections are gathered and reduced over
+        in the step: ``in_proj``'s (``_ssm_split_axes``), or, where its
+        width does not split (mamba2's 3352 columns, zamba2's 8384, over
+        256 ranks), those of ``conv_w``'s channels and ``out_proj``'s
+        rows, which may still split (both over the same rule's axes)."""
+        axes = self._ssm_split_axes()
+        if axes or self.cfg.family not in ("ssm", "hybrid"):
+            return axes
+        cfg = self.cfg
+        _, d_in, _, conv_dim, _ = ssm_mod._dims(cfg)
+        used = set(self._split_axes(
+            "layers/ssm/conv_w", (cfg.n_layers, cfg.ssm.conv_width, conv_dim),
+            (-1,)))
+        used.update(self._split_axes(
+            "layers/ssm/out_proj", (cfg.n_layers, d_in, cfg.d_model), (1,)))
+        return tuple(a for a in self.mesh.axis_names if a in used)
+
     def _expert_axes(self) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
         """(the axes the routed experts split over, the axes their ``f``
         splits over) in the step: monolithic (model, ()), crosspool
@@ -619,7 +637,7 @@ class Strategy:
             return self._train_hooks()
         rows = self.row_axes
         split = self._ffn_split_axes()
-        ssm_split = self._ssm_split_axes()
+        ssm_split = self._ssm_pool_axes()
 
         def ffn_down(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             # this rank's partial product in float32, summed over the

@@ -41,6 +41,7 @@ from repro_torch.configs import get_config as t_config
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.launch.op_analysis import ModuleStats
 from repro_torch.models.hooks import IDENTITY_HOOKS, Hooks
 from repro_torch.models.model import build_model as t_build_model
 from repro_torch.sharding.spec import local_slices, shard_shape
@@ -207,9 +208,13 @@ def _ref_argument_bytes(arch, shape_name, multi_pod):
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
-def test_dryrun_bytes_equal_reference_rules(arch):
+def test_dryrun_bytes_equal_reference_rules(arch, monkeypatch):
     """``memory.argument_bytes`` of every cell on both production meshes
-    equals the reference rules' per-device bytes; skips agree."""
+    equals the reference rules' per-device bytes; skips agree.  (The
+    step's count on ``meta`` is stubbed: ``test_torch_roofline.py``
+    holds it.)"""
+    monkeypatch.setattr(dryrun, "analyze_cell",
+                        lambda *a: ModuleStats(0.0, {}, 0, 0))
     for multi_pod in (False, True):
         for shape_name in SHAPES_BY_NAME:
             rec = dryrun.run_cell(arch, shape_name, multi_pod=multi_pod,
@@ -225,6 +230,22 @@ def test_dryrun_bytes_equal_reference_rules(arch):
             want = _ref_argument_bytes(arch, shape_name, multi_pod)
             assert rec["memory"]["argument_bytes"] == want, \
                 (shape_name, multi_pod)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_ssm_pool_axes_on_the_production_mesh(arch, multi_pod):
+    """At published widths ``in_proj``'s columns (3352, 8384) do not
+    split over the weights pool, while ``conv_w``'s channels or
+    ``out_proj``'s rows do: the crosspool step gathers and reduces the
+    SSM over the weights pool, data x model (on two pods too: the pool
+    is a pod's)."""
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    st = make_strategy("crosspool", mesh, t_config(arch),
+                       T_SHAPES["decode_32k"])
+    assert st._ssm_split_axes() == ()
+    assert st._ssm_pool_axes() == ("data", "model")
+    assert not st.ssm_heads
 
 
 def test_production_mesh_has_no_devices():

@@ -223,6 +223,7 @@ def _steps_job(p):
                         seq_split=st.seq_split, a2a=st.a2a,
                         head_split=st.head_split, type_ii=st.type_ii,
                         ssm_heads=st.ssm_heads,
+                        ssm_pool=st._ssm_pool_axes(),
                         cache_bytes=dryrun.resident_bytes(cache),
                         cache_rule_bytes=tree_bytes(
                             st.step_cache_rules(), mesh, case["cache"]),
@@ -565,6 +566,15 @@ SERVE_CASES = (
     ("whisper-small", "monolithic", (1, 4), "decode"),
     ("whisper-small", "crosspool", (2, 2), "prefill"),
 )
+#: crosspool decode where ``in_proj``'s packed columns do not split over
+#: the weights pool while ``conv_w``'s channels and ``out_proj``'s rows do
+#: (as mamba2's 3352 and zamba2's 8384 columns over 256 ranks): a head of
+#: 64 leaves 2 heads, 290 columns, 160 channels and 128 rows, and the pool
+#: of (2,2) is all four ranks; (arch, mesh, SSM overrides)
+SSM_POOL_CASES = (
+    ("mamba2-130m", (2, 2), {"head_dim": 64}),
+    ("zamba2-1.2b", (2, 2), {"head_dim": 64}),
+)
 #: llava's stub patch embeddings ahead of the prompt in its prefill
 N_PATCHES = 4
 #: crosspool prefill-then-decode hand-offs: (arch, mesh, batch).  On (2,2)
@@ -593,7 +603,12 @@ def _reference_case(rng, arch, strat, mesh, kind, perf, over):
     from repro.models import build_model
 
     over = dict(over, dtype="float32")
+    ssm = over.pop("ssm", {})
     j_cfg = get_smoke_config(arch).replace(**over)
+    t_cfg = t_smoke(arch).replace(**over)
+    if ssm:
+        j_cfg = j_cfg.replace(ssm=replace(j_cfg.ssm, **ssm))
+        t_cfg = t_cfg.replace(ssm=replace(t_cfg.ssm, **ssm))
     model = build_model(j_cfg)
     params = model.init(jax.random.PRNGKey(3))
     tokens = rng.integers(0, j_cfg.vocab_size, (B, SEQ)).astype(np.int32)
@@ -611,7 +626,7 @@ def _reference_case(rng, arch, strat, mesh, kind, perf, over):
     shape = replace(T_SHAPES["prefill_32k" if kind == "prefill"
                              else "decode_32k"],
                     seq_len=MAX_LEN, global_batch=B)
-    case = dict(cfg=t_smoke(arch).replace(**over), shape=shape,
+    case = dict(cfg=t_cfg, shape=shape,
                 mesh=mesh, strategy=strat, perf=PerfOpts(**perf),
                 params=params_to_torch(_np_tree(params)))
     if kind == "prefill":
@@ -664,8 +679,8 @@ def _reference_handoff(rng, arch, mesh, n):
 
 @pytest.fixture(scope="module")
 def steps(tmp_path_factory):
-    """Every case of ``STEP_CASES``, ``SERVE_CASES`` then ``HANDOFFS``, in
-    one spawn."""
+    """Every case of ``STEP_CASES``, ``SERVE_CASES``, ``SSM_POOL_CASES``
+    then ``HANDOFFS``, in one spawn."""
     cases, wants = [], []
     rng = np.random.default_rng(0)
     for arch, strat, mesh, perf, over in STEP_CASES:
@@ -675,6 +690,11 @@ def steps(tmp_path_factory):
         wants.append(want)
     for arch, strat, mesh, kind in SERVE_CASES:
         case, want = _reference_case(rng, arch, strat, mesh, kind, {}, {})
+        cases.append(case)
+        wants.append(want)
+    for arch, mesh, ssm in SSM_POOL_CASES:
+        case, want = _reference_case(rng, arch, "crosspool", mesh, "decode",
+                                     {}, {"ssm": ssm})
         cases.append(case)
         wants.append(want)
     handoffs = []
@@ -793,6 +813,31 @@ def test_serve_step_places_every_leaf(steps, i):
         g[j]["param_bytes"] for g in got)
 
 
+@pytest.mark.parametrize("i", range(len(SSM_POOL_CASES)),
+                         ids=[f"{a}-{m[0]}x{m[1]}"
+                              for a, m, _ in SSM_POOL_CASES])
+def test_ssm_pool_without_in_proj_split(steps, i):
+    """Where ``in_proj`` stays whole, the step gathers ``conv_w``'s
+    channels and reduces ``out_proj``'s rows over the axes those leaves
+    split over (``Strategy._ssm_pool_axes``: data x model here): the
+    gathered logits within 2e-4 of the JAX package's single-device
+    ``decode_step``, every leaf the rules' cut and bytes, the state's
+    heads whole."""
+    got, wants = steps
+    j = len(STEP_CASES) + len(SERVE_CASES) + i
+    np.testing.assert_allclose(_gathered(got, j), wants[j], **STEP_TOL)
+    placed = {(k, p): spec for k, p, _, _, spec in got[0][j]["placed"]}
+    assert ("params", "layers/ssm/in_proj") not in placed
+    assert placed[("params", "layers/ssm/conv_w")][-1] is not None
+    assert placed[("params", "layers/ssm/out_proj")][-2] is not None
+    for g in got:
+        r = g[j]
+        assert r["ssm_pool"] == ("data", "model")
+        assert not r["ssm_heads"] and r["cut"]
+        assert r["param_bytes"] == r["rule_bytes"]
+        assert r["cache_bytes"] == r["cache_rule_bytes"]
+
+
 @pytest.mark.parametrize("h", range(len(HANDOFFS)),
                          ids=[f"{a}-{m[0]}x{m[1]}-B{n}"
                               for a, m, n in HANDOFFS])
@@ -805,7 +850,7 @@ def test_crosspool_prefill_then_decode_split_cache(steps, h):
     the last slice holds no token of the row where the sequence pools
     over four ranks."""
     got, wants = steps
-    i = len(STEP_CASES) + len(SERVE_CASES) + h
+    i = len(STEP_CASES) + len(SERVE_CASES) + len(SSM_POOL_CASES) + h
     arch, mesh, n = HANDOFFS[h]
     for step, want in enumerate(wants[i]):
         np.testing.assert_allclose(_gathered(got, i, step, n), want,

@@ -564,9 +564,14 @@ def test_one_rank_train_hooks_are_bit_exact(tmp_path):
         dist.destroy_process_group()
 
 
-def test_train_microbatches_equal_the_reference():
+def test_train_microbatches_equal_the_reference(monkeypatch):
     """The table is the reference's (read from its source: importing
-    ``repro.launch.dryrun`` sets the process's XLA device count)."""
+    ``repro.launch.dryrun`` sets the process's XLA device count).  The
+    step's count on ``meta`` is stubbed: 16 microbatches of 126 layers
+    take minutes op by op."""
+    from repro_torch.launch.op_analysis import ModuleStats
+    monkeypatch.setattr(dryrun, "analyze_cell",
+                        lambda *a: ModuleStats(0.0, {}, 0, 0))
     src = (ROOT / "src/repro/launch/dryrun.py").read_text()
     node = next(n for n in ast.parse(src).body
                 if isinstance(n, ast.Assign)

@@ -489,10 +489,15 @@ def test_train_launcher_on_the_cpu_resumes(capsys):
     assert "done: 3 steps" in out.split("resumed from step 2")[1]
 
 
-def test_train_launcher_refuses_what_it_cannot_run(capsys):
+def test_train_launcher_refuses_what_it_cannot_run(capsys, monkeypatch):
     """``--dry-run`` (ported: the ``train_4k`` cell's per-device bytes on
     the production mesh, no device) runs anywhere; training without a
-    card and without ``--device cpu`` is refused."""
+    card and without ``--device cpu`` is refused.  The step's count on
+    ``meta`` is stubbed (``test_torch_roofline.py`` holds it)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_analysis import ModuleStats
+    monkeypatch.setattr(dryrun, "analyze_cell",
+                        lambda *a: ModuleStats(0.0, {}, 0, 0))
     with pytest.raises(SystemExit) as done:
         t_train.main(["--arch", MOE, "--dry-run", "--multi-pod"])
     assert done.value.code == 0
