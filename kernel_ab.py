@@ -172,7 +172,7 @@ def _cases(torch, ref, kops, loads):
                            (dyt, wt.transpose(1, 2)))]
             for row, call, plain, lib_args in calls:
                 # torch._grouped_mm on the same operands (one() asks
-                # chip_smoke.library_grouped_mm): the library yardstick
+                # p08_moe_gemm.library_grouped_mm): the library yardstick
                 label = (f"row {row} {name} N={N} K={K} M={M} E={E} "
                          f"{load}")
                 out.append((label, call, plain, tol,
@@ -181,7 +181,7 @@ def _cases(torch, ref, kops, loads):
     return out
 
 
-#: rows 6 / 6b at phase 3's timed shapes (``chip_smoke.SSD_BWD_TIMED``):
+#: rows 6 / 6b at phase 3's timed shapes (``p03_kernels.SSD_BWD_TIMED``):
 #: (label, B, S, dtype, tolerance of max(1, max|plain|)); chunk 256
 SSD_SHAPES = (("train shape", 8, 512, "float32", 1e-3),
               ("S=1024", 1, 1024, "bfloat16", 2e-2))
@@ -193,11 +193,11 @@ def _ssd_cases(torch, kops, gen):
     """Row 6b (the SSD scan's backward) at both geometries and both of
     phase 3's timed shapes, and row 6 (the forward) in float32 at the
     train shape, each checked by phase 3's scale-relative rule."""
-    import chip_smoke as cs
+    from chip_smoke_phases import p03_kernels
     from repro_torch.kernels.ssd_chunked import (ssd_scan_chunked,
                                                  ssd_scan_chunked_bwd)
     out, L = [], 256
-    for geom, (H, P, G, N) in cs.ssd_geometries().items():
+    for geom, (H, P, G, N) in p03_kernels.ssd_geometries().items():
         for label, B, S, dtype, tol in SSD_SHAPES:
             dtype = getattr(torch, dtype)
 
@@ -259,7 +259,8 @@ def one(root: str, loads_path: str) -> None:
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
     sys.path.insert(0, str(HERE))
-    import chip_smoke as cs               # the timing harness of this tree
+    # the timing harness of this tree
+    from chip_smoke_phases import common, p08_moe_gemm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
@@ -272,21 +273,21 @@ def one(root: str, loads_path: str) -> None:
     for label, call, plain, tol, *library in _cases(torch, ref, kops,
                                                     loads):
         err = _check(torch, root, label, call(), plain(), tol)
-        print(f"AB {label} | {cs.time_ms(torch, call):.4f} ms "
+        print(f"AB {label} | {common.time_ms(torch, call):.4f} ms "
               f"err {err:.3g}", flush=True)
         if library and isinstance(library[0], tuple):
             backend, args = library[0]
             if backend == "none":
                 print(f"LIB {label} | none {args}", flush=True)
                 continue
-            lib_call, why = cs.library_grouped_mm(torch, *args)
+            lib_call, why = p08_moe_gemm.library_grouped_mm(torch, *args)
             if lib_call is None:
                 print(f"LIB {label} | none {why}", flush=True)
             else:
-                print(f"LIB {label} | {cs.time_ms(torch, lib_call):.4f} ms "
-                      f"{backend}", flush=True)
+                ms = common.time_ms(torch, lib_call)
+                print(f"LIB {label} | {ms:.4f} ms {backend}", flush=True)
         elif library:
-            ms, backend, _ = cs.library_sdpa(torch, library[0])
+            ms, backend, _ = common.library_sdpa(torch, library[0])
             print(f"LIB {label} | {ms:.4f} ms {backend}", flush=True)
 
 
@@ -313,7 +314,7 @@ def ablate(loads_path: str) -> None:
     import torch
     sys.path.insert(0, str(HERE / "src"))
     sys.path.insert(0, str(HERE))
-    import chip_smoke as cs
+    from chip_smoke_phases import common
     from repro_torch.kernels import build
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import ops as kops
@@ -348,7 +349,7 @@ def ablate(loads_path: str) -> None:
             times = defaultdict(list)
             for name in list(libs) + list(libs)[::-1]:
                 mg.load_library = lambda lib=libs[name]: lib
-                times[name].append(cs.time_ms(torch, call))
+                times[name].append(common.time_ms(torch, call))
             mg.load_library = lambda: real
             print(f"ABL bf16 {call_name} {load} | " + ", ".join(
                 f"{name} {a:.4f} / {b:.4f}" for name, (a, b) in
@@ -419,7 +420,7 @@ def ablate_ssd() -> None:
     import torch
     sys.path.insert(0, str(HERE / "src"))
     sys.path.insert(0, str(HERE))
-    import chip_smoke as cs
+    from chip_smoke_phases import common, p03_kernels
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ssd_scan as ssd
@@ -431,7 +432,7 @@ def ablate_ssd() -> None:
                          "ssd_chunked_scan_bwd", "ssd_scan_supported",
                          "ssd_scan_bwd_workspace")})
     gen = torch.Generator(device="cuda").manual_seed(31)
-    for geom, (H, P, G, N) in cs.ssd_geometries().items():
+    for geom, (H, P, G, N) in p03_kernels.ssd_geometries().items():
         for label, B, S, dtype, _ in SSD_SHAPES:
             dtype = getattr(torch, dtype)
 
@@ -454,9 +455,9 @@ def ablate_ssd() -> None:
                 err = max(float((g.float() - w.float()).abs().max())
                           / max(1.0, float(w.float().abs().max()))
                           for g, w in zip(call(), want))
-                pair = sum(ms for k, ms in cs.launch_split(torch, call)
+                pair = sum(ms for k, ms in common.launch_split(torch, call)
                            .items() if "pair" in k)
-                runs[name].append((cs.time_ms(torch, call), pair, err))
+                runs[name].append((common.time_ms(torch, call), pair, err))
             ssd.load_library = lambda: real
             for name, ((a, pa, e), (b, pb, _)) in runs.items():
                 print(f"ABL {geom} {label} {str(dtype)[6:]} {name}: "

@@ -56,7 +56,7 @@ def one(root: str, mode: str, fallback: bool) -> None:
     import numpy as np
     import torch
 
-    import chip_smoke as cs
+    from chip_smoke_phases import common, p05_serve, p16_sharded_serve
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as kops
@@ -65,9 +65,9 @@ def one(root: str, mode: str, fallback: bool) -> None:
     if mode == "sharded":
         import tempfile
         build.build_all()
-        runs = [r for r in cs.SERVE_SHARD_RUNS if r[2] == "crosspool"]
+        runs = [r for r in common.SERVE_SHARD_RUNS if r[2] == "crosspool"]
         with tempfile.TemporaryDirectory() as tmp:
-            fig = cs.sharded_serve_phase(torch, kops, tmp,
+            fig = p16_sharded_serve.sharded_serve_phase(torch, kops, tmp,
                                          torch.cuda.get_device_name(0),
                                          runs=runs)
         for run in fig["runs"]:
@@ -83,14 +83,15 @@ def one(root: str, mode: str, fallback: bool) -> None:
                                          pipeline=pipeline)
     build.build_all()
     phases = [("serve", coloc_models(full_width=True),
-               cs.SERVE_K if lowering else 1, 16384, cs.check_coloc, kw)]
+               common.SERVE_K if lowering else 1, 16384,
+               p05_serve.check_coloc, kw)]
     if fallback:
         phases.append(("serve fallback",
-                       {n: get_config(n) for n in cs.FALLBACK_MODELS}, 1,
-                       32768, cs.check_fallback, {}))
+                       {n: get_config(n) for n in common.FALLBACK_MODELS}, 1,
+                       32768, p05_serve.check_fallback, {}))
     for label, models, k, budget, check, extra in phases:
         for _ in range(2):                 # a warm-up run, then the timed one
-            _, fig = cs.serve_phase(torch, np, kops, models, k=k,
+            _, fig = p05_serve.serve_phase(torch, np, kops, models, k=k,
                                     page_budget=budget, label=label,
                                     check=check, **extra)
             gc.collect()

@@ -33,7 +33,6 @@ have no counterpart.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import math
 import time
@@ -172,6 +171,8 @@ class TrainCell(NamedTuple):
     shard_state: Callable   # whole TrainState -> this rank's shards
     state_specs: Callable   # TrainState -> its tree of partition specs
     local_batch: Callable   # whole batch {name: [B, ...]} -> this rank's rows
+    #                         (and ``row_mask`` / ``real_rows`` where it
+    #                         pads them)
 
 
 def build_train_cell(cfg: ModelConfig, shape: ShapeConfig,
@@ -184,7 +185,17 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeConfig,
     (params, m, v, the error-feedback tree) is placed by the train rules;
     ``local_batch`` gives this rank the rows of each microbatch the
     reference places there (the batch split [G, B/G], each microbatch's
-    rows over the batch axes).  ``moe_path`` routes the MoE as
+    rows over the batch axes).  Where a microbatch's B/G rows do not
+    split over the batch axes, each microbatch is padded at its end to
+    whole rows a rank, as the reference's partitioner pads it: the real
+    rows come first in global order, a rank may hold pad rows only, and
+    the batch gains ``row_mask`` ([rows] bool, this rank's rows) and
+    ``real_rows`` (an int: each microbatch's real rows over every batch
+    rank), which keep pad rows out of the loss, the MoE's capacity and
+    slots and the load-balance loss (``train_step.make_loss_fn``,
+    ``moe._routed``): the step computes the unpadded batch's loss and
+    gradients.  ``moe_path``
+    routes the MoE as
     ``forward``'s (the grouped path runs ``moe_gemm`` over this rank's
     experts).  ``optimizer`` replaces the reference's AdamW (its moment
     dtype kept by the caller).  The stub modality inputs (a vlm's
@@ -217,16 +228,28 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeConfig,
         return shard_by_specs(state_specs(state), mesh, state)
 
     def local_batch(batch: Dict) -> Dict:
-        out = {}
-        for name, x in batch.items():
-            B = x.shape[0]
-            if B % (G * axis_size(mesh, bax)):
-                raise ValueError(f"batch {B} does not split into {G} "
-                                 f"microbatches over {bax}")
-            mb = x.reshape(G, B // G, *x.shape[1:])
+        out, ranks = {}, axis_size(mesh, bax)
+
+        def local(mb):          # [G, rows, ...] -> this rank's [G * r, ...]
             mb = mb[(slice(None),) + local_slices(mesh, mb.shape[1:],
                                                   (bax,))]
-            out[name] = mb.reshape(-1, *x.shape[1:])
+            return mb.reshape(-1, *mb.shape[2:])
+        for name, x in batch.items():
+            B = x.shape[0]
+            if B % G:
+                raise ValueError(f"batch {B} does not split into {G} "
+                                 f"microbatches")
+            rows = B // G
+            padded = -(-rows // ranks) * ranks
+            mb = x.reshape(G, rows, *x.shape[1:])
+            if padded != rows:
+                mb = torch.cat([mb, mb.new_zeros(
+                    (G, padded - rows) + tuple(x.shape[1:]))], 1)
+            out[name] = local(mb)
+        if padded != rows:
+            real = torch.arange(padded, device=x.device) < rows
+            out["row_mask"] = local(real.expand(G, padded))
+            out["real_rows"] = rows
         return out
 
     return TrainCell(
@@ -325,7 +348,7 @@ def local_rows(strategy: Strategy, x: torch.Tensor) -> torch.Tensor:
 
 def resident_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in leaves(tree)
-               if t is not None)
+               if isinstance(t, torch.Tensor))
 
 
 def greedy(strategy: Strategy, logits: torch.Tensor) -> torch.Tensor:
@@ -376,8 +399,8 @@ def padded_batch(strategy: Strategy, microbatches: int) -> int:
     the cell's, or, where a microbatch's rows do not split over the batch
     axes (llama3-405b's 16 microbatches of 16 rows over the multi-pod
     mesh's 32), the batch padded to whole rows a rank, as the reference's
-    partitioner pads it.  The port's train cell itself refuses such a
-    batch (``TrainCell.local_batch``; ROADMAP Queue 3 item 5)."""
+    partitioner pads it and as the cell's ``local_batch`` pads it
+    (``run_cell`` reports it as ``analyzed_batch``)."""
     per = microbatches * axis_size(strategy.mesh, strategy.bax)
     return -(-strategy.shape.global_batch // per) * per
 
@@ -388,8 +411,10 @@ def analyze_cell(cfg: ModelConfig, shape: ShapeConfig, strategy: Strategy
     must be a stand-in (``Mesh.stand_in``), on ``meta`` tensors at the
     rank's shard shapes, and count it (``op_analysis.analyze_step``): the
     train cell's whole step (every microbatch's forward and backward, the
-    AdamW update; the batch as ``padded_batch`` gives it) with grad
-    enabled, the serve cell's decode step or prefill under
+    AdamW update; a batch whose microbatches do not split over the batch
+    axes padded by the cell's own ``local_batch``, as ``padded_batch``
+    counts it) with grad enabled, the serve cell's decode step or
+    prefill under
     ``torch.no_grad()``."""
     mesh = strategy.mesh
     if not mesh.is_stand_in:
@@ -398,10 +423,6 @@ def analyze_cell(cfg: ModelConfig, shape: ShapeConfig, strategy: Strategy
     specs = input_specs(cfg, shape)
     if shape.kind == "train":
         cell = build_train_cell(cfg, shape, strategy)
-        rows = padded_batch(strategy, cell.microbatches)
-        if rows != shape.global_batch:
-            specs = input_specs(cfg, dataclasses.replace(
-                shape, global_batch=rows))
         fb = (init_error_feedback(params) if strategy.perf.compress_grads
               else None)
         state = TrainState(params, cell.optimizer.init(params), fb)

@@ -103,7 +103,9 @@ def dispatch_indices(experts: torch.Tensor, n_experts: int, capacity: int,
 def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
               capacity: Optional[int] = None,
               slot_offset: Optional[torch.Tensor] = None,
-              hooks: Hooks = IDENTITY_HOOKS
+              hooks: Hooks = IDENTITY_HOOKS,
+              row_mask: Optional[torch.Tensor] = None,
+              real_rows: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed expert FFN.  x: [B,S,D] (or [N,D]).  Returns (out same
     shape, aux — the Switch load-balance loss).
@@ -112,12 +114,15 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     many pairs were routed there already (``dispatch_indices``); with the
     producing pass's ``capacity`` it is the prefix-cached suffix prefill.
     A pair pushed past capacity is dropped by the keep mask and adds 0.
-    Under the sharded step's hooks see ``_routed``."""
-    return _routed(p, x, cfg, "capacity", capacity, slot_offset, hooks)
+    Under the sharded step's hooks (and ``row_mask``) see ``_routed``."""
+    return _routed(p, x, cfg, "capacity", capacity, slot_offset, hooks,
+                   row_mask, real_rows)
 
 
 def apply_moe_grouped(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
-                      hooks: Hooks = IDENTITY_HOOKS
+                      hooks: Hooks = IDENTITY_HOOKS,
+                      row_mask: Optional[torch.Tensor] = None,
+                      real_rows: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-sorted grouped-GEMM MoE (``moe.py:309-344``): no capacity,
     no drop.  x: [B,S,D] (or [N,D]).  Returns (out same shape, aux).
@@ -128,15 +133,18 @@ def apply_moe_grouped(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     read a max back to the host) and the three expert products run through
     ``ops.moe_gemm``.  The combine unsorts the gated rows with the inverse
     permutation and sums each token's k rows in f32: the reference's
-    segment sum, with no atomics.  Under the sharded step's hooks see
-    ``_routed``.
+    segment sum, with no atomics.  Under the sharded step's hooks (and
+    ``row_mask``) see ``_routed``.
     """
-    return _routed(p, x, cfg, "grouped", None, None, hooks)
+    return _routed(p, x, cfg, "grouped", None, None, hooks, row_mask,
+                   real_rows)
 
 
 def _routed(p: Dict, x: torch.Tensor, cfg: ModelConfig, moe_path: str,
             capacity: Optional[int], slot_offset: Optional[torch.Tensor],
-            hooks: Hooks) -> Tuple[torch.Tensor, torch.Tensor]:
+            hooks: Hooks, row_mask: Optional[torch.Tensor] = None,
+            real_rows: Optional[int] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The body of ``apply_moe`` (``moe_path="capacity"``) and
     ``apply_moe_grouped`` (``"grouped"``).
 
@@ -154,6 +162,15 @@ def _routed(p: Dict, x: torch.Tensor, cfg: ModelConfig, moe_path: str,
     kernel leaves them 0).  The combine is summed over tp and the
     load-balance loss takes its means over the global batch.  At one
     rank every step is the unsharded one.
+
+    ``row_mask`` ([B] bool; x [B,S,D]) marks the real rows of a batch the
+    train cell padded to whole rows a rank (pad rows come after every
+    real row in the global order), ``real_rows`` of them over every batch
+    rank.  A pad row's pairs count in no expert's slots, take no slot
+    (``keep`` false) and on the grouped path sort past the groups; the
+    capacity is ``expert_capacity`` of the real tokens (the dispatch
+    buffer keeps the padded batch's C, which is no smaller); the
+    load-balance loss averages over the real tokens.
 
     Under the sharded serve step's hooks the experts split over
     ``hooks.experts`` (crosspool's ``data``; monolithic's ``model`` is
@@ -179,17 +196,28 @@ def _routed(p: Dict, x: torch.Tensor, cfg: ModelConfig, moe_path: str,
     local = flat - e0
     mine = (local >= 0) & (local < E_loc) if split else None
     token_ids = torch.arange(N, device=x.device).repeat_interleave(k)
+    valid = real = n_real = None
+    if row_mask is not None:
+        valid = row_mask[:, None].expand(x.shape[:-1]).reshape(-1)  # [N]
+        real = valid.repeat_interleave(k)                    # [N*k]
+        n_real = real_rows * (N // row_mask.shape[0])        # global tokens
 
     if moe_path == "capacity":
         C = capacity or expert_capacity(N * dp.size, cfg)
-        if dp.size > 1:
-            counts = F.one_hot(flat, E).sum(0)               # [E]
-            lower = dp.gather(counts[None], 0)[:dp.index].sum(0)
+        C_keep = (expert_capacity(n_real, cfg)
+                  if real is not None and capacity is None else C)
+        if dp.size > 1 or real is not None:
+            onehot = F.one_hot(flat, E)
+            if real is not None:
+                onehot = onehot * real[:, None]
+            lower = dp.gather(onehot.sum(0)[None], 0)[:dp.index].sum(0)
             slot_offset = lower if slot_offset is None \
                 else slot_offset + lower
-        slot, keep = dispatch_indices(experts, E, C, offset=slot_offset)
+        slot, keep = dispatch_indices(experts, E, C_keep, offset=slot_offset)
         # ---- dispatch: scatter tokens into [E_loc, C, D] -------------------
         keep = keep.reshape(-1) if mine is None else keep.reshape(-1) & mine
+        if real is not None:
+            keep = keep & real
         dst = torch.where(keep, local * C + slot.reshape(-1),
                           torch.full_like(flat, E_loc * C))
         buf = torch.zeros((E_loc * C + 1, d), dtype=xf.dtype,
@@ -211,6 +239,8 @@ def _routed(p: Dict, x: torch.Tensor, cfg: ModelConfig, moe_path: str,
     elif moe_path == "grouped":
         key = local if mine is None else torch.where(
             mine, local, torch.full_like(local, E_loc))
+        if real is not None:            # pad rows' pairs past the groups
+            key = torch.where(real, key, torch.full_like(key, E_loc))
         order = torch.argsort(key, stable=True)
         x_sorted = x_in[token_ids[order]]                    # [N*k, D]
         group_sizes = F.one_hot(key, E_loc + 1)[:, :E_loc].sum(0).to(
@@ -227,7 +257,7 @@ def _routed(p: Dict, x: torch.Tensor, cfg: ModelConfig, moe_path: str,
     # order), so the reference's segment sum over token ids is a sum over
     # the k axis: same terms, no atomics, deterministic on the card
     y = y_pairs.float().reshape(N, k, d).sum(dim=1)
-    aux = _aux_loss(experts, probs, cfg, dp)
+    aux = _aux_loss(experts, probs, cfg, dp, valid, n_real)
     if hooks.moe_sum is not None:
         ys = None
         if cfg.n_shared_experts:
@@ -257,15 +287,23 @@ def _f32_down(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _aux_loss(experts: torch.Tensor, probs: torch.Tensor, cfg: ModelConfig,
-              dp=None) -> torch.Tensor:
+              dp=None, valid: Optional[torch.Tensor] = None,
+              n_real: Optional[int] = None) -> torch.Tensor:
     """The Switch load-balance loss ``E * sum_e f_e * P_e / k``.  With
     ``dp`` (rows split over the batch axes) both means are the global
-    batch's: the sums are reduced over ``dp`` before the product."""
+    batch's: the sums are reduced over ``dp`` before the product.  With
+    ``valid`` ([N] bool: a padded batch's real tokens, ``n_real`` of them
+    over every batch rank) both means are over the real tokens alone."""
     E, k = cfg.n_experts, cfg.experts_per_token
     pair_onehot = F.one_hot(experts.long(), E).float()       # [N,k,E]
-    if dp is None or dp.size == 1:
+    one_rank = dp is None or dp.size == 1
+    if valid is None and one_rank:
         frac_tokens = pair_onehot.sum(dim=1).mean(dim=0)
         return E * torch.sum(frac_tokens * probs.mean(dim=0)) / k
-    n = experts.shape[0] * dp.size
-    frac_tokens = dp.sum(pair_onehot.sum(dim=(0, 1))) / n
-    return E * torch.sum(frac_tokens * (dp.sum(probs.sum(dim=0)) / n)) / k
+    total = (lambda t: t) if one_rank else dp.sum
+    n = experts.shape[0] * dp.size if valid is None else n_real
+    if valid is not None:
+        pair_onehot = pair_onehot * valid[:, None, None]
+        probs = probs * valid[:, None]
+    frac_tokens = total(pair_onehot.sum(dim=(0, 1))) / n
+    return E * torch.sum(frac_tokens * (total(probs.sum(dim=0)) / n)) / k

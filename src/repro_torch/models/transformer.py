@@ -252,7 +252,8 @@ def _attn_full(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 def _ffn_full(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
               moe_path: str = "capacity", hooks: Hooks = IDENTITY_HOOKS,
-              ln: str = "ln2"):
+              ln: str = "ln2", row_mask: Optional[torch.Tensor] = None,
+              real_rows: Optional[int] = None):
     """Pre-norm (``p_l[ln]``) MLP or routed-expert FFN + residual: (x,
     aux).  MoE layers
     take ``hooks.moe_apply`` when set (the explicit all-to-all dispatch,
@@ -262,7 +263,10 @@ def _ffn_full(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
     pool boundary.  Under the sharded training step's hooks the dense
     MLP's hidden splits over ``tp`` (its partial sums reduced back to the
     residual's layout, ``tp.seq_out``), and under sequence parallelism
-    the FFN reads the whole sequence (``tp.seq_in``)."""
+    the FFN reads the whole sequence (``tp.seq_in``).  ``row_mask``
+    ([B] bool, a padded train batch's real rows; ``real_rows`` of them
+    over every batch rank) keeps pad rows out of the MoE's batch
+    statistics."""
     tp = hooks.tp
     h = tp.seq_in(hooks.boundary_in(
         layers.rms_norm(x, tp.seq_weight(p_l[ln]), cfg.norm_eps)))
@@ -271,11 +275,15 @@ def _ffn_full(p_l: Dict, cfg: ModelConfig, x: torch.Tensor,
         if moe_path not in ("capacity", "grouped"):
             raise ValueError(f"unknown moe_path {moe_path!r}")
         if hooks.moe_apply is not None:
+            if row_mask is not None:
+                raise NotImplementedError(
+                    "the all-to-all expert dispatch takes no padded rows")
             f, aux = hooks.moe_apply(p_l["moe"], h)
         else:
             fn = (moe_mod.apply_moe if moe_path == "capacity"
                   else moe_mod.apply_moe_grouped)
-            f, aux = fn(p_l["moe"], h, cfg, hooks=hooks)
+            f, aux = fn(p_l["moe"], h, cfg, hooks=hooks, row_mask=row_mask,
+                        real_rows=real_rows)
     else:
         f, partial = layers.apply_mlp_split(
             p_l["mlp"], h, cfg.mlp_kind, cfg.d_ff, tp,
@@ -306,7 +314,9 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             embeddings: Optional[torch.Tensor] = None,
             encoder_frames: Optional[torch.Tensor] = None,
             impl: str = "xla", moe_path: str = "capacity",
-            remat: bool = False, hooks: Hooks = IDENTITY_HOOKS
+            remat: bool = False, hooks: Hooks = IDENTITY_HOOKS,
+            row_mask: Optional[torch.Tensor] = None,
+            real_rows: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward (training, prefill without a cache):
     (logits [B,S,V], aux scalar f32).
@@ -318,7 +328,10 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     prefix), the ssm and hybrid stacks, and the whisper decoder over
     ``encode(encoder_frames)``.
     ``remat=True`` recomputes each layer's (each hybrid group's)
-    activations in the backward.
+    activations in the backward.  ``row_mask`` ([B] bool): the real rows
+    of a batch the sharded train cell padded, ``real_rows`` of them over
+    every batch rank; the MoE layers keep the others out of their
+    capacity, slots and load-balance loss (no other layer mixes rows).
     """
     fam = cfg.family
     if fam not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio"):
@@ -342,7 +355,8 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                                0 if is_global else cfg.sliding_window, hooks)
         else:
             xc, _ = _attn_full(p_l, cfg, xc, positions, impl, hooks=hooks)
-        return _ffn_full(p_l, cfg, xc, moe_path, hooks)
+        return _ffn_full(p_l, cfg, xc, moe_path, hooks, row_mask=row_mask,
+                         real_rows=real_rows)
 
     def ssm_block(xc, p_l, top="layers"):
         p_l = hooks.params.gather(p_l, top)

@@ -166,8 +166,13 @@ class ParamShards(WholeParams):
     serve step's attention under DP attention, ``pool`` = ``model``).
     ``grad_mean`` sums each leaf's gradient over the batch axes it is
     replicated on (one all-reduce per set of axes) and divides every leaf
-    by the batch axes' width.  ``leaf_stats`` reduces a per-leaf
-    statistic over the axes the leaf is split on."""
+    by the batch axes' width: the mean over the real tokens, also for a
+    batch the train cell padded (a rank's loss is then its real tokens'
+    share of the global mean times that width,
+    ``train_step.make_loss_fn``: the weighting by real tokens comes before
+    the backward, where the load-balance loss's global sums need it too).
+    ``leaf_stats`` reduces a per-leaf statistic over the axes the leaf is
+    split on."""
 
     def __init__(self, mesh: Mesh, specs, pool: Tuple[str, ...],
                  batch: Tuple[str, ...], expert_parallel=(), only=None):

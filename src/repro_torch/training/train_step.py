@@ -37,13 +37,15 @@ class TrainState(NamedTuple):
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None, *, tp=None,
-                  vocab: Optional[int] = None) -> torch.Tensor:
+                  vocab: Optional[int] = None,
+                  total: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross-entropy, logsumexp in f32.  logits [B,S,V],
     labels [B,S].  Logits over this rank's part of the vocabulary
     ([B,S,V/tp], ids ``[index * V/tp, ...)``, when ``V`` is below
     ``vocab``) take the split softmax: the max and the sum of
     exponentials are reduced over ``tp`` and the gold logit comes from
-    the rank that owns its id."""
+    the rank that owns its id.  With ``mask`` the mean is over the masked
+    tokens: their sum over ``total`` (default: the mask's own sum)."""
     V = logits.shape[-1]
     if tp is None or vocab is None or V == vocab:
         nll = F.cross_entropy(logits.float().reshape(-1, V),
@@ -59,7 +61,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         gold = tp.reduce(torch.where(own, gold, torch.zeros_like(gold)))
         nll = top[..., 0] + torch.log(sumexp) - gold
     if mask is not None:
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        if total is None:
+            total = torch.clamp(torch.sum(mask), min=1.0)
+        return torch.sum(nll * mask) / total
     return torch.mean(nll)
 
 
@@ -68,15 +72,29 @@ def make_loss_fn(model: Model, *, hooks: Hooks = IDENTITY_HOOKS,
                  extra_inputs: Optional[Callable[[Dict], Dict]] = None):
     """loss_fn(params, batch) -> (loss, metrics).  Under the sharded
     step's ``hooks`` it is this rank's loss: the mean cross-entropy of its
-    rows plus the (global) aux loss."""
+    rows plus the (global) aux loss.  A batch padded by the train cell
+    (``launch/dryrun.py`` ``local_batch``) carries ``row_mask`` and
+    ``real_rows`` (the microbatch's real rows over every rank): the
+    cross-entropy is then this rank's real tokens' share of the mean over
+    every rank's real tokens, times the batch ranks (which
+    ``make_grad_fn``'s mean divides by), and ``forward`` keeps the pad
+    rows out of the MoE."""
     def loss_fn(params: Dict, batch: Dict) -> Tuple[torch.Tensor, Dict]:
         kwargs = extra_inputs(batch) if extra_inputs else {}
+        mask = batch.get("row_mask")
+        if mask is not None:
+            kwargs.update(row_mask=mask, real_rows=batch["real_rows"])
         logits, aux = tfm.forward(params, model.cfg, batch["tokens"],
                                   remat=remat, hooks=hooks, **kwargs)
         S_txt = batch["tokens"].shape[1]
         logits_txt = logits[:, -S_txt:, :]
-        ce = cross_entropy(logits_txt[:, :-1], batch["tokens"][:, 1:],
-                           tp=hooks.tp, vocab=model.cfg.vocab_size)
+        labels = batch["tokens"][:, 1:]
+        real = total = None
+        if mask is not None:
+            real = mask[:, None].expand(labels.shape).float()
+            total = batch["real_rows"] * labels.shape[1] / hooks.dp.size
+        ce = cross_entropy(logits_txt[:, :-1], labels, real, tp=hooks.tp,
+                           vocab=model.cfg.vocab_size, total=total)
         loss = ce + aux_weight * aux
         return loss, {"ce": ce, "aux": aux, "loss": loss}
     return loss_fn
@@ -93,8 +111,11 @@ def make_grad_fn(model: Model, *, hooks: Hooks = IDENTITY_HOOKS,
     ``grads`` are this rank's shards and ``batch`` its rows (microbatch i
     is rows ``[i * B/G, (i+1) * B/G)`` of them: ``build_train_cell``'s
     ``local_batch`` places each microbatch's rows as the reference
-    does); the gradients get the data-parallel mean
-    (``hooks.params.grad_mean``) and the cross-entropy the batch's mean."""
+    does, a padded batch with its ``row_mask`` and ``real_rows``); the
+    gradients get the data-parallel mean (``hooks.params.grad_mean``)
+    and the cross-entropy the batch's mean: the sums of the ranks' losses
+    over the batch ranks, which a padded batch's losses are scaled for
+    (``make_loss_fn``)."""
     loss_fn = make_loss_fn(model, hooks=hooks, aux_weight=aux_weight,
                            remat=remat, extra_inputs=extra_inputs)
     G = num_microbatches
@@ -114,7 +135,9 @@ def make_grad_fn(model: Model, *, hooks: Hooks = IDENTITY_HOOKS,
         if G == 1:
             metrics, grads = grads_of(params, batch)
         else:
+            # a padded batch's ``real_rows`` (an int) is each microbatch's
             mb = {k: v.reshape(G, v.shape[0] // G, *v.shape[1:])
+                  if isinstance(v, torch.Tensor) else [v] * G
                   for k, v in batch.items()}
             grads = map_tree(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)

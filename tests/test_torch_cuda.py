@@ -36,10 +36,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 @pytest.fixture
 def smoke():
-    """``chip_smoke.py`` at the repo's root: its graph checks."""
+    """``chip_smoke.py``'s phase modules at the repo's root
+    (``chip_smoke_phases``): its graph checks."""
     sys.path.insert(0, str(ROOT))
-    import chip_smoke
-    return chip_smoke
+    import chip_smoke_phases
+    from chip_smoke_phases import (common, p03_kernels,  # noqa: F401
+                                   p04_small, p13_examples)
+    return chip_smoke_phases
 
 
 @pytest.fixture
@@ -1113,32 +1116,35 @@ def test_split_replay_equals_eager(cuda, smoke, dtype, k):
     """The smoke coloc set: a decode block's graph replay gives the same
     tokens and pool bytes as the step body called eagerly from the same
     state."""
-    engine, _ = smoke.smoke_engine(torch, PAPER_COLOC_SET, dtype, k)
-    smoke.replay_matches_eager(torch, engine)
+    engine, _ = smoke.p04_small.smoke_engine(torch, PAPER_COLOC_SET, dtype,
+                                             k)
+    smoke.p04_small.replay_matches_eager(torch, engine)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fallback_replay_equals_eager(cuda, smoke, dtype):
     """zamba2 + mamba2 smoke: a decode step's graph replay gives the same
     tokens and dense cache as the eager body from the same state."""
-    engine, _ = smoke.smoke_engine(torch, smoke.FALLBACK_MODELS, dtype)
-    smoke.replay_matches_eager(torch, engine)
+    engine, _ = smoke.p04_small.smoke_engine(
+        torch, smoke.common.FALLBACK_MODELS, dtype)
+    smoke.p04_small.replay_matches_eager(torch, engine)
 
 
 @pytest.mark.parametrize("which", ["coloc", "fallback"])
 def test_block_dispatch_is_sync_free(cuda, smoke, which):
     """From the copy-in to the replay, a decode block reads nothing back
     to the host (``set_sync_debug_mode("error")``)."""
-    names = PAPER_COLOC_SET if which == "coloc" else smoke.FALLBACK_MODELS
-    engine, _ = smoke.smoke_engine(torch, names, "bfloat16", 4)
-    smoke.block_is_sync_free(torch, engine)
+    names = (PAPER_COLOC_SET if which == "coloc"
+             else smoke.common.FALLBACK_MODELS)
+    engine, _ = smoke.p04_small.smoke_engine(torch, names, "bfloat16", 4)
+    smoke.p04_small.block_is_sync_free(torch, engine)
 
 
 def test_paged_kv_write_matches_plain_and_is_sync_free(cuda, smoke):
     """Bit for bit the plain version (-1 pages, an id past the pool, rows
     cast to the pool's type, an odd width, 512 rows), no host read."""
     from repro_torch.kernels import ref
-    rows = smoke.kv_write_phase(torch, kops, ref)
+    rows = smoke.p03_kernels.kv_write_phase(torch, kops, ref)
     assert {r["shape"] for r in rows} == {"qwen3-moe decode B=4",
                                           "prefill 512 rows"}
 
@@ -1150,9 +1156,9 @@ def test_host_mode_on_the_card_equals_lowering(cuda, smoke, pipeline):
     greedy streams as the fused lowering's graph replays."""
     streams = []
     for lowering in (True, False):
-        engine, reqs = smoke.smoke_engine(torch, PAPER_COLOC_SET, "float32",
-                                          1, lowering=lowering,
-                                          pipeline=pipeline, steps=0)
+        engine, reqs = smoke.p04_small.smoke_engine(
+            torch, PAPER_COLOC_SET, "float32", 1, lowering=lowering,
+            pipeline=pipeline, steps=0)
         engine.drain()
         assert engine.virt.mapped_pages == 0
         streams.append([r.output_ids for r in reqs])
@@ -1163,7 +1169,7 @@ def test_host_mode_on_the_card_equals_lowering(cuda, smoke, pipeline):
 def test_graph_survives_evict_and_reactivate(cuda, smoke):
     """The model's graph, after its slabs were returned and mapped again
     elsewhere, serves the same tokens and still equals the eager body."""
-    first = smoke.evict_check(torch)
+    first = smoke.p04_small.evict_check(torch)
     assert len(first[0]) == 6
 
 
@@ -1171,7 +1177,7 @@ def test_replay_over_a_moved_buffer_raises_until_recaptured(cuda, smoke):
     """After a resize moved the pool, then the arena, a decode block's
     replay raises; ``recapture`` captures it over the new tensors, and
     then a replay equals the eager body."""
-    smoke.moved_graph_check(torch)
+    smoke.p04_small.moved_graph_check(torch)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1224,11 +1230,11 @@ def test_long_context_calls_hold_at_a_smaller_context(cuda, smoke,
     bf16 gate, each launched once, the all-layer prompt write equal to a
     plain scatter, and the burst at published widths."""
     from repro_torch.kernels import ref
-    monkeypatch.setattr(smoke, "LONG_CTX", 4096)
-    monkeypatch.setattr(smoke, "LONG_PAGES", 62 * 147 + 64)
-    out = smoke.long_context_phase(torch, kops, ref)
+    monkeypatch.setattr(smoke.p13_examples, "LONG_CTX", 4096)
+    monkeypatch.setattr(smoke.p13_examples, "LONG_PAGES", 62 * 147 + 64)
+    out = smoke.p13_examples.long_context_phase(torch, kops, ref)
     assert np.isfinite(out["row1_max_abs_err"])
-    assert out["row2_row_rms"] <= smoke.BF16_ROW_RMS
+    assert out["row2_row_rms"] <= smoke.common.BF16_ROW_RMS
     assert out["launches_row1"] == out["launches_row2"] == 1
     assert out["launches_write"] == 2
     assert out["burst"]["admitted_shared"] > out["burst"]["admitted_static"]

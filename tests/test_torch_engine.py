@@ -262,7 +262,8 @@ def test_serve_dry_run_flags_print_their_records(flag, capsys):
 def _port_sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "serve_ab.py",
-                    ROOT / "kernel_ab.py"]
+                    ROOT / "kernel_ab.py"] + sorted(
+                        (ROOT / "chip_smoke_phases").glob("*.py"))
 
 
 @pytest.mark.parametrize("path", _port_sources(),

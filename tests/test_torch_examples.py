@@ -186,10 +186,8 @@ def test_long_context_phase_on_the_cpu(monkeypatch):
     the page tables, both attention calls against their plain versions
     and the burst at published widths."""
     from repro_torch.kernels import ops, ref
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    monkeypatch.syspath_prepend(str(ROOT))
+    smoke = importlib.import_module("chip_smoke_phases.p13_examples")
     monkeypatch.setattr(smoke, "LONG_CTX", 100)
     monkeypatch.setattr(smoke, "LONG_PAGES", 62 * 4 + 10)
     out = smoke.long_context_phase(torch, ops, ref, device="cpu")

@@ -303,6 +303,28 @@ def test_uneven_microbatches_are_counted_padded():
         assert dryrun.padded_batch(st, 8) == 256
 
 
+def test_uneven_cell_is_counted_through_its_own_padding():
+    """The op analysis runs the live cell's ``local_batch``, which pads a
+    microbatch whose rows do not split over the batch ranks: qwen3-moe's
+    smoke cell at 10 rows in 2 microbatches over (4, 1) counts the FLOPs
+    and the collectives of the same cell at 16 rows (the real rows'
+    count is the host's: it adds no collective)."""
+    from dataclasses import replace
+    from repro_torch.sharding.strategies import PerfOpts
+    cfg = t_smoke("qwen3-moe-235b-a22b")
+    mesh = tmesh.Mesh((4, 1), ("data", "model")).stand_in(0)
+    stats = {}
+    for rows in (10, 16):
+        shape = replace(SHAPES_BY_NAME["train_4k"], seq_len=16,
+                        global_batch=rows)
+        st = make_strategy("train", mesh, cfg, shape,
+                           PerfOpts(microbatches=2))
+        assert dryrun.padded_batch(st, 2) == 16
+        stats[rows] = dryrun.analyze_cell(cfg, shape, st)
+    assert stats[10].flops == stats[16].flops
+    assert stats[10].coll_count == stats[16].coll_count
+
+
 def test_perf_runs_baseline_and_a_variant(tmp_path):
     out = tmp_path / "perf.jsonl"
     base = perf.run_variant("qwen3-14b", "decode_32k", "baseline",

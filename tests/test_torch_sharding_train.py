@@ -21,8 +21,13 @@ from numpy seeds; params from the reference's own init, bridged.
   the row order), ``moe_a2a`` (experts over data; its capacities at
   8x, drop-free, against the JAX package's drop-free grouped path, as the
   reference's a2a test does), a (1,4) mesh (qwen3-moe's 2 KV heads split
-  mid-head) and a (4,1) mesh (FSDP / DP only).  Loss, ce and aux within
-  1e-5 relative of ``jax.value_and_grad(make_loss_fn(...))``; every
+  mid-head) and a (4,1) mesh (FSDP / DP only); and batches whose
+  microbatch rows do not split over the batch ranks, which the cell pads
+  as the reference's partitioner does (capacity and grouped MoE over
+  (4,1) at B = 10, G = 2: a rank with one real row and one with none;
+  ``seq_parallel`` with ``compress_grads`` over (2,2) at B = 6, G = 2),
+  against the JAX package's step on the unpadded batch.  Loss, ce and aux
+  within 1e-5 relative of ``jax.value_and_grad(make_loss_fn(...))``; every
   leaf's gathered gradient within 1e-4 of the leaf's scale; after one
   AdamW step (clip) params and moments within 1e-4 of max(1, scale), as
   ``tests/test_torch_training.py``'s step test.  Compressed gradients
@@ -171,7 +176,9 @@ def _step_job(p):
                            shard_shape(mesh, leaf.shape, spec),
                            tuple(leaf.shape), exact))
         batch = cell.local_batch(case["batch"])
-        resident = dryrun.resident_bytes(state) + dryrun.resident_bytes(batch)
+        mask = batch.get("row_mask")
+        batch_bytes = dryrun.resident_bytes(batch)
+        resident = dryrun.resident_bytes(state) + batch_bytes
         metrics, grads = cell.grads(state.params, batch)
         state, step_metrics = cell.step(state, batch)
         out.append(dict(
@@ -183,7 +190,10 @@ def _step_job(p):
             error_fb=None if state.error_fb is None
             else _flat(state.error_fb),
             specs={k: tuple(v) for k, v in st.param_specs().items()},
-            placed=placed, resident=resident,
+            placed=placed, resident=resident, batch_bytes=batch_bytes,
+            real_rows=None if mask is None else int(mask.sum()),
+            input_bytes=dryrun._input_bytes(st, dryrun.input_specs(
+                cfg, case["shape"])),
             argument_bytes=dryrun.argument_bytes(st)))
     if p.get("ckpt"):
         out.append(_ckpt(p["ckpt"]))
@@ -260,7 +270,7 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _j_setup(arch, seq=S, **over):
+def _j_setup(arch, seq=S, batch_rows=B, **over):
     import jax
     from repro.configs import get_smoke_config
     from repro.models import build_model
@@ -270,14 +280,16 @@ def _j_setup(arch, seq=S, **over):
     params = _np_tree(model.init(jax.random.PRNGKey(5)))
     rng = np.random.default_rng(len(arch) + seq)
     txt = seq - (j_cfg.frontend_tokens if arch == LLAVA else 0)
-    batch = {"tokens": rng.integers(0, j_cfg.vocab_size, (B, txt)).astype(
-        np.int32)}
+    batch = {"tokens": rng.integers(0, j_cfg.vocab_size,
+                                    (batch_rows, txt)).astype(np.int32)}
     if arch == LLAVA:
         batch["embeddings"] = rng.standard_normal(
-            (B, j_cfg.frontend_tokens, j_cfg.d_model)).astype(np.float32)
+            (batch_rows, j_cfg.frontend_tokens, j_cfg.d_model)).astype(
+                np.float32)
     if arch == WHISPER:
         batch["encoder_frames"] = rng.standard_normal(
-            (B, j_cfg.encoder_seq, j_cfg.d_model)).astype(np.float32)
+            (batch_rows, j_cfg.encoder_seq, j_cfg.d_model)).astype(
+                np.float32)
     return j_cfg, model, params, batch, t_smoke(arch).replace(**over)
 
 
@@ -365,10 +377,23 @@ STEP_CASES = (
     ("whisper-audio", WHISPER, (2, 2), {}, "capacity", "whisper"),
     ("whisper-seq-parallel", WHISPER, (2, 2), {"seq_parallel": True},
      "capacity", "whisper"),
+    # microbatches of 5 rows padded to 8 over 4 ranks, and of 3 to 4 over 2
+    ("uneven-capacity-4x1", MOE, (4, 1), {"microbatches": 2}, "capacity",
+     "moe-capacity-B10-G2"),
+    ("uneven-grouped-4x1", MOE, (4, 1), {"microbatches": 2}, "grouped",
+     "moe-grouped-B10-G2"),
+    ("uneven-seq-parallel-compress", MOE, (2, 2),
+     {"microbatches": 2, "seq_parallel": True, "compress_grads": True},
+     "capacity", "moe-capacity-B6-G2"),
 )
 
+#: each uneven case's real rows a rank (over both microbatches)
+UNEVEN_REAL_ROWS = {"uneven-capacity-4x1": [4, 4, 2, 0],
+                    "uneven-grouped-4x1": [4, 4, 2, 0],
+                    "uneven-seq-parallel-compress": [4, 4, 2, 2]}
 
-def _reference(arch, moe_path, G, seq):
+
+def _reference(arch, moe_path, G, seq, batch_rows=B):
     """The JAX package's loss, metrics and gradients (``value_and_grad``
     of ``make_loss_fn``, averaged over G microbatches as its train step
     does), then the step's compression and AdamW update by its own
@@ -378,7 +403,7 @@ def _reference(arch, moe_path, G, seq):
     from repro.training import compression as jcomp
     from repro.training.optimizer import AdamW as JAdamW
     from repro.training.train_step import make_loss_fn
-    j_cfg, model, params, batch, t_cfg = _j_setup(arch, seq)
+    j_cfg, model, params, batch, t_cfg = _j_setup(arch, seq, batch_rows)
     extra = (lambda b: dict(_inputs(b), moe_path=moe_path))
     vg = jax.jit(jax.value_and_grad(
         make_loss_fn(model, remat=False, extra_inputs=extra), has_aux=True))
@@ -426,6 +451,9 @@ REFERENCES = {
     "mamba2": (MAMBA, "capacity", 1, S),
     "zamba2": (ZAMBA, "capacity", 1, S),
     "whisper": (WHISPER, "capacity", 1, S),
+    "moe-capacity-B10-G2": (MOE, "capacity", 2, S, 10),
+    "moe-grouped-B10-G2": (MOE, "grouped", 2, S, 10),
+    "moe-capacity-B6-G2": (MOE, "capacity", 2, S, 6),
 }
 
 
@@ -437,7 +465,8 @@ def step_runs(tmp_path_factory):
         ref = refs[key]
         cfg = ref["cfg"]
         cases.append(dict(
-            cfg=cfg, shape=_shape(B, REFERENCES[key][3]), mesh=mesh,
+            cfg=cfg, shape=_shape(len(ref["batch"]["tokens"]),
+                                  REFERENCES[key][3]), mesh=mesh,
             perf=PerfOpts(**dict({"microbatches": 1}, **perf)),
             moe_path=moe_path, params=params_to_torch(ref["params"]),
             batch={k: torch.from_numpy(v) for k, v in ref["batch"].items()}))
@@ -472,6 +501,8 @@ def test_sharded_train_step_matches_jax(step_runs, i):
     compress = bool(perf.get("compress_grads"))
     after = ref[compress]
     ranks = [g[i] for g in got[:WORLD]]
+    assert [r["real_rows"] for r in ranks] == UNEVEN_REAL_ROWS.get(
+        label, [None] * WORLD)
     for r in ranks:
         for k in ("loss", "ce", "aux"):
             np.testing.assert_allclose(r["metrics"][k], ref["metrics"][k],
@@ -502,13 +533,20 @@ def test_sharded_train_step_matches_jax(step_runs, i):
 def test_train_state_placed_by_the_rules(step_runs, i):
     """Params, m, v and the error-feedback tree: each leaf's local shard
     is exactly the rule's; a rank's resident bytes (state + its rows)
-    equal the dry-run's per-device argument bytes."""
+    equal the dry-run's per-device argument bytes.  A padded batch's
+    rows are not the dry-run's input bytes (the reference's input spec
+    leaves a batch that does not split over the ranks whole): there the
+    state alone is held to them."""
     got, _ = step_runs
     for g in got[:WORLD]:
         r = g[i]
         for path, shape, want, _, exact in r["placed"]:
             assert shape == want and exact, path
-        assert r["resident"] == r["argument_bytes"]
+        if r["real_rows"] is None:
+            assert r["resident"] == r["argument_bytes"]
+        else:
+            assert r["resident"] - r["batch_bytes"] \
+                == r["argument_bytes"] - r["input_bytes"]
         # the embedding, the head and the stacked attention or SSM leaves
         # of the params, m and v are split (they divide on these meshes)
         split = {p for p, shape, _, whole, _ in r["placed"]
