@@ -14,7 +14,10 @@ the busy time; the graph audit (``analysis/graph_audit.py``) of each
 model's fused step clean (no foreign read of 64 KiB or more, the pool
 updated in place, no host read under ``set_sync_debug_mode ("error")``,
 calls per body and per replay = K x layers), and two planted bodies (a
-host read, a pool clone) flagged CPA03 and CPA02; then (5h) the same
+host read, a pool clone) flagged CPA03 and CPA02; before the audit, one
+decode block of the first model through ``ModelRunner.decode_once`` (one
+replay, its exact launches, each row's count, the tokens and the pool
+bytes equal to the eager body's from the same state); then (5h) the same
 requests under ``lowering=False`` with the layer pipeline scheduler and
 without it, with the same checks (one token per host-driven step),
 printing the scheduler's stage count and ``overlap_fraction``;
@@ -25,7 +28,8 @@ import gc
 import time
 
 from chip_smoke_phases.common import (PORT_KERNELS, SERVE_K, SERVE_MAX_NEW,
-                                      log, read_launches, reset_launches)
+                                      log, read_launches, reset_launches,
+                                      sync)
 from chip_smoke_phases.p03_kernels import bound, check
 
 
@@ -120,6 +124,8 @@ def serve_phase(torch, np, kops, models, *, k, page_budget, label, check,
                                              engine.runners[names[0]]
                                              .decode_steps, roofline=audit)
     if audit:
+        figures["decode_once"] = decode_once_block(torch, np, kops, engine,
+                                                   names[0])
         t1 = time.perf_counter()
         figures["audit"] = graph_audit_phase(torch, engine)
         figures["audit"]["seconds"] = time.perf_counter() - t1
@@ -128,6 +134,86 @@ def serve_phase(torch, np, kops, models, *, k, page_budget, label, check,
         log(f"{label}: profile, roofline and audit took "
             f"{time.perf_counter() - t0:.1f} s")
     return launches, figures
+
+
+def decode_once_block(torch, np, kops, engine, name) -> dict:
+    """One decode block of ``name`` through ``ModelRunner.decode_once``:
+    2 requests (prompts of 300 and 400 tokens) are submitted and one
+    engine step prefills them; every active row must count its whole step
+    budget, and the tokens and the pool bytes must equal the eager body's
+    (``MultiStepFusedStep.body``) run from the state before the block,
+    the pool put back; on a card the block must be one graph replay that
+    launches the paged attention kernel and the pool write K x layers
+    times each.  The two requests are cancelled after it."""
+    from repro_torch.runtime.request import Request
+
+    device = engine.device
+    runner = engine.runners[name]
+    k = runner.decode_steps
+    reqs = [Request(300 + i, name, 300 + 100 * i, 2 * k + 1, 0.0)
+            for i in range(2)]
+    for r in reqs:
+        engine.submit(r)
+    engine.step()
+    sync(torch, device)
+    act = runner._active_slots()
+    budget = {i: min(k, runner.slots[i].max_new_tokens
+                     - runner.slots[i].generated,
+                     runner.max_ctx - int(runner.lengths[i])) for i in act}
+    tokens, lengths = runner.next_tokens.copy(), runner.lengths.copy()
+    eos = runner._eos_ids()
+    before = engine.virt.pool.clone()
+    replays = runner.fused.replays
+    reset_launches(kops)
+    toks, counts, slots = runner.decode_once()
+    sync(torch, device)
+    launches = read_launches(kops)
+    kernel = ("paged_mla_decode_attention" if runner.cfg.attention == "mla"
+              else "paged_decode_attention")
+    want = {kernel: runner.cfg.n_layers * k,
+            "paged_kv_write": runner.cfg.n_layers * k}
+    if device.type == "cuda" and (
+            any(launches[n] != v for n, v in want.items())
+            or runner.fused.replays != replays + 1):
+        raise AssertionError(f"decode_once {name}: launches "
+                             f"{ {n: launches[n] for n in want} }, replays "
+                             f"+{runner.fused.replays - replays}; expected "
+                             f"{want} and one replay")
+    if list(slots) != list(act) or toks.shape != (runner.max_batch, k) or \
+            any(int(counts[i]) != budget[i] for i in act):
+        raise AssertionError(f"decode_once {name}: slots {slots} of {act}, "
+                             f"tokens {toks.shape}, counts {counts.tolist()}"
+                             f" for budgets {budget}")
+    after = engine.virt.pool.clone()
+    steps = np.zeros(runner.max_batch, np.int32)
+    for i in act:
+        steps[i] = budget[i]
+    tables = engine.virt.batch_tables_host(name, runner._rids(),
+                                           runner.max_pages)
+    engine.virt.pool.copy_(before)
+    arena, table = runner.fused.pooled.arena.acquire(name)
+    eager = runner.fused.body(
+        engine.virt.pool, arena, table,
+        *[torch.tensor(a, device=device)
+          for a in (tokens, tables, lengths, steps, eos)]).cpu().numpy().T
+    if not np.array_equal(toks, eager):
+        raise AssertionError(f"decode_once {name}: tokens {toks.tolist()} "
+                             f"differ from the eager body's "
+                             f"{eager.tolist()}")
+    if not torch.equal(engine.virt.pool, after):
+        raise AssertionError(f"decode_once {name}: the pool differs from "
+                             f"the eager body's")
+    del before, after
+    for r in reqs:
+        engine.cancel(r.request_id)
+    if engine.virt.mapped_pages != 0:
+        raise AssertionError(f"decode_once {name}: "
+                             f"{engine.virt.mapped_pages} pages still mapped")
+    log(f"decode_once {name}: launches {want} in one replay, counts "
+        f"{[int(counts[i]) for i in act]}: tokens and pool bytes equal the "
+        f"eager body's")
+    return dict(model=name, launches=want, rows=len(act),
+                counts=[int(counts[i]) for i in act])
 
 
 def replays_and_captures(runner):

@@ -7,11 +7,14 @@ slack. An elastic engine (``ELASTIC``, 1024 pages of 16 KiB to start)
 and a frozen one with the same budgets each serve 8 minicpm3 requests at
 time 0 (prompts of 1500-3000 tokens, 32 new tokens), then 2 qwen3-moe
 and 2 moonshot requests after them (130-200 tokens: each model's pair
-prefills and decodes together on both engines). Gates: at least one KV
-grow, device bytes conserved on every move, every request's token count,
-no page left mapped, the frozen engine's greedy streams, every split
-model's decode graph captured again exactly once per move that moved its
-pool or arena (and nothing replayed over a moved buffer), exact launch
+prefills and decodes together on both engines). The elastic engine
+carries an observer, whose gauges feed its telemetry. Gates: at least
+one KV grow, the gauge-fed telemetry's EWMAs equal to a direct-sampled
+``DemandTelemetry``'s at every step, bit for bit, device bytes conserved
+on every move, every request's token count, no page left mapped, the
+frozen engine's greedy streams, every split model's decode graph
+captured again exactly once per move that moved its pool or arena (and
+nothing replayed over a moved buffer), exact launch
 counts of the paged kernels and the pool write (a capture's warm-up runs
 the body once), and after the moves a replay equals the eager body and a
 block dispatch makes no host read. Then the forced cycle on minicpm3
@@ -105,21 +108,55 @@ def elastic_requests(np, models):
     return burst, tail
 
 
+def gauges_match_direct(engine) -> dict:
+    """Wrap the elastic engine's telemetry, which folds its observer's
+    gauges, so that each ``observe`` also feeds a ``DemandTelemetry``
+    without gauges the same pools; after each, the two EWMAs and last
+    samples must be equal, bit for bit.  The returned dict counts the
+    steps compared under ``"steps"``."""
+    from repro_torch.runtime.telemetry import DemandTelemetry
+    fed = engine.telemetry
+    if fed.gauges is None or fed.gauges is not engine.observer:
+        raise AssertionError("elastic: telemetry is not fed by the engine's "
+                             "observer")
+    direct = DemandTelemetry(fed.models, fed.cfg)
+    observe, state = fed.observe, dict(steps=0)
+
+    def signals(t):
+        return (t.kv_occupancy_ewma, t.slab_occupancy_ewma,
+                t.queue_depth_ewma, t.last)
+
+    def both(now, virt, arena, admission):
+        observe(now, virt, arena, admission)
+        direct.observe(now, virt, arena, admission)
+        if signals(fed) != signals(direct):
+            raise AssertionError(f"elastic: at step {state['steps']} the "
+                                 f"gauge-fed telemetry reads {signals(fed)}"
+                                 f", direct sampling {signals(direct)}")
+        state["steps"] += 1
+    fed.observe = both
+    return state
+
+
 def serve_elastic(torch, np, kops, models, elastic, device, n_burst=8):
     """One engine (``elastic`` or frozen) serves the burst (its first
     ``n_burst`` requests), then the tail; returns its figures, the
-    requests and the engine."""
+    requests and the engine.  The elastic engine carries an
+    ``EngineObserver``, whose gauges feed its telemetry
+    (``gauges_match_direct``)."""
     from repro_torch.configs.base import ElasticConfig, EngineConfig
     from repro_torch.runtime.engine import CrossPoolEngine, EngineMode
-    from repro_torch.runtime.observe import percentile
+    from repro_torch.runtime.observe import EngineObserver, percentile
     label = "elastic" if elastic else "frozen"
     engine = CrossPoolEngine(
         models, page_budget=ELASTIC_PAGES, max_batch=4, max_ctx=ELASTIC_CTX,
-        seed=0, device=device, config=EngineConfig(
+        seed=0, device=device, observer=EngineObserver() if elastic else None,
+        config=EngineConfig(
             mode=EngineMode(decode_steps_per_dispatch=SERVE_K),
             elastic=ElasticConfig(**ELASTIC) if elastic else None))
     moves: list = []
     state = timed_resizes(torch, engine, moves) if elastic else None
+    gauged = gauges_match_direct(engine) if elastic else None
     burst, tail = elastic_requests(np, models)
     burst = burst[:n_burst]
     captures = {n: replays_and_captures(r)[1]
@@ -167,6 +204,12 @@ def serve_elastic(torch, np, kops, models, elastic, device, n_burst=8):
         f"{', '.join(sorted({r.model for r in tail}))}; pages "
         f"{ELASTIC_PAGES} -> {engine.virt.page_budget}")
     if elastic:
+        if not gauged["steps"]:
+            raise AssertionError("elastic: telemetry observed no step")
+        figures["gauge_fed_steps"] = gauged["steps"]
+        log(f"elastic: the observer's gauges fed telemetry over "
+            f"{gauged['steps']} steps, its EWMAs equal to direct sampling "
+            f"bit for bit at each")
         figures.update(elastic_moves(engine, stats, moves, captures,
                                      state["moved_steps"]))
         # what a capture pays before it starts: one full collection

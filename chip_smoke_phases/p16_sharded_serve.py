@@ -268,6 +268,7 @@ def _serve_rank_run(torch, kops, tmp, job, sizes, device):
     the rank's logit shards and greedy ids beside the figures."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import build_model
     from repro_torch.sharding.spec import tree_bytes
     from repro_torch.sharding.strategies import (SEQ_SPLIT_LEAVES, PerfOpts,
                                                  make_strategy)
@@ -281,7 +282,7 @@ def _serve_rank_run(torch, kops, tmp, job, sizes, device):
     mesh = Mesh(mesh_shape, ("data", "model"), live=True)
     st_pre = make_strategy(strategy, mesh, cfg, _cell_shape("prefill", T, B))
     st_dec = make_strategy(strategy, mesh, cfg, _cell_shape("decode", T, B))
-    meta = dryrun.cache_shapes(cfg, B, T)
+    meta = build_model(cfg).cache_specs(B, T)
     if any(st_pre.step_cache_rules().spec_for(mesh, k, v.shape)
            != st_dec.step_cache_rules().spec_for(mesh, k, v.shape)
            for k, v in meta.items()):

@@ -68,6 +68,10 @@ class WeightsPool:
         ``slot_budget``."""
         return self.arena.device_bytes()
 
+    def resize(self, slot_budget: int) -> Dict[str, int]:
+        """Elastic entry: live-resize the arena (DESIGN.md §8)."""
+        return self.arena.resize(slot_budget)
+
     def host_master_bytes(self) -> int:
         """Bytes of the host master trees kept beside the arena: the
         reference keeps the fallback families' FFN trees there

@@ -339,6 +339,10 @@ class WeightArena:
         """Device FFN bytes: fixed by ``slot_budget`` alone."""
         return self.slot_budget * self.slab_bytes
 
+    def host_master_bytes(self) -> int:
+        """Bytes of the packed host master slabs, every model's."""
+        return sum(s.nbytes for s in self.host_slabs.values())
+
     def is_resident(self, name: str) -> bool:
         return name in self.residency
 

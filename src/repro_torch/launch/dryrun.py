@@ -47,7 +47,6 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch import roofline as rf
 from repro_torch.launch.mesh import make_production_mesh, mesh_chip_count
 from repro_torch.launch.op_analysis import ModuleStats, analyze_step
-from repro_torch.models import decode as dec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.hooks import Hooks
 from repro_torch.models.model import build_model
@@ -81,11 +80,6 @@ TRAIN_MICROBATCHES = {
     "mamba2-130m": 1,
     "whisper-small": 1,
 }
-
-
-def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
-                 kv_dtype: Optional[str] = None) -> Dict:
-    return dec.init_cache(cfg, batch, max_len, "meta", kv_dtype)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
@@ -144,8 +138,8 @@ def argument_bytes(strategy: Strategy) -> int:
         if strategy.perf.compress_grads:
             total += tree_bytes(rules, mesh, _retyped(params, torch.float32))
         return total
-    cache = cache_shapes(cfg, shape.global_batch, shape.seq_len,
-                         strategy.perf.kv_dtype)
+    cache = build_model(cfg).cache_specs(shape.global_batch, shape.seq_len,
+                                         strategy.perf.kv_dtype)
     return (total + tree_bytes(rules, mesh, params)
             + tree_bytes(strategy.cache_rules(), mesh, cache))
 
@@ -310,7 +304,8 @@ def local_cache(strategy: Strategy, batch: int, max_len: int, device,
                             rules.spec_for(mesh, path, leaf.shape))
         return torch.full(shape, -1 if path.endswith("lpos") else 0,
                           dtype=leaf.dtype, device=device)
-    return local("", cache_shapes(strategy.cfg, batch, max_len, kv_dtype))
+    return local("", build_model(strategy.cfg).cache_specs(batch, max_len,
+                                                           kv_dtype))
 
 
 def local_params(strategy: Strategy, device="meta") -> Dict:

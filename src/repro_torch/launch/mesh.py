@@ -42,6 +42,10 @@ PEAK_FLOPS_F32 = 67e12            # FLOP/s, float32 on the CUDA cores
 HBM_BW = 3.35e12                  # bytes/s, HBM3
 NVLINK_BW = 450e9                 # bytes/s a direction (NVLink 4: 900 GB/s
 #                                   both directions together)
+#: device memory of an NVIDIA H100 80GB HBM3 as the card reports it
+#: (``torch.cuda.get_device_properties(0).total_memory`` under CUDA
+#: 12.8): 79.18 GiB
+HBM_BYTES = 85_017_493_504
 
 #: the collective kinds a step's bytes are counted under (the reference's
 #: HLO opcode names, ``src/repro/launch/roofline.py:30``)

@@ -32,6 +32,11 @@ class Model:
     def init(self, gen: torch.Generator) -> Dict:
         return tfm.init_params(gen, self.cfg)
 
+    def param_specs(self) -> Dict:
+        """The param tree on ``meta``: ``init``'s shapes and dtypes, no
+        storage (the reference's ``jax.eval_shape`` of ``init``)."""
+        return tfm.param_shapes(self.cfg)
+
     def forward(self, params: Dict, tokens: torch.Tensor, *,
                 embeddings: Optional[torch.Tensor] = None,
                 encoder_frames: Optional[torch.Tensor] = None,
@@ -44,6 +49,11 @@ class Model:
     def init_cache(self, batch: int, max_len: int, device,
                    kv_dtype: Optional[str] = None) -> Dict:
         return dec.init_cache(self.cfg, batch, max_len, device, kv_dtype)
+
+    def cache_specs(self, batch: int, max_len: int,
+                    kv_dtype: Optional[str] = None) -> Dict:
+        """``init_cache``'s tree on ``meta``: shapes and dtypes only."""
+        return self.init_cache(batch, max_len, "meta", kv_dtype)
 
     def prefill(self, params: Dict, tokens: torch.Tensor, cache: Dict, *,
                 embeddings: Optional[torch.Tensor] = None,

@@ -555,6 +555,12 @@ class ModelRunner:
                 self.virt.extend_request(rid, n)
         return toks, counts, act
 
+    def decode_once(self, host_step: Optional[HostDrivenStep] = None
+                    ) -> Tuple[np.ndarray, np.ndarray, List[int]]:
+        """One decode dispatch for all active slots; returns
+        (tokens [B, K], valid counts, slots)."""
+        return self.commit_decode(self.issue_decode(host_step))
+
     # ------------------------------------------------------------------
     def make_inflight_batch(self, batch_id: int
                             ) -> Tuple[InflightBatch, List[int]]:
@@ -711,11 +717,13 @@ class CrossPoolEngine:
             if self.cache is not None:
                 self.cache.hooks = sink
         # the elastic boundary (DESIGN.md §8): windowed demand telemetry
-        # and the step-boundary rebalancer, both None on a frozen split
+        # and the step-boundary rebalancer, both None on a frozen split;
+        # with an observer, telemetry folds the gauges it exports
         self.telemetry: Optional[DemandTelemetry] = None
         self.rebalancer: Optional[ElasticRebalancer] = None
         if config.elastic is not None and self.arena is not None:
-            self.telemetry = DemandTelemetry(models, config.elastic)
+            self.telemetry = DemandTelemetry(models, config.elastic,
+                                             gauges=observer)
             self.rebalancer = ElasticRebalancer(
                 self.virt, self.arena, admission=self.admission,
                 telemetry=self.telemetry, cfg=config.elastic, seed=seed)
@@ -1562,3 +1570,7 @@ class CrossPoolEngine:
         for n in fallback:          # families outside split execution
             now = self._decode_model(n, now)
         return now
+
+
+#: The session-capable engine under the name DESIGN.md §7 gives it.
+ServingSession = CrossPoolEngine

@@ -717,6 +717,16 @@ class EngineObserver(CoreHooks):
             self.tracer.counter("pool/cache", "tree_pages",
                                 held=cache["device_pages_held"])
 
+    # gauge accessors for DemandTelemetry's gauge-fed EWMAs
+    def kv_occupancy(self) -> float:
+        return self._kv_occ.value
+
+    def slab_occupancy(self) -> float:
+        return self._arena_occ.value
+
+    def queue_depth(self) -> float:
+        return self._queue_depth.value
+
     # ------------------------------------------------------------------
     # windowing
     # ------------------------------------------------------------------

@@ -43,9 +43,15 @@ class DemandTelemetry:
     """Sliding-window observer of the session's per-model demand."""
 
     def __init__(self, models: Dict[str, ModelConfig],
-                 cfg: Optional[ElasticConfig] = None):
+                 cfg: Optional[ElasticConfig] = None, *, gauges=None):
         self.models = dict(models)
         self.cfg = cfg or ElasticConfig()
+        # optional gauge source (runtime.observe.EngineObserver): when the
+        # engine runs with an observer, the EWMAs fold the SAME sampled
+        # values the metrics registry exports (``observer.sample`` runs
+        # first each step), so telemetry and /metrics can never disagree;
+        # without one, observe() computes identical values from the pools.
+        self.gauges = gauges
         a = self.cfg.ewma_alpha
         if not 0.0 < a <= 1.0:
             raise ValueError(f"ewma_alpha must be in (0, 1], got {a}")
@@ -93,10 +99,17 @@ class DemandTelemetry:
             self.completed.popleft()
 
         a = self.cfg.ewma_alpha
-        kv_occ = virt.mapped_pages / max(virt.page_budget, 1)
-        slab_occ = (arena.resident_slabs / max(arena.slot_budget, 1)
-                    if arena is not None else 0.0)
-        queued = admission.queued_count() if admission is not None else 0
+        if self.gauges is not None:
+            kv_occ = self.gauges.kv_occupancy()
+            slab_occ = (self.gauges.slab_occupancy() if arena is not None
+                        else 0.0)
+            queued = self.gauges.queue_depth()
+        else:
+            kv_occ = virt.mapped_pages / max(virt.page_budget, 1)
+            slab_occ = (arena.resident_slabs / max(arena.slot_budget, 1)
+                        if arena is not None else 0.0)
+            queued = (admission.queued_count() if admission is not None
+                      else 0)
         self.kv_occupancy_ewma += a * (kv_occ - self.kv_occupancy_ewma)
         self.slab_occupancy_ewma += a * (slab_occ - self.slab_occupancy_ewma)
         self.queue_depth_ewma += a * (queued - self.queue_depth_ewma)

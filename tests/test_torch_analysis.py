@@ -22,6 +22,7 @@ from repro_torch.analysis import graph_audit as ga
 from repro_torch.analysis import lint as tl
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as kops
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

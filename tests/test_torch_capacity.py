@@ -35,6 +35,7 @@ from repro_torch.core import virtualizer as t_virt
 from repro_torch.runtime import observe as t_obs
 from repro_torch.runtime import simulator as t_sim
 from repro_torch.runtime.observe import percentile
+from torch_threads import one_torch_thread  # noqa: F401
 
 MOE, MLA, MOON = "qwen3-moe-235b-a22b", "minicpm3-4b", "moonshot-v1-16b-a3b"
 #: Fig. 6's context bins (``benchmarks/fig6_context_scalability.py``)

@@ -11,6 +11,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 import chip_smoke_phases as phases  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_default_runs_every_phase():

@@ -36,6 +36,7 @@ from repro_torch.runtime.engine import CrossPoolEngine as TEngine
 from repro_torch.runtime.engine import EngineMode as TMode
 from repro_torch.runtime.request import Request as TRequest
 from test_torch_engine import ENGINE_KW, TRACE
+from torch_threads import one_torch_thread  # noqa: F401
 
 MOE, MLA, MOON = "qwen3-moe-235b-a22b", "minicpm3-4b", "moonshot-v1-16b-a3b"
 PROMPTS = {MOE: 7, MLA: 5, MOON: 9}

@@ -53,6 +53,7 @@ from repro_torch.runtime.engine import EngineMode as TMode
 from repro_torch.runtime.request import Request as TRequest
 from test_elastic import _check_invariants
 from test_torch_pools import _w_trees
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: (JAX config, JAX FFN tree, port FFN tree) of one smoke model, drawn once
 _trees = functools.cache(_w_trees)

@@ -26,6 +26,7 @@ from repro_torch.runtime.engine import EngineMode as TMode
 from repro_torch.runtime.observe import EngineObserver
 from repro_torch.runtime.request import Request as TRequest
 from repro_torch.runtime.session import HandleState
+from torch_threads import one_torch_thread  # noqa: F401
 
 MOE, MLA, MOON = "qwen3-moe-235b-a22b", "minicpm3-4b", "moonshot-v1-16b-a3b"
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -110,6 +111,38 @@ def test_cancel_restores_accounting(coloc):
     assert engine.virt.mapped_pages == 0
     assert not engine.arena.pins
     assert not engine.cancel(h1)
+
+
+def test_decode_once_equals_issue_then_commit_and_jax(coloc):
+    """``ModelRunner.decode_once`` on a split engine: the tokens, valid
+    counts and slots equal ``issue_decode`` followed by ``commit_decode``
+    on an identical engine, and the tokens equal the live JAX runner's
+    ``decode_once`` from the same state."""
+    jm, _, _ = coloc
+    from repro.configs.base import EngineConfig as JConfig
+    je = JEngine(jm, config=JConfig(mode=JMode(decode_steps_per_dispatch=4)),
+                 **ENGINE_KW)
+    once, two = _torch_engine(coloc, 4), _torch_engine(coloc, 4)
+    trace = [(0, MOE, 6, 9), (1, MOE, 9, 9)]
+    for engine, req in ((je, JRequest), (once, TRequest), (two, TRequest)):
+        for t in trace:
+            engine.submit(req(*t, 0.0))
+        engine.step()
+    toks, counts, slots = once.runners[MOE].decode_once()
+    runner = two.runners[MOE]
+    want = runner.commit_decode(runner.issue_decode())
+    assert slots == want[2] == [0, 1]
+    np.testing.assert_array_equal(counts, want[1])
+    np.testing.assert_array_equal(toks, want[0])
+    assert toks.shape == (2, 4) and list(counts) == [4, 4]
+    np.testing.assert_array_equal(toks, je.runners[MOE].decode_once()[0])
+    np.testing.assert_array_equal(once.runners[MOE].lengths,
+                                  runner.lengths)
+
+
+def test_serving_session_is_the_engine():
+    from repro_torch.runtime.engine import ServingSession
+    assert ServingSession is TEngine
 
 
 def test_serve_cli_runs_on_the_cpu(capsys):

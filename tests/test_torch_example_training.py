@@ -22,6 +22,7 @@ from repro_torch.examples import quickstart, train_moe
 from repro_torch.models.model import build_model as t_build
 from repro_torch.training.data import DataConfig, SyntheticLM
 from repro_torch.training.train_step import TrainState
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _close_scaled(got, want, tol=1e-5):

@@ -36,6 +36,7 @@ from repro_torch.examples import (long_context_pooling, quickstart,
                                   serve_multi_model, train_moe)
 from repro_torch.launch import replay
 from repro_torch.models.model import build_model as t_build
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

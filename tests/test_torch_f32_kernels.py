@@ -25,6 +25,7 @@ from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
 from repro_torch.kernels import build
 from repro_torch.kernels import moe_gemm as mg
 from repro_torch.kernels import paged_attention as pa
+from torch_threads import one_torch_thread  # noqa: F401
 
 SM = 132                                   # an H100's SMs
 

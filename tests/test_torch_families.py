@@ -48,6 +48,7 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models.model import build_model as t_build_model
 from repro_torch.runtime.engine import CrossPoolEngine as TEngine
 from repro_torch.runtime.request import Request as TRequest
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 GEMMA = "gemma3-12b"

@@ -26,6 +26,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.analysis.sanitizer import PoolSanitizerError as JSanError
 from repro.configs import CacheConfig as JCache
@@ -50,6 +51,7 @@ from repro_torch.launch import replay as replay_mod
 from repro_torch.runtime import flightrec
 from repro_torch.runtime.engine import CrossPoolEngine, EngineMode
 from repro_torch.runtime.request import Request
+from torch_threads import one_torch_thread  # noqa: F401
 
 MOE, MLA = "qwen3-moe-235b-a22b", "minicpm3-4b"
 ROOT = Path(__file__).resolve().parents[1]
@@ -230,6 +232,8 @@ def test_replay_fresh_process(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep \
         + env.get("PYTHONPATH", "")
+    # the replay runs on as many torch threads as the recording did
+    env["OMP_NUM_THREADS"] = str(torch.get_num_threads())
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.replay", str(path),
          "--device", "cpu"],

@@ -38,6 +38,7 @@ from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ssd_chunked import (ssd_decode_step,
                                              ssd_scan_chunked)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

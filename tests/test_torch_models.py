@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import PAPER_COLOC_SET, get_smoke_config
+from repro.configs import ARCH_NAMES, PAPER_COLOC_SET, get_smoke_config
 from repro.core.pools import build_pools as j_build_pools
 from repro.models import attention as jattn
 from repro.models import build_model
@@ -28,6 +28,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttfm
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 MOE_MODELS = ("qwen3-moe-235b-a22b", "moonshot-v1-16b-a3b")
@@ -282,3 +283,52 @@ def test_init_params_has_the_reference_layout(name):
 
     assert shapes(tp, lambda t: (tuple(t.shape), str(t.dtype)[6:])) == \
         shapes(jp, lambda a: (tuple(a.shape), str(a.dtype)))
+
+
+def _leaves(tree, prefix=()):
+    """{path: leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, prefix + (k,)))
+        else:
+            out["/".join(prefix + (k,))] = v
+    return out
+
+
+def _spec(leaf):
+    """(shape, torch dtype) of a torch leaf, or of a JAX ShapeDtypeStruct
+    through the bridge's dtype map."""
+    from repro_torch.bridge import to_torch
+    if isinstance(leaf, torch.Tensor):
+        return tuple(leaf.shape), leaf.dtype
+    return tuple(leaf.shape), to_torch(np.zeros(0, leaf.dtype)).dtype
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_param_and_cache_specs_equal_reference(arch):
+    """``Model.param_specs()`` and ``cache_specs(batch, max_len,
+    kv_dtype)`` of every arch's smoke config: every leaf's path, shape
+    and dtype equal the reference's ``jax.eval_shape`` trees, on
+    ``meta``."""
+    from repro_torch.models.model import build_model as t_build
+    jm, tm = build_model(get_smoke_config(arch)), t_build(t_smoke(arch))
+    pairs = [(jm.param_specs(), tm.param_specs())]
+    pairs += [(jm.cache_specs(2, 24, kv), tm.cache_specs(2, 24, kv))
+              for kv in (None, "float32")]
+    for want, got in pairs:
+        want, got = _leaves(want), _leaves(got)
+        assert sorted(got) == sorted(want)
+        assert {p: _spec(v) for p, v in got.items()} == \
+            {p: _spec(v) for p, v in want.items()}
+        assert all(v.is_meta for v in got.values())
+
+
+def test_param_specs_of_a_published_config_allocate_nothing():
+    """llama3-405b's full param tree as specs: every leaf on ``meta``,
+    ~405e9 parameters, no storage."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model as t_build
+    specs = _leaves(t_build(get_config("llama3-405b")).param_specs())
+    assert all(v.is_meta for v in specs.values())
+    assert 4.0e11 < sum(v.numel() for v in specs.values()) < 4.2e11

@@ -73,6 +73,7 @@ from test_torch_elastic import _trees, _virt_pair
 from test_torch_flightrec import synthetic_clock
 from test_torch_prefix_cache import _OPS as CACHE_OPS
 from test_torch_prefix_cache import _pair as _cache_pair
+from torch_threads import one_torch_thread  # noqa: F401
 
 MOE, MLA, MOON = "qwen3-moe-235b-a22b", "minicpm3-4b", "moonshot-v1-16b-a3b"
 MODELS = (MLA, MOE)
@@ -430,6 +431,59 @@ def test_detached_session_is_bit_exact(observed):
         [(r.output_ids, r.token_times) for r in observed["t_reqs"]]
     assert bare.metrics.recent_events("rebalance") == \
         observed["te"].metrics.recent_events("rebalance")
+
+
+def _signals(telemetry):
+    return (telemetry.kv_occupancy_ewma, telemetry.slab_occupancy_ewma,
+            telemetry.queue_depth_ewma, telemetry.last,
+            telemetry.steps_observed)
+
+
+def test_gauge_fed_telemetry_equals_detached_and_jax(observed):
+    """The elastic engine hands its observer to telemetry, which folds
+    the observer's gauges: the EWMAs and the last sample equal (``==``)
+    those of the same run with no observer (sampled from the pools) and
+    the live JAX engine's (gauge-fed too)."""
+    te, bare, je = observed["te"], observed["bare"], observed["je"]
+    assert te.telemetry.gauges is te.observer
+    assert bare.telemetry.gauges is None
+    assert je.telemetry.gauges is observed["jo"]
+    assert te.telemetry.steps_observed > 0
+    assert _signals(te.telemetry) == _signals(bare.telemetry)
+    assert _signals(te.telemetry) == _signals(je.telemetry)
+
+
+@pytest.mark.parametrize("with_arena", [True, False],
+                         ids=["arena", "no-arena"])
+def test_telemetry_gauge_fed_matches_direct_sampling(with_arena):
+    """The counterpart of the reference's test of the same name: over one
+    pool sequence the gauge-fed EWMAs and ``last`` equal direct sampling
+    (``==``) in each package, and the port's equal the reference's."""
+    from types import SimpleNamespace
+
+    from repro.runtime.telemetry import DemandTelemetry as JTelemetry
+    from repro_torch.runtime.telemetry import DemandTelemetry as TTelemetry
+    out = {}
+    for pkg, tel, obs, elastic, smoke in (
+            ("j", JTelemetry, j_obs, JElastic, get_smoke_config),
+            ("t", TTelemetry, t_obs, ElasticConfig, t_smoke)):
+        models = {MLA: smoke(MLA).replace(dtype="float32")}
+        direct = tel(models, elastic())
+        observer = obs.EngineObserver(clock=FakeClock())
+        fed = tel(models, elastic(), gauges=observer)
+        for step in range(6):
+            virt = SimpleNamespace(mapped_pages=(7 * step) % 11,
+                                   page_budget=10 + step,
+                                   swapped_now=step % 3)
+            arena = SimpleNamespace(resident_slabs=3 + 2 * step,
+                                    slot_budget=17) if with_arena else None
+            admission = SimpleNamespace(queued_count=lambda: 5 - step)
+            direct.observe(float(step), virt, arena, admission)
+            observer.sample(virt, arena, admission, waiting=step)
+            fed.observe(float(step), virt, arena, admission)
+            assert _signals(fed) == _signals(direct), (pkg, step)
+        out[pkg] = _signals(fed)
+    assert out["t"] == out["j"]
 
 
 def test_sanitize_env_var_attaches_the_sanitizer(params, monkeypatch):

@@ -12,6 +12,7 @@ import torch
 
 from repro.configs import PAPER_COLOC_SET, get_smoke_config
 from repro.core import admission as j_adm
+from repro.core import pools as j_pools
 from repro.core import split_exec as j_split
 from repro.core import virtualizer as j_virt
 from repro.core import weight_pool as j_wp
@@ -19,9 +20,11 @@ from repro.models import build_model
 from repro_torch.bridge import params_to_torch
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.core import admission as t_adm
+from repro_torch.core import pools as t_pools
 from repro_torch.core import split_exec as t_split
 from repro_torch.core import virtualizer as t_virt
 from repro_torch.core import weight_pool as t_wp
+from torch_threads import one_torch_thread  # noqa: F401
 
 MOE, MLA, MOON = "qwen3-moe-235b-a22b", "minicpm3-4b", "moonshot-v1-16b-a3b"
 
@@ -275,6 +278,49 @@ def test_arena_activation_sequence_matches():
                 t_arena.slot_table(n).numpy(), np.asarray(
                     j_arena.slot_table(n)))
         assert t_arena.pins == j_arena.pins
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_weights_pool_resize_and_host_bytes_equal_reference(dtype):
+    """``WeightArena.host_master_bytes`` and ``WeightsPool.resize``
+    (shrink to the pinned floor, a refused shrink below it, grows) give
+    the reference's bytes and returned dicts on the same models and
+    budgets."""
+    j_pool = j_pools.WeightsPool(None, slab_bytes=2048)
+    t_pool = t_pools.WeightsPool("cpu", slab_bytes=2048)
+    for name in PAPER_COLOC_SET:
+        jcfg, jw, tw = _w_trees(name, dtype)
+        j_pool.add_model(name, jcfg, jw)
+        t_pool.add_model(name, t_smoke(name).replace(dtype=dtype), tw)
+    j_pool.finalize()
+    t_pool.finalize()
+    assert t_pool.arena.host_master_bytes() == \
+        j_pool.arena.host_master_bytes() > 0
+    for pool in (j_pool, t_pool):
+        for name in PAPER_COLOC_SET:
+            pool.arena.activate(name)
+        pool.arena.pin(MLA)
+    floor = t_pool.arena.min_slot_budget()
+    assert floor == j_pool.arena.min_slot_budget()
+    verdicts = []
+    pinned = t_pool.arena.pinned_slabs()
+    assert pinned == j_pool.arena.pinned_slabs() > 0
+    for budget in (floor, pinned - 1, floor + 5,
+                   floor + t_pool.arena.views[MOON].total_slabs):
+        outs = []
+        for pool, err in ((j_pool, j_wp.OutOfSlabsError),
+                          (t_pool, t_wp.OutOfSlabsError)):
+            try:
+                outs.append(pool.resize(budget))
+            except err:
+                outs.append("refused")
+        assert outs[0] == outs[1], (budget, outs)
+        verdicts.append(outs[1])
+        assert t_pool.total_bytes() == j_pool.total_bytes()
+        assert t_pool.arena.host_master_bytes() == \
+            j_pool.arena.host_master_bytes()
+    assert verdicts[1] == "refused" and verdicts[0]["evicted"] > 0
+    assert t_pool.arena.resizes == j_pool.arena.resizes == 3
 
 
 def test_admission_verdicts_match():

@@ -49,6 +49,7 @@ from repro_torch.runtime.engine import CrossPoolEngine as TEngine
 from repro_torch.runtime.engine import EngineMode as TMode
 from repro_torch.runtime.request import Request as TRequest
 from test_prefix_cache import _check_invariants
+from torch_threads import one_torch_thread  # noqa: F401
 
 MOE, MLA = "qwen3-moe-235b-a22b", "minicpm3-4b"
 #: 512-byte f32 pages: 4 qwen3-moe tokens, 5 minicpm3 tokens a page, so

@@ -45,6 +45,7 @@ from repro_torch.models.model import build_model
 from repro_torch.models.transformer import param_shapes
 from repro_torch.sharding.strategies import make_strategy
 from repro_torch.training.train_step import TrainState
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD = 4
 TIMEOUT = 120

@@ -46,6 +46,7 @@ from repro_torch.models.hooks import IDENTITY_HOOKS, Hooks
 from repro_torch.models.model import build_model as t_build_model
 from repro_torch.sharding.spec import local_slices, shard_shape
 from repro_torch.sharding.strategies import PerfOpts, make_strategy
+from torch_threads import one_torch_thread  # noqa: F401
 
 MESHES = {
     "16x16": ((16, 16), ("data", "model")),
@@ -114,7 +115,7 @@ def test_rules_equal_reference(arch):
         # reference's side too: the rules read shapes, so a short one does
         B, T = j_shape.global_batch, 64
         j_cache = _paths(j_build_model(j_cfg).cache_specs(B, T))
-        t_cache = _t_paths(dryrun.cache_shapes(t_cfg, B, T))
+        t_cache = _t_paths(t_build_model(t_cfg).cache_specs(B, T))
         assert sorted(j_cache) == sorted(t_cache)
         t_shape = T_SHAPES[shape_name]
         for mesh_name, (sizes, names) in MESHES.items():

@@ -46,6 +46,7 @@ come from numpy seeds; params from the reference's own init, bridged.
 * a checkpoint written under (2,2) restores onto (4,1) with every leaf
   equal (``test_elastic_reshard_across_meshes``).
 """
+import functools
 import os
 import time
 from dataclasses import replace
@@ -73,6 +74,7 @@ from repro_torch.sharding.strategies import (KV_HEAD_LEAVES,
                                              SSM_HEAD_LEAVES, PerfOpts,
                                              make_strategy)
 from repro_torch.training import checkpoint as ckpt
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD = 4
 TIMEOUT = 120           # seconds a job's four ranks may take, start to end
@@ -275,7 +277,7 @@ def _handoff(case):
                           lengths)
         logits.append(got)
         lengths = lengths + 1
-    meta = dryrun.cache_shapes(cfg, n, MAX_LEN)
+    meta = t_build_model(cfg).cache_specs(n, MAX_LEN)
     t_loc = next(v.shape[2] for k, v in cache.items()
                  if k in SEQ_SPLIT_LEAVES)
     offset = mesh.index(st_dec.kv_seq_axes) * t_loc
@@ -594,6 +596,15 @@ HANDOFFS = (
 HANDOFF_STEPS = 3
 
 
+@functools.lru_cache(maxsize=None)
+def _j_params(j_cfg):
+    """The JAX package's params of ``j_cfg`` from ``PRNGKey(3)``, drawn
+    once for every case of that config."""
+    import jax
+    from repro.models import build_model
+    return build_model(j_cfg).init(jax.random.PRNGKey(3))
+
+
 def _reference_case(rng, arch, strat, mesh, kind, perf, over):
     """One sharded-step case on the JAX package's seeded params and its
     single-device logits."""
@@ -610,7 +621,7 @@ def _reference_case(rng, arch, strat, mesh, kind, perf, over):
         j_cfg = j_cfg.replace(ssm=replace(j_cfg.ssm, **ssm))
         t_cfg = t_cfg.replace(ssm=replace(t_cfg.ssm, **ssm))
     model = build_model(j_cfg)
-    params = model.init(jax.random.PRNGKey(3))
+    params = _j_params(j_cfg)
     tokens = rng.integers(0, j_cfg.vocab_size, (B, SEQ)).astype(np.int32)
     cache = model.init_cache(B, MAX_LEN)
     extra = {}
@@ -654,7 +665,7 @@ def _reference_handoff(rng, arch, mesh, n):
     from repro.models import build_model
     j_cfg = get_smoke_config(arch).replace(dtype="float32")
     model = build_model(j_cfg)
-    params = model.init(jax.random.PRNGKey(3))
+    params = _j_params(j_cfg)
     tokens = rng.integers(0, j_cfg.vocab_size, (n, SEQ)).astype(np.int32)
     nxt = rng.integers(0, j_cfg.vocab_size,
                        (HANDOFF_STEPS, n)).astype(np.int32)

@@ -69,6 +69,7 @@ from repro_torch.training import compression as tcomp
 from repro_torch.training.optimizer import AdamW
 from repro_torch.training.train_step import TrainState
 from repro_torch.training.tree import leaves_with_path
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4
@@ -417,6 +418,7 @@ def _reference(arch, moe_path, G, seq, batch_rows=B):
                                              for k in m}
         grads = g if grads is None else jax.tree.map(np.add, grads, g)
     opt = JAdamW(**LR)
+    update = jax.jit(opt.update)
     out = {"cfg": t_cfg, "params": params, "batch": batch,
            "metrics": metrics, "grads": _np_flat(grads)}
     for compress in (False, True):
@@ -425,7 +427,7 @@ def _reference(arch, moe_path, G, seq, batch_rows=B):
             used, fb = jcomp.compress_grads(
                 grads, jcomp.init_error_feedback(params))
             fb = _np_flat(fb)
-        new_p, new_opt = jax.jit(opt.update)(used, opt.init(params), params)
+        new_p, new_opt = update(used, opt.init(params), params)
         gn = float(np.sqrt(sum(np.sum(np.square(np.asarray(x, np.float64)))
                                for x in jax.tree.leaves(used))))
         out[compress] = dict(params=_np_flat(new_p), m=_np_flat(new_opt.m),

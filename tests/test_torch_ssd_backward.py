@@ -25,6 +25,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.kernels.ssd_chunked import (ssd_scan_chunked,
                                              ssd_scan_chunked_bwd)
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = ("dx", "ddt", "dA", "dB", "dC", "dh0")
 

@@ -29,6 +29,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models.model import build_model as t_build_model
 from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttfm
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SSM_MODELS = ("zamba2-1.2b", "mamba2-130m")

@@ -44,6 +44,7 @@ from repro_torch.training.optimizer import AdamW
 from repro_torch.training.train_step import (TrainState, init_train_state,
                                              make_loss_fn, make_train_step)
 from repro_torch.training.tree import leaves, leaves_with_path, map_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 MOE = "qwen3-moe-235b-a22b"
 
